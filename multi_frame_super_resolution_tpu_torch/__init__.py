@@ -7,10 +7,12 @@ is PyTorch and runs on the device of its inputs; every Pallas kernel on
 a ported path becomes a hand-written Hopper kernel under ``csrc/`` with
 its Python wrapper under ``kernels/``.
 
-Ported so far: the RGB handheld burst pipeline
-``models.handheld.handheld_superres`` under
+Ported so far: the RAW main path ``models.handheld.handheld_superres_raw``
+under ``config.RAW_PORT_DEFAULT`` (and its windows-branch alignment), and
+the RGB pipeline ``models.handheld.handheld_superres`` under
 ``HandheldConfig(prealign=False, merge=MergeConfig(use_pallas=True))``
-(see ``config.check_supported`` for the knobs that still raise).
+(see ``config.check_supported_raw`` and ``config.check_supported`` for the
+knobs that still raise).
 """
 
 __version__ = "0.1.0"

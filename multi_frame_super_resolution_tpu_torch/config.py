@@ -5,12 +5,15 @@ typing, and that package's ``__init__`` imports only ``config``, so the
 port reads the very same objects without importing jax. Both sides of a
 parity test therefore see identical settings.
 
-``check_supported`` names every knob whose code path the port does not
-implement yet and raises instead of silently computing something else
-(the rule of the JAX code at models/handheld.py:411-420).
+``check_supported`` (RGB path) and ``check_supported_raw`` (RAW path)
+name every knob whose code path the port does not implement yet and
+raise instead of silently computing something else (the rule of the JAX
+code at models/handheld.py:411-420).
 """
 
 from __future__ import annotations
+
+from typing import List
 
 from multi_frame_super_resolution_tpu.config import (  # noqa: F401
     AlignConfig,
@@ -20,14 +23,21 @@ from multi_frame_super_resolution_tpu.config import (  # noqa: F401
     RobustnessConfig,
 )
 
-# the configuration the port implements end to end: the RGB fast path
+# the RGB configuration the port implements end to end: the fast path
 # through the merge kernel, without global pre-alignment
 PORT_DEFAULT = HandheldConfig(prealign=False, merge=MergeConfig(use_pallas=True))
 
+# the RAW main path (bench.py's configuration) without global
+# pre-alignment: fast path, LK, order-1 merge with the plugin solver and
+# the certless centroid, gated restore, scale 2
+RAW_PORT_DEFAULT = HandheldConfig(
+    align=AlignConfig(tile_size=16, search_radius=4, levels=2),
+    gamma=False,
+    prealign=False,
+)
 
-def check_supported(cfg: HandheldConfig) -> None:
-    """Raise ``ValueError`` naming each knob of ``cfg`` that selects a path
-    the port does not implement."""
+
+def _common_unsupported(cfg: HandheldConfig) -> List[str]:
     bad = []
     if cfg.prealign:
         bad.append("prealign=True")
@@ -35,32 +45,56 @@ def check_supported(cfg: HandheldConfig) -> None:
         bad.append("fast=False")
     if cfg.use_consistency:
         bad.append("use_consistency=True")
+    if not cfg.warp_matmul:
+        # the one-hot tile_warp_select computes another function at bound 16
+        bad.append("warp_matmul=False")
+    if cfg.align.use_fft:
+        bad.append("align.use_fft=True")
+    if cfg.lk.warp_tile > 0:
+        bad.append("lk.warp_tile>0")
+    return bad
+
+
+def _raise(bad: List[str], start: str) -> None:
+    if bad:
+        raise ValueError(
+            "not implemented by the PyTorch port: " + ", ".join(bad)
+            + f"; start from {start}"
+        )
+
+
+def check_supported(cfg: HandheldConfig) -> None:
+    """Raise ``ValueError`` naming each knob of ``cfg`` that selects an RGB
+    path the port does not implement."""
+    bad = _common_unsupported(cfg)
     if cfg.rgb_half_stats:
         bad.append("rgb_half_stats=True")
-    if not cfg.warp_matmul:
-        bad.append("warp_matmul=False")
     if not cfg.merge.use_pallas:
         bad.append("merge.use_pallas=False")
     rgb_order = cfg.merge.order if cfg.merge.rgb_order is None else cfg.merge.rgb_order
     if rgb_order == 1:
         bad.append("merge.rgb_order=1")
-    if cfg.align.use_fft:
-        bad.append("align.use_fft=True")
-    if not cfg.align.fast_extract:
-        bad.append("align.fast_extract=False")
-    radii = [cfg.align.search_radius]
-    if cfg.align.fine_radius is not None:
-        radii.append(cfg.align.fine_radius)
-    if 2 * max(radii) > cfg.align.tile_size:
-        # align_frames then leaves the fused fast branch (align.py:80-84)
-        bad.append("align search radius > tile_size/2")
-    if cfg.lk.warp_tile > 0:
-        bad.append("lk.warp_tile>0")
     if not 1 <= cfg.scale <= 4:
         bad.append(f"scale={cfg.scale} (the merge kernel takes 1..4)")
-    if bad:
-        raise ValueError(
-            "not implemented by the PyTorch port: " + ", ".join(bad)
-            + "; start from HandheldConfig(prealign=False, "
-            "merge=MergeConfig(use_pallas=True))"
-        )
+    _raise(bad, "HandheldConfig(prealign=False, merge=MergeConfig(use_pallas=True))")
+
+
+def check_supported_raw(cfg: HandheldConfig) -> None:
+    """Raise ``ValueError`` naming each knob of ``cfg`` that selects a RAW
+    path the port does not implement."""
+    bad = _common_unsupported(cfg)
+    m = cfg.merge
+    if m.order == 0:
+        bad.append("merge.order=0")
+    if m.solver == "exact":
+        bad.append("merge.solver='exact'")
+    if m.centroid_cert:
+        bad.append("merge.centroid_cert=True")
+    if m.exact_weights:
+        bad.append("merge.exact_weights=True")
+    if m.guided_rb:
+        bad.append("merge.guided_rb=True")
+    if cfg.scale != 2:
+        # the RAW merge kernel holds its accumulators in registers for s=2
+        bad.append(f"scale={cfg.scale} (the RAW merge kernel takes 2)")
+    _raise(bad, "config.RAW_PORT_DEFAULT")

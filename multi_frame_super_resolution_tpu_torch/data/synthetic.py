@@ -1,8 +1,9 @@
 """Synthetic bursts in numpy alone.
 
 The counterpart of ``multi_frame_super_resolution_tpu.data.datasets``'s
-``synthetic_burst`` and ``_rotate_translate_crop`` (datasets.py:54-135),
-which produce the same arrays from the same generator state. That module
+``synthetic_burst``, ``_rotate_translate_crop`` and ``mosaic_rggb``
+(datasets.py:54-150), which produce the same arrays from the same
+generator state. That module
 is not imported: its package pulls in Pillow (data/io.py), which the
 port does not need. Everything here is numpy, made from a seeded
 ``np.random.Generator``, so the JAX reference and the port receive
@@ -115,3 +116,31 @@ def synthetic_rgb_burst(
         axis=-1,
     )
     return synthetic_burst(rng, num_frames, height, width, max_shift, base=base)
+
+
+def mosaic_rggb(
+    rgb: np.ndarray, cfa: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 1), (1, 2))
+) -> np.ndarray:
+    """RGB image (H, W, 3) -> Bayer mosaic (H, W) under the 2x2 CFA
+    pattern (0=R, 1=G, 2=B)."""
+    h, w = rgb.shape[:2]
+    out = np.empty((h, w), rgb.dtype)
+    for dy in range(2):
+        for dx in range(2):
+            out[dy::2, dx::2] = rgb[dy::2, dx::2, cfa[dy][dx]]
+    return out
+
+
+def synthetic_raw_burst(
+    rng: np.random.Generator,
+    num_frames: int = 5,
+    height: int = 256,
+    width: int = 512,
+    max_shift: float = 3.0,
+    cfa: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 1), (1, 2)),
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Bayer RAW burst (F, H, W) in [0, 1]: every frame of
+    ``synthetic_rgb_burst`` mosaicked under ``cfa``. The defaults are the
+    city burst's geometry, the input bench.py times."""
+    rgb, shifts = synthetic_rgb_burst(rng, num_frames, height, width, max_shift)
+    return np.stack([mosaic_rggb(frame, cfa) for frame in rgb]), shifts

@@ -16,6 +16,12 @@ import numpy as np
 import torch
 
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.kernels.build import (
+    bind,
+    check_tensor,
+    launch,
+    load_library,
+)
 from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
     _active_taps,
     merge_burst_fast,
@@ -29,27 +35,11 @@ _MAX_TAP_RADIUS = 8  # kMaxTaps in csrc/merge.cu
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
-    from multi_frame_super_resolution_tpu_torch.kernels.build import load_library
-
-    lib = load_library(SOURCE)
-    lib.mfsr_merge_fast.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.mfsr_merge_fast.restype = ctypes.c_int
-    lib.mfsr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mfsr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(name: str, x: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    return bind(
+        load_library(SOURCE), "mfsr_merge_fast",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float],
+    )
 
 
 def merge_fast(
@@ -70,10 +60,10 @@ def merge_fast(
         raise ValueError(f"warped must be (F, H, W, 3), got {tuple(warped.shape)}")
     f, h, w = warped.shape[:3]
     dev = warped.device
-    _check("warped", warped, (f, h, w, 3), dev)
-    _check("residual", residual, (f, h, w, 2), dev)
-    _check("certainty", certainty, (f, h, w, 3), dev)
-    _check("omega_inv", omega_inv, (h, w, 3), dev)
+    check_tensor("warped", warped, (f, h, w, 3), dev)
+    check_tensor("residual", residual, (f, h, w, 2), dev)
+    check_tensor("certainty", certainty, (f, h, w, 3), dev)
+    check_tensor("omega_inv", omega_inv, (h, w, 3), dev)
     if not 1 <= scale <= 4:
         raise ValueError(f"the merge kernel takes scale 1..4, got {scale}")
     r_taps = radius + int(np.ceil(residual_bound))
@@ -85,25 +75,16 @@ def merge_fast(
             warped, residual, certainty, omega_inv, scale, radius,
             residual_bound, k_max,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"merge_fast runs on cpu or cuda tensors, got {dev}")
 
     taps = np.asarray(_active_taps(r_taps, residual_bound, scale, k_max), np.int32)
     taps_c = np.ascontiguousarray(taps.reshape(-1))
     num = torch.empty((h * scale, w * scale, 3), dtype=torch.float32, device=dev)
     den = torch.empty_like(num)
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mfsr_merge_fast(
-            warped.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
-            omega_inv.data_ptr(), num.data_ptr(), den.data_ptr(),
-            f, h, w, scale, taps_c.ctypes.data, len(taps), float(residual_bound),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"merge kernel launch failed: {lib.mfsr_cuda_error_string(err).decode()}"
-        )
+    launch(
+        library(), "mfsr_merge_fast", dev,
+        warped.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
+        omega_inv.data_ptr(), num.data_ptr(), den.data_ptr(),
+        f, h, w, scale, taps_c.ctypes.data, len(taps), float(residual_bound),
+    )
     LAUNCHES[NAME] += 1
     return num, den

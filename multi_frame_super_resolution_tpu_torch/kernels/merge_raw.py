@@ -1,0 +1,128 @@
+"""Wrapper of the Hopper RAW merge kernel (csrc/merge_raw.cu): the
+plane-domain order-1 merge of the RAW path, certless plugin branch, at
+scale 2. The JAX package computes it outside Pallas
+(models/fast_merge.py::merge_burst_raw_planes); it has the skeleton of
+pallas_ops/merge.py::merge_fast_pallas.
+
+On CUDA tensors it launches the kernel or raises; it never falls back.
+On CPU tensors it computes the plain PyTorch version,
+models/fast_merge.py::merge_burst_raw_planes, with the same taps.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.kernels.build import (
+    bind,
+    check_tensor,
+    launch,
+    load_library,
+)
+from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
+    _active_taps,
+    _centroid_chain,
+    merge_burst_raw_planes,
+)
+
+NAME = "merge_raw"
+SOURCE = "merge_raw.cu"
+_MAX_TAPS = 81  # kMaxTaps in csrc/merge_raw.cu
+_SCALE = 2  # kS in csrc/merge_raw.cu
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's library."""
+    return bind(
+        load_library(SOURCE), "mfsr_merge_raw",
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def tap_table(taps: tuple, cfa: tuple) -> np.ndarray:
+    """Per tap, the row (ky, kx) followed, for each output parity
+    z = 2a + b, by (source plane 2*qa + qb, da, db, cell channel, chain
+    mask): the tap reads plane (qa, qb) at half-res offset (da, db) into
+    the cell of channel ``ch``, and bit c of the mask is set when the tap
+    feeds the certless centroid chain of the parity's channel c."""
+    pat = np.asarray(cfa)
+    rows = []
+    for ky, kx in taps:
+        fed = {("g", (ky + kx) % 2), ("rb", ky % 2, kx % 2)}
+        row = [ky, kx]
+        for a in (0, 1):
+            qa, da = (a + ky) % 2, (a + ky) // 2
+            for b in (0, 1):
+                qb, db = (b + kx) % 2, (b + kx) // 2
+                mask = sum(1 << c for c in range(3) if _centroid_chain(pat, a, b, c) in fed)
+                row += [2 * qa + qb, da, db, int(pat[qa][qb]), mask]
+        rows.append(row)
+    table = np.ascontiguousarray(np.asarray(rows, np.int32).reshape(-1))
+    table.flags.writeable = False  # cached and shared by every call
+    return table
+
+
+def merge_raw(
+    planes: torch.Tensor,
+    residual: torch.Tensor,
+    certainty: torch.Tensor,
+    omega_inv: torch.Tensor,
+    omega_inv_rb: torch.Tensor,
+    cfa,
+    scale: int,
+    radius: int = 2,
+    residual_bound: float = 1.0,
+    k_max: float = 1.0,
+    prune_exp: float = 6.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """RAW order-1 certless merge: planes (F, 2, 2, hh, hw), residual
+    (F, hh, hw, 2) in RAW units, certainty (F, hh, hw, 3), omega_inv and
+    omega_inv_rb (hh, hw, 3), all float32 and contiguous on one device ->
+    (m00, cy, cx, b0), each (2s, 2s, 3, hh, hw) (see
+    fast_merge.merge_burst_raw_planes). The kernel takes scale 2."""
+    if planes.ndim != 5:
+        raise ValueError(f"planes must be (F, 2, 2, hh, hw), got {tuple(planes.shape)}")
+    f, hh, hw = planes.shape[0], planes.shape[3], planes.shape[4]
+    dev = planes.device
+    check_tensor("planes", planes, (f, 2, 2, hh, hw), dev)
+    check_tensor("residual", residual, (f, hh, hw, 2), dev)
+    check_tensor("certainty", certainty, (f, hh, hw, 3), dev)
+    check_tensor("omega_inv", omega_inv, (hh, hw, 3), dev)
+    check_tensor("omega_inv_rb", omega_inv_rb, (hh, hw, 3), dev)
+    if dev.type == "cpu":
+        return merge_burst_raw_planes(
+            planes, residual, certainty, omega_inv, omega_inv_rb, cfa, scale,
+            radius, residual_bound, k_max, prune_exp,
+        )
+    r_taps = radius + int(np.ceil(residual_bound))
+    taps = _active_taps(r_taps, residual_bound, scale, k_max, prune_exp)
+    if scale != _SCALE:
+        raise ValueError(f"the RAW merge kernel takes scale {_SCALE}, got {scale}")
+    if len(taps) > _MAX_TAPS:
+        raise ValueError(f"{len(taps)} taps exceed the kernel's {_MAX_TAPS}")
+
+    # built once per (taps, pattern): rebuilt per call it held a call to
+    # 0.66 ms against the kernel's 0.18 ms (NVIDIA H100 80GB HBM3, 700.00 W)
+    table = tap_table(tuple(taps), tuple(tuple(int(c) for c in row) for row in cfa))
+    outs = [
+        torch.empty((2 * scale, 2 * scale, 3, hh, hw), dtype=torch.float32, device=dev)
+        for _ in range(4)
+    ]
+    launch(
+        library(), "mfsr_merge_raw", dev,
+        planes.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
+        omega_inv.data_ptr(), omega_inv_rb.data_ptr(),
+        *(o.data_ptr() for o in outs),
+        f, hh, hw, float(residual_bound), table.ctypes.data, len(taps),
+    )
+    LAUNCHES[NAME] += 1
+    return tuple(outs)

@@ -1,21 +1,25 @@
-"""Static-tap kernel-regression merge (counterpart of models/fast_merge.py),
-order 0: the plain PyTorch version of the merge kernel
-(kernels/merge.py, csrc/merge.cu).
+"""Static-tap kernel-regression merges (counterpart of models/fast_merge.py):
+the plain PyTorch versions of the merge kernels.
+
+- ``merge_burst_fast``: the RGB order-0 merge (kernels/merge.py,
+  csrc/merge.cu);
+- ``merge_burst_raw_planes``: the RAW plane-domain order-1 merge, its
+  certless plugin branch (kernels/merge_raw.py, csrc/merge_raw.cu).
 
 Frames arrive warped into reference geometry by their per-tile integer
 shifts; what remains per output pixel is a static tap window around its
 nearest input sample, with the bounded subpixel residual folded into the
-Gaussian weights. All s^2 output phases are accumulated at input
-resolution and interleaved once at the end.
+Gaussian weights. All output phases are accumulated at input resolution.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from multi_frame_super_resolution_tpu_torch.ops.filters import _const
 from multi_frame_super_resolution_tpu_torch.ops.warp_fast import _pad_last2, _shifted
 
 
@@ -26,23 +30,21 @@ def _output_phase_offsets(s: int) -> np.ndarray:
     return (o + 0.5) / s - 0.5
 
 
-# taps whose best-case weight is below e^-6 are dropped: the threshold
-# merge_fast_pallas uses (its _active_taps call takes the default)
-_PRUNE_EXP = 6.0
-
-
-def _active_taps(r_taps: int, residual_bound: float, scale: int, k_max: float):
+def _active_taps(
+    r_taps: int, residual_bound: float, scale: int, k_max: float, prune_exp: float = 6.0
+):
     """Static tap pruning: keep taps whose best-case Gaussian weight
-    exceeds e^-_PRUNE_EXP, with |d|_min per axis = max(0, |k| - rb -
+    exceeds e^-prune_exp, with |d|_min per axis = max(0, |k| - rb -
     max|phi|) * s in output-grid units and the largest clamped kernel
-    variance k_max."""
+    variance k_max. The default 6.0 is merge_fast_pallas's threshold; the
+    RAW merge passes MergeConfig.prune_exp."""
     phi_max = float(np.max(np.abs(_output_phase_offsets(scale))))
     taps = []
     for ky in range(-r_taps, r_taps + 1):
         for kx in range(-r_taps, r_taps + 1):
             dy = max(0.0, abs(ky) - residual_bound - phi_max) * scale
             dx = max(0.0, abs(kx) - residual_bound - phi_max) * scale
-            if (dy * dy + dx * dx) / (2.0 * max(k_max, 1e-6)) <= _PRUNE_EXP:
+            if (dy * dy + dx * dx) / (2.0 * max(k_max, 1e-6)) <= prune_exp:
                 taps.append((ky, kx))
     return taps
 
@@ -113,3 +115,189 @@ def merge_burst_fast(
         return total.permute(3, 0, 4, 1, 2).reshape(h * s, w * s, 3)
 
     return interleave(acc_n), interleave(acc_d)
+
+
+def _shift_last2(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Edge-clamped static shift of the last two axes:
+    out[..., y, x] = img[..., clamp(y + dy), clamp(x + dx)]."""
+    h, w = img.shape[-2], img.shape[-1]
+    pad = max(abs(dy), abs(dx), 1)
+    return _shifted(_pad_last2(img, pad, pad), pad, dy, dx, h, w)
+
+
+def raw_to_planes(raw: torch.Tensor) -> torch.Tensor:
+    """Bayer mosaic(s) (..., H, W) -> CFA planes (..., 2, 2, H//2, W//2),
+    planes[..., a, b] = raw[..., a::2, b::2], as a strided view (the JAX
+    function's 0/1 selector matmul exists for the TPU's layouts)."""
+    hh, hw = raw.shape[-2] // 2, raw.shape[-1] // 2
+    lead = raw.shape[:-2]
+    k = len(lead)
+    x = raw[..., : 2 * hh, : 2 * hw].reshape(lead + (hh, 2, hw, 2))
+    return x.permute(*range(k), k + 1, k + 3, k, k + 2)
+
+
+def planes_to_raw(planes: torch.Tensor) -> torch.Tensor:
+    """Inverse of raw_to_planes: (..., 2, 2, hh, hw) -> (..., 2*hh, 2*hw)."""
+    hh, hw = planes.shape[-2], planes.shape[-1]
+    lead = planes.shape[:-4]
+    k = len(lead)
+    x = planes.permute(*range(k), k + 2, k, k + 3, k + 1)  # (..., hh, 2, hw, 2)
+    return x.reshape(lead + (2 * hh, 2 * hw))
+
+
+def grad_phases(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Central-difference gradient of a channel-leading phase stack
+    (n, n, C, hh, hw) in OUTPUT pixel units: phase (r, c) holds output
+    pixel (n*i + r, n*j + c), so the output-row neighbour of phase r is
+    phase r-1, wrapping to phase n-1 one plane row up (edge-clamped)."""
+    n = x.shape[0]
+    gy = torch.stack(
+        [
+            0.5 * (
+                (x[r + 1] if r < n - 1 else _shift_last2(x[0], 1, 0))
+                - (x[r - 1] if r > 0 else _shift_last2(x[n - 1], -1, 0))
+            )
+            for r in range(n)
+        ],
+        dim=0,
+    )
+    gx = torch.stack(
+        [
+            0.5 * (
+                (x[:, c + 1] if c < n - 1 else _shift_last2(x[:, 0], 0, 1))
+                - (x[:, c - 1] if c > 0 else _shift_last2(x[:, n - 1], 0, -1))
+            )
+            for c in range(n)
+        ],
+        dim=1,
+    )
+    return gy, gx
+
+
+def _centroid_chain(cfa, a: int, b: int, ch: int) -> Optional[tuple]:
+    """The certless centroid chain that cell (a, b, ch) reads, or None.
+
+    Chains are keyed by TAP parity: green taps of a cell class share
+    (ky + kx) % 2, single-position channels share (ky % 2, kx % 2); a
+    tap feeds ("g", (ky + kx) % 2) with the green weights and
+    ("rb", ky % 2, kx % 2) with the R/B weights (fast_merge.py:632-675,
+    :876-889)."""
+    pat = np.asarray(cfa)
+    if ch == 1:
+        g_pos = [(qa, qb) for qa in (0, 1) for qb in (0, 1) if int(pat[qa][qb]) == 1]
+        if not g_pos:
+            return None
+        pa, pb = g_pos[0]
+        return ("g", (pa + pb - a - b) % 2)
+    pos = {int(pat[qa][qb]): (qa, qb) for qa in (0, 1) for qb in (0, 1)}
+    if ch not in pos:
+        return None
+    pa, pb = pos[ch]
+    return ("rb", (pa - a) % 2, (pb - b) % 2)
+
+
+def merge_burst_raw_planes(
+    planes: torch.Tensor,
+    residual: torch.Tensor,
+    certainty: torch.Tensor,
+    omega_inv: torch.Tensor,
+    omega_inv_rb: torch.Tensor,
+    cfa,
+    scale: int,
+    radius: int = 2,
+    residual_bound: float = 1.0,
+    k_max: float = 1.0,
+    prune_exp: float = 6.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """CFA-aware order-1 merge on half-resolution planes, the certless
+    plugin branch of the JAX function (order=1, moment_slots=4,
+    centroid_cert=False, phase_output=True; fast_merge.py:301-511,
+    :561, :638-675, :707-713, :857-911).
+
+    planes (F, 2, 2, hh, hw) warped by integer plane shifts; residual
+    (F, hh, hw, 2) in RAW pixel units (clipped to +-residual_bound here);
+    certainty (F, hh, hw, 3); omega_inv / omega_inv_rb (hh, hw, 3) for
+    green and R/B. Returns (m00, cy, cx, b0), each (2s, 2s, 3, hh, hw)
+    with phase index (a*s + py, b*s + px): the weight sum, the finalized
+    centroid clip(m01 / sum w, +-2) and clip(m02 / sum w, +-2) of the
+    shared certless chains, and the weighted value sum.
+
+    A tap (ky, kx) lands on plane ((a+ky)%2, (b+kx)%2) at half-res offset
+    ((a+ky)//2, (b+kx)//2) for output parity (a, b). Per tap, the frame
+    axis is summed first and the sum then added to the accumulator, the
+    JAX order."""
+    f, _, _, hh, hw = planes.shape
+    s = scale
+    nph = s * s
+    r_taps = radius + int(np.ceil(residual_bound))
+    taps = _active_taps(r_taps, residual_bound, s, k_max, prune_exp)
+    phi = _output_phase_offsets(s)
+    phi_y = np.repeat(phi, s)  # per phase ph = py*s + px
+    phi_x = np.tile(phi, s)
+    dev = planes.device
+    phiy_b = _const(tuple((phi_y * s).tolist()), dev).reshape(nph, 1, 1, 1)
+    phix_b = _const(tuple((phi_x * s).tolist()), dev).reshape(nph, 1, 1, 1)
+    phiy_r = _const(tuple(phi_y.tolist()), dev).reshape(nph, 1, 1)
+    phix_r = _const(tuple(phi_x.tolist()), dev).reshape(nph, 1, 1)
+    pat = np.asarray(cfa)
+
+    res_y = residual[..., 0].clamp(-residual_bound, residual_bound)  # (F, hh, hw)
+    res_x = residual[..., 1].clamp(-residual_bound, residual_bound)
+    om_g = torch.movedim(omega_inv, -1, 0)  # (3, hh, hw)
+    om_rb = torch.movedim(omega_inv_rb, -1, 0)
+    # plane and certainty reads are views of one edge-padded copy each
+    pad = max(1, (r_taps + 1) // 2)
+    planes_p = _pad_last2(planes, pad, pad)
+    cert_p = _pad_last2(torch.movedim(certainty, -1, 1), pad, pad)  # (F, 3, ., .)
+
+    def quadp(dx, dy, om):
+        return torch.exp(-0.5 * (dx * dx * om[0] + dy * dy * om[1] + 2.0 * dx * dy * om[2]))
+
+    def add(store, key, i, term):
+        cell = store.setdefault(key, [None, None, None])
+        cell[i] = term if cell[i] is None else cell[i] + term
+
+    cells = {}  # (a, b, ch) -> [sum w*c, unused, sum w*c*v] over (nph, hh, hw)
+    chains = {}  # chain id -> [sum w, folded m01, folded m02]
+    for ky, kx in taps:
+        dy_w = ((ky - res_y) * s)[None] - phiy_b  # (nph, F, hh, hw)
+        dx_w = ((kx - res_x) * s)[None] - phix_b
+        w_g = quadp(dx_w, dy_w, om_g)
+        w_rb = quadp(dx_w, dy_w, om_rb)
+        for cid, wf in ((("g", (ky + kx) % 2), w_g), (("rb", ky % 2, kx % 2), w_rb)):
+            red_w = wf.sum(1)
+            red_ry = (res_y * wf).sum(1)
+            red_rx = (res_x * wf).sum(1)
+            add(chains, cid, 0, red_w)
+            add(chains, cid, 1, float(s) * ((float(ky) - phiy_r) * red_w - red_ry))
+            add(chains, cid, 2, float(s) * ((float(kx) - phix_r) * red_w - red_rx))
+        for a in (0, 1):
+            qa, da = (a + ky) % 2, (a + ky) // 2
+            for b in (0, 1):
+                qb, db = (b + kx) % 2, (b + kx) // 2
+                ch = int(pat[qa][qb])
+                val = _shifted(planes_p[:, qa, qb], pad, da, db, hh, hw)
+                cert_s = _shifted(cert_p[:, ch], pad, da, db, hh, hw)
+                wc = (w_g if ch == 1 else w_rb) * cert_s[None]
+                add(cells, (a, b, ch), 0, wc.sum(1))
+                add(cells, (a, b, ch), 2, (wc * val[None]).sum(1))
+
+    cent = {}
+    for cid, (wsum, m1, m2) in chains.items():
+        inv = torch.where(wsum > 1e-8, 1.0 / wsum.clamp_min(1e-8), 0.0)
+        cent[cid] = ((m1 * inv).clamp(-2.0, 2.0), (m2 * inv).clamp(-2.0, 2.0))
+
+    outs = [planes.new_zeros((2 * s, 2 * s, 3, hh, hw)) for _ in range(4)]
+    for a in (0, 1):
+        for b in (0, 1):
+            rows, cols = slice(a * s, a * s + s), slice(b * s, b * s + s)
+            for ch in range(3):
+                cell = cells.get((a, b, ch))
+                if cell is not None:
+                    outs[0][rows, cols, ch] = cell[0].reshape(s, s, hh, hw)
+                    outs[3][rows, cols, ch] = cell[2].reshape(s, s, hh, hw)
+                chain = cent.get(_centroid_chain(cfa, a, b, ch))
+                if chain is not None:
+                    outs[1][rows, cols, ch] = chain[0].reshape(s, s, hh, hw)
+                    outs[2][rows, cols, ch] = chain[1].reshape(s, s, hh, hw)
+    return tuple(outs)

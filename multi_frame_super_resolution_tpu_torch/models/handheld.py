@@ -1,13 +1,20 @@
-"""End-to-end handheld multi-frame super-resolution, RGB burst in (counterpart
-of models/handheld.py::handheld_superres -> _handheld_fast on the merge
-kernel's branch, handheld.py:235-426).
+"""End-to-end handheld multi-frame super-resolution (counterpart of
+models/handheld.py), both entry points on their fast paths:
 
-Pipeline: half-res tile-pyramid alignment -> per-tile integer warp of
-the alternates -> smooth subpixel residual + Lucas-Kanade refinement ->
-robustness on the warped frames -> structure-tensor kernel parameters
--> static-tap merge (the Hopper kernel on CUDA) -> weight-threshold
-normalization against a bicubic fallback. Everything runs on the device
-of the input burst.
+- ``handheld_superres``: RGB burst in, ``_handheld_fast`` on the merge
+  kernel's branch (handheld.py:235-426). Half-res tile-pyramid alignment
+  -> per-tile integer warp of the alternates -> smooth subpixel residual
+  + Lucas-Kanade refinement -> robustness on the warped frames ->
+  structure-tensor kernel parameters -> static-tap merge -> weight-
+  threshold normalization against a bicubic fallback.
+- ``handheld_superres_raw``: Bayer RAW burst in, ``_handheld_raw_fast``
+  (handheld.py:534-555, :656-915), the main path. Everything runs in the
+  CFA-plane domain: half-res alignment -> integer plane warps -> residual
+  + LK at half res -> robustness -> order-1 plane merge -> plugin solve
+  -> noise-gated restore -> one phase interleave.
+
+Everything runs on the device of the input burst; on CUDA the tile warp,
+the search windows and the merges go through the Hopper kernels.
 """
 
 from __future__ import annotations
@@ -19,24 +26,40 @@ from torch.profiler import record_function
 
 from multi_frame_super_resolution_tpu_torch.config import (
     PORT_DEFAULT,
+    RAW_PORT_DEFAULT,
     HandheldConfig,
     MergeConfig,
     check_supported,
+    check_supported_raw,
 )
 from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
+from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp
+from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
+    grad_phases,
+    raw_to_planes,
+)
 from multi_frame_super_resolution_tpu_torch.models.merge import (
     apply_weighting,
+    apply_weighting_order1,
     kernel_params,
     smoothed_structure_tensor,
+    solve_plugin,
 )
 from multi_frame_super_resolution_tpu_torch.models.robustness import robustness_mask
 from multi_frame_super_resolution_tpu_torch.ops.color import rgb_to_gray, srgb_gamma
 from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2
+from multi_frame_super_resolution_tpu_torch.ops.restore import (
+    restore_gain,
+    restore_phases,
+    temporal_noise_stat,
+)
 from multi_frame_super_resolution_tpu_torch.ops.warp_fast import (
     _repeat_tiles,
+    interleave_phases_planes,
     tile_shift_decompose,
-    tile_warp_matmul,
     upsample_int,
+    upsample_int_phases_planes,
 )
 from multi_frame_super_resolution_tpu_torch.registration.align import (
     align_burst,
@@ -94,10 +117,10 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
         int_shifts, res_tiles = tile_shift_decompose(tile_shifts)
 
     # integer tile warp of the alternates' channel planes into reference
-    # geometry (the function of tile_warp_matmul)
+    # geometry (the function of tile_warp_matmul; the kernel on CUDA)
     with record_function("mfsr.tile_warp"):
-        planes = burst[1:].permute(0, 3, 1, 2)  # (f-1, 3, h, w)
-        warped_alts = tile_warp_matmul(planes, int_shifts[1:], warp_t).permute(0, 2, 3, 1)
+        planes = burst[1:].permute(0, 3, 1, 2).contiguous()  # (f-1, 3, h, w)
+        warped_alts = tile_warp(planes, int_shifts[1:], warp_t).permute(0, 2, 3, 1)
         warped = torch.cat([burst[:1], warped_alts], dim=0).contiguous()
 
     def lift(res):  # (..., nty, ntx, 2) -> (..., h, w, 2)
@@ -145,3 +168,134 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
         if cfg.gamma:
             out = srgb_gamma(out)
         return out.clamp(0.0, 1.0)
+
+
+def _gated_restore(out, cfg: HandheldConfig, stat, restore_fn):
+    """The restoration FIR scaled by the noise-adaptive gain when
+    cfg.restore_noise_gate (fused into restore_fn's accumulation), else
+    at full strength."""
+    if not cfg.restore_noise_gate:
+        return restore_fn(out)
+    g = restore_gain(stat, cfg.restore_gate_lo, cfg.restore_gate_hi)
+    return restore_fn(out, gain=g)
+
+
+def _o1_solve(moments, cfg: HandheldConfig, grad_fn):
+    """The order-1 solve: the plugin solver on the RAW merge's moments.
+    The merge returns one layout, (m00, cy, cx, b0) with the certless
+    centroid already finalized in slots 1/2 (the JAX package's
+    ``_certless`` case; check_supported_raw rejects the knobs that would
+    select another layout or the exact 3x3 solve)."""
+    return solve_plugin(moments, grad_fn, cfg.merge.plugin_iters, precomputed_centroid=True)
+
+
+def _subsample_from_planes(planes: torch.Tensor, cfa) -> torch.Tensor:
+    """(F, 2, 2, hh, hw) CFA planes -> half-res RGB (F, hh, hw, 3) with
+    same-channel sites averaged (deBayersSubSample3 semantics)."""
+    pat = [[int(c) for c in row] for row in cfa]
+    out = []
+    for c in range(3):
+        sites = [(a, b) for a in (0, 1) for b in (0, 1) if pat[a][b] == c]
+        n = max(len(sites), 1)
+        acc = None
+        for a, b in sites:
+            p = planes[:, a, b] / n
+            acc = p if acc is None else acc + p
+        out.append(acc if acc is not None else torch.zeros_like(planes[:, 0, 0]))
+    return torch.stack(out, dim=-1)
+
+
+def handheld_superres_raw(
+    raw_burst: torch.Tensor, cfg: HandheldConfig = RAW_PORT_DEFAULT
+) -> torch.Tensor:
+    """Bayer RAW burst (F, H, W) float32 in [0, 1], frame 0 the reference,
+    H and W even -> merged RGB (scale*H, scale*W, 3) in [0, 1]. Raises
+    ValueError for config knobs the port does not implement
+    (config.check_supported_raw)."""
+    check_supported_raw(cfg)
+    if raw_burst.ndim != 3 or raw_burst.shape[0] < 2:
+        raise ValueError(f"raw_burst must be (F>=2, H, W), got {tuple(raw_burst.shape)}")
+    if raw_burst.shape[1] % 2 or raw_burst.shape[2] % 2:
+        raise ValueError(f"RAW dims must be even (Bayer quads), got {tuple(raw_burst.shape)}")
+    if raw_burst.dtype != torch.float32:
+        raise TypeError(f"raw_burst must be float32, got {raw_burst.dtype}")
+    return _handheld_raw_fast(raw_burst.contiguous(), cfg)
+
+
+def _handheld_raw_fast(raw_burst: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
+    f, h, w = raw_burst.shape
+    t = cfg.align.tile_size
+    hh, hw = h // 2, w // 2
+    cfa = cfg.cfa_pattern
+
+    with record_function("mfsr.align"):
+        planes = raw_to_planes(raw_burst)  # (F, 2, 2, hh, hw) view
+        half = _subsample_from_planes(planes, cfa)
+        gray_half = rgb_to_gray(half)
+        tile_shifts = align_burst(gray_half, cfg.align)  # half-res units
+        int_half, res_tiles = tile_shift_decompose(tile_shifts)
+
+    # integer plane warp == even RAW-unit warp (the CFA phase is kept);
+    # the reference frame needs no warp, LK or robustness
+    with record_function("mfsr.tile_warp"):
+        stack = planes[1:].reshape(f - 1, 4, hh, hw).contiguous()
+        warped_alts = tile_warp(stack, int_half[1:], t, bound=16)
+        warped = torch.cat([planes[:1], warped_alts.reshape(f - 1, 2, 2, hh, hw)], dim=0)
+
+    # residual at half res = smooth dense flow minus the block-constant
+    # integer warp, then LK on the warped half-res luma
+    with record_function("mfsr.lk"):
+        if cfg.smooth_residual:
+            smooth_half = flow_from_tile_shifts(tile_shifts[1:], t, hh, hw)
+            res_alts = smooth_half - _repeat_tiles(int_half[1:].float(), t, hh, hw)
+        else:
+            res_alts = _repeat_tiles(res_tiles[1:], t, hh, hw)
+        warped_half = _subsample_from_planes(warped, cfa)
+        gray_wh = rgb_to_gray(warped_half)
+        if cfg.use_lk:
+            lk_cfg = dataclasses.replace(cfg.lk, bounded_warp=2)
+            res_alts = lk_refine(gray_wh[0], gray_wh[1:], res_alts, lk_cfg)
+        # half-res residual within +-residual_bound/2, so RAW units stay
+        # within +-residual_bound
+        res_alts = res_alts.clamp(-0.5 * cfg.residual_bound, 0.5 * cfg.residual_bound)
+        res_half = torch.cat([torch.zeros_like(res_alts[:1]), res_alts], dim=0)
+
+    with record_function("mfsr.robustness"):
+        cert_alts = robustness_mask(
+            warped_half[0], warped_half[1:], res_alts, cfg.robustness, bounded=2
+        )[..., :3]
+        cert_half = torch.cat([torch.ones_like(cert_alts[:1]), cert_alts], dim=0)
+
+    with record_function("mfsr.kernel_params"):
+        st = smoothed_structure_tensor(gray_half[0], cfg.st_window)
+        mc = _scaled_merge_cfg(cfg)
+        omega_half = kernel_params(st, mc)
+        # wider kernels for the 2x-sparser R/B channels
+        mc_rb = dataclasses.replace(mc, k_min=max(mc.k_min, mc.k_min_rb))
+        omega_half_rb = kernel_params(st, mc_rb)
+
+    with record_function("mfsr.merge"):
+        moments = merge_raw(
+            warped, (res_half * 2.0).contiguous(), cert_half.contiguous(),
+            omega_half.contiguous(), omega_half_rb.contiguous(), cfa, cfg.scale,
+            cfg.merge.radius, cfg.residual_bound, k_max=mc.k_max,
+            prune_exp=cfg.merge.prune_exp,
+        )
+
+    # all finalize math in the channel-leading phase domain
+    # ((2s, 2s, 3, hh, hw)), one interleave at the end; the fallback is the
+    # half-res RGB upsampled 2s-x
+    with record_function("mfsr.solve"):
+        fallback_p = upsample_int_phases_planes(half[0], 2 * cfg.scale, "bilinear")
+        est_p, m00_p = _o1_solve(moments, cfg, grad_phases)
+        out_p = apply_weighting_order1(est_p, m00_p, fallback_p, cfg.merge.weight_threshold)
+
+    if cfg.final_restore and cfg.scale == 2:
+        with record_function("mfsr.restore"):
+            stat = temporal_noise_stat(gray_wh, residual=res_half[1:])
+            out_p = _gated_restore(out_p, cfg, stat, restore_phases)
+
+    with record_function("mfsr.finalize"):
+        if cfg.gamma:
+            out_p = srgb_gamma(out_p)
+        return interleave_phases_planes(out_p).clamp(0.0, 1.0)

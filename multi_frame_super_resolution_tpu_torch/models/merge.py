@@ -1,8 +1,11 @@
 """Kernel-regression merge helpers (counterparts of models/merge.py):
-structure tensor -> merge-kernel inverse covariance (ComputeKernelParam)
-and the weight-threshold normalization (ApplyWeighting)."""
+structure tensor -> merge-kernel inverse covariance (ComputeKernelParam),
+the weight-threshold normalizations (ApplyWeighting, order 0 and 1) and
+the plugin-gradient order-1 solve."""
 
 from __future__ import annotations
+
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -75,3 +78,52 @@ def smoothed_structure_tensor(gray: torch.Tensor, window: int = 3) -> torch.Tens
     if window > 1:
         st = box_filter(st, window, normalize=True)
     return st
+
+
+def grad_image(img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Central-difference gradient along the two LEADING spatial axes of
+    (sH, sW, C), edge-clamped, output-pixel units."""
+    up = torch.cat([img[:1], img[:-1]], dim=0)
+    down = torch.cat([img[1:], img[-1:]], dim=0)
+    left = torch.cat([img[:, :1], img[:, :-1]], dim=1)
+    right = torch.cat([img[:, 1:], img[:, -1:]], dim=1)
+    return 0.5 * (down - up), 0.5 * (right - left)
+
+
+def solve_plugin(
+    moments: Sequence[torch.Tensor],
+    grad_fn: Callable,
+    iters: int = 2,
+    precomputed_centroid: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First-order centroid-bias correction with a plugin gradient:
+    est = pilot - grad(est) . c, iterated ``iters`` times from the pilot
+    b0 / m00. ``moments`` is the 9-stack (slots 0, 1, 2, 6 used) or the
+    4-stack (m00, m01, m02, b0); with ``precomputed_centroid`` slots 1/2
+    already hold the clipped centroid (cy, cx), as the certless RAW merge
+    returns them. ``grad_fn(img) -> (gy, gx)`` works in the estimate's
+    own layout (grad_image, fast_merge.grad_phases). Returns (est, m00)."""
+    m00, m01, m02 = moments[0], moments[1], moments[2]
+    b0 = moments[6] if len(moments) == 9 else moments[3]
+    inv = torch.where(m00 > 1e-8, 1.0 / m00.clamp_min(1e-8), 0.0)
+    pilot = b0 * inv
+    if precomputed_centroid:
+        cy, cx = m01, m02
+    else:
+        cy = (m01 * inv).clamp(-2.0, 2.0)
+        cx = (m02 * inv).clamp(-2.0, 2.0)
+    est = pilot
+    for _ in range(max(iters, 0)):
+        gy, gx = grad_fn(est)
+        est = pilot - (gy * cy + gx * cx)
+    return est, m00
+
+
+def apply_weighting_order1(
+    est: torch.Tensor, m00: torch.Tensor, fallback: torch.Tensor, threshold: float
+) -> torch.Tensor:
+    """ApplyWeighting for the (already normalized) order-1 estimate:
+    below-threshold coverage blends toward the fallback,
+    out = (est * m00 + fallback) / (m00 + 1)."""
+    low = m00 < threshold
+    return torch.where(low, (est * m00 + fallback) / (m00 + 1.0), est)

@@ -93,6 +93,23 @@ def upsample_int(img: torch.Tensor, s: int, method: str = "bilinear") -> torch.T
     return axis_upsample(out, img.ndim - 2)
 
 
+def upsample_int_phases_planes(img: torch.Tensor, s: int, method: str = "bilinear") -> torch.Tensor:
+    """Channel-leading phase-domain upsample (H, W, C) -> (s, s, C, H, W):
+    out[py, px, c, i, j] = upsample_int(img, s)[s*i + py, s*j + px, c],
+    the same floats as the JAX per-phase tap sums."""
+    h, w, c = img.shape
+    up = upsample_int(img, s, method)
+    return up.reshape(h, s, w, s, c).permute(1, 3, 4, 0, 2)
+
+
+def interleave_phases_planes(p: torch.Tensor) -> torch.Tensor:
+    """Channel-leading phase planes (s, s, C, H, W) -> (s*H, s*W, C): one
+    permute and one copy. It stands in for interleave_phases_planes_mxu,
+    whose 0/1 scatter matmuls exist for the TPU's layouts."""
+    s, _, c, h, w = p.shape
+    return p.permute(3, 0, 4, 1, 2).reshape(s * h, s * w, c)
+
+
 def warp_bounded(img: torch.Tensor, flow: torch.Tensor, r: int = 2) -> torch.Tensor:
     """Bilinear backward warp out(x) = img(x + flow(x)) of planes
     (..., H, W) for flows clamped to [-r, r]. ``flow`` is (..., H, W, 2)
@@ -206,4 +223,27 @@ def tile_warp_matmul(
     sy = torch.gather(ints[..., 0][:, ty.squeeze(1)], 2, xsrc // t)  # (B, H, W)
     ysrc = (ys + sy).clamp(0, h - 1)
     flat = (ysrc * w + xsrc).reshape(b, 1, h * w).expand(b, n, h * w)
+    return torch.gather(imgs.reshape(b, n, h * w), 2, flat).reshape(b, n, h, w)
+
+
+def tile_warp_block(imgs: torch.Tensor, int_shifts: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """The function of pallas_ops/tile_warp.py::tile_warp_pallas: a block
+    copy per tile with the block origin clamped into the image.
+
+    imgs (B, N, H, W) with H and W multiples of the tile size, N planes
+    sharing the shift field of their batch entry; int_shifts
+    (B, nty, ntx, 2), not clipped. out[ty*T + i, tx*T + j] =
+    img[y0 + i, x0 + j] with y0 = clip(ty*T + sy, 0, H - T) and
+    x0 = clip(tx*T + sx, 0, W - T)."""
+    b, n, h, w = imgs.shape
+    t = tile_size
+    if h % t or w % t:
+        raise ValueError(f"the block tile warp needs H and W multiples of {t}, got {h}x{w}")
+    dev = imgs.device
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
+    ints = int_shifts.long()
+    y0 = (ys // t * t + ints[:, ys // t, xs // t, 0]).clamp(0, h - t)  # (B, H, W)
+    x0 = (xs // t * t + ints[:, ys // t, xs // t, 1]).clamp(0, w - t)
+    flat = ((y0 + ys % t) * w + x0 + xs % t).reshape(b, 1, h * w).expand(b, n, h * w)
     return torch.gather(imgs.reshape(b, n, h * w), 2, flat).reshape(b, n, h, w)

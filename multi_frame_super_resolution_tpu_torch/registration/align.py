@@ -1,7 +1,9 @@
 """Coarse-to-fine tile-pyramid burst alignment (counterpart of
-registration/align.py), the fused fast branch of ``align_frames``:
-tile-warp each alternate by the rounded prediction, build every tile's
-SSD surface, take the subpixel argmin."""
+registration/align.py), both non-FFT branches of ``align_frames``: the
+fused fast branch (tile-warp each alternate by the rounded prediction,
+build every tile's SSD surface over the warped image) and the windows
+branch (per-tile search windows at the rounded prediction, through the
+window kernel on CUDA), each followed by the subpixel argmin."""
 
 from __future__ import annotations
 
@@ -10,13 +12,16 @@ from typing import List
 import torch
 
 from multi_frame_super_resolution_tpu_torch.config import AlignConfig
+from multi_frame_super_resolution_tpu_torch.kernels.tile_gather import tile_gather
 from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, resize
 from multi_frame_super_resolution_tpu_torch.ops.warp_fast import (
     tile_warp_select,
     upsample_int,
 )
 from multi_frame_super_resolution_tpu_torch.registration.tiles import (
+    extract_ref_tiles,
     find_min_shift,
+    ssd_surface,
     ssd_surface_image,
     tile_counts,
     upsample_shift_field,
@@ -36,8 +41,8 @@ def align_frames(
 ) -> torch.Tensor:
     """Per-tile shift fields (F, nty, ntx, 2) at the finest level such that
     alt_f(tile_pos + shift_f) ~= ref(tile_pos). ref (H, W); alts (F, H, W)."""
-    if cfg.use_fft or not cfg.fast_extract:
-        raise ValueError("the port implements only the fast_extract, non-FFT branch")
+    if cfg.use_fft:
+        raise ValueError("the port does not implement the FFT SSD branch (align.use_fft)")
     f = alts.shape[0]
     ref_pyr = build_pyramid(ref, cfg.levels)
     alt_pyr = build_pyramid(alts, cfg.levels)
@@ -49,8 +54,6 @@ def align_frames(
             if (level == 0 and cfg.fine_radius is not None)
             else cfg.search_radius
         )
-        if 2 * radius > cfg.tile_size:
-            raise ValueError("the fast branch needs search radius <= tile_size/2")
         r = ref_pyr[level]
         a = alt_pyr[level]
         nty, ntx = tile_counts(r.shape[0], r.shape[1], cfg.tile_size)
@@ -61,8 +64,12 @@ def align_frames(
         # windows are offset by the ROUNDED prediction, so the search
         # finds the residual relative to it
         rounded = torch.round(total)
-        warped = tile_warp_select(a, rounded.to(torch.int32), cfg.tile_size)
-        ssd = ssd_surface_image(r, warped, cfg.tile_size, radius)
+        if cfg.fast_extract and 2 * radius <= cfg.tile_size:
+            warped = tile_warp_select(a, rounded.to(torch.int32), cfg.tile_size)
+            ssd = ssd_surface_image(r, warped, cfg.tile_size, radius)
+        else:
+            windows = tile_gather(a.contiguous(), rounded.to(torch.int32), cfg.tile_size, radius)
+            ssd = ssd_surface(extract_ref_tiles(r, cfg.tile_size), windows, radius)
         found = find_min_shift(ssd, radius, cfg.peak_threshold, cfg.subpixel)
         total = rounded + found
     return total

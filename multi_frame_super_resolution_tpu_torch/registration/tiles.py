@@ -23,6 +23,68 @@ def _tile_sums(x: torch.Tensor, t: int) -> torch.Tensor:
     return x.reshape(x.shape[:-2] + (h // t, t, w // t, t)).sum(dim=(-3, -1))
 
 
+def extract_ref_tiles(img: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """(H, W) -> (nty, ntx, T, T); partial border tiles are edge-padded."""
+    h, w = img.shape
+    t = tile_size
+    nty, ntx = tile_counts(h, w, t)
+    img = _pad_edge(_pad_edge(img, 0, 0, nty * t - h), 1, 0, ntx * t - w)
+    return img.reshape(nty, t, ntx, t).permute(0, 2, 1, 3)
+
+
+def extract_search_windows(
+    imgs: torch.Tensor, tile_size: int, radius: int, int_shifts: torch.Tensor
+) -> torch.Tensor:
+    """Per-tile (T+2R)^2 search windows at the integer pre-shift, clamped
+    per pixel (convertToTilesOverlapPreShift): the plain version of the
+    window kernel (kernels/tile_gather.py).
+
+    imgs (N, H, W); int_shifts (N, nty, ntx, 2) over the ceil-divided
+    tile grid. Returns (N, nty, ntx, T+2R, T+2R) with
+    out[n, ty, tx, u, v] = img[n, clip(ty*T + sy + u - R, 0, H-1),
+    clip(tx*T + sx + v - R, 0, W-1)]."""
+    n, h, w = imgs.shape
+    t = tile_size
+    nty, ntx = tile_counts(h, w, t)
+    t2 = t + 2 * radius
+    dev = imgs.device
+    ints = int_shifts.long()
+    offs = torch.arange(t2, device=dev) - radius
+    oy = (torch.arange(nty, device=dev) * t)[:, None] + ints[..., 0]  # (N, nty, ntx)
+    ox = (torch.arange(ntx, device=dev) * t)[None, :] + ints[..., 1]
+    yy = (oy[..., None, None] + offs[:, None]).clamp_(0, h - 1)  # (N, nty, ntx, T2, 1)
+    xx = (ox[..., None, None] + offs[None, :]).clamp_(0, w - 1)  # (N, nty, ntx, 1, T2)
+    flat = (yy * w + xx).reshape(n, -1)
+    return torch.gather(imgs.reshape(n, h * w), 1, flat).reshape(n, nty, ntx, t2, t2)
+
+
+def _window_energies(windows: torch.Tensor, t: int) -> torch.Tensor:
+    """Sliding T x T energy sums of (..., T+2R, T+2R) windows through f32
+    integral images, in the JAX function's order. Returns
+    (..., 2R+1, 2R+1)."""
+    sq = windows * windows
+    ii = torch.nn.functional.pad(sq, (1, 0, 1, 0)).cumsum(-2).cumsum(-1)
+    return ii[..., t:, t:] - ii[..., :-t, t:] - ii[..., t:, :-t] + ii[..., :-t, :-t]
+
+
+def ssd_surface(ref_tiles: torch.Tensor, windows: torch.Tensor, radius: int) -> torch.Tensor:
+    """SSD over all (2R+1)^2 integer shifts of every tile.
+
+    ref_tiles (nty, ntx, T, T); windows (..., nty, ntx, T+2R, T+2R).
+    Returns (..., nty, ntx, 2R+1, 2R+1), entry (u, v) the SSD of the tile
+    against the window patch at offset (u - R, v - R), in the expanded
+    form tsq + wsq - 2 cc of the JAX function."""
+    nty, ntx, t, _ = ref_tiles.shape
+    s = 2 * radius + 1
+    tsq = (ref_tiles * ref_tiles).sum(dim=(-2, -1))
+    wsq = _window_energies(windows, t)
+    patches = windows.unfold(-2, t, 1).unfold(-2, t, 1)  # (..., nty, ntx, S, S, T, T)
+    lead = windows.shape[:-4]
+    patches = patches.reshape(lead + (nty, ntx, s * s, t * t))
+    cc = (patches @ ref_tiles.reshape(nty, ntx, t * t, 1)).reshape(lead + (nty, ntx, s, s))
+    return tsq[..., None, None] + wsq - 2.0 * cc
+
+
 def ssd_surface_image(
     ref_img: torch.Tensor,
     warped_img: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Tests of the port that need the card: the Hopper merge kernel against
-its plain PyTorch version, and the slice on the card against the port on
-the CPU. They skip without a CUDA device.
+"""Tests of the port that need the card: each Hopper kernel (RGB merge,
+tile warp, tile windows, RAW merge) against its plain PyTorch version,
+and the RGB and RAW slices on the card against the port on the CPU. They
+skip without a CUDA device.
 
 This file imports no JAX, so the GPU host (which has none) runs it
 without the suite's conftest:
@@ -8,17 +9,31 @@ without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 from torch_parity import cuda_device, nn, psnr, tt
 
-from multi_frame_super_resolution_tpu_torch.config import PORT_DEFAULT
-from multi_frame_super_resolution_tpu_torch.data import synthetic_rgb_burst
+from multi_frame_super_resolution_tpu_torch.config import (
+    PORT_DEFAULT,
+    RAW_PORT_DEFAULT,
+    AlignConfig,
+)
+from multi_frame_super_resolution_tpu_torch.data import synthetic_raw_burst, synthetic_rgb_burst
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
+from multi_frame_super_resolution_tpu_torch.kernels.tile_gather import tile_gather
+from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp, tile_warp_block
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
-from multi_frame_super_resolution_tpu_torch.models.handheld import handheld_superres
+from multi_frame_super_resolution_tpu_torch.models.handheld import (
+    handheld_superres,
+    handheld_superres_raw,
+)
+from multi_frame_super_resolution_tpu_torch.ops import warp_fast
+from multi_frame_super_resolution_tpu_torch.registration import tiles
 
 
 def _merge_inputs(rng, f, h, w):
@@ -67,4 +82,92 @@ def test_slice_on_card_matches_cpu():
     LAUNCHES.clear()
     got = nn(handheld_superres(tt(burst, dev), PORT_DEFAULT))
     assert LAUNCHES["merge_fast"] == 1
+    assert psnr(got, want) >= 60.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,w,t,amp", [(4, 4, 128, 256, 16, 20), (2, 3, 50, 70, 16, 20), (3, 1, 40, 72, 8, 9)])
+def test_tile_warp_kernel_matches_plain(b, n, h, w, t, amp):
+    """Both index maps; every output is one input value, so exact."""
+    dev = cuda_device()
+    rng = np.random.default_rng(h)
+    imgs = tt(rng.random((b, n, h, w)).astype(np.float32), dev)
+    shifts = tt(rng.integers(-amp, amp + 1, (b, -(-h // t), -(-w // t), 2)).astype(np.int32), dev)
+    LAUNCHES.clear()
+    got = tile_warp(imgs, shifts, t, 16)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tile_warp"] == 1
+    torch.testing.assert_close(got, warp_fast.tile_warp_matmul(imgs, shifts, t, 16), rtol=0, atol=0)
+    if h % t == 0 and w % t == 0:
+        got = tile_warp_block(imgs, shifts, t)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, warp_fast.tile_warp_block(imgs, shifts, t), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,t,pad", [(4, 128, 256, 16, 4), (2, 50, 70, 16, 9)])
+def test_tile_gather_kernel_matches_plain(n, h, w, t, pad):
+    dev = cuda_device()
+    rng = np.random.default_rng(w)
+    imgs = tt(rng.random((n, h, w)).astype(np.float32), dev)
+    shifts = tt(rng.integers(-6, 7, (n, -(-h // t), -(-w // t), 2)).astype(np.int32), dev)
+    LAUNCHES.clear()
+    got = tile_gather(imgs, shifts, t, pad)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tile_gather"] == 1
+    torch.testing.assert_close(got, tiles.extract_search_windows(imgs, t, pad, shifts), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "cfa,radius,prune", [(((0, 1), (1, 2)), 1, 1.5), (((2, 1), (1, 0)), 2, 6.0)]
+)
+def test_raw_merge_kernel_matches_plain(cfa, radius, prune):
+    """expf and FMA contraction against torch ops: rtol and atol 1e-5."""
+    dev = cuda_device()
+    rng = np.random.default_rng(radius)
+    f, hh, hw = 5, 37, 61
+    planes = rng.random((f, 2, 2, hh, hw)).astype(np.float32)
+    residual = ((rng.random((f, hh, hw, 2)) - 0.5) * 4.0).astype(np.float32)
+    cert = rng.random((f, hh, hw, 3)).astype(np.float32)
+    omega = (0.5 + rng.random((hh, hw, 3))).astype(np.float32)
+    omega[..., 2] *= 0.1
+    ins = [tt(x, dev) for x in (planes, residual, cert, omega, omega * 0.5)]
+    LAUNCHES.clear()
+    got = merge_raw(*ins, cfa, 2, radius, 1.0, 1.0, prune)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_raw"] == 1
+    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, radius, 1.0, 1.0, prune)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_raw_merge_wrapper_raises_on_card_for_scale_3():
+    dev = cuda_device()
+    planes = torch.zeros((2, 2, 2, 8, 8), device=dev)
+    with pytest.raises(ValueError):
+        merge_raw(
+            planes, torch.zeros((2, 8, 8, 2), device=dev), torch.zeros((2, 8, 8, 3), device=dev),
+            torch.zeros((8, 8, 3), device=dev), torch.zeros((8, 8, 3), device=dev),
+            ((0, 1), (1, 2)), 3,
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast_extract", [True, False])
+def test_raw_slice_on_card_matches_cpu(fast_extract):
+    """The RAW slice on the card (tile-warp and RAW merge kernels, and the
+    window kernel on the windows branch) against the port on the CPU."""
+    dev = cuda_device()
+    cfg = dataclasses.replace(
+        RAW_PORT_DEFAULT,
+        align=AlignConfig(tile_size=16, search_radius=4, levels=2, fast_extract=fast_extract),
+    )
+    raw, _ = synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5)
+    want = nn(handheld_superres_raw(tt(raw), cfg))
+    LAUNCHES.clear()
+    got = nn(handheld_superres_raw(tt(raw, dev), cfg))
+    assert LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1
+    assert LAUNCHES["tile_gather"] == (0 if fast_extract else 2)  # one per pyramid level
     assert psnr(got, want) >= 60.0

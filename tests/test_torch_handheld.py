@@ -61,7 +61,7 @@ def test_slice_matches_jax_pipeline():
         (HandheldConfig(prealign=False), "use_pallas"),
         (dataclasses.replace(SLICE, merge=MergeConfig(use_pallas=True, rgb_order=1)), "rgb_order"),
         (dataclasses.replace(SLICE, align=AlignConfig(use_fft=True)), "use_fft"),
-        (dataclasses.replace(SLICE, align=AlignConfig(fast_extract=False)), "fast_extract"),
+        (dataclasses.replace(SLICE, scale=5), "scale"),
         (dataclasses.replace(SLICE, lk=LKConfig(warp_tile=16)), "warp_tile"),
     ],
 )
@@ -70,13 +70,28 @@ def test_unsupported_knobs_raise(cfg, knob):
         handheld_superres(torch.zeros((2, 32, 32, 3)), cfg)
 
 
+def test_slice_windows_branch_matches_jax_pipeline():
+    """The RGB slice with the per-tile search windows of the alignment
+    (align.fast_extract=False), now supported by the port."""
+    cfg = dataclasses.replace(SLICE, align=AlignConfig(fast_extract=False))
+    burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)
+    with interpret_pallas():
+        want = nn(jax.jit(jax_handheld_superres, static_argnums=1)(jnp.asarray(burst), cfg))
+    got = nn(handheld_superres(tt(burst), cfg))
+    assert psnr(got, want) >= 60.0
+
+
 def test_port_never_imports_jax():
+    modules = [
+        "models.handheld", "models.fast_merge", "models.merge",
+        "registration.align", "registration.tiles", "ops.restore", "ops.warp_fast",
+        "kernels.build", "kernels.merge", "kernels.merge_raw", "kernels.tile_warp",
+        "kernels.tile_gather", "config", "data",
+    ]
     code = (
-        "import sys\n"
-        "import multi_frame_super_resolution_tpu_torch.models.handheld\n"
-        "import multi_frame_super_resolution_tpu_torch.kernels.merge\n"
-        "import multi_frame_super_resolution_tpu_torch.kernels.build\n"
-        "import multi_frame_super_resolution_tpu_torch.data\n"
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module('multi_frame_super_resolution_tpu_torch.' + m)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -1,0 +1,126 @@
+"""The RAW main path end to end: handheld_superres_raw on a mosaicked
+burst under config.RAW_PORT_DEFAULT and its windows-branch variant
+(align.fast_extract=False), against the jitted JAX pipeline; and the
+knobs check_supported_raw rejects."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import nn, psnr, tt
+
+from multi_frame_super_resolution_tpu.config import (
+    AlignConfig,
+    HandheldConfig,
+    LKConfig,
+    MergeConfig,
+)
+from multi_frame_super_resolution_tpu.models.handheld import (
+    handheld_superres_raw as jax_handheld_superres_raw,
+)
+from multi_frame_super_resolution_tpu.ops import restore as jrestore
+from multi_frame_super_resolution_tpu_torch.config import RAW_PORT_DEFAULT, check_supported_raw
+from multi_frame_super_resolution_tpu_torch.data import synthetic_raw_burst
+from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.models import handheld
+from multi_frame_super_resolution_tpu_torch.models.handheld import handheld_superres_raw
+from multi_frame_super_resolution_tpu_torch.ops import restore
+
+RAW_SLICE = HandheldConfig(
+    align=AlignConfig(tile_size=16, search_radius=4, levels=2), gamma=False, prealign=False
+)
+WINDOWS = dataclasses.replace(
+    RAW_SLICE, align=AlignConfig(tile_size=16, search_radius=4, levels=2, fast_extract=False)
+)
+
+
+@pytest.fixture(scope="module")
+def raw_burst():
+    """F = 4 at 128 x 256 RAW (64 x 128 half-res), motion up to 2.5 px."""
+    return synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5)[0]
+
+
+def test_raw_port_default_is_the_slice():
+    assert RAW_PORT_DEFAULT == RAW_SLICE
+    check_supported_raw(RAW_SLICE)
+    check_supported_raw(WINDOWS)
+
+
+@pytest.mark.parametrize("cfg", [RAW_SLICE, WINDOWS], ids=["fast_extract", "windows"])
+def test_raw_slice_matches_jax_pipeline(raw_burst, cfg):
+    """Measured 81 dB (fast branch) and 96 dB (windows branch): every
+    stage matches to f32 rounding except the Lucas-Kanade bf16 window sums,
+    which can land one bf16 step apart and move a few pixels by ~1e-2 where
+    a flow crosses a rounding boundary of the robustness model. 60 dB
+    leaves room for that."""
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw_burst), cfg))
+    LAUNCHES.clear()
+    got = nn(handheld_superres_raw(tt(raw_burst), cfg))
+    assert got.shape == (256, 512, 3) and np.isfinite(got).all()
+    assert got.min() >= 0.0 and got.max() <= 1.0
+    assert not LAUNCHES  # CPU tensors take the plain versions
+    assert psnr(got, want) >= 60.0
+
+
+def test_raw_slice_noise_gate(raw_burst, monkeypatch):
+    """The restore gate's statistic and gain on the slice's burst, apart:
+    the statistic the pipeline computes matches the JAX function on the
+    same registered luma and residual, and sits far below the gate's lower
+    threshold (0.014), so the gain is 1 (measured 0.0022)."""
+    seen = []
+
+    def recording_stat(gray, residual):
+        seen.append((gray, residual))
+        return restore.temporal_noise_stat(gray, residual)
+
+    monkeypatch.setattr(handheld, "temporal_noise_stat", recording_stat)
+    handheld_superres_raw(tt(raw_burst), RAW_SLICE)
+    (gray, res), = seen
+    stat = restore.temporal_noise_stat(gray, res)
+    want = jrestore.temporal_noise_stat(jnp.asarray(nn(gray)), residual=jnp.asarray(nn(res)))
+    np.testing.assert_allclose(float(stat), float(want), rtol=1e-5)
+    assert float(stat) < 0.5 * RAW_SLICE.restore_gate_lo
+    gain = restore.restore_gain(stat, RAW_SLICE.restore_gate_lo, RAW_SLICE.restore_gate_hi)
+    assert float(gain) == 1.0
+
+
+def test_raw_slice_without_restore_and_lk(raw_burst):
+    """The branches the default skips: no restore, no LK, block-repeated
+    residual, sRGB gamma."""
+    cfg = dataclasses.replace(
+        RAW_SLICE, final_restore=False, use_lk=False, smooth_residual=False, gamma=True
+    )
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw_burst), cfg))
+    got = nn(handheld_superres_raw(tt(raw_burst), cfg))
+    assert psnr(got, want) >= 60.0
+
+
+@pytest.mark.parametrize(
+    "cfg,knob",
+    [
+        (HandheldConfig(), "prealign"),
+        (dataclasses.replace(RAW_SLICE, fast=False), "fast"),
+        (dataclasses.replace(RAW_SLICE, use_consistency=True), "use_consistency"),
+        (dataclasses.replace(RAW_SLICE, warp_matmul=False), "warp_matmul"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(order=0)), "order"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(solver="exact")), "solver"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(centroid_cert=True)), "centroid_cert"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(exact_weights=True)), "exact_weights"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(guided_rb=True)), "guided_rb"),
+        (dataclasses.replace(RAW_SLICE, align=AlignConfig(use_fft=True)), "use_fft"),
+        (dataclasses.replace(RAW_SLICE, lk=LKConfig(warp_tile=16)), "warp_tile"),
+        (dataclasses.replace(RAW_SLICE, scale=4), "scale"),
+    ],
+)
+def test_unsupported_raw_knobs_raise(cfg, knob):
+    with pytest.raises(ValueError, match=knob):
+        handheld_superres_raw(torch.zeros((2, 32, 32)), cfg)
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 32), (2, 31, 32), (2, 32)])
+def test_raw_burst_shape_is_checked(shape):
+    with pytest.raises(ValueError):
+        handheld_superres_raw(torch.zeros(shape), RAW_SLICE)
