@@ -6,7 +6,7 @@
 Phases, each of which raises on failure (non-zero exit, no result line):
 
 1. The card: name and power limit (nvidia-smi).
-2. Build: compiles the four kernels of csrc/ with nvcc for sm_90a, one
+2. Build: compiles the five kernels of csrc/ with nvcc for sm_90a, one
    nvcc process each, all at once (timed as set-up).
 3. Kernel checks, each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, inputs from a seed:
@@ -18,26 +18,43 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    - tile windows (csrc/tile_gather.cu): 4 x 128 x 256, T=16, pad 4;
      bit-exact;
    - RAW merge (csrc/merge_raw.cu): F=5, 128 x 256 half-res, the RAW
-     slice's 21 taps; rtol and atol 1e-5.
-4. Slices on the card, each driven with the launch counts set to 0 just
-   before and read just after: handheld_superres on a synthetic
-   5 x 256 x 512 x 3 RGB burst (merge and tile-warp kernels), and
-   handheld_superres_raw on that burst mosaicked to 5 x 256 x 512 under
-   config.RAW_PORT_DEFAULT (tile-warp and RAW merge kernels) and under
-   its windows-branch variant align.fast_extract=False (window kernel
-   too). Each output must have its shape, be finite and in [0, 1], agree
+     slice's 21 taps; rtol and atol 1e-5;
+   - defog (csrc/defog.cu): 1024 x 1224 x 3, P and A_inf from the seed;
+     rtol 1e-5, atol 1e-6 (the kernel is expected to match bit for bit).
+4. Paths on the card, each driven with the launch counts set to 0 just
+   before and read just after:
+   - polar_defog on a synthetic fog pair at 1024 x 1224 x 3 (one
+     polarization angle of a 2448 x 2048 division-of-focal-plane sensor;
+     defog kernel): R finite and in [r_min, r_max], agreeing (PSNR >=
+     60 dB) with the run through the plain version, and a small pair on
+     the card with the port on the CPU; the same size through
+     stokes_synthesis from synthetic 0/45/90-degree frames; the defog app
+     (apps/polar_defog.py) on its 300 x 400 demo;
+   - handheld_superres at config.RGB_PALLAS (pre-alignment, merge and
+     tile-warp kernels) on a synthetic 5 x 256 x 512 x 3 RGB burst
+     rotated as the city burst is (0/0/5/10/-15 degrees), and at
+     config.PORT_DEFAULT (no pre-alignment) on the same burst unrotated;
+   - handheld_superres_raw on that burst mosaicked to 5 x 256 x 512 at
+     config.RAW_BENCH (bench.py's configuration; tile-warp and RAW merge
+     kernels), and on the unrotated burst at config.RAW_PORT_DEFAULT and
+     its windows-branch variant align.fast_extract=False (window kernel
+     too).
+   Each burst output must have its shape, be finite and in [0, 1], agree
    (PSNR >= 60 dB) with the same run with every kernel swapped for its
    plain version, and a small burst on the card must agree with the
    port on the CPU.
-5. Timing with CUDA events after warm-up, each burst distinct (scaled by
-   1 - 1e-5 i): ms per burst and output MP/s of each slice; ms per call
-   of each kernel beside its plain version, and the kernel's device time
-   from the profiler.
-6. Where the time goes: one burst of each slice under torch.profiler:
-   host and device ms of each pipeline stage (the mfsr.* ranges of
-   models/handheld.py, with each kernel's own profiler row added to its
-   stage, and the CUDA-event time around its launches beside it), and
-   the card's busy share.
+5. Timing with CUDA events after warm-up, each input distinct: ms per
+   burst and output MP/s of each slice (bursts scaled by 1 - 1e-5 i); ms
+   per frame and FPS of polar_defog under the reference protocol (32
+   warm-up and 256 timed frames, each fenced by a scalar readback) and,
+   labeled, its device time per frame back to back; ms per call of each
+   kernel beside its plain version, and the kernel's device time from
+   the profiler.
+6. Where the time goes: one burst (frame) of each path under
+   torch.profiler: host and device ms of each stage (the mfsr.* ranges
+   of models/handheld.py and models/defog.py, with each kernel's own
+   profiler row added to its stage, and the CUDA-event time around its
+   launches beside it), and the card's busy share.
 
 The last lines are a JSON line of the kernels, the card line, and
 {"ok": true, "device": {...}}.
@@ -48,9 +65,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -60,6 +79,8 @@ import torch
 F, H, W, SCALE = 5, 256, 512, 2
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)  # expf and FMA contraction vs torch ops
 EXACT = dict(rtol=0.0, atol=0.0)  # the copies move values, they compute nothing
+DEFOG_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX spec's tolerance; expected exact
+DEFOG_H, DEFOG_W = 1024, 1224  # one polarization angle of a 2448 x 2048 DoFP sensor
 PSNR_MIN = 60.0
 PKG = "multi_frame_super_resolution_tpu_torch"
 KERNELS = {  # name -> (source, the TPU kernel or JAX function it replaces)
@@ -67,12 +88,17 @@ KERNELS = {  # name -> (source, the TPU kernel or JAX function it replaces)
     "tile_warp": (f"{PKG}/csrc/tile_warp.cu", "multi_frame_super_resolution_tpu/pallas_ops/tile_warp.py:58"),
     "tile_gather": (f"{PKG}/csrc/tile_gather.cu", "multi_frame_super_resolution_tpu/pallas_ops/tile_gather.py:52"),
     "merge_raw": (f"{PKG}/csrc/merge_raw.cu", "multi_frame_super_resolution_tpu/models/fast_merge.py:301"),
+    "defog": (f"{PKG}/csrc/defog.cu", "multi_frame_super_resolution_tpu/pallas_ops/defog.py:35"),
 }
 # the profiler's names of the kernels' __global__ functions
 KERNEL_SYMBOLS = {
     "merge_fast": "merge_fast_kernel", "tile_warp": "tile_warp_kernel",
     "tile_gather": "tile_gather_kernel", "merge_raw": "merge_raw_kernel",
+    "defog": "defog_kernel",
 }
+# each kernel's stage in the profile
+STAGE_OF = {"merge_fast": "mfsr.merge", "merge_raw": "mfsr.merge", "tile_warp": "mfsr.tile_warp",
+            "tile_gather": "mfsr.align", "defog": "mfsr.defog.pixels"}
 
 
 def card_line() -> str:
@@ -118,11 +144,22 @@ def compare(label: str, got, want, tol: dict) -> float:
     return worst
 
 
-def check_output(label: str, out: torch.Tensor, shape: tuple) -> None:
+def check_output(label: str, out: torch.Tensor, shape: tuple, lo: float = 0.0, hi: float = 1.0) -> None:
     if tuple(out.shape) != shape:
         raise RuntimeError(f"{label}: output shape {tuple(out.shape)}, expected {shape}")
-    if not bool(torch.isfinite(out).all()) or out.min() < 0.0 or out.max() > 1.0:
-        raise RuntimeError(f"{label}: output not finite or outside [0, 1]")
+    if not bool(torch.isfinite(out).all()) or out.min() < lo or out.max() > hi:
+        raise RuntimeError(f"{label}: output not finite or outside [{lo}, {hi}]")
+
+
+def polar_frames(rng: np.random.Generator, h: int, w: int):
+    """Synthetic 0/45/90-degree polarization frames (H, W): a scene s under
+    partial polarization of degree d and angle phi, I(a) = s/2 (1 + d
+    cos 2(a - phi))."""
+    s = (0.25 + 0.5 * rng.random((h, w))).astype(np.float32)
+    d = np.linspace(0.1, 0.6, w, dtype=np.float32)[None, :]
+    phi = (np.pi * rng.random((h, w))).astype(np.float32)
+    return tuple((0.5 * s * (1.0 + d * np.cos(2.0 * (a - phi)))).astype(np.float32)
+                 for a in (0.0, np.pi / 4, np.pi / 2))
 
 
 def main() -> int:
@@ -132,33 +169,42 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from multi_frame_super_resolution_tpu_torch.apps import polar_defog as defog_app
     from multi_frame_super_resolution_tpu_torch.config import (
         PORT_DEFAULT,
+        RAW_BENCH,
         RAW_PORT_DEFAULT,
+        RGB_PALLAS,
         AlignConfig,
+        PolarDefogConfig,
     )
     from multi_frame_super_resolution_tpu_torch.data import (
+        CITY_ANGLES,
         mosaic_rggb,
+        synthetic_polar_pair,
         synthetic_raw_burst,
         synthetic_rgb_burst,
     )
     from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+    from multi_frame_super_resolution_tpu_torch.kernels import defog as kdefog
     from multi_frame_super_resolution_tpu_torch.kernels import merge as kmerge
     from multi_frame_super_resolution_tpu_torch.kernels import merge_raw as kmerge_raw
     from multi_frame_super_resolution_tpu_torch.kernels import tile_gather as ktile_gather
     from multi_frame_super_resolution_tpu_torch.kernels import tile_warp as ktile_warp
     from multi_frame_super_resolution_tpu_torch.kernels.build import build_all
+    from multi_frame_super_resolution_tpu_torch.models import defog as mdefog
     from multi_frame_super_resolution_tpu_torch.models import fast_merge, handheld
     from multi_frame_super_resolution_tpu_torch.ops import warp_fast
     from multi_frame_super_resolution_tpu_torch.registration import align, tiles
+    from multi_frame_super_resolution_tpu_torch.registration.prealign import estimate_burst_similarity
 
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
-    # 2. build, all four sources at once
-    modules = (kmerge, ktile_warp, ktile_gather, kmerge_raw)
+    # 2. build, all five sources at once
+    modules = (kmerge, ktile_warp, ktile_gather, kmerge_raw, kdefog)
     t0 = time.perf_counter()
     libs = build_all(m.library for m in modules)
     print(f"build: {', '.join(m.SOURCE for m in modules)} in "
@@ -199,6 +245,11 @@ def main() -> int:
     )]
     cfa = RAW_PORT_DEFAULT.cfa_pattern
     raw_args = (cfa, SCALE, 1, 1.0, 1.0, RAW_PORT_DEFAULT.merge.prune_exp)
+    iper_np, ipar_np = synthetic_polar_pair(rng, DEFOG_H, DEFOG_W)
+    defog_ins = [torch.from_numpy(x).to(dev) for x in (
+        iper_np, ipar_np,
+        (0.2 + 0.4 * rng.random(3)).astype(np.float32), (0.6 + 0.3 * rng.random(3)).astype(np.float32),
+    )]
 
     calls = {  # name -> [(label, kernel call, plain call, tolerance)]
         "merge_fast": [("merge", lambda: kmerge.merge_fast(*rgb_ins, *merge_args),
@@ -213,6 +264,8 @@ def main() -> int:
                          lambda: (plain_tile_gather(gray4, win_shifts, 16, 4),), EXACT)],
         "merge_raw": [("merge_raw", lambda: kmerge_raw.merge_raw(*raw_ins, *raw_args),
                        lambda: fast_merge.merge_burst_raw_planes(*raw_ins, *raw_args), KERNEL_TOL)],
+        "defog": [("defog", lambda: kdefog.defog(*defog_ins),
+                   lambda: kdefog.defog_pixels(*defog_ins), DEFOG_TOL)],
     }
     max_abs_err = {}
     for name, checks in calls.items():
@@ -222,19 +275,28 @@ def main() -> int:
             torch.cuda.synchronize()
             max_abs_err[name] = max(max_abs_err[name], compare(label, got, plain_call(), tol))
 
-    # 4. the slices end to end on the card
+    # 4. the paths end to end on the card
+    # each kernel -> the (module, attribute) its path calls its wrapper
+    # through, and the plain version with the wrapper's signature
+    wrappers = {
+        "merge_fast": (handheld, "merge_fast", fast_merge.merge_burst_fast),
+        "tile_warp": (handheld, "tile_warp", plain_tile_warp),
+        "merge_raw": (handheld, "merge_raw", fast_merge.merge_burst_raw_planes),
+        "tile_gather": (align, "tile_gather", plain_tile_gather),
+        "defog": (mdefog, "defog", kdefog.defog_pixels),
+    }
+
     @contextlib.contextmanager
     def plain_kernels():
-        with mock.patch.object(handheld, "merge_fast", fast_merge.merge_burst_fast), \
-                mock.patch.object(handheld, "tile_warp", plain_tile_warp), \
-                mock.patch.object(handheld, "merge_raw", fast_merge.merge_burst_raw_planes), \
-                mock.patch.object(align, "tile_gather", plain_tile_gather):
+        with contextlib.ExitStack() as stack:
+            for module, attr, plain in wrappers.values():
+                stack.enter_context(mock.patch.object(module, attr, plain))
             yield
 
-    def drive(fn, burst, cfg, expect):
+    def drive(fn, inp, cfg, expect):
         """Run one path with the counts at 0 just before, read just after."""
         LAUNCHES.clear()
-        out = fn(burst, cfg)
+        out = fn(inp, cfg)
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         missing = [k for k in expect if launches.get(k, 0) < 1]
@@ -242,15 +304,18 @@ def main() -> int:
             raise RuntimeError(f"the path did not launch {missing}: {launches}")
         return out, launches
 
+    def against_plain(fn, inp, cfg):
+        with plain_kernels():
+            LAUNCHES.clear()
+            out_plain = fn(inp, cfg)
+            if LAUNCHES:
+                raise RuntimeError(f"the plain run launched kernels: {dict(LAUNCHES)}")
+        return out_plain
+
     def check_slice(label, fn, burst, cfg, expect, small_burst):
         out, launches = drive(fn, burst, cfg, expect)
         check_output(label, out, (SCALE * burst.shape[1], SCALE * burst.shape[2], 3))
-        with plain_kernels():
-            LAUNCHES.clear()
-            out_plain = fn(burst, cfg)
-            if LAUNCHES:
-                raise RuntimeError(f"the plain run launched kernels: {dict(LAUNCHES)}")
-        p_plain = psnr(out, out_plain)
+        p_plain = psnr(out, against_plain(fn, burst, cfg))
         p_cpu = psnr(fn(small_burst.to(dev), cfg).cpu(), fn(small_burst, cfg))
         print(f"slice {label}: {tuple(burst.shape)} -> {tuple(out.shape)}, launches {launches}, "
               f"PSNR vs plain kernels {p_plain:.2f} dB, small burst card vs CPU {p_cpu:.2f} dB "
@@ -259,13 +324,70 @@ def main() -> int:
             raise RuntimeError(f"slice {label} disagrees with its reference")
         return launches
 
-    rgb_np, _ = synthetic_rgb_burst(np.random.default_rng(0), F, H, W, 3.0)
+    # the defog path: polar_defog on (Iper, Ipar) stacked as one input
+    defog_cfg = PolarDefogConfig(beta=1.55)
+
+    def run_defog(pair, cfg):
+        return mdefog.polar_defog(pair[0], pair[1], cfg)
+
+    pair = torch.stack([torch.from_numpy(iper_np), torch.from_numpy(ipar_np)]).to(dev)
+    small_pair = torch.stack([torch.from_numpy(x) for x in synthetic_polar_pair(np.random.default_rng(1), 96, 136)])
+    r_out, defog_launches = drive(run_defog, pair, defog_cfg, ("defog",))
+    check_output("defog", r_out, (DEFOG_H, DEFOG_W, 3), defog_cfg.r_min, defog_cfg.r_max)
+    p_plain = psnr(r_out, against_plain(run_defog, pair, defog_cfg))
+    p_cpu = psnr(run_defog(small_pair.to(dev), defog_cfg).cpu(), run_defog(small_pair, defog_cfg))
+    print(f"path defog: 2 x {DEFOG_H} x {DEFOG_W} x 3 -> R {tuple(r_out.shape)}, launches {defog_launches}, "
+          f"R in [{r_out.min().item():.6f}, {r_out.max().item():.6f}], PSNR of R vs plain version "
+          f"{p_plain:.2f} dB, small pair card vs CPU {p_cpu:.2f} dB (limit {PSNR_MIN} dB)")
+    if p_plain < PSNR_MIN or p_cpu < PSNR_MIN:
+        raise RuntimeError("the defog path disagrees with its reference")
+    i0, i45, i90 = (torch.from_numpy(x).to(dev) for x in polar_frames(rng, DEFOG_H, DEFOG_W))
+    stokes_cfg = PolarDefogConfig(beta=10.0)
+    LAUNCHES.clear()
+    s_per, s_par = mdefog.stokes_synthesis(i0, i45, i90)
+    r_stokes = mdefog.polar_defog(s_per, s_par, stokes_cfg)
+    torch.cuda.synchronize()
+    check_output("defog (Stokes synthesis)", r_stokes, (DEFOG_H, DEFOG_W, 3), stokes_cfg.r_min, stokes_cfg.r_max)
+    if LAUNCHES["defog"] != 1:
+        raise RuntimeError(f"the Stokes input did not launch the defog kernel once: {dict(LAUNCHES)}")
+    print(f"path defog from stokes_synthesis: 3 x {DEFOG_H} x {DEFOG_W} -> R finite in "
+          f"[{r_stokes.min().item():.6f}, {r_stokes.max().item():.6f}], beta 10")
+    with tempfile.TemporaryDirectory() as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            print("app polar_defog 0 3 1.55 (300 x 400 demo):")
+            if defog_app.main(["0", "3", "1.55"]) != 0 or not os.path.getsize("R_gpu.png"):
+                raise RuntimeError("the defog app failed")
+        finally:
+            os.chdir(cwd)
+
+    rgb_np, _ = synthetic_rgb_burst(np.random.default_rng(0), F, H, W, 3.0, angles=CITY_ANGLES)
     rgb_burst = torch.from_numpy(rgb_np).to(dev)
-    rgb_small = torch.from_numpy(synthetic_rgb_burst(np.random.default_rng(1), 4, 64, 128, 2.5)[0])
-    rgb_launches = check_slice("rgb", handheld.handheld_superres, rgb_burst, PORT_DEFAULT,
+    small_angles = CITY_ANGLES[:2] + CITY_ANGLES[3:]
+    rgb_small = torch.from_numpy(synthetic_rgb_burst(np.random.default_rng(1), 4, 64, 128, 2.5, angles=small_angles)[0])
+    rgb_launches = check_slice("rgb (RGB_PALLAS)", handheld.handheld_superres, rgb_burst, RGB_PALLAS,
                                ("merge_fast", "tile_warp"), rgb_small)
 
-    raw_burst = torch.from_numpy(np.stack([mosaic_rggb(f, cfa) for f in rgb_np])).to(dev)
+    still_np, _ = synthetic_rgb_burst(np.random.default_rng(0), F, H, W, 3.0)
+    rgb_still = torch.from_numpy(still_np).to(dev)
+    rgb_still_small = torch.from_numpy(synthetic_rgb_burst(np.random.default_rng(1), 4, 64, 128, 2.5)[0])
+    rgb_default_launches = check_slice("rgb (PORT_DEFAULT)", handheld.handheld_superres, rgb_still,
+                                       PORT_DEFAULT, ("merge_fast", "tile_warp"), rgb_still_small)
+
+    raw_rot = torch.from_numpy(np.stack([mosaic_rggb(f, cfa) for f in rgb_np])).to(dev)
+    raw_small_rot = torch.from_numpy(
+        synthetic_raw_burst(np.random.default_rng(1), 4, 128, 256, 2.5, angles=small_angles)[0])
+    bench_launches = check_slice("raw (RAW_BENCH)", handheld.handheld_superres_raw, raw_rot, RAW_BENCH,
+                                 ("tile_warp", "merge_raw"), raw_small_rot)
+
+    # the pre-alignment estimates the two slices start from, card vs CPU
+    gray_half = handheld.rgb_to_gray(handheld._subsample_from_planes(handheld.raw_to_planes(raw_rot), cfa))
+    for label, gray, cfg in (("rgb", handheld.rgb_to_gray(rgb_burst), RGB_PALLAS),
+                             ("raw half-res", gray_half, RAW_BENCH)):
+        estimate_agreement(label, gray, cfg.prealign_cfg, estimate_burst_similarity)
+
+    raw_burst = torch.from_numpy(np.stack([mosaic_rggb(f, cfa) for f in still_np])).to(dev)
     raw_small = torch.from_numpy(synthetic_raw_burst(np.random.default_rng(1), 4, 128, 256, 2.5)[0])
     raw_windows_cfg = dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(
         tile_size=16, search_radius=4, levels=2, fast_extract=False))
@@ -278,14 +400,14 @@ def main() -> int:
         return stat
 
     with mock.patch.object(handheld, "temporal_noise_stat", recording_stat):
-        raw_launches = check_slice("raw", handheld.handheld_superres_raw, raw_burst,
+        raw_launches = check_slice("raw (RAW_PORT_DEFAULT)", handheld.handheld_superres_raw, raw_burst,
                                    RAW_PORT_DEFAULT, ("tile_warp", "merge_raw"), raw_small)
     print(f"raw restore gate: temporal noise statistic {stats[0]:.6f} "
           f"(gate {RAW_PORT_DEFAULT.restore_gate_lo}-{RAW_PORT_DEFAULT.restore_gate_hi})")
     win_launches = check_slice("raw windows", handheld.handheld_superres_raw, raw_burst,
                                raw_windows_cfg, ("tile_warp", "merge_raw", "tile_gather"), raw_small)
 
-    # 5. timing: kernels beside their plain versions, then the slices
+    # 5. timing: kernels beside their plain versions, then the paths
     kernel_ms, plain_ms = {}, {}
     for name, checks in calls.items():
         _, kernel_call, plain_call, _ = checks[0]
@@ -300,6 +422,7 @@ def main() -> int:
     def time_slice(label, fn, burst, cfg):
         bursts = [burst * (1.0 - 1e-5 * i) for i in range(13)]
         times = []
+        torch.cuda.reset_peak_memory_stats()
         for i, b in enumerate(bursts):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -319,17 +442,27 @@ def main() -> int:
               f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB  [{card}]")
         return ms
 
-    rgb_ms = time_slice("rgb", handheld.handheld_superres, rgb_burst, PORT_DEFAULT)
-    raw_ms = time_slice("raw", handheld.handheld_superres_raw, raw_burst, RAW_PORT_DEFAULT)
-    win_ms = time_slice("raw windows", handheld.handheld_superres_raw, raw_burst, raw_windows_cfg)
+    def defog_frame(scale):
+        return mdefog.polar_defog(pair[0] * scale, pair[1], defog_cfg)
+
+    defog_ms, defog_dev_ms = defog_app.time_frames(defog_frame, warmup=32, frames=256)
+    print(f"defog timing: {defog_ms:.4f} ms per frame, {1e3 / defog_ms:.1f} FPS over 256 frames after "
+          f"32 warm-up (reference protocol: per-frame dispatch and scalar readback, host clock); "
+          f"{defog_dev_ms:.4f} ms per frame, {1e3 / defog_dev_ms:.1f} FPS back to back between CUDA "
+          f"events (not the reference protocol)  [{card}]")
+    paths = (
+        ("rgb (RGB_PALLAS)", handheld.handheld_superres, rgb_burst, RGB_PALLAS),
+        ("rgb (PORT_DEFAULT)", handheld.handheld_superres, rgb_still, PORT_DEFAULT),
+        ("raw (RAW_BENCH)", handheld.handheld_superres_raw, raw_rot, RAW_BENCH),
+        ("raw (RAW_PORT_DEFAULT)", handheld.handheld_superres_raw, raw_burst, RAW_PORT_DEFAULT),
+        ("raw windows", handheld.handheld_superres_raw, raw_burst, raw_windows_cfg),
+    )
+    slice_ms = [time_slice(label, fn, burst, cfg) for label, fn, burst, cfg in paths]
 
     # 6. where the time goes
-    for label, fn, burst, cfg, ms in (
-        ("rgb", handheld.handheld_superres, rgb_burst, PORT_DEFAULT, rgb_ms),
-        ("raw", handheld.handheld_superres_raw, raw_burst, RAW_PORT_DEFAULT, raw_ms),
-        ("raw windows", handheld.handheld_superres_raw, raw_burst, raw_windows_cfg, win_ms),
-    ):
-        profile_stages(label, fn, burst, cfg, ms, card, handheld, align)
+    profile_stages("defog", run_defog, pair, defog_cfg, defog_ms, card, wrappers)
+    for (label, fn, burst, cfg), ms in zip(paths, slice_ms):
+        profile_stages(label, fn, burst, cfg, ms, card, wrappers)
 
     print(json.dumps({"kernels": [{
         "name": name,
@@ -341,14 +474,44 @@ def main() -> int:
         "ms": kernel_ms[name],
         "plain_ms": plain_ms[name],
     } for name, launches in (
-        ("merge_fast", rgb_launches), ("tile_warp", raw_launches),
-        ("tile_gather", win_launches), ("merge_raw", raw_launches),
+        ("merge_fast", rgb_launches), ("tile_warp", bench_launches),
+        ("tile_gather", win_launches), ("merge_raw", bench_launches),
+        ("defog", defog_launches),
     )]}))
+    print(f"launches per path: defog {defog_launches}, rgb {rgb_launches}, "
+          f"rgb default {rgb_default_launches}, raw bench {bench_launches}, "
+          f"raw default {raw_launches}, raw windows {win_launches}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def estimate_agreement(label, gray, cfg, estimate) -> None:
+    """The similarity estimates of a burst's luma gray (F, H, W) on the
+    card against the port on the CPU: exact agreements per field, and the
+    largest difference in refine cells of the matrix-DFT peak (rotation
+    pi / (size - 1) / peak_upsample rad, translation ds / peak_upsample
+    px; both shapes here take ds = cfg.downsample). More than one cell
+    raises."""
+    on_card = estimate(gray, cfg)
+    on_cpu = estimate(gray.cpu(), cfg)
+    ds = cfg.downsample
+    size = max(gray.shape[-2], gray.shape[-1]) // ds
+    cells = {"rotation": np.pi / (size - 1) / cfg.peak_upsample, "translation": ds / cfg.peak_upsample}
+    parts = []
+    for field, cell in cells.items():
+        a = getattr(on_card, field).cpu().double()
+        b = getattr(on_cpu, field).double()
+        exact = int((a == b).reshape(a.shape[0], -1).all(dim=1).sum())
+        worst = float((a - b).abs().max()) / cell
+        parts.append(f"{field} equal in {exact}/{a.shape[0]} frames, max diff {worst:.3f} cells")
+        if worst > 1.0 + 1e-3:
+            raise RuntimeError(f"prealign estimate {label}: {field} differs by {worst:.3f} refine cells")
+    degrees = ", ".join(f"{d:.3f}" for d in np.degrees(on_card.rotation.cpu().numpy()))
+    print(f"prealign estimate {label} {tuple(gray.shape)}, card vs CPU: {'; '.join(parts)}; "
+          f"rotations {degrees} deg")
 
 
 def kernel_device_ms(call, symbol: str, iters: int = 20) -> float:
@@ -370,11 +533,13 @@ def kernel_device_ms(call, symbol: str, iters: int = 20) -> float:
     return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows) / 1e3
 
 
-def profile_stages(label, fn, burst, cfg, burst_ms, card, handheld, align) -> None:
-    """Host and device ms of each pipeline stage over one profiled burst,
-    each kernel's CUDA-event time in that burst (the events bracket the
-    wrapper's launch), the profiler's own rows for the kernels, and the
-    share of an unprofiled burst (``burst_ms``) the card is busy."""
+def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> None:
+    """Host and device ms of each stage over one profiled burst (frame),
+    each kernel's CUDA-event time in it (the events bracket the wrapper's
+    launch), the profiler's own rows for the kernels, and the share of an
+    unprofiled burst (``ms``) the card is busy. ``wrappers`` maps each
+    kernel to the (module, attribute, plain version) its path calls it
+    through."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -391,23 +556,15 @@ def profile_stages(label, fn, burst, cfg, burst_ms, card, handheld, align) -> No
             return out
         return call
 
-    patches = [
-        mock.patch.object(handheld, "merge_fast", timed("merge_fast", handheld.merge_fast)),
-        mock.patch.object(handheld, "tile_warp", timed("tile_warp", handheld.tile_warp)),
-        mock.patch.object(handheld, "merge_raw", timed("merge_raw", handheld.merge_raw)),
-        mock.patch.object(align, "tile_gather", timed("tile_gather", align.tile_gather)),
-    ]
     with contextlib.ExitStack() as stack:
-        for p in patches:
-            stack.enter_context(p)
+        for name, (module, attr, _) in wrappers.items():
+            stack.enter_context(mock.patch.object(module, attr, timed(name, getattr(module, attr))))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn(burst, cfg)
+            fn(inp, cfg)
             torch.cuda.synchronize()
     event_ms = {}
     for name, start, end in events:
         event_ms[name] = event_ms.get(name, 0.0) + start.elapsed_time(end)
-    stage_of = {"merge_fast": "mfsr.merge", "merge_raw": "mfsr.merge",
-                "tile_warp": "mfsr.tile_warp", "tile_gather": "mfsr.align"}
 
     stages, kernels_us, launches, kernel_rows = {}, 0.0, 0, {}
     for evt in prof.key_averages():
@@ -427,14 +584,14 @@ def profile_stages(label, fn, burst, cfg, burst_ms, card, handheld, align) -> No
     for name, (host_us, dev_us) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
         extra = ""
         for k in event_ms:
-            if stage_of[k] == name:
+            if STAGE_OF[k] == name:
                 count, k_us = kernel_rows.get(k, (0, 0.0))
                 dev_us += k_us
                 extra += (f"; kernel {k}: {count} launches, {k_us / 1e3:.4f} ms device time "
                           f"(profiler row), {event_ms[k]:.4f} ms between CUDA events around them")
         print(f"stage {label} {name}: host {host_us / 1e3:.3f} ms, device {dev_us / 1e3:.3f} ms{extra}")
-    print(f"profile {label}: {launches} device ops, {kernels_us / 1e3:.3f} ms device time per burst; "
-          f"card busy {100.0 * kernels_us / 1e3 / burst_ms:.1f}% of {burst_ms:.3f} ms/burst  [{card}]")
+    print(f"profile {label}: {launches} device ops, {kernels_us / 1e3:.3f} ms device time per run; "
+          f"card busy {100.0 * kernels_us / 1e3 / ms:.1f}% of {ms:.3f} ms  [{card}]")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,125 @@
+"""Polarization-defog CLI (counterpart of apps/polar_defog.py):
+
+    python -m multi_frame_super_resolution_tpu_torch.apps.polar_defog debug inputType beta
+
+  * debug: 0 | 1 (1 => a single frame, intermediates dumped to
+    polar_defog_debug.npz)
+  * inputType: 3 => the synthetic fog demo (300 x 400). 1 and 2 (16-bit
+    TIFF pairs and the 0/45/90-degree Stokes synthesis) need a TIFF
+    reader, which the port does not have yet: they raise ValueError.
+  * beta: polarization scale (1.55 for type 1, 10 for type 2)
+
+Runs on the card when there is one, else on the CPU. Without debug: 32
+warm-up and 256 timed frames, each dispatched alone and fenced by a
+scalar readback (the reference protocol), with each frame's input
+scaled by 1 + 1e-7 i; then, labeled, the device time per frame over 256
+frames launched back to back between CUDA events with no readback inside
+(not the reference protocol; on a card only). Writes R_gpu.png.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+
+def _load_inputs(input_type: int):
+    from multi_frame_super_resolution_tpu_torch.data import synthetic_polar_pair
+
+    if input_type in (1, 2):
+        raise ValueError(
+            f"inputType {input_type} reads 16-bit TIFF files, and the PyTorch port "
+            "has no TIFF reader yet; use inputType 3 (the synthetic demo)"
+        )
+    if input_type == 3:
+        import numpy as np
+
+        return synthetic_polar_pair(np.random.default_rng(0))
+    raise ValueError("inputType must be 1, 2 or 3")
+
+
+def time_frames(frame, warmup: int = 32, frames: int = 256):
+    """Time ``frame(scale)``, one defog frame of the input scaled by
+    ``scale`` that returns R. First the reference protocol: ``warmup``
+    then ``frames`` frames, each dispatched alone and fenced by a scalar
+    readback of R, frame i's input scaled by 1 - 1e-7 i (warm-up) or
+    1 + 1e-7 i (timed); host clock. Then, when R lies on a card, the
+    device time of the timed frames launched back to back between CUDA
+    events with no readback inside (not the reference protocol; what a
+    pipelined caller sees). Returns (ms per frame, device ms per frame or
+    None without a card)."""
+    import torch
+
+    for i in range(warmup):
+        float(frame(1.0 - 1e-7 * i).sum())
+    t0 = time.perf_counter()
+    for i in range(frames):
+        r = frame(1.0 + 1e-7 * i)
+        float(r.sum())
+    ms = (time.perf_counter() - t0) * 1e3 / frames
+    if not r.is_cuda:
+        return ms, None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(frames):
+        frame(1.0 + 1e-7 * i)
+    end.record()
+    end.synchronize()
+    return ms, start.elapsed_time(end) / frames
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if len(argv) != 3:
+        print("polar_defog debug inputType beta")
+        print("\tdebug: 0 or 1")
+        print("\tinputType: 1, 2 or 3 (3: synthetic demo)")
+        print("\tbeta: 1.55 for 1 and 10 for 2, need to adjust")
+        return -1
+    debug = bool(int(argv[0]))
+    input_type = int(argv[1])
+    beta = float(argv[2])
+
+    import numpy as np
+    import torch
+
+    from multi_frame_super_resolution_tpu_torch.config import PolarDefogConfig
+    from multi_frame_super_resolution_tpu_torch.data import imwrite
+    from multi_frame_super_resolution_tpu_torch.models.defog import polar_defog
+
+    iper_np, ipar_np = _load_inputs(input_type)
+    cfg = PolarDefogConfig(beta=beta)
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    iper = torch.from_numpy(iper_np).to(dev)
+    ipar = torch.from_numpy(ipar_np).to(dev)
+
+    def fn(scale: float):
+        return polar_defog(iper * scale, ipar, cfg, return_intermediates=True)
+
+    if not debug:
+        real_num = 256
+        ms, dev_ms = time_frames(lambda scale: fn(scale)[0], warmup=32, frames=real_num)
+        print(f"{ms * real_num / 1e3} sec ({real_num} frames, per-frame dispatch — reference protocol)")
+        print(f"{1e3 / ms} FPS")
+        if dev_ms is not None:
+            print(f"{dev_ms * real_num / 1e3} sec ({real_num} frames back to back between CUDA events — "
+                  f"device time, not the reference protocol)")
+            print(f"{1e3 / dev_ms} FPS (back to back, device time)")
+        else:
+            print("back-to-back device time: not measured (no CUDA device)")
+    r, a, t = fn(1.0)
+
+    out = r.cpu().numpy()
+    imwrite("R_gpu.png", out)
+    if debug:
+        np.savez("polar_defog_debug.npz", A=a.cpu().numpy(), t=t.cpu().numpy(), R=out)
+        print("A minmax:", float(a.min()), float(a.max()))
+        print("t minmax:", float(t.min()), float(t.max()))
+        print("R minmax:", float(r.min()), float(r.max()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,15 +16,18 @@ from __future__ import annotations
 from typing import List
 
 from multi_frame_super_resolution_tpu.config import (  # noqa: F401
+    PREALIGN_FAST,
     AlignConfig,
+    DarkChannelConfig,
     HandheldConfig,
     LKConfig,
     MergeConfig,
+    PolarDefogConfig,
+    RegistrationConfig,
     RobustnessConfig,
 )
 
-# the RGB configuration the port implements end to end: the fast path
-# through the merge kernel, without global pre-alignment
+# the RGB fast path through the merge kernel without global pre-alignment
 PORT_DEFAULT = HandheldConfig(prealign=False, merge=MergeConfig(use_pallas=True))
 
 # the RAW main path (bench.py's configuration) without global
@@ -37,10 +40,20 @@ RAW_PORT_DEFAULT = HandheldConfig(
 )
 
 
+# bench.py's configuration, letter for letter: the RAW main path with
+# global pre-alignment
+RAW_BENCH = HandheldConfig(align=AlignConfig(tile_size=16, search_radius=4, levels=2), gamma=False)
+
+# the RGB fast path through the merge kernel, with global pre-alignment
+RGB_PALLAS = HandheldConfig(merge=MergeConfig(use_pallas=True))
+
+_REMAP_METHODS = ("bilinear", "bicubic", "nearest")
+
+
 def _common_unsupported(cfg: HandheldConfig) -> List[str]:
     bad = []
-    if cfg.prealign:
-        bad.append("prealign=True")
+    if cfg.prealign and cfg.prealign_cfg.logpolar_interp not in _REMAP_METHODS:
+        bad.append(f"prealign_cfg.logpolar_interp={cfg.prealign_cfg.logpolar_interp!r}")
     if not cfg.fast:
         bad.append("fast=False")
     if cfg.use_consistency:
@@ -76,7 +89,7 @@ def check_supported(cfg: HandheldConfig) -> None:
         bad.append("merge.rgb_order=1")
     if not 1 <= cfg.scale <= 4:
         bad.append(f"scale={cfg.scale} (the merge kernel takes 1..4)")
-    _raise(bad, "HandheldConfig(prealign=False, merge=MergeConfig(use_pallas=True))")
+    _raise(bad, "config.RGB_PALLAS")
 
 
 def check_supported_raw(cfg: HandheldConfig) -> None:
@@ -97,4 +110,4 @@ def check_supported_raw(cfg: HandheldConfig) -> None:
     if cfg.scale != 2:
         # the RAW merge kernel holds its accumulators in registers for s=2
         bad.append(f"scale={cfg.scale} (the RAW merge kernel takes 2)")
-    _raise(bad, "config.RAW_PORT_DEFAULT")
+    _raise(bad, "config.RAW_BENCH")

@@ -12,7 +12,7 @@ identical inputs.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -51,6 +51,10 @@ def _rotate_translate_crop(
     return out.squeeze(-1) if out.shape[-1] == 1 else out
 
 
+# the city burst's per-frame rotations, 0/0/5/10/-15 degrees
+CITY_ANGLES = tuple(float(np.deg2rad(d)) for d in (0.0, 0.0, 5.0, 10.0, -15.0))
+
+
 def _broadband_plane(rng: np.random.Generator, bh: int, bw: int) -> np.ndarray:
     """Multi-octave noise scene in [0, 1]: coarse structure for the search
     range, fine texture so subpixel estimation is well-posed, blurred
@@ -77,12 +81,17 @@ def synthetic_burst(
     max_shift: float = 3.0,
     max_rotation: float = 0.0,
     base: np.ndarray | None = None,
+    angles: Sequence[float] | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Subpixel-shifted (and optionally rotated) crops of one scene.
 
-    Returns ``(burst (F, H, W[, C]), true_shifts (F, 2) as (dy, dx))``;
-    frame 0 is the unshifted reference.
+    ``angles`` (radians, one per frame) replaces the rotations drawn from
+    +-``max_rotation``; the generator is drawn from as without it, so the
+    shifts stay the same. Returns ``(burst (F, H, W[, C]), true_shifts
+    (F, 2) as (dy, dx))``; frame 0 is the unshifted reference.
     """
+    if angles is not None and len(angles) != num_frames:
+        raise ValueError(f"angles needs {num_frames} entries, got {len(angles)}")
     pad = int(np.ceil(max_shift)) + 8
     if base is None:
         base = _broadband_plane(rng, height + 2 * pad, width + 2 * pad)
@@ -95,6 +104,8 @@ def synthetic_burst(
         else:
             dy, dx = rng.uniform(-max_shift, max_shift, size=2)
             ang = rng.uniform(-max_rotation, max_rotation)
+        if angles is not None:
+            ang = float(angles[f])
         shifts[f] = (dy, dx)
         frames.append(_rotate_translate_crop(base, dy, dx, ang, height, width))
     return np.stack(frames, axis=0).astype(np.float32), shifts
@@ -106,16 +117,18 @@ def synthetic_rgb_burst(
     height: int = 256,
     width: int = 512,
     max_shift: float = 3.0,
+    angles: Sequence[float] | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """RGB burst (F, H, W, 3) in [0, 1]: three independent broadband planes
-    drawn from ``rng``, moved together by one set of frame shifts. The
-    defaults are the city burst's geometry (5 x 256 x 512 x 3)."""
+    drawn from ``rng``, moved together by one set of frame shifts and,
+    given ``angles``, rotations (see ``synthetic_burst``). The defaults are the city burst's
+    geometry (5 x 256 x 512 x 3); ``CITY_ANGLES`` are its rotations."""
     pad = int(np.ceil(max_shift)) + 8
     base = np.stack(
         [_broadband_plane(rng, height + 2 * pad, width + 2 * pad) for _ in range(3)],
         axis=-1,
     )
-    return synthetic_burst(rng, num_frames, height, width, max_shift, base=base)
+    return synthetic_burst(rng, num_frames, height, width, max_shift, base=base, angles=angles)
 
 
 def mosaic_rggb(
@@ -138,9 +151,24 @@ def synthetic_raw_burst(
     width: int = 512,
     max_shift: float = 3.0,
     cfa: Tuple[Tuple[int, int], Tuple[int, int]] = ((0, 1), (1, 2)),
+    angles: Sequence[float] | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Bayer RAW burst (F, H, W) in [0, 1]: every frame of
     ``synthetic_rgb_burst`` mosaicked under ``cfa``. The defaults are the
     city burst's geometry, the input bench.py times."""
-    rgb, shifts = synthetic_rgb_burst(rng, num_frames, height, width, max_shift)
+    rgb, shifts = synthetic_rgb_burst(rng, num_frames, height, width, max_shift, angles)
     return np.stack([mosaic_rggb(frame, cfa) for frame in rgb]), shifts
+
+
+def synthetic_polar_pair(
+    rng: np.random.Generator, height: int = 300, width: int = 400
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(Iper, Ipar), each (H, W, 3) float32 in [0, 1]: the polarization-
+    defog app's synthetic fog (a random scene under a vertical haze ramp,
+    apps/polar_defog.py, inputType 3) at any size. At the defaults and
+    ``np.random.default_rng(0)`` it is the app's own input."""
+    base = rng.random((height, width, 3)).astype(np.float32) * 0.5
+    haze = np.linspace(0.2, 0.7, height, dtype=np.float32)[:, None, None]
+    iper = np.clip(base * 0.5 + haze * 0.8, 0, 1)
+    ipar = np.clip(base * 0.5 + haze * 0.3, 0, 1)
+    return iper, ipar

@@ -2,19 +2,29 @@
 models/handheld.py), both entry points on their fast paths:
 
 - ``handheld_superres``: RGB burst in, ``_handheld_fast`` on the merge
-  kernel's branch (handheld.py:235-426). Half-res tile-pyramid alignment
-  -> per-tile integer warp of the alternates -> smooth subpixel residual
+  kernel's branch (handheld.py:235-426). Global similarity pre-alignment
+  (cfg.prealign) -> half-res tile-pyramid alignment -> per-tile integer
+  warp of the alternates -> smooth subpixel residual
   + Lucas-Kanade refinement -> robustness on the warped frames ->
   structure-tensor kernel parameters -> static-tap merge -> weight-
   threshold normalization against a bicubic fallback.
 - ``handheld_superres_raw``: Bayer RAW burst in, ``_handheld_raw_fast``
   (handheld.py:534-555, :656-915), the main path. Everything runs in the
-  CFA-plane domain: half-res alignment -> integer plane warps -> residual
+  CFA-plane domain: global similarity pre-alignment (cfg.prealign) ->
+  half-res alignment -> integer plane warps -> residual
   + LK at half res -> robustness -> order-1 plane merge -> plugin solve
   -> noise-gated restore -> one phase interleave.
 
 Everything runs on the device of the input burst; on CUDA the tile warp,
-the search windows and the merges go through the Hopper kernels.
+the search windows and the merges go through the Hopper kernels. The
+pre-alignment's validity mask rides through the tile warp as one more
+plane and multiplies the certainty.
+
+``prealign_override``: optional (st, origin, global_hw), a
+SimilarityTransform (registration/logpolar.py, leading axis F - 1)
+applied about the center of a ``global_hw`` image whose [0, 0] sits at
+``origin`` instead of one estimated from this burst (half-res units on
+the RAW path).
 """
 
 from __future__ import annotations
@@ -25,8 +35,8 @@ import torch
 from torch.profiler import record_function
 
 from multi_frame_super_resolution_tpu_torch.config import (
-    PORT_DEFAULT,
-    RAW_PORT_DEFAULT,
+    RAW_BENCH,
+    RGB_PALLAS,
     HandheldConfig,
     MergeConfig,
     check_supported,
@@ -66,6 +76,12 @@ from multi_frame_super_resolution_tpu_torch.registration.align import (
     flow_from_tile_shifts,
 )
 from multi_frame_super_resolution_tpu_torch.registration.lucas_kanade import lk_refine
+from multi_frame_super_resolution_tpu_torch.registration.prealign import (
+    apply_burst_similarity,
+    apply_planes_similarity,
+    prealign_burst,
+    prealign_planes,
+)
 
 
 def _scaled_merge_cfg(cfg: HandheldConfig) -> MergeConfig:
@@ -83,7 +99,7 @@ def _scaled_merge_cfg(cfg: HandheldConfig) -> MergeConfig:
 
 
 def handheld_superres(
-    burst: torch.Tensor, cfg: HandheldConfig = PORT_DEFAULT
+    burst: torch.Tensor, cfg: HandheldConfig = RGB_PALLAS, prealign_override=None
 ) -> torch.Tensor:
     """RGB burst (F, H, W, 3) float32, frame 0 the reference ->
     merged (scale*H, scale*W, 3) in [0, 1]. Raises ValueError for config
@@ -93,14 +109,25 @@ def handheld_superres(
         raise ValueError(f"burst must be (F>=2, H, W, 3), got {tuple(burst.shape)}")
     if burst.dtype != torch.float32:
         raise TypeError(f"burst must be float32, got {burst.dtype}")
-    return _handheld_fast(burst.contiguous(), cfg)
+    return _handheld_fast(burst.contiguous(), cfg, prealign_override)
 
 
-def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
+def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None) -> torch.Tensor:
     # the record_function ranges name the stages in a profiler trace
     f, h, w = burst.shape[:3]
     t = cfg.align.tile_size
     gray = rgb_to_gray(burst)
+    prevalid = None
+    if cfg.prealign:
+        with record_function("mfsr.prealign"):
+            if prealign_override is not None:
+                st, origin, global_hw = prealign_override
+                burst, prevalid = apply_burst_similarity(
+                    burst, st, cfg.prealign_cfg, origin=origin, global_hw=global_hw
+                )
+            else:
+                burst, prevalid = prealign_burst(burst, gray, cfg.prealign_cfg)
+            gray = rgb_to_gray(burst)
     # motion is estimated on half-res luma and lifted to full res; the
     # merge still sees full-res samples
     half = cfg.half_align and h % 2 == 0 and w % 2 == 0
@@ -116,11 +143,16 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
             tile_shifts = tile_shifts * 2.0
         int_shifts, res_tiles = tile_shift_decompose(tile_shifts)
 
-    # integer tile warp of the alternates' channel planes into reference
-    # geometry (the function of tile_warp_matmul; the kernel on CUDA)
+    # integer tile warp of the alternates' channel planes (and the
+    # pre-alignment validity as a 4th) into reference geometry (the
+    # function of tile_warp_matmul; the kernel on CUDA)
     with record_function("mfsr.tile_warp"):
-        planes = burst[1:].permute(0, 3, 1, 2).contiguous()  # (f-1, 3, h, w)
-        warped_alts = tile_warp(planes, int_shifts[1:], warp_t).permute(0, 2, 3, 1)
+        planes = burst[1:].permute(0, 3, 1, 2)  # (f-1, 3, h, w)
+        if prevalid is not None:
+            planes = torch.cat([planes, prevalid[1:, None]], dim=1)
+        warped_planes = tile_warp(planes.contiguous(), int_shifts[1:], warp_t)
+        valid_w = None if prevalid is None else warped_planes[:, 3]
+        warped_alts = warped_planes[:, :3].permute(0, 2, 3, 1)
         warped = torch.cat([burst[:1], warped_alts], dim=0).contiguous()
 
     def lift(res):  # (..., nty, ntx, 2) -> (..., h, w, 2)
@@ -150,6 +182,8 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
         cert_alts = robustness_mask(
             warped[0], warped[1:], res_alts, cfg.robustness, bounded=2
         )[..., :3]
+        if valid_w is not None:
+            cert_alts = cert_alts * valid_w[..., None]
         cert = torch.cat([torch.ones_like(cert_alts[:1]), cert_alts], dim=0)
 
     with record_function("mfsr.kernel_params"):
@@ -206,7 +240,7 @@ def _subsample_from_planes(planes: torch.Tensor, cfa) -> torch.Tensor:
 
 
 def handheld_superres_raw(
-    raw_burst: torch.Tensor, cfg: HandheldConfig = RAW_PORT_DEFAULT
+    raw_burst: torch.Tensor, cfg: HandheldConfig = RAW_BENCH, prealign_override=None
 ) -> torch.Tensor:
     """Bayer RAW burst (F, H, W) float32 in [0, 1], frame 0 the reference,
     H and W even -> merged RGB (scale*H, scale*W, 3) in [0, 1]. Raises
@@ -219,10 +253,10 @@ def handheld_superres_raw(
         raise ValueError(f"RAW dims must be even (Bayer quads), got {tuple(raw_burst.shape)}")
     if raw_burst.dtype != torch.float32:
         raise TypeError(f"raw_burst must be float32, got {raw_burst.dtype}")
-    return _handheld_raw_fast(raw_burst.contiguous(), cfg)
+    return _handheld_raw_fast(raw_burst.contiguous(), cfg, prealign_override)
 
 
-def _handheld_raw_fast(raw_burst: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
+def _handheld_raw_fast(raw_burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None) -> torch.Tensor:
     f, h, w = raw_burst.shape
     t = cfg.align.tile_size
     hh, hw = h // 2, w // 2
@@ -232,15 +266,34 @@ def _handheld_raw_fast(raw_burst: torch.Tensor, cfg: HandheldConfig) -> torch.Te
         planes = raw_to_planes(raw_burst)  # (F, 2, 2, hh, hw) view
         half = _subsample_from_planes(planes, cfa)
         gray_half = rgb_to_gray(half)
+    prevalid = None
+    if cfg.prealign:
+        with record_function("mfsr.prealign"):
+            if prealign_override is not None:
+                st, origin, global_hw = prealign_override
+                planes, prevalid = apply_planes_similarity(
+                    planes, st, cfg.prealign_cfg, origin=origin, global_hw=global_hw
+                )
+            else:
+                planes, prevalid = prealign_planes(planes, gray_half, cfg.prealign_cfg)
+            half = _subsample_from_planes(planes, cfa)
+            gray_half = rgb_to_gray(half)
+
+    with record_function("mfsr.align"):
         tile_shifts = align_burst(gray_half, cfg.align)  # half-res units
         int_half, res_tiles = tile_shift_decompose(tile_shifts)
 
-    # integer plane warp == even RAW-unit warp (the CFA phase is kept);
-    # the reference frame needs no warp, LK or robustness
+    # integer plane warp == even RAW-unit warp (the CFA phase is kept),
+    # the pre-alignment validity warped as a 5th plane; the reference
+    # frame needs no warp, LK or robustness
     with record_function("mfsr.tile_warp"):
-        stack = planes[1:].reshape(f - 1, 4, hh, hw).contiguous()
-        warped_alts = tile_warp(stack, int_half[1:], t, bound=16)
-        warped = torch.cat([planes[:1], warped_alts.reshape(f - 1, 2, 2, hh, hw)], dim=0)
+        stack = planes[1:].reshape(f - 1, 4, hh, hw)
+        if prevalid is not None:
+            stack = torch.cat([stack, prevalid[1:, None]], dim=1)
+        warped_stack = tile_warp(stack.contiguous(), int_half[1:], t, bound=16)
+        valid_w = None if prevalid is None else warped_stack[:, 4]
+        warped_alts = warped_stack[:, :4].reshape(f - 1, 2, 2, hh, hw)
+        warped = torch.cat([planes[:1], warped_alts], dim=0)
 
     # residual at half res = smooth dense flow minus the block-constant
     # integer warp, then LK on the warped half-res luma
@@ -264,6 +317,8 @@ def _handheld_raw_fast(raw_burst: torch.Tensor, cfg: HandheldConfig) -> torch.Te
         cert_alts = robustness_mask(
             warped_half[0], warped_half[1:], res_alts, cfg.robustness, bounded=2
         )[..., :3]
+        if valid_w is not None:
+            cert_alts = cert_alts * valid_w[..., None]
         cert_half = torch.cat([torch.ones_like(cert_alts[:1]), cert_alts], dim=0)
 
     with record_function("mfsr.kernel_params"):

@@ -18,3 +18,11 @@ def srgb_gamma(img: torch.Tensor) -> torch.Tensor:
     low = 12.92 * img
     high = 1.055 * torch.pow(img.clamp_min(1e-8), 1.0 / 2.4) - 0.055
     return torch.where(img <= 0.0031308, low, high)
+
+
+def normalize_minmax(img: torch.Tensor, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+    """Min-max normalize to [lo, hi] over the whole tensor, the range
+    floored at 1e-15 (cv::normalize NORM_MINMAX)."""
+    mn = img.min()
+    mx = img.max()
+    return (img - mn) / (mx - mn).clamp_min(1e-15) * (hi - lo) + lo

@@ -20,11 +20,21 @@ _BAND_MATMUL_MAX_DIM = 1024
 
 
 @functools.lru_cache(maxsize=None)
+def _const_array(make, args: tuple, device: torch.device) -> torch.Tensor:
+    """``make(*args)`` (a numpy array or a CPU tensor) on ``device``, made
+    and copied there once per process: a copy from pageable host memory
+    would stall the host until the card has drained its queue, on every
+    call."""
+    return torch.as_tensor(make(*args)).contiguous().to(device)
+
+
 def _const(values: tuple, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """A small constant on ``device``, copied there once per process: a
-    copy from pageable host memory would stall the host until the card
-    has drained its queue, on every call."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    """A small constant ``values`` on ``device`` (see ``_const_array``)."""
+    return _const_array(_tensor, (values, dtype), device)
+
+
+def _tensor(values: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype)
 
 
 def _pad_edge(x: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:

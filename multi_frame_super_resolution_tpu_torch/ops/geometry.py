@@ -1,5 +1,11 @@
-"""Geometric ops (counterparts of ops/geometry.py): 2x2 mean decimation and
-the bilinear resize with OpenCV pixel-center alignment."""
+"""Geometric ops (counterparts of ops/geometry.py): 2x2 mean decimation,
+the bilinear resize with OpenCV pixel-center alignment, and remaps at
+float coordinates (bilinear, bicubic, nearest) with replicate borders.
+
+Coordinates follow the pixel-index convention: an integer coordinate is
+a pixel center. ``remap`` takes the JAX layouts, (H, W) or (H, W, C);
+``remap_planes`` takes planes (..., H, W) with coordinate grids that
+broadcast against their leading axes."""
 
 from __future__ import annotations
 
@@ -40,3 +46,85 @@ def resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     top = p00 + (p01 - p00) * fx
     bot = p10 + (p11 - p10) * fx
     return top + (bot - top) * fy
+
+
+def _gather_planes(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """img[..., clamp(yi), clamp(xi)] for planes (..., H, W) and integer
+    grids (..., Ho, Wo) that broadcast against the leading axes."""
+    h, w = img.shape[-2], img.shape[-1]
+    flat = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+    lead = torch.broadcast_shapes(img.shape[:-2], flat.shape[:-2])
+    out_hw = flat.shape[-2:]
+    src = img.expand(lead + (h, w)).reshape(lead + (h * w,))
+    idx = flat.expand(lead + out_hw).reshape(lead + (-1,))
+    return torch.gather(src, -1, idx).reshape(lead + out_hw)
+
+
+def _cubic_weights(t: torch.Tensor, a: float = -0.75):
+    """OpenCV-convention cubic convolution weights of the 4 taps around a
+    sample with fractional offset t in [0, 1)."""
+
+    def k(x):
+        ax = x.abs()
+        w1 = ((a + 2.0) * ax - (a + 3.0)) * ax * ax + 1.0
+        w2 = ((a * ax - 5.0 * a) * ax + 8.0 * a) * ax - 4.0 * a
+        return torch.where(ax <= 1.0, w1, torch.where(ax < 2.0, w2, 0.0))
+
+    return [k(t + 1.0), k(t), k(1.0 - t), k(2.0 - t)]
+
+
+def remap_planes(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, method: str = "bilinear") -> torch.Tensor:
+    """Sample planes ``img`` (..., H, W) at float coordinates (ys, xs)
+    (..., Ho, Wo) with clamped (replicate) borders; the taps are summed
+    in the order of ops/geometry.py's remap_bilinear / remap_bicubic."""
+    if method == "nearest":
+        return _gather_planes(img, torch.round(ys).long(), torch.round(xs).long())
+    if method not in ("bilinear", "bicubic"):
+        raise ValueError(f"unknown method {method!r}")
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    fy = ys - y0
+    fx = xs - x0
+    y0 = y0.long()
+    x0 = x0.long()
+    if method == "bilinear":
+        p00 = _gather_planes(img, y0, x0)
+        p01 = _gather_planes(img, y0, x0 + 1)
+        p10 = _gather_planes(img, y0 + 1, x0)
+        p11 = _gather_planes(img, y0 + 1, x0 + 1)
+        top = p00 + (p01 - p00) * fx
+        bot = p10 + (p11 - p10) * fx
+        return top + (bot - top) * fy
+    wy = _cubic_weights(fy)
+    wx = _cubic_weights(fx)
+    out = None
+    for i, wyi in enumerate(wy):
+        row = None
+        for j, wxj in enumerate(wx):
+            term = _gather_planes(img, y0 + (i - 1), x0 + (j - 1)) * wxj
+            row = term if row is None else row + term
+        term = row * wyi
+        out = term if out is None else out + term
+    return out
+
+
+def remap(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, method: str = "bilinear") -> torch.Tensor:
+    """Sample ``img`` (H, W) or (H, W, C) at float coordinates (ys, xs)
+    (Ho, Wo): output (Ho, Wo) or (Ho, Wo, C)."""
+    if img.ndim == 2:
+        return remap_planes(img, ys, xs, method)
+    return torch.movedim(remap_planes(torch.movedim(img, -1, 0), ys, xs, method), 0, -1)
+
+
+def identity_grid(h: int, w: int, device=None, dtype: torch.dtype = torch.float32):
+    """(ys, xs) pixel-center index grids of shape (h, w)."""
+    ys = torch.arange(h, dtype=dtype, device=device)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=dtype, device=device)[None, :].expand(h, w)
+    return ys, xs
+
+
+def translate(img: torch.Tensor, dy, dx, method: str = "bilinear") -> torch.Tensor:
+    """Sample img (H, W[, C]) at (y + dy, x + dx): shifts the scene by
+    (-dy, -dx)."""
+    ys, xs = identity_grid(img.shape[0], img.shape[1], img.device)
+    return remap(img, ys + dy, xs + dx, method)

@@ -247,3 +247,92 @@ def tile_warp_block(imgs: torch.Tensor, int_shifts: torch.Tensor, tile_size: int
     x0 = (xs // t * t + ints[:, ys // t, xs // t, 1]).clamp(0, w - t)
     flat = ((y0 + ys % t) * w + x0 + xs % t).reshape(b, 1, h * w).expand(b, n, h * w)
     return torch.gather(imgs.reshape(b, n, h * w), 2, flat).reshape(b, n, h, w)
+
+
+def default_warp_bound(h: int, w: int) -> int:
+    """Shift clamp of similarity_warp_fast (ops/warp_fast.py::
+    default_warp_bound): ~20-degree corner displacement plus ~24 px of
+    translation at this image size. Validity masks test |src - pos|
+    against the same bound."""
+    return int(np.ceil(0.35 * float(np.hypot(h / 2.0, w / 2.0)))) + 24
+
+
+def _axis_linear_resample(
+    img: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, axis: int, bound: int
+) -> torch.Tensor:
+    """The function of ops/warp_fast.py::_axis_linear_resample: a 1-D
+    linear resample of planes (..., H, W) along image axis ``axis``
+    (0: rows, 1: columns) at an affine source map, given by its values
+    ``lo`` and ``hi`` (..., lines) at the first and last position of
+    every line along the axis; written as three gathers.
+
+    The JAX form reads the map off those ends: a stretch
+    t(p) = clip((slope - 1)(p - center), +-rb) shared by all lines, with
+    slope from line 0, and a per-line offset c = (lo + hi) / 2 - center.
+    It shifts each line by hoist = clip(floor(c), +-bound) (the one-hot
+    pass), then samples the taps floor(p + t) + {0, 1, 2} and blends them
+    at s = frac(p + t) + clip(c - hoist, 0, 1) in [0, 2), piecewise
+    linear with the knee at 1. Every tap index is clamped into the axis
+    (replicate border)."""
+    size = img.shape[-1] if axis == 1 else img.shape[-2]
+    rb = max(6, int(np.ceil(0.07 * size / 2.0)))
+    slope = (hi[..., :1] - lo[..., :1]) / float(max(size - 1, 1))
+    center = (size - 1) / 2.0
+    p = torch.arange(size, dtype=torch.float32, device=img.device)
+    t = ((slope - 1.0) * (p - center)).clamp(-rb, rb)  # (..., size)
+    c = (lo + hi) * 0.5 - center  # (..., lines)
+    hoist = torch.floor(c).clamp(-bound, bound)
+    phi = (c - hoist).clamp(0.0, 1.0)
+    pt = p + t
+    base = torch.floor(pt)
+    f = pt - base
+    if axis == 1:  # (..., lines = H, size = W)
+        pos = base.long()[..., None, :] + hoist.long()[..., :, None]
+        s = f[..., None, :] + phi[..., :, None]
+        dim = -1
+    else:  # (..., size = H, lines = W)
+        pos = base.long()[..., :, None] + hoist.long()[..., None, :]
+        s = f[..., :, None] + phi[..., None, :]
+        dim = -2
+    shape = torch.broadcast_shapes(img.shape, pos.shape)
+    src = img.expand(shape)
+
+    def tap(k):
+        return torch.gather(src, dim, (pos + k).clamp_(0, size - 1).expand(shape))
+
+    e0, e1, e2 = tap(0), tap(1), tap(2)
+    return torch.where(s < 1.0, e0 * (1.0 - s) + e1 * s, e1 * (2.0 - s) + e2 * (s - 1.0))
+
+
+def similarity_warp_fast(
+    img: torch.Tensor, src_y: torch.Tensor, src_x: torch.Tensor, bound: int | None = None
+) -> torch.Tensor:
+    """The function of ops/warp_fast.py::similarity_warp_fast on planes
+    (..., H, W) with affine source grids (..., H, W) that broadcast
+    against their leading axes: the two-pass (Catmull-Smith) resample, a
+    1-D x pass at u(y', x), the x-source of the point on row y' that
+    lands on output column x, then a 1-D y pass at src_y. The affine
+    coefficients are the grids' finite differences, in float32, as the
+    JAX function reads them. It differs from a bilinear ``remap`` on
+    rotations (up to ~0.2 at 15 degrees), so it is not computed as one."""
+    h, w = img.shape[-2], img.shape[-1]
+    if bound is None:
+        bound = default_warp_bound(h, w)
+    a_yy = (src_y[..., 1, 0] - src_y[..., 0, 0])[..., None, None]
+    a_yx = (src_y[..., 0, 1] - src_y[..., 0, 0])[..., None, None]
+    e_y = src_y[..., 0, 0][..., None, None]
+    a_xy = (src_x[..., 1, 0] - src_x[..., 0, 0])[..., None, None]
+    a_xx = (src_x[..., 0, 1] - src_x[..., 0, 0])[..., None, None]
+    e_x = src_x[..., 0, 0][..., None, None]
+    dev = img.device
+    # each pass reads its map at the first and last position of a line
+    # only, so only those entries of u and v are computed
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    x_ends = _const((0.0, w - 1.0), dev)[None, :]
+    safe_a_yy = torch.where(a_yy.abs() > 1e-6, a_yy, 1.0)
+    u = a_xy * (ys - a_yx * x_ends - e_y) / safe_a_yy + a_xx * x_ends + e_x  # (..., H, 2)
+    tmp = _axis_linear_resample(img, u[..., 0], u[..., 1], axis=1, bound=bound)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    y_ends = _const((0.0, h - 1.0), dev)[:, None]
+    v = a_yy * y_ends + a_yx * xs + e_y  # (..., 2, W)
+    return _axis_linear_resample(tmp, v[..., 0, :], v[..., 1, :], axis=0, bound=bound)

@@ -1,7 +1,7 @@
 """Tests of the port that need the card: each Hopper kernel (RGB merge,
-tile warp, tile windows, RAW merge) against its plain PyTorch version,
-and the RGB and RAW slices on the card against the port on the CPU. They
-skip without a CUDA device.
+tile warp, tile windows, RAW merge, defog) against its plain PyTorch
+version, and the RGB, RAW and defog paths on the card against the port on
+the CPU. They skip without a CUDA device.
 
 This file imports no JAX, so the GPU host (which has none) runs it
 without the suite's conftest:
@@ -18,16 +18,26 @@ from torch_parity import cuda_device, nn, psnr, tt
 
 from multi_frame_super_resolution_tpu_torch.config import (
     PORT_DEFAULT,
+    RAW_BENCH,
     RAW_PORT_DEFAULT,
+    RGB_PALLAS,
     AlignConfig,
+    PolarDefogConfig,
 )
-from multi_frame_super_resolution_tpu_torch.data import synthetic_raw_burst, synthetic_rgb_burst
+from multi_frame_super_resolution_tpu_torch.data import (
+    CITY_ANGLES,
+    synthetic_polar_pair,
+    synthetic_raw_burst,
+    synthetic_rgb_burst,
+)
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.kernels.defog import defog, defog_pixels
 from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
 from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
 from multi_frame_super_resolution_tpu_torch.kernels.tile_gather import tile_gather
 from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp, tile_warp_block
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
+from multi_frame_super_resolution_tpu_torch.models.defog import polar_defog
 from multi_frame_super_resolution_tpu_torch.models.handheld import (
     handheld_superres,
     handheld_superres_raw,
@@ -170,4 +180,71 @@ def test_raw_slice_on_card_matches_cpu(fast_extract):
     got = nn(handheld_superres_raw(tt(raw, dev), cfg))
     assert LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1
     assert LAUNCHES["tile_gather"] == (0 if fast_extract else 2)  # one per pyramid level
+    assert psnr(got, want) >= 60.0
+
+
+def _defog_inputs(rng, h, w, dev):
+    iper, ipar = synthetic_polar_pair(rng, h, w)
+    p = (0.2 + 0.4 * rng.random(3)).astype(np.float32)
+    ainfi = (0.6 + 0.3 * rng.random(3)).astype(np.float32)
+    return [tt(x, dev) for x in (iper, ipar, p, ainfi)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(1024, 1224), (37, 61)])
+def test_defog_kernel_matches_plain(h, w):
+    """The kernel runs the plain version's operations in its order with
+    IEEE division and nothing to contract into an FMA: bit for bit."""
+    dev = cuda_device()
+    ins = _defog_inputs(np.random.default_rng(h), h, w, dev)
+    LAUNCHES.clear()
+    got = defog(*ins, 0.001, 0.999, 0.001, 0.999)
+    torch.cuda.synchronize()
+    assert LAUNCHES["defog"] == 1
+    for g, w_ in zip(got, defog_pixels(*ins, 0.001, 0.999, 0.001, 0.999)):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_defog_wrapper_raises_on_card_for_bad_input():
+    dev = cuda_device()
+    iper, ipar, p, ainfi = _defog_inputs(np.random.default_rng(0), 8, 10, dev)
+    with pytest.raises(ValueError):  # not contiguous
+        defog(iper.transpose(0, 1), ipar.transpose(0, 1), p, ainfi)
+    with pytest.raises(TypeError):  # float64
+        defog(iper.double(), ipar.double(), p, ainfi)
+    with pytest.raises(ValueError):  # P on the host
+        defog(iper, ipar, p.cpu(), ainfi)
+
+
+@pytest.mark.cuda
+def test_polar_defog_on_card_launches_the_kernel():
+    """polar_defog on CUDA tensors: one defog launch per frame, and the
+    same result as the port on the CPU."""
+    dev = cuda_device()
+    iper, ipar = synthetic_polar_pair(np.random.default_rng(0), 120, 160)
+    cfg = PolarDefogConfig(beta=1.55)
+    want = [nn(x) for x in polar_defog(tt(iper), tt(ipar), cfg, return_intermediates=True)]
+    LAUNCHES.clear()
+    got = [nn(x) for x in polar_defog(tt(iper, dev), tt(ipar, dev), cfg, return_intermediates=True)]
+    assert LAUNCHES["defog"] == 1
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g, w_, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_prealigned_slices_on_card_match_cpu():
+    """RAW_BENCH and RGB_PALLAS (pre-alignment on) on a rotated burst, on
+    the card against the port on the CPU."""
+    dev = cuda_device()
+    angles = CITY_ANGLES[:2] + CITY_ANGLES[3:]
+    raw, _ = synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5, angles=angles)
+    want = nn(handheld_superres_raw(tt(raw), RAW_BENCH))
+    LAUNCHES.clear()
+    got = nn(handheld_superres_raw(tt(raw, dev), RAW_BENCH))
+    assert LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1
+    assert psnr(got, want) >= 60.0
+    burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5, angles=angles)
+    want = nn(handheld_superres(tt(burst), RGB_PALLAS))
+    got = nn(handheld_superres(tt(burst, dev), RGB_PALLAS))
     assert psnr(got, want) >= 60.0

@@ -1,7 +1,9 @@
 """The RAW main path end to end: handheld_superres_raw on a mosaicked
 burst under config.RAW_PORT_DEFAULT and its windows-branch variant
-(align.fast_extract=False), against the jitted JAX pipeline; and the
-knobs check_supported_raw rejects."""
+(align.fast_extract=False), and under config.RAW_BENCH (bench.py's
+configuration, global pre-alignment on) on a burst rotated as the city
+burst is, against the jitted JAX pipeline; and the knobs
+check_supported_raw rejects."""
 
 import dataclasses
 
@@ -13,6 +15,7 @@ import torch
 from torch_parity import nn, psnr, tt
 
 from multi_frame_super_resolution_tpu.config import (
+    PREALIGN_FAST,
     AlignConfig,
     HandheldConfig,
     LKConfig,
@@ -22,12 +25,18 @@ from multi_frame_super_resolution_tpu.models.handheld import (
     handheld_superres_raw as jax_handheld_superres_raw,
 )
 from multi_frame_super_resolution_tpu.ops import restore as jrestore
-from multi_frame_super_resolution_tpu_torch.config import RAW_PORT_DEFAULT, check_supported_raw
-from multi_frame_super_resolution_tpu_torch.data import synthetic_raw_burst
+from multi_frame_super_resolution_tpu.registration import logpolar as jlogpolar
+from multi_frame_super_resolution_tpu_torch.config import (
+    RAW_BENCH,
+    RAW_PORT_DEFAULT,
+    check_supported_raw,
+)
+from multi_frame_super_resolution_tpu_torch.data import CITY_ANGLES, synthetic_raw_burst
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.models import handheld
 from multi_frame_super_resolution_tpu_torch.models.handheld import handheld_superres_raw
 from multi_frame_super_resolution_tpu_torch.ops import restore
+from multi_frame_super_resolution_tpu_torch.registration.logpolar import similarity_from_numpy
 
 RAW_SLICE = HandheldConfig(
     align=AlignConfig(tile_size=16, search_radius=4, levels=2), gamma=False, prealign=False
@@ -41,6 +50,15 @@ WINDOWS = dataclasses.replace(
 def raw_burst():
     """F = 4 at 128 x 256 RAW (64 x 128 half-res), motion up to 2.5 px."""
     return synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5)[0]
+
+
+@pytest.fixture(scope="module")
+def rotated_raw_burst():
+    """F = 5 at 128 x 256 RAW, frames rotated 0/0/5/10/-15 degrees as the
+    city burst's are, so the pre-alignment warps three of them."""
+    return synthetic_raw_burst(
+        np.random.default_rng(0), 5, 128, 256, 2.5, angles=CITY_ANGLES
+    )[0]
 
 
 def test_raw_port_default_is_the_slice():
@@ -62,6 +80,53 @@ def test_raw_slice_matches_jax_pipeline(raw_burst, cfg):
     assert got.shape == (256, 512, 3) and np.isfinite(got).all()
     assert got.min() >= 0.0 and got.max() <= 1.0
     assert not LAUNCHES  # CPU tensors take the plain versions
+    assert psnr(got, want) >= 60.0
+
+
+def test_raw_bench_matches_jax_pipeline(rotated_raw_burst):
+    """bench.py's configuration end to end: the port estimates the
+    similarities itself (64 x 128 half-res luma, the ds=1 branch). The
+    estimates agree with JAX's exactly on this burst (measured 103.5 dB,
+    max abs 4.8e-4), so the limit is the slice's 60 dB."""
+    assert RAW_BENCH == HandheldConfig(
+        align=AlignConfig(tile_size=16, search_radius=4, levels=2), gamma=False
+    )
+    check_supported_raw(RAW_BENCH)
+    raw = rotated_raw_burst
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw), RAW_BENCH))
+    LAUNCHES.clear()
+    got = nn(handheld_superres_raw(tt(raw), RAW_BENCH))
+    assert got.shape == (256, 512, 3) and np.isfinite(got).all()
+    assert got.min() >= 0.0 and got.max() <= 1.0
+    assert not LAUNCHES
+    assert psnr(got, want) >= 60.0
+
+
+def test_raw_bench_given_one_transform(rotated_raw_burst):
+    """prealign_override: one half-res SimilarityTransform fed to both
+    pipelines, about the center of a larger global image whose [0, 0]
+    sits at an offset, so the estimators are out of the comparison."""
+    f = rotated_raw_burst.shape[0]
+    st = jlogpolar.SimilarityTransform(
+        rotation=jnp.asarray(np.asarray(CITY_ANGLES[1:], np.float32)),
+        scale=jnp.ones(f - 1, jnp.float32),
+        translation=jnp.asarray(
+            np.random.default_rng(1).uniform(-2, 2, (f - 1, 2)).astype(np.float32)
+        ),
+        response=jnp.ones(f - 1, jnp.float32),
+    )
+    override = (st, (4, 8), (72, 144))
+    want = nn(
+        jax.jit(lambda r: jax_handheld_superres_raw(r, RAW_BENCH, prealign_override=override))(
+            jnp.asarray(rotated_raw_burst)
+        )
+    )
+    port_st = similarity_from_numpy(jax.tree_util.tree_map(np.asarray, st))
+    got = nn(
+        handheld_superres_raw(
+            tt(rotated_raw_burst), RAW_BENCH, prealign_override=(port_st, (4, 8), (72, 144))
+        )
+    )
     assert psnr(got, want) >= 60.0
 
 
@@ -101,7 +166,13 @@ def test_raw_slice_without_restore_and_lk(raw_burst):
 @pytest.mark.parametrize(
     "cfg,knob",
     [
-        (HandheldConfig(), "prealign"),
+        (
+            dataclasses.replace(
+                RAW_BENCH,
+                prealign_cfg=dataclasses.replace(PREALIGN_FAST, logpolar_interp="lanczos"),
+            ),
+            "prealign",
+        ),
         (dataclasses.replace(RAW_SLICE, fast=False), "fast"),
         (dataclasses.replace(RAW_SLICE, use_consistency=True), "use_consistency"),
         (dataclasses.replace(RAW_SLICE, warp_matmul=False), "warp_matmul"),
