@@ -48,8 +48,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    per frame and FPS of polar_defog under the reference protocol (32
    warm-up and 256 timed frames, each fenced by a scalar readback) and,
    labeled, its device time per frame back to back; ms per call of each
-   kernel beside its plain version, and the kernel's device time from
-   the profiler.
+   kernel beside its plain version, the kernel's device time from the
+   profiler, and its bound: the larger of the bytes it must move (each
+   input read once, each output written once) over 3.35 TB/s and its
+   operations at the checked shape (WORK) over the card's peak for
+   their type (67 TFLOP/s f32, and exp at 16 a clock on each of 132
+   SMs at 1.98 GHz); merge_raw's registers and spills (ptxas -v).
 6. Where the time goes: one burst (frame) of each path under
    torch.profiler: host and device ms of each stage (the mfsr.* ranges
    of models/handheld.py and models/defog.py, with each kernel's own
@@ -99,6 +103,30 @@ KERNEL_SYMBOLS = {
 # each kernel's stage in the profile
 STAGE_OF = {"merge_fast": "mfsr.merge", "merge_raw": "mfsr.merge", "tile_warp": "mfsr.tile_warp",
             "tile_gather": "mfsr.align", "defog": "mfsr.defog.pixels"}
+# published H100 SXM peaks: HBM3, f32 outside the tensor cores, and the
+# SFU's exp (16 a clock per SM, 132 SMs, 1.98 GHz boost)
+HBM_BYTES_S, F32_FLOPS_S, EXP_S = 3.35e12, 67e12, 16 * 132 * 1.98e9
+# operations per work item of each kernel's function: (f32 flops, exp).
+# A term shared by several items is spread over them: a tap's terms over
+# its phases, a phase row's over the row's columns, a phase column's over
+# the column's rows.
+WORK = {
+    # per (frame, input pixel, tap, phase): the quadratic as 2 FMAs on the
+    # folded omega 4 + 1 exp, 2 FMAs per channel 12; per column dx 1 / 2
+    # rows; per row dy, dy^2 o_yy, dy o_xy 4 / 2 columns; per tap dy0, dx0
+    # 4 and value x certainty 3, / 4 phases: 4 + 12 + 0.5 + 2 + 1.75
+    "merge_fast": (20.25, 1),
+    # per (frame, half-res pixel, tap, phase): two quadratics 8 + 2 exp,
+    # two chain triples 10, four parities 2 FMAs each 16; per column dx 1
+    # / 2 rows; per row dy, dy^2 and four products 6 / 2 columns; per tap
+    # dy0, dx0 4 / 4 phases: 8 + 10 + 16 + 0.5 + 3 + 1
+    "merge_raw": (38.5, 2),
+    # per element: A, t and R with their clips
+    "defog": (11, 0),
+    # copies
+    "tile_warp": (0, 0),
+    "tile_gather": (0, 0),
+}
 
 
 def card_line() -> str:
@@ -267,13 +295,32 @@ def main() -> int:
         "defog": [("defog", lambda: kdefog.defog(*defog_ins),
                    lambda: kdefog.defog_pixels(*defog_ins), DEFOG_TOL)],
     }
-    max_abs_err = {}
+    max_abs_err, out_bytes = {}, {}
     for name, checks in calls.items():
         max_abs_err[name] = 0.0
         for label, kernel_call, plain_call, tol in checks:
             got = kernel_call()
             torch.cuda.synchronize()
             max_abs_err[name] = max(max_abs_err[name], compare(label, got, plain_call(), tol))
+            out_bytes.setdefault(name, sum(t.numel() * t.element_size() for t in got))
+
+    # each kernel's bound at its first (timed) check: its input and output
+    # bytes, and its work items (WORK gives the operations per item)
+    taps_rgb = len(fast_merge._active_taps(1 + 1, 1.0, SCALE, 1.0))
+    taps_raw = len(fast_merge._active_taps(1 + 1, 1.0, SCALE, 1.0, RAW_PORT_DEFAULT.merge.prune_exp))
+    kernel_inputs = {"merge_fast": rgb_ins, "tile_warp": (planes4, sep_shifts),
+                     "tile_gather": (gray4, win_shifts), "merge_raw": raw_ins, "defog": defog_ins}
+    items = {"merge_fast": F * H * W * taps_rgb * SCALE**2, "merge_raw": F * hh * hw * taps_raw * SCALE**2,
+             "defog": DEFOG_H * DEFOG_W * 3, "tile_warp": 0, "tile_gather": 0}
+    bounds = {}
+    for name, ins in kernel_inputs.items():
+        moved = sum(t.numel() * t.element_size() for t in ins) + out_bytes[name]
+        flops, exps = (n * items[name] for n in WORK[name])
+        bytes_ms, ops_ms = moved / HBM_BYTES_S * 1e3, max(flops / F32_FLOPS_S, exps / EXP_S) * 1e3
+        bounds[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"bound {name}: {moved / 1e6:.2f} MB moved ({bytes_ms * 1e3:.2f} us), {flops / 1e9:.3f} GFLOP "
+              f"and {exps / 1e6:.1f} M exp ({ops_ms * 1e3:.2f} us): {bounds[name][0] * 1e3:.2f} us, "
+              f"bound by {bounds[name][1]}")
 
     # 4. the paths end to end on the card
     # each kernel -> the (module, attribute) its path calls its wrapper
@@ -408,16 +455,23 @@ def main() -> int:
                                raw_windows_cfg, ("tile_warp", "merge_raw", "tile_gather"), raw_small)
 
     # 5. timing: kernels beside their plain versions, then the paths
-    kernel_ms, plain_ms = {}, {}
+    kernel_ms, plain_ms, device_ms = {}, {}, {}
     for name, checks in calls.items():
         _, kernel_call, plain_call, _ = checks[0]
         k1 = time_cuda(kernel_call, iters=50, warmup=5)
         p = time_cuda(plain_call, iters=5, warmup=2)
         k2 = time_cuda(kernel_call, iters=50, warmup=5)
         kernel_ms[name], plain_ms[name] = k1, p
+        device_ms[name] = kernel_device_ms(kernel_call, KERNEL_SYMBOLS[name])
         print(f"kernel {name} ({checks[0][0]}): kernel {k1:.4f} / {k2:.4f} ms per call, "
-              f"{kernel_device_ms(kernel_call, KERNEL_SYMBOLS[name]):.4f} ms device time "
-              f"(profiler); plain {p:.4f} ms per call  [{card}]")
+              f"{device_ms[name]:.4f} ms device time (profiler), bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}): {100.0 * bounds[name][0] / device_ms[name]:.1f}% of bound; "
+              f"plain {p:.4f} ms per call  [{card}]")
+    ptxas = [line.strip() for line in libs[modules.index(kmerge_raw)].build_log.splitlines()
+             if "registers" in line or "spill" in line]
+    print(f"merge_raw: {'; '.join(ptxas) or 'ptxas -v printed nothing (library already built)'}; "
+          f"{device_ms['merge_raw']:.4f} ms device time, "
+          f"{100.0 * bounds['merge_raw'][0] / device_ms['merge_raw']:.1f}% of its bound")
 
     def time_slice(label, fn, burst, cfg):
         bursts = [burst * (1.0 - 1e-5 * i) for i in range(13)]
@@ -473,6 +527,10 @@ def main() -> int:
         "max_abs_err": max_abs_err[name],
         "ms": kernel_ms[name],
         "plain_ms": plain_ms[name],
+        "device_ms": device_ms[name],
+        "bound_ms": bounds[name][0],
+        "bound_by": bounds[name][1],
+        "library_ms": None,  # no one PyTorch call computes any of these functions
     } for name, launches in (
         ("merge_fast", rgb_launches), ("tile_warp", bench_launches),
         ("tile_gather", win_launches), ("merge_raw", bench_launches),

@@ -1,6 +1,6 @@
 """Polarization-defog CLI (counterpart of apps/polar_defog.py):
 
-    python -m multi_frame_super_resolution_tpu_torch.apps.polar_defog debug inputType beta
+    python -m multi_frame_super_resolution_tpu_torch.apps.polar_defog debug inputType beta [--device DEV]
 
   * debug: 0 | 1 (1 => a single frame, intermediates dumped to
     polar_defog_debug.npz)
@@ -9,7 +9,9 @@
     reader, which the port does not have yet: they raise ValueError.
   * beta: polarization scale (1.55 for type 1, 10 for type 2)
 
-Runs on the card when there is one, else on the CPU. Without debug: 32
+Runs on cuda:0 unless ``--device`` (``main(device=...)``) names another
+device, such as ``cpu``; with no card and no such request it raises
+rather than run on the CPU. Without debug: 32
 warm-up and 256 timed frames, each dispatched alone and fenced by a
 scalar readback (the reference protocol), with each frame's input
 scaled by 1 + 1e-7 i; then, labeled, the device time per frame over 256
@@ -70,13 +72,33 @@ def time_frames(frame, warmup: int = 32, frames: int = 256):
     return ms, start.elapsed_time(end) / frames
 
 
-def main(argv=None) -> int:
+def _device(device):
+    """cuda:0 unless ``device`` names another; no card and no request
+    raises."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "polar_defog runs on cuda:0 and finds no CUDA device; "
+            "ask for the CPU with --device cpu (main(device='cpu'))"
+        )
+    return torch.device("cuda", 0)
+
+
+def main(argv=None, device=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
+    if "--device" in argv[:-1]:
+        at = argv.index("--device")
+        device = argv[at + 1]
+        del argv[at : at + 2]
     if len(argv) != 3:
-        print("polar_defog debug inputType beta")
+        print("polar_defog debug inputType beta [--device DEV]")
         print("\tdebug: 0 or 1")
         print("\tinputType: 1, 2 or 3 (3: synthetic demo)")
         print("\tbeta: 1.55 for 1 and 10 for 2, need to adjust")
+        print("\tDEV: the torch device, cuda:0 by default (cpu: the plain versions)")
         return -1
     debug = bool(int(argv[0]))
     input_type = int(argv[1])
@@ -91,7 +113,7 @@ def main(argv=None) -> int:
 
     iper_np, ipar_np = _load_inputs(input_type)
     cfg = PolarDefogConfig(beta=beta)
-    dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    dev = _device(device)
     iper = torch.from_numpy(iper_np).to(dev)
     ipar = torch.from_numpy(ipar_np).to(dev)
 

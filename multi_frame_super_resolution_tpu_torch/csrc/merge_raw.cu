@@ -1,7 +1,7 @@
 // RAW plane-domain order-1 merge (certless plugin branch) for Hopper
-// (sm_90a), scale 2.
+// (sm_90a), scale 2, Bayer patterns.
 //
-// The JAX package computes this accumulate outside Pallas
+// Replaces: the JAX package computes this accumulate outside Pallas
 // (multi_frame_super_resolution_tpu/models/fast_merge.py::
 // merge_burst_raw_planes with order=1, moment_slots=4,
 // centroid_cert=False, phase_output=True; fast_merge.py:301-511 and the
@@ -32,187 +32,343 @@
 // and finally cy = clip(m01 / sum w, +-2), cx likewise (0 where
 // sum w <= 1e-8), each cell reading the chain of its channel. Outputs
 // m00, cy, cx, b0 are (2s, 2s, 3, hh, hw), phase index (a*s+py, b*s+px).
-// Per tap the frame sum is formed first and then added, the JAX order.
 //
-// Design: one thread per (half-res pixel, output parity): 4 x 128 x 256
-// = 131,072 threads at the city geometry (one thread per pixel alone
-// would be 32,768, a quarter wave on 132 SMs). A thread owns one parity's
-// 4 phases x 3 channels of m00/b0 (24 registers) and the 3 centroid
-// chains its channels read (36 registers), so nothing but the outputs
-// goes to device memory. The tap list and the per-parity plane, offset,
-// channel and chain tables are built on the host and passed by value.
-// The chain sums are recomputed by each parity that reads them (a
-// thread's chains depend only on the tap parity), which costs no extra
-// exp: both weight families are needed for the cells anyway.
+// Bound, at chip_smoke.py's check (F=5, 128 x 256 half-res, 21 taps):
+// 6.7 MB read (planes 2.6, residual 1.3, certainty 2.0, two omegas 0.8)
+// and 25.2 MB written (4 moments x 48 values x 32,768 pixels) are 9.5 us
+// at 3.35 TB/s; the 13.8 M (pixel, frame, tap, phase) items at 38.5
+// flops and 2 exp each (chip_smoke.py's WORK table) are 0.53 GFLOP
+// (7.9 us at 67 TFLOP/s f32) and 27.5 M exp (6.6 us on the SFUs). The
+// bytes bind.
 //
-// Bound: arithmetic. Per thread F * |taps| * 4 phases * 2 expf: at F=5,
-// 21 taps, 840 expf and ~34 flops per (frame, tap, phase), i.e. 110 M
-// expf and ~1.9 GFLOP at the city geometry, against 6.7 MB of input
-// (re-read through L1/L2 by neighbouring threads) and 25 MB of output.
-// Measured 0.18 ms of device time there (NVIDIA H100 80GB HBM3,
-// 700.00 W): ~10 TFLOP/s, ~15% of the f32 non-tensor peak.
+// Design:
+// - One thread per (half-res pixel, phase row py), holding both x phases:
+//   each Gaussian pair w_g, w_rb is evaluated once per (pixel, frame,
+//   tap, phase), 27.5 M exp, and shared by the four output parities, and
+//   a thread's two phases share the frame's residual, dy and the four
+//   staged reads. (The first version ran a thread per (pixel, parity)
+//   and evaluated every pair four times: 110 M exp, 131 registers,
+//   0.18 ms.)
+// - The host sorts the taps into the four tap-parity groups
+//   g = 2*(ky%2) + (kx%2). Within a group each parity reads one fixed
+//   plane and the taps feed one green chain ((ky+kx)%2) and one R/B
+//   chain (ky%2, kx%2). The groups run in two pairs, {0, 3} and {1, 2}:
+//   on a Bayer pattern the two groups of a pair read, for every parity,
+//   two diagonally opposite planes (both green, or R and B), and the
+//   pair's green chain and its two R/B chains are fed by it alone. So an
+//   R or B cell is complete after its group and a green cell after its
+//   pair; each is stored then, which spreads the stores and bounds the
+//   live accumulators by one pair's. The green planes' place
+//   (kGreenDiag) is a template parameter, so each read's weight family
+//   is known at compile time; R and B may swap.
+// - Per tap the frame sum is formed first and then added (the JAX
+//   order). What differs from the plain version is rounding: the taps of
+//   a green cell's two groups are summed group by group, the exponent is
+//   evaluated as 2^(dx (dx o0 + dy o2) + dy^2 o1) with -1/2 log2(e) in
+//   omega, by ex2.approx, and a site's value is staged as value *
+//   certainty. Max abs error 1.4e-6 at the check, inside rtol/atol 1e-5
+//   at every shape of tests/test_torch_cuda.py.
+// - A block is 32 x 4 pixels x 2 phase rows (256 threads). It stages,
+//   for every frame, its tile plus the tap halo (1 or 2 sites,
+//   edge-clamped like the plain version's padding) in shared memory with
+//   cp.async: one (value * certainty, certainty of the site's channel)
+//   float2 per RAW site, so a parity's read is one 64-bit load at a
+//   plain 2-D offset, and the clipped residual of its own pixels. The
+//   tap loop runs over the frames innermost, so every frame is resident
+//   at once (there is nothing to double-buffer across frames); 7.4 KB a
+//   frame at halo 1 (30 frames fit), 10 KB at halo 2 (22). Omega and
+//   omega_rb stay in registers. The frame cap is a deliberate narrowing
+//   against the first version, which took any number of frames: longer
+//   bursts raise (bursts are 4-8 frames), and streaming frames in chunks
+//   would need the chains' sums, not the finished centroids, as output.
+// - Stores: each warp writes 32 consecutive pixels of one output plane,
+//   in the (4, 4, 3, hh, hw) layout the solve reads.
+// - Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 122-126
+//   registers, no spills, 2 blocks an SM; 0.032 ms against 0.18 ms for
+//   the first version, ~29% of the bound. The staging at the start and
+//   the output stores, which all blocks of the one wave issue at the
+//   same points, are not hidden behind the tap loop.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+
 namespace {
 
-constexpr int kS = 2;           // scale
-constexpr int kPh = kS * kS;    // output phases per parity cell
-constexpr int kMaxTaps = 81;    // tap radius up to 4
+constexpr int kS = 2;            // scale
+constexpr int kMaxTaps = 81;     // tap radius up to 4
+constexpr int kTileW = 32;       // half-res columns of a block (one warp)
+constexpr int kTileH = 4;        // half-res rows of a block
+constexpr int kPix = kTileW * kTileH;
+constexpr int kThreads = kPix * kS;  // one per (pixel, phase row)
+constexpr int kMinBlocks = 2;    // blocks an SM, by the launch bound
 
 struct TapTable {
-  int n;
+  int group_end[4];  // group g holds taps [group_end[g-1], group_end[g])
+  int chan[4];       // channel of plane q = 2*qa + qb
   signed char ky[kMaxTaps];
   signed char kx[kMaxTaps];
-  // per output parity z = 2a + b and tap
-  unsigned char plane[4][kMaxTaps];  // source plane 2*qa + qb
-  signed char da[4][kMaxTaps];       // half-res row offset (a+ky)//2
-  signed char db[4][kMaxTaps];       // half-res column offset (b+kx)//2
-  unsigned char ch[4][kMaxTaps];     // channel of the cell the tap feeds
-  unsigned char chain[4][kMaxTaps];  // bit c: feeds the chain of channel c
 };
 
-__global__ void merge_raw_kernel(const float* __restrict__ planes,
-                                 const float* __restrict__ residual,
-                                 const float* __restrict__ certainty,
-                                 const float* __restrict__ omega,
-                                 const float* __restrict__ omega_rb,
-                                 float* __restrict__ m00_out,
-                                 float* __restrict__ cy_out,
-                                 float* __restrict__ cx_out,
-                                 float* __restrict__ b0_out, int frames,
-                                 int hh, int hw, float rb,
-                                 const TapTable taps) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int z = blockIdx.z;  // output parity 2a + b
-  if (j >= hw || i >= hh) return;
-  const int a = z >> 1;
-  const int b = z & 1;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
 
-  // phi[p] = (p + 0.5) / s - 0.5 in the f32 operations of
-  // fast_merge._output_phase_offsets; phis = phi * s
-  float phi[kS], phis[kS];
-#pragma unroll
-  for (int p = 0; p < kS; ++p) {
-    phi[p] = ((float)p + 0.5f) / (float)kS - 0.5f;
-    phis[p] = phi[p] * (float)kS;
-  }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
 
+// 2^x by the SFU's ex2.approx (relative error ~2^-22; subnormal results
+// flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the plane parity z = 2a + b reads in tap group g
+__host__ __device__ constexpr int plane_of(int z, int g) {
+  return 2 * (((z >> 1) + (g >> 1)) & 1) + (((z & 1) + (g & 1)) & 1);
+}
+
+template <bool kGreenDiag>
+__device__ constexpr bool is_green(int q) {
+  return kGreenDiag ? (q == 0 || q == 3) : (q == 1 || q == 2);
+}
+
+// Writes cell (parity z, channel c) of phase (py, px): the weight sum m,
+// the value sum b and the finalized centroid n / w of its chain.
+__device__ __forceinline__ void store_cell(float* __restrict__ m00_out,
+                                           float* __restrict__ cy_out,
+                                           float* __restrict__ cx_out,
+                                           float* __restrict__ b0_out, long long plane,
+                                           long long out_pix, int z, int py, int px, int c,
+                                           float m, float b, float w, float n1, float n2) {
+  const int row = (z >> 1) * kS + py, col = (z & 1) * kS + px;
+  const long long o = (((long long)row * 2 * kS + col) * 3 + c) * plane + out_pix;
+  const float inv = w > 1e-8f ? 1.0f / fmaxf(w, 1e-8f) : 0.0f;
+  m00_out[o] = m;
+  b0_out[o] = b;
+  cy_out[o] = fminf(fmaxf(n1 * inv, -2.0f), 2.0f);
+  cx_out[o] = fminf(fmaxf(n2 * inv, -2.0f), 2.0f);
+}
+
+template <int kHalo, bool kGreenDiag>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+merge_raw_kernel(const float* __restrict__ planes,
+                 const float* __restrict__ residual,
+                 const float* __restrict__ certainty,
+                 const float* __restrict__ omega,
+                 const float* __restrict__ omega_rb,
+                 float* __restrict__ m00_out, float* __restrict__ cy_out,
+                 float* __restrict__ cx_out, float* __restrict__ b0_out,
+                 int frames, int hh, int hw, float rb, const TapTable taps) {
+  constexpr int kSW = kTileW + 2 * kHalo;          // staged row length
+  constexpr int kSA = (kTileH + 2 * kHalo) * kSW;  // staged sites per plane
+  extern __shared__ float2 smem[];
+  float2* sv = smem;                               // (F, 4, kSA): value, cert
+  float2* sres = smem + (size_t)frames * 4 * kSA;  // (F, kPix): ry, rx
+
+  const int tx = threadIdx.x, ty = threadIdx.y, py = threadIdx.z;
+  const int tid = (py * kTileH + ty) * kTileW + tx;
+  const int i0 = blockIdx.y * kTileH, j0 = blockIdx.x * kTileW;
   const long long plane = (long long)hh * hw;
-  const long long pix = (long long)i * hw + j;
-  const float og0 = omega[pix * 3 + 0], og1 = omega[pix * 3 + 1],
-              og2 = omega[pix * 3 + 2];
-  const float or0 = omega_rb[pix * 3 + 0], or1 = omega_rb[pix * 3 + 1],
-              or2 = omega_rb[pix * 3 + 2];
 
-  float m00[kPh][3], b0[kPh][3], cw[3][kPh], c1[3][kPh], c2[3][kPh];
-#pragma unroll
-  for (int ph = 0; ph < kPh; ++ph)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      m00[ph][c] = 0.0f;
-      b0[ph][c] = 0.0f;
-      cw[c][ph] = 0.0f;
-      c1[c][ph] = 0.0f;
-      c2[c][ph] = 0.0f;
-    }
-
-  for (int t = 0; t < taps.n; ++t) {
-    const float ky = (float)taps.ky[t];
-    const float kx = (float)taps.kx[t];
-    const int q = taps.plane[z][t];
-    const int ch = taps.ch[z][t];
-    const int mask = taps.chain[z][t];
-    const int si = min(max(i + taps.da[z][t], 0), hh - 1);
-    const int sj = min(max(j + taps.db[z][t], 0), hw - 1);
-    const long long spix = (long long)si * hw + sj;
-
-    // this tap's frame sums: weight families g / rb, and the cell's
-    float sw_g[kPh], sry_g[kPh], srx_g[kPh], sw_r[kPh], sry_r[kPh], srx_r[kPh];
-    float sm[kPh], sb[kPh];
-#pragma unroll
-    for (int ph = 0; ph < kPh; ++ph) {
-      sw_g[ph] = sry_g[ph] = srx_g[ph] = 0.0f;
-      sw_r[ph] = sry_r[ph] = srx_r[ph] = 0.0f;
-      sm[ph] = sb[ph] = 0.0f;
-    }
-    for (int f = 0; f < frames; ++f) {
-      const long long fp = (long long)f * plane;
-      const float ry = fminf(fmaxf(residual[(fp + pix) * 2 + 0], -rb), rb);
-      const float rx = fminf(fmaxf(residual[(fp + pix) * 2 + 1], -rb), rb);
-      const float val = planes[((long long)f * 4 + q) * plane + spix];
-      const float cv = certainty[(fp + spix) * 3 + ch];
-      const float u = (ky - ry) * (float)kS;
-      const float v = (kx - rx) * (float)kS;
-#pragma unroll
-      for (int py = 0; py < kS; ++py) {
-        const float dy = u - phis[py];
-#pragma unroll
-        for (int px = 0; px < kS; ++px) {
-          const int ph = py * kS + px;
-          const float dx = v - phis[px];
-          const float wg =
-              expf(-0.5f * (dx * dx * og0 + dy * dy * og1 + 2.0f * dx * dy * og2));
-          const float wr =
-              expf(-0.5f * (dx * dx * or0 + dy * dy * or1 + 2.0f * dx * dy * or2));
-          sw_g[ph] += wg;
-          sry_g[ph] += ry * wg;
-          srx_g[ph] += rx * wg;
-          sw_r[ph] += wr;
-          sry_r[ph] += ry * wr;
-          srx_r[ph] += rx * wr;
-          const float wc = (ch == 1 ? wg : wr) * cv;
-          sm[ph] += wc;
-          sb[ph] += wc * val;
-        }
-      }
-    }
-    // predicated adds keep the accumulators in registers (no dynamic
-    // indexing by the runtime channel)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const bool cell = c == ch;
-      const bool feeds = (mask >> c) & 1;
-#pragma unroll
-      for (int py = 0; py < kS; ++py)
-#pragma unroll
-        for (int px = 0; px < kS; ++px) {
-          const int ph = py * kS + px;
-          if (cell) {
-            m00[ph][c] += sm[ph];
-            b0[ph][c] += sb[ph];
-          }
-          if (feeds) {
-            const float sw = c == 1 ? sw_g[ph] : sw_r[ph];
-            const float sry = c == 1 ? sry_g[ph] : sry_r[ph];
-            const float srx = c == 1 ? srx_g[ph] : srx_r[ph];
-            cw[c][ph] += sw;
-            c1[c][ph] += (float)kS * ((ky - phi[py]) * sw - sry);
-            c2[c][ph] += (float)kS * ((kx - phi[px]) * sw - srx);
-          }
-        }
-    }
+  // stage every frame's tile and halo, edge-clamped
+  for (int e = tid; e < frames * 4 * kSA; e += kThreads) {
+    const int site = e % kSA;
+    const int fq = e / kSA;
+    const int q = fq & 3;
+    const int f = fq >> 2;
+    const int r = min(max(i0 - kHalo + site / kSW, 0), hh - 1);
+    const int c = min(max(j0 - kHalo + site % kSW, 0), hw - 1);
+    const long long rc = (long long)r * hw + c;
+    cp_async4(&sv[e].x, planes + ((long long)f * 4 + q) * plane + rc);
+    cp_async4(&sv[e].y, certainty + ((long long)f * plane + rc) * 3 + taps.chan[q]);
   }
+  for (int e = tid; e < frames * kPix; e += kThreads) {
+    const int p = e % kPix;
+    const int f = e / kPix;
+    const int r = min(i0 + p / kTileW, hh - 1);
+    const int c = min(j0 + p % kTileW, hw - 1);
+    cp_async8(&sres[e], residual + ((long long)f * plane + (long long)r * hw + c) * 2);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  // clip the residual; each site's value becomes value * certainty
+  for (int e = tid; e < frames * kPix; e += kThreads) {
+    sres[e] = make_float2(fminf(fmaxf(sres[e].x, -rb), rb), fminf(fmaxf(sres[e].y, -rb), rb));
+  }
+  for (int e = tid; e < frames * 4 * kSA; e += kThreads) sv[e].x *= sv[e].y;
+  __syncthreads();
+
+  const int i = i0 + ty, j = j0 + tx;
+  const bool inside = i < hh && j < hw;
+  const long long pix = (long long)min(i, hh - 1) * hw + min(j, hw - 1);
+  const long long out_pix = (long long)i * hw + j;
+  // phi[p] = (p + 0.5) / s - 0.5 in the f32 operations of
+  // fast_merge._output_phase_offsets; phis = phi * s. The x phases are
+  // the thread's two columns, constants.
+  const float phi_y = ((float)py + 0.5f) / (float)kS - 0.5f;
+  const float phis_y = phi_y * (float)kS;
+  constexpr float kPhiX[kS] = {0.5f / kS - 0.5f, 1.5f / kS - 0.5f};
+  // exp(q) = 2^(q log2 e): -1/2 log2(e) and the cross term's -log2(e)
+  // folded into omega, so w = 2^(dx (dx o0 + dy o2) + dy^2 o1)
+  constexpr float kL = 1.4426950408889634f;  // log2(e)
+  const float og0 = -0.5f * kL * omega[pix * 3 + 0], og1 = -0.5f * kL * omega[pix * 3 + 1],
+              og2 = -kL * omega[pix * 3 + 2];
+  const float or0 = -0.5f * kL * omega_rb[pix * 3 + 0],
+              or1 = -0.5f * kL * omega_rb[pix * 3 + 1], or2 = -kL * omega_rb[pix * 3 + 2];
+  const float2* my_res = sres + ty * kTileW + tx;
+  const float2* my_sv = sv + (ty + kHalo) * kSW + (tx + kHalo);
 
 #pragma unroll
-  for (int py = 0; py < kS; ++py)
+  for (int pair = 0; pair < 2; ++pair) {
+    // [parity z][group of the pair][x phase]
+    float m00[4][2][kS], b0[4][2][kS];
+    // [the pair's green chain, its groups' R/B chains][x phase]
+    float cw[3][kS], c1[3][kS], c2[3][kS];
 #pragma unroll
     for (int px = 0; px < kS; ++px) {
-      const int ph = py * kS + px;
-      const int row = a * kS + py;
-      const int col = b * kS + px;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const long long o = (((long long)row * 2 * kS + col) * 3 + c) * plane + pix;
-        const float wsum = cw[c][ph];
-        const float inv = wsum > 1e-8f ? 1.0f / fmaxf(wsum, 1e-8f) : 0.0f;
-        m00_out[o] = m00[ph][c];
-        b0_out[o] = b0[ph][c];
-        cy_out[o] = fminf(fmaxf(c1[c][ph] * inv, -2.0f), 2.0f);
-        cx_out[o] = fminf(fmaxf(c2[c][ph] * inv, -2.0f), 2.0f);
+      for (int z = 0; z < 4; ++z) {
+        m00[z][0][px] = m00[z][1][px] = b0[z][0][px] = b0[z][1][px] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) cw[k][px] = c1[k][px] = c2[k][px] = 0.0f;
+    }
+
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int g = pair == 0 ? 3 * k : 1 + k;  // {0, 3}, then {1, 2}
+      for (int t = g ? taps.group_end[g - 1] : 0; t < taps.group_end[g]; ++t) {
+        const int kyi = taps.ky[t], kxi = taps.kx[t];
+        const float ky = (float)kyi, kx = (float)kxi;
+        int off[4];
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
+        }
+        float sm[4][kS], sb[4][kS];
+        float sw_g[kS], sry_g[kS], srx_g[kS], sw_r[kS], sry_r[kS], srx_r[kS];
+#pragma unroll
+        for (int px = 0; px < kS; ++px) {
+#pragma unroll
+          for (int z = 0; z < 4; ++z) sm[z][px] = sb[z][px] = 0.0f;
+          sw_g[px] = sry_g[px] = srx_g[px] = sw_r[px] = sry_r[px] = srx_r[px] = 0.0f;
+        }
+#pragma unroll 2
+        for (int f = 0; f < frames; ++f) {
+          const float2 res = my_res[f * kPix];
+          const float dy = (ky - res.x) * (float)kS - phis_y;
+          const float dyy = dy * dy;
+          const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
+          float wg[kS], wr[kS];
+#pragma unroll
+          for (int px = 0; px < kS; ++px) {
+            const float dx = (kx - res.y) * (float)kS - kPhiX[px] * (float)kS;
+            wg[px] = exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy));
+            wr[px] = exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy));
+            sw_g[px] += wg[px];
+            sry_g[px] += res.x * wg[px];
+            srx_g[px] += res.y * wg[px];
+            sw_r[px] += wr[px];
+            sry_r[px] += res.x * wr[px];
+            srx_r[px] += res.y * wr[px];
+          }
+          const float2* fsv = my_sv + f * 4 * kSA;
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            const float2 vc = fsv[off[z]];  // (value * certainty, certainty)
+            const bool green = is_green<kGreenDiag>(plane_of(z, g));
+#pragma unroll
+            for (int px = 0; px < kS; ++px) {
+              const float w = green ? wg[px] : wr[px];
+              sm[z][px] = fmaf(w, vc.y, sm[z][px]);
+              sb[z][px] = fmaf(w, vc.x, sb[z][px]);
+            }
+          }
+        }
+#pragma unroll
+        for (int px = 0; px < kS; ++px) {
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            m00[z][k][px] += sm[z][px];
+            b0[z][k][px] += sb[z][px];
+          }
+          cw[0][px] += sw_g[px];
+          c1[0][px] += (float)kS * ((ky - phi_y) * sw_g[px] - sry_g[px]);
+          c2[0][px] += (float)kS * ((kx - kPhiX[px]) * sw_g[px] - srx_g[px]);
+          cw[1 + k][px] += sw_r[px];
+          c1[1 + k][px] += (float)kS * ((ky - phi_y) * sw_r[px] - sry_r[px]);
+          c2[1 + k][px] += (float)kS * ((kx - kPhiX[px]) * sw_r[px] - srx_r[px]);
+        }
+      }
+      // the R and B cells group g completed (parities that read R or B in
+      // this pair): stored now, so their registers free up and the
+      // stores spread over the kernel
+      if (inside) {
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          if (is_green<kGreenDiag>(plane_of(z, g))) continue;
+#pragma unroll
+          for (int px = 0; px < kS; ++px) {
+            store_cell(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px,
+                       taps.chan[plane_of(z, g)], m00[z][k][px], b0[z][k][px],
+                       cw[1 + k][px], c1[1 + k][px], c2[1 + k][px]);
+          }
+        }
       }
     }
+
+    // the green cells of this pair, their two groups in group order
+    if (inside) {
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        if (!is_green<kGreenDiag>(plane_of(z, pair == 0 ? 0 : 1))) continue;
+#pragma unroll
+        for (int px = 0; px < kS; ++px) {
+          store_cell(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px, 1,
+                     m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px],
+                     cw[0][px], c1[0][px], c2[0][px]);
+        }
+      }
+    }
+  }
+}
+
+template <int kHalo>
+size_t smem_bytes(int frames) {
+  const size_t sites = (size_t)(kTileH + 2 * kHalo) * (kTileW + 2 * kHalo);
+  return (size_t)frames * (4 * sites + kPix) * sizeof(float2);
+}
+
+template <int kHalo, bool kGreenDiag>
+int launch(const void* planes, const void* residual, const void* certainty,
+           const void* omega, const void* omega_rb, void* m00, void* cy,
+           void* cx, void* b0, int frames, int hh, int hw, float rb,
+           const TapTable& taps, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<kHalo>(frames);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_raw_kernel<kHalo, kGreenDiag>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 block(kTileW, kTileH, kS);
+  const dim3 grid((hw + kTileW - 1) / kTileW, (hh + kTileH - 1) / kTileH, 1);
+  merge_raw_kernel<kHalo, kGreenDiag><<<grid, block, bytes, stream>>>(
+      static_cast<const float*>(planes), static_cast<const float*>(residual),
+      static_cast<const float*>(certainty), static_cast<const float*>(omega),
+      static_cast<const float*>(omega_rb), static_cast<float*>(m00),
+      static_cast<float*>(cy), static_cast<float*>(cx),
+      static_cast<float*>(b0), frames, hh, hw, rb, taps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -222,43 +378,65 @@ extern "C" {
 // Launches the RAW merge on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to the contiguous float32 arrays
 // described above; the four outputs (2s, 2s, 3, hh, hw) are written in
-// full. table is a HOST int array of n_taps rows of 22 ints:
-// ky, kx, then for each parity z = 2a + b: plane, da, db, ch, chain mask.
+// full. table is a HOST int array: the channel of each plane q = 2*qa + qb
+// (4, a Bayer pattern: green on one diagonal, R and B on the other), the
+// end of each tap-parity group (4), then n_taps rows (ky, kx) sorted by
+// group g = 2*(ky%2) + (kx%2).
 int mfsr_merge_raw(const void* planes, const void* residual,
                    const void* certainty, const void* omega,
                    const void* omega_rb, void* m00, void* cy, void* cx,
                    void* b0, int frames, int hh, int hw, float rb,
                    const void* table, int n_taps, void* stream) {
-  if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || hh < 1 || hw < 1) {
-    return (int)cudaErrorInvalidValue;
+  if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || hh < 1 || hw < 1 ||
+      reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
+    return (int)cudaErrorInvalidValue;  // the residual is copied as float2
   }
+  const int* tab = static_cast<const int*>(table);
   TapTable taps;
-  taps.n = n_taps;
-  const int* row = static_cast<const int*>(table);
-  for (int t = 0; t < n_taps; ++t, row += 22) {
-    taps.ky[t] = (signed char)row[0];
-    taps.kx[t] = (signed char)row[1];
-    for (int z = 0; z < 4; ++z) {
-      const int* e = row + 2 + 5 * z;
-      if (e[0] < 0 || e[0] > 3 || e[3] < 0 || e[3] > 2) {
-        return (int)cudaErrorInvalidValue;
-      }
-      taps.plane[z][t] = (unsigned char)e[0];
-      taps.da[z][t] = (signed char)e[1];
-      taps.db[z][t] = (signed char)e[2];
-      taps.ch[z][t] = (unsigned char)e[3];
-      taps.chain[z][t] = (unsigned char)e[4];
+  for (int q = 0; q < 4; ++q) taps.chan[q] = tab[q];
+  const bool green_diag = taps.chan[0] == 1 && taps.chan[3] == 1;
+  const bool green_anti = taps.chan[1] == 1 && taps.chan[2] == 1;
+  const int o0 = green_diag ? 1 : 0, o1 = green_diag ? 2 : 3;  // the R/B planes
+  if (green_diag == green_anti || taps.chan[o0] + taps.chan[o1] != 2 ||
+      taps.chan[o0] == 1) {
+    return (int)cudaErrorInvalidValue;  // not a Bayer pattern
+  }
+  for (int g = 0; g < 4; ++g) {
+    taps.group_end[g] = tab[4 + g];
+    if (tab[4 + g] < (g ? tab[3 + g] : 0) || tab[4 + g] > n_taps) {
+      return (int)cudaErrorInvalidValue;
     }
   }
-  const dim3 block(32, 8, 1);
-  const dim3 grid((hw + block.x - 1) / block.x, (hh + block.y - 1) / block.y, 4);
-  merge_raw_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(planes), static_cast<const float*>(residual),
-      static_cast<const float*>(certainty), static_cast<const float*>(omega),
-      static_cast<const float*>(omega_rb), static_cast<float*>(m00),
-      static_cast<float*>(cy), static_cast<float*>(cx),
-      static_cast<float*>(b0), frames, hh, hw, rb, taps);
-  return (int)cudaGetLastError();
+  if (taps.group_end[3] != n_taps) return (int)cudaErrorInvalidValue;
+  const int* rows = tab + 8;
+  int halo = 1;
+  for (int t = 0; t < n_taps; ++t) {
+    const int ky = rows[2 * t], kx = rows[2 * t + 1];
+    if (ky < -4 || ky > 4 || kx < -4 || kx > 4) return (int)cudaErrorInvalidValue;
+    const int g = 2 * (ky & 1) + (kx & 1);
+    if (t < (g ? taps.group_end[g - 1] : 0) || t >= taps.group_end[g]) {
+      return (int)cudaErrorInvalidValue;
+    }
+    taps.ky[t] = (signed char)ky;
+    taps.kx[t] = (signed char)kx;
+    for (int a = 0; a < 2; ++a) {
+      halo = std::max({halo, std::abs((a + ky) >> 1), std::abs((a + kx) >> 1)});
+    }
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MFSR_LAUNCH(H, G)                                                           \
+  launch<H, G>(planes, residual, certainty, omega, omega_rb, m00, cy, cx, b0, frames, \
+               hh, hw, rb, taps, s)
+  if (halo == 1) return green_diag ? MFSR_LAUNCH(1, true) : MFSR_LAUNCH(1, false);
+  return green_diag ? MFSR_LAUNCH(2, true) : MFSR_LAUNCH(2, false);
+#undef MFSR_LAUNCH
+}
+
+// The most frames one launch takes with taps of the given halo (1 or 2):
+// the staged tiles of all frames must fit a block's shared memory.
+int mfsr_merge_raw_max_frames(int halo) {
+  const size_t limit = 227 * 1024;
+  return (int)(limit / (halo <= 1 ? smem_bytes<1>(1) : smem_bytes<2>(1)));
 }
 
 const char* mfsr_cuda_error_string(int code) {

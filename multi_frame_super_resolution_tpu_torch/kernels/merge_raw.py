@@ -27,7 +27,6 @@ from multi_frame_super_resolution_tpu_torch.kernels.build import (
 )
 from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
     _active_taps,
-    _centroid_chain,
     merge_burst_raw_planes,
 )
 
@@ -40,33 +39,42 @@ _SCALE = 2  # kS in csrc/merge_raw.cu
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
-    return bind(
+    lib = bind(
         load_library(SOURCE), "mfsr_merge_raw",
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
     )
+    lib.mfsr_merge_raw_max_frames.argtypes = [ctypes.c_int]
+    lib.mfsr_merge_raw_max_frames.restype = ctypes.c_int
+    return lib
+
+
+def tap_halo(taps) -> int:
+    """The most half-res sites a tap reaches from its pixel, (a + k) // 2
+    over both parities a (at least 1): the kernel's staged halo."""
+    return max([1] + [abs((a + k) // 2) for t in taps for k in t for a in (0, 1)])
+
+
+def is_bayer(cfa) -> bool:
+    """Green on one diagonal of the 2 x 2 pattern, R and B on the other:
+    the patterns the kernel takes."""
+    q = [int(cfa[0][0]), int(cfa[0][1]), int(cfa[1][0]), int(cfa[1][1])]
+    return sorted(q) == [0, 1, 1, 2] and (q[0] == q[3] == 1 or q[1] == q[2] == 1)
 
 
 @functools.lru_cache(maxsize=None)
 def tap_table(taps: tuple, cfa: tuple) -> np.ndarray:
-    """Per tap, the row (ky, kx) followed, for each output parity
-    z = 2a + b, by (source plane 2*qa + qb, da, db, cell channel, chain
-    mask): the tap reads plane (qa, qb) at half-res offset (da, db) into
-    the cell of channel ``ch``, and bit c of the mask is set when the tap
-    feeds the certless centroid chain of the parity's channel c."""
-    pat = np.asarray(cfa)
-    rows = []
-    for ky, kx in taps:
-        fed = {("g", (ky + kx) % 2), ("rb", ky % 2, kx % 2)}
-        row = [ky, kx]
-        for a in (0, 1):
-            qa, da = (a + ky) % 2, (a + ky) // 2
-            for b in (0, 1):
-                qb, db = (b + kx) % 2, (b + kx) // 2
-                mask = sum(1 << c for c in range(3) if _centroid_chain(pat, a, b, c) in fed)
-                row += [2 * qa + qb, da, db, int(pat[qa][qb]), mask]
-        rows.append(row)
-    table = np.ascontiguousarray(np.asarray(rows, np.int32).reshape(-1))
+    """The kernel's host table (int32): the channel of each plane
+    q = 2*qa + qb (4 values); the end of each tap-parity group
+    g = 2*(ky%2) + (kx%2) (4); then the taps as (ky, kx) rows, sorted by
+    group and in list order within it. Within a group a parity always
+    reads the same plane, and the taps feed the same two certless chains
+    (fast_merge._centroid_chain)."""
+    chan = [int(cfa[q // 2][q % 2]) for q in range(4)]
+    groups = [[t for t in taps if 2 * (t[0] % 2) + t[1] % 2 == g] for g in range(4)]
+    ends = np.cumsum([len(grp) for grp in groups]).tolist()
+    rows = [k for grp in groups for t in grp for k in t]
+    table = np.asarray(chan + ends + rows, np.int32)
     table.flags.writeable = False  # cached and shared by every call
     return table
 
@@ -88,7 +96,9 @@ def merge_raw(
     (F, hh, hw, 2) in RAW units, certainty (F, hh, hw, 3), omega_inv and
     omega_inv_rb (hh, hw, 3), all float32 and contiguous on one device ->
     (m00, cy, cx, b0), each (2s, 2s, 3, hh, hw) (see
-    fast_merge.merge_burst_raw_planes). The kernel takes scale 2."""
+    fast_merge.merge_burst_raw_planes). The kernel takes scale 2, Bayer
+    patterns and up to mfsr_merge_raw_max_frames frames; on CUDA tensors
+    anything else raises ValueError."""
     if planes.ndim != 5:
         raise ValueError(f"planes must be (F, 2, 2, hh, hw), got {tuple(planes.shape)}")
     f, hh, hw = planes.shape[0], planes.shape[3], planes.shape[4]
@@ -107,18 +117,25 @@ def merge_raw(
     taps = _active_taps(r_taps, residual_bound, scale, k_max, prune_exp)
     if scale != _SCALE:
         raise ValueError(f"the RAW merge kernel takes scale {_SCALE}, got {scale}")
+    if not is_bayer(cfa):
+        raise ValueError(f"the RAW merge kernel takes Bayer patterns, got {cfa}")
     if len(taps) > _MAX_TAPS:
         raise ValueError(f"{len(taps)} taps exceed the kernel's {_MAX_TAPS}")
+    lib = library()
+    max_frames = lib.mfsr_merge_raw_max_frames(tap_halo(taps))
+    if f > max_frames:
+        raise ValueError(f"{f} frames exceed the {max_frames} whose tiles fit a block's shared memory")
 
     # built once per (taps, pattern): rebuilt per call it held a call to
-    # 0.66 ms against the kernel's 0.18 ms (NVIDIA H100 80GB HBM3, 700.00 W)
+    # 0.66 ms against the first kernel's 0.18 ms (NVIDIA H100 80GB HBM3,
+    # 700.00 W)
     table = tap_table(tuple(taps), tuple(tuple(int(c) for c in row) for row in cfa))
     outs = [
         torch.empty((2 * scale, 2 * scale, 3, hh, hw), dtype=torch.float32, device=dev)
         for _ in range(4)
     ]
     launch(
-        library(), "mfsr_merge_raw", dev,
+        lib, "mfsr_merge_raw", dev,
         planes.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
         omega_inv.data_ptr(), omega_inv_rb.data_ptr(),
         *(o.data_ptr() for o in outs),

@@ -31,6 +31,7 @@ from multi_frame_super_resolution_tpu_torch.data import (
     synthetic_rgb_burst,
 )
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.kernels import merge_raw as raw_merge_kernel
 from multi_frame_super_resolution_tpu_torch.kernels.defog import defog, defog_pixels
 from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
 from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
@@ -128,26 +129,34 @@ def test_tile_gather_kernel_matches_plain(n, h, w, t, pad):
     torch.testing.assert_close(got, tiles.extract_search_windows(imgs, t, pad, shifts), rtol=0, atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "cfa,radius,prune", [(((0, 1), (1, 2)), 1, 1.5), (((2, 1), (1, 0)), 2, 6.0)]
-)
-def test_raw_merge_kernel_matches_plain(cfa, radius, prune):
-    """expf and FMA contraction against torch ops: rtol and atol 1e-5."""
-    dev = cuda_device()
-    rng = np.random.default_rng(radius)
-    f, hh, hw = 5, 37, 61
+def _raw_merge_inputs(rng, f, hh, hw, dev):
     planes = rng.random((f, 2, 2, hh, hw)).astype(np.float32)
     residual = ((rng.random((f, hh, hw, 2)) - 0.5) * 4.0).astype(np.float32)
     cert = rng.random((f, hh, hw, 3)).astype(np.float32)
     omega = (0.5 + rng.random((hh, hw, 3))).astype(np.float32)
     omega[..., 2] *= 0.1
-    ins = [tt(x, dev) for x in (planes, residual, cert, omega, omega * 0.5)]
+    return [tt(x, dev) for x in (planes, residual, cert, omega, omega * 0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hh,hw", [(37, 61), (3, 5)])
+@pytest.mark.parametrize("cfa", [((0, 1), (1, 2)), ((2, 1), (1, 0))])
+@pytest.mark.parametrize("radius,k_max,prune", [(1, 1.0, 1.5), (1, 1.0, 6.0), (2, 4.0, 6.0)])
+@pytest.mark.parametrize("f", [2, 5, 8])
+def test_raw_merge_kernel_matches_plain(f, radius, k_max, prune, cfa, hh, hw):
+    """F = 2, 5, 8; 21, 25 and 49 taps (radius 2 keeps its |k| = 3 taps
+    only with k_max 4: the kernel's halo-2 build); both Bayer orders;
+    a size that is not a multiple of the 32 x 4 block and one smaller
+    than the block's halo (the edge clamp). ex2.approx, FMA contraction
+    and the kernel's tap order within a cell against torch ops: rtol and
+    atol 1e-5."""
+    dev = cuda_device()
+    ins = _raw_merge_inputs(np.random.default_rng(f * 10 + radius), f, hh, hw, dev)
     LAUNCHES.clear()
-    got = merge_raw(*ins, cfa, 2, radius, 1.0, 1.0, prune)
+    got = merge_raw(*ins, cfa, 2, radius, 1.0, k_max, prune)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_raw"] == 1
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, radius, 1.0, 1.0, prune)
+    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, radius, 1.0, k_max, prune)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
 
@@ -162,6 +171,38 @@ def test_raw_merge_wrapper_raises_on_card_for_scale_3():
             torch.zeros((8, 8, 3), device=dev), torch.zeros((8, 8, 3), device=dev),
             ((0, 1), (1, 2)), 3,
         )
+
+
+@pytest.mark.cuda
+def test_raw_merge_wrapper_raises_on_card_for_non_bayer():
+    """The kernel takes green on one diagonal and R, B on the other."""
+    dev = cuda_device()
+    z = [torch.zeros(s, device=dev) for s in ((2, 2, 2, 8, 8), (2, 8, 8, 2), (2, 8, 8, 3), (8, 8, 3), (8, 8, 3))]
+    with pytest.raises(ValueError, match="Bayer"):
+        merge_raw(*z, ((0, 1), (1, 1)), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,k_max,halo", [(1, 1.0, 1), (2, 4.0, 2)])
+def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
+    """Every frame's tile is staged in shared memory at once: the most
+    frames that fit (30 at halo 1, 22 at halo 2) match the plain
+    version, one more raises."""
+    dev = cuda_device()
+    cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(halo)
+    assert cap == {1: 30, 2: 22}[halo]
+    cfa = ((0, 1), (1, 2))
+    ins = _raw_merge_inputs(np.random.default_rng(cap), cap, 9, 37, dev)
+    LAUNCHES.clear()
+    got = merge_raw(*ins, cfa, 2, radius, 1.0, k_max, 6.0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_raw"] == 1
+    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, radius, 1.0, k_max, 6.0)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+    more = _raw_merge_inputs(np.random.default_rng(0), cap + 1, 9, 37, dev)
+    with pytest.raises(ValueError, match="frames exceed"):
+        merge_raw(*more, cfa, 2, radius, 1.0, k_max, 6.0)
 
 
 @pytest.mark.cuda

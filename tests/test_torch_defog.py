@@ -12,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import nn, tt
+from torch_parity import nn, to_jax, tt
 
-from multi_frame_super_resolution_tpu.config import DarkChannelConfig, PolarDefogConfig
 from multi_frame_super_resolution_tpu.models import defog as jdefog
 from multi_frame_super_resolution_tpu.ops import color as jcolor
 from multi_frame_super_resolution_tpu.ops import morphology as jmorph
 from multi_frame_super_resolution_tpu.ops import reduce as jreduce
 from multi_frame_super_resolution_tpu.pallas_ops import defog_pallas
 from multi_frame_super_resolution_tpu_torch.apps import polar_defog as app
+from multi_frame_super_resolution_tpu_torch.config import DarkChannelConfig, PolarDefogConfig
 from multi_frame_super_resolution_tpu_torch.data import imwrite, synthetic_polar_pair
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.kernels.defog import defog, defog_pixels
@@ -126,7 +126,7 @@ def test_dark_channel_defog_matches_jax():
     img = np.clip(_pair(90, 120, 2)[0] * 1.1, 0, 1)
     cfg = DarkChannelConfig()
     got = nn(mdefog.dark_channel_defog(tt(img), cfg))
-    want = np.asarray(jax.jit(jdefog.dark_channel_defog, static_argnums=1)(jnp.asarray(img), cfg))
+    want = np.asarray(jax.jit(jdefog.dark_channel_defog, static_argnums=1)(jnp.asarray(img), to_jax(cfg)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -138,7 +138,7 @@ def test_polar_defog_matches_jax(hw, beta):
     the same selected pixels, in another order."""
     iper, ipar = _pair(*hw)
     cfg = PolarDefogConfig(beta=beta)
-    want = jax.jit(lambda a, b: jdefog.polar_defog(a, b, cfg, return_intermediates=True))(iper, ipar)
+    want = jax.jit(lambda a, b: jdefog.polar_defog(a, b, to_jax(cfg), return_intermediates=True))(iper, ipar)
     LAUNCHES.clear()
     got = mdefog.polar_defog(tt(iper), tt(ipar), cfg, return_intermediates=True)
     assert not LAUNCHES  # CPU tensors take the plain version
@@ -210,15 +210,16 @@ def test_imwrite_png_round_trip(tmp_path, shape):
 
 
 def test_app_debug_run_matches_jax(tmp_path, monkeypatch, capsys):
-    """main(["1", "3", "1.55"]): one frame of the synthetic demo, its
-    R_gpu.png and polar_defog_debug.npz, equal to the JAX function on the
-    app's own input within the defog tolerance."""
+    """main(["1", "3", "1.55"], device="cpu"): one frame of the synthetic
+    demo on the CPU, asked for explicitly, its R_gpu.png and
+    polar_defog_debug.npz, equal to the JAX function on the app's own
+    input within the defog tolerance."""
     monkeypatch.chdir(tmp_path)
-    assert app.main(["1", "3", "1.55"]) == 0
+    assert app.main(["1", "3", "1.55"], device="cpu") == 0
     out = np.load(tmp_path / "polar_defog_debug.npz")
     iper, ipar = synthetic_polar_pair(np.random.default_rng(0))
     cfg = PolarDefogConfig(beta=1.55)
-    r, a, t = jax.jit(lambda x, y: jdefog.polar_defog(x, y, cfg, return_intermediates=True))(iper, ipar)
+    r, a, t = jax.jit(lambda x, y: jdefog.polar_defog(x, y, to_jax(cfg), return_intermediates=True))(iper, ipar)
     for name, want in (("R", r), ("A", a), ("t", t)):
         np.testing.assert_allclose(out[name], np.asarray(want), **DEFOG_TOL)
     assert _read_png(tmp_path / "R_gpu.png").shape == (300, 400, 3)
@@ -233,3 +234,15 @@ def test_app_without_tiff_reader_raises(argv):
 
 def test_app_usage():
     assert app.main(["1"]) == -1
+
+
+def test_app_without_card_raises_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """No card and no device request: the app raises rather than run on
+    the CPU. ``--device cpu`` on the command line runs it there."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        app.main(["1", "3", "1.55"])
+    assert not (tmp_path / "R_gpu.png").exists()
+    assert app.main(["1", "3", "1.55", "--device", "cpu"]) == 0
+    assert (tmp_path / "R_gpu.png").exists()

@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import nn, tt
+from torch_parity import nn, to_jax, tt
 
-from multi_frame_super_resolution_tpu.config import MergeConfig
 from multi_frame_super_resolution_tpu.models import fast_merge as jfm
 from multi_frame_super_resolution_tpu.models import merge as jmerge
 from multi_frame_super_resolution_tpu.pallas_ops.merge import merge_fast_pallas
+from multi_frame_super_resolution_tpu_torch.config import MergeConfig
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
 from multi_frame_super_resolution_tpu_torch.models import fast_merge, merge
@@ -96,7 +96,7 @@ def test_kernel_params_and_weighting(rng):
     st[0, 0] = 0.0  # degenerate tensor
     cfg = MergeConfig()
     np.testing.assert_allclose(
-        nn(merge.kernel_params(tt(st), cfg)), nn(jmerge.kernel_params(jnp.asarray(st), cfg)),
+        nn(merge.kernel_params(tt(st), cfg)), nn(jmerge.kernel_params(jnp.asarray(st), to_jax(cfg))),
         rtol=1e-5, atol=1e-5,
     )
     num = rng.random((6, 8, 3)).astype(np.float32)

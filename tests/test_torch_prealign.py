@@ -22,15 +22,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import nn, tt
+from torch_parity import nn, to_jax, tt
 
-from multi_frame_super_resolution_tpu.config import PREALIGN_FAST, RegistrationConfig
 from multi_frame_super_resolution_tpu.ops import fourier as jfourier
 from multi_frame_super_resolution_tpu.ops import geometry as jgeometry
 from multi_frame_super_resolution_tpu.ops import warp_fast as jwarp_fast
 from multi_frame_super_resolution_tpu.registration import logpolar as jlogpolar
 from multi_frame_super_resolution_tpu.registration import phase_correlation as jpc
 from multi_frame_super_resolution_tpu.registration import prealign as jprealign
+from multi_frame_super_resolution_tpu_torch.config import PREALIGN_FAST, RegistrationConfig
 from multi_frame_super_resolution_tpu_torch.data import CITY_ANGLES, synthetic_rgb_burst
 from multi_frame_super_resolution_tpu_torch.ops import fourier, geometry, warp_fast
 from multi_frame_super_resolution_tpu_torch.registration import logpolar, phase_correlation, prealign
@@ -187,7 +187,7 @@ def test_log_polar_maps_and_register_similarity_match_jax():
     size = 128
     for cfg in (RegistrationConfig(), PREALIGN_FAST):
         got = logpolar.register_similarity(tt(gray[0]), tt(gray[1:]), cfg)
-        want = jax.jit(jax.vmap(lambda g: jlogpolar.register_similarity(jnp.asarray(gray[0]), g, cfg)))(gray[1:])
+        want = jax.jit(jax.vmap(lambda g: jlogpolar.register_similarity(jnp.asarray(gray[0]), g, to_jax(cfg))))(gray[1:])
         np.testing.assert_allclose(nn(got.rotation), np.asarray(want.rotation), atol=math.pi / (size - 1) / 16)
         np.testing.assert_allclose(nn(got.scale), np.asarray(want.scale), rtol=1e-3)
         np.testing.assert_allclose(nn(got.translation), np.asarray(want.translation), atol=1.0 / 16 + 1e-3)
@@ -208,7 +208,7 @@ def test_estimate_burst_similarity_matches_jax(hw, ds):
         np.testing.assert_array_equal(nn(prealign._box_down(tt(gray), 2)),
                                       np.asarray(jprealign._box_down(jnp.asarray(gray), 2)))
         got = prealign.estimate_burst_similarity(tt(gray), PREALIGN_FAST)
-        want = jax.jit(lambda g: jprealign.estimate_burst_similarity(g, PREALIGN_FAST))(gray)
+        want = jax.jit(lambda g: jprealign.estimate_burst_similarity(g, to_jax(PREALIGN_FAST)))(gray)
         size = max(h, w) // ds
         np.testing.assert_allclose(nn(got.rotation), np.asarray(want.rotation), atol=math.pi / (size - 1) / 16 + 1e-7)
         np.testing.assert_allclose(nn(got.translation), np.asarray(want.translation), atol=ds / 16 + 1e-4)
@@ -245,9 +245,9 @@ def test_apply_burst_similarity_matches_jax(fast):
     jst, st = _transform(5)
     got_b, got_v = prealign.apply_burst_similarity(tt(burst), st, cfg)
     with jax.disable_jit():
-        eager_b, _ = jprealign.apply_burst_similarity(jnp.asarray(burst), jst, cfg)
+        eager_b, _ = jprealign.apply_burst_similarity(jnp.asarray(burst), jst, to_jax(cfg))
     np.testing.assert_array_equal(nn(got_b), np.asarray(eager_b))
-    want_b, want_v = jax.jit(lambda b: jprealign.apply_burst_similarity(b, jst, cfg))(burst)
+    want_b, want_v = jax.jit(lambda b: jprealign.apply_burst_similarity(b, jst, to_jax(cfg)))(burst)
     np.testing.assert_array_equal(nn(got_v), np.asarray(want_v))
     np.testing.assert_allclose(nn(got_b), np.asarray(want_b), **WARP_JIT_TOL)
     assert torch.equal(got_b[:2], tt(burst[:2]))  # frame 0, and frame 1 under the gate
@@ -262,9 +262,9 @@ def test_apply_planes_similarity_matches_jax():
     jst, st = _transform(5, seed=1)
     got_p, got_v = prealign.apply_planes_similarity(tt(planes), st, PREALIGN_FAST)
     with jax.disable_jit():
-        eager_p, _ = jprealign.apply_planes_similarity(jnp.asarray(planes), jst, PREALIGN_FAST)
+        eager_p, _ = jprealign.apply_planes_similarity(jnp.asarray(planes), jst, to_jax(PREALIGN_FAST))
     np.testing.assert_array_equal(nn(got_p), np.asarray(eager_p))
-    want_p, want_v = jax.jit(lambda p: jprealign.apply_planes_similarity(p, jst, PREALIGN_FAST))(planes)
+    want_p, want_v = jax.jit(lambda p: jprealign.apply_planes_similarity(p, jst, to_jax(PREALIGN_FAST)))(planes)
     np.testing.assert_array_equal(nn(got_v), np.asarray(want_v))
     np.testing.assert_allclose(nn(got_p), np.asarray(want_p), **WARP_JIT_TOL)
     sy, sx = prealign._source_grid(40, 72, st)
@@ -293,6 +293,6 @@ def test_prewarp_frame_and_prealign_burst_match_jax():
         np.testing.assert_allclose(nn(got_w), np.asarray(want_w), **WARP_JIT_TOL)
         np.testing.assert_array_equal(nn(got_v), np.asarray(want_v))
     got_b, got_v = prealign.prealign_burst(tt(burst), tt(gray), PREALIGN_FAST)
-    want_b, want_v = jax.jit(lambda b, g: jprealign.prealign_burst(b, g, PREALIGN_FAST))(burst, gray)
+    want_b, want_v = jax.jit(lambda b, g: jprealign.prealign_burst(b, g, to_jax(PREALIGN_FAST)))(burst, gray)
     np.testing.assert_array_equal(nn(got_v), np.asarray(want_v))
     np.testing.assert_allclose(nn(got_b), np.asarray(want_b), **WARP_JIT_TOL)

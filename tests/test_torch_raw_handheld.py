@@ -12,23 +12,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import nn, psnr, tt
+from torch_parity import nn, psnr, to_jax, tt
 
-from multi_frame_super_resolution_tpu.config import (
-    PREALIGN_FAST,
-    AlignConfig,
-    HandheldConfig,
-    LKConfig,
-    MergeConfig,
-)
 from multi_frame_super_resolution_tpu.models.handheld import (
     handheld_superres_raw as jax_handheld_superres_raw,
 )
 from multi_frame_super_resolution_tpu.ops import restore as jrestore
 from multi_frame_super_resolution_tpu.registration import logpolar as jlogpolar
 from multi_frame_super_resolution_tpu_torch.config import (
+    PREALIGN_FAST,
     RAW_BENCH,
     RAW_PORT_DEFAULT,
+    AlignConfig,
+    HandheldConfig,
+    LKConfig,
+    MergeConfig,
     check_supported_raw,
 )
 from multi_frame_super_resolution_tpu_torch.data import CITY_ANGLES, synthetic_raw_burst
@@ -74,7 +72,7 @@ def test_raw_slice_matches_jax_pipeline(raw_burst, cfg):
     which can land one bf16 step apart and move a few pixels by ~1e-2 where
     a flow crosses a rounding boundary of the robustness model. 60 dB
     leaves room for that."""
-    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw_burst), cfg))
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw_burst), to_jax(cfg)))
     LAUNCHES.clear()
     got = nn(handheld_superres_raw(tt(raw_burst), cfg))
     assert got.shape == (256, 512, 3) and np.isfinite(got).all()
@@ -93,7 +91,7 @@ def test_raw_bench_matches_jax_pipeline(rotated_raw_burst):
     )
     check_supported_raw(RAW_BENCH)
     raw = rotated_raw_burst
-    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw), RAW_BENCH))
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw), to_jax(RAW_BENCH)))
     LAUNCHES.clear()
     got = nn(handheld_superres_raw(tt(raw), RAW_BENCH))
     assert got.shape == (256, 512, 3) and np.isfinite(got).all()
@@ -117,7 +115,7 @@ def test_raw_bench_given_one_transform(rotated_raw_burst):
     )
     override = (st, (4, 8), (72, 144))
     want = nn(
-        jax.jit(lambda r: jax_handheld_superres_raw(r, RAW_BENCH, prealign_override=override))(
+        jax.jit(lambda r: jax_handheld_superres_raw(r, to_jax(RAW_BENCH), prealign_override=override))(
             jnp.asarray(rotated_raw_burst)
         )
     )
@@ -158,7 +156,7 @@ def test_raw_slice_without_restore_and_lk(raw_burst):
     cfg = dataclasses.replace(
         RAW_SLICE, final_restore=False, use_lk=False, smooth_residual=False, gamma=True
     )
-    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw_burst), cfg))
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw_burst), to_jax(cfg)))
     got = nn(handheld_superres_raw(tt(raw_burst), cfg))
     assert psnr(got, want) >= 60.0
 

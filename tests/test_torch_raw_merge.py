@@ -11,7 +11,7 @@ from torch_parity import nn, tt
 
 from multi_frame_super_resolution_tpu.models import fast_merge as jfm
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
-from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw, tap_table
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import is_bayer, merge_raw, tap_halo, tap_table
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
 
 
@@ -70,22 +70,63 @@ def test_wrapper_on_cpu_is_the_plain_version(rng):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
 
 
-def test_tap_table():
-    """Each parity reads the plane and offset of the JAX loop, and each tap
-    feeds exactly the chains its tap parity keys (green: (ky+kx)%2 with the
-    green weights; R/B: (ky%2, kx%2))."""
-    cfa = ((0, 1), (1, 2))
+def test_wrapper_on_cpu_takes_any_pattern(rng):
+    """Only the kernel is limited to Bayer patterns: on CPU tensors the
+    wrapper computes the plain version for any 2 x 2 pattern."""
+    ins = [tt(x) for x in _inputs(rng, 2, 8, 10)]
+    cfa = ((0, 1), (1, 1))
+    assert not is_bayer(cfa)
+    got = merge_raw(*ins, cfa, 2, 1, 1.0, 1.0, 1.5)
+    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, 1, 1.0, 1.0, 1.5)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)
+
+
+def _plane_of(z, g):
+    """csrc/merge_raw.cu::plane_of: the plane parity z reads in group g."""
+    return 2 * ((z // 2 + g // 2) % 2) + (z % 2 + g % 2) % 2
+
+
+@pytest.mark.parametrize("cfa", [((0, 1), (1, 2)), ((2, 1), (1, 0)), ((1, 0), (2, 1)), ((1, 2), (0, 1))])
+def test_tap_table(cfa):
+    """The table holds the plane channels, the group ends and every tap,
+    sorted by tap parity g = 2*(ky%2) + (kx%2) in list order within a
+    group. The kernel's reading of it matches the JAX loop: in group g
+    parity z reads plane ((a+ky)%2, (b+kx)%2) = _plane_of(z, g), and
+    the cell each pair {0, 3}, {1, 2} completes reads the chain that pair
+    feeds: green cells the pair's ("g", (ky+kx)%2), an R or B cell the
+    ("rb", ky%2, kx%2) of the group that read it."""
     taps = fast_merge._active_taps(2, 1.0, 2, 1.0, 1.5)
-    table = tap_table(tuple(taps), cfa).reshape(len(taps), 22)
-    for (ky, kx), row in zip(taps, table):
-        assert (row[0], row[1]) == (ky, kx)
+    table = tap_table(tuple(taps), cfa)
+    chan, ends, rows = table[:4], table[4:8], table[8:].reshape(-1, 2)
+    assert list(chan) == [cfa[0][0], cfa[0][1], cfa[1][0], cfa[1][1]]
+    want = sorted(taps, key=lambda t: 2 * (t[0] % 2) + t[1] % 2)  # stable
+    assert [tuple(r) for r in rows] == want
+    assert list(ends) == list(np.cumsum([sum(2 * (t[0] % 2) + t[1] % 2 == g for t in taps) for g in range(4)]))
+    for t, (ky, kx) in enumerate(rows):
+        g = int(np.searchsorted(ends, t, side="right"))
+        assert g == 2 * (ky % 2) + kx % 2
         for z in range(4):
             a, b = divmod(z, 2)
-            plane, da, db, ch, mask = row[2 + 5 * z : 7 + 5 * z]
-            qa, qb = (a + ky) % 2, (b + kx) % 2
-            assert (plane, da, db, ch) == (2 * qa + qb, (a + ky) // 2, (b + kx) // 2, cfa[qa][qb])
-            # on a Bayer pattern a tap feeds the chain of the channel it reads
-            assert mask == 1 << ch
+            assert _plane_of(z, g) == 2 * ((a + ky) % 2) + (b + kx) % 2
+    for pair, groups in enumerate(((0, 3), (1, 2))):
+        for z in range(4):
+            a, b = divmod(z, 2)
+            read = [int(chan[_plane_of(z, g)]) for g in groups]
+            if read == [1, 1]:
+                assert fast_merge._centroid_chain(cfa, a, b, 1) == ("g", pair)
+            else:
+                assert sorted(read) == [0, 2]
+                for g, ch in zip(groups, read):
+                    assert fast_merge._centroid_chain(cfa, a, b, ch) == ("rb", g // 2, g % 2)
+
+
+def test_tap_halo_and_bayer():
+    assert tap_halo(fast_merge._active_taps(2, 1.0, 2, 1.0, 1.5)) == 1
+    assert tap_halo(fast_merge._active_taps(3, 1.0, 2, 4.0, 6.0)) == 2
+    assert tap_halo([(0, 0)]) == 1
+    assert all(is_bayer(c) for c in (((0, 1), (1, 2)), ((2, 1), (1, 0)), ((1, 0), (2, 1)), ((1, 2), (0, 1))))
+    assert not any(is_bayer(c) for c in (((0, 1), (1, 1)), ((1, 1), (0, 2)), ((0, 0), (1, 2))))
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "omega_rb"])

@@ -10,9 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import nn, tt
+from torch_parity import nn, to_jax, tt
 
-from multi_frame_super_resolution_tpu.config import AlignConfig
 from multi_frame_super_resolution_tpu.models import fast_merge as jfm
 from multi_frame_super_resolution_tpu.models import handheld as jhandheld
 from multi_frame_super_resolution_tpu.models import merge as jmerge
@@ -20,6 +19,7 @@ from multi_frame_super_resolution_tpu.ops import restore as jrestore
 from multi_frame_super_resolution_tpu.registration import align as jalign
 from multi_frame_super_resolution_tpu.registration import tiles as jtiles
 from multi_frame_super_resolution_tpu.data.datasets import mosaic_rggb as jax_mosaic_rggb
+from multi_frame_super_resolution_tpu_torch.config import AlignConfig
 from multi_frame_super_resolution_tpu_torch.data import (
     mosaic_rggb,
     synthetic_burst,
@@ -151,7 +151,7 @@ def test_align_windows_branch(cfg):
     (tile 8) of the jitted run. Bound: 1e-3 px, no tile moved."""
     burst, _ = synthetic_burst(np.random.default_rng(2), 4, 64, 96, 3.0)
     got = align.align_burst(tt(burst), cfg)
-    want = jax.jit(jalign.align_burst, static_argnums=1)(jnp.asarray(burst), cfg)
+    want = jax.jit(jalign.align_burst, static_argnums=1)(jnp.asarray(burst), to_jax(cfg))
     np.testing.assert_allclose(nn(got), nn(want), atol=1e-3)
 
 

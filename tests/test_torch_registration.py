@@ -8,14 +8,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from torch_parity import nn, tt
+from torch_parity import nn, to_jax, tt
 
-from multi_frame_super_resolution_tpu.config import AlignConfig, LKConfig, RobustnessConfig
 from multi_frame_super_resolution_tpu.models.robustness import robustness_mask as jrobust
 from multi_frame_super_resolution_tpu.registration import align as jalign
 from multi_frame_super_resolution_tpu.registration import lucas_kanade as jlk
 from multi_frame_super_resolution_tpu.registration import subpixel as jsub
 from multi_frame_super_resolution_tpu.registration import tiles as jtiles
+from multi_frame_super_resolution_tpu_torch.config import AlignConfig, LKConfig, RobustnessConfig
 from multi_frame_super_resolution_tpu_torch.data import synthetic_burst
 from multi_frame_super_resolution_tpu_torch.models.robustness import robustness_mask
 from multi_frame_super_resolution_tpu_torch.registration import (
@@ -79,7 +79,7 @@ def test_align_burst_shift_fields(rng):
     the rounding of the subpixel fit (no argmin moves)."""
     gray, _ = synthetic_burst(rng, num_frames=3, height=64, width=96, max_shift=6.0)
     cfg = AlignConfig()
-    want = nn(jax.jit(jalign.align_burst, static_argnums=1)(jnp.asarray(gray), cfg))
+    want = nn(jax.jit(jalign.align_burst, static_argnums=1)(jnp.asarray(gray), to_jax(cfg)))
     got = nn(align.align_burst(tt(gray), cfg))
     assert np.abs(want).max() > 1.0  # the search moved
     np.testing.assert_allclose(got, want, atol=1e-4)
@@ -94,7 +94,7 @@ def test_lk_refine(rng, bf16):
     flow0 = (rng.random((2, 48, 64, 2)) * 0.4 - 0.2).astype(np.float32)
     cfg = LKConfig(bounded_warp=2, bf16=bf16)
     ref_fn = jax.jit(
-        jax.vmap(lambda g, fl: jlk.lk_refine(jnp.asarray(burst[0]), g, fl, cfg))
+        jax.vmap(lambda g, fl: jlk.lk_refine(jnp.asarray(burst[0]), g, fl, to_jax(cfg)))
     )
     want = nn(ref_fn(jnp.asarray(burst[1:]), jnp.asarray(flow0)))
     got = nn(lucas_kanade.lk_refine(tt(burst[0]), tt(burst[1:]), tt(flow0), cfg))
@@ -116,7 +116,7 @@ def test_robustness_mask(rng):
     flow = (rng.random((2, 24, 32, 2)) * 2.0 - 1.0).astype(np.float32)
     cfg = dataclasses.replace(RobustnessConfig(), threshold_m=0.05)
     want = np.stack([
-        nn(jrobust(jnp.asarray(ref), jnp.asarray(m), jnp.asarray(f), cfg, bounded=2))
+        nn(jrobust(jnp.asarray(ref), jnp.asarray(m), jnp.asarray(f), to_jax(cfg), bounded=2))
         for m, f in zip(moved, flow)
     ])
     got = nn(robustness_mask(tt(ref), tt(moved), tt(flow), cfg, bounded=2))

@@ -9,6 +9,8 @@ xdist workers on few cores) and turns TF32 off, so that a test run on a
 card compares in full float32.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,19 @@ def nn(x) -> np.ndarray:
 def psnr(a, b, peak: float = 1.0) -> float:
     mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
     return float("inf") if mse == 0.0 else 10.0 * np.log10(peak * peak / mse)
+
+
+def to_jax(cfg):
+    """The JAX package's config of the same class name as the port's
+    ``cfg``, rebuilt field by field (nested configs too); other values
+    pass through. The JAX config is imported here: the card tests import
+    this module on a host without JAX."""
+    if not dataclasses.is_dataclass(cfg):
+        return cfg
+    from multi_frame_super_resolution_tpu import config as jax_config
+
+    cls = getattr(jax_config, type(cfg).__name__)
+    return cls(**{f.name: to_jax(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)})
 
 
 def cuda_device() -> torch.device:
