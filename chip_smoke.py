@@ -39,10 +39,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      kernels), and on the unrotated burst at config.RAW_PORT_DEFAULT and
      its windows-branch variant align.fast_extract=False (window kernel
      too).
-   Each burst output must have its shape, be finite and in [0, 1], agree
-   (PSNR >= 60 dB) with the same run with every kernel swapped for its
-   plain version, and a small burst on the card must agree with the
-   port on the CPU.
+   The entry points get CUDA tensors and no device argument: they run on
+   cuda:0, their default. Each burst output must lie there, have its
+   shape, be finite and in [0, 1], agree (PSNR >= 60 dB) with the same
+   run with every kernel swapped for its plain version, and a small burst
+   on the card must agree with the port run with device="cpu".
 5. Timing with CUDA events after warm-up, each input distinct: ms per
    burst and output MP/s of each slice (bursts scaled by 1 - 1e-5 i); ms
    per frame and FPS of polar_defog under the reference protocol (32
@@ -53,7 +54,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    input read once, each output written once) over 3.35 TB/s and its
    operations at the checked shape (WORK) over the card's peak for
    their type (67 TFLOP/s f32, and exp at 16 a clock on each of 132
-   SMs at 1.98 GHz); merge_raw's registers and spills (ptxas -v).
+   SMs at 1.98 GHz); merge_fast's device time at F=1 beside F=5 (the
+   part that does not grow with the frames); the registers and spills
+   (ptxas -v) of merge_fast, tile_warp and merge_raw; for the two copy
+   kernels (tile_warp, tile_gather) the copy floor: the profiler's device
+   time of dst.copy_(src) moving the kernel's bytes.
 6. Where the time goes: one burst (frame) of each path under
    torch.profiler: host and device ms of each stage (the mfsr.* ranges
    of models/handheld.py and models/defog.py, with each kernel's own
@@ -312,9 +317,9 @@ def main() -> int:
                      "tile_gather": (gray4, win_shifts), "merge_raw": raw_ins, "defog": defog_ins}
     items = {"merge_fast": F * H * W * taps_rgb * SCALE**2, "merge_raw": F * hh * hw * taps_raw * SCALE**2,
              "defog": DEFOG_H * DEFOG_W * 3, "tile_warp": 0, "tile_gather": 0}
-    bounds = {}
+    bounds, moved_bytes = {}, {}
     for name, ins in kernel_inputs.items():
-        moved = sum(t.numel() * t.element_size() for t in ins) + out_bytes[name]
+        moved = moved_bytes[name] = sum(t.numel() * t.element_size() for t in ins) + out_bytes[name]
         flops, exps = (n * items[name] for n in WORK[name])
         bytes_ms, ops_ms = moved / HBM_BYTES_S * 1e3, max(flops / F32_FLOPS_S, exps / EXP_S) * 1e3
         bounds[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
@@ -361,9 +366,11 @@ def main() -> int:
 
     def check_slice(label, fn, burst, cfg, expect, small_burst):
         out, launches = drive(fn, burst, cfg, expect)
+        if out.device != dev:
+            raise RuntimeError(f"{label}: the output lies on {out.device}, not on the default {dev}")
         check_output(label, out, (SCALE * burst.shape[1], SCALE * burst.shape[2], 3))
         p_plain = psnr(out, against_plain(fn, burst, cfg))
-        p_cpu = psnr(fn(small_burst.to(dev), cfg).cpu(), fn(small_burst, cfg))
+        p_cpu = psnr(fn(small_burst.to(dev), cfg).cpu(), fn(small_burst, cfg, device="cpu"))
         print(f"slice {label}: {tuple(burst.shape)} -> {tuple(out.shape)}, launches {launches}, "
               f"PSNR vs plain kernels {p_plain:.2f} dB, small burst card vs CPU {p_cpu:.2f} dB "
               f"(limit {PSNR_MIN} dB)")
@@ -462,16 +469,43 @@ def main() -> int:
         p = time_cuda(plain_call, iters=5, warmup=2)
         k2 = time_cuda(kernel_call, iters=50, warmup=5)
         kernel_ms[name], plain_ms[name] = k1, p
-        device_ms[name] = kernel_device_ms(kernel_call, KERNEL_SYMBOLS[name])
+        device_ms[name] = device_ms_per_call(kernel_call, KERNEL_SYMBOLS[name])
         print(f"kernel {name} ({checks[0][0]}): kernel {k1:.4f} / {k2:.4f} ms per call, "
-              f"{device_ms[name]:.4f} ms device time (profiler), bound {bounds[name][0]:.4f} ms "
+              f"{device_ms[name]:.5f} ms device time (profiler), bound {bounds[name][0]:.5f} ms "
               f"({bounds[name][1]}): {100.0 * bounds[name][0] / device_ms[name]:.1f}% of bound; "
               f"plain {p:.4f} ms per call  [{card}]")
-    ptxas = [line.strip() for line in libs[modules.index(kmerge_raw)].build_log.splitlines()
-             if "registers" in line or "spill" in line]
-    print(f"merge_raw: {'; '.join(ptxas) or 'ptxas -v printed nothing (library already built)'}; "
-          f"{device_ms['merge_raw']:.4f} ms device time, "
-          f"{100.0 * bounds['merge_raw'][0] / device_ms['merge_raw']:.1f}% of its bound")
+    # the merge's time that does not grow with the frames: one frame beside F
+    one_frame = [t[:1].contiguous() if t.ndim == 4 else t for t in rgb_ins]
+    ms_one = device_ms_per_call(lambda: kmerge.merge_fast(*one_frame, *merge_args), KERNEL_SYMBOLS["merge_fast"])
+    print(f"merge_fast by frames: {ms_one:.5f} ms device time at F=1, {device_ms['merge_fast']:.5f} at F={F}: "
+          f"{(device_ms['merge_fast'] - ms_one) / (F - 1):.5f} ms per further frame  [{card}]")
+    for module in (kmerge, ktile_warp, kmerge_raw):  # the redesigned kernels
+        name = module.NAME
+        ptxas = [line.strip() for line in libs[modules.index(module)].build_log.splitlines()
+                 if "registers" in line or "spill" in line]
+        print(f"{name}: {'; '.join(ptxas) or 'ptxas -v printed nothing (library already built)'}; "
+              f"{device_ms[name]:.5f} ms device time, "
+              f"{100.0 * bounds[name][0] / device_ms[name]:.1f}% of its bound")
+    # the copy floor of the copy kernels: a plain device-to-device copy of
+    # half the kernel's moved bytes, rounded down to 64 KiB (for tile_warp
+    # a tensor of its input's shape), so it reads and writes as many bytes.
+    # The unrounded size is timed beside it: past 2 MiB the copy can take
+    # another, slower path.
+    copy_floor_ms = {}
+    for name in ("tile_warp", "tile_gather"):
+        sizes = (max(moved_bytes[name] // 8 // 16384, 1) * 16384, moved_bytes[name] // 8)
+        copy_ms = []
+        for numel in sizes:
+            src = torch.rand(numel, device=dev)
+            dst = torch.empty_like(src)
+            copy_ms.append(device_ms_per_call(lambda: dst.copy_(src)))
+            del src, dst  # out of the paths' peak memory
+        copy_floor_ms[name] = copy_ms[0]
+        print(f"copy floor {name}: dst.copy_(src) of {sizes[0]} float32 ({2 * sizes[0] * 4 / 1e6:.2f} MB moved, the "
+              f"kernel's bytes) {copy_ms[0]:.5f} ms device time (profiler; {sizes[1]} floats unrounded: "
+              f"{copy_ms[1]:.5f} ms); the kernel {device_ms[name]:.5f} ms, "
+              f"{100.0 * (device_ms[name] / copy_floor_ms[name] - 1.0):+.1f}% against it, "
+              f"{100.0 * bounds[name][0] / device_ms[name]:.1f}% of its bound {bounds[name][0]:.5f} ms  [{card}]")
 
     def time_slice(label, fn, burst, cfg):
         bursts = [burst * (1.0 - 1e-5 * i) for i in range(13)]
@@ -531,6 +565,7 @@ def main() -> int:
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
         "library_ms": None,  # no one PyTorch call computes any of these functions
+        "copy_floor_ms": copy_floor_ms.get(name),  # the copy kernels only
     } for name, launches in (
         ("merge_fast", rgb_launches), ("tile_warp", bench_launches),
         ("tile_gather", win_launches), ("merge_raw", bench_launches),
@@ -572,11 +607,12 @@ def estimate_agreement(label, gray, cfg, estimate) -> None:
           f"rotations {degrees} deg")
 
 
-def kernel_device_ms(call, symbol: str, iters: int = 20) -> float:
-    """Mean device time of the kernel ``symbol`` over ``iters`` calls under
-    torch.profiler: the kernel alone, without the host's launch cost that
-    a loop timed with events includes when the wrapper is slower than the
-    kernel."""
+def device_ms_per_call(call, symbol: str | None = None, iters: int = 20) -> float:
+    """Mean device time of the kernel ``symbol`` (with None: of all the
+    device work) per call over ``iters`` calls under torch.profiler: the
+    kernel alone, without the host's launch cost that a loop timed with
+    events includes when the wrapper is slower than the kernel."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
@@ -585,10 +621,14 @@ def kernel_device_ms(call, symbol: str, iters: int = 20) -> float:
         for _ in range(iters):
             call()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if symbol in e.key]
+    if symbol is None:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    else:
+        rows = [e for e in prof.key_averages() if symbol in e.key]
     if not rows:
-        raise RuntimeError(f"the profiler saw no {symbol}")
-    return sum(e.self_device_time_total for e in rows) / sum(e.count for e in rows) / 1e3
+        raise RuntimeError(f"the profiler saw no {symbol or 'device work'}")
+    return sum(e.self_device_time_total for e in rows) / iters / 1e3
 
 
 def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> None:

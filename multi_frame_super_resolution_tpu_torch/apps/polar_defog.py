@@ -72,21 +72,6 @@ def time_frames(frame, warmup: int = 32, frames: int = 256):
     return ms, start.elapsed_time(end) / frames
 
 
-def _device(device):
-    """cuda:0 unless ``device`` names another; no card and no request
-    raises."""
-    import torch
-
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "polar_defog runs on cuda:0 and finds no CUDA device; "
-            "ask for the CPU with --device cpu (main(device='cpu'))"
-        )
-    return torch.device("cuda", 0)
-
-
 def main(argv=None, device=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--device" in argv[:-1]:
@@ -107,13 +92,14 @@ def main(argv=None, device=None) -> int:
     import numpy as np
     import torch
 
+    from multi_frame_super_resolution_tpu_torch import resolve_device
     from multi_frame_super_resolution_tpu_torch.config import PolarDefogConfig
     from multi_frame_super_resolution_tpu_torch.data import imwrite
     from multi_frame_super_resolution_tpu_torch.models.defog import polar_defog
 
     iper_np, ipar_np = _load_inputs(input_type)
     cfg = PolarDefogConfig(beta=beta)
-    dev = _device(device)
+    dev = resolve_device(device, "polar_defog", "--device cpu (main(device='cpu'))")
     iper = torch.from_numpy(iper_np).to(dev)
     ipar = torch.from_numpy(ipar_np).to(dev)
 

@@ -18,53 +18,116 @@
 //   The y-shift comes from the SOURCE column's tile, as the selector
 //   matmul's y pass (banded by column tile) followed by its x pass gives.
 //
-// Design: one thread per output pixel of a batch entry. It reads its
-// tile's shifts (L1-cached: 256 threads share a handful), computes the
-// source index once and copies that pixel of each of the N planes. The
-// shifts stay on the device; nothing goes back to the host.
-//
 // Bound: bytes. Each output value is one 4-byte read and one 4-byte
-// write, so at the RAW path's shapes (4 x 4 planes of 128 x 256) the
-// kernel moves 4.2 MB; it measured 2.8 us of device time there
-// (NVIDIA H100 80GB HBM3, 700.00 W), so launch latency dominates. Reads
-// along a row are contiguous within a tile (the shift is constant there),
-// so warps coalesce except at tile seams.
+// write: at the RAW path's shapes (4 x 4 planes of 128 x 256) 4.2 MB,
+// 1.25 us at 3.35 TB/s. chip_smoke.py times dst.copy_(src) of a tensor of
+// the same shape beside the kernel: the floor a plain copy of these bytes
+// reaches on the card, launch ramp included.
+//
+// Design (the first version ran a thread per output pixel, 131,072
+// threads that each read their tile's shifts and copied one scalar of
+// each plane: 2.8 us):
+// - A thread writes 4 consecutive outputs of one row in every plane: a
+//   quarter of the threads. It computes the 4 source offsets once (per
+//   element, so a group that straddles a tile seam, or a tile size that
+//   is not a multiple of 4, needs no special case) and shares them
+//   across the N planes.
+// - Tile indices are shifts when the tile size is a power of two (the
+//   paths' 16 and 32): integer divisions by a runtime divisor, two per
+//   element, measured slower.
+// - It issues the loads of up to 5 planes (4 each) before any store, so
+//   each thread has 16-20 independent loads in flight on the paths.
+// - Stores are one float4 per plane when the rows are 16-byte aligned
+//   (W a multiple of 4); otherwise 4 scalar stores with the row's end
+//   masked. Loads stay scalar: a source row segment is contiguous but
+//   starts at any shift, so it is not aligned. (Threads taking columns 32
+//   apart, so that every warp access is 32 consecutive floats, measured
+//   slower.)
+// - The shifts are read through the read-only cache: a block's 256
+//   threads share a handful of tiles. Staging them in shared memory put a
+//   barrier into the same dependent chain (shift, then data) and measured
+//   no faster.
+// - A block is 32 x 8 threads: 128 columns by 8 rows; the RAW path's
+//   4 x 4 x 128 x 256 warp is 128 blocks, one per SM.
+// - Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 2.34 us
+//   against 2.9 us for the first version in the same call, 54% of the
+//   bound; the copy of the same bytes 1.5 us.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-__global__ void tile_warp_kernel(const float* __restrict__ img,
-                                 const int* __restrict__ shifts,
-                                 float* __restrict__ out, int n, int h, int w,
-                                 int t, int nty, int ntx, int bound,
-                                 int block_map) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+constexpr int kGroup = 4;    // consecutive outputs a thread writes per row
+// planes whose loads go out before their stores: the most a path warps
+// (4 CFA planes and the pre-alignment's validity)
+constexpr int kPlanes = 5;
+constexpr int kBlockX = 32;  // threads along x (kBlockX * kGroup columns)
+constexpr int kBlockY = 8;   // rows of a block
+
+// kVec: rows are 16-byte aligned, so a thread's 4 outputs of a plane are
+// one float4 store. kPow2: the tile size is 1 << lg_t, so tile indices
+// are shifts.
+template <bool kVec, bool kPow2>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+tile_warp_kernel(const float* __restrict__ img, const int* __restrict__ shifts,
+                 float* __restrict__ out, int n, int h, int w, int t, int lg_t,
+                 int nty, int ntx, int bound, int block_map) {
+  const int x0 = (blockIdx.x * kBlockX + threadIdx.x) * kGroup;
+  const int y = blockIdx.y * kBlockY + threadIdx.y;
   const int b = blockIdx.z;
-  if (x >= w || y >= h) return;
+  if (x0 >= w || y >= h) return;
+  const auto tile_of = [&](int v) { return kPow2 ? v >> lg_t : (int)((unsigned)v / (unsigned)t); };
 
   const int* sh = shifts + (long long)b * nty * ntx * 2;
-  const int ty = y / t;
-  const int tx = x / t;
-  int ys, xs;
-  if (block_map) {
-    const int y0 = min(max(ty * t + sh[(ty * ntx + tx) * 2 + 0], 0), h - t);
-    const int x0 = min(max(tx * t + sh[(ty * ntx + tx) * 2 + 1], 0), w - t);
-    ys = y0 + (y - ty * t);
-    xs = x0 + (x - tx * t);
-  } else {
-    const int sx = min(max(sh[(ty * ntx + tx) * 2 + 1], -bound), bound);
-    xs = min(max(x + sx, 0), w - 1);
-    const int sy = min(max(sh[(ty * ntx + xs / t) * 2 + 0], -bound), bound);
-    ys = min(max(y + sy, 0), h - 1);
+  const int ty = tile_of(y);
+  int src[kGroup];
+#pragma unroll
+  for (int k = 0; k < kGroup; ++k) {
+    const int x = min(x0 + k, w - 1);  // past the row's end: a valid offset, never stored
+    const int tx = tile_of(x);
+    int ys, xs;
+    if (block_map) {
+      const int* s = sh + (ty * ntx + tx) * 2;
+      ys = min(max(ty * t + __ldg(s), 0), h - t) + (y - ty * t);
+      xs = min(max(tx * t + __ldg(s + 1), 0), w - t) + (x - tx * t);
+    } else {
+      const int sx = min(max(__ldg(sh + (ty * ntx + tx) * 2 + 1), -bound), bound);
+      xs = min(max(x + sx, 0), w - 1);
+      const int sy = min(max(__ldg(sh + (ty * ntx + tile_of(xs)) * 2), -bound), bound);
+      ys = min(max(y + sy, 0), h - 1);
+    }
+    src[k] = ys * w + xs;
   }
 
   const long long plane = (long long)h * w;
-  const float* src = img + (long long)b * n * plane + (long long)ys * w + xs;
-  float* dst = out + (long long)b * n * plane + (long long)y * w + x;
-  for (int i = 0; i < n; ++i) {
-    dst[i * plane] = src[i * plane];
+  const float* in = img + (long long)b * n * plane;
+  float* o = out + (long long)b * n * plane + (long long)y * w + x0;
+  for (int i0 = 0; i0 < n; i0 += kPlanes) {
+    float v[kPlanes][kGroup];
+#pragma unroll
+    for (int j = 0; j < kPlanes; ++j) {
+      if (i0 + j < n) {
+        const float* p = in + (i0 + j) * plane;
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) v[j][k] = __ldg(p + src[k]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPlanes; ++j) {
+      if (i0 + j < n) {
+        float* d = o + (i0 + j) * plane;
+        if (kVec) {
+          *reinterpret_cast<float4*>(d) = make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kGroup; ++k) {
+            if (x0 + k < w) d[k] = v[j][k];
+          }
+        }
+      }
+    }
   }
 }
 
@@ -84,12 +147,27 @@ int mfsr_tile_warp(const void* img, const void* shifts, void* out, int batch,
       nty * t < h || ntx * t < w || (block_map && (h % t || w % t))) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y,
-                  batch);
-  tile_warp_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const int*>(shifts),
-      static_cast<float*>(out), n, h, w, t, nty, ntx, bound, block_map);
+  const dim3 block(kBlockX, kBlockY);
+  const int groups = (w + kGroup - 1) / kGroup;
+  const dim3 grid((groups + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY, batch);
+  // float4 stores need every row start 16-byte aligned
+  const bool vec = w % kGroup == 0 && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  int lg_t = 0;
+  while ((1 << lg_t) < t) ++lg_t;
+  const bool pow2 = (1 << lg_t) == t;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* src = static_cast<const float*>(img);
+  const int* sh = static_cast<const int*>(shifts);
+  float* dst = static_cast<float*>(out);
+#define MFSR_LAUNCH(V, P)                                                                      \
+  tile_warp_kernel<V, P><<<grid, block, 0, s>>>(src, sh, dst, n, h, w, t, lg_t, nty, ntx, bound, \
+                                                block_map)
+  if (vec) {
+    if (pow2) MFSR_LAUNCH(true, true); else MFSR_LAUNCH(true, false);
+  } else {
+    if (pow2) MFSR_LAUNCH(false, true); else MFSR_LAUNCH(false, false);
+  }
+#undef MFSR_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -15,10 +15,14 @@ models/handheld.py), both entry points on their fast paths:
   + LK at half res -> robustness -> order-1 plane merge -> plugin solve
   -> noise-gated restore -> one phase interleave.
 
-Everything runs on the device of the input burst; on CUDA the tile warp,
-the search windows and the merges go through the Hopper kernels. The
-pre-alignment's validity mask rides through the tile warp as one more
-plane and multiplies the certainty.
+Both run on cuda:0 unless ``device`` names another device (``"cpu"`` or
+a ``torch.device``); without a card and without that request they raise
+RuntimeError and never fall back to the CPU. After the checks of config
+and shape, the burst (and an override's transform) is moved to that
+device before any stage runs. On CUDA the tile warp, the search windows
+and the merges go through the Hopper kernels. The pre-alignment's
+validity mask rides through the tile warp as one more plane and
+multiplies the certainty.
 
 ``prealign_override``: optional (st, origin, global_hw), a
 SimilarityTransform (registration/logpolar.py, leading axis F - 1)
@@ -34,6 +38,7 @@ import dataclasses
 import torch
 from torch.profiler import record_function
 
+from multi_frame_super_resolution_tpu_torch import resolve_device
 from multi_frame_super_resolution_tpu_torch.config import (
     RAW_BENCH,
     RGB_PALLAS,
@@ -98,18 +103,31 @@ def _scaled_merge_cfg(cfg: HandheldConfig) -> MergeConfig:
     )
 
 
+def _on_device(who, burst, prealign_override, device):
+    """The burst (contiguous) and the override on the entry point's device
+    (see the module docstring)."""
+    dev = resolve_device(device, who, 'device="cpu"')
+    if prealign_override is not None:
+        st, origin, global_hw = prealign_override
+        st = dataclasses.replace(st, **{f.name: getattr(st, f.name).to(dev) for f in dataclasses.fields(st)})
+        prealign_override = (st, origin, global_hw)
+    return burst.to(dev).contiguous(), prealign_override
+
+
 def handheld_superres(
-    burst: torch.Tensor, cfg: HandheldConfig = RGB_PALLAS, prealign_override=None
+    burst: torch.Tensor, cfg: HandheldConfig = RGB_PALLAS, prealign_override=None, *, device=None
 ) -> torch.Tensor:
     """RGB burst (F, H, W, 3) float32, frame 0 the reference ->
-    merged (scale*H, scale*W, 3) in [0, 1]. Raises ValueError for config
-    knobs the port does not implement (config.check_supported)."""
+    merged (scale*H, scale*W, 3) in [0, 1], on cuda:0 unless ``device``
+    names another device. Raises ValueError for config knobs the port
+    does not implement (config.check_supported)."""
     check_supported(cfg)
     if burst.ndim != 4 or burst.shape[-1] != 3 or burst.shape[0] < 2:
         raise ValueError(f"burst must be (F>=2, H, W, 3), got {tuple(burst.shape)}")
     if burst.dtype != torch.float32:
         raise TypeError(f"burst must be float32, got {burst.dtype}")
-    return _handheld_fast(burst.contiguous(), cfg, prealign_override)
+    burst, prealign_override = _on_device("handheld_superres", burst, prealign_override, device)
+    return _handheld_fast(burst, cfg, prealign_override)
 
 
 def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None) -> torch.Tensor:
@@ -240,12 +258,12 @@ def _subsample_from_planes(planes: torch.Tensor, cfa) -> torch.Tensor:
 
 
 def handheld_superres_raw(
-    raw_burst: torch.Tensor, cfg: HandheldConfig = RAW_BENCH, prealign_override=None
+    raw_burst: torch.Tensor, cfg: HandheldConfig = RAW_BENCH, prealign_override=None, *, device=None
 ) -> torch.Tensor:
     """Bayer RAW burst (F, H, W) float32 in [0, 1], frame 0 the reference,
-    H and W even -> merged RGB (scale*H, scale*W, 3) in [0, 1]. Raises
-    ValueError for config knobs the port does not implement
-    (config.check_supported_raw)."""
+    H and W even -> merged RGB (scale*H, scale*W, 3) in [0, 1], on cuda:0
+    unless ``device`` names another device. Raises ValueError for config
+    knobs the port does not implement (config.check_supported_raw)."""
     check_supported_raw(cfg)
     if raw_burst.ndim != 3 or raw_burst.shape[0] < 2:
         raise ValueError(f"raw_burst must be (F>=2, H, W), got {tuple(raw_burst.shape)}")
@@ -253,7 +271,8 @@ def handheld_superres_raw(
         raise ValueError(f"RAW dims must be even (Bayer quads), got {tuple(raw_burst.shape)}")
     if raw_burst.dtype != torch.float32:
         raise TypeError(f"raw_burst must be float32, got {raw_burst.dtype}")
-    return _handheld_raw_fast(raw_burst.contiguous(), cfg, prealign_override)
+    raw_burst, prealign_override = _on_device("handheld_superres_raw", raw_burst, prealign_override, device)
+    return _handheld_raw_fast(raw_burst, cfg, prealign_override)
 
 
 def _handheld_raw_fast(raw_burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None) -> torch.Tensor:

@@ -31,6 +31,7 @@ from multi_frame_super_resolution_tpu_torch.data import (
     synthetic_rgb_burst,
 )
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.kernels import merge as merge_kernel
 from multi_frame_super_resolution_tpu_torch.kernels import merge_raw as raw_merge_kernel
 from multi_frame_super_resolution_tpu_torch.kernels.defog import defog, defog_pixels
 from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
@@ -57,20 +58,26 @@ def _merge_inputs(rng, f, h, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "f,h,w,scale,radius",
-    [(5, 64, 96, 2, 1), (3, 20, 37, 1, 1), (2, 33, 40, 3, 2), (2, 24, 24, 4, 1)],
-)
-def test_merge_kernel_matches_plain(f, h, w, scale, radius):
-    """Any H and W, scales 1-4. expf and FMA contraction differ from the
-    plain ops by a few ulps: rtol and atol 1e-5."""
+@pytest.mark.parametrize("h,w", [(3, 5), (37, 61), (64, 96)])
+@pytest.mark.parametrize("radius,k_max,halo", [(1, 1.0, 2), (7, 64.0, 8)], ids=["taps2", "taps8"])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+@pytest.mark.parametrize("f", [2, 5, 9])
+def test_merge_kernel_matches_plain(f, scale, radius, k_max, halo, h, w):
+    """F = 2, 5, 9 (the frames are streamed: no cap); scales 1-4; tap
+    radius 2 (radius 1, rb 1) and 8 (radius 7, rb 1; k_max 64 keeps the
+    |k| = 8 taps at every scale, up to all 289, so the largest halo and
+    the shared-memory opt-in above 48 KB are exercised); an image
+    smaller than one block's tile and halo, one that is not a multiple
+    of the 32 x 8 block, and one that is. ex2.approx, the folded exponent, value x certainty staged and
+    FMA contraction against torch ops: rtol and atol 1e-5."""
     dev = cuda_device()
-    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(1), f, h, w)]
+    assert np.abs(merge_kernel.tap_array(radius + 1, 1.0, scale, k_max)).max() == halo
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(f * 10 + scale), f, h, w)]
     LAUNCHES.clear()
-    num, den = merge_fast(*ins, scale, radius, 1.0, 1.0)
+    num, den = merge_fast(*ins, scale, radius, 1.0, k_max)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_fast"] == 1
-    num_p, den_p = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, 1.0)
+    num_p, den_p = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max)
     torch.testing.assert_close(num, num_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(den, den_p, rtol=1e-5, atol=1e-5)
 
@@ -89,7 +96,7 @@ def test_slice_on_card_matches_cpu():
     on the CPU (plain merge); TF32 is off, so both run in float32."""
     dev = cuda_device()
     burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)
-    want = nn(handheld_superres(tt(burst), PORT_DEFAULT))
+    want = nn(handheld_superres(tt(burst), PORT_DEFAULT, device="cpu"))
     LAUNCHES.clear()
     got = nn(handheld_superres(tt(burst, dev), PORT_DEFAULT))
     assert LAUNCHES["merge_fast"] == 1
@@ -97,9 +104,33 @@ def test_slice_on_card_matches_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,h,w,t,amp", [(4, 4, 128, 256, 16, 20), (2, 3, 50, 70, 16, 20), (3, 1, 40, 72, 8, 9)])
+def test_entry_points_run_on_card_by_default():
+    """Bursts handed over on the CPU, no device asked for: both entry points
+    move them to cuda:0 and run there, through the kernels."""
+    dev = cuda_device()
+    burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)
+    raw, _ = synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5)
+    LAUNCHES.clear()
+    assert handheld_superres(tt(burst), PORT_DEFAULT).device == dev
+    assert handheld_superres_raw(tt(raw), RAW_PORT_DEFAULT).device == dev
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_fast"] == 1 and LAUNCHES["merge_raw"] == 1 and LAUNCHES["tile_warp"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,n,h,w,t,amp",
+    [
+        (4, 4, 128, 256, 16, 20), (2, 3, 50, 70, 16, 20), (3, 1, 40, 72, 8, 9),
+        (2, 5, 64, 96, 32, 20), (2, 5, 40, 72, 8, 9), (2, 5, 37, 61, 8, 9),
+        (3, 5, 33, 66, 32, 20), (1, 9, 16, 44, 4, 5), (2, 5, 30, 30, 6, 7),
+    ],
+)
 def test_tile_warp_kernel_matches_plain(b, n, h, w, t, amp):
-    """Both index maps; every output is one input value, so exact."""
+    """Both index maps; N up to 9 (5: the validity plane the paths carry;
+    9: a second batch of loads); T = 4, 6, 8, 16, 32 (6: 4-groups straddle
+    tiles); W a multiple of 4 (float4 stores) or not (scalar stores,
+    the row's end masked). Every output is one input value, so exact."""
     dev = cuda_device()
     rng = np.random.default_rng(h)
     imgs = tt(rng.random((b, n, h, w)).astype(np.float32), dev)
@@ -216,7 +247,7 @@ def test_raw_slice_on_card_matches_cpu(fast_extract):
         align=AlignConfig(tile_size=16, search_radius=4, levels=2, fast_extract=fast_extract),
     )
     raw, _ = synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5)
-    want = nn(handheld_superres_raw(tt(raw), cfg))
+    want = nn(handheld_superres_raw(tt(raw), cfg, device="cpu"))
     LAUNCHES.clear()
     got = nn(handheld_superres_raw(tt(raw, dev), cfg))
     assert LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1
@@ -280,12 +311,12 @@ def test_prealigned_slices_on_card_match_cpu():
     dev = cuda_device()
     angles = CITY_ANGLES[:2] + CITY_ANGLES[3:]
     raw, _ = synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5, angles=angles)
-    want = nn(handheld_superres_raw(tt(raw), RAW_BENCH))
+    want = nn(handheld_superres_raw(tt(raw), RAW_BENCH, device="cpu"))
     LAUNCHES.clear()
     got = nn(handheld_superres_raw(tt(raw, dev), RAW_BENCH))
     assert LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1
     assert psnr(got, want) >= 60.0
     burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5, angles=angles)
-    want = nn(handheld_superres(tt(burst), RGB_PALLAS))
+    want = nn(handheld_superres(tt(burst), RGB_PALLAS, device="cpu"))
     got = nn(handheld_superres(tt(burst, dev), RGB_PALLAS))
     assert psnr(got, want) >= 60.0

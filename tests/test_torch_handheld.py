@@ -32,6 +32,7 @@ from multi_frame_super_resolution_tpu_torch.config import (
 )
 from multi_frame_super_resolution_tpu_torch.data import CITY_ANGLES, synthetic_rgb_burst
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.models import handheld
 from multi_frame_super_resolution_tpu_torch.models.handheld import handheld_superres
 
 SLICE = HandheldConfig(prealign=False, merge=MergeConfig(use_pallas=True))
@@ -50,7 +51,7 @@ def test_slice_matches_jax_pipeline():
     with interpret_pallas():
         want = nn(jax.jit(jax_handheld_superres, static_argnums=1)(jnp.asarray(burst), to_jax(SLICE)))
     LAUNCHES.clear()
-    got = nn(handheld_superres(tt(burst), SLICE))
+    got = nn(handheld_superres(tt(burst), SLICE, device="cpu"))
     assert got.shape == (128, 256, 3) and np.isfinite(got).all()
     assert LAUNCHES["merge_fast"] == 0  # CPU tensors take the plain merge
     assert psnr(got, want) >= 60.0
@@ -66,7 +67,7 @@ def test_rgb_pallas_matches_jax_pipeline():
     with interpret_pallas():
         want = nn(jax.jit(jax_handheld_superres, static_argnums=1)(jnp.asarray(burst), to_jax(RGB_PALLAS)))
     LAUNCHES.clear()
-    got = nn(handheld_superres(tt(burst), RGB_PALLAS))
+    got = nn(handheld_superres(tt(burst), RGB_PALLAS, device="cpu"))
     assert got.shape == (128, 256, 3) and np.isfinite(got).all()
     assert not LAUNCHES
     assert psnr(got, want) >= 60.0
@@ -105,8 +106,28 @@ def test_slice_windows_branch_matches_jax_pipeline():
     burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)
     with interpret_pallas():
         want = nn(jax.jit(jax_handheld_superres, static_argnums=1)(jnp.asarray(burst), to_jax(cfg)))
-    got = nn(handheld_superres(tt(burst), cfg))
+    got = nn(handheld_superres(tt(burst), cfg, device="cpu"))
     assert psnr(got, want) >= 60.0
+
+
+def test_entry_point_raises_without_card_unless_cpu_is_asked(monkeypatch):
+    """No card and no device request: handheld_superres raises rather than
+    run on the CPU, and names device="cpu"; with that request it runs
+    there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)
+    with pytest.raises(RuntimeError, match='no CUDA device.*device="cpu"'):
+        handheld_superres(tt(burst), SLICE)
+    assert handheld_superres(tt(burst), SLICE, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu")], ids=["str", "torch.device"])
+def test_cpu_request_equals_the_former_cpu_result(device):
+    """Asked for the CPU, the entry point runs what it ran on a CPU tensor
+    before it took a device (its body, _handheld_fast): bit for bit."""
+    burst = tt(synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)[0])
+    want = handheld._handheld_fast(burst, SLICE)
+    torch.testing.assert_close(handheld_superres(burst, SLICE, device=device), want, rtol=0, atol=0)
 
 
 def test_port_never_imports_jax():

@@ -14,6 +14,7 @@ from multi_frame_super_resolution_tpu.models import merge as jmerge
 from multi_frame_super_resolution_tpu.pallas_ops.merge import merge_fast_pallas
 from multi_frame_super_resolution_tpu_torch.config import MergeConfig
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.kernels import merge as merge_kernel
 from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
 from multi_frame_super_resolution_tpu_torch.models import fast_merge, merge
 
@@ -36,6 +37,22 @@ def test_active_taps_and_phases():
         for r, rb, k in ((2, 1.0, 1.0), (3, 0.5, 4.0), (1, 1.0, 0.25)):
             assert fast_merge._active_taps(r, rb, s, k) == jfm._active_taps(r, rb, s, k)
     assert len(fast_merge._active_taps(2, 1.0, 2, 1.0)) == 25  # the slice's taps
+
+
+@pytest.mark.parametrize(
+    "r_taps,rb,scale,k_max",
+    [(2, 1.0, 2, 1.0), (2, 1.0, 1, 1.0), (3, 1.0, 3, 1.0), (3, 0.5, 4, 4.0), (8, 1.0, 2, 16.0)],
+)
+def test_wrapper_tap_array_is_cached_active_taps(r_taps, rb, scale, k_max):
+    """The wrapper's host tap list: the port's and the JAX package's
+    _active_taps as contiguous read-only int32 rows, built once per key
+    (the same array on every call, so a launch does no numpy work)."""
+    taps = merge_kernel.tap_array(r_taps, rb, scale, k_max)
+    assert taps.dtype == np.int32 and taps.flags.c_contiguous and not taps.flags.writeable
+    assert [tuple(t) for t in taps.tolist()] == fast_merge._active_taps(r_taps, rb, scale, k_max)
+    assert [tuple(t) for t in taps.tolist()] == jfm._active_taps(r_taps, rb, scale, k_max)
+    assert merge_kernel.tap_array(r_taps, rb, scale, k_max) is taps
+    assert merge_kernel._tap_args(r_taps, rb, scale, k_max) == (taps.ctypes.data, len(taps))
 
 
 @pytest.mark.parametrize(

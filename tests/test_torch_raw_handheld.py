@@ -74,7 +74,7 @@ def test_raw_slice_matches_jax_pipeline(raw_burst, cfg):
     leaves room for that."""
     want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw_burst), to_jax(cfg)))
     LAUNCHES.clear()
-    got = nn(handheld_superres_raw(tt(raw_burst), cfg))
+    got = nn(handheld_superres_raw(tt(raw_burst), cfg, device="cpu"))
     assert got.shape == (256, 512, 3) and np.isfinite(got).all()
     assert got.min() >= 0.0 and got.max() <= 1.0
     assert not LAUNCHES  # CPU tensors take the plain versions
@@ -93,7 +93,7 @@ def test_raw_bench_matches_jax_pipeline(rotated_raw_burst):
     raw = rotated_raw_burst
     want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw), to_jax(RAW_BENCH)))
     LAUNCHES.clear()
-    got = nn(handheld_superres_raw(tt(raw), RAW_BENCH))
+    got = nn(handheld_superres_raw(tt(raw), RAW_BENCH, device="cpu"))
     assert got.shape == (256, 512, 3) and np.isfinite(got).all()
     assert got.min() >= 0.0 and got.max() <= 1.0
     assert not LAUNCHES
@@ -122,7 +122,8 @@ def test_raw_bench_given_one_transform(rotated_raw_burst):
     port_st = similarity_from_numpy(jax.tree_util.tree_map(np.asarray, st))
     got = nn(
         handheld_superres_raw(
-            tt(rotated_raw_burst), RAW_BENCH, prealign_override=(port_st, (4, 8), (72, 144))
+            tt(rotated_raw_burst), RAW_BENCH, prealign_override=(port_st, (4, 8), (72, 144)),
+            device="cpu",
         )
     )
     assert psnr(got, want) >= 60.0
@@ -140,7 +141,7 @@ def test_raw_slice_noise_gate(raw_burst, monkeypatch):
         return restore.temporal_noise_stat(gray, residual)
 
     monkeypatch.setattr(handheld, "temporal_noise_stat", recording_stat)
-    handheld_superres_raw(tt(raw_burst), RAW_SLICE)
+    handheld_superres_raw(tt(raw_burst), RAW_SLICE, device="cpu")
     (gray, res), = seen
     stat = restore.temporal_noise_stat(gray, res)
     want = jrestore.temporal_noise_stat(jnp.asarray(nn(gray)), residual=jnp.asarray(nn(res)))
@@ -157,8 +158,27 @@ def test_raw_slice_without_restore_and_lk(raw_burst):
         RAW_SLICE, final_restore=False, use_lk=False, smooth_residual=False, gamma=True
     )
     want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw_burst), to_jax(cfg)))
-    got = nn(handheld_superres_raw(tt(raw_burst), cfg))
+    got = nn(handheld_superres_raw(tt(raw_burst), cfg, device="cpu"))
     assert psnr(got, want) >= 60.0
+
+
+def test_raw_entry_point_raises_without_card_unless_cpu_is_asked(raw_burst, monkeypatch):
+    """No card and no device request: handheld_superres_raw raises rather
+    than run on the CPU, and names device="cpu"; with that request it runs
+    there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device.*device="cpu"'):
+        handheld_superres_raw(tt(raw_burst), RAW_SLICE)
+    assert handheld_superres_raw(tt(raw_burst), RAW_SLICE, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("device", ["cpu", torch.device("cpu")], ids=["str", "torch.device"])
+def test_raw_cpu_request_equals_the_former_cpu_result(raw_burst, device):
+    """Asked for the CPU, the entry point runs what it ran on a CPU tensor
+    before it took a device (its body, _handheld_raw_fast): bit for bit."""
+    want = handheld._handheld_raw_fast(tt(raw_burst), RAW_SLICE)
+    got = handheld_superres_raw(tt(raw_burst), RAW_SLICE, device=device)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize(
