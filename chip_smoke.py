@@ -15,8 +15,13 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    - tile warp (csrc/tile_warp.cu): 4 frames x 4 CFA planes of 128 x 256,
      T=16; separable map with shifts in +-20 (the +-16 clip acts), block
      map with shifts in +-5; bit-exact;
-   - tile windows (csrc/tile_gather.cu): 4 x 128 x 256, T=16, pad 4;
-     bit-exact;
+   - tile search (csrc/tile_search.cu): 4 alternates of 128 x 256 and
+     of 64 x 128 (the RAW main path's two pyramid levels), T=16, R=4,
+     both modes, on a synthetic burst shifted by up to 3 px, with noise,
+     and predictions within 2 px of each shift; in "image" mode a tenth
+     of the tiles predicted at 17-20 px (the +-16 warp clip acts); and a
+     ragged 79 x 111, R=9 "tile" case. Integer parts (subpixel off) equal
+     on every tile, subpixel shifts within 1e-3 px;
    - RAW merge (csrc/merge_raw.cu): F=5, 128 x 256 half-res, the RAW
      slice's 21 taps; rtol and atol 1e-5;
    - defog (csrc/defog.cu): 1024 x 1224 x 3, P and A_inf from the seed;
@@ -30,15 +35,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      the card with the port on the CPU; the same size through
      stokes_synthesis from synthetic 0/45/90-degree frames; the defog app
      (apps/polar_defog.py) on its 300 x 400 demo;
-   - handheld_superres at config.RGB_PALLAS (pre-alignment, merge and
-     tile-warp kernels) on a synthetic 5 x 256 x 512 x 3 RGB burst
+   - handheld_superres at config.RGB_PALLAS (pre-alignment; merge,
+     tile-warp and tile-search kernels) on a synthetic 5 x 256 x 512 x 3 RGB burst
      rotated as the city burst is (0/0/5/10/-15 degrees), and at
      config.PORT_DEFAULT (no pre-alignment) on the same burst unrotated;
    - handheld_superres_raw on that burst mosaicked to 5 x 256 x 512 at
-     config.RAW_BENCH (bench.py's configuration; tile-warp and RAW merge
-     kernels), and on the unrotated burst at config.RAW_PORT_DEFAULT and
-     its windows-branch variant align.fast_extract=False (window kernel
-     too).
+     config.RAW_BENCH (bench.py's configuration; tile-warp, tile-search
+     and RAW merge kernels), and on the unrotated burst at config.RAW_PORT_DEFAULT and
+     its windows-branch variant align.fast_extract=False. Every path
+     runs the tile search once per pyramid level.
    The entry points get CUDA tensors and no device argument: they run on
    cuda:0, their default. Each burst output must lie there, have its
    shape, be finite and in [0, 1], agree (PSNR >= 60 dB) with the same
@@ -54,11 +59,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    input read once, each output written once) over 3.35 TB/s and its
    operations at the checked shape (WORK) over the card's peak for
    their type (67 TFLOP/s f32, and exp at 16 a clock on each of 132
-   SMs at 1.98 GHz); merge_fast's device time at F=1 beside F=5 (the
-   part that does not grow with the frames); the registers and spills
-   (ptxas -v) of merge_fast, tile_warp and merge_raw; for the two copy
-   kernels (tile_warp, tile_gather) the copy floor: the profiler's device
-   time of dst.copy_(src) moving the kernel's bytes.
+   SMs at 1.98 GHz); the plain tile search's device time and device-op
+   count beside the kernel's (the search's yardstick); merge_fast's
+   device time at F=1 beside F=5 (the part that does not grow with the
+   frames); the registers and spills (ptxas -v) of the redesigned
+   kernels; for the copy kernel (tile_warp) the copy floor: the
+   profiler's device time of dst.copy_(src) moving the kernel's bytes.
 6. Where the time goes: one burst (frame) of each path under
    torch.profiler: host and device ms of each stage (the mfsr.* ranges
    of models/handheld.py and models/defog.py, with each kernel's own
@@ -88,6 +94,7 @@ import torch
 F, H, W, SCALE = 5, 256, 512, 2
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)  # expf and FMA contraction vs torch ops
 EXACT = dict(rtol=0.0, atol=0.0)  # the copies move values, they compute nothing
+SHIFT_TOL = dict(rtol=0.0, atol=1e-3)  # px: SSD sums in another order, through the subpixel fit
 DEFOG_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX spec's tolerance; expected exact
 DEFOG_H, DEFOG_W = 1024, 1224  # one polarization angle of a 2448 x 2048 DoFP sensor
 PSNR_MIN = 60.0
@@ -95,19 +102,19 @@ PKG = "multi_frame_super_resolution_tpu_torch"
 KERNELS = {  # name -> (source, the TPU kernel or JAX function it replaces)
     "merge_fast": (f"{PKG}/csrc/merge.cu", "multi_frame_super_resolution_tpu/pallas_ops/merge.py:132"),
     "tile_warp": (f"{PKG}/csrc/tile_warp.cu", "multi_frame_super_resolution_tpu/pallas_ops/tile_warp.py:58"),
-    "tile_gather": (f"{PKG}/csrc/tile_gather.cu", "multi_frame_super_resolution_tpu/pallas_ops/tile_gather.py:52"),
+    "tile_search": (f"{PKG}/csrc/tile_search.cu", "multi_frame_super_resolution_tpu/pallas_ops/tile_gather.py:52"),
     "merge_raw": (f"{PKG}/csrc/merge_raw.cu", "multi_frame_super_resolution_tpu/models/fast_merge.py:301"),
     "defog": (f"{PKG}/csrc/defog.cu", "multi_frame_super_resolution_tpu/pallas_ops/defog.py:35"),
 }
 # the profiler's names of the kernels' __global__ functions
 KERNEL_SYMBOLS = {
     "merge_fast": "merge_fast_kernel", "tile_warp": "tile_warp_kernel",
-    "tile_gather": "tile_gather_kernel", "merge_raw": "merge_raw_kernel",
+    "tile_search": "tile_search_kernel", "merge_raw": "merge_raw_kernel",
     "defog": "defog_kernel",
 }
 # each kernel's stage in the profile
 STAGE_OF = {"merge_fast": "mfsr.merge", "merge_raw": "mfsr.merge", "tile_warp": "mfsr.tile_warp",
-            "tile_gather": "mfsr.align", "defog": "mfsr.defog.pixels"}
+            "tile_search": "mfsr.align", "defog": "mfsr.defog.pixels"}
 # published H100 SXM peaks: HBM3, f32 outside the tensor cores, and the
 # SFU's exp (16 a clock per SM, 132 SMs, 1.98 GHz boost)
 HBM_BYTES_S, F32_FLOPS_S, EXP_S = 3.35e12, 67e12, 16 * 132 * 1.98e9
@@ -128,9 +135,10 @@ WORK = {
     "merge_raw": (38.5, 2),
     # per element: A, t and R with their clips
     "defog": (11, 0),
-    # copies
+    # per (frame, tile, offset, pixel): the cross term's multiply-add
+    "tile_search": (2, 0),
+    # a copy
     "tile_warp": (0, 0),
-    "tile_gather": (0, 0),
 }
 
 
@@ -214,6 +222,7 @@ def main() -> int:
     from multi_frame_super_resolution_tpu_torch.data import (
         CITY_ANGLES,
         mosaic_rggb,
+        synthetic_burst,
         synthetic_polar_pair,
         synthetic_raw_burst,
         synthetic_rgb_burst,
@@ -222,7 +231,7 @@ def main() -> int:
     from multi_frame_super_resolution_tpu_torch.kernels import defog as kdefog
     from multi_frame_super_resolution_tpu_torch.kernels import merge as kmerge
     from multi_frame_super_resolution_tpu_torch.kernels import merge_raw as kmerge_raw
-    from multi_frame_super_resolution_tpu_torch.kernels import tile_gather as ktile_gather
+    from multi_frame_super_resolution_tpu_torch.kernels import tile_search as ktile_search
     from multi_frame_super_resolution_tpu_torch.kernels import tile_warp as ktile_warp
     from multi_frame_super_resolution_tpu_torch.kernels.build import build_all
     from multi_frame_super_resolution_tpu_torch.models import defog as mdefog
@@ -237,7 +246,7 @@ def main() -> int:
     print(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     # 2. build, all five sources at once
-    modules = (kmerge, ktile_warp, ktile_gather, kmerge_raw, kdefog)
+    modules = (kmerge, ktile_warp, ktile_search, kmerge_raw, kdefog)
     t0 = time.perf_counter()
     libs = build_all(m.library for m in modules)
     print(f"build: {', '.join(m.SOURCE for m in modules)} in "
@@ -250,9 +259,6 @@ def main() -> int:
     # plain versions with the wrappers' signatures
     def plain_tile_warp(imgs, shifts, t, bound=16):
         return warp_fast.tile_warp_matmul(imgs, shifts, t, bound)
-
-    def plain_tile_gather(imgs, shifts, t, pad):
-        return tiles.extract_search_windows(imgs, t, pad, shifts)
 
     # 3. each kernel against its plain version at its path's shapes
     rng = np.random.default_rng(0)
@@ -268,8 +274,6 @@ def main() -> int:
     planes4 = torch.from_numpy(rng.random((F - 1, 4, hh, hw)).astype(np.float32)).to(dev)
     sep_shifts = torch.from_numpy(rng.integers(-20, 21, (F - 1, nty, ntx, 2)).astype(np.int32)).to(dev)
     blk_shifts = torch.from_numpy(rng.integers(-5, 6, (F - 1, nty, ntx, 2)).astype(np.int32)).to(dev)
-    gray4 = planes4[:, 0].contiguous()
-    win_shifts = torch.from_numpy(rng.integers(-4, 5, (F - 1, nty, ntx, 2)).astype(np.int32)).to(dev)
     omega = 0.5 + rng.random((hh, hw, 3))
     omega[..., 2] *= 0.1
     raw_ins = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
@@ -284,6 +288,37 @@ def main() -> int:
         (0.2 + 0.4 * rng.random(3)).astype(np.float32), (0.6 + 0.3 * rng.random(3)).astype(np.float32),
     )]
 
+    def search_case(h, w, outliers):
+        """(ref, alts, rounded) on the card: a synthetic burst of 5 frames
+        shifted by up to 3 px, with noise, and predictions within 2 px of
+        each alternate's shift (alt_f(p - d_f) = ref(p) for the crop
+        offsets d_f); with ``outliers``, a tenth of the tiles predicted at
+        17-20 px instead, as a coarse level's miss would be."""
+        burst, offsets = synthetic_burst(rng, F, h, w, 3.0)
+        burst = burst + 0.01 * rng.standard_normal(burst.shape)
+        grid = (F - 1, -(-h // 16), -(-w // 16))
+        rounded = np.round(-offsets[1:])[:, None, None, :] + rng.integers(-2, 3, grid + (2,))
+        if outliers:
+            miss = rng.random(grid) < 0.1
+            rounded[miss] = rng.choice([-1, 1], (miss.sum(), 2)) * rng.integers(17, 21, (miss.sum(), 2))
+        return tuple(torch.from_numpy(x.astype(np.float32)).to(dev) for x in (burst[0], burst[1:], rounded))
+
+    # (label, inputs, radius, mode): the RAW main path's two levels
+    search_cases = [
+        ("tile_search image 4x128x256", search_case(hh, hw, True), 4, "image"),
+        ("tile_search image 4x64x128", search_case(hh // 2, hw // 2, True), 4, "image"),
+        ("tile_search tile 4x128x256", search_case(hh, hw, False), 4, "tile"),
+        ("tile_search tile 4x64x128", search_case(hh // 2, hw // 2, False), 4, "tile"),
+        ("tile_search tile 4x79x111 R=9", search_case(79, 111, False), 9, "tile"),
+    ]
+
+    def search_checks(label, ins, radius, mode):
+        def call(fn, sub):
+            return lambda: (fn(*ins, 16, radius, 0.0, sub, mode),)
+        return [(label, call(ktile_search.tile_search, True), call(tiles.tile_search, True), SHIFT_TOL),
+                (f"{label} integer parts", call(ktile_search.tile_search, False),
+                 call(tiles.tile_search, False), EXACT)]
+
     calls = {  # name -> [(label, kernel call, plain call, tolerance)]
         "merge_fast": [("merge", lambda: kmerge.merge_fast(*rgb_ins, *merge_args),
                         lambda: fast_merge.merge_burst_fast(*rgb_ins, *merge_args), KERNEL_TOL)],
@@ -293,8 +328,7 @@ def main() -> int:
             ("tile_warp block", lambda: (ktile_warp.tile_warp_block(planes4, blk_shifts, 16),),
              lambda: (warp_fast.tile_warp_block(planes4, blk_shifts, 16),), EXACT),
         ],
-        "tile_gather": [("tile_gather", lambda: (ktile_gather.tile_gather(gray4, win_shifts, 16, 4),),
-                         lambda: (plain_tile_gather(gray4, win_shifts, 16, 4),), EXACT)],
+        "tile_search": [check for case in search_cases for check in search_checks(*case)],
         "merge_raw": [("merge_raw", lambda: kmerge_raw.merge_raw(*raw_ins, *raw_args),
                        lambda: fast_merge.merge_burst_raw_planes(*raw_ins, *raw_args), KERNEL_TOL)],
         "defog": [("defog", lambda: kdefog.defog(*defog_ins),
@@ -313,10 +347,12 @@ def main() -> int:
     # bytes, and its work items (WORK gives the operations per item)
     taps_rgb = len(fast_merge._active_taps(1 + 1, 1.0, SCALE, 1.0))
     taps_raw = len(fast_merge._active_taps(1 + 1, 1.0, SCALE, 1.0, RAW_PORT_DEFAULT.merge.prune_exp))
+    search_ins = search_cases[0][1]
     kernel_inputs = {"merge_fast": rgb_ins, "tile_warp": (planes4, sep_shifts),
-                     "tile_gather": (gray4, win_shifts), "merge_raw": raw_ins, "defog": defog_ins}
+                     "tile_search": search_ins, "merge_raw": raw_ins, "defog": defog_ins}
     items = {"merge_fast": F * H * W * taps_rgb * SCALE**2, "merge_raw": F * hh * hw * taps_raw * SCALE**2,
-             "defog": DEFOG_H * DEFOG_W * 3, "tile_warp": 0, "tile_gather": 0}
+             "defog": DEFOG_H * DEFOG_W * 3, "tile_warp": 0,
+             "tile_search": search_ins[2].shape[0] * nty * ntx * (2 * search_cases[0][2] + 1) ** 2 * 16**2}
     bounds, moved_bytes = {}, {}
     for name, ins in kernel_inputs.items():
         moved = moved_bytes[name] = sum(t.numel() * t.element_size() for t in ins) + out_bytes[name]
@@ -334,7 +370,7 @@ def main() -> int:
         "merge_fast": (handheld, "merge_fast", fast_merge.merge_burst_fast),
         "tile_warp": (handheld, "tile_warp", plain_tile_warp),
         "merge_raw": (handheld, "merge_raw", fast_merge.merge_burst_raw_planes),
-        "tile_gather": (align, "tile_gather", plain_tile_gather),
+        "tile_search": (align, "tile_search", tiles.tile_search),
         "defog": (mdefog, "defog", kdefog.defog_pixels),
     }
 
@@ -365,7 +401,9 @@ def main() -> int:
         return out_plain
 
     def check_slice(label, fn, burst, cfg, expect, small_burst):
-        out, launches = drive(fn, burst, cfg, expect)
+        out, launches = drive(fn, burst, cfg, expect + ("tile_search",))
+        if launches["tile_search"] != cfg.align.levels:
+            raise RuntimeError(f"{label}: {launches['tile_search']} tile searches for {cfg.align.levels} levels")
         if out.device != dev:
             raise RuntimeError(f"{label}: the output lies on {out.device}, not on the default {dev}")
         check_output(label, out, (SCALE * burst.shape[1], SCALE * burst.shape[2], 3))
@@ -459,46 +497,52 @@ def main() -> int:
     print(f"raw restore gate: temporal noise statistic {stats[0]:.6f} "
           f"(gate {RAW_PORT_DEFAULT.restore_gate_lo}-{RAW_PORT_DEFAULT.restore_gate_hi})")
     win_launches = check_slice("raw windows", handheld.handheld_superres_raw, raw_burst,
-                               raw_windows_cfg, ("tile_warp", "merge_raw", "tile_gather"), raw_small)
+                               raw_windows_cfg, ("tile_warp", "merge_raw"), raw_small)
 
     # 5. timing: kernels beside their plain versions, then the paths
-    kernel_ms, plain_ms, device_ms = {}, {}, {}
+    kernel_ms, plain_ms, device_ms, plain_device = {}, {}, {}, {}
     for name, checks in calls.items():
         _, kernel_call, plain_call, _ = checks[0]
         k1 = time_cuda(kernel_call, iters=50, warmup=5)
         p = time_cuda(plain_call, iters=5, warmup=2)
         k2 = time_cuda(kernel_call, iters=50, warmup=5)
         kernel_ms[name], plain_ms[name] = k1, p
-        device_ms[name] = device_ms_per_call(kernel_call, KERNEL_SYMBOLS[name])
+        device_ms[name] = device_time(kernel_call, KERNEL_SYMBOLS[name])[0]
         print(f"kernel {name} ({checks[0][0]}): kernel {k1:.4f} / {k2:.4f} ms per call, "
               f"{device_ms[name]:.5f} ms device time (profiler), bound {bounds[name][0]:.5f} ms "
               f"({bounds[name][1]}): {100.0 * bounds[name][0] / device_ms[name]:.1f}% of bound; "
               f"plain {p:.4f} ms per call  [{card}]")
+    # the search's yardstick: every device op of the plain search it replaces
+    plain_device["tile_search"] = device_time(calls["tile_search"][0][2])
+    print(f"tile_search against the plain search ({calls['tile_search'][0][0]}): kernel "
+          f"{device_ms['tile_search']:.5f} ms device time in 1 launch; plain "
+          f"{plain_device['tile_search'][0]:.5f} ms device time over {plain_device['tile_search'][1]:.0f} "
+          f"device ops per call ({plain_device['tile_search'][0] / device_ms['tile_search']:.1f}x)  [{card}]")
     # the merge's time that does not grow with the frames: one frame beside F
     one_frame = [t[:1].contiguous() if t.ndim == 4 else t for t in rgb_ins]
-    ms_one = device_ms_per_call(lambda: kmerge.merge_fast(*one_frame, *merge_args), KERNEL_SYMBOLS["merge_fast"])
+    ms_one = device_time(lambda: kmerge.merge_fast(*one_frame, *merge_args), KERNEL_SYMBOLS["merge_fast"])[0]
     print(f"merge_fast by frames: {ms_one:.5f} ms device time at F=1, {device_ms['merge_fast']:.5f} at F={F}: "
           f"{(device_ms['merge_fast'] - ms_one) / (F - 1):.5f} ms per further frame  [{card}]")
-    for module in (kmerge, ktile_warp, kmerge_raw):  # the redesigned kernels
+    for module in (kmerge, ktile_warp, ktile_search, kmerge_raw):  # the redesigned kernels
         name = module.NAME
         ptxas = [line.strip() for line in libs[modules.index(module)].build_log.splitlines()
                  if "registers" in line or "spill" in line]
         print(f"{name}: {'; '.join(ptxas) or 'ptxas -v printed nothing (library already built)'}; "
               f"{device_ms[name]:.5f} ms device time, "
               f"{100.0 * bounds[name][0] / device_ms[name]:.1f}% of its bound")
-    # the copy floor of the copy kernels: a plain device-to-device copy of
-    # half the kernel's moved bytes, rounded down to 64 KiB (for tile_warp
-    # a tensor of its input's shape), so it reads and writes as many bytes.
-    # The unrounded size is timed beside it: past 2 MiB the copy can take
+    # the copy floor of the copy kernel: a plain device-to-device copy of
+    # half the kernel's moved bytes, rounded down to 64 KiB (a tensor of
+    # its input's shape), so it reads and writes as many bytes. The
+    # unrounded size is timed beside it: past 2 MiB the copy can take
     # another, slower path.
     copy_floor_ms = {}
-    for name in ("tile_warp", "tile_gather"):
+    for name in ("tile_warp",):
         sizes = (max(moved_bytes[name] // 8 // 16384, 1) * 16384, moved_bytes[name] // 8)
         copy_ms = []
         for numel in sizes:
             src = torch.rand(numel, device=dev)
             dst = torch.empty_like(src)
-            copy_ms.append(device_ms_per_call(lambda: dst.copy_(src)))
+            copy_ms.append(device_time(lambda: dst.copy_(src))[0])
             del src, dst  # out of the paths' peak memory
         copy_floor_ms[name] = copy_ms[0]
         print(f"copy floor {name}: dst.copy_(src) of {sizes[0]} float32 ({2 * sizes[0] * 4 / 1e6:.2f} MB moved, the "
@@ -565,10 +609,13 @@ def main() -> int:
         "bound_ms": bounds[name][0],
         "bound_by": bounds[name][1],
         "library_ms": None,  # no one PyTorch call computes any of these functions
-        "copy_floor_ms": copy_floor_ms.get(name),  # the copy kernels only
+        "copy_floor_ms": copy_floor_ms.get(name),  # the copy kernel only
+        # the search only: the plain version's device time and device ops
+        "plain_device_ms": plain_device.get(name, (None, None))[0],
+        "plain_device_ops": plain_device.get(name, (None, None))[1],
     } for name, launches in (
         ("merge_fast", rgb_launches), ("tile_warp", bench_launches),
-        ("tile_gather", win_launches), ("merge_raw", bench_launches),
+        ("tile_search", bench_launches), ("merge_raw", bench_launches),
         ("defog", defog_launches),
     )]}))
     print(f"launches per path: defog {defog_launches}, rgb {rgb_launches}, "
@@ -607,11 +654,12 @@ def estimate_agreement(label, gray, cfg, estimate) -> None:
           f"rotations {degrees} deg")
 
 
-def device_ms_per_call(call, symbol: str | None = None, iters: int = 20) -> float:
-    """Mean device time of the kernel ``symbol`` (with None: of all the
-    device work) per call over ``iters`` calls under torch.profiler: the
-    kernel alone, without the host's launch cost that a loop timed with
-    events includes when the wrapper is slower than the kernel."""
+def device_time(call, symbol: str | None = None, iters: int = 20) -> tuple:
+    """(ms, ops): mean device time and device ops per call of the kernel
+    ``symbol`` (with None: of all the device work) over ``iters`` calls
+    under torch.profiler: the kernel alone, without the host's launch
+    cost that a loop timed with events includes when the wrapper is
+    slower than the kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -628,7 +676,7 @@ def device_ms_per_call(call, symbol: str | None = None, iters: int = 20) -> floa
         rows = [e for e in prof.key_averages() if symbol in e.key]
     if not rows:
         raise RuntimeError(f"the profiler saw no {symbol or 'device work'}")
-    return sum(e.self_device_time_total for e in rows) / iters / 1e3
+    return sum(e.self_device_time_total for e in rows) / iters / 1e3, sum(e.count for e in rows) / iters
 
 
 def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> None:

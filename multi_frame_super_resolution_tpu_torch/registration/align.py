@@ -1,9 +1,9 @@
 """Coarse-to-fine tile-pyramid burst alignment (counterpart of
 registration/align.py), both non-FFT branches of ``align_frames``: the
-fused fast branch (tile-warp each alternate by the rounded prediction,
-build every tile's SSD surface over the warped image) and the windows
-branch (per-tile search windows at the rounded prediction, through the
-window kernel on CUDA), each followed by the subpixel argmin."""
+fast branch (SSD surfaces over the alternates tile-warped by the rounded
+prediction) and the windows branch (per-tile search windows at the
+rounded prediction), each followed by the subpixel argmin. Each level is
+one call of the tile search kernel on CUDA (kernels/tile_search.py)."""
 
 from __future__ import annotations
 
@@ -12,17 +12,10 @@ from typing import List
 import torch
 
 from multi_frame_super_resolution_tpu_torch.config import AlignConfig
-from multi_frame_super_resolution_tpu_torch.kernels.tile_gather import tile_gather
+from multi_frame_super_resolution_tpu_torch.kernels.tile_search import tile_search
 from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, resize
-from multi_frame_super_resolution_tpu_torch.ops.warp_fast import (
-    tile_warp_select,
-    upsample_int,
-)
+from multi_frame_super_resolution_tpu_torch.ops.warp_fast import upsample_int
 from multi_frame_super_resolution_tpu_torch.registration.tiles import (
-    extract_ref_tiles,
-    find_min_shift,
-    ssd_surface,
-    ssd_surface_image,
     tile_counts,
     upsample_shift_field,
 )
@@ -64,14 +57,11 @@ def align_frames(
         # windows are offset by the ROUNDED prediction, so the search
         # finds the residual relative to it
         rounded = torch.round(total)
-        if cfg.fast_extract and 2 * radius <= cfg.tile_size:
-            warped = tile_warp_select(a, rounded.to(torch.int32), cfg.tile_size)
-            ssd = ssd_surface_image(r, warped, cfg.tile_size, radius)
-        else:
-            windows = tile_gather(a.contiguous(), rounded.to(torch.int32), cfg.tile_size, radius)
-            ssd = ssd_surface(extract_ref_tiles(r, cfg.tile_size), windows, radius)
-        found = find_min_shift(ssd, radius, cfg.peak_threshold, cfg.subpixel)
-        total = rounded + found
+        mode = "image" if cfg.fast_extract and 2 * radius <= cfg.tile_size else "tile"
+        total = tile_search(
+            r.contiguous(), a.contiguous(), rounded, cfg.tile_size, radius,
+            cfg.peak_threshold, cfg.subpixel, mode,
+        )
     return total
 
 

@@ -8,6 +8,7 @@ from typing import Tuple
 import torch
 
 from multi_frame_super_resolution_tpu_torch.ops.filters import _pad_edge
+from multi_frame_super_resolution_tpu_torch.ops.warp_fast import tile_warp_select
 from multi_frame_super_resolution_tpu_torch.registration.subpixel import (
     quadratic_subpixel_min,
 )
@@ -36,8 +37,8 @@ def extract_search_windows(
     imgs: torch.Tensor, tile_size: int, radius: int, int_shifts: torch.Tensor
 ) -> torch.Tensor:
     """Per-tile (T+2R)^2 search windows at the integer pre-shift, clamped
-    per pixel (convertToTilesOverlapPreShift): the plain version of the
-    window kernel (kernels/tile_gather.py).
+    per pixel (convertToTilesOverlapPreShift): the window step of
+    tile_search's "tile" mode.
 
     imgs (N, H, W); int_shifts (N, nty, ntx, 2) over the ceil-divided
     tile grid. Returns (N, nty, ntx, T+2R, T+2R) with
@@ -156,6 +157,40 @@ def find_min_shift(
     shift = torch.where(on_border[..., None], 0.0, shift)
     insignificant = (min_val + threshold) > max_val
     return torch.where(insignificant[..., None], 0.0, shift)
+
+
+def tile_search(
+    ref: torch.Tensor,
+    alts: torch.Tensor,
+    rounded: torch.Tensor,
+    tile_size: int,
+    radius: int,
+    threshold: float = 0.0,
+    subpixel: bool = True,
+    mode: str = "image",
+) -> torch.Tensor:
+    """One pyramid level of the tile search: the plain version of the tile
+    search kernel (kernels/tile_search.py).
+
+    ref (H, W); alts (N, H, W); rounded (N, nty, ntx, 2), the rounded
+    prediction over the ceil-divided tile grid. Returns rounded +
+    find_min_shift(SSD) (N, nty, ntx, 2), the SSD surfaces taken over
+    ``mode``'s windows:
+
+    - "image" (align_frames' fast branch): the alternates tile-warped by
+      the prediction (tile_warp_select, bound 16), halos crossing tile
+      borders (ssd_surface_image);
+    - "tile" (the windows branch): per-tile windows at the prediction,
+      clamped per pixel (extract_search_windows, ssd_surface)."""
+    if mode == "image":
+        warped = tile_warp_select(alts, rounded.to(torch.int32), tile_size)
+        ssd = ssd_surface_image(ref, warped, tile_size, radius)
+    elif mode == "tile":
+        windows = extract_search_windows(alts, tile_size, radius, rounded.to(torch.int32))
+        ssd = ssd_surface(extract_ref_tiles(ref, tile_size), windows, radius)
+    else:
+        raise ValueError(f"mode must be 'image' or 'tile', got {mode!r}")
+    return rounded + find_min_shift(ssd, radius, threshold, subpixel)
 
 
 def upsample_shift_field(

@@ -1,5 +1,5 @@
 """Tests of the port that need the card: each Hopper kernel (RGB merge,
-tile warp, tile windows, RAW merge, defog) against its plain PyTorch
+tile warp, tile search, RAW merge, defog) against its plain PyTorch
 version, and the RGB, RAW and defog paths on the card against the port on
 the CPU. They skip without a CUDA device.
 
@@ -14,7 +14,16 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import cuda_device, nn, psnr, tt
+from torch_parity import (
+    BIG_SHIFTS,
+    SMALL_SHIFTS,
+    cuda_device,
+    nn,
+    psnr,
+    search_inputs,
+    tied_minima,
+    tt,
+)
 
 from multi_frame_super_resolution_tpu_torch.config import (
     PORT_DEFAULT,
@@ -33,10 +42,11 @@ from multi_frame_super_resolution_tpu_torch.data import (
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.kernels import merge as merge_kernel
 from multi_frame_super_resolution_tpu_torch.kernels import merge_raw as raw_merge_kernel
+from multi_frame_super_resolution_tpu_torch.kernels import tile_search as tile_search_kernel
 from multi_frame_super_resolution_tpu_torch.kernels.defog import defog, defog_pixels
 from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
 from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
-from multi_frame_super_resolution_tpu_torch.kernels.tile_gather import tile_gather
+from multi_frame_super_resolution_tpu_torch.kernels.tile_search import tile_search
 from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp, tile_warp_block
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
 from multi_frame_super_resolution_tpu_torch.models.defog import polar_defog
@@ -115,6 +125,7 @@ def test_entry_points_run_on_card_by_default():
     assert handheld_superres_raw(tt(raw), RAW_PORT_DEFAULT).device == dev
     torch.cuda.synchronize()
     assert LAUNCHES["merge_fast"] == 1 and LAUNCHES["merge_raw"] == 1 and LAUNCHES["tile_warp"] == 2
+    assert LAUNCHES["tile_search"] == 3 + 2  # one per pyramid level: 3 (RGB), 2 (RAW)
 
 
 @pytest.mark.cuda
@@ -147,17 +158,57 @@ def test_tile_warp_kernel_matches_plain(b, n, h, w, t, amp):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,t,pad", [(4, 128, 256, 16, 4), (2, 50, 70, 16, 9)])
-def test_tile_gather_kernel_matches_plain(n, h, w, t, pad):
+@pytest.mark.parametrize("threshold", [0.0, 0.05])
+@pytest.mark.parametrize(
+    "h,w,t,radius,mode",
+    [
+        (128, 256, 16, 4, "image"), (64, 128, 16, 4, "image"), (72, 100, 16, 4, "image"),
+        (96, 160, 32, 8, "image"), (40, 72, 8, 4, "image"), (72, 100, 16, 12, "image"),
+        (128, 256, 16, 4, "tile"), (64, 128, 16, 4, "tile"), (72, 100, 16, 9, "tile"),
+        (96, 160, 32, 9, "tile"), (40, 72, 8, 5, "tile"),
+    ],
+)
+def test_tile_search_kernel_matches_plain(h, w, t, radius, mode, threshold):
+    """Both modes at the RAW main path's two levels (4 x 128 x 256 and
+    4 x 64 x 128, T = 16, R = 4), ragged sizes, T = 8 and 32, R up to 12;
+    "image" mode with shifts past the warp's +-16 clip. The kernel sums
+    in another order than the plain version: without the subpixel step
+    the shifts (integers) are equal on every tile, with it within 1e-3
+    px; tiles whose minimum is an exact tie (torch_parity.tied_minima)
+    are ranked by rounding and left out."""
     dev = cuda_device()
-    rng = np.random.default_rng(w)
-    imgs = tt(rng.random((n, h, w)).astype(np.float32), dev)
-    shifts = tt(rng.integers(-6, 7, (n, -(-h // t), -(-w // t), 2)).astype(np.int32), dev)
-    LAUNCHES.clear()
-    got = tile_gather(imgs, shifts, t, pad)
-    torch.cuda.synchronize()
-    assert LAUNCHES["tile_gather"] == 1
-    torch.testing.assert_close(got, tiles.extract_search_windows(imgs, t, pad, shifts), rtol=0, atol=0)
+    ref, alts, rounded = search_inputs(h, w, BIG_SHIFTS if mode == "image" else SMALL_SHIFTS, t)
+    untied = ~tied_minima(ref, alts, rounded, t, radius) if mode == "tile" else np.ones(rounded.shape[:3], bool)
+    args = [tt(x, dev) for x in (ref, alts, rounded)]
+    for sub in (False, True):
+        LAUNCHES.clear()
+        got = nn(tile_search(*args, t, radius, threshold, sub, mode))
+        assert LAUNCHES["tile_search"] == 1
+        want = nn(tiles.tile_search(*args, t, radius, threshold, sub, mode))
+        if sub:
+            np.testing.assert_allclose(got[untied], want[untied], rtol=0, atol=1e-3)
+        else:
+            np.testing.assert_array_equal(got[untied], want[untied])
+
+
+@pytest.mark.cuda
+def test_tile_search_wrapper_raises_beyond_its_shared_memory():
+    """Radii up to what a block's 48 KB hold (27 at T = 16) launch in both
+    modes; one more, a radius of 0 and a tile size the kernel has no
+    build for raise."""
+    dev = cuda_device()
+    assert tile_search_kernel.library().mfsr_tile_search_max_radius(16) == 27
+    ref, alts, rounded = (tt(x, dev) for x in search_inputs(64, 96, SMALL_SHIFTS))
+    for mode in ("tile", "image"):
+        LAUNCHES.clear()
+        out = tile_search(ref, alts, rounded, 16, 27, 0.0, True, mode)
+        torch.cuda.synchronize()
+        assert LAUNCHES["tile_search"] == 1 and bool(torch.isfinite(out).all())
+    for radius in (28, 0):
+        with pytest.raises(ValueError, match="radii"):
+            tile_search(ref, alts, rounded, 16, radius, 0.0, True, "tile")
+    with pytest.raises(ValueError, match="tile sizes"):
+        tile_search(ref, alts, rounded[:, :2, :2].contiguous(), 48, 4, 0.0, True, "image")
 
 
 def _raw_merge_inputs(rng, f, hh, hw, dev):
@@ -239,8 +290,9 @@ def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fast_extract", [True, False])
 def test_raw_slice_on_card_matches_cpu(fast_extract):
-    """The RAW slice on the card (tile-warp and RAW merge kernels, and the
-    window kernel on the windows branch) against the port on the CPU."""
+    """The RAW slice on the card (tile-warp, tile-search and RAW merge
+    kernels; the search on either alignment branch) against the port on
+    the CPU."""
     dev = cuda_device()
     cfg = dataclasses.replace(
         RAW_PORT_DEFAULT,
@@ -251,7 +303,7 @@ def test_raw_slice_on_card_matches_cpu(fast_extract):
     LAUNCHES.clear()
     got = nn(handheld_superres_raw(tt(raw, dev), cfg))
     assert LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1
-    assert LAUNCHES["tile_gather"] == (0 if fast_extract else 2)  # one per pyramid level
+    assert LAUNCHES["tile_search"] == 2  # one per pyramid level
     assert psnr(got, want) >= 60.0
 
 
@@ -314,7 +366,7 @@ def test_prealigned_slices_on_card_match_cpu():
     want = nn(handheld_superres_raw(tt(raw), RAW_BENCH, device="cpu"))
     LAUNCHES.clear()
     got = nn(handheld_superres_raw(tt(raw, dev), RAW_BENCH))
-    assert LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1
+    assert LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1 and LAUNCHES["tile_search"] == 2
     assert psnr(got, want) >= 60.0
     burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5, angles=angles)
     want = nn(handheld_superres(tt(burst), RGB_PALLAS, device="cpu"))

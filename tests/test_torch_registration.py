@@ -1,14 +1,15 @@
 """Parity of the PyTorch port's registration stages with the JAX package:
-SSD surfaces, argmin, the tile pyramid, Lucas-Kanade and robustness, on
-the same numpy inputs."""
+SSD surfaces, argmin, the per-level tile search of both branches, the
+tile pyramid, Lucas-Kanade and robustness, on the same numpy inputs."""
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from torch_parity import nn, to_jax, tt
+from torch_parity import BIG_SHIFTS, SMALL_SHIFTS, nn, search_inputs, tied_minima, to_jax, tt
 
 from multi_frame_super_resolution_tpu.models.robustness import robustness_mask as jrobust
 from multi_frame_super_resolution_tpu.registration import align as jalign
@@ -24,6 +25,8 @@ from multi_frame_super_resolution_tpu_torch.registration import (
     subpixel,
     tiles,
 )
+
+jwarp = importlib.import_module("multi_frame_super_resolution_tpu.ops.warp_fast")
 
 
 def test_quadratic_subpixel_min(rng):
@@ -56,6 +59,49 @@ def test_ssd_surface_and_argmin(rng):
             np.stack([nn(jtiles.find_min_shift(jnp.asarray(s), 4, 0.0, sub)) for s in want]),
             atol=1e-6,
         )
+
+
+def jax_tile_search(ref, alts, rounded, t, radius, threshold, sub, mode):
+    """The JAX package's per-level composition of align_frames, frame by
+    frame: tile_warp_select + ssd_surface_image (fast branch) or
+    extract_search_windows + ssd_surface (windows branch), then
+    find_min_shift; rounded + the found shift."""
+    out = []
+    for alt, pre in zip(alts, rounded):
+        if mode == "image":
+            warped = jwarp.tile_warp_select(jnp.asarray(alt), jnp.asarray(pre).astype(jnp.int32), t)
+            ssd = jtiles.ssd_surface_image(jnp.asarray(ref), warped, t, radius)
+        else:
+            windows = jtiles.extract_search_windows(jnp.asarray(alt), t, radius, jnp.asarray(pre))
+            ssd = jtiles.ssd_surface(jtiles.extract_ref_tiles(jnp.asarray(ref), t), windows, radius)
+        out.append(pre + nn(jtiles.find_min_shift(ssd, radius, threshold, sub)))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("sub", [True, False])
+@pytest.mark.parametrize("threshold", [0.0, 0.05])
+@pytest.mark.parametrize("mode,radius", [("image", 4), ("tile", 4), ("tile", 9)])
+@pytest.mark.parametrize("h,w", [(128, 256), (72, 100)])
+def test_tile_search_matches_jax_composition(h, w, mode, radius, threshold, sub):
+    """The plain tile search (the kernel's plain version) against the JAX
+    per-level composition on a burst-like input. Without the subpixel
+    step the shifts are integers and must be equal on every tile; with it
+    they agree within 1e-3 px (the f32 rounding of the SSD sums, which the
+    quadratic fit amplifies). Tiles whose minimum is an exact tie are
+    ranked by rounding in both and left out: on this input, tiles of the
+    ragged last column (4 real columns, edge-padded in the reference tile
+    and clamped in the window)."""
+    ref, alts, rounded = search_inputs(h, w, BIG_SHIFTS if mode == "image" else SMALL_SHIFTS)
+    got = nn(tiles.tile_search(tt(ref), tt(alts), tt(rounded), 16, radius, threshold, sub, mode))
+    want = jax_tile_search(ref, alts, rounded, 16, radius, threshold, sub, mode)
+    assert got.shape == want.shape == rounded.shape
+    assert (np.abs(want - rounded) > 0.5).any()  # the search moved
+    untied = ~tied_minima(ref, alts, rounded, 16, radius) if mode == "tile" else np.ones(rounded.shape[:3], bool)
+    assert untied[..., :-1].all()
+    if sub:
+        np.testing.assert_allclose(got[untied], want[untied], rtol=0, atol=1e-3)
+    else:
+        np.testing.assert_array_equal(got[untied], want[untied])
 
 
 def test_upsample_shift_field(rng):
