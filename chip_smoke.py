@@ -10,20 +10,32 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    nvcc process each, all at once (timed as set-up).
 3. Kernel checks, each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, inputs from a seed:
-   - merge (csrc/merge.cu): F=5, 256 x 512, scale 2, radius 1, residual
-     bound 1, k_max 1 (the RGB slice); rtol and atol 1e-5;
+   - merge (csrc/merge.cu): F=5, 256 x 512, radius 1, residual bound 1,
+     in its three forms: interleaved at scale 2, k_max 1, taps at e^-6
+     (the use_pallas branch); the phase layout at e^-1.5 at scale 2,
+     k_max 1 and at scale 4, k_max 4 (the default branch, RGB_DEFAULT and
+     scale 4); rtol and atol 1e-5; and the order-1 moments at scale 2
+     (rgb_order=1), rtol and atol 1e-4 (ORDER1_TOL);
    - tile warp (csrc/tile_warp.cu): 4 frames x 4 CFA planes of 128 x 256,
      T=16; separable map with shifts in +-20 (the +-16 clip acts), block
-     map with shifts in +-5; bit-exact;
+     map with shifts in +-5; and RAW_SCALE4's warp at T=8 (8 frames x 5
+     planes of 128 x 256) as the same path hands it over; bit-exact;
    - tile search (csrc/tile_search.cu): 4 alternates of 128 x 256 and
      of 64 x 128 (the RAW main path's two pyramid levels), T=16, R=4,
      both modes, on a synthetic burst shifted by up to 3 px, with noise,
      and predictions within 2 px of each shift; in "image" mode a tenth
      of the tiles predicted at 17-20 px (the +-16 warp clip acts); and a
      ragged 79 x 111, R=9 "tile" case. Integer parts (subpixel off) equal
-     on every tile, subpixel shifts within 1e-3 px;
-   - RAW merge (csrc/merge_raw.cu): F=5, 128 x 256 half-res, the RAW
-     slice's 21 taps; rtol and atol 1e-5;
+     on every tile, subpixel shifts within 1e-3 px. And RAW_SCALE4's two
+     searches (8 alternates of 128 x 256 and 64 x 128, T=8, R=4, "image")
+     as its path hands them over on a 9-frame burst rotated 0/0/5/10/-15
+     degrees (repeated): the same limits outside the tiles whose argmin,
+     or whose subpixel fit, float32 rounding decides
+     (tiles.float32_undecided), which are counted;
+   - RAW merge (csrc/merge_raw.cu): 128 x 256 half-res, the RAW path's
+     21 taps: F=5 at scales 1, 2 (the main path) and 3, k_max (s/2)^2;
+     F=9 at scale 4, k_max 4, wider R/B kernels (RAW_SCALE4); rtol and
+     atol 1e-5;
    - defog (csrc/defog.cu): 1024 x 1224 x 3, P and A_inf from the seed;
      rtol 1e-5, atol 1e-6 (the kernel is expected to match bit for bit).
 4. Paths on the card, each driven with the launch counts set to 0 just
@@ -42,8 +54,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    - handheld_superres_raw on that burst mosaicked to 5 x 256 x 512 at
      config.RAW_BENCH (bench.py's configuration; tile-warp, tile-search
      and RAW merge kernels), and on the unrotated burst at config.RAW_PORT_DEFAULT and
-     its windows-branch variant align.fast_extract=False. Every path
-     runs the tile search once per pyramid level.
+     its windows-branch variant align.fast_extract=False;
+   - the default RGB branch on the rotated burst: config.RGB_DEFAULT
+     (-> 512 x 1024 x 3), HandheldConfig(scale=4) (-> 1024 x 2048 x 3)
+     and RGB_DEFAULT with rgb_order=1 (merge kernel in the phase layout,
+     order 0 or 1);
+   - config.RAW_SCALE4 on a 9-frame 256 x 512 mosaicked burst rotated
+     within +-0.01 rad (-> 1024 x 2048 x 3; the RAW merge at scale 4),
+     and handheld_superres_raw_cascade at RAW_SCALE4 on 5 such frames (a
+     scale-2 and a scale-4 run). Every path runs the tile search once per
+     pyramid level of each run. RAW_SCALE4 on the 5-15 degree burst of
+     phase 3: its agreement with the plain kernels and with the CPU is
+     printed without a limit (rounding-ranked tiles move whole tiles).
    The entry points get CUDA tensors and no device argument: they run on
    cuda:0, their default. Each burst output must lie there, have its
    shape, be finite and in [0, 1], agree (PSNR >= 60 dB) with the same
@@ -54,16 +76,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    per frame and FPS of polar_defog under the reference protocol (32
    warm-up and 256 timed frames, each fenced by a scalar readback) and,
    labeled, its device time per frame back to back; ms per call of each
-   kernel beside its plain version, the kernel's device time from the
-   profiler, and its bound: the larger of the bytes it must move (each
+   kernel variant beside its plain version, the kernel's device time
+   from the profiler, and its bound: the larger of the bytes it must move (each
    input read once, each output written once) over 3.35 TB/s and its
    operations at the checked shape (WORK) over the card's peak for
    their type (67 TFLOP/s f32, and exp at 16 a clock on each of 132
    SMs at 1.98 GHz); the plain tile search's device time and device-op
    count beside the kernel's (the search's yardstick); merge_fast's
    device time at F=1 beside F=5 (the part that does not grow with the
-   frames); the registers and spills (ptxas -v) of the redesigned
-   kernels; for the copy kernel (tile_warp) the copy floor: the
+   frames), and its interleaved form beside the phase layout plus the
+   interleave, at RGB_PALLAS's merge (every device op); the registers and spills (ptxas -v) of every instantiation
+   (printed at the build); for the copy kernel (tile_warp) the copy floor: the
    profiler's device time of dst.copy_(src) moving the kernel's bytes.
 6. Where the time goes: one burst (frame) of each path under
    torch.profiler: host and device ms of each stage (the mfsr.* ranges
@@ -71,8 +94,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    profiler row added to its stage, and the CUDA-event time around its
    launches beside it), and the card's busy share.
 
-The last lines are a JSON line of the kernels, the card line, and
-{"ok": true, "device": {...}}.
+The last lines are a JSON line of the kernels (each kernel's entry holds
+the variant its main path runs, and every timed variant under
+"variants"), the card line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -93,6 +117,9 @@ import torch
 
 F, H, W, SCALE = 5, 256, 512, 2
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)  # expf and FMA contraction vs torch ops
+# the order-1 merge's m01 and m02 sum w c dy and w c dx, whose factors
+# reach +-(r + rb) s in either sign: their rounding does not cancel
+ORDER1_TOL = dict(rtol=1e-4, atol=1e-4)
 EXACT = dict(rtol=0.0, atol=0.0)  # the copies move values, they compute nothing
 SHIFT_TOL = dict(rtol=0.0, atol=1e-3)  # px: SSD sums in another order, through the subpixel fit
 DEFOG_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX spec's tolerance; expected exact
@@ -124,15 +151,25 @@ HBM_BYTES_S, F32_FLOPS_S, EXP_S = 3.35e12, 67e12, 16 * 132 * 1.98e9
 # the column's rows.
 WORK = {
     # per (frame, input pixel, tap, phase): the quadratic as 2 FMAs on the
-    # folded omega 4 + 1 exp, 2 FMAs per channel 12; per column dx 1 / 2
-    # rows; per row dy, dy^2 o_yy, dy o_xy 4 / 2 columns; per tap dy0, dx0
-    # 4 and value x certainty 3, / 4 phases: 4 + 12 + 0.5 + 2 + 1.75
+    # folded omega 4 + 1 exp, 2 FMAs per channel 12; per column dx 1 / s
+    # rows; per row dy, dy^2 o_yy, dy o_xy 4 / s columns; per tap dy0, dx0
+    # 4 and value x certainty 3, / s^2 phases: at s = 2 4 + 12 + 0.5 + 2 +
+    # 1.75 (both order-0 forms)
     "merge_fast": (20.25, 1),
+    # the same at s = 4: 4 + 12 + 0.25 + 1 + 0.4375
+    "merge_fast s=4": (17.6875, 1),
+    # order 1 at s = 2: the quadratic 4 + 1 exp, w dy and w dx 2, four
+    # moments of 3 channels as FMAs 24; per column 1 / 2, per row 4 / 2,
+    # per tap 7 / 4: 4 + 2 + 24 + 0.5 + 2 + 1.75
+    "merge_fast order 1": (34.25, 1),
     # per (frame, half-res pixel, tap, phase): two quadratics 8 + 2 exp,
     # two chain triples 10, four parities 2 FMAs each 16; per column dx 1
-    # / 2 rows; per row dy, dy^2 and four products 6 / 2 columns; per tap
-    # dy0, dx0 4 / 4 phases: 8 + 10 + 16 + 0.5 + 3 + 1
+    # / S rows; per row dy, dy^2 and four products 6 / S columns; per tap
+    # dy0, dx0 4 / S^2 phases: at S = 2 8 + 10 + 16 + 0.5 + 3 + 1
     "merge_raw": (38.5, 2),
+    "merge_raw S=1": (34 + 1 + 6 + 4, 2),
+    "merge_raw S=3": (34 + 1 / 3 + 2 + 4 / 9, 2),
+    "merge_raw S=4": (34 + 0.25 + 1.5 + 0.25, 2),
     # per element: A, t and R with their clips
     "defog": (11, 0),
     # per (frame, tile, offset, pixel): the cross term's multiply-add
@@ -140,6 +177,31 @@ WORK = {
     # a copy
     "tile_warp": (0, 0),
 }
+
+
+def ptxas_table(log: str) -> list:
+    """One line per kernel instantiation of an nvcc -Xptxas -v log: the
+    __global__ function with its template arguments, its registers and its
+    spill stores and loads."""
+    import re
+
+    rows, name, spills = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"\d+([a-z_]+_kernel)", mangled)  # past the namespace's mangling
+            args = re.findall(r"L([ib])(\d+)E", mangled.split("_kernel", 1)[-1].split("EEv")[0] + "E")
+            name = (base.group(1) if base else mangled) + (
+                "<" + ", ".join(("true" if v == "1" else "false") if t == "b" else v for t, v in args) + ">"
+                if args else "")
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line)
+            rows.append(f"{name}: {regs.group(1) if regs else '?'} registers, {spills}")
+            name = None
+    return rows
 
 
 def card_line() -> str:
@@ -170,16 +232,26 @@ def time_cuda(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(label: str, got, want, tol: dict) -> float:
+def compare(label: str, got, want, tol: dict, keep=None) -> float:
     """Print max abs and max rel error of ``got`` against ``want`` (tuples
-    of tensors) beside the tolerance, raise outside it; return max abs."""
+    of tensors) beside the tolerance, raise outside it; return max abs.
+    ``keep``: a bool mask over the outputs' leading axes; the comparison
+    holds on the kept entries, and the others' count and largest
+    difference are printed beside it."""
     worst = 0.0
     for i, (g, w_) in enumerate(zip(got, want)):
+        note = ""
+        if keep is not None:
+            out = (g[~keep].double() - w_[~keep].double()).abs().flatten(1)
+            differ = int((out > tol["atol"] + tol["rtol"] * w_[~keep].double().abs().flatten(1)).any(1).sum())
+            note = (f"; {int((~keep).sum())} of {keep.numel()} tiles left out, {differ} of them beyond the "
+                    f"tolerance, largest difference there {out.max().item() if out.numel() else 0.0:.3e}")
+            g, w_ = g[keep], w_[keep]
         diff = (g.double() - w_.double()).abs()
         abs_err = diff.max().item()
         rel_err = (diff / w_.double().abs().clamp_min(1e-6)).max().item()
         print(f"kernel check {label}[{i}]: max abs {abs_err:.3e}, max rel {rel_err:.3e} "
-              f"(tolerance rtol {tol['rtol']}, atol {tol['atol']})")
+              f"(tolerance rtol {tol['rtol']}, atol {tol['atol']}){note}")
         torch.testing.assert_close(g, w_, **tol)
         worst = max(worst, abs_err)
     return worst
@@ -215,8 +287,12 @@ def main() -> int:
         PORT_DEFAULT,
         RAW_BENCH,
         RAW_PORT_DEFAULT,
+        RAW_SCALE4,
+        RGB_DEFAULT,
         RGB_PALLAS,
         AlignConfig,
+        HandheldConfig,
+        MergeConfig,
         PolarDefogConfig,
     )
     from multi_frame_super_resolution_tpu_torch.data import (
@@ -237,6 +313,7 @@ def main() -> int:
     from multi_frame_super_resolution_tpu_torch.models import defog as mdefog
     from multi_frame_super_resolution_tpu_torch.models import fast_merge, handheld
     from multi_frame_super_resolution_tpu_torch.ops import warp_fast
+    from multi_frame_super_resolution_tpu_torch.ops.warp_fast import interleave_phases_planes
     from multi_frame_super_resolution_tpu_torch.registration import align, tiles
     from multi_frame_super_resolution_tpu_torch.registration.prealign import estimate_burst_similarity
 
@@ -251,10 +328,10 @@ def main() -> int:
     libs = build_all(m.library for m in modules)
     print(f"build: {', '.join(m.SOURCE for m in modules)} in "
           f"{time.perf_counter() - t0:.2f} s (set-up, one nvcc each, in parallel)")
-    for lib in libs:
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"  ptxas: {line.strip()}")
+    ptxas = {m.NAME: ptxas_table(lib.build_log) for m, lib in zip(modules, libs)}
+    for name, rows in ptxas.items():
+        for row in rows or ["ptxas -v printed nothing (library already built)"]:
+            print(f"  ptxas {name}: {row}")
 
     # plain versions with the wrappers' signatures
     def plain_tile_warp(imgs, shifts, t, bound=16):
@@ -282,6 +359,28 @@ def main() -> int:
     )]
     cfa = RAW_PORT_DEFAULT.cfa_pattern
     raw_args = (cfa, SCALE, 1, 1.0, 1.0, RAW_PORT_DEFAULT.merge.prune_exp)
+    # RAW_SCALE4's merge: 9 frames, k_max 4, R/B kernels wider
+    raw9_ins = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+        rng.random((9, 2, 2, hh, hw)), (rng.random((9, hh, hw, 2)) - 0.5) * 4.0,
+        rng.random((9, hh, hw, 3)), omega, omega * 0.5,
+    )]
+    prune = RGB_DEFAULT.merge.prune_exp
+    # the timed variants of the two merges: (label, positional args,
+    # keyword args, WORK key, tolerance) and (label, inputs, args, WORK key)
+    phase = dict(phase_output=True, prune_exp=prune)
+    merge_variants = [
+        ("interleaved, e^-6 (use_pallas)", merge_args, {}, "merge_fast", KERNEL_TOL),
+        ("phase layout, e^-1.5 (RGB_DEFAULT)", (2, 1, 1.0, 1.0), phase, "merge_fast", KERNEL_TOL),
+        ("phase layout, e^-1.5, s=4", (4, 1, 1.0, 4.0), phase, "merge_fast s=4", KERNEL_TOL),
+        ("order 1, e^-1.5 (rgb_order=1)", (2, 1, 1.0, 1.0),
+         dict(phase, order=1), "merge_fast order 1", ORDER1_TOL),
+    ]
+    raw_variants = [
+        ("S=2 (RAW_BENCH)", raw_ins, raw_args, "merge_raw"),
+        ("S=1", raw_ins, (cfa, 1, 1, 1.0, 0.25, prune), "merge_raw S=1"),
+        ("S=3", raw_ins, (cfa, 3, 1, 1.0, 2.25, prune), "merge_raw S=3"),
+        ("S=4, F=9 (RAW_SCALE4)", raw9_ins, (cfa, 4, 1, 1.0, 4.0, prune), "merge_raw S=4"),
+    ]
     iper_np, ipar_np = synthetic_polar_pair(rng, DEFOG_H, DEFOG_W)
     defog_ins = [torch.from_numpy(x).to(dev) for x in (
         iper_np, ipar_np,
@@ -312,56 +411,146 @@ def main() -> int:
         ("tile_search tile 4x79x111 R=9", search_case(79, 111, False), 9, "tile"),
     ]
 
-    def search_checks(label, ins, radius, mode):
+    def search_checks(label, ins, radius, mode, t=16, threshold=0.0, masks=None):
+        """The subpixel and integer checks of one search; ``masks``: the
+        (argmin, fit) masks of tiles.float32_undecided, whose tiles are
+        left out of the integer check (argmin) and the subpixel check
+        (either)."""
         def call(fn, sub):
-            return lambda: (fn(*ins, 16, radius, 0.0, sub, mode),)
-        return [(label, call(ktile_search.tile_search, True), call(tiles.tile_search, True), SHIFT_TOL),
+            return lambda: (fn(*ins, t, radius, threshold, sub, mode),)
+        undecided, ill = masks if masks is not None else (None, None)
+        return [(label, call(ktile_search.tile_search, True), call(tiles.tile_search, True), SHIFT_TOL,
+                 None if masks is None else ~(undecided | ill)),
                 (f"{label} integer parts", call(ktile_search.tile_search, False),
-                 call(tiles.tile_search, False), EXACT)]
+                 call(tiles.tile_search, False), EXACT, None if masks is None else ~undecided)]
+
+    def capture(run, targets):
+        """run()'s result and the arguments, cloned, of every call it makes
+        of the wrappers ``targets`` (name -> (module, attribute))."""
+        seen = {name: [] for name in targets}
+        with contextlib.ExitStack() as stack:
+            for name, (module, attr) in targets.items():
+                def record(*args, _fn=getattr(module, attr), _name=name, **kwargs):
+                    seen[_name].append((tuple(a.clone() if torch.is_tensor(a) else a for a in args), kwargs))
+                    return _fn(*args, **kwargs)
+                stack.enter_context(mock.patch.object(module, attr, record))
+            out = run()
+        return out, seen
+
+    def raw_burst_of(seed, n, h, w, angles):
+        rgb, _ = synthetic_rgb_burst(np.random.default_rng(seed), n, h, w, 3.0, angles=angles)
+        return torch.from_numpy(np.stack([mosaic_rggb(f, cfa) for f in rgb]))
+
+    # RAW_SCALE4's searches (T=8, 8 alternates at 128 x 256 and 64 x 128)
+    # and tile warp, as its path hands them over on a 9-frame burst
+    # rotated as the city burst is (0/0/5/10/-15 degrees, repeated).
+    # Pre-alignment clamps each rotated frame to its edge, so alternates
+    # hold rows that repeat each other to within an ulp, and some SSD
+    # surfaces are flat along one axis below float32 rounding: there the
+    # argmin (and the border gate after it) is ranked by each
+    # implementation's own rounding, the JAX function's too. Those tiles,
+    # and subpixel fits of near-singular curvature, are left out by
+    # tiles.float32_undecided (a float64 surface and float32's rounding
+    # bound) and counted.
+    city_angles9 = CITY_ANGLES + CITY_ANGLES[1:]
+    raw9_city = raw_burst_of(2, 9, H, W, city_angles9).to(dev)
+    LAUNCHES.clear()
+    city_out, city_calls = capture(
+        lambda: handheld.handheld_superres_raw(raw9_city, RAW_SCALE4),
+        {"tile_search": (align, "tile_search"), "tile_warp": (handheld, "tile_warp")})
+    torch.cuda.synchronize()
+    city_launches = dict(LAUNCHES)
+    for args, _ in city_calls["tile_search"]:
+        c_ref, c_alts, c_rounded, c_t, c_radius, c_threshold, _, c_mode = args
+        c_masks = tiles.float32_undecided(c_ref, c_alts, c_rounded, c_t, c_radius, c_threshold, c_mode)
+        n_alts, c_h, c_w = c_alts.shape
+        search_cases.append((f"tile_search {c_mode} {n_alts}x{c_h}x{c_w} T={c_t} (RAW_SCALE4, rotated)",
+                             (c_ref, c_alts, c_rounded), c_radius, c_mode, c_t, c_threshold, c_masks))
+    (w_imgs, w_shifts, w_t), w_kw = city_calls["tile_warp"][0]
+
+    def merge_call(fn, args, kw):
+        return lambda: fn(*rgb_ins, *args, **kw)
+
+    def raw_call(fn, ins, args):
+        return lambda: fn(*ins, *args)
 
     calls = {  # name -> [(label, kernel call, plain call, tolerance)]
-        "merge_fast": [("merge", lambda: kmerge.merge_fast(*rgb_ins, *merge_args),
-                        lambda: fast_merge.merge_burst_fast(*rgb_ins, *merge_args), KERNEL_TOL)],
+        "merge_fast": [(f"merge {label}", merge_call(kmerge.merge_fast, args, kw),
+                        merge_call(fast_merge.merge_burst_fast, args, kw), tol)
+                       for label, args, kw, _, tol in merge_variants],
         "tile_warp": [
             ("tile_warp separable", lambda: (ktile_warp.tile_warp(planes4, sep_shifts, 16),),
              lambda: (plain_tile_warp(planes4, sep_shifts, 16),), EXACT),
             ("tile_warp block", lambda: (ktile_warp.tile_warp_block(planes4, blk_shifts, 16),),
              lambda: (warp_fast.tile_warp_block(planes4, blk_shifts, 16),), EXACT),
+            (f"tile_warp {'x'.join(map(str, w_imgs.shape))} T={w_t} (RAW_SCALE4, rotated)",
+             lambda: (ktile_warp.tile_warp(w_imgs, w_shifts, w_t, **w_kw),),
+             lambda: (plain_tile_warp(w_imgs, w_shifts, w_t, **w_kw),), EXACT),
         ],
         "tile_search": [check for case in search_cases for check in search_checks(*case)],
-        "merge_raw": [("merge_raw", lambda: kmerge_raw.merge_raw(*raw_ins, *raw_args),
-                       lambda: fast_merge.merge_burst_raw_planes(*raw_ins, *raw_args), KERNEL_TOL)],
+        "merge_raw": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args),
+                       raw_call(fast_merge.merge_burst_raw_planes, ins, args), KERNEL_TOL)
+                      for label, ins, args, _ in raw_variants],
         "defog": [("defog", lambda: kdefog.defog(*defog_ins),
                    lambda: kdefog.defog_pixels(*defog_ins), DEFOG_TOL)],
     }
     max_abs_err, out_bytes = {}, {}
     for name, checks in calls.items():
         max_abs_err[name] = 0.0
-        for label, kernel_call, plain_call, tol in checks:
+        for label, kernel_call, plain_call, tol, *keep in checks:
             got = kernel_call()
             torch.cuda.synchronize()
-            max_abs_err[name] = max(max_abs_err[name], compare(label, got, plain_call(), tol))
-            out_bytes.setdefault(name, sum(t.numel() * t.element_size() for t in got))
+            max_abs_err[label] = compare(label, got, plain_call(), tol, *keep)
+            max_abs_err[name] = max(max_abs_err[name], max_abs_err[label])
+            out_bytes[label] = sum(t.numel() * t.element_size() for t in got)
+    # what each implementation gave on the tiles whose integer parts
+    # differ: a zero shift is the border gate's (at threshold 0 the other
+    # gate, min + 0 > max, cannot hold), or a minimum at the center
+    for label, (c_ref, c_alts, c_rounded), c_radius, c_mode, c_t, c_threshold, masks in search_cases[-2:]:
+        k_int, p_int = (fn(c_ref, c_alts, c_rounded, c_t, c_radius, c_threshold, False, c_mode)
+                        for fn in (ktile_search.tile_search, tiles.tile_search))
+        differ = (k_int != p_int).any(-1)
+        kept = [int(((x == c_rounded).all(-1) & differ).sum()) for x in (k_int, p_int)]
+        print(f"{label}: {int(differ.sum())} tiles' integer parts differ, {int((differ & ~masks[0]).sum())} "
+              f"outside the argmin mask; a zero shift on {kept[0]} of them from the kernel, on {kept[1]} "
+              f"from the plain version (threshold {c_threshold})")
 
-    # each kernel's bound at its first (timed) check: its input and output
-    # bytes, and its work items (WORK gives the operations per item)
-    taps_rgb = len(fast_merge._active_taps(1 + 1, 1.0, SCALE, 1.0))
-    taps_raw = len(fast_merge._active_taps(1 + 1, 1.0, SCALE, 1.0, RAW_PORT_DEFAULT.merge.prune_exp))
+    # the timed variants, each with its bound: its input and output bytes,
+    # and its work items (WORK gives the operations per item); the other
+    # kernels have one, their first check
+    def n_taps(s, k_max, prune_exp):
+        return len(fast_merge._active_taps(1 + 1, 1.0, s, k_max, prune_exp))
+
     search_ins = search_cases[0][1]
-    kernel_inputs = {"merge_fast": rgb_ins, "tile_warp": (planes4, sep_shifts),
-                     "tile_search": search_ins, "merge_raw": raw_ins, "defog": defog_ins}
-    items = {"merge_fast": F * H * W * taps_rgb * SCALE**2, "merge_raw": F * hh * hw * taps_raw * SCALE**2,
-             "defog": DEFOG_H * DEFOG_W * 3, "tile_warp": 0,
-             "tile_search": search_ins[2].shape[0] * nty * ntx * (2 * search_cases[0][2] + 1) ** 2 * 16**2}
+    city_search = search_cases[-1]  # RAW_SCALE4's fine level
+    timed = [  # (kernel, check label, inputs, work items, WORK key)
+        *(("merge_fast", f"merge {label}", rgb_ins,
+           F * H * W * n_taps(args[0], args[3], kw.get("prune_exp", 6.0)) * args[0] ** 2, key)
+          for label, args, kw, key, _ in merge_variants),
+        ("tile_warp", calls["tile_warp"][0][0], (planes4, sep_shifts), 0, "tile_warp"),
+        ("tile_warp", calls["tile_warp"][2][0], (w_imgs, w_shifts), 0, "tile_warp"),
+        ("tile_search", calls["tile_search"][0][0], search_ins,
+         search_ins[2].shape[0] * nty * ntx * (2 * search_cases[0][2] + 1) ** 2 * 16**2, "tile_search"),
+        ("tile_search", city_search[0], city_search[1],
+         city_search[1][2][..., 0].numel() * (2 * city_search[2] + 1) ** 2 * city_search[4] ** 2, "tile_search"),
+        *(("merge_raw", f"merge_raw {label}", ins,
+           ins[0].shape[0] * hh * hw * n_taps(args[1], args[4], args[5]) * args[1] ** 2, key)
+          for label, ins, args, key in raw_variants),
+        ("defog", "defog", defog_ins, DEFOG_H * DEFOG_W * 3, "defog"),
+    ]
+    # the variant each kernel's main path runs: its entry in the kernels line
+    main_variant = {name: label for name, label, *_ in reversed(timed)}
+    main_variant.update({"merge_fast": "merge phase layout, e^-1.5 (RGB_DEFAULT)",
+                         "merge_raw": "merge_raw S=2 (RAW_BENCH)"})
     bounds, moved_bytes = {}, {}
-    for name, ins in kernel_inputs.items():
-        moved = moved_bytes[name] = sum(t.numel() * t.element_size() for t in ins) + out_bytes[name]
-        flops, exps = (n * items[name] for n in WORK[name])
+    for name, label, ins, n_items, key in timed:
+        moved = moved_bytes[label] = sum(t.numel() * t.element_size() for t in ins) + out_bytes[label]
+        flops, exps = (n * n_items for n in WORK[key])
         bytes_ms, ops_ms = moved / HBM_BYTES_S * 1e3, max(flops / F32_FLOPS_S, exps / EXP_S) * 1e3
-        bounds[name] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
-        print(f"bound {name}: {moved / 1e6:.2f} MB moved ({bytes_ms * 1e3:.2f} us), {flops / 1e9:.3f} GFLOP "
-              f"and {exps / 1e6:.1f} M exp ({ops_ms * 1e3:.2f} us): {bounds[name][0] * 1e3:.2f} us, "
-              f"bound by {bounds[name][1]}")
+        bounds[label] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"bound {label}: {moved / 1e6:.2f} MB moved ({bytes_ms * 1e3:.2f} us), {flops / 1e9:.3f} GFLOP "
+              f"and {exps / 1e6:.1f} M exp ({ops_ms * 1e3:.2f} us): {bounds[label][0] * 1e3:.2f} us, "
+              f"bound by {bounds[label][1]}")
 
     # 4. the paths end to end on the card
     # each kernel -> the (module, attribute) its path calls its wrapper
@@ -400,13 +589,16 @@ def main() -> int:
                 raise RuntimeError(f"the plain run launched kernels: {dict(LAUNCHES)}")
         return out_plain
 
-    def check_slice(label, fn, burst, cfg, expect, small_burst):
+    def check_slice(label, fn, burst, cfg, expect, small_burst, runs=1):
+        """``runs``: the entry-point runs the path makes (2 for the
+        cascade), each searching every pyramid level once."""
         out, launches = drive(fn, burst, cfg, expect + ("tile_search",))
-        if launches["tile_search"] != cfg.align.levels:
-            raise RuntimeError(f"{label}: {launches['tile_search']} tile searches for {cfg.align.levels} levels")
+        if launches["tile_search"] != runs * cfg.align.levels:
+            raise RuntimeError(f"{label}: {launches['tile_search']} tile searches for {runs} x "
+                               f"{cfg.align.levels} levels")
         if out.device != dev:
             raise RuntimeError(f"{label}: the output lies on {out.device}, not on the default {dev}")
-        check_output(label, out, (SCALE * burst.shape[1], SCALE * burst.shape[2], 3))
+        check_output(label, out, (cfg.scale * burst.shape[1], cfg.scale * burst.shape[2], 3))
         p_plain = psnr(out, against_plain(fn, burst, cfg))
         p_cpu = psnr(fn(small_burst.to(dev), cfg).cpu(), fn(small_burst, cfg, device="cpu"))
         print(f"slice {label}: {tuple(burst.shape)} -> {tuple(out.shape)}, launches {launches}, "
@@ -499,37 +691,84 @@ def main() -> int:
     win_launches = check_slice("raw windows", handheld.handheld_superres_raw, raw_burst,
                                raw_windows_cfg, ("tile_warp", "merge_raw"), raw_small)
 
+    # the default RGB branch, and RAW at scale 4 and as the cascade
+    rgb_scale4 = HandheldConfig(scale=4)
+    rgb_order1 = dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(rgb_order=1))
+    default_launches = check_slice("rgb (RGB_DEFAULT)", handheld.handheld_superres, rgb_burst, RGB_DEFAULT,
+                                   ("merge_fast", "tile_warp"), rgb_small)
+    scale4_launches = check_slice("rgb scale 4", handheld.handheld_superres, rgb_burst, rgb_scale4,
+                                  ("merge_fast", "tile_warp"), rgb_small)
+    order1_launches = check_slice("rgb order 1", handheld.handheld_superres, rgb_burst, rgb_order1,
+                                  ("merge_fast", "tile_warp"), rgb_small)
+    # RAW_SCALE4's bursts: rotations within +-0.01 rad, as the JAX
+    # package's scale-4 protocol draws them (tools/eval_fidelity.py::
+    # make_hr_burst). On the city burst's 5-15 degrees the search's
+    # rounding-ranked tiles (phase 3) move whole tiles' shifts, so that
+    # run's agreement is stated below without a limit
+    def small_angles(n):
+        return (0.0,) + tuple(np.random.default_rng(3).uniform(-0.01, 0.01, n - 1).tolist())
+
+    raw9 = raw_burst_of(2, 9, H, W, small_angles(9)).to(dev)
+    raw4_launches = check_slice("raw (RAW_SCALE4)", handheld.handheld_superres_raw, raw9, RAW_SCALE4,
+                                ("tile_warp", "merge_raw"), raw_burst_of(1, 9, 64, 128, small_angles(9)))
+    cascade = handheld.handheld_superres_raw_cascade
+    raw5 = raw_burst_of(2, 5, H, W, small_angles(5)).to(dev)
+    cascade_launches = check_slice("raw cascade (RAW_SCALE4)", cascade, raw5, RAW_SCALE4,
+                                   ("tile_warp", "merge_raw"), raw_burst_of(1, 5, 64, 128, small_angles(5)), runs=2)
+    check_output("raw (RAW_SCALE4, rotated 5-15 degrees)", city_out, (4 * H, 4 * W, 3))
+    city_small = raw_burst_of(1, 9, 64, 128, city_angles9)
+    p_plain = psnr(city_out, against_plain(handheld.handheld_superres_raw, raw9_city, RAW_SCALE4))
+    p_cpu = psnr(handheld.handheld_superres_raw(city_small.to(dev), RAW_SCALE4).cpu(),
+                 handheld.handheld_superres_raw(city_small, RAW_SCALE4, device="cpu"))
+    print(f"slice raw (RAW_SCALE4) on the 5-15 degree rotations, stated without a limit: "
+          f"{tuple(raw9_city.shape)} -> {tuple(city_out.shape)}, launches {city_launches}, PSNR vs plain "
+          f"kernels {p_plain:.2f} dB, small burst card vs CPU {p_cpu:.2f} dB (the tiles the search's "
+          f"rounding ranks: phase 3)")
+    del city_out, raw9_city  # out of the timed paths' peak memory
+    if cascade_launches["merge_raw"] != 2:
+        raise RuntimeError(f"the cascade launched merge_raw {cascade_launches['merge_raw']} times, not 2")
+
     # 5. timing: kernels beside their plain versions, then the paths
     kernel_ms, plain_ms, device_ms, plain_device = {}, {}, {}, {}
-    for name, checks in calls.items():
-        _, kernel_call, plain_call, _ = checks[0]
+    checks_by_label = {check[0]: check for checks in calls.values() for check in checks}
+    for name, label, *_ in timed:
+        _, kernel_call, plain_call, *_ = checks_by_label[label]
         k1 = time_cuda(kernel_call, iters=50, warmup=5)
         p = time_cuda(plain_call, iters=5, warmup=2)
         k2 = time_cuda(kernel_call, iters=50, warmup=5)
-        kernel_ms[name], plain_ms[name] = k1, p
-        device_ms[name] = device_time(kernel_call, KERNEL_SYMBOLS[name])[0]
-        print(f"kernel {name} ({checks[0][0]}): kernel {k1:.4f} / {k2:.4f} ms per call, "
-              f"{device_ms[name]:.5f} ms device time (profiler), bound {bounds[name][0]:.5f} ms "
-              f"({bounds[name][1]}): {100.0 * bounds[name][0] / device_ms[name]:.1f}% of bound; "
+        kernel_ms[label], plain_ms[label] = k1, p
+        device_ms[label] = device_time(kernel_call, KERNEL_SYMBOLS[name])[0]
+        print(f"kernel {name} ({label}): kernel {k1:.4f} / {k2:.4f} ms per call, "
+              f"{device_ms[label]:.5f} ms device time (profiler), bound {bounds[label][0]:.5f} ms "
+              f"({bounds[label][1]}): {100.0 * bounds[label][0] / device_ms[label]:.1f}% of bound; "
               f"plain {p:.4f} ms per call  [{card}]")
     # the search's yardstick: every device op of the plain search it replaces
     plain_device["tile_search"] = device_time(calls["tile_search"][0][2])
+    search_ms = device_ms[main_variant["tile_search"]]
     print(f"tile_search against the plain search ({calls['tile_search'][0][0]}): kernel "
-          f"{device_ms['tile_search']:.5f} ms device time in 1 launch; plain "
+          f"{search_ms:.5f} ms device time in 1 launch; plain "
           f"{plain_device['tile_search'][0]:.5f} ms device time over {plain_device['tile_search'][1]:.0f} "
-          f"device ops per call ({plain_device['tile_search'][0] / device_ms['tile_search']:.1f}x)  [{card}]")
+          f"device ops per call ({plain_device['tile_search'][0] / search_ms:.1f}x)  [{card}]")
     # the merge's time that does not grow with the frames: one frame beside F
     one_frame = [t[:1].contiguous() if t.ndim == 4 else t for t in rgb_ins]
-    ms_one = device_time(lambda: kmerge.merge_fast(*one_frame, *merge_args), KERNEL_SYMBOLS["merge_fast"])[0]
-    print(f"merge_fast by frames: {ms_one:.5f} ms device time at F=1, {device_ms['merge_fast']:.5f} at F={F}: "
-          f"{(device_ms['merge_fast'] - ms_one) / (F - 1):.5f} ms per further frame  [{card}]")
-    for module in (kmerge, ktile_warp, ktile_search, kmerge_raw):  # the redesigned kernels
-        name = module.NAME
-        ptxas = [line.strip() for line in libs[modules.index(module)].build_log.splitlines()
-                 if "registers" in line or "spill" in line]
-        print(f"{name}: {'; '.join(ptxas) or 'ptxas -v printed nothing (library already built)'}; "
-              f"{device_ms[name]:.5f} ms device time, "
-              f"{100.0 * bounds[name][0] / device_ms[name]:.1f}% of its bound")
+    for label, args, kw, *_ in merge_variants[:2]:
+        ms_one = device_time(lambda: kmerge.merge_fast(*one_frame, *args, **kw), KERNEL_SYMBOLS["merge_fast"])[0]
+        ms_f = device_ms[f"merge {label}"]
+        print(f"merge_fast {label} by frames: {ms_one:.5f} ms device time at F=1, {ms_f:.5f} at F={F}: "
+              f"{(ms_f - ms_one) / (F - 1):.5f} ms per further frame  [{card}]")
+    # merge_fast's form 0 (interleaved, outputs parked) against form 1
+    # (phase layout) plus the interleave the default branch runs after
+    # it, at RGB_PALLAS's merge: every device op of each
+    def form1_interleaved():
+        return tuple(interleave_phases_planes(x)
+                     for x in kmerge.merge_fast(*rgb_ins, *merge_args, phase_output=True))
+
+    form0 = merge_call(kmerge.merge_fast, merge_args, {})
+    compare("merge form 1 + interleave against form 0", form1_interleaved(), form0(), KERNEL_TOL)
+    ms0, ops0 = device_time(form0)
+    ms1, ops1 = device_time(form1_interleaved)
+    print(f"merge_fast form 0 (interleaved, e^-6): {ms0:.5f} ms device time over {ops0:.0f} device ops; form 1 "
+          f"(phase layout, e^-6) + interleave_phases_planes: {ms1:.5f} ms over {ops1:.0f}  [{card}]")
     # the copy floor of the copy kernel: a plain device-to-device copy of
     # half the kernel's moved bytes, rounded down to 64 KiB (a tensor of
     # its input's shape), so it reads and writes as many bytes. The
@@ -537,7 +776,8 @@ def main() -> int:
     # another, slower path.
     copy_floor_ms = {}
     for name in ("tile_warp",):
-        sizes = (max(moved_bytes[name] // 8 // 16384, 1) * 16384, moved_bytes[name] // 8)
+        label = main_variant[name]
+        sizes = (max(moved_bytes[label] // 8 // 16384, 1) * 16384, moved_bytes[label] // 8)
         copy_ms = []
         for numel in sizes:
             src = torch.rand(numel, device=dev)
@@ -547,9 +787,9 @@ def main() -> int:
         copy_floor_ms[name] = copy_ms[0]
         print(f"copy floor {name}: dst.copy_(src) of {sizes[0]} float32 ({2 * sizes[0] * 4 / 1e6:.2f} MB moved, the "
               f"kernel's bytes) {copy_ms[0]:.5f} ms device time (profiler; {sizes[1]} floats unrounded: "
-              f"{copy_ms[1]:.5f} ms); the kernel {device_ms[name]:.5f} ms, "
-              f"{100.0 * (device_ms[name] / copy_floor_ms[name] - 1.0):+.1f}% against it, "
-              f"{100.0 * bounds[name][0] / device_ms[name]:.1f}% of its bound {bounds[name][0]:.5f} ms  [{card}]")
+              f"{copy_ms[1]:.5f} ms); the kernel {device_ms[label]:.5f} ms, "
+              f"{100.0 * (device_ms[label] / copy_floor_ms[name] - 1.0):+.1f}% against it, "
+              f"{100.0 * bounds[label][0] / device_ms[label]:.1f}% of its bound {bounds[label][0]:.5f} ms  [{card}]")
 
     def time_slice(label, fn, burst, cfg):
         bursts = [burst * (1.0 - 1e-5 * i) for i in range(13)]
@@ -568,7 +808,7 @@ def main() -> int:
                 times.append((start.elapsed_time(end), (time.perf_counter() - t_host) * 1e3))
         ms = statistics.median(t[0] for t in times)
         host_ms = statistics.median(t[1] for t in times)
-        mp_s = SCALE * burst.shape[1] * SCALE * burst.shape[2] / (ms * 1e-3) / 1e6
+        mp_s = cfg.scale * burst.shape[1] * cfg.scale * burst.shape[2] / (ms * 1e-3) / 1e6
         print(f"slice timing {label}: median {ms:.3f} ms/burst (host clock {host_ms:.3f} ms) over "
               f"{len(times)} bursts, {mp_s:.2f} output MP/s; "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB  [{card}]")
@@ -588,6 +828,11 @@ def main() -> int:
         ("raw (RAW_BENCH)", handheld.handheld_superres_raw, raw_rot, RAW_BENCH),
         ("raw (RAW_PORT_DEFAULT)", handheld.handheld_superres_raw, raw_burst, RAW_PORT_DEFAULT),
         ("raw windows", handheld.handheld_superres_raw, raw_burst, raw_windows_cfg),
+        ("rgb (RGB_DEFAULT)", handheld.handheld_superres, rgb_burst, RGB_DEFAULT),
+        ("rgb scale 4", handheld.handheld_superres, rgb_burst, rgb_scale4),
+        ("rgb order 1", handheld.handheld_superres, rgb_burst, rgb_order1),
+        ("raw (RAW_SCALE4)", handheld.handheld_superres_raw, raw9, RAW_SCALE4),
+        ("raw cascade (RAW_SCALE4)", cascade, raw5, RAW_SCALE4),
     )
     slice_ms = [time_slice(label, fn, burst, cfg) for label, fn, burst, cfg in paths]
 
@@ -596,31 +841,35 @@ def main() -> int:
     for (label, fn, burst, cfg), ms in zip(paths, slice_ms):
         profile_stages(label, fn, burst, cfg, ms, card, wrappers)
 
+    def numbers(label):
+        return {"max_abs_err": max_abs_err[label], "ms": kernel_ms[label], "plain_ms": plain_ms[label],
+                "device_ms": device_ms[label], "bound_ms": bounds[label][0], "bound_by": bounds[label][1]}
+
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": KERNELS[name][0],
         "replaces": KERNELS[name][1],
         "launches": launches.get(name, 0),
-        "max_abs_err": max_abs_err[name],
-        "ms": kernel_ms[name],
-        "plain_ms": plain_ms[name],
-        "device_ms": device_ms[name],
-        "bound_ms": bounds[name][0],
-        "bound_by": bounds[name][1],
+        **numbers(main_variant[name]),
+        "max_abs_err": max_abs_err[name],  # over every check of the kernel
         "library_ms": None,  # no one PyTorch call computes any of these functions
+        "variant": main_variant[name],
+        "variants": [{"label": label, **numbers(label)} for kernel, label, *_ in timed if kernel == name],
         "copy_floor_ms": copy_floor_ms.get(name),  # the copy kernel only
         # the search only: the plain version's device time and device ops
         "plain_device_ms": plain_device.get(name, (None, None))[0],
         "plain_device_ops": plain_device.get(name, (None, None))[1],
     } for name, launches in (
-        ("merge_fast", rgb_launches), ("tile_warp", bench_launches),
+        ("merge_fast", default_launches), ("tile_warp", bench_launches),
         ("tile_search", bench_launches), ("merge_raw", bench_launches),
         ("defog", defog_launches),
     )]}))
-    print(f"launches per path: defog {defog_launches}, rgb {rgb_launches}, "
-          f"rgb default {rgb_default_launches}, raw bench {bench_launches}, "
-          f"raw default {raw_launches}, raw windows {win_launches}")
+    print(f"launches per path: defog {defog_launches}, rgb pallas {rgb_launches}, "
+          f"rgb port default {rgb_default_launches}, raw bench {bench_launches}, "
+          f"raw default {raw_launches}, raw windows {win_launches}, rgb default {default_launches}, "
+          f"rgb scale 4 {scale4_launches}, rgb order 1 {order1_launches}, raw scale 4 {raw4_launches}, "
+          f"raw cascade {cascade_launches}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -722,8 +971,9 @@ def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> None:
             kernels_us += evt.self_device_time_total  # kernels and copies
             launches += evt.count
             for name, symbol in KERNEL_SYMBOLS.items():
-                if symbol in evt.key:
-                    kernel_rows[name] = (evt.count, evt.self_device_time_total)
+                if symbol in evt.key:  # one row per template instantiation
+                    count, us = kernel_rows.get(name, (0, 0.0))
+                    kernel_rows[name] = (count + evt.count, us + evt.self_device_time_total)
     # the ctypes launches run under no ATen op, so the ranges' device time
     # leaves the kernels out; their own profiler rows are added to their
     # stage here, and the events around each launch are shown beside

@@ -164,6 +164,21 @@ RAW_BENCH = HandheldConfig(align=AlignConfig(tile_size=16, search_radius=4, leve
 # the RGB fast path through the merge kernel, with global pre-alignment
 RGB_PALLAS = HandheldConfig(merge=MergeConfig(use_pallas=True))
 
+# the JAX package's default for handheld_superres: the RGB fast path's
+# default merge branch (phase layout, prune at e^-1.5, gated restore),
+# with global pre-alignment, and the same without it
+RGB_DEFAULT = HandheldConfig()
+RGB_DEFAULT_NOPRE = HandheldConfig(prealign=False)
+
+# the JAX package's scale-4 RAW configuration (tests/test_fidelity.py's
+# scale-4 and cascade tests), letter for letter
+RAW_SCALE4 = HandheldConfig(
+    align=AlignConfig(tile_size=8, search_radius=4, levels=2),
+    gamma=False,
+    scale=4,
+    merge=MergeConfig(k_min_rb=0.5),
+)
+
 _REMAP_METHODS = ("bilinear", "bicubic", "nearest")
 
 
@@ -197,16 +212,24 @@ def check_supported(cfg: HandheldConfig) -> None:
     """Raise ``ValueError`` naming each knob of ``cfg`` that selects an RGB
     path the port does not implement."""
     bad = _common_unsupported(cfg)
+    m = cfg.merge
     if cfg.rgb_half_stats:
         bad.append("rgb_half_stats=True")
-    if not cfg.merge.use_pallas:
-        bad.append("merge.use_pallas=False")
-    rgb_order = cfg.merge.order if cfg.merge.rgb_order is None else cfg.merge.rgb_order
-    if rgb_order == 1:
-        bad.append("merge.rgb_order=1")
+    rgb_order = m.order if m.rgb_order is None else m.rgb_order
+    if m.use_pallas and rgb_order == 1:
+        # the JAX function raises here too: its Pallas merge is order 0
+        bad.append("merge.rgb_order=1 with merge.use_pallas=True")
+    if not m.use_pallas and rgb_order == 1 and m.solver == "exact":
+        bad.append(
+            "merge.rgb_order=1 with merge.solver='exact' (its 9-slot merge and "
+            "solve_order1 are not ported yet)"
+        )
+    if not m.use_pallas and m.bf16:
+        # bf16 accumulation changes the JAX default branch's function
+        bad.append("merge.bf16=True")
     if not 1 <= cfg.scale <= 4:
         bad.append(f"scale={cfg.scale} (the merge kernel takes 1..4)")
-    _raise(bad, "config.RGB_PALLAS")
+    _raise(bad, "config.RGB_DEFAULT")
 
 
 def check_supported_raw(cfg: HandheldConfig) -> None:
@@ -224,7 +247,7 @@ def check_supported_raw(cfg: HandheldConfig) -> None:
         bad.append("merge.exact_weights=True")
     if m.guided_rb:
         bad.append("merge.guided_rb=True")
-    if cfg.scale != 2:
-        # the RAW merge kernel holds its accumulators in registers for s=2
-        bad.append(f"scale={cfg.scale} (the RAW merge kernel takes 2)")
+    if not 1 <= cfg.scale <= 4:
+        # the RAW merge kernel is built for scales 1..4
+        bad.append(f"scale={cfg.scale} (the RAW merge kernel takes 1..4)")
     _raise(bad, "config.RAW_BENCH")

@@ -1,18 +1,29 @@
-// Order-0 static-tap kernel-regression merge for Hopper (sm_90a).
+// Static-tap kernel-regression merge for Hopper (sm_90a), RGB.
 //
 // Replaces the TPU kernel multi_frame_super_resolution_tpu/pallas_ops/
-// merge.py::merge_fast_pallas (kernel body _make_kernel). It computes the
-// same function as the plain PyTorch version
-// multi_frame_super_resolution_tpu_torch/models/fast_merge.py::
+// merge.py::merge_fast_pallas (kernel body _make_kernel), and the default
+// merge branch the JAX package computes in XLA with the same skeleton
+// (models/fast_merge.py::merge_burst_fast with phase_output, order 1 and
+// 4 moment slots). It computes the same function as the plain PyTorch
+// version multi_frame_super_resolution_tpu_torch/models/fast_merge.py::
 // merge_burst_fast: for every input pixel (y, x), every frame f, every
 // static tap (ky, kx) and every output phase (py, px),
 //
 //   d   = (k - clip(res_f(y, x), -rb, rb)) * s - phi * s
 //   w   = exp(-1/2 (dx^2 Oxx + dy^2 Oyy + 2 dx dy Oxy))      Omega^-1 at (y, x)
-//   num[s*y+py, s*x+px, c] += w * cert_f(y', x', c) * val_f(y', x', c)
-//   den[s*y+py, s*x+px, c] += w * cert_f(y', x', c)
+//   cw  = w * cert_f(y', x', c),  cwv = cw * val_f(y', x', c)
 //
-// with (y', x') = (y + ky, x + kx) clamped to the image (edge semantics).
+// with (y', x') = (y + ky, x + kx) clamped to the image (edge semantics),
+// summed into one of three output forms (the taps are the host's list,
+// so the prune threshold only changes the list):
+//
+//   form 0, order 0, interleaved: num[s*y+py, s*x+px, c] += cwv, den += cw
+//   form 1, order 0, phase layout: num[py, px, c, y, x] += cwv, den += cw
+//   form 2, order 1, phase layout: m00 += cw, m01 += cw dy, m02 += cw dx,
+//     b0 += cwv, each (s, s, 3, H, W): the plugin solve's moments
+//
+// Form 0 is the merge_fast_pallas path; the default RGB branch runs form 1
+// (order 0) or form 2 (order 1).
 //
 // Bound, at chip_smoke.py's check (F=5, 256 x 512, s=2, 25 taps): 65.5 M
 // (frame, pixel, tap, phase) items at 20.25 flops and one exp each, every
@@ -72,6 +83,25 @@
 // - Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 64
 //   registers at s <= 2, no spills; see PERF.md for its time against the
 //   first version's 0.096 ms and its bound.
+//
+// The phase-layout forms:
+// - Form 1 is form 0's thread and loop with another store: a (py, px, c)
+//   plane row of a block is 32 contiguous floats, so each warp writes
+//   its accumulators straight to device memory, coalesced, with no
+//   parking.
+// - Form 2 holds 4 moments per (phase, channel): 48 accumulators at s = 2
+//   and 192 at s = 4 for a thread holding all phases. So a thread holds
+//   one phase row (a thread per pixel and phase row, 12 s accumulators),
+//   and a block is 32 pixels x kTileH(s) rows x s phase rows (256
+//   threads at s = 1, 2 and 4, 192 at s = 3). Each thread reads the
+//   staged sites itself; per item it forms w dy and w dx once and adds
+//   four FMAs per channel. Its m01 and m02 sum terms of mixed sign (dy
+//   and dx reach +-(r + rb) s), so their rounding against the plain
+//   version is checked at rtol/atol 1e-4.
+// - Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): form 1
+//   62, 64, 117 and 167 registers at s = 1-4, the s = 2 build (four
+//   blocks an SM, 64 registers) spilling 8 bytes; form 2 72, 88, 96 and
+//   113, no spills. Times against their bounds in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -84,8 +114,6 @@ namespace {
 constexpr int kMaxRadius = 8;
 constexpr int kMaxTaps = (2 * kMaxRadius + 1) * (2 * kMaxRadius + 1);
 constexpr int kTileW = 32;  // input columns of a block (one warp)
-constexpr int kTileH = 8;   // input rows of a block
-constexpr int kThreads = kTileW * kTileH;
 
 constexpr int kMaxRuns = 64;  // _active_taps gives one run per tap row, at most 17
 
@@ -98,13 +126,26 @@ struct Taps {
   int len[kMaxRuns];     // its taps
 };
 
-// blocks an SM the launch bound asks for: the s^2 * 6 accumulators grow
-// with s (at s <= 2 four blocks, 64 registers a thread, hold the 256 x 512
-// check in one wave)
-template <int S>
-constexpr int min_blocks() {
-  return S <= 2 ? 4 : (S == 3 ? 2 : 1);
-}
+// The output arrays: (num, den) in order 0, (m00, m01, m02, b0) in order 1.
+struct Outs {
+  float* p[4];
+};
+
+// The thread layout of a form. Order 0: a thread per input pixel holding
+// all s^2 phases, 32 x 8 pixels a block. Order 1: a thread per pixel and
+// phase row, 32 x tile_h pixels x s phase rows a block.
+template <int S, bool kOrder1>
+struct Layout {
+  static constexpr int kRows = kOrder1 ? 1 : S;  // phase rows a thread holds
+  static constexpr int kZ = kOrder1 ? S : 1;     // threads a pixel
+  static constexpr int kTileH = kOrder1 ? (S == 1 ? 8 : (S == 2 ? 4 : 2)) : 8;
+  static constexpr int kThreads = kTileW * kTileH * kZ;
+  static constexpr int kSlots = kOrder1 ? 4 : 2;
+  // blocks an SM the launch bound asks for: order 0's s^2 * 6 accumulators
+  // grow with s (at s <= 2 four blocks, 64 registers a thread, hold the
+  // 256 x 512 check in one wave); order 1's 12 s stay under 128 registers
+  static constexpr int kMinBlocks = kOrder1 ? 2 : (S <= 2 ? 4 : (S == 3 ? 2 : 1));
+};
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -122,6 +163,7 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // Issues this thread's cp.async copies of one frame's staged sites
 // (frame offset fbase into the (F, H, W, 3) arrays) and commits them as
 // one group. Site s sits at row s / sw, column s % sw of the staged tile.
+template <int kThreads>
 __device__ __forceinline__ void stage_frame(const float* __restrict__ img,
                                             const float* __restrict__ cert,
                                             float4* a, float2* b, long long fbase,
@@ -141,14 +183,15 @@ __device__ __forceinline__ void stage_frame(const float* __restrict__ img,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// Writes one output array's block: each thread parks its s^2 x 3 values
-// in shared memory (the frame buffers, free by now), then the block
-// writes its s * kTileH output rows of s * kTileW * 3 contiguous floats,
-// consecutive threads on consecutive floats.
+// Form 0: writes one output array's block: each thread parks its s^2 x 3
+// values in shared memory (the frame buffers, free by now), then the
+// block writes its s * kTileH output rows of s * kTileW * 3 contiguous
+// floats, consecutive threads on consecutive floats.
 template <int S>
 __device__ __forceinline__ void park_and_store(const float (&acc)[S][S][3], float* park,
                                                float* __restrict__ out, int y0, int x0,
                                                int h, int w, bool inside, int tid) {
+  using L = Layout<S, false>;
   constexpr int kRow = kTileW * S * 3;  // floats in a parked output row
   if (inside) {
 #pragma unroll
@@ -161,34 +204,39 @@ __device__ __forceinline__ void park_and_store(const float (&acc)[S][S][3], floa
         }
   }
   __syncthreads();
-  const int rows = min(kTileH, h - y0) * S;
+  const int rows = min(L::kTileH, h - y0) * S;
   const int row_len = min(kTileW, w - x0) * S * 3;
   const long long out_row = (long long)w * S * 3;
   float* dst = out + (long long)y0 * S * out_row + (long long)x0 * S * 3;
-  for (int i = tid; i < rows * kRow; i += kThreads) {
+  for (int i = tid; i < rows * kRow; i += L::kThreads) {
     const int r = i / kRow, col = i % kRow;
     if (col < row_len) dst[r * out_row + col] = park[i];
   }
 }
 
-template <int S>
-__global__ void __launch_bounds__(kThreads, min_blocks<S>())
+template <int S, bool kOrder1, bool kPhase>
+__global__ void __launch_bounds__(Layout<S, kOrder1>::kThreads, Layout<S, kOrder1>::kMinBlocks)
 merge_fast_kernel(const float* __restrict__ warped,
                   const float* __restrict__ residual,
                   const float* __restrict__ certainty,
                   const float* __restrict__ omega,
-                  float* __restrict__ num,
-                  float* __restrict__ den,
+                  const Outs outs,
                   int frames, int h, int w, int halo, float rb,
                   const Taps taps) {
+  using L = Layout<S, kOrder1>;
+  static_assert(kPhase || !kOrder1, "order-1 moments are written in the phase layout");
+  constexpr int R = L::kRows;
   // two frame buffers: float4 sites [2][sites], then float2 sites [2][sites]
   extern __shared__ float4 smem[];
   const int sw = kTileW + 2 * halo;
-  const int sites = (kTileH + 2 * halo) * sw;
+  const int sites = (L::kTileH + 2 * halo) * sw;
   float2* smem2 = reinterpret_cast<float2*>(smem + 2 * sites);
 
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
+  // the thread's phase row in order 1; order 0's blocks are flat, so its
+  // first row is the constant 0 (its phis_y fold into constants)
+  const int row0 = kOrder1 ? (int)threadIdx.z : 0;
+  const int tid = (row0 * L::kTileH + threadIdx.y) * kTileW + threadIdx.x;
+  const int y0 = blockIdx.y * L::kTileH, x0 = blockIdx.x * kTileW;
   const int y = y0 + threadIdx.y, x = x0 + threadIdx.x;
   const bool inside = y < h && x < w;
   const long long plane = (long long)h * w;
@@ -202,37 +250,41 @@ merge_fast_kernel(const float* __restrict__ warped,
   const float o1 = -0.5f * kL * omega[pix * 3 + 1];
   const float o2 = -kL * omega[pix * 3 + 2];
   // phis[p] = phi[p] * s with phi[p] = (p + 0.5) / s - 0.5, in the f32
-  // operations of fast_merge._output_phase_offsets
-  float phis[S];
+  // operations of fast_merge._output_phase_offsets: every column, and the
+  // thread's rows
+  float phis[S], phis_y[R];
 #pragma unroll
   for (int p = 0; p < S; ++p) phis[p] = (((float)p + 0.5f) / (float)S - 0.5f) * (float)S;
+#pragma unroll
+  for (int p = 0; p < R; ++p) phis_y[p] = (((float)(row0 + p) + 0.5f) / (float)S - 0.5f) * (float)S;
 
-  float acc_n[S][S][3];
-  float acc_d[S][S][3];
+  float acc[L::kSlots][R][S][3];
 #pragma unroll
-  for (int py = 0; py < S; ++py)
+  for (int k = 0; k < L::kSlots; ++k)
 #pragma unroll
-    for (int px = 0; px < S; ++px)
+    for (int py = 0; py < R; ++py)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) acc_n[py][px][c] = acc_d[py][px][c] = 0.0f;
+      for (int px = 0; px < S; ++px)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) acc[k][py][px][c] = 0.0f;
 
   const float2* res = reinterpret_cast<const float2*>(residual) + pix;
-  stage_frame(warped, certainty, smem, smem2, 0, y0, x0, h, w, halo, sw, sites, tid);
+  stage_frame<L::kThreads>(warped, certainty, smem, smem2, 0, y0, x0, h, w, halo, sw, sites, tid);
   for (int f = 0; f < frames; ++f) {
     const float2 r = res[f * plane];
     float4* a = smem + (f & 1) * sites;
     float2* b = smem2 + (f & 1) * sites;
     if (f + 1 < frames) {
       const int nb = (f + 1) & 1;
-      stage_frame(warped, certainty, smem + nb * sites, smem2 + nb * sites,
-                  (f + 1) * plane * 3, y0, x0, h, w, halo, sw, sites, tid);
+      stage_frame<L::kThreads>(warped, certainty, smem + nb * sites, smem2 + nb * sites,
+                               (f + 1) * plane * 3, y0, x0, h, w, halo, sw, sites, tid);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     // value x certainty on the sites this thread copied (its own copies
     // have landed); the barrier then publishes the frame to the block
-    for (int s = tid; s < sites; s += kThreads) {
+    for (int s = tid; s < sites; s += L::kThreads) {
       const float4 v = a[s];
       const float2 c = b[s];
       a[s] = make_float4(v.x * v.w, v.y * c.x, v.z * c.y, v.w);
@@ -244,21 +296,20 @@ merge_fast_kernel(const float* __restrict__ warped,
       // ky s and kx s
       const float ry = fminf(fmaxf(r.x, -rb), rb);
       const float rx = fminf(fmaxf(r.y, -rb), rb);
-      float ey[S], ex[S];
+      float ey[R], ex[S];
 #pragma unroll
-      for (int p = 0; p < S; ++p) {
-        ey[p] = ry * (float)S + phis[p];
-        ex[p] = rx * (float)S + phis[p];
-      }
+      for (int p = 0; p < R; ++p) ey[p] = ry * (float)S + phis_y[p];
+#pragma unroll
+      for (int p = 0; p < S; ++p) ex[p] = rx * (float)S + phis[p];
 #pragma unroll 1
       for (int run = 0; run < taps.n; ++run) {
         // the row's terms, shared by its taps: A = dy^2 o_yy, B = dy o_xy
-        float qa[S], qb[S];
+        float qa[R], qb[R], dys[R];
 #pragma unroll
-        for (int py = 0; py < S; ++py) {
-          const float dy = taps.kys[run] - ey[py];
-          qa[py] = dy * dy * o1;
-          qb[py] = dy * o2;
+        for (int py = 0; py < R; ++py) {
+          dys[py] = taps.kys[run] - ey[py];
+          qa[py] = dys[py] * dys[py] * o1;
+          qb[py] = dys[py] * o2;
         }
         const float4* pa = a + my_site + taps.off0[run];
         const float2* pb = b + my_site + taps.off0[run];
@@ -272,14 +323,30 @@ merge_fast_kernel(const float* __restrict__ warped,
           for (int px = 0; px < S; ++px) {
             const float dx = kxs - ex[px];
 #pragma unroll
-            for (int py = 0; py < S; ++py) {
+            for (int py = 0; py < R; ++py) {
               const float wgt = exp2_approx(fmaf(dx, fmaf(dx, o0, qb[py]), qa[py]));
-              acc_n[py][px][0] = fmaf(wgt, va.x, acc_n[py][px][0]);
-              acc_n[py][px][1] = fmaf(wgt, va.y, acc_n[py][px][1]);
-              acc_n[py][px][2] = fmaf(wgt, va.z, acc_n[py][px][2]);
-              acc_d[py][px][0] = fmaf(wgt, va.w, acc_d[py][px][0]);
-              acc_d[py][px][1] = fmaf(wgt, vb.x, acc_d[py][px][1]);
-              acc_d[py][px][2] = fmaf(wgt, vb.y, acc_d[py][px][2]);
+              if constexpr (kOrder1) {
+                const float wdy = wgt * dys[py], wdx = wgt * dx;
+                acc[0][py][px][0] = fmaf(wgt, va.w, acc[0][py][px][0]);
+                acc[0][py][px][1] = fmaf(wgt, vb.x, acc[0][py][px][1]);
+                acc[0][py][px][2] = fmaf(wgt, vb.y, acc[0][py][px][2]);
+                acc[1][py][px][0] = fmaf(wdy, va.w, acc[1][py][px][0]);
+                acc[1][py][px][1] = fmaf(wdy, vb.x, acc[1][py][px][1]);
+                acc[1][py][px][2] = fmaf(wdy, vb.y, acc[1][py][px][2]);
+                acc[2][py][px][0] = fmaf(wdx, va.w, acc[2][py][px][0]);
+                acc[2][py][px][1] = fmaf(wdx, vb.x, acc[2][py][px][1]);
+                acc[2][py][px][2] = fmaf(wdx, vb.y, acc[2][py][px][2]);
+                acc[3][py][px][0] = fmaf(wgt, va.x, acc[3][py][px][0]);
+                acc[3][py][px][1] = fmaf(wgt, va.y, acc[3][py][px][1]);
+                acc[3][py][px][2] = fmaf(wgt, va.z, acc[3][py][px][2]);
+              } else {
+                acc[0][py][px][0] = fmaf(wgt, va.x, acc[0][py][px][0]);
+                acc[0][py][px][1] = fmaf(wgt, va.y, acc[0][py][px][1]);
+                acc[0][py][px][2] = fmaf(wgt, va.z, acc[0][py][px][2]);
+                acc[1][py][px][0] = fmaf(wgt, va.w, acc[1][py][px][0]);
+                acc[1][py][px][1] = fmaf(wgt, vb.x, acc[1][py][px][1]);
+                acc[1][py][px][2] = fmaf(wgt, vb.y, acc[1][py][px][2]);
+              }
             }
           }
         }
@@ -288,29 +355,61 @@ merge_fast_kernel(const float* __restrict__ warped,
     __syncthreads();  // this buffer is restaged for frame f + 2 (or parks the outputs)
   }
 
-  park_and_store<S>(acc_n, reinterpret_cast<float*>(smem), num, y0, x0, h, w, inside, tid);
-  __syncthreads();
-  park_and_store<S>(acc_d, reinterpret_cast<float*>(smem), den, y0, x0, h, w, inside, tid);
+  if constexpr (kPhase) {
+    // plane (py, px, c) of each output at (y, x): a warp writes 32
+    // consecutive floats of one plane row. The thread's planes of an
+    // output follow each other, so one pointer steps by a plane.
+    if (inside) {
+#pragma unroll
+      for (int k = 0; k < L::kSlots; ++k) {
+        float* dst = outs.p[k] + (long long)row0 * S * 3 * plane + (long long)y * w + x;
+#pragma unroll
+        for (int py = 0; py < R; ++py)
+#pragma unroll
+          for (int px = 0; px < S; ++px)
+#pragma unroll
+            for (int c = 0; c < 3; ++c, dst += plane) *dst = acc[k][py][px][c];
+      }
+    }
+  } else {
+    park_and_store<S>(acc[0], reinterpret_cast<float*>(smem), outs.p[0], y0, x0, h, w, inside, tid);
+    __syncthreads();
+    park_and_store<S>(acc[1], reinterpret_cast<float*>(smem), outs.p[1], y0, x0, h, w, inside, tid);
+  }
+}
+
+template <int S, bool kOrder1, bool kPhase>
+int launch(const float* warped, const float* residual, const float* certainty,
+           const float* omega, const Outs& outs, int frames, int h, int w, int halo,
+           float rb, const Taps& taps, cudaStream_t stream) {
+  using L = Layout<S, kOrder1>;
+  const int sites = (L::kTileH + 2 * halo) * (kTileW + 2 * halo);
+  // two frame buffers, or (form 0) one parked output array, whichever is larger
+  const size_t park = kPhase ? 0 : (size_t)L::kThreads * S * S * 3 * sizeof(float);
+  const size_t bytes = std::max((size_t)sites * 2 * (sizeof(float4) + sizeof(float2)), park);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_fast_kernel<S, kOrder1, kPhase>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 block(kTileW, L::kTileH, L::kZ);
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + L::kTileH - 1) / L::kTileH);
+  merge_fast_kernel<S, kOrder1, kPhase><<<grid, block, bytes, stream>>>(
+      warped, residual, certainty, omega, outs, frames, h, w, halo, rb, taps);
+  return (int)cudaGetLastError();
 }
 
 template <int S>
-int launch(const float* warped, const float* residual, const float* certainty,
-           const float* omega, float* num, float* den, int frames, int h,
-           int w, int halo, float rb, const Taps& taps, cudaStream_t stream) {
-  const int sites = (kTileH + 2 * halo) * (kTileW + 2 * halo);
-  // two frame buffers, or one parked output array, whichever is larger
-  const size_t bytes = std::max((size_t)sites * 2 * (sizeof(float4) + sizeof(float2)),
-                                (size_t)kThreads * S * S * 3 * sizeof(float));
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge_fast_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
+int launch_form(int form, const float* warped, const float* residual, const float* certainty,
+                const float* omega, const Outs& outs, int frames, int h, int w, int halo,
+                float rb, const Taps& taps, cudaStream_t stream) {
+  switch (form) {
+    case 0: return launch<S, false, false>(warped, residual, certainty, omega, outs, frames, h, w, halo, rb, taps, stream);
+    case 1: return launch<S, false, true>(warped, residual, certainty, omega, outs, frames, h, w, halo, rb, taps, stream);
+    case 2: return launch<S, true, true>(warped, residual, certainty, omega, outs, frames, h, w, halo, rb, taps, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
-  merge_fast_kernel<S><<<grid, block, bytes, stream>>>(
-      warped, residual, certainty, omega, num, den, frames, h, w, halo, rb, taps);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -320,14 +419,18 @@ extern "C" {
 // Launches the merge on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to contiguous float32 arrays:
 // warped (F, H, W, 3), residual (F, H, W, 2) (8-byte aligned: it is read
-// as float2), certainty (F, H, W, 3), omega (H, W, 3); num and den
-// (S*H, S*W, 3) are written in full. taps_yx is a HOST array of n_taps
-// (ky, kx) pairs, each within +-8, in at most kMaxRuns runs of one row
-// with kx rising by 1 (any list of _active_taps is one run per row).
+// as float2), certainty (F, H, W, 3), omega (H, W, 3). form 0 writes num
+// and den (S*H, S*W, 3) to out0, out1; form 1 writes them as
+// (S, S, 3, H, W); form 2 writes m00, m01, m02, b0, each (S, S, 3, H, W),
+// to out0..out3. Every output is written in full; forms 0 and 1 ignore
+// out2 and out3. taps_yx is a HOST array of n_taps (ky, kx) pairs, each
+// within +-8, in at most kMaxRuns runs of one row with kx rising by 1
+// (any list of _active_taps is one run per row).
 int mfsr_merge_fast(const void* warped, const void* residual,
-                    const void* certainty, const void* omega, void* num,
-                    void* den, int frames, int h, int w, int scale,
-                    const void* taps_yx, int n_taps, float rb, void* stream) {
+                    const void* certainty, const void* omega, void* out0,
+                    void* out1, void* out2, void* out3, int frames, int h,
+                    int w, int scale, int form, const void* taps_yx, int n_taps,
+                    float rb, void* stream) {
   if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || h < 1 || w < 1 ||
       reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
     return (int)cudaErrorInvalidValue;
@@ -358,14 +461,14 @@ int mfsr_merge_fast(const void* warped, const void* residual,
   const float* r = static_cast<const float*>(residual);
   const float* c = static_cast<const float*>(certainty);
   const float* o = static_cast<const float*>(omega);
-  float* n = static_cast<float*>(num);
-  float* d = static_cast<float*>(den);
+  const Outs outs = {{static_cast<float*>(out0), static_cast<float*>(out1),
+                      static_cast<float*>(out2), static_cast<float*>(out3)}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (scale) {
-    case 1: return launch<1>(a, r, c, o, n, d, frames, h, w, halo, rb, taps, st);
-    case 2: return launch<2>(a, r, c, o, n, d, frames, h, w, halo, rb, taps, st);
-    case 3: return launch<3>(a, r, c, o, n, d, frames, h, w, halo, rb, taps, st);
-    case 4: return launch<4>(a, r, c, o, n, d, frames, h, w, halo, rb, taps, st);
+    case 1: return launch_form<1>(form, a, r, c, o, outs, frames, h, w, halo, rb, taps, st);
+    case 2: return launch_form<2>(form, a, r, c, o, outs, frames, h, w, halo, rb, taps, st);
+    case 3: return launch_form<3>(form, a, r, c, o, outs, frames, h, w, halo, rb, taps, st);
+    case 4: return launch_form<4>(form, a, r, c, o, outs, frames, h, w, halo, rb, taps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

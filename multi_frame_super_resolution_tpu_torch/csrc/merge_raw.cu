@@ -1,5 +1,5 @@
 // RAW plane-domain order-1 merge (certless plugin branch) for Hopper
-// (sm_90a), scale 2, Bayer patterns.
+// (sm_90a), scales 1-4, Bayer patterns.
 //
 // Replaces: the JAX package computes this accumulate outside Pallas
 // (multi_frame_super_resolution_tpu/models/fast_merge.py::
@@ -88,6 +88,21 @@
 //   the first version, ~29% of the bound. The staging at the start and
 //   the output stores, which all blocks of the one wave issue at the
 //   same points, are not hidden behind the tap loop.
+//
+// Scales: the scale S is a template parameter. A thread holds one phase
+// row and kPX of its S phase columns (Layout<S>), so its accumulators
+// are those of S = 2's thread at kPX = 2 and half of them at kPX = 1:
+// - S = 1: kPX = 1, 32 x 4 pixels a block (128 threads);
+// - S = 2: kPX = 2, 32 x 4 pixels x 2 phase rows (256 threads), the
+//   layout above, unchanged;
+// - S = 3: kPX = 1 (three columns would need ~170 registers), 32 x 1
+//   pixels x 9 phases (288 threads);
+// - S = 4: kPX = 2, 32 x 1 pixels x 16 phases in 8 threads (256).
+// Rows of one pixel at S >= 3 keep the block at ~256 threads; its staged
+// halo then costs 3-5 staged rows for one row of pixels. Measured
+// (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 87, 122-126, 92 and
+// 128 registers at S = 1-4, no spills; times against their bounds in
+// PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -97,13 +112,39 @@
 
 namespace {
 
-constexpr int kS = 2;            // scale
 constexpr int kMaxTaps = 81;     // tap radius up to 4
 constexpr int kTileW = 32;       // half-res columns of a block (one warp)
-constexpr int kTileH = 4;        // half-res rows of a block
-constexpr int kPix = kTileW * kTileH;
-constexpr int kThreads = kPix * kS;  // one per (pixel, phase row)
-constexpr int kMinBlocks = 2;    // blocks an SM, by the launch bound
+
+// The thread layout at scale S: a thread per (half-res pixel, phase row,
+// group of kPX phase columns), kTileH pixel rows a block.
+template <int S>
+struct Layout;
+template <>
+struct Layout<1> {
+  static constexpr int kPX = 1, kTileH = 4, kMinBlocks = 4;
+};
+template <>
+struct Layout<2> {
+  static constexpr int kPX = 2, kTileH = 4, kMinBlocks = 2;
+};
+template <>
+struct Layout<3> {
+  static constexpr int kPX = 1, kTileH = 1, kMinBlocks = 2;
+};
+template <>
+struct Layout<4> {
+  static constexpr int kPX = 2, kTileH = 1, kMinBlocks = 2;
+};
+
+template <int S>
+struct Shape {
+  static constexpr int kPX = Layout<S>::kPX;
+  static constexpr int kTileH = Layout<S>::kTileH;
+  static constexpr int kCols = S / kPX;              // threads a phase row
+  static constexpr int kZ = S * kCols;               // threads a pixel
+  static constexpr int kPix = kTileW * kTileH;       // pixels a block
+  static constexpr int kThreads = kPix * kZ;
+};
 
 struct TapTable {
   int group_end[4];  // group g holds taps [group_end[g-1], group_end[g])
@@ -142,14 +183,15 @@ __device__ constexpr bool is_green(int q) {
 
 // Writes cell (parity z, channel c) of phase (py, px): the weight sum m,
 // the value sum b and the finalized centroid n / w of its chain.
+template <int S>
 __device__ __forceinline__ void store_cell(float* __restrict__ m00_out,
                                            float* __restrict__ cy_out,
                                            float* __restrict__ cx_out,
                                            float* __restrict__ b0_out, long long plane,
                                            long long out_pix, int z, int py, int px, int c,
                                            float m, float b, float w, float n1, float n2) {
-  const int row = (z >> 1) * kS + py, col = (z & 1) * kS + px;
-  const long long o = (((long long)row * 2 * kS + col) * 3 + c) * plane + out_pix;
+  const int row = (z >> 1) * S + py, col = (z & 1) * S + px;
+  const long long o = (((long long)row * 2 * S + col) * 3 + c) * plane + out_pix;
   const float inv = w > 1e-8f ? 1.0f / fmaxf(w, 1e-8f) : 0.0f;
   m00_out[o] = m;
   b0_out[o] = b;
@@ -157,8 +199,8 @@ __device__ __forceinline__ void store_cell(float* __restrict__ m00_out,
   cx_out[o] = fminf(fmaxf(n2 * inv, -2.0f), 2.0f);
 }
 
-template <int kHalo, bool kGreenDiag>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int S, int kHalo, bool kGreenDiag>
+__global__ void __launch_bounds__(Shape<S>::kThreads, Layout<S>::kMinBlocks)
 merge_raw_kernel(const float* __restrict__ planes,
                  const float* __restrict__ residual,
                  const float* __restrict__ certainty,
@@ -167,14 +209,18 @@ merge_raw_kernel(const float* __restrict__ planes,
                  float* __restrict__ m00_out, float* __restrict__ cy_out,
                  float* __restrict__ cx_out, float* __restrict__ b0_out,
                  int frames, int hh, int hw, float rb, const TapTable taps) {
+  using L = Shape<S>;
+  constexpr int kPX = L::kPX, kTileH = L::kTileH, kPix = L::kPix, kThreads = L::kThreads;
   constexpr int kSW = kTileW + 2 * kHalo;          // staged row length
   constexpr int kSA = (kTileH + 2 * kHalo) * kSW;  // staged sites per plane
   extern __shared__ float2 smem[];
   float2* sv = smem;                               // (F, 4, kSA): value, cert
   float2* sres = smem + (size_t)frames * 4 * kSA;  // (F, kPix): ry, rx
 
-  const int tx = threadIdx.x, ty = threadIdx.y, py = threadIdx.z;
-  const int tid = (py * kTileH + ty) * kTileW + tx;
+  const int tx = threadIdx.x, ty = threadIdx.y, zz = threadIdx.z;
+  const int py = zz / L::kCols;                  // the thread's phase row
+  const int px0 = (zz % L::kCols) * kPX;         // its first phase column
+  const int tid = (zz * kTileH + ty) * kTileW + tx;
   const int i0 = blockIdx.y * kTileH, j0 = blockIdx.x * kTileW;
   const long long plane = (long long)hh * hw;
 
@@ -213,10 +259,12 @@ merge_raw_kernel(const float* __restrict__ planes,
   const long long out_pix = (long long)i * hw + j;
   // phi[p] = (p + 0.5) / s - 0.5 in the f32 operations of
   // fast_merge._output_phase_offsets; phis = phi * s. The x phases are
-  // the thread's two columns, constants.
-  const float phi_y = ((float)py + 0.5f) / (float)kS - 0.5f;
-  const float phis_y = phi_y * (float)kS;
-  constexpr float kPhiX[kS] = {0.5f / kS - 0.5f, 1.5f / kS - 0.5f};
+  // the thread's kPX columns (constants where one thread holds a row).
+  const float phi_y = ((float)py + 0.5f) / (float)S - 0.5f;
+  const float phis_y = phi_y * (float)S;
+  float phi_x[kPX];
+#pragma unroll
+  for (int p = 0; p < kPX; ++p) phi_x[p] = ((float)(px0 + p) + 0.5f) / (float)S - 0.5f;
   // exp(q) = 2^(q log2 e): -1/2 log2(e) and the cross term's -log2(e)
   // folded into omega, so w = 2^(dx (dx o0 + dy o2) + dy^2 o1)
   constexpr float kL = 1.4426950408889634f;  // log2(e)
@@ -230,11 +278,11 @@ merge_raw_kernel(const float* __restrict__ planes,
 #pragma unroll
   for (int pair = 0; pair < 2; ++pair) {
     // [parity z][group of the pair][x phase]
-    float m00[4][2][kS], b0[4][2][kS];
+    float m00[4][2][kPX], b0[4][2][kPX];
     // [the pair's green chain, its groups' R/B chains][x phase]
-    float cw[3][kS], c1[3][kS], c2[3][kS];
+    float cw[3][kPX], c1[3][kPX], c2[3][kPX];
 #pragma unroll
-    for (int px = 0; px < kS; ++px) {
+    for (int px = 0; px < kPX; ++px) {
 #pragma unroll
       for (int z = 0; z < 4; ++z) {
         m00[z][0][px] = m00[z][1][px] = b0[z][0][px] = b0[z][1][px] = 0.0f;
@@ -254,10 +302,10 @@ merge_raw_kernel(const float* __restrict__ planes,
         for (int z = 0; z < 4; ++z) {
           off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
         }
-        float sm[4][kS], sb[4][kS];
-        float sw_g[kS], sry_g[kS], srx_g[kS], sw_r[kS], sry_r[kS], srx_r[kS];
+        float sm[4][kPX], sb[4][kPX];
+        float sw_g[kPX], sry_g[kPX], srx_g[kPX], sw_r[kPX], sry_r[kPX], srx_r[kPX];
 #pragma unroll
-        for (int px = 0; px < kS; ++px) {
+        for (int px = 0; px < kPX; ++px) {
 #pragma unroll
           for (int z = 0; z < 4; ++z) sm[z][px] = sb[z][px] = 0.0f;
           sw_g[px] = sry_g[px] = srx_g[px] = sw_r[px] = sry_r[px] = srx_r[px] = 0.0f;
@@ -265,13 +313,13 @@ merge_raw_kernel(const float* __restrict__ planes,
 #pragma unroll 2
         for (int f = 0; f < frames; ++f) {
           const float2 res = my_res[f * kPix];
-          const float dy = (ky - res.x) * (float)kS - phis_y;
+          const float dy = (ky - res.x) * (float)S - phis_y;
           const float dyy = dy * dy;
           const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
-          float wg[kS], wr[kS];
+          float wg[kPX], wr[kPX];
 #pragma unroll
-          for (int px = 0; px < kS; ++px) {
-            const float dx = (kx - res.y) * (float)kS - kPhiX[px] * (float)kS;
+          for (int px = 0; px < kPX; ++px) {
+            const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
             wg[px] = exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy));
             wr[px] = exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy));
             sw_g[px] += wg[px];
@@ -287,7 +335,7 @@ merge_raw_kernel(const float* __restrict__ planes,
             const float2 vc = fsv[off[z]];  // (value * certainty, certainty)
             const bool green = is_green<kGreenDiag>(plane_of(z, g));
 #pragma unroll
-            for (int px = 0; px < kS; ++px) {
+            for (int px = 0; px < kPX; ++px) {
               const float w = green ? wg[px] : wr[px];
               sm[z][px] = fmaf(w, vc.y, sm[z][px]);
               sb[z][px] = fmaf(w, vc.x, sb[z][px]);
@@ -295,18 +343,18 @@ merge_raw_kernel(const float* __restrict__ planes,
           }
         }
 #pragma unroll
-        for (int px = 0; px < kS; ++px) {
+        for (int px = 0; px < kPX; ++px) {
 #pragma unroll
           for (int z = 0; z < 4; ++z) {
             m00[z][k][px] += sm[z][px];
             b0[z][k][px] += sb[z][px];
           }
           cw[0][px] += sw_g[px];
-          c1[0][px] += (float)kS * ((ky - phi_y) * sw_g[px] - sry_g[px]);
-          c2[0][px] += (float)kS * ((kx - kPhiX[px]) * sw_g[px] - srx_g[px]);
+          c1[0][px] += (float)S * ((ky - phi_y) * sw_g[px] - sry_g[px]);
+          c2[0][px] += (float)S * ((kx - phi_x[px]) * sw_g[px] - srx_g[px]);
           cw[1 + k][px] += sw_r[px];
-          c1[1 + k][px] += (float)kS * ((ky - phi_y) * sw_r[px] - sry_r[px]);
-          c2[1 + k][px] += (float)kS * ((kx - kPhiX[px]) * sw_r[px] - srx_r[px]);
+          c1[1 + k][px] += (float)S * ((ky - phi_y) * sw_r[px] - sry_r[px]);
+          c2[1 + k][px] += (float)S * ((kx - phi_x[px]) * sw_r[px] - srx_r[px]);
         }
       }
       // the R and B cells group g completed (parities that read R or B in
@@ -317,10 +365,10 @@ merge_raw_kernel(const float* __restrict__ planes,
         for (int z = 0; z < 4; ++z) {
           if (is_green<kGreenDiag>(plane_of(z, g))) continue;
 #pragma unroll
-          for (int px = 0; px < kS; ++px) {
-            store_cell(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px,
-                       taps.chan[plane_of(z, g)], m00[z][k][px], b0[z][k][px],
-                       cw[1 + k][px], c1[1 + k][px], c2[1 + k][px]);
+          for (int px = 0; px < kPX; ++px) {
+            store_cell<S>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px,
+                          taps.chan[plane_of(z, g)], m00[z][k][px], b0[z][k][px],
+                          cw[1 + k][px], c1[1 + k][px], c2[1 + k][px]);
           }
         }
       }
@@ -332,43 +380,63 @@ merge_raw_kernel(const float* __restrict__ planes,
       for (int z = 0; z < 4; ++z) {
         if (!is_green<kGreenDiag>(plane_of(z, pair == 0 ? 0 : 1))) continue;
 #pragma unroll
-        for (int px = 0; px < kS; ++px) {
-          store_cell(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px, 1,
-                     m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px],
-                     cw[0][px], c1[0][px], c2[0][px]);
+        for (int px = 0; px < kPX; ++px) {
+          store_cell<S>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, 1,
+                        m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px],
+                        cw[0][px], c1[0][px], c2[0][px]);
         }
       }
     }
   }
 }
 
-template <int kHalo>
+template <int S, int kHalo>
 size_t smem_bytes(int frames) {
-  const size_t sites = (size_t)(kTileH + 2 * kHalo) * (kTileW + 2 * kHalo);
-  return (size_t)frames * (4 * sites + kPix) * sizeof(float2);
+  const size_t sites = (size_t)(Shape<S>::kTileH + 2 * kHalo) * (kTileW + 2 * kHalo);
+  return (size_t)frames * (4 * sites + Shape<S>::kPix) * sizeof(float2);
 }
 
-template <int kHalo, bool kGreenDiag>
+template <int S>
+int max_frames(int halo) {
+  const size_t limit = 227 * 1024;
+  return (int)(limit / (halo <= 1 ? smem_bytes<S, 1>(1) : smem_bytes<S, 2>(1)));
+}
+
+template <int S, int kHalo, bool kGreenDiag>
 int launch(const void* planes, const void* residual, const void* certainty,
            const void* omega, const void* omega_rb, void* m00, void* cy,
            void* cx, void* b0, int frames, int hh, int hw, float rb,
            const TapTable& taps, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<kHalo>(frames);
+  using L = Shape<S>;
+  const size_t bytes = smem_bytes<S, kHalo>(frames);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_raw_kernel<kHalo, kGreenDiag>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        merge_raw_kernel<S, kHalo, kGreenDiag>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 block(kTileW, kTileH, kS);
-  const dim3 grid((hw + kTileW - 1) / kTileW, (hh + kTileH - 1) / kTileH, 1);
-  merge_raw_kernel<kHalo, kGreenDiag><<<grid, block, bytes, stream>>>(
+  const dim3 block(kTileW, L::kTileH, L::kZ);
+  const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kTileH - 1) / L::kTileH, 1);
+  merge_raw_kernel<S, kHalo, kGreenDiag><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(m00),
       static_cast<float*>(cy), static_cast<float*>(cx),
       static_cast<float*>(b0), frames, hh, hw, rb, taps);
   return (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_scale(int halo, bool green_diag, const void* planes, const void* residual,
+                 const void* certainty, const void* omega, const void* omega_rb, void* m00,
+                 void* cy, void* cx, void* b0, int frames, int hh, int hw, float rb,
+                 const TapTable& taps, cudaStream_t stream) {
+#define MFSR_LAUNCH(H, G)                                                              \
+  launch<S, H, G>(planes, residual, certainty, omega, omega_rb, m00, cy, cx, b0, frames, \
+                  hh, hw, rb, taps, stream)
+  if (halo == 1) return green_diag ? MFSR_LAUNCH(1, true) : MFSR_LAUNCH(1, false);
+  return green_diag ? MFSR_LAUNCH(2, true) : MFSR_LAUNCH(2, false);
+#undef MFSR_LAUNCH
 }
 
 }  // namespace
@@ -378,14 +446,14 @@ extern "C" {
 // Launches the RAW merge on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to the contiguous float32 arrays
 // described above; the four outputs (2s, 2s, 3, hh, hw) are written in
-// full. table is a HOST int array: the channel of each plane q = 2*qa + qb
-// (4, a Bayer pattern: green on one diagonal, R and B on the other), the
-// end of each tap-parity group (4), then n_taps rows (ky, kx) sorted by
-// group g = 2*(ky%2) + (kx%2).
+// full, s = scale in 1..4. table is a HOST int array: the channel of each
+// plane q = 2*qa + qb (4, a Bayer pattern: green on one diagonal, R and B
+// on the other), the end of each tap-parity group (4), then n_taps rows
+// (ky, kx) sorted by group g = 2*(ky%2) + (kx%2).
 int mfsr_merge_raw(const void* planes, const void* residual,
                    const void* certainty, const void* omega,
                    const void* omega_rb, void* m00, void* cy, void* cx,
-                   void* b0, int frames, int hh, int hw, float rb,
+                   void* b0, int frames, int hh, int hw, int scale, float rb,
                    const void* table, int n_taps, void* stream) {
   if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || hh < 1 || hw < 1 ||
       reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
@@ -424,19 +492,30 @@ int mfsr_merge_raw(const void* planes, const void* residual,
     }
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFSR_LAUNCH(H, G)                                                           \
-  launch<H, G>(planes, residual, certainty, omega, omega_rb, m00, cy, cx, b0, frames, \
-               hh, hw, rb, taps, s)
-  if (halo == 1) return green_diag ? MFSR_LAUNCH(1, true) : MFSR_LAUNCH(1, false);
-  return green_diag ? MFSR_LAUNCH(2, true) : MFSR_LAUNCH(2, false);
-#undef MFSR_LAUNCH
+#define MFSR_SCALE(S)                                                                     \
+  launch_scale<S>(halo, green_diag, planes, residual, certainty, omega, omega_rb, m00, cy, \
+                  cx, b0, frames, hh, hw, rb, taps, s)
+  switch (scale) {
+    case 1: return MFSR_SCALE(1);
+    case 2: return MFSR_SCALE(2);
+    case 3: return MFSR_SCALE(3);
+    case 4: return MFSR_SCALE(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MFSR_SCALE
 }
 
-// The most frames one launch takes with taps of the given halo (1 or 2):
-// the staged tiles of all frames must fit a block's shared memory.
-int mfsr_merge_raw_max_frames(int halo) {
-  const size_t limit = 227 * 1024;
-  return (int)(limit / (halo <= 1 ? smem_bytes<1>(1) : smem_bytes<2>(1)));
+// The most frames one launch takes at the given scale (1..4) with taps of
+// the given halo (1 or 2): the staged tiles of all frames must fit a
+// block's shared memory. 0 for another scale.
+int mfsr_merge_raw_max_frames(int scale, int halo) {
+  switch (scale) {
+    case 1: return max_frames<1>(halo);
+    case 2: return max_frames<2>(halo);
+    case 3: return max_frames<3>(halo);
+    case 4: return max_frames<4>(halo);
+    default: return 0;
+  }
 }
 
 const char* mfsr_cuda_error_string(int code) {

@@ -81,7 +81,11 @@
 //   burst the integer parts are equal and the subpixel shifts within
 //   2.5e-4 px (its check allows 1e-3). An exact tie of identical clamped
 //   patches stays exact here and goes to the first offset; the plain
-//   windows branch's integral images rank it by rounding.
+//   windows branch's integral images rank it by rounding. A surface
+//   flat along one axis below float32 rounding (window rows that
+//   pre-alignment clamped to a rotated frame's edge) is ranked by each
+//   implementation's own rounding; registration/tiles.py::
+//   float32_undecided finds such tiles.
 // - Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 48
 //   registers at T = 16, 64 at T = 32, no spills; 0.0077 ms of device
 //   time at the fine level against the plain search's 0.40 ms over 120

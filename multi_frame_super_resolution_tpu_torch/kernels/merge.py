@@ -1,5 +1,7 @@
 """Wrapper of the Hopper merge kernel (csrc/merge.cu), the counterpart of
-pallas_ops/merge.py::merge_fast_pallas.
+pallas_ops/merge.py::merge_fast_pallas and of the default RGB branch's
+merge (models/fast_merge.py::merge_burst_fast in the phase layout, order
+0 or the plugin solve's order-1 moments).
 
 On CUDA tensors it launches the kernel or raises; it never falls back.
 On CPU tensors it computes the kernel's plain PyTorch version,
@@ -38,27 +40,37 @@ def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
     return bind(
         load_library(SOURCE), "mfsr_merge_fast",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float],
     )
 
 
-@functools.lru_cache(maxsize=None)
-def tap_array(r_taps: int, residual_bound: float, scale: int, k_max: float) -> np.ndarray:
+def tap_array(
+    r_taps: int, residual_bound: float, scale: int, k_max: float, prune_exp: float = 6.0
+) -> np.ndarray:
     """The kernel's host tap list: fast_merge._active_taps as contiguous
     int32 (n, 2) rows (ky, kx), built once per key and read-only (shared
     by every call)."""
+    return _tap_array(r_taps, float(residual_bound), scale, float(k_max), float(prune_exp))
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_array(r_taps: int, residual_bound: float, scale: int, k_max: float, prune_exp: float) -> np.ndarray:
     taps = np.ascontiguousarray(
-        np.asarray(_active_taps(r_taps, residual_bound, scale, k_max), np.int32).reshape(-1, 2)
+        np.asarray(
+            _active_taps(r_taps, residual_bound, scale, k_max, prune_exp), np.int32
+        ).reshape(-1, 2)
     )
     taps.flags.writeable = False
     return taps
 
 
 @functools.lru_cache(maxsize=None)
-def _tap_args(r_taps: int, residual_bound: float, scale: int, k_max: float) -> Tuple[int, int]:
+def _tap_args(
+    r_taps: int, residual_bound: float, scale: int, k_max: float, prune_exp: float = 6.0
+) -> Tuple[int, int]:
     """(host address, count) of tap_array's rows: what a launch passes."""
-    taps = tap_array(r_taps, residual_bound, scale, k_max)
+    taps = tap_array(r_taps, residual_bound, scale, k_max, prune_exp)
     return taps.ctypes.data, len(taps)
 
 
@@ -71,11 +83,18 @@ def merge_fast(
     radius: int = 2,
     residual_bound: float = 1.0,
     k_max: float = 1.0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Order-0 static-tap merge: warped (F, H, W, 3), residual (F, H, W, 2),
+    phase_output: bool = False,
+    order: int = 0,
+    prune_exp: float = 6.0,
+) -> Tuple[torch.Tensor, ...]:
+    """Static-tap merge: warped (F, H, W, 3), residual (F, H, W, 2),
     certainty (F, H, W, 3), omega_inv (H, W, 3), all float32 and
-    contiguous on one device -> (num, den), each (sH, sW, 3). Taps are
-    those of fast_merge._active_taps, as in merge_fast_pallas."""
+    contiguous on one device -> (num, den), each (sH, sW, 3), or
+    (s, s, 3, H, W) with ``phase_output``; ``order=1`` (with
+    ``phase_output``) -> the plugin solve's moments (m00, m01, m02, b0)
+    (see fast_merge.merge_burst_fast). Taps are those of
+    fast_merge._active_taps at ``prune_exp``; the defaults are
+    merge_fast_pallas's."""
     if warped.ndim != 4:
         raise ValueError(f"warped must be (F, H, W, 3), got {tuple(warped.shape)}")
     f, h, w = warped.shape[:3]
@@ -86,6 +105,10 @@ def merge_fast(
     check_tensor("omega_inv", omega_inv, (h, w, 3), dev)
     if not 1 <= scale <= 4:
         raise ValueError(f"the merge kernel takes scale 1..4, got {scale}")
+    if order not in (0, 1):
+        raise ValueError(f"the merge takes order 0 or 1, got {order}")
+    if order == 1 and not phase_output:
+        raise ValueError("the order-1 merge writes the phase layout: pass phase_output=True")
     r_taps = radius + math.ceil(residual_bound)
     if r_taps > _MAX_TAP_RADIUS:
         raise ValueError(f"tap radius {r_taps} exceeds the kernel's {_MAX_TAP_RADIUS}")
@@ -93,20 +116,24 @@ def merge_fast(
     if dev.type == "cpu":
         return merge_burst_fast(
             warped, residual, certainty, omega_inv, scale, radius,
-            residual_bound, k_max,
+            residual_bound, k_max, phase_output, order, prune_exp,
         )
 
     # cached per key: with the list rebuilt in numpy per call, a call took
     # 0.12-0.26 ms against the first kernel's 0.095 ms of device time
     # (NVIDIA H100 80GB HBM3, 700.00 W)
-    taps_ptr, n_taps = _tap_args(r_taps, float(residual_bound), scale, float(k_max))
-    num = torch.empty((h * scale, w * scale, 3), dtype=torch.float32, device=dev)
-    den = torch.empty_like(num)
+    taps_ptr, n_taps = _tap_args(
+        r_taps, float(residual_bound), scale, float(k_max), float(prune_exp)
+    )
+    form = 2 if order == 1 else int(phase_output)
+    shape = (scale, scale, 3, h, w) if phase_output else (h * scale, w * scale, 3)
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(4 if order == 1 else 2)]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
     launch(
         library(), "mfsr_merge_fast", dev,
         warped.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
-        omega_inv.data_ptr(), num.data_ptr(), den.data_ptr(),
-        f, h, w, scale, taps_ptr, n_taps, float(residual_bound),
+        omega_inv.data_ptr(), *ptrs,
+        f, h, w, scale, form, taps_ptr, n_taps, float(residual_bound),
     )
     LAUNCHES[NAME] += 1
-    return num, den
+    return tuple(outs)

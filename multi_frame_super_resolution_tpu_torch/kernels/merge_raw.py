@@ -1,6 +1,6 @@
 """Wrapper of the Hopper RAW merge kernel (csrc/merge_raw.cu): the
 plane-domain order-1 merge of the RAW path, certless plugin branch, at
-scale 2. The JAX package computes it outside Pallas
+scales 1-4. The JAX package computes it outside Pallas
 (models/fast_merge.py::merge_burst_raw_planes); it has the skeleton of
 pallas_ops/merge.py::merge_fast_pallas.
 
@@ -33,7 +33,7 @@ from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
 NAME = "merge_raw"
 SOURCE = "merge_raw.cu"
 _MAX_TAPS = 81  # kMaxTaps in csrc/merge_raw.cu
-_SCALE = 2  # kS in csrc/merge_raw.cu
+_SCALES = (1, 2, 3, 4)  # the kernel's instantiations (Layout<S> in csrc/merge_raw.cu)
 
 
 @functools.cache
@@ -41,10 +41,10 @@ def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
     lib = bind(
         load_library(SOURCE), "mfsr_merge_raw",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
     )
-    lib.mfsr_merge_raw_max_frames.argtypes = [ctypes.c_int]
+    lib.mfsr_merge_raw_max_frames.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.mfsr_merge_raw_max_frames.restype = ctypes.c_int
     return lib
 
@@ -96,7 +96,7 @@ def merge_raw(
     (F, hh, hw, 2) in RAW units, certainty (F, hh, hw, 3), omega_inv and
     omega_inv_rb (hh, hw, 3), all float32 and contiguous on one device ->
     (m00, cy, cx, b0), each (2s, 2s, 3, hh, hw) (see
-    fast_merge.merge_burst_raw_planes). The kernel takes scale 2, Bayer
+    fast_merge.merge_burst_raw_planes). The kernel takes scales 1-4, Bayer
     patterns and up to mfsr_merge_raw_max_frames frames; on CUDA tensors
     anything else raises ValueError."""
     if planes.ndim != 5:
@@ -115,14 +115,14 @@ def merge_raw(
         )
     r_taps = radius + int(np.ceil(residual_bound))
     taps = _active_taps(r_taps, residual_bound, scale, k_max, prune_exp)
-    if scale != _SCALE:
-        raise ValueError(f"the RAW merge kernel takes scale {_SCALE}, got {scale}")
+    if scale not in _SCALES:
+        raise ValueError(f"the RAW merge kernel takes scales 1..4, got scale {scale}")
     if not is_bayer(cfa):
         raise ValueError(f"the RAW merge kernel takes Bayer patterns, got {cfa}")
     if len(taps) > _MAX_TAPS:
         raise ValueError(f"{len(taps)} taps exceed the kernel's {_MAX_TAPS}")
     lib = library()
-    max_frames = lib.mfsr_merge_raw_max_frames(tap_halo(taps))
+    max_frames = lib.mfsr_merge_raw_max_frames(scale, tap_halo(taps))
     if f > max_frames:
         raise ValueError(f"{f} frames exceed the {max_frames} whose tiles fit a block's shared memory")
 
@@ -139,7 +139,7 @@ def merge_raw(
         planes.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
         omega_inv.data_ptr(), omega_inv_rb.data_ptr(),
         *(o.data_ptr() for o in outs),
-        f, hh, hw, float(residual_bound), table.ctypes.data, len(taps),
+        f, hh, hw, scale, float(residual_bound), table.ctypes.data, len(taps),
     )
     LAUNCHES[NAME] += 1
     return tuple(outs)

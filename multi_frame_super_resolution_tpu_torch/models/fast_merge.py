@@ -1,8 +1,8 @@
 """Static-tap kernel-regression merges (counterpart of models/fast_merge.py):
 the plain PyTorch versions of the merge kernels.
 
-- ``merge_burst_fast``: the RGB order-0 merge (kernels/merge.py,
-  csrc/merge.cu);
+- ``merge_burst_fast``: the RGB merge, order 0 and the plugin solve's
+  order-1 moments (kernels/merge.py, csrc/merge.cu);
 - ``merge_burst_raw_planes``: the RAW plane-domain order-1 merge, its
   certless plugin branch (kernels/merge_raw.py, csrc/merge_raw.cu).
 
@@ -37,7 +37,7 @@ def _active_taps(
     exceeds e^-prune_exp, with |d|_min per axis = max(0, |k| - rb -
     max|phi|) * s in output-grid units and the largest clamped kernel
     variance k_max. The default 6.0 is merge_fast_pallas's threshold; the
-    RAW merge passes MergeConfig.prune_exp."""
+    default merge branches pass MergeConfig.prune_exp."""
     phi_max = float(np.max(np.abs(_output_phase_offsets(scale))))
     taps = []
     for ky in range(-r_taps, r_taps + 1):
@@ -58,22 +58,35 @@ def merge_burst_fast(
     radius: int = 2,
     residual_bound: float = 1.0,
     k_max: float = 1.0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    phase_output: bool = False,
+    order: int = 0,
+    prune_exp: float = 6.0,
+) -> Tuple[torch.Tensor, ...]:
     """Merge tile-warped RGB frames onto the scale-x output grid.
 
     warped (F, H, W, 3); residual (F, H, W, 2) subpixel flow, clamped to
-    +-residual_bound; certainty (F, H, W, 3); omega_inv (H, W, 3).
-    Returns (num, den), each (sH, sW, 3).
+    +-residual_bound; certainty (F, H, W, 3); omega_inv (H, W, 3). Taps
+    are _active_taps(..., prune_exp). Returns (num, den), each
+    (sH, sW, 3), or channel-leading (s, s, 3, H, W) phase stacks with
+    ``phase_output``. ``order=1`` (with ``phase_output``) returns the
+    plugin solve's moments (m00, m01, m02, b0) = (sum cw, sum cw dy,
+    sum cw dx, sum cw v) instead, each (s, s, 3, H, W), cw = weight x
+    certainty and (dy, dx) the displacement the weight uses: the JAX
+    function's moment_slots=4 (its 9 slots of the exact solve are not
+    ported).
 
     The frame axis is a batch dimension: each frame's taps are summed in
     tap order and the frames are then added in order, the summation
     order of the JAX scan.
     """
+    if order == 1 and not phase_output:
+        raise ValueError("the order-1 merge writes the phase layout: pass phase_output=True")
     f, h, w = warped.shape[:3]
     s = scale
     r_taps = radius + int(np.ceil(residual_bound))
-    taps = _active_taps(r_taps, residual_bound, s, k_max)
+    taps = _active_taps(r_taps, residual_bound, s, k_max, prune_exp)
     phi = _output_phase_offsets(s)
+    n_acc = 4 if order == 1 else 2
 
     oxx = omega_inv[..., 0]
     oyy = omega_inv[..., 1]
@@ -84,8 +97,12 @@ def merge_burst_fast(
     res_y = residual[..., 0].clamp(-residual_bound, residual_bound)  # (F, H, W)
     res_x = residual[..., 1].clamp(-residual_bound, residual_bound)
 
-    acc_n = [[None] * s for _ in range(s)]
-    acc_d = [[None] * s for _ in range(s)]
+    # acc[k][py][px]: (F, 3, H, W)
+    acc = [[[None] * s for _ in range(s)] for _ in range(n_acc)]
+
+    def add(k, py, px, term):
+        acc[k][py][px] = term if acc[k][py][px] is None else acc[k][py][px] + term
+
     for ky, kx in taps:
         val = _shifted(img, r_taps, ky, kx, h, w)
         cert_k = _shifted(cert, r_taps, ky, kx, h, w)
@@ -100,21 +117,26 @@ def merge_burst_fast(
                 )
                 cw = wgt[:, None] * cert_k
                 cwv = val * cw
-                if acc_n[py][px] is None:
-                    acc_n[py][px], acc_d[py][px] = cwv, cw
+                if order == 1:
+                    add(0, py, px, cw)
+                    add(1, py, px, cw * dy[:, None])
+                    add(2, py, px, cw * dx[:, None])
+                    add(3, py, px, cwv)
                 else:
-                    acc_n[py][px] = acc_n[py][px] + cwv
-                    acc_d[py][px] = acc_d[py][px] + cw
+                    add(0, py, px, cwv)
+                    add(1, py, px, cw)
 
-    def interleave(acc):
-        # (s, s, F, 3, H, W) -> frames summed in order -> (sH, sW, 3)
-        stack = torch.stack([torch.stack(row, 0) for row in acc], 0)
+    def finish(acc_k):
+        # (s, s, F, 3, H, W) -> frames summed in order -> (s, s, 3, H, W)
+        stack = torch.stack([torch.stack(row, 0) for row in acc_k], 0)
         total = stack[:, :, 0]
         for i in range(1, f):
             total = total + stack[:, :, i]
+        if phase_output:
+            return total
         return total.permute(3, 0, 4, 1, 2).reshape(h * s, w * s, 3)
 
-    return interleave(acc_n), interleave(acc_d)
+    return tuple(finish(a) for a in acc)
 
 
 def _shift_last2(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

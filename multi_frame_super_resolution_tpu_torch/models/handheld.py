@@ -1,19 +1,25 @@
 """End-to-end handheld multi-frame super-resolution (counterpart of
 models/handheld.py), both entry points on their fast paths:
 
-- ``handheld_superres``: RGB burst in, ``_handheld_fast`` on the merge
-  kernel's branch (handheld.py:235-426). Global similarity pre-alignment
-  (cfg.prealign) -> half-res tile-pyramid alignment -> per-tile integer
-  warp of the alternates -> smooth subpixel residual
-  + Lucas-Kanade refinement -> robustness on the warped frames ->
-  structure-tensor kernel parameters -> static-tap merge -> weight-
-  threshold normalization against a bicubic fallback.
+- ``handheld_superres``: RGB burst in, ``_handheld_fast``
+  (handheld.py:235-479). Global similarity pre-alignment (cfg.prealign)
+  -> half-res tile-pyramid alignment -> per-tile integer warp of the
+  alternates -> smooth subpixel residual + Lucas-Kanade refinement ->
+  robustness on the warped frames -> structure-tensor kernel parameters
+  -> static-tap merge -> weight-threshold normalization against a
+  bicubic fallback. The merge runs on one of two branches, as in the
+  JAX package: merge.use_pallas (the merge_fast_pallas form, order 0,
+  interleaved) or the default branch (phase layout, prune at
+  merge.prune_exp, order 0 or the plugin order-1 solve, the gated
+  restore at scale 2, one phase interleave).
 - ``handheld_superres_raw``: Bayer RAW burst in, ``_handheld_raw_fast``
   (handheld.py:534-555, :656-915), the main path. Everything runs in the
   CFA-plane domain: global similarity pre-alignment (cfg.prealign) ->
   half-res alignment -> integer plane warps -> residual
   + LK at half res -> robustness -> order-1 plane merge -> plugin solve
-  -> noise-gated restore -> one phase interleave.
+  -> noise-gated restore -> one phase interleave. Scales 1-4;
+  ``handheld_superres_raw_cascade`` runs scale 4 with the upsampled
+  scale-2 result as its fallback (handheld.py:492-531).
 
 Both run on cuda:0 unless ``device`` names another device (``"cpu"`` or
 a ``torch.device``); without a card and without that request they raise
@@ -40,8 +46,6 @@ from torch.profiler import record_function
 
 from multi_frame_super_resolution_tpu_torch import resolve_device
 from multi_frame_super_resolution_tpu_torch.config import (
-    RAW_BENCH,
-    RGB_PALLAS,
     HandheldConfig,
     MergeConfig,
     check_supported,
@@ -63,7 +67,7 @@ from multi_frame_super_resolution_tpu_torch.models.merge import (
 )
 from multi_frame_super_resolution_tpu_torch.models.robustness import robustness_mask
 from multi_frame_super_resolution_tpu_torch.ops.color import rgb_to_gray, srgb_gamma
-from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2
+from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, upscale
 from multi_frame_super_resolution_tpu_torch.ops.restore import (
     restore_gain,
     restore_phases,
@@ -115,7 +119,7 @@ def _on_device(who, burst, prealign_override, device):
 
 
 def handheld_superres(
-    burst: torch.Tensor, cfg: HandheldConfig = RGB_PALLAS, prealign_override=None, *, device=None
+    burst: torch.Tensor, cfg: HandheldConfig = HandheldConfig(), prealign_override=None, *, device=None
 ) -> torch.Tensor:
     """RGB burst (F, H, W, 3) float32, frame 0 the reference ->
     merged (scale*H, scale*W, 3) in [0, 1], on cuda:0 unless ``device``
@@ -209,17 +213,44 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
         merge_cfg = _scaled_merge_cfg(cfg)
         omega_inv = kernel_params(st, merge_cfg)
 
+    rgb_order = cfg.merge.order if cfg.merge.rgb_order is None else cfg.merge.rgb_order
+    merge_args = (
+        warped, res_flow.contiguous(), cert.contiguous(), omega_inv.contiguous(),
+        cfg.scale, cfg.merge.radius, cfg.residual_bound,
+    )
+    if cfg.merge.use_pallas:
+        with record_function("mfsr.merge"):
+            num, den = merge_fast(*merge_args, k_max=merge_cfg.k_max)
+        with record_function("mfsr.finalize"):
+            fallback = upsample_int(burst[0], cfg.scale, "bicubic")
+            out = apply_weighting(num, den, fallback, cfg.merge.weight_threshold)
+            if cfg.gamma:
+                out = srgb_gamma(out)
+            return out.clamp(0.0, 1.0)
+
+    # the default branch: every finalize step in the channel-leading phase
+    # domain ((s, s, 3, h, w)), one interleave at the end
     with record_function("mfsr.merge"):
-        num, den = merge_fast(
-            warped, res_flow.contiguous(), cert.contiguous(), omega_inv.contiguous(),
-            cfg.scale, cfg.merge.radius, cfg.residual_bound, k_max=merge_cfg.k_max,
+        moments = merge_fast(
+            *merge_args, k_max=merge_cfg.k_max, phase_output=True, order=rgb_order,
+            prune_exp=cfg.merge.prune_exp,
         )
+    with record_function("mfsr.solve"):
+        fallback_p = upsample_int_phases_planes(burst[0], cfg.scale, "bicubic")
+        if rgb_order == 1:
+            est_p, m00_p = _o1_solve(moments, cfg, grad_phases, precomputed_centroid=False)
+            out_p = apply_weighting_order1(est_p, m00_p, fallback_p, cfg.merge.weight_threshold)
+        else:
+            out_p = apply_weighting(*moments, fallback_p, cfg.merge.weight_threshold)
+    if cfg.final_restore and cfg.scale == 2:
+        with record_function("mfsr.restore"):
+            res_half = torch.movedim(downsample2(torch.movedim(res_flow[1:], -1, 1)), 1, -1)
+            stat = temporal_noise_stat(downsample2(rgb_to_gray(warped)), residual=res_half * 0.5)
+            out_p = _gated_restore(out_p, cfg, stat, restore_phases)
     with record_function("mfsr.finalize"):
-        fallback = upsample_int(burst[0], cfg.scale, "bicubic")
-        out = apply_weighting(num, den, fallback, cfg.merge.weight_threshold)
         if cfg.gamma:
-            out = srgb_gamma(out)
-        return out.clamp(0.0, 1.0)
+            out_p = srgb_gamma(out_p)
+        return interleave_phases_planes(out_p).clamp(0.0, 1.0)
 
 
 def _gated_restore(out, cfg: HandheldConfig, stat, restore_fn):
@@ -232,13 +263,16 @@ def _gated_restore(out, cfg: HandheldConfig, stat, restore_fn):
     return restore_fn(out, gain=g)
 
 
-def _o1_solve(moments, cfg: HandheldConfig, grad_fn):
-    """The order-1 solve: the plugin solver on the RAW merge's moments.
-    The merge returns one layout, (m00, cy, cx, b0) with the certless
-    centroid already finalized in slots 1/2 (the JAX package's
-    ``_certless`` case; check_supported_raw rejects the knobs that would
-    select another layout or the exact 3x3 solve)."""
-    return solve_plugin(moments, grad_fn, cfg.merge.plugin_iters, precomputed_centroid=True)
+def _o1_solve(moments, cfg: HandheldConfig, grad_fn, precomputed_centroid: bool):
+    """The order-1 solve: the plugin solver on the merge's 4 moment
+    slots. ``precomputed_centroid``: slots 1/2 hold the finalized
+    centroid, as the RAW merge's certless chains return it (the JAX
+    package's ``_certless`` case); the RGB merge returns the raw
+    moments. check_supported and check_supported_raw reject the exact
+    3x3 solve."""
+    return solve_plugin(
+        moments, grad_fn, cfg.merge.plugin_iters, precomputed_centroid=precomputed_centroid
+    )
 
 
 def _subsample_from_planes(planes: torch.Tensor, cfa) -> torch.Tensor:
@@ -257,13 +291,50 @@ def _subsample_from_planes(planes: torch.Tensor, cfa) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
+def _image_phases(img: torch.Tensor, n: int) -> torch.Tensor:
+    """(n*hh, n*hw, C) image -> channel-leading phase planes
+    (n, n, C, hh, hw): the inverse of interleave_phases_planes."""
+    h, w, c = img.shape
+    return img.reshape(h // n, n, w // n, n, c).permute(1, 3, 4, 0, 2)
+
+
+def handheld_superres_raw_cascade(
+    raw_burst: torch.Tensor, cfg: HandheldConfig, *, device=None
+) -> torch.Tensor:
+    """Scale 4 as a 2x cascade (handheld.py:492-531): the scale-2 pipeline
+    (gamma off), its output upsampled 2x bicubic, and the scale-4 pipeline
+    with that image as its weight-threshold fallback and the threshold
+    raised to at least 1.0. Both runs align and pre-align the burst on
+    their own, as the JAX function's do."""
+    if cfg.scale != 4:
+        raise ValueError(f"the cascade targets scale 4 (2x o 2x), got scale {cfg.scale}")
+    sr2 = handheld_superres_raw(
+        raw_burst, dataclasses.replace(cfg, scale=2, gamma=False), device=device
+    )
+    fallback = upscale(sr2, 2, "bicubic")
+    cfg4 = dataclasses.replace(
+        cfg,
+        merge=dataclasses.replace(
+            cfg.merge, weight_threshold=max(cfg.merge.weight_threshold, 1.0)
+        ),
+    )
+    return handheld_superres_raw(raw_burst, cfg4, fallback_hr=fallback, device=device)
+
+
 def handheld_superres_raw(
-    raw_burst: torch.Tensor, cfg: HandheldConfig = RAW_BENCH, prealign_override=None, *, device=None
+    raw_burst: torch.Tensor,
+    cfg: HandheldConfig = HandheldConfig(gamma=True),
+    prealign_override=None,
+    fallback_hr: torch.Tensor | None = None,
+    *,
+    device=None,
 ) -> torch.Tensor:
     """Bayer RAW burst (F, H, W) float32 in [0, 1], frame 0 the reference,
     H and W even -> merged RGB (scale*H, scale*W, 3) in [0, 1], on cuda:0
-    unless ``device`` names another device. Raises ValueError for config
-    knobs the port does not implement (config.check_supported_raw)."""
+    unless ``device`` names another device. ``fallback_hr`` (scale*H,
+    scale*W, 3) replaces the weight-threshold fallback (the half-res RGB
+    upsampled). Raises ValueError for config knobs the port does not
+    implement (config.check_supported_raw)."""
     check_supported_raw(cfg)
     if raw_burst.ndim != 3 or raw_burst.shape[0] < 2:
         raise ValueError(f"raw_burst must be (F>=2, H, W), got {tuple(raw_burst.shape)}")
@@ -271,11 +342,20 @@ def handheld_superres_raw(
         raise ValueError(f"RAW dims must be even (Bayer quads), got {tuple(raw_burst.shape)}")
     if raw_burst.dtype != torch.float32:
         raise TypeError(f"raw_burst must be float32, got {raw_burst.dtype}")
+    f, h, w = raw_burst.shape
+    if fallback_hr is not None:
+        want = (cfg.scale * h, cfg.scale * w, 3)
+        if tuple(fallback_hr.shape) != want:
+            raise ValueError(f"fallback_hr must be {want}, got {tuple(fallback_hr.shape)}")
     raw_burst, prealign_override = _on_device("handheld_superres_raw", raw_burst, prealign_override, device)
-    return _handheld_raw_fast(raw_burst, cfg, prealign_override)
+    if fallback_hr is not None:
+        fallback_hr = fallback_hr.to(raw_burst.device)
+    return _handheld_raw_fast(raw_burst, cfg, prealign_override, fallback_hr)
 
 
-def _handheld_raw_fast(raw_burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None) -> torch.Tensor:
+def _handheld_raw_fast(
+    raw_burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None, fallback_hr=None
+) -> torch.Tensor:
     f, h, w = raw_burst.shape
     t = cfg.align.tile_size
     hh, hw = h // 2, w // 2
@@ -357,11 +437,14 @@ def _handheld_raw_fast(raw_burst: torch.Tensor, cfg: HandheldConfig, prealign_ov
         )
 
     # all finalize math in the channel-leading phase domain
-    # ((2s, 2s, 3, hh, hw)), one interleave at the end; the fallback is the
-    # half-res RGB upsampled 2s-x
+    # ((2s, 2s, 3, hh, hw)), one interleave at the end; the fallback is
+    # fallback_hr, or the half-res RGB upsampled 2s-x
     with record_function("mfsr.solve"):
-        fallback_p = upsample_int_phases_planes(half[0], 2 * cfg.scale, "bilinear")
-        est_p, m00_p = _o1_solve(moments, cfg, grad_phases)
+        if fallback_hr is not None:
+            fallback_p = _image_phases(fallback_hr, 2 * cfg.scale)
+        else:
+            fallback_p = upsample_int_phases_planes(half[0], 2 * cfg.scale, "bilinear")
+        est_p, m00_p = _o1_solve(moments, cfg, grad_phases, precomputed_centroid=True)
         out_p = apply_weighting_order1(est_p, m00_p, fallback_p, cfg.merge.weight_threshold)
 
     if cfg.final_restore and cfg.scale == 2:

@@ -1,6 +1,6 @@
 """Geometric ops (counterparts of ops/geometry.py): 2x2 mean decimation,
-the bilinear resize with OpenCV pixel-center alignment, and remaps at
-float coordinates (bilinear, bicubic, nearest) with replicate borders.
+the resize with OpenCV pixel-center alignment, and remaps at float
+coordinates (bilinear, bicubic, nearest) with replicate borders.
 
 Coordinates follow the pixel-index convention: an integer coordinate is
 a pixel center. ``remap`` takes the JAX layouts, (H, W) or (H, W, C);
@@ -21,14 +21,22 @@ def downsample2(img: torch.Tensor) -> torch.Tensor:
     return rows.reshape(rows.shape[:-1] + (w2, 2)).mean(dim=-1)
 
 
-def resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear resize of a channel-last image (..., H, W, C) with clamped
-    borders and src = (dst + 0.5) * scale - 0.5 (ops/geometry.py::resize
-    with method="bilinear", through remap_bilinear)."""
+def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "bilinear") -> torch.Tensor:
+    """Resize of a channel-last image (..., H, W, C) with OpenCV
+    pixel-center alignment, src = (dst + 0.5) * scale - 0.5, and clamped
+    borders (ops/geometry.py::resize). Bilinear reads rows, then columns,
+    by index (the values of remap_bilinear); bicubic and nearest go
+    through ``remap_planes``."""
     h, w = img.shape[-3], img.shape[-2]
     dev = img.device
     ys = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) * (h / out_h) - 0.5
     xs = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) * (w / out_w) - 0.5
+    if method != "bilinear":
+        planes = remap_planes(
+            torch.movedim(img, -1, -3), ys[:, None].expand(out_h, out_w),
+            xs[None, :].expand(out_h, out_w), method,
+        )
+        return torch.movedim(planes, -3, -1)
     y0 = torch.floor(ys).long()
     x0 = torch.floor(xs).long()
     fy = (ys - y0.to(ys.dtype))[:, None, None]
@@ -46,6 +54,12 @@ def resize(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     top = p00 + (p01 - p00) * fx
     bot = p10 + (p11 - p10) * fx
     return top + (bot - top) * fy
+
+
+def upscale(img: torch.Tensor, scale: int, method: str = "bicubic") -> torch.Tensor:
+    """``resize`` of (..., H, W, C) by an integer factor
+    (ops/geometry.py::upscale)."""
+    return resize(img, img.shape[-3] * scale, img.shape[-2] * scale, method)
 
 
 def _gather_planes(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,9 @@ _FB2 = _FB1.T.copy()
 
 def quadratic_subpixel_min(patch: torch.Tensor) -> torch.Tensor:
     """Subpixel offset (dy, dx) in [-1, 1] of the minimum of a quadratic
-    fit to ``patch`` (..., 3, 3); degenerate fits give 0 per axis."""
-    f32 = patch.float()
+    fit to ``patch`` (..., 3, 3); degenerate fits give 0 per axis. A
+    float64 patch is fitted in float64, any other in float32."""
+    f32 = patch if patch.dtype == torch.float64 else patch.float()
 
     def corr(stencil):
         k = _const(tuple(stencil.reshape(-1).tolist()), f32.device).reshape(3, 3)

@@ -193,6 +193,91 @@ def tile_search(
     return rounded + find_min_shift(ssd, radius, threshold, subpixel)
 
 
+_F32_UNIT = 2.0**-24  # float32's unit roundoff
+ILL_CONDITIONED_PX = 0.1
+
+
+def _exact_windows(ref, alts, rounded, t, radius, mode):
+    """tile_search's reference tiles (nty, ntx, T, T) and search windows
+    (N, nty, ntx, T+2R, T+2R) in float64, values as the search reads them."""
+    n, h, w = alts.shape
+    nty, ntx = tile_counts(h, w, t)
+    ints = rounded.to(torch.int32)
+    if mode == "image":
+        warped = tile_warp_select(alts.double(), ints, t)
+        warped = _pad_edge(_pad_edge(warped, -2, 0, nty * t - h), -1, 0, ntx * t - w)
+        padded = _pad_edge(_pad_edge(warped, -2, radius, radius), -1, radius, radius)
+        t2 = t + 2 * radius
+        windows = padded.unfold(-2, t2, t).unfold(-2, t2, t)
+    else:
+        windows = extract_search_windows(alts.double(), t, radius, ints)
+    return extract_ref_tiles(ref.double(), t), windows
+
+
+def float32_undecided(
+    ref: torch.Tensor,
+    alts: torch.Tensor,
+    rounded: torch.Tensor,
+    tile_size: int,
+    radius: int,
+    threshold: float = 0.0,
+    mode: str = "image",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tiles on which tile_search's result is set by float32 rounding,
+    the yardstick two float32 searches (the kernel and this plain version,
+    or the JAX function) are held to. Returns two (N, nty, ntx) bool masks:
+
+    - ``argmin``: the SSD surface's minimum, or the threshold gate, is
+      within rounding. Each entry of the expanded form tsq + wsq - 2 cc,
+      summed in float32 in any order, lies within (T^2 + 2) u (tsq + wsq
+      + 2 sum|w f|) of its exact value (u = 2^-24: T^2 terms a sum, two
+      more additions); two offsets whose exact values lie within the sum
+      of their bounds are ranked by rounding. Windows whose rows or
+      columns repeat each other, as where pre-alignment clamps a rotated
+      frame to its edge, make such surfaces: flat along one axis.
+    - ``fit``: the 3x3 subpixel fit around the exact minimum is
+      ill-conditioned: its float64 shift moves by more than
+      ILL_CONDITIONED_PX when each of its nine values moves within its
+      bound (first order, one value at a time, summed), a near-singular
+      curvature.
+
+    Surfaces and fits in float64 from direct sums, on the inputs' device."""
+    t = tile_size
+    s = 2 * radius + 1
+    tiles_f, windows = _exact_windows(ref, alts, rounded, t, radius, mode)
+    tsq = (tiles_f * tiles_f).sum((-2, -1))[..., None]  # (nty, ntx, 1)
+    ssd, mag = [], []
+    for u in range(s):  # one row of offsets at a time: (N, nty, ntx, S, T, T)
+        patches = windows[..., u : u + t, :].unfold(-1, t, 1).permute(0, 1, 2, 4, 3, 5)
+        ssd.append(((patches - tiles_f[:, :, None]) ** 2).sum((-2, -1)))
+        mag.append(tsq + (patches * patches).sum((-2, -1))
+                   + 2.0 * (patches * tiles_f[:, :, None]).abs().sum((-2, -1)))
+    ssd = torch.stack(ssd, -2).flatten(-2)  # (N, nty, ntx, S*S)
+    bound = (t * t + 2) * _F32_UNIT * torch.stack(mag, -2).flatten(-2)
+
+    i_min = ssd.argmin(-1, keepdim=True)
+    i_max = ssd.argmax(-1, keepdim=True)
+    lo, b_lo = ssd.gather(-1, i_min), bound.gather(-1, i_min)
+    hi, b_hi = ssd.gather(-1, i_max), bound.gather(-1, i_max)
+    near = (ssd - lo <= b_lo + bound).sum(-1) > 1
+    gate = ((lo + threshold - hi).abs() <= b_lo + b_hi).squeeze(-1)
+
+    py, px = (i_min.squeeze(-1) // s).clamp(1, s - 2), (i_min.squeeze(-1) % s).clamp(1, s - 2)
+    k = torch.arange(-1, 2, device=ssd.device)
+    at = ((py[..., None] + k)[..., :, None] * s + (px[..., None] + k)[..., None, :]).flatten(-2)
+    patch, b_patch = ssd.gather(-1, at), bound.gather(-1, at)  # (..., 9)
+    mu = quadratic_subpixel_min(patch.unflatten(-1, (3, 3)))
+    moved = torch.zeros_like(mu)
+    for j in range(9):
+        step = torch.zeros(9, dtype=ssd.dtype, device=ssd.device)
+        step[j] = 1.0
+        moved = moved + torch.maximum(
+            *((quadratic_subpixel_min((patch + sign * b_patch * step).unflatten(-1, (3, 3))) - mu).abs()
+              for sign in (1.0, -1.0))
+        )
+    return near | gate, moved.amax(-1) > ILL_CONDITIONED_PX
+
+
 def upsample_shift_field(
     shifts: torch.Tensor,
     new_nty: int,

@@ -1,7 +1,7 @@
-"""Tests of the port that need the card: each Hopper kernel (RGB merge,
-tile warp, tile search, RAW merge, defog) against its plain PyTorch
-version, and the RGB, RAW and defog paths on the card against the port on
-the CPU. They skip without a CUDA device.
+"""Tests of the port that need the card: each Hopper kernel (RGB merge in
+its three forms, tile warp, tile search, RAW merge at scales 1-4, defog)
+against its plain PyTorch version, and the RGB, RAW and defog paths on
+the card against the port on the CPU. They skip without a CUDA device.
 
 This file imports no JAX, so the GPU host (which has none) runs it
 without the suite's conftest:
@@ -19,6 +19,7 @@ from torch_parity import (
     SMALL_SHIFTS,
     cuda_device,
     nn,
+    prealigned_search_inputs,
     psnr,
     search_inputs,
     tied_minima,
@@ -29,8 +30,12 @@ from multi_frame_super_resolution_tpu_torch.config import (
     PORT_DEFAULT,
     RAW_BENCH,
     RAW_PORT_DEFAULT,
+    RAW_SCALE4,
+    RGB_DEFAULT,
+    RGB_DEFAULT_NOPRE,
     RGB_PALLAS,
     AlignConfig,
+    MergeConfig,
     PolarDefogConfig,
 )
 from multi_frame_super_resolution_tpu_torch.data import (
@@ -53,6 +58,7 @@ from multi_frame_super_resolution_tpu_torch.models.defog import polar_defog
 from multi_frame_super_resolution_tpu_torch.models.handheld import (
     handheld_superres,
     handheld_superres_raw,
+    handheld_superres_raw_cascade,
 )
 from multi_frame_super_resolution_tpu_torch.ops import warp_fast
 from multi_frame_super_resolution_tpu_torch.registration import tiles
@@ -90,6 +96,48 @@ def test_merge_kernel_matches_plain(f, scale, radius, k_max, halo, h, w):
     num_p, den_p = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max)
     torch.testing.assert_close(num, num_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(den, den_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(3, 5), (37, 61), (64, 96)])
+@pytest.mark.parametrize("radius,k_max", [(1, 1.0), (7, 64.0)], ids=["taps2", "taps8"])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("f", [2, 5])
+def test_merge_kernel_phase_forms_match_plain(f, order, scale, radius, k_max, h, w):
+    """The default RGB branch's forms: the phase layout (s, s, 3, H, W),
+    taps pruned at e^-1.5 (k_max scaled by (s/2)^2, as the path does), in
+    order 0 (num, den) and order 1 (m00, m01, m02, b0); the taps8 case
+    stages the largest halo. Order 0 at rtol/atol 1e-5 as the interleaved
+    form; order 1 at 1e-4: dy and dx reach +-(r + rb) s, so m01 and m02
+    sum terms of mixed sign whose rounding does not cancel."""
+    dev = cuda_device()
+    k_max = k_max * (scale / 2.0) ** 2
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(f * 10 + scale + order), f, h, w)]
+    kw = dict(phase_output=True, order=order, prune_exp=1.5)
+    LAUNCHES.clear()
+    got = merge_fast(*ins, scale, radius, 1.0, k_max, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_fast"] == 1
+    want = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max, **kw)
+    assert len(got) == len(want) == (4 if order else 2)
+    tol = 1e-4 if order else 1e-5
+    for g, w_ in zip(got, want):
+        assert g.shape == (scale, scale, 3, h, w)
+        torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_merge_wrapper_raises_on_card_for_order1_forms_it_lacks():
+    """Order 1 in the interleaved layout: the kernel has no such form, so
+    the wrapper raises (the plain version raises too), and an order the
+    merge has no form for raises."""
+    dev = cuda_device()
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(2), 2, 8, 8)]
+    with pytest.raises(ValueError, match="phase_output"):
+        merge_fast(*ins, 2, 1, 1.0, 1.0, phase_output=False, order=1)
+    with pytest.raises(ValueError, match="order"):
+        merge_fast(*ins, 2, 1, 1.0, 1.0, phase_output=True, order=2)
 
 
 @pytest.mark.cuda
@@ -192,6 +240,28 @@ def test_tile_search_kernel_matches_plain(h, w, t, radius, mode, threshold):
 
 
 @pytest.mark.cuda
+def test_tile_search_kernel_matches_plain_on_prealigned_rotations():
+    """RAW_SCALE4's two searches (8 alternates, T = 8, R = 4, "image"
+    mode) on a burst rotated 5-15 degrees and pre-aligned by the port on
+    the CPU: integer parts equal outside tiles.float32_undecided's argmin
+    mask, subpixel shifts within 1e-3 px outside both masks."""
+    dev = cuda_device()
+    for ref, alts, rounded, t, radius, threshold in prealigned_search_inputs():
+        undecided, ill = tiles.float32_undecided(ref, alts, rounded, t, radius, threshold)
+        args = [x.to(dev) for x in (ref, alts, rounded)]
+        for sub in (False, True):
+            LAUNCHES.clear()
+            got = tile_search(*args, t, radius, threshold, sub, "image").cpu()
+            assert LAUNCHES["tile_search"] == 1
+            want = tiles.tile_search(ref, alts, rounded, t, radius, threshold, sub, "image")
+            if sub:
+                keep = ~undecided & ~ill
+                torch.testing.assert_close(got[keep], want[keep], rtol=0, atol=1e-3)
+            else:
+                torch.testing.assert_close(got[~undecided], want[~undecided], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 def test_tile_search_wrapper_raises_beyond_its_shared_memory():
     """Radii up to what a block's 48 KB hold (27 at T = 16) launch in both
     modes; one more, a radius of 0 and a tile size the kernel has no
@@ -244,14 +314,41 @@ def test_raw_merge_kernel_matches_plain(f, radius, k_max, prune, cfa, hh, hw):
 
 
 @pytest.mark.cuda
-def test_raw_merge_wrapper_raises_on_card_for_scale_3():
+@pytest.mark.parametrize("hh,hw", [(37, 61), (3, 5)])
+@pytest.mark.parametrize("cfa", [((0, 1), (1, 2)), ((2, 1), (1, 0))])
+@pytest.mark.parametrize("radius,k_max,prune", [(1, 1.0, 1.5), (2, 4.0, 6.0)], ids=["halo1", "halo2"])
+@pytest.mark.parametrize("scale", [1, 3, 4])
+@pytest.mark.parametrize("f", [2, 5, 9])
+def test_raw_merge_kernel_scales_match_plain(f, scale, radius, k_max, prune, cfa, hh, hw):
+    """Scales 1, 3 (odd phase offsets) and 4 (9 frames: the scale-4
+    configuration's burst), each with its own thread layout; k_max scaled
+    by (s/2)^2 as the path does, at e^-1.5 (the path's taps, halo 1) and
+    with radius 2 at e^-6 (halo 2). rtol and atol 1e-5 as at scale 2."""
+    dev = cuda_device()
+    k_max = k_max * (scale / 2.0) ** 2
+    ins = _raw_merge_inputs(np.random.default_rng(f * 10 + scale), f, hh, hw, dev)
+    assert raw_merge_kernel.tap_halo(
+        fast_merge._active_taps(radius + 1, 1.0, scale, k_max, prune)
+    ) == radius
+    LAUNCHES.clear()
+    got = merge_raw(*ins, cfa, scale, radius, 1.0, k_max, prune)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_raw"] == 1
+    want = fast_merge.merge_burst_raw_planes(*ins, cfa, scale, radius, 1.0, k_max, prune)
+    for g, w_ in zip(got, want):
+        assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_raw_merge_wrapper_raises_on_card_for_scale_5():
     dev = cuda_device()
     planes = torch.zeros((2, 2, 2, 8, 8), device=dev)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="scale"):
         merge_raw(
             planes, torch.zeros((2, 8, 8, 2), device=dev), torch.zeros((2, 8, 8, 3), device=dev),
             torch.zeros((8, 8, 3), device=dev), torch.zeros((8, 8, 3), device=dev),
-            ((0, 1), (1, 2)), 3,
+            ((0, 1), (1, 2)), 5,
         )
 
 
@@ -268,10 +365,10 @@ def test_raw_merge_wrapper_raises_on_card_for_non_bayer():
 @pytest.mark.parametrize("radius,k_max,halo", [(1, 1.0, 1), (2, 4.0, 2)])
 def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
     """Every frame's tile is staged in shared memory at once: the most
-    frames that fit (30 at halo 1, 22 at halo 2) match the plain
-    version, one more raises."""
+    frames that fit at scale 2 (30 at halo 1, 22 at halo 2) match the
+    plain version, one more raises."""
     dev = cuda_device()
-    cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(halo)
+    cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(2, halo)
     assert cap == {1: 30, 2: 22}[halo]
     cfa = ((0, 1), (1, 2))
     ins = _raw_merge_inputs(np.random.default_rng(cap), cap, 9, 37, dev)
@@ -285,6 +382,29 @@ def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
     more = _raw_merge_inputs(np.random.default_rng(0), cap + 1, 9, 37, dev)
     with pytest.raises(ValueError, match="frames exceed"):
         merge_raw(*more, cfa, 2, radius, 1.0, k_max, 6.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 3, 4])
+def test_raw_merge_kernel_frame_cap_by_scale(scale):
+    """The frame caps of the other layouts (4 pixel rows a block at scale
+    1, one at 3 and 4): at least the scale-4 configuration's 9 frames at
+    either halo; the cap matches the plain version, one more raises."""
+    dev = cuda_device()
+    lib = raw_merge_kernel.library()
+    caps = {halo: lib.mfsr_merge_raw_max_frames(scale, halo) for halo in (1, 2)}
+    assert caps == {1: {1: 30, 3: 66, 4: 66}[scale], 2: {1: 22, 3: 38, 4: 38}[scale]}
+    assert lib.mfsr_merge_raw_max_frames(5, 1) == 0
+    cfa = ((0, 1), (1, 2))
+    k_max = (scale / 2.0) ** 2
+    ins = _raw_merge_inputs(np.random.default_rng(scale), caps[1], 9, 37, dev)
+    got = merge_raw(*ins, cfa, scale, 1, 1.0, k_max, 1.5)
+    want = fast_merge.merge_burst_raw_planes(*ins, cfa, scale, 1, 1.0, k_max, 1.5)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+    more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 9, 37, dev)
+    with pytest.raises(ValueError, match="frames exceed"):
+        merge_raw(*more, cfa, scale, 1, 1.0, k_max, 1.5)
 
 
 @pytest.mark.cuda
@@ -372,3 +492,69 @@ def test_prealigned_slices_on_card_match_cpu():
     want = nn(handheld_superres(tt(burst), RGB_PALLAS, device="cpu"))
     got = nn(handheld_superres(tt(burst, dev), RGB_PALLAS))
     assert psnr(got, want) >= 60.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        RGB_DEFAULT,
+        RGB_DEFAULT_NOPRE,
+        dataclasses.replace(RGB_DEFAULT, scale=4),
+        dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(rgb_order=1)),
+    ],
+    ids=["default", "nopre", "scale4", "order1"],
+)
+def test_rgb_default_branch_on_card_matches_cpu(cfg):
+    """The default RGB branch (merge kernel in the phase layout, order 0
+    or 1; the gated restore at scale 2) on a rotated burst, on the card
+    against the port on the CPU."""
+    dev = cuda_device()
+    angles = CITY_ANGLES[:2] + CITY_ANGLES[3:]
+    burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5, angles=angles)
+    want = nn(handheld_superres(tt(burst), cfg, device="cpu"))
+    LAUNCHES.clear()
+    got = nn(handheld_superres(tt(burst, dev), cfg))
+    assert LAUNCHES["merge_fast"] == 1 and LAUNCHES["tile_warp"] == 1
+    assert got.shape == (64 * cfg.scale, 128 * cfg.scale, 3)
+    assert psnr(got, want) >= 60.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 3, 4])
+def test_raw_scales_on_card_match_cpu(scale):
+    """RAW_SCALE4 at scales 1, 3 and 4 on a 9-frame burst rotated within
+    +-0.01 rad, as the JAX package's scale-4 protocol draws its bursts
+    (the pre-alignment and the tile warp move every alternate), on the
+    card against the port on the CPU."""
+    dev = cuda_device()
+    cfg = dataclasses.replace(RAW_SCALE4, scale=scale)
+    angles = (0.0,) + tuple(np.random.default_rng(3).uniform(-0.01, 0.01, 8).tolist())
+    raw, _ = synthetic_raw_burst(np.random.default_rng(0), 9, 64, 128, 2.5, angles=angles)
+    want = nn(handheld_superres_raw(tt(raw), cfg, device="cpu"))
+    LAUNCHES.clear()
+    got = nn(handheld_superres_raw(tt(raw, dev), cfg))
+    assert LAUNCHES["merge_raw"] == 1 and LAUNCHES["tile_search"] == 2
+    assert got.shape == (64 * scale, 128 * scale, 3)
+    assert psnr(got, want) >= 60.0
+
+
+@pytest.mark.cuda
+def test_cascade_and_defaults_on_card_match_cpu():
+    """The scale-4 cascade (two merge_raw launches, four tile searches) and
+    both entry points without a configuration (HandheldConfig() and
+    HandheldConfig(gamma=True), the JAX package's defaults), on the card
+    against the port on the CPU."""
+    dev = cuda_device()
+    raw, _ = synthetic_raw_burst(np.random.default_rng(0), 5, 64, 128, 2.5, angles=CITY_ANGLES)
+    want = nn(handheld_superres_raw_cascade(tt(raw), RAW_SCALE4, device="cpu"))
+    LAUNCHES.clear()
+    got = nn(handheld_superres_raw_cascade(tt(raw, dev), RAW_SCALE4))
+    assert LAUNCHES["merge_raw"] == 2 and LAUNCHES["tile_search"] == 4
+    assert got.shape == (256, 512, 3) and psnr(got, want) >= 60.0
+    assert psnr(nn(handheld_superres_raw(tt(raw, dev))), nn(handheld_superres_raw(tt(raw), device="cpu"))) >= 60.0
+    burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)
+    LAUNCHES.clear()
+    got = nn(handheld_superres(tt(burst, dev)))
+    assert LAUNCHES["merge_fast"] == 1
+    assert psnr(got, nn(handheld_superres(tt(burst), device="cpu"))) >= 60.0

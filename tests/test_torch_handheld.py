@@ -87,8 +87,9 @@ def test_rgb_pallas_matches_jax_pipeline():
         (dataclasses.replace(SLICE, use_consistency=True), "use_consistency"),
         (dataclasses.replace(SLICE, rgb_half_stats=True), "rgb_half_stats"),
         (dataclasses.replace(SLICE, warp_matmul=False), "warp_matmul"),
-        (HandheldConfig(prealign=False), "use_pallas"),
-        (dataclasses.replace(SLICE, merge=MergeConfig(use_pallas=True, rgb_order=1)), "rgb_order"),
+        (HandheldConfig(prealign=False, merge=MergeConfig(bf16=True)), "bf16"),
+        (HandheldConfig(prealign=False, merge=MergeConfig(rgb_order=1, solver="exact")), "solver"),
+        (dataclasses.replace(SLICE, merge=MergeConfig(use_pallas=True, rgb_order=1)), "use_pallas"),
         (dataclasses.replace(SLICE, align=AlignConfig(use_fft=True)), "use_fft"),
         (dataclasses.replace(SLICE, scale=5), "scale"),
         (dataclasses.replace(SLICE, lk=LKConfig(warp_tile=16)), "warp_tile"),

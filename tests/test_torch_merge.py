@@ -131,3 +131,72 @@ def test_kernel_params_and_weighting(rng):
         nn(jmerge.smoothed_structure_tensor(jnp.asarray(gray), 3)),
         atol=1e-6,
     )
+
+
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+def test_plain_merge_phase_layout_matches_jax(rng, scale):
+    """The default RGB branch's order-0 merge: the phase layout
+    (s, s, 3, H, W), taps pruned at e^-1.5 with k_max scaled by (s/2)^2
+    as the path does; rtol and atol 1e-5."""
+    ins = _inputs(rng, 3, 12, 20)
+    k_max = (scale / 2.0) ** 2
+    want = jfm.merge_burst_fast(
+        *map(jnp.asarray, ins), scale=scale, radius=1, k_max=k_max, phase_output=True, prune_exp=1.5
+    )
+    got = fast_merge.merge_burst_fast(*map(tt, ins), scale, 1, 1.0, k_max, phase_output=True, prune_exp=1.5)
+    assert len(got) == 2
+    for g, w_ in zip(got, want):
+        assert g.shape == (scale, scale, 3, 12, 20)
+        np.testing.assert_allclose(nn(g), nn(w_), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("scale", [2, 4])
+def test_plain_merge_order1_matches_jax(rng, scale):
+    """The plugin solve's order-1 moments (m00, m01, m02, b0), phase layout.
+    rtol and atol 1e-4: m01 and m02 sum cw dy and cw dx, whose terms reach
+    +-(r + rb) s in either sign (measured 7e-7 here)."""
+    ins = _inputs(rng, 3, 12, 20)
+    k_max = (scale / 2.0) ** 2
+    kw = dict(phase_output=True, order=1, prune_exp=1.5)
+    want = jfm.merge_burst_fast(*map(jnp.asarray, ins), scale=scale, radius=1, k_max=k_max, moment_slots=4, **kw)
+    got = fast_merge.merge_burst_fast(*map(tt, ins), scale, 1, 1.0, k_max, **kw)
+    assert len(got) == len(want) == 4
+    for name, g, w_ in zip(("m00", "m01", "m02", "b0"), got, want):
+        np.testing.assert_allclose(nn(g), nn(w_), rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("merge", [fast_merge.merge_burst_fast, merge_fast], ids=["plain", "wrapper"])
+def test_order1_merge_needs_the_phase_layout(rng, merge):
+    """The order-1 moments come in the phase layout only (the one form the
+    default branch's solve reads): without phase_output the plain version
+    and the wrapper on CPU tensors raise."""
+    ins = [tt(x) for x in _inputs(rng, 2, 8, 8)]
+    with pytest.raises(ValueError, match="phase_output"):
+        merge(*ins, 2, 1, 1.0, 1.0, order=1, prune_exp=1.5)
+
+
+@pytest.mark.parametrize("prune", [6.0, 3.0, 1.5])
+def test_wrapper_tap_array_keyed_by_prune_exp(prune):
+    """The cached tap list is keyed by prune_exp too: at radius 1 + rb 1,
+    s 2, k_max 1 the thresholds keep 25, 25 and 21 taps."""
+    taps = merge_kernel.tap_array(2, 1.0, 2, 1.0, prune)
+    assert [tuple(t) for t in taps.tolist()] == jfm._active_taps(2, 1.0, 2, 1.0, prune)
+    assert len(taps) == {6.0: 25, 3.0: 25, 1.5: 21}[prune]
+    assert merge_kernel.tap_array(2, 1.0, 2, 1.0, prune) is taps
+    assert merge_kernel._tap_args(2, 1.0, 2, 1.0, prune) == (taps.ctypes.data, len(taps))
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(phase_output=True, prune_exp=1.5), dict(phase_output=True, order=1, prune_exp=1.5)],
+    ids=["phase", "order1"],
+)
+def test_wrapper_on_cpu_is_the_plain_version_for_each_form(rng, kw):
+    ins = [tt(x) for x in _inputs(rng, 2, 12, 16)]
+    LAUNCHES.clear()
+    got = merge_fast(*ins, 3, 1, 1.0, 2.25, **kw)
+    want = fast_merge.merge_burst_fast(*ins, 3, 1, 1.0, 2.25, **kw)
+    assert len(got) == len(want)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)
+    assert LAUNCHES["merge_fast"] == 0

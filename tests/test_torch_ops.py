@@ -125,6 +125,27 @@ def test_downsample2_and_resize(rng):
     )
 
 
+@pytest.mark.parametrize("method", ["bicubic", "nearest", "bilinear"])
+@pytest.mark.parametrize("shape,out", [((9, 13, 3), (18, 26)), ((7, 11, 2), (23, 19))])
+def test_resize_methods_match_jax(rng, method, shape, out):
+    """resize through remap, OpenCV pixel centers, clamped borders: an
+    integer factor (the cascade's upscale) and a fractional one."""
+    img = rng.random(shape).astype(np.float32)
+    np.testing.assert_allclose(
+        nn(geometry.resize(tt(img), *out, method=method)),
+        nn(jgeo.resize(jnp.asarray(img), *out, method)),
+        rtol=1e-6, atol=1e-6,
+    )
+
+
+@pytest.mark.parametrize("scale", [2, 3])
+def test_upscale_bicubic_matches_jax(rng, scale):
+    img = rng.random((10, 14, 3)).astype(np.float32)
+    got = nn(geometry.upscale(tt(img), scale))
+    assert got.shape == (10 * scale, 14 * scale, 3)
+    np.testing.assert_allclose(got, nn(jgeo.upscale(jnp.asarray(img), scale, "bicubic")), rtol=1e-6, atol=1e-6)
+
+
 def test_morphology_exact(rng):
     x = rng.standard_normal((2, 11, 15)).astype(np.float32)
     for port, ref in ((morphology.erode, jmorph.erode), (morphology.dilate, jmorph.dilate)):

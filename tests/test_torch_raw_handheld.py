@@ -201,7 +201,7 @@ def test_raw_cpu_request_equals_the_former_cpu_result(raw_burst, device):
         (dataclasses.replace(RAW_SLICE, merge=MergeConfig(guided_rb=True)), "guided_rb"),
         (dataclasses.replace(RAW_SLICE, align=AlignConfig(use_fft=True)), "use_fft"),
         (dataclasses.replace(RAW_SLICE, lk=LKConfig(warp_tile=16)), "warp_tile"),
-        (dataclasses.replace(RAW_SLICE, scale=4), "scale"),
+        (dataclasses.replace(RAW_SLICE, scale=5), "scale"),
     ],
 )
 def test_unsupported_raw_knobs_raise(cfg, knob):

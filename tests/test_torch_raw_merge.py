@@ -142,3 +142,23 @@ def test_wrapper_rejects_bad_inputs(rng, bad):
         omega_rb = omega_rb[:4]
     with pytest.raises((TypeError, ValueError)):
         merge_raw(planes, residual, cert, omega, omega_rb, ((0, 1), (1, 2)), 2, 1, 1.0, 1.0, 1.5)
+
+
+@pytest.mark.parametrize("scale", [1, 3, 4])
+def test_plain_raw_merge_matches_jax_at_scale(scale):
+    """Scales 1, 3 (odd phase offsets) and 4, k_max scaled by (s/2)^2 and
+    R/B kernels wider, as the scale-4 configuration runs them; F = 3 at
+    12 x 20 half-res; rtol and atol 1e-5."""
+    ins = _inputs(np.random.default_rng(scale), 3, 12, 20, rb_wider=True)
+    cfa = ((0, 1), (1, 2))
+    k_max = (scale / 2.0) ** 2
+    want = jfm.merge_burst_raw_planes(
+        *map(jnp.asarray, ins), cfa, scale, 1, residual_bound=1.0, k_max=k_max,
+        phase_output=True, order=1, prune_exp=1.5, moment_slots=4, centroid_cert=False,
+    )
+    LAUNCHES.clear()
+    got = merge_raw(*map(tt, ins), cfa, scale, 1, 1.0, k_max, 1.5)
+    assert not LAUNCHES
+    for name, g, w_ in zip(("m00", "cy", "cx", "b0"), got, want):
+        assert g.shape == (2 * scale, 2 * scale, 3, 12, 20), name
+        np.testing.assert_allclose(nn(g), nn(w_), rtol=1e-5, atol=1e-5, err_msg=name)

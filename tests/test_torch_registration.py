@@ -9,7 +9,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from torch_parity import BIG_SHIFTS, SMALL_SHIFTS, nn, search_inputs, tied_minima, to_jax, tt
+from torch_parity import (
+    BIG_SHIFTS,
+    SMALL_SHIFTS,
+    nn,
+    prealigned_search_inputs,
+    search_inputs,
+    tied_minima,
+    to_jax,
+    tt,
+)
 
 from multi_frame_super_resolution_tpu.models.robustness import robustness_mask as jrobust
 from multi_frame_super_resolution_tpu.registration import align as jalign
@@ -102,6 +111,30 @@ def test_tile_search_matches_jax_composition(h, w, mode, radius, threshold, sub)
         np.testing.assert_allclose(got[untied], want[untied], rtol=0, atol=1e-3)
     else:
         np.testing.assert_array_equal(got[untied], want[untied])
+
+
+def test_tile_search_matches_jax_on_prealigned_rotations():
+    """RAW_SCALE4's two searches (T = 8, R = 4, "image" mode) on a 9-frame
+    burst rotated 5-15 degrees and pre-aligned by the port: some surfaces
+    are flat along one axis below float32 rounding (rows that
+    pre-alignment clamped to the frame's edge), so their argmin is ranked
+    by each implementation's rounding. Outside tiles.float32_undecided's
+    argmin mask the plain search's integer parts equal the JAX
+    composition's; outside both masks the subpixel shifts agree within
+    1e-3 px."""
+    levels = prealigned_search_inputs()
+    assert [tuple(c[1].shape) for c in levels] == [(8, 32, 64), (8, 64, 128)]
+    for ref, alts, rounded, t, radius, threshold in levels:
+        undecided, ill = (nn(m) for m in tiles.float32_undecided(ref, alts, rounded, t, radius, threshold))
+        for sub in (False, True):
+            got = nn(tiles.tile_search(ref, alts, rounded, t, radius, threshold, sub, "image"))
+            want = jax_tile_search(*(nn(x) for x in (ref, alts, rounded)), t, radius, threshold, sub, "image")
+            if sub:
+                keep = ~undecided & ~ill
+                np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=1e-3)
+            else:
+                np.testing.assert_array_equal(got[~undecided], want[~undecided])
+    assert undecided.sum() >= 10  # the fine level has such tiles
 
 
 def test_upsample_shift_field(rng):

@@ -10,6 +10,8 @@ card compares in full float32.
 """
 
 import dataclasses
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -109,6 +111,66 @@ def tied_minima(ref, alts, rounded, tile_size: int, radius: int) -> np.ndarray:
         for u in range(s) for v in range(s)
     ], dim=-1)
     return nn((ssd == ssd.amin(-1, keepdim=True)).sum(-1) > 1)
+
+
+def prealigned_search_inputs(frames: int = 9, h: int = 128, w: int = 256, seed: int = 2):
+    """The inputs of RAW_SCALE4's tile searches (T = 8, R = 4, "image"
+    mode; coarse level first) on a ``frames`` x h x w RAW burst rotated as
+    the city burst is (0/0/5/10/-15 degrees, repeated), as the port's RAW
+    path on the CPU hands them over after its own pre-alignment: a list of
+    (ref, alts, rounded, tile_size, radius, threshold) with CPU tensors.
+    Pre-alignment clamps each rotated frame to its edge, so the alternates
+    hold rows that repeat each other to within an ulp."""
+    from unittest import mock
+
+    from multi_frame_super_resolution_tpu_torch.config import RAW_SCALE4
+    from multi_frame_super_resolution_tpu_torch.data import CITY_ANGLES, mosaic_rggb, synthetic_rgb_burst
+    from multi_frame_super_resolution_tpu_torch.models import handheld
+    from multi_frame_super_resolution_tpu_torch.registration import align
+
+    angles = (CITY_ANGLES + CITY_ANGLES[1:])[:frames]
+    rgb, _ = synthetic_rgb_burst(np.random.default_rng(seed), frames, h, w, 3.0, angles=angles)
+    raw = torch.from_numpy(np.stack([mosaic_rggb(f, RAW_SCALE4.cfa_pattern) for f in rgb]))
+    calls = []
+    search = align.tile_search
+
+    def record(ref, alts, rounded, t, radius, threshold, subpixel, mode):
+        assert mode == "image"
+        calls.append((ref.clone(), alts.clone(), rounded.clone(), t, radius, threshold))
+        return search(ref, alts, rounded, t, radius, threshold, subpixel, mode)
+
+    class _Aligned(Exception):
+        pass
+
+    def stop(*args, **kwargs):
+        raise _Aligned
+
+    with mock.patch.object(align, "tile_search", record), mock.patch.object(handheld, "tile_warp", stop):
+        with pytest.raises(_Aligned):
+            handheld.handheld_superres_raw(raw, RAW_SCALE4, device="cpu")
+    return calls
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def city_hr_raw_burst(frames: int, factor: int, h: int = 256, w: int = 512, seed: int = 7):
+    """A true-HR RAW burst: the top-left h x w crop of the tracked
+    city_handheld_sr.png as the high-resolution scene, through
+    tools/eval_fidelity.py::make_hr_burst (subpixel shifts of up to
+    1.5 factor HR px and rotations of up to 0.01 rad, ``factor``-x box
+    downsample, RGGB mosaic). Returns (F, h/factor, w/factor) float32
+    numpy. Needs JAX (make_hr_burst runs the JAX package's downsample)."""
+    import imageio.v3 as iio
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    try:
+        from eval_fidelity import make_hr_burst
+    finally:
+        sys.path.remove(str(ROOT / "tools"))
+    hr = iio.imread(ROOT / "city_handheld_sr.png")[:h, :w, :3].astype(np.float32) / 255.0
+    raw, _ = make_hr_burst(hr, num_frames=frames, seed=seed, max_shift_hr=1.5 * factor, factor=factor)
+    return raw.astype(np.float32)
 
 
 def cuda_device() -> torch.device:
