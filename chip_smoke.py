@@ -66,6 +66,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      pyramid level of each run. RAW_SCALE4 on the 5-15 degree burst of
      phase 3: its agreement with the plain kernels and with the CPU is
      printed without a limit (rounding-ranked tiles move whole tiles).
+   - btvl1_video (models/btvl1.py, plain PyTorch: BTV-L1 reaches no kernel
+     of csrc/, as the JAX path reaches no Pallas kernel) at the app's
+     configuration, BTVConfig(scale=2, iterations=10, temporal_radius=1),
+     with each of the four flows (pyrlk, farneback, tvl1, brox) on the
+     rotated city burst (-> 5 x 512 x 1024 x 3), a small burst (3 x 64 x
+     96 x 3) on the card against the port on the CPU, and the app
+     (apps/multi_frame_sr.py pyrlk city 10) on the city burst written as
+     PNGs to a temporary MFSR_DATA_DIR, 4 cycles.
    The entry points get CUDA tensors and no device argument: they run on
    cuda:0, their default. Each burst output must lie there, have its
    shape, be finite and in [0, 1], agree (PSNR >= 60 dB) with the same
@@ -87,12 +95,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    frames), and its interleaved form beside the phase layout plus the
    interleave, at RGB_PALLAS's merge (every device op); the registers and spills (ptxas -v) of every instantiation
    (printed at the build); for the copy kernel (tile_warp) the copy floor: the
-   profiler's device time of dst.copy_(src) moving the kernel's bytes.
+   profiler's device time of dst.copy_(src) moving the kernel's bytes;
+   the runall matrix of BTV-L1, 4 flows x the geometries of the city, car
+   and iso bursts (synthetic): FPS under the app's protocol (10 cycles,
+   the last 5 timed, each fenced by a scalar readback), and the device ms
+   and device ops of one cycle (the profiler's raw device events alone,
+   a light read) with the card's busy share; at the city geometry one
+   more cycle under the full profiler, split as phase 6 splits a burst,
+   its totals beside the light read's.
 6. Where the time goes: one burst (frame) of each path under
    torch.profiler: host and device ms of each stage (the mfsr.* ranges
    of models/handheld.py and models/defog.py, with each kernel's own
    profiler row added to its stage, and the CUDA-event time around its
-   launches beside it), and the card's busy share.
+   launches beside it), and the card's busy share; BTV-L1's cycles are
+   split by the mfsr.btv.* ranges (flow, init, iterate) in phase 5.
 
 The last lines are a JSON line of the kernels (each kernel's entry holds
 the variant its main path runs, and every timed variant under
@@ -125,6 +141,7 @@ SHIFT_TOL = dict(rtol=0.0, atol=1e-3)  # px: SSD sums in another order, through 
 DEFOG_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX spec's tolerance; expected exact
 DEFOG_H, DEFOG_W = 1024, 1224  # one polarization angle of a 2448 x 2048 DoFP sensor
 PSNR_MIN = 60.0
+BTV_FLOWS = ("pyrlk", "farneback", "tvl1", "brox")
 PKG = "multi_frame_super_resolution_tpu_torch"
 KERNELS = {  # name -> (source, the TPU kernel or JAX function it replaces)
     "merge_fast": (f"{PKG}/csrc/merge.cu", "multi_frame_super_resolution_tpu/pallas_ops/merge.py:132"),
@@ -282,6 +299,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from multi_frame_super_resolution_tpu_torch.apps import multi_frame_sr as sr_app
     from multi_frame_super_resolution_tpu_torch.apps import polar_defog as defog_app
     from multi_frame_super_resolution_tpu_torch.config import (
         PORT_DEFAULT,
@@ -291,17 +309,21 @@ def main() -> int:
         RGB_DEFAULT,
         RGB_PALLAS,
         AlignConfig,
+        BTVConfig,
         HandheldConfig,
         MergeConfig,
         PolarDefogConfig,
     )
     from multi_frame_super_resolution_tpu_torch.data import (
         CITY_ANGLES,
+        DATASETS,
         mosaic_rggb,
         synthetic_burst,
+        synthetic_dataset_burst,
         synthetic_polar_pair,
         synthetic_raw_burst,
         synthetic_rgb_burst,
+        write_burst,
     )
     from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
     from multi_frame_super_resolution_tpu_torch.kernels import defog as kdefog
@@ -310,6 +332,7 @@ def main() -> int:
     from multi_frame_super_resolution_tpu_torch.kernels import tile_search as ktile_search
     from multi_frame_super_resolution_tpu_torch.kernels import tile_warp as ktile_warp
     from multi_frame_super_resolution_tpu_torch.kernels.build import build_all
+    from multi_frame_super_resolution_tpu_torch.models import btvl1
     from multi_frame_super_resolution_tpu_torch.models import defog as mdefog
     from multi_frame_super_resolution_tpu_torch.models import fast_merge, handheld
     from multi_frame_super_resolution_tpu_torch.ops import warp_fast
@@ -318,6 +341,7 @@ def main() -> int:
     from multi_frame_super_resolution_tpu_torch.registration.prealign import estimate_burst_similarity
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}  (torch {torch.__version__}, CUDA {torch.version.cuda})")
@@ -728,6 +752,42 @@ def main() -> int:
     if cascade_launches["merge_raw"] != 2:
         raise RuntimeError(f"the cascade launched merge_raw {cascade_launches['merge_raw']} times, not 2")
 
+    # BTV-L1 (models/btvl1.py) at the app's configuration, each flow on the
+    # city burst (rgb_np is synthetic_dataset_burst("city")): plain
+    # PyTorch, no kernel of csrc/ (the JAX path reaches no Pallas kernel)
+    btv_cfgs = {flow: BTVConfig(scale=2, iterations=10, temporal_radius=1, optical_flow=flow) for flow in BTV_FLOWS}
+    btv_small = torch.from_numpy(synthetic_rgb_burst(np.random.default_rng(1), 3, 64, 96, 2.0)[0])
+    btv_launches = {}
+    t_btv = time.perf_counter()
+    for flow, cfg in btv_cfgs.items():
+        LAUNCHES.clear()
+        out = btvl1.btvl1_video(rgb_burst, cfg)
+        torch.cuda.synchronize()
+        btv_launches[flow] = dict(LAUNCHES)
+        if out.device != dev:
+            raise RuntimeError(f"btvl1 {flow}: the output lies on {out.device}, not on the default {dev}")
+        check_output(f"btvl1 {flow}", out, (F, 2 * H, 2 * W, 3))
+        p_cpu = psnr(btvl1.btvl1_video(btv_small.to(dev), cfg).cpu(), btvl1.btvl1_video(btv_small, cfg, device="cpu"))
+        print(f"path btvl1_video {flow}: {tuple(rgb_burst.shape)} -> {tuple(out.shape)} in [{out.min().item():.4f}, "
+              f"{out.max().item():.4f}], launches {btv_launches[flow]} (none of csrc/), small burst "
+              f"{tuple(btv_small.shape)} card vs CPU {p_cpu:.2f} dB (limit {PSNR_MIN} dB)")
+        if p_cpu < PSNR_MIN:
+            raise RuntimeError(f"btvl1_video {flow} on the card disagrees with the port on the CPU")
+    del out
+    with tempfile.TemporaryDirectory() as tmp:
+        write_burst("city", rgb_np, os.path.join(tmp, "data"))
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            print("app multi_frame_sr pyrlk city 10 (the city burst as PNGs, MFSR_SR_CYCLES=4):")
+            with mock.patch.dict(os.environ, {"MFSR_DATA_DIR": os.path.join(tmp, "data"), "MFSR_SR_CYCLES": "4"}):
+                rc = sr_app.main(["pyrlk", "city", "10"])
+            if rc != 0 or not all(os.path.getsize(f"city_pyrlk_{k}_result.png") for k in ("sr", "sr2")):
+                raise RuntimeError("the multi_frame_sr app failed")
+        finally:
+            os.chdir(cwd)
+    print(f"btvl1 paths and app: {time.perf_counter() - t_btv:.1f} s")
+
     # 5. timing: kernels beside their plain versions, then the paths
     kernel_ms, plain_ms, device_ms, plain_device = {}, {}, {}, {}
     checks_by_label = {check[0]: check for checks in calls.values() for check in checks}
@@ -836,6 +896,33 @@ def main() -> int:
     )
     slice_ms = [time_slice(label, fn, burst, cfg) for label, fn, burst, cfg in paths]
 
+    # the runall matrix: 4 flows x the three datasets' geometries, each a
+    # synthetic burst; FPS under the app's protocol (10 cycles of
+    # btvl1_video over the burst, the last 5 timed, each fenced by a
+    # scalar readback), the device time and device ops of one cycle
+    # (profiler), and the card's busy share of a cycle
+    t_btv = time.perf_counter()
+    for ds in DATASETS:
+        burst = rgb_burst if ds == "city" else torch.from_numpy(synthetic_dataset_burst(ds)).to(dev)
+        for flow, cfg in btv_cfgs.items():
+            seconds, n_timed, _ = sr_app.time_cycles(lambda scale: btvl1.btvl1_video(burst * scale, cfg), 10)
+            cycle_ms = seconds * 1e3 / n_timed
+            # the cycles above are the warm-up
+            dev_ms, ops = device_busy(lambda: btvl1.btvl1_video(burst, cfg))
+            if ds == "city":
+                # one cycle under the profiler: its stages (phase 6's split),
+                # its totals beside the light read's
+                full_ms, full_ops = profile_stages(f"btvl1 {flow} {ds}", btvl1.btvl1_video, burst, cfg, cycle_ms,
+                                                   card, wrappers)
+                print(f"btvl1 matrix {flow} {ds}: device {full_ms:.3f} ms over {full_ops} device ops (profile "
+                      f"with CPU ops) against {dev_ms:.3f} ms over {ops} (raw device events alone)")
+            print(f"btvl1 matrix {flow} {ds} {tuple(burst.shape)}: {burst.shape[0] * n_timed / seconds:.2f} FPS "
+                  f"(app protocol, {n_timed} of 10 cycles timed), {cycle_ms:.3f} ms per cycle; device "
+                  f"{dev_ms:.3f} ms over {ops:.0f} device ops per cycle; card busy "
+                  f"{100.0 * dev_ms / cycle_ms:.1f}%  [{card}]")
+        del burst
+    print(f"btvl1 matrix: {time.perf_counter() - t_btv:.1f} s")
+
     # 6. where the time goes
     profile_stages("defog", run_defog, pair, defog_cfg, defog_ms, card, wrappers)
     for (label, fn, burst, cfg), ms in zip(paths, slice_ms):
@@ -869,7 +956,9 @@ def main() -> int:
           f"rgb port default {rgb_default_launches}, raw bench {bench_launches}, "
           f"raw default {raw_launches}, raw windows {win_launches}, rgb default {default_launches}, "
           f"rgb scale 4 {scale4_launches}, rgb order 1 {order1_launches}, raw scale 4 {raw4_launches}, "
-          f"raw cascade {cascade_launches}")
+          f"raw cascade {cascade_launches}; btvl1_video (no kernel of csrc/ on its path) "
+          + ", ".join(f"{flow} {launches}" for flow, launches in btv_launches.items()))
+    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
@@ -928,13 +1017,33 @@ def device_time(call, symbol: str | None = None, iters: int = 20) -> tuple:
     return sum(e.self_device_time_total for e in rows) / iters / 1e3, sum(e.count for e in rows) / iters
 
 
-def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> None:
+def device_busy(call) -> tuple:
+    """(ms, ops) of one call, made after a warm-up: the summed device time
+    and the count of the kernels, copies and memsets it ran, read from the
+    profiler's raw events with the CUDA activity alone. The light form of
+    profile_stages' totals for a call of thousands of ops: no CPU op
+    records and no event tree, which cost seconds per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    if not rows:
+        raise RuntimeError("the profiler saw no device work")
+    return sum(e.duration_ns() for e in rows) / 1e6, len(rows)
+
+
+def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> tuple:
     """Host and device ms of each stage over one profiled burst (frame),
     each kernel's CUDA-event time in it (the events bracket the wrapper's
     launch), the profiler's own rows for the kernels, and the share of an
-    unprofiled burst (``ms``) the card is busy. ``wrappers`` maps each
-    kernel to the (module, attribute, plain version) its path calls it
-    through."""
+    unprofiled burst (``ms``) the card is busy; returns the run's device
+    ms and device ops. ``wrappers`` maps each kernel to the (module,
+    attribute, plain version) its path calls it through."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -988,6 +1097,7 @@ def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> None:
         print(f"stage {label} {name}: host {host_us / 1e3:.3f} ms, device {dev_us / 1e3:.3f} ms{extra}")
     print(f"profile {label}: {launches} device ops, {kernels_us / 1e3:.3f} ms device time per run; "
           f"card busy {100.0 * kernels_us / 1e3 / ms:.1f}% of {ms:.3f} ms  [{card}]")
+    return kernels_us / 1e3, launches
 
 
 if __name__ == "__main__":

@@ -4,19 +4,27 @@
 The JAX package stays the reference; this package mirrors its layout and
 function names, so each counterpart is found by path. Plain tensor code
 is PyTorch and runs on the device of its inputs; the entry points
-(``models.handheld.handheld_superres``, ``handheld_superres_raw``, the
-defog app) run on cuda:0 unless the caller asks for another device
+(``models.handheld.handheld_superres``, ``handheld_superres_raw`` and
+its cascade, ``models.btvl1.btvl1_superres`` and ``btvl1_video``, and
+the apps) run on cuda:0 unless the caller asks for another device
 (``resolve_device``). Every Pallas kernel on a ported path becomes a
 hand-written Hopper kernel under ``csrc/`` with its Python wrapper under
 ``kernels/``.
 
-Ported so far: the RAW main path ``models.handheld.handheld_superres_raw``
-under ``config.RAW_BENCH`` (and without pre-alignment, and with the
-windows-branch alignment), the RGB pipeline
-``models.handheld.handheld_superres`` under ``config.RGB_PALLAS`` (and
-without pre-alignment), and the polarization defog with its app (see
-``config.check_supported_raw`` and ``config.check_supported`` for the
-knobs that still raise).
+Ported so far: the RAW path ``models.handheld.handheld_superres_raw``
+at scales 1-4 (``config.RAW_BENCH``, bench.py's configuration, and
+without pre-alignment, with the windows-branch alignment, at
+``config.RAW_SCALE4``) and the scale-4 cascade
+``handheld_superres_raw_cascade``; the RGB pipeline
+``models.handheld.handheld_superres`` on its default branch
+(``config.RGB_DEFAULT``, order 0 or ``rgb_order=1``, scales 1-4) and on
+its ``use_pallas`` branch (``config.RGB_PALLAS``), with or without
+pre-alignment; the polarization defog with its app; and BTV-L1
+multi-frame super-resolution (``models.btvl1``) with its four dense
+optical flows (``registration.optical_flow``), the PNG burst loader
+(``data.load_burst``) and the ``multi_frame_sr`` and ``runall`` apps
+(see ``config.check_supported_raw`` and ``config.check_supported`` for
+the handheld knobs that still raise).
 """
 
 __version__ = "0.1.0"

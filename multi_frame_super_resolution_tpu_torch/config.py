@@ -144,6 +144,47 @@ class PolarDefogConfig:
     r_max: float = 0.999
 
 
+@dataclasses.dataclass(frozen=True)
+class BTVConfig:
+    scale: int = 2
+    iterations: int = 10
+    temporal_radius: int = 1
+    tau: float = 1.3
+    lam: float = 0.03
+    alpha: float = 0.7
+    btv_kernel_size: int = 7
+    blur_sigma: float = 0.0
+    optical_flow: str = "pyrlk"
+    fast: bool = True
+    warp_tile: int = 16
+    warp_residual_bound: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowConfig:
+    method: str = "pyrlk"
+    pyramid_levels: int = 3
+    lk_half_window: int = 6
+    lk_iterations: int = 5
+    fb_poly_n: int = 5
+    fb_poly_sigma: float = 1.1
+    fb_win_size: int = 13
+    fb_iterations: int = 5
+    tv_tau: float = 0.25
+    tv_lambda: float = 0.15
+    tv_theta: float = 0.3
+    tv_iterations: int = 30
+    tv_warps: int = 3
+    brox_alpha: float = 0.03
+    brox_gamma: float = 8.0
+    brox_epsilon: float = 1e-3
+    brox_presmooth: float = 0.8
+    brox_outer_iterations: int = 3
+    brox_inner_iterations: int = 3
+    brox_solver_iterations: int = 12
+    brox_omega: float = 0.9
+
+
 # the RGB fast path through the merge kernel without global pre-alignment
 PORT_DEFAULT = HandheldConfig(prealign=False, merge=MergeConfig(use_pallas=True))
 

@@ -1,0 +1,65 @@
+"""The reference's bundled bursts (counterpart of data/datasets.py's
+DATASETS, burst_paths and load_burst; multi_frame_sr.cpp:151-163):
+
+  * city: 5 frames ``img_%06d.png`` (512 x 256)
+  * car:  4 frames ``car/%d.jpg``   (228 x 130)
+  * iso:  4 frames ``iso/%06d.png`` (440 x 300)
+
+read from a data root: ``data_dir``, else the ``MFSR_DATA_DIR``
+environment variable at call time, else the reference checkout. The
+port decodes PNG only (data/io.py::imread), so the car burst's JPEGs
+raise ValueError.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import numpy as np
+
+from multi_frame_super_resolution_tpu_torch.data.io import imread, imwrite
+
+# the JAX package's default data root (data/datasets.py::DEFAULT_DATA_DIR)
+REFERENCE_DIR = "/root/reference"
+
+# dataset name -> (relative file pattern, frame count, first index)
+DATASETS = {
+    "city": ("test_opencv/img_{:06d}.png", 5, 0),
+    "car": ("finalProject/Project/car/{:d}.jpg", 4, 1),
+    "iso": ("finalProject/Project/iso/{:06d}.png", 4, 1),
+}
+
+# dataset name -> each frame's (height, width); synthetic_dataset_burst
+# makes bursts of DATASETS' frame count at this size
+FRAME_SIZE = {"city": (256, 512), "car": (130, 228), "iso": (300, 440)}
+
+
+def burst_paths(name: str, data_dir: Optional[str] = None) -> List[str]:
+    if name not in DATASETS:
+        raise ValueError(f"unknown dataset {name!r}; expected one of {sorted(DATASETS)}")
+    pattern, count, start = DATASETS[name]
+    root = data_dir or os.environ.get("MFSR_DATA_DIR", REFERENCE_DIR)
+    return [os.path.join(root, pattern.format(i + start)) for i in range(count)]
+
+
+def load_burst(name: str, data_dir: Optional[str] = None) -> np.ndarray:
+    """A named burst as float32 (F, H, W, 3) in [0, 1]."""
+    return np.stack([imread(p) for p in burst_paths(name, data_dir)], axis=0)
+
+
+def write_burst(name: str, burst: np.ndarray, data_dir: str) -> List[str]:
+    """Write ``burst`` (F, H, W[, 3]) in [0, 1] as 8-bit PNGs at the paths
+    ``load_burst(name, data_dir)`` reads (directories made as needed), so
+    that a synthetic burst stands in for a missing reference burst. The
+    car burst's paths are JPEG files, which the port cannot write or read:
+    it raises ValueError."""
+    paths = burst_paths(name, data_dir)
+    if len(burst) != len(paths) or any(not p.endswith(".png") for p in paths):
+        raise ValueError(f"the {name} burst is {len(paths)} files {DATASETS[name][0]!r}; write_burst writes "
+                         f"{len(paths)} PNG frames only")
+    for path, frame in zip(paths, burst):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        imwrite(path, frame)
+    return paths
+

@@ -16,6 +16,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from multi_frame_super_resolution_tpu_torch.data.datasets import DATASETS, FRAME_SIZE
+
 
 def _rotate_translate_crop(
     img: np.ndarray, dy: float, dx: float, angle: float, out_h: int, out_w: int
@@ -172,3 +174,13 @@ def synthetic_polar_pair(
     iper = np.clip(base * 0.5 + haze * 0.8, 0, 1)
     ipar = np.clip(base * 0.5 + haze * 0.3, 0, 1)
     return iper, ipar
+
+
+def synthetic_dataset_burst(name: str, seed: int = 0) -> np.ndarray:
+    """A synthetic RGB burst (F, H, W, 3) at the geometry of the reference
+    burst ``name``, shifted by up to 3 px; the city burst is also rotated
+    0/0/5/10/-15 degrees, as the real one is (``CITY_ANGLES``)."""
+    f, (h, w) = DATASETS[name][1], FRAME_SIZE[name]
+    angles = CITY_ANGLES if name == "city" else None
+    return synthetic_rgb_burst(np.random.default_rng(seed), f, h, w, 3.0, angles=angles)[0]
+

@@ -1,5 +1,6 @@
-"""Linear filters with the replicate border: separable correlation and box
-filters (counterparts of ops/filters.py).
+"""Linear filters with the replicate border: separable correlation, box
+and Gaussian filters, and the Laplacian sharpen (counterparts of
+ops/filters.py).
 
 The JAX package lowers these to banded matmuls for the TPU's matrix unit;
 here each 1-D pass is a window sum over an edge-padded axis, which is the
@@ -10,6 +11,7 @@ edge padding does). Only the order of the f32 additions differs.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -35,6 +37,20 @@ def _const(values: tuple, device: torch.device, dtype: torch.dtype = torch.float
 
 def _tensor(values: tuple, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype)
+
+
+def gaussian_kernel_1d(sigma: float, size: int | None = None) -> np.ndarray:
+    """Normalized 1-D Gaussian taps (float32 numpy), computed in float64;
+    ``size`` defaults to 2*ceil(3*sigma)+1 and is made odd."""
+    if size is None:
+        size = 2 * int(math.ceil(3.0 * sigma)) + 1
+    if size % 2 == 0:
+        size += 1
+    half = size // 2
+    x = np.arange(-half, half + 1, dtype=np.float64)
+    k = np.exp(-(x * x) / (2.0 * sigma * sigma))
+    k /= k.sum()
+    return k.astype(np.float32)
 
 
 def _pad_edge(x: torch.Tensor, axis: int, lo: int, hi: int) -> torch.Tensor:
@@ -71,6 +87,33 @@ def separable_filter(img: torch.Tensor, ky, kx) -> torch.Tensor:
     """Separable correlation of the LAST TWO axes (rows, then columns),
     replicate border."""
     return _filter_axis(_filter_axis(img, ky, -2), kx, -1)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float, size: int | None = None) -> torch.Tensor:
+    """Gaussian blur of the last two axes of (..., H, W), replicate border."""
+    k = gaussian_kernel_1d(sigma, size)
+    return separable_filter(img, k, k)
+
+
+def laplacian_sharpen(img: torch.Tensor) -> torch.Tensor:
+    """5-point Laplacian sharpen of (H, W) or (H, W, C) (sharpenImg2):
+    clamp(5 c - up - left - right - down) on the edge-padded image with the
+    1-px border set to 0. The terms are added in the grouping the JAX
+    package's jitted conv gives on the CPU, ((5 c - right) - up) +
+    (-down - left), so the two agree bit for bit."""
+    planes = img if img.ndim == 2 else torch.movedim(img, -1, 0)
+    h, w = planes.shape[-2], planes.shape[-1]
+    xp = _pad_edge(_pad_edge(planes, -2, 1, 1), -1, 1, 1)
+
+    def at(dy, dx):
+        return xp[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+    out = ((5.0 * at(0, 0) - at(0, 1)) - at(-1, 0)) + (-at(1, 0) - at(0, -1))
+    out = out.clamp(0.0, 1.0)
+    inner = torch.zeros((h, w), dtype=torch.bool, device=img.device)
+    inner[1:-1, 1:-1] = True
+    out = torch.where(inner, out, 0.0)
+    return out if img.ndim == 2 else torch.movedim(out, 0, -1)
 
 
 def _window_sum(x: torch.Tensor, size: int, axis: int) -> torch.Tensor:

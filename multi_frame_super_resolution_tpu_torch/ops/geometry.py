@@ -1,11 +1,12 @@
 """Geometric ops (counterparts of ops/geometry.py): 2x2 mean decimation,
 the resize with OpenCV pixel-center alignment, and remaps at float
-coordinates (bilinear, bicubic, nearest) with replicate borders.
+coordinates (bilinear, bicubic, nearest) with replicate borders, and
+the backward warp by a dense flow.
 
 Coordinates follow the pixel-index convention: an integer coordinate is
 a pixel center. ``remap`` takes the JAX layouts, (H, W) or (H, W, C);
-``remap_planes`` takes planes (..., H, W) with coordinate grids that
-broadcast against their leading axes."""
+``remap_planes`` and ``warp_backward`` take planes (..., H, W) with
+coordinate grids or flows that broadcast against their leading axes."""
 
 from __future__ import annotations
 
@@ -135,6 +136,16 @@ def identity_grid(h: int, w: int, device=None, dtype: torch.dtype = torch.float3
     ys = torch.arange(h, dtype=dtype, device=device)[:, None].expand(h, w)
     xs = torch.arange(w, dtype=dtype, device=device)[None, :].expand(h, w)
     return ys, xs
+
+
+def warp_backward(img: torch.Tensor, flow: torch.Tensor, method: str = "bilinear") -> torch.Tensor:
+    """Backward warp of planes (..., H, W) by dense flows (..., H, W, 2)
+    ordered (dy, dx): out(p) = img(p + flow(p)), replicate border
+    (ops/geometry.py::warp_backward, which takes (H, W[, C]) images).
+    The flows broadcast against the planes' leading axes."""
+    h, w = img.shape[-2], img.shape[-1]
+    ys, xs = identity_grid(h, w, img.device, flow.dtype)
+    return remap_planes(img, ys + flow[..., 0], xs + flow[..., 1], method)
 
 
 def translate(img: torch.Tensor, dy, dx, method: str = "bilinear") -> torch.Tensor:

@@ -9,9 +9,11 @@ the separable selector warp), the closed form of what it computes is
 gathered here, not the naive form.
 
 Layouts: ``upsample_int`` takes channel-last images (..., H, W, C), as
-its JAX counterpart does; the tile warps and ``warp_bounded`` take
-planes (..., H, W), with the per-pixel fields broadcast over the leading
-axes.
+its JAX counterpart does, and ``decompose_flow`` flows (..., H, W, 2);
+the tile warps and ``warp_bounded`` take planes (..., H, W), with the
+per-pixel fields broadcast over the leading axes. ``tile_bounded_taps``
+composes a tile warp and a bounded warp into one set of gather taps
+that ``warp_taps`` applies, for fields that several images share.
 """
 
 from __future__ import annotations
@@ -110,6 +112,44 @@ def interleave_phases_planes(p: torch.Tensor) -> torch.Tensor:
     return p.permute(3, 0, 4, 1, 2).reshape(s * h, s * w, c)
 
 
+def _bounded_taps(flow: torch.Tensor, r: int, h: int, w: int):
+    """The 2 x 2 taps of ``warp_bounded`` for flows (..., H, W, 2): their
+    flat source indices into an (H, W) plane, [i00, i01, i10, i11] each
+    (..., H, W) and clamped into the plane, and the weights (wy, wx)."""
+    fy = flow[..., 0].clamp(-r, r)
+    fx = flow[..., 1].clamp(-r, r)
+    y0 = torch.floor(fy)
+    x0 = torch.floor(fx)
+    wy = [(1.0 - (fy - d).abs()).clamp_min(0.0) for d in (y0, y0 + 1.0)]
+    wx = [(1.0 - (fx - d).abs()).clamp_min(0.0) for d in (x0, x0 + 1.0)]
+    dev = flow.device
+    ys = torch.arange(h, device=dev)[:, None] + y0.long()
+    xs = torch.arange(w, device=dev) + x0.long()
+    rows = [(ys + k).clamp_(0, h - 1) * w for k in (0, 1)]
+    cols = [(xs + k).clamp_(0, w - 1) for k in (0, 1)]
+    return [rows[i] + cols[j] for i in (0, 1) for j in (0, 1)], wy, wx
+
+
+def _gather_flat(img: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """img[..., index] for planes (..., H, W) and flat plane indices
+    (..., H, W) that broadcast against each other."""
+    h, w = img.shape[-2], img.shape[-1]
+    shape = torch.broadcast_shapes(img.shape, index.shape)
+    flat = img.expand(shape).reshape(shape[:-2] + (h * w,))
+    return torch.gather(flat, -1, index.expand(shape).reshape(shape[:-2] + (h * w,))).reshape(shape)
+
+
+def warp_taps(img: torch.Tensor, taps) -> torch.Tensor:
+    """Planes (..., H, W) sampled at precomputed bilinear taps (indices,
+    wy, wx) of ``_bounded_taps`` or ``tile_bounded_taps``, blended in
+    warp_bounded's order."""
+    index, wy, wx = taps
+    t00, t01, t10, t11 = (_gather_flat(img, i) for i in index)
+    row0 = t00 * wx[0] + t01 * wx[1]
+    row1 = t10 * wx[0] + t11 * wx[1]
+    return row0 * wy[0] + row1 * wy[1]
+
+
 def warp_bounded(img: torch.Tensor, flow: torch.Tensor, r: int = 2) -> torch.Tensor:
     """Bilinear backward warp out(x) = img(x + flow(x)) of planes
     (..., H, W) for flows clamped to [-r, r]. ``flow`` is (..., H, W, 2)
@@ -119,28 +159,7 @@ def warp_bounded(img: torch.Tensor, flow: torch.Tensor, r: int = 2) -> torch.Ten
     max(0, 1 - |f - d|); all but the 2 x 2 taps at floor(f) + {0, 1} have
     weight 0, so gathering those four with the same weights and adding in
     the same order gives the same floats."""
-    h, w = img.shape[-2], img.shape[-1]
-    fy = flow[..., 0].clamp(-r, r)
-    fx = flow[..., 1].clamp(-r, r)
-    y0 = torch.floor(fy)
-    x0 = torch.floor(fx)
-    wy = [(1.0 - (fy - d).abs()).clamp_min(0.0) for d in (y0, y0 + 1.0)]
-    wx = [(1.0 - (fx - d).abs()).clamp_min(0.0) for d in (x0, x0 + 1.0)]
-    dev = img.device
-    ys = torch.arange(h, device=dev)[:, None] + y0.long()
-    xs = torch.arange(w, device=dev) + x0.long()
-    rows = [(ys + k).clamp_(0, h - 1) * w for k in (0, 1)]
-    cols = [(xs + k).clamp_(0, w - 1) for k in (0, 1)]
-    shape = torch.broadcast_shapes(img.shape, fy.shape)
-    flat = img.expand(shape).reshape(shape[:-2] + (h * w,))
-
-    def tap(i, j):
-        idx = (rows[i] + cols[j]).expand(shape).reshape(shape[:-2] + (h * w,))
-        return torch.gather(flat, -1, idx).reshape(shape)
-
-    row0 = tap(0, 0) * wx[0] + tap(0, 1) * wx[1]
-    row1 = tap(1, 0) * wx[0] + tap(1, 1) * wx[1]
-    return row0 * wy[0] + row1 * wy[1]
+    return warp_taps(img, _bounded_taps(flow, r, img.shape[-2], img.shape[-1]))
 
 
 def tile_shift_decompose(
@@ -150,6 +169,20 @@ def tile_shift_decompose(
     rounds half to even, as jnp.round does."""
     rounded = torch.round(tile_shifts)
     return rounded.to(torch.int32), tile_shifts - rounded
+
+
+def decompose_flow(flow: torch.Tensor, tile_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split dense flows (..., H, W, 2) into per-tile integer parts (the
+    tile mean rounded half to even, (..., nty, ntx, 2) int32) and per-pixel
+    residuals (..., H, W, 2). Ragged edge tiles are edge-padded before the
+    mean, as ops/warp_fast.py::decompose_flow pads them."""
+    h, w = flow.shape[-3], flow.shape[-2]
+    t = tile_size
+    nty, ntx = -(-h // t), -(-w // t)
+    f = _pad_edge(_pad_edge(flow, -3, 0, nty * t - h), -2, 0, ntx * t - w)
+    tile_mean = f.reshape(flow.shape[:-3] + (nty, t, ntx, t, 2)).mean(dim=(-4, -2))
+    tile_int = torch.round(tile_mean).to(torch.int32)
+    return tile_int, flow - _repeat_tiles(tile_int.to(flow.dtype), t, h, w)
 
 
 def _repeat_tiles(x: torch.Tensor, t: int, h: int, w: int) -> torch.Tensor:
@@ -198,6 +231,23 @@ def tile_warp_select(
     smap = _repeat_tiles(int_shifts.long().clamp(-bound, bound), tile_size, h, w)
     out = torch.gather(img, -2, _onehot_shift_index(smap[..., 0], bound, -2).expand(img.shape))
     return torch.gather(out, -1, _onehot_shift_index(smap[..., 1], bound, -1).expand(img.shape))
+
+
+def tile_bounded_taps(
+    int_shifts: torch.Tensor, residual: torch.Tensor, tile_size: int, r: int, h: int, w: int, bound: int = 16
+):
+    """The taps of warp_bounded(tile_warp_select(img, int_shifts,
+    tile_size, bound), residual, r) for (H, W) planes, composed once for
+    fields that several images share: each bilinear tap's source is
+    looked up through the tile warp's source map, so ``warp_taps`` then
+    takes four gathers of the image and returns the same floats as the
+    two warps. int_shifts (..., nty, ntx, 2), residual (..., H, W, 2)."""
+    smap = _repeat_tiles(int_shifts.long().clamp(-bound, bound), tile_size, h, w)
+    ix = _onehot_shift_index(smap[..., 1], bound, -1)
+    # tile_warp_select's output at (y, x) is img[iy(y, ix(y, x)), ix(y, x)]
+    src = torch.gather(_onehot_shift_index(smap[..., 0], bound, -2), -1, ix) * w + ix
+    index, wy, wx = _bounded_taps(residual, r, h, w)
+    return [_gather_flat(src, i) for i in index], wy, wx
 
 
 def tile_warp_matmul(

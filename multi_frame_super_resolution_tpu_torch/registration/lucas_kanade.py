@@ -1,18 +1,24 @@
-"""Dense Lucas-Kanade refinement (counterpart of
-registration/lucas_kanade.py) on the bounded-residual warp path, batched
-over a leading frame axis."""
+"""Dense Lucas-Kanade refinement and the pyramidal LK optical flow
+(counterpart of registration/lucas_kanade.py), batched over leading
+axes: a reference broadcasts against the moving frames."""
 
 from __future__ import annotations
 
 import torch
 
-from multi_frame_super_resolution_tpu_torch.config import LKConfig
+from multi_frame_super_resolution_tpu_torch.config import FlowConfig, LKConfig
 from multi_frame_super_resolution_tpu_torch.ops.derivatives import (
     derivatives,
     derivatives_pair,
 )
 from multi_frame_super_resolution_tpu_torch.ops.filters import box_filter_planes
-from multi_frame_super_resolution_tpu_torch.ops.warp_fast import warp_bounded
+from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, resize, warp_backward
+from multi_frame_super_resolution_tpu_torch.ops.warp_fast import (
+    decompose_flow,
+    tile_bounded_taps,
+    warp_bounded,
+    warp_taps,
+)
 
 
 def lk_step(
@@ -58,20 +64,57 @@ def lk_refine(
     ref: torch.Tensor,
     moved: torch.Tensor,
     flow0: torch.Tensor,
-    cfg: LKConfig = LKConfig(bounded_warp=2),
+    cfg: LKConfig = LKConfig(),
 ) -> torch.Tensor:
-    """Refine flows so that moved(x + flow(x)) ~= ref(x). ref (H, W);
-    moved (..., H, W); flow0 (..., H, W, 2) as (dy, dx). Implements the
-    bounded-residual warp (``cfg.bounded_warp > 0``), the path the fast
-    pipelines take."""
-    if cfg.warp_tile > 0 or cfg.bounded_warp <= 0:
-        raise ValueError(
-            "the port implements only the bounded-residual LK warp "
-            "(bounded_warp > 0, warp_tile == 0)"
-        )
+    """Refine flows so that moved(x + flow(x)) ~= ref(x). ref (..., H, W)
+    broadcasts against moved (..., H, W); flow0 (..., H, W, 2) as (dy, dx).
+
+    The warp of each iteration is chosen as in the JAX function:
+    ``cfg.warp_tile > 0``: the flow re-decomposed into per-tile integer
+    shifts (``tile_warp_select``, clipped at +-16) and a residual clamped
+    to max(bounded_warp, 2) px (``warp_bounded``), applied as the one set
+    of gather taps that ``tile_bounded_taps`` composes; else
+    ``cfg.bounded_warp > 0``: the bounded-residual warp alone; else the
+    bilinear gather warp ``warp_backward``."""
+    if cfg.warp_tile > 0:
+        rb = max(cfg.bounded_warp, 2)
+
+        def warp(img, fl):
+            tile_int, res = decompose_flow(fl, cfg.warp_tile)
+            h, w = img.shape[-2], img.shape[-1]
+            return warp_taps(img, tile_bounded_taps(tile_int, res.clamp(-rb, rb), cfg.warp_tile, rb, h, w))
+
+    elif cfg.bounded_warp > 0:
+
+        def warp(img, fl):
+            return warp_bounded(img, fl, cfg.bounded_warp)
+
+    else:
+        warp = warp_backward
     ref_derivs = derivatives(ref)  # constant across iterations
     flow = flow0
     for _ in range(cfg.iterations):
-        warped = warp_bounded(moved, flow, cfg.bounded_warp)
-        flow = flow + lk_step(ref, warped, cfg, ref_derivs)
+        flow = flow + lk_step(ref, warp(moved, flow), cfg, ref_derivs)
+    return flow
+
+
+def pyrlk_flow(ref: torch.Tensor, moved: torch.Tensor, cfg: FlowConfig = FlowConfig()) -> torch.Tensor:
+    """Pyramidal dense LK optical flow, the ``pyrlk`` backend: flows
+    (..., H, W, 2) as (dy, dx) with moved(x + flow) ~= ref(x), for ref
+    (..., H, W) broadcasting against moved (..., H, W). Each level refines
+    with ``LKConfig(half_window, iterations, warp_tile=16)``, whose
+    window sums are the bf16 ones (``LKConfig.bf16``)."""
+    lk = LKConfig(half_window=cfg.lk_half_window, iterations=cfg.lk_iterations, warp_tile=16)
+    ref_pyr, mov_pyr = [ref], [moved]
+    for _ in range(cfg.pyramid_levels - 1):
+        ref_pyr.append(downsample2(ref_pyr[-1]))
+        mov_pyr.append(downsample2(mov_pyr[-1]))
+    top = mov_pyr[-1]
+    lead = torch.broadcast_shapes(ref_pyr[-1].shape, top.shape)
+    flow = top.new_zeros(lead + (2,))
+    for level in range(cfg.pyramid_levels - 1, -1, -1):
+        if level != cfg.pyramid_levels - 1:
+            h, w = ref_pyr[level].shape[-2:]
+            flow = resize(flow, h, w, "bilinear") * 2.0
+        flow = lk_refine(ref_pyr[level], mov_pyr[level], flow, lk)
     return flow

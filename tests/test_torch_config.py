@@ -11,7 +11,8 @@ from multi_frame_super_resolution_tpu_torch import config
 
 COPIED = [
     "AlignConfig", "LKConfig", "RobustnessConfig", "MergeConfig", "RegistrationConfig",
-    "PREALIGN_FAST", "HandheldConfig", "DarkChannelConfig", "PolarDefogConfig",
+    "PREALIGN_FAST", "HandheldConfig", "DarkChannelConfig", "PolarDefogConfig", "BTVConfig",
+    "FlowConfig",
 ]
 
 

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: each Hopper kernel (RGB merge in
 its three forms, tile warp, tile search, RAW merge at scales 1-4, defog)
-against its plain PyTorch version, and the RGB, RAW and defog paths on
-the card against the port on the CPU. They skip without a CUDA device.
+against its plain PyTorch version, and the RGB, RAW, defog and BTV-L1
+paths on the card against the port on the CPU. They skip without a CUDA
+device.
 
 This file imports no JAX, so the GPU host (which has none) runs it
 without the suite's conftest:
@@ -24,6 +25,7 @@ from torch_parity import (
     search_inputs,
     tied_minima,
     tt,
+    ulp_perturbed,
 )
 
 from multi_frame_super_resolution_tpu_torch.config import (
@@ -35,11 +37,14 @@ from multi_frame_super_resolution_tpu_torch.config import (
     RGB_DEFAULT_NOPRE,
     RGB_PALLAS,
     AlignConfig,
+    BTVConfig,
+    FlowConfig,
     MergeConfig,
     PolarDefogConfig,
 )
 from multi_frame_super_resolution_tpu_torch.data import (
     CITY_ANGLES,
+    synthetic_burst,
     synthetic_polar_pair,
     synthetic_raw_burst,
     synthetic_rgb_burst,
@@ -53,7 +58,7 @@ from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
 from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
 from multi_frame_super_resolution_tpu_torch.kernels.tile_search import tile_search
 from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp, tile_warp_block
-from multi_frame_super_resolution_tpu_torch.models import fast_merge
+from multi_frame_super_resolution_tpu_torch.models import btvl1, fast_merge
 from multi_frame_super_resolution_tpu_torch.models.defog import polar_defog
 from multi_frame_super_resolution_tpu_torch.models.handheld import (
     handheld_superres,
@@ -62,6 +67,7 @@ from multi_frame_super_resolution_tpu_torch.models.handheld import (
 )
 from multi_frame_super_resolution_tpu_torch.ops import warp_fast
 from multi_frame_super_resolution_tpu_torch.registration import tiles
+from multi_frame_super_resolution_tpu_torch.registration.optical_flow import create_optical_flow
 
 
 def _merge_inputs(rng, f, h, w):
@@ -558,3 +564,64 @@ def test_cascade_and_defaults_on_card_match_cpu():
     got = nn(handheld_superres(tt(burst, dev)))
     assert LAUNCHES["merge_fast"] == 1
     assert psnr(got, nn(handheld_superres(tt(burst), device="cpu"))) >= 60.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pyrlk", "farneback", "tvl1", "brox"])
+def test_flows_on_card_match_cpu(method):
+    """Each flow backend at the default FlowConfig on a 48 x 64 pair (two
+    alternates in one call), on the card against the port on the CPU:
+    within 1e-3 px; pyrlk, whose bf16 LK window sums round either way
+    where a value lies within float32 rounding of a bf16 boundary, within
+    twice the CPU run's own spread under one-ulp input perturbations (the
+    rule of test_torch_flow.py against JAX)."""
+    dev = cuda_device()
+    burst, _ = synthetic_burst(np.random.default_rng(0), 3, 48, 64, 2.5)
+    fn = create_optical_flow(FlowConfig(method=method))
+    want = nn(fn(tt(burst[0]), tt(burst[1:])))
+    got = nn(fn(tt(burst[0], dev), tt(burst[1:], dev)))
+    diff = np.abs(got - want)
+    if method != "pyrlk":
+        assert diff.max() <= 1e-3
+        return
+    rng = np.random.default_rng(5)
+    spreads = [np.abs(nn(fn(tt(ulp_perturbed(burst[0], rng)), tt(ulp_perturbed(burst[1:], rng)))) - want)
+               for _ in range(2)]
+    assert diff.max() <= 2.0 * max(x.max() for x in spreads)
+    assert diff.mean() <= 2.0 * max(x.mean() for x in spreads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [True, False])
+def test_btvl1_with_injected_flows_on_card_matches_cpu(fast):
+    """The BTV-L1 solver alone (flows injected, RGB, a ragged 26 x 46, 10
+    iterations), on the card against the port on the CPU."""
+    dev = cuda_device()
+    gray, _ = synthetic_burst(np.random.default_rng(0), 3, 26, 46, 2.0)
+    burst = np.stack([gray, gray**1.1, gray**0.9], axis=-1).astype(np.float32)
+    flows = (np.random.default_rng(3).standard_normal((3, 26, 46, 2)) * 1.5).astype(np.float32)
+    cfg = BTVConfig(fast=fast)
+    want = nn(btvl1.btvl1_superres(tt(burst), 1, cfg, flows=tt(flows), device="cpu"))
+    out = btvl1.btvl1_superres(tt(burst), 1, cfg, flows=tt(flows))
+    assert out.device == dev
+    assert psnr(nn(out), want) >= 60.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["pyrlk", "farneback", "tvl1", "brox"])
+def test_btvl1_video_on_card_matches_cpu(method):
+    """btvl1_video with each flow backend on a 3 x 48 x 64 x 3 burst (its
+    default device, cuda:0, and no kernel launched), against the port on
+    the CPU."""
+    dev = cuda_device()
+    gray, _ = synthetic_burst(np.random.default_rng(1), 3, 48, 64, 2.0)
+    burst = np.stack([gray, gray**1.1, gray**0.9], axis=-1).astype(np.float32)
+    cfg = BTVConfig(optical_flow=method)
+    want = nn(btvl1.btvl1_video(tt(burst), cfg, device="cpu"))
+    LAUNCHES.clear()
+    out = btvl1.btvl1_video(tt(burst), cfg)
+    assert out.device == dev and not any(LAUNCHES.values())
+    got = nn(out)
+    assert got.shape == (3, 96, 128, 3) and np.isfinite(got).all()
+    assert psnr(got, want) >= 60.0
+

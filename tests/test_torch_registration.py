@@ -183,9 +183,21 @@ def test_lk_refine(rng, bf16):
 
 
 def test_lk_refine_rejects_gather_warp(rng):
-    x = tt(rng.random((8, 8)).astype(np.float32))
-    with pytest.raises(ValueError, match="bounded"):
-        lucas_kanade.lk_refine(x, x[None], x.new_zeros((1, 8, 8, 2)), LKConfig())
+    """LKConfig() (no bounded warp, no tile decomposition) selects the
+    bilinear gather warp; lk_refine rejected it until it was ported. At
+    the defaults, on a ragged 21 x 27 pair with flows of up to +-4 px, a
+    reference (H, W) broadcast against two moving frames: the flows are
+    not clamped (a 2 px bounded warp gives others) and agree with the
+    jitted JAX function within the bf16 window sums' tolerance of
+    test_lk_refine (test_torch_flow.py holds the branch at set fields)."""
+    x = rng.random((3, 21, 27)).astype(np.float32)
+    flow0 = (rng.random((2, 21, 27, 2)) * 8.0 - 4.0).astype(np.float32)
+    ref_fn = jax.jit(jax.vmap(lambda g, fl: jlk.lk_refine(jnp.asarray(x[0]), g, fl)))
+    want = nn(ref_fn(jnp.asarray(x[1:]), jnp.asarray(flow0)))
+    got = nn(lucas_kanade.lk_refine(tt(x[0]), tt(x[1:]), tt(flow0), LKConfig()))
+    bounded = nn(lucas_kanade.lk_refine(tt(x[0]), tt(x[1:]), tt(flow0), LKConfig(bounded_warp=2)))
+    assert np.abs(bounded - got).max() > 0.1
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
 
 
 def test_robustness_mask(rng):

@@ -41,6 +41,14 @@ def psnr(a, b, peak: float = 1.0) -> float:
     return float("inf") if mse == 0.0 else 10.0 * np.log10(peak * peak / mse)
 
 
+def ulp_perturbed(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """float32 ``x`` with each value moved by -1, 0 or +1 ulp at random: an
+    input that float32 rounding alone could have produced instead."""
+    step = rng.integers(-1, 2, x.shape)
+    up, down = np.nextafter(x, np.float32(np.inf)), np.nextafter(x, np.float32(-np.inf))
+    return np.where(step > 0, up, np.where(step < 0, down, x)).astype(np.float32)
+
+
 def to_jax(cfg):
     """The JAX package's config of the same class name as the port's
     ``cfg``, rebuilt field by field (nested configs too); other values
