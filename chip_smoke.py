@@ -11,11 +11,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 3. Kernel checks, each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, inputs from a seed:
    - merge (csrc/merge.cu): F=5, 256 x 512, radius 1, residual bound 1,
-     in its three forms: interleaved at scale 2, k_max 1, taps at e^-6
+     in its four forms: interleaved at scale 2, k_max 1, taps at e^-6
      (the use_pallas branch); the phase layout at e^-1.5 at scale 2,
      k_max 1 and at scale 4, k_max 4 (the default branch, RGB_DEFAULT and
-     scale 4); rtol and atol 1e-5; and the order-1 moments at scale 2
-     (rgb_order=1), rtol and atol 1e-4 (ORDER1_TOL);
+     scale 4); rtol and atol 1e-5; the plugin solve's order-1 moments at
+     scale 2 (rgb_order=1) and the exact solve's 9 moments at scales 2
+     and 4 (RGB_EXACT), rtol and atol 1e-4 (ORDER1_TOL);
    - tile warp (csrc/tile_warp.cu): 4 frames x 4 CFA planes of 128 x 256,
      T=16; separable map with shifts in +-20 (the +-16 clip acts), block
      map with shifts in +-5; and RAW_SCALE4's warp at T=8 (8 frames x 5
@@ -35,7 +36,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    - RAW merge (csrc/merge_raw.cu): 128 x 256 half-res, the RAW path's
      21 taps: F=5 at scales 1, 2 (the main path) and 3, k_max (s/2)^2;
      F=9 at scale 4, k_max 4, wider R/B kernels (RAW_SCALE4); rtol and
-     atol 1e-5;
+     atol 1e-5; its order-0 form (RAW_ORDER0) at S=2 (F=5) and S=4
+     (F=9), rtol and atol 1e-5, and its 9-moment form (RAW_EXACT) at the
+     same shapes, ORDER1_TOL;
    - defog (csrc/defog.cu): 1024 x 1224 x 3, P and A_inf from the seed;
      rtol 1e-5, atol 1e-6 (the kernel is expected to match bit for bit).
 4. Paths on the card, each driven with the launch counts set to 0 just
@@ -66,6 +69,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      pyramid level of each run. RAW_SCALE4 on the 5-15 degree burst of
      phase 3: its agreement with the plain kernels and with the CPU is
      printed without a limit (rounding-ranked tiles move whole tiles).
+   - the correctness bar's paths on the rotated burst (5 x 256 x 512, RAW
+     mosaicked), each -> 512 x 1024 x 3: config.RAW_ORACLE and
+     config.RGB_ORACLE (the gather oracle, fast=False: the tile search is
+     its one kernel of csrc/), config.RAW_EXACT and config.RGB_EXACT (the
+     exact 3x3 solve: the 9-moment merge forms) and config.RAW_ORDER0
+     (the order-0 RAW merge form); and the true-HR PSNR on the card of
+     the oracle, exact, plugin-2 (RAW_BENCH with plugin_iters=2), default
+     (RAW_BENCH) and demosaic + bicubic rows on data.true_hr_burst (the
+     tracked city scene, 5 x 256 x 512 RAW at factor 2), printed without
+     a limit;
    - btvl1_video (models/btvl1.py, plain PyTorch: BTV-L1 reaches no kernel
      of csrc/, as the JAX path reaches no Pallas kernel) at the app's
      configuration, BTVConfig(scale=2, iterations=10, temporal_radius=1),
@@ -112,7 +125,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 The last lines are a JSON line of the kernels (each kernel's entry holds
 the variant its main path runs, and every timed variant under
-"variants"), the card line, and {"ok": true, "device": {...}}.
+"variants"; the three forms of the correctness bar's paths have entries
+of their own, their launches from their paths' runs), the card line, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -153,7 +168,7 @@ KERNELS = {  # name -> (source, the TPU kernel or JAX function it replaces)
 # the profiler's names of the kernels' __global__ functions
 KERNEL_SYMBOLS = {
     "merge_fast": "merge_fast_kernel", "tile_warp": "tile_warp_kernel",
-    "tile_search": "tile_search_kernel", "merge_raw": "merge_raw_kernel",
+    "tile_search": "tile_search_kernel", "merge_raw": "merge_raw",  # both RAW kernels
     "defog": "defog_kernel",
 }
 # each kernel's stage in the profile
@@ -179,6 +194,11 @@ WORK = {
     # moments of 3 channels as FMAs 24; per column 1 / 2, per row 4 / 2,
     # per tap 7 / 4: 4 + 2 + 24 + 0.5 + 2 + 1.75
     "merge_fast order 1": (34.25, 1),
+    # order 1 with 9 slots at s = 2: the quadratic 4 + 1 exp, w dy, w dx
+    # and their three products 5, nine moments of 3 channels as FMAs 54;
+    # per column 1 / 2, per row 4 / 2, per tap 7 / 4
+    "merge_fast 9 slots": (4 + 5 + 54 + 0.5 + 2 + 1.75, 1),
+    "merge_fast 9 slots s=4": (4 + 5 + 54 + 0.25 + 1 + 0.4375, 1),
     # per (frame, half-res pixel, tap, phase): two quadratics 8 + 2 exp,
     # two chain triples 10, four parities 2 FMAs each 16; per column dx 1
     # / S rows; per row dy, dy^2 and four products 6 / S columns; per tap
@@ -187,6 +207,15 @@ WORK = {
     "merge_raw S=1": (34 + 1 + 6 + 4, 2),
     "merge_raw S=3": (34 + 1 / 3 + 2 + 4 / 9, 2),
     "merge_raw S=4": (34 + 0.25 + 1.5 + 0.25, 2),
+    # order 0: two quadratics 8 + 2 exp, four parities' w c, w c v and two
+    # sums 16; per column 1 / S, per row 6 / S, per tap 4 / S^2
+    "merge_raw order 0": (8 + 16 + 0.5 + 3 + 1, 2),
+    "merge_raw order 0 S=4": (8 + 16 + 0.25 + 1.5 + 0.25, 2),
+    # 9 slots: two quadratics 8 + 2 exp; four parities' w c, w c v, dy^2,
+    # dy dx, dx^2 and nine sums as FMAs 4 x 23; per parity row (column)
+    # the blended residual and its displacement 8 / S (columns, rows)
+    "merge_raw 9 slots": (8 + 92 + 8 / 2 + 8 / 2, 2),
+    "merge_raw 9 slots S=4": (8 + 92 + 8 / 4 + 8 / 4, 2),
     # per element: A, t and R with their clips
     "defog": (11, 0),
     # per (frame, tile, offset, pixel): the cross term's multiply-add
@@ -304,9 +333,14 @@ def main() -> int:
     from multi_frame_super_resolution_tpu_torch.config import (
         PORT_DEFAULT,
         RAW_BENCH,
+        RAW_EXACT,
+        RAW_ORACLE,
+        RAW_ORDER0,
         RAW_PORT_DEFAULT,
         RAW_SCALE4,
         RGB_DEFAULT,
+        RGB_EXACT,
+        RGB_ORACLE,
         RGB_PALLAS,
         AlignConfig,
         BTVConfig,
@@ -323,6 +357,7 @@ def main() -> int:
         synthetic_polar_pair,
         synthetic_raw_burst,
         synthetic_rgb_burst,
+        true_hr_burst,
         write_burst,
     )
     from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
@@ -336,6 +371,8 @@ def main() -> int:
     from multi_frame_super_resolution_tpu_torch.models import defog as mdefog
     from multi_frame_super_resolution_tpu_torch.models import fast_merge, handheld
     from multi_frame_super_resolution_tpu_torch.ops import warp_fast
+    from multi_frame_super_resolution_tpu_torch.ops.debayer import debayer
+    from multi_frame_super_resolution_tpu_torch.ops.geometry import upscale
     from multi_frame_super_resolution_tpu_torch.ops.warp_fast import interleave_phases_planes
     from multi_frame_super_resolution_tpu_torch.registration import align, tiles
     from multi_frame_super_resolution_tpu_torch.registration.prealign import estimate_burst_similarity
@@ -398,12 +435,23 @@ def main() -> int:
         ("phase layout, e^-1.5, s=4", (4, 1, 1.0, 4.0), phase, "merge_fast s=4", KERNEL_TOL),
         ("order 1, e^-1.5 (rgb_order=1)", (2, 1, 1.0, 1.0),
          dict(phase, order=1), "merge_fast order 1", ORDER1_TOL),
+        ("9 slots, e^-1.5 (RGB_EXACT)", (2, 1, 1.0, 1.0),
+         dict(phase, order=1, moment_slots=9), "merge_fast 9 slots", ORDER1_TOL),
+        ("9 slots, e^-1.5, s=4", (4, 1, 1.0, 4.0),
+         dict(phase, order=1, moment_slots=9), "merge_fast 9 slots s=4", ORDER1_TOL),
     ]
+    # (label, inputs, args, keyword args, WORK key, tolerance)
+    raw4_args = (cfa, 4, 1, 1.0, 4.0, prune)
+    order0, slots9 = dict(order=0), dict(order=1, moment_slots=9)
     raw_variants = [
-        ("S=2 (RAW_BENCH)", raw_ins, raw_args, "merge_raw"),
-        ("S=1", raw_ins, (cfa, 1, 1, 1.0, 0.25, prune), "merge_raw S=1"),
-        ("S=3", raw_ins, (cfa, 3, 1, 1.0, 2.25, prune), "merge_raw S=3"),
-        ("S=4, F=9 (RAW_SCALE4)", raw9_ins, (cfa, 4, 1, 1.0, 4.0, prune), "merge_raw S=4"),
+        ("S=2 (RAW_BENCH)", raw_ins, raw_args, {}, "merge_raw", KERNEL_TOL),
+        ("S=1", raw_ins, (cfa, 1, 1, 1.0, 0.25, prune), {}, "merge_raw S=1", KERNEL_TOL),
+        ("S=3", raw_ins, (cfa, 3, 1, 1.0, 2.25, prune), {}, "merge_raw S=3", KERNEL_TOL),
+        ("S=4, F=9 (RAW_SCALE4)", raw9_ins, raw4_args, {}, "merge_raw S=4", KERNEL_TOL),
+        ("order 0, S=2 (RAW_ORDER0)", raw_ins, raw_args, order0, "merge_raw order 0", KERNEL_TOL),
+        ("order 0, S=4, F=9", raw9_ins, raw4_args, order0, "merge_raw order 0 S=4", KERNEL_TOL),
+        ("9 slots, S=2 (RAW_EXACT)", raw_ins, raw_args, slots9, "merge_raw 9 slots", ORDER1_TOL),
+        ("9 slots, S=4, F=9", raw9_ins, raw4_args, slots9, "merge_raw 9 slots S=4", ORDER1_TOL),
     ]
     iper_np, ipar_np = synthetic_polar_pair(rng, DEFOG_H, DEFOG_W)
     defog_ins = [torch.from_numpy(x).to(dev) for x in (
@@ -495,8 +543,8 @@ def main() -> int:
     def merge_call(fn, args, kw):
         return lambda: fn(*rgb_ins, *args, **kw)
 
-    def raw_call(fn, ins, args):
-        return lambda: fn(*ins, *args)
+    def raw_call(fn, ins, args, kw):
+        return lambda: fn(*ins, *args, **kw)
 
     calls = {  # name -> [(label, kernel call, plain call, tolerance)]
         "merge_fast": [(f"merge {label}", merge_call(kmerge.merge_fast, args, kw),
@@ -512,9 +560,9 @@ def main() -> int:
              lambda: (plain_tile_warp(w_imgs, w_shifts, w_t, **w_kw),), EXACT),
         ],
         "tile_search": [check for case in search_cases for check in search_checks(*case)],
-        "merge_raw": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args),
-                       raw_call(fast_merge.merge_burst_raw_planes, ins, args), KERNEL_TOL)
-                      for label, ins, args, _ in raw_variants],
+        "merge_raw": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
+                       raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
+                      for label, ins, args, kw, _, tol in raw_variants],
         "defog": [("defog", lambda: kdefog.defog(*defog_ins),
                    lambda: kdefog.defog_pixels(*defog_ins), DEFOG_TOL)],
     }
@@ -559,7 +607,7 @@ def main() -> int:
          city_search[1][2][..., 0].numel() * (2 * city_search[2] + 1) ** 2 * city_search[4] ** 2, "tile_search"),
         *(("merge_raw", f"merge_raw {label}", ins,
            ins[0].shape[0] * hh * hw * n_taps(args[1], args[4], args[5]) * args[1] ** 2, key)
-          for label, ins, args, key in raw_variants),
+          for label, ins, args, _, key, _ in raw_variants),
         ("defog", "defog", defog_ins, DEFOG_H * DEFOG_W * 3, "defog"),
     ]
     # the variant each kernel's main path runs: its entry in the kernels line
@@ -702,7 +750,7 @@ def main() -> int:
     stats = []
     noise_stat = handheld.temporal_noise_stat
 
-    def recording_stat(gray, residual):
+    def recording_stat(gray, residual=None):
         stat = noise_stat(gray, residual)
         stats.append(float(stat))
         return stat
@@ -751,6 +799,50 @@ def main() -> int:
     del city_out, raw9_city  # out of the timed paths' peak memory
     if cascade_launches["merge_raw"] != 2:
         raise RuntimeError(f"the cascade launched merge_raw {cascade_launches['merge_raw']} times, not 2")
+
+    # the correctness bar's paths (PARITY.md): the gather oracle, whose one
+    # kernel of csrc/ is the tile search, the exact 3x3 solve through the
+    # 9-moment merge forms, and the RAW order-0 merge form
+    bar_paths = (
+        ("raw (RAW_ORACLE)", handheld.handheld_superres_raw, raw_rot, RAW_ORACLE, (), raw_small_rot),
+        ("raw (RAW_EXACT)", handheld.handheld_superres_raw, raw_rot, RAW_EXACT, ("tile_warp", "merge_raw"),
+         raw_small_rot),
+        ("raw (RAW_ORDER0)", handheld.handheld_superres_raw, raw_rot, RAW_ORDER0, ("tile_warp", "merge_raw"),
+         raw_small_rot),
+        ("rgb (RGB_ORACLE)", handheld.handheld_superres, rgb_burst, RGB_ORACLE, (), rgb_small),
+        ("rgb (RGB_EXACT)", handheld.handheld_superres, rgb_burst, RGB_EXACT, ("merge_fast", "tile_warp"), rgb_small),
+    )
+    bar_launches = {}
+    for label, fn, burst, cfg, expect, small in bar_paths:
+        bar_launches[label] = check_slice(label, fn, burst, cfg, expect, small)
+        if set(bar_launches[label]) != set(expect) | {"tile_search"}:
+            raise RuntimeError(f"{label} launched {bar_launches[label]}, expected {expect} and the tile search")
+        if any(bar_launches[label][k] != 1 for k in expect):
+            raise RuntimeError(f"{label} launched {bar_launches[label]}, each of {expect} once expected")
+
+    # the correctness bar on the card: true-HR PSNR (16 px margin) of each
+    # row on data.true_hr_burst, beside PARITY.md's (another scene); no limit
+    raw_hr_np, hr_np = true_hr_burst()
+    raw_hr, hr = torch.from_numpy(raw_hr_np).to(dev), torch.from_numpy(hr_np).to(dev)
+
+    def hr_psnr(sr, margin=16):
+        return psnr(sr[margin:-margin, margin:-margin], hr[margin:-margin, margin:-margin])
+
+    bar_rows = (
+        ("oracle (RAW_ORACLE)", RAW_ORACLE, "28.09"),
+        ("fast + exact 3x3 solve (RAW_EXACT)", RAW_EXACT, "27.90"),
+        ("fast + plugin, 2 iterations", dataclasses.replace(RAW_BENCH, merge=MergeConfig(plugin_iters=2)), "27.84"),
+        ("fast default (RAW_BENCH)", RAW_BENCH, "27.75"),
+    )
+    for label, cfg, parity_db in bar_rows:
+        sr = handheld.handheld_superres_raw(raw_hr, cfg)
+        check_output(f"true-HR {label}", sr, tuple(hr.shape))
+        print(f"correctness bar {label}: true-HR PSNR {hr_psnr(sr):.4f} dB on {tuple(raw_hr.shape)} -> "
+              f"{tuple(sr.shape)} (PARITY.md, another scene: {parity_db} dB)  [{card}]")
+    base = upscale(debayer(raw_hr[0], cfa), 2, "bicubic").clamp(0.0, 1.0)
+    print(f"correctness bar demosaic + bicubic (frame 0): true-HR PSNR {hr_psnr(base):.4f} dB "
+          f"(tests/test_fidelity.py, another scene: 25.39 dB)  [{card}]")
+    del raw_hr, hr, sr, base
 
     # BTV-L1 (models/btvl1.py) at the app's configuration, each flow on the
     # city burst (rgb_np is synthetic_dataset_burst("city")): plain
@@ -893,6 +985,7 @@ def main() -> int:
         ("rgb order 1", handheld.handheld_superres, rgb_burst, rgb_order1),
         ("raw (RAW_SCALE4)", handheld.handheld_superres_raw, raw9, RAW_SCALE4),
         ("raw cascade (RAW_SCALE4)", cascade, raw5, RAW_SCALE4),
+        *((label, fn, burst, cfg) for label, fn, burst, cfg, *_ in bar_paths),
     )
     slice_ms = [time_slice(label, fn, burst, cfg) for label, fn, burst, cfg in paths]
 
@@ -951,12 +1044,34 @@ def main() -> int:
         ("merge_fast", default_launches), ("tile_warp", bench_launches),
         ("tile_search", bench_launches), ("merge_raw", bench_launches),
         ("defog", defog_launches),
+    )] + [{
+        # a form of the correctness bar's paths: its launches in its path's run
+        "name": form,
+        "route": "cuda",
+        "source": KERNELS[name][0],
+        "replaces": replaces,
+        "launches": bar_launches[path].get(name, 0),
+        **numbers(labels[0]),
+        "max_abs_err": max(max_abs_err[label] for label in labels),
+        "library_ms": None,
+        "variant": labels[0],
+        "variants": [{"label": label, **numbers(label)} for label in labels],
+        "path": path,
+    } for form, name, replaces, path, labels in (
+        ("merge_fast 9 slots", "merge_fast", "multi_frame_super_resolution_tpu/models/fast_merge.py:80",
+         "rgb (RGB_EXACT)", ["merge 9 slots, e^-1.5 (RGB_EXACT)", "merge 9 slots, e^-1.5, s=4"]),
+        ("merge_raw order 0", "merge_raw", KERNELS["merge_raw"][1], "raw (RAW_ORDER0)",
+         ["merge_raw order 0, S=2 (RAW_ORDER0)", "merge_raw order 0, S=4, F=9"]),
+        ("merge_raw 9 slots", "merge_raw", KERNELS["merge_raw"][1], "raw (RAW_EXACT)",
+         ["merge_raw 9 slots, S=2 (RAW_EXACT)", "merge_raw 9 slots, S=4, F=9"]),
     )]}))
     print(f"launches per path: defog {defog_launches}, rgb pallas {rgb_launches}, "
           f"rgb port default {rgb_default_launches}, raw bench {bench_launches}, "
           f"raw default {raw_launches}, raw windows {win_launches}, rgb default {default_launches}, "
           f"rgb scale 4 {scale4_launches}, rgb order 1 {order1_launches}, raw scale 4 {raw4_launches}, "
-          f"raw cascade {cascade_launches}; btvl1_video (no kernel of csrc/ on its path) "
+          f"raw cascade {cascade_launches}, "
+          + ", ".join(f"{label} {launches}" for label, launches in bar_launches.items())
+          + "; btvl1_video (no kernel of csrc/ on its path) "
           + ", ".join(f"{flow} {launches}" for flow, launches in btv_launches.items()))
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -997,23 +1112,28 @@ def device_time(call, symbol: str | None = None, iters: int = 20) -> tuple:
     ``symbol`` (with None: of all the device work) over ``iters`` calls
     under torch.profiler: the kernel alone, without the host's launch
     cost that a loop timed with events includes when the wrapper is
-    slower than the kernel."""
+    slower than the kernel. A profile that recorded no device work at all
+    (seen once in a run of many profiles) is taken again, with a note,
+    up to twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    if symbol is None:
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    else:
-        rows = [e for e in prof.key_averages() if symbol in e.key]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        device_rows = [e for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        rows = device_rows if symbol is None else [e for e in device_rows if symbol in e.key]
+        if rows or device_rows:
+            break
+        print(f"device_time: profile {attempt + 1} of {symbol or 'the call'} recorded no device work; again")
     if not rows:
-        raise RuntimeError(f"the profiler saw no {symbol or 'device work'}")
+        raise RuntimeError(f"the profiler saw no {symbol or 'device work'} among "
+                           f"{[e.key[:80] for e in device_rows]}")
     return sum(e.self_device_time_total for e in rows) / iters / 1e3, sum(e.count for e in rows) / iters
 
 

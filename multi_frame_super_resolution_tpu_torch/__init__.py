@@ -19,7 +19,11 @@ without pre-alignment, with the windows-branch alignment, at
 ``models.handheld.handheld_superres`` on its default branch
 (``config.RGB_DEFAULT``, order 0 or ``rgb_order=1``, scales 1-4) and on
 its ``use_pallas`` branch (``config.RGB_PALLAS``), with or without
-pre-alignment; the polarization defog with its app; and BTV-L1
+pre-alignment; the gather oracle of both entry points (``fast=False``:
+``config.RAW_ORACLE``, ``config.RGB_ORACLE``), the exact 3x3 solve on
+both fast paths (``config.RAW_EXACT``, ``config.RGB_EXACT``) and the RAW
+order-0 merge (``config.RAW_ORDER0``); the polarization defog with its
+app; and BTV-L1
 multi-frame super-resolution (``models.btvl1``) with its four dense
 optical flows (``registration.optical_flow``), the PNG burst loader
 (``data.load_burst``) and the ``multi_frame_sr`` and ``runall`` apps

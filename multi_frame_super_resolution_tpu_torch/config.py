@@ -220,6 +220,16 @@ RAW_SCALE4 = HandheldConfig(
     merge=MergeConfig(k_min_rb=0.5),
 )
 
+# the correctness bar's configurations (PARITY.md): bench.py's RAW
+# configuration on the gather oracle, with the exact 3x3 solve, and with
+# the order-0 merge; the RGB default on the oracle, and its default
+# branch with the exact solve of the order-1 merge
+RAW_ORACLE = dataclasses.replace(RAW_BENCH, fast=False)
+RAW_EXACT = dataclasses.replace(RAW_BENCH, merge=MergeConfig(solver="exact"))
+RAW_ORDER0 = dataclasses.replace(RAW_BENCH, merge=MergeConfig(order=0))
+RGB_ORACLE = HandheldConfig(fast=False)
+RGB_EXACT = HandheldConfig(merge=MergeConfig(rgb_order=1, solver="exact"))
+
 _REMAP_METHODS = ("bilinear", "bicubic", "nearest")
 
 
@@ -227,8 +237,8 @@ def _common_unsupported(cfg: HandheldConfig) -> List[str]:
     bad = []
     if cfg.prealign and cfg.prealign_cfg.logpolar_interp not in _REMAP_METHODS:
         bad.append(f"prealign_cfg.logpolar_interp={cfg.prealign_cfg.logpolar_interp!r}")
-    if not cfg.fast:
-        bad.append("fast=False")
+    if cfg.merge.solver not in ("plugin", "exact"):
+        bad.append(f"merge.solver={cfg.merge.solver!r}")
     if cfg.use_consistency:
         bad.append("use_consistency=True")
     if not cfg.warp_matmul:
@@ -257,15 +267,10 @@ def check_supported(cfg: HandheldConfig) -> None:
     if cfg.rgb_half_stats:
         bad.append("rgb_half_stats=True")
     rgb_order = m.order if m.rgb_order is None else m.rgb_order
-    if m.use_pallas and rgb_order == 1:
+    if cfg.fast and m.use_pallas and rgb_order == 1:
         # the JAX function raises here too: its Pallas merge is order 0
         bad.append("merge.rgb_order=1 with merge.use_pallas=True")
-    if not m.use_pallas and rgb_order == 1 and m.solver == "exact":
-        bad.append(
-            "merge.rgb_order=1 with merge.solver='exact' (its 9-slot merge and "
-            "solve_order1 are not ported yet)"
-        )
-    if not m.use_pallas and m.bf16:
+    if cfg.fast and not m.use_pallas and m.bf16:
         # bf16 accumulation changes the JAX default branch's function
         bad.append("merge.bf16=True")
     if not 1 <= cfg.scale <= 4:
@@ -278,10 +283,9 @@ def check_supported_raw(cfg: HandheldConfig) -> None:
     path the port does not implement."""
     bad = _common_unsupported(cfg)
     m = cfg.merge
-    if m.order == 0:
-        bad.append("merge.order=0")
-    if m.solver == "exact":
-        bad.append("merge.solver='exact'")
+    if cfg.fast and m.order == 0 and m.bf16:
+        # bf16 accumulation changes the order-0 plane merge's function
+        bad.append("merge.bf16=True")
     if m.centroid_cert:
         bad.append("merge.centroid_cert=True")
     if m.exact_weights:

@@ -4,7 +4,7 @@
 // merge.py::merge_fast_pallas (kernel body _make_kernel), and the default
 // merge branch the JAX package computes in XLA with the same skeleton
 // (models/fast_merge.py::merge_burst_fast with phase_output, order 1 and
-// 4 moment slots). It computes the same function as the plain PyTorch
+// 4 or 9 moment slots). It computes the same function as the plain PyTorch
 // version multi_frame_super_resolution_tpu_torch/models/fast_merge.py::
 // merge_burst_fast: for every input pixel (y, x), every frame f, every
 // static tap (ky, kx) and every output phase (py, px),
@@ -14,16 +14,21 @@
 //   cw  = w * cert_f(y', x', c),  cwv = cw * val_f(y', x', c)
 //
 // with (y', x') = (y + ky, x + kx) clamped to the image (edge semantics),
-// summed into one of three output forms (the taps are the host's list,
+// summed into one of four output forms (the taps are the host's list,
 // so the prune threshold only changes the list):
 //
 //   form 0, order 0, interleaved: num[s*y+py, s*x+px, c] += cwv, den += cw
 //   form 1, order 0, phase layout: num[py, px, c, y, x] += cwv, den += cw
 //   form 2, order 1, phase layout: m00 += cw, m01 += cw dy, m02 += cw dx,
 //     b0 += cwv, each (s, s, 3, H, W): the plugin solve's moments
+//   form 3, order 1, phase layout: m00, m01, m02 as form 2, m11 += cw dy^2,
+//     m12 += cw dy dx, m22 += cw dx^2, b0 += cwv, b1 += cwv dy,
+//     b2 += cwv dx: the exact 3x3 solve's 9 moments (solve_order1)
 //
 // Form 0 is the merge_fast_pallas path; the default RGB branch runs form 1
-// (order 0) or form 2 (order 1).
+// (order 0), form 2 (order 1, plugin solve) or form 3 (order 1,
+// merge.solver='exact'). The outputs of a form are consecutive arrays of
+// s^2 * 3 * H * W floats each (one allocation).
 //
 // Bound, at chip_smoke.py's check (F=5, 256 x 512, s=2, 25 taps): 65.5 M
 // (frame, pixel, tap, phase) items at 20.25 flops and one exp each, every
@@ -102,6 +107,21 @@
 //   62, 64, 117 and 167 registers at s = 1-4, the s = 2 build (four
 //   blocks an SM, 64 registers) spilling 8 bytes; form 2 72, 88, 96 and
 //   113, no spills. Times against their bounds in PERF.md.
+//
+// Form 3 (9 moments): 27 accumulators per phase. A thread holds one
+// phase (a thread per pixel and phase, 27 accumulators at every scale;
+// 27 s per phase row would need ~200 registers at s = 4), and a block is
+// 32 pixels x kTileH rows x s^2 phases: 32 x 8 at s = 1, 32 x 2 x 4 at
+// s = 2 (256 threads), 32 x 1 x 9 (288) at s = 3 and 32 x 1 x 16 (512)
+// at s = 4, where one pixel row stages 3-5 rows of halo. Per item it
+// forms w dy, w dx and their three products once and adds nine FMAs per
+// channel. Its bound at chip_smoke.py's check (F=5, 256 x 512, s=2, the
+// 21 taps at e^-1.5): 56.6 MB of moments written and 22.5 MB read
+// (23.6 us at 3.35 TB/s) against 55 M items at 67.25 flops (3.7 GFLOP,
+// 55 us at 67 TFLOP/s): the operations bind. Its moments are checked at
+// rtol/atol 1e-4, as form 2's. Measured (chip_smoke.py; NVIDIA H100 80GB
+// HBM3, 700.00 W): 88, 92, 86 and 88 registers at s = 1-4, no spills;
+// its times against their bounds in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -126,25 +146,27 @@ struct Taps {
   int len[kMaxRuns];     // its taps
 };
 
-// The output arrays: (num, den) in order 0, (m00, m01, m02, b0) in order 1.
-struct Outs {
-  float* p[4];
-};
-
-// The thread layout of a form. Order 0: a thread per input pixel holding
-// all s^2 phases, 32 x 8 pixels a block. Order 1: a thread per pixel and
-// phase row, 32 x tile_h pixels x s phase rows a block.
-template <int S, bool kOrder1>
+// The thread layout of a form. Order 0 (forms 0, 1): a thread per input
+// pixel holding all s^2 phases, 32 x 8 pixels a block. Form 2: a thread
+// per pixel and phase row, 32 x tile_h pixels x s phase rows a block.
+// Form 3: a thread per pixel and phase, 32 x tile_h pixels x s^2 phases.
+template <int S, int kForm>
 struct Layout {
-  static constexpr int kRows = kOrder1 ? 1 : S;  // phase rows a thread holds
-  static constexpr int kZ = kOrder1 ? S : 1;     // threads a pixel
-  static constexpr int kTileH = kOrder1 ? (S == 1 ? 8 : (S == 2 ? 4 : 2)) : 8;
+  static constexpr bool kOrder1 = kForm >= 2;
+  static constexpr bool kPhase = kForm >= 1;  // the phase layout
+  static constexpr int kSlots = kForm == 3 ? 9 : (kOrder1 ? 4 : 2);
+  static constexpr int kRows = kOrder1 ? 1 : S;      // phase rows a thread holds
+  static constexpr int kCols = kForm == 3 ? 1 : S;   // phase columns a thread holds
+  static constexpr int kColGroups = S / kCols;       // threads a phase row
+  static constexpr int kZ = (S / kRows) * kColGroups;  // threads a pixel
+  static constexpr int kTileH = kForm == 3 ? (S == 1 ? 8 : (S == 2 ? 2 : 1))
+                                           : (kOrder1 ? (S == 1 ? 8 : (S == 2 ? 4 : 2)) : 8);
   static constexpr int kThreads = kTileW * kTileH * kZ;
-  static constexpr int kSlots = kOrder1 ? 4 : 2;
   // blocks an SM the launch bound asks for: order 0's s^2 * 6 accumulators
   // grow with s (at s <= 2 four blocks, 64 registers a thread, hold the
-  // 256 x 512 check in one wave); order 1's 12 s stay under 128 registers
-  static constexpr int kMinBlocks = kOrder1 ? 2 : (S <= 2 ? 4 : (S == 3 ? 2 : 1));
+  // 256 x 512 check in one wave); form 2's 12 s and form 3's 27 stay
+  // under 128 registers (form 3 at s = 4: one block of 512 threads)
+  static constexpr int kMinBlocks = kOrder1 ? (kThreads > 288 ? 1 : 2) : (S <= 2 ? 4 : (S == 3 ? 2 : 1));
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -191,7 +213,7 @@ template <int S>
 __device__ __forceinline__ void park_and_store(const float (&acc)[S][S][3], float* park,
                                                float* __restrict__ out, int y0, int x0,
                                                int h, int w, bool inside, int tid) {
-  using L = Layout<S, false>;
+  using L = Layout<S, 0>;
   constexpr int kRow = kTileW * S * 3;  // floats in a parked output row
   if (inside) {
 #pragma unroll
@@ -214,28 +236,31 @@ __device__ __forceinline__ void park_and_store(const float (&acc)[S][S][3], floa
   }
 }
 
-template <int S, bool kOrder1, bool kPhase>
-__global__ void __launch_bounds__(Layout<S, kOrder1>::kThreads, Layout<S, kOrder1>::kMinBlocks)
+template <int S, int kForm>
+__global__ void __launch_bounds__(Layout<S, kForm>::kThreads, Layout<S, kForm>::kMinBlocks)
 merge_fast_kernel(const float* __restrict__ warped,
                   const float* __restrict__ residual,
                   const float* __restrict__ certainty,
                   const float* __restrict__ omega,
-                  const Outs outs,
+                  float* __restrict__ out,
                   int frames, int h, int w, int halo, float rb,
                   const Taps taps) {
-  using L = Layout<S, kOrder1>;
-  static_assert(kPhase || !kOrder1, "order-1 moments are written in the phase layout");
-  constexpr int R = L::kRows;
+  using L = Layout<S, kForm>;
+  constexpr bool kOrder1 = L::kOrder1;
+  constexpr int R = L::kRows, C = L::kCols;
   // two frame buffers: float4 sites [2][sites], then float2 sites [2][sites]
   extern __shared__ float4 smem[];
   const int sw = kTileW + 2 * halo;
   const int sites = (L::kTileH + 2 * halo) * sw;
   float2* smem2 = reinterpret_cast<float2*>(smem + 2 * sites);
 
-  // the thread's phase row in order 1; order 0's blocks are flat, so its
-  // first row is the constant 0 (its phis_y fold into constants)
-  const int row0 = kOrder1 ? (int)threadIdx.z : 0;
-  const int tid = (row0 * L::kTileH + threadIdx.y) * kTileW + threadIdx.x;
+  // the thread's first phase row and column; order 0's blocks are flat,
+  // so both are the constant 0 there (its phis fold into constants), and
+  // form 2's first column is 0
+  const int z = L::kZ == 1 ? 0 : (int)threadIdx.z;
+  const int row0 = (z / L::kColGroups) * R;
+  const int col0 = (z % L::kColGroups) * C;
+  const int tid = (z * L::kTileH + threadIdx.y) * kTileW + threadIdx.x;
   const int y0 = blockIdx.y * L::kTileH, x0 = blockIdx.x * kTileW;
   const int y = y0 + threadIdx.y, x = x0 + threadIdx.x;
   const bool inside = y < h && x < w;
@@ -250,21 +275,21 @@ merge_fast_kernel(const float* __restrict__ warped,
   const float o1 = -0.5f * kL * omega[pix * 3 + 1];
   const float o2 = -kL * omega[pix * 3 + 2];
   // phis[p] = phi[p] * s with phi[p] = (p + 0.5) / s - 0.5, in the f32
-  // operations of fast_merge._output_phase_offsets: every column, and the
-  // thread's rows
-  float phis[S], phis_y[R];
+  // operations of fast_merge._output_phase_offsets: the thread's columns
+  // and rows
+  float phis[C], phis_y[R];
 #pragma unroll
-  for (int p = 0; p < S; ++p) phis[p] = (((float)p + 0.5f) / (float)S - 0.5f) * (float)S;
+  for (int p = 0; p < C; ++p) phis[p] = (((float)(col0 + p) + 0.5f) / (float)S - 0.5f) * (float)S;
 #pragma unroll
   for (int p = 0; p < R; ++p) phis_y[p] = (((float)(row0 + p) + 0.5f) / (float)S - 0.5f) * (float)S;
 
-  float acc[L::kSlots][R][S][3];
+  float acc[L::kSlots][R][C][3];
 #pragma unroll
   for (int k = 0; k < L::kSlots; ++k)
 #pragma unroll
     for (int py = 0; py < R; ++py)
 #pragma unroll
-      for (int px = 0; px < S; ++px)
+      for (int px = 0; px < C; ++px)
 #pragma unroll
         for (int c = 0; c < 3; ++c) acc[k][py][px][c] = 0.0f;
 
@@ -296,11 +321,11 @@ merge_fast_kernel(const float* __restrict__ warped,
       // ky s and kx s
       const float ry = fminf(fmaxf(r.x, -rb), rb);
       const float rx = fminf(fmaxf(r.y, -rb), rb);
-      float ey[R], ex[S];
+      float ey[R], ex[C];
 #pragma unroll
       for (int p = 0; p < R; ++p) ey[p] = ry * (float)S + phis_y[p];
 #pragma unroll
-      for (int p = 0; p < S; ++p) ex[p] = rx * (float)S + phis[p];
+      for (int p = 0; p < C; ++p) ex[p] = rx * (float)S + phis[p];
 #pragma unroll 1
       for (int run = 0; run < taps.n; ++run) {
         // the row's terms, shared by its taps: A = dy^2 o_yy, B = dy o_xy
@@ -320,12 +345,28 @@ merge_fast_kernel(const float* __restrict__ warped,
           const float4 va = pa[k];  // v0 c0, v1 c1, v2 c2, c0
           const float2 vb = pb[k];  // c1, c2
 #pragma unroll
-          for (int px = 0; px < S; ++px) {
+          for (int px = 0; px < C; ++px) {
             const float dx = kxs - ex[px];
 #pragma unroll
             for (int py = 0; py < R; ++py) {
               const float wgt = exp2_approx(fmaf(dx, fmaf(dx, o0, qb[py]), qa[py]));
-              if constexpr (kOrder1) {
+              if constexpr (kForm == 3) {
+                // the nine moments: w dy, w dx and their products once,
+                // then nine FMAs per channel against (c, v c)
+                const float wdy = wgt * dys[py], wdx = wgt * dx;
+                const float wm[6] = {wgt, wdy, wdx, wdy * dys[py], wdy * dx, wdx * dx};
+                const float cs[3] = {va.w, vb.x, vb.y};
+                const float vs[3] = {va.x, va.y, va.z};
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+#pragma unroll
+                  for (int k = 0; k < 6; ++k) acc[k][py][px][c] = fmaf(wm[k], cs[c], acc[k][py][px][c]);
+#pragma unroll
+                  for (int k = 0; k < 3; ++k) {
+                    acc[6 + k][py][px][c] = fmaf(wm[k], vs[c], acc[6 + k][py][px][c]);
+                  }
+                }
+              } else if constexpr (kOrder1) {
                 const float wdy = wgt * dys[py], wdx = wgt * dx;
                 acc[0][py][px][0] = fmaf(wgt, va.w, acc[0][py][px][0]);
                 acc[0][py][px][1] = fmaf(wgt, vb.x, acc[0][py][px][1]);
@@ -355,59 +396,63 @@ merge_fast_kernel(const float* __restrict__ warped,
     __syncthreads();  // this buffer is restaged for frame f + 2 (or parks the outputs)
   }
 
-  if constexpr (kPhase) {
+  const long long slot = (long long)S * S * 3 * plane;  // floats of one output array
+  if constexpr (L::kPhase) {
     // plane (py, px, c) of each output at (y, x): a warp writes 32
-    // consecutive floats of one plane row. The thread's planes of an
-    // output follow each other, so one pointer steps by a plane.
+    // consecutive floats of one plane row. The thread's planes of one
+    // phase row of an output follow each other, so one pointer steps by
+    // a plane.
     if (inside) {
 #pragma unroll
       for (int k = 0; k < L::kSlots; ++k) {
-        float* dst = outs.p[k] + (long long)row0 * S * 3 * plane + (long long)y * w + x;
 #pragma unroll
-        for (int py = 0; py < R; ++py)
+        for (int py = 0; py < R; ++py) {
+          float* dst = out + k * slot + ((long long)(row0 + py) * S + col0) * 3 * plane +
+                       (long long)y * w + x;
 #pragma unroll
-          for (int px = 0; px < S; ++px)
+          for (int px = 0; px < C; ++px)
 #pragma unroll
             for (int c = 0; c < 3; ++c, dst += plane) *dst = acc[k][py][px][c];
+        }
       }
     }
   } else {
-    park_and_store<S>(acc[0], reinterpret_cast<float*>(smem), outs.p[0], y0, x0, h, w, inside, tid);
+    park_and_store<S>(acc[0], reinterpret_cast<float*>(smem), out, y0, x0, h, w, inside, tid);
     __syncthreads();
-    park_and_store<S>(acc[1], reinterpret_cast<float*>(smem), outs.p[1], y0, x0, h, w, inside, tid);
+    park_and_store<S>(acc[1], reinterpret_cast<float*>(smem), out + slot, y0, x0, h, w, inside, tid);
   }
 }
 
-template <int S, bool kOrder1, bool kPhase>
+template <int S, int kForm>
 int launch(const float* warped, const float* residual, const float* certainty,
-           const float* omega, const Outs& outs, int frames, int h, int w, int halo,
+           const float* omega, float* out, int frames, int h, int w, int halo,
            float rb, const Taps& taps, cudaStream_t stream) {
-  using L = Layout<S, kOrder1>;
+  using L = Layout<S, kForm>;
   const int sites = (L::kTileH + 2 * halo) * (kTileW + 2 * halo);
   // two frame buffers, or (form 0) one parked output array, whichever is larger
-  const size_t park = kPhase ? 0 : (size_t)L::kThreads * S * S * 3 * sizeof(float);
+  const size_t park = L::kPhase ? 0 : (size_t)L::kThreads * S * S * 3 * sizeof(float);
   const size_t bytes = std::max((size_t)sites * 2 * (sizeof(float4) + sizeof(float2)), park);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_fast_kernel<S, kOrder1, kPhase>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        merge_fast_kernel<S, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 block(kTileW, L::kTileH, L::kZ);
   const dim3 grid((w + kTileW - 1) / kTileW, (h + L::kTileH - 1) / L::kTileH);
-  merge_fast_kernel<S, kOrder1, kPhase><<<grid, block, bytes, stream>>>(
-      warped, residual, certainty, omega, outs, frames, h, w, halo, rb, taps);
+  merge_fast_kernel<S, kForm><<<grid, block, bytes, stream>>>(
+      warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps);
   return (int)cudaGetLastError();
 }
 
 template <int S>
 int launch_form(int form, const float* warped, const float* residual, const float* certainty,
-                const float* omega, const Outs& outs, int frames, int h, int w, int halo,
+                const float* omega, float* out, int frames, int h, int w, int halo,
                 float rb, const Taps& taps, cudaStream_t stream) {
   switch (form) {
-    case 0: return launch<S, false, false>(warped, residual, certainty, omega, outs, frames, h, w, halo, rb, taps, stream);
-    case 1: return launch<S, false, true>(warped, residual, certainty, omega, outs, frames, h, w, halo, rb, taps, stream);
-    case 2: return launch<S, true, true>(warped, residual, certainty, omega, outs, frames, h, w, halo, rb, taps, stream);
+    case 0: return launch<S, 0>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
+    case 1: return launch<S, 1>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
+    case 2: return launch<S, 2>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
+    case 3: return launch<S, 3>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -419,17 +464,17 @@ extern "C" {
 // Launches the merge on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to contiguous float32 arrays:
 // warped (F, H, W, 3), residual (F, H, W, 2) (8-byte aligned: it is read
-// as float2), certainty (F, H, W, 3), omega (H, W, 3). form 0 writes num
-// and den (S*H, S*W, 3) to out0, out1; form 1 writes them as
-// (S, S, 3, H, W); form 2 writes m00, m01, m02, b0, each (S, S, 3, H, W),
-// to out0..out3. Every output is written in full; forms 0 and 1 ignore
-// out2 and out3. taps_yx is a HOST array of n_taps (ky, kx) pairs, each
+// as float2), certainty (F, H, W, 3), omega (H, W, 3). out holds the
+// form's outputs one after another, S*S*3*H*W floats each: form 0 num and
+// den as (S*H, S*W, 3); form 1 the same as (S, S, 3, H, W); form 2 m00,
+// m01, m02, b0, each (S, S, 3, H, W); form 3 m00, m01, m02, m11, m12,
+// m22, b0, b1, b2, each (S, S, 3, H, W). Every output is written in
+// full. taps_yx is a HOST array of n_taps (ky, kx) pairs, each
 // within +-8, in at most kMaxRuns runs of one row with kx rising by 1
 // (any list of _active_taps is one run per row).
 int mfsr_merge_fast(const void* warped, const void* residual,
-                    const void* certainty, const void* omega, void* out0,
-                    void* out1, void* out2, void* out3, int frames, int h,
-                    int w, int scale, int form, const void* taps_yx, int n_taps,
+                    const void* certainty, const void* omega, void* out, int frames,
+                    int h, int w, int scale, int form, const void* taps_yx, int n_taps,
                     float rb, void* stream) {
   if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || h < 1 || w < 1 ||
       reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
@@ -461,8 +506,7 @@ int mfsr_merge_fast(const void* warped, const void* residual,
   const float* r = static_cast<const float*>(residual);
   const float* c = static_cast<const float*>(certainty);
   const float* o = static_cast<const float*>(omega);
-  const Outs outs = {{static_cast<float*>(out0), static_cast<float*>(out1),
-                      static_cast<float*>(out2), static_cast<float*>(out3)}};
+  float* outs = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (scale) {
     case 1: return launch_form<1>(form, a, r, c, o, outs, frames, h, w, halo, rb, taps, st);

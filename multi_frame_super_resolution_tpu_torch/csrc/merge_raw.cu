@@ -1,5 +1,8 @@
-// RAW plane-domain order-1 merge (certless plugin branch) for Hopper
-// (sm_90a), scales 1-4, Bayer patterns.
+// RAW plane-domain merges for Hopper (sm_90a), scales 1-4, Bayer
+// patterns, in three forms: the order-1 certless plugin branch (form 0,
+// merge_raw_kernel, described first), the order-0 merge (form 1: the same
+// kernel without its centroid chains) and the exact solve's 9 order-1
+// moments (form 2, merge_raw_cells_kernel, described after them).
 //
 // Replaces: the JAX package computes this accumulate outside Pallas
 // (multi_frame_super_resolution_tpu/models/fast_merge.py::
@@ -100,9 +103,65 @@
 // - S = 4: kPX = 2, 32 x 1 pixels x 16 phases in 8 threads (256).
 // Rows of one pixel at S >= 3 keep the block at ~256 threads; its staged
 // halo then costs 3-5 staged rows for one row of pixels. Measured
-// (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 87, 122-126, 92 and
-// 128 registers at S = 1-4, no spills; times against their bounds in
+// (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 87, 122-126, 90-91
+// and 126 registers at S = 1-4, no spills; times against their bounds in
 // PERF.md.
+//
+// Form 1 replaces the JAX function's order-0 branch (fast_merge.py:
+// 433-501, reached from handheld.py:891-899): num = sum w c v and den =
+// sum w c per cell, which are form 0's b0 and m00. So it is form 0's
+// kernel (kChains false): the same loop, layout, staging and rounding,
+// without the centroid chains, storing den and num. Its bound at
+// chip_smoke.py's check (S=2): 12.6 MB written and 6.7 MB read, 5.8 us at
+// 3.35 TB/s, against 27.5 M exp (6.6 us on the SFUs). Measured
+// (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 72, 96, 80 and 108
+// registers at S = 1-4, no spills.
+//
+// Form 2 (merge_raw_cells_kernel) replaces the order-1 branch with
+// moment_slots=9 (_merge_planes_order1 with certless False,
+// fast_merge.py:513-913, the exact 3x3 solve). For each half-res pixel
+// (i, j), output parity (a, b), phase (py, px), tap and frame, with the
+// cell (a, b, ch) as above:
+//
+//   w = w_g or w_rb of the block-centre residual, as above
+//   rho_y = clip((1 - g) ry(i, j) + g ry(i + sgn, j), +-rb) + phi[py]
+//     with g = |a + phi[py] - 0.5| / 2 and sgn its sign (the residual
+//     interpolated at the phase row's place in its Bayer block), rho_x
+//     likewise along x with b and px;
+//   dy = s (ky - rho_y), dx = s (kx - rho_x);
+//   m00 += sum_f w c, m01 += sum_f dy w c, m02 += dx w c,
+//   m11 += dy^2 w c, m12 += dy dx w c, m22 += dx^2 w c,
+//   b0 += sum_f w c v, b1 += dy w c v, b2 += dx w c v
+//
+// summed frame by frame, a frame's taps in group order, and a green
+// cell's two tap groups added at the end (rounding alone differs from the
+// plain version, which sums each tap's frames first and adds the taps in
+// list order). Outputs are nine (2s, 2s, 3, hh, hw) arrays.
+//
+// Bound, at chip_smoke.py's check (F=5, 128 x 256 half-res, 21 taps,
+// S=2): 56.6 MB written (9 outputs), 18.9 us, against 13.8 M (pixel,
+// frame, tap, phase) items at ~108 flops (22 us at 67 TFLOP/s): the
+// operations bind, just (chip_smoke.py's WORK table).
+//
+// Design (a simple kernel, right first): a thread per (half-res pixel,
+// output phase (a*s + py, b*s + px)). A block is 32 pixels x kRows rows
+// x the 2s phase columns of one phase row (blockIdx.z): 256 threads at
+// S = 1, 2 and 4, 192 at S = 3. Frames are the outer loop: a frame's
+// blended residuals and rho are formed once, then its taps run, each
+// adding nine terms to its tap group's accumulators (4 x 9 registers; a
+// group reads one plane, so one channel: R, B and the two green groups,
+// added at the end). Each tap's staged offset for the block's parity row
+// and either column parity sits in shared memory (s_off), read by every
+// thread of a warp at once. The Gaussian weight is evaluated per
+// thread (4x per (pixel, phase, tap, frame), once for each parity);
+// like the certless form it is 2^(dx (dx o0 + dy o2) + dy^2 o1) by
+// ex2.approx. Every frame's tile plus the taps' halo is staged at once
+// in shared memory (cp.async) as (value, certainty of the plane's
+// channel) float2s per plane site, and the clipped residual with a
+// one-site halo (the displacements read the neighbouring block's); the
+// frame cap follows from 227 KB (28-56 frames by scale at halo 1, 21-35
+// at halo 2). Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W):
+// 87-93 registers, no spills; times against their bounds in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -182,8 +241,9 @@ __device__ constexpr bool is_green(int q) {
 }
 
 // Writes cell (parity z, channel c) of phase (py, px): the weight sum m,
-// the value sum b and the finalized centroid n / w of its chain.
-template <int S>
+// the value sum b and, with the chains, the finalized centroid n / w of
+// its chain.
+template <int S, bool kChains>
 __device__ __forceinline__ void store_cell(float* __restrict__ m00_out,
                                            float* __restrict__ cy_out,
                                            float* __restrict__ cx_out,
@@ -192,14 +252,17 @@ __device__ __forceinline__ void store_cell(float* __restrict__ m00_out,
                                            float m, float b, float w, float n1, float n2) {
   const int row = (z >> 1) * S + py, col = (z & 1) * S + px;
   const long long o = (((long long)row * 2 * S + col) * 3 + c) * plane + out_pix;
-  const float inv = w > 1e-8f ? 1.0f / fmaxf(w, 1e-8f) : 0.0f;
   m00_out[o] = m;
   b0_out[o] = b;
-  cy_out[o] = fminf(fmaxf(n1 * inv, -2.0f), 2.0f);
-  cx_out[o] = fminf(fmaxf(n2 * inv, -2.0f), 2.0f);
+  if constexpr (kChains) {
+    const float inv = w > 1e-8f ? 1.0f / fmaxf(w, 1e-8f) : 0.0f;
+    cy_out[o] = fminf(fmaxf(n1 * inv, -2.0f), 2.0f);
+    cx_out[o] = fminf(fmaxf(n2 * inv, -2.0f), 2.0f);
+  }
 }
 
-template <int S, int kHalo, bool kGreenDiag>
+// kChains: form 0 (the certless centroid chains); without them form 1.
+template <int S, int kHalo, bool kGreenDiag, bool kChains>
 __global__ void __launch_bounds__(Shape<S>::kThreads, Layout<S>::kMinBlocks)
 merge_raw_kernel(const float* __restrict__ planes,
                  const float* __restrict__ residual,
@@ -322,12 +385,14 @@ merge_raw_kernel(const float* __restrict__ planes,
             const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
             wg[px] = exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy));
             wr[px] = exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy));
-            sw_g[px] += wg[px];
-            sry_g[px] += res.x * wg[px];
-            srx_g[px] += res.y * wg[px];
-            sw_r[px] += wr[px];
-            sry_r[px] += res.x * wr[px];
-            srx_r[px] += res.y * wr[px];
+            if constexpr (kChains) {
+              sw_g[px] += wg[px];
+              sry_g[px] += res.x * wg[px];
+              srx_g[px] += res.y * wg[px];
+              sw_r[px] += wr[px];
+              sry_r[px] += res.x * wr[px];
+              srx_r[px] += res.y * wr[px];
+            }
           }
           const float2* fsv = my_sv + f * 4 * kSA;
 #pragma unroll
@@ -349,12 +414,14 @@ merge_raw_kernel(const float* __restrict__ planes,
             m00[z][k][px] += sm[z][px];
             b0[z][k][px] += sb[z][px];
           }
-          cw[0][px] += sw_g[px];
-          c1[0][px] += (float)S * ((ky - phi_y) * sw_g[px] - sry_g[px]);
-          c2[0][px] += (float)S * ((kx - phi_x[px]) * sw_g[px] - srx_g[px]);
-          cw[1 + k][px] += sw_r[px];
-          c1[1 + k][px] += (float)S * ((ky - phi_y) * sw_r[px] - sry_r[px]);
-          c2[1 + k][px] += (float)S * ((kx - phi_x[px]) * sw_r[px] - srx_r[px]);
+          if constexpr (kChains) {
+            cw[0][px] += sw_g[px];
+            c1[0][px] += (float)S * ((ky - phi_y) * sw_g[px] - sry_g[px]);
+            c2[0][px] += (float)S * ((kx - phi_x[px]) * sw_g[px] - srx_g[px]);
+            cw[1 + k][px] += sw_r[px];
+            c1[1 + k][px] += (float)S * ((ky - phi_y) * sw_r[px] - sry_r[px]);
+            c2[1 + k][px] += (float)S * ((kx - phi_x[px]) * sw_r[px] - srx_r[px]);
+          }
         }
       }
       // the R and B cells group g completed (parities that read R or B in
@@ -366,8 +433,8 @@ merge_raw_kernel(const float* __restrict__ planes,
           if (is_green<kGreenDiag>(plane_of(z, g))) continue;
 #pragma unroll
           for (int px = 0; px < kPX; ++px) {
-            store_cell<S>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px,
-                          taps.chan[plane_of(z, g)], m00[z][k][px], b0[z][k][px],
+            store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py,
+                                   px0 + px, taps.chan[plane_of(z, g)], m00[z][k][px], b0[z][k][px],
                           cw[1 + k][px], c1[1 + k][px], c2[1 + k][px]);
           }
         }
@@ -381,13 +448,180 @@ merge_raw_kernel(const float* __restrict__ planes,
         if (!is_green<kGreenDiag>(plane_of(z, pair == 0 ? 0 : 1))) continue;
 #pragma unroll
         for (int px = 0; px < kPX; ++px) {
-          store_cell<S>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, 1,
+          store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, 1,
                         m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px],
                         cw[0][px], c1[0][px], c2[0][px]);
         }
       }
     }
   }
+}
+
+// The thread layout of merge_raw_cells_kernel: kRows pixel rows of 32, the 2s
+// phase columns of one output phase row (blockIdx.z).
+template <int S>
+struct CellShape {
+  static constexpr int kRows = S == 1 ? 4 : (S == 2 ? 2 : 1);
+  static constexpr int kThreads = kTileW * kRows * 2 * S;
+};
+
+// merge_raw_cells_kernel's static shared memory: its tap offsets
+constexpr size_t kCellStaticBytes = 2 * kMaxTaps * sizeof(int);
+
+// staged floats: per frame, 4 planes of (kRows + 2 halo) x (32 + 2 halo)
+// float2 sites and (kRows + 2) x 34 float2 residuals
+template <int S>
+size_t cell_smem_bytes(int frames, int halo) {
+  const size_t sites = (size_t)(CellShape<S>::kRows + 2 * halo) * (kTileW + 2 * halo);
+  const size_t rsites = (size_t)(CellShape<S>::kRows + 2) * (kTileW + 2);
+  return (size_t)frames * (4 * sites + rsites) * sizeof(float2);
+}
+
+template <int S>
+__global__ void __launch_bounds__(CellShape<S>::kThreads, 2)
+merge_raw_cells_kernel(const float* __restrict__ planes,
+                   const float* __restrict__ residual,
+                   const float* __restrict__ certainty,
+                   const float* __restrict__ omega,
+                   const float* __restrict__ omega_rb,
+                   float* __restrict__ out,
+                   int frames, int hh, int hw, int halo, float rb, const TapTable taps) {
+  constexpr int kRows = CellShape<S>::kRows, kThreads = CellShape<S>::kThreads;
+  constexpr int kSlots = 9;
+  const int sw = kTileW + 2 * halo;                  // staged row length
+  const int sa = (kRows + 2 * halo) * sw;            // staged sites per plane
+  constexpr int kRW = kTileW + 2;                    // staged residual row length
+  constexpr int kRA = (kRows + 2) * kRW;             // staged residuals per frame
+  extern __shared__ float2 smem[];
+  float2* sv = smem;                                 // (F, 4, sa): value, cert
+  float2* sres = smem + (size_t)frames * 4 * sa;     // (F, kRA): ry, rx clipped
+
+  const int tx = threadIdx.x, ty = threadIdx.y, col = threadIdx.z;
+  const int row = blockIdx.z;                        // output phase row a*s + py
+  const int a = row / S, py = row % S, b = col / S, px = col % S;
+  const int z = 2 * a + b;                           // the thread's parity
+  const int tid = (col * kRows + ty) * kTileW + tx;
+  const int i0 = blockIdx.y * kRows, j0 = blockIdx.x * kTileW;
+  const long long plane = (long long)hh * hw;
+
+  for (int e = tid; e < frames * 4 * sa; e += kThreads) {
+    const int site = e % sa;
+    const int fq = e / sa;
+    const int q = fq & 3;
+    const int f = fq >> 2;
+    const int r = min(max(i0 - halo + site / sw, 0), hh - 1);
+    const int c = min(max(j0 - halo + site % sw, 0), hw - 1);
+    const long long rc = (long long)r * hw + c;
+    cp_async4(&sv[e].x, planes + ((long long)f * 4 + q) * plane + rc);
+    cp_async4(&sv[e].y, certainty + ((long long)f * plane + rc) * 3 + taps.chan[q]);
+  }
+  for (int e = tid; e < frames * kRA; e += kThreads) {
+    const int site = e % kRA;
+    const int f = e / kRA;
+    const int r = min(max(i0 - 1 + site / kRW, 0), hh - 1);
+    const int c = min(max(j0 - 1 + site % kRW, 0), hw - 1);
+    cp_async8(&sres[e], residual + ((long long)f * plane + (long long)r * hw + c) * 2);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  for (int e = tid; e < frames * kRA; e += kThreads) {
+    sres[e] = make_float2(fminf(fmaxf(sres[e].x, -rb), rb), fminf(fmaxf(sres[e].y, -rb), rb));
+  }
+  // each tap's staged offset for either column parity b (the block's row
+  // parity a): plane, then the half-res site it reads
+  __shared__ int s_off[2][kMaxTaps];  // kCellStaticBytes
+  for (int e = tid; e < 2 * taps.group_end[3]; e += kThreads) {
+    const int bb = e & 1, t = e >> 1;
+    const int g = 2 * (taps.ky[t] & 1) + (taps.kx[t] & 1);
+    s_off[bb][t] = plane_of(2 * a + bb, g) * sa + ((a + taps.ky[t]) >> 1) * sw + ((bb + taps.kx[t]) >> 1);
+  }
+  __syncthreads();
+
+  const int i = i0 + ty, j = j0 + tx;
+  const bool inside = i < hh && j < hw;
+  const long long pix = (long long)min(i, hh - 1) * hw + min(j, hw - 1);
+  // phi[p] = (p + 0.5) / s - 0.5 in the f32 operations of
+  // fast_merge._output_phase_offsets
+  const float phi_y = ((float)py + 0.5f) / (float)S - 0.5f;
+  const float phi_x = ((float)px + 0.5f) / (float)S - 0.5f;
+  const float phis_y = phi_y * (float)S, phis_x = phi_x * (float)S;
+  // the parity-interpolated residual: the blend weight and side of the
+  // neighbouring block along each axis
+  const float gy = ((float)a + phi_y - 0.5f) / 2.0f, gx = ((float)b + phi_x - 0.5f) / 2.0f;
+  const float ga_y = fabsf(gy), ga_x = fabsf(gx);
+  const int sgn_y = gy > 0.0f ? 1 : -1, sgn_x = gx > 0.0f ? 1 : -1;
+  constexpr float kL = 1.4426950408889634f;  // log2(e)
+  const float og0 = -0.5f * kL * omega[pix * 3 + 0], og1 = -0.5f * kL * omega[pix * 3 + 1],
+              og2 = -kL * omega[pix * 3 + 2];
+  const float or0 = -0.5f * kL * omega_rb[pix * 3 + 0],
+              or1 = -0.5f * kL * omega_rb[pix * 3 + 1], or2 = -kL * omega_rb[pix * 3 + 2];
+  // this pixel's staged residual, and its neighbours along y and x
+  const float2* my_res = sres + (ty + 1) * kRW + (tx + 1);
+  const int nb_y = sgn_y * kRW, nb_x = sgn_x;
+  const float2* my_sv = sv + (ty + halo) * sw + (tx + halo);
+  float* dst = out + (((long long)row * 2 * S + col) * 3) * plane + (long long)i * hw + j;
+  const long long slot = (long long)4 * S * S * 3 * plane;
+
+  // frames outer, taps inner: the frame's residual terms once, its taps'
+  // sums added to one accumulator per tap group (a group reads one plane,
+  // so one channel; the two green groups are added at the end)
+  float acc[4][kSlots];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) acc[g][k] = 0.0f;
+  const int* my_off = s_off[b];
+  for (int f = 0; f < frames; ++f) {
+    const float2* fr = my_res + f * kRA;
+    const float2 res = fr[0];
+    const float ry1 = fminf(fmaxf((1.0f - ga_y) * res.x + ga_y * fr[nb_y].x, -rb), rb);
+    const float rx1 = fminf(fmaxf((1.0f - ga_x) * res.y + ga_x * fr[nb_x].y, -rb), rb);
+    const float rho_y = ry1 + phi_y, rho_x = rx1 + phi_x;
+    const float2* fsv = my_sv + f * 4 * sa;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const bool is_g = taps.chan[plane_of(z, g)] == 1;
+      const float o0 = is_g ? og0 : or0, o1 = is_g ? og1 : or1, o2 = is_g ? og2 : or2;
+      for (int t = g ? taps.group_end[g - 1] : 0; t < taps.group_end[g]; ++t) {
+        const float ky = (float)taps.ky[t], kx = (float)taps.kx[t];
+        const float dyw = (ky - res.x) * (float)S - phis_y;
+        const float dxw = (kx - res.y) * (float)S - phis_x;
+        const float w = exp2_approx(fmaf(dxw, fmaf(dxw, o0, dyw * o2), dyw * dyw * o1));
+        const float2 vc = fsv[my_off[t]];  // (value, certainty)
+        const float wc = w * vc.y;
+        const float wcv = wc * vc.x;
+        const float dy = (float)S * (ky - rho_y);
+        const float dx = (float)S * (kx - rho_x);
+        acc[g][0] += wc;
+        acc[g][1] += dy * wc;
+        acc[g][2] += dx * wc;
+        acc[g][3] += dy * dy * wc;
+        acc[g][4] += dy * dx * wc;
+        acc[g][5] += dx * dx * wc;
+        acc[g][6] += wcv;
+        acc[g][7] += dy * wcv;
+        acc[g][8] += dx * wcv;
+      }
+    }
+  }
+  if (!inside) return;
+  float green[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) green[k] = 0.0f;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const int ch = taps.chan[plane_of(z, g)];
+    if (ch == 1) {
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) green[k] += acc[g][k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) dst[k * slot + ch * plane] = acc[g][k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) dst[k * slot + plane] = green[k];
 }
 
 template <int S, int kHalo>
@@ -397,12 +631,35 @@ size_t smem_bytes(int frames) {
 }
 
 template <int S>
-int max_frames(int halo) {
+int max_frames(int halo, int form) {
   const size_t limit = 227 * 1024;
+  // form 2 also holds its static tap offsets beside the frames
+  if (form == 2) return (int)((limit - kCellStaticBytes) / cell_smem_bytes<S>(1, halo <= 1 ? 1 : 2));
   return (int)(limit / (halo <= 1 ? smem_bytes<S, 1>(1) : smem_bytes<S, 2>(1)));
 }
 
-template <int S, int kHalo, bool kGreenDiag>
+template <int S>
+int launch_cells(const void* planes, const void* residual, const void* certainty,
+                 const void* omega, const void* omega_rb, void* out, int frames, int hh,
+                 int hw, int halo, float rb, const TapTable& taps, cudaStream_t stream) {
+  using L = CellShape<S>;
+  const size_t bytes = cell_smem_bytes<S>(frames, halo);
+  if (bytes + kCellStaticBytes > 48 * 1024) {  // the default limit counts both
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_raw_cells_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 block(kTileW, L::kRows, 2 * S);
+  const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kRows - 1) / L::kRows, 2 * S);
+  merge_raw_cells_kernel<S><<<grid, block, bytes, stream>>>(
+      static_cast<const float*>(planes), static_cast<const float*>(residual),
+      static_cast<const float*>(certainty), static_cast<const float*>(omega),
+      static_cast<const float*>(omega_rb), static_cast<float*>(out), frames, hh, hw, halo, rb,
+      taps);
+  return (int)cudaGetLastError();
+}
+
+template <int S, int kHalo, bool kGreenDiag, bool kChains>
 int launch(const void* planes, const void* residual, const void* certainty,
            const void* omega, const void* omega_rb, void* m00, void* cy,
            void* cx, void* b0, int frames, int hh, int hw, float rb,
@@ -411,13 +668,13 @@ int launch(const void* planes, const void* residual, const void* certainty,
   const size_t bytes = smem_bytes<S, kHalo>(frames);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_raw_kernel<S, kHalo, kGreenDiag>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        merge_raw_kernel<S, kHalo, kGreenDiag, kChains>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 block(kTileW, L::kTileH, L::kZ);
   const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kTileH - 1) / L::kTileH, 1);
-  merge_raw_kernel<S, kHalo, kGreenDiag><<<grid, block, bytes, stream>>>(
+  merge_raw_kernel<S, kHalo, kGreenDiag, kChains><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(m00),
@@ -427,15 +684,28 @@ int launch(const void* planes, const void* residual, const void* certainty,
 }
 
 template <int S>
-int launch_scale(int halo, bool green_diag, const void* planes, const void* residual,
-                 const void* certainty, const void* omega, const void* omega_rb, void* m00,
-                 void* cy, void* cx, void* b0, int frames, int hh, int hw, float rb,
-                 const TapTable& taps, cudaStream_t stream) {
-#define MFSR_LAUNCH(H, G)                                                              \
-  launch<S, H, G>(planes, residual, certainty, omega, omega_rb, m00, cy, cx, b0, frames, \
-                  hh, hw, rb, taps, stream)
-  if (halo == 1) return green_diag ? MFSR_LAUNCH(1, true) : MFSR_LAUNCH(1, false);
-  return green_diag ? MFSR_LAUNCH(2, true) : MFSR_LAUNCH(2, false);
+int launch_scale(int form, int halo, bool green_diag, const void* planes, const void* residual,
+                 const void* certainty, const void* omega, const void* omega_rb, void* out,
+                 int frames, int hh, int hw, float rb, const TapTable& taps,
+                 cudaStream_t stream) {
+  if (form == 2) {
+    return launch_cells<S>(planes, residual, certainty, omega, omega_rb, out, frames, hh, hw,
+                           halo, rb, taps, stream);
+  }
+  // form 0's four outputs (m00, cy, cx, b0) one after another; form 1's
+  // two (num, den) are its b0 and m00
+  float* base = static_cast<float*>(out);
+  const long long slot = (long long)4 * S * S * 3 * hh * hw;
+#define MFSR_LAUNCH(H, G, C, M00, CY, CX, B0)                                                 \
+  launch<S, H, G, C>(planes, residual, certainty, omega, omega_rb, M00, CY, CX, B0, frames, hh, \
+                     hw, rb, taps, stream)
+#define MFSR_FORM(H, G)                                                                        \
+  (form == 0 ? MFSR_LAUNCH(H, G, true, base, base + slot, base + 2 * slot, base + 3 * slot)   \
+             : MFSR_LAUNCH(H, G, false, base + slot, nullptr, nullptr, base))
+  if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
+  if (halo == 1) return green_diag ? MFSR_FORM(1, true) : MFSR_FORM(1, false);
+  return green_diag ? MFSR_FORM(2, true) : MFSR_FORM(2, false);
+#undef MFSR_FORM
 #undef MFSR_LAUNCH
 }
 
@@ -445,16 +715,18 @@ extern "C" {
 
 // Launches the RAW merge on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to the contiguous float32 arrays
-// described above; the four outputs (2s, 2s, 3, hh, hw) are written in
-// full, s = scale in 1..4. table is a HOST int array: the channel of each
+// described above; out holds the form's outputs (2s, 2s, 3, hh, hw) one
+// after another, each written in full, s = scale in 1..4: form 0 (m00,
+// cy, cx, b0), form 1 (num, den), form 2 (m00, m01, m02, m11, m12, m22,
+// b0, b1, b2). table is a HOST int array: the channel of each
 // plane q = 2*qa + qb (4, a Bayer pattern: green on one diagonal, R and B
 // on the other), the end of each tap-parity group (4), then n_taps rows
 // (ky, kx) sorted by group g = 2*(ky%2) + (kx%2).
 int mfsr_merge_raw(const void* planes, const void* residual,
                    const void* certainty, const void* omega,
-                   const void* omega_rb, void* m00, void* cy, void* cx,
-                   void* b0, int frames, int hh, int hw, int scale, float rb,
-                   const void* table, int n_taps, void* stream) {
+                   const void* omega_rb, void* out, int frames, int hh, int hw,
+                   int scale, int form, float rb, const void* table, int n_taps,
+                   void* stream) {
   if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || hh < 1 || hw < 1 ||
       reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
     return (int)cudaErrorInvalidValue;  // the residual is copied as float2
@@ -492,9 +764,9 @@ int mfsr_merge_raw(const void* planes, const void* residual,
     }
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFSR_SCALE(S)                                                                     \
-  launch_scale<S>(halo, green_diag, planes, residual, certainty, omega, omega_rb, m00, cy, \
-                  cx, b0, frames, hh, hw, rb, taps, s)
+#define MFSR_SCALE(S)                                                                      \
+  launch_scale<S>(form, halo, green_diag, planes, residual, certainty, omega, omega_rb, out, \
+                  frames, hh, hw, rb, taps, s)
   switch (scale) {
     case 1: return MFSR_SCALE(1);
     case 2: return MFSR_SCALE(2);
@@ -505,15 +777,15 @@ int mfsr_merge_raw(const void* planes, const void* residual,
 #undef MFSR_SCALE
 }
 
-// The most frames one launch takes at the given scale (1..4) with taps of
-// the given halo (1 or 2): the staged tiles of all frames must fit a
-// block's shared memory. 0 for another scale.
-int mfsr_merge_raw_max_frames(int scale, int halo) {
+// The most frames one launch of the form takes at the given scale (1..4)
+// with taps of the given halo (1 or 2): the staged tiles of all frames
+// must fit a block's shared memory. 0 for another scale.
+int mfsr_merge_raw_max_frames(int scale, int halo, int form) {
   switch (scale) {
-    case 1: return max_frames<1>(halo);
-    case 2: return max_frames<2>(halo);
-    case 3: return max_frames<3>(halo);
-    case 4: return max_frames<4>(halo);
+    case 1: return max_frames<1>(halo, form);
+    case 2: return max_frames<2>(halo, form);
+    case 3: return max_frames<3>(halo, form);
+    case 4: return max_frames<4>(halo, form);
     default: return 0;
   }
 }

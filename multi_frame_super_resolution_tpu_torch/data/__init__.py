@@ -14,4 +14,5 @@ from multi_frame_super_resolution_tpu_torch.data.synthetic import (  # noqa: F40
     synthetic_polar_pair,
     synthetic_raw_burst,
     synthetic_rgb_burst,
+    true_hr_burst,
 )

@@ -12,11 +12,16 @@ identical inputs.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
 
 from multi_frame_super_resolution_tpu_torch.data.datasets import DATASETS, FRAME_SIZE
+from multi_frame_super_resolution_tpu_torch.data.io import imread
+
+# the tracked high-resolution scene of the true-HR bursts (512 x 1024 x 3)
+CITY_HR_SCENE = Path(__file__).resolve().parents[2] / "city_handheld_sr.png"
 
 
 def _rotate_translate_crop(
@@ -160,6 +165,52 @@ def synthetic_raw_burst(
     city burst's geometry, the input bench.py times."""
     rgb, shifts = synthetic_rgb_burst(rng, num_frames, height, width, max_shift, angles)
     return np.stack([mosaic_rggb(frame, cfa) for frame in rgb]), shifts
+
+
+def _downsample2(img: np.ndarray) -> np.ndarray:
+    """2 x 2 box mean of an (H, W, C) image (the odd last row and column
+    dropped)."""
+    h2, w2 = img.shape[0] // 2, img.shape[1] // 2
+    return img[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2, -1).mean(axis=(1, 3))
+
+
+def true_hr_burst(
+    hr: np.ndarray | None = None,
+    num_frames: int = 5,
+    seed: int = 7,
+    max_shift_hr: float = 3.0,
+    max_rot: float = 0.01,
+    factor: int = 2,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """A RAW burst made from a known high-resolution scene, the recipe of
+    the JAX package's true-HR protocol (tools/eval_fidelity.py::
+    make_hr_burst): frame 0 unmoved, every other frame shifted by up to
+    ``max_shift_hr`` HR pixels and rotated by up to ``max_rot`` radians
+    (``_rotate_translate_crop``, drawn from ``seed``), box-downsampled by
+    ``factor`` (a power of 2) and RGGB-mosaicked. ``hr`` (H, W, 3) in
+    [0, 1] defaults to the tracked city scene (CITY_HR_SCENE), which
+    gives a 5 x 256 x 512 burst. Returns (raw (F, H/factor, W/factor)
+    float32, hr): the output of a factor-x super-resolution is compared
+    with ``hr`` itself."""
+    if hr is None:
+        hr = imread(CITY_HR_SCENE)
+    h, w = hr.shape[:2]
+    rng = np.random.default_rng(seed)
+    frames = []
+    for f in range(num_frames):
+        if f == 0:
+            dy = dx = ang = 0.0
+        else:
+            dy, dx = rng.uniform(-max_shift_hr, max_shift_hr, 2)
+            ang = rng.uniform(-max_rot, max_rot)
+        lr = np.stack([_rotate_translate_crop(hr[..., c], dy, dx, ang, h, w) for c in range(3)], axis=-1)
+        lr = lr.astype(np.float32)
+        fct = factor
+        while fct > 1:
+            lr = _downsample2(lr)
+            fct //= 2
+        frames.append(mosaic_rggb(lr))
+    return np.stack(frames).astype(np.float32), hr
 
 
 def synthetic_polar_pair(

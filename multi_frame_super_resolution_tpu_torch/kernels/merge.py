@@ -1,7 +1,7 @@
 """Wrapper of the Hopper merge kernel (csrc/merge.cu), the counterpart of
 pallas_ops/merge.py::merge_fast_pallas and of the default RGB branch's
 merge (models/fast_merge.py::merge_burst_fast in the phase layout, order
-0 or the plugin solve's order-1 moments).
+0 or the order-1 moments of the plugin solve (4) or the exact solve (9)).
 
 On CUDA tensors it launches the kernel or raises; it never falls back.
 On CPU tensors it computes the kernel's plain PyTorch version,
@@ -40,7 +40,7 @@ def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
     return bind(
         load_library(SOURCE), "mfsr_merge_fast",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float],
     )
 
@@ -86,15 +86,18 @@ def merge_fast(
     phase_output: bool = False,
     order: int = 0,
     prune_exp: float = 6.0,
+    moment_slots: int = 4,
 ) -> Tuple[torch.Tensor, ...]:
     """Static-tap merge: warped (F, H, W, 3), residual (F, H, W, 2),
     certainty (F, H, W, 3), omega_inv (H, W, 3), all float32 and
     contiguous on one device -> (num, den), each (sH, sW, 3), or
     (s, s, 3, H, W) with ``phase_output``; ``order=1`` (with
-    ``phase_output``) -> the plugin solve's moments (m00, m01, m02, b0)
-    (see fast_merge.merge_burst_fast). Taps are those of
+    ``phase_output``) -> the plugin solve's moments (m00, m01, m02, b0),
+    or with ``moment_slots=9`` the exact solve's nine (see
+    fast_merge.merge_burst_fast). Taps are those of
     fast_merge._active_taps at ``prune_exp``; the defaults are
-    merge_fast_pallas's."""
+    merge_fast_pallas's. On CUDA the outputs are views of one
+    allocation."""
     if warped.ndim != 4:
         raise ValueError(f"warped must be (F, H, W, 3), got {tuple(warped.shape)}")
     f, h, w = warped.shape[:3]
@@ -109,6 +112,8 @@ def merge_fast(
         raise ValueError(f"the merge takes order 0 or 1, got {order}")
     if order == 1 and not phase_output:
         raise ValueError("the order-1 merge writes the phase layout: pass phase_output=True")
+    if order == 1 and moment_slots not in (4, 9):
+        raise ValueError(f"the order-1 merge returns 4 or 9 moment slots, got {moment_slots}")
     r_taps = radius + math.ceil(residual_bound)
     if r_taps > _MAX_TAP_RADIUS:
         raise ValueError(f"tap radius {r_taps} exceeds the kernel's {_MAX_TAP_RADIUS}")
@@ -116,7 +121,7 @@ def merge_fast(
     if dev.type == "cpu":
         return merge_burst_fast(
             warped, residual, certainty, omega_inv, scale, radius,
-            residual_bound, k_max, phase_output, order, prune_exp,
+            residual_bound, k_max, phase_output, order, prune_exp, moment_slots,
         )
 
     # cached per key: with the list rebuilt in numpy per call, a call took
@@ -125,15 +130,17 @@ def merge_fast(
     taps_ptr, n_taps = _tap_args(
         r_taps, float(residual_bound), scale, float(k_max), float(prune_exp)
     )
-    form = 2 if order == 1 else int(phase_output)
+    if order == 1:
+        form, n_out = (2, 4) if moment_slots == 4 else (3, 9)
+    else:
+        form, n_out = int(phase_output), 2
     shape = (scale, scale, 3, h, w) if phase_output else (h * scale, w * scale, 3)
-    outs = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(4 if order == 1 else 2)]
-    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
+    out = torch.empty((n_out,) + shape, dtype=torch.float32, device=dev)
     launch(
         library(), "mfsr_merge_fast", dev,
         warped.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
-        omega_inv.data_ptr(), *ptrs,
+        omega_inv.data_ptr(), out.data_ptr(),
         f, h, w, scale, form, taps_ptr, n_taps, float(residual_bound),
     )
     LAUNCHES[NAME] += 1
-    return tuple(outs)
+    return tuple(out.unbind(0))

@@ -1,6 +1,7 @@
-"""Wrapper of the Hopper RAW merge kernel (csrc/merge_raw.cu): the
-plane-domain order-1 merge of the RAW path, certless plugin branch, at
-scales 1-4. The JAX package computes it outside Pallas
+"""Wrapper of the Hopper RAW merge kernels (csrc/merge_raw.cu): the
+plane-domain merge of the RAW path at scales 1-4 in three forms: order 1
+as the certless plugin branch (the main path), order 0, and order 1 with
+the exact solve's 9 moments. The JAX package computes it outside Pallas
 (models/fast_merge.py::merge_burst_raw_planes); it has the skeleton of
 pallas_ops/merge.py::merge_fast_pallas.
 
@@ -41,10 +42,10 @@ def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
     lib = bind(
         load_library(SOURCE), "mfsr_merge_raw",
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
     )
-    lib.mfsr_merge_raw_max_frames.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.mfsr_merge_raw_max_frames.argtypes = [ctypes.c_int] * 3
     lib.mfsr_merge_raw_max_frames.restype = ctypes.c_int
     return lib
 
@@ -91,14 +92,18 @@ def merge_raw(
     residual_bound: float = 1.0,
     k_max: float = 1.0,
     prune_exp: float = 6.0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """RAW order-1 certless merge: planes (F, 2, 2, hh, hw), residual
-    (F, hh, hw, 2) in RAW units, certainty (F, hh, hw, 3), omega_inv and
-    omega_inv_rb (hh, hw, 3), all float32 and contiguous on one device ->
-    (m00, cy, cx, b0), each (2s, 2s, 3, hh, hw) (see
+    order: int = 1,
+    moment_slots: int = 4,
+) -> Tuple[torch.Tensor, ...]:
+    """RAW plane merge: planes (F, 2, 2, hh, hw), residual (F, hh, hw, 2)
+    in RAW units, certainty (F, hh, hw, 3), omega_inv and omega_inv_rb
+    (hh, hw, 3), all float32 and contiguous on one device -> order 1 with
+    4 slots: the certless (m00, cy, cx, b0); order 0: (num, den); order 1
+    with 9 slots: the exact solve's moments; each (2s, 2s, 3, hh, hw) (see
     fast_merge.merge_burst_raw_planes). The kernel takes scales 1-4, Bayer
     patterns and up to mfsr_merge_raw_max_frames frames; on CUDA tensors
-    anything else raises ValueError."""
+    anything else raises ValueError, and the outputs are views of one
+    allocation."""
     if planes.ndim != 5:
         raise ValueError(f"planes must be (F, 2, 2, hh, hw), got {tuple(planes.shape)}")
     f, hh, hw = planes.shape[0], planes.shape[3], planes.shape[4]
@@ -108,10 +113,12 @@ def merge_raw(
     check_tensor("certainty", certainty, (f, hh, hw, 3), dev)
     check_tensor("omega_inv", omega_inv, (hh, hw, 3), dev)
     check_tensor("omega_inv_rb", omega_inv_rb, (hh, hw, 3), dev)
+    if order not in (0, 1) or (order == 1 and moment_slots not in (4, 9)):
+        raise ValueError(f"the RAW merge takes order 0, or order 1 with 4 or 9 slots, got {order}, {moment_slots}")
     if dev.type == "cpu":
         return merge_burst_raw_planes(
             planes, residual, certainty, omega_inv, omega_inv_rb, cfa, scale,
-            radius, residual_bound, k_max, prune_exp,
+            radius, residual_bound, k_max, prune_exp, order, moment_slots,
         )
     r_taps = radius + int(np.ceil(residual_bound))
     taps = _active_taps(r_taps, residual_bound, scale, k_max, prune_exp)
@@ -121,8 +128,10 @@ def merge_raw(
         raise ValueError(f"the RAW merge kernel takes Bayer patterns, got {cfa}")
     if len(taps) > _MAX_TAPS:
         raise ValueError(f"{len(taps)} taps exceed the kernel's {_MAX_TAPS}")
+    # the forms of csrc/merge_raw.cu: 0 certless, 1 order 0, 2 nine moments
+    form, n_out = (1, 2) if order == 0 else ((0, 4) if moment_slots == 4 else (2, 9))
     lib = library()
-    max_frames = lib.mfsr_merge_raw_max_frames(scale, tap_halo(taps))
+    max_frames = lib.mfsr_merge_raw_max_frames(scale, tap_halo(taps), form)
     if f > max_frames:
         raise ValueError(f"{f} frames exceed the {max_frames} whose tiles fit a block's shared memory")
 
@@ -130,16 +139,12 @@ def merge_raw(
     # 0.66 ms against the first kernel's 0.18 ms (NVIDIA H100 80GB HBM3,
     # 700.00 W)
     table = tap_table(tuple(taps), tuple(tuple(int(c) for c in row) for row in cfa))
-    outs = [
-        torch.empty((2 * scale, 2 * scale, 3, hh, hw), dtype=torch.float32, device=dev)
-        for _ in range(4)
-    ]
+    out = torch.empty((n_out, 2 * scale, 2 * scale, 3, hh, hw), dtype=torch.float32, device=dev)
     launch(
         lib, "mfsr_merge_raw", dev,
         planes.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
-        omega_inv.data_ptr(), omega_inv_rb.data_ptr(),
-        *(o.data_ptr() for o in outs),
-        f, hh, hw, scale, float(residual_bound), table.ctypes.data, len(taps),
+        omega_inv.data_ptr(), omega_inv_rb.data_ptr(), out.data_ptr(),
+        f, hh, hw, scale, form, float(residual_bound), table.ctypes.data, len(taps),
     )
     LAUNCHES[NAME] += 1
-    return tuple(outs)
+    return tuple(out.unbind(0))

@@ -1,10 +1,12 @@
 """Static-tap kernel-regression merges (counterpart of models/fast_merge.py):
 the plain PyTorch versions of the merge kernels.
 
-- ``merge_burst_fast``: the RGB merge, order 0 and the plugin solve's
-  order-1 moments (kernels/merge.py, csrc/merge.cu);
-- ``merge_burst_raw_planes``: the RAW plane-domain order-1 merge, its
-  certless plugin branch (kernels/merge_raw.py, csrc/merge_raw.cu).
+- ``merge_burst_fast``: the RGB merge, order 0 and the order-1 moments
+  of the plugin solve (4 slots) or of the exact 3x3 solve (9 slots)
+  (kernels/merge.py, csrc/merge.cu);
+- ``merge_burst_raw_planes``: the RAW plane-domain merge: order 0, and
+  order 1 as the certless plugin branch (4 slots) or the exact solve's
+  9 moments (kernels/merge_raw.py, csrc/merge_raw.cu).
 
 Frames arrive warped into reference geometry by their per-tile integer
 shifts; what remains per output pixel is a static tap window around its
@@ -61,6 +63,7 @@ def merge_burst_fast(
     phase_output: bool = False,
     order: int = 0,
     prune_exp: float = 6.0,
+    moment_slots: int = 4,
 ) -> Tuple[torch.Tensor, ...]:
     """Merge tile-warped RGB frames onto the scale-x output grid.
 
@@ -71,9 +74,10 @@ def merge_burst_fast(
     ``phase_output``. ``order=1`` (with ``phase_output``) returns the
     plugin solve's moments (m00, m01, m02, b0) = (sum cw, sum cw dy,
     sum cw dx, sum cw v) instead, each (s, s, 3, H, W), cw = weight x
-    certainty and (dy, dx) the displacement the weight uses: the JAX
-    function's moment_slots=4 (its 9 slots of the exact solve are not
-    ported).
+    certainty and (dy, dx) the displacement the weight uses (the JAX
+    function's moment_slots=4); with ``moment_slots=9`` the exact
+    solve's (m00, m01, m02, m11, m12, m22, b0, b1, b2), models/merge.py::
+    solve_order1's order.
 
     The frame axis is a batch dimension: each frame's taps are summed in
     tap order and the frames are then added in order, the summation
@@ -86,7 +90,9 @@ def merge_burst_fast(
     r_taps = radius + int(np.ceil(residual_bound))
     taps = _active_taps(r_taps, residual_bound, s, k_max, prune_exp)
     phi = _output_phase_offsets(s)
-    n_acc = 4 if order == 1 else 2
+    if order == 1 and moment_slots not in (4, 9):
+        raise ValueError(f"the order-1 merge returns 4 or 9 moment slots, got {moment_slots}")
+    n_acc = moment_slots if order == 1 else 2
 
     oxx = omega_inv[..., 0]
     oyy = omega_inv[..., 1]
@@ -117,11 +123,18 @@ def merge_burst_fast(
                 )
                 cw = wgt[:, None] * cert_k
                 cwv = val * cw
-                if order == 1:
+                if order == 1 and n_acc == 4:
                     add(0, py, px, cw)
                     add(1, py, px, cw * dy[:, None])
                     add(2, py, px, cw * dx[:, None])
                     add(3, py, px, cwv)
+                elif order == 1:
+                    dye, dxe = dy[:, None], dx[:, None]
+                    cwdy, cwdx = cw * dye, cw * dxe
+                    for k, term in enumerate((
+                        cw, cwdy, cwdx, cwdy * dye, cwdy * dxe, cwdx * dxe, cwv, cwv * dye, cwv * dxe,
+                    )):
+                        add(k, py, px, term)
                 else:
                     add(0, py, px, cwv)
                     add(1, py, px, cw)
@@ -230,24 +243,38 @@ def merge_burst_raw_planes(
     residual_bound: float = 1.0,
     k_max: float = 1.0,
     prune_exp: float = 6.0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """CFA-aware order-1 merge on half-resolution planes, the certless
-    plugin branch of the JAX function (order=1, moment_slots=4,
-    centroid_cert=False, phase_output=True; fast_merge.py:301-511,
-    :561, :638-675, :707-713, :857-911).
+    order: int = 1,
+    moment_slots: int = 4,
+) -> Tuple[torch.Tensor, ...]:
+    """CFA-aware merge on half-resolution planes in the phase layout
+    (the JAX function with phase_output=True; fast_merge.py:301-511 and
+    _merge_planes_order1). Three forms:
+
+    - ``order=0``: (num, den) = (sum w c v, sum w c);
+    - ``order=1, moment_slots=4``: the certless plugin branch
+      (centroid_cert=False): (m00, cy, cx, b0), the weight sum, the
+      finalized centroid clip(m01 / sum w, +-2) and clip(m02 / sum w,
+      +-2) of the shared certless chains, and the weighted value sum;
+    - ``order=1, moment_slots=9``: the exact solve's moments (m00, m01,
+      m02, m11, m12, m22, b0, b1, b2) of models/merge.py::solve_order1,
+      per cell and certainty-weighted. Their displacements dy = s (ky -
+      rho_y) take rho = the residual interpolated at the phase row's
+      position inside its Bayer block (a 2-tap bilinear blend with the
+      neighbouring block, the oracle's per-pixel flow) plus phi; the
+      weights keep the block-centre residual.
 
     planes (F, 2, 2, hh, hw) warped by integer plane shifts; residual
     (F, hh, hw, 2) in RAW pixel units (clipped to +-residual_bound here);
     certainty (F, hh, hw, 3); omega_inv / omega_inv_rb (hh, hw, 3) for
-    green and R/B. Returns (m00, cy, cx, b0), each (2s, 2s, 3, hh, hw)
-    with phase index (a*s + py, b*s + px): the weight sum, the finalized
-    centroid clip(m01 / sum w, +-2) and clip(m02 / sum w, +-2) of the
-    shared certless chains, and the weighted value sum.
+    green and R/B. Each output is (2s, 2s, 3, hh, hw) with phase index
+    (a*s + py, b*s + px).
 
     A tap (ky, kx) lands on plane ((a+ky)%2, (b+kx)%2) at half-res offset
     ((a+ky)//2, (b+kx)//2) for output parity (a, b). Per tap, the frame
     axis is summed first and the sum then added to the accumulator, the
     JAX order."""
+    if order not in (0, 1) or (order == 1 and moment_slots not in (4, 9)):
+        raise ValueError(f"the RAW merge takes order 0, or order 1 with 4 or 9 slots, got {order}, {moment_slots}")
     f, _, _, hh, hw = planes.shape
     s = scale
     nph = s * s
@@ -262,6 +289,8 @@ def merge_burst_raw_planes(
     phiy_r = _const(tuple(phi_y.tolist()), dev).reshape(nph, 1, 1)
     phix_r = _const(tuple(phi_x.tolist()), dev).reshape(nph, 1, 1)
     pat = np.asarray(cfa)
+    certless = order == 1 and moment_slots == 4
+    n_out = 2 if order == 0 else moment_slots
 
     res_y = residual[..., 0].clamp(-residual_bound, residual_bound)  # (F, hh, hw)
     res_x = residual[..., 1].clamp(-residual_bound, residual_bound)
@@ -272,27 +301,51 @@ def merge_burst_raw_planes(
     planes_p = _pad_last2(planes, pad, pad)
     cert_p = _pad_last2(torch.movedim(certainty, -1, 1), pad, pad)  # (F, 3, ., .)
 
+    rho_y = rho_x = None
+    if order == 1 and not certless:
+        # per parity a (b) the (nph, F, hh, hw) query offsets: the residual
+        # at phase row (column) p of the block, i + (a + phi[p] - 0.5) / 2
+        # in half-res units, blended with the neighbouring block, + phi[p]
+        def parity_rho(res, a, axis):
+            rows = []
+            for p in range(s):
+                g = (a + phi[p] - 0.5) / 2.0
+                ga = abs(float(g))
+                sgn = 1 if g > 0 else -1
+                nb = _shift_last2(res, sgn, 0) if axis == "y" else _shift_last2(res, 0, sgn)
+                res1 = ((1.0 - ga) * res + ga * nb).clamp(-residual_bound, residual_bound)
+                rows.append(res1 + float(phi[p]))
+            st = torch.stack(rows, 0)  # (s, F, hh, hw)
+            return st.repeat_interleave(s, dim=0) if axis == "y" else st.repeat(s, 1, 1, 1)
+
+        rho_y = [parity_rho(res_y, a, "y") for a in (0, 1)]
+        rho_x = [parity_rho(res_x, b, "x") for b in (0, 1)]
+
     def quadp(dx, dy, om):
         return torch.exp(-0.5 * (dx * dx * om[0] + dy * dy * om[1] + 2.0 * dx * dy * om[2]))
 
-    def add(store, key, i, term):
-        cell = store.setdefault(key, [None, None, None])
+    def add(store, key, i, term, n=3):
+        cell = store.setdefault(key, [None] * n)
         cell[i] = term if cell[i] is None else cell[i] + term
 
-    cells = {}  # (a, b, ch) -> [sum w*c, unused, sum w*c*v] over (nph, hh, hw)
-    chains = {}  # chain id -> [sum w, folded m01, folded m02]
+    cells = {}  # (a, b, ch) -> n_out sums over (nph, hh, hw)
+    chains = {}  # certless: chain id -> [sum w, folded m01, folded m02]
     for ky, kx in taps:
         dy_w = ((ky - res_y) * s)[None] - phiy_b  # (nph, F, hh, hw)
         dx_w = ((kx - res_x) * s)[None] - phix_b
         w_g = quadp(dx_w, dy_w, om_g)
         w_rb = quadp(dx_w, dy_w, om_rb)
-        for cid, wf in ((("g", (ky + kx) % 2), w_g), (("rb", ky % 2, kx % 2), w_rb)):
-            red_w = wf.sum(1)
-            red_ry = (res_y * wf).sum(1)
-            red_rx = (res_x * wf).sum(1)
-            add(chains, cid, 0, red_w)
-            add(chains, cid, 1, float(s) * ((float(ky) - phiy_r) * red_w - red_ry))
-            add(chains, cid, 2, float(s) * ((float(kx) - phix_r) * red_w - red_rx))
+        if certless:
+            for cid, wf in ((("g", (ky + kx) % 2), w_g), (("rb", ky % 2, kx % 2), w_rb)):
+                red_w = wf.sum(1)
+                red_ry = (res_y * wf).sum(1)
+                red_rx = (res_x * wf).sum(1)
+                add(chains, cid, 0, red_w)
+                add(chains, cid, 1, float(s) * ((float(ky) - phiy_r) * red_w - red_ry))
+                add(chains, cid, 2, float(s) * ((float(kx) - phix_r) * red_w - red_rx))
+        if rho_y is not None:
+            dy_m = [float(s) * (float(ky) - r) for r in rho_y]
+            dx_m = [float(s) * (float(kx) - r) for r in rho_x]
         for a in (0, 1):
             qa, da = (a + ky) % 2, (a + ky) // 2
             for b in (0, 1):
@@ -301,25 +354,37 @@ def merge_burst_raw_planes(
                 val = _shifted(planes_p[:, qa, qb], pad, da, db, hh, hw)
                 cert_s = _shifted(cert_p[:, ch], pad, da, db, hh, hw)
                 wc = (w_g if ch == 1 else w_rb) * cert_s[None]
-                add(cells, (a, b, ch), 0, wc.sum(1))
-                add(cells, (a, b, ch), 2, (wc * val[None]).sum(1))
+                wcv = wc * val[None]
+                if order == 0:
+                    terms = (wcv, wc)
+                elif certless:
+                    terms = (wc, None, None, wcv)
+                else:
+                    dy, dx = dy_m[a], dx_m[b]
+                    terms = (wc, dy * wc, dx * wc, dy * dy * wc, dy * dx * wc, dx * dx * wc,
+                             wcv, dy * wcv, dx * wcv)
+                for i, term in enumerate(terms):
+                    if term is not None:  # the frame axis dies here
+                        add(cells, (a, b, ch), i, term.sum(1), n_out if not certless else 4)
 
     cent = {}
     for cid, (wsum, m1, m2) in chains.items():
         inv = torch.where(wsum > 1e-8, 1.0 / wsum.clamp_min(1e-8), 0.0)
         cent[cid] = ((m1 * inv).clamp(-2.0, 2.0), (m2 * inv).clamp(-2.0, 2.0))
 
-    outs = [planes.new_zeros((2 * s, 2 * s, 3, hh, hw)) for _ in range(4)]
+    outs = [planes.new_zeros((2 * s, 2 * s, 3, hh, hw)) for _ in range(n_out)]
     for a in (0, 1):
         for b in (0, 1):
             rows, cols = slice(a * s, a * s + s), slice(b * s, b * s + s)
             for ch in range(3):
                 cell = cells.get((a, b, ch))
                 if cell is not None:
-                    outs[0][rows, cols, ch] = cell[0].reshape(s, s, hh, hw)
-                    outs[3][rows, cols, ch] = cell[2].reshape(s, s, hh, hw)
-                chain = cent.get(_centroid_chain(cfa, a, b, ch))
-                if chain is not None:
-                    outs[1][rows, cols, ch] = chain[0].reshape(s, s, hh, hw)
-                    outs[2][rows, cols, ch] = chain[1].reshape(s, s, hh, hw)
+                    for i, part in enumerate(cell):
+                        if part is not None:
+                            outs[i][rows, cols, ch] = part.reshape(s, s, hh, hw)
+                if certless:
+                    chain = cent.get(_centroid_chain(cfa, a, b, ch))
+                    if chain is not None:
+                        outs[1][rows, cols, ch] = chain[0].reshape(s, s, hh, hw)
+                        outs[2][rows, cols, ch] = chain[1].reshape(s, s, hh, hw)
     return tuple(outs)

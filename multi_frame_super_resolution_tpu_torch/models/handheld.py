@@ -1,5 +1,6 @@
 """End-to-end handheld multi-frame super-resolution (counterpart of
-models/handheld.py), both entry points on their fast paths:
+models/handheld.py), both entry points on their fast paths and, with
+cfg.fast=False, on the gather-based oracle paths:
 
 - ``handheld_superres``: RGB burst in, ``_handheld_fast``
   (handheld.py:235-479). Global similarity pre-alignment (cfg.prealign)
@@ -16,10 +17,21 @@ models/handheld.py), both entry points on their fast paths:
   (handheld.py:534-555, :656-915), the main path. Everything runs in the
   CFA-plane domain: global similarity pre-alignment (cfg.prealign) ->
   half-res alignment -> integer plane warps -> residual
-  + LK at half res -> robustness -> order-1 plane merge -> plugin solve
+  + LK at half res -> robustness -> plane merge -> solve
   -> noise-gated restore -> one phase interleave. Scales 1-4;
   ``handheld_superres_raw_cascade`` runs scale 4 with the upsampled
-  scale-2 result as its fallback (handheld.py:492-531).
+  scale-2 result as its fallback (handheld.py:492-531). The merge is the
+  certless plugin order 1 (the default), order 1 with the exact 3x3
+  solve (merge.solver='exact'), or order 0 (merge.order=0).
+- the oracle (cfg.fast=False; handheld.py:145-232 and :550-633): the
+  reference's accumulateImagesSuperRes math. Tile alignment densified to
+  a bilinear per-pixel flow, LK at cfg.lk (the gather warp by default),
+  robustness by a per-pixel gather at the rounded flow, and a gather
+  merge of each output pixel's 5 x 5 window (at least) around its
+  nearest sample, order 0 or order 1 with either solve; the fallback is
+  the bicubic upscale of the reference frame (RAW: of its demosaic),
+  the restore the output-resolution FIR. The RAW oracle aligns on the
+  half-resolution quad subsample and merges the full-resolution mosaic.
 
 Both run on cuda:0 unless ``device`` names another device (``"cpu"`` or
 a ``torch.device``); without a card and without that request they raise
@@ -56,20 +68,27 @@ from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
 from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp
 from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
     grad_phases,
+    planes_to_raw,
     raw_to_planes,
 )
 from multi_frame_super_resolution_tpu_torch.models.merge import (
     apply_weighting,
     apply_weighting_order1,
+    grad_image,
     kernel_params,
+    merge_burst_raw,
+    merge_burst_rgb,
     smoothed_structure_tensor,
+    solve_order1,
     solve_plugin,
 )
 from multi_frame_super_resolution_tpu_torch.models.robustness import robustness_mask
 from multi_frame_super_resolution_tpu_torch.ops.color import rgb_to_gray, srgb_gamma
-from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, upscale
+from multi_frame_super_resolution_tpu_torch.ops.debayer import debayer, debayer_subsample
+from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, resize, upscale
 from multi_frame_super_resolution_tpu_torch.ops.restore import (
     restore_gain,
+    restore_image,
     restore_phases,
     temporal_noise_stat,
 )
@@ -118,6 +137,17 @@ def _on_device(who, burst, prealign_override, device):
     return burst.to(dev).contiguous(), prealign_override
 
 
+def _prealign(x, gray, cfg: HandheldConfig, prealign_override, apply_fn, estimate_fn):
+    """``x`` and its validity after global pre-alignment: the override's
+    transform applied by ``apply_fn`` (apply_burst_similarity or
+    apply_planes_similarity), else one estimated from ``gray`` by
+    ``estimate_fn`` (prealign_burst or prealign_planes)."""
+    if prealign_override is not None:
+        st, origin, global_hw = prealign_override
+        return apply_fn(x, st, cfg.prealign_cfg, origin=origin, global_hw=global_hw)
+    return estimate_fn(x, gray, cfg.prealign_cfg)
+
+
 def handheld_superres(
     burst: torch.Tensor, cfg: HandheldConfig = HandheldConfig(), prealign_override=None, *, device=None
 ) -> torch.Tensor:
@@ -131,7 +161,92 @@ def handheld_superres(
     if burst.dtype != torch.float32:
         raise TypeError(f"burst must be float32, got {burst.dtype}")
     burst, prealign_override = _on_device("handheld_superres", burst, prealign_override, device)
+    if not cfg.fast:
+        return _handheld_oracle(burst, cfg, prealign_override)
     return _handheld_fast(burst, cfg, prealign_override)
+
+
+def _burst_flows(gray: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
+    """Tile-align a grayscale burst (F, H, W) against frame 0, densify the
+    tile shifts to a bilinear per-pixel flow and refine it by LK at
+    cfg.lk: flows (F, H, W, 2), frame 0's zero."""
+    f, h, w = gray.shape
+    with record_function("mfsr.align"):
+        tile_shifts = align_burst(gray, cfg.align)
+        flows = flow_from_tile_shifts(tile_shifts, cfg.align.tile_size, h, w)
+    if cfg.use_lk:
+        with record_function("mfsr.lk"):
+            alts = lk_refine(gray[0], gray[1:], flows[1:], cfg.lk)
+            flows = torch.cat([torch.zeros_like(alts[:1]), alts], dim=0)
+    return flows
+
+
+def _burst_certainty(rgb: torch.Tensor, flows: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
+    """Robustness certainties (F, H, W, 3) by the gather at each frame's
+    rounded flow; the reference frame's are 1."""
+    with record_function("mfsr.robustness"):
+        alts = robustness_mask(rgb[0], rgb[1:], flows[1:], cfg.robustness, bounded=0)[..., :3]
+        return torch.cat([torch.ones_like(alts[:1]), alts], dim=0)
+
+
+def _oracle_merge(merge_fn, merge_args, cfg: HandheldConfig, order: int, fallback: torch.Tensor) -> torch.Tensor:
+    """The oracle's gather merge at order 0 or 1 (the solve cfg.merge.solver
+    names) and its weight-threshold finalize against ``fallback``."""
+    with record_function("mfsr.merge"):
+        moments = merge_fn(*merge_args, order=order)
+    with record_function("mfsr.solve"):
+        if order == 1:
+            est, m00 = _o1_solve(moments, cfg, grad_image, precomputed_centroid=False)
+            return apply_weighting_order1(est, m00, fallback, cfg.merge.weight_threshold)
+        return apply_weighting(*moments, fallback, cfg.merge.weight_threshold)
+
+
+def _oracle_finish(out: torch.Tensor, cfg: HandheldConfig, stat_fn) -> torch.Tensor:
+    """The gated output-resolution restore at scale 2 (``stat_fn()`` gives
+    the noise statistic), gamma, and the clip to [0, 1]."""
+    if cfg.final_restore and cfg.scale == 2:
+        with record_function("mfsr.restore"):
+            out = _gated_restore(out, cfg, stat_fn(), restore_image)
+    with record_function("mfsr.finalize"):
+        if cfg.gamma:
+            out = srgb_gamma(out)
+        return out.clamp(0.0, 1.0)
+
+
+def _handheld_oracle(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None) -> torch.Tensor:
+    """The RGB gather path (handheld.py:164-232): alignment, flows, LK and
+    robustness at full resolution on the unwarped frames."""
+    gray = rgb_to_gray(burst)
+    prevalid = None
+    if cfg.prealign:
+        with record_function("mfsr.prealign"):
+            burst, prevalid = _prealign(
+                burst, gray, cfg, prealign_override, apply_burst_similarity, prealign_burst
+            )
+            gray = rgb_to_gray(burst)
+    flows = _burst_flows(gray, cfg)
+    cert = _burst_certainty(burst, flows, cfg)
+    if prevalid is not None:
+        cert = cert * prevalid[..., None]  # frame 0's validity is all ones
+
+    with record_function("mfsr.kernel_params"):
+        omega_inv = kernel_params(smoothed_structure_tensor(gray[0], cfg.st_window), _scaled_merge_cfg(cfg))
+        fallback = upscale(burst[0], cfg.scale, "bicubic")
+    rgb_order = cfg.merge.order if cfg.merge.rgb_order is None else cfg.merge.rgb_order
+    # the reference's 5 x 5 window at least: the gather has no prune_exp
+    # compensation for a fast-path radius below 2
+    oracle_radius = max(cfg.merge.radius, 2)
+    out = _oracle_merge(
+        merge_burst_rgb, (burst, flows, cert, omega_inv, cfg.scale, oracle_radius), cfg, rgb_order, fallback
+    )
+
+    def stat():
+        # the unwarped frames registered by their rounded flows inside the
+        # statistic, at half resolution (the gate's calibration scale)
+        flows_half = torch.movedim(downsample2(torch.movedim(flows, -1, 1)), 1, -1) * 0.5
+        return temporal_noise_stat(downsample2(gray), flows=flows_half)
+
+    return _oracle_finish(out, cfg, stat)
 
 
 def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None) -> torch.Tensor:
@@ -142,13 +257,9 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
     prevalid = None
     if cfg.prealign:
         with record_function("mfsr.prealign"):
-            if prealign_override is not None:
-                st, origin, global_hw = prealign_override
-                burst, prevalid = apply_burst_similarity(
-                    burst, st, cfg.prealign_cfg, origin=origin, global_hw=global_hw
-                )
-            else:
-                burst, prevalid = prealign_burst(burst, gray, cfg.prealign_cfg)
+            burst, prevalid = _prealign(
+                burst, gray, cfg, prealign_override, apply_burst_similarity, prealign_burst
+            )
             gray = rgb_to_gray(burst)
     # motion is estimated on half-res luma and lifted to full res; the
     # merge still sees full-res samples
@@ -233,7 +344,7 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
     with record_function("mfsr.merge"):
         moments = merge_fast(
             *merge_args, k_max=merge_cfg.k_max, phase_output=True, order=rgb_order,
-            prune_exp=cfg.merge.prune_exp,
+            prune_exp=cfg.merge.prune_exp, moment_slots=_moment_slots(cfg),
         )
     with record_function("mfsr.solve"):
         fallback_p = upsample_int_phases_planes(burst[0], cfg.scale, "bicubic")
@@ -263,16 +374,24 @@ def _gated_restore(out, cfg: HandheldConfig, stat, restore_fn):
     return restore_fn(out, gain=g)
 
 
+def _moment_slots(cfg: HandheldConfig) -> int:
+    """The fast merges' order-1 moment slots: 4 for the plugin solve, 9
+    for the exact one."""
+    return 4 if cfg.merge.solver == "plugin" else 9
+
+
 def _o1_solve(moments, cfg: HandheldConfig, grad_fn, precomputed_centroid: bool):
-    """The order-1 solve: the plugin solver on the merge's 4 moment
-    slots. ``precomputed_centroid``: slots 1/2 hold the finalized
-    centroid, as the RAW merge's certless chains return it (the JAX
-    package's ``_certless`` case); the RGB merge returns the raw
-    moments. check_supported and check_supported_raw reject the exact
-    3x3 solve."""
-    return solve_plugin(
-        moments, grad_fn, cfg.merge.plugin_iters, precomputed_centroid=precomputed_centroid
-    )
+    """MergeConfig.solver's order-1 solve: the plugin solver on the
+    merge's 4 moment slots (or the oracle's 9), its gradient from
+    ``grad_fn`` in the estimate's layout, or the exact 3x3 solve
+    (solve_order1) on 9 slots. ``precomputed_centroid``: slots 1/2 hold
+    the finalized centroid, as the RAW merge's certless chains return it
+    (the JAX package's ``_certless`` case)."""
+    if cfg.merge.solver == "plugin":
+        return solve_plugin(
+            moments, grad_fn, cfg.merge.plugin_iters, precomputed_centroid=precomputed_centroid
+        )
+    return solve_order1(moments, cfg.merge.ridge)
 
 
 def _subsample_from_planes(planes: torch.Tensor, cfa) -> torch.Tensor:
@@ -350,7 +469,52 @@ def handheld_superres_raw(
     raw_burst, prealign_override = _on_device("handheld_superres_raw", raw_burst, prealign_override, device)
     if fallback_hr is not None:
         fallback_hr = fallback_hr.to(raw_burst.device)
+    if not cfg.fast:
+        return _handheld_raw_oracle(raw_burst, cfg, prealign_override, fallback_hr)
     return _handheld_raw_fast(raw_burst, cfg, prealign_override, fallback_hr)
+
+
+def _handheld_raw_oracle(
+    raw_burst: torch.Tensor, cfg: HandheldConfig, prealign_override=None, fallback_hr=None
+) -> torch.Tensor:
+    """The RAW gather path (handheld.py:556-633): alignment, flows, LK and
+    robustness on the half-resolution quad subsample, the merge on the
+    full-resolution mosaic with the flows and kernel parameters resized
+    to it."""
+    f, h, w = raw_burst.shape
+    cfa = cfg.cfa_pattern
+    half = debayer_subsample(raw_burst, cfa)
+    gray_half = rgb_to_gray(half)
+    prevalid = None
+    if cfg.prealign:
+        with record_function("mfsr.prealign"):
+            planes, prevalid = _prealign(
+                raw_to_planes(raw_burst), gray_half, cfg, prealign_override,
+                apply_planes_similarity, prealign_planes,
+            )
+            raw_burst = planes_to_raw(planes)
+            half = debayer_subsample(raw_burst, cfa)
+            gray_half = rgb_to_gray(half)
+    flows_half = _burst_flows(gray_half, cfg)
+    cert = _burst_certainty(half, flows_half, cfg)
+    if prevalid is not None:
+        cert = cert * prevalid[..., None]
+
+    with record_function("mfsr.kernel_params"):
+        # half-res kernel parameters and flows (x2: RAW pixels) on the RAW grid
+        st = smoothed_structure_tensor(gray_half[0], cfg.st_window)
+        omega_inv = resize(kernel_params(st, _scaled_merge_cfg(cfg)), h, w, "bilinear")
+        flows_raw = resize(flows_half, h, w, "bilinear") * 2.0
+        if fallback_hr is not None:
+            fallback = fallback_hr
+        else:
+            fallback = upscale(debayer(raw_burst[0], cfa), cfg.scale, "bicubic")
+    oracle_radius = max(cfg.merge.radius, 2)  # see _handheld_oracle
+    out = _oracle_merge(
+        merge_burst_raw, (raw_burst, flows_raw, cert, omega_inv, cfa, cfg.scale, oracle_radius),
+        cfg, cfg.merge.order, fallback,
+    )
+    return _oracle_finish(out, cfg, lambda: temporal_noise_stat(gray_half, flows=flows_half))
 
 
 def _handheld_raw_fast(
@@ -368,13 +532,9 @@ def _handheld_raw_fast(
     prevalid = None
     if cfg.prealign:
         with record_function("mfsr.prealign"):
-            if prealign_override is not None:
-                st, origin, global_hw = prealign_override
-                planes, prevalid = apply_planes_similarity(
-                    planes, st, cfg.prealign_cfg, origin=origin, global_hw=global_hw
-                )
-            else:
-                planes, prevalid = prealign_planes(planes, gray_half, cfg.prealign_cfg)
+            planes, prevalid = _prealign(
+                planes, gray_half, cfg, prealign_override, apply_planes_similarity, prealign_planes
+            )
             half = _subsample_from_planes(planes, cfa)
             gray_half = rgb_to_gray(half)
 
@@ -428,12 +588,13 @@ def _handheld_raw_fast(
         mc_rb = dataclasses.replace(mc, k_min=max(mc.k_min, mc.k_min_rb))
         omega_half_rb = kernel_params(st, mc_rb)
 
+    order = cfg.merge.order
     with record_function("mfsr.merge"):
         moments = merge_raw(
             warped, (res_half * 2.0).contiguous(), cert_half.contiguous(),
             omega_half.contiguous(), omega_half_rb.contiguous(), cfa, cfg.scale,
             cfg.merge.radius, cfg.residual_bound, k_max=mc.k_max,
-            prune_exp=cfg.merge.prune_exp,
+            prune_exp=cfg.merge.prune_exp, order=order, moment_slots=_moment_slots(cfg),
         )
 
     # all finalize math in the channel-leading phase domain
@@ -444,8 +605,12 @@ def _handheld_raw_fast(
             fallback_p = _image_phases(fallback_hr, 2 * cfg.scale)
         else:
             fallback_p = upsample_int_phases_planes(half[0], 2 * cfg.scale, "bilinear")
-        est_p, m00_p = _o1_solve(moments, cfg, grad_phases, precomputed_centroid=True)
-        out_p = apply_weighting_order1(est_p, m00_p, fallback_p, cfg.merge.weight_threshold)
+        if order == 1:
+            # the certless chains return the finalized centroid (plugin solve)
+            est_p, m00_p = _o1_solve(moments, cfg, grad_phases, precomputed_centroid=True)
+            out_p = apply_weighting_order1(est_p, m00_p, fallback_p, cfg.merge.weight_threshold)
+        else:
+            out_p = apply_weighting(*moments, fallback_p, cfg.merge.weight_threshold)
 
     if cfg.final_restore and cfg.scale == 2:
         with record_function("mfsr.restore"):

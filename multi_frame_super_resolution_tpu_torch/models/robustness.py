@@ -1,7 +1,9 @@
-"""Merge robustness (certainty) model (counterpart of models/robustness.py)
-on the bounded fast path: local 3x3 statistics of the reference against
-the flow-shifted moving frames under the noise model
-sigma_md = sqrt(alpha * mean + beta), gated by the local 5x5 flow spread."""
+"""Merge robustness (certainty) model (counterpart of models/robustness.py):
+local 3x3 statistics of the reference against the flow-shifted moving
+frames under the noise model sigma_md = sqrt(alpha * mean + beta), gated
+by the local 5x5 flow spread. The fast paths shift by a bounded warp of
+the rounded (small) flow; the gather (oracle) paths, ``bounded=0``, by a
+per-pixel clamped gather at the rounded flow."""
 
 from __future__ import annotations
 
@@ -12,7 +14,17 @@ import torch
 from multi_frame_super_resolution_tpu_torch.config import RobustnessConfig
 from multi_frame_super_resolution_tpu_torch.ops.filters import _const, box_filter
 from multi_frame_super_resolution_tpu_torch.ops.morphology import dilate, erode
-from multi_frame_super_resolution_tpu_torch.ops.warp_fast import warp_bounded
+from multi_frame_super_resolution_tpu_torch.ops.warp_fast import _gather_flat, warp_bounded
+
+
+def _gather_shifted(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """Planes (..., C, H, W) sampled at x + shift, shift (..., H, W, 2) a
+    per-pixel integer shift broadcast over C, clamped borders."""
+    h, w = img.shape[-2], img.shape[-1]
+    dev = img.device
+    ys = (torch.arange(h, device=dev)[:, None] + shift[..., 0].long()).clamp_(0, h - 1)
+    xs = (torch.arange(w, device=dev) + shift[..., 1].long()).clamp_(0, w - 1)
+    return _gather_flat(img, (ys * w + xs).unsqueeze(-3))
 
 
 def robustness_mask(
@@ -25,20 +37,19 @@ def robustness_mask(
     """Certainty masks for alternate frames.
 
     ref (H, W, 3); moved (..., H, W, 3); flow (..., H, W, 2), small
-    (already tile-compensated). Returns (..., H, W, 4): RGB certainties in
+    (already tile-compensated) for ``bounded`` > 0, any size with
+    ``bounded=0`` (the gather). Returns (..., H, W, 4): RGB certainties in
     [0, 1] and the motion-inconsistency metric M in the last channel.
     """
-    if bounded <= 0:
-        raise ValueError("the port implements only the bounded (gatherless) path")
     mean_ref = box_filter(ref, 3, normalize=True)
     mean_sq_ref = box_filter(ref * ref, 3, normalize=True)
     std_ref = torch.sqrt((mean_sq_ref - mean_ref * mean_ref).clamp_min(0.0))
 
-    mean_moved_planes = warp_bounded(
-        torch.movedim(box_filter(moved, 3, normalize=True), -1, -3),
-        torch.round(flow).unsqueeze(-4),
-        bounded,
-    )
+    moved_planes = torch.movedim(box_filter(moved, 3, normalize=True), -1, -3)
+    if bounded > 0:
+        mean_moved_planes = warp_bounded(moved_planes, torch.round(flow).unsqueeze(-4), bounded)
+    else:
+        mean_moved_planes = _gather_shifted(moved_planes, torch.round(flow))
     mean_moved = torch.movedim(mean_moved_planes, -3, -1)
 
     # local 5x5 flow spread, scaled by the local mean distance

@@ -1,6 +1,7 @@
 """Post-merge restoration FIR and its noise gate (counterpart of
 ops/restore.py): the separable polyphase form on channel-leading phase
-planes, the registered temporal noise statistic and the gate's gain.
+planes, the output-resolution form of the gather (oracle) paths, the
+registered temporal noise statistic and the gate's gain.
 
 ops/restore.py imports jax at module level, so its constants are carried
 across here: a copy of the fitted 7x7 kernel, and ``restore_factors``,
@@ -45,6 +46,33 @@ def restore_factors(kernel_fit: np.ndarray) -> Tuple[np.ndarray, tuple]:
 
 
 RESTORE_KERNEL, RESTORE_FACTORS = restore_factors(RESTORE_KERNEL_FIT)
+
+
+def restore_image(img: torch.Tensor, gain: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The shipped restoration FIR at output resolution on (H, W, C) or
+    (H, W), edge-clamped: out[y, x] = sum_uv k[u, v] img[y - u + r,
+    x - v + r], a true convolution, its 49 terms summed in the JAX order.
+    ``gain``: a 0-d tensor g; returns img + g * (restored - img)."""
+    if gain is not None:
+        return img + gain * (restore_image(img) - img)
+    k = RESTORE_KERNEL
+    kh, kw = k.shape
+    r_y, r_x = kh // 2, kw // 2
+    chan = img.ndim == 3
+    x = torch.movedim(img, -1, 0) if chan else img
+    h, w = x.shape[-2], x.shape[-1]
+    pad = max(r_y, r_x, 1)
+    xp = _pad_edge(_pad_edge(x, -2, pad, pad), -1, pad, pad)
+    out = None
+    for u in range(kh):
+        for v in range(kw):
+            c = float(k[u, v])
+            if c == 0.0:
+                continue
+            dy, dx = r_y - u, r_x - v
+            term = xp[..., pad + dy : pad + dy + h, pad + dx : pad + dx + w] * c
+            out = term if out is None else out + term
+    return torch.movedim(out, 0, -1) if chan else out
 
 
 def _polyphase_taps_1d(v: np.ndarray, n: int):
@@ -115,16 +143,32 @@ def _restore_phases_separable(
 
 
 def temporal_noise_stat(
-    gray: torch.Tensor, residual: Optional[torch.Tensor] = None, step: int = 8
+    gray: torch.Tensor,
+    residual: Optional[torch.Tensor] = None,
+    step: int = 8,
+    *,
+    flows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Robust per-burst noise statistic from REGISTERED luma frames
     (F, H, W), frame 0 the reference: the 15th percentile of
     |alt - ref + residual . grad(ref)| over the flattest 30% of a
     ``step``-subsampled grid and all alternates. ``residual``
     (F-1, H, W, 2) is the subpixel flow left after registration.
+    ``flows`` (F, H, W, 2) instead registers unwarped frames, as the
+    gather (oracle) paths do: each alternate is shifted by its rounded
+    flow, edge-clamped, and the residual is flows - round(flows).
     Returns a 0-d tensor."""
     ref = gray[0]
     moved = gray[1:]
+    if flows is not None:
+        h, w = ref.shape
+        dev = ref.device
+        rounded = torch.round(flows[1:])
+        yi = (torch.arange(h, device=dev)[:, None] + rounded[..., 0].long()).clamp_(0, h - 1)
+        xi = (torch.arange(w, device=dev) + rounded[..., 1].long()).clamp_(0, w - 1)
+        moved = torch.gather(moved.reshape(moved.shape[0], -1), 1, (yi * w + xi).reshape(moved.shape[0], -1))
+        moved = moved.reshape(gray[1:].shape)
+        residual = flows[1:] - rounded
     gy, gx = torch.gradient(ref)
     d = moved - ref
     if residual is not None:

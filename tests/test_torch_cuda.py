@@ -1,8 +1,8 @@
 """Tests of the port that need the card: each Hopper kernel (RGB merge in
-its three forms, tile warp, tile search, RAW merge at scales 1-4, defog)
-against its plain PyTorch version, and the RGB, RAW, defog and BTV-L1
-paths on the card against the port on the CPU. They skip without a CUDA
-device.
+its four forms, tile warp, tile search, RAW merge in its three forms at
+scales 1-4, defog) against its plain PyTorch version, and the RGB, RAW
+(fast and oracle), defog and BTV-L1 paths on the card against the port
+on the CPU. They skip without a CUDA device.
 
 This file imports no JAX, so the GPU host (which has none) runs it
 without the suite's conftest:
@@ -31,10 +31,15 @@ from torch_parity import (
 from multi_frame_super_resolution_tpu_torch.config import (
     PORT_DEFAULT,
     RAW_BENCH,
+    RAW_EXACT,
+    RAW_ORACLE,
+    RAW_ORDER0,
     RAW_PORT_DEFAULT,
     RAW_SCALE4,
     RGB_DEFAULT,
     RGB_DEFAULT_NOPRE,
+    RGB_EXACT,
+    RGB_ORACLE,
     RGB_PALLAS,
     AlignConfig,
     BTVConfig,
@@ -374,7 +379,7 @@ def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
     frames that fit at scale 2 (30 at halo 1, 22 at halo 2) match the
     plain version, one more raises."""
     dev = cuda_device()
-    cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(2, halo)
+    cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(2, halo, 0)
     assert cap == {1: 30, 2: 22}[halo]
     cfa = ((0, 1), (1, 2))
     ins = _raw_merge_inputs(np.random.default_rng(cap), cap, 9, 37, dev)
@@ -398,9 +403,9 @@ def test_raw_merge_kernel_frame_cap_by_scale(scale):
     either halo; the cap matches the plain version, one more raises."""
     dev = cuda_device()
     lib = raw_merge_kernel.library()
-    caps = {halo: lib.mfsr_merge_raw_max_frames(scale, halo) for halo in (1, 2)}
+    caps = {halo: lib.mfsr_merge_raw_max_frames(scale, halo, 0) for halo in (1, 2)}
     assert caps == {1: {1: 30, 3: 66, 4: 66}[scale], 2: {1: 22, 3: 38, 4: 38}[scale]}
-    assert lib.mfsr_merge_raw_max_frames(5, 1) == 0
+    assert lib.mfsr_merge_raw_max_frames(5, 1, 0) == 0
     cfa = ((0, 1), (1, 2))
     k_max = (scale / 2.0) ** 2
     ins = _raw_merge_inputs(np.random.default_rng(scale), caps[1], 9, 37, dev)
@@ -411,6 +416,163 @@ def test_raw_merge_kernel_frame_cap_by_scale(scale):
     more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 9, 37, dev)
     with pytest.raises(ValueError, match="frames exceed"):
         merge_raw(*more, cfa, scale, 1, 1.0, k_max, 1.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(3, 5), (37, 61)])
+@pytest.mark.parametrize("radius,k_max", [(1, 1.0), (7, 64.0)], ids=["taps2", "taps8"])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+@pytest.mark.parametrize("f", [2, 5])
+def test_merge_kernel_nine_moments_match_plain(f, scale, radius, k_max, h, w):
+    """Form 3, the exact solve's 9 moments in the phase layout at e^-1.5
+    (k_max scaled by (s/2)^2), a thread per pixel and phase: ragged and
+    tiny images, the largest halo (taps8). rtol and atol 1e-4, as the
+    plugin moments (dy and dx, and their products, in either sign)."""
+    dev = cuda_device()
+    k_max = k_max * (scale / 2.0) ** 2
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(f * 10 + scale + 7), f, h, w)]
+    kw = dict(phase_output=True, order=1, prune_exp=1.5, moment_slots=9)
+    LAUNCHES.clear()
+    got = merge_fast(*ins, scale, radius, 1.0, k_max, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_fast"] == 1
+    want = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max, **kw)
+    assert len(got) == len(want) == 9
+    for g, w_ in zip(got, want):
+        assert g.shape == (scale, scale, 3, h, w)
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [2, 4])
+def test_merge_kernel_nine_moments_at_the_path_shape(scale):
+    """Form 3 at chip_smoke.py's shape: F = 5 at 256 x 512, radius 1, the
+    path's taps (RGB_EXACT at scale 2, and at scale 4)."""
+    dev = cuda_device()
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(scale), 5, 256, 512)]
+    kw = dict(phase_output=True, order=1, prune_exp=1.5, moment_slots=9)
+    k_max = (scale / 2.0) ** 2
+    got = merge_fast(*ins, scale, 1, 1.0, k_max, **kw)
+    want = fast_merge.merge_burst_fast(*ins, scale, 1, 1.0, k_max, **kw)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+
+
+# the new RAW forms: (order, moment slots, outputs, tolerance)
+RAW_FORMS = {"order0": (0, 4, 2, 1e-5), "slots9": (1, 9, 9, 1e-4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hh,hw", [(37, 61), (3, 5)])
+@pytest.mark.parametrize("cfa", [((0, 1), (1, 2)), ((2, 1), (1, 0))])
+@pytest.mark.parametrize("radius,k_max,prune", [(1, 1.0, 1.5), (2, 4.0, 6.0)], ids=["halo1", "halo2"])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", list(RAW_FORMS))
+def test_raw_merge_kernel_new_forms_match_plain(form, scale, radius, k_max, prune, cfa, hh, hw):
+    """The order-0 form (num, den) at rtol/atol 1e-5 and the exact
+    solve's 9 moments (parity-interpolated displacements, a one-block
+    residual halo) at 1e-4, scales 1-4 (5 frames, 9 at scale 4), both
+    Bayer orders, both halos, a ragged size and one smaller than the
+    halo (edge clamps on every read)."""
+    dev = cuda_device()
+    order, slots, n_out, tol = RAW_FORMS[form]
+    k_max = k_max * (scale / 2.0) ** 2
+    f = 9 if scale == 4 else 5
+    ins = _raw_merge_inputs(np.random.default_rng(f * 10 + scale + order), f, hh, hw, dev)
+    kw = dict(order=order, moment_slots=slots)
+    LAUNCHES.clear()
+    got = merge_raw(*ins, cfa, scale, radius, 1.0, k_max, prune, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_raw"] == 1
+    want = fast_merge.merge_burst_raw_planes(*ins, cfa, scale, radius, 1.0, k_max, prune, **kw)
+    assert len(got) == len(want) == n_out
+    for g, w_ in zip(got, want):
+        assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
+        torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(RAW_FORMS))
+@pytest.mark.parametrize("frames,scale", [(5, 2), (9, 4), (9, 2)])
+def test_raw_merge_kernel_new_forms_at_the_path_shape(form, frames, scale):
+    """Both new forms at chip_smoke.py's shapes: 128 x 256 half-res, the
+    path's 21 taps, F = 5 at scale 2 and F = 9 at scale 4 (R/B kernels
+    wider); and F = 9 at scale 2, where the 9-moment form's staged frames
+    and static tap offsets together pass the 48 KB a launch takes without
+    opting in."""
+    dev = cuda_device()
+    order, slots, _, tol = RAW_FORMS[form]
+    ins = _raw_merge_inputs(np.random.default_rng(frames), frames, 128, 256, dev)
+    args = (((0, 1), (1, 2)), scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
+    got = merge_raw(*ins, *args, order=order, moment_slots=slots)
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, order=order, moment_slots=slots)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(RAW_FORMS))
+@pytest.mark.parametrize("scale", [1, 2, 4])
+def test_raw_merge_kernel_new_forms_frame_cap(form, scale):
+    """Every frame's tile is staged at once: the order-0 form has the
+    certless form's caps (its kernel without the chains), the 9-moment
+    form, which stages a one-site residual halo too, its own (a thread
+    layout of 4, 2 and 1 pixel rows at scales 1, 2 and 4); at halo 1 and
+    2. The halo-1 cap matches the plain version, one more frame raises."""
+    dev = cuda_device()
+    order, slots, _, tol = RAW_FORMS[form]
+    lib = raw_merge_kernel.library()
+    caps = {halo: lib.mfsr_merge_raw_max_frames(scale, halo, 1 + int(order == 1)) for halo in (1, 2)}
+    want = {
+        "order0": {1: {1: 30, 2: 30, 4: 66}, 2: {1: 22, 2: 22, 4: 38}},
+        "slots9": {1: {1: 28, 2: 42, 4: 56}, 2: {1: 21, 2: 28, 4: 35}},
+    }[form]
+    assert caps == {halo: want[halo][scale] for halo in (1, 2)}
+    cfa = ((0, 1), (1, 2))
+    args = (cfa, scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
+    ins = _raw_merge_inputs(np.random.default_rng(scale), caps[1], 5, 37, dev)
+    got = merge_raw(*ins, *args, order=order, moment_slots=slots)
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, order=order, moment_slots=slots)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
+    more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 5, 37, dev)
+    with pytest.raises(ValueError, match="frames exceed"):
+        merge_raw(*more, *args, order=order, moment_slots=slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "entry,cfg,launched",
+    [
+        ("raw", RAW_ORACLE, ()),
+        ("raw", dataclasses.replace(RAW_ORACLE, merge=MergeConfig(order=0)), ()),
+        ("raw", RAW_EXACT, ("tile_warp", "merge_raw")),
+        ("raw", RAW_ORDER0, ("tile_warp", "merge_raw")),
+        ("rgb", RGB_ORACLE, ()),
+        ("rgb", RGB_EXACT, ("tile_warp", "merge_fast")),
+    ],
+    ids=["raw-oracle", "raw-oracle-order0", "raw-exact", "raw-order0", "rgb-oracle", "rgb-exact"],
+)
+def test_correctness_bar_paths_on_card_match_cpu(entry, cfg, launched):
+    """The oracle paths (the tile search alone of csrc/; the gather merge
+    is plain PyTorch on the card too) and the exact and order-0 fast
+    paths (their new merge forms) on a rotated burst on the card, against
+    the port on the CPU."""
+    dev = cuda_device()
+    angles = CITY_ANGLES[:2] + CITY_ANGLES[3:]
+    if entry == "raw":
+        fn = handheld_superres_raw
+        x, _ = synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5, angles=angles)
+    else:
+        fn = handheld_superres
+        x, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5, angles=angles)
+    want = nn(fn(tt(x), cfg, device="cpu"))
+    LAUNCHES.clear()
+    got = nn(fn(tt(x, dev), cfg))
+    assert LAUNCHES["tile_search"] == cfg.align.levels
+    assert all(LAUNCHES[k] == 1 for k in launched)
+    assert set(LAUNCHES) - {"tile_search"} == set(launched)
+    assert psnr(got, want) >= 60.0
 
 
 @pytest.mark.cuda

@@ -83,12 +83,12 @@ def test_rgb_pallas_matches_jax_pipeline():
             ),
             "prealign",
         ),
-        (dataclasses.replace(SLICE, fast=False), "fast"),
+        (dataclasses.replace(SLICE, fast=False, use_consistency=True), "use_consistency"),
         (dataclasses.replace(SLICE, use_consistency=True), "use_consistency"),
         (dataclasses.replace(SLICE, rgb_half_stats=True), "rgb_half_stats"),
         (dataclasses.replace(SLICE, warp_matmul=False), "warp_matmul"),
         (HandheldConfig(prealign=False, merge=MergeConfig(bf16=True)), "bf16"),
-        (HandheldConfig(prealign=False, merge=MergeConfig(rgb_order=1, solver="exact")), "solver"),
+        (HandheldConfig(prealign=False, merge=MergeConfig(rgb_order=1, solver="newton")), "solver"),
         (dataclasses.replace(SLICE, merge=MergeConfig(use_pallas=True, rgb_order=1)), "use_pallas"),
         (dataclasses.replace(SLICE, align=AlignConfig(use_fft=True)), "use_fft"),
         (dataclasses.replace(SLICE, scale=5), "scale"),

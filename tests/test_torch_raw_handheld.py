@@ -191,11 +191,11 @@ def test_raw_cpu_request_equals_the_former_cpu_result(raw_burst, device):
             ),
             "prealign",
         ),
-        (dataclasses.replace(RAW_SLICE, fast=False), "fast"),
+        (dataclasses.replace(RAW_SLICE, fast=False, align=AlignConfig(use_fft=True)), "use_fft"),
         (dataclasses.replace(RAW_SLICE, use_consistency=True), "use_consistency"),
         (dataclasses.replace(RAW_SLICE, warp_matmul=False), "warp_matmul"),
-        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(order=0)), "order"),
-        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(solver="exact")), "solver"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(order=0, bf16=True)), "bf16"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(solver="newton")), "solver"),
         (dataclasses.replace(RAW_SLICE, merge=MergeConfig(centroid_cert=True)), "centroid_cert"),
         (dataclasses.replace(RAW_SLICE, merge=MergeConfig(exact_weights=True)), "exact_weights"),
         (dataclasses.replace(RAW_SLICE, merge=MergeConfig(guided_rb=True)), "guided_rb"),

@@ -182,7 +182,7 @@ def test_lk_refine(rng, bf16):
     assert np.mean(np.abs(got - want) < 1e-4) > 0.99
 
 
-def test_lk_refine_rejects_gather_warp(rng):
+def test_lk_refine_default_gather_warp_matches_jax(rng):
     """LKConfig() (no bounded warp, no tile decomposition) selects the
     bilinear gather warp; lk_refine rejected it until it was ported. At
     the defaults, on a ragged 21 x 27 pair with flows of up to +-4 px, a
