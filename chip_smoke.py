@@ -37,8 +37,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      21 taps: F=5 at scales 1, 2 (the main path) and 3, k_max (s/2)^2;
      F=9 at scale 4, k_max 4, wider R/B kernels (RAW_SCALE4); rtol and
      atol 1e-5; its order-0 form (RAW_ORDER0) at S=2 (F=5) and S=4
-     (F=9), rtol and atol 1e-5, and its 9-moment form (RAW_EXACT) at the
-     same shapes, ORDER1_TOL;
+     (F=9), rtol and atol 1e-5, its 9-moment form (RAW_EXACT) and its
+     per-cell plugin form (RAW_CERT) at the same shapes, ORDER1_TOL; and
+     at S=2 each of the four forms on guided difference planes (the guide
+     green_guide_planes of the planes, RAW_GUIDED), each at its form's
+     tolerance;
    - defog (csrc/defog.cu): 1024 x 1224 x 3, P and A_inf from the seed;
      rtol 1e-5, atol 1e-6 (the kernel is expected to match bit for bit).
 4. Paths on the card, each driven with the launch counts set to 0 just
@@ -76,9 +79,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      exact 3x3 solve: the 9-moment merge forms) and config.RAW_ORDER0
      (the order-0 RAW merge form); and the true-HR PSNR on the card of
      the oracle, exact, plugin-2 (RAW_BENCH with plugin_iters=2), default
-     (RAW_BENCH) and demosaic + bicubic rows on data.true_hr_burst (the
-     tracked city scene, 5 x 256 x 512 RAW at factor 2), printed without
-     a limit;
+     (RAW_BENCH), guided (RAW_GUIDED), per-cell centroid (RAW_CERT) and
+     demosaic + bicubic rows on data.true_hr_burst (the tracked city
+     scene, 5 x 256 x 512 RAW at factor 2), printed without a limit;
+   - the handheld knobs on the rotated burst, each -> 512 x 1024 x 3 with
+     its launch set checked: config.RAW_GUIDED (the RAW merge on colour
+     differences), config.RAW_CERT (its per-cell form), config.RAW_CONSISTENT
+     and config.RGB_CONSISTENT (the consistency solve: a tile search per
+     level for each first frame of a measured pair, F-1 of them),
+     config.RAW_FFT (FFT surfaces: no tile search) and RAW_BENCH with
+     lk.warp_tile=16;
    - btvl1_video (models/btvl1.py, plain PyTorch: BTV-L1 reaches no kernel
      of csrc/, as the JAX path reaches no Pallas kernel) at the app's
      configuration, BTVConfig(scale=2, iterations=10, temporal_radius=1),
@@ -115,7 +125,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    and device ops of one cycle (the profiler's raw device events alone,
    a light read) with the card's busy share; at the city geometry one
    more cycle under the full profiler, split as phase 6 splits a burst,
-   its totals beside the light read's.
+   its totals beside the light read's. The new configurations' paths are
+   timed and profiled as the others (RAW_CONSISTENT's mfsr.align stage
+   with the searches of its seven pairs).
 6. Where the time goes: one burst (frame) of each path under
    torch.profiler: host and device ms of each stage (the mfsr.* ranges
    of models/handheld.py and models/defog.py, with each kernel's own
@@ -125,8 +137,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 The last lines are a JSON line of the kernels (each kernel's entry holds
 the variant its main path runs, and every timed variant under
-"variants"; the three forms of the correctness bar's paths have entries
-of their own, their launches from their paths' runs), the card line, and
+"variants"; the three forms of the correctness bar's paths and the
+per-cell form of RAW_CERT have entries of their own, their launches from
+their paths' runs), the card line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -216,6 +229,11 @@ WORK = {
     # the blended residual and its displacement 8 / S (columns, rows)
     "merge_raw 9 slots": (8 + 92 + 8 / 2 + 8 / 2, 2),
     "merge_raw 9 slots S=4": (8 + 92 + 8 / 4 + 8 / 4, 2),
+    # the per-cell plugin's 4 slots, reckoned as the 9: two quadratics 8 +
+    # 2 exp; four parities' w c, w c v and four sums (two as FMAs) 4 x 8;
+    # per parity row (column) the blended residual and its displacement
+    "merge_raw cert4": (8 + 32 + 8 / 2 + 8 / 2, 2),
+    "merge_raw cert4 S=4": (8 + 32 + 8 / 4 + 8 / 4, 2),
     # per element: A, t and R with their clips
     "defog": (11, 0),
     # per (frame, tile, offset, pixel): the cross term's multiply-add
@@ -333,11 +351,16 @@ def main() -> int:
     from multi_frame_super_resolution_tpu_torch.config import (
         PORT_DEFAULT,
         RAW_BENCH,
+        RAW_CERT,
+        RAW_CONSISTENT,
         RAW_EXACT,
+        RAW_FFT,
+        RAW_GUIDED,
         RAW_ORACLE,
         RAW_ORDER0,
         RAW_PORT_DEFAULT,
         RAW_SCALE4,
+        RGB_CONSISTENT,
         RGB_DEFAULT,
         RGB_EXACT,
         RGB_ORACLE,
@@ -345,6 +368,7 @@ def main() -> int:
         AlignConfig,
         BTVConfig,
         HandheldConfig,
+        LKConfig,
         MergeConfig,
         PolarDefogConfig,
     )
@@ -443,6 +467,8 @@ def main() -> int:
     # (label, inputs, args, keyword args, WORK key, tolerance)
     raw4_args = (cfa, 4, 1, 1.0, 4.0, prune)
     order0, slots9 = dict(order=0), dict(order=1, moment_slots=9)
+    cert4 = dict(order=1, moment_slots=4, centroid_cert=True)
+    guided = dict(guide=fast_merge.green_guide_planes(raw_ins[0], cfa).contiguous())
     raw_variants = [
         ("S=2 (RAW_BENCH)", raw_ins, raw_args, {}, "merge_raw", KERNEL_TOL),
         ("S=1", raw_ins, (cfa, 1, 1, 1.0, 0.25, prune), {}, "merge_raw S=1", KERNEL_TOL),
@@ -452,6 +478,12 @@ def main() -> int:
         ("order 0, S=4, F=9", raw9_ins, raw4_args, order0, "merge_raw order 0 S=4", KERNEL_TOL),
         ("9 slots, S=2 (RAW_EXACT)", raw_ins, raw_args, slots9, "merge_raw 9 slots", ORDER1_TOL),
         ("9 slots, S=4, F=9", raw9_ins, raw4_args, slots9, "merge_raw 9 slots S=4", ORDER1_TOL),
+        ("cert4, S=2 (RAW_CERT)", raw_ins, raw_args, cert4, "merge_raw cert4", ORDER1_TOL),
+        ("cert4, S=4, F=9", raw9_ins, raw4_args, cert4, "merge_raw cert4 S=4", ORDER1_TOL),
+        ("guided, S=2 (RAW_GUIDED)", raw_ins, raw_args, guided, "merge_raw", KERNEL_TOL),
+        ("guided order 0, S=2", raw_ins, raw_args, dict(guided, **order0), "merge_raw order 0", KERNEL_TOL),
+        ("guided 9 slots, S=2", raw_ins, raw_args, dict(guided, **slots9), "merge_raw 9 slots", ORDER1_TOL),
+        ("guided cert4, S=2", raw_ins, raw_args, dict(guided, **cert4), "merge_raw cert4", ORDER1_TOL),
     ]
     iper_np, ipar_np = synthetic_polar_pair(rng, DEFOG_H, DEFOG_W)
     defog_ins = [torch.from_numpy(x).to(dev) for x in (
@@ -661,13 +693,14 @@ def main() -> int:
                 raise RuntimeError(f"the plain run launched kernels: {dict(LAUNCHES)}")
         return out_plain
 
-    def check_slice(label, fn, burst, cfg, expect, small_burst, runs=1):
+    def check_slice(label, fn, burst, cfg, expect, small_burst, runs=1, searches=None):
         """``runs``: the entry-point runs the path makes (2 for the
-        cascade), each searching every pyramid level once."""
-        out, launches = drive(fn, burst, cfg, expect + ("tile_search",))
-        if launches["tile_search"] != runs * cfg.align.levels:
-            raise RuntimeError(f"{label}: {launches['tile_search']} tile searches for {runs} x "
-                               f"{cfg.align.levels} levels")
+        cascade), each searching every pyramid level once; ``searches``,
+        where the path makes another number of tile searches."""
+        searches = runs * cfg.align.levels if searches is None else searches
+        out, launches = drive(fn, burst, cfg, expect + (("tile_search",) if searches else ()))
+        if launches.get("tile_search", 0) != searches:
+            raise RuntimeError(f"{label}: {launches.get('tile_search', 0)} tile searches, {searches} expected")
         if out.device != dev:
             raise RuntimeError(f"{label}: the output lies on {out.device}, not on the default {dev}")
         check_output(label, out, (cfg.scale * burst.shape[1], cfg.scale * burst.shape[2], 3))
@@ -820,6 +853,35 @@ def main() -> int:
         if any(bar_launches[label][k] != 1 for k in expect):
             raise RuntimeError(f"{label} launched {bar_launches[label]}, each of {expect} once expected")
 
+    # the handheld knobs (ROADMAP Queue 1 items 7 and 13, lk.warp_tile):
+    # the guided and per-cell merge forms, the consistency solve (a search
+    # per level for each first frame of a measured pair: F-1 of them),
+    # the FFT surfaces (no tile search) and LK's tile-decomposed warp.
+    # The consistent RGB path's small burst is 128 x 256: at 64 x 128 one
+    # edge tile's outlier decision is float32 rounding's (PERF.md)
+    rgb_small_wide = torch.from_numpy(synthetic_rgb_burst(
+        np.random.default_rng(1), 4, 128, 256, 2.5, angles=CITY_ANGLES[:2] + CITY_ANGLES[3:])[0])
+    raw_warp_tile = dataclasses.replace(RAW_BENCH, lk=LKConfig(warp_tile=16))
+    raw_kernels = ("tile_warp", "merge_raw")
+    knob_paths = (  # (label, entry point, burst, config, kernels, small burst, tile searches)
+        ("raw (RAW_GUIDED)", handheld.handheld_superres_raw, raw_rot, RAW_GUIDED, raw_kernels, raw_small_rot, None),
+        ("raw (RAW_CERT)", handheld.handheld_superres_raw, raw_rot, RAW_CERT, raw_kernels, raw_small_rot, None),
+        ("raw (RAW_CONSISTENT)", handheld.handheld_superres_raw, raw_rot, RAW_CONSISTENT, raw_kernels,
+         raw_small_rot, (F - 1) * RAW_CONSISTENT.align.levels),
+        ("raw (RAW_FFT)", handheld.handheld_superres_raw, raw_rot, RAW_FFT, raw_kernels, raw_small_rot, 0),
+        ("raw lk.warp_tile=16", handheld.handheld_superres_raw, raw_rot, raw_warp_tile, raw_kernels,
+         raw_small_rot, None),
+        ("rgb (RGB_CONSISTENT)", handheld.handheld_superres, rgb_burst, RGB_CONSISTENT, ("merge_fast", "tile_warp"),
+         rgb_small_wide, (F - 1) * RGB_CONSISTENT.align.levels),
+    )
+    knob_launches = {}
+    for label, fn, burst, cfg, expect, small, searches in knob_paths:
+        launches = knob_launches[label] = check_slice(label, fn, burst, cfg, expect, small, searches=searches)
+        if set(launches) != set(expect) | ({"tile_search"} if searches != 0 else set()):
+            raise RuntimeError(f"{label} launched {launches}, expected {expect} and its tile searches")
+        if any(launches[k] != 1 for k in expect):
+            raise RuntimeError(f"{label} launched {launches}, each of {expect} once expected")
+
     # the correctness bar on the card: true-HR PSNR (16 px margin) of each
     # row on data.true_hr_burst, beside PARITY.md's (another scene); no limit
     raw_hr_np, hr_np = true_hr_burst()
@@ -833,12 +895,15 @@ def main() -> int:
         ("fast + exact 3x3 solve (RAW_EXACT)", RAW_EXACT, "27.90"),
         ("fast + plugin, 2 iterations", dataclasses.replace(RAW_BENCH, merge=MergeConfig(plugin_iters=2)), "27.84"),
         ("fast default (RAW_BENCH)", RAW_BENCH, "27.75"),
+        ("fast + guided R/B (RAW_GUIDED)", RAW_GUIDED, None),
+        ("fast + per-cell centroid (RAW_CERT)", RAW_CERT, None),
     )
     for label, cfg, parity_db in bar_rows:
         sr = handheld.handheld_superres_raw(raw_hr, cfg)
         check_output(f"true-HR {label}", sr, tuple(hr.shape))
+        beside = "no PARITY.md row" if parity_db is None else f"PARITY.md, another scene: {parity_db} dB"
         print(f"correctness bar {label}: true-HR PSNR {hr_psnr(sr):.4f} dB on {tuple(raw_hr.shape)} -> "
-              f"{tuple(sr.shape)} (PARITY.md, another scene: {parity_db} dB)  [{card}]")
+              f"{tuple(sr.shape)} ({beside})  [{card}]")
     base = upscale(debayer(raw_hr[0], cfa), 2, "bicubic").clamp(0.0, 1.0)
     print(f"correctness bar demosaic + bicubic (frame 0): true-HR PSNR {hr_psnr(base):.4f} dB "
           f"(tests/test_fidelity.py, another scene: 25.39 dB)  [{card}]")
@@ -986,6 +1051,7 @@ def main() -> int:
         ("raw (RAW_SCALE4)", handheld.handheld_superres_raw, raw9, RAW_SCALE4),
         ("raw cascade (RAW_SCALE4)", cascade, raw5, RAW_SCALE4),
         *((label, fn, burst, cfg) for label, fn, burst, cfg, *_ in bar_paths),
+        *((label, fn, burst, cfg) for label, fn, burst, cfg, *_ in knob_paths),
     )
     slice_ms = [time_slice(label, fn, burst, cfg) for label, fn, burst, cfg in paths]
 
@@ -1050,7 +1116,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNELS[name][0],
         "replaces": replaces,
-        "launches": bar_launches[path].get(name, 0),
+        "launches": {**bar_launches, **knob_launches}[path].get(name, 0),
         **numbers(labels[0]),
         "max_abs_err": max(max_abs_err[label] for label in labels),
         "library_ms": None,
@@ -1064,13 +1130,15 @@ def main() -> int:
          ["merge_raw order 0, S=2 (RAW_ORDER0)", "merge_raw order 0, S=4, F=9"]),
         ("merge_raw 9 slots", "merge_raw", KERNELS["merge_raw"][1], "raw (RAW_EXACT)",
          ["merge_raw 9 slots, S=2 (RAW_EXACT)", "merge_raw 9 slots, S=4, F=9"]),
+        ("merge_raw cert4", "merge_raw", KERNELS["merge_raw"][1], "raw (RAW_CERT)",
+         ["merge_raw cert4, S=2 (RAW_CERT)", "merge_raw cert4, S=4, F=9", "merge_raw guided cert4, S=2"]),
     )]}))
     print(f"launches per path: defog {defog_launches}, rgb pallas {rgb_launches}, "
           f"rgb port default {rgb_default_launches}, raw bench {bench_launches}, "
           f"raw default {raw_launches}, raw windows {win_launches}, rgb default {default_launches}, "
           f"rgb scale 4 {scale4_launches}, rgb order 1 {order1_launches}, raw scale 4 {raw4_launches}, "
           f"raw cascade {cascade_launches}, "
-          + ", ".join(f"{label} {launches}" for label, launches in bar_launches.items())
+          + ", ".join(f"{label} {launches}" for label, launches in {**bar_launches, **knob_launches}.items())
           + "; btvl1_video (no kernel of csrc/ on its path) "
           + ", ".join(f"{flow} {launches}" for flow, launches in btv_launches.items()))
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
@@ -1114,7 +1182,11 @@ def device_time(call, symbol: str | None = None, iters: int = 20) -> tuple:
     cost that a loop timed with events includes when the wrapper is
     slower than the kernel. A profile that recorded no device work at all
     (seen once in a run of many profiles) is taken again, with a note,
-    up to twice."""
+    up to twice. Each call given a ``symbol`` launches that kernel once,
+    so its time is the mean over the launches the profile recorded: a
+    profile that recorded fewer launches than calls (seen as a time 40-60%
+    under the kernel's other readings) is noted, not divided by the
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1134,7 +1206,14 @@ def device_time(call, symbol: str | None = None, iters: int = 20) -> tuple:
     if not rows:
         raise RuntimeError(f"the profiler saw no {symbol or 'device work'} among "
                            f"{[e.key[:80] for e in device_rows]}")
-    return sum(e.self_device_time_total for e in rows) / iters / 1e3, sum(e.count for e in rows) / iters
+    launches = sum(e.count for e in rows)
+    total_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if symbol is None:
+        return total_ms / iters, launches / iters
+    if launches != iters:
+        print(f"device_time: the profile recorded {launches} launches of {symbol} in {iters} calls; "
+              f"the time per launch is kept")
+    return total_ms / launches, launches / iters
 
 
 def device_busy(call) -> tuple:

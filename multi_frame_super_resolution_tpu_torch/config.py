@@ -230,6 +230,16 @@ RAW_ORDER0 = dataclasses.replace(RAW_BENCH, merge=MergeConfig(order=0))
 RGB_ORACLE = HandheldConfig(fast=False)
 RGB_EXACT = HandheldConfig(merge=MergeConfig(rgb_order=1, solver="exact"))
 
+# bench.py's RAW configuration with one handheld knob each: the guided
+# R/B merge (colour differences against a green estimate), the per-cell
+# centroid of the plugin solve, the shift-consistent alignment, the FFT
+# SSD surfaces; and the RGB default with the shift-consistent alignment
+RAW_GUIDED = dataclasses.replace(RAW_BENCH, merge=MergeConfig(guided_rb=True))
+RAW_CERT = dataclasses.replace(RAW_BENCH, merge=MergeConfig(centroid_cert=True))
+RAW_CONSISTENT = dataclasses.replace(RAW_BENCH, use_consistency=True)
+RAW_FFT = dataclasses.replace(RAW_BENCH, align=dataclasses.replace(RAW_BENCH.align, use_fft=True))
+RGB_CONSISTENT = HandheldConfig(use_consistency=True)
+
 _REMAP_METHODS = ("bilinear", "bicubic", "nearest")
 
 
@@ -239,15 +249,9 @@ def _common_unsupported(cfg: HandheldConfig) -> List[str]:
         bad.append(f"prealign_cfg.logpolar_interp={cfg.prealign_cfg.logpolar_interp!r}")
     if cfg.merge.solver not in ("plugin", "exact"):
         bad.append(f"merge.solver={cfg.merge.solver!r}")
-    if cfg.use_consistency:
-        bad.append("use_consistency=True")
     if not cfg.warp_matmul:
         # the one-hot tile_warp_select computes another function at bound 16
         bad.append("warp_matmul=False")
-    if cfg.align.use_fft:
-        bad.append("align.use_fft=True")
-    if cfg.lk.warp_tile > 0:
-        bad.append("lk.warp_tile>0")
     return bad
 
 
@@ -286,12 +290,16 @@ def check_supported_raw(cfg: HandheldConfig) -> None:
     if cfg.fast and m.order == 0 and m.bf16:
         # bf16 accumulation changes the order-0 plane merge's function
         bad.append("merge.bf16=True")
-    if m.centroid_cert:
-        bad.append("merge.centroid_cert=True")
     if m.exact_weights:
         bad.append("merge.exact_weights=True")
-    if m.guided_rb:
-        bad.append("merge.guided_rb=True")
+    if cfg.fast and m.order == 1 and m.solver == "plugin" and m.centroid_cert:
+        # dead under the certless default and the exact solve; with the
+        # per-cell centroid each selects another function
+        # (fast_merge.py:563, :714-766)
+        for knob, on in (("centroid_block", m.centroid_block), ("centroid_shared_res", m.centroid_shared_res),
+                         ("centroid_prune", m.centroid_prune is not None), ("centroid_bf16", m.centroid_bf16)):
+            if on:
+                bad.append(f"merge.{knob} with merge.centroid_cert=True")
     if not 1 <= cfg.scale <= 4:
         # the RAW merge kernel is built for scales 1..4
         bad.append(f"scale={cfg.scale} (the RAW merge kernel takes 1..4)")

@@ -1,8 +1,11 @@
 // RAW plane-domain merges for Hopper (sm_90a), scales 1-4, Bayer
-// patterns, in three forms: the order-1 certless plugin branch (form 0,
+// patterns, in four forms: the order-1 certless plugin branch (form 0,
 // merge_raw_kernel, described first), the order-0 merge (form 1: the same
-// kernel without its centroid chains) and the exact solve's 9 order-1
-// moments (form 2, merge_raw_cells_kernel, described after them).
+// kernel without its centroid chains), the exact solve's 9 order-1
+// moments (form 2, merge_raw_cells_kernel, described after them) and the
+// per-cell plugin moments (form 3: that kernel with 4 slots). A guided
+// merge (R/B as colour differences) runs any form on difference planes
+// that the wrapper forms beforehand (kernels/merge_raw.py).
 //
 // Replaces: the JAX package computes this accumulate outside Pallas
 // (multi_frame_super_resolution_tpu/models/fast_merge.py::
@@ -162,6 +165,21 @@
 // frame cap follows from 227 KB (28-56 frames by scale at halo 1, 21-35
 // at halo 2). Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W):
 // 87-93 registers, no spills; times against their bounds in PERF.md.
+//
+// Form 3 (merge_raw_cells_kernel with kSlots = 4) replaces the order-1
+// branch with moment_slots=4 and centroid_cert=True (_merge_planes_order1's
+// per-cell compact-rho branch, fast_merge.py:767-795): m00, m01 = s (ky
+// sum_f w c - sum_f rho_y w c), m02 likewise in x, and b0, which are the
+// 9-moment form's slots 0, 1, 2 and 6 (sum_f dy w c = s (ky sum_f w c -
+// sum_f rho_y w c)). So it is that kernel with four accumulators a tap
+// group: the same staging, layout, residual halo and rounding, four
+// outputs. Its bound at chip_smoke.py's check (S=2): 25.2 MB written and
+// 6.7 MB read, 9.5 us at 3.35 TB/s, against 13.8 M items at 48 flops and
+// 2 exp (chip_smoke.py's WORK table, 9.9 us): the operations bind, just.
+// Like form 2 it evaluates each weight once per parity, 4x its need.
+// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 67-72
+// registers, no spills; 0.112 ms at S=2, 8.8% of the bound, only a fifth
+// under form 2's 0.139: the repeated weight and the staging set the time.
 
 #include <cuda_runtime.h>
 
@@ -477,7 +495,8 @@ size_t cell_smem_bytes(int frames, int halo) {
   return (size_t)frames * (4 * sites + rsites) * sizeof(float2);
 }
 
-template <int S>
+// kSlots: 9 (form 2, solve_order1's order) or 4 (form 3: m00, m01, m02, b0)
+template <int S, int kSlots>
 __global__ void __launch_bounds__(CellShape<S>::kThreads, 2)
 merge_raw_cells_kernel(const float* __restrict__ planes,
                    const float* __restrict__ residual,
@@ -487,7 +506,7 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
                    float* __restrict__ out,
                    int frames, int hh, int hw, int halo, float rb, const TapTable taps) {
   constexpr int kRows = CellShape<S>::kRows, kThreads = CellShape<S>::kThreads;
-  constexpr int kSlots = 9;
+  static_assert(kSlots == 4 || kSlots == 9, "the plugin's 4 moments or the exact solve's 9");
   const int sw = kTileW + 2 * halo;                  // staged row length
   const int sa = (kRows + 2 * halo) * sw;            // staged sites per plane
   constexpr int kRW = kTileW + 2;                    // staged residual row length
@@ -596,12 +615,16 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
         acc[g][0] += wc;
         acc[g][1] += dy * wc;
         acc[g][2] += dx * wc;
-        acc[g][3] += dy * dy * wc;
-        acc[g][4] += dy * dx * wc;
-        acc[g][5] += dx * dx * wc;
-        acc[g][6] += wcv;
-        acc[g][7] += dy * wcv;
-        acc[g][8] += dx * wcv;
+        if constexpr (kSlots == 4) {
+          acc[g][3] += wcv;
+        } else {
+          acc[g][3] += dy * dy * wc;
+          acc[g][4] += dy * dx * wc;
+          acc[g][5] += dx * dx * wc;
+          acc[g][6] += wcv;
+          acc[g][7] += dy * wcv;
+          acc[g][8] += dx * wcv;
+        }
       }
     }
   }
@@ -633,12 +656,12 @@ size_t smem_bytes(int frames) {
 template <int S>
 int max_frames(int halo, int form) {
   const size_t limit = 227 * 1024;
-  // form 2 also holds its static tap offsets beside the frames
-  if (form == 2) return (int)((limit - kCellStaticBytes) / cell_smem_bytes<S>(1, halo <= 1 ? 1 : 2));
+  // forms 2 and 3 also hold their static tap offsets beside the frames
+  if (form == 2 || form == 3) return (int)((limit - kCellStaticBytes) / cell_smem_bytes<S>(1, halo <= 1 ? 1 : 2));
   return (int)(limit / (halo <= 1 ? smem_bytes<S, 1>(1) : smem_bytes<S, 2>(1)));
 }
 
-template <int S>
+template <int S, int kSlots>
 int launch_cells(const void* planes, const void* residual, const void* certainty,
                  const void* omega, const void* omega_rb, void* out, int frames, int hh,
                  int hw, int halo, float rb, const TapTable& taps, cudaStream_t stream) {
@@ -646,12 +669,12 @@ int launch_cells(const void* planes, const void* residual, const void* certainty
   const size_t bytes = cell_smem_bytes<S>(frames, halo);
   if (bytes + kCellStaticBytes > 48 * 1024) {  // the default limit counts both
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_raw_cells_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        merge_raw_cells_kernel<S, kSlots>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 block(kTileW, L::kRows, 2 * S);
   const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kRows - 1) / L::kRows, 2 * S);
-  merge_raw_cells_kernel<S><<<grid, block, bytes, stream>>>(
+  merge_raw_cells_kernel<S, kSlots><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(out), frames, hh, hw, halo, rb,
@@ -688,9 +711,11 @@ int launch_scale(int form, int halo, bool green_diag, const void* planes, const 
                  const void* certainty, const void* omega, const void* omega_rb, void* out,
                  int frames, int hh, int hw, float rb, const TapTable& taps,
                  cudaStream_t stream) {
-  if (form == 2) {
-    return launch_cells<S>(planes, residual, certainty, omega, omega_rb, out, frames, hh, hw,
-                           halo, rb, taps, stream);
+  if (form == 2 || form == 3) {
+    return form == 2 ? launch_cells<S, 9>(planes, residual, certainty, omega, omega_rb, out, frames,
+                                          hh, hw, halo, rb, taps, stream)
+                     : launch_cells<S, 4>(planes, residual, certainty, omega, omega_rb, out, frames,
+                                          hh, hw, halo, rb, taps, stream);
   }
   // form 0's four outputs (m00, cy, cx, b0) one after another; form 1's
   // two (num, den) are its b0 and m00
@@ -718,7 +743,7 @@ extern "C" {
 // described above; out holds the form's outputs (2s, 2s, 3, hh, hw) one
 // after another, each written in full, s = scale in 1..4: form 0 (m00,
 // cy, cx, b0), form 1 (num, den), form 2 (m00, m01, m02, m11, m12, m22,
-// b0, b1, b2). table is a HOST int array: the channel of each
+// b0, b1, b2), form 3 (m00, m01, m02, b0). table is a HOST int array: the channel of each
 // plane q = 2*qa + qb (4, a Bayer pattern: green on one diagonal, R and B
 // on the other), the end of each tap-parity group (4), then n_taps rows
 // (ky, kx) sorted by group g = 2*(ky%2) + (kx%2).

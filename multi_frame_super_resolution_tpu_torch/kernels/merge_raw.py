@@ -1,7 +1,9 @@
 """Wrapper of the Hopper RAW merge kernels (csrc/merge_raw.cu): the
-plane-domain merge of the RAW path at scales 1-4 in three forms: order 1
-as the certless plugin branch (the main path), order 0, and order 1 with
-the exact solve's 9 moments. The JAX package computes it outside Pallas
+plane-domain merge of the RAW path at scales 1-4 in four forms: order 1
+as the certless plugin branch (the main path), order 0, order 1 with
+the exact solve's 9 moments, and order 1 with the per-cell plugin
+moments (centroid_cert); each reads R/B as colour differences when given
+a guide. The JAX package computes it outside Pallas
 (models/fast_merge.py::merge_burst_raw_planes); it has the skeleton of
 pallas_ops/merge.py::merge_fast_pallas.
 
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +30,9 @@ from multi_frame_super_resolution_tpu_torch.kernels.build import (
 )
 from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
     _active_taps,
+    guided_planes,
     merge_burst_raw_planes,
+    raw_merge_form,
 )
 
 NAME = "merge_raw"
@@ -94,16 +98,22 @@ def merge_raw(
     prune_exp: float = 6.0,
     order: int = 1,
     moment_slots: int = 4,
+    guide: Optional[torch.Tensor] = None,
+    centroid_cert: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """RAW plane merge: planes (F, 2, 2, hh, hw), residual (F, hh, hw, 2)
     in RAW units, certainty (F, hh, hw, 3), omega_inv and omega_inv_rb
-    (hh, hw, 3), all float32 and contiguous on one device -> order 1 with
-    4 slots: the certless (m00, cy, cx, b0); order 0: (num, den); order 1
-    with 9 slots: the exact solve's moments; each (2s, 2s, 3, hh, hw) (see
-    fast_merge.merge_burst_raw_planes). The kernel takes scales 1-4, Bayer
-    patterns and up to mfsr_merge_raw_max_frames frames; on CUDA tensors
-    anything else raises ValueError, and the outputs are views of one
-    allocation."""
+    (hh, hw, 3), and the optional guide (F, 2, 2, hh, hw), all float32
+    and contiguous on one device -> the outputs of the form that
+    fast_merge.raw_merge_form(order, moment_slots, centroid_cert) names:
+    the certless (m00, cy, cx, b0); order 0's (num, den); the exact
+    solve's 9 moments; the per-cell (m00, m01, m02, b0); each (2s, 2s, 3,
+    hh, hw) (see fast_merge.merge_burst_raw_planes). With a guide, the
+    difference planes (fast_merge.guided_planes) are formed here in one
+    elementwise pass, on either device, and merged unguided. The kernel
+    takes scales 1-4, Bayer patterns and up to mfsr_merge_raw_max_frames
+    frames; on CUDA tensors anything else raises ValueError, and the
+    outputs are views of one allocation."""
     if planes.ndim != 5:
         raise ValueError(f"planes must be (F, 2, 2, hh, hw), got {tuple(planes.shape)}")
     f, hh, hw = planes.shape[0], planes.shape[3], planes.shape[4]
@@ -113,12 +123,15 @@ def merge_raw(
     check_tensor("certainty", certainty, (f, hh, hw, 3), dev)
     check_tensor("omega_inv", omega_inv, (hh, hw, 3), dev)
     check_tensor("omega_inv_rb", omega_inv_rb, (hh, hw, 3), dev)
-    if order not in (0, 1) or (order == 1 and moment_slots not in (4, 9)):
-        raise ValueError(f"the RAW merge takes order 0, or order 1 with 4 or 9 slots, got {order}, {moment_slots}")
+    form = raw_merge_form(order, moment_slots, centroid_cert)
+    if guide is not None:
+        check_tensor("guide", guide, (f, 2, 2, hh, hw), dev)
+        planes = guided_planes(planes, guide, cfa)
     if dev.type == "cpu":
         return merge_burst_raw_planes(
             planes, residual, certainty, omega_inv, omega_inv_rb, cfa, scale,
             radius, residual_bound, k_max, prune_exp, order, moment_slots,
+            centroid_cert=centroid_cert,
         )
     r_taps = radius + int(np.ceil(residual_bound))
     taps = _active_taps(r_taps, residual_bound, scale, k_max, prune_exp)
@@ -128,8 +141,7 @@ def merge_raw(
         raise ValueError(f"the RAW merge kernel takes Bayer patterns, got {cfa}")
     if len(taps) > _MAX_TAPS:
         raise ValueError(f"{len(taps)} taps exceed the kernel's {_MAX_TAPS}")
-    # the forms of csrc/merge_raw.cu: 0 certless, 1 order 0, 2 nine moments
-    form, n_out = (1, 2) if order == 0 else ((0, 4) if moment_slots == 4 else (2, 9))
+    n_out = (4, 2, 9, 4)[form]  # csrc/merge_raw.cu's form numbers
     lib = library()
     max_frames = lib.mfsr_merge_raw_max_frames(scale, tap_halo(taps), form)
     if f > max_frames:

@@ -5,8 +5,10 @@ the plain PyTorch versions of the merge kernels.
   of the plugin solve (4 slots) or of the exact 3x3 solve (9 slots)
   (kernels/merge.py, csrc/merge.cu);
 - ``merge_burst_raw_planes``: the RAW plane-domain merge: order 0, and
-  order 1 as the certless plugin branch (4 slots) or the exact solve's
-  9 moments (kernels/merge_raw.py, csrc/merge_raw.cu).
+  order 1 as the certless plugin branch (4 slots), the per-cell plugin
+  branch (4 slots, ``centroid_cert``) or the exact solve's 9 moments
+  (kernels/merge_raw.py, csrc/merge_raw.cu); R/B read as colour
+  differences against ``green_guide_planes`` when given a guide.
 
 Frames arrive warped into reference geometry by their per-tile integer
 shifts; what remains per output pixel is a static tap window around its
@@ -231,6 +233,71 @@ def _centroid_chain(cfa, a: int, b: int, ch: int) -> Optional[tuple]:
     return ("rb", (pa - a) % 2, (pb - b) % 2)
 
 
+def green_guide_planes(planes: torch.Tensor, cfa) -> torch.Tensor:
+    """Gradient-weighted green estimate at every CFA site, in the plane
+    domain (fast_merge.py:254-298): (F, 2, 2, hh, hw) -> the same shape.
+    A non-green site holds the Hamilton-Adams estimate of its four
+    full-res green neighbours, horizontal and vertical mixed by inverse
+    gradient (Wu-Zhang); a green site holds itself. The guided R/B merge
+    accumulates R - G and B - G against it."""
+    pat = np.asarray(cfa)
+    eps = 1e-6
+    out = [[None, None], [None, None]]
+    for a in (0, 1):
+        for b in (0, 1):
+            p = planes[:, a, b]
+            if int(pat[a][b]) == 1:
+                out[a][b] = p
+                continue
+            # full-res green neighbours (2i+a+-1, 2j+b) and (2i+a, 2j+b+-1)
+            up = _shift_last2(planes[:, (a - 1) % 2, b], (a - 1) // 2, 0)
+            down = _shift_last2(planes[:, (a + 1) % 2, b], (a + 1) // 2, 0)
+            left = _shift_last2(planes[:, a, (b - 1) % 2], 0, (b - 1) // 2)
+            right = _shift_last2(planes[:, a, (b + 1) % 2], 0, (b + 1) // 2)
+            # the same channel +-2 full-res px away: the Laplacian correction
+            lap_v = 2.0 * p - _shift_last2(p, -1, 0) - _shift_last2(p, 1, 0)
+            lap_h = 2.0 * p - _shift_last2(p, 0, -1) - _shift_last2(p, 0, 1)
+            est_v = 0.5 * (up + down) + 0.25 * lap_v
+            est_h = 0.5 * (left + right) + 0.25 * lap_h
+            gv = (up - down).abs() + lap_v.abs()
+            gh = (left - right).abs() + lap_h.abs()
+            wh = (gv + eps) / (gv + gh + 2.0 * eps)
+            out[a][b] = wh * est_h + (1.0 - wh) * est_v
+    return torch.stack([torch.stack(row, 1) for row in out], 1)
+
+
+def guided_planes(planes: torch.Tensor, guide: torch.Tensor, cfa) -> torch.Tensor:
+    """The planes a guided merge reads: value - guide at R/B sites, the
+    value at green ones. The JAX function subtracts before its static
+    shift, so merging these planes unguided is its guided merge, bit for
+    bit (fast_merge.py:464-465, :691-692)."""
+    rb = _const(tuple(int(c) != 1 for row in cfa for c in row), planes.device, torch.bool)
+    return torch.where(rb.reshape(2, 2, 1, 1), planes - guide, planes)
+
+
+# the forms of the RAW merge (csrc/merge_raw.cu's form numbers)
+CERTLESS, ORDER0, NINE_MOMENTS, PER_CELL = 0, 1, 2, 3
+
+
+def raw_merge_form(order: int, moment_slots: int = 4, centroid_cert: bool = False) -> int:
+    """The form of the RAW merge that (order, moment_slots, centroid_cert)
+    select: CERTLESS (order 1, 4 slots, no certainty in the centroid:
+    slots 1 and 2 hold the finished centroid, the JAX package's
+    ``_certless``), ORDER0, NINE_MOMENTS (9 slots; centroid_cert has no
+    effect there) or PER_CELL (order 1, 4 slots, centroid_cert: raw m01,
+    m02). The wrapper launches this form and the pipeline reads the
+    layout from it, so the two cannot disagree."""
+    if order == 0:
+        return ORDER0
+    if order != 1 or moment_slots not in (4, 9):
+        raise ValueError(
+            f"the RAW merge takes order 0, or order 1 with 4 or 9 slots, got {order}, {moment_slots}"
+        )
+    if moment_slots == 9:
+        return NINE_MOMENTS
+    return PER_CELL if centroid_cert else CERTLESS
+
+
 def merge_burst_raw_planes(
     planes: torch.Tensor,
     residual: torch.Tensor,
@@ -245,10 +312,12 @@ def merge_burst_raw_planes(
     prune_exp: float = 6.0,
     order: int = 1,
     moment_slots: int = 4,
+    guide: Optional[torch.Tensor] = None,
+    centroid_cert: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """CFA-aware merge on half-resolution planes in the phase layout
     (the JAX function with phase_output=True; fast_merge.py:301-511 and
-    _merge_planes_order1). Three forms:
+    _merge_planes_order1). Four forms (raw_merge_form):
 
     - ``order=0``: (num, den) = (sum w c v, sum w c);
     - ``order=1, moment_slots=4``: the certless plugin branch
@@ -261,7 +330,14 @@ def merge_burst_raw_planes(
       rho_y) take rho = the residual interpolated at the phase row's
       position inside its Bayer block (a 2-tap bilinear blend with the
       neighbouring block, the oracle's per-pixel flow) plus phi; the
-      weights keep the block-centre residual.
+      weights keep the block-centre residual;
+    - ``order=1, moment_slots=4, centroid_cert=True``: the per-cell
+      plugin branch (fast_merge.py:767-795): (m00, m01, m02, b0) of the
+      9-moment form, m01 summed per tap as s (ky sum_f w c - sum_f rho_y
+      w c) (the compact rho fields), m02 likewise.
+
+    ``guide`` (green_guide_planes of ``planes``): R/B sites read value -
+    guide (guided_planes), so channels 0 and 2 hold R - G and B - G.
 
     planes (F, 2, 2, hh, hw) warped by integer plane shifts; residual
     (F, hh, hw, 2) in RAW pixel units (clipped to +-residual_bound here);
@@ -273,8 +349,9 @@ def merge_burst_raw_planes(
     ((a+ky)//2, (b+kx)//2) for output parity (a, b). Per tap, the frame
     axis is summed first and the sum then added to the accumulator, the
     JAX order."""
-    if order not in (0, 1) or (order == 1 and moment_slots not in (4, 9)):
-        raise ValueError(f"the RAW merge takes order 0, or order 1 with 4 or 9 slots, got {order}, {moment_slots}")
+    form = raw_merge_form(order, moment_slots, centroid_cert)
+    if guide is not None:
+        planes = guided_planes(planes, guide, cfa)
     f, _, _, hh, hw = planes.shape
     s = scale
     nph = s * s
@@ -289,8 +366,8 @@ def merge_burst_raw_planes(
     phiy_r = _const(tuple(phi_y.tolist()), dev).reshape(nph, 1, 1)
     phix_r = _const(tuple(phi_x.tolist()), dev).reshape(nph, 1, 1)
     pat = np.asarray(cfa)
-    certless = order == 1 and moment_slots == 4
-    n_out = 2 if order == 0 else moment_slots
+    certless = form == CERTLESS
+    n_out = {CERTLESS: 4, ORDER0: 2, NINE_MOMENTS: 9, PER_CELL: 4}[form]
 
     res_y = residual[..., 0].clamp(-residual_bound, residual_bound)  # (F, hh, hw)
     res_x = residual[..., 1].clamp(-residual_bound, residual_bound)
@@ -302,10 +379,11 @@ def merge_burst_raw_planes(
     cert_p = _pad_last2(torch.movedim(certainty, -1, 1), pad, pad)  # (F, 3, ., .)
 
     rho_y = rho_x = None
-    if order == 1 and not certless:
-        # per parity a (b) the (nph, F, hh, hw) query offsets: the residual
-        # at phase row (column) p of the block, i + (a + phi[p] - 0.5) / 2
-        # in half-res units, blended with the neighbouring block, + phi[p]
+    if form in (NINE_MOMENTS, PER_CELL):
+        # per parity a (b) the compact (s, F, hh, hw) query offsets: the
+        # residual at phase row (column) p of the block, i + (a + phi[p] -
+        # 0.5) / 2 in half-res units, blended with the neighbouring block,
+        # + phi[p]
         def parity_rho(res, a, axis):
             rows = []
             for p in range(s):
@@ -315,11 +393,13 @@ def merge_burst_raw_planes(
                 nb = _shift_last2(res, sgn, 0) if axis == "y" else _shift_last2(res, 0, sgn)
                 res1 = ((1.0 - ga) * res + ga * nb).clamp(-residual_bound, residual_bound)
                 rows.append(res1 + float(phi[p]))
-            st = torch.stack(rows, 0)  # (s, F, hh, hw)
-            return st.repeat_interleave(s, dim=0) if axis == "y" else st.repeat(s, 1, 1, 1)
+            return torch.stack(rows, 0)
 
         rho_y = [parity_rho(res_y, a, "y") for a in (0, 1)]
         rho_x = [parity_rho(res_x, b, "x") for b in (0, 1)]
+        if form == NINE_MOMENTS:  # (nph, F, hh, hw), phase ph = py*s + px
+            rho_y = [r.repeat_interleave(s, dim=0) for r in rho_y]
+            rho_x = [r.repeat(s, 1, 1, 1) for r in rho_x]
 
     def quadp(dx, dy, om):
         return torch.exp(-0.5 * (dx * dx * om[0] + dy * dy * om[1] + 2.0 * dx * dy * om[2]))
@@ -343,7 +423,7 @@ def merge_burst_raw_planes(
                 add(chains, cid, 0, red_w)
                 add(chains, cid, 1, float(s) * ((float(ky) - phiy_r) * red_w - red_ry))
                 add(chains, cid, 2, float(s) * ((float(kx) - phix_r) * red_w - red_rx))
-        if rho_y is not None:
+        if form == NINE_MOMENTS:
             dy_m = [float(s) * (float(ky) - r) for r in rho_y]
             dx_m = [float(s) * (float(kx) - r) for r in rho_x]
         for a in (0, 1):
@@ -355,17 +435,29 @@ def merge_burst_raw_planes(
                 cert_s = _shifted(cert_p[:, ch], pad, da, db, hh, hw)
                 wc = (w_g if ch == 1 else w_rb) * cert_s[None]
                 wcv = wc * val[None]
-                if order == 0:
+                if form == ORDER0:
                     terms = (wcv, wc)
                 elif certless:
                     terms = (wc, None, None, wcv)
+                elif form == PER_CELL:
+                    # s (k sum wc - sum rho wc), the compact rho broadcast
+                    # against the phase-split weights (s, s, F, hh, hw)
+                    red_wc = wc.sum(1)
+                    wc5 = wc.reshape(s, s, f, hh, hw)
+                    red_ry = (rho_y[a][:, None] * wc5).sum(2).reshape(nph, hh, hw)
+                    red_rx = (rho_x[b][None, :] * wc5).sum(2).reshape(nph, hh, hw)
+                    terms = (red_wc, float(s) * (float(ky) * red_wc - red_ry),
+                             float(s) * (float(kx) * red_wc - red_rx), wcv.sum(1))
+                    for i, term in enumerate(terms):
+                        add(cells, (a, b, ch), i, term, n_out)
+                    continue
                 else:
                     dy, dx = dy_m[a], dx_m[b]
                     terms = (wc, dy * wc, dx * wc, dy * dy * wc, dy * dx * wc, dx * dx * wc,
                              wcv, dy * wcv, dx * wcv)
                 for i, term in enumerate(terms):
                     if term is not None:  # the frame axis dies here
-                        add(cells, (a, b, ch), i, term.sum(1), n_out if not certless else 4)
+                        add(cells, (a, b, ch), i, term.sum(1), n_out)
 
     cent = {}
     for cid, (wsum, m1, m2) in chains.items():

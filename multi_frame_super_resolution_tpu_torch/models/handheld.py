@@ -21,8 +21,11 @@ cfg.fast=False, on the gather-based oracle paths:
   -> noise-gated restore -> one phase interleave. Scales 1-4;
   ``handheld_superres_raw_cascade`` runs scale 4 with the upsampled
   scale-2 result as its fallback (handheld.py:492-531). The merge is the
-  certless plugin order 1 (the default), order 1 with the exact 3x3
-  solve (merge.solver='exact'), or order 0 (merge.order=0).
+  certless plugin order 1 (the default), the plugin order 1 with the
+  per-cell centroid (merge.centroid_cert), order 1 with the exact 3x3
+  solve (merge.solver='exact'), or order 0 (merge.order=0); with
+  merge.guided_rb each merges R - G and B - G against a green estimate
+  of the warped planes and adds G back (handheld.py:822-869).
 - the oracle (cfg.fast=False; handheld.py:145-232 and :550-633): the
   reference's accumulateImagesSuperRes math. Tile alignment densified to
   a bilinear per-pixel flow, LK at cfg.lk (the gather warp by default),
@@ -32,6 +35,10 @@ cfg.fast=False, on the gather-based oracle paths:
   the bicubic upscale of the reference frame (RAW: of its demosaic),
   the restore the output-resolution FIR. The RAW oracle aligns on the
   half-resolution quad subsample and merges the full-resolution mosaic.
+
+Every path aligns the burst against frame 0, or, with
+cfg.use_consistency, through the shift-consistency solve over pairs of
+frames (registration/align.py::align_burst_consistent).
 
 Both run on cuda:0 unless ``device`` names another device (``"cpu"`` or
 a ``torch.device``); without a card and without that request they raise
@@ -67,8 +74,11 @@ from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
 from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
 from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp
 from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
+    CERTLESS,
     grad_phases,
+    green_guide_planes,
     planes_to_raw,
+    raw_merge_form,
     raw_to_planes,
 )
 from multi_frame_super_resolution_tpu_torch.models.merge import (
@@ -101,6 +111,7 @@ from multi_frame_super_resolution_tpu_torch.ops.warp_fast import (
 )
 from multi_frame_super_resolution_tpu_torch.registration.align import (
     align_burst,
+    align_burst_consistent,
     flow_from_tile_shifts,
 )
 from multi_frame_super_resolution_tpu_torch.registration.lucas_kanade import lk_refine
@@ -166,13 +177,21 @@ def handheld_superres(
     return _handheld_fast(burst, cfg, prealign_override)
 
 
+def _align(gray: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
+    """Per-tile shifts (F, nty, ntx, 2) of a grayscale burst against frame
+    0: directly, or through the shift-consistency solve."""
+    if cfg.use_consistency:
+        return align_burst_consistent(gray, cfg.align)
+    return align_burst(gray, cfg.align)
+
+
 def _burst_flows(gray: torch.Tensor, cfg: HandheldConfig) -> torch.Tensor:
     """Tile-align a grayscale burst (F, H, W) against frame 0, densify the
     tile shifts to a bilinear per-pixel flow and refine it by LK at
     cfg.lk: flows (F, H, W, 2), frame 0's zero."""
     f, h, w = gray.shape
     with record_function("mfsr.align"):
-        tile_shifts = align_burst(gray, cfg.align)
+        tile_shifts = _align(gray, cfg)
         flows = flow_from_tile_shifts(tile_shifts, cfg.align.tile_size, h, w)
     if cfg.use_lk:
         with record_function("mfsr.lk"):
@@ -271,7 +290,7 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
         else:
             gray_est = gray
             warp_t = t
-        tile_shifts = align_burst(gray_est, cfg.align)
+        tile_shifts = _align(gray_est, cfg)
         if half:
             tile_shifts = tile_shifts * 2.0
         int_shifts, res_tiles = tile_shift_decompose(tile_shifts)
@@ -386,7 +405,8 @@ def _o1_solve(moments, cfg: HandheldConfig, grad_fn, precomputed_centroid: bool)
     ``grad_fn`` in the estimate's layout, or the exact 3x3 solve
     (solve_order1) on 9 slots. ``precomputed_centroid``: slots 1/2 hold
     the finalized centroid, as the RAW merge's certless chains return it
-    (the JAX package's ``_certless`` case)."""
+    (the JAX package's ``_certless`` case; the RAW path reads it from the
+    form its merge ran)."""
     if cfg.merge.solver == "plugin":
         return solve_plugin(
             moments, grad_fn, cfg.merge.plugin_iters, precomputed_centroid=precomputed_centroid
@@ -539,7 +559,7 @@ def _handheld_raw_fast(
             gray_half = rgb_to_gray(half)
 
     with record_function("mfsr.align"):
-        tile_shifts = align_burst(gray_half, cfg.align)  # half-res units
+        tile_shifts = _align(gray_half, cfg)  # half-res units
         int_half, res_tiles = tile_shift_decompose(tile_shifts)
 
     # integer plane warp == even RAW-unit warp (the CFA phase is kept),
@@ -589,12 +609,17 @@ def _handheld_raw_fast(
         omega_half_rb = kernel_params(st, mc_rb)
 
     order = cfg.merge.order
+    slots = _moment_slots(cfg)
     with record_function("mfsr.merge"):
+        # guided: R/B merge as colour differences against the green
+        # estimate of the warped planes, frame 0 included
+        guide = green_guide_planes(warped, cfa).contiguous() if cfg.merge.guided_rb else None
         moments = merge_raw(
             warped, (res_half * 2.0).contiguous(), cert_half.contiguous(),
             omega_half.contiguous(), omega_half_rb.contiguous(), cfa, cfg.scale,
             cfg.merge.radius, cfg.residual_bound, k_max=mc.k_max,
-            prune_exp=cfg.merge.prune_exp, order=order, moment_slots=_moment_slots(cfg),
+            prune_exp=cfg.merge.prune_exp, order=order, moment_slots=slots,
+            guide=guide, centroid_cert=cfg.merge.centroid_cert,
         )
 
     # all finalize math in the channel-leading phase domain
@@ -605,12 +630,20 @@ def _handheld_raw_fast(
             fallback_p = _image_phases(fallback_hr, 2 * cfg.scale)
         else:
             fallback_p = upsample_int_phases_planes(half[0], 2 * cfg.scale, "bilinear")
+        if guide is not None:
+            # channels 0 and 2 hold R - G and B - G: so does their fallback
+            fb_g = fallback_p[:, :, 1]
+            fallback_p = torch.stack([fallback_p[:, :, 0] - fb_g, fb_g, fallback_p[:, :, 2] - fb_g], dim=2)
         if order == 1:
-            # the certless chains return the finalized centroid (plugin solve)
-            est_p, m00_p = _o1_solve(moments, cfg, grad_phases, precomputed_centroid=True)
+            # the certless form returns the finalized centroid in slots 1/2
+            certless = raw_merge_form(order, slots, cfg.merge.centroid_cert) == CERTLESS
+            est_p, m00_p = _o1_solve(moments, cfg, grad_phases, precomputed_centroid=certless)
             out_p = apply_weighting_order1(est_p, m00_p, fallback_p, cfg.merge.weight_threshold)
         else:
             out_p = apply_weighting(*moments, fallback_p, cfg.merge.weight_threshold)
+        if guide is not None:
+            g = out_p[:, :, 1]
+            out_p = torch.stack([g + out_p[:, :, 0], g, g + out_p[:, :, 2]], dim=2)
 
     if cfg.final_restore and cfg.scale == 2:
         with record_function("mfsr.restore"):

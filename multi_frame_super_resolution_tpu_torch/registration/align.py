@@ -1,9 +1,12 @@
 """Coarse-to-fine tile-pyramid burst alignment (counterpart of
-registration/align.py), both non-FFT branches of ``align_frames``: the
-fast branch (SSD surfaces over the alternates tile-warped by the rounded
+registration/align.py), the three branches of ``align_frames``: the fast
+branch (SSD surfaces over the alternates tile-warped by the rounded
 prediction) and the windows branch (per-tile search windows at the
-rounded prediction), each followed by the subpixel argmin. Each level is
-one call of the tile search kernel on CUDA (kernels/tile_search.py)."""
+rounded prediction), each one call of the tile search kernel per level
+on CUDA (kernels/tile_search.py), and the FFT branch (align.use_fft: the
+windows branch's windows, the cross term by cuFFT), each followed by the
+subpixel argmin; and the shift-consistent burst alignment
+(``align_burst_consistent``, registration/global_shift.py)."""
 
 from __future__ import annotations
 
@@ -15,7 +18,16 @@ from multi_frame_super_resolution_tpu_torch.config import AlignConfig
 from multi_frame_super_resolution_tpu_torch.kernels.tile_search import tile_search
 from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, resize
 from multi_frame_super_resolution_tpu_torch.ops.warp_fast import upsample_int
+from multi_frame_super_resolution_tpu_torch.registration.global_shift import (
+    measurement_pairs,
+    shifts_to_reference,
+    solve_consistent_shifts,
+)
 from multi_frame_super_resolution_tpu_torch.registration.tiles import (
+    extract_ref_tiles,
+    extract_search_windows,
+    find_min_shift,
+    ssd_surface_fft,
     tile_counts,
     upsample_shift_field,
 )
@@ -33,9 +45,9 @@ def align_frames(
     ref: torch.Tensor, alts: torch.Tensor, cfg: AlignConfig = AlignConfig()
 ) -> torch.Tensor:
     """Per-tile shift fields (F, nty, ntx, 2) at the finest level such that
-    alt_f(tile_pos + shift_f) ~= ref(tile_pos). ref (H, W); alts (F, H, W)."""
-    if cfg.use_fft:
-        raise ValueError("the port does not implement the FFT SSD branch (align.use_fft)")
+    alt_f(tile_pos + shift_f) ~= ref(tile_pos). ref (H, W); alts (F, H, W).
+    Under ``cfg.use_fft`` the tile search does not run: the JAX function
+    there is the windows branch's surface with the FFT cross term."""
     f = alts.shape[0]
     ref_pyr = build_pyramid(ref, cfg.levels)
     alt_pyr = build_pyramid(alts, cfg.levels)
@@ -57,12 +69,22 @@ def align_frames(
         # windows are offset by the ROUNDED prediction, so the search
         # finds the residual relative to it
         rounded = torch.round(total)
+        if cfg.use_fft:
+            windows = extract_search_windows(a, cfg.tile_size, radius, rounded.to(torch.int32))
+            ssd = ssd_surface_fft(extract_ref_tiles(r, cfg.tile_size), windows, radius)
+            total = rounded + find_min_shift(ssd, radius, cfg.peak_threshold, cfg.subpixel)
+            continue
         mode = "image" if cfg.fast_extract and 2 * radius <= cfg.tile_size else "tile"
         total = tile_search(
             r.contiguous(), a.contiguous(), rounded, cfg.tile_size, radius,
             cfg.peak_threshold, cfg.subpixel, mode,
         )
     return total
+
+
+def align_pair(ref: torch.Tensor, alt: torch.Tensor, cfg: AlignConfig = AlignConfig()) -> torch.Tensor:
+    """One pair: (nty, ntx, 2) with alt(tile_pos + shift) ~= ref(tile_pos)."""
+    return align_frames(ref, alt[None], cfg)[0]
 
 
 def align_burst(
@@ -74,6 +96,27 @@ def align_burst(
     shifts = align_frames(burst[ref_index], alts, cfg)
     zero = torch.zeros_like(shifts[:1])
     return torch.cat([shifts[:ref_index], zero, shifts[ref_index:]], dim=0)
+
+
+def align_burst_consistent(
+    burst: torch.Tensor, cfg: AlignConfig = AlignConfig(), ref_index: int = 0, max_span: int = 2
+) -> torch.Tensor:
+    """Burst alignment through the shift-consistency solve (align.py:157-180):
+    the pairs of measurement_pairs(F, max_span) aligned, the per-tile
+    chain solved with outlier rejection, the optimal shifts accumulated to
+    the reference frame: (F, nty, ntx, 2). Pairs that share their first
+    frame are aligned in one align_frames call, as that frame's
+    alternates (the same function: each alternate is searched alone), so
+    the tile search launches once per first frame and pyramid level."""
+    f = burst.shape[0]
+    pairs = measurement_pairs(f, max_span)
+    measured = {}
+    for i in sorted({i for i, _ in pairs}):
+        js = [j for i2, j in pairs if i2 == i]
+        for j, shift in zip(js, align_frames(burst[i], burst[js], cfg)):
+            measured[(i, j)] = shift
+    consecutive, _ = solve_consistent_shifts(torch.stack([measured[p] for p in pairs]), f, tuple(pairs))
+    return shifts_to_reference(consecutive, ref_index)
 
 
 def flow_from_tile_shifts(

@@ -3,6 +3,7 @@ registration/tiles.py), batched over a leading frame axis."""
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -83,6 +84,22 @@ def ssd_surface(ref_tiles: torch.Tensor, windows: torch.Tensor, radius: int) -> 
     lead = windows.shape[:-4]
     patches = patches.reshape(lead + (nty, ntx, s * s, t * t))
     cc = (patches @ ref_tiles.reshape(nty, ntx, t * t, 1)).reshape(lead + (nty, ntx, s, s))
+    return tsq[..., None, None] + wsq - 2.0 * cc
+
+
+def ssd_surface_fft(ref_tiles: torch.Tensor, windows: torch.Tensor, radius: int) -> torch.Tensor:
+    """ssd_surface with the cross term by per-tile FFT cross-correlation
+    (tiles.py:176-199): the first (2R+1)^2 lags of the circular
+    correlation of the zero-padded tile with its window, which are linear
+    (T + 2R <= T2, no wraparound). torch.fft runs on cuFFT on the card."""
+    t = ref_tiles.shape[-1]
+    t2 = windows.shape[-1]
+    s = 2 * radius + 1
+    tsq = (ref_tiles * ref_tiles).sum(dim=(-2, -1))
+    wsq = _window_energies(windows, t)
+    fr = torch.fft.rfft2(ref_tiles, s=(t2, t2))
+    fw = torch.fft.rfft2(windows)
+    cc = torch.fft.irfft2(torch.conj(fr) * fw, s=(t2, t2))[..., :s, :s]
     return tsq[..., None, None] + wsq - 2.0 * cc
 
 
@@ -195,6 +212,10 @@ def tile_search(
 
 _F32_UNIT = 2.0**-24  # float32's unit roundoff
 ILL_CONDITIONED_PX = 0.1
+# the FFT cross term's error in units of u log2(n) |f|_2 |w|_2: one unit a
+# transform for the three of an FFT correlation, and as much again for the
+# twiddle factors' own rounding
+FFT_ERROR_C = 6.0
 
 
 def _exact_windows(ref, alts, rounded, t, radius, mode):
@@ -242,7 +263,35 @@ def float32_undecided(
       curvature.
 
     Surfaces and fits in float64 from direct sums, on the inputs' device."""
-    t = tile_size
+    argmin, moved = _rounding_margins(ref, alts, rounded, tile_size, radius, threshold, mode, fft=False)
+    return argmin, moved > ILL_CONDITIONED_PX
+
+
+def fft_undecided(
+    ref: torch.Tensor,
+    alts: torch.Tensor,
+    rounded: torch.Tensor,
+    tile_size: int,
+    radius: int,
+    threshold: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32_undecided for align_frames' FFT branch (windows at the
+    rounded prediction, ssd_surface_fft), whose surface entries carry two
+    more errors: the window energy, a difference of four entries of a
+    float32 integral image (two prefix sums of at most T2 = T + 2R terms
+    each), lies within 8 T2 u sum w^2 of its exact value; the cross term,
+    from three float32 transforms of size T2^2, within FFT_ERROR_C u
+    log2(T2^2) |f|_2 |w|_2 (the norm-wise error of an FFT convolution,
+    which bounds each entry). Returns the (N, nty, ntx) ``argmin`` mask
+    and, in place of the ``fit`` mask, the fit's movement (px) under
+    those bounds: the distance two float32 FFT searches may put between
+    their subpixel shifts on a tile whose argmin they share."""
+    return _rounding_margins(ref, alts, rounded, tile_size, radius, threshold, "tile", fft=True)
+
+
+def _rounding_margins(ref, alts, rounded, t, radius, threshold, mode, fft):
+    """(argmin mask, fit movement in px) of float32_undecided and
+    fft_undecided."""
     s = 2 * radius + 1
     tiles_f, windows = _exact_windows(ref, alts, rounded, t, radius, mode)
     tsq = (tiles_f * tiles_f).sum((-2, -1))[..., None]  # (nty, ntx, 1)
@@ -254,6 +303,11 @@ def float32_undecided(
                    + 2.0 * (patches * tiles_f[:, :, None]).abs().sum((-2, -1)))
     ssd = torch.stack(ssd, -2).flatten(-2)  # (N, nty, ntx, S*S)
     bound = (t * t + 2) * _F32_UNIT * torch.stack(mag, -2).flatten(-2)
+    if fft:
+        t2 = windows.shape[-1]
+        w_sq = (windows * windows).sum((-2, -1))[..., None]  # (N, nty, ntx, 1)
+        cross = FFT_ERROR_C * math.log2(t2 * t2) * (tsq * w_sq).sqrt()
+        bound = bound + _F32_UNIT * (8 * t2 * w_sq + 2.0 * cross)
 
     i_min = ssd.argmin(-1, keepdim=True)
     i_max = ssd.argmax(-1, keepdim=True)
@@ -275,7 +329,7 @@ def float32_undecided(
             *((quadratic_subpixel_min((patch + sign * b_patch * step).unflatten(-1, (3, 3))) - mu).abs()
               for sign in (1.0, -1.0))
         )
-    return near | gate, moved.amax(-1) > ILL_CONDITIONED_PX
+    return near | gate, moved.amax(-1)
 
 
 def upsample_shift_field(

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: each Hopper kernel (RGB merge in
-its four forms, tile warp, tile search, RAW merge in its three forms at
-scales 1-4, defog) against its plain PyTorch version, and the RGB, RAW
-(fast and oracle), defog and BTV-L1 paths on the card against the port
-on the CPU. They skip without a CUDA device.
+its four forms, tile warp, tile search, RAW merge in its four forms at
+scales 1-4, guided or not, defog) against its plain PyTorch version, and
+the RGB, RAW (fast and oracle, with every handheld knob the port runs),
+defog and BTV-L1 paths on the card against the port on the CPU. They
+skip without a CUDA device.
 
 This file imports no JAX, so the GPU host (which has none) runs it
 without the suite's conftest:
@@ -31,11 +32,16 @@ from torch_parity import (
 from multi_frame_super_resolution_tpu_torch.config import (
     PORT_DEFAULT,
     RAW_BENCH,
+    RAW_CERT,
+    RAW_CONSISTENT,
     RAW_EXACT,
+    RAW_FFT,
+    RAW_GUIDED,
     RAW_ORACLE,
     RAW_ORDER0,
     RAW_PORT_DEFAULT,
     RAW_SCALE4,
+    RGB_CONSISTENT,
     RGB_DEFAULT,
     RGB_DEFAULT_NOPRE,
     RGB_EXACT,
@@ -44,6 +50,7 @@ from multi_frame_super_resolution_tpu_torch.config import (
     AlignConfig,
     BTVConfig,
     FlowConfig,
+    LKConfig,
     MergeConfig,
     PolarDefogConfig,
 )
@@ -458,8 +465,13 @@ def test_merge_kernel_nine_moments_at_the_path_shape(scale):
         torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
 
 
-# the new RAW forms: (order, moment slots, outputs, tolerance)
-RAW_FORMS = {"order0": (0, 4, 2, 1e-5), "slots9": (1, 9, 9, 1e-4)}
+# the RAW forms beside the certless one: (keyword arguments, outputs,
+# tolerance); cert4 is the 9-moment kernel with the per-cell plugin's 4
+RAW_FORMS = {
+    "order0": (dict(order=0), 2, 1e-5),
+    "slots9": (dict(order=1, moment_slots=9), 9, 1e-4),
+    "cert4": (dict(order=1, moment_slots=4, centroid_cert=True), 4, 1e-4),
+}
 
 
 @pytest.mark.cuda
@@ -469,17 +481,16 @@ RAW_FORMS = {"order0": (0, 4, 2, 1e-5), "slots9": (1, 9, 9, 1e-4)}
 @pytest.mark.parametrize("scale", [1, 2, 3, 4])
 @pytest.mark.parametrize("form", list(RAW_FORMS))
 def test_raw_merge_kernel_new_forms_match_plain(form, scale, radius, k_max, prune, cfa, hh, hw):
-    """The order-0 form (num, den) at rtol/atol 1e-5 and the exact
-    solve's 9 moments (parity-interpolated displacements, a one-block
-    residual halo) at 1e-4, scales 1-4 (5 frames, 9 at scale 4), both
-    Bayer orders, both halos, a ragged size and one smaller than the
-    halo (edge clamps on every read)."""
+    """The order-0 form (num, den) at rtol/atol 1e-5, the exact solve's 9
+    moments and the per-cell plugin's 4 (parity-interpolated
+    displacements, a one-block residual halo) at 1e-4, scales 1-4 (5
+    frames, 9 at scale 4), both Bayer orders, both halos, a ragged size
+    and one smaller than the halo (edge clamps on every read)."""
     dev = cuda_device()
-    order, slots, n_out, tol = RAW_FORMS[form]
+    kw, n_out, tol = RAW_FORMS[form]
     k_max = k_max * (scale / 2.0) ** 2
     f = 9 if scale == 4 else 5
-    ins = _raw_merge_inputs(np.random.default_rng(f * 10 + scale + order), f, hh, hw, dev)
-    kw = dict(order=order, moment_slots=slots)
+    ins = _raw_merge_inputs(np.random.default_rng(f * 10 + scale + kw["order"]), f, hh, hw, dev)
     LAUNCHES.clear()
     got = merge_raw(*ins, cfa, scale, radius, 1.0, k_max, prune, **kw)
     torch.cuda.synchronize()
@@ -495,17 +506,17 @@ def test_raw_merge_kernel_new_forms_match_plain(form, scale, radius, k_max, prun
 @pytest.mark.parametrize("form", list(RAW_FORMS))
 @pytest.mark.parametrize("frames,scale", [(5, 2), (9, 4), (9, 2)])
 def test_raw_merge_kernel_new_forms_at_the_path_shape(form, frames, scale):
-    """Both new forms at chip_smoke.py's shapes: 128 x 256 half-res, the
+    """The forms at chip_smoke.py's shapes: 128 x 256 half-res, the
     path's 21 taps, F = 5 at scale 2 and F = 9 at scale 4 (R/B kernels
-    wider); and F = 9 at scale 2, where the 9-moment form's staged frames
+    wider); and F = 9 at scale 2, where the cells kernel's staged frames
     and static tap offsets together pass the 48 KB a launch takes without
     opting in."""
     dev = cuda_device()
-    order, slots, _, tol = RAW_FORMS[form]
+    kw, _, tol = RAW_FORMS[form]
     ins = _raw_merge_inputs(np.random.default_rng(frames), frames, 128, 256, dev)
     args = (((0, 1), (1, 2)), scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
-    got = merge_raw(*ins, *args, order=order, moment_slots=slots)
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, order=order, moment_slots=slots)
+    got = merge_raw(*ins, *args, **kw)
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
 
@@ -516,28 +527,54 @@ def test_raw_merge_kernel_new_forms_at_the_path_shape(form, frames, scale):
 def test_raw_merge_kernel_new_forms_frame_cap(form, scale):
     """Every frame's tile is staged at once: the order-0 form has the
     certless form's caps (its kernel without the chains), the 9-moment
-    form, which stages a one-site residual halo too, its own (a thread
-    layout of 4, 2 and 1 pixel rows at scales 1, 2 and 4); at halo 1 and
-    2. The halo-1 cap matches the plain version, one more frame raises."""
+    and per-cell forms, whose kernel stages a one-site residual halo too,
+    their own (a thread layout of 4, 2 and 1 pixel rows at scales 1, 2 and
+    4); at halo 1 and 2. The halo-1 cap matches the plain version, one
+    more frame raises."""
     dev = cuda_device()
-    order, slots, _, tol = RAW_FORMS[form]
+    kw, _, tol = RAW_FORMS[form]
     lib = raw_merge_kernel.library()
-    caps = {halo: lib.mfsr_merge_raw_max_frames(scale, halo, 1 + int(order == 1)) for halo in (1, 2)}
-    want = {
-        "order0": {1: {1: 30, 2: 30, 4: 66}, 2: {1: 22, 2: 22, 4: 38}},
-        "slots9": {1: {1: 28, 2: 42, 4: 56}, 2: {1: 21, 2: 28, 4: 35}},
-    }[form]
+    code = fast_merge.raw_merge_form(kw["order"], kw.get("moment_slots", 4), kw.get("centroid_cert", False))
+    caps = {halo: lib.mfsr_merge_raw_max_frames(scale, halo, code) for halo in (1, 2)}
+    cells = {1: {1: 28, 2: 42, 4: 56}, 2: {1: 21, 2: 28, 4: 35}}
+    want = {"order0": {1: {1: 30, 2: 30, 4: 66}, 2: {1: 22, 2: 22, 4: 38}}, "slots9": cells, "cert4": cells}[form]
     assert caps == {halo: want[halo][scale] for halo in (1, 2)}
     cfa = ((0, 1), (1, 2))
     args = (cfa, scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
     ins = _raw_merge_inputs(np.random.default_rng(scale), caps[1], 5, 37, dev)
-    got = merge_raw(*ins, *args, order=order, moment_slots=slots)
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, order=order, moment_slots=slots)
+    got = merge_raw(*ins, *args, **kw)
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
     more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 5, 37, dev)
     with pytest.raises(ValueError, match="frames exceed"):
-        merge_raw(*more, *args, order=order, moment_slots=slots)
+        merge_raw(*more, *args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hh,hw", [(128, 256), (37, 61)], ids=["path", "ragged"])
+@pytest.mark.parametrize("scale", [2, 4])
+@pytest.mark.parametrize("form", ["certless", *RAW_FORMS])
+def test_raw_merge_kernel_guided_matches_plain(form, scale, hh, hw):
+    """The guided merge: the wrapper forms value - guide at R/B sites (the
+    guide green_guide_planes of the planes) and runs the form unguided,
+    on the card as on the CPU. Each form at the path's 21 taps, F = 5 at
+    scale 2 and F = 9 at scale 4, against the plain version with the same
+    guide; the forms' own tolerances (the certless one 1e-5)."""
+    dev = cuda_device()
+    kw, _, tol = RAW_FORMS[form] if form in RAW_FORMS else ({}, 4, 1e-5)
+    f = 9 if scale == 4 else 5
+    cfa = ((0, 1), (1, 2))
+    ins = _raw_merge_inputs(np.random.default_rng(hh + scale), f, hh, hw, dev)
+    guide = fast_merge.green_guide_planes(ins[0], cfa).contiguous()
+    args = (cfa, scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, guide=guide, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_raw"] == 1
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, guide=guide, **kw)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -572,6 +609,43 @@ def test_correctness_bar_paths_on_card_match_cpu(entry, cfg, launched):
     assert LAUNCHES["tile_search"] == cfg.align.levels
     assert all(LAUNCHES[k] == 1 for k in launched)
     assert set(LAUNCHES) - {"tile_search"} == set(launched)
+    assert psnr(got, want) >= 60.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "entry,cfg,searches",
+    [
+        ("raw", RAW_GUIDED, 2),
+        ("raw", RAW_CERT, 2),
+        ("raw", RAW_CONSISTENT, 6),
+        ("raw", RAW_FFT, 0),
+        ("raw", dataclasses.replace(RAW_BENCH, lk=LKConfig(warp_tile=16)), 2),
+        ("rgb", RGB_CONSISTENT, 9),
+    ],
+    ids=["raw-guided", "raw-cert", "raw-consistent", "raw-fft", "raw-warp-tile", "rgb-consistent"],
+)
+def test_handheld_knobs_on_card_match_cpu(entry, cfg, searches):
+    """The handheld knobs on a rotated 4-frame burst on the card, against
+    the port on the CPU: the guided merge and the per-cell centroid
+    (merge kernel's forms), the consistency solve (a tile search per
+    level for each first frame of a measured pair: 3 of them with 4
+    frames), the FFT surfaces (no tile search: cuFFT) and LK's
+    tile-decomposed warp. Each fast path launches the tile warp and its
+    merge once."""
+    dev = cuda_device()
+    angles = CITY_ANGLES[:2] + CITY_ANGLES[3:]
+    if entry == "raw":
+        fn, merge = handheld_superres_raw, "merge_raw"
+        x, _ = synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5, angles=angles)
+    else:
+        fn, merge = handheld_superres, "merge_fast"
+        x, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 128, 256, 2.5, angles=angles)
+    want = nn(fn(tt(x), cfg, device="cpu"))
+    LAUNCHES.clear()
+    got = nn(fn(tt(x, dev), cfg))
+    assert LAUNCHES["tile_search"] == searches
+    assert LAUNCHES["tile_warp"] == 1 and LAUNCHES[merge] == 1
     assert psnr(got, want) >= 60.0
 
 

@@ -51,8 +51,9 @@ def test_exact_and_order0_configs():
 
 
 @pytest.mark.parametrize("knob,cfg", [
-    ("centroid_cert", dataclasses.replace(RAW_EXACT, merge=MergeConfig(solver="exact", centroid_cert=True))),
-    ("guided_rb", dataclasses.replace(RAW_ORDER0, merge=MergeConfig(order=0, guided_rb=True))),
+    ("exact_weights", dataclasses.replace(RAW_EXACT, merge=MergeConfig(solver="exact", guided_rb=True,
+                                                                        exact_weights=True))),
+    ("bf16", dataclasses.replace(RAW_ORDER0, merge=MergeConfig(order=0, guided_rb=True, bf16=True))),
     ("bf16", dataclasses.replace(RAW_ORDER0, merge=MergeConfig(order=0, bf16=True))),
     ("exact_weights", dataclasses.replace(RAW_EXACT, merge=MergeConfig(solver="exact", exact_weights=True))),
     ("solver", dataclasses.replace(RAW_BENCH, merge=MergeConfig(solver="newton"))),

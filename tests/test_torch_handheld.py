@@ -83,16 +83,16 @@ def test_rgb_pallas_matches_jax_pipeline():
             ),
             "prealign",
         ),
-        (dataclasses.replace(SLICE, fast=False, use_consistency=True), "use_consistency"),
-        (dataclasses.replace(SLICE, use_consistency=True), "use_consistency"),
+        (dataclasses.replace(SLICE, fast=False, use_consistency=True, merge=MergeConfig(solver="newton")), "solver"),
+        (dataclasses.replace(SLICE, use_consistency=True, warp_matmul=False), "warp_matmul"),
         (dataclasses.replace(SLICE, rgb_half_stats=True), "rgb_half_stats"),
         (dataclasses.replace(SLICE, warp_matmul=False), "warp_matmul"),
         (HandheldConfig(prealign=False, merge=MergeConfig(bf16=True)), "bf16"),
         (HandheldConfig(prealign=False, merge=MergeConfig(rgb_order=1, solver="newton")), "solver"),
         (dataclasses.replace(SLICE, merge=MergeConfig(use_pallas=True, rgb_order=1)), "use_pallas"),
-        (dataclasses.replace(SLICE, align=AlignConfig(use_fft=True)), "use_fft"),
+        (dataclasses.replace(SLICE, align=AlignConfig(use_fft=True), rgb_half_stats=True), "rgb_half_stats"),
         (dataclasses.replace(SLICE, scale=5), "scale"),
-        (dataclasses.replace(SLICE, lk=LKConfig(warp_tile=16)), "warp_tile"),
+        (HandheldConfig(prealign=False, lk=LKConfig(warp_tile=16), merge=MergeConfig(bf16=True)), "bf16"),
     ],
 )
 def test_unsupported_knobs_raise(cfg, knob):

@@ -3,7 +3,9 @@ burst under config.RAW_PORT_DEFAULT and its windows-branch variant
 (align.fast_extract=False), and under config.RAW_BENCH (bench.py's
 configuration, global pre-alignment on) on a burst rotated as the city
 burst is, against the jitted JAX pipeline; and the knobs
-check_supported_raw rejects."""
+check_supported_raw rejects (the "Do not port" knobs, some of them
+only under merge.centroid_cert=True, where they select other
+functions)."""
 
 import dataclasses
 
@@ -25,7 +27,6 @@ from multi_frame_super_resolution_tpu_torch.config import (
     RAW_PORT_DEFAULT,
     AlignConfig,
     HandheldConfig,
-    LKConfig,
     MergeConfig,
     check_supported_raw,
 )
@@ -191,16 +192,21 @@ def test_raw_cpu_request_equals_the_former_cpu_result(raw_burst, device):
             ),
             "prealign",
         ),
-        (dataclasses.replace(RAW_SLICE, fast=False, align=AlignConfig(use_fft=True)), "use_fft"),
-        (dataclasses.replace(RAW_SLICE, use_consistency=True), "use_consistency"),
+        (dataclasses.replace(RAW_SLICE, use_consistency=True, warp_matmul=False), "warp_matmul"),
         (dataclasses.replace(RAW_SLICE, warp_matmul=False), "warp_matmul"),
         (dataclasses.replace(RAW_SLICE, merge=MergeConfig(order=0, bf16=True)), "bf16"),
         (dataclasses.replace(RAW_SLICE, merge=MergeConfig(solver="newton")), "solver"),
-        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(centroid_cert=True)), "centroid_cert"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(centroid_cert=True, centroid_block=True)),
+         "centroid_block"),
         (dataclasses.replace(RAW_SLICE, merge=MergeConfig(exact_weights=True)), "exact_weights"),
-        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(guided_rb=True)), "guided_rb"),
-        (dataclasses.replace(RAW_SLICE, align=AlignConfig(use_fft=True)), "use_fft"),
-        (dataclasses.replace(RAW_SLICE, lk=LKConfig(warp_tile=16)), "warp_tile"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(guided_rb=True, centroid_cert=True, exact_weights=True)),
+         "exact_weights"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(centroid_cert=True, centroid_shared_res=True)),
+         "centroid_shared_res"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(centroid_cert=True, centroid_prune=1.0)),
+         "centroid_prune"),
+        (dataclasses.replace(RAW_SLICE, merge=MergeConfig(centroid_cert=True, centroid_bf16=True)),
+         "centroid_bf16"),
         (dataclasses.replace(RAW_SLICE, scale=5), "scale"),
     ],
 )
