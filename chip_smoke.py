@@ -96,7 +96,27 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      rotated city burst (-> 5 x 512 x 1024 x 3), a small burst (3 x 64 x
      96 x 3) on the card against the port on the CPU, and the app
      (apps/multi_frame_sr.py pyrlk city 10) on the city burst written as
-     PNGs to a temporary MFSR_DATA_DIR, 4 cycles.
+     PNGs to a temporary MFSR_DATA_DIR, 4 cycles; on the same PNGs the
+     handheld app (apps/handheld_sr.py city 2, and --raw), which prints
+     its BenchmarkResult;
+   - single-image DNN SR (models/dnn_sr.py: cuDNN convolutions in
+     float32 with TF32 off, no kernel of csrc/, as the JAX package
+     computes them in XLA): each bundled x2 checkpoint (espcn, fsrcnn,
+     lapsrn, edsr at the JAX package's widths) through dnn_sr on the
+     tracked city scene (city_handheld_sr.png, 512 x 1024, as HR; its
+     bilinear half as LR): the output on cuda:0, (512, 1024, 3), finite,
+     in [0, 1]; its PSNR against HR beside bilinear's, which it must
+     beat by 0.5 dB on the scene's luma in three channels (the gray
+     scenes the checkpoints were trained on; tests/test_dnn_sr.py's
+     margin) and which is printed without a limit on the colour scene
+     (the checkpoints lose to bilinear there, in the JAX package too);
+     a 64 x 96 crop on the card against the port on the CPU (60 dB).
+     The train step at the app's protocol (batch 8, LR 32 x 32): 50
+     steps of each architecture from init_state's torch.Generator seed
+     0, the loss falling, the first 3 losses within rtol 1e-4 of the
+     port's on the CPU from the same parameters, ms per step; and the
+     dnn_sr app (train, 5 steps, then inference on a PNG with that
+     checkpoint and a bundled one).
    The entry points get CUDA tensors and no device argument: they run on
    cuda:0, their default. Each burst output must lie there, have its
    shape, be finite and in [0, 1], agree (PSNR >= 60 dB) with the same
@@ -127,7 +147,12 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    more cycle under the full profiler, split as phase 6 splits a burst,
    its totals beside the light read's. The new configurations' paths are
    timed and profiled as the others (RAW_CONSISTENT's mfsr.align stage
-   with the searches of its seven pairs).
+   with the searches of its seven pairs). DNN SR at 1920 x 1080 -> 3840
+   x 2160 (a seeded synthetic scene) through each checkpoint: ms per
+   image (CUDA events, each input distinct), output MP/s, device ms and
+   ops of one call and the card's busy share; the same under TF32 as a
+   labelled measurement, with the PSNR of its output against float32's
+   and its fidelity on the city luma beside float32's.
 6. Where the time goes: one burst (frame) of each path under
    torch.profiler: host and device ms of each stage (the mfsr.* ranges
    of models/handheld.py and models/defog.py, with each kernel's own
@@ -346,6 +371,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    from multi_frame_super_resolution_tpu_torch.apps import handheld_sr as handheld_app
     from multi_frame_super_resolution_tpu_torch.apps import multi_frame_sr as sr_app
     from multi_frame_super_resolution_tpu_torch.apps import polar_defog as defog_app
     from multi_frame_super_resolution_tpu_torch.config import (
@@ -384,6 +410,7 @@ def main() -> int:
         true_hr_burst,
         write_burst,
     )
+    from multi_frame_super_resolution_tpu_torch.data import imread as read_png
     from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
     from multi_frame_super_resolution_tpu_torch.kernels import defog as kdefog
     from multi_frame_super_resolution_tpu_torch.kernels import merge as kmerge
@@ -941,9 +968,21 @@ def main() -> int:
                 rc = sr_app.main(["pyrlk", "city", "10"])
             if rc != 0 or not all(os.path.getsize(f"city_pyrlk_{k}_result.png") for k in ("sr", "sr2")):
                 raise RuntimeError("the multi_frame_sr app failed")
+            # the handheld app on the same PNGs, under its own protocol
+            for argv in (["city", "2"], ["city", "2", "--raw"]):
+                print(f"app handheld_sr {' '.join(argv)} (the city burst as PNGs):")
+                with mock.patch.dict(os.environ, {"MFSR_DATA_DIR": os.path.join(tmp, "data")}):
+                    rc = handheld_app.main(argv)
+                out_png = read_png("city_handheld_sr.png")
+                if rc != 0 or out_png.shape != (2 * H, 2 * W, 3):
+                    raise RuntimeError(f"the handheld_sr app failed on {argv}: {out_png.shape}")
         finally:
             os.chdir(cwd)
-    print(f"btvl1 paths and app: {time.perf_counter() - t_btv:.1f} s")
+    print(f"btvl1 paths and apps: {time.perf_counter() - t_btv:.1f} s")
+
+    # single-image DNN SR (models/dnn_sr.py): cuDNN convolutions in
+    # float32 (the JAX package computes them in XLA), no kernel of csrc/
+    dnn_launches = dnn_sr_paths(dev, card)
 
     # 5. timing: kernels beside their plain versions, then the paths
     kernel_ms, plain_ms, device_ms, plain_device = {}, {}, {}, {}
@@ -1081,6 +1120,7 @@ def main() -> int:
                   f"{100.0 * dev_ms / cycle_ms:.1f}%  [{card}]")
         del burst
     print(f"btvl1 matrix: {time.perf_counter() - t_btv:.1f} s")
+    dnn_sr_timing(dev, card)
 
     # 6. where the time goes
     profile_stages("defog", run_defog, pair, defog_cfg, defog_ms, card, wrappers)
@@ -1140,13 +1180,202 @@ def main() -> int:
           f"raw cascade {cascade_launches}, "
           + ", ".join(f"{label} {launches}" for label, launches in {**bar_launches, **knob_launches}.items())
           + "; btvl1_video (no kernel of csrc/ on its path) "
-          + ", ".join(f"{flow} {launches}" for flow, launches in btv_launches.items()))
+          + ", ".join(f"{flow} {launches}" for flow, launches in btv_launches.items())
+          + "; dnn_sr (no kernel of csrc/ on its path) "
+          + ", ".join(f"{algo} {launches}" for algo, launches in dnn_launches.items()))
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+# the bundled DNN SR checkpoints, read as data (npz files; nothing of the
+# JAX package is imported)
+CHECKPOINTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "multi_frame_super_resolution_tpu", "data", "checkpoints")
+DNN_TRAIN_STEPS = 50
+DNN_LOSS_RTOL = 1e-4  # tests/test_torch_dnn_sr.py's: float32 sums in other orders
+DNN_BEAT_DB = 0.5  # tests/test_dnn_sr.py::test_bundled_checkpoint_beats_bilinear's margin
+
+
+def bundled_model(algo: str):
+    """The bundled x2 checkpoint of ``algo`` in its module, on the CPU."""
+    from multi_frame_super_resolution_tpu_torch.models import dnn_sr
+
+    state_dict, meta = dnn_sr.load_params(os.path.join(CHECKPOINTS, f"{algo}_x2.npz"))
+    if meta.get("algo") != algo:
+        raise RuntimeError(f"{algo}_x2.npz was trained as {meta.get('algo')!r}")
+    model = dnn_sr.create_sr_model(algo, 2)
+    model.load_state_dict(state_dict)
+    return model
+
+
+def tf32_sr(model, img: torch.Tensor) -> torch.Tensor:
+    """dnn_sr's function with cuDNN's TF32 on: a labelled measurement only,
+    the port computes in float32."""
+    cudnn = torch.backends.cudnn
+    with torch.no_grad(), cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                                      deterministic=cudnn.deterministic, allow_tf32=True):
+        return model(img.permute(2, 0, 1)[None])[0].permute(1, 2, 0).clamp(0.0, 1.0)
+
+
+def dnn_sr_paths(dev, card) -> dict:
+    """Single-image DNN SR on the card through its entry points: each
+    bundled checkpoint through dnn_sr on the tracked city scene
+    (city_handheld_sr.png as HR, its bilinear half as LR), the train step
+    at the app's protocol, and the app's two forms. Returns each
+    checkpoint's launches of csrc/ kernels (none expected)."""
+    from multi_frame_super_resolution_tpu_torch.apps import dnn_sr as dnn_app
+    from multi_frame_super_resolution_tpu_torch.data import imread, imwrite
+    from multi_frame_super_resolution_tpu_torch.data.synthetic import CITY_HR_SCENE
+    from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+    from multi_frame_super_resolution_tpu_torch.models import dnn_sr
+    from multi_frame_super_resolution_tpu_torch.ops.color import rgb_to_gray
+    from multi_frame_super_resolution_tpu_torch.ops.geometry import resize
+
+    t0 = time.perf_counter()
+    with dnn_sr.float32_convs():
+        if torch.backends.cudnn.allow_tf32:
+            raise RuntimeError("float32_convs left cuDNN's TF32 on")
+    scene = torch.from_numpy(imread(CITY_HR_SCENE)).to(dev)
+    hh, ww = scene.shape[:2]
+    # the checkpoints were trained on gray scenes (R = G = B, the JAX app's
+    # data): the scene's BT.601 luma in three channels is their domain,
+    # where each must beat bilinear; on the colour scene they lose to it,
+    # in the JAX package too, so the RGB rows carry no limit
+    luma = rgb_to_gray(scene)[..., None].expand(hh, ww, 3).contiguous()
+    launches = {}
+    for form, hr in (("luma", luma), ("rgb", scene)):
+        lr = resize(hr, hh // 2, ww // 2, "bilinear")
+        p_base = psnr(resize(lr, hh, ww, "bilinear").clamp(0.0, 1.0), hr)
+        for algo in dnn_sr.SR_ALGORITHMS:
+            model = bundled_model(algo)
+            LAUNCHES.clear()
+            out = dnn_sr.dnn_sr(model, lr)
+            torch.cuda.synchronize()
+            if form == "luma":
+                launches[algo] = dict(LAUNCHES)
+            if out.device != dev:
+                raise RuntimeError(f"dnn_sr {algo}: the output lies on {out.device}, not on the default {dev}")
+            check_output(f"dnn_sr {algo} ({form})", out, tuple(hr.shape))
+            p_model = psnr(out, hr)
+            crop = lr[:64, :96]
+            on_card = dnn_sr.dnn_sr(model, crop).cpu()
+            on_cpu = dnn_sr.dnn_sr(model, crop.cpu(), device="cpu")
+            p_cpu, worst = psnr(on_card, on_cpu), (on_card - on_cpu).abs().max().item()
+            limit = (f"limit bilinear + {DNN_BEAT_DB} dB" if form == "luma"
+                     else "no limit: trained on gray scenes, they lose to bilinear on colour, in JAX too")
+            print(f"path dnn_sr {algo} ({form} city scene): {tuple(lr.shape)} -> {tuple(out.shape)}, launches "
+                  f"{dict(LAUNCHES)} (none of csrc/), PSNR vs HR {p_model:.4f} dB, bilinear {p_base:.4f} dB "
+                  f"({limit}); 64 x 96 crop card vs CPU {p_cpu:.2f} dB, max abs {worst:.3e} "
+                  f"(limit {PSNR_MIN} dB)  [{card}]")
+            if p_cpu < PSNR_MIN:
+                raise RuntimeError(f"dnn_sr {algo} on the card disagrees with the port on the CPU")
+            if form == "luma" and p_model <= p_base + DNN_BEAT_DB:
+                raise RuntimeError(f"dnn_sr {algo} does not beat bilinear on its domain: {p_model} vs {p_base}")
+
+    # the train step at the app's protocol (batch 8, LR 32 x 32, its 12
+    # batches cycled), from init_state's torch.Generator seed 0
+    data = [tuple(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(dev) for x in pair)
+            for pair in dnn_app.train_data(2)]
+    for algo in dnn_sr.SR_ALGORITHMS:
+        model, cpu_model = dnn_sr.create_sr_model(algo, 2), dnn_sr.create_sr_model(algo, 2)
+        state, opt = dnn_sr.init_state(model, torch.Generator().manual_seed(0), data[0][0][:1])
+        cpu_state, cpu_opt = dnn_sr.init_state(cpu_model, torch.Generator().manual_seed(0), data[0][0][:1].cpu())
+        step, cpu_step = dnn_sr.make_train_step(model, opt), dnn_sr.make_train_step(cpu_model, cpu_opt)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        LAUNCHES.clear()
+        losses = []
+        for i in range(DNN_TRAIN_STEPS):
+            if i == 10:  # the first ten are warm-up
+                start.record()
+            state, loss = step(state, *data[i % len(data)])
+            losses.append(loss)
+        end.record()
+        end.synchronize()
+        ms_step = start.elapsed_time(end) / (DNN_TRAIN_STEPS - 10)
+        losses = [float(x) for x in losses]
+        cpu_losses = [float(cpu_step(cpu_state, lr_b.cpu(), hr_b.cpu())[1]) for lr_b, hr_b in data[:3]]
+        rel = max(abs(a / b - 1.0) for a, b in zip(losses[:3], cpu_losses))
+        print(f"train dnn_sr {algo}: {DNN_TRAIN_STEPS} steps of batch 8 (LR 32 x 32), loss {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f} (mean of the last 5 {statistics.mean(losses[-5:]):.6f}), launches {dict(LAUNCHES)}; "
+              f"first 3 losses card vs CPU rel {rel:.2e} (limit {DNN_LOSS_RTOL}); {ms_step:.4f} ms per step "
+              f"(CUDA events over steps 10-{DNN_TRAIN_STEPS - 1})  [{card}]")
+        if rel > DNN_LOSS_RTOL:
+            raise RuntimeError(f"train step {algo}: losses {losses[:3]} on the card, {cpu_losses} on the CPU")
+        if not statistics.mean(losses[-5:]) < losses[0]:
+            raise RuntimeError(f"train step {algo}: the loss did not fall: {losses}")
+
+    # the app: train a few steps, then inference with that checkpoint and
+    # a bundled one on a PNG (the luma LR image)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, inp = os.path.join(tmp, "fsrcnn_x2.npz"), os.path.join(tmp, "in.png")
+        imwrite(inp, resize(luma, hh // 2, ww // 2, "bilinear").cpu().numpy())
+        print("app dnn_sr train (5 steps):")
+        if dnn_app.main(["train", ck, "fsrcnn", "2", "5"]) != 0:
+            raise RuntimeError("the dnn_sr app's train form failed")
+        for path, algo in ((ck, "fsrcnn"), (os.path.join(CHECKPOINTS, "lapsrn_x2.npz"), "lapsrn")):
+            outp = os.path.join(tmp, f"{algo}.png")
+            if dnn_app.main([path, algo, "2", inp, outp]) != 0 or imread(outp).shape != (hh, ww, 3):
+                raise RuntimeError(f"the dnn_sr app's inference form failed with {path}")
+    print(f"dnn_sr paths, train steps and app: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def dnn_sr_timing(dev, card) -> None:
+    """ms per image of each bundled checkpoint through dnn_sr at 1920 x
+    1080 -> 3840 x 2160 (a seeded synthetic scene; CUDA events around
+    each call after 3 warm-up calls, each input distinct), output MP/s,
+    device ms and ops of one call and the card's busy share; the same
+    under TF32, labelled, with its PSNR against the float32 output and its
+    fidelity on the city luma beside float32's."""
+    from multi_frame_super_resolution_tpu_torch.data import imread, synthetic_rgb_burst
+    from multi_frame_super_resolution_tpu_torch.data.synthetic import CITY_HR_SCENE
+    from multi_frame_super_resolution_tpu_torch.models import dnn_sr
+    from multi_frame_super_resolution_tpu_torch.ops.color import rgb_to_gray
+    from multi_frame_super_resolution_tpu_torch.ops.geometry import resize
+
+    t0 = time.perf_counter()
+    x = torch.from_numpy(synthetic_rgb_burst(np.random.default_rng(0), 1, 1080, 1920, 0.0)[0][0]).to(dev)
+    images = [x * (1.0 - 1e-5 * i) for i in range(13)]
+    scene = torch.from_numpy(imread(CITY_HR_SCENE)).to(dev)
+    luma = rgb_to_gray(scene)[..., None].expand(*scene.shape[:2], 3).contiguous()
+    luma_lr = resize(luma, luma.shape[0] // 2, luma.shape[1] // 2, "bilinear")
+
+    def per_image(sr) -> float:
+        times = []
+        for i, img in enumerate(images):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            sr(img)
+            end.record()
+            end.synchronize()
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    for algo in dnn_sr.SR_ALGORITHMS:
+        model = bundled_model(algo).to(dev)
+        for label, sr in (("float32", lambda img: dnn_sr.dnn_sr(model, img)),
+                          ("TF32, a measurement only", lambda img: tf32_sr(model, img))):
+            torch.cuda.reset_peak_memory_stats()
+            ms = per_image(sr)
+            dev_ms, ops, rows = device_busy(lambda: sr(x), by_name=True)
+            top = "; ".join(f"{name[:60]} x{n} {row_ms:.3f} ms" for name, n, row_ms in rows[:4])
+            print(f"dnn_sr timing {algo} ({label}): 1080 x 1920 -> 2160 x 3840, median {ms:.4f} ms per image over "
+                  f"10 images, {2160 * 3840 / (ms * 1e-3) / 1e6:.1f} output MP/s; device {dev_ms:.4f} ms over "
+                  f"{ops} device ops per image, card busy {100.0 * dev_ms / ms:.1f}%; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; the largest device rows: {top}  [{card}]")
+        gap = psnr(tf32_sr(model, x), dnn_sr.dnn_sr(model, x))
+        p32 = psnr(dnn_sr.dnn_sr(model, luma_lr), luma)
+        ptf = psnr(tf32_sr(model, luma_lr), luma)
+        print(f"dnn_sr TF32 against float32 {algo}: PSNR of the TF32 output against the float32 output "
+              f"{gap:.2f} dB at 2160 x 3840; city luma vs HR {ptf:.4f} dB (TF32) against {p32:.4f} dB "
+              f"(float32), {ptf - p32:+.4f} dB  [{card}]")
+    print(f"dnn_sr timing: {time.perf_counter() - t0:.1f} s")
 
 
 def estimate_agreement(label, gray, cfg, estimate) -> None:
@@ -1216,12 +1445,13 @@ def device_time(call, symbol: str | None = None, iters: int = 20) -> tuple:
     return total_ms / launches, launches / iters
 
 
-def device_busy(call) -> tuple:
+def device_busy(call, by_name: bool = False) -> tuple:
     """(ms, ops) of one call, made after a warm-up: the summed device time
     and the count of the kernels, copies and memsets it ran, read from the
     profiler's raw events with the CUDA activity alone. The light form of
     profile_stages' totals for a call of thousands of ops: no CPU op
-    records and no event tree, which cost seconds per call."""
+    records and no event tree, which cost seconds per call. ``by_name``
+    adds the rows by kernel name, (name, count, ms), largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1233,7 +1463,14 @@ def device_busy(call) -> tuple:
             if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
     if not rows:
         raise RuntimeError("the profiler saw no device work")
-    return sum(e.duration_ns() for e in rows) / 1e6, len(rows)
+    total = (sum(e.duration_ns() for e in rows) / 1e6, len(rows))
+    if not by_name:
+        return total
+    named = {}
+    for e in rows:
+        count, ns = named.get(e.name(), (0, 0))
+        named[e.name()] = (count + 1, ns + e.duration_ns())
+    return (*total, sorted(((k, n, ns / 1e6) for k, (n, ns) in named.items()), key=lambda r: -r[2]))
 
 
 def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> tuple:

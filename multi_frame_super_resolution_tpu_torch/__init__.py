@@ -5,9 +5,9 @@ The JAX package stays the reference; this package mirrors its layout and
 function names, so each counterpart is found by path. Plain tensor code
 is PyTorch and runs on the device of its inputs; the entry points
 (``models.handheld.handheld_superres``, ``handheld_superres_raw`` and
-its cascade, ``models.btvl1.btvl1_superres`` and ``btvl1_video``, and
-the apps) run on cuda:0 unless the caller asks for another device
-(``resolve_device``). Every Pallas kernel on a ported path becomes a
+its cascade, ``models.btvl1.btvl1_superres`` and ``btvl1_video``,
+``models.dnn_sr.dnn_sr``, and the apps) run on cuda:0 unless the caller
+asks for another device (``resolve_device``). Every Pallas kernel on a ported path becomes a
 hand-written Hopper kernel under ``csrc/`` with its Python wrapper under
 ``kernels/``.
 
@@ -28,7 +28,10 @@ multi-frame super-resolution (``models.btvl1``) with its four dense
 optical flows (``registration.optical_flow``), the PNG burst loader
 (``data.load_burst``) and the ``multi_frame_sr`` and ``runall`` apps
 (see ``config.check_supported_raw`` and ``config.check_supported`` for
-the handheld knobs that still raise).
+the handheld knobs that still raise); single-image DNN SR
+(``models.dnn_sr``: the four architectures, flax-layout checkpoints,
+inference and the train step) with its app, the ``handheld_sr`` and
+``getimg`` apps, and ``utils`` (metrics, timing, profiling, debug).
 """
 
 __version__ = "0.1.0"

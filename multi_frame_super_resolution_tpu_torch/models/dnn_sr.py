@@ -1,0 +1,316 @@
+"""Single-image DNN super-resolution (counterpart of models/dnn_sr.py):
+the reference's cv::dnn_superres surface (main.cpp:569-591).
+
+  * ``create_sr_model(algo, scale)``: espcn | fsrcnn | lapsrn | edsr, as
+    ``torch.nn.Module``s taking NCHW, with the JAX package's widths
+  * ``save_params`` / ``load_params``: npz checkpoints in the flax
+    layout, so a checkpoint written by either package loads in the other
+  * ``dnn_sr(model, img)``: inference on (H, W, C) in [0, 1]
+  * ``init_state`` / ``make_train_step``: Adam on the mean squared error
+
+Each module keeps its convolutions in ``convs``, in the order flax
+numbers them (``Conv_<i>`` is ``convs[i]``), and computes what the flax
+module computes: the same pixel-shuffle channel order, (s, s, C), and
+the JAX bilinear upsample (``ops.geometry.resize``). The convolutions run
+on cuDNN on the card, in float32 with TF32 off: the JAX package computes
+them in XLA (no Pallas kernel), and TF32 would compute another function.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import re
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from multi_frame_super_resolution_tpu_torch import resolve_device
+from multi_frame_super_resolution_tpu_torch.ops.geometry import resize
+
+
+@contextlib.contextmanager
+def float32_convs():
+    """cuDNN convolutions in full float32 (TF32 off) for the scope; the
+    other cuDNN settings stay as they are."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+def _conv(c_in: int, c_out: int, k: int) -> nn.Conv2d:
+    """flax's nn.Conv with padding "SAME" (its default too) at an odd size."""
+    return nn.Conv2d(c_in, c_out, k, padding=k // 2)
+
+
+def pixel_shuffle(h: torch.Tensor, scale: int, channels: int) -> torch.Tensor:
+    """(B, s*s*C, H, W) -> (B, C, H*s, W*s) in flax's channel order:
+    channel (i*s + j)*C + c goes to offset (i, j) of channel c
+    (``nn.PixelShuffle`` reads (C, s, s))."""
+    b, _, hh, ww = h.shape
+    s = scale
+    h = h.view(b, s, s, channels, hh, ww).permute(0, 3, 4, 1, 5, 2)
+    return h.reshape(b, channels, hh * s, ww * s)
+
+
+def upsample_bilinear(x: torch.Tensor, s: int) -> torch.Tensor:
+    """x (B, C, H, W) -> (B, C, H*s, W*s) by ``jax.image.resize``'s
+    bilinear, which ``ops.geometry.resize`` computes."""
+    hwc = x.permute(0, 2, 3, 1)
+    return resize(hwc, x.shape[2] * s, x.shape[3] * s, "bilinear").permute(0, 3, 1, 2)
+
+
+class ESPCN(nn.Module):
+    """Efficient sub-pixel CNN: features -> shrink -> scale^2*C channels ->
+    pixel shuffle."""
+
+    def __init__(self, scale: int = 2, channels: int = 3, features: int = 64):
+        super().__init__()
+        self.scale, self.channels = scale, channels
+        self.convs = nn.ModuleList([
+            _conv(channels, features, 5),
+            _conv(features, features // 2, 3),
+            _conv(features // 2, channels * scale * scale, 3),
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.convs[0](x))
+        h = torch.relu(self.convs[1](h))
+        return pixel_shuffle(self.convs[2](h), self.scale, self.channels)
+
+
+class FSRCNN(nn.Module):
+    """FSRCNN family: feature extraction -> shrink -> mapping -> expand ->
+    sub-pixel upsample."""
+
+    def __init__(self, scale: int = 2, channels: int = 3, d: int = 32, s_feat: int = 8, m: int = 2):
+        super().__init__()
+        self.scale, self.channels = scale, channels
+        self.convs = nn.ModuleList([
+            _conv(channels, d, 5),
+            _conv(d, s_feat, 1),
+            *(_conv(s_feat, s_feat, 3) for _ in range(m)),
+            _conv(s_feat, d, 1),
+            _conv(d, channels * scale * scale, 3),
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for conv in self.convs[:-1]:
+            h = torch.relu(conv(h))
+        return pixel_shuffle(self.convs[-1](h), self.scale, self.channels)
+
+
+class LapSRN(nn.Module):
+    """LapSRN family: progressive x2 stages, each predicting a Laplacian
+    residual added to the bilinearly upsampled image. ``scale`` must be a
+    power of two."""
+
+    def __init__(self, scale: int = 2, channels: int = 3, features: int = 32, depth: int = 3):
+        if scale < 2 or scale & (scale - 1):
+            raise ValueError(f"lapsrn scale must be 2^k, got {scale}")
+        super().__init__()
+        self.features, self.depth = features, depth
+        self.stages = scale.bit_length() - 1
+        self.convs = nn.ModuleList([_conv(channels, features, 3)])
+        for _ in range(self.stages):  # per x2 stage: depth convs, the shuffle's, the residual's
+            self.convs.extend([*(_conv(features, features, 3) for _ in range(depth)),
+                               _conv(features, features * 4, 3), _conv(features, channels, 3)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        img = x
+        feat = torch.relu(self.convs[0](x))
+        at = 1
+        for _ in range(self.stages):
+            for conv in self.convs[at : at + self.depth]:
+                feat = torch.relu(conv(feat))
+            feat = pixel_shuffle(self.convs[at + self.depth](feat), 2, self.features)
+            residual = self.convs[at + self.depth + 1](feat)
+            img = upsample_bilinear(img, 2) + residual
+            at += self.depth + 2
+        return img
+
+
+class EDSR(nn.Module):
+    """EDSR family: residual blocks without batch norm + global skip,
+    sub-pixel upsample, plus the bilinearly upsampled input."""
+
+    def __init__(self, scale: int = 2, channels: int = 3, features: int = 32, blocks: int = 4):
+        super().__init__()
+        self.scale, self.channels, self.blocks = scale, channels, blocks
+        self.convs = nn.ModuleList([
+            _conv(channels, features, 3),
+            *(_conv(features, features, 3) for _ in range(2 * blocks + 1)),
+            _conv(features, channels * scale * scale, 3),
+        ])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        head = self.convs[0](x)
+        h = head
+        for b in range(self.blocks):
+            r = torch.relu(self.convs[1 + 2 * b](h))
+            r = self.convs[2 + 2 * b](r)
+            h = h + 0.1 * r
+        h = self.convs[-2](h) + head
+        h = self.convs[-1](h)
+        return pixel_shuffle(h, self.scale, self.channels) + upsample_bilinear(x, self.scale)
+
+
+SR_ALGORITHMS = ("espcn", "fsrcnn", "lapsrn", "edsr")
+
+
+def create_sr_model(algo: str, scale: int = 2, channels: int = 3, **kw) -> nn.Module:
+    """Algorithm selector mirroring cv::dnn_superres setModel(algo, scale)
+    (main.cpp:582-584). Unknown names raise ValueError. The parameters are
+    torch's default initialisation until ``init_params``, ``init_state``
+    or ``load_state_dict`` sets them."""
+    classes = {"espcn": ESPCN, "fsrcnn": FSRCNN, "lapsrn": LapSRN, "edsr": EDSR}
+    algo = algo.lower()
+    if algo not in classes:
+        raise ValueError(f"unknown SR algorithm {algo!r}; choose from {SR_ALGORITHMS}")
+    return classes[algo](scale=scale, channels=channels, **kw)
+
+
+def create_model(scale: int = 2, channels: int = 3, features: int = 64) -> ESPCN:
+    return ESPCN(scale=scale, channels=channels, features=features)
+
+
+_FLAX_KEY = re.compile(r"^params/Conv_(\d+)/(kernel|bias)$")
+
+
+def params_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax params ({"params": {"Conv_<i>": {"kernel": HWIO, "bias"}}}, any
+    arrays) -> a state dict of the port's modules (``convs.<i>.weight``
+    OIHW, ``convs.<i>.bias``)."""
+    out = {}
+    for name, leaves in params["params"].items():
+        i = int(name.split("_")[1])
+        kernel = torch.from_numpy(np.array(leaves["kernel"], np.float32))
+        out[f"convs.{i}.weight"] = kernel.permute(3, 2, 0, 1).contiguous()
+        out[f"convs.{i}.bias"] = torch.from_numpy(np.array(leaves["bias"], np.float32))
+    return out
+
+
+def params_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``params_from_flax``: numpy arrays, HWIO kernels."""
+    convs: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in state_dict.items():
+        _, i, kind = key.split(".")
+        arr = value.detach().cpu().numpy()
+        leaf = convs.setdefault(f"Conv_{int(i)}", {})
+        if kind == "weight":
+            leaf["kernel"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        else:
+            leaf["bias"] = arr
+    return {"params": convs}
+
+
+def save_params(path: str, state_dict: Dict[str, torch.Tensor], meta: dict | None = None) -> None:
+    """Write a module's state dict as the JAX package's npz checkpoint:
+    keys ``params/Conv_<i>/kernel`` (HWIO) and ``params/Conv_<i>/bias``,
+    and the ``meta`` strings under ``__meta_<key>``."""
+    flat = {
+        f"params/{name}/{kind}": arr
+        for name, leaves in params_to_flax(state_dict)["params"].items()
+        for kind, arr in leaves.items()
+    }
+    for k, v in (meta or {}).items():
+        flat[f"__meta_{k}"] = np.asarray(str(v))
+    np.savez(path, **flat)
+
+
+def load_params(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
+    """Read an npz checkpoint of either package. Returns (state dict on
+    the CPU, meta). Convolutions are found by the index in their key,
+    never by file order (numpy lists Conv_10 before Conv_2)."""
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    meta: Dict[str, str] = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            if key.startswith("__meta_"):
+                meta[key[len("__meta_"):]] = str(data[key])
+                continue
+            match = _FLAX_KEY.match(key)
+            if match is None:
+                raise ValueError(f"{path}: unexpected checkpoint key {key!r}")
+            params.setdefault(f"Conv_{match.group(1)}", {})[match.group(2)] = data[key]
+    return params_from_flax({"params": params}), meta
+
+
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's default initialisation, drawn from ``generator`` (a CPU
+    generator) conv by conv: lecun_normal kernels, a normal of stddev
+    sqrt(1 / fan_in) / 0.87962566 truncated at +-2 of its stddevs, which
+    has variance 1 / fan_in; zero biases. The distribution is flax's; the
+    values are torch's draws, not flax's. The parameters are made on the
+    CPU and copied to the model's device."""
+    with torch.no_grad():
+        for conv in model.convs:
+            fan_in = conv.in_channels * conv.kernel_size[0] * conv.kernel_size[1]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            w = torch.empty(conv.weight.shape, dtype=torch.float32)
+            torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            conv.weight.copy_(w)
+            conv.bias.zero_()
+    return model
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model's parameters and the optimizer's state: live references,
+    which the train step updates in place (PyTorch's optimizers own their
+    state)."""
+
+    params: Dict[str, torch.Tensor]
+    opt_state: Any
+
+
+def init_state(
+    model: nn.Module, generator: torch.Generator, sample: torch.Tensor, learning_rate: float = 1e-3
+) -> Tuple[TrainState, torch.optim.Optimizer]:
+    """Initialise ``model`` from ``generator`` (``init_params``) on the
+    device of ``sample`` (a batch, NCHW) and make its optimizer:
+    ``torch.optim.Adam`` with optax.adam's defaults (betas 0.9 and 0.999,
+    eps 1e-8 added to the root of the second moment's estimate)."""
+    init_params(model, generator).to(sample.device)
+    opt = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    return TrainState(params=dict(model.named_parameters()), opt_state=opt.state), opt
+
+
+def loss_fn(model: nn.Module, lr_batch: torch.Tensor, hr_batch: torch.Tensor) -> torch.Tensor:
+    pred = model(lr_batch)
+    return torch.mean((pred - hr_batch) ** 2)
+
+
+def make_train_step(model: nn.Module, opt: torch.optim.Optimizer):
+    """(state, lr, hr) -> (state, loss): one Adam step on the mean squared
+    error of ``model(lr)`` (NCHW batches) against ``hr``, its convolutions
+    in float32 with TF32 off. The gradients come from autograd. The state
+    returned is ``state``, whose tensors the step updated in place."""
+
+    def train_step(state: TrainState, lr_batch: torch.Tensor, hr_batch: torch.Tensor):
+        with float32_convs():
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(model, lr_batch, hr_batch)
+            loss.backward()
+            opt.step()
+        return state, loss.detach()
+
+    return train_step
+
+
+def dnn_sr(model: nn.Module, img: torch.Tensor, device=None) -> torch.Tensor:
+    """Single-image SR inference on ``img`` (H, W, C) in [0, 1] -> the
+    clipped (sH, sW, C). Runs on cuda:0 unless ``device`` names another
+    device (``resolve_device``: without a card it raises unless the CPU is
+    asked for); the model is moved there."""
+    dev = resolve_device(device, "dnn_sr", 'device="cpu"')
+    model.to(dev)
+    x = img.to(dev, torch.float32).permute(2, 0, 1)[None]
+    with torch.no_grad(), float32_convs():
+        out = model(x)
+    return out[0].permute(1, 2, 0).clamp(0.0, 1.0)

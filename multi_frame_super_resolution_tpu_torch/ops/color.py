@@ -20,6 +20,14 @@ def srgb_gamma(img: torch.Tensor) -> torch.Tensor:
     return torch.where(img <= 0.0031308, low, high)
 
 
+def srgb_degamma(img: torch.Tensor) -> torch.Tensor:
+    """Inverse sRGB encode of values clamped to [0, 1]."""
+    img = img.clamp(0.0, 1.0)
+    low = img / 12.92
+    high = torch.pow((img + 0.055) / 1.055, 2.4)
+    return torch.where(img <= 0.04045, low, high)
+
+
 def normalize_minmax(img: torch.Tensor, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
     """Min-max normalize to [lo, hi] over the whole tensor, the range
     floored at 1e-15 (cv::normalize NORM_MINMAX)."""

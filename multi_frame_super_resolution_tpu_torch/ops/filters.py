@@ -95,6 +95,15 @@ def gaussian_blur(img: torch.Tensor, sigma: float, size: int | None = None) -> t
     return separable_filter(img, k, k)
 
 
+def unsharp_mask(img: torch.Tensor, sigma: float = 1.0, amount: float = 1.0) -> torch.Tensor:
+    """Unsharp masking of (H, W) or (H, W, C) (ops/filters.py::unsharp_mask,
+    sharpenImg in main.cpp:507-535): clip(img + amount (img - blur))."""
+    planes = img if img.ndim == 2 else torch.movedim(img, -1, 0)
+    blurred = gaussian_blur(planes, sigma)
+    blurred = blurred if img.ndim == 2 else torch.movedim(blurred, 0, -1)
+    return (img + amount * (img - blurred)).clamp(0.0, 1.0)
+
+
 def laplacian_sharpen(img: torch.Tensor) -> torch.Tensor:
     """5-point Laplacian sharpen of (H, W) or (H, W, C) (sharpenImg2):
     clamp(5 c - up - left - right - down) on the edge-padded image with the

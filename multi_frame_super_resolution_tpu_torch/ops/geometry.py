@@ -1,7 +1,8 @@
 """Geometric ops (counterparts of ops/geometry.py): 2x2 mean decimation,
-the resize with OpenCV pixel-center alignment, and remaps at float
-coordinates (bilinear, bicubic, nearest) with replicate borders, and
-the backward warp by a dense flow.
+the resize with OpenCV pixel-center alignment (and ``downscale``), the
+zero-stuffing upsample, remaps at float coordinates (bilinear, bicubic,
+nearest) with replicate borders, the backward warp by a dense flow, and
+the rotation about the image center.
 
 Coordinates follow the pixel-index convention: an integer coordinate is
 a pixel center. ``remap`` takes the JAX layouts, (H, W) or (H, W, C);
@@ -10,6 +11,7 @@ coordinate grids or flows that broadcast against their leading axes."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -61,6 +63,24 @@ def upscale(img: torch.Tensor, scale: int, method: str = "bicubic") -> torch.Ten
     """``resize`` of (..., H, W, C) by an integer factor
     (ops/geometry.py::upscale)."""
     return resize(img, img.shape[-3] * scale, img.shape[-2] * scale, method)
+
+
+def downscale(img: torch.Tensor, scale: int, method: str = "bilinear") -> torch.Tensor:
+    """``resize`` of (H, W) or (H, W, C) to (H // scale, W // scale)
+    (ops/geometry.py::downscale)."""
+    if img.ndim == 2:
+        return downscale(img[..., None], scale, method)[..., 0]
+    return resize(img, img.shape[0] // scale, img.shape[1] // scale, method)
+
+
+def upsample_zero(img: torch.Tensor, scale: int) -> torch.Tensor:
+    """Zero-stuffing upsample of (H, W) or (H, W, C), the transpose of
+    strided decimation: img at every ``scale``-th row and column, zeros
+    elsewhere (ops/geometry.py::upsample_zero)."""
+    h, w = img.shape[0], img.shape[1]
+    out = img.new_zeros((h * scale, w * scale) + tuple(img.shape[2:]))
+    out[::scale, ::scale] = img
+    return out
 
 
 def _gather_planes(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
@@ -153,3 +173,41 @@ def translate(img: torch.Tensor, dy, dx, method: str = "bilinear") -> torch.Tens
     (-dy, -dx)."""
     ys, xs = identity_grid(img.shape[0], img.shape[1], img.device)
     return remap(img, ys + dy, xs + dx, method)
+
+
+def rotate(
+    img: torch.Tensor,
+    angle_rad: float,
+    method: str = "bicubic",
+    center: tuple | None = None,
+    expand: bool = False,
+) -> torch.Tensor:
+    """Rotate (H, W) or (H, W, C) about the image center
+    (ops/geometry.py::rotate, the NPP rotate demo, main.cpp:394-497).
+
+    ``expand=False`` keeps the output size (content clipped at corners).
+    ``expand=True`` grows the canvas to the rotated bounding box, the
+    content centered; ``angle_rad`` is then a Python scalar and ``center``
+    is ignored. The sine and cosine are float32, as in the JAX package."""
+    h, w = img.shape[0], img.shape[1]
+    if expand:
+        a = float(angle_rad)
+        ca_a, sa_a = abs(np.cos(a)), abs(np.sin(a))
+        # epsilon guards exact multiples of 90 deg, where the rotated
+        # extent lands on an integer up to f64 rounding
+        oh = int(np.ceil(h * ca_a + w * sa_a - 1e-9))
+        ow = int(np.ceil(w * ca_a + h * sa_a - 1e-9))
+        cy_in, cx_in = (h - 1) / 2.0, (w - 1) / 2.0
+        cy_out, cx_out = (oh - 1) / 2.0, (ow - 1) / 2.0
+    else:
+        oh, ow = h, w
+        cy_in, cx_in = ((h - 1) / 2.0, (w - 1) / 2.0) if center is None else center
+        cy_out, cx_out = cy_in, cx_in
+    ys, xs = identity_grid(oh, ow, img.device)
+    angle = torch.as_tensor(angle_rad, dtype=torch.float32, device=img.device)
+    ca, sa = torch.cos(angle), torch.sin(angle)
+    yr = ys - cy_out
+    xr = xs - cx_out
+    src_y = cy_in + sa * xr + ca * yr
+    src_x = cx_in + ca * xr - sa * yr
+    return remap(img, src_y, src_x, method)

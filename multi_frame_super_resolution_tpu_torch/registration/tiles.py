@@ -162,7 +162,7 @@ def find_min_shift(
     on_border = (py < 1) | (py >= s - 1) | (px < 1) | (px >= s - 1)
     shift = torch.stack([py.float() - radius, px.float() - radius], dim=-1)
 
-    if subpixel:
+    if subpixel and s >= 3:  # below, every minimum lies on the border
         cy = py.clamp(1, s - 2)
         cx = px.clamp(1, s - 2)
         k = torch.arange(-1, 2, device=ssd.device)

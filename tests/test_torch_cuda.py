@@ -2,8 +2,10 @@
 its four forms, tile warp, tile search, RAW merge in its four forms at
 scales 1-4, guided or not, defog) against its plain PyTorch version, and
 the RGB, RAW (fast and oracle, with every handheld knob the port runs),
-defog and BTV-L1 paths on the card against the port on the CPU. They
-skip without a CUDA device.
+defog and BTV-L1 paths and single-image DNN SR (the bundled checkpoints'
+inference, a train step) on the card against the port on the CPU, and
+the port's limits on the card, each raising by name. They skip without a
+CUDA device.
 
 This file imports no JAX, so the GPU host (which has none) runs it
 without the suite's conftest:
@@ -12,6 +14,7 @@ without the suite's conftest:
 """
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from torch_parity import (
     ulp_perturbed,
 )
 
+from multi_frame_super_resolution_tpu_torch.apps.dnn_sr import train_data
 from multi_frame_super_resolution_tpu_torch.config import (
     PORT_DEFAULT,
     RAW_BENCH,
@@ -70,7 +74,7 @@ from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
 from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
 from multi_frame_super_resolution_tpu_torch.kernels.tile_search import tile_search
 from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp, tile_warp_block
-from multi_frame_super_resolution_tpu_torch.models import btvl1, fast_merge
+from multi_frame_super_resolution_tpu_torch.models import btvl1, dnn_sr, fast_merge
 from multi_frame_super_resolution_tpu_torch.models.defog import polar_defog
 from multi_frame_super_resolution_tpu_torch.models.handheld import (
     handheld_superres,
@@ -861,3 +865,120 @@ def test_btvl1_video_on_card_matches_cpu(method):
     assert got.shape == (3, 96, 128, 3) and np.isfinite(got).all()
     assert psnr(got, want) >= 60.0
 
+
+
+@pytest.mark.cuda
+def test_raw_bench_fine_radius_on_card_matches_cpu():
+    """RAW_BENCH with align.fine_radius=2 (the finest level's search at
+    radius 2) on a rotated burst, on the card against the port on the
+    CPU."""
+    dev = cuda_device()
+    cfg = dataclasses.replace(RAW_BENCH, align=AlignConfig(tile_size=16, search_radius=4, levels=2, fine_radius=2))
+    angles = CITY_ANGLES[:2] + CITY_ANGLES[3:]
+    raw, _ = synthetic_raw_burst(np.random.default_rng(0), 4, 128, 256, 2.5, angles=angles)
+    want = nn(handheld_superres_raw(tt(raw), cfg, device="cpu"))
+    LAUNCHES.clear()
+    got = nn(handheld_superres_raw(tt(raw, dev), cfg))
+    assert LAUNCHES["tile_search"] == 2 and LAUNCHES["tile_warp"] == 1 and LAUNCHES["merge_raw"] == 1
+    assert psnr(got, want) >= 60.0
+
+
+def _raw_burst(frames, h, w):
+    return synthetic_raw_burst(np.random.default_rng(0), frames, h, w, 2.5)[0]
+
+
+def _rgb_burst(frames, h, w):
+    return synthetic_rgb_burst(np.random.default_rng(0), frames, h, w, 2.5)[0]
+
+
+_ALIGN = dict(tile_size=16, search_radius=4, levels=2)
+# the port's limits where the JAX function accepts the value (README.md):
+# (entry point, burst, configuration, the words the ValueError names)
+PORT_LIMITS = {
+    "tile_size=12": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
+                     dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(**{**_ALIGN, "tile_size": 12})),
+                     "tile sizes 8, 16 and 32"),
+    "fine_radius=0": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
+                      dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(**_ALIGN, fine_radius=0)),
+                      r"radii 1\.\."),
+    "121 RAW taps": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
+                     dataclasses.replace(RAW_PORT_DEFAULT, merge=MergeConfig(radius=5, prune_exp=40.0)),
+                     "taps exceed the kernel's 81"),
+    "31 RAW frames": (handheld_superres_raw, (_raw_burst, 31, 64, 128), RAW_PORT_DEFAULT,
+                      "31 frames exceed the 30"),
+    "RGB tap radius 9": (handheld_superres, (_rgb_burst, 4, 64, 128),
+                         dataclasses.replace(RGB_DEFAULT_NOPRE, merge=MergeConfig(radius=8)),
+                         "tap radius 9 exceeds the kernel's 8"),
+    "RAW scale 5": (handheld_superres_raw, (_raw_burst, 4, 64, 128), dataclasses.replace(RAW_PORT_DEFAULT, scale=5),
+                    r"scale=5 \(the RAW merge kernel takes 1\.\.4\)"),
+    "RGB scale 5": (handheld_superres, (_rgb_burst, 4, 64, 128), dataclasses.replace(RGB_DEFAULT_NOPRE, scale=5),
+                    r"scale=5 \(the merge kernel takes 1\.\.4\)"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("limit", list(PORT_LIMITS))
+def test_port_limits_raise_on_card_by_name(limit):
+    """Each limit of the port that the JAX function does not have raises
+    ValueError naming it on the card, never silently. The first four run
+    on the CPU, where the plain versions have no such limit; the last
+    three raise on either device."""
+    dev = cuda_device()
+    fn, (make, *shape), cfg, words = PORT_LIMITS[limit]
+    with pytest.raises(ValueError, match=words):
+        fn(tt(make(*shape), dev), cfg)
+
+
+CHECKPOINTS = pathlib.Path(__file__).resolve().parents[1] / "multi_frame_super_resolution_tpu" / "data" / "checkpoints"
+
+
+def _bundled(algo):
+    state_dict, _ = dnn_sr.load_params(str(CHECKPOINTS / f"{algo}_x2.npz"))
+    model = dnn_sr.create_sr_model(algo, 2)
+    model.load_state_dict(state_dict)
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", dnn_sr.SR_ALGORITHMS)
+def test_dnn_sr_on_card_matches_cpu(algo):
+    """Each bundled checkpoint through dnn_sr on its default device,
+    cuda:0 (cuDNN convolutions in float32, TF32 off), against the port on
+    the CPU on a 64 x 96 x 3 image: within 1e-4 max abs and 60 dB; no
+    kernel of csrc/ launches."""
+    dev = cuda_device()
+    img = np.random.default_rng(0).random((64, 96, 3)).astype(np.float32)
+    model = _bundled(algo)
+    want = nn(dnn_sr.dnn_sr(model, tt(img), device="cpu"))
+    LAUNCHES.clear()
+    out = dnn_sr.dnn_sr(model, tt(img))
+    assert out.device == dev and not any(LAUNCHES.values())
+    got = nn(out)
+    assert got.shape == (128, 192, 3)
+    assert np.abs(got - want).max() <= 1e-4 and psnr(got, want) >= 60.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", dnn_sr.SR_ALGORITHMS)
+def test_dnn_train_step_on_card_matches_cpu(algo):
+    """One train step (init_state from torch.Generator seed 0, Adam at
+    1e-3) on the app's first batch, on the card against the port on the
+    CPU: the loss within rtol 1e-4; the parameters within 1e-5 where the
+    CPU gradient is at least 1e-4 in magnitude, and within 2 lr
+    everywhere (Adam moves a parameter by about lr * sign(g))."""
+    dev = cuda_device()
+    lr, hr = (torch.from_numpy(x).permute(0, 3, 1, 2).contiguous() for x in train_data(2, batches=1)[0])
+    results = []
+    for device in ("cpu", dev):
+        model = dnn_sr.create_sr_model(algo, 2)
+        state, opt = dnn_sr.init_state(model, torch.Generator().manual_seed(0), lr[:1].to(device))
+        state, loss = dnn_sr.make_train_step(model, opt)(state, lr.to(device), hr.to(device))
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        results.append((float(loss), {k: p.detach().cpu() for k, p in state.params.items()}, grads))
+    (loss_cpu, params_cpu, grads_cpu), (loss_card, params_card, _) = results
+    np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-4)
+    for k, p in params_card.items():
+        diff = (p - params_cpu[k]).abs()
+        assert diff.max() <= 2e-3, k
+        decided = grads_cpu[k].abs() >= 1e-4
+        assert not decided.any() or diff[decided].max() <= 1e-5, k
