@@ -117,6 +117,23 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      port's on the CPU from the same parameters, ms per step; and the
      dnn_sr app (train, 5 steps, then inference on a PNG with that
      checkpoint and a bundled one).
+   - the multi-device layer (parallel/) on one card, every mesh 4
+     positions on cuda:0 (2 for the train step): make_batched_pipeline at
+     RAW_BENCH on B = 4 and 8 city bursts, scan and vmap, each output
+     equal to its single call bit for bit; handheld_superres_raw_sharded
+     at RAW_BENCH and handheld_superres_sharded at RGB_DEFAULT_NOPRE on a
+     5 x 1024 x 1536 burst rotated within +-0.01 rad, 4 shards of 256
+     rows, the interior (2 halo output rows trimmed) above 40 dB against
+     the unsharded run; spatial_map of gaussian_blur at halo 2 within
+     1e-5 of the unsharded blur; the data-parallel ESPCN train step on 2
+     positions against the one-device step over 3 steps (losses within
+     1e-6 relative, gradients GRAD_RTOL, parameters by the card test's
+     Adam rule, ADAM_DECIDED); each timed in in-call pairs against its
+     single-device form, with device ops. And the readers: which served
+     (the native library or numpy), 16-bit gray and 8-bit RGB baseline
+     TIFFs written with struct read back exactly on each route, and the
+     defog app's inputType 1 on a 16-bit TIFF pair through the defog
+     kernel, against the plain version on the CPU (60 dB).
    The entry points get CUDA tensors and no device argument: they run on
    cuda:0, their default. Each burst output must lie there, have its
    shape, be finite and in [0, 1], agree (PSNR >= 60 dB) with the same
@@ -984,6 +1001,9 @@ def main() -> int:
     # float32 (the JAX package computes them in XLA), no kernel of csrc/
     dnn_launches = dnn_sr_paths(dev, card)
 
+    # the multi-device layer and the readers, meshes of positions on cuda:0
+    mesh_launches = multi_device_paths(dev, card, raw_rot)
+
     # 5. timing: kernels beside their plain versions, then the paths
     kernel_ms, plain_ms, device_ms, plain_device = {}, {}, {}, {}
     checks_by_label = {check[0]: check for checks in calls.values() for check in checks}
@@ -1182,7 +1202,8 @@ def main() -> int:
           + "; btvl1_video (no kernel of csrc/ on its path) "
           + ", ".join(f"{flow} {launches}" for flow, launches in btv_launches.items())
           + "; dnn_sr (no kernel of csrc/ on its path) "
-          + ", ".join(f"{algo} {launches}" for algo, launches in dnn_launches.items()))
+          + ", ".join(f"{algo} {launches}" for algo, launches in dnn_launches.items())
+          + "; " + ", ".join(f"{label} {launches}" for label, launches in mesh_launches.items()))
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1376,6 +1397,263 @@ def dnn_sr_timing(dev, card) -> None:
               f"{gap:.2f} dB at 2160 x 3840; city luma vs HR {ptf:.4f} dB (TF32) against {p32:.4f} dB "
               f"(float32), {ptf - p32:+.4f} dB  [{card}]")
     print(f"dnn_sr timing: {time.perf_counter() - t0:.1f} s")
+
+
+MESH_POSITIONS = 4  # every mesh of the multi-device phase: positions on cuda:0 (one card)
+SHARD_H, SHARD_W = 1024, 1536  # the row-sharded bursts: 4 shards of 256 rows
+INTERIOR_DB = 40.0  # tests/test_parallel.py's interior limit, sharded against unsharded
+BLUR_TOL = 1e-5  # tests/test_parallel.py::test_spatial_map_blur_parity's
+TRAIN_RTOL = 1e-6  # the data-parallel train step against the one-device step
+# Adam (eps 1e-8) moves a parameter by lr m / (sqrt(v) + eps): a gradient
+# at float32 rounding level (zero in one summation order, not in another)
+# moves it by rounding's share of a step, and moments that nearly
+# cancel over the steps scale a gradient's rounding up. So the parameters
+# are held to tests/test_torch_cuda.py::test_dnn_train_step_on_card_matches_cpu's
+# rule: within PARAM_ATOL where the one-device gradient is at least
+# ADAM_DECIDED, within 2 lr elsewhere; the losses to TRAIN_RTOL. The
+# gradients the step sums are weight gradients over 8 x 32 x 32 pixels and
+# more: two float32 summation orders of ~1e4 terms part by up to ~eps
+# sqrt(n) ~ 6e-6 of the largest, so GRAD_RTOL.
+ADAM_DECIDED, PARAM_ATOL, GRAD_RTOL = 1e-4, 1e-5, 1e-5
+
+
+def event_ms(call) -> float:
+    """ms of one call between CUDA events (the call's host time included
+    where it outlasts its device work)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def in_call_pairs(first, second, reps: int = 3) -> tuple:
+    """Median ms of two calls timed in turns (first, second; then second,
+    first; ...) within this run."""
+    a, b = [], []
+    for rep in range(reps):
+        order = ((first, a), (second, b)) if rep % 2 == 0 else ((second, b), (first, a))
+        for call, times in order:
+            times.append(event_ms(call))
+    return statistics.median(a), statistics.median(b)
+
+
+def write_tiff(path: str, arr: np.ndarray) -> None:
+    """A baseline little-endian TIFF of ``arr`` (H, W) or (H, W, 3), uint8
+    or uint16: one uncompressed chunky strip (the host has no Pillow)."""
+    import struct
+
+    h, w = arr.shape[:2]
+    c = 1 if arr.ndim == 2 else arr.shape[2]
+    pixels = arr.astype(f"<u{arr.dtype.itemsize}").tobytes()
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 8 * arr.dtype.itemsize), (259, 3, 1), (262, 3, 1 if c == 1 else 2),
+               (273, 4, 8), (277, 3, c), (278, 4, h), (279, 4, len(pixels)), (284, 3, 1)]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHI", tag, kind, 1) + (struct.pack("<HH", v, 0) if kind == 3 else struct.pack("<I", v))
+        for tag, kind, v in entries) + struct.pack("<I", 0)
+    with open(path, "wb") as f:
+        f.write(b"II" + struct.pack("<HI", 42, 8 + len(pixels)) + pixels + ifd)
+
+
+def multi_device_paths(dev, card, raw_city: torch.Tensor) -> dict:
+    """The multi-device layer (parallel/) and the readers on one card,
+    every mesh MESH_POSITIONS positions on ``dev`` (2 for the train step):
+    what the layer costs where it has no device to gain. Each path is
+    driven with the launch counts at 0 just before and read just after.
+    Returns each path's launches."""
+    from functools import partial
+
+    from multi_frame_super_resolution_tpu_torch.apps import dnn_sr as dnn_app
+    from multi_frame_super_resolution_tpu_torch.apps import polar_defog as defog_app
+    from multi_frame_super_resolution_tpu_torch.config import RAW_BENCH, RGB_DEFAULT_NOPRE, PolarDefogConfig
+    from multi_frame_super_resolution_tpu_torch.data import imread_u16, mosaic_rggb, native, synthetic_rgb_burst
+    from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+    from multi_frame_super_resolution_tpu_torch.models import defog as mdefog
+    from multi_frame_super_resolution_tpu_torch.models import dnn_sr, handheld
+    from multi_frame_super_resolution_tpu_torch.ops.filters import gaussian_blur
+    from multi_frame_super_resolution_tpu_torch.parallel import (
+        handheld_superres_raw_sharded,
+        handheld_superres_sharded,
+        make_mesh,
+        pipeline_halo,
+        spatial_map,
+    )
+    from multi_frame_super_resolution_tpu_torch.parallel.runner import make_batched_pipeline
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(("data",), (MESH_POSITIONS,), [dev] * MESH_POSITIONS)
+    rows = make_mesh(("spatial",), (MESH_POSITIONS,), [dev] * MESH_POSITIONS)
+    launches = {}
+
+    def counted(call):
+        LAUNCHES.clear()
+        out = call()
+        torch.cuda.synchronize()
+        return out, dict(LAUNCHES)
+
+    # batched bursts at RAW_BENCH: B distinct city-geometry bursts, both modes
+    single = partial(handheld.handheld_superres_raw, cfg=RAW_BENCH)
+    _, one_launches = counted(lambda: single(raw_city))
+    one_ms, one_ops = device_busy(lambda: single(raw_city))
+    for b in (4, 8):
+        bursts = torch.stack([raw_city * (1.0 - 1e-5 * i) for i in range(b)])
+        singles = [single(x) for x in bursts]
+        for mode, m in (("scan", None), ("vmap", mesh)):
+            batched = make_batched_pipeline(single, m, mode=mode)
+            out, got = counted(lambda: batched(bursts))
+            launches[f"batched {mode} B={b}"] = got
+            if got != {k: b * n for k, n in one_launches.items()}:
+                raise RuntimeError(f"batched {mode} B={b} launched {got}, {b} x {one_launches} expected")
+            differ = [i for i in range(b) if not torch.equal(out[i], singles[i])]
+            if out.device != dev or differ:
+                raise RuntimeError(f"batched {mode} B={b}: bursts {differ} differ from their single calls")
+            ms_single, ms_batch = in_call_pairs(lambda: [single(x) for x in bursts], lambda: batched(bursts))
+            dev_ms, ops = device_busy(lambda: batched(bursts))
+            where = "no mesh" if m is None else f"{MESH_POSITIONS} positions on {dev}"
+            print(f"batched {mode} B={b} (RAW_BENCH, {where}"
+                  f"): every burst equal to its single call bit for bit; launches {got}; {ms_batch / b:.3f} ms per "
+                  f"burst batched against {ms_single / b:.3f} ms in {b} single calls (in-call pairs, CUDA events, "
+                  f"medians of 3); {ops / b:.1f} device ops and {dev_ms / b:.3f} device ms per burst against {one_ops} "
+                  f"and {one_ms:.3f} single  [{card}]")
+        del bursts, singles, out
+
+    # row-sharded RAW and RGB on a 5 x 1024 x 1536 burst rotated within
+    # +-0.01 rad (RAW_SCALE4's protocol), 4 shards of 256 rows
+    angles = (0.0,) + tuple(np.random.default_rng(3).uniform(-0.01, 0.01, 4).tolist())
+    rgb_np, _ = synthetic_rgb_burst(np.random.default_rng(5), 5, SHARD_H, SHARD_W, 3.0, angles=angles)
+    rgb = torch.from_numpy(rgb_np).to(dev)
+    raw = torch.from_numpy(np.stack([mosaic_rggb(f) for f in rgb_np])).to(dev)
+    del rgb_np
+    for label, sharded, entry, burst, cfg, halo in (
+        ("raw (RAW_BENCH)", handheld_superres_raw_sharded, handheld.handheld_superres_raw, raw, RAW_BENCH,
+         2 * pipeline_halo(RAW_BENCH, prealign_px=8)),
+        ("rgb (RGB_DEFAULT_NOPRE)", handheld_superres_sharded, handheld.handheld_superres, rgb, RGB_DEFAULT_NOPRE,
+         pipeline_halo(RGB_DEFAULT_NOPRE)),
+    ):
+        out_sh, got = counted(lambda: sharded(burst, cfg, rows, halo=halo))
+        out_1, got_1 = counted(lambda: entry(burst, cfg))
+        launches[f"sharded {label}"] = got
+        if got != {k: MESH_POSITIONS * n for k, n in got_1.items()}:
+            raise RuntimeError(f"sharded {label} launched {got}, {MESH_POSITIONS} x {got_1} expected")
+        if out_sh.device != dev:
+            raise RuntimeError(f"sharded {label}: the output lies on {out_sh.device}")
+        check_output(f"sharded {label}", out_sh, (2 * SHARD_H, 2 * SHARD_W, 3))
+        m = 2 * halo
+        p = psnr(out_sh[m:-m], out_1[m:-m])
+        scaled = [burst * (1.0 - 1e-5 * i) for i in range(1, 7)]
+        ms_sh, ms_1 = in_call_pairs(lambda: sharded(scaled.pop(), cfg, rows, halo=halo),
+                                    lambda: entry(scaled.pop(), cfg))
+        (dev_sh, ops_sh), (dev_1, ops_1) = (device_busy(lambda: sharded(burst, cfg, rows, halo=halo)),
+                                            device_busy(lambda: entry(burst, cfg)))
+        print(f"sharded {label}: {tuple(burst.shape)} over {MESH_POSITIONS} shards of {SHARD_H // MESH_POSITIONS} "
+              f"rows, "
+              f"halo {halo} rows -> {tuple(out_sh.shape)}; launches {got} (unsharded {got_1}); interior ({m} output "
+              f"rows trimmed at each end) vs unsharded {p:.2f} dB (limit {INTERIOR_DB} dB), whole image "
+              f"{psnr(out_sh, out_1):.2f} dB; {ms_sh:.3f} ms per burst sharded, {ms_1:.3f} unsharded (in-call pairs, "
+              f"CUDA events, medians of 3); device ops {ops_sh} sharded, {ops_1} unsharded; device ms {dev_sh:.3f} "
+              f"sharded, {dev_1:.3f} unsharded  [{card}]")
+        if p <= INTERIOR_DB:
+            raise RuntimeError(f"sharded {label}: interior {p} dB against the unsharded run")
+        del out_sh, out_1, scaled
+    del rgb, raw
+
+    # the halo-exchange blur
+    img = torch.from_numpy(np.random.default_rng(6).random((SHARD_H, SHARD_W)).astype(np.float32)).to(dev)
+    blur = spatial_map(lambda x: gaussian_blur(x, 1.0, size=5), halo=2, mesh=rows)
+    err = (blur(img) - gaussian_blur(img, 1.0, size=5)).abs().max().item()
+    print(f"spatial_map gaussian_blur(sigma 1, size 5), halo 2, {MESH_POSITIONS} shards of {tuple(img.shape)}: "
+          f"max abs {err:.3e} against the unsharded blur (limit {BLUR_TOL})")
+    if err > BLUR_TOL:
+        raise RuntimeError(f"spatial_map blur differs from the unsharded blur by {err}")
+
+    # the data-parallel ESPCN train step (the app's batch 8, LR 32 x 32)
+    data = [tuple(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(dev) for x in pair)
+            for pair in dnn_app.train_data(2, batches=3)]
+    mesh2 = make_mesh(("data",), (2,), [dev] * 2)
+    models, steps = [], []
+    for m in (None, mesh2):
+        model = dnn_sr.create_sr_model("espcn", 2)
+        state, opt = dnn_sr.init_state(model, torch.Generator().manual_seed(0), data[0][0][:1])
+        models.append(model)
+        steps.append((state, dnn_sr.make_train_step(model, opt, mesh=m)))
+    worst = dict(loss=0.0, grad=0.0, param=0.0, param_rel=0.0, undecided=0.0)
+    for lr_b, hr_b in data:
+        (s1, one), (s2, dp) = steps
+        want, got = float(one(s1, lr_b, hr_b)[1]), float(dp(s2, lr_b, hr_b)[1])
+        worst["loss"] = max(worst["loss"], abs(got / want - 1.0))
+        with torch.no_grad():
+            for p, q in zip(models[1].parameters(), models[0].parameters()):
+                worst["grad"] = max(worst["grad"], ((p.grad - q.grad).abs().max() / q.grad.abs().max()).item())
+                diff, decided = (p - q).abs(), q.grad.abs() >= ADAM_DECIDED
+                if decided.any():
+                    worst["param"] = max(worst["param"], diff[decided].max().item())
+                    worst["param_rel"] = max(worst["param_rel"], (diff[decided].max() / q.abs().max()).item())
+                if not decided.all():
+                    worst["undecided"] = max(worst["undecided"], diff[~decided].max().item())
+    ms_one, ms_dp = (event_ms(lambda: [step(st, *data[i % 3]) for i in range(20)]) / 20 for st, step in steps)
+    lr = 1e-3  # init_state's Adam learning rate
+    print(f"train dnn_sr espcn data-parallel on 2 positions of {dev} (batch 8, LR 32 x 32), 3 steps against the "
+          f"one-device step: losses within {worst['loss']:.2e} relative (limit {TRAIN_RTOL}), gradients within "
+          f"{worst['grad']:.2e} of the largest (limit {GRAD_RTOL}); parameters within {worst['param']:.2e} "
+          f"({worst['param_rel']:.2e} of the tensor's largest) where the one-device gradient is at least "
+          f"{ADAM_DECIDED} (limit {PARAM_ATOL}), {worst['undecided']:.2e} elsewhere (limit 2 lr = {2 * lr}); "
+          f"{ms_dp:.4f} ms per step against {ms_one:.4f} one-device (CUDA events, 20 steps)  [{card}]")
+    if (worst["loss"] > TRAIN_RTOL or worst["grad"] > GRAD_RTOL or worst["param"] > PARAM_ATOL
+            or worst["undecided"] > 2 * lr):
+        raise RuntimeError(f"the data-parallel train step differs from the one-device step: {worst}")
+
+    # the readers: which one served, baseline TIFFs read back, the defog
+    # app's inputType 1 on a 16-bit pair
+    if native.available():
+        print(f"readers: the native library built ({native.LIBRARY}) and serves imread, imread_u16 and load_burst")
+    else:
+        lines = native.build_error().splitlines()
+        why = next((line.strip() for line in lines if "error:" in line), lines[0])
+        print(f"readers: numpy (the native library is not built: {why})")
+    rng = np.random.default_rng(7)
+    gray16 = (rng.random((96, 136)) * 65535).astype(np.uint16)
+    rgb8 = (rng.random((96, 136, 3)) * 255).astype(np.uint8)
+    scale16, scale8 = np.float32(1.0 / 65535.0), np.float32(1.0 / 255.0)
+    v = gray16.astype(np.float32) * scale16
+    want_gray = np.float32(0.299) * v + np.float32(0.587) * v + np.float32(0.114) * v  # the native luma
+    with tempfile.TemporaryDirectory() as tmp:
+        write_tiff(os.path.join(tmp, "gray16.tiff"), gray16)
+        write_tiff(os.path.join(tmp, "rgb8.tiff"), rgb8)
+        routes = [("native", contextlib.nullcontext())] if native.available() else []
+        routes.append(("numpy", mock.patch.object(native, "_library", lambda: (None, "switched off"))))
+        for route, ctx in routes:
+            with ctx:
+                g, c = imread_u16(os.path.join(tmp, "gray16.tiff")), imread_u16(os.path.join(tmp, "rgb8.tiff"))
+            if not (np.array_equal(g, want_gray) and np.array_equal(c, rgb8.astype(np.float32) * scale8)):
+                raise RuntimeError(f"the {route} reader did not read the TIFFs back exactly")
+            print(f"readers ({route}): 16-bit gray {gray16.shape} and 8-bit RGB {rgb8.shape} baseline TIFFs read "
+                  f"back exactly (gray as the luma of the sample, max {np.abs(g - v).max():.2e} from it)")
+        s = 0.25 + 0.5 * rng.random((DEFOG_H // 2, DEFOG_W // 2))
+        write_tiff(os.path.join(tmp, "ImageWorst_tiff16.tiff"), ((s * 0.9 + 0.05) * 65535).astype(np.uint16))
+        write_tiff(os.path.join(tmp, "ImageBest_tiff16.tiff"), (s * 0.6 * 65535).astype(np.uint16))
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            LAUNCHES.clear()
+            if defog_app.main(["1", "1", "1.55"]) != 0:
+                raise RuntimeError("the defog app failed on inputType 1")
+            torch.cuda.synchronize()
+            launches["polar_defog inputType 1"] = dict(LAUNCHES)
+            r = np.load("polar_defog_debug.npz")["R"]
+            iper, ipar = defog_app._load_inputs(1, "cpu")
+        finally:
+            os.chdir(cwd)
+    plain = mdefog.polar_defog(iper, ipar, PolarDefogConfig(beta=1.55)).numpy()
+    p = psnr(torch.from_numpy(r), torch.from_numpy(plain))
+    print(f"app polar_defog 1 1 1.55 on a {s.shape} 16-bit TIFF pair: R {r.shape}, launches "
+          f"{launches['polar_defog inputType 1']}, against the plain version on the CPU {p:.2f} dB "
+          f"(limit {PSNR_MIN} dB)")
+    if launches["polar_defog inputType 1"].get("defog") != 1 or p < PSNR_MIN:
+        raise RuntimeError("the defog app's TIFF input did not run through the defog kernel as expected")
+    print(f"multi-device paths and readers: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def estimate_agreement(label, gray, cfg, estimate) -> None:

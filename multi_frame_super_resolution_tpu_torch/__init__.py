@@ -31,7 +31,13 @@ optical flows (``registration.optical_flow``), the PNG burst loader
 the handheld knobs that still raise); single-image DNN SR
 (``models.dnn_sr``: the four architectures, flax-layout checkpoints,
 inference and the train step) with its app, the ``handheld_sr`` and
-``getimg`` apps, and ``utils`` (metrics, timing, profiling, debug).
+``getimg`` apps, and ``utils`` (metrics, timing, profiling, debug); the
+multi-device layer ``parallel`` (a mesh of ``torch.device``s in one
+process: batched bursts, row-sharded handheld SR with halo exchange, and
+the data-parallel DNN SR train step, ``models.dnn_sr.make_train_step(...,
+mesh=)``); and the readers ``data.imread_gray`` and ``data.imread_u16``
+(with a numpy baseline TIFF reader), the native C++ loader's binding
+``data.native`` and the defog app's TIFF inputTypes 1 and 2.
 """
 
 __version__ = "0.1.0"

@@ -4,9 +4,11 @@
 
   * debug: 0 | 1 (1 => a single frame, intermediates dumped to
     polar_defog_debug.npz)
-  * inputType: 3 => the synthetic fog demo (300 x 400). 1 and 2 (16-bit
-    TIFF pairs and the 0/45/90-degree Stokes synthesis) need a TIFF
-    reader, which the port does not have yet: they raise ValueError.
+  * inputType: 1 => the 16-bit TIFF pair ImageWorst_tiff16.tiff /
+    ImageBest_tiff16.tiff (gray files repeated into three channels);
+    2 => degree0/45/90.tiff through the Stokes synthesis; 3 => the
+    synthetic fog demo (300 x 400; not in the reference). The TIFFs are
+    read from the working directory by ``data.imread_u16``.
   * beta: polarization scale (1.55 for type 1, 10 for type 2)
 
 Runs on cuda:0 unless ``--device`` (``main(device=...)``) names another
@@ -25,18 +27,27 @@ import sys
 import time
 
 
-def _load_inputs(input_type: int):
-    from multi_frame_super_resolution_tpu_torch.data import synthetic_polar_pair
+def _load_inputs(input_type: int, device):
+    """(Iper, Ipar), each (H, W, 3) float32 on ``device``, of an inputType."""
+    import numpy as np
+    import torch
 
-    if input_type in (1, 2):
-        raise ValueError(
-            f"inputType {input_type} reads 16-bit TIFF files, and the PyTorch port "
-            "has no TIFF reader yet; use inputType 3 (the synthetic demo)"
-        )
+    from multi_frame_super_resolution_tpu_torch.data import imread_u16, synthetic_polar_pair
+
+    def read(path):
+        return torch.from_numpy(imread_u16(path)).to(device)
+
+    if input_type == 1:
+        iper, ipar = read("ImageWorst_tiff16.tiff"), read("ImageBest_tiff16.tiff")
+        if iper.ndim == 2:
+            iper, ipar = (x[..., None].expand(*x.shape, 3).contiguous() for x in (iper, ipar))
+        return iper, ipar
+    if input_type == 2:
+        from multi_frame_super_resolution_tpu_torch.models.defog import stokes_synthesis
+
+        return stokes_synthesis(read("degree0.tiff"), read("degree45.tiff"), read("degree90.tiff"))
     if input_type == 3:
-        import numpy as np
-
-        return synthetic_polar_pair(np.random.default_rng(0))
+        return tuple(torch.from_numpy(x).to(device) for x in synthetic_polar_pair(np.random.default_rng(0)))
     raise ValueError("inputType must be 1, 2 or 3")
 
 
@@ -88,20 +99,19 @@ def main(argv=None, device=None) -> int:
     debug = bool(int(argv[0]))
     input_type = int(argv[1])
     beta = float(argv[2])
+    if input_type not in (1, 2, 3):
+        raise ValueError("inputType must be 1, 2 or 3")
 
     import numpy as np
-    import torch
 
     from multi_frame_super_resolution_tpu_torch import resolve_device
     from multi_frame_super_resolution_tpu_torch.config import PolarDefogConfig
     from multi_frame_super_resolution_tpu_torch.data import imwrite
     from multi_frame_super_resolution_tpu_torch.models.defog import polar_defog
 
-    iper_np, ipar_np = _load_inputs(input_type)
     cfg = PolarDefogConfig(beta=beta)
     dev = resolve_device(device, "polar_defog", "--device cpu (main(device='cpu'))")
-    iper = torch.from_numpy(iper_np).to(dev)
-    ipar = torch.from_numpy(ipar_np).to(dev)
+    iper, ipar = _load_inputs(input_type, dev)
 
     def fn(scale: float):
         return polar_defog(iper * scale, ipar, cfg, return_intermediates=True)

@@ -10,8 +10,8 @@ runall.sh:1-15): the polarization-defog configurations, then BTV-L1 SR at
     launched back to back between CUDA events (on a card only);
   * BTV-L1: btvl1_superres of frame 0 at scale 2 on every burst that
     data.load_burst can read (the data root is MFSR_DATA_DIR, else the
-    reference checkout; the car burst's JPEGs cannot be read and are
-    reported as skipped), one call per frame of the burst after a warm-up
+    reference checkout; without the native reader the car burst's JPEGs
+    cannot be read and are reported as skipped), one call per frame of the burst after a warm-up
     call, each fenced by a scalar readback.
 
 ``--quick``: one defog configuration with 8 frames, and farneback on the
@@ -49,9 +49,7 @@ def main(argv=None, device=None) -> int:
     if quick:
         flows, datasets = flows[:1], datasets[:1]
 
-    iper_np, ipar_np = _load_inputs(3)
-    iper = torch.from_numpy(iper_np).to(dev)
-    ipar = torch.from_numpy(ipar_np).to(dev)
+    iper, ipar = _load_inputs(3, dev)
     frames = 8 if quick else 64
     for beta in [1.55] if quick else [1.55, 10.0]:
         cfg = PolarDefogConfig(beta=beta)

@@ -5,7 +5,7 @@ from multi_frame_super_resolution_tpu_torch.data.datasets import (  # noqa: F401
     load_burst,
     write_burst,
 )
-from multi_frame_super_resolution_tpu_torch.data.io import imread, imwrite  # noqa: F401
+from multi_frame_super_resolution_tpu_torch.data.io import imread, imread_gray, imread_u16, imwrite  # noqa: F401
 from multi_frame_super_resolution_tpu_torch.data.synthetic import (  # noqa: F401
     CITY_ANGLES,
     mosaic_rggb,

@@ -7,8 +7,8 @@ DATASETS, burst_paths and load_burst; multi_frame_sr.cpp:151-163):
 
 read from a data root: ``data_dir``, else the ``MFSR_DATA_DIR``
 environment variable at call time, else the reference checkout. The
-port decodes PNG only (data/io.py::imread), so the car burst's JPEGs
-raise ValueError.
+car burst's JPEGs load through the native reader (data/native.py); without
+it they raise ValueError.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from multi_frame_super_resolution_tpu_torch.data import native
 from multi_frame_super_resolution_tpu_torch.data.io import imread, imwrite
 
 # the JAX package's default data root (data/datasets.py::DEFAULT_DATA_DIR)
@@ -44,16 +45,21 @@ def burst_paths(name: str, data_dir: Optional[str] = None) -> List[str]:
 
 
 def load_burst(name: str, data_dir: Optional[str] = None) -> np.ndarray:
-    """A named burst as float32 (F, H, W, 3) in [0, 1]."""
-    return np.stack([imread(p) for p in burst_paths(name, data_dir)], axis=0)
+    """A named burst as float32 (F, H, W, 3) in [0, 1]: the native
+    reader's threaded load where it is built, else imread frame by frame."""
+    paths = burst_paths(name, data_dir)
+    out = native.read_burst_native(paths)
+    if out is not None:
+        return out
+    return np.stack([imread(p) for p in paths], axis=0)
 
 
 def write_burst(name: str, burst: np.ndarray, data_dir: str) -> List[str]:
     """Write ``burst`` (F, H, W[, 3]) in [0, 1] as 8-bit PNGs at the paths
     ``load_burst(name, data_dir)`` reads (directories made as needed), so
     that a synthetic burst stands in for a missing reference burst. The
-    car burst's paths are JPEG files, which the port cannot write or read:
-    it raises ValueError."""
+    car burst's paths are JPEG files, which the port cannot write (nor
+    read without the native reader): it raises ValueError."""
     paths = burst_paths(name, data_dir)
     if len(burst) != len(paths) or any(not p.endswith(".png") for p in paths):
         raise ValueError(f"the {name} burst is {len(paths)} files {DATASETS[name][0]!r}; write_burst writes "

@@ -19,6 +19,7 @@ them in XLA (no Pallas kernel), and TF32 would compute another function.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import math
 import re
@@ -45,6 +46,15 @@ def float32_convs():
 def _conv(c_in: int, c_out: int, k: int) -> nn.Conv2d:
     """flax's nn.Conv with padding "SAME" (its default too) at an odd size."""
     return nn.Conv2d(c_in, c_out, k, padding=k // 2)
+
+
+def _shard_channels(x: torch.Tensor) -> torch.Tensor:
+    """The identity: JAX's ``_shard_channels`` (dnn_sr.py:58-63) constrains
+    activations to ('data', -, -, 'model'), which places the channels on
+    the mesh's 'model' axis and changes no value. In the port the 'model'
+    axis's positions hold replicas (``make_train_step``); placing the
+    channels waits for a host with more than one card."""
+    return x
 
 
 def pixel_shuffle(h: torch.Tensor, scale: int, channels: int) -> torch.Tensor:
@@ -78,8 +88,8 @@ class ESPCN(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = torch.relu(self.convs[0](x))
-        h = torch.relu(self.convs[1](h))
+        h = _shard_channels(torch.relu(self.convs[0](x)))
+        h = _shard_channels(torch.relu(self.convs[1](h)))
         return pixel_shuffle(self.convs[2](h), self.scale, self.channels)
 
 
@@ -99,9 +109,10 @@ class FSRCNN(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x
-        for conv in self.convs[:-1]:
+        h = _shard_channels(torch.relu(self.convs[0](x)))
+        for conv in self.convs[1:-2]:
             h = torch.relu(conv(h))
+        h = _shard_channels(torch.relu(self.convs[-2](h)))
         return pixel_shuffle(self.convs[-1](h), self.scale, self.channels)
 
 
@@ -286,19 +297,64 @@ def loss_fn(model: nn.Module, lr_batch: torch.Tensor, hr_batch: torch.Tensor) ->
     return torch.mean((pred - hr_batch) ** 2)
 
 
-def make_train_step(model: nn.Module, opt: torch.optim.Optimizer):
+def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, mesh=None):
     """(state, lr, hr) -> (state, loss): one Adam step on the mean squared
     error of ``model(lr)`` (NCHW batches) against ``hr``, its convolutions
     in float32 with TF32 off. The gradients come from autograd. The state
-    returned is ``state``, whose tensors the step updated in place."""
+    returned is ``state``, whose tensors the step updated in place.
+
+    With a ``mesh`` (parallel/mesh.py), the data-parallel step that JAX's
+    jit over inputs sharded on 'data' computes: the batch splits over the
+    'data' positions (a batch that does not divide raises ValueError),
+    each position's replica takes its shard's squared-error sum over the
+    whole batch's element count, and the gradients summed onto ``model``
+    (the replica on its own device) are the full batch's mean's. Adam
+    steps there and the parameters are copied to the replicas on the
+    mesh's other devices; positions that share a device, and the 'model'
+    axis's positions, share that device's replica."""
+    if mesh is None:
+        def train_step(state: TrainState, lr_batch: torch.Tensor, hr_batch: torch.Tensor):
+            with float32_convs():
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(model, lr_batch, hr_batch)
+                loss.backward()
+                opt.step()
+            return state, loss.detach()
+
+        return train_step
+
+    from multi_frame_super_resolution_tpu_torch.parallel.mesh import Sharding
+
+    home = next(model.parameters()).device
+    sharding = Sharding(mesh, "data")
+    positions = sharding.devices()
+    replicas = {home: model}
+    for device in mesh.devices.flat:
+        if device not in replicas:
+            replicas[device] = copy.deepcopy(model).to(device)
+    others = [replica for replica in replicas.values() if replica is not model]
 
     def train_step(state: TrainState, lr_batch: torch.Tensor, hr_batch: torch.Tensor):
         with float32_convs():
-            opt.zero_grad(set_to_none=True)
-            loss = loss_fn(model, lr_batch, hr_batch)
-            loss.backward()
+            for replica in replicas.values():
+                replica.zero_grad(set_to_none=True)
+            count = hr_batch.numel()
+            losses = []
+            for lr_shard, hr_shard, device in zip(sharding.shard(lr_batch), sharding.shard(hr_batch), positions):
+                loss = torch.sum((replicas[device](lr_shard) - hr_shard) ** 2) / count
+                loss.backward()
+                losses.append(loss.detach().to(home))
+            with torch.no_grad():
+                for replica in others:
+                    for p, q in zip(model.parameters(), replica.parameters()):
+                        if q.grad is not None:
+                            p.grad = q.grad.to(home) if p.grad is None else p.grad + q.grad.to(home)
             opt.step()
-        return state, loss.detach()
+            with torch.no_grad():
+                for replica in others:
+                    for p, q in zip(model.parameters(), replica.parameters()):
+                        q.copy_(p)
+        return state, torch.stack(losses).sum()
 
     return train_step
 

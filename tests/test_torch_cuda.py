@@ -4,8 +4,9 @@ scales 1-4, guided or not, defog) against its plain PyTorch version, and
 the RGB, RAW (fast and oracle, with every handheld knob the port runs),
 defog and BTV-L1 paths and single-image DNN SR (the bundled checkpoints'
 inference, a train step) on the card against the port on the CPU, and
-the port's limits on the card, each raising by name. They skip without a
-CUDA device.
+the port's limits on the card, each raising by name; the multi-device
+layer on the card (batched bursts, the row-sharded RAW path) and the
+native reader's build status. They skip without a CUDA device.
 
 This file imports no JAX, so the GPU host (which has none) runs it
 without the suite's conftest:
@@ -14,6 +15,7 @@ without the suite's conftest:
 """
 
 import dataclasses
+import functools
 import pathlib
 
 import numpy as np
@@ -82,6 +84,9 @@ from multi_frame_super_resolution_tpu_torch.models.handheld import (
     handheld_superres_raw_cascade,
 )
 from multi_frame_super_resolution_tpu_torch.ops import warp_fast
+from multi_frame_super_resolution_tpu_torch.parallel import handheld_superres_raw_sharded, pipeline_halo
+from multi_frame_super_resolution_tpu_torch.parallel import mesh as parallel_mesh
+from multi_frame_super_resolution_tpu_torch.parallel.runner import make_batched_pipeline
 from multi_frame_super_resolution_tpu_torch.registration import tiles
 from multi_frame_super_resolution_tpu_torch.registration.optical_flow import create_optical_flow
 
@@ -982,3 +987,64 @@ def test_dnn_train_step_on_card_matches_cpu(algo):
         assert diff.max() <= 2e-3, k
         decided = grads_cpu[k].abs() >= 1e-4
         assert not decided.any() or diff[decided].max() <= 1e-5, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["scan", "vmap"])
+def test_batched_bursts_on_card_equal_single_calls(mode):
+    """make_batched_pipeline at RAW_BENCH on 4 distinct bursts on the
+    card (vmap: over 4 mesh positions on cuda:0): each output equal to its
+    single call bit for bit (no kernel of csrc/ uses atomics), each burst
+    launching what a single call launches."""
+    dev = cuda_device()
+    bursts = torch.stack([tt(synthetic_raw_burst(np.random.default_rng(seed), 5, 128, 256, 2.5,
+                                                 angles=CITY_ANGLES)[0], dev) for seed in range(4)])
+    single = functools.partial(handheld_superres_raw, cfg=RAW_BENCH)
+    LAUNCHES.clear()
+    singles = [single(b) for b in bursts]
+    one = dict(LAUNCHES)
+    mesh = parallel_mesh.make_mesh(("data",), (4,), [dev] * 4) if mode == "vmap" else None
+    LAUNCHES.clear()
+    out = make_batched_pipeline(single, mesh, mode=mode)(bursts)
+    assert dict(LAUNCHES) == one and out.device == dev
+    for i in range(4):
+        assert torch.equal(out[i], singles[i]), i
+
+
+@pytest.mark.cuda
+def test_sharded_raw_on_card_matches_cpu_sharded():
+    """handheld_superres_raw_sharded at RAW_BENCH (pre-alignment on, halo
+    2 * pipeline_halo(prealign_px=8) = 128 rows) over 4 shards of 128 rows
+    on cuda:0, against the same run over 4 positions on the CPU: the
+    interior (2 * halo output rows trimmed) at 60 dB, each shard launching
+    the single run's kernels."""
+    dev = cuda_device()
+    angles = (0.0,) + tuple(np.random.default_rng(3).uniform(-0.01, 0.01, 4).tolist())
+    raw = synthetic_raw_burst(np.random.default_rng(5), 5, 512, 256, 2.5, angles=angles)[0]
+    halo = 2 * pipeline_halo(RAW_BENCH, prealign_px=8)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        mesh = parallel_mesh.make_mesh(("spatial",), (4,), [device] * 4)
+        LAUNCHES.clear()
+        outs.append(nn(handheld_superres_raw_sharded(tt(raw, device), RAW_BENCH, mesh, halo=halo)))
+        if device == dev:
+            assert dict(LAUNCHES) == {"tile_search": 8, "tile_warp": 4, "merge_raw": 4}
+    m = 2 * halo
+    assert outs[0].shape == (1024, 512, 3)
+    assert psnr(outs[0][m:-m], outs[1][m:-m]) >= 60.0
+
+
+@pytest.mark.cuda
+def test_native_reader_build_status(tmp_path):
+    """The native reader on the GPU host: built (and then reading a PNG as
+    the numpy reader does), or not, with the reason; printed either way."""
+    cuda_device()
+    from multi_frame_super_resolution_tpu_torch.data import imread, imwrite, native
+
+    print(f"native reader: available {native.available()}; {native.build_error() or native.LIBRARY}")
+    if not native.available():
+        assert native.build_error()
+        return
+    img = np.random.default_rng(0).integers(0, 256, (24, 40, 3)).astype(np.uint8)
+    imwrite(tmp_path / "x.png", img)
+    np.testing.assert_array_equal(imread(tmp_path / "x.png"), img.astype(np.float32) * np.float32(1.0 / 255.0))

@@ -226,10 +226,19 @@ def test_app_debug_run_matches_jax(tmp_path, monkeypatch, capsys):
     assert "R minmax:" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["1", "1", "1.55"], ["1", "2", "10"], ["1", "4", "1"]])
-def test_app_without_tiff_reader_raises(argv):
-    with pytest.raises(ValueError, match="inputType"):
-        app.main(argv)
+@pytest.mark.parametrize("argv,error,match", [
+    (["1", "1", "1.55"], FileNotFoundError, "ImageWorst_tiff16.tiff"),
+    (["1", "2", "10"], FileNotFoundError, "degree0.tiff"),
+    (["1", "4", "1"], ValueError, "inputType"),
+])
+def test_app_without_tiff_reader_raises(argv, error, match, tmp_path, monkeypatch):
+    """inputTypes 1 and 2 read their TIFF files from the working
+    directory: without them they raise naming the first file; an unknown
+    inputType raises before any device is chosen (the TIFF inputs
+    themselves: tests/test_torch_readers.py)."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(error, match=match):
+        app.main(argv, device="cpu" if error is FileNotFoundError else None)
 
 
 def test_app_usage():

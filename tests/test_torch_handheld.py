@@ -132,7 +132,8 @@ def test_cpu_request_equals_the_former_cpu_result(device):
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter: every module of the port, chip_smoke.py and
+    """In a fresh interpreter: every module of the port (the parallel
+    layer and the native reader's binding among them), chip_smoke.py and
     the modules its main() imports load neither jax nor any module of
     the JAX package."""
     code = (
@@ -146,6 +147,8 @@ def test_port_never_imports_jax():
         "       or m.startswith('multi_frame_super_resolution_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'multi_frame_super_resolution_tpu_torch.apps.polar_defog' in sys.modules\n"
+        "assert {'multi_frame_super_resolution_tpu_torch.parallel.' + m for m in ('mesh', 'runner', 'spatial')} <= set(sys.modules)\n"
+        "assert 'multi_frame_super_resolution_tpu_torch.data.native' in sys.modules\n"
     )
     root = pathlib.Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)

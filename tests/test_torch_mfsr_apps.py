@@ -18,6 +18,7 @@ from multi_frame_super_resolution_tpu_torch import data
 from multi_frame_super_resolution_tpu_torch.apps import multi_frame_sr as app
 from multi_frame_super_resolution_tpu_torch.apps import runall
 from multi_frame_super_resolution_tpu_torch.data import io as png_io
+from multi_frame_super_resolution_tpu_torch.data import native
 
 _RAMP = np.linspace(0.0, 1.0, 37)[None, :] * np.linspace(0.2, 1.0, 29)[:, None]
 # Pillow mode -> an array it writes as PNG: 8-bit gray, 16-bit gray,
@@ -70,7 +71,11 @@ def test_imwrite_imread_round_trip_is_exact(tmp_path, shape):
     np.testing.assert_array_equal(data.imread(tmp_path / "y.png"), _expected(arr))
 
 
-def test_imread_raises_on_jpeg_and_interlaced_png(tmp_path):
+def test_imread_raises_on_jpeg_and_interlaced_png(tmp_path, monkeypatch):
+    """Without the native reader (switched off here; where it is built it
+    decodes JPEG and palette PNGs: tests/test_torch_readers.py) the numpy
+    PNG reader refuses what it does not decode, by name."""
+    monkeypatch.setattr(native, "_library", lambda: (None, "switched off by the test"))
     Image.fromarray(PNG_KINDS["RGB"]).save(tmp_path / "x.jpg")
     with pytest.raises(ValueError, match="JPEG"):
         data.imread(tmp_path / "x.jpg")
@@ -88,7 +93,8 @@ def test_imread_raises_on_jpeg_and_interlaced_png(tmp_path):
 def test_load_burst_reads_mfsr_data_dir(tmp_path, monkeypatch):
     """PNG bursts written at the reference paths under MFSR_DATA_DIR (read
     at call time) load as the JAX load_burst loads them; the car burst's
-    JPEGs raise ValueError."""
+    JPEGs load through the native reader where it is built (as in the JAX
+    package) and raise ValueError without it."""
     monkeypatch.setenv("MFSR_DATA_DIR", str(tmp_path))
     city = data.synthetic_rgb_burst(np.random.default_rng(0), 5, 24, 40, 2.0)[0]
     iso = data.synthetic_rgb_burst(np.random.default_rng(1), 4, 30, 44, 2.0)[0]
@@ -103,6 +109,9 @@ def test_load_burst_reads_mfsr_data_dir(tmp_path, monkeypatch):
     for path in map(pathlib.Path, data.burst_paths("car")):
         path.parent.mkdir(parents=True, exist_ok=True)
         Image.fromarray((iso[0] * 255).astype(np.uint8)).save(path)
+    if native.available():
+        np.testing.assert_array_equal(data.load_burst("car"), jax_load_burst("car", str(tmp_path)))
+    monkeypatch.setattr(native, "_library", lambda: (None, "switched off by the test"))
     with pytest.raises(ValueError, match="JPEG"):
         data.load_burst("car")
     with pytest.raises(ValueError, match="unknown dataset"):
