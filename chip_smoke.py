@@ -266,11 +266,12 @@ WORK = {
     # sums 16; per column 1 / S, per row 6 / S, per tap 4 / S^2
     "merge_raw order 0": (8 + 16 + 0.5 + 3 + 1, 2),
     "merge_raw order 0 S=4": (8 + 16 + 0.25 + 1.5 + 0.25, 2),
-    # 9 slots: two quadratics 8 + 2 exp; four parities' w c, w c v, dy^2,
-    # dy dx, dx^2 and nine sums as FMAs 4 x 23; per parity row (column)
-    # the blended residual and its displacement 8 / S (columns, rows)
-    "merge_raw 9 slots": (8 + 92 + 8 / 2 + 8 / 2, 2),
-    "merge_raw 9 slots S=4": (8 + 92 + 8 / 4 + 8 / 4, 2),
+    # 9 slots: two quadratics 8 + 2 exp; four parities' w c, dy w c and
+    # dx w c 3, then m00, m01, m02 as sums 3 and m11, m12, m22, b0, b1, b2
+    # as FMAs 12: 4 x 18; per parity row (column) the blended residual and
+    # its displacement 8 / S (columns, rows)
+    "merge_raw 9 slots": (8 + 72 + 8 / 2 + 8 / 2, 2),
+    "merge_raw 9 slots S=4": (8 + 72 + 8 / 4 + 8 / 4, 2),
     # the per-cell plugin's 4 slots, reckoned as the 9: two quadratics 8 +
     # 2 exp; four parities' w c, w c v and four sums (two as FMAs) 4 x 8;
     # per parity row (column) the blended residual and its displacement

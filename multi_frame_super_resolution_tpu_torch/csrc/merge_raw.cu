@@ -136,56 +136,94 @@
 //   m11 += dy^2 w c, m12 += dy dx w c, m22 += dx^2 w c,
 //   b0 += sum_f w c v, b1 += dy w c v, b2 += dx w c v
 //
-// summed frame by frame, a frame's taps in group order, and a green
-// cell's two tap groups added at the end (rounding alone differs from the
-// plain version, which sums each tap's frames first and adds the taps in
-// list order). Outputs are nine (2s, 2s, 3, hh, hw) arrays.
+// Outputs are nine (2s, 2s, 3, hh, hw) arrays.
 //
 // Bound, at chip_smoke.py's check (F=5, 128 x 256 half-res, 21 taps,
-// S=2): 56.6 MB written (9 outputs), 18.9 us, against 13.8 M (pixel,
-// frame, tap, phase) items at ~108 flops (22 us at 67 TFLOP/s): the
-// operations bind, just (chip_smoke.py's WORK table).
-//
-// Design (a simple kernel, right first): a thread per (half-res pixel,
-// output phase (a*s + py, b*s + px)). A block is 32 pixels x kRows rows
-// x the 2s phase columns of one phase row (blockIdx.z): 256 threads at
-// S = 1, 2 and 4, 192 at S = 3. Frames are the outer loop: a frame's
-// blended residuals and rho are formed once, then its taps run, each
-// adding nine terms to its tap group's accumulators (4 x 9 registers; a
-// group reads one plane, so one channel: R, B and the two green groups,
-// added at the end). Each tap's staged offset for the block's parity row
-// and either column parity sits in shared memory (s_off), read by every
-// thread of a warp at once. The Gaussian weight is evaluated per
-// thread (4x per (pixel, phase, tap, frame), once for each parity);
-// like the certless form it is 2^(dx (dx o0 + dy o2) + dy^2 o1) by
-// ex2.approx. Every frame's tile plus the taps' halo is staged at once
-// in shared memory (cp.async) as (value, certainty of the plane's
-// channel) float2s per plane site, and the clipped residual with a
-// one-site halo (the displacements read the neighbouring block's); the
-// frame cap follows from 227 KB (28-56 frames by scale at halo 1, 21-35
-// at halo 2). Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W):
-// 87-93 registers, no spills; times against their bounds in PERF.md.
+// S=2): 56.6 MB written and 6.7 MB read (18.9 us at 3.35 TB/s), against
+// 13.8 M (pixel, frame, tap, phase) items at 88 flops and 2 exp
+// (chip_smoke.py's WORK table: 18.1 us): the bytes bind, just.
 //
 // Form 3 (merge_raw_cells_kernel with kSlots = 4) replaces the order-1
 // branch with moment_slots=4 and centroid_cert=True (_merge_planes_order1's
 // per-cell compact-rho branch, fast_merge.py:767-795): m00, m01 = s (ky
 // sum_f w c - sum_f rho_y w c), m02 likewise in x, and b0, which are the
 // 9-moment form's slots 0, 1, 2 and 6 (sum_f dy w c = s (ky sum_f w c -
-// sum_f rho_y w c)). So it is that kernel with four accumulators a tap
-// group: the same staging, layout, residual halo and rounding, four
-// outputs. Its bound at chip_smoke.py's check (S=2): 25.2 MB written and
-// 6.7 MB read, 9.5 us at 3.35 TB/s, against 13.8 M items at 48 flops and
-// 2 exp (chip_smoke.py's WORK table, 9.9 us): the operations bind, just.
-// Like form 2 it evaluates each weight once per parity, 4x its need.
-// Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 67-72
-// registers, no spills; 0.112 ms at S=2, 8.8% of the bound, only a fifth
-// under form 2's 0.139: the repeated weight and the staging set the time.
+// sum_f rho_y w c)). Its bound at chip_smoke.py's check (S=2): 25.2 MB
+// written and 6.7 MB read, 9.5 us at 3.35 TB/s, against 13.8 M items at
+// 48 flops and 2 exp (WORK, 9.9 us): the operations bind, just.
+//
+// Design of merge_raw_cells_kernel (forms 2 and 3):
+// - Work split. A tap of group g feeds, for each parity z, the cell
+//   (z, channel of plane z ^ g). The two groups of a pair {0, 3} or
+//   {1, 2} read diagonally opposite planes, so for two parities both
+//   read green (one cell) and for the other two one reads R, the other B:
+//   each of the 12 cells (4 parities x 3 channels) of a (pixel, phase) is
+//   fed by one pair alone, six cells a pair. A thread holds one (pixel,
+//   output phase) and one pair (form 2: 54 accumulators, two threads a
+//   pixel and phase) or both (form 3: 48; at S = 3 one pair, below).
+//   Parities are relabelled z' = z ^ flip, flip = pair ^ !green_diag
+//   (flip swaps b), so that z' = 0 and 3 are a pair's green cells and the
+//   register indices are compile-time for either Bayer diagonal.
+// - Weights. Each Gaussian pair w_g, w_rb of a (pixel, frame, tap, phase)
+//   is evaluated once, by the thread that holds the tap's pair, and feeds
+//   all four parities: 2 exp an item (the first version: 4, a thread
+//   per parity evaluating its own), 2^(dx (dx o0 + dy o2) + dy^2 o1)
+//   by ex2.approx as in form 0. Per parity 18 flops for the 9 moments
+//   (dy w c and dx w c shared by the products), 8 for the 4.
+// - Tile. A block owns a kTW x kTH pixel tile (CellTile) and every
+//   (a, b, py, px) of it: 32 x 4, 16 x 2, 32 x 1 and 8 x 1 pixels at S =
+//   1-4 for form 2 (256 threads; 576 at S = 3), 32 x 4, 16 x 4 and 8 x 2
+//   for form 3 (128, 256, 256 threads; S = 3 runs form 2's layout: 9 warps
+//   of 128 registers would leave a block alone on an SM). A warp holds
+//   kTW pixels of a row at 32 / kTW phases of one pair, so its reads of a
+//   staged site are shared by its phases (one shared-memory wavefront
+//   where a warp of 32 pixels takes two) and its stores are rows of kTW
+//   consecutive pixels of an output plane.
+// - Frames stream through a ring of three shared-memory slots: frame f
+//   is read while f + 1 and f + 2 are in flight (cp.async, one commit
+//   group a frame, one barrier a frame), so any number of frames runs and
+//   the copies overlap the taps. A slot holds, edge-clamped like the plain
+//   version's padding, the tile plus the taps' halo of each plane as
+//   (value, certainty of the plane's channel) float2s, copied as two
+//   4-byte cp.async each (certainty is interleaved by 3: no wider copy
+//   lines up; a parity's read is one 8-byte load), and the residual with
+//   a one-site halo (8-byte copies; the displacements read the
+//   neighbouring block's). A thread stages the same sites every frame, so
+//   their clamped indices are computed once. Staged bytes against the
+//   input bytes (planes, residual, certainty, omegas) at chip_smoke.py's
+//   shape, halo 1: S=2, F=5 14.7 MB (form 2) and 11.1 MB (form 3) against
+//   6.7 MB, 2.2x and 1.7x; S=4, F=9 44.2 and 29.5 MB against 11.4 MB,
+//   3.9x and 2.6x (the first version staged each tile once per output
+//   phase row: 55.7 MB, 8.3x, and 301 MB, 26x).
+// - Taps. A block builds its tap table in shared memory: per relabelling,
+//   each tap's S ky, S kx and the staged site z' = 0 reads; within a
+//   group ky and kx keep their parities, so the other parities' sites
+//   sit at fixed offsets from it, four numbers a group. A tap costs one
+//   table load and four value loads.
+// - Rounding: frames are summed in order, a frame's taps group by group,
+//   a green cell's two groups into one sum (the plain version sums each
+//   tap's frames first); max abs error 6.7e-6 and 2.3e-5 (form 2, S=2
+//   and S=4, F=9), 2.4e-6 and 3.8e-6 (form 3) against ORDER1_TOL's 1e-4
+//   (chip_smoke.py).
+// - Balance: at the check's 21 taps form 2's pairs hold 9 and 12, so the
+//   {0, 3} warps wait at each frame's barrier; a thread holding both
+//   pairs would need 108 accumulators.
+// - Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): ptxas
+//   111, 115, 96 and 115 registers at S = 1-4 for form 2 (16 bytes
+//   spilled at S = 3, where 18 warps leave 96 a thread), 126, 126, 86 and
+//   126 for form 3, no other spills. Form 2 0.064-0.065 ms at S=2 (29% of
+//   18.9 us) and 0.407-0.410 ms at S=4, F=9 (30% of 124.2 us); form 3
+//   0.039 ms (25% of 9.9 us) and 0.250 ms (26% of 65.1 us); the first
+//   version in the same call 0.138-0.140, 0.850-0.856, 0.111-0.113 and
+//   0.663-0.674 ms. Device time follows the items (4.1-4.7 ps an item
+//   for form 2, 2.5-2.9 for form 3): the taps, not the staging, set it.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
 #include <cstdlib>
+#include <limits>
 
 namespace {
 
@@ -475,176 +513,301 @@ merge_raw_kernel(const float* __restrict__ planes,
   }
 }
 
-// The thread layout of merge_raw_cells_kernel: kRows pixel rows of 32, the 2s
-// phase columns of one output phase row (blockIdx.z).
-template <int S>
-struct CellShape {
-  static constexpr int kRows = S == 1 ? 4 : (S == 2 ? 2 : 1);
-  static constexpr int kThreads = kTileW * kRows * 2 * S;
+// The tile of merge_raw_cells_kernel: kTW x kTH half-res pixels at scale
+// S, a thread per (pixel, output phase) holding kPairs tap-group pairs
+// ({0, 3} and {1, 2}): the 9 slots one pair (two threads a pixel and
+// phase), the 4 slots both (at S = 3 one: 9 warps of 128 registers would
+// leave a block alone on an SM). A warp holds kTW pixels of a row at 32 /
+// kTW phases, which read the same sites.
+template <int S, int kPairs>
+struct CellTile;
+template <>
+struct CellTile<1, 1> {
+  static constexpr int kTW = 32, kTH = 4;
+};
+template <>
+struct CellTile<2, 1> {
+  static constexpr int kTW = 16, kTH = 2;
+};
+template <>
+struct CellTile<3, 1> {
+  static constexpr int kTW = 32, kTH = 1;
+};
+template <>
+struct CellTile<4, 1> {
+  static constexpr int kTW = 8, kTH = 1;
+};
+template <>
+struct CellTile<1, 2> {
+  static constexpr int kTW = 32, kTH = 4;
+};
+template <>
+struct CellTile<2, 2> {
+  static constexpr int kTW = 16, kTH = 4;
+};
+template <>
+struct CellTile<4, 2> {
+  static constexpr int kTW = 8, kTH = 2;
 };
 
-// merge_raw_cells_kernel's static shared memory: its tap offsets
-constexpr size_t kCellStaticBytes = 2 * kMaxTaps * sizeof(int);
+template <int S, int kSlots>
+struct CellShape {
+  static constexpr int kPairs = kSlots == 9 || S == 3 ? 1 : 2;
+  static constexpr int kTW = CellTile<S, kPairs>::kTW, kTH = CellTile<S, kPairs>::kTH;
+  static constexpr int kPix = kTW * kTH;
+  static constexpr int kPL = 32 / kTW;  // phases a warp holds
+  static constexpr int kThreads = (2 / kPairs) * S * S * kPix;
+  static constexpr int kMinBlocks = std::max(1, 65536 / (kThreads * 128));  // 128 registers
+  // one ring stage, sized for the largest halo (2): the four planes'
+  // (value, certainty) sites and the residual with a one-site halo
+  static constexpr int kPlaneSites = (kTH + 4) * (kTW + 4);
+  static constexpr int kResW = kTW + 2;
+  static constexpr int kResSites = (kTH + 2) * kResW;
+  static constexpr int kStage = 4 * kPlaneSites + kResSites;
+  // the sites a thread stages each frame
+  static constexpr int kSitesPT = (kPlaneSites + kThreads - 1) / kThreads;
+  static constexpr int kResPT = (kResSites + kThreads - 1) / kThreads;
+};
+constexpr int kRing = 3;  // frames in flight: the one read, the next two staged
 
-// staged floats: per frame, 4 planes of (kRows + 2 halo) x (32 + 2 halo)
-// float2 sites and (kRows + 2) x 34 float2 residuals
-template <int S>
-size_t cell_smem_bytes(int frames, int halo) {
-  const size_t sites = (size_t)(CellShape<S>::kRows + 2 * halo) * (kTileW + 2 * halo);
-  const size_t rsites = (size_t)(CellShape<S>::kRows + 2) * (kTileW + 2);
-  return (size_t)frames * (4 * sites + rsites) * sizeof(float2);
+// Adds a (pixel, frame, tap, phase) term of one cell: wc = w c, v the
+// value, dy and dx the cell's displacements; kSlots 9 in solve_order1's
+// order (m00, m01, m02, m11, m12, m22, b0, b1, b2), 4 (m00, m01, m02, b0).
+template <int kSlots>
+__device__ __forceinline__ void add_moments(float* m, float wc, float v, float dy, float dx) {
+  const float wcv = wc * v;
+  m[0] += wc;
+  if constexpr (kSlots == 4) {
+    m[1] = fmaf(dy, wc, m[1]);
+    m[2] = fmaf(dx, wc, m[2]);
+    m[3] += wcv;
+  } else {
+    const float ty = dy * wc, tx = dx * wc;
+    m[1] += ty;
+    m[2] += tx;
+    m[3] = fmaf(dy, ty, m[3]);
+    m[4] = fmaf(dx, ty, m[4]);
+    m[5] = fmaf(dx, tx, m[5]);
+    m[6] += wcv;
+    m[7] = fmaf(dy, wcv, m[7]);
+    m[8] = fmaf(dx, wcv, m[8]);
+  }
+}
+
+// A pair's six cells, (relabelled parity z', group k of the pair): z' = 0
+// and 3 read green in both groups (one cell each), z' = 1 and 2 read R or
+// B, a cell per group.
+__host__ __device__ constexpr int cell_of(int zp, int k) {
+  return zp == 0 ? 0 : (zp == 3 ? 1 : 2 + 2 * (zp - 1) + k);
+}
+
+// The staged offset (in sites) of what parity z reads for a tap (ky, kx)
+// of group g: plane z ^ g at ((a + ky) // 2, (b + kx) // 2).
+__device__ __forceinline__ int staged_offset(int z, int g, int ky, int kx, int sa, int sw) {
+  return (z ^ g) * sa + (((z >> 1) + ky) >> 1) * sw + (((z & 1) + kx) >> 1);
 }
 
 // kSlots: 9 (form 2, solve_order1's order) or 4 (form 3: m00, m01, m02, b0)
 template <int S, int kSlots>
-__global__ void __launch_bounds__(CellShape<S>::kThreads, 2)
+__global__ void __launch_bounds__(CellShape<S, kSlots>::kThreads, CellShape<S, kSlots>::kMinBlocks)
 merge_raw_cells_kernel(const float* __restrict__ planes,
-                   const float* __restrict__ residual,
-                   const float* __restrict__ certainty,
-                   const float* __restrict__ omega,
-                   const float* __restrict__ omega_rb,
-                   float* __restrict__ out,
-                   int frames, int hh, int hw, int halo, float rb, const TapTable taps) {
-  constexpr int kRows = CellShape<S>::kRows, kThreads = CellShape<S>::kThreads;
+                       const float* __restrict__ residual,
+                       const float* __restrict__ certainty,
+                       const float* __restrict__ omega,
+                       const float* __restrict__ omega_rb,
+                       float* __restrict__ out,
+                       int frames, int hh, int hw, int halo, float rb, int green_diag,
+                       const TapTable taps) {
+  using L = CellShape<S, kSlots>;
+  constexpr int kTW = L::kTW, kTH = L::kTH, kThreads = L::kThreads;
+  constexpr int kPairs = L::kPairs, kRW = L::kResW;
   static_assert(kSlots == 4 || kSlots == 9, "the plugin's 4 moments or the exact solve's 9");
-  const int sw = kTileW + 2 * halo;                  // staged row length
-  const int sa = (kRows + 2 * halo) * sw;            // staged sites per plane
-  constexpr int kRW = kTileW + 2;                    // staged residual row length
-  constexpr int kRA = (kRows + 2) * kRW;             // staged residuals per frame
-  extern __shared__ float2 smem[];
-  float2* sv = smem;                                 // (F, 4, sa): value, cert
-  float2* sres = smem + (size_t)frames * 4 * sa;     // (F, kRA): ry, rx clipped
+  static_assert(S * S % L::kPL == 0, "a warp holds phases of one pair");
+  __shared__ float2 ring[kRing][L::kStage];
+  // [flip][tap]: (S ky, S kx, the staged offset z' = 0 reads as int bits)
+  __shared__ float4 s_tap[2][kMaxTaps];
+  // [flip][group]: the offsets z' = 1, 2, 3 read, from z' = 0's (.x = 0)
+  __shared__ int4 s_dz[2][4];
 
-  const int tx = threadIdx.x, ty = threadIdx.y, col = threadIdx.z;
-  const int row = blockIdx.z;                        // output phase row a*s + py
-  const int a = row / S, py = row % S, b = col / S, px = col % S;
-  const int z = 2 * a + b;                           // the thread's parity
-  const int tid = (col * kRows + ty) * kTileW + tx;
-  const int i0 = blockIdx.y * kRows, j0 = blockIdx.x * kTileW;
+  const int sw = kTW + 2 * halo;                  // staged row length
+  const int sa = (kTH + 2 * halo) * sw;           // staged sites per plane
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // a warp: pixel row ty, kPL phases of one pair (with one pair a thread,
+  // groups {0, 3} or {1, 2})
+  constexpr int kPL = L::kPL, kPhaseWarps = S * S / kPL;
+  const int tx = lane % kTW, ty = warp % kTH;
+  const int ph = (warp / kTH) % kPhaseWarps * kPL + lane / kTW;
+  const int pair1 = kPairs == 2 ? 0 : warp / (kTH * kPhaseWarps);
+  const int py = ph / S, px = ph % S;
+  const int i0 = blockIdx.y * kTH, j0 = blockIdx.x * kTW;
   const long long plane = (long long)hh * hw;
+  const int n_taps = taps.group_end[3];
 
-  for (int e = tid; e < frames * 4 * sa; e += kThreads) {
-    const int site = e % sa;
-    const int fq = e / sa;
-    const int q = fq & 3;
-    const int f = fq >> 2;
-    const int r = min(max(i0 - halo + site / sw, 0), hh - 1);
-    const int c = min(max(j0 - halo + site % sw, 0), hw - 1);
-    const long long rc = (long long)r * hw + c;
-    cp_async4(&sv[e].x, planes + ((long long)f * 4 + q) * plane + rc);
-    cp_async4(&sv[e].y, certainty + ((long long)f * plane + rc) * 3 + taps.chan[q]);
+  // The relabelled parity z' = z ^ flip, flip = pair ^ !green_diag: the
+  // parities whose two groups of a pair read green are z' = 0 and 3
+  // (flip only swaps b). Within a group the four parities' sites keep
+  // fixed offsets from each other, so a tap carries z' = 0's alone.
+  for (int e = tid; e < 2 * n_taps; e += kThreads) {
+    const int t = e >> 1, fl = e & 1;
+    const int ky = taps.ky[t], kx = taps.kx[t];
+    const int o0 = staged_offset(fl, 2 * (ky & 1) + (kx & 1), ky, kx, sa, sw);
+    s_tap[fl][t] = make_float4((float)(S * ky), (float)(S * kx), __int_as_float(o0), 0.0f);
   }
-  for (int e = tid; e < frames * kRA; e += kThreads) {
-    const int site = e % kRA;
-    const int f = e / kRA;
-    const int r = min(max(i0 - 1 + site / kRW, 0), hh - 1);
-    const int c = min(max(j0 - 1 + site % kRW, 0), hw - 1);
-    cp_async8(&sres[e], residual + ((long long)f * plane + (long long)r * hw + c) * 2);
+  if (tid < 8) {
+    const int fl = tid >> 2, g = tid & 3;
+    const int o0 = staged_offset(fl, g, g >> 1, g & 1, sa, sw);  // a tap of the group
+    s_dz[fl][g] = make_int4(0, staged_offset(1 ^ fl, g, g >> 1, g & 1, sa, sw) - o0,
+                            staged_offset(2 ^ fl, g, g >> 1, g & 1, sa, sw) - o0,
+                            staged_offset(3 ^ fl, g, g >> 1, g & 1, sa, sw) - o0);
   }
+
+  // The sites this thread stages, the same every frame: their clamped
+  // global site index (edge-clamped like the plain version's padding), or
+  // -1. It copies each plane's (value, certainty of the plane's channel)
+  // there and the residual with a one-site halo into frame f's ring slot.
+  int g_site[L::kSitesPT], g_res[L::kResPT];
+#pragma unroll
+  for (int n = 0; n < L::kSitesPT; ++n) {
+    const int site = tid + n * kThreads, r = site / sw, c = site - r * sw;
+    g_site[n] = site < sa ? min(max(i0 - halo + r, 0), hh - 1) * hw + min(max(j0 - halo + c, 0), hw - 1) : -1;
+  }
+#pragma unroll
+  for (int n = 0; n < L::kResPT; ++n) {
+    const int e = tid + n * kThreads, r = e / kRW, c = e - r * kRW;
+    g_res[n] = e < L::kResSites ? min(max(i0 - 1 + r, 0), hh - 1) * hw + min(max(j0 - 1 + c, 0), hw - 1) : -1;
+  }
+  auto stage = [&](int f) {
+    float2* st = ring[f % kRing];
+    const float* pf = planes + (long long)f * 4 * plane;
+    const float* cf = certainty + (long long)f * 3 * plane;
+#pragma unroll
+    for (int n = 0; n < L::kSitesPT; ++n) {
+      if (g_site[n] < 0) continue;
+      float2* dst = st + tid + n * kThreads;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        cp_async4(&dst[q * sa].x, pf + q * plane + g_site[n]);
+        cp_async4(&dst[q * sa].y, cf + 3 * (long long)g_site[n] + taps.chan[q]);
+      }
+    }
+    const float2* rf = reinterpret_cast<const float2*>(residual) + (long long)f * plane;
+#pragma unroll
+    for (int n = 0; n < L::kResPT; ++n) {
+      if (g_res[n] >= 0) cp_async8(st + 4 * L::kPlaneSites + tid + n * kThreads, rf + g_res[n]);
+    }
+  };
+  stage(0);
   asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  for (int e = tid; e < frames * kRA; e += kThreads) {
-    sres[e] = make_float2(fminf(fmaxf(sres[e].x, -rb), rb), fminf(fmaxf(sres[e].y, -rb), rb));
-  }
-  // each tap's staged offset for either column parity b (the block's row
-  // parity a): plane, then the half-res site it reads
-  __shared__ int s_off[2][kMaxTaps];  // kCellStaticBytes
-  for (int e = tid; e < 2 * taps.group_end[3]; e += kThreads) {
-    const int bb = e & 1, t = e >> 1;
-    const int g = 2 * (taps.ky[t] & 1) + (taps.kx[t] & 1);
-    s_off[bb][t] = plane_of(2 * a + bb, g) * sa + ((a + taps.ky[t]) >> 1) * sw + ((bb + taps.kx[t]) >> 1);
-  }
-  __syncthreads();
+  if (frames > 1) stage(1);
+  asm volatile("cp.async.commit_group;\n" ::);
 
   const int i = i0 + ty, j = j0 + tx;
-  const bool inside = i < hh && j < hw;
   const long long pix = (long long)min(i, hh - 1) * hw + min(j, hw - 1);
   // phi[p] = (p + 0.5) / s - 0.5 in the f32 operations of
   // fast_merge._output_phase_offsets
   const float phi_y = ((float)py + 0.5f) / (float)S - 0.5f;
   const float phi_x = ((float)px + 0.5f) / (float)S - 0.5f;
   const float phis_y = phi_y * (float)S, phis_x = phi_x * (float)S;
-  // the parity-interpolated residual: the blend weight and side of the
-  // neighbouring block along each axis
-  const float gy = ((float)a + phi_y - 0.5f) / 2.0f, gx = ((float)b + phi_x - 0.5f) / 2.0f;
-  const float ga_y = fabsf(gy), ga_x = fabsf(gx);
-  const int sgn_y = gy > 0.0f ? 1 : -1, sgn_x = gx > 0.0f ? 1 : -1;
+  // the parity-interpolated residual's blend weight with the
+  // neighbouring block: parity 0 blends the block before (g < 0 at every
+  // phase), parity 1 the block after
+  const float ga_y0 = fabsf((phi_y - 0.5f) / 2.0f), ga_y1 = fabsf((1.0f + phi_y - 0.5f) / 2.0f);
+  const float ga_x0 = fabsf((phi_x - 0.5f) / 2.0f), ga_x1 = fabsf((1.0f + phi_x - 0.5f) / 2.0f);
   constexpr float kL = 1.4426950408889634f;  // log2(e)
   const float og0 = -0.5f * kL * omega[pix * 3 + 0], og1 = -0.5f * kL * omega[pix * 3 + 1],
               og2 = -kL * omega[pix * 3 + 2];
   const float or0 = -0.5f * kL * omega_rb[pix * 3 + 0],
               or1 = -0.5f * kL * omega_rb[pix * 3 + 1], or2 = -kL * omega_rb[pix * 3 + 2];
-  // this pixel's staged residual, and its neighbours along y and x
-  const float2* my_res = sres + (ty + 1) * kRW + (tx + 1);
-  const int nb_y = sgn_y * kRW, nb_x = sgn_x;
-  const float2* my_sv = sv + (ty + halo) * sw + (tx + halo);
-  float* dst = out + (((long long)row * 2 * S + col) * 3) * plane + (long long)i * hw + j;
-  const long long slot = (long long)4 * S * S * 3 * plane;
+  const int my_site = (ty + halo) * sw + (tx + halo);
+  const int my_res = 4 * L::kPlaneSites + (ty + 1) * kRW + (tx + 1);
 
-  // frames outer, taps inner: the frame's residual terms once, its taps'
-  // sums added to one accumulator per tap group (a group reads one plane,
-  // so one channel; the two green groups are added at the end)
-  float acc[4][kSlots];
+  float acc[6 * kPairs][kSlots];
 #pragma unroll
-  for (int g = 0; g < 4; ++g)
+  for (int c = 0; c < 6 * kPairs; ++c)
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k) acc[g][k] = 0.0f;
-  const int* my_off = s_off[b];
+    for (int k = 0; k < kSlots; ++k) acc[c][k] = 0.0f;
+
   for (int f = 0; f < frames; ++f) {
-    const float2* fr = my_res + f * kRA;
-    const float2 res = fr[0];
-    const float ry1 = fminf(fmaxf((1.0f - ga_y) * res.x + ga_y * fr[nb_y].x, -rb), rb);
-    const float rx1 = fminf(fmaxf((1.0f - ga_x) * res.y + ga_x * fr[nb_x].y, -rb), rb);
-    const float rho_y = ry1 + phi_y, rho_x = rx1 + phi_x;
-    const float2* fsv = my_sv + f * 4 * sa;
+    // frame f has landed (f + 1 may be in flight); every thread is done
+    // with frame f - 1, whose slot now takes frame f + 2
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    if (f + 2 < frames) stage(f + 2);
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    const float2* st = ring[f % kRing];
+    const float2 res = st[my_res];
+    const float ry = fminf(fmaxf(res.x, -rb), rb), rx = fminf(fmaxf(res.y, -rb), rb);
+    const float ry_a = fminf(fmaxf(st[my_res - kRW].x, -rb), rb);
+    const float ry_b = fminf(fmaxf(st[my_res + kRW].x, -rb), rb);
+    const float rx_a = fminf(fmaxf(st[my_res - 1].y, -rb), rb);
+    const float rx_b = fminf(fmaxf(st[my_res + 1].y, -rb), rb);
+    // S rho per parity (rho = the blended residual, clipped, + phi)
+    const float sy0 = (float)S * (fminf(fmaxf((1.0f - ga_y0) * ry + ga_y0 * ry_a, -rb), rb) + phi_y);
+    const float sy1 = (float)S * (fminf(fmaxf((1.0f - ga_y1) * ry + ga_y1 * ry_b, -rb), rb) + phi_y);
+    const float sx0 = (float)S * (fminf(fmaxf((1.0f - ga_x0) * rx + ga_x0 * rx_a, -rb), rb) + phi_x);
+    const float sx1 = (float)S * (fminf(fmaxf((1.0f - ga_x1) * rx + ga_x1 * rx_b, -rb), rb) + phi_x);
+    // the weights' block-centre displacement: dy_w = S ky - (S ry + S phi)
+    const float wy = fmaf(ry, (float)S, phis_y), wx = fmaf(rx, (float)S, phis_x);
+    const float2* sv = st + my_site;
+
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const bool is_g = taps.chan[plane_of(z, g)] == 1;
-      const float o0 = is_g ? og0 : or0, o1 = is_g ? og1 : or1, o2 = is_g ? og2 : or2;
-      for (int t = g ? taps.group_end[g - 1] : 0; t < taps.group_end[g]; ++t) {
-        const float ky = (float)taps.ky[t], kx = (float)taps.kx[t];
-        const float dyw = (ky - res.x) * (float)S - phis_y;
-        const float dxw = (kx - res.y) * (float)S - phis_x;
-        const float w = exp2_approx(fmaf(dxw, fmaf(dxw, o0, dyw * o2), dyw * dyw * o1));
-        const float2 vc = fsv[my_off[t]];  // (value, certainty)
-        const float wc = w * vc.y;
-        const float wcv = wc * vc.x;
-        const float dy = (float)S * (ky - rho_y);
-        const float dx = (float)S * (kx - rho_x);
-        acc[g][0] += wc;
-        acc[g][1] += dy * wc;
-        acc[g][2] += dx * wc;
-        if constexpr (kSlots == 4) {
-          acc[g][3] += wcv;
-        } else {
-          acc[g][3] += dy * dy * wc;
-          acc[g][4] += dy * dx * wc;
-          acc[g][5] += dx * dx * wc;
-          acc[g][6] += wcv;
-          acc[g][7] += dy * wcv;
-          acc[g][8] += dx * wcv;
+    for (int pp = 0; pp < kPairs; ++pp) {
+      const int pair = kPairs == 2 ? pp : pair1;
+      const int flip = pair ^ (green_diag ? 0 : 1);
+      const float sxp0 = flip ? sx1 : sx0, sxp1 = flip ? sx0 : sx1;  // x in the order b' = b ^ flip
+      const float4* tab = s_tap[flip];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int g = pair ? 1 + k : 3 * k;
+        const int4 d = s_dz[flip][g];
+        float* a0 = acc[6 * pp + cell_of(0, k)];
+        float* a1 = acc[6 * pp + cell_of(1, k)];
+        float* a2 = acc[6 * pp + cell_of(2, k)];
+        float* a3 = acc[6 * pp + cell_of(3, k)];
+        const int te = taps.group_end[g];
+#pragma unroll 1  // unrolled, the tap loop holds more registers and runs no faster
+        for (int t = g ? taps.group_end[g - 1] : 0; t < te; ++t) {
+          const float4 kk = tab[t];
+          const float dyw = kk.x - wy, dxw = kk.y - wx;
+          const float dyy = dyw * dyw;
+          // the Gaussian pair, once per (pixel, frame, tap, phase), feeds
+          // all four parities: 2^(dx (dx o0 + dy o2) + dy^2 o1)
+          const float wg = exp2_approx(fmaf(dxw, fmaf(dxw, og0, dyw * og2), dyy * og1));
+          const float wr = exp2_approx(fmaf(dxw, fmaf(dxw, or0, dyw * or2), dyy * or1));
+          const float dy0 = kk.x - sy0, dy1 = kk.x - sy1;
+          const float dx0 = kk.y - sxp0, dx1 = kk.y - sxp1;
+          const float2* p0 = sv + __float_as_int(kk.z);
+          const float2 v0 = p0[0], v1 = p0[d.y], v2 = p0[d.z], v3 = p0[d.w];  // (value, certainty)
+          add_moments<kSlots>(a0, wg * v0.y, v0.x, dy0, dx0);
+          add_moments<kSlots>(a1, wr * v1.y, v1.x, dy0, dx1);
+          add_moments<kSlots>(a2, wr * v2.y, v2.x, dy1, dx0);
+          add_moments<kSlots>(a3, wg * v3.y, v3.x, dy1, dx1);
         }
       }
     }
   }
-  if (!inside) return;
-  float green[kSlots];
+  if (i >= hh || j >= hw) return;
+
+  // stores: each warp writes rows of kTW consecutive pixels of a plane
+  const long long slot = (long long)4 * S * S * 3 * plane;
+  const long long out_pix = (long long)i * hw + j;
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) green[k] = 0.0f;
+  for (int pp = 0; pp < kPairs; ++pp) {
+    const int pair = kPairs == 2 ? pp : pair1;
+    const int flip = pair ^ (green_diag ? 0 : 1);
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    const int ch = taps.chan[plane_of(z, g)];
-    if (ch == 1) {
+    for (int c = 0; c < 6; ++c) {
+      // cell c's relabelled parity and group (cell_of inverted)
+      const int zp = c == 0 ? 0 : (c == 1 ? 3 : (c < 4 ? 1 : 2)), k = c < 2 ? 0 : c % 2;
+      const int z = zp ^ flip;
+      const int ch = c < 2 ? 1 : taps.chan[z ^ (pair ? 1 + k : 3 * k)];
+      const int row = (z >> 1) * S + py, col = (z & 1) * S + px;
+      float* dst = out + (((long long)row * 2 * S + col) * 3 + ch) * plane + out_pix;
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k) green[k] += acc[g][k];
-    } else {
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) dst[k * slot + ch * plane] = acc[g][k];
+      for (int k2 = 0; k2 < kSlots; ++k2) dst[k2 * slot] = acc[6 * pp + c][k2];
     }
   }
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) dst[k * slot + plane] = green[k];
 }
 
 template <int S, int kHalo>
@@ -655,30 +818,23 @@ size_t smem_bytes(int frames) {
 
 template <int S>
 int max_frames(int halo, int form) {
-  const size_t limit = 227 * 1024;
-  // forms 2 and 3 also hold their static tap offsets beside the frames
-  if (form == 2 || form == 3) return (int)((limit - kCellStaticBytes) / cell_smem_bytes<S>(1, halo <= 1 ? 1 : 2));
-  return (int)(limit / (halo <= 1 ? smem_bytes<S, 1>(1) : smem_bytes<S, 2>(1)));
+  // forms 2 and 3 stream frames through a ring: any number
+  if (form == 2 || form == 3) return std::numeric_limits<int>::max();
+  return (int)(227 * 1024 / (halo <= 1 ? smem_bytes<S, 1>(1) : smem_bytes<S, 2>(1)));
 }
 
 template <int S, int kSlots>
 int launch_cells(const void* planes, const void* residual, const void* certainty,
                  const void* omega, const void* omega_rb, void* out, int frames, int hh,
-                 int hw, int halo, float rb, const TapTable& taps, cudaStream_t stream) {
-  using L = CellShape<S>;
-  const size_t bytes = cell_smem_bytes<S>(frames, halo);
-  if (bytes + kCellStaticBytes > 48 * 1024) {  // the default limit counts both
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge_raw_cells_kernel<S, kSlots>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 block(kTileW, L::kRows, 2 * S);
-  const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kRows - 1) / L::kRows, 2 * S);
-  merge_raw_cells_kernel<S, kSlots><<<grid, block, bytes, stream>>>(
+                 int hw, int halo, bool green_diag, float rb, const TapTable& taps,
+                 cudaStream_t stream) {
+  using L = CellShape<S, kSlots>;
+  const dim3 grid((hw + L::kTW - 1) / L::kTW, (hh + L::kTH - 1) / L::kTH);
+  merge_raw_cells_kernel<S, kSlots><<<grid, L::kThreads, 0, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(out), frames, hh, hw, halo, rb,
-      taps);
+      green_diag ? 1 : 0, taps);
   return (int)cudaGetLastError();
 }
 
@@ -713,9 +869,9 @@ int launch_scale(int form, int halo, bool green_diag, const void* planes, const 
                  cudaStream_t stream) {
   if (form == 2 || form == 3) {
     return form == 2 ? launch_cells<S, 9>(planes, residual, certainty, omega, omega_rb, out, frames,
-                                          hh, hw, halo, rb, taps, stream)
+                                          hh, hw, halo, green_diag, rb, taps, stream)
                      : launch_cells<S, 4>(planes, residual, certainty, omega, omega_rb, out, frames,
-                                          hh, hw, halo, rb, taps, stream);
+                                          hh, hw, halo, green_diag, rb, taps, stream);
   }
   // form 0's four outputs (m00, cy, cx, b0) one after another; form 1's
   // two (num, den) are its b0 and m00
@@ -803,8 +959,9 @@ int mfsr_merge_raw(const void* planes, const void* residual,
 }
 
 // The most frames one launch of the form takes at the given scale (1..4)
-// with taps of the given halo (1 or 2): the staged tiles of all frames
-// must fit a block's shared memory. 0 for another scale.
+// with taps of the given halo (1 or 2): forms 0 and 1 stage every frame's
+// tile at once, which must fit a block's shared memory; forms 2 and 3
+// stream frames and take any number (INT_MAX). 0 for another scale.
 int mfsr_merge_raw_max_frames(int scale, int halo, int form) {
   switch (scale) {
     case 1: return max_frames<1>(halo, form);

@@ -38,7 +38,7 @@ from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
 NAME = "merge_raw"
 SOURCE = "merge_raw.cu"
 _MAX_TAPS = 81  # kMaxTaps in csrc/merge_raw.cu
-_SCALES = (1, 2, 3, 4)  # the kernel's instantiations (Layout<S> in csrc/merge_raw.cu)
+_SCALES = (1, 2, 3, 4)  # the kernels' instantiations (Layout<S>, CellTile in csrc/merge_raw.cu)
 
 
 @functools.cache
@@ -112,8 +112,9 @@ def merge_raw(
     difference planes (fast_merge.guided_planes) are formed here in one
     elementwise pass, on either device, and merged unguided. The kernel
     takes scales 1-4, Bayer patterns and up to mfsr_merge_raw_max_frames
-    frames; on CUDA tensors anything else raises ValueError, and the
-    outputs are views of one allocation."""
+    frames (order 0 and the certless form; the 9-moment and per-cell
+    forms take any number); on CUDA tensors anything else raises
+    ValueError, and the outputs are views of one allocation."""
     if planes.ndim != 5:
         raise ValueError(f"planes must be (F, 2, 2, hh, hw), got {tuple(planes.shape)}")
     f, hh, hw = planes.shape[0], planes.shape[3], planes.shape[4]

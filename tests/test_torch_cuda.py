@@ -517,9 +517,7 @@ def test_raw_merge_kernel_new_forms_match_plain(form, scale, radius, k_max, prun
 def test_raw_merge_kernel_new_forms_at_the_path_shape(form, frames, scale):
     """The forms at chip_smoke.py's shapes: 128 x 256 half-res, the
     path's 21 taps, F = 5 at scale 2 and F = 9 at scale 4 (R/B kernels
-    wider); and F = 9 at scale 2, where the cells kernel's staged frames
-    and static tap offsets together pass the 48 KB a launch takes without
-    opting in."""
+    wider); and F = 9 at scale 2."""
     dev = cuda_device()
     kw, _, tol = RAW_FORMS[form]
     ins = _raw_merge_inputs(np.random.default_rng(frames), frames, 128, 256, dev)
@@ -534,30 +532,62 @@ def test_raw_merge_kernel_new_forms_at_the_path_shape(form, frames, scale):
 @pytest.mark.parametrize("form", list(RAW_FORMS))
 @pytest.mark.parametrize("scale", [1, 2, 4])
 def test_raw_merge_kernel_new_forms_frame_cap(form, scale):
-    """Every frame's tile is staged at once: the order-0 form has the
-    certless form's caps (its kernel without the chains), the 9-moment
-    and per-cell forms, whose kernel stages a one-site residual halo too,
-    their own (a thread layout of 4, 2 and 1 pixel rows at scales 1, 2 and
-    4); at halo 1 and 2. The halo-1 cap matches the plain version, one
-    more frame raises."""
+    """The order-0 form stages every frame's tile at once: it has the
+    certless form's caps (its kernel without the chains), at halo 1 and
+    2; the halo-1 cap matches the plain version, one more frame raises.
+    The 9-moment and per-cell forms stream frames through a ring and take
+    any number: one frame past the caps they had while they staged every
+    frame at once (28, 42 and 56 frames at scales 1, 2 and 4, halo 1)
+    matches the plain version."""
     dev = cuda_device()
     kw, _, tol = RAW_FORMS[form]
     lib = raw_merge_kernel.library()
     code = fast_merge.raw_merge_form(kw["order"], kw.get("moment_slots", 4), kw.get("centroid_cert", False))
     caps = {halo: lib.mfsr_merge_raw_max_frames(scale, halo, code) for halo in (1, 2)}
-    cells = {1: {1: 28, 2: 42, 4: 56}, 2: {1: 21, 2: 28, 4: 35}}
-    want = {"order0": {1: {1: 30, 2: 30, 4: 66}, 2: {1: 22, 2: 22, 4: 38}}, "slots9": cells, "cert4": cells}[form]
-    assert caps == {halo: want[halo][scale] for halo in (1, 2)}
+    if form == "order0":
+        want = {1: {1: 30, 2: 30, 4: 66}, 2: {1: 22, 2: 22, 4: 38}}
+        assert caps == {halo: want[halo][scale] for halo in (1, 2)}
+        frames = caps[1]
+    else:
+        assert caps == {1: 2**31 - 1, 2: 2**31 - 1}
+        frames = {1: 28, 2: 42, 4: 56}[scale] + 1
     cfa = ((0, 1), (1, 2))
     args = (cfa, scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
-    ins = _raw_merge_inputs(np.random.default_rng(scale), caps[1], 5, 37, dev)
+    ins = _raw_merge_inputs(np.random.default_rng(scale), frames, 5, 37, dev)
     got = merge_raw(*ins, *args, **kw)
     want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
-    more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 5, 37, dev)
-    with pytest.raises(ValueError, match="frames exceed"):
-        merge_raw(*more, *args, **kw)
+    if form == "order0":
+        more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 5, 37, dev)
+        with pytest.raises(ValueError, match="frames exceed"):
+            merge_raw(*more, *args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,hh,hw", [(1, 64, 96), (3, 39, 83)], ids=["one-frame", "ragged-tile"])
+@pytest.mark.parametrize("halo", [1, 2])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", ["slots9", "cert4"])
+def test_raw_merge_cells_kernel_one_frame_and_ragged_tiles(form, scale, halo, frames, hh, hw):
+    """The cells kernel's frame ring with a single frame (nothing staged
+    ahead), and a height and width that are multiples of none of its
+    tiles (4, 4, 2 and 2 pixel rows, 32, 16, 16 and 8 columns at scales
+    1-4): the last tile row and column hang over the image. Both halos,
+    at the forms' tolerance."""
+    dev = cuda_device()
+    kw, _, tol = RAW_FORMS[form]
+    radius, k_max, prune = (1, 1.0, 1.5) if halo == 1 else (2, 4.0, 6.0)
+    args = (((2, 1), (1, 0)), scale, radius, 1.0, k_max * (scale / 2.0) ** 2, prune)
+    ins = _raw_merge_inputs(np.random.default_rng(frames + scale + halo), frames, hh, hw, dev)
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_raw"] == 1
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    for g, w_ in zip(got, want):
+        assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
+        torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -126,6 +126,26 @@ def test_raw_plane_merge_forms_match_jax(scale, order, slots):
         np.testing.assert_allclose(nn(g), nn(w_), **(ORDER1_TOL if order else TOL))
 
 
+@pytest.mark.parametrize(
+    "kw", [dict(moment_slots=9), dict(moment_slots=4, centroid_cert=True)], ids=["slots9", "cert4"])
+def test_raw_plane_merge_long_burst_matches_jax(kw):
+    """The 9-moment and per-cell forms on a 45-frame burst (16 x 32
+    half-res, scale 2): more frames than the card kernel took while it
+    staged every frame at once (42 at scale 2), which it now streams.
+    The plain version against the JAX function at ORDER1_TOL."""
+    rng = np.random.default_rng(45)
+    ins = _raw_inputs(rng, 45, 16, 32)
+    cfa = ((0, 1), (1, 2))
+    args = (cfa, 2, 1, 1.0, 1.0)
+    want = jfm.merge_burst_raw_planes(*map(jnp.asarray, ins), *args, phase_output=True, order=1,
+                                      prune_exp=1.5, **kw)
+    got = fast_merge.merge_burst_raw_planes(*map(tt, ins), *args, order=1, prune_exp=1.5, **kw)
+    assert len(got) == len(want) == kw["moment_slots"]
+    for g, w_ in zip(got, want):
+        assert g.shape == (4, 4, 3, 16, 32)
+        np.testing.assert_allclose(nn(g), nn(w_), **ORDER1_TOL)
+
+
 def _jax_raw(raw, cfg):
     return nn(jax.jit(jhandheld.handheld_superres_raw, static_argnums=1)(jnp.asarray(raw), to_jax(cfg)))
 

@@ -121,6 +121,46 @@ def test_tap_table(cfa):
                     assert fast_merge._centroid_chain(cfa, a, b, ch) == ("rb", g // 2, g % 2)
 
 
+@pytest.mark.parametrize("radius,k_max,prune", [(1, 1.0, 1.5), (2, 4.0, 6.0)], ids=["halo1", "halo2"])
+@pytest.mark.parametrize("cfa", [((0, 1), (1, 2)), ((2, 1), (1, 0)), ((1, 0), (2, 1)), ((1, 2), (0, 1))])
+def test_tap_table_cells_kernel_reading(cfa, radius, k_max, prune):
+    """merge_raw_cells_kernel's reading of the table, against a direct
+    count over taps and parities. Relabelled z' = z ^ flip with flip =
+    pair ^ !green_diag: in both groups of a pair z' = 0 and 3 read green,
+    z' = 1 and 2 read R and B, so each of the 12 cells (parity, channel)
+    is fed by exactly one (pair, z', group) of the kernel's six cells a
+    pair. Within a group, the site each parity reads sits at a fixed
+    offset from the site z' = 0 reads (the kernel keeps four numbers a
+    group), at any staged row length and plane stride."""
+    taps = fast_merge._active_taps(radius + 1, 1.0, 2, k_max, prune)
+    table = tap_table(tuple(taps), cfa)
+    chan, ends, rows = table[:4], table[4:8], table[8:].reshape(-1, 2)
+    green_diag = chan[0] == 1 and chan[3] == 1
+    halo = tap_halo(taps)
+    sw, sa = 8 + 2 * halo, (2 + 2 * halo) * (8 + 2 * halo)  # CellTile<4, 1>'s staging
+    fed = {}
+    for pair, groups in enumerate(((0, 3), (1, 2))):
+        flip = pair ^ (0 if green_diag else 1)
+        for k, g in enumerate(groups):
+            group_taps = [tuple(r) for r in rows[(ends[g - 1] if g else 0):ends[g]]]
+            assert all(2 * (ky % 2) + kx % 2 == g for ky, kx in group_taps)
+            offsets = set()
+            for ky, kx in group_taps:
+                site = []
+                for zp in range(4):
+                    z = zp ^ flip
+                    a, b = divmod(z, 2)
+                    ch = int(chan[_plane_of(z, g)])
+                    assert (ch == 1) == (zp in (0, 3))
+                    cell = zp if zp in (0, 3) else (zp, k)
+                    fed.setdefault((z, ch), set()).add((pair, cell))
+                    site.append(_plane_of(z, g) * sa + (a + ky) // 2 * sw + (b + kx) // 2)
+                offsets.add(tuple(o - site[0] for o in site))
+            assert len(offsets) <= 1
+    assert sorted(fed) == [(z, ch) for z in range(4) for ch in range(3)]
+    assert all(len(owners) == 1 for owners in fed.values())
+
+
 def test_tap_halo_and_bayer():
     assert tap_halo(fast_merge._active_taps(2, 1.0, 2, 1.0, 1.5)) == 1
     assert tap_halo(fast_merge._active_taps(3, 1.0, 2, 4.0, 6.0)) == 2
