@@ -11,15 +11,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 3. Kernel checks, each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, inputs from a seed:
    - merge (csrc/merge.cu): F=5, 256 x 512, radius 1, residual bound 1,
-     in its four forms: interleaved at scale 2, k_max 1, taps at e^-6
+     in its five forms: interleaved at scale 2, k_max 1, taps at e^-6
      (the use_pallas branch); the phase layout at e^-1.5 at scale 2,
      k_max 1 and at scale 4, k_max 4 (the default branch, RGB_DEFAULT and
      scale 4); rtol and atol 1e-5; the plugin solve's order-1 moments at
      scale 2 (rgb_order=1) and the exact solve's 9 moments at scales 2
-     and 4 (RGB_EXACT), rtol and atol 1e-4 (ORDER1_TOL);
+     and 4 (RGB_EXACT), rtol and atol 1e-4 (ORDER1_TOL); the bfloat16
+     order 0 in the phase layout (RGB_BF16) at scales 2 and 4, BF16_TOL;
    - tile warp (csrc/tile_warp.cu): 4 frames x 4 CFA planes of 128 x 256,
      T=16; separable map with shifts in +-20 (the +-16 clip acts), block
-     map with shifts in +-5; and RAW_SCALE4's warp at T=8 (8 frames x 5
+     map with shifts in +-5; the one-hot map (warp_matmul=False) with
+     shifts in +-20; and RAW_SCALE4's warp at T=8 (8 frames x 5
      planes of 128 x 256) as the same path hands it over; bit-exact;
    - tile search (csrc/tile_search.cu): 4 alternates of 128 x 256 and
      of 64 x 128 (the RAW main path's two pyramid levels), T=16, R=4,
@@ -41,7 +43,14 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      per-cell plugin form (RAW_CERT) at the same shapes, ORDER1_TOL; and
      at S=2 each of the four forms on guided difference planes (the guide
      green_guide_planes of the planes, RAW_GUIDED), each at its form's
-     tolerance;
+     tolerance; the merge knobs' variants at S=2 (F=5) and S=4 (F=9):
+     exact_weights at 4 and 9 slots (RAW_EXACT_WEIGHTS), the per-cell
+     centroid's block, shared-residual, pruned and bfloat16 forms
+     (RAW_CERT_BLOCK, _SHARED, _PRUNE, _BF16) and the bfloat16 order 0
+     (RAW_ORDER0_BF16), guided too, at ORDER1_TOL, and the bfloat16 ones
+     at BF16_TOL / CBF16_TOL (at most 0.1% of the values beyond float32
+     rounding); each bfloat16 form against its float32 form, which most
+     values must differ from (the form rounds);
    - defog (csrc/defog.cu): 1024 x 1224 x 3, P and A_inf from the seed;
      rtol 1e-5, atol 1e-6 (the kernel is expected to match bit for bit).
 4. Paths on the card, each driven with the launch counts set to 0 just
@@ -88,7 +97,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      and config.RGB_CONSISTENT (the consistency solve: a tile search per
      level for each first frame of a measured pair, F-1 of them),
      config.RAW_FFT (FFT surfaces: no tile search) and RAW_BENCH with
-     lk.warp_tile=16;
+     lk.warp_tile=16; the merge and warp knobs: RAW_EXACT_WEIGHTS,
+     RAW_CERT_BLOCK, RAW_CERT_SHARED, RAW_CERT_PRUNE, RAW_CERT_BF16,
+     RAW_ORDER0_BF16, RAW_ONEHOT_WARP, RGB_BF16, RGB_HALF_STATS and
+     RGB_ONEHOT_WARP (the true-HR rows take the RAW ones too);
    - btvl1_video (models/btvl1.py, plain PyTorch: BTV-L1 reaches no kernel
      of csrc/, as the JAX path reaches no Pallas kernel) at the app's
      configuration, BTVConfig(scale=2, iterations=10, temporal_radius=1),
@@ -148,8 +160,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
    from the profiler, and its bound: the larger of the bytes it must move (each
    input read once, each output written once) over 3.35 TB/s and its
    operations at the checked shape (WORK) over the card's peak for
-   their type (67 TFLOP/s f32, and exp at 16 a clock on each of 132
-   SMs at 1.98 GHz); the plain tile search's device time and device-op
+   their type (67 TFLOP/s f32 and 133.8 TFLOP/s bfloat16 outside the
+   tensor cores, which share the pipes and so add, and exp at 16 a clock
+   on each of 132 SMs at 1.98 GHz); the plain tile search's device time and device-op
    count beside the kernel's (the search's yardstick); merge_fast's
    device time at F=1 beside F=5 (the part that does not grow with the
    frames), and its interleaved form beside the phase layout plus the
@@ -179,9 +192,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
 
 The last lines are a JSON line of the kernels (each kernel's entry holds
 the variant its main path runs, and every timed variant under
-"variants"; the three forms of the correctness bar's paths and the
-per-cell form of RAW_CERT have entries of their own, their launches from
-their paths' runs), the card line, and
+"variants"; the three forms of the correctness bar's paths, the
+per-cell form of RAW_CERT and the knobs' forms have entries of their
+own, their launches from their paths' runs), the card line, and
 {"ok": true, "device": {...}}.
 """
 
@@ -207,6 +220,14 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)  # expf and FMA contraction vs torch ops
 # reach +-(r + rb) s in either sign: their rounding does not cancel
 ORDER1_TOL = dict(rtol=1e-4, atol=1e-4)
 EXACT = dict(rtol=0.0, atol=0.0)  # the copies move values, they compute nothing
+# the bfloat16 forms against their plain versions (tests/test_torch_cuda.py's
+# rules): a weight that ex2.approx and torch.exp round to neighbouring
+# bfloat16 values moves one term by a bfloat16 step, and the bfloat16 sums
+# after it may round the other way. At most "share" of the values may lie
+# beyond float32 rounding (1e-4), none beyond rtol/atol: a few bfloat16
+# steps of the sums (order 0), or of one product S rho (w c) (centroid)
+BF16_TOL = dict(rtol=2**-5, atol=2**-6, share=1e-3)
+CBF16_TOL = dict(rtol=1e-4, atol=2**-4, share=1e-3)
 SHIFT_TOL = dict(rtol=0.0, atol=1e-3)  # px: SSD sums in another order, through the subpixel fit
 DEFOG_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX spec's tolerance; expected exact
 DEFOG_H, DEFOG_W = 1024, 1224  # one polarization angle of a 2448 x 2048 DoFP sensor
@@ -229,10 +250,12 @@ KERNEL_SYMBOLS = {
 # each kernel's stage in the profile
 STAGE_OF = {"merge_fast": "mfsr.merge", "merge_raw": "mfsr.merge", "tile_warp": "mfsr.tile_warp",
             "tile_search": "mfsr.align", "defog": "mfsr.defog.pixels"}
-# published H100 SXM peaks: HBM3, f32 outside the tensor cores, and the
-# SFU's exp (16 a clock per SM, 132 SMs, 1.98 GHz boost)
-HBM_BYTES_S, F32_FLOPS_S, EXP_S = 3.35e12, 67e12, 16 * 132 * 1.98e9
-# operations per work item of each kernel's function: (f32 flops, exp).
+# published H100 SXM peaks: HBM3, f32 and bfloat16 outside the tensor
+# cores, and the SFU's exp (16 a clock per SM, 132 SMs, 1.98 GHz boost)
+HBM_BYTES_S, F32_FLOPS_S, BF16_FLOPS_S, EXP_S = 3.35e12, 67e12, 133.8e12, 16 * 132 * 1.98e9
+# operations per work item of each kernel's function: (f32 flops, exp),
+# and where the kernel computes in bfloat16, a third field: its bfloat16
+# flops (a lane's multiply or add one), which share the f32 pipes.
 # A term shared by several items is spread over them: a tap's terms over
 # its phases, a phase row's over the row's columns, a phase column's over
 # the column's rows.
@@ -277,6 +300,34 @@ WORK = {
     # per parity row (column) the blended residual and its displacement
     "merge_raw cert4": (8 + 32 + 8 / 2 + 8 / 2, 2),
     "merge_raw cert4 S=4": (8 + 32 + 8 / 4 + 8 / 4, 2),
+    # the knobs' variants of the per-cell form, reckoned as cert4: the exact
+    # weights evaluate four quadratics (16) and four exp an item, the
+    # residual blends at the weights' rows and columns as for the moments;
+    # block and shared centroid's moment origins are per-frame choices;
+    # the shared residual adds two FMAs a parity (8) and the fold per
+    # output; the bfloat16 centroid rounds w c and forms two more products
+    # per parity (4 x 4)
+    "merge_raw exact4": (16 + 32 + 8 / 2 + 8 / 2, 4),
+    "merge_raw exact4 S=4": (16 + 32 + 8 / 4 + 8 / 4, 4),
+    "merge_raw exact9": (16 + 72 + 8 / 2 + 8 / 2, 4),
+    "merge_raw exact9 S=4": (16 + 72 + 8 / 4 + 8 / 4, 4),
+    "merge_raw shared": (8 + 40 + 8 / 2 + 8 / 2, 2),
+    "merge_raw shared S=4": (8 + 40 + 8 / 4 + 8 / 4, 2),
+    "merge_raw cbf16": (8 + 48 + 8 / 2 + 8 / 2, 2),
+    # the pruned centroid: its 9 inner taps of the 21 at S=2 as cert4, the
+    # other 12 m00 and b0 alone (4 x 4); at S=4 (k_max 4) e^-1 keeps all 21
+    "merge_raw prune": (8 + (9 * 32 + 12 * 16) / 21 + 8 / 2 + 8 / 2, 2),
+    "merge_raw prune S=4": (8 + 32 + 8 / 4 + 8 / 4, 2),
+    "merge_raw cbf16 S=4": (8 + 48 + 8 / 4 + 8 / 4, 2),
+    # the bfloat16 order 0: w c twice (the value's path rounded), the
+    # weight's rounding and (w c) v, the two sums: 4 x 6 + 2 roundings
+    "merge_raw order 0 bf16": (8 + 26 + 0.5 + 3 + 1, 2),
+    "merge_raw order 0 bf16 S=4": (8 + 26 + 0.25 + 1.5 + 0.25, 2),
+    # the RGB bfloat16 order 0 at s = 2: the weight's rounding in f32, and
+    # per channel in bfloat16 w c (1), (v, 1) x (w c, w c) (2) and the
+    # pair's add (2): 15
+    "merge_fast bf16": (4 + 1 + 0.5 + 2 + 1.75, 1, 15),
+    "merge_fast bf16 s=4": (4 + 1 + 0.25 + 1 + 0.4375, 1, 15),
     # per element: A, t and R with their clips
     "defog": (11, 0),
     # per (frame, tile, offset, pixel): the cross term's multiply-add
@@ -357,9 +408,14 @@ def compare(label: str, got, want, tol: dict, keep=None) -> float:
         diff = (g.double() - w_.double()).abs()
         abs_err = diff.max().item()
         rel_err = (diff / w_.double().abs().clamp_min(1e-6)).max().item()
+        if "share" in tol:
+            beyond = (diff > 1e-4 + 1e-4 * w_.double().abs()).double().mean().item()
+            note += f"; {beyond:.2e} of the values beyond 1e-4 (at most {tol['share']})"
+            if beyond > tol["share"]:
+                raise RuntimeError(f"{label}[{i}]: {beyond:.2e} of the values beyond float32 rounding")
         print(f"kernel check {label}[{i}]: max abs {abs_err:.3e}, max rel {rel_err:.3e} "
               f"(tolerance rtol {tol['rtol']}, atol {tol['atol']}){note}")
-        torch.testing.assert_close(g, w_, **tol)
+        torch.testing.assert_close(g, w_, rtol=tol["rtol"], atol=tol["atol"])
         worst = max(worst, abs_err)
     return worst
 
@@ -396,17 +452,27 @@ def main() -> int:
         PORT_DEFAULT,
         RAW_BENCH,
         RAW_CERT,
+        RAW_CERT_BF16,
+        RAW_CERT_BLOCK,
+        RAW_CERT_PRUNE,
+        RAW_CERT_SHARED,
         RAW_CONSISTENT,
         RAW_EXACT,
+        RAW_EXACT_WEIGHTS,
         RAW_FFT,
         RAW_GUIDED,
+        RAW_ONEHOT_WARP,
         RAW_ORACLE,
         RAW_ORDER0,
+        RAW_ORDER0_BF16,
         RAW_PORT_DEFAULT,
         RAW_SCALE4,
+        RGB_BF16,
         RGB_CONSISTENT,
         RGB_DEFAULT,
         RGB_EXACT,
+        RGB_HALF_STATS,
+        RGB_ONEHOT_WARP,
         RGB_ORACLE,
         RGB_PALLAS,
         AlignConfig,
@@ -464,7 +530,9 @@ def main() -> int:
             print(f"  ptxas {name}: {row}")
 
     # plain versions with the wrappers' signatures
-    def plain_tile_warp(imgs, shifts, t, bound=16):
+    def plain_tile_warp(imgs, shifts, t, bound=16, onehot=False):
+        if onehot:
+            return warp_fast.tile_warp_select(imgs, shifts[:, None], t, bound)
         return warp_fast.tile_warp_matmul(imgs, shifts, t, bound)
 
     # 3. each kernel against its plain version at its path's shapes
@@ -508,12 +576,31 @@ def main() -> int:
          dict(phase, order=1, moment_slots=9), "merge_fast 9 slots", ORDER1_TOL),
         ("9 slots, e^-1.5, s=4", (4, 1, 1.0, 4.0),
          dict(phase, order=1, moment_slots=9), "merge_fast 9 slots s=4", ORDER1_TOL),
+        ("phase layout bf16, e^-1.5 (RGB_BF16)", (2, 1, 1.0, 1.0), dict(phase, bf16=True), "merge_fast bf16",
+         BF16_TOL),
+        ("phase layout bf16, e^-1.5, s=4", (4, 1, 1.0, 4.0), dict(phase, bf16=True), "merge_fast bf16 s=4",
+         BF16_TOL),
     ]
     # (label, inputs, args, keyword args, WORK key, tolerance)
     raw4_args = (cfa, 4, 1, 1.0, 4.0, prune)
     order0, slots9 = dict(order=0), dict(order=1, moment_slots=9)
     cert4 = dict(order=1, moment_slots=4, centroid_cert=True)
     guided = dict(guide=fast_merge.green_guide_planes(raw_ins[0], cfa).contiguous())
+    # the knobs' kernel variants: (label, configuration, keyword arguments,
+    # WORK key, tolerance), each at S=2 and (unguided) at S=4, F=9
+    exact_w = dict(order=1, moment_slots=4, exact_weights=True)
+    order0_bf16 = dict(order=0, bf16=True)
+    knob_forms = [
+        ("exact_weights", "RAW_EXACT_WEIGHTS", exact_w, "merge_raw exact4", ORDER1_TOL),
+        ("exact_weights 9 slots", None, dict(slots9, exact_weights=True), "merge_raw exact9", ORDER1_TOL),
+        ("cert block", "RAW_CERT_BLOCK", dict(cert4, centroid_block=True), "merge_raw cert4", ORDER1_TOL),
+        ("cert shared", "RAW_CERT_SHARED", dict(cert4, centroid_shared_res=True), "merge_raw shared", ORDER1_TOL),
+        ("cert prune", "RAW_CERT_PRUNE", dict(cert4, centroid_prune=1.0), "merge_raw prune", ORDER1_TOL),
+        ("cert bf16", "RAW_CERT_BF16", dict(cert4, centroid_bf16=True), "merge_raw cbf16", CBF16_TOL),
+        ("order 0 bf16", "RAW_ORDER0_BF16", order0_bf16, "merge_raw order 0 bf16", BF16_TOL),
+        ("guided exact_weights", None, dict(guided, **exact_w), "merge_raw exact4", ORDER1_TOL),
+        ("guided order 0 bf16", None, dict(guided, **order0_bf16), "merge_raw order 0 bf16", BF16_TOL),
+    ]
     raw_variants = [
         ("S=2 (RAW_BENCH)", raw_ins, raw_args, {}, "merge_raw", KERNEL_TOL),
         ("S=1", raw_ins, (cfa, 1, 1, 1.0, 0.25, prune), {}, "merge_raw S=1", KERNEL_TOL),
@@ -529,6 +616,10 @@ def main() -> int:
         ("guided order 0, S=2", raw_ins, raw_args, dict(guided, **order0), "merge_raw order 0", KERNEL_TOL),
         ("guided 9 slots, S=2", raw_ins, raw_args, dict(guided, **slots9), "merge_raw 9 slots", ORDER1_TOL),
         ("guided cert4, S=2", raw_ins, raw_args, dict(guided, **cert4), "merge_raw cert4", ORDER1_TOL),
+        *((f"{label}, S=2 ({cfg_name})" if cfg_name else f"{label}, S=2", raw_ins, raw_args, kw, key, tol)
+          for label, cfg_name, kw, key, tol in knob_forms),
+        *((f"{label}, S=4, F=9", raw9_ins, raw4_args, kw, f"{key} S=4", tol)
+          for label, _, kw, key, tol in knob_forms if "guided" not in label),
     ]
     iper_np, ipar_np = synthetic_polar_pair(rng, DEFOG_H, DEFOG_W)
     defog_ins = [torch.from_numpy(x).to(dev) for x in (
@@ -632,6 +723,8 @@ def main() -> int:
              lambda: (plain_tile_warp(planes4, sep_shifts, 16),), EXACT),
             ("tile_warp block", lambda: (ktile_warp.tile_warp_block(planes4, blk_shifts, 16),),
              lambda: (warp_fast.tile_warp_block(planes4, blk_shifts, 16),), EXACT),
+            ("tile_warp onehot (RAW_ONEHOT_WARP)", lambda: (ktile_warp.tile_warp(planes4, sep_shifts, 16, onehot=True),),
+             lambda: (plain_tile_warp(planes4, sep_shifts, 16, onehot=True),), EXACT),
             (f"tile_warp {'x'.join(map(str, w_imgs.shape))} T={w_t} (RAW_SCALE4, rotated)",
              lambda: (ktile_warp.tile_warp(w_imgs, w_shifts, w_t, **w_kw),),
              lambda: (plain_tile_warp(w_imgs, w_shifts, w_t, **w_kw),), EXACT),
@@ -652,6 +745,26 @@ def main() -> int:
             max_abs_err[label] = compare(label, got, plain_call(), tol, *keep)
             max_abs_err[name] = max(max_abs_err[name], max_abs_err[label])
             out_bytes[label] = sum(t.numel() * t.element_size() for t in got)
+    # the bfloat16 forms against their float32 forms at the same inputs:
+    # another function, most values apart beyond float32 rounding, by
+    # about bfloat16's steps
+    by_label = {check[0]: check for checks in calls.values() for check in checks}
+    # (the bfloat16 centroid changes m01 and m02 alone: outputs 1 and 2)
+    for b16, f32, outs in (
+            ("merge phase layout bf16, e^-1.5 (RGB_BF16)", "merge phase layout, e^-1.5 (RGB_DEFAULT)", (0, 1)),
+            ("merge_raw order 0 bf16, S=2 (RAW_ORDER0_BF16)", "merge_raw order 0, S=2 (RAW_ORDER0)", (0, 1)),
+            ("merge_raw cert bf16, S=2 (RAW_CERT_BF16)", "merge_raw cert4, S=2 (RAW_CERT)", (1, 2))):
+        b16_out, f32_out = by_label[b16][1](), by_label[f32][1]()
+        for i in outs:
+            g, f = b16_out[i], f32_out[i]
+            diff = (g.double() - f.double()).abs()
+            beyond = (diff > 1e-4 + 1e-4 * f.double().abs()).double().mean().item()
+            rel = (diff / f.double().abs().clamp_min(1e-2)).max().item()
+            print(f"bf16 against float32 {b16}[{i}]: max abs {diff.max().item():.3e}, max rel {rel:.3e} "
+                  f"(denominators at least 1e-2), {beyond:.3f} of the values beyond 1e-4")
+            if beyond < 0.5:
+                raise RuntimeError(f"{b16} does not round as bfloat16: {beyond:.3f} of the values apart")
+
     # what each implementation gave on the tiles whose integer parts
     # differ: a zero shift is the border gate's (at threshold 0 the other
     # gate, min + 0 > max, cannot hold), or a minimum at the center
@@ -677,7 +790,8 @@ def main() -> int:
            F * H * W * n_taps(args[0], args[3], kw.get("prune_exp", 6.0)) * args[0] ** 2, key)
           for label, args, kw, key, _ in merge_variants),
         ("tile_warp", calls["tile_warp"][0][0], (planes4, sep_shifts), 0, "tile_warp"),
-        ("tile_warp", calls["tile_warp"][2][0], (w_imgs, w_shifts), 0, "tile_warp"),
+        ("tile_warp", calls["tile_warp"][3][0], (w_imgs, w_shifts), 0, "tile_warp"),
+        ("tile_warp", calls["tile_warp"][2][0], (planes4, sep_shifts), 0, "tile_warp"),
         ("tile_search", calls["tile_search"][0][0], search_ins,
          search_ins[2].shape[0] * nty * ntx * (2 * search_cases[0][2] + 1) ** 2 * 16**2, "tile_search"),
         ("tile_search", city_search[0], city_search[1],
@@ -694,11 +808,13 @@ def main() -> int:
     bounds, moved_bytes = {}, {}
     for name, label, ins, n_items, key in timed:
         moved = moved_bytes[label] = sum(t.numel() * t.element_size() for t in ins) + out_bytes[label]
-        flops, exps = (n * n_items for n in WORK[key])
-        bytes_ms, ops_ms = moved / HBM_BYTES_S * 1e3, max(flops / F32_FLOPS_S, exps / EXP_S) * 1e3
+        flops, exps, bf16_flops = (n * n_items for n in (*WORK[key], 0)[:3])
+        bytes_ms = moved / HBM_BYTES_S * 1e3
+        ops_ms = max(flops / F32_FLOPS_S + bf16_flops / BF16_FLOPS_S, exps / EXP_S) * 1e3
         bounds[label] = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
-        print(f"bound {label}: {moved / 1e6:.2f} MB moved ({bytes_ms * 1e3:.2f} us), {flops / 1e9:.3f} GFLOP "
-              f"and {exps / 1e6:.1f} M exp ({ops_ms * 1e3:.2f} us): {bounds[label][0] * 1e3:.2f} us, "
+        bf16_part = f", {bf16_flops / 1e9:.3f} bfloat16 GFLOP" if bf16_flops else ""
+        print(f"bound {label}: {moved / 1e6:.2f} MB moved ({bytes_ms * 1e3:.2f} us), {flops / 1e9:.3f} GFLOP"
+              f"{bf16_part} and {exps / 1e6:.1f} M exp ({ops_ms * 1e3:.2f} us): {bounds[label][0] * 1e3:.2f} us, "
               f"bound by {bounds[label][1]}")
 
     # 4. the paths end to end on the card
@@ -918,6 +1034,16 @@ def main() -> int:
          raw_small_rot, None),
         ("rgb (RGB_CONSISTENT)", handheld.handheld_superres, rgb_burst, RGB_CONSISTENT, ("merge_fast", "tile_warp"),
          rgb_small_wide, (F - 1) * RGB_CONSISTENT.align.levels),
+        # the merge and warp knobs: the per-cell form's variants, the
+        # bfloat16 order-0 forms, the one-hot tile warp, half-res statistics
+        *((f"raw ({name})", handheld.handheld_superres_raw, raw_rot, cfg, raw_kernels, raw_small_rot, None)
+          for name, cfg in (("RAW_EXACT_WEIGHTS", RAW_EXACT_WEIGHTS), ("RAW_CERT_BLOCK", RAW_CERT_BLOCK),
+                            ("RAW_CERT_SHARED", RAW_CERT_SHARED), ("RAW_CERT_PRUNE", RAW_CERT_PRUNE),
+                            ("RAW_CERT_BF16", RAW_CERT_BF16), ("RAW_ORDER0_BF16", RAW_ORDER0_BF16),
+                            ("RAW_ONEHOT_WARP", RAW_ONEHOT_WARP))),
+        *((f"rgb ({name})", handheld.handheld_superres, rgb_burst, cfg, ("merge_fast", "tile_warp"), rgb_small, None)
+          for name, cfg in (("RGB_BF16", RGB_BF16), ("RGB_HALF_STATS", RGB_HALF_STATS),
+                            ("RGB_ONEHOT_WARP", RGB_ONEHOT_WARP))),
     )
     knob_launches = {}
     for label, fn, burst, cfg, expect, small, searches in knob_paths:
@@ -942,6 +1068,13 @@ def main() -> int:
         ("fast default (RAW_BENCH)", RAW_BENCH, "27.75"),
         ("fast + guided R/B (RAW_GUIDED)", RAW_GUIDED, None),
         ("fast + per-cell centroid (RAW_CERT)", RAW_CERT, None),
+        ("fast + exact weights (RAW_EXACT_WEIGHTS)", RAW_EXACT_WEIGHTS, None),
+        ("fast + block-centre centroid (RAW_CERT_BLOCK)", RAW_CERT_BLOCK, None),
+        ("fast + shared-residual centroid (RAW_CERT_SHARED)", RAW_CERT_SHARED, None),
+        ("fast + pruned centroid (RAW_CERT_PRUNE)", RAW_CERT_PRUNE, None),
+        ("fast + bf16 centroid (RAW_CERT_BF16)", RAW_CERT_BF16, None),
+        ("fast order 0 bf16 (RAW_ORDER0_BF16)", RAW_ORDER0_BF16, None),
+        ("fast + one-hot tile warp (RAW_ONEHOT_WARP)", RAW_ONEHOT_WARP, None),
     )
     for label, cfg, parity_db in bar_rows:
         sr = handheld.handheld_superres_raw(raw_hr, cfg)
@@ -1193,6 +1326,21 @@ def main() -> int:
          ["merge_raw 9 slots, S=2 (RAW_EXACT)", "merge_raw 9 slots, S=4, F=9"]),
         ("merge_raw cert4", "merge_raw", KERNELS["merge_raw"][1], "raw (RAW_CERT)",
          ["merge_raw cert4, S=2 (RAW_CERT)", "merge_raw cert4, S=4, F=9", "merge_raw guided cert4, S=2"]),
+        ("merge_raw exact_weights", "merge_raw", KERNELS["merge_raw"][1], "raw (RAW_EXACT_WEIGHTS)",
+         ["merge_raw exact_weights, S=2 (RAW_EXACT_WEIGHTS)", "merge_raw exact_weights, S=4, F=9",
+          "merge_raw exact_weights 9 slots, S=2", "merge_raw exact_weights 9 slots, S=4, F=9",
+          "merge_raw guided exact_weights, S=2"]),
+        *((f"merge_raw {label}", "merge_raw", KERNELS["merge_raw"][1], f"raw ({cfg_name})",
+           [f"merge_raw {label}, S=2 ({cfg_name})", f"merge_raw {label}, S=4, F=9"]
+           + (["merge_raw guided order 0 bf16, S=2"] if label == "order 0 bf16" else []))
+          for label, cfg_name in (("cert block", "RAW_CERT_BLOCK"), ("cert shared", "RAW_CERT_SHARED"),
+                                  ("cert prune", "RAW_CERT_PRUNE"), ("cert bf16", "RAW_CERT_BF16"),
+                                  ("order 0 bf16", "RAW_ORDER0_BF16"))),
+        ("merge_fast bf16", "merge_fast", "multi_frame_super_resolution_tpu/models/fast_merge.py:80",
+         "rgb (RGB_BF16)", ["merge phase layout bf16, e^-1.5 (RGB_BF16)", "merge phase layout bf16, e^-1.5, s=4"]),
+        ("tile_warp onehot", "tile_warp", "multi_frame_super_resolution_tpu/ops/warp_fast.py:549",
+         "raw (RAW_ONEHOT_WARP)",
+         ["tile_warp onehot (RAW_ONEHOT_WARP)"]),
     )]}))
     print(f"launches per path: defog {defog_launches}, rgb pallas {rgb_launches}, "
           f"rgb port default {rgb_default_launches}, raw bench {bench_launches}, "

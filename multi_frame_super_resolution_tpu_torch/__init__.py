@@ -27,8 +27,9 @@ app; and BTV-L1
 multi-frame super-resolution (``models.btvl1``) with its four dense
 optical flows (``registration.optical_flow``), the PNG burst loader
 (``data.load_burst``) and the ``multi_frame_sr`` and ``runall`` apps
-(see ``config.check_supported_raw`` and ``config.check_supported`` for
-the handheld knobs that still raise); single-image DNN SR
+(every knob of the handheld configurations runs; ``config.check_supported_raw``
+and ``config.check_supported`` name the values the port refuses, as the
+JAX package does or as a kernel limit); single-image DNN SR
 (``models.dnn_sr``: the four architectures, flax-layout checkpoints,
 inference and the train step) with its app, the ``handheld_sr`` and
 ``getimg`` apps, and ``utils`` (metrics, timing, profiling, debug); the

@@ -7,9 +7,12 @@ rebuild the JAX dataclass from a port config (tests/torch_parity.py::
 to_jax).
 
 ``check_supported`` (RGB path) and ``check_supported_raw`` (RAW path)
-name every knob whose code path the port does not implement yet and
-raise instead of silently computing something else (the rule of the JAX
-code at models/handheld.py:411-420).
+name every knob value the port does not take and raise instead of
+silently computing something else (the rule of the JAX code at
+models/handheld.py:411-420): the solvers and log-polar kernels the JAX
+package does not define either, use_pallas with rgb_order=1 (the JAX
+function raises there too), and the scales outside the merge kernels'
+1..4.
 """
 
 from __future__ import annotations
@@ -240,6 +243,25 @@ RAW_CONSISTENT = dataclasses.replace(RAW_BENCH, use_consistency=True)
 RAW_FFT = dataclasses.replace(RAW_BENCH, align=dataclasses.replace(RAW_BENCH.align, use_fft=True))
 RGB_CONSISTENT = HandheldConfig(use_consistency=True)
 
+# the merge and warp knobs, each bench.py's RAW configuration (RAW_CERT
+# for the per-cell centroid's four variants, RAW_ORDER0 for the order-0
+# bf16 accumulation) or the RGB default with one knob changed: Gaussian
+# weights at the parity-interpolated displacement (the per-cell layout),
+# the block-centre centroid, its shared-residual refinement, the centroid
+# restricted to the taps of a tighter prune (e^-1: the inner 3 x 3), bf16
+# centroid products, bf16 order-0 accumulation (RAW and RGB), LK and
+# robustness at half resolution (RGB), and the one-hot tile warp
+RAW_EXACT_WEIGHTS = dataclasses.replace(RAW_BENCH, merge=MergeConfig(exact_weights=True))
+RAW_CERT_BLOCK = dataclasses.replace(RAW_BENCH, merge=MergeConfig(centroid_cert=True, centroid_block=True))
+RAW_CERT_SHARED = dataclasses.replace(RAW_BENCH, merge=MergeConfig(centroid_cert=True, centroid_shared_res=True))
+RAW_CERT_PRUNE = dataclasses.replace(RAW_BENCH, merge=MergeConfig(centroid_cert=True, centroid_prune=1.0))
+RAW_CERT_BF16 = dataclasses.replace(RAW_BENCH, merge=MergeConfig(centroid_cert=True, centroid_bf16=True))
+RAW_ORDER0_BF16 = dataclasses.replace(RAW_BENCH, merge=MergeConfig(order=0, bf16=True))
+RAW_ONEHOT_WARP = dataclasses.replace(RAW_BENCH, warp_matmul=False)
+RGB_BF16 = HandheldConfig(merge=MergeConfig(bf16=True))
+RGB_HALF_STATS = HandheldConfig(rgb_half_stats=True)
+RGB_ONEHOT_WARP = HandheldConfig(warp_matmul=False)
+
 _REMAP_METHODS = ("bilinear", "bicubic", "nearest")
 
 
@@ -249,9 +271,6 @@ def _common_unsupported(cfg: HandheldConfig) -> List[str]:
         bad.append(f"prealign_cfg.logpolar_interp={cfg.prealign_cfg.logpolar_interp!r}")
     if cfg.merge.solver not in ("plugin", "exact"):
         bad.append(f"merge.solver={cfg.merge.solver!r}")
-    if not cfg.warp_matmul:
-        # the one-hot tile_warp_select computes another function at bound 16
-        bad.append("warp_matmul=False")
     return bad
 
 
@@ -268,15 +287,10 @@ def check_supported(cfg: HandheldConfig) -> None:
     path the port does not implement."""
     bad = _common_unsupported(cfg)
     m = cfg.merge
-    if cfg.rgb_half_stats:
-        bad.append("rgb_half_stats=True")
     rgb_order = m.order if m.rgb_order is None else m.rgb_order
     if cfg.fast and m.use_pallas and rgb_order == 1:
         # the JAX function raises here too: its Pallas merge is order 0
         bad.append("merge.rgb_order=1 with merge.use_pallas=True")
-    if cfg.fast and not m.use_pallas and m.bf16:
-        # bf16 accumulation changes the JAX default branch's function
-        bad.append("merge.bf16=True")
     if not 1 <= cfg.scale <= 4:
         bad.append(f"scale={cfg.scale} (the merge kernel takes 1..4)")
     _raise(bad, "config.RGB_DEFAULT")
@@ -286,20 +300,6 @@ def check_supported_raw(cfg: HandheldConfig) -> None:
     """Raise ``ValueError`` naming each knob of ``cfg`` that selects a RAW
     path the port does not implement."""
     bad = _common_unsupported(cfg)
-    m = cfg.merge
-    if cfg.fast and m.order == 0 and m.bf16:
-        # bf16 accumulation changes the order-0 plane merge's function
-        bad.append("merge.bf16=True")
-    if m.exact_weights:
-        bad.append("merge.exact_weights=True")
-    if cfg.fast and m.order == 1 and m.solver == "plugin" and m.centroid_cert:
-        # dead under the certless default and the exact solve; with the
-        # per-cell centroid each selects another function
-        # (fast_merge.py:563, :714-766)
-        for knob, on in (("centroid_block", m.centroid_block), ("centroid_shared_res", m.centroid_shared_res),
-                         ("centroid_prune", m.centroid_prune is not None), ("centroid_bf16", m.centroid_bf16)):
-            if on:
-                bad.append(f"merge.{knob} with merge.centroid_cert=True")
     if not 1 <= cfg.scale <= 4:
         # the RAW merge kernel is built for scales 1..4
         bad.append(f"scale={cfg.scale} (the RAW merge kernel takes 1..4)")

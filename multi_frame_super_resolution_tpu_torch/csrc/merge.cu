@@ -24,10 +24,15 @@
 //   form 3, order 1, phase layout: m00, m01, m02 as form 2, m11 += cw dy^2,
 //     m12 += cw dy dx, m22 += cw dx^2, b0 += cwv, b1 += cwv dy,
 //     b2 += cwv dx: the exact 3x3 solve's 9 moments (solve_order1)
+//   form 4, order 0, phase layout, bfloat16 (merge.bf16): num and den as
+//     form 1's, with val and cert rounded to bfloat16, w evaluated in f32
+//     and rounded, cw = w cert and cwv = val cw bfloat16 products, each
+//     frame's sums over the taps bfloat16, and the frames added in f32
+//     (fast_merge.py:134-136, :165-195)
 //
 // Form 0 is the merge_fast_pallas path; the default RGB branch runs form 1
-// (order 0), form 2 (order 1, plugin solve) or form 3 (order 1,
-// merge.solver='exact'). The outputs of a form are consecutive arrays of
+// (order 0), form 4 (order 0, merge.bf16), form 2 (order 1, plugin solve)
+// or form 3 (order 1, merge.solver='exact'). The outputs of a form are consecutive arrays of
 // s^2 * 3 * H * W floats each (one allocation).
 //
 // Bound, at chip_smoke.py's check (F=5, 256 x 512, s=2, 25 taps): 65.5 M
@@ -122,7 +127,23 @@
 // rtol/atol 1e-4, as form 2's. Measured (chip_smoke.py; NVIDIA H100 80GB
 // HBM3, 700.00 W): 88, 92, 86 and 88 registers at s = 1-4, no spills;
 // its times against their bounds in PERF.md.
+//
+// Form 4 (bfloat16) is form 1's thread and loop in the JAX function's
+// rounding order: the staged sites are rounded to bfloat16 instead of
+// multiplied (w c must round before it meets the value), and per phase
+// and channel a thread keeps the frame's (num, den) sums as one
+// __nv_bfloat162 beside form 1's f32 accumulators, which take them at the
+// end of each frame. Per item and channel: w c by __hmul_rn, then (v, 1)
+// x (w c, w c) by __hmul2_rn and the add by __hadd2, each rounded to
+// bfloat16 as the JAX function rounds its products and sums, jitted or
+// not (the _rn forms keep the compiler from fusing a product into the
+// add, which would round once where JAX rounds twice). The taps run
+// in the list's order, so a frame's bfloat16 sums are the JAX function's
+// up to the rare weight that ex2.approx and the plain version's exp round
+// to neighbouring bfloat16 values. Two blocks an SM at s <= 2 (the
+// bfloat16 sums take 12 more registers), one above.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -152,7 +173,8 @@ struct Taps {
 // Form 3: a thread per pixel and phase, 32 x tile_h pixels x s^2 phases.
 template <int S, int kForm>
 struct Layout {
-  static constexpr bool kOrder1 = kForm >= 2;
+  static constexpr bool kBf16 = kForm == 4;
+  static constexpr bool kOrder1 = kForm == 2 || kForm == 3;
   static constexpr bool kPhase = kForm >= 1;  // the phase layout
   static constexpr int kSlots = kForm == 3 ? 9 : (kOrder1 ? 4 : 2);
   static constexpr int kRows = kOrder1 ? 1 : S;      // phase rows a thread holds
@@ -166,7 +188,8 @@ struct Layout {
   // grow with s (at s <= 2 four blocks, 64 registers a thread, hold the
   // 256 x 512 check in one wave); form 2's 12 s and form 3's 27 stay
   // under 128 registers (form 3 at s = 4: one block of 512 threads)
-  static constexpr int kMinBlocks = kOrder1 ? (kThreads > 288 ? 1 : 2) : (S <= 2 ? 4 : (S == 3 ? 2 : 1));
+  static constexpr int kMinBlocks = kOrder1 ? (kThreads > 288 ? 1 : 2)
+                                            : (kBf16 ? (S <= 2 ? 2 : 1) : (S <= 2 ? 4 : (S == 3 ? 2 : 1)));
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -308,11 +331,18 @@ merge_fast_kernel(const float* __restrict__ warped,
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
     // value x certainty on the sites this thread copied (its own copies
-    // have landed); the barrier then publishes the frame to the block
+    // have landed), or for bfloat16 both rounded; the barrier then
+    // publishes the frame to the block
     for (int s = tid; s < sites; s += L::kThreads) {
       const float4 v = a[s];
       const float2 c = b[s];
-      a[s] = make_float4(v.x * v.w, v.y * c.x, v.z * c.y, v.w);
+      if constexpr (L::kBf16) {
+        const auto rnd = [](float x) { return __bfloat162float(__float2bfloat16_rn(x)); };
+        a[s] = make_float4(rnd(v.x), rnd(v.y), rnd(v.z), rnd(v.w));
+        b[s] = make_float2(rnd(c.x), rnd(c.y));
+      } else {
+        a[s] = make_float4(v.x * v.w, v.y * c.x, v.z * c.y, v.w);
+      }
     }
     __syncthreads();
 
@@ -326,6 +356,16 @@ merge_fast_kernel(const float* __restrict__ warped,
       for (int p = 0; p < R; ++p) ey[p] = ry * (float)S + phis_y[p];
 #pragma unroll
       for (int p = 0; p < C; ++p) ex[p] = rx * (float)S + phis[p];
+      // form 4: this frame's bfloat16 (num, den) sums per phase and channel
+      __nv_bfloat162 fsum[R][C][3];
+      if constexpr (L::kBf16) {
+#pragma unroll
+        for (int py = 0; py < R; ++py)
+#pragma unroll
+          for (int px = 0; px < C; ++px)
+#pragma unroll
+            for (int c = 0; c < 3; ++c) fsum[py][px][c] = __float2bfloat162_rn(0.0f);
+      }
 #pragma unroll 1
       for (int run = 0; run < taps.n; ++run) {
         // the row's terms, shared by its taps: A = dy^2 o_yy, B = dy o_xy
@@ -342,15 +382,33 @@ merge_fast_kernel(const float* __restrict__ warped,
         const int len = taps.len[run];
 #pragma unroll 1
         for (int k = 0; k < len; ++k, kxs += (float)S) {
-          const float4 va = pa[k];  // v0 c0, v1 c1, v2 c2, c0
+          const float4 va = pa[k];  // v0 c0, v1 c1, v2 c2, c0 (form 4: v0, v1, v2, c0)
           const float2 vb = pb[k];  // c1, c2
+          // form 4: (v, 1) per channel and c, bfloat16 (exact: staged rounded)
+          __nv_bfloat162 v1[3];
+          __nv_bfloat16 cb[3];
+          if constexpr (L::kBf16) {
+            v1[0] = __floats2bfloat162_rn(va.x, 1.0f);
+            v1[1] = __floats2bfloat162_rn(va.y, 1.0f);
+            v1[2] = __floats2bfloat162_rn(va.z, 1.0f);
+            cb[0] = __float2bfloat16_rn(va.w);
+            cb[1] = __float2bfloat16_rn(vb.x);
+            cb[2] = __float2bfloat16_rn(vb.y);
+          }
 #pragma unroll
           for (int px = 0; px < C; ++px) {
             const float dx = kxs - ex[px];
 #pragma unroll
             for (int py = 0; py < R; ++py) {
               const float wgt = exp2_approx(fmaf(dx, fmaf(dx, o0, qb[py]), qa[py]));
-              if constexpr (kForm == 3) {
+              if constexpr (L::kBf16) {
+                const __nv_bfloat16 wb = __float2bfloat16_rn(wgt);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                  const __nv_bfloat16 cw = __hmul_rn(wb, cb[c]);
+                  fsum[py][px][c] = __hadd2(fsum[py][px][c], __hmul2_rn(v1[c], __bfloat162bfloat162(cw)));
+                }
+              } else if constexpr (kForm == 3) {
                 // the nine moments: w dy, w dx and their products once,
                 // then nine FMAs per channel against (c, v c)
                 const float wdy = wgt * dys[py], wdx = wgt * dx;
@@ -391,6 +449,17 @@ merge_fast_kernel(const float* __restrict__ warped,
             }
           }
         }
+      }
+      if constexpr (L::kBf16) {  // the frame's sums join the f32 totals
+#pragma unroll
+        for (int py = 0; py < R; ++py)
+#pragma unroll
+          for (int px = 0; px < C; ++px)
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              acc[0][py][px][c] += __low2float(fsum[py][px][c]);
+              acc[1][py][px][c] += __high2float(fsum[py][px][c]);
+            }
       }
     }
     __syncthreads();  // this buffer is restaged for frame f + 2 (or parks the outputs)
@@ -453,6 +522,7 @@ int launch_form(int form, const float* warped, const float* residual, const floa
     case 1: return launch<S, 1>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     case 2: return launch<S, 2>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     case 3: return launch<S, 3>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
+    case 4: return launch<S, 4>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -468,8 +538,8 @@ extern "C" {
 // form's outputs one after another, S*S*3*H*W floats each: form 0 num and
 // den as (S*H, S*W, 3); form 1 the same as (S, S, 3, H, W); form 2 m00,
 // m01, m02, b0, each (S, S, 3, H, W); form 3 m00, m01, m02, m11, m12,
-// m22, b0, b1, b2, each (S, S, 3, H, W). Every output is written in
-// full. taps_yx is a HOST array of n_taps (ky, kx) pairs, each
+// m22, b0, b1, b2, each (S, S, 3, H, W); form 4 (bfloat16) num and den
+// as (S, S, 3, H, W). Every output is written in full. taps_yx is a HOST array of n_taps (ky, kx) pairs, each
 // within +-8, in at most kMaxRuns runs of one row with kx rising by 1
 // (any list of _active_taps is one run per row).
 int mfsr_merge_fast(const void* warped, const void* residual,

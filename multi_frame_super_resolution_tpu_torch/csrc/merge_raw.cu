@@ -218,12 +218,14 @@
 //   0.663-0.674 ms. Device time follows the items (4.1-4.7 ps an item
 //   for form 2, 2.5-2.9 for form 3): the taps, not the staging, set it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
 #include <cstdlib>
 #include <limits>
+#include <type_traits>
 
 namespace {
 
@@ -266,7 +268,15 @@ struct TapTable {
   int chan[4];       // channel of plane q = 2*qa + qb
   signed char ky[kMaxTaps];
   signed char kx[kMaxTaps];
+  int centroid_end[4];  // group g's taps before centroid_end[g] feed the centroid (centroid_prune)
+  unsigned char order[kMaxTaps];     // order[n]: the sorted index of the list's n-th tap
 };
+
+// The variant bits of a launch (mfsr_merge_raw's flags).
+constexpr int kExactWeights = 1;  // forms 2, 3: weights at the moments' displacement
+constexpr int kBf16Flag = 2;      // form 1: bfloat16 order 0; form 3: bfloat16 centroid products
+constexpr int kBlockFlag = 4;     // form 3: the block-centre centroid
+constexpr int kSharedFlag = 8;    // form 3: the shared-residual centroid (block implied)
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -317,8 +327,16 @@ __device__ __forceinline__ void store_cell(float* __restrict__ m00_out,
   }
 }
 
-// kChains: form 0 (the certless centroid chains); without them form 1.
-template <int S, int kHalo, bool kGreenDiag, bool kChains>
+// The accumulator slot of plane q for a parity in the bfloat16 order-0
+// loop: 0 green, 1 and 2 the R/B planes in plane order.
+template <bool kGreenDiag>
+__device__ __forceinline__ int rb_slot(int q) {
+  return is_green<kGreenDiag>(q) ? 0 : (kGreenDiag ? q : (q == 0 ? 1 : 2));
+}
+
+// kChains: form 0 (the certless centroid chains); without them form 1,
+// in float32 or (kBf16) in bfloat16.
+template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16>
 __global__ void __launch_bounds__(Shape<S>::kThreads, Layout<S>::kMinBlocks)
 merge_raw_kernel(const float* __restrict__ planes,
                  const float* __restrict__ residual,
@@ -365,11 +383,18 @@ merge_raw_kernel(const float* __restrict__ planes,
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
-  // clip the residual; each site's value becomes value * certainty
+  // clip the residual; each site's value becomes value * certainty (or,
+  // for bfloat16, both are rounded: w c rounds before it meets the value)
   for (int e = tid; e < frames * kPix; e += kThreads) {
     sres[e] = make_float2(fminf(fmaxf(sres[e].x, -rb), rb), fminf(fmaxf(sres[e].y, -rb), rb));
   }
-  for (int e = tid; e < frames * 4 * kSA; e += kThreads) sv[e].x *= sv[e].y;
+  for (int e = tid; e < frames * 4 * kSA; e += kThreads) {
+    if constexpr (kBf16) {
+      sv[e] = __bfloat1622float2(__float22bfloat162_rn(sv[e]));
+    } else {
+      sv[e].x *= sv[e].y;
+    }
+  }
   __syncthreads();
 
   const int i = i0 + ty, j = j0 + tx;
@@ -393,6 +418,95 @@ merge_raw_kernel(const float* __restrict__ planes,
               or1 = -0.5f * kL * omega_rb[pix * 3 + 1], or2 = -kL * omega_rb[pix * 3 + 2];
   const float2* my_res = sres + ty * kTileW + tx;
   const float2* my_sv = sv + (ty + kHalo) * kSW + (tx + kHalo);
+
+  if constexpr (kBf16) {
+    // bfloat16 order 0 in the jitted JAX function's rounding: the taps in
+    // the list's order (each cell's sum rounds tap by tap); per tap and
+    // parity w rounded to bfloat16; the frame sums in f32 of w c and of
+    // bf16(w c) v, products exact in f32 (two bfloat16 factors), which is
+    // how XLA forms a product that feeds a float32 sum; each sum rounded
+    // to bfloat16 and added to its cell in bfloat16. A parity's cells are
+    // its slots: green, and the two R/B planes'; (b0, m00) per slot and x
+    // phase as one __nv_bfloat162.
+    __nv_bfloat162 acc[4][3][kPX];
+#pragma unroll
+    for (int z = 0; z < 4; ++z)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int px = 0; px < kPX; ++px) acc[z][k][px] = __float2bfloat162_rn(0.0f);
+    const int n_taps = taps.group_end[3];
+#pragma unroll 1
+    for (int n = 0; n < n_taps; ++n) {
+      const int t = taps.order[n];
+      const int kyi = taps.ky[t], kxi = taps.kx[t];
+      const int g = 2 * (kyi & 1) + (kxi & 1);
+      const float ky = (float)kyi, kx = (float)kxi;
+      int off[4];
+      bool green[4];
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
+        green[z] = is_green<kGreenDiag>(plane_of(z, g));
+      }
+      float sm[4][kPX], sb[4][kPX];
+#pragma unroll
+      for (int z = 0; z < 4; ++z)
+#pragma unroll
+        for (int px = 0; px < kPX; ++px) sm[z][px] = sb[z][px] = 0.0f;
+#pragma unroll 2
+      for (int f = 0; f < frames; ++f) {
+        const float2 res = my_res[f * kPix];
+        const float dy = (ky - res.x) * (float)S - phis_y;
+        const float dyy = dy * dy;
+        const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
+        float wg[kPX], wr[kPX];  // rounded to bfloat16
+#pragma unroll
+        for (int px = 0; px < kPX; ++px) {
+          const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
+          wg[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy))));
+          wr[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy))));
+        }
+        const float2* fsv = my_sv + f * 4 * kSA;
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const float2 vc = fsv[off[z]];  // (value, certainty), bfloat16 values
+#pragma unroll
+          for (int px = 0; px < kPX; ++px) {
+            const float wc = (green[z] ? wg[px] : wr[px]) * vc.y;  // exact
+            sm[z][px] += wc;
+            sb[z][px] += __bfloat162float(__float2bfloat16_rn(wc)) * vc.x;  // exact product
+          }
+        }
+      }
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const int slot = rb_slot<kGreenDiag>(plane_of(z, g));
+#pragma unroll
+        for (int px = 0; px < kPX; ++px) {
+          const __nv_bfloat162 sum = __floats2bfloat162_rn(sb[z][px], sm[z][px]);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            if (slot == k) acc[z][k][px] = __hadd2(acc[z][k][px], sum);
+          }
+        }
+      }
+    }
+    if (inside) {
+#pragma unroll
+      for (int z = 0; z < 4; ++z)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const int c = k == 0 ? 1 : taps.chan[kGreenDiag ? k : (k == 1 ? 0 : 3)];
+#pragma unroll
+          for (int px = 0; px < kPX; ++px) {
+            store_cell<S, false>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, c,
+                                 __high2float(acc[z][k][px]), __low2float(acc[z][k][px]), 0.f, 0.f, 0.f);
+          }
+        }
+    }
+    return;
+  }
 
 #pragma unroll
   for (int pair = 0; pair < 2; ++pair) {
@@ -515,10 +629,10 @@ merge_raw_kernel(const float* __restrict__ planes,
 
 // The tile of merge_raw_cells_kernel: kTW x kTH half-res pixels at scale
 // S, a thread per (pixel, output phase) holding kPairs tap-group pairs
-// ({0, 3} and {1, 2}): the 9 slots one pair (two threads a pixel and
-// phase), the 4 slots both (at S = 3 one: 9 warps of 128 registers would
-// leave a block alone on an SM). A warp holds kTW pixels of a row at 32 /
-// kTW phases, which read the same sites.
+// ({0, 3} and {1, 2}): the 9 and the 6 slots one pair (two threads a
+// pixel and phase), the 4 slots both (at S = 3 one: 9 warps of 128
+// registers would leave a block alone on an SM). A warp holds kTW pixels
+// of a row at 32 / kTW phases, which read the same sites.
 template <int S, int kPairs>
 struct CellTile;
 template <>
@@ -552,7 +666,7 @@ struct CellTile<4, 2> {
 
 template <int S, int kSlots>
 struct CellShape {
-  static constexpr int kPairs = kSlots == 9 || S == 3 ? 1 : 2;
+  static constexpr int kPairs = kSlots != 4 || S == 3 ? 1 : 2;
   static constexpr int kTW = CellTile<S, kPairs>::kTW, kTH = CellTile<S, kPairs>::kTH;
   static constexpr int kPix = kTW * kTH;
   static constexpr int kPL = 32 / kTW;  // phases a warp holds
@@ -572,15 +686,22 @@ constexpr int kRing = 3;  // frames in flight: the one read, the next two staged
 
 // Adds a (pixel, frame, tap, phase) term of one cell: wc = w c, v the
 // value, dy and dx the cell's displacements; kSlots 9 in solve_order1's
-// order (m00, m01, m02, m11, m12, m22, b0, b1, b2), 4 (m00, m01, m02, b0).
+// order (m00, m01, m02, m11, m12, m22, b0, b1, b2), 4 (m00, m01, m02, b0),
+// 6 the 4 and the residual sums ry w c, rx w c (the shared-residual
+// centroid; ry, rx the block-centre residual).
 template <int kSlots>
-__device__ __forceinline__ void add_moments(float* m, float wc, float v, float dy, float dx) {
+__device__ __forceinline__ void add_moments(float* m, float wc, float v, float dy, float dx,
+                                            float ry = 0.0f, float rx = 0.0f) {
   const float wcv = wc * v;
   m[0] += wc;
-  if constexpr (kSlots == 4) {
+  if constexpr (kSlots == 4 || kSlots == 6) {
     m[1] = fmaf(dy, wc, m[1]);
     m[2] = fmaf(dx, wc, m[2]);
     m[3] += wcv;
+    if constexpr (kSlots == 6) {
+      m[4] = fmaf(ry, wc, m[4]);
+      m[5] = fmaf(rx, wc, m[5]);
+    }
   } else {
     const float ty = dy * wc, tx = dx * wc;
     m[1] += ty;
@@ -592,6 +713,26 @@ __device__ __forceinline__ void add_moments(float* m, float wc, float v, float d
     m[7] = fmaf(dy, wcv, m[7]);
     m[8] = fmaf(dx, wcv, m[8]);
   }
+}
+
+// The centroid moments in bfloat16 (centroid_bf16): m01 += (S ky) w c -
+// S bf16(rho_y) bf16(w c), m02 likewise: rho and w c rounded to bfloat16,
+// their product exact in f32 and summed there, as the jitted JAX function
+// computes it. sky and skx are S ky and S kx, ns is -S, and ryb and rxb
+// are bf16(rho) as floats.
+__device__ __forceinline__ void add_moments_cbf16(float* m, float wc, float v, float sky, float skx,
+                                                  float ns, float ryb, float rxb) {
+  const float wb = __bfloat162float(__float2bfloat16_rn(wc));
+  m[0] += wc;
+  m[1] = fmaf(sky, wc, fmaf(ns, ryb * wb, m[1]));
+  m[2] = fmaf(skx, wc, fmaf(ns, rxb * wb, m[2]));
+  m[3] += wc * v;
+}
+
+// 2^(dx (dx o0 + dy o2) + dy^2 o1): the Gaussian with -1/2 log2(e) folded
+// into omega (o2 the cross term's -log2(e))
+__device__ __forceinline__ float gauss(float dx, float dy, float o0, float o1, float o2) {
+  return exp2_approx(fmaf(dx, fmaf(dx, o0, dy * o2), dy * dy * o1));
 }
 
 // A pair's six cells, (relabelled parity z', group k of the pair): z' = 0
@@ -607,8 +748,18 @@ __device__ __forceinline__ int staged_offset(int z, int g, int ky, int kx, int s
   return (z ^ g) * sa + (((z >> 1) + ky) >> 1) * sw + (((z & 1) + kx) >> 1);
 }
 
-// kSlots: 9 (form 2, solve_order1's order) or 4 (form 3: m00, m01, m02, b0)
-template <int S, int kSlots>
+// kSlots: 9 (form 2, solve_order1's order), 4 (form 3: m00, m01, m02, b0)
+// or 6 (form 3 with the shared-residual centroid: the 4 and the phase's
+// residual sums, folded before the store). kExact: the weights at each
+// parity's moment displacement (exact_weights), four Gaussians an item.
+// kCBf16: bfloat16 centroid products (centroid_bf16, 4 slots). kPrune:
+// the taps of a group that the centroid leaves out (centroid_prune) run
+// after the others, in a second loop, and add m00 and b0 alone; a
+// template parameter because the second loop's code, even never
+// entered, made form 3 3-4% slower on an H100 when it was a runtime
+// bound. block: the centroid's displacement from the block-centre
+// residual (centroid_block).
+template <int S, int kSlots, bool kExact, bool kCBf16, bool kPrune>
 __global__ void __launch_bounds__(CellShape<S, kSlots>::kThreads, CellShape<S, kSlots>::kMinBlocks)
 merge_raw_cells_kernel(const float* __restrict__ planes,
                        const float* __restrict__ residual,
@@ -617,11 +768,14 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
                        const float* __restrict__ omega_rb,
                        float* __restrict__ out,
                        int frames, int hh, int hw, int halo, float rb, int green_diag,
-                       const TapTable taps) {
+                       int block, const TapTable taps) {
   using L = CellShape<S, kSlots>;
   constexpr int kTW = L::kTW, kTH = L::kTH, kThreads = L::kThreads;
   constexpr int kPairs = L::kPairs, kRW = L::kResW;
-  static_assert(kSlots == 4 || kSlots == 9, "the plugin's 4 moments or the exact solve's 9");
+  constexpr int kOut = kSlots == 6 ? 4 : kSlots;  // the slots stored
+  static_assert(kSlots == 4 || kSlots == 6 || kSlots == 9, "the plugin's 4 (6) moments or the exact solve's 9");
+  static_assert(!kCBf16 || kSlots == 4, "bfloat16 centroid products are the compact-rho form's");
+  static_assert(!kPrune || kSlots != 9, "the pruned centroid is the per-cell form's");
   static_assert(S * S % L::kPL == 0, "a warp holds phases of one pair");
   __shared__ float2 ring[kRing][L::kStage];
   // [flip][tap]: (S ky, S kx, the staged offset z' = 0 reads as int bits)
@@ -742,20 +896,42 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
     const float ry_b = fminf(fmaxf(st[my_res + kRW].x, -rb), rb);
     const float rx_a = fminf(fmaxf(st[my_res - 1].y, -rb), rb);
     const float rx_b = fminf(fmaxf(st[my_res + 1].y, -rb), rb);
-    // S rho per parity (rho = the blended residual, clipped, + phi)
-    const float sy0 = (float)S * (fminf(fmaxf((1.0f - ga_y0) * ry + ga_y0 * ry_a, -rb), rb) + phi_y);
-    const float sy1 = (float)S * (fminf(fmaxf((1.0f - ga_y1) * ry + ga_y1 * ry_b, -rb), rb) + phi_y);
-    const float sx0 = (float)S * (fminf(fmaxf((1.0f - ga_x0) * rx + ga_x0 * rx_a, -rb), rb) + phi_x);
-    const float sx1 = (float)S * (fminf(fmaxf((1.0f - ga_x1) * rx + ga_x1 * rx_b, -rb), rb) + phi_x);
+    // rho per parity (the blended residual, clipped, + phi) and S rho
+    const float ry0 = fminf(fmaxf((1.0f - ga_y0) * ry + ga_y0 * ry_a, -rb), rb) + phi_y;
+    const float ry1 = fminf(fmaxf((1.0f - ga_y1) * ry + ga_y1 * ry_b, -rb), rb) + phi_y;
+    const float rx0 = fminf(fmaxf((1.0f - ga_x0) * rx + ga_x0 * rx_a, -rb), rb) + phi_x;
+    const float rx1 = fminf(fmaxf((1.0f - ga_x1) * rx + ga_x1 * rx_b, -rb), rb) + phi_x;
+    const float sy0 = (float)S * ry0, sy1 = (float)S * ry1, sx0 = (float)S * rx0, sx1 = (float)S * rx1;
     // the weights' block-centre displacement: dy_w = S ky - (S ry + S phi)
     const float wy = fmaf(ry, (float)S, phis_y), wx = fmaf(rx, (float)S, phis_x);
+    // the moments' displacement origins: S rho per parity, the block
+    // centre's S (ry + phi), or (shared residual) S phi alone, the
+    // residual entering through the folded sums
+    float my0 = sy0, my1 = sy1, mx0 = sx0, mx1 = sx1;
+    if constexpr (kSlots == 6) {
+      my0 = my1 = phis_y;
+      mx0 = mx1 = phis_x;
+    } else if (block) {
+      my0 = my1 = wy;
+      mx0 = mx1 = wx;
+    }
     const float2* sv = st + my_site;
 
 #pragma unroll
     for (int pp = 0; pp < kPairs; ++pp) {
       const int pair = kPairs == 2 ? pp : pair1;
       const int flip = pair ^ (green_diag ? 0 : 1);
-      const float sxp0 = flip ? sx1 : sx0, sxp1 = flip ? sx0 : sx1;  // x in the order b' = b ^ flip
+      // x in the order b' = b ^ flip
+      const float sxp0 = flip ? sx1 : sx0, sxp1 = flip ? sx0 : sx1;
+      const float mxp0 = flip ? mx1 : mx0, mxp1 = flip ? mx0 : mx1;
+      float ryb0 = 0.f, ryb1 = 0.f, rxb0 = 0.f, rxb1 = 0.f;  // kCBf16: rho per parity, rounded
+      if constexpr (kCBf16) {
+        const auto bf = [](float x) { return __bfloat162float(__float2bfloat16_rn(x)); };
+        ryb0 = bf(ry0);
+        ryb1 = bf(ry1);
+        rxb0 = bf(flip ? rx1 : rx0);
+        rxb1 = bf(flip ? rx0 : rx1);
+      }
       const float4* tab = s_tap[flip];
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
@@ -765,26 +941,86 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
         float* a1 = acc[6 * pp + cell_of(1, k)];
         float* a2 = acc[6 * pp + cell_of(2, k)];
         float* a3 = acc[6 * pp + cell_of(3, k)];
-        const int te = taps.group_end[g];
-#pragma unroll 1  // unrolled, the tap loop holds more registers and runs no faster
-        for (int t = g ? taps.group_end[g - 1] : 0; t < te; ++t) {
+        // a tap of the centroid's (all of them without centroid_prune) adds
+        // every moment; one outside it m00 and b0 alone (the host sorts
+        // the former first within a group)
+        const auto tap = [&](int t, auto centroid) {
           const float4 kk = tab[t];
-          const float dyw = kk.x - wy, dxw = kk.y - wx;
-          const float dyy = dyw * dyw;
-          // the Gaussian pair, once per (pixel, frame, tap, phase), feeds
-          // all four parities: 2^(dx (dx o0 + dy o2) + dy^2 o1)
-          const float wg = exp2_approx(fmaf(dxw, fmaf(dxw, og0, dyw * og2), dyy * og1));
-          const float wr = exp2_approx(fmaf(dxw, fmaf(dxw, or0, dyw * or2), dyy * or1));
-          const float dy0 = kk.x - sy0, dy1 = kk.x - sy1;
-          const float dx0 = kk.y - sxp0, dx1 = kk.y - sxp1;
+          float w0, w1, w2, w3;  // the parities' weights, z' = 0 and 3 green
+          if constexpr (kExact) {
+            // at each parity's parity-interpolated displacement
+            const float dya = kk.x - sy0, dyb = kk.x - sy1, dxa = kk.y - sxp0, dxb = kk.y - sxp1;
+            w0 = gauss(dxa, dya, og0, og1, og2);
+            w1 = gauss(dxb, dya, or0, or1, or2);
+            w2 = gauss(dxa, dyb, or0, or1, or2);
+            w3 = gauss(dxb, dyb, og0, og1, og2);
+          } else {
+            // the Gaussian pair at the block centre, once per (pixel,
+            // frame, tap, phase), feeds all four parities
+            const float dyw = kk.x - wy, dxw = kk.y - wx;
+            w0 = w3 = gauss(dxw, dyw, og0, og1, og2);
+            w1 = w2 = gauss(dxw, dyw, or0, or1, or2);
+          }
           const float2* p0 = sv + __float_as_int(kk.z);
           const float2 v0 = p0[0], v1 = p0[d.y], v2 = p0[d.z], v3 = p0[d.w];  // (value, certainty)
-          add_moments<kSlots>(a0, wg * v0.y, v0.x, dy0, dx0);
-          add_moments<kSlots>(a1, wr * v1.y, v1.x, dy0, dx1);
-          add_moments<kSlots>(a2, wr * v2.y, v2.x, dy1, dx0);
-          add_moments<kSlots>(a3, wg * v3.y, v3.x, dy1, dx1);
+          const float wc0 = w0 * v0.y, wc1 = w1 * v1.y, wc2 = w2 * v2.y, wc3 = w3 * v3.y;
+          if constexpr (!decltype(centroid)::value) {
+            float* const cells[4] = {a0, a1, a2, a3};
+            const float wcs[4] = {wc0, wc1, wc2, wc3}, vs[4] = {v0.x, v1.x, v2.x, v3.x};
+#pragma unroll
+            for (int z = 0; z < 4; ++z) {
+              cells[z][0] += wcs[z];
+              cells[z][3] += wcs[z] * vs[z];
+            }
+          } else if constexpr (kCBf16) {
+            const float ns = -(float)S;
+            add_moments_cbf16(a0, wc0, v0.x, kk.x, kk.y, ns, ryb0, rxb0);
+            add_moments_cbf16(a1, wc1, v1.x, kk.x, kk.y, ns, ryb0, rxb1);
+            add_moments_cbf16(a2, wc2, v2.x, kk.x, kk.y, ns, ryb1, rxb0);
+            add_moments_cbf16(a3, wc3, v3.x, kk.x, kk.y, ns, ryb1, rxb1);
+          } else {
+            const float dy0 = kk.x - my0, dy1 = kk.x - my1, dx0 = kk.y - mxp0, dx1 = kk.y - mxp1;
+            add_moments<kSlots>(a0, wc0, v0.x, dy0, dx0, ry, rx);
+            add_moments<kSlots>(a1, wc1, v1.x, dy0, dx1, ry, rx);
+            add_moments<kSlots>(a2, wc2, v2.x, dy1, dx0, ry, rx);
+            add_moments<kSlots>(a3, wc3, v3.x, dy1, dx1, ry, rx);
+          }
+        };
+        const int te = taps.group_end[g], tc = kPrune ? taps.centroid_end[g] : te;
+#pragma unroll 1  // unrolled, the tap loop holds more registers and runs no faster
+        for (int t = g ? taps.group_end[g - 1] : 0; t < tc; ++t) tap(t, std::true_type{});
+        if constexpr (kPrune) {
+#pragma unroll 1
+          for (int t = tc; t < te; ++t) tap(t, std::false_type{});
         }
       }
+    }
+  }
+  if constexpr (kSlots == 6) {
+    // the shared residual folded into m01 and m02 (fast_merge.py:811-831):
+    // m01 -= S R0 / m00_0 m00, R0 and m00_0 the cell's residual sum and
+    // weight sum at phase 0, passed from the thread holding phase 0
+    // through the (now idle) ring. A cell no centroid tap reached has R0 =
+    // 0 and keeps its zero m01, m02, as the JAX function skips it.
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    float* xs = reinterpret_cast<float*>(&ring[0][0]);
+    const int pix = ty * kTW + tx;
+    if (ph == 0) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) xs[((pair1 * 6 + c) * 3 + k) * L::kPix + pix] = acc[c][k == 0 ? 0 : 3 + k];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      const float* x0 = xs + (pair1 * 6 + c) * 3 * L::kPix + pix;
+      const float m0 = x0[0], r0y = x0[L::kPix], r0x = x0[2 * L::kPix];
+      const float inv0 = m0 > 1e-8f ? 1.0f / fmaxf(m0, 1e-8f) : 0.0f;
+      acc[c][1] -= (float)S * r0y * inv0 * acc[c][0];
+      acc[c][2] -= (float)S * r0x * inv0 * acc[c][0];
     }
   }
   if (i >= hh || j >= hw) return;
@@ -805,7 +1041,7 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
       const int row = (z >> 1) * S + py, col = (z & 1) * S + px;
       float* dst = out + (((long long)row * 2 * S + col) * 3 + ch) * plane + out_pix;
 #pragma unroll
-      for (int k2 = 0; k2 < kSlots; ++k2) dst[k2 * slot] = acc[6 * pp + c][k2];
+      for (int k2 = 0; k2 < kOut; ++k2) dst[k2 * slot] = acc[6 * pp + c][k2];
     }
   }
 }
@@ -823,22 +1059,22 @@ int max_frames(int halo, int form) {
   return (int)(227 * 1024 / (halo <= 1 ? smem_bytes<S, 1>(1) : smem_bytes<S, 2>(1)));
 }
 
-template <int S, int kSlots>
+template <int S, int kSlots, bool kExact, bool kCBf16, bool kPrune>
 int launch_cells(const void* planes, const void* residual, const void* certainty,
                  const void* omega, const void* omega_rb, void* out, int frames, int hh,
-                 int hw, int halo, bool green_diag, float rb, const TapTable& taps,
-                 cudaStream_t stream) {
+                 int hw, int halo, bool green_diag, float rb, bool block,
+                 const TapTable& taps, cudaStream_t stream) {
   using L = CellShape<S, kSlots>;
   const dim3 grid((hw + L::kTW - 1) / L::kTW, (hh + L::kTH - 1) / L::kTH);
-  merge_raw_cells_kernel<S, kSlots><<<grid, L::kThreads, 0, stream>>>(
+  merge_raw_cells_kernel<S, kSlots, kExact, kCBf16, kPrune><<<grid, L::kThreads, 0, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(out), frames, hh, hw, halo, rb,
-      green_diag ? 1 : 0, taps);
+      green_diag ? 1 : 0, block ? 1 : 0, taps);
   return (int)cudaGetLastError();
 }
 
-template <int S, int kHalo, bool kGreenDiag, bool kChains>
+template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16>
 int launch(const void* planes, const void* residual, const void* certainty,
            const void* omega, const void* omega_rb, void* m00, void* cy,
            void* cx, void* b0, int frames, int hh, int hw, float rb,
@@ -847,13 +1083,13 @@ int launch(const void* planes, const void* residual, const void* certainty,
   const size_t bytes = smem_bytes<S, kHalo>(frames);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_raw_kernel<S, kHalo, kGreenDiag, kChains>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 block(kTileW, L::kTileH, L::kZ);
   const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kTileH - 1) / L::kTileH, 1);
-  merge_raw_kernel<S, kHalo, kGreenDiag, kChains><<<grid, block, bytes, stream>>>(
+  merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(m00),
@@ -863,26 +1099,37 @@ int launch(const void* planes, const void* residual, const void* certainty,
 }
 
 template <int S>
-int launch_scale(int form, int halo, bool green_diag, const void* planes, const void* residual,
-                 const void* certainty, const void* omega, const void* omega_rb, void* out,
-                 int frames, int hh, int hw, float rb, const TapTable& taps,
-                 cudaStream_t stream) {
+int launch_scale(int form, int flags, int halo, bool green_diag, const void* planes,
+                 const void* residual, const void* certainty, const void* omega,
+                 const void* omega_rb, void* out, int frames, int hh, int hw, float rb,
+                 const TapTable& taps, cudaStream_t stream) {
+  const bool exact = flags & kExactWeights, bf16 = flags & kBf16Flag;
   if (form == 2 || form == 3) {
-    return form == 2 ? launch_cells<S, 9>(planes, residual, certainty, omega, omega_rb, out, frames,
-                                          hh, hw, halo, green_diag, rb, taps, stream)
-                     : launch_cells<S, 4>(planes, residual, certainty, omega, omega_rb, out, frames,
-                                          hh, hw, halo, green_diag, rb, taps, stream);
+    // the centroid is pruned where a group has taps outside it (form 3)
+    bool prune = false;
+    for (int g = 0; g < 4; ++g) prune = prune || taps.centroid_end[g] != taps.group_end[g];
+#define MFSR_CELLS(K, E, B, P)                                                                       \
+  launch_cells<S, K, E, B, P>(planes, residual, certainty, omega, omega_rb, out, frames, hh, hw, halo, \
+                              green_diag, rb, (flags & kBlockFlag) != 0, taps, stream)
+#define MFSR_PRUNE(K, E, B) (prune ? MFSR_CELLS(K, E, B, true) : MFSR_CELLS(K, E, B, false))
+    if (form == 2) return exact ? MFSR_CELLS(9, true, false, false) : MFSR_CELLS(9, false, false, false);
+    if (flags & kSharedFlag) return exact ? MFSR_PRUNE(6, true, false) : MFSR_PRUNE(6, false, false);
+    if (bf16) return exact ? MFSR_PRUNE(4, true, true) : MFSR_PRUNE(4, false, true);
+    return exact ? MFSR_PRUNE(4, true, false) : MFSR_PRUNE(4, false, false);
+#undef MFSR_PRUNE
+#undef MFSR_CELLS
   }
   // form 0's four outputs (m00, cy, cx, b0) one after another; form 1's
   // two (num, den) are its b0 and m00
   float* base = static_cast<float*>(out);
   const long long slot = (long long)4 * S * S * 3 * hh * hw;
-#define MFSR_LAUNCH(H, G, C, M00, CY, CX, B0)                                                 \
-  launch<S, H, G, C>(planes, residual, certainty, omega, omega_rb, M00, CY, CX, B0, frames, hh, \
-                     hw, rb, taps, stream)
-#define MFSR_FORM(H, G)                                                                        \
-  (form == 0 ? MFSR_LAUNCH(H, G, true, base, base + slot, base + 2 * slot, base + 3 * slot)   \
-             : MFSR_LAUNCH(H, G, false, base + slot, nullptr, nullptr, base))
+#define MFSR_LAUNCH(H, G, C, B, M00, CY, CX, B0)                                                 \
+  launch<S, H, G, C, B>(planes, residual, certainty, omega, omega_rb, M00, CY, CX, B0, frames, hh, \
+                        hw, rb, taps, stream)
+#define MFSR_FORM(H, G)                                                                            \
+  (form == 0 ? MFSR_LAUNCH(H, G, true, false, base, base + slot, base + 2 * slot, base + 3 * slot) \
+   : bf16    ? MFSR_LAUNCH(H, G, false, true, base + slot, nullptr, nullptr, base)                 \
+             : MFSR_LAUNCH(H, G, false, false, base + slot, nullptr, nullptr, base))
   if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
   if (halo == 1) return green_diag ? MFSR_FORM(1, true) : MFSR_FORM(1, false);
   return green_diag ? MFSR_FORM(2, true) : MFSR_FORM(2, false);
@@ -902,15 +1149,26 @@ extern "C" {
 // b0, b1, b2), form 3 (m00, m01, m02, b0). table is a HOST int array: the channel of each
 // plane q = 2*qa + qb (4, a Bayer pattern: green on one diagonal, R and B
 // on the other), the end of each tap-parity group (4), then n_taps rows
-// (ky, kx) sorted by group g = 2*(ky%2) + (kx%2).
+// (ky, kx, aux) sorted by group g = 2*(ky%2) + (kx%2), aux = c + 2 n with
+// c = 1 where the tap feeds the centroid moments (form 3's
+// centroid_prune; 1 for every tap without it; within a group those with
+// c = 1 first) and n its index in the tap list. flags: kExactWeights (forms 2, 3), kBf16Flag (form 1: the
+// bfloat16 order 0; form 3: bfloat16 centroid products, not with the
+// block or shared centroid), kBlockFlag, kSharedFlag (form 3).
 int mfsr_merge_raw(const void* planes, const void* residual,
                    const void* certainty, const void* omega,
                    const void* omega_rb, void* out, int frames, int hh, int hw,
                    int scale, int form, float rb, const void* table, int n_taps,
-                   void* stream) {
+                   int flags, void* stream) {
   if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || hh < 1 || hw < 1 ||
       reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
     return (int)cudaErrorInvalidValue;  // the residual is copied as float2
+  }
+  const int allowed[4] = {0, kBf16Flag, kExactWeights,
+                          kExactWeights | kBf16Flag | kBlockFlag | kSharedFlag};
+  if (form < 0 || form > 3 || (flags & ~allowed[form]) ||
+      ((flags & kBf16Flag) && (flags & (kBlockFlag | kSharedFlag)) && form == 3)) {
+    return (int)cudaErrorInvalidValue;
   }
   const int* tab = static_cast<const int*>(table);
   TapTable taps;
@@ -931,23 +1189,36 @@ int mfsr_merge_raw(const void* planes, const void* residual,
   if (taps.group_end[3] != n_taps) return (int)cudaErrorInvalidValue;
   const int* rows = tab + 8;
   int halo = 1;
+  bool listed[kMaxTaps] = {};
+  for (int g = 0; g < 4; ++g) taps.centroid_end[g] = taps.group_end[g];
   for (int t = 0; t < n_taps; ++t) {
-    const int ky = rows[2 * t], kx = rows[2 * t + 1];
-    if (ky < -4 || ky > 4 || kx < -4 || kx > 4) return (int)cudaErrorInvalidValue;
+    const int ky = rows[3 * t], kx = rows[3 * t + 1], aux = rows[3 * t + 2];
+    const int n = aux >> 1;
+    if (ky < -4 || ky > 4 || kx < -4 || kx > 4 || aux < 0 || n >= n_taps || listed[n]) {
+      return (int)cudaErrorInvalidValue;
+    }
     const int g = 2 * (ky & 1) + (kx & 1);
     if (t < (g ? taps.group_end[g - 1] : 0) || t >= taps.group_end[g]) {
       return (int)cudaErrorInvalidValue;
     }
     taps.ky[t] = (signed char)ky;
     taps.kx[t] = (signed char)kx;
+    // within a group the centroid's taps come first
+    if (aux & 1) {
+      if (taps.centroid_end[g] != taps.group_end[g]) return (int)cudaErrorInvalidValue;
+    } else if (taps.centroid_end[g] == taps.group_end[g]) {
+      taps.centroid_end[g] = t;
+    }
+    taps.order[n] = (unsigned char)t;
+    listed[n] = true;
     for (int a = 0; a < 2; ++a) {
       halo = std::max({halo, std::abs((a + ky) >> 1), std::abs((a + kx) >> 1)});
     }
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MFSR_SCALE(S)                                                                      \
-  launch_scale<S>(form, halo, green_diag, planes, residual, certainty, omega, omega_rb, out, \
-                  frames, hh, hw, rb, taps, s)
+#define MFSR_SCALE(S)                                                                           \
+  launch_scale<S>(form, flags, halo, green_diag, planes, residual, certainty, omega, omega_rb, \
+                  out, frames, hh, hw, rb, taps, s)
   switch (scale) {
     case 1: return MFSR_SCALE(1);
     case 2: return MFSR_SCALE(2);

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel multi_frame_super_resolution_tpu/pallas_ops/
 // tile_warp.py::tile_warp_pallas (kernel body _make_kernel), which DMAs
-// one shifted T x T block per tile. The kernel has two index maps over
+// one shifted T x T block per tile. The kernel has three index maps over
 // planes (B, N, H, W) whose N planes share the shift field
 // shifts (B, nty, ntx, 2) of their batch entry:
 //
@@ -17,6 +17,19 @@
 //     out[y, x] = img[clamp(y + sy(ty(y), tx(x')), 0, H-1), x']
 //   The y-shift comes from the SOURCE column's tile, as the selector
 //   matmul's y pass (banded by column tile) followed by its x pass gives.
+//
+//   one-hot map (the function of the pipelines' warp_matmul=False,
+//   ops/warp_fast.py::tile_warp_select: a row pass by the y-shift map,
+//   then a column pass by the x-shift map, shifts clipped to +-bound):
+//     out[y, x] = img[iy(y, ix(y, x)), ix(y, x)]
+//   with each index the one-hot select's along its axis p for the shift
+//   map s(p) of its line: clamp(p + s(p)) for windows 2 bound + 1 <= 13,
+//   else the two-level decomposition s = c q + r, 0 <= r < c, c =
+//   round(sqrt(2 bound + 1)) (6 at bound 16): clamp(p + r(p) + c q(p')),
+//   p' = min(p + r(p), n - 1). Where a line's shift changes within c
+//   positions (a tile seam) this differs from clamp(p + s(p)), by design
+//   of that form. The plain version is ops/warp_fast.py::
+//   tile_warp_select; the map costs two more shift reads an element.
 //
 // Bound: bytes. Each output value is one 4-byte read and one 4-byte
 // write: at the RAW path's shapes (4 x 4 planes of 128 x 256) 4.2 MB,
@@ -55,6 +68,8 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -66,6 +81,20 @@ constexpr int kPlanes = 5;
 constexpr int kBlockX = 32;  // threads along x (kBlockX * kGroup columns)
 constexpr int kBlockY = 8;   // rows of a block
 
+// The one-hot select's source index along an axis of n positions at p,
+// s(.) the line's clipped shift map: direct below coarse = 0, else the
+// two-level form (floor division: q rounds toward -infinity)
+template <typename ShiftAt>
+__device__ __forceinline__ int onehot_index(int p, int n, int coarse, ShiftAt shift_at) {
+  const int s = shift_at(p);
+  if (!coarse) return min(max(p + s, 0), n - 1);
+  const auto floor_div = [&](int v) { return v >= 0 ? v / coarse : -((coarse - 1 - v) / coarse); };
+  const int pr = p + s - coarse * floor_div(s);  // p + r(p), r in [0, coarse)
+  return min(max(pr + coarse * floor_div(shift_at(min(pr, n - 1))), 0), n - 1);
+}
+
+constexpr int kSeparable = 0, kBlock = 1, kOnehot = 2;  // index maps
+
 // kVec: rows are 16-byte aligned, so a thread's 4 outputs of a plane are
 // one float4 store. kPow2: the tile size is 1 << lg_t, so tile indices
 // are shifts.
@@ -73,7 +102,7 @@ template <bool kVec, bool kPow2>
 __global__ void __launch_bounds__(kBlockX * kBlockY)
 tile_warp_kernel(const float* __restrict__ img, const int* __restrict__ shifts,
                  float* __restrict__ out, int n, int h, int w, int t, int lg_t,
-                 int nty, int ntx, int bound, int block_map) {
+                 int nty, int ntx, int bound, int index_map, int coarse) {
   const int x0 = (blockIdx.x * kBlockX + threadIdx.x) * kGroup;
   const int y = blockIdx.y * kBlockY + threadIdx.y;
   const int b = blockIdx.z;
@@ -88,10 +117,15 @@ tile_warp_kernel(const float* __restrict__ img, const int* __restrict__ shifts,
     const int x = min(x0 + k, w - 1);  // past the row's end: a valid offset, never stored
     const int tx = tile_of(x);
     int ys, xs;
-    if (block_map) {
+    if (index_map == kBlock) {
       const int* s = sh + (ty * ntx + tx) * 2;
       ys = min(max(ty * t + __ldg(s), 0), h - t) + (y - ty * t);
       xs = min(max(tx * t + __ldg(s + 1), 0), w - t) + (x - tx * t);
+    } else if (index_map == kOnehot) {
+      const auto clip = [&](int v) { return min(max(v, -bound), bound); };
+      xs = onehot_index(x, w, coarse, [&](int c) { return clip(__ldg(sh + (ty * ntx + tile_of(c)) * 2 + 1)); });
+      const int txs = tile_of(xs);
+      ys = onehot_index(y, h, coarse, [&](int r) { return clip(__ldg(sh + (tile_of(r) * ntx + txs) * 2)); });
     } else {
       const int sx = min(max(__ldg(sh + (ty * ntx + tx) * 2 + 1), -bound), bound);
       xs = min(max(x + sx, 0), w - 1);
@@ -138,15 +172,21 @@ extern "C" {
 // Launches the warp on `stream` and returns cudaGetLastError() (0 on
 // success). img and out are contiguous float32 (B, N, H, W); shifts is
 // contiguous int32 (B, nty, ntx, 2) with nty = ceil(H/T), ntx = ceil(W/T).
-// block_map != 0 selects the block map (H, W multiples of T), else the
-// separable map with shifts clipped to +-bound.
+// index_map selects the separable map (0, shifts clipped to +-bound),
+// the block map (1, H and W multiples of T) or the one-hot map (2, shifts
+// clipped to +-bound).
 int mfsr_tile_warp(const void* img, const void* shifts, void* out, int batch,
                    int n, int h, int w, int t, int nty, int ntx, int bound,
-                   int block_map, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 0 || h < 1 || w < 1 || t < 1 ||
-      nty * t < h || ntx * t < w || (block_map && (h % t || w % t))) {
+                   int index_map, void* stream) {
+  if (batch < 1 || batch > 65535 || n < 0 || h < 1 || w < 1 || t < 1 || bound < 0 ||
+      nty * t < h || ntx * t < w || index_map < 0 || index_map > 2 ||
+      (index_map == kBlock && (h % t || w % t))) {
     return (int)cudaErrorInvalidValue;
   }
+  // the one-hot form's coarse step past a 13-wide window (ops/warp_fast.py::
+  // _axis_onehot_shift): round(sqrt(2 bound + 1)), at least 2
+  const int coarse =
+      2 * bound + 1 <= 13 ? 0 : std::max(2, (int)std::lround(std::sqrt(2.0 * bound + 1.0)));
   const dim3 block(kBlockX, kBlockY);
   const int groups = (w + kGroup - 1) / kGroup;
   const dim3 grid((groups + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY, batch);
@@ -161,7 +201,7 @@ int mfsr_tile_warp(const void* img, const void* shifts, void* out, int batch,
   float* dst = static_cast<float*>(out);
 #define MFSR_LAUNCH(V, P)                                                                      \
   tile_warp_kernel<V, P><<<grid, block, 0, s>>>(src, sh, dst, n, h, w, t, lg_t, nty, ntx, bound, \
-                                                block_map)
+                                                index_map, coarse)
   if (vec) {
     if (pow2) MFSR_LAUNCH(true, true); else MFSR_LAUNCH(true, false);
   } else {

@@ -1,7 +1,8 @@
 """Wrapper of the Hopper merge kernel (csrc/merge.cu), the counterpart of
 pallas_ops/merge.py::merge_fast_pallas and of the default RGB branch's
 merge (models/fast_merge.py::merge_burst_fast in the phase layout, order
-0 or the order-1 moments of the plugin solve (4) or the exact solve (9)).
+0 in float32 or bfloat16, or the order-1 moments of the plugin solve (4)
+or the exact solve (9)).
 
 On CUDA tensors it launches the kernel or raises; it never falls back.
 On CPU tensors it computes the kernel's plain PyTorch version,
@@ -87,6 +88,7 @@ def merge_fast(
     order: int = 0,
     prune_exp: float = 6.0,
     moment_slots: int = 4,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Static-tap merge: warped (F, H, W, 3), residual (F, H, W, 2),
     certainty (F, H, W, 3), omega_inv (H, W, 3), all float32 and
@@ -96,8 +98,9 @@ def merge_fast(
     or with ``moment_slots=9`` the exact solve's nine (see
     fast_merge.merge_burst_fast). Taps are those of
     fast_merge._active_taps at ``prune_exp``; the defaults are
-    merge_fast_pallas's. On CUDA the outputs are views of one
-    allocation."""
+    merge_fast_pallas's. ``bf16`` (order 0; order 1 ignores it):
+    bfloat16 products and per-frame sums (the kernel's form 4, the phase
+    layout only). On CUDA the outputs are views of one allocation."""
     if warped.ndim != 4:
         raise ValueError(f"warped must be (F, H, W, 3), got {tuple(warped.shape)}")
     f, h, w = warped.shape[:3]
@@ -117,11 +120,14 @@ def merge_fast(
     r_taps = radius + math.ceil(residual_bound)
     if r_taps > _MAX_TAP_RADIUS:
         raise ValueError(f"tap radius {r_taps} exceeds the kernel's {_MAX_TAP_RADIUS}")
+    bf16 = bf16 and order == 0
+    if bf16 and not phase_output:
+        raise ValueError("the bf16 merge form writes the phase layout: pass phase_output=True")
 
     if dev.type == "cpu":
         return merge_burst_fast(
             warped, residual, certainty, omega_inv, scale, radius,
-            residual_bound, k_max, phase_output, order, prune_exp, moment_slots,
+            residual_bound, k_max, phase_output, order, prune_exp, moment_slots, bf16,
         )
 
     # cached per key: with the list rebuilt in numpy per call, a call took
@@ -133,7 +139,7 @@ def merge_fast(
     if order == 1:
         form, n_out = (2, 4) if moment_slots == 4 else (3, 9)
     else:
-        form, n_out = int(phase_output), 2
+        form, n_out = (4 if bf16 else int(phase_output)), 2
     shape = (scale, scale, 3, h, w) if phase_output else (h * scale, w * scale, 3)
     out = torch.empty((n_out,) + shape, dtype=torch.float32, device=dev)
     launch(

@@ -1,9 +1,11 @@
 """Wrapper of the Hopper RAW merge kernels (csrc/merge_raw.cu): the
 plane-domain merge of the RAW path at scales 1-4 in four forms: order 1
-as the certless plugin branch (the main path), order 0, order 1 with
-the exact solve's 9 moments, and order 1 with the per-cell plugin
-moments (centroid_cert); each reads R/B as colour differences when given
-a guide. The JAX package computes it outside Pallas
+as the certless plugin branch (the main path), order 0 (float32 or
+bfloat16), order 1 with the exact solve's 9 moments, and order 1 with
+the per-cell plugin moments (centroid_cert or exact_weights, with the
+centroid knobs); the order-1 forms but the certless one take
+exact_weights. Each reads R/B as colour differences when given a
+guide. The JAX package computes it outside Pallas
 (models/fast_merge.py::merge_burst_raw_planes); it has the skeleton of
 pallas_ops/merge.py::merge_fast_pallas.
 
@@ -29,6 +31,9 @@ from multi_frame_super_resolution_tpu_torch.kernels.build import (
     load_library,
 )
 from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
+    NINE_MOMENTS,
+    ORDER0,
+    PER_CELL,
     _active_taps,
     guided_planes,
     merge_burst_raw_planes,
@@ -47,7 +52,7 @@ def library() -> ctypes.CDLL:
     lib = bind(
         load_library(SOURCE), "mfsr_merge_raw",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
     )
     lib.mfsr_merge_raw_max_frames.argtypes = [ctypes.c_int] * 3
     lib.mfsr_merge_raw_max_frames.restype = ctypes.c_int
@@ -67,18 +72,31 @@ def is_bayer(cfa) -> bool:
     return sorted(q) == [0, 1, 1, 2] and (q[0] == q[3] == 1 or q[1] == q[2] == 1)
 
 
+# the variant bits of a launch (csrc/merge_raw.cu's flags)
+EXACT_WEIGHTS, BF16, BLOCK, SHARED = 1, 2, 4, 8
+
+
 @functools.lru_cache(maxsize=None)
-def tap_table(taps: tuple, cfa: tuple) -> np.ndarray:
+def tap_table(taps: tuple, cfa: tuple, centroid_taps: Optional[frozenset] = None) -> np.ndarray:
     """The kernel's host table (int32): the channel of each plane
     q = 2*qa + qb (4 values); the end of each tap-parity group
-    g = 2*(ky%2) + (kx%2) (4); then the taps as (ky, kx) rows, sorted by
-    group and in list order within it. Within a group a parity always
-    reads the same plane, and the taps feed the same two certless chains
-    (fast_merge._centroid_chain)."""
+    g = 2*(ky%2) + (kx%2) (4); then the taps as (ky, kx, aux) rows,
+    sorted by group, then those in ``centroid_taps`` (all taps when None:
+    the taps that feed the per-cell centroid) first, then in list order,
+    aux = c + 2 n with c = 1 for a centroid tap and n the tap's index in
+    the list (the bfloat16 order-0 loop runs in list order). Within a
+    group a parity always reads the same plane, and the taps feed the
+    same two certless chains (fast_merge._centroid_chain)."""
     chan = [int(cfa[q // 2][q % 2]) for q in range(4)]
-    groups = [[t for t in taps if 2 * (t[0] % 2) + t[1] % 2 == g] for g in range(4)]
+
+    def outside(t):
+        return centroid_taps is not None and t not in centroid_taps
+
+    listed = sorted(enumerate(taps), key=lambda nt: outside(nt[1]))  # stable: list order within
+    groups = [[(n, t) for n, t in listed if 2 * (t[0] % 2) + t[1] % 2 == g] for g in range(4)]
     ends = np.cumsum([len(grp) for grp in groups]).tolist()
-    rows = [k for grp in groups for t in grp for k in t]
+    rows = [k for grp in groups for n, t in grp
+            for k in (*t, int(not outside(t)) + 2 * n)]
     table = np.asarray(chan + ends + rows, np.int32)
     table.flags.writeable = False  # cached and shared by every call
     return table
@@ -100,17 +118,24 @@ def merge_raw(
     moment_slots: int = 4,
     guide: Optional[torch.Tensor] = None,
     centroid_cert: bool = False,
+    exact_weights: bool = False,
+    centroid_prune: Optional[float] = None,
+    centroid_bf16: bool = False,
+    centroid_block: bool = False,
+    centroid_shared_res: bool = False,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """RAW plane merge: planes (F, 2, 2, hh, hw), residual (F, hh, hw, 2)
     in RAW units, certainty (F, hh, hw, 3), omega_inv and omega_inv_rb
     (hh, hw, 3), and the optional guide (F, 2, 2, hh, hw), all float32
     and contiguous on one device -> the outputs of the form that
-    fast_merge.raw_merge_form(order, moment_slots, centroid_cert) names:
-    the certless (m00, cy, cx, b0); order 0's (num, den); the exact
-    solve's 9 moments; the per-cell (m00, m01, m02, b0); each (2s, 2s, 3,
-    hh, hw) (see fast_merge.merge_burst_raw_planes). With a guide, the
-    difference planes (fast_merge.guided_planes) are formed here in one
-    elementwise pass, on either device, and merged unguided. The kernel
+    fast_merge.raw_merge_form(order, moment_slots, centroid_cert,
+    exact_weights) names: the certless (m00, cy, cx, b0); order 0's (num,
+    den); the exact solve's 9 moments; the per-cell (m00, m01, m02, b0);
+    each (2s, 2s, 3, hh, hw), under the knobs of
+    fast_merge.merge_burst_raw_planes (dead ones ignored, as there). With
+    a guide, the difference planes (fast_merge.guided_planes) are formed
+    here in one elementwise pass, on either device, and merged unguided. The kernel
     takes scales 1-4, Bayer patterns and up to mfsr_merge_raw_max_frames
     frames (order 0 and the certless form; the 9-moment and per-cell
     forms take any number); on CUDA tensors anything else raises
@@ -124,15 +149,24 @@ def merge_raw(
     check_tensor("certainty", certainty, (f, hh, hw, 3), dev)
     check_tensor("omega_inv", omega_inv, (hh, hw, 3), dev)
     check_tensor("omega_inv_rb", omega_inv_rb, (hh, hw, 3), dev)
-    form = raw_merge_form(order, moment_slots, centroid_cert)
+    form = raw_merge_form(order, moment_slots, centroid_cert, exact_weights)
+    # the knobs each form reads (merge_burst_raw_planes ignores the others)
+    bf16 = bf16 and form == ORDER0
+    exact_weights = exact_weights and form in (NINE_MOMENTS, PER_CELL)
+    per_cell = form == PER_CELL
+    shared = per_cell and centroid_shared_res
+    block = per_cell and (centroid_block or shared)
+    centroid_bf16 = per_cell and centroid_bf16 and not block  # the block branch comes first
+    centroid_prune = centroid_prune if per_cell else None
     if guide is not None:
         check_tensor("guide", guide, (f, 2, 2, hh, hw), dev)
-        planes = guided_planes(planes, guide, cfa)
+        planes = guided_planes(planes, guide, cfa, bf16)
     if dev.type == "cpu":
         return merge_burst_raw_planes(
             planes, residual, certainty, omega_inv, omega_inv_rb, cfa, scale,
             radius, residual_bound, k_max, prune_exp, order, moment_slots,
-            centroid_cert=centroid_cert,
+            centroid_cert=centroid_cert, exact_weights=exact_weights, centroid_prune=centroid_prune,
+            centroid_bf16=centroid_bf16, centroid_block=block, centroid_shared_res=shared, bf16=bf16,
         )
     r_taps = radius + int(np.ceil(residual_bound))
     taps = _active_taps(r_taps, residual_bound, scale, k_max, prune_exp)
@@ -151,13 +185,17 @@ def merge_raw(
     # built once per (taps, pattern): rebuilt per call it held a call to
     # 0.66 ms against the first kernel's 0.18 ms (NVIDIA H100 80GB HBM3,
     # 700.00 W)
-    table = tap_table(tuple(taps), tuple(tuple(int(c) for c in row) for row in cfa))
+    centroid_taps = None if centroid_prune is None else frozenset(
+        _active_taps(radius + int(np.ceil(residual_bound)), residual_bound, scale, k_max, centroid_prune))
+    table = tap_table(tuple(taps), tuple(tuple(int(c) for c in row) for row in cfa), centroid_taps)
+    flags = ((EXACT_WEIGHTS if exact_weights else 0) | (BF16 if bf16 or centroid_bf16 else 0)
+             | (BLOCK if block else 0) | (SHARED if shared else 0))
     out = torch.empty((n_out, 2 * scale, 2 * scale, 3, hh, hw), dtype=torch.float32, device=dev)
     launch(
         lib, "mfsr_merge_raw", dev,
         planes.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
         omega_inv.data_ptr(), omega_inv_rb.data_ptr(), out.data_ptr(),
-        f, hh, hw, scale, form, float(residual_bound), table.ctypes.data, len(taps),
+        f, hh, hw, scale, form, float(residual_bound), table.ctypes.data, len(taps), flags,
     )
     LAUNCHES[NAME] += 1
     return tuple(out.unbind(0))

@@ -1,13 +1,15 @@
 """Static-tap kernel-regression merges (counterpart of models/fast_merge.py):
 the plain PyTorch versions of the merge kernels.
 
-- ``merge_burst_fast``: the RGB merge, order 0 and the order-1 moments
-  of the plugin solve (4 slots) or of the exact 3x3 solve (9 slots)
+- ``merge_burst_fast``: the RGB merge, order 0 (in float32, or with
+  bfloat16 products and accumulation) and the order-1 moments of the
+  plugin solve (4 slots) or of the exact 3x3 solve (9 slots)
   (kernels/merge.py, csrc/merge.cu);
-- ``merge_burst_raw_planes``: the RAW plane-domain merge: order 0, and
-  order 1 as the certless plugin branch (4 slots), the per-cell plugin
-  branch (4 slots, ``centroid_cert``) or the exact solve's 9 moments
-  (kernels/merge_raw.py, csrc/merge_raw.cu); R/B read as colour
+- ``merge_burst_raw_planes``: the RAW plane-domain merge: order 0 (float32
+  or bfloat16), and order 1 as the certless plugin branch (4 slots), the
+  per-cell plugin branch (4 slots, ``centroid_cert`` or
+  ``exact_weights``, with the centroid knobs) or the exact solve's 9
+  moments (kernels/merge_raw.py, csrc/merge_raw.cu); R/B read as colour
   differences against ``green_guide_planes`` when given a guide.
 
 Frames arrive warped into reference geometry by their per-tile integer
@@ -66,6 +68,7 @@ def merge_burst_fast(
     order: int = 0,
     prune_exp: float = 6.0,
     moment_slots: int = 4,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Merge tile-warped RGB frames onto the scale-x output grid.
 
@@ -84,6 +87,12 @@ def merge_burst_fast(
     The frame axis is a batch dimension: each frame's taps are summed in
     tap order and the frames are then added in order, the summation
     order of the JAX scan.
+
+    ``bf16`` (order 0; order 1 ignores it, as the JAX function does): the
+    values and certainties are rounded to bfloat16, each weight is
+    evaluated in float32 and rounded, the products w c and v (w c) and a
+    frame's sums over the taps are bfloat16, and the frames are added in
+    float32 (fast_merge.py:134-136, :165-195).
     """
     if order == 1 and not phase_output:
         raise ValueError("the order-1 merge writes the phase layout: pass phase_output=True")
@@ -95,13 +104,14 @@ def merge_burst_fast(
     if order == 1 and moment_slots not in (4, 9):
         raise ValueError(f"the order-1 merge returns 4 or 9 moment slots, got {moment_slots}")
     n_acc = moment_slots if order == 1 else 2
+    acc_dt = torch.bfloat16 if bf16 and order == 0 else torch.float32
 
     oxx = omega_inv[..., 0]
     oyy = omega_inv[..., 1]
     oxy = omega_inv[..., 2]
     # channel-leading planes, edge-padded once: every tap is a view
-    img = _pad_last2(torch.movedim(warped, -1, 1), r_taps, r_taps)  # (F, 3, H+2r, W+2r)
-    cert = _pad_last2(torch.movedim(certainty, -1, 1), r_taps, r_taps)
+    img = _pad_last2(torch.movedim(warped, -1, 1).to(acc_dt), r_taps, r_taps)  # (F, 3, H+2r, W+2r)
+    cert = _pad_last2(torch.movedim(certainty, -1, 1).to(acc_dt), r_taps, r_taps)
     res_y = residual[..., 0].clamp(-residual_bound, residual_bound)  # (F, H, W)
     res_x = residual[..., 1].clamp(-residual_bound, residual_bound)
 
@@ -122,7 +132,7 @@ def merge_burst_fast(
                 dx = dx0 - float(phi[px] * s)
                 wgt = torch.exp(
                     -0.5 * (dx * dx * oxx + dy * dy * oyy + 2.0 * dx * dy * oxy)
-                )
+                ).to(acc_dt)
                 cw = wgt[:, None] * cert_k
                 cwv = val * cw
                 if order == 1 and n_acc == 4:
@@ -143,7 +153,7 @@ def merge_burst_fast(
 
     def finish(acc_k):
         # (s, s, F, 3, H, W) -> frames summed in order -> (s, s, 3, H, W)
-        stack = torch.stack([torch.stack(row, 0) for row in acc_k], 0)
+        stack = torch.stack([torch.stack(row, 0) for row in acc_k], 0).float()
         total = stack[:, :, 0]
         for i in range(1, f):
             total = total + stack[:, :, i]
@@ -266,27 +276,36 @@ def green_guide_planes(planes: torch.Tensor, cfa) -> torch.Tensor:
     return torch.stack([torch.stack(row, 1) for row in out], 1)
 
 
-def guided_planes(planes: torch.Tensor, guide: torch.Tensor, cfa) -> torch.Tensor:
+def guided_planes(planes: torch.Tensor, guide: torch.Tensor, cfa, bf16: bool = False) -> torch.Tensor:
     """The planes a guided merge reads: value - guide at R/B sites, the
     value at green ones. The JAX function subtracts before its static
     shift, so merging these planes unguided is its guided merge, bit for
-    bit (fast_merge.py:464-465, :691-692)."""
+    bit (fast_merge.py:464-465, :691-692). With ``bf16`` the difference
+    is taken of the bfloat16-rounded value and guide and rounded, as the
+    JAX function's bf16 merge takes it (:370-374); the planes stay
+    float32, holding bfloat16 values at R/B sites."""
     rb = _const(tuple(int(c) != 1 for row in cfa for c in row), planes.device, torch.bool)
-    return torch.where(rb.reshape(2, 2, 1, 1), planes - guide, planes)
+    if bf16:
+        diff = (planes.to(torch.bfloat16) - guide.to(torch.bfloat16)).float()
+    else:
+        diff = planes - guide
+    return torch.where(rb.reshape(2, 2, 1, 1), diff, planes)
 
 
 # the forms of the RAW merge (csrc/merge_raw.cu's form numbers)
 CERTLESS, ORDER0, NINE_MOMENTS, PER_CELL = 0, 1, 2, 3
 
 
-def raw_merge_form(order: int, moment_slots: int = 4, centroid_cert: bool = False) -> int:
-    """The form of the RAW merge that (order, moment_slots, centroid_cert)
-    select: CERTLESS (order 1, 4 slots, no certainty in the centroid:
-    slots 1 and 2 hold the finished centroid, the JAX package's
-    ``_certless``), ORDER0, NINE_MOMENTS (9 slots; centroid_cert has no
-    effect there) or PER_CELL (order 1, 4 slots, centroid_cert: raw m01,
-    m02). The wrapper launches this form and the pipeline reads the
-    layout from it, so the two cannot disagree."""
+def raw_merge_form(order: int, moment_slots: int = 4, centroid_cert: bool = False,
+                   exact_weights: bool = False) -> int:
+    """The form of the RAW merge that (order, moment_slots, centroid_cert,
+    exact_weights) select: CERTLESS (order 1, 4 slots, no certainty in
+    the centroid and block-centre weights: slots 1 and 2 hold the
+    finished centroid, the JAX package's ``_certless``), ORDER0,
+    NINE_MOMENTS (9 slots; centroid_cert has no effect there) or PER_CELL
+    (order 1, 4 slots, centroid_cert or exact_weights: raw m01, m02). The
+    wrapper launches this form and the pipeline reads the layout from it,
+    so the two cannot disagree."""
     if order == 0:
         return ORDER0
     if order != 1 or moment_slots not in (4, 9):
@@ -295,7 +314,7 @@ def raw_merge_form(order: int, moment_slots: int = 4, centroid_cert: bool = Fals
         )
     if moment_slots == 9:
         return NINE_MOMENTS
-    return PER_CELL if centroid_cert else CERTLESS
+    return PER_CELL if centroid_cert or exact_weights else CERTLESS
 
 
 def merge_burst_raw_planes(
@@ -314,12 +333,25 @@ def merge_burst_raw_planes(
     moment_slots: int = 4,
     guide: Optional[torch.Tensor] = None,
     centroid_cert: bool = False,
+    exact_weights: bool = False,
+    centroid_prune: Optional[float] = None,
+    centroid_bf16: bool = False,
+    centroid_block: bool = False,
+    centroid_shared_res: bool = False,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """CFA-aware merge on half-resolution planes in the phase layout
     (the JAX function with phase_output=True; fast_merge.py:301-511 and
     _merge_planes_order1). Four forms (raw_merge_form):
 
-    - ``order=0``: (num, den) = (sum w c v, sum w c);
+    - ``order=0``: (num, den) = (sum w c v, sum w c); with ``bf16``
+      (fast_merge.py:365-374, :445-474) the planes and certainties are
+      rounded to bfloat16 and each weight is evaluated in float32 and
+      rounded; each tap's frame sums are taken in float32 and rounded,
+      and the taps accumulate in bfloat16. The products follow the jitted
+      JAX function, whose compiler forms a product that feeds a float32
+      sum in float32 (exact for two bfloat16 factors): w c rounds to
+      bfloat16 only on the value's path, (w c) v and the den's w c do not;
     - ``order=1, moment_slots=4``: the certless plugin branch
       (centroid_cert=False): (m00, cy, cx, b0), the weight sum, the
       finalized centroid clip(m01 / sum w, +-2) and clip(m02 / sum w,
@@ -331,10 +363,23 @@ def merge_burst_raw_planes(
       position inside its Bayer block (a 2-tap bilinear blend with the
       neighbouring block, the oracle's per-pixel flow) plus phi; the
       weights keep the block-centre residual;
-    - ``order=1, moment_slots=4, centroid_cert=True``: the per-cell
-      plugin branch (fast_merge.py:767-795): (m00, m01, m02, b0) of the
-      9-moment form, m01 summed per tap as s (ky sum_f w c - sum_f rho_y
-      w c) (the compact rho fields), m02 likewise.
+    - ``order=1, moment_slots=4`` with ``centroid_cert`` or
+      ``exact_weights``: the per-cell plugin branch (fast_merge.py:
+      714-801): (m00, m01, m02, b0), m01 summed per tap as s (ky sum_f w
+      c - sum_f rho_y w c) (the compact rho fields), m02 likewise. Its
+      knobs, in the JAX branch order: ``centroid_prune`` (taps outside
+      _active_taps(..., centroid_prune) add only m00 and b0), then
+      ``centroid_block`` (rho = the block-centre residual + phi) and
+      ``centroid_shared_res`` (implies block: the residual sums taken at
+      phase 0 and folded into m01, m02 after the tap loop, each phase
+      with its own m00, fast_merge.py:811-831), else the compact rho
+      with ``centroid_bf16`` (rho and w c rounded to bfloat16, their
+      products, exact in float32, summed there: the jitted JAX
+      function's rounding).
+
+    ``exact_weights`` (order 1): each cell's Gaussian weight is evaluated
+    at its moments' parity-interpolated displacement, one weight per
+    parity, in place of the block-centre weights (fast_merge.py:695-703).
 
     ``guide`` (green_guide_planes of ``planes``): R/B sites read value -
     guide (guided_planes), so channels 0 and 2 hold R - G and B - G.
@@ -349,9 +394,10 @@ def merge_burst_raw_planes(
     ((a+ky)//2, (b+kx)//2) for output parity (a, b). Per tap, the frame
     axis is summed first and the sum then added to the accumulator, the
     JAX order."""
-    form = raw_merge_form(order, moment_slots, centroid_cert)
+    form = raw_merge_form(order, moment_slots, centroid_cert, exact_weights)
+    bf16 = bf16 and form == ORDER0  # order 1 ignores it, as in JAX
     if guide is not None:
-        planes = guided_planes(planes, guide, cfa)
+        planes = guided_planes(planes, guide, cfa, bf16)
     f, _, _, hh, hw = planes.shape
     s = scale
     nph = s * s
@@ -367,7 +413,19 @@ def merge_burst_raw_planes(
     phix_r = _const(tuple(phi_x.tolist()), dev).reshape(nph, 1, 1)
     pat = np.asarray(cfa)
     certless = form == CERTLESS
+    per_cell = form == PER_CELL
+    exact_weights = exact_weights and form != ORDER0
     n_out = {CERTLESS: 4, ORDER0: 2, NINE_MOMENTS: 9, PER_CELL: 4}[form]
+    # the per-cell centroid knobs (dead in the other forms, as in JAX)
+    shared = per_cell and centroid_shared_res
+    block = per_cell and (centroid_block or shared)
+    cbf16 = per_cell and centroid_bf16
+    ctaps = (
+        None if not per_cell or centroid_prune is None
+        else set(_active_taps(r_taps, residual_bound, s, k_max, centroid_prune))
+    )
+    n_slots = n_out + (2 if shared else 0)  # shared: the phase-0 residual sums
+    acc_dt = torch.bfloat16 if bf16 else torch.float32
 
     res_y = residual[..., 0].clamp(-residual_bound, residual_bound)  # (F, hh, hw)
     res_x = residual[..., 1].clamp(-residual_bound, residual_bound)
@@ -375,10 +433,10 @@ def merge_burst_raw_planes(
     om_rb = torch.movedim(omega_inv_rb, -1, 0)
     # plane and certainty reads are views of one edge-padded copy each
     pad = max(1, (r_taps + 1) // 2)
-    planes_p = _pad_last2(planes, pad, pad)
-    cert_p = _pad_last2(torch.movedim(certainty, -1, 1), pad, pad)  # (F, 3, ., .)
+    planes_p = _pad_last2(planes.to(acc_dt), pad, pad)
+    cert_p = _pad_last2(torch.movedim(certainty, -1, 1).to(acc_dt), pad, pad)  # (F, 3, ., .)
 
-    rho_y = rho_x = None
+    rho_y = rho_x = rho_yf = rho_xf = None
     if form in (NINE_MOMENTS, PER_CELL):
         # per parity a (b) the compact (s, F, hh, hw) query offsets: the
         # residual at phase row (column) p of the block, i + (a + phi[p] -
@@ -397,9 +455,10 @@ def merge_burst_raw_planes(
 
         rho_y = [parity_rho(res_y, a, "y") for a in (0, 1)]
         rho_x = [parity_rho(res_x, b, "x") for b in (0, 1)]
-        if form == NINE_MOMENTS:  # (nph, F, hh, hw), phase ph = py*s + px
-            rho_y = [r.repeat_interleave(s, dim=0) for r in rho_y]
-            rho_x = [r.repeat(s, 1, 1, 1) for r in rho_x]
+        # (nph, F, hh, hw), phase ph = py*s + px: the moments' (and the
+        # exact weights') displacement fields
+        rho_yf = [r.repeat_interleave(s, dim=0) for r in rho_y]
+        rho_xf = [r.repeat(s, 1, 1, 1) for r in rho_x]
 
     def quadp(dx, dy, om):
         return torch.exp(-0.5 * (dx * dx * om[0] + dy * dy * om[1] + 2.0 * dx * dy * om[2]))
@@ -408,24 +467,26 @@ def merge_burst_raw_planes(
         cell = store.setdefault(key, [None] * n)
         cell[i] = term if cell[i] is None else cell[i] + term
 
-    cells = {}  # (a, b, ch) -> n_out sums over (nph, hh, hw)
+    cells = {}  # (a, b, ch) -> n_slots sums over (nph, hh, hw)
     chains = {}  # certless: chain id -> [sum w, folded m01, folded m02]
+    sf = float(s)
     for ky, kx in taps:
-        dy_w = ((ky - res_y) * s)[None] - phiy_b  # (nph, F, hh, hw)
-        dx_w = ((kx - res_x) * s)[None] - phix_b
-        w_g = quadp(dx_w, dy_w, om_g)
-        w_rb = quadp(dx_w, dy_w, om_rb)
+        if not exact_weights:
+            dy_w = ((ky - res_y) * s)[None] - phiy_b  # (nph, F, hh, hw)
+            dx_w = ((kx - res_x) * s)[None] - phix_b
+            w_g = quadp(dx_w, dy_w, om_g).to(acc_dt)
+            w_rb = quadp(dx_w, dy_w, om_rb).to(acc_dt)
         if certless:
             for cid, wf in ((("g", (ky + kx) % 2), w_g), (("rb", ky % 2, kx % 2), w_rb)):
                 red_w = wf.sum(1)
                 red_ry = (res_y * wf).sum(1)
                 red_rx = (res_x * wf).sum(1)
                 add(chains, cid, 0, red_w)
-                add(chains, cid, 1, float(s) * ((float(ky) - phiy_r) * red_w - red_ry))
-                add(chains, cid, 2, float(s) * ((float(kx) - phix_r) * red_w - red_rx))
-        if form == NINE_MOMENTS:
-            dy_m = [float(s) * (float(ky) - r) for r in rho_y]
-            dx_m = [float(s) * (float(kx) - r) for r in rho_x]
+                add(chains, cid, 1, sf * ((float(ky) - phiy_r) * red_w - red_ry))
+                add(chains, cid, 2, sf * ((float(kx) - phix_r) * red_w - red_rx))
+        if form == NINE_MOMENTS or exact_weights:
+            dy_m = [sf * (float(ky) - r) for r in rho_yf]
+            dx_m = [sf * (float(kx) - r) for r in rho_xf]
         for a in (0, 1):
             qa, da = (a + ky) % 2, (a + ky) // 2
             for b in (0, 1):
@@ -433,23 +494,61 @@ def merge_burst_raw_planes(
                 ch = int(pat[qa][qb])
                 val = _shifted(planes_p[:, qa, qb], pad, da, db, hh, hw)
                 cert_s = _shifted(cert_p[:, ch], pad, da, db, hh, hw)
-                wc = (w_g if ch == 1 else w_rb) * cert_s[None]
+                if exact_weights:
+                    w = quadp(dx_m[b], dy_m[a], om_g if ch == 1 else om_rb)
+                else:
+                    w = w_g if ch == 1 else w_rb
+                key = (a, b, ch)
+                if form == ORDER0 and bf16:
+                    # the compiled JAX function's rounding: a product that
+                    # feeds a float32 sum is formed in float32 (exact for
+                    # two bfloat16 factors), so w c rounds only on the
+                    # value's path; each tap's frame sums round
+                    wc32 = w.float() * cert_s[None].float()
+                    add(cells, key, 0, (wc32.to(acc_dt).float() * val[None].float()).sum(1).to(acc_dt), n_slots)
+                    add(cells, key, 1, wc32.sum(1).to(acc_dt), n_slots)
+                    continue
+                wc = w * cert_s[None]
                 wcv = wc * val[None]
                 if form == ORDER0:
-                    terms = (wcv, wc)
-                elif certless:
+                    add(cells, key, 0, wcv.sum(1), n_slots)
+                    add(cells, key, 1, wc.sum(1), n_slots)
+                    continue
+                if certless:
                     terms = (wc, None, None, wcv)
-                elif form == PER_CELL:
+                elif per_cell and ctaps is not None and (ky, kx) not in ctaps:
+                    # outside the centroid's taps: m00 and b0 only
+                    terms = (wc, None, None, wcv)
+                elif per_cell and block:
+                    red_wc = wc.sum(1)
+                    if shared:
+                        # the residual sums at phase 0 alone (folded below)
+                        red_ry = (res_y * wc[:1]).sum(1)
+                        red_rx = (res_x * wc[:1]).sum(1)
+                        reds = (red_wc, sf * (float(ky) - phiy_r) * red_wc, sf * (float(kx) - phix_r) * red_wc,
+                                wcv.sum(1), red_ry, red_rx)
+                    else:
+                        red_ry = (res_y * wc).sum(1)
+                        red_rx = (res_x * wc).sum(1)
+                        reds = (red_wc, sf * ((float(ky) - phiy_r) * red_wc - red_ry),
+                                sf * ((float(kx) - phix_r) * red_wc - red_rx), wcv.sum(1))
+                    for i, term in enumerate(reds):
+                        add(cells, key, i, term, n_slots)
+                    continue
+                elif per_cell:
                     # s (k sum wc - sum rho wc), the compact rho broadcast
                     # against the phase-split weights (s, s, F, hh, hw)
                     red_wc = wc.sum(1)
                     wc5 = wc.reshape(s, s, f, hh, hw)
-                    red_ry = (rho_y[a][:, None] * wc5).sum(2).reshape(nph, hh, hw)
-                    red_rx = (rho_x[b][None, :] * wc5).sum(2).reshape(nph, hh, hw)
-                    terms = (red_wc, float(s) * (float(ky) * red_wc - red_ry),
-                             float(s) * (float(kx) * red_wc - red_rx), wcv.sum(1))
-                    for i, term in enumerate(terms):
-                        add(cells, (a, b, ch), i, term, n_out)
+                    ry_p, rx_p = rho_y[a][:, None], rho_x[b][None, :]
+                    if cbf16:  # bfloat16 factors; their products, exact in float32, summed there
+                        wc5, ry_p, rx_p = (x.to(torch.bfloat16).float() for x in (wc5, ry_p, rx_p))
+                    red_ry = (ry_p * wc5).sum(2).reshape(nph, hh, hw)
+                    red_rx = (rx_p * wc5).sum(2).reshape(nph, hh, hw)
+                    reds = (red_wc, sf * (float(ky) * red_wc - red_ry),
+                            sf * (float(kx) * red_wc - red_rx), wcv.sum(1))
+                    for i, term in enumerate(reds):
+                        add(cells, key, i, term, n_slots)
                     continue
                 else:
                     dy, dx = dy_m[a], dx_m[b]
@@ -457,7 +556,19 @@ def merge_burst_raw_planes(
                              wcv, dy * wcv, dx * wcv)
                 for i, term in enumerate(terms):
                     if term is not None:  # the frame axis dies here
-                        add(cells, (a, b, ch), i, term.sum(1), n_out)
+                        add(cells, key, i, term.sum(1), n_slots)
+
+    if shared:
+        # the shared residual average folded into m01 and m02: mu = R0 /
+        # m00[phase 0], each phase's term mu m00[phase]; cells whose taps
+        # all lie outside the centroid's have no residual sums
+        for cell in cells.values():
+            if cell[0] is None or cell[n_out] is None:
+                continue
+            m00_0 = cell[0][:1]
+            inv0 = torch.where(m00_0 > 1e-8, 1.0 / m00_0.clamp_min(1e-8), 0.0)
+            cell[1] = cell[1] - sf * cell[n_out] * inv0 * cell[0]
+            cell[2] = cell[2] - sf * cell[n_out + 1] * inv0 * cell[0]
 
     cent = {}
     for cid, (wsum, m1, m2) in chains.items():
@@ -471,9 +582,9 @@ def merge_burst_raw_planes(
             for ch in range(3):
                 cell = cells.get((a, b, ch))
                 if cell is not None:
-                    for i, part in enumerate(cell):
+                    for i, part in enumerate(cell[:n_out]):
                         if part is not None:
-                            outs[i][rows, cols, ch] = part.reshape(s, s, hh, hw)
+                            outs[i][rows, cols, ch] = part.reshape(s, s, hh, hw).float()
                 if certless:
                     chain = cent.get(_centroid_chain(cfa, a, b, ch))
                     if chain is not None:

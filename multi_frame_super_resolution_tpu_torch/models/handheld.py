@@ -8,11 +8,14 @@ cfg.fast=False, on the gather-based oracle paths:
   alternates -> smooth subpixel residual + Lucas-Kanade refinement ->
   robustness on the warped frames -> structure-tensor kernel parameters
   -> static-tap merge -> weight-threshold normalization against a
-  bicubic fallback. The merge runs on one of two branches, as in the
-  JAX package: merge.use_pallas (the merge_fast_pallas form, order 0,
+  bicubic fallback. With cfg.rgb_half_stats LK and robustness run on the
+  2x-downsampled frames and their results are lifted back
+  (handheld.py:350-395). The merge runs on one of two branches, as in
+  the JAX package: merge.use_pallas (the merge_fast_pallas form, order 0,
   interleaved) or the default branch (phase layout, prune at
-  merge.prune_exp, order 0 or the plugin order-1 solve, the gated
-  restore at scale 2, one phase interleave).
+  merge.prune_exp, order 0 in float32 or, with merge.bf16, bfloat16, or
+  the plugin order-1 solve, the gated restore at scale 2, one phase
+  interleave).
 - ``handheld_superres_raw``: Bayer RAW burst in, ``_handheld_raw_fast``
   (handheld.py:534-555, :656-915), the main path. Everything runs in the
   CFA-plane domain: global similarity pre-alignment (cfg.prealign) ->
@@ -22,10 +25,13 @@ cfg.fast=False, on the gather-based oracle paths:
   ``handheld_superres_raw_cascade`` runs scale 4 with the upsampled
   scale-2 result as its fallback (handheld.py:492-531). The merge is the
   certless plugin order 1 (the default), the plugin order 1 with the
-  per-cell centroid (merge.centroid_cert), order 1 with the exact 3x3
-  solve (merge.solver='exact'), or order 0 (merge.order=0); with
-  merge.guided_rb each merges R - G and B - G against a green estimate
-  of the warped planes and adds G back (handheld.py:822-869).
+  per-cell centroid (merge.centroid_cert or merge.exact_weights, with
+  the centroid knobs centroid_block, centroid_shared_res, centroid_prune
+  and centroid_bf16), order 1 with the exact 3x3 solve
+  (merge.solver='exact'), or order 0 (merge.order=0, bfloat16 with
+  merge.bf16); with merge.guided_rb each merges R - G and B - G against
+  a green estimate of the warped planes and adds G back
+  (handheld.py:822-869).
 - the oracle (cfg.fast=False; handheld.py:145-232 and :550-633): the
   reference's accumulateImagesSuperRes math. Tile alignment densified to
   a bilinear per-pixel flow, LK at cfg.lk (the gather warp by default),
@@ -45,7 +51,10 @@ a ``torch.device``); without a card and without that request they raise
 RuntimeError and never fall back to the CPU. After the checks of config
 and shape, the burst (and an override's transform) is moved to that
 device before any stage runs. On CUDA the tile warp, the search windows
-and the merges go through the Hopper kernels. The pre-alignment's
+and the merges go through the Hopper kernels. The tile warp computes the
+function of the JAX package's selector matmul (cfg.warp_matmul, the
+default) or of its one-hot select (warp_matmul=False), which mis-warps
+bands that cross tiles at bound 16, as the JAX function does. The pre-alignment's
 validity mask rides through the tile warp as one more plane and
 multiplies the certainty.
 
@@ -297,12 +306,12 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
 
     # integer tile warp of the alternates' channel planes (and the
     # pre-alignment validity as a 4th) into reference geometry (the
-    # function of tile_warp_matmul; the kernel on CUDA)
+    # function of tile_warp_matmul or tile_warp_select; the kernel on CUDA)
     with record_function("mfsr.tile_warp"):
         planes = burst[1:].permute(0, 3, 1, 2)  # (f-1, 3, h, w)
         if prevalid is not None:
             planes = torch.cat([planes, prevalid[1:, None]], dim=1)
-        warped_planes = tile_warp(planes.contiguous(), int_shifts[1:], warp_t)
+        warped_planes = tile_warp(planes.contiguous(), int_shifts[1:], warp_t, onehot=not cfg.warp_matmul)
         valid_w = None if prevalid is None else warped_planes[:, 3]
         warped_alts = warped_planes[:, :3].permute(0, 2, 3, 1)
         warped = torch.cat([burst[:1], warped_alts], dim=0).contiguous()
@@ -318,22 +327,42 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
         res_flow = lift(res_tiles)
 
     # LK and robustness of the reference frame are overwritten (zero flow,
-    # certainty 1), so only the alternates are computed
+    # certainty 1), so only the alternates are computed. With half-res
+    # statistics both run on the 2x-downsampled frames (the residual
+    # halved on the way down, doubled on the way up) and their results are
+    # lifted back by the bilinear 2x upsample, cropped to (h, w)
+    half_stats = cfg.rgb_half_stats and h % 2 == 0 and w % 2 == 0
+    if half_stats:
+        warped_h = downsample2(warped, channel_last=True)
     res_alts = res_flow[1:]
     if cfg.use_lk:
         with record_function("mfsr.lk"):
-            gray_w = rgb_to_gray(warped)
             lk_cfg = dataclasses.replace(
                 cfg.lk, bounded_warp=max(int(cfg.residual_bound) + 1, 2)
             )
-            res_alts = lk_refine(gray_w[0], gray_w[1:], res_alts, lk_cfg)
+            if half_stats:
+                gray_wh = rgb_to_gray(warped_h)
+                res_h = lk_refine(
+                    gray_wh[0], gray_wh[1:], downsample2(res_alts, channel_last=True) * 0.5, lk_cfg
+                )
+                res_alts = (upsample_int(res_h, 2, "bilinear") * 2.0)[:, :h, :w]
+            else:
+                gray_w = rgb_to_gray(warped)
+                res_alts = lk_refine(gray_w[0], gray_w[1:], res_alts, lk_cfg)
     res_alts = res_alts.clamp(-cfg.residual_bound, cfg.residual_bound)
     res_flow = torch.cat([torch.zeros_like(res_flow[:1]), res_alts], dim=0)
 
     with record_function("mfsr.robustness"):
-        cert_alts = robustness_mask(
-            warped[0], warped[1:], res_alts, cfg.robustness, bounded=2
-        )[..., :3]
+        if half_stats:
+            cert_h = robustness_mask(
+                warped_h[0], warped_h[1:], downsample2(res_alts, channel_last=True) * 0.5,
+                cfg.robustness, bounded=2,
+            )[..., :3]
+            cert_alts = upsample_int(cert_h, 2, "bilinear")[:, :h, :w]
+        else:
+            cert_alts = robustness_mask(
+                warped[0], warped[1:], res_alts, cfg.robustness, bounded=2
+            )[..., :3]
         if valid_w is not None:
             cert_alts = cert_alts * valid_w[..., None]
         cert = torch.cat([torch.ones_like(cert_alts[:1]), cert_alts], dim=0)
@@ -363,7 +392,7 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
     with record_function("mfsr.merge"):
         moments = merge_fast(
             *merge_args, k_max=merge_cfg.k_max, phase_output=True, order=rgb_order,
-            prune_exp=cfg.merge.prune_exp, moment_slots=_moment_slots(cfg),
+            prune_exp=cfg.merge.prune_exp, moment_slots=_moment_slots(cfg), bf16=cfg.merge.bf16,
         )
     with record_function("mfsr.solve"):
         fallback_p = upsample_int_phases_planes(burst[0], cfg.scale, "bicubic")
@@ -569,7 +598,7 @@ def _handheld_raw_fast(
         stack = planes[1:].reshape(f - 1, 4, hh, hw)
         if prevalid is not None:
             stack = torch.cat([stack, prevalid[1:, None]], dim=1)
-        warped_stack = tile_warp(stack.contiguous(), int_half[1:], t, bound=16)
+        warped_stack = tile_warp(stack.contiguous(), int_half[1:], t, bound=16, onehot=not cfg.warp_matmul)
         valid_w = None if prevalid is None else warped_stack[:, 4]
         warped_alts = warped_stack[:, :4].reshape(f - 1, 2, 2, hh, hw)
         warped = torch.cat([planes[:1], warped_alts], dim=0)
@@ -610,16 +639,19 @@ def _handheld_raw_fast(
 
     order = cfg.merge.order
     slots = _moment_slots(cfg)
+    m = cfg.merge
     with record_function("mfsr.merge"):
         # guided: R/B merge as colour differences against the green
         # estimate of the warped planes, frame 0 included
-        guide = green_guide_planes(warped, cfa).contiguous() if cfg.merge.guided_rb else None
+        guide = green_guide_planes(warped, cfa).contiguous() if m.guided_rb else None
         moments = merge_raw(
             warped, (res_half * 2.0).contiguous(), cert_half.contiguous(),
             omega_half.contiguous(), omega_half_rb.contiguous(), cfa, cfg.scale,
-            cfg.merge.radius, cfg.residual_bound, k_max=mc.k_max,
-            prune_exp=cfg.merge.prune_exp, order=order, moment_slots=slots,
-            guide=guide, centroid_cert=cfg.merge.centroid_cert,
+            m.radius, cfg.residual_bound, k_max=mc.k_max,
+            prune_exp=m.prune_exp, order=order, moment_slots=slots,
+            guide=guide, centroid_cert=m.centroid_cert, exact_weights=m.exact_weights,
+            centroid_prune=m.centroid_prune, centroid_bf16=m.centroid_bf16,
+            centroid_block=m.centroid_block, centroid_shared_res=m.centroid_shared_res, bf16=m.bf16,
         )
 
     # all finalize math in the channel-leading phase domain
@@ -636,7 +668,7 @@ def _handheld_raw_fast(
             fallback_p = torch.stack([fallback_p[:, :, 0] - fb_g, fb_g, fallback_p[:, :, 2] - fb_g], dim=2)
         if order == 1:
             # the certless form returns the finalized centroid in slots 1/2
-            certless = raw_merge_form(order, slots, cfg.merge.centroid_cert) == CERTLESS
+            certless = raw_merge_form(order, slots, m.centroid_cert, m.exact_weights) == CERTLESS
             est_p, m00_p = _o1_solve(moments, cfg, grad_phases, precomputed_centroid=certless)
             out_p = apply_weighting_order1(est_p, m00_p, fallback_p, cfg.merge.weight_threshold)
         else:

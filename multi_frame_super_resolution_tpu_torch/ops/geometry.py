@@ -15,9 +15,15 @@ import numpy as np
 import torch
 
 
-def downsample2(img: torch.Tensor) -> torch.Tensor:
+def downsample2(img: torch.Tensor, channel_last: bool = False) -> torch.Tensor:
     """2x2 average-pool decimation of the last two axes of (..., H, W).
-    Rows are averaged before columns, the order of the JAX 2-D form."""
+    Rows are averaged before columns, the order of the JAX 2-D form. With
+    ``channel_last``, of (..., H, W, C) images, the four samples averaged
+    at once as the JAX form does for (H, W, C)."""
+    if channel_last:
+        h2, w2 = img.shape[-3] // 2, img.shape[-2] // 2
+        x = img[..., : 2 * h2, : 2 * w2, :]
+        return x.reshape(x.shape[:-3] + (h2, 2, w2, 2, x.shape[-1])).mean(dim=(-4, -2))
     h2, w2 = img.shape[-2] // 2, img.shape[-1] // 2
     x = img[..., : h2 * 2, : w2 * 2]
     rows = x.reshape(x.shape[:-2] + (h2, 2, w2 * 2)).mean(dim=-2)

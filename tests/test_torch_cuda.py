@@ -1,6 +1,7 @@
 """Tests of the port that need the card: each Hopper kernel (RGB merge in
-its four forms, tile warp, tile search, RAW merge in its four forms at
-scales 1-4, guided or not, defog) against its plain PyTorch version, and
+its five forms, tile warp in its three index maps, tile search, RAW
+merge in its four forms at scales 1-4, guided or not, with the merge
+knobs' variants, defog) against its plain PyTorch version, and
 the RGB, RAW (fast and oracle, with every handheld knob the port runs),
 defog and BTV-L1 paths and single-image DNN SR (the bundled checkpoints'
 inference, a train step) on the card against the port on the CPU, and
@@ -1078,3 +1079,140 @@ def test_native_reader_build_status(tmp_path):
     img = np.random.default_rng(0).integers(0, 256, (24, 40, 3)).astype(np.uint8)
     imwrite(tmp_path / "x.png", img)
     np.testing.assert_array_equal(imread(tmp_path / "x.png"), img.astype(np.float32) * np.float32(1.0 / 255.0))
+
+
+# the bfloat16 forms against their plain versions: a weight that
+# ex2.approx and torch.exp round to neighbouring bfloat16 values moves
+# one term by a bfloat16 step (2^-8 of it), and the bfloat16 sums after it
+# may round the other way; at most BF16_SHARE of the values (or two, on
+# the tiny shapes) lie beyond float32 rounding (1e-4), none beyond
+# BF16_TOL (RAW and RGB order 0) or CBF16_TOL (the centroid's products,
+# S rho (w c) up to ~4 x 1.4)
+BF16_TOL = dict(rtol=2**-5, atol=2**-6)
+CBF16_TOL = dict(rtol=1e-4, atol=2**-4)
+BF16_SHARE = 1e-3
+
+
+def _assert_bf16_close(got, want, tol):
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, **tol)
+        beyond = int(((g - w_).abs() > 1e-4 + 1e-4 * w_.abs()).sum())
+        assert beyond <= max(2, BF16_SHARE * g.numel()), beyond
+
+
+# the knob variants of the RAW merge: (keyword arguments, tolerance)
+RAW_KNOBS = {
+    "exact_weights": (dict(order=1, exact_weights=True), None),
+    "exact_weights9": (dict(order=1, moment_slots=9, exact_weights=True), None),
+    "block": (dict(order=1, centroid_cert=True, centroid_block=True), None),
+    "shared_res": (dict(order=1, centroid_cert=True, centroid_shared_res=True), None),
+    "prune": (dict(order=1, centroid_cert=True, centroid_prune=1.0), None),
+    "prune-shared_res": (dict(order=1, centroid_cert=True, centroid_prune=1.0, centroid_shared_res=True), None),
+    "exact_weights-block": (dict(order=1, exact_weights=True, centroid_block=True), None),
+    "centroid_bf16": (dict(order=1, centroid_cert=True, centroid_bf16=True), CBF16_TOL),
+    "exact_weights-centroid_bf16": (dict(order=1, exact_weights=True, centroid_bf16=True), CBF16_TOL),
+    "bf16": (dict(order=0, bf16=True), BF16_TOL),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+@pytest.mark.parametrize("hh,hw", [(128, 256), (37, 61), (3, 5)])
+@pytest.mark.parametrize("cfa", [((0, 1), (1, 2)), ((2, 1), (1, 0))])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+@pytest.mark.parametrize("knob", list(RAW_KNOBS))
+def test_raw_merge_kernel_knob_forms_match_plain(knob, scale, cfa, hh, hw, guided):
+    """The knobs' kernel variants (csrc/merge_raw.cu: the exact weights
+    at 4 and 9 slots, the block and shared-residual centroid, the
+    centroid's tap bits, bfloat16 centroid products, the bfloat16 order
+    0) against their plain versions at the path's taps, F = 9 at scales
+    1-4, both Bayer orders, the path's shape, a ragged one and one smaller
+    than the halo. The float32 variants at ORDER1_TOL (1e-4); the
+    bfloat16 ones by _assert_bf16_close."""
+    dev = cuda_device()
+    kw, tol = RAW_KNOBS[knob]
+    ins = _raw_merge_inputs(np.random.default_rng(scale * 7 + hh), 9, hh, hw, dev)
+    if guided:
+        kw = dict(kw, guide=fast_merge.green_guide_planes(ins[0], cfa).contiguous())
+    args = (cfa, scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_raw"] == 1
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    assert len(got) == len(want)
+    if tol is None:
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
+    else:
+        _assert_bf16_close(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(256, 512), (37, 61), (3, 5)])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+@pytest.mark.parametrize("f", [2, 5])
+def test_merge_kernel_bf16_form_matches_plain(f, scale, h, w):
+    """Form 4, the default RGB branch's bfloat16 order 0 (phase layout,
+    bfloat16 products and per-frame sums, a float32 sum over frames),
+    against its plain version at e^-1.5, by _assert_bf16_close."""
+    dev = cuda_device()
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(f * 10 + scale + 3), f, h, w)]
+    kw = dict(phase_output=True, prune_exp=1.5, bf16=True)
+    k_max = (scale / 2.0) ** 2
+    LAUNCHES.clear()
+    got = merge_fast(*ins, scale, 1, 1.0, k_max, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge_fast"] == 1
+    _assert_bf16_close(got, fast_merge.merge_burst_fast(*ins, scale, 1, 1.0, k_max, **kw), BF16_TOL)
+    with pytest.raises(ValueError, match="phase layout"):
+        merge_fast(*ins, scale, 1, 1.0, k_max, prune_exp=1.5, bf16=True)
+
+
+@pytest.mark.cuda
+def test_bf16_forms_round():
+    """The bfloat16 forms compute another function than the float32
+    ones: at the path's shapes most values differ from the float32 form's
+    beyond float32 rounding, the order-0 sums by less than 2^-5 relative
+    (a few bfloat16 steps)."""
+    dev = cuda_device()
+    raw = _raw_merge_inputs(np.random.default_rng(1), 5, 128, 256, dev)
+    args = (((0, 1), (1, 2)), 2, 1, 1.0, 1.0, 1.5)
+    rgb = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(2), 5, 256, 512)]
+    pairs = [
+        (merge_raw(*raw, *args, order=0, bf16=True), merge_raw(*raw, *args, order=0), True),
+        (merge_raw(*raw, *args, centroid_cert=True, centroid_bf16=True)[1:3],
+         merge_raw(*raw, *args, centroid_cert=True)[1:3], False),
+        (merge_fast(*rgb, 2, 1, 1.0, 1.0, phase_output=True, prune_exp=1.5, bf16=True),
+         merge_fast(*rgb, 2, 1, 1.0, 1.0, phase_output=True, prune_exp=1.5), True),
+    ]
+    for b16, f32, sums in pairs:
+        for b, f in zip(b16, f32):
+            diff = (b - f).abs()
+            assert (diff > 1e-4 + 1e-4 * f.abs()).double().mean().item() > 0.5
+            if sums:
+                assert (diff / f.abs().clamp_min(1e-2)).max().item() < 2**-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,n,h,w,t,amp",
+    [(4, 4, 128, 256, 16, 20), (2, 5, 37, 61, 8, 9), (3, 5, 33, 66, 32, 20), (1, 9, 16, 44, 4, 5)],
+)
+@pytest.mark.parametrize("bound", [16, 6])
+def test_tile_warp_onehot_map_matches_plain(b, n, h, w, t, amp, bound):
+    """The one-hot index map (warp_matmul=False): tile_warp_select's
+    function, the two-level indexing at bound 16 (a 33-wide window) and
+    the direct one at bound 6; exact. At bound 16 it differs from the
+    separable map where a band crosses a tile seam."""
+    dev = cuda_device()
+    rng = np.random.default_rng(h + bound)
+    imgs = tt(rng.random((b, n, h, w)).astype(np.float32), dev)
+    shifts = tt(rng.integers(-amp, amp + 1, (b, -(-h // t), -(-w // t), 2)).astype(np.int32), dev)
+    LAUNCHES.clear()
+    got = tile_warp(imgs, shifts, t, bound, onehot=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tile_warp"] == 1
+    torch.testing.assert_close(got, warp_fast.tile_warp_select(imgs, shifts[:, None], t, bound), rtol=0, atol=0)
+    if bound == 16 and amp > 6:
+        assert bool((got != tile_warp(imgs, shifts, t, bound)).any())

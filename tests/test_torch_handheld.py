@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import nn, psnr, to_jax, tt
+from torch_parity import bf16_limit, nn, psnr, to_jax, tt
 
 from multi_frame_super_resolution_tpu.models.handheld import (
     handheld_superres as jax_handheld_superres,
@@ -84,20 +84,51 @@ def test_rgb_pallas_matches_jax_pipeline():
             "prealign",
         ),
         (dataclasses.replace(SLICE, fast=False, use_consistency=True, merge=MergeConfig(solver="newton")), "solver"),
-        (dataclasses.replace(SLICE, use_consistency=True, warp_matmul=False), "warp_matmul"),
-        (dataclasses.replace(SLICE, rgb_half_stats=True), "rgb_half_stats"),
-        (dataclasses.replace(SLICE, warp_matmul=False), "warp_matmul"),
-        (HandheldConfig(prealign=False, merge=MergeConfig(bf16=True)), "bf16"),
         (HandheldConfig(prealign=False, merge=MergeConfig(rgb_order=1, solver="newton")), "solver"),
         (dataclasses.replace(SLICE, merge=MergeConfig(use_pallas=True, rgb_order=1)), "use_pallas"),
-        (dataclasses.replace(SLICE, align=AlignConfig(use_fft=True), rgb_half_stats=True), "rgb_half_stats"),
         (dataclasses.replace(SLICE, scale=5), "scale"),
-        (HandheldConfig(prealign=False, lk=LKConfig(warp_tile=16), merge=MergeConfig(bf16=True)), "bf16"),
     ],
 )
 def test_unsupported_knobs_raise(cfg, knob):
     with pytest.raises(ValueError, match=knob):
         handheld_superres(torch.zeros((2, 32, 32, 3)), cfg)
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        dataclasses.replace(SLICE, use_consistency=True, warp_matmul=False),
+        dataclasses.replace(SLICE, rgb_half_stats=True),
+        dataclasses.replace(SLICE, warp_matmul=False),
+        HandheldConfig(prealign=False, merge=MergeConfig(bf16=True)),
+        dataclasses.replace(SLICE, align=AlignConfig(use_fft=True), rgb_half_stats=True),
+        HandheldConfig(prealign=False, lk=LKConfig(warp_tile=16), merge=MergeConfig(bf16=True)),
+    ],
+    ids=["consistent-onehot", "half_stats", "onehot", "bf16", "fft-half_stats", "warp_tile-bf16"],
+)
+def test_knobs_match_jax_pipeline(cfg):
+    """The knobs the port used to refuse, on the configurations that
+    tested the refusal: the one-hot tile warp (warp_matmul=False), LK and
+    robustness at half resolution (rgb_half_stats) and the default
+    branch's bfloat16 order-0 merge (merge.bf16), F = 4 at 64 x 128
+    against the jitted JAX pipeline. Measured 120.1, 122.1, 122.0, 77.5,
+    120.0 and 77.6 dB. The bfloat16 merges are held to
+    torch_parity.bf16_limit, which JAX's own one-ulp spread sets there:
+    60 dB (the spread less 6.02 dB is higher); their merge alone is the
+    JAX function's bit for bit (test_torch_knob_merge.py)."""
+    check_supported(cfg)
+    burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)
+
+    def jax_fn(x):
+        with interpret_pallas():
+            return nn(jax.jit(jax_handheld_superres, static_argnums=1)(jnp.asarray(x), to_jax(cfg)))
+
+    want = jax_fn(burst)
+    LAUNCHES.clear()
+    got = nn(handheld_superres(tt(burst), cfg, device="cpu"))
+    assert got.shape == (128, 256, 3) and np.isfinite(got).all()
+    assert not LAUNCHES
+    assert psnr(got, want) >= (bf16_limit(jax_fn, burst, want) if cfg.merge.bf16 else 60.0)
 
 
 def test_slice_windows_branch_matches_jax_pipeline():

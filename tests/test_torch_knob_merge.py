@@ -2,10 +2,13 @@
 merge_burst_raw_planes with a guide (order 0, the certless and the
 9-moment order 1) and with centroid_cert=True (the per-cell plugin
 moments, guided or not), against the JAX functions at scales 1-4; the
+merge knobs (exact_weights, the per-cell centroid's block, shared-residual,
+pruned and bfloat16 variants, the bfloat16 order 0) guided and not; the
 wrapper's form table and the layout flag the pipeline reads from it."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +19,7 @@ from multi_frame_super_resolution_tpu.models import fast_merge as jfm
 from multi_frame_super_resolution_tpu.models.handheld import _certless
 from multi_frame_super_resolution_tpu_torch.config import RAW_BENCH, MergeConfig
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
-from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw, tap_table
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
 from multi_frame_super_resolution_tpu_torch.models.handheld import _moment_slots
 
@@ -153,21 +156,225 @@ def test_wrapper_on_cpu_is_the_plain_form(form, guided):
     "merge",
     [MergeConfig(), MergeConfig(centroid_cert=True), MergeConfig(solver="exact"),
      MergeConfig(solver="exact", centroid_cert=True), MergeConfig(guided_rb=True),
-     MergeConfig(guided_rb=True, centroid_cert=True)],
-    ids=["certless", "cert", "exact", "exact-cert", "guided", "guided-cert"],
+     MergeConfig(guided_rb=True, centroid_cert=True), MergeConfig(exact_weights=True),
+     MergeConfig(exact_weights=True, centroid_cert=True), MergeConfig(solver="exact", exact_weights=True),
+     MergeConfig(exact_weights=True, centroid_block=True, centroid_prune=1.0)],
+    ids=["certless", "cert", "exact", "exact-cert", "guided", "guided-cert", "exact_weights",
+         "exact_weights-cert", "exact-exact_weights", "exact_weights-block-prune"],
 )
 def test_precomputed_centroid_follows_the_form(merge):
     """The RAW pipeline reads the certless layout (finished centroid in
     slots 1 and 2) from the form its merge runs; that is the JAX
     package's own predicate, handheld._certless, at every order-1
-    configuration the port takes."""
+    configuration the port takes: exact_weights turns the certless form
+    off (fast_merge.py:561) and routes the plugin solve to the per-cell
+    form."""
     cfg = dataclasses.replace(RAW_BENCH, merge=merge)
-    form = fast_merge.raw_merge_form(1, _moment_slots(cfg), merge.centroid_cert)
+    form = fast_merge.raw_merge_form(1, _moment_slots(cfg), merge.centroid_cert, merge.exact_weights)
     assert (form == fast_merge.CERTLESS) == _certless(to_jax(cfg))
-    assert form == {(False, 4): 0, (True, 4): 3}.get((merge.centroid_cert, _moment_slots(cfg)), 2)
+    per_cell = merge.centroid_cert or merge.exact_weights
+    assert form == {(False, 4): 0, (True, 4): 3}.get((per_cell, _moment_slots(cfg)), 2)
 
 
 def test_raw_merge_form_rejects_other_slot_counts():
     with pytest.raises(ValueError, match="4 or 9 slots"):
         fast_merge.raw_merge_form(1, 6)
     assert fast_merge.raw_merge_form(0, 9, True) == fast_merge.ORDER0
+
+
+def test_exact_weights_routes_to_the_per_cell_form():
+    """exact_weights alone (centroid_cert off) is the per-cell form under
+    the plugin solve, the 9-moment form under the exact solve, and has no
+    effect at order 0."""
+    assert fast_merge.raw_merge_form(1, 4, False, True) == fast_merge.PER_CELL
+    assert fast_merge.raw_merge_form(1, 4, False, False) == fast_merge.CERTLESS
+    assert fast_merge.raw_merge_form(1, 9, False, True) == fast_merge.NINE_MOMENTS
+    assert fast_merge.raw_merge_form(0, 4, False, True) == fast_merge.ORDER0
+
+
+# the knobs of the order-1 forms, each against the JAX function called as
+# it is (the knobs change no rounding): (keyword arguments, outputs)
+KNOBS = {
+    "exact_weights": (dict(order=1, moment_slots=4, exact_weights=True), 4),
+    "exact_weights9": (dict(order=1, moment_slots=9, exact_weights=True), 9),
+    "block": (dict(order=1, moment_slots=4, centroid_cert=True, centroid_block=True), 4),
+    "shared_res": (dict(order=1, moment_slots=4, centroid_cert=True, centroid_shared_res=True), 4),
+    "prune": (dict(order=1, moment_slots=4, centroid_cert=True, centroid_prune=1.0), 4),
+    "prune-shared_res": (dict(order=1, moment_slots=4, centroid_cert=True, centroid_prune=1.0,
+                              centroid_shared_res=True), 4),
+    "exact_weights-block": (dict(order=1, moment_slots=4, exact_weights=True, centroid_block=True), 4),
+}
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+@pytest.mark.parametrize("knob", list(KNOBS))
+def test_raw_merge_knobs_match_jax(knob, scale, guided):
+    """Each knob's branch of merge_burst_raw_planes (fast_merge.py:
+    695-831: the exact weights under both solvers, the per-cell
+    centroid's block, shared-residual and pruned forms, the prune before
+    the block branch and the shared fold's skip of cells no centroid tap
+    reached, and the centroid knobs alive under exact_weights without
+    centroid_cert) against the JAX function, at the spec of
+    test_raw_merge_forms_with_guide_and_cert_match_jax: within 1e-4."""
+    kw, n_out = KNOBS[knob]
+    rng = np.random.default_rng(100 + 10 * scale + len(knob))
+    f, hh, hw = 3, 8, 10
+    cfa = ((1, 0), (2, 1))
+    ins = _planes_inputs(rng, f, hh, hw)
+    guide = np.asarray(jfm.green_guide_planes(jnp.asarray(ins[0]), cfa)) if guided else None
+    spec = dict(radius=1, residual_bound=0.5, k_max=(scale / 2.0) ** 2, prune_exp=3.0)
+    want = jfm.merge_burst_raw_planes(
+        *(jnp.asarray(x) for x in ins), cfa, scale, **spec,
+        guide=None if guide is None else jnp.asarray(guide), phase_output=True, **kw,
+    )
+    got = fast_merge.merge_burst_raw_planes(
+        *(tt(x) for x in ins), cfa, scale, **spec, guide=None if guide is None else tt(guide), **kw,
+    )
+    assert len(got) == len(want) == n_out
+    for g, w_ in zip(got, want):
+        assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
+        np.testing.assert_allclose(nn(g), np.asarray(w_), **ORDER1_TOL)
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+@pytest.mark.parametrize("scale", [2, 3])
+@pytest.mark.parametrize("knob", ["bf16", "centroid_bf16"])
+def test_raw_merge_bf16_knobs_match_jitted_jax(knob, scale, guided):
+    """The bfloat16 knobs against the JAX function as the pipelines run
+    it, jitted: XLA forms a bfloat16 product that feeds a float32 sum in
+    float32 (exact for two bfloat16 factors), so the compiled function
+    rounds fewer products than the same function run op by op. The order-0
+    merge (planes, certainties, weights, w c on the value's path, the
+    taps' frame sums and the accumulation in bfloat16) equals it bit for
+    bit; the centroid's bfloat16 factors (products and sums in float32)
+    within 1e-4, as the other order-1 forms."""
+    kw = dict(order=0, bf16=True) if knob == "bf16" else dict(order=1, moment_slots=4, centroid_cert=True,
+                                                              centroid_bf16=True)
+    rng = np.random.default_rng(200 + scale)
+    f, hh, hw = 3, 8, 10
+    cfa = ((0, 1), (1, 2))
+    ins = _planes_inputs(rng, f, hh, hw)
+    guide = np.asarray(jfm.green_guide_planes(jnp.asarray(ins[0]), cfa)) if guided else None
+    spec = dict(radius=1, residual_bound=0.5, k_max=(scale / 2.0) ** 2, prune_exp=1.5)
+
+    def jax_merge(*args):
+        return jfm.merge_burst_raw_planes(*args[:5], cfa, scale, **spec, guide=args[5], phase_output=True, **kw)
+
+    want = jax.jit(jax_merge)(*(jnp.asarray(x) for x in ins), None if guide is None else jnp.asarray(guide))
+    got = fast_merge.merge_burst_raw_planes(
+        *(tt(x) for x in ins), cfa, scale, **spec, guide=None if guide is None else tt(guide), **kw,
+    )
+    tol = dict(rtol=0, atol=0) if knob == "bf16" else ORDER1_TOL
+    assert len(got) == len(want) == (2 if knob == "bf16" else 4)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(nn(g), np.asarray(w_, np.float32), **tol)
+
+
+@pytest.mark.parametrize("phase_output", [True, False], ids=["phases", "interleaved"])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+def test_rgb_merge_bf16_matches_jitted_jax(scale, phase_output):
+    """merge_burst_fast(bf16=True), the RGB default branch's bfloat16
+    order 0 (values, certainties and weights rounded, w c and v (w c) and
+    a frame's tap sums in bfloat16, the frames added in float32), against
+    the JAX function jitted as the pipeline runs it, at e^-1.5 with k_max
+    scaled by (s/2)^2: bit for bit."""
+    rng = np.random.default_rng(300 + scale)
+    f, h, w = 3, 12, 20
+    ins = (
+        rng.random((f, h, w, 3)).astype(np.float32),
+        ((rng.random((f, h, w, 2)) - 0.5) * 2.0).astype(np.float32),
+        rng.random((f, h, w, 3)).astype(np.float32),
+        np.concatenate([0.5 + rng.random((h, w, 2)), 0.05 + 0.1 * rng.random((h, w, 1))], -1).astype(np.float32),
+    )
+    k_max = (scale / 2.0) ** 2
+    kw = dict(phase_output=phase_output, prune_exp=1.5, bf16=True)
+
+    def jax_merge(*args):
+        return jfm.merge_burst_fast(*args, scale, 1, 1.0, k_max, **kw)
+
+    want = jax.jit(jax_merge)(*map(jnp.asarray, ins))
+    got = fast_merge.merge_burst_fast(*map(tt, ins), scale, 1, 1.0, k_max, **kw)
+    assert len(got) == len(want) == 2
+    for g, w_ in zip(got, want):
+        assert g.shape == ((scale, scale, 3, h, w) if phase_output else (scale * h, scale * w, 3))
+        np.testing.assert_allclose(nn(g), np.asarray(w_, np.float32), rtol=0, atol=0)
+
+
+def test_bf16_order0_rounds():
+    """The bfloat16 order-0 merge is another function than the float32
+    one: its sums are bfloat16 values, apart from the float32 merge by
+    about bfloat16's rounding (2^-8 relative) and by more than float32's."""
+    rng = np.random.default_rng(9)
+    cfa = ((0, 1), (1, 2))
+    ins = [tt(x) for x in _planes_inputs(rng, 3, 8, 10)]
+    kw = dict(radius=1, residual_bound=1.0, k_max=1.0, prune_exp=1.5, order=0)
+    b16 = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, **kw, bf16=True)
+    f32 = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, **kw)
+    for b, f in zip(b16, f32):
+        torch.testing.assert_close(b, b.to(torch.bfloat16).float(), rtol=0, atol=0)
+        rel = ((b - f).abs() / f.abs().clamp_min(1e-3)).max().item()
+        assert 1e-4 < rel < 2 ** -5
+
+
+def test_guided_bf16_is_the_unguided_merge_of_rounded_differences():
+    """With bf16 the guide is subtracted from the bfloat16 values and the
+    difference rounded, as the JAX function does: the guided merge equals
+    the unguided merge of guided_planes(..., bf16=True), bit for bit."""
+    rng = np.random.default_rng(5)
+    cfa = ((0, 1), (1, 2))
+    ins = [tt(x) for x in _planes_inputs(rng, 3, 8, 10)]
+    guide = fast_merge.green_guide_planes(ins[0], cfa)
+    kw = dict(radius=1, residual_bound=1.0, k_max=1.0, prune_exp=1.5, order=0, bf16=True)
+    guided = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, guide=guide, **kw)
+    diff = fast_merge.merge_burst_raw_planes(fast_merge.guided_planes(ins[0], guide, cfa, bf16=True), *ins[1:], cfa,
+                                             2, **kw)
+    for g, d in zip(guided, diff):
+        torch.testing.assert_close(g, d, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+@pytest.mark.parametrize("knob", ["bf16", "centroid_bf16", "exact_weights", "block", "shared_res", "prune",
+                                  "dead-centroid_bf16", "dead-centroid-knobs"])
+def test_wrapper_on_cpu_is_the_plain_knob_form(knob, guided):
+    """On CPU tensors the wrapper computes the plain version of the knob's
+    form bit for bit and nothing launches; a knob its form does not read
+    (centroid_bf16 under the block centroid, every centroid knob under the
+    certless form) changes nothing, as in the JAX function."""
+    rng = np.random.default_rng(11)
+    cfa = ((0, 1), (1, 2))
+    ins = [tt(x) for x in _planes_inputs(rng, 3, 8, 10)]
+    guide = fast_merge.green_guide_planes(ins[0], cfa) if guided else None
+    kw = {
+        "bf16": dict(order=0, bf16=True),
+        "centroid_bf16": dict(centroid_cert=True, centroid_bf16=True),
+        "exact_weights": dict(exact_weights=True),
+        "block": dict(centroid_cert=True, centroid_block=True),
+        "shared_res": dict(centroid_cert=True, centroid_shared_res=True),
+        "prune": dict(centroid_cert=True, centroid_prune=1.0),
+        "dead-centroid_bf16": dict(centroid_cert=True, centroid_block=True, centroid_bf16=True),
+        "dead-centroid-knobs": dict(centroid_block=True, centroid_prune=1.0, centroid_bf16=True, bf16=True),
+    }[knob]
+    LAUNCHES.clear()
+    got = merge_raw(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, guide=guide, **kw)
+    assert not LAUNCHES
+    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, guide=guide, **kw)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)
+    if knob.startswith("dead"):
+        live = {k: v for k, v in kw.items() if k in ("centroid_cert", "centroid_block")}
+        for g, w_ in zip(got, fast_merge.merge_burst_raw_planes(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, guide=guide, **live)):
+            torch.testing.assert_close(g, w_, rtol=0, atol=0)
+
+
+def test_tap_table_marks_the_centroid_taps():
+    """The table's centroid bit is set on the taps of the tighter prune
+    (centroid_prune 1.0 keeps the inner 3 x 3 of the 21 taps at e^-1.5)
+    and on every tap without it."""
+    taps = tuple(fast_merge._active_taps(2, 1.0, 2, 1.0, 1.5))
+    inner = frozenset(fast_merge._active_taps(2, 1.0, 2, 1.0, 1.0))
+    assert len(taps) == 21 and inner == {(y, x) for y in (-1, 0, 1) for x in (-1, 0, 1)}
+    cfa = ((0, 1), (1, 2))
+    for centroid_taps, want in ((None, set(taps)), (inner, inner)):
+        rows = tap_table(taps, cfa, centroid_taps)[8:].reshape(-1, 3)
+        assert {(int(y), int(x)) for y, x, aux in rows if aux % 2} == want

@@ -21,13 +21,23 @@ from multi_frame_super_resolution_tpu.models.handheld import (
 from multi_frame_super_resolution_tpu_torch.config import (
     RAW_BENCH,
     RAW_CERT,
+    RAW_CERT_BF16,
+    RAW_CERT_BLOCK,
+    RAW_CERT_PRUNE,
+    RAW_CERT_SHARED,
     RAW_CONSISTENT,
     RAW_EXACT,
+    RAW_EXACT_WEIGHTS,
     RAW_FFT,
     RAW_GUIDED,
+    RAW_ONEHOT_WARP,
     RAW_ORDER0,
+    RAW_ORDER0_BF16,
+    RGB_BF16,
     RGB_CONSISTENT,
     RGB_DEFAULT,
+    RGB_HALF_STATS,
+    RGB_ONEHOT_WARP,
     RGB_ORACLE,
     AlignConfig,
     HandheldConfig,
@@ -66,6 +76,30 @@ def test_named_configurations():
         check_supported_raw(dataclasses.replace(cfg, scale=4))
     check_supported(RGB_CONSISTENT)
     check_supported(dataclasses.replace(RGB_DEFAULT, align=AlignConfig(use_fft=True), lk=LKConfig(warp_tile=16)))
+
+
+def test_merge_and_warp_knob_configurations():
+    """The configurations of the merge and warp knobs: each bench.py's
+    RAW configuration (RAW_CERT for the per-cell centroid's variants,
+    RAW_ORDER0 for the bfloat16 order 0) or the RGB default with one knob
+    set, and both checks take them, at scale 4 too."""
+    assert RAW_EXACT_WEIGHTS == dataclasses.replace(RAW_BENCH, merge=MergeConfig(exact_weights=True))
+    for knob, cfg in (("centroid_block", RAW_CERT_BLOCK), ("centroid_shared_res", RAW_CERT_SHARED),
+                      ("centroid_bf16", RAW_CERT_BF16)):
+        assert cfg == dataclasses.replace(RAW_CERT, merge=dataclasses.replace(RAW_CERT.merge, **{knob: True}))
+    assert RAW_CERT_PRUNE == dataclasses.replace(RAW_CERT, merge=dataclasses.replace(RAW_CERT.merge, centroid_prune=1.0))
+    assert RAW_ORDER0_BF16 == dataclasses.replace(RAW_ORDER0, merge=dataclasses.replace(RAW_ORDER0.merge, bf16=True))
+    assert RAW_ONEHOT_WARP == dataclasses.replace(RAW_BENCH, warp_matmul=False)
+    assert RGB_BF16 == dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(bf16=True))
+    assert RGB_HALF_STATS == dataclasses.replace(RGB_DEFAULT, rgb_half_stats=True)
+    assert RGB_ONEHOT_WARP == dataclasses.replace(RGB_DEFAULT, warp_matmul=False)
+    for cfg in (RAW_EXACT_WEIGHTS, RAW_CERT_BLOCK, RAW_CERT_SHARED, RAW_CERT_PRUNE, RAW_CERT_BF16, RAW_ORDER0_BF16,
+                RAW_ONEHOT_WARP):
+        check_supported_raw(cfg)
+        check_supported_raw(dataclasses.replace(cfg, scale=4))
+    for cfg in (RGB_BF16, RGB_HALF_STATS, RGB_ONEHOT_WARP):
+        check_supported(cfg)
+        check_supported(dataclasses.replace(cfg, scale=4))
 
 
 @pytest.mark.parametrize("check,cfg", [
@@ -118,6 +152,21 @@ def test_raw_cert_needs_its_layout_flag(rotated_raw_burst, monkeypatch):
     assert psnr(wrong, right) < 40.0
 
 
+def test_raw_exact_weights_needs_the_per_cell_layout(rotated_raw_burst, monkeypatch):
+    """exact_weights alone routes the plugin solve to the per-cell form
+    (raw m01 and m02 in slots 1 and 2), as the JAX package's _certless
+    predicate does: RAW_EXACT_WEIGHTS matches the JAX pipeline at 60 dB
+    (measured 95.7 dB), and read as the certless form's finished centroid
+    the same merge gives another image, far below that (38.8 dB)."""
+    raw = rotated_raw_burst
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw), to_jax(RAW_EXACT_WEIGHTS)))
+    right = nn(handheld_superres_raw(tt(raw), RAW_EXACT_WEIGHTS, device="cpu"))
+    assert psnr(right, want) >= 60.0
+    monkeypatch.setattr(handheld, "CERTLESS", handheld.raw_merge_form(1, 4, False, True))
+    wrong = nn(handheld_superres_raw(tt(raw), RAW_EXACT_WEIGHTS, device="cpu"))
+    assert psnr(wrong, right) < 40.0
+
+
 def test_merge_knobs_true_hr_match_jax():
     """On the true-HR burst of the fidelity tests (5 frames of the city
     scene's top-left 256 x 512, factor 2; 16 px margin) each of RAW_BENCH,
@@ -140,3 +189,25 @@ def test_merge_knobs_true_hr_match_jax():
         gap_port = p["port", name] - p["port", "default"]
         gap_jax = p["jax", name] - p["jax", "default"]
         assert abs(gap_port - gap_jax) <= 0.05, p
+
+
+@pytest.mark.parametrize("cfg", [RAW_EXACT_WEIGHTS, RAW_CERT_BLOCK, RAW_CERT_SHARED, RAW_CERT_PRUNE, RAW_CERT_BF16,
+                                 RAW_ORDER0_BF16, RAW_ONEHOT_WARP],
+                         ids=["exact_weights", "block", "shared_res", "prune", "centroid_bf16", "order0-bf16",
+                              "onehot"])
+def test_merge_and_warp_knobs_true_hr_match_jax(cfg):
+    """The RAW knobs' true-HR PSNR (test_merge_knobs_true_hr_match_jax's
+    burst and margin) within 0.05 dB of the JAX pipeline's: what each knob
+    costs or gains is the JAX function's own. Measured, JAX / port:
+    exact_weights 35.9116 / 35.9116, block 35.7209 / 35.7208, shared_res 31.0643 /
+    31.0641 (4.7 dB under RAW_CERT's 35.80 in both: the shared fold
+    scales phase 0's mean residual by each phase's weight), prune
+    35.5666 / 35.5665, centroid_bf16 35.7999 / 35.7998, order0-bf16 34.1814 / 34.1811,
+    onehot 34.9160 / 34.9159."""
+    raw = city_hr_raw_burst(5, 2, 256, 512)
+    hr = iio.imread(ROOT / "city_handheld_sr.png")[:256, :512, :3].astype(np.float32) / 255.0
+    m = 16
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw), to_jax(cfg)))
+    got = nn(handheld_superres_raw(tt(raw), cfg, device="cpu"))
+    p_jax, p_port = (psnr(x[m:-m, m:-m], hr[m:-m, m:-m]) for x in (want, got))
+    assert abs(p_port - p_jax) <= 0.05, (p_port, p_jax)

@@ -188,8 +188,9 @@ def test_wrapper_tap_array_keyed_by_prune_exp(prune):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(phase_output=True, prune_exp=1.5), dict(phase_output=True, order=1, prune_exp=1.5)],
-    ids=["phase", "order1"],
+    [dict(phase_output=True, prune_exp=1.5), dict(phase_output=True, order=1, prune_exp=1.5),
+     dict(phase_output=True, prune_exp=1.5, bf16=True)],
+    ids=["phase", "order1", "bf16"],
 )
 def test_wrapper_on_cpu_is_the_plain_version_for_each_form(rng, kw):
     ins = [tt(x) for x in _inputs(rng, 2, 12, 16)]
@@ -200,3 +201,16 @@ def test_wrapper_on_cpu_is_the_plain_version_for_each_form(rng, kw):
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
     assert LAUNCHES["merge_fast"] == 0
+
+
+def test_wrapper_refuses_interleaved_bf16(rng):
+    """The bfloat16 form writes the phase layout: the wrapper refuses it
+    interleaved on a CPU tensor as on a CUDA one; order 1, which ignores
+    bf16, runs as without it."""
+    ins = [tt(x) for x in _inputs(rng, 2, 12, 16)]
+    with pytest.raises(ValueError, match="phase layout"):
+        merge_fast(*ins, 2, 1, 1.0, 1.0, prune_exp=1.5, bf16=True)
+    got = merge_fast(*ins, 2, 1, 1.0, 1.0, phase_output=True, order=1, prune_exp=1.5, bf16=True)
+    want = fast_merge.merge_burst_fast(*ins, 2, 1, 1.0, 1.0, phase_output=True, order=1, prune_exp=1.5)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)

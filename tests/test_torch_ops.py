@@ -125,6 +125,17 @@ def test_downsample2_and_resize(rng):
     )
 
 
+@pytest.mark.parametrize("channels", [2, 3])
+def test_downsample2_channel_last_matches_jax(rng, channels):
+    """downsample2(..., channel_last=True) of a batch of (H, W, C) images,
+    odd sizes cropped, against the JAX function's (H, W, C) branch."""
+    x = rng.random((3, 17, 26, channels)).astype(np.float32)
+    want = np.stack([nn(jgeo.downsample2(jnp.asarray(p))) for p in x])
+    got = nn(geometry.downsample2(tt(x), channel_last=True))
+    assert got.shape == (3, 8, 13, channels)
+    np.testing.assert_allclose(got, want, atol=1e-7)
+
+
 @pytest.mark.parametrize("method", ["bicubic", "nearest", "bilinear"])
 @pytest.mark.parametrize("shape,out", [((9, 13, 3), (18, 26)), ((7, 11, 2), (23, 19))])
 def test_resize_methods_match_jax(rng, method, shape, out):

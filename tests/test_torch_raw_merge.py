@@ -91,17 +91,23 @@ def _plane_of(z, g):
 def test_tap_table(cfa):
     """The table holds the plane channels, the group ends and every tap,
     sorted by tap parity g = 2*(ky%2) + (kx%2) in list order within a
-    group. The kernel's reading of it matches the JAX loop: in group g
+    group, with its centroid bit (all set without centroid_prune) and
+    its index in the list (the bfloat16 order-0 loop's order; the
+    prune's bits are checked in test_torch_knob_merge.py). The kernel's
+    reading of it matches the JAX loop: in group g
     parity z reads plane ((a+ky)%2, (b+kx)%2) = _plane_of(z, g), and
     the cell each pair {0, 3}, {1, 2} completes reads the chain that pair
     feeds: green cells the pair's ("g", (ky+kx)%2), an R or B cell the
     ("rb", ky%2, kx%2) of the group that read it."""
     taps = fast_merge._active_taps(2, 1.0, 2, 1.0, 1.5)
     table = tap_table(tuple(taps), cfa)
-    chan, ends, rows = table[:4], table[4:8], table[8:].reshape(-1, 2)
+    chan, ends, rows3 = table[:4], table[4:8], table[8:].reshape(-1, 3)
+    rows, aux = rows3[:, :2], rows3[:, 2]
     assert list(chan) == [cfa[0][0], cfa[0][1], cfa[1][0], cfa[1][1]]
     want = sorted(taps, key=lambda t: 2 * (t[0] % 2) + t[1] % 2)  # stable
     assert [tuple(r) for r in rows] == want
+    assert (aux % 2 == 1).all()
+    assert [taps[n] for n in aux // 2] == want
     assert list(ends) == list(np.cumsum([sum(2 * (t[0] % 2) + t[1] % 2 == g for t in taps) for g in range(4)]))
     for t, (ky, kx) in enumerate(rows):
         g = int(np.searchsorted(ends, t, side="right"))
@@ -134,7 +140,7 @@ def test_tap_table_cells_kernel_reading(cfa, radius, k_max, prune):
     group), at any staged row length and plane stride."""
     taps = fast_merge._active_taps(radius + 1, 1.0, 2, k_max, prune)
     table = tap_table(tuple(taps), cfa)
-    chan, ends, rows = table[:4], table[4:8], table[8:].reshape(-1, 2)
+    chan, ends, rows = table[:4], table[4:8], table[8:].reshape(-1, 3)[:, :2]
     green_diag = chan[0] == 1 and chan[3] == 1
     halo = tap_halo(taps)
     sw, sa = 8 + 2 * halo, (2 + 2 * halo) * (8 + 2 * halo)  # CellTile<4, 1>'s staging

@@ -49,6 +49,17 @@ def ulp_perturbed(x: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     return np.where(step > 0, up, np.where(step < 0, down, x)).astype(np.float32)
 
 
+def bf16_limit(jax_fn, x: np.ndarray, want: np.ndarray, limit: float = 60.0) -> float:
+    """The PSNR limit of a bfloat16 configuration against the JAX pipeline
+    ``jax_fn`` (a function of the numpy input) whose output on ``x`` is
+    ``want``: ``limit`` (the slice's 60 dB), or JAX's own one-ulp spread
+    (its output when ``x`` moves by one ulp, against ``want``) less 6.02
+    dB, twice its RMS distance, where that is lower: a weight within
+    float32 rounding of a bfloat16 boundary rounds either way."""
+    spread = psnr(jax_fn(ulp_perturbed(x, np.random.default_rng(5))), want)
+    return min(limit, spread - 20.0 * np.log10(2.0))
+
+
 def to_jax(cfg):
     """The JAX package's config of the same class name as the port's
     ``cfg``, rebuilt field by field (nested configs too); other values
