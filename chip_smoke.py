@@ -52,9 +52,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      rounding); each bfloat16 form against its float32 form, which most
      values must differ from (the form rounds);
    - defog (csrc/defog.cu): 1024 x 1224 x 3, P and A_inf from the seed;
-     rtol 1e-5, atol 1e-6 (the kernel is expected to match bit for bit).
+     rtol 1e-5, atol 1e-6 (the kernel is expected to match bit for bit);
+   - the general forms, where the templated kernels are not built for the
+     call, at the same shapes and tolerances: merge_fast_general at
+     scale 5 in its five forms and at tap radii 9 and 11 (361 and 529
+     taps); tile_search_general at T=12, radius 0 and radius 30;
+     merge_raw_general at scale 5 in every form and knob, guided, 109
+     taps, the pattern ((0, 1), (2, 1)) and the bfloat16 order 0 on 40
+     frames; and merge_raw's streamed form (merge_raw_stream: the
+     certless and order-0 forms past their frame caps, 40 frames at S=2
+     and 70 at S=4).
 4. Paths on the card, each driven with the launch counts set to 0 just
-   before and read just after:
+   before and read just after (the former port limits among them: each
+   value a general or streamed form runs, at the city geometry, its
+   launch set exact, 60 dB against its plain-kernel run):
    - polar_defog on a synthetic fog pair at 1024 x 1224 x 3 (one
      polarization angle of a 2448 x 2048 division-of-focal-plane sensor;
      defog kernel): R finite and in [r_min, r_max], agreeing (PSNR >=
@@ -241,11 +252,17 @@ KERNELS = {  # name -> (source, the TPU kernel or JAX function it replaces)
     "merge_raw": (f"{PKG}/csrc/merge_raw.cu", "multi_frame_super_resolution_tpu/models/fast_merge.py:301"),
     "defog": (f"{PKG}/csrc/defog.cu", "multi_frame_super_resolution_tpu/pallas_ops/defog.py:35"),
 }
+# the general forms, and the RAW merge's streamed one: each in its
+# templated kernel's source, replacing the same function
+KERNELS.update({f"{name}_general": KERNELS[name] for name in ("merge_fast", "tile_search", "merge_raw")})
+KERNELS["merge_raw_stream"] = KERNELS["merge_raw"]
 # the profiler's names of the kernels' __global__ functions
 KERNEL_SYMBOLS = {
     "merge_fast": "merge_fast_kernel", "tile_warp": "tile_warp_kernel",
-    "tile_search": "tile_search_kernel", "merge_raw": "merge_raw",  # both RAW kernels
-    "defog": "defog_kernel",
+    "tile_search": "tile_search_kernel", "merge_raw": "merge_raw",  # every RAW kernel
+    "defog": "defog_kernel", "merge_fast_general": "merge_fast_general_kernel",
+    "tile_search_general": "tile_search_general_kernel", "merge_raw_general": "merge_raw_general_kernel",
+    "merge_raw_stream": "merge_raw_kernel",
 }
 # each kernel's stage in the profile
 STAGE_OF = {"merge_fast": "mfsr.merge", "merge_raw": "mfsr.merge", "tile_warp": "mfsr.tile_warp",
@@ -335,6 +352,26 @@ WORK = {
     # a copy
     "tile_warp": (0, 0),
 }
+# the forms at scale 5 (the general kernels' scale on the paths): the same
+# terms an item, the per-column, per-row and per-tap ones spread over s = 5
+WORK.update({
+    "merge_fast s=5": (4 + 12 + 1 / 5 + 4 / 5 + 7 / 25, 1),
+    "merge_fast order 1 s=5": (4 + 2 + 24 + 1 / 5 + 4 / 5 + 7 / 25, 1),
+    "merge_fast 9 slots s=5": (4 + 5 + 54 + 1 / 5 + 4 / 5 + 7 / 25, 1),
+    "merge_fast bf16 s=5": (4 + 1 + 1 / 5 + 4 / 5 + 7 / 25, 1, 15),
+    "merge_raw S=5": (34 + 1 / 5 + 6 / 5 + 4 / 25, 2),
+    "merge_raw order 0 S=5": (8 + 16 + 1 / 5 + 6 / 5 + 4 / 25, 2),
+    "merge_raw order 0 bf16 S=5": (8 + 26 + 1 / 5 + 6 / 5 + 4 / 25, 2),
+    "merge_raw 9 slots S=5": (8 + 72 + 8 / 5 + 8 / 5, 2),
+    "merge_raw cert4 S=5": (8 + 32 + 8 / 5 + 8 / 5, 2),
+    "merge_raw exact4 S=5": (16 + 32 + 8 / 5 + 8 / 5, 4),
+    "merge_raw exact9 S=5": (16 + 72 + 8 / 5 + 8 / 5, 4),
+    "merge_raw shared S=5": (8 + 40 + 8 / 5 + 8 / 5, 2),
+    "merge_raw cbf16 S=5": (8 + 48 + 8 / 5 + 8 / 5, 2),
+    # reckoned as cert4 (an upper bound: the taps outside the centroid add
+    # m00 and b0 alone)
+    "merge_raw prune S=5": (8 + 32 + 8 / 5 + 8 / 5, 2),
+})
 
 
 def ptxas_table(log: str) -> list:
@@ -621,21 +658,71 @@ def main() -> int:
         *((f"{label}, S=4, F=9", raw9_ins, raw4_args, kw, f"{key} S=4", tol)
           for label, _, kw, key, tol in knob_forms if "guided" not in label),
     ]
+    # the general kernel forms: the values the templated kernels are not
+    # built for, at the path's shapes: scale 5 (k_max (s/2)^2) in every
+    # form and knob, taps past +-4, a non-Bayer pattern, the bfloat16
+    # order 0 past its frame cap; the RGB forms at scale 5 and at tap
+    # radii 9 and 11 (k_max 64 at e^-6: 361 and 529 taps); the search at
+    # T=12, radius 0 and radius 30. And the RAW merge's streamed form:
+    # bursts past the certless and order-0 frame caps (30 frames at S=2,
+    # 66 at S=4)
+    raw5_args = (cfa, 5, 1, 1.0, 2.5**2, prune)
+    raw40_ins = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+        rng.random((40, 2, 2, hh, hw)), (rng.random((40, hh, hw, 2)) - 0.5) * 4.0, rng.random((40, hh, hw, 3)),
+    )] + raw_ins[3:]
+    raw70_ins = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+        rng.random((70, 2, 2, hh, hw)), (rng.random((70, hh, hw, 2)) - 0.5) * 4.0, rng.random((70, hh, hw, 3)),
+    )] + raw9_ins[3:]
+    raw_general = [  # (label, inputs, args, keyword args, WORK key, tolerance)
+        ("general S=5 (RAW_BENCH scale 5)", raw_ins, raw5_args, {}, "merge_raw S=5", KERNEL_TOL),
+        ("general order 0, S=5", raw_ins, raw5_args, order0, "merge_raw order 0 S=5", KERNEL_TOL),
+        ("general 9 slots, S=5 (RAW_EXACT scale 5)", raw_ins, raw5_args, slots9, "merge_raw 9 slots S=5", ORDER1_TOL),
+        ("general cert4, S=5 (RAW_CERT scale 5)", raw_ins, raw5_args, cert4, "merge_raw cert4 S=5", ORDER1_TOL),
+        *((f"general {label}, S=5", raw_ins, raw5_args, kw, f"{key} S=5", tol)
+          for label, _, kw, key, tol in knob_forms if "guided" not in label),
+        ("general guided, S=5", raw_ins, raw5_args, guided, "merge_raw S=5", KERNEL_TOL),
+        ("general order 0 bf16, F=40, S=2 (RAW_ORDER0_BF16 on 40 frames)", raw40_ins, raw_args, order0_bf16,
+         "merge_raw order 0 bf16", BF16_TOL),
+        ("general 109 taps, S=2", raw_ins, (cfa, SCALE, 5, 1.0, 1.0, 40.0), {}, "merge_raw", KERNEL_TOL),
+        ("general cfa ((0, 1), (2, 1)), S=2", raw_ins, (((0, 1), (2, 1)), SCALE, 1, 1.0, 1.0, prune), {},
+         "merge_raw", KERNEL_TOL),
+    ]
+    raw_stream = [  # (label, inputs, args, keyword args, WORK key, tolerance)
+        ("stream F=40, S=2 (RAW_BENCH on 40 frames)", raw40_ins, raw_args, {}, "merge_raw", KERNEL_TOL),
+        ("stream order 0, F=40, S=2 (RAW_ORDER0 on 40 frames)", raw40_ins, raw_args, order0, "merge_raw order 0",
+         KERNEL_TOL),
+        ("stream F=70, S=4 (RAW_SCALE4 on 70 frames)", raw70_ins, raw4_args, {}, "merge_raw S=4", KERNEL_TOL),
+        ("stream order 0, F=70, S=4", raw70_ins, raw4_args, order0, "merge_raw order 0 S=4", KERNEL_TOL),
+    ]
+    phase5 = (5, 1, 1.0, 2.5**2)
+    merge_general = [  # (label, args, keyword args, WORK key, tolerance)
+        ("general phase layout, e^-1.5, s=5 (RGB_DEFAULT scale 5)", phase5, phase, "merge_fast s=5", KERNEL_TOL),
+        ("general interleaved, e^-6, s=5 (use_pallas scale 5)", phase5, {}, "merge_fast s=5", KERNEL_TOL),
+        ("general order 1, e^-1.5, s=5", phase5, dict(phase, order=1), "merge_fast order 1 s=5", ORDER1_TOL),
+        ("general 9 slots, e^-1.5, s=5", phase5, dict(phase, order=1, moment_slots=9), "merge_fast 9 slots s=5",
+         ORDER1_TOL),
+        ("general phase layout bf16, e^-1.5, s=5", phase5, dict(phase, bf16=True), "merge_fast bf16 s=5", BF16_TOL),
+        ("general phase layout, e^-6, tap radius 9", (2, 8, 1.0, 64.0), dict(phase, prune_exp=6.0), "merge_fast",
+         KERNEL_TOL),
+        ("general phase layout, e^-6, tap radius 11", (2, 10, 1.0, 64.0), dict(phase, prune_exp=6.0), "merge_fast",
+         KERNEL_TOL),
+    ]
     iper_np, ipar_np = synthetic_polar_pair(rng, DEFOG_H, DEFOG_W)
     defog_ins = [torch.from_numpy(x).to(dev) for x in (
         iper_np, ipar_np,
         (0.2 + 0.4 * rng.random(3)).astype(np.float32), (0.6 + 0.3 * rng.random(3)).astype(np.float32),
     )]
 
-    def search_case(h, w, outliers):
+    def search_case(h, w, outliers, t=16):
         """(ref, alts, rounded) on the card: a synthetic burst of 5 frames
         shifted by up to 3 px, with noise, and predictions within 2 px of
         each alternate's shift (alt_f(p - d_f) = ref(p) for the crop
-        offsets d_f); with ``outliers``, a tenth of the tiles predicted at
-        17-20 px instead, as a coarse level's miss would be."""
+        offsets d_f) over the grid of tile size t; with ``outliers``, a
+        tenth of the tiles predicted at 17-20 px instead, as a coarse
+        level's miss would be."""
         burst, offsets = synthetic_burst(rng, F, h, w, 3.0)
         burst = burst + 0.01 * rng.standard_normal(burst.shape)
-        grid = (F - 1, -(-h // 16), -(-w // 16))
+        grid = (F - 1, -(-h // t), -(-w // t))
         rounded = np.round(-offsets[1:])[:, None, None, :] + rng.integers(-2, 3, grid + (2,))
         if outliers:
             miss = rng.random(grid) < 0.1
@@ -707,6 +794,18 @@ def main() -> int:
         search_cases.append((f"tile_search {c_mode} {n_alts}x{c_h}x{c_w} T={c_t} (RAW_SCALE4, rotated)",
                              (c_ref, c_alts, c_rounded), c_radius, c_mode, c_t, c_threshold, c_masks))
     (w_imgs, w_shifts, w_t), w_kw = city_calls["tile_warp"][0]
+    # the general search: (label, inputs, radius, mode, tile size), the
+    # tiles float32 rounding decides left out of the checks past radius 0
+    search_general = []
+    for label, ins, radius, mode, t in (
+            ("tile_search_general image 4x128x256 T=12", search_case(hh, hw, True, 12), 4, "image", 12),
+            ("tile_search_general image 4x64x128 T=12", search_case(hh // 2, hw // 2, True, 12), 4, "image", 12),
+            ("tile_search_general tile 4x128x256 R=0", search_case(hh, hw, False), 0, "tile", 16),
+            ("tile_search_general image 4x128x256 R=0", search_case(hh, hw, True), 0, "image", 16),
+            ("tile_search_general tile 4x128x256 R=30", search_case(hh, hw, False), 30, "tile", 16),
+            ("tile_search_general tile 4x64x128 R=30", search_case(hh // 2, hw // 2, False), 30, "tile", 16)):
+        masks = None if radius == 0 else tiles.float32_undecided(*ins, t, radius, 0.0, mode)
+        search_general.append((label, ins, radius, mode, t, 0.0, masks))
 
     def merge_call(fn, args, kw):
         return lambda: fn(*rgb_ins, *args, **kw)
@@ -735,6 +834,16 @@ def main() -> int:
                       for label, ins, args, kw, _, tol in raw_variants],
         "defog": [("defog", lambda: kdefog.defog(*defog_ins),
                    lambda: kdefog.defog_pixels(*defog_ins), DEFOG_TOL)],
+        "merge_fast_general": [(f"merge {label}", merge_call(kmerge.merge_fast, args, kw),
+                                merge_call(fast_merge.merge_burst_fast, args, kw), tol)
+                               for label, args, kw, _, tol in merge_general],
+        "tile_search_general": [check for case in search_general for check in search_checks(*case)],
+        "merge_raw_general": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
+                               raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
+                              for label, ins, args, kw, _, tol in raw_general],
+        "merge_raw_stream": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
+                              raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
+                             for label, ins, args, kw, _, tol in raw_stream],
     }
     max_abs_err, out_bytes = {}, {}
     for name, checks in calls.items():
@@ -780,8 +889,8 @@ def main() -> int:
     # the timed variants, each with its bound: its input and output bytes,
     # and its work items (WORK gives the operations per item); the other
     # kernels have one, their first check
-    def n_taps(s, k_max, prune_exp):
-        return len(fast_merge._active_taps(1 + 1, 1.0, s, k_max, prune_exp))
+    def n_taps(s, k_max, prune_exp, radius=1):
+        return len(fast_merge._active_taps(radius + 1, 1.0, s, k_max, prune_exp))
 
     search_ins = search_cases[0][1]
     city_search = search_cases[-1]  # RAW_SCALE4's fine level
@@ -800,6 +909,15 @@ def main() -> int:
            ins[0].shape[0] * hh * hw * n_taps(args[1], args[4], args[5]) * args[1] ** 2, key)
           for label, ins, args, _, key, _ in raw_variants),
         ("defog", "defog", defog_ins, DEFOG_H * DEFOG_W * 3, "defog"),
+        *(("merge_fast_general", f"merge {label}", rgb_ins,
+           F * H * W * n_taps(args[0], args[3], kw.get("prune_exp", 6.0), args[1]) * args[0] ** 2, key)
+          for label, args, kw, key, _ in merge_general),
+        *(("tile_search_general", label, ins, ins[2][..., 0].numel() * (2 * radius + 1) ** 2 * t**2, "tile_search")
+          for label, ins, radius, _, t, *_ in search_general),
+        *((name, f"merge_raw {label}", ins,
+           ins[0].shape[0] * hh * hw * n_taps(args[1], args[4], args[5], args[2]) * args[1] ** 2, key)
+          for name, variants in (("merge_raw_general", raw_general), ("merge_raw_stream", raw_stream))
+          for label, ins, args, _, key, _ in variants),
     ]
     # the variant each kernel's main path runs: its entry in the kernels line
     main_variant = {name: label for name, label, *_ in reversed(timed)}
@@ -1052,6 +1170,74 @@ def main() -> int:
             raise RuntimeError(f"{label} launched {launches}, expected {expect} and its tile searches")
         if any(launches[k] != 1 for k in expect):
             raise RuntimeError(f"{label} launched {launches}, each of {expect} once expected")
+
+    # the port's former limits, each a value the JAX function computes and
+    # the templated kernels are not built for, through the general kernel
+    # forms at the city geometry: the run's launches exactly (the general
+    # form once per merge and once per pyramid level), the output's shape,
+    # finite values in [0, 1], and 60 dB against the same path on the
+    # plain versions
+    def check_limit(label, fn, burst, cfg, merge_name, searches=None):
+        levels = cfg.align.levels
+        want = {"tile_warp": 1, merge_name: 1, **(searches or {"tile_search": levels})}
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = fn(burst, cfg)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        if launches != want:
+            raise RuntimeError(f"{label} launched {launches}, expected {want}")
+        check_output(label, out, (cfg.scale * burst.shape[1], cfg.scale * burst.shape[2], 3))
+        p_plain = psnr(out, against_plain(fn, burst, cfg))
+        print(f"limit {label}: {tuple(burst.shape)} -> {tuple(out.shape)}, launches {launches}, PSNR vs plain "
+              f"kernels {p_plain:.2f} dB (limit {PSNR_MIN} dB), {host_ms:.1f} ms host clock (first run)  [{card}]")
+        if p_plain < PSNR_MIN:
+            raise RuntimeError(f"limit {label} disagrees with its plain run")
+        return launches
+
+    raw_fn, rgb_fn = handheld.handheld_superres_raw, handheld.handheld_superres
+    raw40 = raw_burst_of(3, 40, H, W, None).to(dev)
+    raw70 = raw_burst_of(4, 70, H, W, small_angles(70)).to(dev)
+    cfa_ng = ((0, 1), (2, 1))
+    raw_ng = torch.from_numpy(np.stack([mosaic_rggb(f, cfa_ng) for f in rgb_np])).to(dev)
+    port_align = dict(tile_size=16, search_radius=4, levels=2)
+    limit_paths = (  # (label, entry point, burst, configuration, merge kernel, tile searches)
+        ("raw (RAW_BENCH scale 5)", raw_fn, raw_rot, dataclasses.replace(RAW_BENCH, scale=5), "merge_raw_general",
+         None),
+        ("rgb (RGB_DEFAULT scale 5)", rgb_fn, rgb_burst, dataclasses.replace(RGB_DEFAULT, scale=5),
+         "merge_fast_general", None),
+        ("raw (RAW_BENCH on 40 frames)", raw_fn, raw40, RAW_BENCH, "merge_raw_stream", None),
+        ("raw (RAW_ORDER0 on 40 frames)", raw_fn, raw40, RAW_ORDER0, "merge_raw_stream", None),
+        ("raw (RAW_ORDER0_BF16 on 40 frames)", raw_fn, raw40, RAW_ORDER0_BF16, "merge_raw_general", None),
+        ("raw (RAW_SCALE4 on 70 frames)", raw_fn, raw70, RAW_SCALE4, "merge_raw_stream", None),
+        ("raw (RAW_BENCH radius 5, e^-40: 109 taps)", raw_fn, raw_rot,
+         dataclasses.replace(RAW_BENCH, merge=MergeConfig(radius=5, prune_exp=40.0)), "merge_raw_general", None),
+        ("rgb (RGB_DEFAULT radius 8: tap radius 9)", rgb_fn, rgb_burst,
+         dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(radius=8)), "merge_fast_general", None),
+        ("rgb (RGB_DEFAULT radius 10: tap radius 11)", rgb_fn, rgb_burst,
+         dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(radius=10)), "merge_fast_general", None),
+        ("raw (RAW_PORT_DEFAULT tile_size=12)", raw_fn, raw_burst,
+         dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(**{**port_align, "tile_size": 12})), "merge_raw",
+         {"tile_search_general": 2}),
+        ("raw (RAW_PORT_DEFAULT fine_radius=0)", raw_fn, raw_burst,
+         dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(**port_align, fine_radius=0)), "merge_raw",
+         {"tile_search": 1, "tile_search_general": 1}),
+        ("raw windows (RAW_PORT_DEFAULT search_radius=30)", raw_fn, raw_burst,
+         dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(**{**port_align, "search_radius": 30},
+                                                                 fast_extract=False)), "merge_raw",
+         {"tile_search_general": 2}),
+        ("raw (RAW_BENCH cfa ((0, 1), (2, 1)))", raw_fn, raw_ng, dataclasses.replace(RAW_BENCH, cfa_pattern=cfa_ng),
+         "merge_raw_general", None),
+        ("raw (RAW_CERT scale 5)", raw_fn, raw_rot, dataclasses.replace(RAW_CERT, scale=5), "merge_raw_general", None),
+        ("raw (RAW_EXACT scale 5)", raw_fn, raw_rot, dataclasses.replace(RAW_EXACT, scale=5), "merge_raw_general",
+         None),
+    )
+    t_limits = time.perf_counter()
+    limit_launches = {label: check_limit(label, fn, burst, cfg, merge_name, searches)
+                      for label, fn, burst, cfg, merge_name, searches in limit_paths}
+    print(f"limit paths: {time.perf_counter() - t_limits:.1f} s")
+    del raw40, raw70, raw_ng
 
     # the correctness bar on the card: true-HR PSNR (16 px margin) of each
     # row on data.true_hr_burst, beside PARITY.md's (another scene); no limit
@@ -1310,7 +1496,7 @@ def main() -> int:
         "route": "cuda",
         "source": KERNELS[name][0],
         "replaces": replaces,
-        "launches": {**bar_launches, **knob_launches}[path].get(name, 0),
+        "launches": {**bar_launches, **knob_launches, **limit_launches}[path].get(name, 0),
         **numbers(labels[0]),
         "max_abs_err": max(max_abs_err[label] for label in labels),
         "library_ms": None,
@@ -1318,6 +1504,15 @@ def main() -> int:
         "variants": [{"label": label, **numbers(label)} for label in labels],
         "path": path,
     } for form, name, replaces, path, labels in (
+        # the general forms: their launches in a limit path's run
+        ("merge_raw general", "merge_raw_general", KERNELS["merge_raw"][1], "raw (RAW_BENCH scale 5)",
+         [f"merge_raw {label}" for label, *_ in raw_general]),
+        ("merge_fast general", "merge_fast_general", KERNELS["merge_fast"][1], "rgb (RGB_DEFAULT scale 5)",
+         [f"merge {label}" for label, *_ in merge_general]),
+        ("tile_search general", "tile_search_general", KERNELS["tile_search"][1], "raw (RAW_PORT_DEFAULT tile_size=12)",
+         [label for label, *_ in search_general]),
+        ("merge_raw stream", "merge_raw_stream", KERNELS["merge_raw"][1], "raw (RAW_BENCH on 40 frames)",
+         [f"merge_raw {label}" for label, *_ in raw_stream]),
         ("merge_fast 9 slots", "merge_fast", "multi_frame_super_resolution_tpu/models/fast_merge.py:80",
          "rgb (RGB_EXACT)", ["merge 9 slots, e^-1.5 (RGB_EXACT)", "merge 9 slots, e^-1.5, s=4"]),
         ("merge_raw order 0", "merge_raw", KERNELS["merge_raw"][1], "raw (RAW_ORDER0)",
@@ -1347,7 +1542,8 @@ def main() -> int:
           f"raw default {raw_launches}, raw windows {win_launches}, rgb default {default_launches}, "
           f"rgb scale 4 {scale4_launches}, rgb order 1 {order1_launches}, raw scale 4 {raw4_launches}, "
           f"raw cascade {cascade_launches}, "
-          + ", ".join(f"{label} {launches}" for label, launches in {**bar_launches, **knob_launches}.items())
+          + ", ".join(f"{label} {launches}" for label, launches in
+                      {**bar_launches, **knob_launches, **limit_launches}.items())
           + "; btvl1_video (no kernel of csrc/ on its path) "
           + ", ".join(f"{flow} {launches}" for flow, launches in btv_launches.items())
           + "; dnn_sr (no kernel of csrc/ on its path) "

@@ -12,12 +12,12 @@ hand-written Hopper kernel under ``csrc/`` with its Python wrapper under
 ``kernels/``.
 
 Ported so far: the RAW path ``models.handheld.handheld_superres_raw``
-at scales 1-4 (``config.RAW_BENCH``, bench.py's configuration, and
+at every scale (``config.RAW_BENCH``, bench.py's configuration, and
 without pre-alignment, with the windows-branch alignment, at
 ``config.RAW_SCALE4``) and the scale-4 cascade
 ``handheld_superres_raw_cascade``; the RGB pipeline
 ``models.handheld.handheld_superres`` on its default branch
-(``config.RGB_DEFAULT``, order 0 or ``rgb_order=1``, scales 1-4) and on
+(``config.RGB_DEFAULT``, order 0 or ``rgb_order=1``, every scale) and on
 its ``use_pallas`` branch (``config.RGB_PALLAS``), with or without
 pre-alignment; the gather oracle of both entry points (``fast=False``:
 ``config.RAW_ORACLE``, ``config.RGB_ORACLE``), the exact 3x3 solve on

@@ -10,9 +10,9 @@ to_jax).
 name every knob value the port does not take and raise instead of
 silently computing something else (the rule of the JAX code at
 models/handheld.py:411-420): the solvers and log-polar kernels the JAX
-package does not define either, use_pallas with rgb_order=1 (the JAX
-function raises there too), and the scales outside the merge kernels'
-1..4.
+package does not define either, and use_pallas with rgb_order=1 (the
+JAX function raises there too). Every scale runs: the merge kernels'
+general forms take the scales past 4.
 """
 
 from __future__ import annotations
@@ -291,16 +291,10 @@ def check_supported(cfg: HandheldConfig) -> None:
     if cfg.fast and m.use_pallas and rgb_order == 1:
         # the JAX function raises here too: its Pallas merge is order 0
         bad.append("merge.rgb_order=1 with merge.use_pallas=True")
-    if not 1 <= cfg.scale <= 4:
-        bad.append(f"scale={cfg.scale} (the merge kernel takes 1..4)")
     _raise(bad, "config.RGB_DEFAULT")
 
 
 def check_supported_raw(cfg: HandheldConfig) -> None:
     """Raise ``ValueError`` naming each knob of ``cfg`` that selects a RAW
     path the port does not implement."""
-    bad = _common_unsupported(cfg)
-    if not 1 <= cfg.scale <= 4:
-        # the RAW merge kernel is built for scales 1..4
-        bad.append(f"scale={cfg.scale} (the RAW merge kernel takes 1..4)")
-    _raise(bad, "config.RAW_BENCH")
+    _raise(_common_unsupported(cfg), "config.RAW_BENCH")

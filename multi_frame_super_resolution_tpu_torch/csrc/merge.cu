@@ -1,4 +1,6 @@
-// Static-tap kernel-regression merge for Hopper (sm_90a), RGB.
+// Static-tap kernel-regression merge for Hopper (sm_90a), RGB: the
+// templated kernel (scales 1-4, tap radius up to 8), described first, and
+// the general form for every other scale and radius, described last.
 //
 // Replaces the TPU kernel multi_frame_super_resolution_tpu/pallas_ops/
 // merge.py::merge_fast_pallas (kernel body _make_kernel), and the default
@@ -527,6 +529,115 @@ int launch_form(int form, const float* warped, const float* residual, const floa
   }
 }
 
+// The general form (merge_fast_general_kernel): what the templated
+// kernel above does not take. That kernel is built for scales 1-4 and
+// taps within +-8 (its staged halo and run table); the wrapper
+// (kernels/merge.py) launches this one at any scale and tap radius, in
+// forms 0-4. (merge_fast_pallas itself asserts a tap radius of at most
+// 8, so form 0 past it is refused by the wrapper, as in JAX.)
+//
+// Design: written simply, as the plain version reads. A thread per
+// (input pixel, output phase (py, px)) holds the phase's slots for the
+// three channels; per frame it walks the taps in the list's order,
+// reading value and certainty straight from device memory (the
+// neighbouring threads' reads hit the same lines in L1 and L2), sums the
+// frame's terms and then adds the frame's sums to its totals: the plain
+// version's order (each frame's taps, then the frames), with the weight
+// by IEEE expf and each product and sum rounded where the plain version
+// rounds it (round-to-nearest intrinsics, no contraction into FMAs; form
+// 4 rounds each bfloat16 product and sum). Nothing is staged, so no scale
+// or tap radius is bounded by shared memory. Each weight is evaluated
+// once per (pixel, frame, tap, phase), as in the templated kernel, but
+// each tap's value and certainty are read once per phase. Its time
+// against its bound is in PERF.md.
+
+__device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__global__ void __launch_bounds__(256)
+merge_fast_general_kernel(const float* __restrict__ warped, const float* __restrict__ residual,
+                          const float* __restrict__ certainty, const float* __restrict__ omega,
+                          float* __restrict__ out, const int* __restrict__ taps, int n_taps,
+                          int frames, int h, int w, int S, int form, float rb) {
+  const int x = blockIdx.x * 32 + threadIdx.x, y = blockIdx.y * 8 + threadIdx.y;
+  if (y >= h || x >= w) return;  // no barrier below
+  const int py = blockIdx.z / S, px = blockIdx.z % S;
+  const long long plane = (long long)h * w, pix = (long long)y * w + x;
+  const float sf = (float)S;
+  const float phis_y = (((float)py + 0.5f) / sf - 0.5f) * sf;
+  const float phis_x = (((float)px + 0.5f) / sf - 0.5f) * sf;
+  const float o0 = omega[pix * 3], o1 = omega[pix * 3 + 1], o2 = omega[pix * 3 + 2];
+  const int n_out = form == 2 ? 4 : (form == 3 ? 9 : 2);
+  const float2* res2 = reinterpret_cast<const float2*>(residual);
+
+  float tot[9][3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) tot[k][0] = tot[k][1] = tot[k][2] = 0.0f;
+#pragma unroll 1
+  for (int f = 0; f < frames; ++f) {
+    const float2 rr = res2[f * plane + pix];
+    const float ry = fminf(fmaxf(rr.x, -rb), rb), rx = fminf(fmaxf(rr.y, -rb), rb);
+    float fs[9][3];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) fs[k][0] = fs[k][1] = fs[k][2] = 0.0f;
+#pragma unroll 1
+    for (int t = 0; t < n_taps; ++t) {
+      const int ky = taps[2 * t], kx = taps[2 * t + 1];
+      const long long g = ((long long)f * plane + (long long)min(max(y + ky, 0), h - 1) * w +
+                           min(max(x + kx, 0), w - 1)) * 3;
+      // dy = (ky - ry) s - phi s, dx likewise;
+      // w = exp(-1/2 (dx^2 Oxx + dy^2 Oyy + 2 dx dy Oxy))
+      const float dy = __fsub_rn(__fmul_rn(__fsub_rn((float)ky, ry), sf), phis_y);
+      const float dx = __fsub_rn(__fmul_rn(__fsub_rn((float)kx, rx), sf), phis_x);
+      const float q = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(dx, dx), o0), __fmul_rn(__fmul_rn(dy, dy), o1)),
+                                __fmul_rn(__fmul_rn(__fmul_rn(2.0f, dx), dy), o2));
+      const float wgt = expf(__fmul_rn(-0.5f, q));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float v = warped[g + c], cert = certainty[g + c];
+        if (form == 4) {
+          // bfloat16 values, certainties, weight, products and sums
+          const float cw = bf16r(__fmul_rn(bf16r(wgt), bf16r(cert)));
+          fs[0][c] = bf16r(__fadd_rn(fs[0][c], bf16r(__fmul_rn(bf16r(v), cw))));
+          fs[1][c] = bf16r(__fadd_rn(fs[1][c], cw));
+          continue;
+        }
+        const float cw = __fmul_rn(wgt, cert), cwv = __fmul_rn(v, cw);
+        if (form == 2) {
+          fs[0][c] = __fadd_rn(fs[0][c], cw);
+          fs[1][c] = __fadd_rn(fs[1][c], __fmul_rn(cw, dy));
+          fs[2][c] = __fadd_rn(fs[2][c], __fmul_rn(cw, dx));
+          fs[3][c] = __fadd_rn(fs[3][c], cwv);
+        } else if (form == 3) {
+          const float cwdy = __fmul_rn(cw, dy), cwdx = __fmul_rn(cw, dx);
+          const float terms[9] = {cw, cwdy, cwdx, __fmul_rn(cwdy, dy), __fmul_rn(cwdy, dx), __fmul_rn(cwdx, dx),
+                                  cwv, __fmul_rn(cwv, dy), __fmul_rn(cwv, dx)};
+#pragma unroll
+          for (int k = 0; k < 9; ++k) fs[k][c] = __fadd_rn(fs[k][c], terms[k]);
+        } else {
+          fs[0][c] = __fadd_rn(fs[0][c], cwv);
+          fs[1][c] = __fadd_rn(fs[1][c], cw);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) tot[k][c] = __fadd_rn(tot[k][c], fs[k][c]);
+  }
+
+  const long long slot = (long long)S * S * 3 * plane;  // floats of one output array
+  const long long at = form == 0
+      ? (((long long)S * y + py) * ((long long)w * S) + (long long)S * x + px) * 3  // (sH, sW, 3)
+      : (long long)(py * S + px) * 3 * plane + pix;                                  // (s, s, 3, H, W)
+  const long long step = form == 0 ? 1 : plane;  // from one channel to the next
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    if (k >= n_out) break;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[k * slot + at + c * step] = tot[k][c];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -585,6 +696,26 @@ int mfsr_merge_fast(const void* warped, const void* residual,
     case 4: return launch_form<4>(form, a, r, c, o, outs, frames, h, w, halo, rb, taps, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Launches the general form (merge_fast_general_kernel) on `stream` and
+// returns cudaGetLastError(). The arrays, out and forms are
+// mfsr_merge_fast's, at any scale >= 1; taps is a DEVICE int32 array of
+// n_taps (ky, kx) rows, any offsets, in the list's order.
+int mfsr_merge_fast_general(const void* warped, const void* residual, const void* certainty,
+                            const void* omega, void* out, int frames, int h, int w, int scale,
+                            int form, const void* taps, int n_taps, float rb, void* stream) {
+  if (n_taps < 0 || frames < 1 || h < 1 || w < 1 || scale < 1 || (long long)scale * scale > 65535 ||
+      (h + 7) / 8 > 65535 || form < 0 || form > 4 ||
+      reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((w + 31) / 32, (h + 7) / 8, scale * scale);
+  merge_fast_general_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(warped), static_cast<const float*>(residual),
+      static_cast<const float*>(certainty), static_cast<const float*>(omega), static_cast<float*>(out),
+      static_cast<const int*>(taps), n_taps, frames, h, w, scale, form, rb);
+  return (int)cudaGetLastError();
 }
 
 const char* mfsr_cuda_error_string(int code) {

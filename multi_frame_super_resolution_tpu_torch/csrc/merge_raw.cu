@@ -1,11 +1,14 @@
-// RAW plane-domain merges for Hopper (sm_90a), scales 1-4, Bayer
-// patterns, in four forms: the order-1 certless plugin branch (form 0,
-// merge_raw_kernel, described first), the order-0 merge (form 1: the same
-// kernel without its centroid chains), the exact solve's 9 order-1
-// moments (form 2, merge_raw_cells_kernel, described after them) and the
-// per-cell plugin moments (form 3: that kernel with 4 slots). A guided
-// merge (R/B as colour differences) runs any form on difference planes
-// that the wrapper forms beforehand (kernels/merge_raw.py).
+// RAW plane-domain merges for Hopper (sm_90a) in four forms: the order-1
+// certless plugin branch (form 0, merge_raw_kernel, described first), the
+// order-0 merge (form 1: the same kernel without its centroid chains), the
+// exact solve's 9 order-1 moments (form 2, merge_raw_cells_kernel,
+// described after them) and the per-cell plugin moments (form 3: that
+// kernel with 4 slots). These templated kernels take scales 1-4, Bayer
+// patterns and taps within +-4; the general form (merge_raw_general_kernel,
+// described last) takes every form at any scale, tap list, 2 x 2 pattern
+// and frame count. A guided merge (R/B as colour differences) runs any
+// form on difference planes that the wrapper forms beforehand
+// (kernels/merge_raw.py), which also chooses between the kernels.
 //
 // Replaces: the JAX package computes this accumulate outside Pallas
 // (multi_frame_super_resolution_tpu/models/fast_merge.py::
@@ -83,10 +86,18 @@
 //   tap loop runs over the frames innermost, so every frame is resident
 //   at once (there is nothing to double-buffer across frames); 7.4 KB a
 //   frame at halo 1 (30 frames fit), 10 KB at halo 2 (22). Omega and
-//   omega_rb stay in registers. The frame cap is a deliberate narrowing
-//   against the first version, which took any number of frames: longer
-//   bursts raise (bursts are 4-8 frames), and streaming frames in chunks
-//   would need the chains' sums, not the finished centroids, as output.
+//   omega_rb stay in registers.
+// - Longer bursts (kStream, the float32 forms): the same tap loop
+//   (add_group_taps, which both forms call), chunk by chunk of as many
+//   frames as fit. Each tap-group pair stages every chunk in turn and
+//   adds each tap's chunk sums to the accumulators and chains it keeps
+//   across the chunks, so a block still finishes its centroids (the live
+//   accumulators stay one pair's, its R and B cells stored after the last
+//   chunk; the staging is paid once a chunk and pair, and a tap's frame
+//   sum rounds chunk by chunk). A separate instantiation: one loop for
+//   every length (one chunk where the frames fit) cost the resident case
+//   128 registers, spills and 7% at S=2 (PERF.md). The bfloat16 order 0
+//   past the cap runs the general form.
 // - Stores: each warp writes 32 consecutive pixels of one output plane,
 //   in the (4, 4, 3, hh, hw) layout the solve reads.
 // - Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 122-126
@@ -334,9 +345,94 @@ __device__ __forceinline__ int rb_slot(int q) {
   return is_green<kGreenDiag>(q) ? 0 : (kGreenDiag ? q : (q == 0 ? 1 : 2));
 }
 
+// Adds the taps of group g (slot k of its pair) over the nf staged frames
+// to the thread's accumulators: per tap the frame sums first (the JAX
+// order), then added to m00 and b0 and, with the chains, to the pair's
+// green chain (0) and the group's R/B chain (1 + k). The resident and the
+// streamed forms of merge_raw_kernel share it.
+template <int S, int kHalo, bool kGreenDiag, bool kChains, int kPX>
+__device__ __forceinline__ void add_group_taps(
+    const TapTable& taps, int g, int k, int nf, const float2* my_res, const float2* my_sv,
+    float phi_y, float phis_y, const float (&phi_x)[kPX], float og0, float og1, float og2,
+    float or0, float or1, float or2, float (&m00)[4][2][kPX], float (&b0)[4][2][kPX],
+    float (&cw)[3][kPX], float (&c1)[3][kPX], float (&c2)[3][kPX]) {
+  constexpr int kSW = kTileW + 2 * kHalo;
+  constexpr int kSA = (Shape<S>::kTileH + 2 * kHalo) * kSW;
+  constexpr int kPix = Shape<S>::kPix;
+  for (int t = g ? taps.group_end[g - 1] : 0; t < taps.group_end[g]; ++t) {
+    const int kyi = taps.ky[t], kxi = taps.kx[t];
+    const float ky = (float)kyi, kx = (float)kxi;
+    int off[4];
+#pragma unroll
+    for (int z = 0; z < 4; ++z) {
+      off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
+    }
+    float sm[4][kPX], sb[4][kPX];
+    float sw_g[kPX], sry_g[kPX], srx_g[kPX], sw_r[kPX], sry_r[kPX], srx_r[kPX];
+#pragma unroll
+    for (int px = 0; px < kPX; ++px) {
+#pragma unroll
+      for (int z = 0; z < 4; ++z) sm[z][px] = sb[z][px] = 0.0f;
+      sw_g[px] = sry_g[px] = srx_g[px] = sw_r[px] = sry_r[px] = srx_r[px] = 0.0f;
+    }
+#pragma unroll 2
+    for (int f = 0; f < nf; ++f) {
+      const float2 res = my_res[f * kPix];
+      const float dy = (ky - res.x) * (float)S - phis_y;
+      const float dyy = dy * dy;
+      const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
+      float wg[kPX], wr[kPX];
+#pragma unroll
+      for (int px = 0; px < kPX; ++px) {
+        const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
+        wg[px] = exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy));
+        wr[px] = exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy));
+        if constexpr (kChains) {
+          sw_g[px] += wg[px];
+          sry_g[px] += res.x * wg[px];
+          srx_g[px] += res.y * wg[px];
+          sw_r[px] += wr[px];
+          sry_r[px] += res.x * wr[px];
+          srx_r[px] += res.y * wr[px];
+        }
+      }
+      const float2* fsv = my_sv + f * 4 * kSA;
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const float2 vc = fsv[off[z]];  // (value * certainty, certainty)
+        const bool green = is_green<kGreenDiag>(plane_of(z, g));
+#pragma unroll
+        for (int px = 0; px < kPX; ++px) {
+          const float w = green ? wg[px] : wr[px];
+          sm[z][px] = fmaf(w, vc.y, sm[z][px]);
+          sb[z][px] = fmaf(w, vc.x, sb[z][px]);
+        }
+      }
+    }
+#pragma unroll
+    for (int px = 0; px < kPX; ++px) {
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        m00[z][k][px] += sm[z][px];
+        b0[z][k][px] += sb[z][px];
+      }
+      if constexpr (kChains) {
+        cw[0][px] += sw_g[px];
+        c1[0][px] += (float)S * ((ky - phi_y) * sw_g[px] - sry_g[px]);
+        c2[0][px] += (float)S * ((kx - phi_x[px]) * sw_g[px] - srx_g[px]);
+        cw[1 + k][px] += sw_r[px];
+        c1[1 + k][px] += (float)S * ((ky - phi_y) * sw_r[px] - sry_r[px]);
+        c2[1 + k][px] += (float)S * ((kx - phi_x[px]) * sw_r[px] - srx_r[px]);
+      }
+    }
+  }
+}
+
 // kChains: form 0 (the certless centroid chains); without them form 1,
-// in float32 or (kBf16) in bfloat16.
-template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16>
+// in float32 or (kBf16) in bfloat16. kStream (float32 forms): the frames
+// in chunks of `chunk` (the most that fit shared memory at once), each
+// staged in turn for each tap-group pair, so any number of frames runs.
+template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16, bool kStream = false>
 __global__ void __launch_bounds__(Shape<S>::kThreads, Layout<S>::kMinBlocks)
 merge_raw_kernel(const float* __restrict__ planes,
                  const float* __restrict__ residual,
@@ -345,14 +441,16 @@ merge_raw_kernel(const float* __restrict__ planes,
                  const float* __restrict__ omega_rb,
                  float* __restrict__ m00_out, float* __restrict__ cy_out,
                  float* __restrict__ cx_out, float* __restrict__ b0_out,
-                 int frames, int hh, int hw, float rb, const TapTable taps) {
+                 int frames, int hh, int hw, float rb, const TapTable taps, int chunk) {
   using L = Shape<S>;
   constexpr int kPX = L::kPX, kTileH = L::kTileH, kPix = L::kPix, kThreads = L::kThreads;
   constexpr int kSW = kTileW + 2 * kHalo;          // staged row length
   constexpr int kSA = (kTileH + 2 * kHalo) * kSW;  // staged sites per plane
+  static_assert(!(kStream && kBf16), "the streamed form is the float32 forms'");
+  const int staged = kStream ? chunk : frames;     // frames resident at once
   extern __shared__ float2 smem[];
   float2* sv = smem;                               // (F, 4, kSA): value, cert
-  float2* sres = smem + (size_t)frames * 4 * kSA;  // (F, kPix): ry, rx
+  float2* sres = smem + (size_t)staged * 4 * kSA;  // (F, kPix): ry, rx
 
   const int tx = threadIdx.x, ty = threadIdx.y, zz = threadIdx.z;
   const int py = zz / L::kCols;                  // the thread's phase row
@@ -361,41 +459,45 @@ merge_raw_kernel(const float* __restrict__ planes,
   const int i0 = blockIdx.y * kTileH, j0 = blockIdx.x * kTileW;
   const long long plane = (long long)hh * hw;
 
-  // stage every frame's tile and halo, edge-clamped
-  for (int e = tid; e < frames * 4 * kSA; e += kThreads) {
-    const int site = e % kSA;
-    const int fq = e / kSA;
-    const int q = fq & 3;
-    const int f = fq >> 2;
-    const int r = min(max(i0 - kHalo + site / kSW, 0), hh - 1);
-    const int c = min(max(j0 - kHalo + site % kSW, 0), hw - 1);
-    const long long rc = (long long)r * hw + c;
-    cp_async4(&sv[e].x, planes + ((long long)f * 4 + q) * plane + rc);
-    cp_async4(&sv[e].y, certainty + ((long long)f * plane + rc) * 3 + taps.chan[q]);
-  }
-  for (int e = tid; e < frames * kPix; e += kThreads) {
-    const int p = e % kPix;
-    const int f = e / kPix;
-    const int r = min(i0 + p / kTileW, hh - 1);
-    const int c = min(j0 + p % kTileW, hw - 1);
-    cp_async8(&sres[e], residual + ((long long)f * plane + (long long)r * hw + c) * 2);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-  // clip the residual; each site's value becomes value * certainty (or,
-  // for bfloat16, both are rounded: w c rounds before it meets the value)
-  for (int e = tid; e < frames * kPix; e += kThreads) {
-    sres[e] = make_float2(fminf(fmaxf(sres[e].x, -rb), rb), fminf(fmaxf(sres[e].y, -rb), rb));
-  }
-  for (int e = tid; e < frames * 4 * kSA; e += kThreads) {
-    if constexpr (kBf16) {
-      sv[e] = __bfloat1622float2(__float22bfloat162_rn(sv[e]));
-    } else {
-      sv[e].x *= sv[e].y;
+  // stages frames [f0, f0 + nf) into the first nf slots: the tile and
+  // halo, edge-clamped, and the clipped residual; each site's value
+  // becomes value * certainty (or, for bfloat16, both are rounded: w c
+  // rounds before it meets the value)
+  const auto stage = [&](int f0, int nf) {
+    for (int e = tid; e < nf * 4 * kSA; e += kThreads) {
+      const int site = e % kSA;
+      const int fq = e / kSA;
+      const int q = fq & 3;
+      const int f = f0 + (fq >> 2);
+      const int r = min(max(i0 - kHalo + site / kSW, 0), hh - 1);
+      const int c = min(max(j0 - kHalo + site % kSW, 0), hw - 1);
+      const long long rc = (long long)r * hw + c;
+      cp_async4(&sv[e].x, planes + ((long long)f * 4 + q) * plane + rc);
+      cp_async4(&sv[e].y, certainty + ((long long)f * plane + rc) * 3 + taps.chan[q]);
     }
-  }
-  __syncthreads();
+    for (int e = tid; e < nf * kPix; e += kThreads) {
+      const int p = e % kPix;
+      const int f = f0 + e / kPix;
+      const int r = min(i0 + p / kTileW, hh - 1);
+      const int c = min(j0 + p % kTileW, hw - 1);
+      cp_async8(&sres[e], residual + ((long long)f * plane + (long long)r * hw + c) * 2);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    for (int e = tid; e < nf * kPix; e += kThreads) {
+      sres[e] = make_float2(fminf(fmaxf(sres[e].x, -rb), rb), fminf(fmaxf(sres[e].y, -rb), rb));
+    }
+    for (int e = tid; e < nf * 4 * kSA; e += kThreads) {
+      if constexpr (kBf16) {
+        sv[e] = __bfloat1622float2(__float22bfloat162_rn(sv[e]));
+      } else {
+        sv[e].x *= sv[e].y;
+      }
+    }
+    __syncthreads();
+  };
+  if constexpr (!kStream) stage(0, frames);  // every frame at once
 
   const int i = i0 + ty, j = j0 + tx;
   const bool inside = i < hh && j < hw;
@@ -524,79 +626,10 @@ merge_raw_kernel(const float* __restrict__ planes,
       for (int k = 0; k < 3; ++k) cw[k][px] = c1[k][px] = c2[k][px] = 0.0f;
     }
 
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int g = pair == 0 ? 3 * k : 1 + k;  // {0, 3}, then {1, 2}
-      for (int t = g ? taps.group_end[g - 1] : 0; t < taps.group_end[g]; ++t) {
-        const int kyi = taps.ky[t], kxi = taps.kx[t];
-        const float ky = (float)kyi, kx = (float)kxi;
-        int off[4];
-#pragma unroll
-        for (int z = 0; z < 4; ++z) {
-          off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
-        }
-        float sm[4][kPX], sb[4][kPX];
-        float sw_g[kPX], sry_g[kPX], srx_g[kPX], sw_r[kPX], sry_r[kPX], srx_r[kPX];
-#pragma unroll
-        for (int px = 0; px < kPX; ++px) {
-#pragma unroll
-          for (int z = 0; z < 4; ++z) sm[z][px] = sb[z][px] = 0.0f;
-          sw_g[px] = sry_g[px] = srx_g[px] = sw_r[px] = sry_r[px] = srx_r[px] = 0.0f;
-        }
-#pragma unroll 2
-        for (int f = 0; f < frames; ++f) {
-          const float2 res = my_res[f * kPix];
-          const float dy = (ky - res.x) * (float)S - phis_y;
-          const float dyy = dy * dy;
-          const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
-          float wg[kPX], wr[kPX];
-#pragma unroll
-          for (int px = 0; px < kPX; ++px) {
-            const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
-            wg[px] = exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy));
-            wr[px] = exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy));
-            if constexpr (kChains) {
-              sw_g[px] += wg[px];
-              sry_g[px] += res.x * wg[px];
-              srx_g[px] += res.y * wg[px];
-              sw_r[px] += wr[px];
-              sry_r[px] += res.x * wr[px];
-              srx_r[px] += res.y * wr[px];
-            }
-          }
-          const float2* fsv = my_sv + f * 4 * kSA;
-#pragma unroll
-          for (int z = 0; z < 4; ++z) {
-            const float2 vc = fsv[off[z]];  // (value * certainty, certainty)
-            const bool green = is_green<kGreenDiag>(plane_of(z, g));
-#pragma unroll
-            for (int px = 0; px < kPX; ++px) {
-              const float w = green ? wg[px] : wr[px];
-              sm[z][px] = fmaf(w, vc.y, sm[z][px]);
-              sb[z][px] = fmaf(w, vc.x, sb[z][px]);
-            }
-          }
-        }
-#pragma unroll
-        for (int px = 0; px < kPX; ++px) {
-#pragma unroll
-          for (int z = 0; z < 4; ++z) {
-            m00[z][k][px] += sm[z][px];
-            b0[z][k][px] += sb[z][px];
-          }
-          if constexpr (kChains) {
-            cw[0][px] += sw_g[px];
-            c1[0][px] += (float)S * ((ky - phi_y) * sw_g[px] - sry_g[px]);
-            c2[0][px] += (float)S * ((kx - phi_x[px]) * sw_g[px] - srx_g[px]);
-            cw[1 + k][px] += sw_r[px];
-            c1[1 + k][px] += (float)S * ((ky - phi_y) * sw_r[px] - sry_r[px]);
-            c2[1 + k][px] += (float)S * ((kx - phi_x[px]) * sw_r[px] - srx_r[px]);
-          }
-        }
-      }
-      // the R and B cells group g completed (parities that read R or B in
-      // this pair): stored now, so their registers free up and the
-      // stores spread over the kernel
+    // stores the R and B cells that group k of the pair completed (the
+    // parities that read R or B in it)
+    const auto store_rb = [&](int k) {
+      const int g = pair == 0 ? 3 * k : 1 + k;
       if (inside) {
 #pragma unroll
         for (int z = 0; z < 4; ++z) {
@@ -605,9 +638,34 @@ merge_raw_kernel(const float* __restrict__ planes,
           for (int px = 0; px < kPX; ++px) {
             store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py,
                                    px0 + px, taps.chan[plane_of(z, g)], m00[z][k][px], b0[z][k][px],
-                          cw[1 + k][px], c1[1 + k][px], c2[1 + k][px]);
+                                   cw[1 + k][px], c1[1 + k][px], c2[1 + k][px]);
           }
         }
+      }
+    };
+    if constexpr (kStream) {
+      // each chunk staged in turn, once every thread is done with the
+      // last, for both groups of the pair
+      for (int f0 = 0; f0 < frames; f0 += chunk) {
+        const int nf = min(chunk, frames - f0);
+        __syncthreads();
+        stage(f0, nf);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          add_group_taps<S, kHalo, kGreenDiag, kChains, kPX>(
+              taps, pair == 0 ? 3 * k : 1 + k, k, nf, my_res, my_sv, phi_y, phis_y, phi_x, og0, og1, og2,
+              or0, or1, or2, m00, b0, cw, c1, c2);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) store_rb(k);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {  // groups {0, 3}, then {1, 2}
+        add_group_taps<S, kHalo, kGreenDiag, kChains, kPX>(
+            taps, pair == 0 ? 3 * k : 1 + k, k, frames, my_res, my_sv, phi_y, phis_y, phi_x, og0, og1, og2,
+            or0, or1, or2, m00, b0, cw, c1, c2);
+        store_rb(k);  // now, so their registers free up and the stores spread over the kernel
       }
     }
 
@@ -619,8 +677,8 @@ merge_raw_kernel(const float* __restrict__ planes,
 #pragma unroll
         for (int px = 0; px < kPX; ++px) {
           store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, 1,
-                        m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px],
-                        cw[0][px], c1[0][px], c2[0][px]);
+                                 m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px],
+                                 cw[0][px], c1[0][px], c2[0][px]);
         }
       }
     }
@@ -1046,6 +1104,311 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
   }
 }
 
+// The general form (merge_raw_general_kernel): what the templated kernels
+// above do not take. Those are built for scales 1-4, taps within +-4 (81
+// at most, staged halo 1 or 2), Bayer patterns (the pair grouping needs
+// green on one diagonal) and, in the bfloat16 order 0, the frames whose
+// tiles fit a block's shared memory at once (30 at S = 1-2, 66 at S = 3-4,
+// halo 1; the float32 forms 0 and 1 stream past that). The wrapper
+// (kernels/merge_raw.py) launches this kernel wherever one of those does
+// not hold: any scale, any tap list (read from a device table), any 2 x 2
+// pattern (each plane's channel and each certless cell's chain from the
+// host's table) and any number of frames, in all four forms and with
+// every knob of form 1 and 3.
+//
+// Design: written simply, as the plain version reads. A thread per
+// (half-res pixel, output parity (a, b), phase (py, px)) holds the three
+// channel cells of its output pixel (and, in form 0, all six certless
+// chains of its phase, each a tap-parity sum that the cells of every
+// parity read). It walks the taps in the list's order and, per tap, the
+// frames: each tap's frame sums are formed first and then added to the
+// cell the tap's plane feeds, the plain version's (and JAX's) summation
+// order, with the weights by IEEE expf and the products and sums by
+// round-to-nearest intrinsics where the plain version rounds each one (no
+// contraction into FMAs). It reads planes, certainty and residual straight
+// from device memory (the neighbouring threads' reads hit the same lines
+// in L1 and L2): nothing is staged, so no frame count, tap count or scale
+// is bounded by shared memory. Each Gaussian is evaluated by each of the
+// four parities' threads (the templated forms evaluate it once), and the
+// residual blend of forms 2 and 3 once per tap: the price of simplicity.
+// Its time against its bound is in PERF.md.
+struct CellTable {
+  int chan[4];    // channel of plane q = 2*qa + qb
+  int chain[12];  // form 0: the chain cell (a, b, ch) reads, at 3 (2a + b) + ch: 0 and 1 the
+                  // green chains of (ky + kx) % 2, 2 + 2 (ky % 2) + kx % 2 the R/B ones, -1 none
+};
+
+__device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// exp(-1/2 (dx^2 o0 + dy^2 o1 + 2 dx dy o2)) in the plain version's order
+__device__ __forceinline__ float quad_exp(float dx, float dy, float3 o) {
+  const float q = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(dx, dx), o.x), __fmul_rn(__fmul_rn(dy, dy), o.y)),
+                            __fmul_rn(__fmul_rn(__fmul_rn(2.0f, dx), dy), o.z));
+  return expf(__fmul_rn(-0.5f, q));
+}
+
+// rho of parity a at phase offset phi: the clipped residual r at the
+// pixel blended with the one at the neighbouring Bayer block (nb), clipped,
+// + phi (fast_merge.merge_burst_raw_planes' parity_rho)
+__device__ __forceinline__ float blend_rho(float r, float nb, float ga, float phi, float rb) {
+  const float m = __fadd_rn(__fmul_rn(1.0f - ga, r), __fmul_rn(ga, nb));
+  return __fadd_rn(fminf(fmaxf(m, -rb), rb), phi);
+}
+
+// kForm: the form (0-3), a template parameter so that each form holds
+// only its own accumulators (two blocks an SM at 256 threads)
+template <int kForm>
+__global__ void __launch_bounds__(256, 2)
+merge_raw_general_kernel(const float* __restrict__ planes, const float* __restrict__ residual,
+                         const float* __restrict__ certainty, const float* __restrict__ omega,
+                         const float* __restrict__ omega_rb, float* __restrict__ out,
+                         const int* __restrict__ taps, int n_taps, int frames, int hh, int hw, int S,
+                         int flags, float rb, const CellTable cells) {
+  constexpr int form = kForm;
+  const int j = blockIdx.x * 32 + threadIdx.x, i = blockIdx.y * 8 + threadIdx.y;
+  if (i >= hh || j >= hw) return;  // no barrier below
+  const int nph = S * S;
+  const int ph = blockIdx.z % nph, ab = blockIdx.z / nph;
+  const int a = ab >> 1, b = ab & 1, py = ph / S, px = ph % S;
+  const bool exact = (flags & kExactWeights) != 0 && (form == 2 || form == 3);
+  const bool bf16 = (flags & kBf16Flag) != 0 && form == 1;
+  const bool shared = (flags & kSharedFlag) != 0 && form == 3;
+  const bool block = ((flags & kBlockFlag) != 0 || shared) && form == 3;
+  const bool cbf16 = (flags & kBf16Flag) != 0 && form == 3 && !block;
+  // the blended residual feeds the 9 moments, the exact weights and the
+  // per-cell centroid's compact rho
+  const bool need_rho = form == 2 || exact || (form == 3 && !block);
+  const long long plane = (long long)hh * hw, pix = (long long)i * hw + j;
+  const float sf = (float)S;
+  // phi[p] = (p + 0.5) / s - 0.5 and phi s, as fast_merge._output_phase_offsets
+  const auto phi_of = [&](int p) { return ((float)p + 0.5f) / sf - 0.5f; };
+  const float phi_y = phi_of(py), phi_x = phi_of(px), phi_0 = phi_of(0);
+  const float phis_y = phi_y * sf, phis_x = phi_x * sf, phis_0 = phi_0 * sf;
+  // the blend weights and neighbour rows / columns of parity a (b) at this
+  // phase and at phase 0 (the shared centroid's residual sums)
+  const auto blend = [&](int par, float phi, float* ga, int* sgn) {
+    const float g = ((float)par + phi - 0.5f) / 2.0f;
+    *ga = fabsf(g);
+    *sgn = g > 0.0f ? 1 : -1;
+  };
+  float ga_y, ga_x, ga_y0, ga_x0;
+  int sg_y, sg_x, sg_y0, sg_x0;
+  blend(a, phi_y, &ga_y, &sg_y);
+  blend(b, phi_x, &ga_x, &sg_x);
+  blend(a, phi_0, &ga_y0, &sg_y0);
+  blend(b, phi_0, &ga_x0, &sg_x0);
+  const long long nb_y = (long long)min(max(i + sg_y, 0), hh - 1) * hw + j;
+  const long long nb_x = (long long)i * hw + min(max(j + sg_x, 0), hw - 1);
+  const long long nb_y0 = (long long)min(max(i + sg_y0, 0), hh - 1) * hw + j;
+  const long long nb_x0 = (long long)i * hw + min(max(j + sg_x0, 0), hw - 1);
+  const float3 og = make_float3(omega[pix * 3], omega[pix * 3 + 1], omega[pix * 3 + 2]);
+  const float3 orb = make_float3(omega_rb[pix * 3], omega_rb[pix * 3 + 1], omega_rb[pix * 3 + 2]);
+  const float2* res2 = reinterpret_cast<const float2*>(residual);
+  const auto clip = [&](float x) { return fminf(fmaxf(x, -rb), rb); };
+
+  // the three channel cells' slots (form 1: num, den; form 0: m00 at 0 and
+  // b0 at 3) and, shared centroid, their phase-0 m00 and residual sums
+  float acc[3][9], acc0[3][3];
+  float chain[6][3];  // form 0: sum w, folded m01, folded m02 per chain
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) acc[c][k] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc0[c][k] = 0.0f;
+  }
+#pragma unroll
+  for (int c = 0; c < 6; ++c) chain[c][0] = chain[c][1] = chain[c][2] = 0.0f;
+
+#pragma unroll 1
+  for (int t = 0; t < n_taps; ++t) {
+    const int ky = taps[3 * t], kx = taps[3 * t + 1];
+    const bool centroid = taps[3 * t + 2] != 0;
+    const int qa = (a + ky) & 1, qb = (b + kx) & 1;
+    const int r = min(max(i + ((a + ky) >> 1), 0), hh - 1), cc = min(max(j + ((b + kx) >> 1), 0), hw - 1);
+    const long long site = (long long)r * hw + cc;
+    const int ch = cells.chan[2 * qa + qb];
+    const float3 om = ch == 1 ? og : orb;
+    const float fky = (float)ky, fkx = (float)kx;
+    // this tap's frame sums: the form's slots, the phase-0 sums, the chains'
+    float s[9], s0[3], sc[6];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) s[k] = 0.0f;
+    s0[0] = s0[1] = s0[2] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) sc[k] = 0.0f;
+#pragma unroll 1
+    for (int f = 0; f < frames; ++f) {
+      const float2 rr = res2[f * plane + pix];
+      const float ry = clip(rr.x), rx = clip(rr.y);
+      float rho_y = 0.0f, rho_x = 0.0f, dym = 0.0f, dxm = 0.0f;
+      if (need_rho) {
+        rho_y = blend_rho(ry, clip(res2[f * plane + nb_y].x), ga_y, phi_y, rb);
+        rho_x = blend_rho(rx, clip(res2[f * plane + nb_x].y), ga_x, phi_x, rb);
+        dym = __fmul_rn(sf, __fsub_rn(fky, rho_y));
+        dxm = __fmul_rn(sf, __fsub_rn(fkx, rho_x));
+      }
+      // the block-centre weights: dy = (ky - ry) s - phi s
+      const float dyw = __fsub_rn(__fmul_rn(__fsub_rn(fky, ry), sf), phis_y);
+      const float dxw = __fsub_rn(__fmul_rn(__fsub_rn(fkx, rx), sf), phis_x);
+      float w;
+      if (exact) {
+        w = quad_exp(dxm, dym, om);
+      } else if (form == 0) {
+        const float wg = quad_exp(dxw, dyw, og), wr = quad_exp(dxw, dyw, orb);
+        sc[0] += wg;
+        sc[1] = __fadd_rn(sc[1], __fmul_rn(ry, wg));
+        sc[2] = __fadd_rn(sc[2], __fmul_rn(rx, wg));
+        sc[3] += wr;
+        sc[4] = __fadd_rn(sc[4], __fmul_rn(ry, wr));
+        sc[5] = __fadd_rn(sc[5], __fmul_rn(rx, wr));
+        w = ch == 1 ? wg : wr;
+      } else {
+        w = quad_exp(dxw, dyw, om);
+      }
+      float v = planes[((long long)f * 4 + 2 * qa + qb) * plane + site];
+      float c = certainty[((long long)f * plane + site) * 3 + ch];
+      if (bf16) {
+        // the planes, certainties and weights rounded; w c exact in f32
+        v = bf16r(v);
+        c = bf16r(c);
+        const float wc = __fmul_rn(bf16r(w), c);
+        s[0] = __fadd_rn(s[0], __fmul_rn(bf16r(wc), v));
+        s[1] = __fadd_rn(s[1], wc);
+        continue;
+      }
+      const float wc = __fmul_rn(w, c), wcv = __fmul_rn(wc, v);
+      if (form == 1) {
+        s[0] = __fadd_rn(s[0], wcv);
+        s[1] = __fadd_rn(s[1], wc);
+      } else if (form == 2) {
+        const float tdy = __fmul_rn(dym, wc), tdx = __fmul_rn(dxm, wc);
+        const float terms[9] = {wc, tdy, tdx, __fmul_rn(__fmul_rn(dym, dym), wc),
+                                __fmul_rn(__fmul_rn(dym, dxm), wc), __fmul_rn(__fmul_rn(dxm, dxm), wc),
+                                wcv, __fmul_rn(dym, wcv), __fmul_rn(dxm, wcv)};
+#pragma unroll
+        for (int k = 0; k < 9; ++k) s[k] = __fadd_rn(s[k], terms[k]);
+      } else {
+        // form 0's cells and form 3's: m00 and b0, and form 3's centroid
+        // sums (slots 1, 2) of the centroid's taps
+        s[0] = __fadd_rn(s[0], wc);
+        s[3] = __fadd_rn(s[3], wcv);
+        if (form == 3 && centroid) {
+          if (block) {
+            s[1] = __fadd_rn(s[1], __fmul_rn(ry, wc));
+            s[2] = __fadd_rn(s[2], __fmul_rn(rx, wc));
+          } else if (cbf16) {
+            s[1] = __fadd_rn(s[1], __fmul_rn(bf16r(rho_y), bf16r(wc)));
+            s[2] = __fadd_rn(s[2], __fmul_rn(bf16r(rho_x), bf16r(wc)));
+          } else {
+            s[1] = __fadd_rn(s[1], __fmul_rn(rho_y, wc));
+            s[2] = __fadd_rn(s[2], __fmul_rn(rho_x, wc));
+          }
+        }
+      }
+      if (shared) {
+        // the cell's phase-0 w c: its m00 (every tap) and, for the
+        // centroid's taps, its residual sums
+        float w0;
+        if (exact) {
+          const float ry0 = blend_rho(ry, clip(res2[f * plane + nb_y0].x), ga_y0, phi_0, rb);
+          const float rx0 = blend_rho(rx, clip(res2[f * plane + nb_x0].y), ga_x0, phi_0, rb);
+          w0 = quad_exp(__fmul_rn(sf, __fsub_rn(fkx, rx0)), __fmul_rn(sf, __fsub_rn(fky, ry0)), om);
+        } else {
+          w0 = quad_exp(__fsub_rn(__fmul_rn(__fsub_rn(fkx, rx), sf), phis_0),
+                        __fsub_rn(__fmul_rn(__fsub_rn(fky, ry), sf), phis_0), om);
+        }
+        const float wc0 = __fmul_rn(w0, c);
+        s0[0] = __fadd_rn(s0[0], wc0);
+        if (centroid) {
+          s0[1] = __fadd_rn(s0[1], __fmul_rn(ry, wc0));
+          s0[2] = __fadd_rn(s0[2], __fmul_rn(rx, wc0));
+        }
+      }
+    }
+    // the tap's sums join its cell (and, form 0, its two chains)
+    if (form == 0) {
+      const int cg = (ky + kx) & 1, cr = 2 + 2 * (ky & 1) + (kx & 1);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        if (k != cg && k != cr) continue;
+        const float sw = k < 2 ? sc[0] : sc[3], sry = k < 2 ? sc[1] : sc[4], srx = k < 2 ? sc[2] : sc[5];
+        chain[k][0] = __fadd_rn(chain[k][0], sw);
+        chain[k][1] = __fadd_rn(chain[k][1], __fmul_rn(sf, __fsub_rn(__fmul_rn(fky - phi_y, sw), sry)));
+        chain[k][2] = __fadd_rn(chain[k][2], __fmul_rn(sf, __fsub_rn(__fmul_rn(fkx - phi_x, sw), srx)));
+      }
+    }
+    float add[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) add[k] = s[k];
+    if (form == 3) {
+      if (!centroid) {
+        add[1] = add[2] = 0.0f;
+      } else if (shared) {
+        add[1] = __fmul_rn(__fmul_rn(sf, fky - phi_y), s[0]);
+        add[2] = __fmul_rn(__fmul_rn(sf, fkx - phi_x), s[0]);
+      } else if (block) {
+        add[1] = __fmul_rn(sf, __fsub_rn(__fmul_rn(fky - phi_y, s[0]), s[1]));
+        add[2] = __fmul_rn(sf, __fsub_rn(__fmul_rn(fkx - phi_x, s[0]), s[2]));
+      } else {
+        add[1] = __fmul_rn(sf, __fsub_rn(__fmul_rn(fky, s[0]), s[1]));
+        add[2] = __fmul_rn(sf, __fsub_rn(__fmul_rn(fkx, s[0]), s[2]));
+      }
+    }
+#pragma unroll
+    for (int cch = 0; cch < 3; ++cch) {
+      if (cch != ch) continue;
+      if (bf16) {  // each tap's sums rounded, then added in bfloat16
+        acc[cch][0] = bf16r(__fadd_rn(acc[cch][0], bf16r(add[0])));
+        acc[cch][1] = bf16r(__fadd_rn(acc[cch][1], bf16r(add[1])));
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < 9; ++k) acc[cch][k] = __fadd_rn(acc[cch][k], add[k]);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc0[cch][k] = __fadd_rn(acc0[cch][k], s0[k]);
+    }
+  }
+
+  // outputs: (n_out, 2S, 2S, 3, hh, hw), phase index (a S + py, b S + px)
+  const int n_out = form == 0 ? 4 : (form == 1 ? 2 : (form == 2 ? 9 : 4));
+  const long long slot = 4LL * nph * 3 * plane;
+  const int row = a * S + py, col = b * S + px;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float* dst = out + (((long long)row * 2 * S + col) * 3 + c) * plane + pix;
+    if (form == 0) {
+      const int kc = cells.chain[3 * ab + c];
+      float cy = 0.0f, cx = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {  // compile-time indices: the chains stay in registers
+        if (k != kc) continue;
+        const float w = chain[k][0];
+        const float inv = w > 1e-8f ? 1.0f / fmaxf(w, 1e-8f) : 0.0f;
+        cy = fminf(fmaxf(__fmul_rn(chain[k][1], inv), -2.0f), 2.0f);
+        cx = fminf(fmaxf(__fmul_rn(chain[k][2], inv), -2.0f), 2.0f);
+      }
+      dst[0] = acc[c][0];
+      dst[slot] = cy;
+      dst[2 * slot] = cx;
+      dst[3 * slot] = acc[c][3];
+      continue;
+    }
+    if (shared) {
+      // the phase-0 residual average folded into m01 and m02
+      // (fast_merge.py:811-831)
+      const float m0 = acc0[c][0];
+      const float inv0 = m0 > 1e-8f ? 1.0f / fmaxf(m0, 1e-8f) : 0.0f;
+      acc[c][1] = __fsub_rn(acc[c][1], __fmul_rn(__fmul_rn(__fmul_rn(sf, acc0[c][1]), inv0), acc[c][0]));
+      acc[c][2] = __fsub_rn(acc[c][2], __fmul_rn(__fmul_rn(__fmul_rn(sf, acc0[c][2]), inv0), acc[c][0]));
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      if (k < n_out) dst[k * slot] = acc[c][k];
+    }
+  }
+}
+
 template <int S, int kHalo>
 size_t smem_bytes(int frames) {
   const size_t sites = (size_t)(Shape<S>::kTileH + 2 * kHalo) * (kTileW + 2 * kHalo);
@@ -1074,27 +1437,29 @@ int launch_cells(const void* planes, const void* residual, const void* certainty
   return (int)cudaGetLastError();
 }
 
-template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16>
+// kStream: the frames in chunks of `chunk` (the resident form: chunk is
+// ignored and every frame is staged)
+template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16, bool kStream>
 int launch(const void* planes, const void* residual, const void* certainty,
            const void* omega, const void* omega_rb, void* m00, void* cy,
            void* cx, void* b0, int frames, int hh, int hw, float rb,
-           const TapTable& taps, cudaStream_t stream) {
+           const TapTable& taps, int chunk, cudaStream_t stream) {
   using L = Shape<S>;
-  const size_t bytes = smem_bytes<S, kHalo>(frames);
+  const size_t bytes = smem_bytes<S, kHalo>(kStream ? chunk : frames);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16, kStream>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 block(kTileW, L::kTileH, L::kZ);
   const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kTileH - 1) / L::kTileH, 1);
-  merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16><<<grid, block, bytes, stream>>>(
+  merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16, kStream><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(m00),
       static_cast<float*>(cy), static_cast<float*>(cx),
-      static_cast<float*>(b0), frames, hh, hw, rb, taps);
+      static_cast<float*>(b0), frames, hh, hw, rb, taps, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -1120,19 +1485,25 @@ int launch_scale(int form, int flags, int halo, bool green_diag, const void* pla
 #undef MFSR_CELLS
   }
   // form 0's four outputs (m00, cy, cx, b0) one after another; form 1's
-  // two (num, den) are its b0 and m00
+  // two (num, den) are its b0 and m00. Past the frames that fit shared
+  // memory at once the float32 forms stream them in chunks of that many.
   float* base = static_cast<float*>(out);
   const long long slot = (long long)4 * S * S * 3 * hh * hw;
-#define MFSR_LAUNCH(H, G, C, B, M00, CY, CX, B0)                                                 \
-  launch<S, H, G, C, B>(planes, residual, certainty, omega, omega_rb, M00, CY, CX, B0, frames, hh, \
-                        hw, rb, taps, stream)
-#define MFSR_FORM(H, G)                                                                            \
-  (form == 0 ? MFSR_LAUNCH(H, G, true, false, base, base + slot, base + 2 * slot, base + 3 * slot) \
-   : bf16    ? MFSR_LAUNCH(H, G, false, true, base + slot, nullptr, nullptr, base)                 \
-             : MFSR_LAUNCH(H, G, false, false, base + slot, nullptr, nullptr, base))
+  const int cap = max_frames<S>(halo, form);
+  const bool stream_frames = frames > cap;
+  if (stream_frames && bf16) return (int)cudaErrorInvalidValue;  // the general form's
+#define MFSR_LAUNCH(H, G, C, B, T, M00, CY, CX, B0)                                                 \
+  launch<S, H, G, C, B, T>(planes, residual, certainty, omega, omega_rb, M00, CY, CX, B0, frames, hh, \
+                           hw, rb, taps, cap, stream)
+#define MFSR_FORM(H, G, T)                                                                              \
+  (form == 0 ? MFSR_LAUNCH(H, G, true, false, T, base, base + slot, base + 2 * slot, base + 3 * slot) \
+   : bf16    ? MFSR_LAUNCH(H, G, false, true, false, base + slot, nullptr, nullptr, base)              \
+             : MFSR_LAUNCH(H, G, false, false, T, base + slot, nullptr, nullptr, base))
+#define MFSR_STREAM(H, G) (stream_frames ? MFSR_FORM(H, G, true) : MFSR_FORM(H, G, false))
   if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
-  if (halo == 1) return green_diag ? MFSR_FORM(1, true) : MFSR_FORM(1, false);
-  return green_diag ? MFSR_FORM(2, true) : MFSR_FORM(2, false);
+  if (halo == 1) return green_diag ? MFSR_STREAM(1, true) : MFSR_STREAM(1, false);
+  return green_diag ? MFSR_STREAM(2, true) : MFSR_STREAM(2, false);
+#undef MFSR_STREAM
 #undef MFSR_FORM
 #undef MFSR_LAUNCH
 }
@@ -1144,7 +1515,8 @@ extern "C" {
 // Launches the RAW merge on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to the contiguous float32 arrays
 // described above; out holds the form's outputs (2s, 2s, 3, hh, hw) one
-// after another, each written in full, s = scale in 1..4: form 0 (m00,
+// after another, each written in full, s = scale in 1..4, any number of
+// frames but for the bfloat16 order 0 (mfsr_merge_raw_max_frames): form 0 (m00,
 // cy, cx, b0), form 1 (num, den), form 2 (m00, m01, m02, m11, m12, m22,
 // b0, b1, b2), form 3 (m00, m01, m02, b0). table is a HOST int array: the channel of each
 // plane q = 2*qa + qb (4, a Bayer pattern: green on one diagonal, R and B
@@ -1229,10 +1601,59 @@ int mfsr_merge_raw(const void* planes, const void* residual,
 #undef MFSR_SCALE
 }
 
-// The most frames one launch of the form takes at the given scale (1..4)
-// with taps of the given halo (1 or 2): forms 0 and 1 stage every frame's
-// tile at once, which must fit a block's shared memory; forms 2 and 3
-// stream frames and take any number (INT_MAX). 0 for another scale.
+// Launches the general form (merge_raw_general_kernel) on `stream` and
+// returns cudaGetLastError(). The arrays, out and flags are
+// mfsr_merge_raw's, at any scale >= 1 and any number of frames. taps is a
+// DEVICE int32 array of n_taps rows (ky, kx, c) in the tap list's order,
+// c = 1 where the tap feeds the per-cell centroid (form 3's
+// centroid_prune; 1 for every tap without it). cells is a HOST int array:
+// the channel (0..2) of each plane q = 2*qa + qb (4, any pattern), then
+// the certless chain of each cell (a, b, ch) at 3 (2a + b) + ch (12; 0, 1
+// green by (ky + kx) % 2, 2 + 2 (ky % 2) + kx % 2 R/B, -1 none).
+int mfsr_merge_raw_general(const void* planes, const void* residual, const void* certainty,
+                           const void* omega, const void* omega_rb, void* out, int frames, int hh,
+                           int hw, int scale, int form, float rb, const void* taps, int n_taps,
+                           const void* cells, int flags, void* stream) {
+  if (n_taps < 0 || frames < 1 || hh < 1 || hw < 1 || scale < 1 || 4LL * scale * scale > 65535 ||
+      (hh + 7) / 8 > 65535 || reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int allowed[4] = {0, kBf16Flag, kExactWeights,
+                          kExactWeights | kBf16Flag | kBlockFlag | kSharedFlag};
+  if (form < 0 || form > 3 || (flags & ~allowed[form])) return (int)cudaErrorInvalidValue;
+  const int* tab = static_cast<const int*>(cells);
+  CellTable ct;
+  for (int q = 0; q < 4; ++q) {
+    ct.chan[q] = tab[q];
+    if (tab[q] < 0 || tab[q] > 2) return (int)cudaErrorInvalidValue;
+  }
+  for (int k = 0; k < 12; ++k) {
+    ct.chain[k] = tab[4 + k];
+    if (tab[4 + k] < -1 || tab[4 + k] > 5) return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((hw + 31) / 32, (hh + 7) / 8, 4 * scale * scale);
+#define MFSR_GENERAL(K)                                                                              \
+  merge_raw_general_kernel<K><<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(          \
+      static_cast<const float*>(planes), static_cast<const float*>(residual),                        \
+      static_cast<const float*>(certainty), static_cast<const float*>(omega),                        \
+      static_cast<const float*>(omega_rb), static_cast<float*>(out), static_cast<const int*>(taps), \
+      n_taps, frames, hh, hw, scale, flags, rb, ct)
+  switch (form) {
+    case 0: MFSR_GENERAL(0); break;
+    case 1: MFSR_GENERAL(1); break;
+    case 2: MFSR_GENERAL(2); break;
+    default: MFSR_GENERAL(3); break;
+  }
+#undef MFSR_GENERAL
+  return (int)cudaGetLastError();
+}
+
+// The most frames a launch of the form stages at once at the given scale
+// (1..4) with taps of the given halo (1 or 2): forms 0 and 1 stage every
+// frame's tile at once, which must fit a block's shared memory (past it
+// their float32 forms stream chunks of that many; the bfloat16 order 0
+// is refused); forms 2 and 3 stream frames through a ring (INT_MAX). 0
+// for another scale.
 int mfsr_merge_raw_max_frames(int scale, int halo, int form) {
   switch (scale) {
     case 1: return max_frames<1>(halo, form);

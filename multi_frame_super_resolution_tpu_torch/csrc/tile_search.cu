@@ -90,9 +90,10 @@
 //   registers at T = 16, 64 at T = 32, no spills; 0.0077 ms of device
 //   time at the fine level against the plain search's 0.40 ms over 120
 //   device ops (PERF.md).
-// - Tile sizes 8, 16 and 32 (a lane group per tile row) and radii up to
-//   what fits 48 KB of shared memory (mfsr_tile_search_max_radius);
-//   anything else is refused.
+// - Tile sizes 8, 16 and 32 (a lane group per tile row) and radii from 1
+//   up to what fits 48 KB of shared memory (mfsr_tile_search_max_radius);
+//   the general form, described last, takes any other tile size and
+//   radius.
 
 #include <cuda_runtime.h>
 
@@ -334,6 +335,140 @@ cudaError_t launch(const float* ref, const float* alts, const float* rounded, fl
   return cudaGetLastError();
 }
 
+// The general form (tile_search_general_kernel): what the templated
+// kernel above does not take. That kernel maps a lane group of T lanes
+// to the tile's rows (T = 8, 16 or 32), stages the window in 48 KB of
+// shared memory (radii up to mfsr_tile_search_max_radius: 27 at T = 16)
+// and needs a 3 x 3 neighbourhood for the fit (radius >= 1). The wrapper
+// (kernels/tile_search.py) launches this one for any other tile size and
+// radius, radius 0 included (a 1 x 1 surface: its minimum lies on the
+// border, so the shift is the prediction, as find_min_shift gives).
+//
+// Design: written simply. One block of 256 threads per (tile, frame), as
+// above; a thread per surface offset (u, v), v fastest, sums (F - W)^2
+// over the T x T pixels, a row's sum at a time, reading the reference
+// tile and the window straight from device memory (the reference reads
+// are the same address across a warp, the window reads consecutive: both
+// hit L1 and L2), the image-mode window through tile_warp_select's
+// indexing per read. The surface goes to a scratch array in device
+// memory (the wrapper's), so neither the window nor the surface bounds
+// the radius;
+// after the block's barrier one warp takes the argmin, the gates and the
+// fit as above (the fit only where the surface has a 3 x 3 neighbourhood).
+// Rounding: the direct form has no cancellation, so the integer parts and
+// the subpixel steps are held to the same rules as the templated kernel's.
+// (The expanded form, tsq + wsq - 2 cc summed in one chain of T^2 terms,
+// cancelled to 1.5e-3 px of subpixel difference from the plain version
+// at T = 12 on an H100.)
+// Its time against its bound is in PERF.md.
+
+// warp_source with the tile size a runtime argument
+__device__ __forceinline__ int warp_source_rt(const float* __restrict__ sh, int y, int x, int h, int w,
+                                              int ntx, int t) {
+  const auto shift = [&](int yy, int xx, int c) {
+    const int s = (int)__ldg(sh + ((yy / t) * ntx + xx / t) * 2 + c);
+    return min(max(s, -kWarpBound), kWarpBound);
+  };
+  int s = shift(y, x, 1);
+  int pr = x + (s - kCoarse * floor_div_coarse(s));
+  const int xs = min(max(pr + kCoarse * floor_div_coarse(shift(y, min(pr, w - 1), 1)), 0), w - 1);
+  s = shift(y, xs, 0);
+  pr = y + (s - kCoarse * floor_div_coarse(s));
+  const int ys = min(max(pr + kCoarse * floor_div_coarse(shift(min(pr, h - 1), xs, 0)), 0), h - 1);
+  return ys * w + xs;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_search_general_kernel(const float* __restrict__ ref, const float* __restrict__ alts,
+                           const float* __restrict__ rounded, float* __restrict__ out, float* surf,
+                           int h, int w, int ntx, int nty, int t, int radius, float threshold,
+                           int subpixel, int image_mode) {
+  const int s_n = 2 * radius + 1;
+  const int tid = threadIdx.x;
+  const int tx = blockIdx.x % ntx, ty = blockIdx.x / ntx, n = blockIdx.y;
+  const int y0 = ty * t, x0 = tx * t;
+  const float* alt = alts + n * (long long)h * w;
+  const float* sh = rounded + (long long)n * nty * ntx * 2;
+  const float* pre = sh + (ty * ntx + tx) * 2;
+  const float pre_y = __ldg(pre), pre_x = __ldg(pre + 1);
+  float* ssd = surf + ((long long)n * nty * ntx + blockIdx.x) * s_n * s_n;
+  const int oy = image_mode ? y0 - radius : y0 + (int)pre_y - radius;
+  const int ox = image_mode ? x0 - radius : x0 + (int)pre_x - radius;
+
+  // 1. the surface, a thread per offset: SSD = sum (F - W)^2, a row's
+  // sum at a time
+  for (int k = tid; k < s_n * s_n; k += kThreads) {
+    const int u = k / s_n, v = k % s_n;
+    float sum = 0.0f;
+    for (int i = 0; i < t; ++i) {
+      const float* fr = ref + (long long)min(y0 + i, h - 1) * w;
+      const int wy = min(max(oy + u + i, 0), h - 1);
+      float row = 0.0f;
+      for (int j = 0; j < t; ++j) {
+        const int wx = min(max(ox + v + j, 0), w - 1);
+        const float d = __ldg(fr + min(x0 + j, w - 1)) -
+                        __ldg(alt + (image_mode ? warp_source_rt(sh, wy, wx, h, w, ntx, t) : wy * w + wx));
+        row = fmaf(d, d, row);
+      }
+      sum += row;
+    }
+    ssd[k] = sum;
+  }
+  __syncthreads();  // the block's surface stores are visible to the block
+
+  // 2. argmin (first minimum), maximum, gates, the subpixel fit
+  if (tid >= 32) return;
+  const int lane = tid;
+  float mn = __int_as_float(0x7f800000);
+  float mx = -mn;
+  int mi = INT_MAX;
+  for (int k = lane; k < s_n * s_n; k += 32) {
+    const float s = ssd[k];
+    if (s < mn) { mn = s; mi = k; }
+    mx = fmaxf(mx, s);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, mn, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, mi, off);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (om < mn || (om == mn && oi < mi)) { mn = om; mi = oi; }
+  }
+  if (lane != 0) return;
+  const int py = mi / s_n, px = mi % s_n;
+  float dy = (float)(py - radius), dx = (float)(px - radius);
+  const bool on_border = py < 1 || py >= s_n - 1 || px < 1 || px >= s_n - 1;
+  if (subpixel && s_n >= 3) {
+    const int cy = min(max(py, 1), s_n - 2), cx = min(max(px, 1), s_n - 2);
+    float p[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) p[k] = ssd[(cy - 1 + k / 3) * s_n + cx - 1 + k % 3];
+    const float a11 = fmaxf(stencil_sum(p, kFA11), 0.0f);
+    const float a22 = fmaxf(stencil_sum(p, kFA22), 0.0f);
+    float a12 = stencil_sum(p, kFA12);
+    const float b1 = stencil_sum(p, kFB1);
+    const float b2 = stencil_sum(p, kFB2);
+    float det = __fsub_rn(__fmul_rn(a11, a22), __fmul_rn(a12, a12));
+    if (det < 0.0f) {
+      a12 = 0.0f;
+      det = __fmul_rn(a11, a22);
+    }
+    float mu_x = 0.0f, mu_y = 0.0f;
+    if (det != 0.0f) {
+      mu_x = __fdiv_rn(__fsub_rn(__fmul_rn(a22, b1), __fmul_rn(a12, b2)), det);
+      mu_y = __fdiv_rn(__fsub_rn(__fmul_rn(a11, b2), __fmul_rn(a12, b1)), det);
+    }
+    if (fabsf(mu_x) > 1.0f) mu_x = 0.0f;
+    if (fabsf(mu_y) > 1.0f) mu_y = 0.0f;
+    dy = __fsub_rn(dy, mu_y);
+    dx = __fsub_rn(dx, mu_x);
+  }
+  if (on_border || __fadd_rn(mn, threshold) > mx) dy = dx = 0.0f;
+  float* o = out + (((long long)n * nty + ty) * ntx + tx) * 2;
+  o[0] = __fadd_rn(pre_y, dy);
+  o[1] = __fadd_rn(pre_x, dx);
+}
+
 }  // namespace
 
 extern "C" {
@@ -378,6 +513,27 @@ int mfsr_tile_search(const void* ref, const void* alts, const void* rounded, voi
       return (int)launch<32>(r, a, s, o, n, h, w, (int)ntx, (int)nty, radius, threshold, subpixel,
                              image_mode, st);
   }
+}
+
+// Launches the general form (tile_search_general_kernel) on `stream` and
+// returns cudaGetLastError(). The arrays are mfsr_tile_search's, at any
+// tile size t >= 1 and radius >= 0; surf is device scratch of
+// n * nty * ntx * (2 radius + 1)^2 floats.
+int mfsr_tile_search_general(const void* ref, const void* alts, const void* rounded, void* out,
+                             void* surf, int n, int h, int w, int t, int radius, float threshold,
+                             int subpixel, int image_mode, void* stream) {
+  if (n < 0 || n > 65535 || h < 1 || w < 1 || t < 1 || radius < 0 || radius > 23000) {
+    return (int)cudaErrorInvalidValue;  // (2 radius + 1)^2 stays an int
+  }
+  const long long nty = (h + t - 1) / t, ntx = (w + t - 1) / t;
+  if (nty * ntx > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  tile_search_general_kernel<<<dim3((unsigned)(nty * ntx), (unsigned)n), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ref), static_cast<const float*>(alts), static_cast<const float*>(rounded),
+      static_cast<float*>(out), static_cast<float*>(surf), h, w, (int)ntx, (int)nty, t, radius, threshold,
+      subpixel, image_mode);
+  return (int)cudaGetLastError();
 }
 
 const char* mfsr_cuda_error_string(int code) {

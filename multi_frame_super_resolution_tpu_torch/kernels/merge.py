@@ -1,8 +1,10 @@
-"""Wrapper of the Hopper merge kernel (csrc/merge.cu), the counterpart of
+"""Wrapper of the Hopper merge kernels (csrc/merge.cu), the counterpart of
 pallas_ops/merge.py::merge_fast_pallas and of the default RGB branch's
 merge (models/fast_merge.py::merge_burst_fast in the phase layout, order
 0 in float32 or bfloat16, or the order-1 moments of the plugin solve (4)
-or the exact solve (9)).
+or the exact solve (9)). The templated kernel takes scales 1-4 and tap
+radii up to 8; the general kernel takes every other scale and radius
+(uses_general), its launches counted under ``merge_fast_general``.
 
 On CUDA tensors it launches the kernel or raises; it never falls back.
 On CPU tensors it computes the kernel's plain PyTorch version,
@@ -30,20 +32,35 @@ from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
     _active_taps,
     merge_burst_fast,
 )
+from multi_frame_super_resolution_tpu_torch.ops.filters import _const_array
 
 NAME = "merge_fast"
+GENERAL = "merge_fast_general"  # the general kernel's launches
 SOURCE = "merge.cu"
-_MAX_TAP_RADIUS = 8  # kMaxRadius in csrc/merge.cu
+# kMaxRadius in csrc/merge.cu; also merge_fast_pallas's own halo
+# (pallas_ops/merge.py:154), which the interleaved form (use_pallas) keeps
+_MAX_TAP_RADIUS = 8
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
-    return bind(
+    lib = bind(
         load_library(SOURCE), "mfsr_merge_fast",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float],
     )
+    return bind(
+        lib, "mfsr_merge_fast_general",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float],
+    )
+
+
+def uses_general(scale: int, r_taps: int) -> bool:
+    """Whether the general kernel runs the merge: a scale past 4 or a tap
+    radius past 8, which the templated kernel is not built for."""
+    return not 1 <= scale <= 4 or r_taps > _MAX_TAP_RADIUS
 
 
 def tap_array(
@@ -64,6 +81,11 @@ def _tap_array(r_taps: int, residual_bound: float, scale: int, k_max: float, pru
     )
     taps.flags.writeable = False
     return taps
+
+
+def _tap_copy(*key) -> np.ndarray:
+    """A writable copy of tap_array(*key), for a tensor on the card."""
+    return np.array(tap_array(*key))
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,7 +122,9 @@ def merge_fast(
     fast_merge._active_taps at ``prune_exp``; the defaults are
     merge_fast_pallas's. ``bf16`` (order 0; order 1 ignores it):
     bfloat16 products and per-frame sums (the kernel's form 4, the phase
-    layout only). On CUDA the outputs are views of one allocation."""
+    layout only). The interleaved form (``phase_output=False``, order 0:
+    merge_fast_pallas) refuses a tap radius past 8, as merge_fast_pallas
+    does. On CUDA the outputs are views of one allocation."""
     if warped.ndim != 4:
         raise ValueError(f"warped must be (F, H, W, 3), got {tuple(warped.shape)}")
     f, h, w = warped.shape[:3]
@@ -109,8 +133,8 @@ def merge_fast(
     check_tensor("residual", residual, (f, h, w, 2), dev)
     check_tensor("certainty", certainty, (f, h, w, 3), dev)
     check_tensor("omega_inv", omega_inv, (h, w, 3), dev)
-    if not 1 <= scale <= 4:
-        raise ValueError(f"the merge kernel takes scale 1..4, got {scale}")
+    if scale < 1:
+        raise ValueError(f"the merge takes scale >= 1, got {scale}")
     if order not in (0, 1):
         raise ValueError(f"the merge takes order 0 or 1, got {order}")
     if order == 1 and not phase_output:
@@ -118,8 +142,11 @@ def merge_fast(
     if order == 1 and moment_slots not in (4, 9):
         raise ValueError(f"the order-1 merge returns 4 or 9 moment slots, got {moment_slots}")
     r_taps = radius + math.ceil(residual_bound)
-    if r_taps > _MAX_TAP_RADIUS:
-        raise ValueError(f"tap radius {r_taps} exceeds the kernel's {_MAX_TAP_RADIUS}")
+    if r_taps > _MAX_TAP_RADIUS and order == 0 and not phase_output:
+        raise ValueError(
+            f"tap radius {r_taps} exceeds merge_fast_pallas's {_MAX_TAP_RADIUS}-row halo "
+            "(pallas_ops/merge.py:154, the JAX package's own limit of use_pallas)"
+        )
     bf16 = bf16 and order == 0
     if bf16 and not phase_output:
         raise ValueError("the bf16 merge form writes the phase layout: pass phase_output=True")
@@ -142,11 +169,16 @@ def merge_fast(
         form, n_out = (4 if bf16 else int(phase_output)), 2
     shape = (scale, scale, 3, h, w) if phase_output else (h * scale, w * scale, 3)
     out = torch.empty((n_out,) + shape, dtype=torch.float32, device=dev)
-    launch(
-        library(), "mfsr_merge_fast", dev,
-        warped.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
-        omega_inv.data_ptr(), out.data_ptr(),
-        f, h, w, scale, form, taps_ptr, n_taps, float(residual_bound),
-    )
+    args = (warped.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
+            omega_inv.data_ptr(), out.data_ptr(), f, h, w, scale, form)
+    if uses_general(scale, r_taps):
+        # the tap list on the card, made once per (taps, device)
+        taps = _const_array(
+            _tap_copy, (r_taps, float(residual_bound), scale, float(k_max), float(prune_exp)), dev)
+        launch(library(), "mfsr_merge_fast_general", dev, *args, taps.data_ptr(), n_taps,
+               float(residual_bound))
+        LAUNCHES[GENERAL] += 1
+        return tuple(out.unbind(0))
+    launch(library(), "mfsr_merge_fast", dev, *args, taps_ptr, n_taps, float(residual_bound))
     LAUNCHES[NAME] += 1
     return tuple(out.unbind(0))

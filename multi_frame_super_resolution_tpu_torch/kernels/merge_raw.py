@@ -1,15 +1,21 @@
 """Wrapper of the Hopper RAW merge kernels (csrc/merge_raw.cu): the
-plane-domain merge of the RAW path at scales 1-4 in four forms: order 1
-as the certless plugin branch (the main path), order 0 (float32 or
-bfloat16), order 1 with the exact solve's 9 moments, and order 1 with
-the per-cell plugin moments (centroid_cert or exact_weights, with the
-centroid knobs); the order-1 forms but the certless one take
-exact_weights. Each reads R/B as colour differences when given a
-guide. The JAX package computes it outside Pallas
-(models/fast_merge.py::merge_burst_raw_planes); it has the skeleton of
-pallas_ops/merge.py::merge_fast_pallas.
+plane-domain merge of the RAW path in four forms: order 1 as the
+certless plugin branch (the main path), order 0 (float32 or bfloat16),
+order 1 with the exact solve's 9 moments, and order 1 with the per-cell
+plugin moments (centroid_cert or exact_weights, with the centroid
+knobs); the order-1 forms but the certless one take exact_weights. Each
+reads R/B as colour differences when given a guide. The JAX package
+computes it outside Pallas (models/fast_merge.py::merge_burst_raw_planes);
+it has the skeleton of pallas_ops/merge.py::merge_fast_pallas.
 
-On CUDA tensors it launches the kernel or raises; it never falls back.
+The templated kernels take scales 1-4, taps within +-4 and Bayer
+patterns; their certless and float32 order-0 forms stage the frames
+whose tiles fit a block's shared memory at once and, past that many,
+stream them in chunks (launches counted under ``merge_raw_stream``); the
+general kernel takes everything else (uses_general says which runs),
+its launches counted under ``merge_raw_general``.
+
+On CUDA tensors it launches a kernel or raises; it never falls back.
 On CPU tensors it computes the plain PyTorch version,
 models/fast_merge.py::merge_burst_raw_planes, with the same taps.
 """
@@ -31,19 +37,24 @@ from multi_frame_super_resolution_tpu_torch.kernels.build import (
     load_library,
 )
 from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
+    CERTLESS,
     NINE_MOMENTS,
     ORDER0,
     PER_CELL,
     _active_taps,
+    _centroid_chain,
     guided_planes,
     merge_burst_raw_planes,
     raw_merge_form,
 )
+from multi_frame_super_resolution_tpu_torch.ops.filters import _const_array
 
 NAME = "merge_raw"
+GENERAL = "merge_raw_general"  # the general kernel's launches
+STREAM = "merge_raw_stream"  # the certless and order-0 forms' streamed launches
 SOURCE = "merge_raw.cu"
-_MAX_TAPS = 81  # kMaxTaps in csrc/merge_raw.cu
-_SCALES = (1, 2, 3, 4)  # the kernels' instantiations (Layout<S>, CellTile in csrc/merge_raw.cu)
+_MAX_TAP = 4  # the templated kernels' taps lie within +-4 (kMaxTaps = 81 in csrc/merge_raw.cu)
+_SCALES = (1, 2, 3, 4)  # the templated kernels' instantiations (Layout<S>, CellTile in csrc/merge_raw.cu)
 
 
 @functools.cache
@@ -53,6 +64,11 @@ def library() -> ctypes.CDLL:
         load_library(SOURCE), "mfsr_merge_raw",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
+    )
+    bind(
+        lib, "mfsr_merge_raw_general",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
     )
     lib.mfsr_merge_raw_max_frames.argtypes = [ctypes.c_int] * 3
     lib.mfsr_merge_raw_max_frames.restype = ctypes.c_int
@@ -70,6 +86,51 @@ def is_bayer(cfa) -> bool:
     the patterns the kernel takes."""
     q = [int(cfa[0][0]), int(cfa[0][1]), int(cfa[1][0]), int(cfa[1][1])]
     return sorted(q) == [0, 1, 1, 2] and (q[0] == q[3] == 1 or q[1] == q[2] == 1)
+
+
+@functools.lru_cache(maxsize=None)
+def uses_general(scale: int, taps: tuple, cfa: tuple, frames: int, form: int, frame_cap: int,
+                 bf16: bool = False) -> bool:
+    """Whether the general kernel runs the merge: a scale past 4, a tap
+    beyond +-4, a pattern other than Bayer, or the bfloat16 order 0 on
+    more frames than ``frame_cap`` (mfsr_merge_raw_max_frames at the
+    taps' halo: the frames its kernel stages at once)."""
+    return (scale not in _SCALES or any(abs(k) > _MAX_TAP for t in taps for k in t) or not is_bayer(cfa)
+            or (bf16 and form == ORDER0 and frames > frame_cap))
+
+
+def streams(form: int, frames: int, frame_cap: int) -> bool:
+    """Whether a templated launch of the certless or order-0 form streams
+    the frames in chunks of ``frame_cap`` (more frames than it stages at
+    once)."""
+    return form in (CERTLESS, ORDER0) and frames > frame_cap
+
+
+@functools.lru_cache(maxsize=None)
+def cell_table(cfa: tuple) -> np.ndarray:
+    """The general kernel's host table (int32, 16): the channel of each
+    plane q = 2*qa + qb, then the certless chain each cell (a, b, ch)
+    reads (fast_merge._centroid_chain), at 3 (2a + b) + ch: 0 and 1 the
+    green chains ("g", p), 2 + 2 p + q the R/B chains ("rb", p, q), -1
+    none."""
+    chan = [int(cfa[q // 2][q % 2]) for q in range(4)]
+    chains = []
+    for a in (0, 1):
+        for b in (0, 1):
+            for ch in range(3):
+                cid = _centroid_chain(cfa, a, b, ch)
+                chains.append(-1 if cid is None else (cid[1] if cid[0] == "g" else 2 + 2 * cid[1] + cid[2]))
+    table = np.asarray(chan + chains, np.int32)
+    table.flags.writeable = False
+    return table
+
+
+def general_taps(taps: tuple, centroid_taps: Optional[frozenset] = None) -> np.ndarray:
+    """The general kernel's tap table (int32 (n, 3)): the taps in list
+    order as (ky, kx, c), c = 1 where the tap feeds the per-cell centroid
+    (every tap when ``centroid_taps`` is None)."""
+    return np.asarray([(ky, kx, int(centroid_taps is None or (ky, kx) in centroid_taps)) for ky, kx in taps],
+                      np.int32).reshape(-1, 3)
 
 
 # the variant bits of a launch (csrc/merge_raw.cu's flags)
@@ -135,11 +196,10 @@ def merge_raw(
     each (2s, 2s, 3, hh, hw), under the knobs of
     fast_merge.merge_burst_raw_planes (dead ones ignored, as there). With
     a guide, the difference planes (fast_merge.guided_planes) are formed
-    here in one elementwise pass, on either device, and merged unguided. The kernel
-    takes scales 1-4, Bayer patterns and up to mfsr_merge_raw_max_frames
-    frames (order 0 and the certless form; the 9-moment and per-cell
-    forms take any number); on CUDA tensors anything else raises
-    ValueError, and the outputs are views of one allocation."""
+    here in one elementwise pass, on either device, and merged unguided.
+    On CUDA tensors a templated kernel runs where it applies and the
+    general kernel everywhere else (uses_general); the outputs are
+    views of one allocation."""
     if planes.ndim != 5:
         raise ValueError(f"planes must be (F, 2, 2, hh, hw), got {tuple(planes.shape)}")
     f, hh, hw = planes.shape[0], planes.shape[3], planes.shape[4]
@@ -169,33 +229,30 @@ def merge_raw(
             centroid_bf16=centroid_bf16, centroid_block=block, centroid_shared_res=shared, bf16=bf16,
         )
     r_taps = radius + int(np.ceil(residual_bound))
-    taps = _active_taps(r_taps, residual_bound, scale, k_max, prune_exp)
-    if scale not in _SCALES:
-        raise ValueError(f"the RAW merge kernel takes scales 1..4, got scale {scale}")
-    if not is_bayer(cfa):
-        raise ValueError(f"the RAW merge kernel takes Bayer patterns, got {cfa}")
-    if len(taps) > _MAX_TAPS:
-        raise ValueError(f"{len(taps)} taps exceed the kernel's {_MAX_TAPS}")
+    taps = tuple(_active_taps(r_taps, residual_bound, scale, k_max, prune_exp))
+    pattern = tuple(tuple(int(c) for c in row) for row in cfa)
     n_out = (4, 2, 9, 4)[form]  # csrc/merge_raw.cu's form numbers
     lib = library()
-    max_frames = lib.mfsr_merge_raw_max_frames(scale, tap_halo(taps), form)
-    if f > max_frames:
-        raise ValueError(f"{f} frames exceed the {max_frames} whose tiles fit a block's shared memory")
-
-    # built once per (taps, pattern): rebuilt per call it held a call to
-    # 0.66 ms against the first kernel's 0.18 ms (NVIDIA H100 80GB HBM3,
-    # 700.00 W)
+    frame_cap = lib.mfsr_merge_raw_max_frames(scale, tap_halo(taps), form) if scale in _SCALES else 0
     centroid_taps = None if centroid_prune is None else frozenset(
-        _active_taps(radius + int(np.ceil(residual_bound)), residual_bound, scale, k_max, centroid_prune))
-    table = tap_table(tuple(taps), tuple(tuple(int(c) for c in row) for row in cfa), centroid_taps)
+        _active_taps(r_taps, residual_bound, scale, k_max, centroid_prune))
     flags = ((EXACT_WEIGHTS if exact_weights else 0) | (BF16 if bf16 or centroid_bf16 else 0)
              | (BLOCK if block else 0) | (SHARED if shared else 0))
     out = torch.empty((n_out, 2 * scale, 2 * scale, 3, hh, hw), dtype=torch.float32, device=dev)
-    launch(
-        lib, "mfsr_merge_raw", dev,
-        planes.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
-        omega_inv.data_ptr(), omega_inv_rb.data_ptr(), out.data_ptr(),
-        f, hh, hw, scale, form, float(residual_bound), table.ctypes.data, len(taps), flags,
-    )
-    LAUNCHES[NAME] += 1
+    args = (planes.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
+            omega_inv.data_ptr(), omega_inv_rb.data_ptr(), out.data_ptr(),
+            f, hh, hw, scale, form, float(residual_bound))
+    if uses_general(scale, taps, pattern, f, form, frame_cap, bf16):
+        # the tap table on the card, made once per (taps, centroid, device)
+        dev_taps = _const_array(general_taps, (taps, centroid_taps), dev)
+        launch(lib, "mfsr_merge_raw_general", dev, *args, dev_taps.data_ptr(), len(taps),
+               cell_table(pattern).ctypes.data, flags)
+        LAUNCHES[GENERAL] += 1
+        return tuple(out.unbind(0))
+    # built once per (taps, pattern): rebuilt per call it held a call to
+    # 0.66 ms against the first kernel's 0.18 ms (NVIDIA H100 80GB HBM3,
+    # 700.00 W)
+    table = tap_table(taps, pattern, centroid_taps)
+    launch(lib, "mfsr_merge_raw", dev, *args, table.ctypes.data, len(taps), flags)
+    LAUNCHES[STREAM if streams(form, f, frame_cap) else NAME] += 1
     return tuple(out.unbind(0))

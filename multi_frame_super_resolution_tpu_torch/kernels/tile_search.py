@@ -2,6 +2,10 @@
 counterpart of pallas_ops/tile_gather.py::tile_gather_pallas fused with
 the SSD surface, the argmin and the subpixel step that consume its
 windows: one launch per pyramid level of align_frames, on both branches.
+The templated kernel takes tile sizes 8, 16 and 32 and radii from 1 to
+what 48 KB of shared memory hold; the general kernel takes every other
+tile size and radius (uses_general), its launches counted under
+``tile_search_general``.
 
 On CUDA tensors it launches the kernel or raises; it never falls back.
 On CPU tensors it computes the plain PyTorch version,
@@ -25,6 +29,7 @@ from multi_frame_super_resolution_tpu_torch.kernels.build import (
 from multi_frame_super_resolution_tpu_torch.registration import tiles
 
 NAME = "tile_search"
+GENERAL = "tile_search_general"  # the general kernel's launches
 SOURCE = "tile_search.cu"
 MODES = ("image", "tile")
 
@@ -38,7 +43,17 @@ def library() -> ctypes.CDLL:
     )
     lib.mfsr_tile_search_max_radius.argtypes = [ctypes.c_int]
     lib.mfsr_tile_search_max_radius.restype = ctypes.c_int
-    return lib
+    return bind(
+        lib, "mfsr_tile_search_general",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2,
+    )
+
+
+def uses_general(tile_size: int, radius: int, max_radius: int) -> bool:
+    """Whether the general kernel runs the search: a tile size other than
+    8, 16 and 32 (``max_radius`` < 0, mfsr_tile_search_max_radius's
+    answer), radius 0, or a radius past ``max_radius``."""
+    return max_radius < 0 or not 1 <= radius <= max_radius
 
 
 def tile_search(
@@ -54,10 +69,9 @@ def tile_search(
     """One pyramid level of the tile search (see tiles.tile_search): ref
     (H, W), alts (N, H, W) and rounded (N, nty, ntx, 2) over the
     ceil-divided tile grid, all float32 and contiguous on one device ->
-    rounded + the found shift, (N, nty, ntx, 2). The kernel takes tile
-    sizes 8, 16 and 32 and radii from 1 up to what its shared memory holds
-    (mfsr_tile_search_max_radius); on CUDA tensors anything else raises
-    ValueError."""
+    rounded + the found shift, (N, nty, ntx, 2). On CUDA tensors the
+    templated kernel runs where it applies and the general kernel
+    everywhere else (uses_general)."""
     if alts.ndim != 3:
         raise ValueError(f"alts must be (N, H, W), got {tuple(alts.shape)}")
     n, h, w = alts.shape
@@ -70,22 +84,20 @@ def tile_search(
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if radius < 0:
         raise ValueError(f"radius must be >= 0, got {radius}")
+    if tile_size < 1:
+        raise ValueError(f"tile_size must be >= 1, got {tile_size}")
     if dev.type == "cpu":
         return tiles.tile_search(ref, alts, rounded, tile_size, radius, threshold, subpixel, mode)
     lib = library()
-    max_radius = lib.mfsr_tile_search_max_radius(tile_size)
-    if max_radius < 0:
-        raise ValueError(f"the tile search kernel takes tile sizes 8, 16 and 32, got {tile_size}")
-    if not 1 <= radius <= max_radius:
-        raise ValueError(
-            f"the tile search kernel takes radii 1..{max_radius} at tile size {tile_size} "
-            f"(its windows' shared memory), got {radius}"
-        )
     out = torch.empty_like(rounded)
-    launch(
-        lib, "mfsr_tile_search", dev,
-        ref.data_ptr(), alts.data_ptr(), rounded.data_ptr(), out.data_ptr(),
-        n, h, w, tile_size, radius, float(threshold), int(subpixel), int(mode == "image"),
-    )
+    args = (n, h, w, tile_size, radius, float(threshold), int(subpixel), int(mode == "image"))
+    if uses_general(tile_size, radius, lib.mfsr_tile_search_max_radius(tile_size)):
+        surf = torch.empty((n, nty, ntx, (2 * radius + 1) ** 2), dtype=torch.float32, device=dev)
+        launch(lib, "mfsr_tile_search_general", dev, ref.data_ptr(), alts.data_ptr(), rounded.data_ptr(),
+               out.data_ptr(), surf.data_ptr(), *args)
+        LAUNCHES[GENERAL] += 1
+        return out
+    launch(lib, "mfsr_tile_search", dev, ref.data_ptr(), alts.data_ptr(), rounded.data_ptr(),
+           out.data_ptr(), *args)
     LAUNCHES[NAME] += 1
     return out

@@ -1,11 +1,12 @@
 """Tests of the port that need the card: each Hopper kernel (RGB merge in
 its five forms, tile warp in its three index maps, tile search, RAW
 merge in its four forms at scales 1-4, guided or not, with the merge
-knobs' variants, defog) against its plain PyTorch version, and
-the RGB, RAW (fast and oracle, with every handheld knob the port runs),
-defog and BTV-L1 paths and single-image DNN SR (the bundled checkpoints'
-inference, a train step) on the card against the port on the CPU, and
-the port's limits on the card, each raising by name; the multi-device
+knobs' variants, defog; the general forms of the two merges and the
+search past the templated kernels) against its plain PyTorch version,
+and the RGB, RAW (fast and oracle, with every handheld knob the port
+runs), defog and BTV-L1 paths and single-image DNN SR (the bundled
+checkpoints' inference, a train step) on the card against the port on
+the CPU, the port's former limits among them; the multi-device
 layer on the card (batched bursts, the row-sharded RAW path) and the
 native reader's build status. They skip without a CUDA device.
 
@@ -290,23 +291,41 @@ def test_tile_search_kernel_matches_plain_on_prealigned_rotations():
 
 
 @pytest.mark.cuda
-def test_tile_search_wrapper_raises_beyond_its_shared_memory():
-    """Radii up to what a block's 48 KB hold (27 at T = 16) launch in both
-    modes; one more, a radius of 0 and a tile size the kernel has no
-    build for raise."""
+@pytest.mark.parametrize("threshold", [0.0, 0.05])
+@pytest.mark.parametrize(
+    "h,w,t,radius,mode",
+    [
+        (64, 96, 16, 27, "tile"), (64, 96, 16, 27, "image"),  # the templated kernel's largest radius
+        (64, 96, 16, 28, "tile"), (64, 96, 16, 40, "tile"), (40, 72, 16, 70, "tile"),
+        (64, 96, 16, 0, "tile"), (64, 96, 16, 0, "image"),
+        (128, 256, 12, 4, "image"), (64, 128, 12, 4, "image"), (72, 100, 12, 4, "tile"),
+        (66, 90, 12, 2, "image"), (70, 100, 48, 4, "image"), (40, 72, 5, 2, "tile"),
+    ],
+)
+def test_tile_search_general_form_matches_plain(h, w, t, radius, mode, threshold):
+    """Past the templated kernel (T = 8, 16, 32 and radii 1..27 at T = 16,
+    what 48 KB hold): radii past it up to 70, radius 0 (the 1 x 1 surface:
+    the prediction itself), T = 12 (AlignConfig(tile_size=12)), 5 and 48
+    launch the general form, by the same rules as the templated one:
+    integer parts equal, subpixel shifts within 1e-3 px, exact ties left
+    out."""
     dev = cuda_device()
     assert tile_search_kernel.library().mfsr_tile_search_max_radius(16) == 27
-    ref, alts, rounded = (tt(x, dev) for x in search_inputs(64, 96, SMALL_SHIFTS))
-    for mode in ("tile", "image"):
+    ref, alts, rounded = search_inputs(h, w, BIG_SHIFTS if mode == "image" else SMALL_SHIFTS, t)
+    untied = ~tied_minima(ref, alts, rounded, t, radius) if mode == "tile" else np.ones(rounded.shape[:3], bool)
+    args = [tt(x, dev) for x in (ref, alts, rounded)]
+    name = "tile_search" if (t == 16 and radius == 27) else "tile_search_general"
+    for sub in (False, True):
         LAUNCHES.clear()
-        out = tile_search(ref, alts, rounded, 16, 27, 0.0, True, mode)
-        torch.cuda.synchronize()
-        assert LAUNCHES["tile_search"] == 1 and bool(torch.isfinite(out).all())
-    for radius in (28, 0):
-        with pytest.raises(ValueError, match="radii"):
-            tile_search(ref, alts, rounded, 16, radius, 0.0, True, "tile")
-    with pytest.raises(ValueError, match="tile sizes"):
-        tile_search(ref, alts, rounded[:, :2, :2].contiguous(), 48, 4, 0.0, True, "image")
+        got = nn(tile_search(*args, t, radius, threshold, sub, mode))
+        assert dict(LAUNCHES) == {name: 1}
+        want = nn(tiles.tile_search(*args, t, radius, threshold, sub, mode))
+        if radius == 0:
+            np.testing.assert_array_equal(got, rounded)
+        if sub:
+            np.testing.assert_allclose(got[untied], want[untied], rtol=0, atol=1e-3)
+        else:
+            np.testing.assert_array_equal(got[untied], want[untied])
 
 
 def _raw_merge_inputs(rng, f, hh, hw, dev):
@@ -369,32 +388,12 @@ def test_raw_merge_kernel_scales_match_plain(f, scale, radius, k_max, prune, cfa
 
 
 @pytest.mark.cuda
-def test_raw_merge_wrapper_raises_on_card_for_scale_5():
-    dev = cuda_device()
-    planes = torch.zeros((2, 2, 2, 8, 8), device=dev)
-    with pytest.raises(ValueError, match="scale"):
-        merge_raw(
-            planes, torch.zeros((2, 8, 8, 2), device=dev), torch.zeros((2, 8, 8, 3), device=dev),
-            torch.zeros((8, 8, 3), device=dev), torch.zeros((8, 8, 3), device=dev),
-            ((0, 1), (1, 2)), 5,
-        )
-
-
-@pytest.mark.cuda
-def test_raw_merge_wrapper_raises_on_card_for_non_bayer():
-    """The kernel takes green on one diagonal and R, B on the other."""
-    dev = cuda_device()
-    z = [torch.zeros(s, device=dev) for s in ((2, 2, 2, 8, 8), (2, 8, 8, 2), (2, 8, 8, 3), (8, 8, 3), (8, 8, 3))]
-    with pytest.raises(ValueError, match="Bayer"):
-        merge_raw(*z, ((0, 1), (1, 1)), 2)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("radius,k_max,halo", [(1, 1.0, 1), (2, 4.0, 2)])
 def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
     """Every frame's tile is staged in shared memory at once: the most
-    frames that fit at scale 2 (30 at halo 1, 22 at halo 2) match the
-    plain version, one more raises."""
+    frames that fit at scale 2 (30 at halo 1, 22 at halo 2) run the
+    resident kernel, one more the same kernel streaming chunks of that
+    many; both match the plain version."""
     dev = cuda_device()
     cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(2, halo, 0)
     assert cap == {1: 30, 2: 22}[halo]
@@ -408,8 +407,13 @@ def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
     more = _raw_merge_inputs(np.random.default_rng(0), cap + 1, 9, 37, dev)
-    with pytest.raises(ValueError, match="frames exceed"):
-        merge_raw(*more, cfa, 2, radius, 1.0, k_max, 6.0)
+    LAUNCHES.clear()
+    got = merge_raw(*more, cfa, 2, radius, 1.0, k_max, 6.0)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_raw_stream": 1}
+    want = fast_merge.merge_burst_raw_planes(*more, cfa, 2, radius, 1.0, k_max, 6.0)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -417,7 +421,9 @@ def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
 def test_raw_merge_kernel_frame_cap_by_scale(scale):
     """The frame caps of the other layouts (4 pixel rows a block at scale
     1, one at 3 and 4): at least the scale-4 configuration's 9 frames at
-    either halo; the cap matches the plain version, one more raises."""
+    either halo; the cap runs the resident kernel and one more the
+    streamed one, both matching the plain version. No scale past 4 has
+    a cap: the general form runs it."""
     dev = cuda_device()
     lib = raw_merge_kernel.library()
     caps = {halo: lib.mfsr_merge_raw_max_frames(scale, halo, 0) for halo in (1, 2)}
@@ -431,8 +437,12 @@ def test_raw_merge_kernel_frame_cap_by_scale(scale):
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
     more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 9, 37, dev)
-    with pytest.raises(ValueError, match="frames exceed"):
-        merge_raw(*more, cfa, scale, 1, 1.0, k_max, 1.5)
+    LAUNCHES.clear()
+    got = merge_raw(*more, cfa, scale, 1, 1.0, k_max, 1.5)
+    assert dict(LAUNCHES) == {"merge_raw_stream": 1}
+    want = fast_merge.merge_burst_raw_planes(*more, cfa, scale, 1, 1.0, k_max, 1.5)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -535,7 +545,8 @@ def test_raw_merge_kernel_new_forms_at_the_path_shape(form, frames, scale):
 def test_raw_merge_kernel_new_forms_frame_cap(form, scale):
     """The order-0 form stages every frame's tile at once: it has the
     certless form's caps (its kernel without the chains), at halo 1 and
-    2; the halo-1 cap matches the plain version, one more frame raises.
+    2; the halo-1 cap matches the plain version, and so does one more
+    frame, which the same kernel streams in chunks.
     The 9-moment and per-cell forms stream frames through a ring and take
     any number: one frame past the caps they had while they staged every
     frame at once (28, 42 and 56 frames at scales 1, 2 and 4, halo 1)
@@ -561,8 +572,11 @@ def test_raw_merge_kernel_new_forms_frame_cap(form, scale):
         torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
     if form == "order0":
         more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 5, 37, dev)
-        with pytest.raises(ValueError, match="frames exceed"):
-            merge_raw(*more, *args, **kw)
+        LAUNCHES.clear()
+        got = merge_raw(*more, *args, **kw)
+        assert dict(LAUNCHES) == {"merge_raw_stream": 1}
+        for g, w_ in zip(got, fast_merge.merge_burst_raw_planes(*more, *args, **kw)):
+            torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -928,41 +942,62 @@ def _rgb_burst(frames, h, w):
 
 
 _ALIGN = dict(tile_size=16, search_radius=4, levels=2)
-# the port's limits where the JAX function accepts the value (README.md):
-# (entry point, burst, configuration, the words the ValueError names)
+# the values the port refused on the card until its general kernel forms
+# (README.md's former port limits), and a non-Bayer pattern: (entry point,
+# burst, configuration, the launches of the run)
 PORT_LIMITS = {
     "tile_size=12": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
                      dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(**{**_ALIGN, "tile_size": 12})),
-                     "tile sizes 8, 16 and 32"),
+                     {"tile_search_general": 2, "tile_warp": 1, "merge_raw": 1}),
     "fine_radius=0": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
                       dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(**_ALIGN, fine_radius=0)),
-                      r"radii 1\.\."),
-    "121 RAW taps": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
+                      {"tile_search": 1, "tile_search_general": 1, "tile_warp": 1, "merge_raw": 1}),
+    "109 RAW taps": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
                      dataclasses.replace(RAW_PORT_DEFAULT, merge=MergeConfig(radius=5, prune_exp=40.0)),
-                     "taps exceed the kernel's 81"),
+                     {"tile_search": 2, "tile_warp": 1, "merge_raw_general": 1}),
     "31 RAW frames": (handheld_superres_raw, (_raw_burst, 31, 64, 128), RAW_PORT_DEFAULT,
-                      "31 frames exceed the 30"),
+                      {"tile_search": 2, "tile_warp": 1, "merge_raw_stream": 1}),
     "RGB tap radius 9": (handheld_superres, (_rgb_burst, 4, 64, 128),
                          dataclasses.replace(RGB_DEFAULT_NOPRE, merge=MergeConfig(radius=8)),
-                         "tap radius 9 exceeds the kernel's 8"),
+                         {"tile_search": 3, "tile_warp": 1, "merge_fast_general": 1}),
     "RAW scale 5": (handheld_superres_raw, (_raw_burst, 4, 64, 128), dataclasses.replace(RAW_PORT_DEFAULT, scale=5),
-                    r"scale=5 \(the RAW merge kernel takes 1\.\.4\)"),
+                    {"tile_search": 2, "tile_warp": 1, "merge_raw_general": 1}),
     "RGB scale 5": (handheld_superres, (_rgb_burst, 4, 64, 128), dataclasses.replace(RGB_DEFAULT_NOPRE, scale=5),
-                    r"scale=5 \(the merge kernel takes 1\.\.4\)"),
+                    {"tile_search": 3, "tile_warp": 1, "merge_fast_general": 1}),
+    "cfa ((0, 1), (2, 1))": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
+                             dataclasses.replace(RAW_PORT_DEFAULT, cfa_pattern=((0, 1), (2, 1))),
+                             {"tile_search": 2, "tile_warp": 1, "merge_raw_general": 1}),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("limit", list(PORT_LIMITS))
-def test_port_limits_raise_on_card_by_name(limit):
-    """Each limit of the port that the JAX function does not have raises
-    ValueError naming it on the card, never silently. The first four run
-    on the CPU, where the plain versions have no such limit; the last
-    three raise on either device."""
+def test_port_limits_on_card_match_cpu(limit):
+    """Each former limit of the port (a value the JAX function computes)
+    and a non-Bayer pattern run on the card through the general kernel
+    forms (a long burst through the streamed RAW merge), with the run's
+    launches as listed, and agree with the port on the CPU at 60 dB."""
     dev = cuda_device()
-    fn, (make, *shape), cfg, words = PORT_LIMITS[limit]
-    with pytest.raises(ValueError, match=words):
-        fn(tt(make(*shape), dev), cfg)
+    fn, (make, *shape), cfg, launches = PORT_LIMITS[limit]
+    burst = make(*shape)
+    want = nn(fn(tt(burst), cfg, device="cpu"))
+    LAUNCHES.clear()
+    got = nn(fn(tt(burst, dev), cfg))
+    assert {k: v for k, v in LAUNCHES.items() if v} == launches
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert psnr(got, want) >= 60.0
+
+
+@pytest.mark.cuda
+def test_use_pallas_tap_radius_9_raises_as_in_jax():
+    """The interleaved merge form (use_pallas) keeps merge_fast_pallas's
+    own limit, a tap radius of at most 8 (pallas_ops/merge.py:154): the
+    one value that still raises, on either device, naming it."""
+    dev = cuda_device()
+    cfg = dataclasses.replace(RGB_PALLAS, prealign=False, merge=MergeConfig(use_pallas=True, radius=8))
+    for device in (dev, torch.device("cpu")):
+        with pytest.raises(ValueError, match="merge_fast_pallas's 8-row halo"):
+            handheld_superres(tt(_rgb_burst(4, 64, 128), device), cfg, device=device)
 
 
 CHECKPOINTS = pathlib.Path(__file__).resolve().parents[1] / "multi_frame_super_resolution_tpu" / "data" / "checkpoints"
@@ -1216,3 +1251,126 @@ def test_tile_warp_onehot_map_matches_plain(b, n, h, w, t, amp, bound):
     torch.testing.assert_close(got, warp_fast.tile_warp_select(imgs, shifts[:, None], t, bound), rtol=0, atol=0)
     if bound == 16 and amp > 6:
         assert bool((got != tile_warp(imgs, shifts, t, bound)).any())
+
+
+# the RAW merge's forms and knobs on the general kernel: (keyword
+# arguments, tolerance; None: _assert_bf16_close's rules with the given tolerance)
+RAW_GENERAL = {
+    "certless": (dict(order=1), dict(rtol=1e-5, atol=1e-5)),
+    "order0": (dict(order=0), dict(rtol=1e-5, atol=1e-5)),
+    "slots9": (dict(order=1, moment_slots=9), dict(rtol=1e-4, atol=1e-4)),
+    "cert4": (dict(order=1, centroid_cert=True), dict(rtol=1e-4, atol=1e-4)),
+    **{knob: (kw, dict(rtol=1e-4, atol=1e-4) if tol is None else None) for knob, (kw, tol) in RAW_KNOBS.items()},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hh,hw", [(37, 61), (3, 5)])
+@pytest.mark.parametrize(
+    "scale,radius,cfa",
+    [(5, 1, ((0, 1), (1, 2))), (6, 1, ((2, 1), (1, 0))), (2, 1, ((0, 1), (2, 1))), (3, 1, ((1, 1), (0, 2))),
+     (2, 4, ((0, 1), (1, 2)))],
+    ids=["S5", "S6", "cfa-0121", "cfa-1102-S3", "121taps"],
+)
+@pytest.mark.parametrize("form", list(RAW_GENERAL))
+def test_raw_merge_general_form_matches_plain(form, scale, radius, cfa, hh, hw):
+    """The general kernel in every form and knob of the RAW merge: scales
+    5 and 6, two non-Bayer patterns and 121 taps (radius 4, rb 1: taps to
+    +-5 at e^-60), F = 5, guided for the bfloat16 order 0, a ragged size
+    and one smaller than the taps' reach; against the plain version at
+    each form's tolerance, the bfloat16 ones by _assert_bf16_close."""
+    dev = cuda_device()
+    kw, tol = RAW_GENERAL[form]
+    ins = _raw_merge_inputs(np.random.default_rng(scale * 7 + hh + radius), 5, hh, hw, dev)
+    if form == "bf16":
+        kw = dict(kw, guide=fast_merge.green_guide_planes(ins[0], cfa).contiguous())
+    prune = 60.0 if radius == 4 else 1.5
+    args = (cfa, scale, radius, 1.0, (scale / 2.0) ** 2, prune)
+    if radius == 4:
+        assert len(fast_merge._active_taps(5, 1.0, scale, 1.0, prune)) == 121
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_raw_general": 1}
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    assert len(got) == len(want)
+    for g, w_ in zip(got, want):
+        assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
+    if tol is None:
+        _assert_bf16_close(got, want, CBF16_TOL if "centroid_bf16" in form else BF16_TOL)
+    else:
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "form,frames,launched",
+    [("certless", 31, "merge_raw_stream"), ("certless", 70, "merge_raw_stream"), ("order0", 31, "merge_raw_stream"),
+     ("order0", 70, "merge_raw_stream"), ("bf16", 31, "merge_raw_general"), ("certless", 1, "merge_raw_general"),
+     ("order0", 1, "merge_raw_general")],
+)
+def test_raw_merge_streams_any_frames(form, frames, launched):
+    """Bursts past the certless and order-0 frame caps (30 at S = 2, 66 at
+    S = 4, halo 1): the float32 forms stream chunks of the cap through the
+    templated kernel (70 frames at S = 4: 66 + 4), the bfloat16 order 0
+    runs the general form; F = 1 with a 121-tap list runs the general
+    form too. Against the plain version at rtol/atol 1e-5 (the bfloat16
+    one by _assert_bf16_close)."""
+    dev = cuda_device()
+    kw = RAW_GENERAL[form][0]
+    scale = 4 if frames == 70 else 2
+    radius, prune = (4, 60.0) if frames == 1 else (1, 1.5)
+    ins = _raw_merge_inputs(np.random.default_rng(frames), frames, 40, 72, dev)
+    args = (((0, 1), (1, 2)), scale, radius, 1.0, (scale / 2.0) ** 2, prune)
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {launched: 1}
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    if form == "bf16":
+        _assert_bf16_close(got, want, BF16_TOL)
+        return
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+# the RGB merge's forms on the general kernel: (keyword arguments, tolerance)
+RGB_GENERAL = {
+    "interleaved": (dict(), dict(rtol=1e-5, atol=1e-5)),
+    "phase": (dict(phase_output=True), dict(rtol=1e-5, atol=1e-5)),
+    "order1": (dict(phase_output=True, order=1), dict(rtol=1e-4, atol=1e-4)),
+    "slots9": (dict(phase_output=True, order=1, moment_slots=9), dict(rtol=1e-4, atol=1e-4)),
+    "bf16": (dict(phase_output=True, bf16=True), None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(37, 61), (3, 5)])
+@pytest.mark.parametrize("scale,radius", [(5, 1), (6, 2), (2, 8), (3, 10)], ids=["S5", "S6", "r9", "r11"])
+@pytest.mark.parametrize("form", list(RGB_GENERAL))
+def test_merge_general_form_matches_plain(form, scale, radius, h, w):
+    """The general kernel in the RGB merge's five forms at scales 5 and 6
+    and at tap radii 9 and 11 (radius 8 and 10, rb 1; k_max 64 keeps the
+    outer taps) in the phase-layout forms; the interleaved form
+    (use_pallas) past radius 8 raises, as merge_fast_pallas does. Against
+    the plain version at each form's tolerance."""
+    dev = cuda_device()
+    kw, tol = RGB_GENERAL[form]
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(scale * 3 + h), 3, h, w)]
+    args = (scale, radius, 1.0, 64.0 if radius > 2 else (scale / 2.0) ** 2)
+    kw = dict(kw, prune_exp=1.5)
+    if form == "interleaved" and radius > 7:
+        with pytest.raises(ValueError, match="merge_fast_pallas"):
+            merge_fast(*ins, *args, **kw)
+        return
+    LAUNCHES.clear()
+    got = merge_fast(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_fast_general": 1}
+    want = fast_merge.merge_burst_fast(*ins, *args, **kw)
+    if tol is None:
+        _assert_bf16_close(got, want, BF16_TOL)
+    else:
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, **tol)

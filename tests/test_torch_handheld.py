@@ -86,7 +86,6 @@ def test_rgb_pallas_matches_jax_pipeline():
         (dataclasses.replace(SLICE, fast=False, use_consistency=True, merge=MergeConfig(solver="newton")), "solver"),
         (HandheldConfig(prealign=False, merge=MergeConfig(rgb_order=1, solver="newton")), "solver"),
         (dataclasses.replace(SLICE, merge=MergeConfig(use_pallas=True, rgb_order=1)), "use_pallas"),
-        (dataclasses.replace(SLICE, scale=5), "scale"),
     ],
 )
 def test_unsupported_knobs_raise(cfg, knob):

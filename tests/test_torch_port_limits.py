@@ -1,0 +1,305 @@
+"""The values the port refused on the card until its general kernel forms
+(scales past 4, taps past +-4, RGB tap radii past 8, long RAW bursts,
+any 2 x 2 pattern, any tile size and search radius), on the CPU against
+the JAX package: the RAW merge at the function level at scales 5 and 6
+in every form, the host logic the general forms add (which kernel runs,
+their tables) against transcriptions of the kernels' builds, a
+transcription of the general tile search against the plain search, and
+the RAW pipeline on a 31-frame burst. The RGB merge at scales 5 and 6
+and the other pipelines at these values are in
+tests/test_torch_port_limits_*.py, so that their JAX compilations (5-45 s
+each here) spread over the workers; the card runs the same values in
+tests/test_torch_cuda.py and chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import SMALL_SHIFTS, nn, psnr, search_inputs, tied_minima, to_jax, tt
+
+from multi_frame_super_resolution_tpu.models import fast_merge as jfm
+from multi_frame_super_resolution_tpu.models.handheld import (
+    handheld_superres_raw as jax_handheld_superres_raw,
+)
+from multi_frame_super_resolution_tpu_torch.config import RAW_PORT_DEFAULT
+from multi_frame_super_resolution_tpu_torch.data import synthetic_raw_burst
+from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+from multi_frame_super_resolution_tpu_torch.kernels import merge as merge_kernel
+from multi_frame_super_resolution_tpu_torch.kernels import merge_raw as raw_kernel
+from multi_frame_super_resolution_tpu_torch.kernels import tile_search as search_kernel
+from multi_frame_super_resolution_tpu_torch.models import fast_merge
+from multi_frame_super_resolution_tpu_torch.models.handheld import handheld_superres_raw
+from multi_frame_super_resolution_tpu_torch.registration import tiles
+
+# order 0 sums w c v and w c: rounding alone; the order-1 moments sum
+# terms of mixed sign up to (r + rb) s (tests/test_torch_knob_merge.py)
+TOL = dict(rtol=1e-5, atol=1e-5)
+ORDER1_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _planes_inputs(rng, f, hh, hw):
+    planes = rng.random((f, 2, 2, hh, hw)).astype(np.float32)
+    residual = rng.normal(0.0, 0.4, (f, hh, hw, 2)).astype(np.float32)
+    cert = rng.random((f, hh, hw, 3)).astype(np.float32)
+    om_g = (rng.random((hh, hw, 3)) * 0.5 + 0.5).astype(np.float32)
+    om_g[..., 2] = 0.1
+    om_rb = (rng.random((hh, hw, 3)) * 0.5 + 0.4).astype(np.float32)
+    om_rb[..., 2] = 0.05
+    return planes, residual, cert, om_g, om_rb
+
+
+# merge_burst_raw_planes' forms: (keyword arguments, outputs, tolerance)
+RAW_FORMS = {
+    "order0": (dict(order=0), 2, TOL),
+    "certless": (dict(order=1, moment_slots=4, centroid_cert=False), 4, ORDER1_TOL),
+    "slots9": (dict(order=1, moment_slots=9), 9, ORDER1_TOL),
+    "cert4": (dict(order=1, moment_slots=4, centroid_cert=True), 4, ORDER1_TOL),
+}
+# a Bayer pattern at scale 5, a non-Bayer one (green in one column) at 6
+SCALE_CFA = {5: ((1, 0), (2, 1)), 6: ((0, 1), (2, 1))}
+
+
+@pytest.mark.parametrize("scale", [5, 6])
+@pytest.mark.parametrize("form", list(RAW_FORMS))
+def test_raw_merge_forms_match_jax_past_scale_4(form, scale):
+    """Every form of merge_burst_raw_planes at scales 5 and 6 (the general
+    kernel's scales on the card), the second on a non-Bayer pattern,
+    against the JAX function in the phase layout at the spec of
+    tests/test_torch_knob_merge.py (radius 1, residual bound 0.5, e^-3),
+    at each form's tolerance."""
+    kw, n_out, tol = RAW_FORMS[form]
+    cfa = SCALE_CFA[scale]
+    ins = _planes_inputs(np.random.default_rng(10 * scale + len(form)), 3, 8, 10)
+    spec = dict(radius=1, residual_bound=0.5, k_max=(scale / 2.0) ** 2, prune_exp=3.0)
+    want = jfm.merge_burst_raw_planes(*(jnp.asarray(x) for x in ins), cfa, scale, **spec, phase_output=True,
+                                      **kw)
+    got = fast_merge.merge_burst_raw_planes(*(tt(x) for x in ins), cfa, scale, **spec, **kw)
+    assert len(got) == len(want) == n_out
+    for g, w_ in zip(got, want):
+        assert g.shape == (2 * scale, 2 * scale, 3, 8, 10)
+        np.testing.assert_allclose(nn(g), np.asarray(w_), **tol)
+
+
+def _frame_cap(scale: int, halo: int) -> int:
+    """A transcription of csrc/merge_raw.cu's max_frames for the certless
+    and order-0 forms: every frame's staged tile (kTileH + 2 halo rows of
+    32 + 2 halo sites, four planes of float2) and its residual (float2 a
+    pixel) in 227 KB."""
+    tile_h = 4 if scale <= 2 else 1
+    sites = (tile_h + 2 * halo) * (32 + 2 * halo)
+    return 227 * 1024 // ((4 * sites + 32 * tile_h) * 8)
+
+
+def test_frame_cap_transcription():
+    """The caps the card reports (tests/test_torch_cuda.py::
+    test_raw_merge_kernel_frame_cap_by_scale) at halo 1 and 2."""
+    assert {s: (_frame_cap(s, 1), _frame_cap(s, 2)) for s in (1, 2, 3, 4)} == {
+        1: (30, 22), 2: (30, 22), 3: (66, 38), 4: (66, 38)}
+
+
+BAYER = ((0, 1), (1, 2))
+
+
+@pytest.mark.parametrize(
+    "scale,radius,prune,cfa,frames,form,bf16,general",
+    [
+        (2, 1, 1.5, BAYER, 5, fast_merge.CERTLESS, False, False),  # the main path
+        (4, 1, 1.5, BAYER, 66, fast_merge.ORDER0, True, False),
+        (2, 3, 20.0, BAYER, 22, fast_merge.ORDER0, True, False),  # 69 taps to +-4: halo 2, a cap of 22
+        (5, 1, 1.5, BAYER, 5, fast_merge.CERTLESS, False, True),
+        (6, 1, 1.5, BAYER, 5, fast_merge.PER_CELL, False, True),
+        (2, 4, 60.0, BAYER, 5, fast_merge.CERTLESS, False, True),  # 121 taps
+        (2, 1, 1.5, ((0, 1), (2, 1)), 5, fast_merge.NINE_MOMENTS, False, True),
+        (2, 1, 1.5, ((1, 1), (0, 2)), 5, fast_merge.ORDER0, False, True),
+        (2, 1, 1.5, BAYER, 31, fast_merge.CERTLESS, False, False),  # streamed
+        (2, 1, 1.5, BAYER, 31, fast_merge.ORDER0, False, False),  # streamed
+        (2, 1, 1.5, BAYER, 31, fast_merge.ORDER0, True, True),  # the bfloat16 order 0 has no streamed form
+        (4, 1, 1.5, BAYER, 67, fast_merge.ORDER0, True, True),
+        (2, 2, 20.0, BAYER, 23, fast_merge.ORDER0, True, True),  # 49 taps to +-3: halo 2
+        (2, 1, 1.5, BAYER, 500, fast_merge.PER_CELL, False, False),  # a frame ring: no cap
+    ],
+)
+def test_raw_merge_uses_general_exactly_past_the_builds(scale, radius, prune, cfa, frames, form, bf16, general):
+    """merge_raw runs the templated kernels wherever they are built for the
+    call (scales 1-4, taps within +-4, Bayer; the bfloat16 order 0
+    within the frame cap of the taps' halo) and the general kernel
+    elsewhere."""
+    taps = tuple(fast_merge._active_taps(radius + 1, 1.0, scale, (scale / 2.0) ** 2, prune))
+    if radius == 4:
+        assert len(taps) == 121
+    cap = _frame_cap(scale, min(raw_kernel.tap_halo(taps), 2)) if scale <= 4 else 0
+    assert raw_kernel.uses_general(scale, taps, cfa, frames, form, cap, bf16) == general
+
+
+@pytest.mark.parametrize("form", [fast_merge.CERTLESS, fast_merge.ORDER0, fast_merge.NINE_MOMENTS,
+                                  fast_merge.PER_CELL])
+def test_certless_and_order0_stream_past_the_cap(form):
+    """The certless and order-0 forms stage every frame's tile at once up
+    to the cap (30 at S = 2, halo 1) and stream chunks of that many past
+    it; the 9-moment and per-cell forms stream through their ring at any
+    length (no separate form)."""
+    cap = _frame_cap(2, 1)
+    assert not raw_kernel.streams(form, cap, cap)
+    assert raw_kernel.streams(form, cap + 1, cap) == (form in (fast_merge.CERTLESS, fast_merge.ORDER0))
+
+
+def _chain_id(cfa, a, b, ch):
+    """fast_merge._centroid_chain's chain as the general kernel numbers it."""
+    cid = fast_merge._centroid_chain(cfa, a, b, ch)
+    if cid is None:
+        return -1
+    return cid[1] if cid[0] == "g" else 2 + 2 * cid[1] + cid[2]
+
+
+@pytest.mark.parametrize("cfa", [BAYER, ((2, 1), (1, 0)), ((0, 1), (2, 1)), ((1, 1), (0, 2)), ((0, 0), (1, 2))])
+def test_cell_table(cfa):
+    """The general kernel's host table: each plane's channel, then each
+    cell's certless chain in (a, b, ch) order; on a Bayer pattern each
+    green cell reads the green chain of its diagonal and each R/B cell the
+    chain of the tap parity that lands on its plane; a channel the
+    pattern lacks has none."""
+    table = raw_kernel.cell_table(cfa)
+    assert table.dtype == np.int32 and table.shape == (16,)
+    assert table[:4].tolist() == [cfa[0][0], cfa[0][1], cfa[1][0], cfa[1][1]]
+    chains = table[4:].reshape(2, 2, 3)
+    for a in (0, 1):
+        for b in (0, 1):
+            for ch in range(3):
+                assert chains[a, b, ch] == _chain_id(cfa, a, b, ch)
+                if ch not in np.asarray(cfa):
+                    assert chains[a, b, ch] == -1
+    if cfa == BAYER:
+        # green at (0, 1) and (1, 0): parity (a, b) reads green for taps
+        # with (a + ky + b + kx) odd; R at (0, 0) for ky = a, kx = b mod 2
+        assert chains[0, 0].tolist() == [2, 1, 5] and chains[1, 1].tolist() == [5, 1, 2]
+
+
+def test_general_taps_past_81():
+    """The general kernel's device table: the 121 taps of +-5 in the
+    list's order, (ky, kx, centroid bit), the bit cleared outside the
+    pruned centroid's taps."""
+    taps = tuple(fast_merge._active_taps(5, 1.0, 2, 1.0, 60.0))
+    rows = raw_kernel.general_taps(taps)
+    assert rows.shape == (121, 3) and rows.dtype == np.int32
+    assert [tuple(r[:2]) for r in rows.tolist()] == list(taps)
+    assert rows[:, 2].all()
+    inner = frozenset(fast_merge._active_taps(5, 1.0, 2, 1.0, 1.0))
+    rows = raw_kernel.general_taps(taps, inner)
+    assert rows[:, 2].tolist() == [int(t in inner) for t in taps]
+    assert 0 < rows[:, 2].sum() < 121
+
+
+def test_rgb_merge_uses_general_past_the_build():
+    """merge_fast's general kernel runs at scales past 4 and tap radii past
+    8 (kMaxRadius), the templated one elsewhere; the interleaved form
+    (use_pallas) refuses a tap radius past 8 on either device, as
+    merge_fast_pallas does, and so does a scale below 1."""
+    assert not merge_kernel.uses_general(2, 2) and not merge_kernel.uses_general(4, 8)
+    assert merge_kernel.uses_general(5, 2) and merge_kernel.uses_general(2, 9)
+    z = [torch.zeros(s) for s in ((2, 8, 8, 3), (2, 8, 8, 2), (2, 8, 8, 3), (8, 8, 3))]
+    with pytest.raises(ValueError, match="merge_fast_pallas's 8-row halo"):
+        merge_kernel.merge_fast(*z, 2, 8, 1.0, 1.0)
+    with pytest.raises(ValueError, match="scale"):
+        merge_kernel.merge_fast(*z, 0, 1, 1.0, 1.0)
+    LAUNCHES.clear()
+    for out in merge_kernel.merge_fast(*z, 5, 8, 1.0, 1.0, phase_output=True):
+        assert out.shape == (5, 5, 3, 8, 8)
+    assert not LAUNCHES
+
+
+def _max_radius(t: int) -> int:
+    """A transcription of csrc/tile_search.cu's mfsr_tile_search_max_radius:
+    the largest radius whose staging (window rows padded to an odd stride
+    past 3 offsets, the tile, the row energies, the surface) fits 48 KB,
+    -1 for a tile size without a templated build."""
+    if t not in (8, 16, 32):
+        return -1
+
+    def floats(r):
+        t2, s_n = t + 2 * r, 2 * r + 1
+        return t2 * ((t2 + 2) | 1) + t * (t + 1) + t2 * s_n + s_n * s_n
+
+    r = 0
+    while 4 * floats(r + 1) <= 48 * 1024:
+        r += 1
+    return r
+
+
+@pytest.mark.parametrize(
+    "t,radius,general",
+    [(16, 4, False), (16, 27, False), (16, 28, True), (16, 0, True), (8, 1, False), (32, 9, False),
+     (12, 4, True), (48, 4, True), (5, 2, True)],
+)
+def test_tile_search_uses_general_past_the_build(t, radius, general):
+    """The general search runs for tile sizes other than 8, 16 and 32,
+    radius 0 and radii past the 48 KB staging (27 at T = 16)."""
+    assert _max_radius(16) == 27
+    assert search_kernel.uses_general(t, radius, _max_radius(t)) == general
+
+
+def general_search(ref, alts, rounded, t, radius, threshold, subpixel, mode):
+    """A transcription of csrc/tile_search.cu's general search: per (frame,
+    tile, offset) the sum of (F - W)^2 over the reference tile (clamped to
+    the image) and the window at the offset (clamped per pixel at the
+    tile's prediction; image mode: tile_warp_select's source per pixel),
+    then find_min_shift (first minimum, the gates, the fit where a 3 x 3
+    neighbourhood exists). float64 sums."""
+    n, h, w = alts.shape
+    nty, ntx = tiles.tile_counts(h, w, t)
+    if mode == "image":
+        alts = tiles.tile_warp_select(alts, rounded.to(torch.int32), t)
+    s_n = 2 * radius + 1
+    rows = torch.arange(nty)[:, None] * t + torch.arange(t)  # (nty, t)
+    cols = torch.arange(ntx)[:, None] * t + torch.arange(t)
+    ref_t = ref.double()[rows.clamp(max=h - 1)[:, None, :, None], cols.clamp(max=w - 1)[None, :, None, :]]
+    ssd = torch.empty((n, nty, ntx, s_n, s_n), dtype=torch.float64)
+    pre = (torch.zeros_like(rounded) if mode == "image" else rounded).long()
+    # the window's columns at every offset v: (ntx, t + 2R), then (ntx, s_n, t)
+    wcols = torch.arange(ntx)[:, None] * t + torch.arange(t + 2 * radius) - radius
+    for k in range(n):
+        wx = (wcols[None] + pre[k, :, :, 1, None]).clamp(0, w - 1)  # (nty, ntx, t + 2R)
+        for u in range(s_n):
+            wy = (rows[:, None, :] + pre[k, :, :, 0, None] + u - radius).clamp(0, h - 1)  # (nty, ntx, t)
+            win = alts[k].double()[wy[..., :, None], wx[..., None, :]]  # (nty, ntx, t, t + 2R)
+            win = win.unfold(-1, t, 1)  # (nty, ntx, t, s_n, t): offset v, column j
+            ref_b = ref_t[:, :, :, None, :]
+            ssd[k, :, :, u] = ((ref_b - win) ** 2).sum((-3, -1))
+    return rounded + tiles.find_min_shift(ssd.float(), radius, threshold, subpixel)
+
+
+@pytest.mark.parametrize(
+    "h,w,t,radius,mode",
+    [(48, 60, 12, 4, "image"), (48, 60, 12, 3, "tile"), (40, 56, 16, 0, "tile"), (40, 56, 16, 0, "image"),
+     (40, 72, 16, 30, "tile"), (30, 44, 5, 2, "tile")],
+)
+def test_general_search_transcription_matches_plain(h, w, t, radius, mode):
+    """The general search's function against the plain search (the
+    wrapper on CPU tensors): integer parts equal, subpixel shifts within
+    1e-3 px, at T = 12 and 5, radius 0 (the prediction itself) and a
+    radius past the templated kernel's 27 at T = 16."""
+    inputs = search_inputs(h, w, SMALL_SHIFTS, t)
+    # exact ties of clamped patches are ranked by rounding: left out
+    untied = torch.from_numpy(
+        ~tied_minima(*inputs, t, radius) if mode == "tile" else np.ones(inputs[2].shape[:3], bool))
+    ref, alts, rounded = (tt(x) for x in inputs)
+    for sub in (False, True):
+        LAUNCHES.clear()
+        want = search_kernel.tile_search(ref, alts, rounded, t, radius, 0.0, sub, mode)
+        assert not LAUNCHES
+        got = general_search(ref, alts, rounded, t, radius, 0.0, sub, mode)
+        if radius == 0:
+            torch.testing.assert_close(got, rounded, rtol=0, atol=0)
+        torch.testing.assert_close(got[untied], want[untied], rtol=0, atol=1e-3 if sub else 0.0)
+
+
+def test_raw_pipeline_on_31_frames_matches_jax():
+    """A 31-frame burst at 64 x 128 RAW (motion up to 2.5 px), past the
+    certless merge's 30-frame cap at scale 2 (a general-kernel merge on
+    the card), through RAW_PORT_DEFAULT's path against the jitted JAX
+    pipeline: 60 dB. Measured 119.7 dB."""
+    raw = synthetic_raw_burst(np.random.default_rng(0), 31, 64, 128, 2.5)[0]
+    want = nn(jax.jit(jax_handheld_superres_raw, static_argnums=1)(jnp.asarray(raw), to_jax(RAW_PORT_DEFAULT)))
+    got = nn(handheld_superres_raw(tt(raw), RAW_PORT_DEFAULT, device="cpu"))
+    assert got.shape == (128, 256, 3) and np.isfinite(got).all()
+    assert psnr(got, want) >= 60.0

@@ -133,7 +133,9 @@ def kernel_image_windows(alts, rounded, t, radius):
     "image"-mode window loader (warp_source): window (a, b) of tile
     (ty, tx) reads the alternate at the source that
     tile_warp_select(alt, rounded, t, bound=16) gives pixel
-    (clip(ty*t + a - R), clip(tx*t + b - R)). numpy in and out."""
+    (clip(ty*t + a - R), clip(tx*t + b - R)); the general search's
+    loader (warp_source_rt) is the same with t a runtime argument. numpy
+    in and out."""
     n, h, w = alts.shape
     t2 = t + 2 * radius
     ints = rounded.astype(np.int64)
@@ -156,10 +158,13 @@ def kernel_image_windows(alts, rounded, t, radius):
     return alts[k, ys, xs]
 
 
-@pytest.mark.parametrize("h,w,t,radius", [(128, 256, 16, 4), (72, 100, 16, 4), (72, 100, 32, 9), (50, 70, 8, 5)])
+@pytest.mark.parametrize(
+    "h,w,t,radius",
+    [(128, 256, 16, 4), (72, 100, 16, 4), (72, 100, 32, 9), (50, 70, 8, 5), (66, 90, 12, 4), (40, 56, 16, 0)],
+)
 def test_image_window_loader_matches_padded_tile_warp(h, w, t, radius):
-    """The kernel's "image"-mode windows equal, bit for bit, those that
-    ssd_surface_image reads: the JAX tile_warp_select output, edge-padded
+    """The kernels' "image"-mode windows (T = 12 and radius 0: the general
+    search's) equal, bit for bit, those that ssd_surface_image reads: the JAX tile_warp_select output, edge-padded
     to the tile grid and by R. Shifts up to 24 pass the warp's +-16 clip
     and its two-level decomposition's tile-crossing bands."""
     rng = np.random.default_rng(h + t)
