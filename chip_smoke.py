@@ -53,19 +53,23 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      values must differ from (the form rounds);
    - defog (csrc/defog.cu): 1024 x 1224 x 3, P and A_inf from the seed;
      rtol 1e-5, atol 1e-6 (the kernel is expected to match bit for bit);
-   - the general forms, where the templated kernels are not built for the
-     call, at the same shapes and tolerances: merge_fast_general at
-     scale 5 in its five forms and at tap radii 9 and 11 (361 and 529
-     taps); tile_search_general at T=12, radius 0 and radius 30;
-     merge_raw_general at scale 5 in every form and knob, guided, 109
-     taps, the pattern ((0, 1), (2, 1)) and the bfloat16 order 0 on 40
-     frames; and merge_raw's streamed form (merge_raw_stream: the
-     certless and order-0 forms past their frame caps, 40 frames at S=2
-     and 70 at S=4).
+   - the general forms, where the templated kernels' layouts are not
+     built for the call, at the same shapes and tolerances:
+     merge_fast_general (merge_fast_kernel<0, form>) at scale 5 in its
+     five forms, and the templated merge at tap radii 9 and 11 (361 and
+     529 taps); merge_fast_unstaged (taps past any staged tile: radius 35,
+     s=1, F=5 at 16 x 32); tile_search_general at T=12, radius 0 and
+     radius 30; merge_raw_general (the S = 0 instantiations of
+     merge_raw_kernel and merge_raw_cells_kernel) at scale 5 in every form
+     and knob, guided, 109 taps and the bfloat16 order 0 on 40 frames;
+     merge_raw_nonbayer on the pattern ((0, 1), (2, 1)); and merge_raw's
+     streamed form (merge_raw_stream: the certless and order-0 forms past
+     their frame caps, 40 frames at S=2 and 70 at S=4).
 4. Paths on the card, each driven with the launch counts set to 0 just
    before and read just after (the former port limits among them: each
-   value a general or streamed form runs, at the city geometry, its
-   launch set exact, 60 dB against its plain-kernel run):
+   value a general, streamed or unstaged form runs, at the city
+   geometry (the unstaged kernel's on a 4 x 64 x 128 burst), its launch
+   set exact, 60 dB against its plain-kernel run):
    - polar_defog on a synthetic fog pair at 1024 x 1224 x 3 (one
      polarization angle of a 2448 x 2048 division-of-focal-plane sensor;
      defog kernel): R finite and in [r_min, r_max], agreeing (PSNR >=
@@ -252,17 +256,21 @@ KERNELS = {  # name -> (source, the TPU kernel or JAX function it replaces)
     "merge_raw": (f"{PKG}/csrc/merge_raw.cu", "multi_frame_super_resolution_tpu/models/fast_merge.py:301"),
     "defog": (f"{PKG}/csrc/defog.cu", "multi_frame_super_resolution_tpu/pallas_ops/defog.py:35"),
 }
-# the general forms, and the RAW merge's streamed one: each in its
-# templated kernel's source, replacing the same function
+# the general forms, the RGB merge's unstaged one, the RAW merge's
+# streamed and non-Bayer ones: each in its templated kernel's source,
+# replacing the same function
 KERNELS.update({f"{name}_general": KERNELS[name] for name in ("merge_fast", "tile_search", "merge_raw")})
-KERNELS["merge_raw_stream"] = KERNELS["merge_raw"]
-# the profiler's names of the kernels' __global__ functions
+KERNELS["merge_fast_unstaged"] = KERNELS["merge_fast"]
+KERNELS["merge_raw_stream"] = KERNELS["merge_raw_nonbayer"] = KERNELS["merge_raw"]
+# the profiler's names of the kernels' __global__ functions (the general
+# forms: the S = 0 instantiations, "<0, ...>" in the demangled names)
 KERNEL_SYMBOLS = {
     "merge_fast": "merge_fast_kernel", "tile_warp": "tile_warp_kernel",
     "tile_search": "tile_search_kernel", "merge_raw": "merge_raw",  # every RAW kernel
-    "defog": "defog_kernel", "merge_fast_general": "merge_fast_general_kernel",
-    "tile_search_general": "tile_search_general_kernel", "merge_raw_general": "merge_raw_general_kernel",
-    "merge_raw_stream": "merge_raw_kernel",
+    "defog": "defog_kernel", "merge_fast_general": "merge_fast_kernel<0",
+    "merge_fast_unstaged": "merge_fast_unstaged_kernel",
+    "tile_search_general": "tile_search_general_kernel", "merge_raw_general": "_kernel<0",
+    "merge_raw_stream": "merge_raw_kernel", "merge_raw_nonbayer": "merge_raw_nonbayer_kernel",
 }
 # each kernel's stage in the profile
 STAGE_OF = {"merge_fast": "mfsr.merge", "merge_raw": "mfsr.merge", "tile_warp": "mfsr.tile_warp",
@@ -371,6 +379,9 @@ WORK.update({
     # reckoned as cert4 (an upper bound: the taps outside the centroid add
     # m00 and b0 alone)
     "merge_raw prune S=5": (8 + 32 + 8 / 5 + 8 / 5, 2),
+    # the unstaged form's check at s = 1: each column's, row's and tap's
+    # terms on one phase
+    "merge_fast s=1": (4 + 12 + 1 + 4 + 7, 1),
 })
 
 
@@ -617,6 +628,12 @@ def main() -> int:
          BF16_TOL),
         ("phase layout bf16, e^-1.5, s=4", (4, 1, 1.0, 4.0), dict(phase, bf16=True), "merge_fast bf16 s=4",
          BF16_TOL),
+        # tap radii 9 and 11 (k_max 64 at e^-6: 361 and 529 taps), past the
+        # first build's 8: the templated layout, its staged halo raised
+        ("phase layout, e^-6, tap radius 9", (2, 8, 1.0, 64.0), dict(phase, prune_exp=6.0), "merge_fast",
+         KERNEL_TOL),
+        ("phase layout, e^-6, tap radius 11", (2, 10, 1.0, 64.0), dict(phase, prune_exp=6.0), "merge_fast",
+         KERNEL_TOL),
     ]
     # (label, inputs, args, keyword args, WORK key, tolerance)
     raw4_args = (cfa, 4, 1, 1.0, 4.0, prune)
@@ -684,7 +701,9 @@ def main() -> int:
         ("general order 0 bf16, F=40, S=2 (RAW_ORDER0_BF16 on 40 frames)", raw40_ins, raw_args, order0_bf16,
          "merge_raw order 0 bf16", BF16_TOL),
         ("general 109 taps, S=2", raw_ins, (cfa, SCALE, 5, 1.0, 1.0, 40.0), {}, "merge_raw", KERNEL_TOL),
-        ("general cfa ((0, 1), (2, 1)), S=2", raw_ins, (((0, 1), (2, 1)), SCALE, 1, 1.0, 1.0, prune), {},
+    ]
+    raw_nonbayer = [  # (label, inputs, args, keyword args, WORK key, tolerance)
+        ("nonbayer cfa ((0, 1), (2, 1)), S=2", raw_ins, (((0, 1), (2, 1)), SCALE, 1, 1.0, 1.0, prune), {},
          "merge_raw", KERNEL_TOL),
     ]
     raw_stream = [  # (label, inputs, args, keyword args, WORK key, tolerance)
@@ -702,10 +721,13 @@ def main() -> int:
         ("general 9 slots, e^-1.5, s=5", phase5, dict(phase, order=1, moment_slots=9), "merge_fast 9 slots s=5",
          ORDER1_TOL),
         ("general phase layout bf16, e^-1.5, s=5", phase5, dict(phase, bf16=True), "merge_fast bf16 s=5", BF16_TOL),
-        ("general phase layout, e^-6, tap radius 9", (2, 8, 1.0, 64.0), dict(phase, prune_exp=6.0), "merge_fast",
-         KERNEL_TOL),
-        ("general phase layout, e^-6, tap radius 11", (2, 10, 1.0, 64.0), dict(phase, prune_exp=6.0), "merge_fast",
-         KERNEL_TOL),
+    ]
+    # taps reaching past any staged tile (34): the unstaged kernel, at s=1
+    # on a small burst (5,041 taps; the plain version loops over them)
+    unstaged_ins = [x[:, :16, :32].contiguous() for x in rgb_ins[:3]] + [rgb_ins[3][:16, :32].contiguous()]
+    merge_unstaged = [  # (label, args, keyword args, WORK key, tolerance)
+        ("unstaged phase layout, e^-6, tap radius 35, s=1, 16 x 32", (1, 34, 1.0, 1e4),
+         dict(phase, prune_exp=6.0), "merge_fast s=1", KERNEL_TOL),
     ]
     iper_np, ipar_np = synthetic_polar_pair(rng, DEFOG_H, DEFOG_W)
     defog_ins = [torch.from_numpy(x).to(dev) for x in (
@@ -844,6 +866,12 @@ def main() -> int:
         "merge_raw_stream": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
                               raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
                              for label, ins, args, kw, _, tol in raw_stream],
+        "merge_raw_nonbayer": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
+                                raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
+                               for label, ins, args, kw, _, tol in raw_nonbayer],
+        "merge_fast_unstaged": [(f"merge {label}", raw_call(kmerge.merge_fast, unstaged_ins, args, kw),
+                                 raw_call(fast_merge.merge_burst_fast, unstaged_ins, args, kw), tol)
+                                for label, args, kw, _, tol in merge_unstaged],
     }
     max_abs_err, out_bytes = {}, {}
     for name, checks in calls.items():
@@ -896,7 +924,7 @@ def main() -> int:
     city_search = search_cases[-1]  # RAW_SCALE4's fine level
     timed = [  # (kernel, check label, inputs, work items, WORK key)
         *(("merge_fast", f"merge {label}", rgb_ins,
-           F * H * W * n_taps(args[0], args[3], kw.get("prune_exp", 6.0)) * args[0] ** 2, key)
+           F * H * W * n_taps(args[0], args[3], kw.get("prune_exp", 6.0), args[1]) * args[0] ** 2, key)
           for label, args, kw, key, _ in merge_variants),
         ("tile_warp", calls["tile_warp"][0][0], (planes4, sep_shifts), 0, "tile_warp"),
         ("tile_warp", calls["tile_warp"][3][0], (w_imgs, w_shifts), 0, "tile_warp"),
@@ -916,8 +944,13 @@ def main() -> int:
           for label, ins, radius, _, t, *_ in search_general),
         *((name, f"merge_raw {label}", ins,
            ins[0].shape[0] * hh * hw * n_taps(args[1], args[4], args[5], args[2]) * args[1] ** 2, key)
-          for name, variants in (("merge_raw_general", raw_general), ("merge_raw_stream", raw_stream))
+          for name, variants in (("merge_raw_general", raw_general), ("merge_raw_stream", raw_stream),
+                                 ("merge_raw_nonbayer", raw_nonbayer))
           for label, ins, args, _, key, _ in variants),
+        *(("merge_fast_unstaged", f"merge {label}", unstaged_ins,
+           unstaged_ins[0].shape[:3].numel() * n_taps(args[0], args[3], kw.get("prune_exp", 6.0), args[1])
+           * args[0] ** 2, key)
+          for label, args, kw, key, _ in merge_unstaged),
     ]
     # the variant each kernel's main path runs: its entry in the kernels line
     main_variant = {name: label for name, label, *_ in reversed(timed)}
@@ -1173,7 +1206,8 @@ def main() -> int:
 
     # the port's former limits, each a value the JAX function computes and
     # the templated kernels are not built for, through the general kernel
-    # forms at the city geometry: the run's launches exactly (the general
+    # forms at the city geometry (the unstaged kernel's on the small
+    # burst): the run's launches exactly (the general
     # form once per merge and once per pyramid level), the output's shape,
     # finite values in [0, 1], and 60 dB against the same path on the
     # plain versions
@@ -1214,9 +1248,9 @@ def main() -> int:
         ("raw (RAW_BENCH radius 5, e^-40: 109 taps)", raw_fn, raw_rot,
          dataclasses.replace(RAW_BENCH, merge=MergeConfig(radius=5, prune_exp=40.0)), "merge_raw_general", None),
         ("rgb (RGB_DEFAULT radius 8: tap radius 9)", rgb_fn, rgb_burst,
-         dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(radius=8)), "merge_fast_general", None),
+         dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(radius=8)), "merge_fast", None),
         ("rgb (RGB_DEFAULT radius 10: tap radius 11)", rgb_fn, rgb_burst,
-         dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(radius=10)), "merge_fast_general", None),
+         dataclasses.replace(RGB_DEFAULT, merge=MergeConfig(radius=10)), "merge_fast", None),
         ("raw (RAW_PORT_DEFAULT tile_size=12)", raw_fn, raw_burst,
          dataclasses.replace(RAW_PORT_DEFAULT, align=AlignConfig(**{**port_align, "tile_size": 12})), "merge_raw",
          {"tile_search_general": 2}),
@@ -1228,10 +1262,15 @@ def main() -> int:
                                                                  fast_extract=False)), "merge_raw",
          {"tile_search_general": 2}),
         ("raw (RAW_BENCH cfa ((0, 1), (2, 1)))", raw_fn, raw_ng, dataclasses.replace(RAW_BENCH, cfa_pattern=cfa_ng),
-         "merge_raw_general", None),
+         "merge_raw_nonbayer", None),
         ("raw (RAW_CERT scale 5)", raw_fn, raw_rot, dataclasses.replace(RAW_CERT, scale=5), "merge_raw_general", None),
         ("raw (RAW_EXACT scale 5)", raw_fn, raw_rot, dataclasses.replace(RAW_EXACT, scale=5), "merge_raw_general",
          None),
+        # taps past any staged tile (a reach of 35, 5,041 taps) on the small
+        # burst: the plain run loops over every tap
+        ("rgb (RGB_DEFAULT scale 1, radius 34, e^-1e4: tap radius 35) on 4 x 64 x 128", rgb_fn, rgb_small.to(dev),
+         dataclasses.replace(RGB_DEFAULT, scale=1, merge=MergeConfig(radius=34, prune_exp=1e4)),
+         "merge_fast_unstaged", None),
     )
     t_limits = time.perf_counter()
     limit_launches = {label: check_limit(label, fn, burst, cfg, merge_name, searches)
@@ -1513,6 +1552,11 @@ def main() -> int:
          [label for label, *_ in search_general]),
         ("merge_raw stream", "merge_raw_stream", KERNELS["merge_raw"][1], "raw (RAW_BENCH on 40 frames)",
          [f"merge_raw {label}" for label, *_ in raw_stream]),
+        ("merge_raw nonbayer", "merge_raw_nonbayer", KERNELS["merge_raw"][1], "raw (RAW_BENCH cfa ((0, 1), (2, 1)))",
+         [f"merge_raw {label}" for label, *_ in raw_nonbayer]),
+        ("merge_fast unstaged", "merge_fast_unstaged", KERNELS["merge_fast"][1],
+         "rgb (RGB_DEFAULT scale 1, radius 34, e^-1e4: tap radius 35) on 4 x 64 x 128",
+         [f"merge {label}" for label, *_ in merge_unstaged]),
         ("merge_fast 9 slots", "merge_fast", "multi_frame_super_resolution_tpu/models/fast_merge.py:80",
          "rgb (RGB_EXACT)", ["merge 9 slots, e^-1.5 (RGB_EXACT)", "merge 9 slots, e^-1.5, s=4"]),
         ("merge_raw order 0", "merge_raw", KERNELS["merge_raw"][1], "raw (RAW_ORDER0)",

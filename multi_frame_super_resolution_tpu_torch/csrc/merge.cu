@@ -1,6 +1,7 @@
 // Static-tap kernel-regression merge for Hopper (sm_90a), RGB: the
-// templated kernel (scales 1-4, tap radius up to 8), described first, and
-// the general form for every other scale and radius, described last.
+// templated kernel (scales 1-4, taps within +-25), described first; its
+// general form (S = 0: any scale, taps within +-34) after it; and the
+// unstaged kernel for taps past any staged tile, described last.
 //
 // Replaces the TPU kernel multi_frame_super_resolution_tpu/pallas_ops/
 // merge.py::merge_fast_pallas (kernel body _make_kernel), and the default
@@ -144,6 +145,44 @@
 // up to the rare weight that ex2.approx and the plain version's exp round
 // to neighbouring bfloat16 values. Two blocks an SM at s <= 2 (the
 // bfloat16 sums take 12 more registers), one above.
+//
+// Wide taps on the templated layouts: the staged halo is the taps' reach,
+// up to kMaxRadius = 25, where two frame buffers of the widest tile (8 +
+// 50 rows of 32 + 50 sites, 48 B a site) take 228,288 of the 232,448
+// bytes a block may opt in to. At tap radius 11 (529 taps, s = 2) they
+// take 77.8 KB, two blocks an SM.
+//
+// The general form (S = 0, merge_fast_kernel<0, form>): scales past 4,
+// and taps reaching past 25 at any scale, up to kMaxGeneralHalo = 34
+// (where one staged site a block still fits). It is the kernel above
+// with the scale at run time and a thread per (input pixel, output
+// phase) in every form (kRows = kCols = 1: 6, 12, 27 or 6 + 3 bfloat16x2
+// accumulators a thread, the form a template parameter), in a flat block
+// of tw x th pixels x `rows` phase rows (Geometry, from
+// kernels/merge.py::general_tile): 8 x 1 pixels x all 5 phase rows at
+// s = 5, 200 threads, several blocks an SM; grid z walks the groups of
+// phase rows past the form's thread bound (1024; form 3, 512), each
+// group restaging the tile (s = 6-8: two groups). A warp holds 8 pixels
+// at 4 phases, so a tap's two shared loads read 8 sites, each broadcast
+// to 4 lanes (one wavefront each; a warp of 32 pixels of one phase took
+// six, and measured slower). Staging (cp.async, double-buffered,
+// edge-clamped), the run table, the exponent (-1/2 log2(e) folded into
+// omega, two FMAs and ex2.approx), the accumulation and the rounding are
+// the templated kernel's, so it matches the plain version within the
+// same tolerances; form 0 parks each output array's rows of the block's
+// phase rows in shared memory and stores whole rows.
+// Bound at chip_smoke.py's check (F=5, 256 x 512, s=5, 25 taps at
+// e^-1.5): 410 M (frame, pixel, tap, phase) items at 16.3 flops and one
+// exp (WORK): 105.6 us of operations; order 1 191.2 us, 9 slots 393.0
+// us, bfloat16 98.0 us. Staged bytes: a block stages (1 + 2 halo) x (8 +
+// 2 halo) sites of 24 B a frame for its 8 pixels' 192 B of values and
+// certainties, 7.5x the input bytes at halo 2 (118 MB from L2 over the
+// call, against 15.7 MB of values and certainties read once).
+// Measured (tools/ab_main_kernels.py; NVIDIA H100 80GB HBM3, 700.00
+// W): ptxas 54, 56, 62, 77 and 52 registers for forms 0-4, no spills; at
+// s = 5 the phase layout takes 0.462 ms (22.7% of its bound, 3.0x under
+// the first general kernel), 9 slots 1.007 (39.0%, 1.9x); tap radius 11
+// on the templated layout 0.706 (59.3%, 6.8x); all times in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,11 +193,15 @@
 
 namespace {
 
-constexpr int kMaxRadius = 8;
-constexpr int kMaxTaps = (2 * kMaxRadius + 1) * (2 * kMaxRadius + 1);
+// the templated layouts' largest staged halo: two frame buffers of 8 + 2
+// x 25 rows of 32 + 2 x 25 sites, 24 B x 2 a site, are 228,288 bytes
+constexpr int kMaxRadius = 25;
 constexpr int kTileW = 32;  // input columns of a block (one warp)
+constexpr int kMaxSmem = 232448;  // shared memory a block can opt in to (sm_90)
+// the general form's largest staged halo: one site a block (1 + 2 x 34)^2 x 48 B
+constexpr int kMaxGeneralHalo = 34;
 
-constexpr int kMaxRuns = 64;  // _active_taps gives one run per tap row, at most 17
+constexpr int kMaxRuns = 2 * kMaxGeneralHalo + 1;  // _active_taps gives one run per tap row
 
 // The taps as runs: consecutive taps of one row, kx rising by 1.
 struct Taps {
@@ -173,25 +216,37 @@ struct Taps {
 // pixel holding all s^2 phases, 32 x 8 pixels a block. Form 2: a thread
 // per pixel and phase row, 32 x tile_h pixels x s phase rows a block.
 // Form 3: a thread per pixel and phase, 32 x tile_h pixels x s^2 phases.
+// S = 0 is the general form (any scale, runtime): a thread per pixel and
+// phase, the block's shape chosen by the host (kernels/merge.py::
+// general_tile) within kThreads.
 template <int S, int kForm>
 struct Layout {
   static constexpr bool kBf16 = kForm == 4;
   static constexpr bool kOrder1 = kForm == 2 || kForm == 3;
   static constexpr bool kPhase = kForm >= 1;  // the phase layout
   static constexpr int kSlots = kForm == 3 ? 9 : (kOrder1 ? 4 : 2);
-  static constexpr int kRows = kOrder1 ? 1 : S;      // phase rows a thread holds
-  static constexpr int kCols = kForm == 3 ? 1 : S;   // phase columns a thread holds
-  static constexpr int kColGroups = S / kCols;       // threads a phase row
-  static constexpr int kZ = (S / kRows) * kColGroups;  // threads a pixel
+  static constexpr int kRows = kOrder1 || S == 0 ? 1 : S;      // phase rows a thread holds
+  static constexpr int kCols = kForm == 3 || S == 0 ? 1 : S;   // phase columns a thread holds
+  static constexpr int kColGroups = S == 0 ? 1 : S / kCols;    // threads a phase row
+  static constexpr int kZ = S == 0 ? 1 : (S / kRows) * kColGroups;  // threads a pixel
   static constexpr int kTileH = kForm == 3 ? (S == 1 ? 8 : (S == 2 ? 2 : 1))
                                            : (kOrder1 ? (S == 1 ? 8 : (S == 2 ? 4 : 2)) : 8);
-  static constexpr int kThreads = kTileW * kTileH * kZ;
+  // the general form: 1024 threads (64 registers), form 3's 27
+  // accumulators 512 (128)
+  static constexpr int kThreads = S == 0 ? (kForm == 3 ? 512 : 1024) : kTileW * kTileH * kZ;
   // blocks an SM the launch bound asks for: order 0's s^2 * 6 accumulators
   // grow with s (at s <= 2 four blocks, 64 registers a thread, hold the
   // 256 x 512 check in one wave); form 2's 12 s and form 3's 27 stay
   // under 128 registers (form 3 at s = 4: one block of 512 threads)
-  static constexpr int kMinBlocks = kOrder1 ? (kThreads > 288 ? 1 : 2)
+  static constexpr int kMinBlocks = S == 0 ? 1 : kOrder1 ? (kThreads > 288 ? 1 : 2)
                                             : (kBf16 ? (S <= 2 ? 2 : 1) : (S <= 2 ? 4 : (S == 3 ? 2 : 1)));
+};
+
+// The general form's block (S = 0): tw x th pixels x `rows` phase rows of
+// the scale s, one thread each, flat (threadIdx.x); grid z walks the
+// groups of `rows` phase rows.
+struct Geometry {
+  int s, tw, th, rows;
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -215,8 +270,8 @@ __device__ __forceinline__ void stage_frame(const float* __restrict__ img,
                                             const float* __restrict__ cert,
                                             float4* a, float2* b, long long fbase,
                                             int y0, int x0, int h, int w, int halo,
-                                            int sw, int sites, int tid) {
-  for (int s = tid; s < sites; s += kThreads) {
+                                            int sw, int sites, int tid, int n_threads = kThreads) {
+  for (int s = tid; s < sites; s += (kThreads ? kThreads : n_threads)) {
     const int r = min(max(y0 - halo + s / sw, 0), h - 1);
     const int c = min(max(x0 - halo + s % sw, 0), w - 1);
     const long long g = fbase + ((long long)r * w + c) * 3;
@@ -261,6 +316,31 @@ __device__ __forceinline__ void park_and_store(const float (&acc)[S][S][3], floa
   }
 }
 
+// The general form's form 0: each thread parks its 3 values of one output
+// array, then the block writes its output rows (th pixel rows x the
+// group's `rows` phase rows, from row_lo) of tw * s * 3 contiguous floats.
+__device__ __forceinline__ void park_and_store_general(const float (&v)[3], float* park,
+                                                       float* __restrict__ out, const Geometry& g,
+                                                       int y0, int x0, int h, int w, int row_lo, int ty,
+                                                       int tx, int py, int px, bool inside, int tid,
+                                                       int n_threads) {
+  const int row_len = g.tw * g.s * 3;  // floats in a parked output row
+  if (inside) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) park[(ty * g.rows + py - row_lo) * row_len + (tx * g.s + px) * 3 + c] = v[c];
+  }
+  __syncthreads();
+  const int valid = min(g.tw, w - x0) * g.s * 3;
+  const long long out_row = (long long)w * g.s * 3;
+  for (int i = tid; i < g.th * g.rows * row_len; i += n_threads) {
+    const int r = i / row_len, col = i % row_len;
+    const int yy = y0 + r / g.rows, pr = row_lo + r % g.rows;
+    if (col < valid && yy < h && pr < g.s) {
+      out[((long long)yy * g.s + pr) * out_row + (long long)x0 * g.s * 3 + col] = park[i];
+    }
+  }
+}
+
 template <int S, int kForm>
 __global__ void __launch_bounds__(Layout<S, kForm>::kThreads, Layout<S, kForm>::kMinBlocks)
 merge_fast_kernel(const float* __restrict__ warped,
@@ -269,29 +349,47 @@ merge_fast_kernel(const float* __restrict__ warped,
                   const float* __restrict__ omega,
                   float* __restrict__ out,
                   int frames, int h, int w, int halo, float rb,
-                  const Taps taps) {
+                  const Taps taps, const Geometry geo) {
   using L = Layout<S, kForm>;
   constexpr bool kOrder1 = L::kOrder1;
   constexpr int R = L::kRows, C = L::kCols;
+  // S = 0: the general form, its scale and block shape from geo
+  constexpr bool kGeneral = S == 0;
+  const int sc = kGeneral ? geo.s : S;
+  const int tile_w = kGeneral ? geo.tw : kTileW, tile_h = kGeneral ? geo.th : L::kTileH;
+  const int n_threads = kGeneral ? (int)blockDim.x : L::kThreads;
   // two frame buffers: float4 sites [2][sites], then float2 sites [2][sites]
   extern __shared__ float4 smem[];
-  const int sw = kTileW + 2 * halo;
-  const int sites = (L::kTileH + 2 * halo) * sw;
+  const int sw = tile_w + 2 * halo;
+  const int sites = (tile_h + 2 * halo) * sw;
   float2* smem2 = reinterpret_cast<float2*>(smem + 2 * sites);
 
   // the thread's first phase row and column; order 0's blocks are flat,
   // so both are the constant 0 there (its phis fold into constants), and
-  // form 2's first column is 0
-  const int z = L::kZ == 1 ? 0 : (int)threadIdx.z;
-  const int row0 = (z / L::kColGroups) * R;
-  const int col0 = (z % L::kColGroups) * C;
-  const int tid = (z * L::kTileH + threadIdx.y) * kTileW + threadIdx.x;
-  const int y0 = blockIdx.y * L::kTileH, x0 = blockIdx.x * kTileW;
-  const int y = y0 + threadIdx.y, x = x0 + threadIdx.x;
-  const bool inside = y < h && x < w;
+  // form 2's first column is 0. The general form: a flat block of
+  // (phase, row, column), its phases from grid z's group of rows on
+  int row0, col0, tid, tx, ty;
+  if constexpr (kGeneral) {
+    tid = threadIdx.x;
+    tx = tid % tile_w;
+    ty = tid / tile_w % tile_h;
+    const int ph = blockIdx.z * geo.rows * sc + tid / (tile_w * tile_h);
+    row0 = ph / sc;
+    col0 = ph % sc;
+  } else {
+    const int z = L::kZ == 1 ? 0 : (int)threadIdx.z;
+    row0 = (z / L::kColGroups) * R;
+    col0 = (z % L::kColGroups) * C;
+    tid = (z * L::kTileH + threadIdx.y) * kTileW + threadIdx.x;
+    tx = threadIdx.x;
+    ty = threadIdx.y;
+  }
+  const int y0 = blockIdx.y * tile_h, x0 = blockIdx.x * tile_w;
+  const int y = y0 + ty, x = x0 + tx;
+  const bool inside = y < h && x < w && (!kGeneral || row0 < sc);
   const long long plane = (long long)h * w;
   const long long pix = (long long)min(y, h - 1) * w + min(x, w - 1);
-  const int my_site = (threadIdx.y + halo) * sw + threadIdx.x + halo;
+  const int my_site = (ty + halo) * sw + tx + halo;
 
   // exp(q) = 2^(q log2 e): -1/2 log2(e), and the cross term's 2, folded
   // into omega
@@ -304,9 +402,9 @@ merge_fast_kernel(const float* __restrict__ warped,
   // and rows
   float phis[C], phis_y[R];
 #pragma unroll
-  for (int p = 0; p < C; ++p) phis[p] = (((float)(col0 + p) + 0.5f) / (float)S - 0.5f) * (float)S;
+  for (int p = 0; p < C; ++p) phis[p] = (((float)(col0 + p) + 0.5f) / (float)sc - 0.5f) * (float)sc;
 #pragma unroll
-  for (int p = 0; p < R; ++p) phis_y[p] = (((float)(row0 + p) + 0.5f) / (float)S - 0.5f) * (float)S;
+  for (int p = 0; p < R; ++p) phis_y[p] = (((float)(row0 + p) + 0.5f) / (float)sc - 0.5f) * (float)sc;
 
   float acc[L::kSlots][R][C][3];
 #pragma unroll
@@ -319,15 +417,16 @@ merge_fast_kernel(const float* __restrict__ warped,
         for (int c = 0; c < 3; ++c) acc[k][py][px][c] = 0.0f;
 
   const float2* res = reinterpret_cast<const float2*>(residual) + pix;
-  stage_frame<L::kThreads>(warped, certainty, smem, smem2, 0, y0, x0, h, w, halo, sw, sites, tid);
+  constexpr int kStageThreads = kGeneral ? 0 : L::kThreads;  // 0: n_threads
+  stage_frame<kStageThreads>(warped, certainty, smem, smem2, 0, y0, x0, h, w, halo, sw, sites, tid, n_threads);
   for (int f = 0; f < frames; ++f) {
     const float2 r = res[f * plane];
     float4* a = smem + (f & 1) * sites;
     float2* b = smem2 + (f & 1) * sites;
     if (f + 1 < frames) {
       const int nb = (f + 1) & 1;
-      stage_frame<L::kThreads>(warped, certainty, smem + nb * sites, smem2 + nb * sites,
-                               (f + 1) * plane * 3, y0, x0, h, w, halo, sw, sites, tid);
+      stage_frame<kStageThreads>(warped, certainty, smem + nb * sites, smem2 + nb * sites,
+                                 (f + 1) * plane * 3, y0, x0, h, w, halo, sw, sites, tid, n_threads);
       asm volatile("cp.async.wait_group 1;\n" ::);
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
@@ -335,7 +434,7 @@ merge_fast_kernel(const float* __restrict__ warped,
     // value x certainty on the sites this thread copied (its own copies
     // have landed), or for bfloat16 both rounded; the barrier then
     // publishes the frame to the block
-    for (int s = tid; s < sites; s += L::kThreads) {
+    for (int s = tid; s < sites; s += n_threads) {
       const float4 v = a[s];
       const float2 c = b[s];
       if constexpr (L::kBf16) {
@@ -355,9 +454,9 @@ merge_fast_kernel(const float* __restrict__ warped,
       const float rx = fminf(fmaxf(r.y, -rb), rb);
       float ey[R], ex[C];
 #pragma unroll
-      for (int p = 0; p < R; ++p) ey[p] = ry * (float)S + phis_y[p];
+      for (int p = 0; p < R; ++p) ey[p] = ry * (float)sc + phis_y[p];
 #pragma unroll
-      for (int p = 0; p < C; ++p) ex[p] = rx * (float)S + phis[p];
+      for (int p = 0; p < C; ++p) ex[p] = rx * (float)sc + phis[p];
       // form 4: this frame's bfloat16 (num, den) sums per phase and channel
       __nv_bfloat162 fsum[R][C][3];
       if constexpr (L::kBf16) {
@@ -383,7 +482,7 @@ merge_fast_kernel(const float* __restrict__ warped,
         float kxs = taps.kxs0[run];
         const int len = taps.len[run];
 #pragma unroll 1
-        for (int k = 0; k < len; ++k, kxs += (float)S) {
+        for (int k = 0; k < len; ++k, kxs += (float)sc) {
           const float4 va = pa[k];  // v0 c0, v1 c1, v2 c2, c0 (form 4: v0, v1, v2, c0)
           const float2 vb = pb[k];  // c1, c2
           // form 4: (v, 1) per channel and c, bfloat16 (exact: staged rounded)
@@ -467,7 +566,7 @@ merge_fast_kernel(const float* __restrict__ warped,
     __syncthreads();  // this buffer is restaged for frame f + 2 (or parks the outputs)
   }
 
-  const long long slot = (long long)S * S * 3 * plane;  // floats of one output array
+  const long long slot = (long long)sc * sc * 3 * plane;  // floats of one output array
   if constexpr (L::kPhase) {
     // plane (py, px, c) of each output at (y, x): a warp writes 32
     // consecutive floats of one plane row. The thread's planes of one
@@ -478,7 +577,7 @@ merge_fast_kernel(const float* __restrict__ warped,
       for (int k = 0; k < L::kSlots; ++k) {
 #pragma unroll
         for (int py = 0; py < R; ++py) {
-          float* dst = out + k * slot + ((long long)(row0 + py) * S + col0) * 3 * plane +
+          float* dst = out + k * slot + ((long long)(row0 + py) * sc + col0) * 3 * plane +
                        (long long)y * w + x;
 #pragma unroll
           for (int px = 0; px < C; ++px)
@@ -487,6 +586,14 @@ merge_fast_kernel(const float* __restrict__ warped,
         }
       }
     }
+  } else if constexpr (kGeneral) {
+    float* park = reinterpret_cast<float*>(smem);
+    const int row_lo = blockIdx.z * geo.rows;
+    park_and_store_general(acc[0][0][0], park, out, geo, y0, x0, h, w, row_lo, ty, tx, row0, col0, inside,
+                           tid, n_threads);
+    __syncthreads();
+    park_and_store_general(acc[1][0][0], park, out + slot, geo, y0, x0, h, w, row_lo, ty, tx, row0, col0,
+                           inside, tid, n_threads);
   } else {
     park_and_store<S>(acc[0], reinterpret_cast<float*>(smem), out, y0, x0, h, w, inside, tid);
     __syncthreads();
@@ -511,7 +618,33 @@ int launch(const float* warped, const float* residual, const float* certainty,
   const dim3 block(kTileW, L::kTileH, L::kZ);
   const dim3 grid((w + kTileW - 1) / kTileW, (h + L::kTileH - 1) / L::kTileH);
   merge_fast_kernel<S, kForm><<<grid, block, bytes, stream>>>(
-      warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps);
+      warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, Geometry{});
+  return (int)cudaGetLastError();
+}
+
+// The general form's launch: geo's block (its threads within the form's
+// bound), grid z over the groups of phase rows, and the host's shared
+// bytes (kernels/merge.py::general_tile: two frame buffers of the staged
+// tile, or form 0's parked output rows) within kMaxSmem.
+template <int kForm>
+int launch_general(const float* warped, const float* residual, const float* certainty,
+                   const float* omega, float* out, int frames, int h, int w, int halo,
+                   float rb, const Taps& taps, const Geometry& geo, int bytes, cudaStream_t stream) {
+  using L = Layout<0, kForm>;
+  const int threads = geo.tw * geo.th * geo.rows * geo.s;
+  if (geo.tw < 1 || geo.th < 1 || geo.rows < 1 || geo.rows > geo.s || threads > L::kThreads || bytes < 1 ||
+      bytes > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((w + geo.tw - 1) / geo.tw, (h + geo.th - 1) / geo.th, (geo.s + geo.rows - 1) / geo.rows);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_fast_kernel<0, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  merge_fast_kernel<0, kForm><<<grid, threads, bytes, stream>>>(
+      warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, geo);
   return (int)cudaGetLastError();
 }
 
@@ -529,32 +662,22 @@ int launch_form(int form, const float* warped, const float* residual, const floa
   }
 }
 
-// The general form (merge_fast_general_kernel): what the templated
-// kernel above does not take. That kernel is built for scales 1-4 and
-// taps within +-8 (its staged halo and run table); the wrapper
-// (kernels/merge.py) launches this one at any scale and tap radius, in
-// forms 0-4. (merge_fast_pallas itself asserts a tap radius of at most
-// 8, so form 0 past it is refused by the wrapper, as in JAX.)
-//
-// Design: written simply, as the plain version reads. A thread per
-// (input pixel, output phase (py, px)) holds the phase's slots for the
-// three channels; per frame it walks the taps in the list's order,
-// reading value and certainty straight from device memory (the
-// neighbouring threads' reads hit the same lines in L1 and L2), sums the
-// frame's terms and then adds the frame's sums to its totals: the plain
-// version's order (each frame's taps, then the frames), with the weight
-// by IEEE expf and each product and sum rounded where the plain version
-// rounds it (round-to-nearest intrinsics, no contraction into FMAs; form
-// 4 rounds each bfloat16 product and sum). Nothing is staged, so no scale
-// or tap radius is bounded by shared memory. Each weight is evaluated
-// once per (pixel, frame, tap, phase), as in the templated kernel, but
-// each tap's value and certainty are read once per phase. Its time
-// against its bound is in PERF.md.
+// The unstaged form (merge_fast_unstaged_kernel): the taps past the
+// general form's largest staged halo (kMaxGeneralHalo = 34, where not one
+// staged site a block fits two frame buffers in shared memory). Written
+// as the plain version reads: a thread per (input pixel, output phase)
+// holds the phase's slots for the three channels; per frame it walks the
+// taps in the list's order, reading value and certainty straight from
+// device memory, sums the frame's terms and then adds the frame's sums to
+// its totals, the weight by IEEE expf and each product and sum rounded
+// where the plain version rounds it (round-to-nearest intrinsics, no
+// FMAs; form 4 rounds each bfloat16 product and sum). Its time against
+// its bound is in PERF.md.
 
 __device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 __global__ void __launch_bounds__(256)
-merge_fast_general_kernel(const float* __restrict__ warped, const float* __restrict__ residual,
+merge_fast_unstaged_kernel(const float* __restrict__ warped, const float* __restrict__ residual,
                           const float* __restrict__ certainty, const float* __restrict__ omega,
                           float* __restrict__ out, const int* __restrict__ taps, int n_taps,
                           int frames, int h, int w, int S, int form, float rb) {
@@ -638,6 +761,34 @@ merge_fast_general_kernel(const float* __restrict__ warped, const float* __restr
   }
 }
 
+// The taps' reach, max |ky|, |kx| (-1 for a bad count).
+int tap_halo(const int* yx, int n_taps) {
+  if (n_taps < 0) return -1;
+  int halo = 0;
+  for (int t = 0; t < 2 * n_taps; ++t) halo = std::max(halo, std::abs(yx[t]));
+  return halo;
+}
+
+// The taps as runs of one row with kx rising by 1 (any list of
+// _active_taps is one run per row), for a staged row of sw sites; false
+// past kMaxRuns.
+bool build_runs(const int* yx, int n_taps, int scale, int sw, Taps* taps) {
+  taps->n = 0;
+  for (int t = 0; t < n_taps; ++t) {
+    const int ky = yx[2 * t], kx = yx[2 * t + 1];
+    if (t > 0 && ky == yx[2 * t - 2] && kx == yx[2 * t - 1] + 1) {
+      ++taps->len[taps->n - 1];
+      continue;
+    }
+    if (taps->n == kMaxRuns) return false;
+    taps->kys[taps->n] = (float)(ky * scale);
+    taps->kxs0[taps->n] = (float)(kx * scale);
+    taps->off0[taps->n] = ky * sw + kx;
+    taps->len[taps->n++] = 1;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -650,38 +801,22 @@ extern "C" {
 // den as (S*H, S*W, 3); form 1 the same as (S, S, 3, H, W); form 2 m00,
 // m01, m02, b0, each (S, S, 3, H, W); form 3 m00, m01, m02, m11, m12,
 // m22, b0, b1, b2, each (S, S, 3, H, W); form 4 (bfloat16) num and den
-// as (S, S, 3, H, W). Every output is written in full. taps_yx is a HOST array of n_taps (ky, kx) pairs, each
-// within +-8, in at most kMaxRuns runs of one row with kx rising by 1
+// as (S, S, 3, H, W). Every output is written in full. S = 1..4.
+// taps_yx is a HOST array of n_taps (ky, kx) pairs, each within
+// +-kMaxRadius, in at most kMaxRuns runs of one row with kx rising by 1
 // (any list of _active_taps is one run per row).
 int mfsr_merge_fast(const void* warped, const void* residual,
                     const void* certainty, const void* omega, void* out, int frames,
                     int h, int w, int scale, int form, const void* taps_yx, int n_taps,
                     float rb, void* stream) {
-  if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || h < 1 || w < 1 ||
-      reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
+  if (frames < 1 || h < 1 || w < 1 || reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int* yx = static_cast<const int*>(taps_yx);
-  int halo = 0;
-  for (int t = 0; t < n_taps; ++t) {
-    if (std::abs(yx[2 * t]) > kMaxRadius || std::abs(yx[2 * t + 1]) > kMaxRadius) {
-      return (int)cudaErrorInvalidValue;
-    }
-    halo = std::max({halo, std::abs(yx[2 * t]), std::abs(yx[2 * t + 1])});
-  }
+  const int halo = tap_halo(yx, n_taps);
   Taps taps;
-  taps.n = 0;
-  for (int t = 0; t < n_taps; ++t) {
-    const int ky = yx[2 * t], kx = yx[2 * t + 1];
-    if (t > 0 && ky == yx[2 * t - 2] && kx == yx[2 * t - 1] + 1) {
-      ++taps.len[taps.n - 1];
-      continue;
-    }
-    if (taps.n == kMaxRuns) return (int)cudaErrorInvalidValue;
-    taps.kys[taps.n] = (float)(ky * scale);
-    taps.kxs0[taps.n] = (float)(kx * scale);
-    taps.off0[taps.n] = ky * (kTileW + 2 * halo) + kx;
-    taps.len[taps.n++] = 1;
+  if (halo < 0 || halo > kMaxRadius || !build_runs(yx, n_taps, scale, kTileW + 2 * halo, &taps)) {
+    return (int)cudaErrorInvalidValue;
   }
   const float* a = static_cast<const float*>(warped);
   const float* r = static_cast<const float*>(residual);
@@ -698,20 +833,56 @@ int mfsr_merge_fast(const void* warped, const void* residual,
   }
 }
 
-// Launches the general form (merge_fast_general_kernel) on `stream` and
+// Launches the general form (merge_fast_kernel<0, form>) on `stream` and
+// returns cudaGetLastError(). The arrays, out, forms and taps_yx are
+// mfsr_merge_fast's, at any scale >= 1 and taps within
+// +-kMaxGeneralHalo; the block is tile_w x tile_h pixels x `rows` phase
+// rows, grid z the groups of rows, with smem_bytes of dynamic shared
+// memory (kernels/merge.py::general_tile's block and bytes).
+int mfsr_merge_fast_general(const void* warped, const void* residual, const void* certainty,
+                            const void* omega, void* out, int frames, int h, int w, int scale,
+                            int form, const void* taps_yx, int n_taps, float rb, int tile_w,
+                            int tile_h, int rows, int smem_bytes, void* stream) {
+  if (frames < 1 || h < 1 || w < 1 || scale < 1 || reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int* yx = static_cast<const int*>(taps_yx);
+  const int halo = tap_halo(yx, n_taps);
+  Taps taps;
+  if (halo < 0 || halo > kMaxGeneralHalo || tile_w < 1 || !build_runs(yx, n_taps, scale, tile_w + 2 * halo, &taps)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Geometry geo{scale, tile_w, tile_h, rows};
+  const float* a = static_cast<const float*>(warped);
+  const float* r = static_cast<const float*>(residual);
+  const float* c = static_cast<const float*>(certainty);
+  const float* o = static_cast<const float*>(omega);
+  float* outs = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (form) {
+    case 0: return launch_general<0>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
+    case 1: return launch_general<1>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
+    case 2: return launch_general<2>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
+    case 3: return launch_general<3>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
+    case 4: return launch_general<4>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launches the unstaged form (merge_fast_unstaged_kernel) on `stream` and
 // returns cudaGetLastError(). The arrays, out and forms are
 // mfsr_merge_fast's, at any scale >= 1; taps is a DEVICE int32 array of
 // n_taps (ky, kx) rows, any offsets, in the list's order.
-int mfsr_merge_fast_general(const void* warped, const void* residual, const void* certainty,
-                            const void* omega, void* out, int frames, int h, int w, int scale,
-                            int form, const void* taps, int n_taps, float rb, void* stream) {
+int mfsr_merge_fast_unstaged(const void* warped, const void* residual, const void* certainty,
+                             const void* omega, void* out, int frames, int h, int w, int scale,
+                             int form, const void* taps, int n_taps, float rb, void* stream) {
   if (n_taps < 0 || frames < 1 || h < 1 || w < 1 || scale < 1 || (long long)scale * scale > 65535 ||
       (h + 7) / 8 > 65535 || form < 0 || form > 4 ||
       reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((w + 31) / 32, (h + 7) / 8, scale * scale);
-  merge_fast_general_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
+  merge_fast_unstaged_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(warped), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega), static_cast<float*>(out),
       static_cast<const int*>(taps), n_taps, frames, h, w, scale, form, rb);

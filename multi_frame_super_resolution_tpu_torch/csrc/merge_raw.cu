@@ -4,10 +4,12 @@
 // exact solve's 9 order-1 moments (form 2, merge_raw_cells_kernel,
 // described after them) and the per-cell plugin moments (form 3: that
 // kernel with 4 slots). These templated kernels take scales 1-4, Bayer
-// patterns and taps within +-4; the general form (merge_raw_general_kernel,
-// described last) takes every form at any scale, tap list, 2 x 2 pattern
-// and frame count. A guided merge (R/B as colour differences) runs any
-// form on difference planes that the wrapper forms beforehand
+// patterns and taps within +-4; their general form (the S = 0
+// instantiations, described after them) takes every form and knob at any
+// scale, tap list and frame count on Bayer patterns; the non-Bayer kernel
+// (merge_raw_nonbayer_kernel, described last) takes any other 2 x 2
+// pattern, and the Bayer merges whose taps no general block fits. A guided merge (R/B as colour differences) runs any form on
+// difference planes that the wrapper forms beforehand
 // (kernels/merge_raw.py), which also chooses between the kernels.
 //
 // Replaces: the JAX package computes this accumulate outside Pallas
@@ -237,10 +239,12 @@
 #include <cstdlib>
 #include <limits>
 #include <type_traits>
+#include <vector>
 
 namespace {
 
-constexpr int kMaxTaps = 81;     // tap radius up to 4
+constexpr int kMaxTaps = 81;     // the templated forms' taps: within +-4
+constexpr int kMaxSmem = 232448;  // shared memory a block can opt in to (sm_90)
 constexpr int kTileW = 32;       // half-res columns of a block (one warp)
 
 // The thread layout at scale S: a thread per (half-res pixel, phase row,
@@ -263,15 +267,40 @@ template <>
 struct Layout<4> {
   static constexpr int kPX = 2, kTileH = 1, kMinBlocks = 2;
 };
+// S = 0: the general form, the scale at run time: a thread per (pixel,
+// phase), tw x th pixels (blockDim.x, blockDim.y) x a group of phases
+// (blockDim.z; grid z over the groups), at most 512 threads
+template <>
+struct Layout<0> {
+  static constexpr int kPX = 1, kTileH = 0, kMinBlocks = 1;
+};
 
 template <int S>
 struct Shape {
   static constexpr int kPX = Layout<S>::kPX;
   static constexpr int kTileH = Layout<S>::kTileH;
-  static constexpr int kCols = S / kPX;              // threads a phase row
-  static constexpr int kZ = S * kCols;               // threads a pixel
-  static constexpr int kPix = kTileW * kTileH;       // pixels a block
-  static constexpr int kThreads = kPix * kZ;
+  static constexpr int kTW = S ? kTileW : 0;            // columns a block (S = 0: blockDim.x)
+  static constexpr int kCols = S ? S / kPX : 1;         // threads a phase row
+  static constexpr int kZ = S * kCols;                  // threads a pixel
+  static constexpr int kPix = kTW * kTileH;             // pixels a block
+  static constexpr int kThreads = S ? kPix * kZ : 512;
+};
+
+// The general form's run-time shape (S = 0): the scale, the staged halo,
+// the phases of a block (grid z: phase groups) and the tap rows on the
+// card (the host table's, (ky, kx, aux) a row, copied to shared memory).
+struct General {
+  int s, halo, phases;
+  const int* rows;
+};
+
+// The general form's block, chosen by the host (kernels/merge_raw.py::
+// general_block, which sizes the shared bytes of the layouts here): tw x
+// th pixels x `phases` phases, grid z over `groups` of phases (the cells
+// forms: x 2, one tap-group pair a block), `chunk` frames staged at once
+// (forms 0 and 1) and the block's dynamic shared bytes.
+struct Block {
+  int tw, th, phases, groups, chunk, bytes;
 };
 
 struct TapTable {
@@ -326,9 +355,10 @@ __device__ __forceinline__ void store_cell(float* __restrict__ m00_out,
                                            float* __restrict__ cx_out,
                                            float* __restrict__ b0_out, long long plane,
                                            long long out_pix, int z, int py, int px, int c,
-                                           float m, float b, float w, float n1, float n2) {
-  const int row = (z >> 1) * S + py, col = (z & 1) * S + px;
-  const long long o = (((long long)row * 2 * S + col) * 3 + c) * plane + out_pix;
+                                           float m, float b, float w, float n1, float n2, int s_rt = 0) {
+  const int sc = S ? S : s_rt;  // S = 0: the general form's run-time scale
+  const int row = (z >> 1) * sc + py, col = (z & 1) * sc + px;
+  const long long o = (((long long)row * 2 * sc + col) * 3 + c) * plane + out_pix;
   m00_out[o] = m;
   b0_out[o] = b;
   if constexpr (kChains) {
@@ -350,17 +380,56 @@ __device__ __forceinline__ int rb_slot(int q) {
 // order), then added to m00 and b0 and, with the chains, to the pair's
 // green chain (0) and the group's R/B chain (1 + k). The resident and the
 // streamed forms of merge_raw_kernel share it.
+// A tap row of the general form's table in shared memory: ky in the high
+// 16 bits, kx in the low.
+__device__ __forceinline__ int2 unpack_tap(int r) { return make_int2(r >> 16, (int)(short)(r & 0xffff)); }
+
+// exp(-1/2 q), q = (dx^2 o.x + dy2 o.y) + 2 dx dy o.z, dy2 = dy^2: q in the
+// plain version's products and sums, each rounded where it rounds them,
+// then 2^(q * -1/2 log2(e)) by ex2.approx (chip_smoke.py's S = 5 check,
+// 128 x 256, NVIDIA H100 80GB HBM3, 700.00 W: 3.3e-6 from the plain
+// version's centroids, against 1.28e-5 with the templated exponent and
+// 2.0e-6 with expf, which cost the form 17% more time)
+__device__ __forceinline__ float gauss_plain(float dx, float dy, float dy2, float3 o) {
+  const float q = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(dx, dx), o.x), __fmul_rn(dy2, o.y)),
+                            __fmul_rn(__fmul_rn(__fmul_rn(2.0f, dx), dy), o.z));
+  return exp2_approx(__fmul_rn(q, -0.72134752044448170368f));
+}
+
+// The general form (S = 0) passes its run-time staged row length sw_rt,
+// plane sites sa_rt, pixels a block pix_rt, scale s_rt and the tap rows
+// s_rows; the templated forms' are compile-time. With the chains it also
+// passes the two inverse covariances as read (om_g, om_rb): its weights'
+// quadratic and its chain sums take the plain version's roundings
+// (gauss_plain, no contracted products), since a centroid divides chain
+// sums that cancel and their rounding grows with S (S = 5: 1.1-1.3e-5
+// from the plain version at 4 of 9.8 M values with the templated
+// arithmetic).
 template <int S, int kHalo, bool kGreenDiag, bool kChains, int kPX>
 __device__ __forceinline__ void add_group_taps(
     const TapTable& taps, int g, int k, int nf, const float2* my_res, const float2* my_sv,
     float phi_y, float phis_y, const float (&phi_x)[kPX], float og0, float og1, float og2,
     float or0, float or1, float or2, float (&m00)[4][2][kPX], float (&b0)[4][2][kPX],
-    float (&cw)[3][kPX], float (&c1)[3][kPX], float (&c2)[3][kPX]) {
-  constexpr int kSW = kTileW + 2 * kHalo;
-  constexpr int kSA = (Shape<S>::kTileH + 2 * kHalo) * kSW;
-  constexpr int kPix = Shape<S>::kPix;
+    float (&cw)[3][kPX], float (&c1)[3][kPX], float (&c2)[3][kPX],
+    int sw_rt = 0, int sa_rt = 0, int pix_rt = 0, int s_rt = 0, const int* s_rows = nullptr,
+    float3 om_g = float3{}, float3 om_rb = float3{}) {
+  constexpr bool kPlainChains = S == 0 && kChains;
+  constexpr int kSWc = kTileW + 2 * kHalo;
+  constexpr int kSAc = (Shape<S>::kTileH + 2 * kHalo) * kSWc;
+  const int kSW = S ? kSWc : sw_rt;
+  const int kSA = S ? kSAc : sa_rt;
+  const int kPix = S ? Shape<S>::kPix : pix_rt;
+  const float sf = S ? (float)S : (float)s_rt;
   for (int t = g ? taps.group_end[g - 1] : 0; t < taps.group_end[g]; ++t) {
-    const int kyi = taps.ky[t], kxi = taps.kx[t];
+    int kyi, kxi;
+    if constexpr (S != 0) {
+      kyi = taps.ky[t];
+      kxi = taps.kx[t];
+    } else {
+      const int2 kk = unpack_tap(s_rows[t]);
+      kyi = kk.x;
+      kxi = kk.y;
+    }
     const float ky = (float)kyi, kx = (float)kxi;
     int off[4];
 #pragma unroll
@@ -378,13 +447,29 @@ __device__ __forceinline__ void add_group_taps(
 #pragma unroll 2
     for (int f = 0; f < nf; ++f) {
       const float2 res = my_res[f * kPix];
-      const float dy = (ky - res.x) * (float)S - phis_y;
+      float wg[kPX], wr[kPX];
+      if constexpr (kPlainChains) {
+#pragma unroll
+        for (int px = 0; px < kPX; ++px) {
+          const float dy = __fsub_rn(__fmul_rn(ky - res.x, sf), phis_y);
+          const float dx = __fsub_rn(__fmul_rn(kx - res.y, sf), __fmul_rn(phi_x[px], sf));
+          const float dy2 = __fmul_rn(dy, dy);
+          wg[px] = gauss_plain(dx, dy, dy2, om_g);
+          wr[px] = gauss_plain(dx, dy, dy2, om_rb);
+          sw_g[px] += wg[px];
+          sry_g[px] = __fadd_rn(sry_g[px], __fmul_rn(res.x, wg[px]));
+          srx_g[px] = __fadd_rn(srx_g[px], __fmul_rn(res.y, wg[px]));
+          sw_r[px] += wr[px];
+          sry_r[px] = __fadd_rn(sry_r[px], __fmul_rn(res.x, wr[px]));
+          srx_r[px] = __fadd_rn(srx_r[px], __fmul_rn(res.y, wr[px]));
+        }
+      } else {
+      const float dy = (ky - res.x) * sf - phis_y;
       const float dyy = dy * dy;
       const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
-      float wg[kPX], wr[kPX];
 #pragma unroll
       for (int px = 0; px < kPX; ++px) {
-        const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
+        const float dx = (kx - res.y) * sf - phi_x[px] * sf;
         wg[px] = exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy));
         wr[px] = exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy));
         if constexpr (kChains) {
@@ -395,6 +480,7 @@ __device__ __forceinline__ void add_group_taps(
           sry_r[px] += res.x * wr[px];
           srx_r[px] += res.y * wr[px];
         }
+      }
       }
       const float2* fsv = my_sv + f * 4 * kSA;
 #pragma unroll
@@ -416,22 +502,32 @@ __device__ __forceinline__ void add_group_taps(
         m00[z][k][px] += sm[z][px];
         b0[z][k][px] += sb[z][px];
       }
-      if constexpr (kChains) {
+      if constexpr (kPlainChains) {
         cw[0][px] += sw_g[px];
-        c1[0][px] += (float)S * ((ky - phi_y) * sw_g[px] - sry_g[px]);
-        c2[0][px] += (float)S * ((kx - phi_x[px]) * sw_g[px] - srx_g[px]);
+        c1[0][px] += __fmul_rn(sf, __fsub_rn(__fmul_rn(ky - phi_y, sw_g[px]), sry_g[px]));
+        c2[0][px] += __fmul_rn(sf, __fsub_rn(__fmul_rn(kx - phi_x[px], sw_g[px]), srx_g[px]));
         cw[1 + k][px] += sw_r[px];
-        c1[1 + k][px] += (float)S * ((ky - phi_y) * sw_r[px] - sry_r[px]);
-        c2[1 + k][px] += (float)S * ((kx - phi_x[px]) * sw_r[px] - srx_r[px]);
+        c1[1 + k][px] += __fmul_rn(sf, __fsub_rn(__fmul_rn(ky - phi_y, sw_r[px]), sry_r[px]));
+        c2[1 + k][px] += __fmul_rn(sf, __fsub_rn(__fmul_rn(kx - phi_x[px], sw_r[px]), srx_r[px]));
+      } else if constexpr (kChains) {
+        cw[0][px] += sw_g[px];
+        c1[0][px] += sf * ((ky - phi_y) * sw_g[px] - sry_g[px]);
+        c2[0][px] += sf * ((kx - phi_x[px]) * sw_g[px] - srx_g[px]);
+        cw[1 + k][px] += sw_r[px];
+        c1[1 + k][px] += sf * ((ky - phi_y) * sw_r[px] - sry_r[px]);
+        c2[1 + k][px] += sf * ((kx - phi_x[px]) * sw_r[px] - srx_r[px]);
       }
     }
   }
 }
 
 // kChains: form 0 (the certless centroid chains); without them form 1,
-// in float32 or (kBf16) in bfloat16. kStream (float32 forms): the frames
-// in chunks of `chunk` (the most that fit shared memory at once), each
-// staged in turn for each tap-group pair, so any number of frames runs.
+// in float32 or (kBf16) in bfloat16. kStream: the frames in chunks of
+// `chunk` (the most that fit shared memory at once), each staged in turn
+// for each tap-group pair (the bfloat16 order 0: for each pass of kPass
+// taps), so any number of frames runs. S = 0 (the general form, kStream
+// only, kHalo 0): the scale, halo, phases and tap rows of `gen` at run
+// time, the tile blockDim.x x blockDim.y pixels; one chunk is staged once.
 template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16, bool kStream = false>
 __global__ void __launch_bounds__(Shape<S>::kThreads, Layout<S>::kMinBlocks)
 merge_raw_kernel(const float* __restrict__ planes,
@@ -441,23 +537,46 @@ merge_raw_kernel(const float* __restrict__ planes,
                  const float* __restrict__ omega_rb,
                  float* __restrict__ m00_out, float* __restrict__ cy_out,
                  float* __restrict__ cx_out, float* __restrict__ b0_out,
-                 int frames, int hh, int hw, float rb, const TapTable taps, int chunk) {
+                 int frames, int hh, int hw, float rb, const TapTable taps, int chunk,
+                 const General gen) {
   using L = Shape<S>;
-  constexpr int kPX = L::kPX, kTileH = L::kTileH, kPix = L::kPix, kThreads = L::kThreads;
-  constexpr int kSW = kTileW + 2 * kHalo;          // staged row length
-  constexpr int kSA = (kTileH + 2 * kHalo) * kSW;  // staged sites per plane
-  static_assert(!(kStream && kBf16), "the streamed form is the float32 forms'");
+  constexpr bool kGeneral = S == 0;
+  constexpr int kPX = L::kPX;
+  const int kTW = kGeneral ? (int)blockDim.x : L::kTW;
+  static_assert(kGeneral ? kStream && kHalo == 0 : !(kStream && kBf16),
+                "the templated streamed form is the float32 forms'; the general form streams every form");
+  const int sc = kGeneral ? gen.s : S;
+  const int halo = kGeneral ? gen.halo : kHalo;
+  const int kTileH = kGeneral ? (int)blockDim.y : L::kTileH;
+  const int kPix = kGeneral ? kTW * kTileH : L::kPix;
+  const int kThreads = kGeneral ? kPix * (int)blockDim.z : L::kThreads;
+  const int kSW = kTW + 2 * halo;                  // staged row length
+  const int kSA = (kTileH + 2 * halo) * kSW;       // staged sites per plane
   const int staged = kStream ? chunk : frames;     // frames resident at once
   extern __shared__ float2 smem[];
   float2* sv = smem;                               // (F, 4, kSA): value, cert
   float2* sres = smem + (size_t)staged * 4 * kSA;  // (F, kPix): ry, rx
+  // the general form's tap rows: by group (s_rows), and in list order
+  // (s_list, the bfloat16 order 0's)
+  int* s_rows = reinterpret_cast<int*>(sres + (size_t)staged * kPix);
+  int* s_list = s_rows + taps.group_end[3];
 
   const int tx = threadIdx.x, ty = threadIdx.y, zz = threadIdx.z;
-  const int py = zz / L::kCols;                  // the thread's phase row
-  const int px0 = (zz % L::kCols) * kPX;         // its first phase column
-  const int tid = (zz * kTileH + ty) * kTileW + tx;
-  const int i0 = blockIdx.y * kTileH, j0 = blockIdx.x * kTileW;
+  // the thread's phase row and first phase column (the general form: its
+  // phase, from grid z's group)
+  const int ph = kGeneral ? blockIdx.z * gen.phases + zz : 0;
+  const int py = kGeneral ? ph / sc : zz / L::kCols;
+  const int px0 = kGeneral ? ph % sc : (zz % L::kCols) * kPX;
+  const int tid = (zz * kTileH + ty) * kTW + tx;
+  const int i0 = blockIdx.y * kTileH, j0 = blockIdx.x * kTW;
   const long long plane = (long long)hh * hw;
+  if constexpr (kGeneral) {
+    for (int t = tid; t < taps.group_end[3]; t += kThreads) {
+      const int ky = gen.rows[3 * t], kx = gen.rows[3 * t + 1], n = gen.rows[3 * t + 2] >> 1;
+      s_rows[t] = s_list[n] = (ky << 16) | (kx & 0xffff);
+    }
+    __syncthreads();
+  }
 
   // stages frames [f0, f0 + nf) into the first nf slots: the tile and
   // halo, edge-clamped, and the clipped residual; each site's value
@@ -469,8 +588,8 @@ merge_raw_kernel(const float* __restrict__ planes,
       const int fq = e / kSA;
       const int q = fq & 3;
       const int f = f0 + (fq >> 2);
-      const int r = min(max(i0 - kHalo + site / kSW, 0), hh - 1);
-      const int c = min(max(j0 - kHalo + site % kSW, 0), hw - 1);
+      const int r = min(max(i0 - halo + site / kSW, 0), hh - 1);
+      const int c = min(max(j0 - halo + site % kSW, 0), hw - 1);
       const long long rc = (long long)r * hw + c;
       cp_async4(&sv[e].x, planes + ((long long)f * 4 + q) * plane + rc);
       cp_async4(&sv[e].y, certainty + ((long long)f * plane + rc) * 3 + taps.chan[q]);
@@ -478,8 +597,8 @@ merge_raw_kernel(const float* __restrict__ planes,
     for (int e = tid; e < nf * kPix; e += kThreads) {
       const int p = e % kPix;
       const int f = f0 + e / kPix;
-      const int r = min(i0 + p / kTileW, hh - 1);
-      const int c = min(j0 + p % kTileW, hw - 1);
+      const int r = min(i0 + p / kTW, hh - 1);
+      const int c = min(j0 + p % kTW, hw - 1);
       cp_async8(&sres[e], residual + ((long long)f * plane + (long long)r * hw + c) * 2);
     }
     asm volatile("cp.async.commit_group;\n" ::);
@@ -500,17 +619,17 @@ merge_raw_kernel(const float* __restrict__ planes,
   if constexpr (!kStream) stage(0, frames);  // every frame at once
 
   const int i = i0 + ty, j = j0 + tx;
-  const bool inside = i < hh && j < hw;
+  const bool inside = i < hh && j < hw && (!kGeneral || ph < sc * sc);
   const long long pix = (long long)min(i, hh - 1) * hw + min(j, hw - 1);
   const long long out_pix = (long long)i * hw + j;
   // phi[p] = (p + 0.5) / s - 0.5 in the f32 operations of
   // fast_merge._output_phase_offsets; phis = phi * s. The x phases are
   // the thread's kPX columns (constants where one thread holds a row).
-  const float phi_y = ((float)py + 0.5f) / (float)S - 0.5f;
-  const float phis_y = phi_y * (float)S;
+  const float phi_y = ((float)py + 0.5f) / (float)sc - 0.5f;
+  const float phis_y = phi_y * (float)sc;
   float phi_x[kPX];
 #pragma unroll
-  for (int p = 0; p < kPX; ++p) phi_x[p] = ((float)(px0 + p) + 0.5f) / (float)S - 0.5f;
+  for (int p = 0; p < kPX; ++p) phi_x[p] = ((float)(px0 + p) + 0.5f) / (float)sc - 0.5f;
   // exp(q) = 2^(q log2 e): -1/2 log2(e) and the cross term's -log2(e)
   // folded into omega, so w = 2^(dx (dx o0 + dy o2) + dy^2 o1)
   constexpr float kL = 1.4426950408889634f;  // log2(e)
@@ -518,8 +637,8 @@ merge_raw_kernel(const float* __restrict__ planes,
               og2 = -kL * omega[pix * 3 + 2];
   const float or0 = -0.5f * kL * omega_rb[pix * 3 + 0],
               or1 = -0.5f * kL * omega_rb[pix * 3 + 1], or2 = -kL * omega_rb[pix * 3 + 2];
-  const float2* my_res = sres + ty * kTileW + tx;
-  const float2* my_sv = sv + (ty + kHalo) * kSW + (tx + kHalo);
+  const float2* my_res = sres + ty * kTW + tx;
+  const float2* my_sv = sv + (ty + halo) * kSW + (tx + halo);
 
   if constexpr (kBf16) {
     // bfloat16 order 0 in the jitted JAX function's rounding: the taps in
@@ -538,58 +657,154 @@ merge_raw_kernel(const float* __restrict__ planes,
 #pragma unroll
         for (int px = 0; px < kPX; ++px) acc[z][k][px] = __float2bfloat162_rn(0.0f);
     const int n_taps = taps.group_end[3];
-#pragma unroll 1
-    for (int n = 0; n < n_taps; ++n) {
-      const int t = taps.order[n];
-      const int kyi = taps.ky[t], kxi = taps.kx[t];
-      const int g = 2 * (kyi & 1) + (kxi & 1);
-      const float ky = (float)kyi, kx = (float)kxi;
-      int off[4];
-      bool green[4];
-#pragma unroll
-      for (int z = 0; z < 4; ++z) {
-        off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
-        green[z] = is_green<kGreenDiag>(plane_of(z, g));
-      }
-      float sm[4][kPX], sb[4][kPX];
-#pragma unroll
-      for (int z = 0; z < 4; ++z)
-#pragma unroll
-        for (int px = 0; px < kPX; ++px) sm[z][px] = sb[z][px] = 0.0f;
-#pragma unroll 2
-      for (int f = 0; f < frames; ++f) {
-        const float2 res = my_res[f * kPix];
-        const float dy = (ky - res.x) * (float)S - phis_y;
-        const float dyy = dy * dy;
-        const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
-        float wg[kPX], wr[kPX];  // rounded to bfloat16
-#pragma unroll
-        for (int px = 0; px < kPX; ++px) {
-          const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
-          wg[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy))));
-          wr[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy))));
-        }
-        const float2* fsv = my_sv + f * 4 * kSA;
+    if constexpr (kGeneral) {
+      // the general form's passes: tap (kyi, kxi)'s frame sums over the nf
+      // staged frames, added to sm and sb, per parity and x phase (the
+      // templated loop below, its frames inside each tap)
+      const auto tap_frames = [&](int kyi, int kxi, int nf, float (&sm)[4][kPX], float (&sb)[4][kPX]) {
+        const int g = 2 * (kyi & 1) + (kxi & 1);
+        const float ky = (float)kyi, kx = (float)kxi;
+        int off[4];
+        bool green[4];
 #pragma unroll
         for (int z = 0; z < 4; ++z) {
-          const float2 vc = fsv[off[z]];  // (value, certainty), bfloat16 values
+          off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
+          green[z] = is_green<kGreenDiag>(plane_of(z, g));
+        }
+#pragma unroll 2
+        for (int f = 0; f < nf; ++f) {
+          const float2 res = my_res[f * kPix];
+          const float dy = (ky - res.x) * (float)sc - phis_y;
+          const float dyy = dy * dy;
+          const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
+          float wg[kPX], wr[kPX];  // rounded to bfloat16
 #pragma unroll
           for (int px = 0; px < kPX; ++px) {
-            const float wc = (green[z] ? wg[px] : wr[px]) * vc.y;  // exact
-            sm[z][px] += wc;
-            sb[z][px] += __bfloat162float(__float2bfloat16_rn(wc)) * vc.x;  // exact product
+            const float dx = (kx - res.y) * (float)sc - phi_x[px] * (float)sc;
+            wg[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy))));
+            wr[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy))));
+          }
+          const float2* fsv = my_sv + f * 4 * kSA;
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            const float2 vc = fsv[off[z]];  // (value, certainty), bfloat16 values
+#pragma unroll
+            for (int px = 0; px < kPX; ++px) {
+              const float wc = (green[z] ? wg[px] : wr[px]) * vc.y;  // exact
+              sm[z][px] += wc;
+              sb[z][px] += __bfloat162float(__float2bfloat16_rn(wc)) * vc.x;  // exact product
+            }
+          }
+        }
+      };
+      // a tap's sums rounded to bfloat16 and added to its cells
+      const auto add_tap = [&](int kyi, int kxi, const float (&sm)[4][kPX], const float (&sb)[4][kPX]) {
+        const int g = 2 * (kyi & 1) + (kxi & 1);
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const int slot = rb_slot<kGreenDiag>(plane_of(z, g));
+#pragma unroll
+          for (int px = 0; px < kPX; ++px) {
+            const __nv_bfloat162 sum = __floats2bfloat162_rn(sb[z][px], sm[z][px]);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              if (slot == k) acc[z][k][px] = __hadd2(acc[z][k][px], sum);
+            }
+          }
+        }
+      };
+      // kPass taps at a time in the list's order, their frame sums kept
+      // across the chunks (each chunk staged once a pass; one chunk once)
+      constexpr int kPass = 4;
+      const bool one_chunk = frames <= chunk;
+      if (one_chunk) stage(0, frames);
+#pragma unroll 1
+      for (int n0 = 0; n0 < n_taps; n0 += kPass) {
+        float sm[kPass][4][kPX], sb[kPass][4][kPX];
+#pragma unroll
+        for (int b = 0; b < kPass; ++b)
+#pragma unroll
+          for (int z = 0; z < 4; ++z) sm[b][z][0] = sb[b][z][0] = 0.0f;
+#pragma unroll 1
+        for (int f0 = 0; f0 < frames; f0 += chunk) {
+          if (!one_chunk) {
+            __syncthreads();
+            stage(f0, min(chunk, frames - f0));
+          }
+#pragma unroll
+          for (int b = 0; b < kPass; ++b) {
+            if (n0 + b < n_taps) {
+              const int2 kk = unpack_tap(s_list[n0 + b]);
+              // the chunk's frames start at my_res / my_sv's frame 0
+              tap_frames(kk.x, kk.y, min(chunk, frames - f0), sm[b], sb[b]);
+            }
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kPass; ++b) {
+          if (n0 + b < n_taps) {
+            const int2 kk = unpack_tap(s_list[n0 + b]);
+            add_tap(kk.x, kk.y, sm[b], sb[b]);
           }
         }
       }
+    } else {
+      // the general form's loop, kept apart from its lambdas: calling them
+      // here moved the S = 1 green-diagonal instantiations' ptxas registers
+      // (79 to 77), which the templated forms keep
+#pragma unroll 1
+      for (int n = 0; n < n_taps; ++n) {
+        const int t = taps.order[n];
+        const int kyi = taps.ky[t], kxi = taps.kx[t];
+        const int g = 2 * (kyi & 1) + (kxi & 1);
+        const float ky = (float)kyi, kx = (float)kxi;
+        int off[4];
+        bool green[4];
 #pragma unroll
-      for (int z = 0; z < 4; ++z) {
-        const int slot = rb_slot<kGreenDiag>(plane_of(z, g));
+        for (int z = 0; z < 4; ++z) {
+          off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
+          green[z] = is_green<kGreenDiag>(plane_of(z, g));
+        }
+        float sm[4][kPX], sb[4][kPX];
 #pragma unroll
-        for (int px = 0; px < kPX; ++px) {
-          const __nv_bfloat162 sum = __floats2bfloat162_rn(sb[z][px], sm[z][px]);
+        for (int z = 0; z < 4; ++z)
 #pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            if (slot == k) acc[z][k][px] = __hadd2(acc[z][k][px], sum);
+          for (int px = 0; px < kPX; ++px) sm[z][px] = sb[z][px] = 0.0f;
+#pragma unroll 2
+        for (int f = 0; f < frames; ++f) {
+          const float2 res = my_res[f * kPix];
+          const float dy = (ky - res.x) * (float)S - phis_y;
+          const float dyy = dy * dy;
+          const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
+          float wg[kPX], wr[kPX];  // rounded to bfloat16
+#pragma unroll
+          for (int px = 0; px < kPX; ++px) {
+            const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
+            wg[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy))));
+            wr[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy))));
+          }
+          const float2* fsv = my_sv + f * 4 * kSA;
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            const float2 vc = fsv[off[z]];  // (value, certainty), bfloat16 values
+#pragma unroll
+            for (int px = 0; px < kPX; ++px) {
+              const float wc = (green[z] ? wg[px] : wr[px]) * vc.y;  // exact
+              sm[z][px] += wc;
+              sb[z][px] += __bfloat162float(__float2bfloat16_rn(wc)) * vc.x;  // exact product
+            }
+          }
+        }
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const int slot = rb_slot<kGreenDiag>(plane_of(z, g));
+#pragma unroll
+          for (int px = 0; px < kPX; ++px) {
+            const __nv_bfloat162 sum = __floats2bfloat162_rn(sb[z][px], sm[z][px]);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              if (slot == k) acc[z][k][px] = __hadd2(acc[z][k][px], sum);
+            }
           }
         }
       }
@@ -603,7 +818,7 @@ merge_raw_kernel(const float* __restrict__ planes,
 #pragma unroll
           for (int px = 0; px < kPX; ++px) {
             store_cell<S, false>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, c,
-                                 __high2float(acc[z][k][px]), __low2float(acc[z][k][px]), 0.f, 0.f, 0.f);
+                                 __high2float(acc[z][k][px]), __low2float(acc[z][k][px]), 0.f, 0.f, 0.f, sc);
           }
         }
     }
@@ -638,7 +853,7 @@ merge_raw_kernel(const float* __restrict__ planes,
           for (int px = 0; px < kPX; ++px) {
             store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py,
                                    px0 + px, taps.chan[plane_of(z, g)], m00[z][k][px], b0[z][k][px],
-                                   cw[1 + k][px], c1[1 + k][px], c2[1 + k][px]);
+                                   cw[1 + k][px], c1[1 + k][px], c2[1 + k][px], sc);
           }
         }
       }
@@ -648,13 +863,17 @@ merge_raw_kernel(const float* __restrict__ planes,
       // last, for both groups of the pair
       for (int f0 = 0; f0 < frames; f0 += chunk) {
         const int nf = min(chunk, frames - f0);
-        __syncthreads();
-        stage(f0, nf);
+        if (!kGeneral || frames > chunk || pair == 0) {  // the general form stages one chunk once
+          __syncthreads();
+          stage(f0, nf);
+        }
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
           add_group_taps<S, kHalo, kGreenDiag, kChains, kPX>(
               taps, pair == 0 ? 3 * k : 1 + k, k, nf, my_res, my_sv, phi_y, phis_y, phi_x, og0, og1, og2,
-              or0, or1, or2, m00, b0, cw, c1, c2);
+              or0, or1, or2, m00, b0, cw, c1, c2, kSW, kSA, kPix, sc, s_rows,
+              make_float3(omega[pix * 3], omega[pix * 3 + 1], omega[pix * 3 + 2]),
+              make_float3(omega_rb[pix * 3], omega_rb[pix * 3 + 1], omega_rb[pix * 3 + 2]));
         }
       }
 #pragma unroll
@@ -678,7 +897,7 @@ merge_raw_kernel(const float* __restrict__ planes,
         for (int px = 0; px < kPX; ++px) {
           store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, 1,
                                  m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px],
-                                 cw[0][px], c1[0][px], c2[0][px]);
+                                 cw[0][px], c1[0][px], c2[0][px], sc);
         }
       }
     }
@@ -721,14 +940,21 @@ template <>
 struct CellTile<4, 2> {
   static constexpr int kTW = 8, kTH = 2;
 };
+// S = 0, the general form: 8 x 1 pixels, one pair a thread, a group of
+// phases (General::phases, padded to the warp's 4) a block, at most 512
+// threads (128 registers)
+template <>
+struct CellTile<0, 1> {
+  static constexpr int kTW = 8, kTH = 1;
+};
 
 template <int S, int kSlots>
 struct CellShape {
-  static constexpr int kPairs = kSlots != 4 || S == 3 ? 1 : 2;
+  static constexpr int kPairs = kSlots != 4 || S == 3 || S == 0 ? 1 : 2;
   static constexpr int kTW = CellTile<S, kPairs>::kTW, kTH = CellTile<S, kPairs>::kTH;
   static constexpr int kPix = kTW * kTH;
   static constexpr int kPL = 32 / kTW;  // phases a warp holds
-  static constexpr int kThreads = (2 / kPairs) * S * S * kPix;
+  static constexpr int kThreads = S ? (2 / kPairs) * S * S * kPix : 512;
   static constexpr int kMinBlocks = std::max(1, 65536 / (kThreads * 128));  // 128 registers
   // one ring stage, sized for the largest halo (2): the four planes'
   // (value, certainty) sites and the residual with a one-site halo
@@ -826,31 +1052,62 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
                        const float* __restrict__ omega_rb,
                        float* __restrict__ out,
                        int frames, int hh, int hw, int halo, float rb, int green_diag,
-                       int block, const TapTable taps) {
+                       int block, const TapTable taps, const General gen) {
   using L = CellShape<S, kSlots>;
-  constexpr int kTW = L::kTW, kTH = L::kTH, kThreads = L::kThreads;
+  constexpr bool kGeneral = S == 0;  // the scale, phases and tap rows of gen at run time
+  constexpr int kTW = L::kTW, kTH = L::kTH;
   constexpr int kPairs = L::kPairs, kRW = L::kResW;
   constexpr int kOut = kSlots == 6 ? 4 : kSlots;  // the slots stored
   static_assert(kSlots == 4 || kSlots == 6 || kSlots == 9, "the plugin's 4 (6) moments or the exact solve's 9");
   static_assert(!kCBf16 || kSlots == 4, "bfloat16 centroid products are the compact-rho form's");
   static_assert(!kPrune || kSlots != 9, "the pruned centroid is the per-cell form's");
-  static_assert(S * S % L::kPL == 0, "a warp holds phases of one pair");
-  __shared__ float2 ring[kRing][L::kStage];
+  static_assert(kGeneral || S * S % L::kPL == 0, "a warp holds phases of one pair");
+  const int sc = kGeneral ? gen.s : S;
+  const int kThreads = kGeneral ? (int)blockDim.x : L::kThreads;
+  __shared__ float2 ring_s[kGeneral ? 1 : kRing][kGeneral ? 1 : L::kStage];
   // [flip][tap]: (S ky, S kx, the staged offset z' = 0 reads as int bits)
-  __shared__ float4 s_tap[2][kMaxTaps];
+  __shared__ float4 s_tap_s[2][kGeneral ? 1 : kMaxTaps];
   // [flip][group]: the offsets z' = 1, 2, 3 read, from z' = 0's (.x = 0)
   __shared__ int4 s_dz[2][4];
 
   const int sw = kTW + 2 * halo;                  // staged row length
   const int sa = (kTH + 2 * halo) * sw;           // staged sites per plane
+  // the ring's stage: sized for the largest halo (2), or the general
+  // form's own, in dynamic shared memory with its tap table after it
+  const int plane_sites = kGeneral ? sa : L::kPlaneSites;
+  const int stage_sz = kGeneral ? 4 * sa + L::kResSites : L::kStage;
+  const int tap_row = taps.group_end[3];  // the general form's
+  extern __shared__ float2 smem[];
+  // frame f's ring slot, and relabelling fl's tap rows
+  const auto ring = [&](int f) -> float2* {
+    if constexpr (kGeneral) {
+      return smem + (f % kRing) * stage_sz;
+    } else {
+      return ring_s[f % kRing];
+    }
+  };
+  const auto s_tap = [&](int fl) -> float4* {
+    if constexpr (kGeneral) {
+      return reinterpret_cast<float4*>(smem + ((kRing * stage_sz + 1) & ~1)) + fl * tap_row;
+    } else {
+      return s_tap_s[fl];
+    }
+  };
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // a warp: pixel row ty, kPL phases of one pair (with one pair a thread,
-  // groups {0, 3} or {1, 2})
-  constexpr int kPL = L::kPL, kPhaseWarps = S * S / kPL;
+  // groups {0, 3} or {1, 2}). The general form's block holds gen.phases
+  // phases (padded to kPL), its first phase 0 in every group (the shared
+  // centroid's anchor; stored by group 0 alone), then the group's share.
+  constexpr int kPL = L::kPL;
+  const int kPhaseWarps = kGeneral ? (gen.phases + kPL - 1) / kPL : S * S / kPL;
   const int tx = lane % kTW, ty = warp % kTH;
-  const int ph = (warp / kTH) % kPhaseWarps * kPL + lane / kTW;
-  const int pair1 = kPairs == 2 ? 0 : warp / (kTH * kPhaseWarps);
-  const int py = ph / S, px = ph % S;
+  const int ph_local = (warp / kTH) % kPhaseWarps * kPL + lane / kTW;
+  // the general form: grid z = (phase group, pair), one pair a block
+  const int zg = kGeneral ? (int)blockIdx.z >> 1 : 0;
+  const int ph = !kGeneral || ph_local == 0 ? ph_local : 1 + zg * (gen.phases - 1) + ph_local - 1;
+  const bool stores = !kGeneral || (ph_local < gen.phases && ph < sc * sc && (ph_local > 0 || zg == 0));
+  const int pair1 = kPairs == 2 ? 0 : (kGeneral ? (int)blockIdx.z & 1 : warp / (kTH * kPhaseWarps));
+  const int py = ph / sc, px = ph % sc;
   const int i0 = blockIdx.y * kTH, j0 = blockIdx.x * kTW;
   const long long plane = (long long)hh * hw;
   const int n_taps = taps.group_end[3];
@@ -861,9 +1118,9 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
   // fixed offsets from each other, so a tap carries z' = 0's alone.
   for (int e = tid; e < 2 * n_taps; e += kThreads) {
     const int t = e >> 1, fl = e & 1;
-    const int ky = taps.ky[t], kx = taps.kx[t];
+    const int ky = kGeneral ? gen.rows[3 * t] : taps.ky[t], kx = kGeneral ? gen.rows[3 * t + 1] : taps.kx[t];
     const int o0 = staged_offset(fl, 2 * (ky & 1) + (kx & 1), ky, kx, sa, sw);
-    s_tap[fl][t] = make_float4((float)(S * ky), (float)(S * kx), __int_as_float(o0), 0.0f);
+    s_tap(fl)[t] = make_float4((float)(sc * ky), (float)(sc * kx), __int_as_float(o0), 0.0f);
   }
   if (tid < 8) {
     const int fl = tid >> 2, g = tid & 3;
@@ -877,21 +1134,38 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
   // global site index (edge-clamped like the plain version's padding), or
   // -1. It copies each plane's (value, certainty of the plane's channel)
   // there and the residual with a one-site halo into frame f's ring slot.
-  int g_site[L::kSitesPT], g_res[L::kResPT];
+  int g_site[kGeneral ? 1 : L::kSitesPT], g_res[kGeneral ? 1 : L::kResPT];
 #pragma unroll
-  for (int n = 0; n < L::kSitesPT; ++n) {
+  for (int n = 0; n < (kGeneral ? 0 : L::kSitesPT); ++n) {
     const int site = tid + n * kThreads, r = site / sw, c = site - r * sw;
     g_site[n] = site < sa ? min(max(i0 - halo + r, 0), hh - 1) * hw + min(max(j0 - halo + c, 0), hw - 1) : -1;
   }
 #pragma unroll
-  for (int n = 0; n < L::kResPT; ++n) {
+  for (int n = 0; n < (kGeneral ? 0 : L::kResPT); ++n) {
     const int e = tid + n * kThreads, r = e / kRW, c = e - r * kRW;
     g_res[n] = e < L::kResSites ? min(max(i0 - 1 + r, 0), hh - 1) * hw + min(max(j0 - 1 + c, 0), hw - 1) : -1;
   }
   auto stage = [&](int f) {
-    float2* st = ring[f % kRing];
+    float2* st = ring(f);
     const float* pf = planes + (long long)f * 4 * plane;
     const float* cf = certainty + (long long)f * 3 * plane;
+    if constexpr (kGeneral) {  // the sites' indices formed each frame
+      const float2* rf = reinterpret_cast<const float2*>(residual) + (long long)f * plane;
+      for (int site = tid; site < sa; site += kThreads) {
+        const int r = site / sw, c = site - r * sw;
+        const int gs = min(max(i0 - halo + r, 0), hh - 1) * hw + min(max(j0 - halo + c, 0), hw - 1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          cp_async4(&st[q * sa + site].x, pf + q * plane + gs);
+          cp_async4(&st[q * sa + site].y, cf + 3 * (long long)gs + taps.chan[q]);
+        }
+      }
+      for (int e = tid; e < L::kResSites; e += kThreads) {
+        const int r = e / kRW, c = e - r * kRW;
+        cp_async8(st + 4 * sa + e, rf + min(max(i0 - 1 + r, 0), hh - 1) * hw + min(max(j0 - 1 + c, 0), hw - 1));
+      }
+      return;
+    }
 #pragma unroll
     for (int n = 0; n < L::kSitesPT; ++n) {
       if (g_site[n] < 0) continue;
@@ -917,9 +1191,9 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
   const long long pix = (long long)min(i, hh - 1) * hw + min(j, hw - 1);
   // phi[p] = (p + 0.5) / s - 0.5 in the f32 operations of
   // fast_merge._output_phase_offsets
-  const float phi_y = ((float)py + 0.5f) / (float)S - 0.5f;
-  const float phi_x = ((float)px + 0.5f) / (float)S - 0.5f;
-  const float phis_y = phi_y * (float)S, phis_x = phi_x * (float)S;
+  const float phi_y = ((float)py + 0.5f) / (float)sc - 0.5f;
+  const float phi_x = ((float)px + 0.5f) / (float)sc - 0.5f;
+  const float phis_y = phi_y * (float)sc, phis_x = phi_x * (float)sc;
   // the parity-interpolated residual's blend weight with the
   // neighbouring block: parity 0 blends the block before (g < 0 at every
   // phase), parity 1 the block after
@@ -931,7 +1205,7 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
   const float or0 = -0.5f * kL * omega_rb[pix * 3 + 0],
               or1 = -0.5f * kL * omega_rb[pix * 3 + 1], or2 = -kL * omega_rb[pix * 3 + 2];
   const int my_site = (ty + halo) * sw + (tx + halo);
-  const int my_res = 4 * L::kPlaneSites + (ty + 1) * kRW + (tx + 1);
+  const int my_res = 4 * plane_sites + (ty + 1) * kRW + (tx + 1);
 
   float acc[6 * kPairs][kSlots];
 #pragma unroll
@@ -947,7 +1221,7 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
     if (f + 2 < frames) stage(f + 2);
     asm volatile("cp.async.commit_group;\n" ::);
 
-    const float2* st = ring[f % kRing];
+    const float2* st = ring(f);
     const float2 res = st[my_res];
     const float ry = fminf(fmaxf(res.x, -rb), rb), rx = fminf(fmaxf(res.y, -rb), rb);
     const float ry_a = fminf(fmaxf(st[my_res - kRW].x, -rb), rb);
@@ -959,9 +1233,9 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
     const float ry1 = fminf(fmaxf((1.0f - ga_y1) * ry + ga_y1 * ry_b, -rb), rb) + phi_y;
     const float rx0 = fminf(fmaxf((1.0f - ga_x0) * rx + ga_x0 * rx_a, -rb), rb) + phi_x;
     const float rx1 = fminf(fmaxf((1.0f - ga_x1) * rx + ga_x1 * rx_b, -rb), rb) + phi_x;
-    const float sy0 = (float)S * ry0, sy1 = (float)S * ry1, sx0 = (float)S * rx0, sx1 = (float)S * rx1;
+    const float sy0 = (float)sc * ry0, sy1 = (float)sc * ry1, sx0 = (float)sc * rx0, sx1 = (float)sc * rx1;
     // the weights' block-centre displacement: dy_w = S ky - (S ry + S phi)
-    const float wy = fmaf(ry, (float)S, phis_y), wx = fmaf(rx, (float)S, phis_x);
+    const float wy = fmaf(ry, (float)sc, phis_y), wx = fmaf(rx, (float)sc, phis_x);
     // the moments' displacement origins: S rho per parity, the block
     // centre's S (ry + phi), or (shared residual) S phi alone, the
     // residual entering through the folded sums
@@ -990,7 +1264,7 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
         rxb0 = bf(flip ? rx1 : rx0);
         rxb1 = bf(flip ? rx0 : rx1);
       }
-      const float4* tab = s_tap[flip];
+      const float4* tab = s_tap(flip);
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         const int g = pair ? 1 + k : 3 * k;
@@ -1031,7 +1305,7 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
               cells[z][3] += wcs[z] * vs[z];
             }
           } else if constexpr (kCBf16) {
-            const float ns = -(float)S;
+            const float ns = -(float)sc;
             add_moments_cbf16(a0, wc0, v0.x, kk.x, kk.y, ns, ryb0, rxb0);
             add_moments_cbf16(a1, wc1, v1.x, kk.x, kk.y, ns, ryb0, rxb1);
             add_moments_cbf16(a2, wc2, v2.x, kk.x, kk.y, ns, ryb1, rxb0);
@@ -1062,7 +1336,7 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
     // 0 and keeps its zero m01, m02, as the JAX function skips it.
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
-    float* xs = reinterpret_cast<float*>(&ring[0][0]);
+    float* xs = reinterpret_cast<float*>(ring(0));
     const int pix = ty * kTW + tx;
     if (ph == 0) {
 #pragma unroll
@@ -1077,14 +1351,14 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
       const float* x0 = xs + (pair1 * 6 + c) * 3 * L::kPix + pix;
       const float m0 = x0[0], r0y = x0[L::kPix], r0x = x0[2 * L::kPix];
       const float inv0 = m0 > 1e-8f ? 1.0f / fmaxf(m0, 1e-8f) : 0.0f;
-      acc[c][1] -= (float)S * r0y * inv0 * acc[c][0];
-      acc[c][2] -= (float)S * r0x * inv0 * acc[c][0];
+      acc[c][1] -= (float)sc * r0y * inv0 * acc[c][0];
+      acc[c][2] -= (float)sc * r0x * inv0 * acc[c][0];
     }
   }
-  if (i >= hh || j >= hw) return;
+  if (i >= hh || j >= hw || !stores) return;
 
   // stores: each warp writes rows of kTW consecutive pixels of a plane
-  const long long slot = (long long)4 * S * S * 3 * plane;
+  const long long slot = (long long)4 * sc * sc * 3 * plane;
   const long long out_pix = (long long)i * hw + j;
 #pragma unroll
   for (int pp = 0; pp < kPairs; ++pp) {
@@ -1096,25 +1370,68 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
       const int zp = c == 0 ? 0 : (c == 1 ? 3 : (c < 4 ? 1 : 2)), k = c < 2 ? 0 : c % 2;
       const int z = zp ^ flip;
       const int ch = c < 2 ? 1 : taps.chan[z ^ (pair ? 1 + k : 3 * k)];
-      const int row = (z >> 1) * S + py, col = (z & 1) * S + px;
-      float* dst = out + (((long long)row * 2 * S + col) * 3 + ch) * plane + out_pix;
+      const int row = (z >> 1) * sc + py, col = (z & 1) * sc + px;
+      float* dst = out + (((long long)row * 2 * sc + col) * 3 + ch) * plane + out_pix;
 #pragma unroll
       for (int k2 = 0; k2 < kOut; ++k2) dst[k2 * slot] = acc[6 * pp + c][k2];
     }
   }
 }
 
-// The general form (merge_raw_general_kernel): what the templated kernels
-// above do not take. Those are built for scales 1-4, taps within +-4 (81
-// at most, staged halo 1 or 2), Bayer patterns (the pair grouping needs
-// green on one diagonal) and, in the bfloat16 order 0, the frames whose
-// tiles fit a block's shared memory at once (30 at S = 1-2, 66 at S = 3-4,
-// halo 1; the float32 forms 0 and 1 stream past that). The wrapper
-// (kernels/merge_raw.py) launches this kernel wherever one of those does
-// not hold: any scale, any tap list (read from a device table), any 2 x 2
-// pattern (each plane's channel and each certless cell's chain from the
-// host's table) and any number of frames, in all four forms and with
-// every knob of form 1 and 3.
+// The general form (S = 0): what the templated instantiations are not
+// built for, on Bayer patterns: scales past 4, taps past +-4 (their
+// table's 81 signed-char rows, a staged halo of 1 or 2) and the
+// bfloat16 order 0 past its frame cap. The same two kernels, the scale,
+// staged halo and tap rows at run time (General), the block the host's
+// (Block, from kernels/merge_raw.py::general_block: the choice and the
+// shared bytes there, tested on the CPU; the launch refuses a block the
+// form cannot take):
+// - merge_raw_kernel<0, 0, green diagonal, chains, bf16, true> (forms 0
+//   and 1): a thread per (pixel, phase) (kPX = 1), tw x th pixels (16 x
+//   4 to 16 phases; 8 x 1 past them: 200 threads at S = 5) x the phases,
+//   grid z over groups of phases past 512 threads. It streams: chunks of
+//   as many frames as fit beside the tap table in 227 KB (one chunk,
+//   staged once, where the burst fits: 58 frames of a 16 x 4 tile at halo
+//   1, 226 of 8 x 1), each tap-group pair walking the chunks; the
+//   bfloat16 order 0 walks the taps in the list's order in passes of four,
+//   their frame sums kept across the chunks, so it rounds as the resident
+//   form does. The tap rows (by group, and in list order) sit in dynamic
+//   shared memory after the frames, and the staged halo is the taps'
+//   reach, so no tap count bounds it. Each Gaussian pair is evaluated once
+//   a (pixel, frame, tap, phase) and feeds the four parities.
+// - merge_raw_cells_kernel<0, slots, ...> (forms 2 and 3, every knob): 8
+//   x 1 pixels, one tap-group pair a block (grid z: the pair, and groups
+//   of at most 32 phases), the group's phases padded to a warp's 4: 224
+//   threads at S = 5; past 32 phases each group's first phase is phase 0
+//   (the shared centroid's anchor, stored by group 0 alone). The ring of three frame slots, sized for the taps' halo, and
+//   the tap table (n_taps rows a relabelling) are in dynamic shared
+//   memory; each thread forms its staged sites' indices every frame.
+// Rounding is the templated kernels' (ex2.approx, FMAs, value x
+// certainty staged), within the same tolerances, but for the certless
+// form: its weights' quadratic and its chain sums take the plain
+// version's roundings (gauss_plain), as each centroid divides sums that
+// cancel by an error that grows with S (with the templated arithmetic,
+// 1.1-1.3e-5 at 4 of 9.8 M values at S = 5, past rtol/atol 1e-5).
+// Bound at chip_smoke.py's check (F=5, 128 x 256 half-res, S=5, 25
+// taps): 102 M items; certless 54.4 us, order 0 49.0 us, form 3 66.0 us,
+// 9 slots 127.2 us, all operations (WORK). Staged bytes: a certless block
+// stages, per frame, 4 planes x 3 x 10 sites and 8 residuals (1 KB) for
+// its 8 pixels' 288 B of inputs, 3.6x; a cells block 4 x 3 x 10 and 3 x
+// 10 (1.2 KB) for each of its two pairs' blocks, 8.3x.
+// Measured (tools/ab_main_kernels.py; NVIDIA H100 80GB HBM3, 700.00
+// W): ptxas 88-89 registers (order 0), 121-122 (chains), 115-117
+// (bfloat16) for merge_raw_kernel<0, ...>; 96-100 (4 slots), 106-113
+// (6), 126-128 (9) for the cells kernel's; no spills. At S=5 the certless
+// form takes 0.389 ms (14.0% of its bound), form 3 0.374 (17.7%), 5.2
+// and 8.0x under the first general kernel; all times in PERF.md.
+//
+// The non-Bayer kernel (merge_raw_nonbayer_kernel): 2 x 2 patterns other
+// than Bayer, whose two groups of a pair do not read the same cells (and
+// Bayer merges past any general block: 3,721 taps to +-30 pass the cells
+// block's 232,448 bytes), at
+// any scale, tap list and frame count, in all four forms and with every
+// knob of forms 1 and 3 (each plane's channel and each certless cell's
+// chain from the host's CellTable).
 //
 // Design: written simply, as the plain version reads. A thread per
 // (half-res pixel, output parity (a, b), phase (py, px)) holds the three
@@ -1159,7 +1476,7 @@ __device__ __forceinline__ float blend_rho(float r, float nb, float ga, float ph
 // only its own accumulators (two blocks an SM at 256 threads)
 template <int kForm>
 __global__ void __launch_bounds__(256, 2)
-merge_raw_general_kernel(const float* __restrict__ planes, const float* __restrict__ residual,
+merge_raw_nonbayer_kernel(const float* __restrict__ planes, const float* __restrict__ residual,
                          const float* __restrict__ certainty, const float* __restrict__ omega,
                          const float* __restrict__ omega_rb, float* __restrict__ out,
                          const int* __restrict__ taps, int n_taps, int frames, int hh, int hw, int S,
@@ -1426,14 +1743,34 @@ template <int S, int kSlots, bool kExact, bool kCBf16, bool kPrune>
 int launch_cells(const void* planes, const void* residual, const void* certainty,
                  const void* omega, const void* omega_rb, void* out, int frames, int hh,
                  int hw, int halo, bool green_diag, float rb, bool block,
-                 const TapTable& taps, cudaStream_t stream) {
+                 const TapTable& taps, cudaStream_t stream, const General& gen = General{},
+                 const Block& blk = Block{}) {
   using L = CellShape<S, kSlots>;
-  const dim3 grid((hw + L::kTW - 1) / L::kTW, (hh + L::kTH - 1) / L::kTH);
-  merge_raw_cells_kernel<S, kSlots, kExact, kCBf16, kPrune><<<grid, L::kThreads, 0, stream>>>(
+  dim3 grid((hw + L::kTW - 1) / L::kTW, (hh + L::kTH - 1) / L::kTH);
+  int threads = L::kThreads;
+  size_t bytes = 0;
+  if constexpr (S == 0) {
+    // the host's block: the tile, the phases (padded to a warp's kPL;
+    // every group's first one phase 0) covering the scale's, the bytes
+    threads = (blk.phases + L::kPL - 1) / L::kPL * L::kTH * 32;
+    if (blk.tw != L::kTW || blk.th != L::kTH || blk.phases < 1 || blk.groups < 1 || threads > L::kThreads ||
+        1 + blk.groups * (blk.phases - 1) < gen.s * gen.s || blk.bytes < 1 || blk.bytes > kMaxSmem ||
+        grid.y > 65535 || 2 * blk.groups > 65535) {
+      return (int)cudaErrorInvalidValue;
+    }
+    grid.z = 2 * blk.groups;
+    bytes = blk.bytes;
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(merge_raw_cells_kernel<S, kSlots, kExact, kCBf16, kPrune>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  merge_raw_cells_kernel<S, kSlots, kExact, kCBf16, kPrune><<<grid, threads, bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(out), frames, hh, hw, halo, rb,
-      green_diag ? 1 : 0, block ? 1 : 0, taps);
+      green_diag ? 1 : 0, block ? 1 : 0, taps, gen);
   return (int)cudaGetLastError();
 }
 
@@ -1459,7 +1796,36 @@ int launch(const void* planes, const void* residual, const void* certainty,
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(m00),
       static_cast<float*>(cy), static_cast<float*>(cx),
-      static_cast<float*>(b0), frames, hh, hw, rb, taps, chunk);
+      static_cast<float*>(b0), frames, hh, hw, rb, taps, chunk, General{});
+  return (int)cudaGetLastError();
+}
+
+template <bool kGreenDiag, bool kChains, bool kBf16>
+int launch_general(const void* planes, const void* residual, const void* certainty,
+                   const void* omega, const void* omega_rb, void* m00, void* cy, void* cx, void* b0,
+                   int frames, int hh, int hw, float rb, const TapTable& taps, const General& gen,
+                   const Block& blk, cudaStream_t stream) {
+  // the host's block: within Shape<0>'s threads and a block's 64 z, its
+  // phase groups covering the scale's phases, a chunk of at least a frame
+  if (blk.tw < 1 || blk.th < 1 || blk.phases < 1 || blk.phases > 64 ||
+      blk.tw * blk.th * blk.phases > Shape<0>::kThreads || blk.phases * blk.groups < gen.s * gen.s ||
+      blk.chunk < 1 || blk.bytes > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(blk.tw, blk.th, blk.phases);
+  const dim3 grid((hw + blk.tw - 1) / blk.tw, (hh + blk.th - 1) / blk.th, blk.groups);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  if (blk.bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(merge_raw_kernel<0, 0, kGreenDiag, kChains, kBf16, true>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, blk.bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  merge_raw_kernel<0, 0, kGreenDiag, kChains, kBf16, true><<<grid, block, blk.bytes, stream>>>(
+      static_cast<const float*>(planes), static_cast<const float*>(residual),
+      static_cast<const float*>(certainty), static_cast<const float*>(omega),
+      static_cast<const float*>(omega_rb), static_cast<float*>(m00),
+      static_cast<float*>(cy), static_cast<float*>(cx),
+      static_cast<float*>(b0), frames, hh, hw, rb, taps, blk.chunk, gen);
   return (int)cudaGetLastError();
 }
 
@@ -1467,7 +1833,8 @@ template <int S>
 int launch_scale(int form, int flags, int halo, bool green_diag, const void* planes,
                  const void* residual, const void* certainty, const void* omega,
                  const void* omega_rb, void* out, int frames, int hh, int hw, float rb,
-                 const TapTable& taps, cudaStream_t stream) {
+                 const TapTable& taps, cudaStream_t stream, const General& gen = General{},
+                 const Block& blk = Block{}) {
   const bool exact = flags & kExactWeights, bf16 = flags & kBf16Flag;
   if (form == 2 || form == 3) {
     // the centroid is pruned where a group has taps outside it (form 3)
@@ -1475,7 +1842,7 @@ int launch_scale(int form, int flags, int halo, bool green_diag, const void* pla
     for (int g = 0; g < 4; ++g) prune = prune || taps.centroid_end[g] != taps.group_end[g];
 #define MFSR_CELLS(K, E, B, P)                                                                       \
   launch_cells<S, K, E, B, P>(planes, residual, certainty, omega, omega_rb, out, frames, hh, hw, halo, \
-                              green_diag, rb, (flags & kBlockFlag) != 0, taps, stream)
+                              green_diag, rb, (flags & kBlockFlag) != 0, taps, stream, gen, blk)
 #define MFSR_PRUNE(K, E, B) (prune ? MFSR_CELLS(K, E, B, true) : MFSR_CELLS(K, E, B, false))
     if (form == 2) return exact ? MFSR_CELLS(9, true, false, false) : MFSR_CELLS(9, false, false, false);
     if (flags & kSharedFlag) return exact ? MFSR_PRUNE(6, true, false) : MFSR_PRUNE(6, false, false);
@@ -1488,10 +1855,29 @@ int launch_scale(int form, int flags, int halo, bool green_diag, const void* pla
   // two (num, den) are its b0 and m00. Past the frames that fit shared
   // memory at once the float32 forms stream them in chunks of that many.
   float* base = static_cast<float*>(out);
-  const long long slot = (long long)4 * S * S * 3 * hh * hw;
-  const int cap = max_frames<S>(halo, form);
-  const bool stream_frames = frames > cap;
-  if (stream_frames && bf16) return (int)cudaErrorInvalidValue;  // the general form's
+  const long long slot = (long long)4 * (S ? S : gen.s) * (S ? S : gen.s) * 3 * hh * hw;
+  if constexpr (S == 0) {
+    // the general form: one instantiation streams every length (one
+    // chunk staged once)
+    if (form == 0) {
+      return green_diag ? launch_general<true, true, false>(planes, residual, certainty, omega, omega_rb, base,
+                                                            base + slot, base + 2 * slot, base + 3 * slot, frames,
+                                                            hh, hw, rb, taps, gen, blk, stream)
+                        : launch_general<false, true, false>(planes, residual, certainty, omega, omega_rb, base,
+                                                             base + slot, base + 2 * slot, base + 3 * slot, frames,
+                                                             hh, hw, rb, taps, gen, blk, stream);
+    }
+    if (form != 1) return (int)cudaErrorInvalidValue;
+#define MFSR_GENERAL(G, B)                                                                                   \
+  launch_general<G, false, B>(planes, residual, certainty, omega, omega_rb, base + slot, nullptr, nullptr, \
+                              base, frames, hh, hw, rb, taps, gen, blk, stream)
+    if (bf16) return green_diag ? MFSR_GENERAL(true, true) : MFSR_GENERAL(false, true);
+    return green_diag ? MFSR_GENERAL(true, false) : MFSR_GENERAL(false, false);
+#undef MFSR_GENERAL
+  } else {
+    const int cap = max_frames<S>(halo, form);
+    const bool stream_frames = frames > cap;
+    if (stream_frames && bf16) return (int)cudaErrorInvalidValue;  // the general form's
 #define MFSR_LAUNCH(H, G, C, B, T, M00, CY, CX, B0)                                                 \
   launch<S, H, G, C, B, T>(planes, residual, certainty, omega, omega_rb, M00, CY, CX, B0, frames, hh, \
                            hw, rb, taps, cap, stream)
@@ -1500,12 +1886,74 @@ int launch_scale(int form, int flags, int halo, bool green_diag, const void* pla
    : bf16    ? MFSR_LAUNCH(H, G, false, true, false, base + slot, nullptr, nullptr, base)              \
              : MFSR_LAUNCH(H, G, false, false, T, base + slot, nullptr, nullptr, base))
 #define MFSR_STREAM(H, G) (stream_frames ? MFSR_FORM(H, G, true) : MFSR_FORM(H, G, false))
-  if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
-  if (halo == 1) return green_diag ? MFSR_STREAM(1, true) : MFSR_STREAM(1, false);
-  return green_diag ? MFSR_STREAM(2, true) : MFSR_STREAM(2, false);
+    if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
+    if (halo == 1) return green_diag ? MFSR_STREAM(1, true) : MFSR_STREAM(1, false);
+    return green_diag ? MFSR_STREAM(2, true) : MFSR_STREAM(2, false);
 #undef MFSR_STREAM
 #undef MFSR_FORM
 #undef MFSR_LAUNCH
+  }
+}
+
+// The launch arguments every form checks: the residual's alignment (it
+// is copied as float2), the sizes, the form and its flags.
+bool check_launch(const void* residual, int frames, int hh, int hw, int form, int flags) {
+  const int allowed[4] = {0, kBf16Flag, kExactWeights,
+                          kExactWeights | kBf16Flag | kBlockFlag | kSharedFlag};
+  return frames >= 1 && hh >= 1 && hw >= 1 && reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) == 0 &&
+         form >= 0 && form <= 3 && !(flags & ~allowed[form]) &&
+         !((flags & kBf16Flag) && (flags & (kBlockFlag | kSharedFlag)) && form == 3);
+}
+
+// Reads the host table (mfsr_merge_raw's): the channels (a Bayer
+// pattern), the group ends, the centroid's ends and the staged halo of the
+// rows; `templated` also fills the rows (taps within +-4) and the list
+// order into the TapTable. False on a malformed table.
+bool parse_table(const int* tab, int n_taps, bool templated, TapTable* taps, int* halo, bool* green_diag) {
+  if (n_taps < 0) return false;
+  for (int q = 0; q < 4; ++q) taps->chan[q] = tab[q];
+  *green_diag = taps->chan[0] == 1 && taps->chan[3] == 1;
+  const bool green_anti = taps->chan[1] == 1 && taps->chan[2] == 1;
+  const int o0 = *green_diag ? 1 : 0, o1 = *green_diag ? 2 : 3;  // the R/B planes
+  if (*green_diag == green_anti || taps->chan[o0] + taps->chan[o1] != 2 || taps->chan[o0] == 1) {
+    return false;  // not a Bayer pattern
+  }
+  for (int g = 0; g < 4; ++g) {
+    taps->group_end[g] = tab[4 + g];
+    if (tab[4 + g] < (g ? tab[3 + g] : 0) || tab[4 + g] > n_taps) return false;
+  }
+  if (taps->group_end[3] != n_taps) return false;
+  const int* rows = tab + 8;
+  *halo = 1;
+  std::vector<char> listed(n_taps, 0);
+  for (int g = 0; g < 4; ++g) taps->centroid_end[g] = taps->group_end[g];
+  // the general form packs ky and kx into 16 bits each
+  const int reach = templated ? 4 : 32767;
+  for (int t = 0; t < n_taps; ++t) {
+    const int ky = rows[3 * t], kx = rows[3 * t + 1], aux = rows[3 * t + 2];
+    const int n = aux >> 1;
+    if (ky < -reach || ky > reach || kx < -reach || kx > reach || aux < 0 || n >= n_taps || listed[n]) {
+      return false;
+    }
+    const int g = 2 * (ky & 1) + (kx & 1);
+    if (t < (g ? taps->group_end[g - 1] : 0) || t >= taps->group_end[g]) return false;
+    // within a group the centroid's taps come first
+    if (aux & 1) {
+      if (taps->centroid_end[g] != taps->group_end[g]) return false;
+    } else if (taps->centroid_end[g] == taps->group_end[g]) {
+      taps->centroid_end[g] = t;
+    }
+    if (templated) {
+      taps->ky[t] = (signed char)ky;
+      taps->kx[t] = (signed char)kx;
+      taps->order[n] = (unsigned char)t;
+    }
+    listed[n] = 1;
+    for (int a = 0; a < 2; ++a) {
+      *halo = std::max({*halo, std::abs((a + ky) >> 1), std::abs((a + kx) >> 1)});
+    }
+  }
+  return true;
 }
 
 }  // namespace
@@ -1524,7 +1972,7 @@ extern "C" {
 // (ky, kx, aux) sorted by group g = 2*(ky%2) + (kx%2), aux = c + 2 n with
 // c = 1 where the tap feeds the centroid moments (form 3's
 // centroid_prune; 1 for every tap without it; within a group those with
-// c = 1 first) and n its index in the tap list. flags: kExactWeights (forms 2, 3), kBf16Flag (form 1: the
+// c = 1 first) and n its index in the tap list; taps within +-4. flags: kExactWeights (forms 2, 3), kBf16Flag (form 1: the
 // bfloat16 order 0; form 3: bfloat16 centroid products, not with the
 // block or shared centroid), kBlockFlag, kSharedFlag (form 3).
 int mfsr_merge_raw(const void* planes, const void* residual,
@@ -1532,60 +1980,12 @@ int mfsr_merge_raw(const void* planes, const void* residual,
                    const void* omega_rb, void* out, int frames, int hh, int hw,
                    int scale, int form, float rb, const void* table, int n_taps,
                    int flags, void* stream) {
-  if (n_taps < 0 || n_taps > kMaxTaps || frames < 1 || hh < 1 || hw < 1 ||
-      reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
-    return (int)cudaErrorInvalidValue;  // the residual is copied as float2
-  }
-  const int allowed[4] = {0, kBf16Flag, kExactWeights,
-                          kExactWeights | kBf16Flag | kBlockFlag | kSharedFlag};
-  if (form < 0 || form > 3 || (flags & ~allowed[form]) ||
-      ((flags & kBf16Flag) && (flags & (kBlockFlag | kSharedFlag)) && form == 3)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int* tab = static_cast<const int*>(table);
   TapTable taps;
-  for (int q = 0; q < 4; ++q) taps.chan[q] = tab[q];
-  const bool green_diag = taps.chan[0] == 1 && taps.chan[3] == 1;
-  const bool green_anti = taps.chan[1] == 1 && taps.chan[2] == 1;
-  const int o0 = green_diag ? 1 : 0, o1 = green_diag ? 2 : 3;  // the R/B planes
-  if (green_diag == green_anti || taps.chan[o0] + taps.chan[o1] != 2 ||
-      taps.chan[o0] == 1) {
-    return (int)cudaErrorInvalidValue;  // not a Bayer pattern
-  }
-  for (int g = 0; g < 4; ++g) {
-    taps.group_end[g] = tab[4 + g];
-    if (tab[4 + g] < (g ? tab[3 + g] : 0) || tab[4 + g] > n_taps) {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (taps.group_end[3] != n_taps) return (int)cudaErrorInvalidValue;
-  const int* rows = tab + 8;
-  int halo = 1;
-  bool listed[kMaxTaps] = {};
-  for (int g = 0; g < 4; ++g) taps.centroid_end[g] = taps.group_end[g];
-  for (int t = 0; t < n_taps; ++t) {
-    const int ky = rows[3 * t], kx = rows[3 * t + 1], aux = rows[3 * t + 2];
-    const int n = aux >> 1;
-    if (ky < -4 || ky > 4 || kx < -4 || kx > 4 || aux < 0 || n >= n_taps || listed[n]) {
-      return (int)cudaErrorInvalidValue;
-    }
-    const int g = 2 * (ky & 1) + (kx & 1);
-    if (t < (g ? taps.group_end[g - 1] : 0) || t >= taps.group_end[g]) {
-      return (int)cudaErrorInvalidValue;
-    }
-    taps.ky[t] = (signed char)ky;
-    taps.kx[t] = (signed char)kx;
-    // within a group the centroid's taps come first
-    if (aux & 1) {
-      if (taps.centroid_end[g] != taps.group_end[g]) return (int)cudaErrorInvalidValue;
-    } else if (taps.centroid_end[g] == taps.group_end[g]) {
-      taps.centroid_end[g] = t;
-    }
-    taps.order[n] = (unsigned char)t;
-    listed[n] = true;
-    for (int a = 0; a < 2; ++a) {
-      halo = std::max({halo, std::abs((a + ky) >> 1), std::abs((a + kx) >> 1)});
-    }
+  int halo;
+  bool green_diag;
+  if (n_taps > kMaxTaps || !check_launch(residual, frames, hh, hw, form, flags) ||
+      !parse_table(static_cast<const int*>(table), n_taps, true, &taps, &halo, &green_diag)) {
+    return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MFSR_SCALE(S)                                                                           \
@@ -1601,7 +2001,36 @@ int mfsr_merge_raw(const void* planes, const void* residual,
 #undef MFSR_SCALE
 }
 
-// Launches the general form (merge_raw_general_kernel) on `stream` and
+// Launches the general form (the S = 0 instantiations of merge_raw_kernel,
+// streamed, and of merge_raw_cells_kernel) on `stream` and returns
+// cudaGetLastError(). The arrays, out, flags and the HOST table are
+// mfsr_merge_raw's (a Bayer pattern), at any scale >= 1, any number of
+// frames and taps at any offset; rows is a DEVICE copy of the table's
+// n_taps (ky, kx, aux) rows (table + 8). The block (tile_w x tile_h
+// pixels x `phases` phases in `groups` over grid z, `chunk` frames staged
+// at once by forms 0 and 1, smem_bytes of dynamic shared memory) is
+// kernels/merge_raw.py::general_block's; a block the form cannot take
+// (past its threads, short of the scale's phases, past kMaxSmem) is
+// refused.
+int mfsr_merge_raw_general(const void* planes, const void* residual, const void* certainty,
+                           const void* omega, const void* omega_rb, void* out, int frames, int hh,
+                           int hw, int scale, int form, float rb, const void* table, const void* rows,
+                           int n_taps, int flags, int tile_w, int tile_h, int phases, int groups, int chunk,
+                           int smem_bytes, void* stream) {
+  TapTable taps;
+  int halo;
+  bool green_diag;
+  if (scale < 1 || !check_launch(residual, frames, hh, hw, form, flags) ||
+      !parse_table(static_cast<const int*>(table), n_taps, false, &taps, &halo, &green_diag)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const General gen{scale, halo, phases, static_cast<const int*>(rows)};
+  const Block blk{tile_w, tile_h, phases, groups, chunk, smem_bytes};
+  return launch_scale<0>(form, flags, halo, green_diag, planes, residual, certainty, omega, omega_rb, out, frames,
+                         hh, hw, rb, taps, static_cast<cudaStream_t>(stream), gen, blk);
+}
+
+// Launches the non-Bayer form (merge_raw_nonbayer_kernel) on `stream` and
 // returns cudaGetLastError(). The arrays, out and flags are
 // mfsr_merge_raw's, at any scale >= 1 and any number of frames. taps is a
 // DEVICE int32 array of n_taps rows (ky, kx, c) in the tap list's order,
@@ -1610,10 +2039,10 @@ int mfsr_merge_raw(const void* planes, const void* residual,
 // the channel (0..2) of each plane q = 2*qa + qb (4, any pattern), then
 // the certless chain of each cell (a, b, ch) at 3 (2a + b) + ch (12; 0, 1
 // green by (ky + kx) % 2, 2 + 2 (ky % 2) + kx % 2 R/B, -1 none).
-int mfsr_merge_raw_general(const void* planes, const void* residual, const void* certainty,
-                           const void* omega, const void* omega_rb, void* out, int frames, int hh,
-                           int hw, int scale, int form, float rb, const void* taps, int n_taps,
-                           const void* cells, int flags, void* stream) {
+int mfsr_merge_raw_nonbayer(const void* planes, const void* residual, const void* certainty,
+                            const void* omega, const void* omega_rb, void* out, int frames, int hh,
+                            int hw, int scale, int form, float rb, const void* taps, int n_taps,
+                            const void* cells, int flags, void* stream) {
   if (n_taps < 0 || frames < 1 || hh < 1 || hw < 1 || scale < 1 || 4LL * scale * scale > 65535 ||
       (hh + 7) / 8 > 65535 || reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
     return (int)cudaErrorInvalidValue;
@@ -1632,19 +2061,19 @@ int mfsr_merge_raw_general(const void* planes, const void* residual, const void*
     if (tab[4 + k] < -1 || tab[4 + k] > 5) return (int)cudaErrorInvalidValue;
   }
   const dim3 grid((hw + 31) / 32, (hh + 7) / 8, 4 * scale * scale);
-#define MFSR_GENERAL(K)                                                                              \
-  merge_raw_general_kernel<K><<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(          \
+#define MFSR_NONBAYER(K)                                                                             \
+  merge_raw_nonbayer_kernel<K><<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(         \
       static_cast<const float*>(planes), static_cast<const float*>(residual),                        \
       static_cast<const float*>(certainty), static_cast<const float*>(omega),                        \
       static_cast<const float*>(omega_rb), static_cast<float*>(out), static_cast<const int*>(taps), \
       n_taps, frames, hh, hw, scale, flags, rb, ct)
   switch (form) {
-    case 0: MFSR_GENERAL(0); break;
-    case 1: MFSR_GENERAL(1); break;
-    case 2: MFSR_GENERAL(2); break;
-    default: MFSR_GENERAL(3); break;
+    case 0: MFSR_NONBAYER(0); break;
+    case 1: MFSR_NONBAYER(1); break;
+    case 2: MFSR_NONBAYER(2); break;
+    default: MFSR_NONBAYER(3); break;
   }
-#undef MFSR_GENERAL
+#undef MFSR_NONBAYER
   return (int)cudaGetLastError();
 }
 

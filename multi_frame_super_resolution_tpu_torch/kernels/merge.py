@@ -2,9 +2,12 @@
 pallas_ops/merge.py::merge_fast_pallas and of the default RGB branch's
 merge (models/fast_merge.py::merge_burst_fast in the phase layout, order
 0 in float32 or bfloat16, or the order-1 moments of the plugin solve (4)
-or the exact solve (9)). The templated kernel takes scales 1-4 and tap
-radii up to 8; the general kernel takes every other scale and radius
-(uses_general), its launches counted under ``merge_fast_general``.
+or the exact solve (9)). The templated kernel takes scales 1-4 and taps
+within +-25; its general form (S = 0, a block shape from general_tile)
+every other scale and taps within +-34 (uses_general), its launches
+counted under ``merge_fast_general``; past that reach, where no staged
+tile fits a block's shared memory, the unstaged kernel runs
+(``merge_fast_unstaged``).
 
 On CUDA tensors it launches the kernel or raises; it never falls back.
 On CPU tensors it computes the kernel's plain PyTorch version,
@@ -16,7 +19,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,11 +38,15 @@ from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
 from multi_frame_super_resolution_tpu_torch.ops.filters import _const_array
 
 NAME = "merge_fast"
-GENERAL = "merge_fast_general"  # the general kernel's launches
+GENERAL = "merge_fast_general"  # the general form's launches
+UNSTAGED = "merge_fast_unstaged"  # the unstaged kernel's launches
 SOURCE = "merge.cu"
-# kMaxRadius in csrc/merge.cu; also merge_fast_pallas's own halo
-# (pallas_ops/merge.py:154), which the interleaved form (use_pallas) keeps
-_MAX_TAP_RADIUS = 8
+# merge_fast_pallas's own halo (pallas_ops/merge.py:154), which the
+# interleaved form (use_pallas) keeps
+_PALLAS_RADIUS = 8
+_MAX_TAP_RADIUS = 25  # kMaxRadius in csrc/merge.cu: the templated layouts' largest staged halo
+_SMEM_MAX = 232448  # kMaxSmem: the shared memory a block can opt in to (sm_90)
+_SITE_BYTES = 48  # a staged site: a float4 and a float2, in two frame buffers
 
 
 @functools.cache
@@ -50,17 +57,57 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float],
     )
-    return bind(
+    bind(
         lib, "mfsr_merge_fast_general",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 4,
+    )
+    return bind(
+        lib, "mfsr_merge_fast_unstaged",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float],
     )
 
 
-def uses_general(scale: int, r_taps: int) -> bool:
-    """Whether the general kernel runs the merge: a scale past 4 or a tap
-    radius past 8, which the templated kernel is not built for."""
-    return not 1 <= scale <= 4 or r_taps > _MAX_TAP_RADIUS
+def uses_general(scale: int, halo: int) -> bool:
+    """Whether the templated kernel's layouts do not take the merge: a
+    scale past 4 or taps reaching past +-25 (``halo``: the largest
+    |ky|, |kx| of the list). general_tile then gives the general form's
+    block, or None where the unstaged kernel runs."""
+    return not 1 <= scale <= 4 or halo > _MAX_TAP_RADIUS
+
+
+@functools.lru_cache(maxsize=None)
+def general_tile(scale: int, halo: int, form: int) -> Optional[Tuple[int, int, int, int, int]]:
+    """The general form's block at ``scale`` for taps of reach ``halo`` in
+    kernel form ``form``: (tile_w, tile_h, rows, groups, shared bytes), a
+    thread per pixel of a tile_w x tile_h tile and phase of ``rows`` phase
+    rows, grid z over the ``groups`` of rows, within the form's thread
+    bound (form 3's 27 accumulators: 512, else 1024) and two frame
+    buffers of the staged tile (48 B a site) within 232,448 bytes. The
+    tile is 8 pixels wide (a warp reads 8 sites at 4 phases; small blocks,
+    several an SM: at s = 5 it measured fastest of widths 4, 8, 16 and 32
+    on an NVIDIA H100), narrower where the halo's staged row does not fit, and
+    taller at scales below 3 (to 256 threads). None where not one staged
+    site fits (a reach past 34): the unstaged kernel's."""
+    max_threads = 512 if form == 3 else 1024
+
+    def staged(tw, th):
+        return (th + 2 * halo) * (tw + 2 * halo) * _SITE_BYTES
+
+    tw = 8
+    while tw > 1 and (staged(tw, 1) > _SMEM_MAX or tw * scale > max_threads):
+        tw //= 2
+    if staged(tw, 1) > _SMEM_MAX or tw * scale > max_threads:
+        return None
+    th = 1
+    while th < 8 and staged(tw, 2 * th) <= _SMEM_MAX and tw * 2 * th * scale * scale <= 256:
+        th *= 2
+    rows = max(1, min(scale, max_threads // (tw * th * scale)))
+    groups = -(-scale // rows)
+    rows = -(-scale // groups)  # the groups evened out
+    park = th * rows * tw * scale * 3 * 4 if form == 0 else 0  # form 0's parked output rows
+    return tw, th, rows, groups, max(staged(tw, th), park)
 
 
 def tap_array(
@@ -95,6 +142,12 @@ def _tap_args(
     """(host address, count) of tap_array's rows: what a launch passes."""
     taps = tap_array(r_taps, residual_bound, scale, k_max, prune_exp)
     return taps.ctypes.data, len(taps)
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_reach(*key) -> int:
+    """The largest |ky|, |kx| of tap_array(*key): the kernels' staged halo."""
+    return int(np.abs(tap_array(*key)).max(initial=0))
 
 
 def merge_fast(
@@ -142,9 +195,9 @@ def merge_fast(
     if order == 1 and moment_slots not in (4, 9):
         raise ValueError(f"the order-1 merge returns 4 or 9 moment slots, got {moment_slots}")
     r_taps = radius + math.ceil(residual_bound)
-    if r_taps > _MAX_TAP_RADIUS and order == 0 and not phase_output:
+    if r_taps > _PALLAS_RADIUS and order == 0 and not phase_output:
         raise ValueError(
-            f"tap radius {r_taps} exceeds merge_fast_pallas's {_MAX_TAP_RADIUS}-row halo "
+            f"tap radius {r_taps} exceeds merge_fast_pallas's {_PALLAS_RADIUS}-row halo "
             "(pallas_ops/merge.py:154, the JAX package's own limit of use_pallas)"
         )
     bf16 = bf16 and order == 0
@@ -160,9 +213,9 @@ def merge_fast(
     # cached per key: with the list rebuilt in numpy per call, a call took
     # 0.12-0.26 ms against the first kernel's 0.095 ms of device time
     # (NVIDIA H100 80GB HBM3, 700.00 W)
-    taps_ptr, n_taps = _tap_args(
-        r_taps, float(residual_bound), scale, float(k_max), float(prune_exp)
-    )
+    key = (r_taps, float(residual_bound), scale, float(k_max), float(prune_exp))
+    taps_ptr, n_taps = _tap_args(*key)
+    halo = _tap_reach(*key)
     if order == 1:
         form, n_out = (2, 4) if moment_slots == 4 else (3, 9)
     else:
@@ -171,12 +224,18 @@ def merge_fast(
     out = torch.empty((n_out,) + shape, dtype=torch.float32, device=dev)
     args = (warped.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
             omega_inv.data_ptr(), out.data_ptr(), f, h, w, scale, form)
-    if uses_general(scale, r_taps):
-        # the tap list on the card, made once per (taps, device)
-        taps = _const_array(
-            _tap_copy, (r_taps, float(residual_bound), scale, float(k_max), float(prune_exp)), dev)
-        launch(library(), "mfsr_merge_fast_general", dev, *args, taps.data_ptr(), n_taps,
-               float(residual_bound))
+    if uses_general(scale, halo):
+        tile = general_tile(scale, halo, form)
+        if tile is None:
+            # the tap list on the card, made once per (taps, device)
+            taps = _const_array(_tap_copy, key, dev)
+            launch(library(), "mfsr_merge_fast_unstaged", dev, *args, taps.data_ptr(), n_taps,
+                   float(residual_bound))
+            LAUNCHES[UNSTAGED] += 1
+            return tuple(out.unbind(0))
+        tw, th, rows, _, smem = tile
+        launch(library(), "mfsr_merge_fast_general", dev, *args, taps_ptr, n_taps, float(residual_bound),
+               tw, th, rows, smem)
         LAUNCHES[GENERAL] += 1
         return tuple(out.unbind(0))
     launch(library(), "mfsr_merge_fast", dev, *args, taps_ptr, n_taps, float(residual_bound))

@@ -11,9 +11,13 @@ it has the skeleton of pallas_ops/merge.py::merge_fast_pallas.
 The templated kernels take scales 1-4, taps within +-4 and Bayer
 patterns; their certless and float32 order-0 forms stage the frames
 whose tiles fit a block's shared memory at once and, past that many,
-stream them in chunks (launches counted under ``merge_raw_stream``); the
-general kernel takes everything else (uses_general says which runs),
-its launches counted under ``merge_raw_general``.
+stream them in chunks (launches counted under ``merge_raw_stream``).
+Their general form (the S = 0 instantiations: any scale, any tap list,
+any number of frames, every form and knob, its block from
+general_block) takes every other Bayer merge, its launches counted under
+``merge_raw_general``; other 2 x 2 patterns, and Bayer merges whose taps
+no general block fits, run the non-Bayer kernel (``merge_raw_nonbayer``).
+kernel_name says which runs.
 
 On CUDA tensors it launches a kernel or raises; it never falls back.
 On CPU tensors it computes the plain PyTorch version,
@@ -50,11 +54,14 @@ from multi_frame_super_resolution_tpu_torch.models.fast_merge import (
 from multi_frame_super_resolution_tpu_torch.ops.filters import _const_array
 
 NAME = "merge_raw"
-GENERAL = "merge_raw_general"  # the general kernel's launches
+GENERAL = "merge_raw_general"  # the general form's launches
 STREAM = "merge_raw_stream"  # the certless and order-0 forms' streamed launches
+NONBAYER = "merge_raw_nonbayer"  # the non-Bayer kernel's launches
 SOURCE = "merge_raw.cu"
 _MAX_TAP = 4  # the templated kernels' taps lie within +-4 (kMaxTaps = 81 in csrc/merge_raw.cu)
 _SCALES = (1, 2, 3, 4)  # the templated kernels' instantiations (Layout<S>, CellTile in csrc/merge_raw.cu)
+_SMEM_MAX = 232448  # kMaxSmem in csrc/merge_raw.cu: the shared memory a block can opt in to (sm_90)
+_RING = 3  # kRing: the cells kernel's frame slots
 
 
 @functools.cache
@@ -67,6 +74,11 @@ def library() -> ctypes.CDLL:
     )
     bind(
         lib, "mfsr_merge_raw_general",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8,
+    )
+    bind(
+        lib, "mfsr_merge_raw_nonbayer",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
     )
@@ -89,14 +101,69 @@ def is_bayer(cfa) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
+def general_block(scale: int, halo: int, n_taps: int, frames: int, form: int
+                  ) -> Optional[Tuple[int, int, int, int, int, int]]:
+    """The general form's block for ``n_taps`` taps of staged halo
+    ``halo`` (tap_halo) at ``scale`` on ``frames`` frames:
+    (tile_w, tile_h, phases, groups, chunk, shared bytes), the last six
+    arguments of mfsr_merge_raw_general, the shared bytes sized as
+    csrc/merge_raw.cu's layouts use them, within 232,448. None where not
+    even one frame fits: the non-Bayer kernel runs the merge.
+
+    Forms 0 and 1 (merge_raw_kernel<0, ...>): a thread per (pixel, phase),
+    16 x th pixels to 16 phases (th 4, 2 or 1: to 512 threads) and 8 x 1
+    past them (8 x 1 measured faster at S = 5 than 16 x 1 and, as 8 x 4,
+    slower at S = 2 than 16 x 4 on an NVIDIA H100 80GB HBM3 at 700.00 W),
+    the phases in groups of at most 512 threads over grid z; as many
+    frames a chunk as fit beside the tap rows (two ints a tap), each frame
+    the tile and halo of four planes and the residual, a float2 a site.
+    Forms 2 and 3 (merge_raw_cells_kernel<0, ...>): 8 x 1 pixels, at most
+    32 phases a block (padded to a warp's 4, both pairs' blocks over grid
+    z); past 32, groups of phase 0 and a share of the others; the ring's
+    three frame slots (four planes' tile and halo, the residual's 3 x 10
+    sites) and the tap table (two float4 rows a tap); chunk 0."""
+    n = scale * scale
+    if form in (NINE_MOMENTS, PER_CELL):
+        tw, th = 8, 1
+        groups = 1 if n <= 32 else -(-(n - 1) // 31)
+        phases = n if groups == 1 else 1 + -(-(n - 1) // groups)
+        stage = 4 * (th + 2 * halo) * (tw + 2 * halo) + (th + 2) * (tw + 2)
+        smem = ((_RING * stage + 1) & ~1) * 8 + 2 * n_taps * 16
+        return (tw, th, phases, groups, 0, smem) if smem <= _SMEM_MAX else None
+    tw = 16 if n <= 16 else 8
+    th = 1 if tw == 8 else (4 if 16 * 4 * n <= 512 else (2 if 16 * 2 * n <= 512 else 1))
+    groups = -(-n // (512 // (tw * th)))
+    phases = -(-n // groups)
+    frame = (4 * (th + 2 * halo) * (tw + 2 * halo) + tw * th) * 8
+    table = 2 * n_taps * 4
+    chunk = min(frames, max(0, _SMEM_MAX - table) // frame)
+    return (tw, th, phases, groups, chunk, chunk * frame + table) if chunk else None
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_name(scale: int, taps: tuple, cfa: tuple, frames: int, form: int, frame_cap: int,
+                bf16: bool = False) -> str:
+    """The launch a merge runs: the non-Bayer kernel on a pattern other
+    than Bayer; the general form at a scale past 4, a tap beyond +-4, or
+    the bfloat16 order 0 on more frames than ``frame_cap``
+    (mfsr_merge_raw_max_frames at the taps' halo: the frames its
+    templated kernel stages at once), or the non-Bayer kernel there
+    where no general block fits (general_block); else the templated
+    kernels, streamed where ``streams``."""
+    if not is_bayer(cfa):
+        return NONBAYER
+    if uses_general(scale, taps, cfa, frames, form, frame_cap, bf16):
+        return GENERAL if general_block(scale, tap_halo(taps), len(taps), frames, form) else NONBAYER
+    return STREAM if streams(form, frames, frame_cap) else NAME
+
+
 def uses_general(scale: int, taps: tuple, cfa: tuple, frames: int, form: int, frame_cap: int,
                  bf16: bool = False) -> bool:
-    """Whether the general kernel runs the merge: a scale past 4, a tap
-    beyond +-4, a pattern other than Bayer, or the bfloat16 order 0 on
-    more frames than ``frame_cap`` (mfsr_merge_raw_max_frames at the
-    taps' halo: the frames its kernel stages at once)."""
-    return (scale not in _SCALES or any(abs(k) > _MAX_TAP for t in taps for k in t) or not is_bayer(cfa)
-            or (bf16 and form == ORDER0 and frames > frame_cap))
+    """Whether the general form runs a Bayer merge: a scale past 4, a tap
+    beyond +-4, or the bfloat16 order 0 on more frames than
+    ``frame_cap``. (Other patterns run the non-Bayer kernel.)"""
+    return is_bayer(cfa) and (scale not in _SCALES or any(abs(k) > _MAX_TAP for t in taps for k in t)
+                              or (bf16 and form == ORDER0 and frames > frame_cap))
 
 
 def streams(form: int, frames: int, frame_cap: int) -> bool:
@@ -108,7 +175,7 @@ def streams(form: int, frames: int, frame_cap: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def cell_table(cfa: tuple) -> np.ndarray:
-    """The general kernel's host table (int32, 16): the channel of each
+    """The non-Bayer kernel's host table (int32, 16): the channel of each
     plane q = 2*qa + qb, then the certless chain each cell (a, b, ch)
     reads (fast_merge._centroid_chain), at 3 (2a + b) + ch: 0 and 1 the
     green chains ("g", p), 2 + 2 p + q the R/B chains ("rb", p, q), -1
@@ -126,7 +193,7 @@ def cell_table(cfa: tuple) -> np.ndarray:
 
 
 def general_taps(taps: tuple, centroid_taps: Optional[frozenset] = None) -> np.ndarray:
-    """The general kernel's tap table (int32 (n, 3)): the taps in list
+    """The non-Bayer kernel's tap table (int32 (n, 3)): the taps in list
     order as (ky, kx, c), c = 1 where the tap feeds the per-cell centroid
     (every tap when ``centroid_taps`` is None)."""
     return np.asarray([(ky, kx, int(centroid_taps is None or (ky, kx) in centroid_taps)) for ky, kx in taps],
@@ -161,6 +228,12 @@ def tap_table(taps: tuple, cfa: tuple, centroid_taps: Optional[frozenset] = None
     table = np.asarray(chan + ends + rows, np.int32)
     table.flags.writeable = False  # cached and shared by every call
     return table
+
+
+def table_rows(taps: tuple, cfa: tuple, centroid_taps: Optional[frozenset] = None) -> np.ndarray:
+    """tap_table's (ky, kx, aux) rows as an (n, 3) array: the general
+    form's copy on the card."""
+    return np.array(tap_table(taps, cfa, centroid_taps)[8:]).reshape(-1, 3)
 
 
 def merge_raw(
@@ -242,17 +315,24 @@ def merge_raw(
     args = (planes.data_ptr(), residual.data_ptr(), certainty.data_ptr(),
             omega_inv.data_ptr(), omega_inv_rb.data_ptr(), out.data_ptr(),
             f, hh, hw, scale, form, float(residual_bound))
-    if uses_general(scale, taps, pattern, f, form, frame_cap, bf16):
+    name = kernel_name(scale, taps, pattern, f, form, frame_cap, bf16)
+    if name == NONBAYER:
         # the tap table on the card, made once per (taps, centroid, device)
         dev_taps = _const_array(general_taps, (taps, centroid_taps), dev)
-        launch(lib, "mfsr_merge_raw_general", dev, *args, dev_taps.data_ptr(), len(taps),
+        launch(lib, "mfsr_merge_raw_nonbayer", dev, *args, dev_taps.data_ptr(), len(taps),
                cell_table(pattern).ctypes.data, flags)
-        LAUNCHES[GENERAL] += 1
+        LAUNCHES[name] += 1
         return tuple(out.unbind(0))
     # built once per (taps, pattern): rebuilt per call it held a call to
     # 0.66 ms against the first kernel's 0.18 ms (NVIDIA H100 80GB HBM3,
     # 700.00 W)
     table = tap_table(taps, pattern, centroid_taps)
-    launch(lib, "mfsr_merge_raw", dev, *args, table.ctypes.data, len(taps), flags)
-    LAUNCHES[STREAM if streams(form, f, frame_cap) else NAME] += 1
+    if name == GENERAL:
+        # its rows on the card too, made once per (taps, pattern, centroid, device)
+        rows = _const_array(table_rows, (taps, pattern, centroid_taps), dev)
+        launch(lib, "mfsr_merge_raw_general", dev, *args, table.ctypes.data, rows.data_ptr(), len(taps), flags,
+               *general_block(scale, tap_halo(taps), len(taps), f, form))
+    else:
+        launch(lib, "mfsr_merge_raw", dev, *args, table.ctypes.data, len(taps), flags)
+    LAUNCHES[name] += 1
     return tuple(out.unbind(0))

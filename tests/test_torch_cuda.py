@@ -959,14 +959,14 @@ PORT_LIMITS = {
                       {"tile_search": 2, "tile_warp": 1, "merge_raw_stream": 1}),
     "RGB tap radius 9": (handheld_superres, (_rgb_burst, 4, 64, 128),
                          dataclasses.replace(RGB_DEFAULT_NOPRE, merge=MergeConfig(radius=8)),
-                         {"tile_search": 3, "tile_warp": 1, "merge_fast_general": 1}),
+                         {"tile_search": 3, "tile_warp": 1, "merge_fast": 1}),
     "RAW scale 5": (handheld_superres_raw, (_raw_burst, 4, 64, 128), dataclasses.replace(RAW_PORT_DEFAULT, scale=5),
                     {"tile_search": 2, "tile_warp": 1, "merge_raw_general": 1}),
     "RGB scale 5": (handheld_superres, (_rgb_burst, 4, 64, 128), dataclasses.replace(RGB_DEFAULT_NOPRE, scale=5),
                     {"tile_search": 3, "tile_warp": 1, "merge_fast_general": 1}),
     "cfa ((0, 1), (2, 1))": (handheld_superres_raw, (_raw_burst, 4, 128, 256),
                              dataclasses.replace(RAW_PORT_DEFAULT, cfa_pattern=((0, 1), (2, 1))),
-                             {"tile_search": 2, "tile_warp": 1, "merge_raw_general": 1}),
+                             {"tile_search": 2, "tile_warp": 1, "merge_raw_nonbayer": 1}),
 }
 
 
@@ -975,7 +975,9 @@ PORT_LIMITS = {
 def test_port_limits_on_card_match_cpu(limit):
     """Each former limit of the port (a value the JAX function computes)
     and a non-Bayer pattern run on the card through the general kernel
-    forms (a long burst through the streamed RAW merge), with the run's
+    forms (a long burst through the streamed RAW merge, a non-Bayer
+    pattern through the non-Bayer kernel, an RGB tap radius of 9 through
+    the templated merge, whose staged halo reaches 25), with the run's
     launches as listed, and agree with the port on the CPU at 60 dB."""
     dev = cuda_device()
     fn, (make, *shape), cfg, launches = PORT_LIMITS[limit]
@@ -1269,29 +1271,33 @@ RAW_GENERAL = {
 @pytest.mark.parametrize(
     "scale,radius,cfa",
     [(5, 1, ((0, 1), (1, 2))), (6, 1, ((2, 1), (1, 0))), (2, 1, ((0, 1), (2, 1))), (3, 1, ((1, 1), (0, 2))),
-     (2, 4, ((0, 1), (1, 2)))],
-    ids=["S5", "S6", "cfa-0121", "cfa-1102-S3", "121taps"],
+     (2, 4, ((0, 1), (1, 2))), (7, 1, ((0, 1), (1, 2))), (5, 5, ((1, 0), (2, 1)))],
+    ids=["S5", "S6", "cfa-0121", "cfa-1102-S3", "121taps", "S7", "169taps-S5"],
 )
 @pytest.mark.parametrize("form", list(RAW_GENERAL))
 def test_raw_merge_general_form_matches_plain(form, scale, radius, cfa, hh, hw):
-    """The general kernel in every form and knob of the RAW merge: scales
-    5 and 6, two non-Bayer patterns and 121 taps (radius 4, rb 1: taps to
-    +-5 at e^-60), F = 5, guided for the bfloat16 order 0, a ragged size
-    and one smaller than the taps' reach; against the plain version at
-    each form's tolerance, the bfloat16 ones by _assert_bf16_close."""
+    """The general form in every form and knob of the RAW merge: scales
+    5, 6 and 7 (phase groups over grid z past 32 phases), 121 taps
+    (radius 4, rb 1: taps to +-5 at e^-60) and 169 at S = 5 (to +-6 at
+    e^-100: a staged halo of 3), F = 5, guided for the bfloat16 order 0, a ragged
+    size and one smaller than the taps' reach; two non-Bayer patterns on
+    the non-Bayer kernel. Against the plain version at each form's
+    tolerance, the bfloat16 ones by _assert_bf16_close."""
     dev = cuda_device()
     kw, tol = RAW_GENERAL[form]
     ins = _raw_merge_inputs(np.random.default_rng(scale * 7 + hh + radius), 5, hh, hw, dev)
     if form == "bf16":
         kw = dict(kw, guide=fast_merge.green_guide_planes(ins[0], cfa).contiguous())
-    prune = 60.0 if radius == 4 else 1.5
+    prune = {4: 60.0, 5: 100.0}.get(radius, 1.5)
     args = (cfa, scale, radius, 1.0, (scale / 2.0) ** 2, prune)
-    if radius == 4:
-        assert len(fast_merge._active_taps(5, 1.0, scale, 1.0, prune)) == 121
+    if radius >= 4:
+        assert len(fast_merge._active_taps(radius + 1, 1.0, scale, (scale / 2.0) ** 2, prune)) == (
+            2 * radius + 3) ** 2
     LAUNCHES.clear()
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == {"merge_raw_general": 1}
+    launched = "merge_raw_general" if raw_merge_kernel.is_bayer(cfa) else "merge_raw_nonbayer"
+    assert dict(LAUNCHES) == {launched: 1}
     want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
     assert len(got) == len(want)
     for g, w_ in zip(got, want):
@@ -1304,24 +1310,52 @@ def test_raw_merge_general_form_matches_plain(form, scale, radius, cfa, hh, hw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hh,hw", [(9, 13), (3, 5)])
+@pytest.mark.parametrize("form", ["slots9", "cert4"])
+def test_raw_merge_past_any_general_block_matches_plain(form, hh, hw):
+    """The 9-moment and per-cell forms of a Bayer merge at 3,721 taps (to
+    +-30 at e^-1e4, S = 2), where the general cells block's frame ring and
+    tap table pass a block's 232,448 bytes: the non-Bayer kernel runs it.
+    F = 3, a ragged size and one smaller than the taps' reach. Against the
+    plain version at the form's tolerance."""
+    dev = cuda_device()
+    kw, tol = RAW_GENERAL[form]
+    ins = _raw_merge_inputs(np.random.default_rng(hh), 3, hh, hw, dev)
+    args = (((0, 1), (1, 2)), 2, 29, 1.0, 1.0, 1e4)
+    assert len(fast_merge._active_taps(30, 1.0, 2, 1.0, 1e4)) == 61 ** 2
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_raw_nonbayer": 1}
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, **tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize(
     "form,frames,launched",
     [("certless", 31, "merge_raw_stream"), ("certless", 70, "merge_raw_stream"), ("order0", 31, "merge_raw_stream"),
      ("order0", 70, "merge_raw_stream"), ("bf16", 31, "merge_raw_general"), ("certless", 1, "merge_raw_general"),
-     ("order0", 1, "merge_raw_general")],
+     ("order0", 1, "merge_raw_general"), ("bf16", 40, "merge_raw_general"), ("bf16", 1, "merge_raw_general"),
+     ("bf16", 130, "merge_raw_general"), ("certless", 130, "merge_raw_general")],
 )
-def test_raw_merge_streams_any_frames(form, frames, launched):
+@pytest.mark.parametrize("hh,hw", [(40, 72), (3, 5)])
+def test_raw_merge_streams_any_frames(form, frames, launched, hh, hw):
     """Bursts past the certless and order-0 frame caps (30 at S = 2, 66 at
     S = 4, halo 1): the float32 forms stream chunks of the cap through the
     templated kernel (70 frames at S = 4: 66 + 4), the bfloat16 order 0
-    runs the general form; F = 1 with a 121-tap list runs the general
-    form too. Against the plain version at rtol/atol 1e-5 (the bfloat16
-    one by _assert_bf16_close)."""
+    through the general form (at F = 40 one chunk, staged once; at F = 130
+    and S = 2 more frames than the general form's chunk, each chunk staged
+    once a pass of 4 taps); F = 1 with a 121-tap list runs the general
+    form, at F = 130 with 121 taps it streams chunks too. A ragged size
+    and one smaller than the taps' reach. Against the plain version at
+    rtol/atol 1e-5 (the bfloat16 one by _assert_bf16_close)."""
     dev = cuda_device()
     kw = RAW_GENERAL[form][0]
     scale = 4 if frames == 70 else 2
-    radius, prune = (4, 60.0) if frames == 1 else (1, 1.5)
-    ins = _raw_merge_inputs(np.random.default_rng(frames), frames, 40, 72, dev)
+    radius, prune = (4, 60.0) if frames == 1 or (frames == 130 and form == "certless") else (1, 1.5)
+    ins = _raw_merge_inputs(np.random.default_rng(frames), frames, hh, hw, dev)
     args = (((0, 1), (1, 2)), scale, radius, 1.0, (scale / 2.0) ** 2, prune)
     LAUNCHES.clear()
     got = merge_raw(*ins, *args, **kw)
@@ -1347,18 +1381,28 @@ RGB_GENERAL = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w", [(37, 61), (3, 5)])
-@pytest.mark.parametrize("scale,radius", [(5, 1), (6, 2), (2, 8), (3, 10)], ids=["S5", "S6", "r9", "r11"])
+@pytest.mark.parametrize(
+    "scale,radius,k_max,launched",
+    [(5, 1, None, "merge_fast_general"), (6, 2, None, "merge_fast_general"), (2, 8, 64.0, "merge_fast"),
+     (3, 10, 64.0, "merge_fast"), (7, 1, None, "merge_fast_general"), (2, 19, 1e4, "merge_fast"),
+     (5, 7, 64.0, "merge_fast_general"), (2, 28, 1e4, "merge_fast_general"), (1, 34, 1e4, "merge_fast_unstaged")],
+    ids=["S5", "S6", "r9", "r11", "S7", "r20", "S5-r8", "r29", "r35"])
 @pytest.mark.parametrize("form", list(RGB_GENERAL))
-def test_merge_general_form_matches_plain(form, scale, radius, h, w):
-    """The general kernel in the RGB merge's five forms at scales 5 and 6
-    and at tap radii 9 and 11 (radius 8 and 10, rb 1; k_max 64 keeps the
-    outer taps) in the phase-layout forms; the interleaved form
-    (use_pallas) past radius 8 raises, as merge_fast_pallas does. Against
-    the plain version at each form's tolerance."""
+def test_merge_general_form_matches_plain(form, scale, radius, k_max, launched, h, w):
+    """The RGB merge's five forms past the templated layouts' first build:
+    scales 5, 6 and 7 (phase rows over grid z past 1024 threads) and s = 5
+    at tap radius 8 on the general form; tap radii 9, 11 and 20 at s = 2-3
+    on the templated kernel (its staged halo now reaches 25; at radius 20
+    the tile keeps its rows, the frame buffers up to 166 KB); radius 29 on the
+    general form (an 8 x 8-pixel tile, 209 KB of frame buffers; k_max 64
+    or 1e4 keeps the outer taps); radius 35, past any staged
+    tile, on the unstaged kernel. The interleaved form (use_pallas) past
+    radius 8 raises, as merge_fast_pallas does. Against the plain version
+    at each form's tolerance."""
     dev = cuda_device()
     kw, tol = RGB_GENERAL[form]
     ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(scale * 3 + h), 3, h, w)]
-    args = (scale, radius, 1.0, 64.0 if radius > 2 else (scale / 2.0) ** 2)
+    args = (scale, radius, 1.0, k_max or (scale / 2.0) ** 2)
     kw = dict(kw, prune_exp=1.5)
     if form == "interleaved" and radius > 7:
         with pytest.raises(ValueError, match="merge_fast_pallas"):
@@ -1367,7 +1411,7 @@ def test_merge_general_form_matches_plain(form, scale, radius, h, w):
     LAUNCHES.clear()
     got = merge_fast(*ins, *args, **kw)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == {"merge_fast_general": 1}
+    assert dict(LAUNCHES) == {launched: 1}
     want = fast_merge.merge_burst_fast(*ins, *args, **kw)
     if tol is None:
         _assert_bf16_close(got, want, BF16_TOL)

@@ -102,34 +102,95 @@ BAYER = ((0, 1), (1, 2))
 
 
 @pytest.mark.parametrize(
-    "scale,radius,prune,cfa,frames,form,bf16,general",
+    "scale,radius,prune,cfa,frames,form,bf16,general,launched",
     [
-        (2, 1, 1.5, BAYER, 5, fast_merge.CERTLESS, False, False),  # the main path
-        (4, 1, 1.5, BAYER, 66, fast_merge.ORDER0, True, False),
-        (2, 3, 20.0, BAYER, 22, fast_merge.ORDER0, True, False),  # 69 taps to +-4: halo 2, a cap of 22
-        (5, 1, 1.5, BAYER, 5, fast_merge.CERTLESS, False, True),
-        (6, 1, 1.5, BAYER, 5, fast_merge.PER_CELL, False, True),
-        (2, 4, 60.0, BAYER, 5, fast_merge.CERTLESS, False, True),  # 121 taps
-        (2, 1, 1.5, ((0, 1), (2, 1)), 5, fast_merge.NINE_MOMENTS, False, True),
-        (2, 1, 1.5, ((1, 1), (0, 2)), 5, fast_merge.ORDER0, False, True),
-        (2, 1, 1.5, BAYER, 31, fast_merge.CERTLESS, False, False),  # streamed
-        (2, 1, 1.5, BAYER, 31, fast_merge.ORDER0, False, False),  # streamed
-        (2, 1, 1.5, BAYER, 31, fast_merge.ORDER0, True, True),  # the bfloat16 order 0 has no streamed form
-        (4, 1, 1.5, BAYER, 67, fast_merge.ORDER0, True, True),
-        (2, 2, 20.0, BAYER, 23, fast_merge.ORDER0, True, True),  # 49 taps to +-3: halo 2
-        (2, 1, 1.5, BAYER, 500, fast_merge.PER_CELL, False, False),  # a frame ring: no cap
+        (2, 1, 1.5, BAYER, 5, fast_merge.CERTLESS, False, False, "merge_raw"),  # the main path
+        (4, 1, 1.5, BAYER, 66, fast_merge.ORDER0, True, False, "merge_raw"),
+        (2, 3, 20.0, BAYER, 22, fast_merge.ORDER0, True, False, "merge_raw"),  # 69 taps to +-4: halo 2, a cap of 22
+        (5, 1, 1.5, BAYER, 5, fast_merge.CERTLESS, False, True, "merge_raw_general"),
+        (6, 1, 1.5, BAYER, 5, fast_merge.PER_CELL, False, True, "merge_raw_general"),
+        (2, 4, 60.0, BAYER, 5, fast_merge.CERTLESS, False, True, "merge_raw_general"),  # 121 taps
+        # other patterns: the non-Bayer kernel, not the general form
+        (2, 1, 1.5, ((0, 1), (2, 1)), 5, fast_merge.NINE_MOMENTS, False, False, "merge_raw_nonbayer"),
+        (2, 1, 1.5, ((1, 1), (0, 2)), 5, fast_merge.ORDER0, False, False, "merge_raw_nonbayer"),
+        (2, 1, 1.5, BAYER, 31, fast_merge.CERTLESS, False, False, "merge_raw_stream"),  # streamed
+        (2, 1, 1.5, BAYER, 31, fast_merge.ORDER0, False, False, "merge_raw_stream"),  # streamed
+        # the bfloat16 order 0 has no templated streamed form: the general form streams it
+        (2, 1, 1.5, BAYER, 31, fast_merge.ORDER0, True, True, "merge_raw_general"),
+        (4, 1, 1.5, BAYER, 67, fast_merge.ORDER0, True, True, "merge_raw_general"),
+        (2, 2, 20.0, BAYER, 23, fast_merge.ORDER0, True, True, "merge_raw_general"),  # 49 taps to +-3: halo 2
+        (2, 1, 1.5, BAYER, 500, fast_merge.PER_CELL, False, False, "merge_raw"),  # a frame ring: no cap
+        (5, 5, 100.0, ((2, 1), (1, 0)), 5, fast_merge.PER_CELL, False, True, "merge_raw_general"),  # 169 taps
+        # past any general block (3,721 taps to +-30: the cells ring and tap
+        # table past 232,448 bytes): the non-Bayer kernel; the certless form
+        # still fits there
+        (2, 29, 1e4, BAYER, 5, fast_merge.PER_CELL, False, True, "merge_raw_nonbayer"),
+        (2, 29, 1e4, BAYER, 5, fast_merge.NINE_MOMENTS, False, True, "merge_raw_nonbayer"),
+        (2, 29, 1e4, BAYER, 5, fast_merge.CERTLESS, False, True, "merge_raw_general"),
     ],
 )
-def test_raw_merge_uses_general_exactly_past_the_builds(scale, radius, prune, cfa, frames, form, bf16, general):
+def test_raw_merge_uses_general_exactly_past_the_builds(scale, radius, prune, cfa, frames, form, bf16, general,
+                                                        launched):
     """merge_raw runs the templated kernels wherever they are built for the
     call (scales 1-4, taps within +-4, Bayer; the bfloat16 order 0
-    within the frame cap of the taps' halo) and the general kernel
-    elsewhere."""
+    within the frame cap of the taps' halo), the general form on every
+    other Bayer merge that a general block takes and the non-Bayer kernel
+    on other patterns and past any general block."""
     taps = tuple(fast_merge._active_taps(radius + 1, 1.0, scale, (scale / 2.0) ** 2, prune))
-    if radius == 4:
-        assert len(taps) == 121
+    if radius >= 4:
+        assert len(taps) == (2 * radius + 3) ** 2
     cap = _frame_cap(scale, min(raw_kernel.tap_halo(taps), 2)) if scale <= 4 else 0
     assert raw_kernel.uses_general(scale, taps, cfa, frames, form, cap, bf16) == general
+    assert raw_kernel.kernel_name(scale, taps, cfa, frames, form, cap, bf16) == launched
+
+
+@pytest.mark.parametrize("form", [fast_merge.CERTLESS, fast_merge.ORDER0, fast_merge.NINE_MOMENTS,
+                                  fast_merge.PER_CELL])
+def test_raw_general_block_fits(form):
+    """The RAW general form's block (general_block) at every scale 1-8,
+    staged halos 1-15 (taps reaching 0-30) with the most taps that reach
+    (the full square) and 1, 5, 40 and 130 frames: its threads within
+    the kernel's 512 (a block's z within 64), its phase groups covering
+    the scale's phases with none empty, its shared bytes the layout's
+    (forms 0 and 1: the chunk's frames, each four planes' tile and halo
+    and the residual, 8 B a site, and two ints a tap; forms 2 and 3: the
+    ring's three slots, 8 B a site, and two float4 rows a tap) within
+    232,448, the chunk (forms 0 and 1) the most frames that fit, at least
+    one; None exactly where not one frame fits."""
+    cells = form in (fast_merge.NINE_MOMENTS, fast_merge.PER_CELL)
+    for scale in range(1, 9):
+        n = scale * scale
+        for halo in range(1, 16):
+            n_taps = (4 * halo + 1) ** 2
+            for frames in (1, 5, 40, 130):
+                blk = raw_kernel.general_block(scale, halo, n_taps, frames, form)
+                if cells:
+                    stage = 4 * (1 + 2 * halo) * (8 + 2 * halo) + 3 * 10
+                    smem = ((3 * stage + 1) // 2 * 2) * 8 + 32 * n_taps
+                    if smem > 232448:
+                        assert blk is None
+                        continue
+                    tw, th, phases, groups, chunk, got = blk
+                    assert (tw, th, chunk, got) == (8, 1, 0, smem)
+                    assert (phases + 3) // 4 * 32 <= 512 and phases <= 32
+                    assert 1 + groups * (phases - 1) >= n > 1 + (groups - 1) * (phases - 1) or groups == 1 == n
+                    continue
+                tw, th = (16, 4 if n <= 8 else (2 if n <= 16 else 1)) if n <= 16 else (8, 1)
+                frame = (4 * (th + 2 * halo) * (tw + 2 * halo) + tw * th) * 8
+                fit = (232448 - 8 * n_taps) // frame
+                if fit < 1:
+                    assert blk is None
+                    continue
+                assert blk[:2] == (tw, th)
+                _, _, phases, groups, chunk, smem = blk
+                assert tw * th * phases <= 512 and phases <= 64
+                assert phases * groups >= n > phases * (groups - 1)
+                assert chunk == min(frames, fit) >= 1
+                assert smem == chunk * frame + 8 * n_taps <= 232448
+    # the S = 5 check's blocks (8 x 1 pixels x 25 phases; the cells forms one
+    # group a pair), and 3,721 taps past any cells block
+    assert raw_kernel.general_block(5, 1, 25, 5, form)[:5] == ((8, 1, 25, 1, 0) if cells else (8, 1, 25, 1, 5))
+    assert (raw_kernel.general_block(2, 15, 3721, 5, form) is None) == cells
 
 
 @pytest.mark.parametrize("form", [fast_merge.CERTLESS, fast_merge.ORDER0, fast_merge.NINE_MOMENTS,
@@ -175,6 +236,61 @@ def test_cell_table(cfa):
         assert chains[0, 0].tolist() == [2, 1, 5] and chains[1, 1].tolist() == [5, 1, 2]
 
 
+def _staged_offset(z, g, ky, kx, sa, sw):
+    """A transcription of csrc/merge_raw.cu's staged_offset: the site
+    parity z reads for a tap (ky, kx) of group g, plane z ^ g at
+    ((a + ky) // 2, (b + kx) // 2)."""
+    return (z ^ g) * sa + (((z >> 1) + ky) >> 1) * sw + (((z & 1) + kx) >> 1)
+
+
+@pytest.mark.parametrize("radius,scale,centroid", [(4, 2, None), (5, 5, None), (5, 5, 1.0), (7, 3, 4.0)])
+def test_tap_table_past_81_taps(radius, scale, centroid):
+    """The host table of the templated and the general forms beyond the
+    templated kernels' 81 taps (121, 169 and 289 taps), against a
+    brute-force listing: the group ends (cumulative counts of the tap
+    parities g = 2 (ky % 2) + kx % 2), each group's rows with the
+    centroid's taps first and in list order within, each row's centroid
+    flag and list index, the staged halo (the taps' reach in half-res
+    sites), and the staged offsets the kernels form from each row: every
+    parity reads a site inside its staged tile, at an offset whose
+    difference from parity 0's is the group's own."""
+    cfa = BAYER
+    taps = tuple(fast_merge._active_taps(radius + 1, 1.0, scale, (scale / 2.0) ** 2, 1e3))
+    assert len(taps) == (2 * radius + 3) ** 2 > 81
+    inner = None if centroid is None else frozenset(
+        fast_merge._active_taps(radius + 1, 1.0, scale, (scale / 2.0) ** 2, centroid))
+    table = raw_kernel.tap_table(taps, cfa, inner)
+    assert table[:4].tolist() == [0, 1, 1, 2]
+    rows = table[8:].reshape(-1, 3)
+    ends, listed = [], []
+    for g in range(4):
+        group = [(n, t) for n, t in enumerate(taps) if 2 * (t[0] % 2) + t[1] % 2 == g]
+        flag = [inner is None or t in inner for _, t in group]
+        listed += [n for (n, _), c in zip(group, flag) if c] + [n for (n, _), c in zip(group, flag) if not c]
+        ends.append(len(listed))
+    assert table[4:8].tolist() == ends
+    assert [int(a) >> 1 for a in rows[:, 2]] == listed
+    assert [tuple(r) for r in rows[:, :2].tolist()] == [taps[n] for n in listed]
+    assert [int(a) & 1 for a in rows[:, 2]] == [int(inner is None or taps[n] in inner) for n in listed]
+    np.testing.assert_array_equal(raw_kernel.table_rows(taps, cfa, inner), rows)
+    halo = raw_kernel.tap_halo(taps)
+    reach = radius + 1  # the taps' largest |ky|, |kx|
+    assert halo == (reach + 1) // 2
+    for tw, th in ((8, 1), (16, 4)):  # the general cells and certless tiles
+        sw, sa = tw + 2 * halo, (th + 2 * halo) * (tw + 2 * halo)
+        for ky, kx, _ in rows.tolist():
+            g = 2 * (ky & 1) + (kx & 1)
+            o0 = _staged_offset(0, g, ky, kx, sa, sw)
+            for z in range(4):
+                o = _staged_offset(z, g, ky, kx, sa, sw) - o0 + _staged_offset(0, g, g >> 1, g & 1, sa, sw)
+                assert o == _staged_offset(z, g, g >> 1, g & 1, sa, sw)  # the group's fixed offset
+                # from the tile's corner pixels, at (halo, halo) and (halo + th - 1,
+                # halo + tw - 1) of their plane, the site stays in the staged tile
+                for y, x in ((0, 0), (th - 1, tw - 1)):
+                    assert 0 <= halo + y + ((z >> 1) + ky) // 2 < th + 2 * halo
+                    assert 0 <= halo + x + ((z & 1) + kx) // 2 < sw
+
+
 def test_general_taps_past_81():
     """The general kernel's device table: the 121 taps of +-5 in the
     list's order, (ky, kx, centroid bit), the bit cleared outside the
@@ -191,12 +307,14 @@ def test_general_taps_past_81():
 
 
 def test_rgb_merge_uses_general_past_the_build():
-    """merge_fast's general kernel runs at scales past 4 and tap radii past
-    8 (kMaxRadius), the templated one elsewhere; the interleaved form
+    """merge_fast's general form runs at scales past 4 and taps reaching
+    past 25 (kMaxRadius, the templated layouts' staged halo), the
+    templated one elsewhere (tap radii 9-25 too); the interleaved form
     (use_pallas) refuses a tap radius past 8 on either device, as
     merge_fast_pallas does, and so does a scale below 1."""
     assert not merge_kernel.uses_general(2, 2) and not merge_kernel.uses_general(4, 8)
-    assert merge_kernel.uses_general(5, 2) and merge_kernel.uses_general(2, 9)
+    assert not merge_kernel.uses_general(2, 9) and not merge_kernel.uses_general(4, 25)
+    assert merge_kernel.uses_general(5, 2) and merge_kernel.uses_general(2, 26) and merge_kernel.uses_general(0, 1)
     z = [torch.zeros(s) for s in ((2, 8, 8, 3), (2, 8, 8, 2), (2, 8, 8, 3), (8, 8, 3))]
     with pytest.raises(ValueError, match="merge_fast_pallas's 8-row halo"):
         merge_kernel.merge_fast(*z, 2, 8, 1.0, 1.0)
@@ -206,6 +324,46 @@ def test_rgb_merge_uses_general_past_the_build():
     for out in merge_kernel.merge_fast(*z, 5, 8, 1.0, 1.0, phase_output=True):
         assert out.shape == (5, 5, 3, 8, 8)
     assert not LAUNCHES
+
+
+def _templated_smem(scale: int, halo: int, form: int) -> int:
+    """A transcription of csrc/merge.cu's templated launch: two frame
+    buffers of its tile (kTileH rows of 32 pixels, Layout<S, kForm>) and
+    halo, 48 B a site, or (form 0) one parked output array."""
+    tile_h = {3: {1: 8, 2: 2}.get(scale, 1), 2: {1: 8, 2: 4}.get(scale, 2)}.get(form, 8)
+    threads = 32 * tile_h * (scale * scale if form == 3 else (scale if form == 2 else 1))
+    park = threads * scale * scale * 12 if form == 0 else 0
+    return max((tile_h + 2 * halo) * (32 + 2 * halo) * 48, park)
+
+
+@pytest.mark.parametrize("form", range(5))
+def test_rgb_general_tile_fits(form):
+    """The general form's block (general_tile) at every scale 1-8 and taps
+    reaching 0-30: at least one pixel and one phase row, its threads
+    within the form's bound (512 for form 3, else 1024), its phase rows
+    covering the scale in the groups over grid z, its shared bytes (two
+    frame buffers of the staged tile, 48 B a site; form 0's parked rows)
+    within 232,448; 8 pixels wide wherever a row of 8 fits, narrowed only
+    where it does not. Past a reach of 34 no staged tile fits (the
+    unstaged kernel's). The templated layouts within the same bytes at
+    scales 1-4 and reaches to 25."""
+    for scale in range(1, 9):
+        for halo in range(31):
+            tw, th, rows, groups, smem = merge_kernel.general_tile(scale, halo, form)
+            assert tw >= 1 and th >= 1 and 1 <= rows <= scale
+            assert tw * th * rows * scale <= (512 if form == 3 else 1024)
+            assert rows * groups >= scale and (rows - 1) * groups < scale
+            staged = (th + 2 * halo) * (tw + 2 * halo) * 48
+            assert smem == max(staged, th * rows * tw * scale * 12 if form == 0 else 0) <= 232448
+            if (1 + 2 * halo) * (8 + 2 * halo) * 48 <= 232448:
+                assert tw == 8
+            else:
+                assert (1 + 2 * halo) * (2 * tw + 2 * halo) * 48 > 232448
+            if scale <= 4 and halo <= 25:
+                assert _templated_smem(scale, halo, form) <= 232448
+    assert merge_kernel.general_tile(2, 34, form) is not None
+    assert merge_kernel.general_tile(1, 35, form) is None
+    assert merge_kernel.general_tile(5, 2, form)[:4] == (8, 1, 5, 1)
 
 
 def _max_radius(t: int) -> int:

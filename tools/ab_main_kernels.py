@@ -1,21 +1,33 @@
-"""In-call A/B of the main path's three kernels between checkouts of the
-port: the certless RAW merge at S=2 (RAW_BENCH's merge), the tile search
-at T=16, R=4 in "image" mode (the RAW path's fine level) and the RGB
-merge's phase layout at e^-1.5 (RGB_DEFAULT's merge), at chip_smoke.py's
-phase-3 shapes and seeds.
+"""In-call A/B of the port's merge and search kernels between checkouts,
+at chip_smoke.py's phase-3 shapes and seeds (F=5, 256 x 512 RGB, 128 x
+256 half-res RAW). Two groups of calls:
 
-Each checkout runs in a process of its own (the package is imported from
-that checkout's root and builds its kernels into its own build/), in the
-order given and then reversed (A B B A for two), that sequence
-``--repeat N`` times (default 1), so that the checkouts share the card's
-clock and power state. A run times each kernel by the profiler's device
-time over 200 calls, 3 rounds, and prints one JSON line; the summary
-gives each checkout's median, least and most round; then the card's name
-and power limit.
+- ``main``: the main path's three kernels, the certless RAW merge at S=2
+  (RAW_BENCH's merge), the tile search at T=16, R=4 in "image" mode (the
+  RAW path's fine level) and the RGB merge's phase layout at e^-1.5
+  (RGB_DEFAULT's merge), each 200 calls a round;
+- ``general``: the two merges' general forms, the RGB merge at s=5
+  (phase layout, interleaved, order 1, 9 slots, bfloat16) and at tap
+  radii 9 and 11, the RAW merge at S=5 in every form and knob, guided,
+  the bfloat16 order 0 on 40 frames, 109 taps and a non-Bayer pattern,
+  and four templated RAW forms at S=1-2 that share their source, each
+  ``--calls`` calls a round (default 30).
 
-Run on the card from the root of the repo, e.g. with the parent commit
+``--only main`` (the default) or ``--only general`` picks one group,
+``--only all`` both. Each checkout runs in a process of its own (the
+package imported from that checkout's root, its kernels built into its
+own build/), in the order given and then reversed (A B B A for two),
+that sequence ``--repeat N`` times (default 1), so that the checkouts
+share the card's clock and power state. A run times each call by the
+profiler's device time of its kernels (those whose names hold the
+call's symbol; one launch a call for the main group) over 3 rounds and
+prints one JSON line; the summary gives each checkout's median, least
+and most round and the first checkout's median over each other's; then
+the card's name and power limit.
+
+Run on the card from the root of the repo, with the parent commit
 unpacked into build/parent:
-    python tools/ab_main_kernels.py --repeat 5 parent=build/parent change=.
+    python tools/ab_main_kernels.py --repeat 4 --only all parent=build/parent change=.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from pathlib import Path
 CHILD = r'''
 import json, sys
 sys.path.insert(0, sys.argv[1])
+calls_n, only = int(sys.argv[2]), sys.argv[3]
 import numpy as np, torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -35,6 +48,7 @@ from multi_frame_super_resolution_tpu_torch.config import RAW_PORT_DEFAULT
 from multi_frame_super_resolution_tpu_torch.data import synthetic_burst
 from multi_frame_super_resolution_tpu_torch.kernels import merge, merge_raw, tile_search
 from multi_frame_super_resolution_tpu_torch.kernels.build import build_all
+from multi_frame_super_resolution_tpu_torch.models import fast_merge
 
 assert merge.__file__.startswith(str(__import__("pathlib").Path(sys.argv[1]).resolve()))
 build_all([merge.library, merge_raw.library, tile_search.library])
@@ -54,60 +68,122 @@ raw = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
     rng.random((F, 2, 2, hh, hw)), (rng.random((F, hh, hw, 2)) - 0.5) * 4.0,
     rng.random((F, hh, hw, 3)), omega, omega,
 )]
+raw40 = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+    rng.random((40, 2, 2, hh, hw)), (rng.random((40, hh, hw, 2)) - 0.5) * 4.0, rng.random((40, hh, hw, 3)),
+)] + raw[3:]
 burst, offsets = synthetic_burst(rng, F, hh, hw, 3.0)
 burst = burst + 0.01 * rng.standard_normal(burst.shape)
 grid = (F - 1, -(-hh // 16), -(-hw // 16))
 rounded = np.round(-offsets[1:])[:, None, None, :] + rng.integers(-2, 3, grid + (2,))
 search = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (burst[0], burst[1:], rounded)]
 cfa = RAW_PORT_DEFAULT.cfa_pattern
-calls = {
-    "merge_raw S=2 (RAW_BENCH)": (
-        lambda: merge_raw.merge_raw(*raw, cfa, 2, 1, 1.0, 1.0, RAW_PORT_DEFAULT.merge.prune_exp), "merge_raw_kernel"),
-    "tile_search image 4x128x256": (lambda: tile_search.tile_search(*search, 16, 4, 0.0, True, "image"),
-                                    "tile_search_kernel"),
-    "merge_fast phase layout, e^-1.5": (lambda: merge.merge_fast(*rgb, 2, 1, 1.0, 1.0, phase_output=True,
-                                                                 prune_exp=1.5), "merge_fast_kernel"),
-}
+prune = 1.5
+calls = {}  # label: (call, kernel-name symbol, calls a round, warm-up calls)
+if only in ("main", "all"):
+    calls.update({
+        "merge_raw S=2 (RAW_BENCH)": (
+            lambda: merge_raw.merge_raw(*raw, cfa, 2, 1, 1.0, 1.0, RAW_PORT_DEFAULT.merge.prune_exp),
+            "merge_raw_kernel", 200, 20),
+        "tile_search image 4x128x256": (lambda: tile_search.tile_search(*search, 16, 4, 0.0, True, "image"),
+                                        "tile_search_kernel", 200, 20),
+        "merge_fast phase layout, e^-1.5": (
+            lambda: merge.merge_fast(*rgb, 2, 1, 1.0, 1.0, phase_output=True, prune_exp=prune),
+            "merge_fast_kernel", 200, 20),
+    })
+if only in ("general", "all"):
+    phase = dict(phase_output=True, prune_exp=prune)
+    phase5 = (5, 1, 1.0, 2.5**2)
+    raw5 = (cfa, 5, 1, 1.0, 2.5**2, prune)
+    raw2 = (cfa, 2, 1, 1.0, 1.0, prune)
+    cert4 = dict(order=1, moment_slots=4, centroid_cert=True)
+    guide = fast_merge.green_guide_planes(raw[0], cfa).contiguous()
+    rgb_forms = {
+        "merge_fast phase layout, e^-1.5, s=5": (phase5, phase),
+        "merge_fast interleaved, e^-6, s=5": (phase5, {}),
+        "merge_fast order 1, e^-1.5, s=5": (phase5, dict(phase, order=1)),
+        "merge_fast 9 slots, e^-1.5, s=5": (phase5, dict(phase, order=1, moment_slots=9)),
+        "merge_fast phase layout bf16, e^-1.5, s=5": (phase5, dict(phase, bf16=True)),
+        "merge_fast phase layout, e^-6, tap radius 9": ((2, 8, 1.0, 64.0), dict(phase, prune_exp=6.0)),
+        "merge_fast phase layout, e^-6, tap radius 11": ((2, 10, 1.0, 64.0), dict(phase, prune_exp=6.0)),
+    }
+    raw_forms = {
+        "merge_raw S=5 certless": (raw, raw5, {}),
+        "merge_raw S=5 order 0": (raw, raw5, dict(order=0)),
+        "merge_raw S=5 9 slots": (raw, raw5, dict(order=1, moment_slots=9)),
+        "merge_raw S=5 cert4 (form 3)": (raw, raw5, cert4),
+        "merge_raw S=5 exact_weights": (raw, raw5, dict(order=1, moment_slots=4, exact_weights=True)),
+        "merge_raw S=5 exact_weights 9 slots": (raw, raw5, dict(order=1, moment_slots=9, exact_weights=True)),
+        "merge_raw S=5 cert block": (raw, raw5, dict(cert4, centroid_block=True)),
+        "merge_raw S=5 cert shared": (raw, raw5, dict(cert4, centroid_shared_res=True)),
+        "merge_raw S=5 cert prune": (raw, raw5, dict(cert4, centroid_prune=1.0)),
+        "merge_raw S=5 cert bf16": (raw, raw5, dict(cert4, centroid_bf16=True)),
+        "merge_raw S=5 order 0 bf16": (raw, raw5, dict(order=0, bf16=True)),
+        "merge_raw S=5 guided": (raw, raw5, dict(guide=guide)),
+        "merge_raw order 0 bf16, F=40, S=2": (raw40, raw2, dict(order=0, bf16=True)),
+        "merge_raw 109 taps, S=2": (raw, (cfa, 2, 5, 1.0, 1.0, 40.0), {}),
+        "merge_raw cfa ((0, 1), (2, 1)), S=2": (raw, (((0, 1), (2, 1)), 2, 1, 1.0, 1.0, prune), {}),
+        # templated forms beside them (their instantiations share the source)
+        "templated: merge_raw 9 slots S=2": (raw, raw2, dict(order=1, moment_slots=9)),
+        "templated: merge_raw cert4 S=2": (raw, raw2, cert4),
+        "templated: merge_raw cert shared S=2": (raw, raw2, dict(cert4, centroid_shared_res=True)),
+        "templated: merge_raw order 0 bf16 S=1": (raw, (cfa, 1, 1, 1.0, 0.25, prune), dict(order=0, bf16=True)),
+    }
+    calls.update({label: (lambda a=a, kw=kw: merge.merge_fast(*rgb, *a, **kw), "merge", calls_n, 3)
+                  for label, (a, kw) in rgb_forms.items()})
+    calls.update({label: (lambda i=i, a=a, kw=kw: merge_raw.merge_raw(*i, *a, **kw), "merge", calls_n, 3)
+                  for label, (i, a, kw) in raw_forms.items()})
 out = {}
-for label, (call, symbol) in calls.items():
-    for _ in range(20):
+for label, (call, symbol, n, warm) in calls.items():
+    for _ in range(warm):
         call()
     torch.cuda.synchronize()
     rounds = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(200):
+            for _ in range(n):
                 call()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and symbol in e.key]
-        rounds.append(sum(e.self_device_time_total for e in rows) / 1e3 / sum(e.count for e in rows))
+        rounds.append(sum(e.self_device_time_total for e in rows) / 1e3 / n)
     out[label] = rounds
 print(json.dumps(out))
 '''
 
 
 def main(argv) -> int:
-    repeat = 1
-    if argv[:1] == ["--repeat"]:
-        repeat, argv = int(argv[1]), argv[2:]
+    repeat, calls, only = 1, 30, "main"
+    while argv[:1] in (["--repeat"], ["--calls"], ["--only"]):
+        if argv[0] == "--repeat":
+            repeat = int(argv[1])
+        elif argv[0] == "--calls":
+            calls = int(argv[1])
+        else:
+            only = argv[1]
+        argv = argv[2:]
+    if only not in ("main", "general", "all"):
+        print(f"--only takes main, general or all, not {only}")
+        return 2
     roots = [a.split("=", 1) for a in argv]
     order = (roots + roots[::-1]) * repeat
     results = {name: {} for name, _ in roots}
     for name, root in order:
-        proc = subprocess.run([sys.executable, "-c", CHILD, str(Path(root).resolve())], capture_output=True,
-                              text=True)
+        proc = subprocess.run([sys.executable, "-c", CHILD, str(Path(root).resolve()), str(calls), only],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr)
             return 1
         run = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"{name}: " + ", ".join(f"{k} {min(v):.5f} ms" for k, v in run.items()))
+        print(f"{name}: " + ", ".join(f"{k} {min(v):.5f} ms" for k, v in run.items()), flush=True)
         for k, v in run.items():
             results[name].setdefault(k, []).extend(v)
-    for k in results[roots[0][0]]:
+    first = roots[0][0]
+    for k in results[first]:
+        medians = {name: sorted(r[k])[len(r[k]) // 2] for name, r in results.items()}
+        ratio = "".join(f"; {first} / {name} {medians[first] / medians[name]:.2f}x"
+                        for name in medians if name != first)
         print(f"{k}: " + "; ".join(
-            f"{name} median {sorted(r[k])[len(r[k]) // 2]:.5f}, least {min(r[k]):.5f}, most {max(r[k]):.5f} ms "
-            f"device time a launch ({len(r[k])} rounds)"
-            for name, r in results.items()))
+            f"{name} median {medians[name]:.5f}, least {min(r[k]):.5f}, most {max(r[k]):.5f} ms "
+            f"device time a call ({len(r[k])} rounds)" for name, r in results.items()) + ratio)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card)
