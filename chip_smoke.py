@@ -57,8 +57,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      built for the call, at the same shapes and tolerances:
      merge_fast_general (merge_fast_kernel<0, form>) at scale 5 in its
      five forms, and the templated merge at tap radii 9 and 11 (361 and
-     529 taps); merge_fast_unstaged (taps past any staged tile: radius 35,
-     s=1, F=5 at 16 x 32); tile_search_general at T=12, radius 0 and
+     529 taps); merge_fast_unstaged (the general form past a tap reach of
+     34: radius 35, s=1, F=5 at 16 x 32 and F=4 at 64 x 128, bands of tap
+     rows, frames and bands over grid z); tile_search_general at T=12, radius 0 and
      radius 30; merge_raw_general (the S = 0 instantiations of
      merge_raw_kernel and merge_raw_cells_kernel) at scale 5 in every form
      and knob, guided, 109 taps and the bfloat16 order 0 on 40 frames;
@@ -67,8 +68,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      their frame caps, 40 frames at S=2 and 70 at S=4).
 4. Paths on the card, each driven with the launch counts set to 0 just
    before and read just after (the former port limits among them: each
-   value a general, streamed or unstaged form runs, at the city
-   geometry (the unstaged kernel's on a 4 x 64 x 128 burst), its launch
+   value a general or streamed form runs, at the city geometry (taps
+   past a reach of 34 on a 4 x 64 x 128 burst), its launch
    set exact, 60 dB against its plain-kernel run):
    - polar_defog on a synthetic fog pair at 1024 x 1224 x 3 (one
      polarization angle of a 2448 x 2048 division-of-focal-plane sensor;
@@ -256,9 +257,10 @@ KERNELS = {  # name -> (source, the TPU kernel or JAX function it replaces)
     "merge_raw": (f"{PKG}/csrc/merge_raw.cu", "multi_frame_super_resolution_tpu/models/fast_merge.py:301"),
     "defog": (f"{PKG}/csrc/defog.cu", "multi_frame_super_resolution_tpu/pallas_ops/defog.py:35"),
 }
-# the general forms, the RGB merge's unstaged one, the RAW merge's
-# streamed and non-Bayer ones: each in its templated kernel's source,
-# replacing the same function
+# the general forms (the RGB one's launches past a tap reach of 34 under
+# merge_fast_unstaged, the name of the kernel they ran on before), the
+# RAW merge's streamed and non-Bayer ones: each in its templated kernel's
+# source, replacing the same function
 KERNELS.update({f"{name}_general": KERNELS[name] for name in ("merge_fast", "tile_search", "merge_raw")})
 KERNELS["merge_fast_unstaged"] = KERNELS["merge_fast"]
 KERNELS["merge_raw_stream"] = KERNELS["merge_raw_nonbayer"] = KERNELS["merge_raw"]
@@ -267,8 +269,10 @@ KERNELS["merge_raw_stream"] = KERNELS["merge_raw_nonbayer"] = KERNELS["merge_raw
 KERNEL_SYMBOLS = {
     "merge_fast": "merge_fast_kernel", "tile_warp": "tile_warp_kernel",
     "tile_search": "tile_search_kernel", "merge_raw": "merge_raw",  # every RAW kernel
-    "defog": "defog_kernel", "merge_fast_general": "merge_fast_kernel<0",
-    "merge_fast_unstaged": "merge_fast_unstaged_kernel",
+    "defog": "defog_kernel",
+    # the general form and, where it splits frames or taps over blocks,
+    # the kernel that adds the parts: both in a call's time
+    "merge_fast_general": "merge_fast_", "merge_fast_unstaged": "merge_fast_",
     "tile_search_general": "tile_search_general_kernel", "merge_raw_general": "_kernel<0",
     "merge_raw_stream": "merge_raw_kernel", "merge_raw_nonbayer": "merge_raw_nonbayer_kernel",
 }
@@ -379,8 +383,8 @@ WORK.update({
     # reckoned as cert4 (an upper bound: the taps outside the centroid add
     # m00 and b0 alone)
     "merge_raw prune S=5": (8 + 32 + 8 / 5 + 8 / 5, 2),
-    # the unstaged form's check at s = 1: each column's, row's and tap's
-    # terms on one phase
+    # the general form's checks at s = 1 (a tap reach of 35): each
+    # column's, row's and tap's terms on one phase
     "merge_fast s=1": (4 + 12 + 1 + 4 + 7, 1),
 })
 
@@ -722,11 +726,18 @@ def main() -> int:
          ORDER1_TOL),
         ("general phase layout bf16, e^-1.5, s=5", phase5, dict(phase, bf16=True), "merge_fast bf16 s=5", BF16_TOL),
     ]
-    # taps reaching past any staged tile (34): the unstaged kernel, at s=1
-    # on a small burst (5,041 taps; the plain version loops over them)
-    unstaged_ins = [x[:, :16, :32].contiguous() for x in rgb_ins[:3]] + [rgb_ins[3][:16, :32].contiguous()]
-    merge_unstaged = [  # (label, args, keyword args, WORK key, tolerance)
-        ("unstaged phase layout, e^-6, tap radius 35, s=1, 16 x 32", (1, 34, 1.0, 1e4),
+    # taps reaching past 34 (5,041 taps; the plain version loops over
+    # them), the general form staged in bands of tap rows, launched as
+    # merge_fast_unstaged (the kernel these merges ran on before): at s=1
+    # on 5 x 16 x 32 (frames and bands spread over grid z) and on the limit
+    # path's 4 x 64 x 128
+    def crop(f, h, w):
+        return [x[:f, :h, :w].contiguous() for x in rgb_ins[:3]] + [rgb_ins[3][:h, :w].contiguous()]
+
+    merge_unstaged = [  # (label, inputs, args, keyword args, WORK key, tolerance)
+        ("general phase layout, e^-6, tap reach 35, s=1, 16 x 32", crop(F, 16, 32), (1, 34, 1.0, 1e4),
+         dict(phase, prune_exp=6.0), "merge_fast s=1", KERNEL_TOL),
+        ("general phase layout, e^-6, tap reach 35, s=1, 4 x 64 x 128", crop(4, 64, 128), (1, 34, 1.0, 1e4),
          dict(phase, prune_exp=6.0), "merge_fast s=1", KERNEL_TOL),
     ]
     iper_np, ipar_np = synthetic_polar_pair(rng, DEFOG_H, DEFOG_W)
@@ -869,9 +880,9 @@ def main() -> int:
         "merge_raw_nonbayer": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
                                 raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
                                for label, ins, args, kw, _, tol in raw_nonbayer],
-        "merge_fast_unstaged": [(f"merge {label}", raw_call(kmerge.merge_fast, unstaged_ins, args, kw),
-                                 raw_call(fast_merge.merge_burst_fast, unstaged_ins, args, kw), tol)
-                                for label, args, kw, _, tol in merge_unstaged],
+        "merge_fast_unstaged": [(f"merge {label}", raw_call(kmerge.merge_fast, ins, args, kw),
+                                 raw_call(fast_merge.merge_burst_fast, ins, args, kw), tol)
+                                for label, ins, args, kw, _, tol in merge_unstaged],
     }
     max_abs_err, out_bytes = {}, {}
     for name, checks in calls.items():
@@ -947,10 +958,10 @@ def main() -> int:
           for name, variants in (("merge_raw_general", raw_general), ("merge_raw_stream", raw_stream),
                                  ("merge_raw_nonbayer", raw_nonbayer))
           for label, ins, args, _, key, _ in variants),
-        *(("merge_fast_unstaged", f"merge {label}", unstaged_ins,
-           unstaged_ins[0].shape[:3].numel() * n_taps(args[0], args[3], kw.get("prune_exp", 6.0), args[1])
-           * args[0] ** 2, key)
-          for label, args, kw, key, _ in merge_unstaged),
+        *(("merge_fast_unstaged", f"merge {label}", ins,
+           ins[0].shape[:3].numel() * n_taps(args[0], args[3], kw.get("prune_exp", 6.0), args[1]) * args[0] ** 2,
+           key)
+          for label, ins, args, kw, key, _ in merge_unstaged),
     ]
     # the variant each kernel's main path runs: its entry in the kernels line
     main_variant = {name: label for name, label, *_ in reversed(timed)}
@@ -1206,7 +1217,7 @@ def main() -> int:
 
     # the port's former limits, each a value the JAX function computes and
     # the templated kernels are not built for, through the general kernel
-    # forms at the city geometry (the unstaged kernel's on the small
+    # forms at the city geometry (taps past a reach of 34 on the small
     # burst): the run's launches exactly (the general
     # form once per merge and once per pyramid level), the output's shape,
     # finite values in [0, 1], and 60 dB against the same path on the
@@ -1266,8 +1277,8 @@ def main() -> int:
         ("raw (RAW_CERT scale 5)", raw_fn, raw_rot, dataclasses.replace(RAW_CERT, scale=5), "merge_raw_general", None),
         ("raw (RAW_EXACT scale 5)", raw_fn, raw_rot, dataclasses.replace(RAW_EXACT, scale=5), "merge_raw_general",
          None),
-        # taps past any staged tile (a reach of 35, 5,041 taps) on the small
-        # burst: the plain run loops over every tap
+        # taps past a reach of 34 (35: 5,041 taps, the general form in bands
+        # of tap rows) on the small burst: the plain run loops over every tap
         ("rgb (RGB_DEFAULT scale 1, radius 34, e^-1e4: tap radius 35) on 4 x 64 x 128", rgb_fn, rgb_small.to(dev),
          dataclasses.replace(RGB_DEFAULT, scale=1, merge=MergeConfig(radius=34, prune_exp=1e4)),
          "merge_fast_unstaged", None),
@@ -2078,11 +2089,12 @@ def device_time(call, symbol: str | None = None, iters: int = 20) -> tuple:
     cost that a loop timed with events includes when the wrapper is
     slower than the kernel. A profile that recorded no device work at all
     (seen once in a run of many profiles) is taken again, with a note,
-    up to twice. Each call given a ``symbol`` launches that kernel once,
-    so its time is the mean over the launches the profile recorded: a
-    profile that recorded fewer launches than calls (seen as a time 40-60%
-    under the kernel's other readings) is noted, not divided by the
-    calls."""
+    up to twice. Each call given a ``symbol`` launches each kernel whose
+    name holds it once (the general RGB merge: its form and the kernel
+    that adds its parts), so its time is their total over the launches
+    the profile recorded of the most recorded one: a profile that
+    recorded fewer launches than calls (seen as a time 40-60% under the
+    kernel's other readings) is noted, not divided by the calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2102,10 +2114,13 @@ def device_time(call, symbol: str | None = None, iters: int = 20) -> tuple:
     if not rows:
         raise RuntimeError(f"the profiler saw no {symbol or 'device work'} among "
                            f"{[e.key[:80] for e in device_rows]}")
-    launches = sum(e.count for e in rows)
     total_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if symbol is None:
-        return total_ms / iters, launches / iters
+        return total_ms / iters, sum(e.count for e in rows) / iters
+    by_name = {}
+    for e in rows:  # the profile's rows of one kernel name (its instantiations) together
+        by_name[e.key] = by_name.get(e.key, 0) + e.count
+    launches = max(by_name.values())
     if launches != iters:
         print(f"device_time: the profile recorded {launches} launches of {symbol} in {iters} calls; "
               f"the time per launch is kept")

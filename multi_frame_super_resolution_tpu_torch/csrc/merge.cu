@@ -1,7 +1,6 @@
 // Static-tap kernel-regression merge for Hopper (sm_90a), RGB: the
 // templated kernel (scales 1-4, taps within +-25), described first; its
-// general form (S = 0: any scale, taps within +-34) after it; and the
-// unstaged kernel for taps past any staged tile, described last.
+// general form (S = 0: any scale, any taps, staged in pieces) after it.
 //
 // Replaces the TPU kernel multi_frame_super_resolution_tpu/pallas_ops/
 // merge.py::merge_fast_pallas (kernel body _make_kernel), and the default
@@ -152,37 +151,59 @@
 // bytes a block may opt in to. At tap radius 11 (529 taps, s = 2) they
 // take 77.8 KB, two blocks an SM.
 //
-// The general form (S = 0, merge_fast_kernel<0, form>): scales past 4,
-// and taps reaching past 25 at any scale, up to kMaxGeneralHalo = 34
-// (where one staged site a block still fits). It is the kernel above
-// with the scale at run time and a thread per (input pixel, output
-// phase) in every form (kRows = kCols = 1: 6, 12, 27 or 6 + 3 bfloat16x2
-// accumulators a thread, the form a template parameter), in a flat block
-// of tw x th pixels x `rows` phase rows (Geometry, from
-// kernels/merge.py::general_tile): 8 x 1 pixels x all 5 phase rows at
-// s = 5, 200 threads, several blocks an SM; grid z walks the groups of
-// phase rows past the form's thread bound (1024; form 3, 512), each
-// group restaging the tile (s = 6-8: two groups). A warp holds 8 pixels
-// at 4 phases, so a tap's two shared loads read 8 sites, each broadcast
-// to 4 lanes (one wavefront each; a warp of 32 pixels of one phase took
-// six, and measured slower). Staging (cp.async, double-buffered,
-// edge-clamped), the run table, the exponent (-1/2 log2(e) folded into
-// omega, two FMAs and ex2.approx), the accumulation and the rounding are
-// the templated kernel's, so it matches the plain version within the
-// same tolerances; form 0 parks each output array's rows of the block's
-// phase rows in shared memory and stores whole rows.
+// The general form (merge_fast_kernel<0, form>, S = 0, and
+// merge_fast_pieces_kernel<form>): scales past 4, and taps reaching past
+// 25 at any scale, any reach. It is the kernel above with the scale at
+// run time and a thread per (input pixel, output phase) in every form (6,
+// 12, 27 or 6 + 3 bfloat16x2 accumulators a thread, the form a template
+// parameter), in a flat block of tw x th pixels x `rows` phase rows (Geometry, from
+// kernels/merge.py::general_plan): 8 x 1 pixels x all 5 phase rows at
+// s = 5, 200 threads, several blocks an SM. A warp holds 8 pixels at 4
+// phases, so a tap's two shared loads read 8 sites, each broadcast to 4
+// lanes (one wavefront each; a warp of 32 pixels of one phase took six,
+// and measured slower). Staging (cp.async, double-buffered, edge-clamped),
+// the exponent (-1/2 log2(e) folded into omega, two FMAs and ex2.approx),
+// the accumulation and the rounding are the templated kernel's, so it
+// matches the plain version within the same tolerances; form 0 parks each
+// output array's rows of the block's phase rows in shared memory and
+// stores whole rows.
+// - Pieces. Where the whole tile and halo fit half the shared memory
+//   (every reach up to 22, the check's s = 5 among them) and the grid needs
+//   no split (below), the block stages them every frame and reads the runs
+//   from its parameters, as the templated kernel does
+//   (merge_fast_kernel<0, form>). Else the taps travel as pieces of the run
+//   list, in its order (merge_fast_pieces_kernel<form>; the whole tile is
+//   then one piece): a piece is a band of consecutive runs
+//   whose tap rows and columns span at most the plan's band x cols (bands
+//   of tap rows, and past any band a tap row in column chunks). Per
+//   (frame, piece) step the block stages the piece's (th + rows - 1) x (tw
+//   + cols - 1) sites and its runs (from the device table) into one of two
+//   buffers, the next step's copies in flight while this one accumulates.
+//   Each thread walks the runs of every piece in list order, so its taps
+//   keep the list's order. (One body for both, the whole tile as a
+//   single piece, cost the s = 5 forms up to 23% on an H100, and frame
+//   chunks inside merge_fast_kernel<0, form> its 9 slots 19%: the whole
+//   tile without a split keeps that kernel as it was.)
+// - Filling the card. Where the grid of pixel tiles and phase-row groups
+//   holds less than about one wave (132 SMs), grid z also spreads the
+//   frames (in chunks) and, except for bfloat16 (its per-frame bfloat16
+//   sums are one chain), the pieces (in groups) over blocks. Each block
+//   then writes its sums to a scratch slot, and merge_fast_combine_kernel
+//   adds the slots in a fixed order, frame chunks in frame order and the
+//   tap groups within each in list order: the result is deterministic.
 // Bound at chip_smoke.py's check (F=5, 256 x 512, s=5, 25 taps at
 // e^-1.5): 410 M (frame, pixel, tap, phase) items at 16.3 flops and one
 // exp (WORK): 105.6 us of operations; order 1 191.2 us, 9 slots 393.0
-// us, bfloat16 98.0 us. Staged bytes: a block stages (1 + 2 halo) x (8 +
-// 2 halo) sites of 24 B a frame for its 8 pixels' 192 B of values and
-// certainties, 7.5x the input bytes at halo 2 (118 MB from L2 over the
-// call, against 15.7 MB of values and certainties read once).
+// us, bfloat16 98.0 us; at s = 1 and a reach of 35 (5,041 taps, 4 x 64 x
+// 128) 165 M items at 28 flops, 69 us. Staged bytes: a block stages (1 +
+// 2 halo) x (8 + 2 halo) sites of 24 B a frame for its 8 pixels' 192 B
+// of values and certainties, 7.5x the input bytes at halo 2 (118 MB from
+// L2 over the call, against 15.7 MB of values and certainties read once).
 // Measured (tools/ab_main_kernels.py; NVIDIA H100 80GB HBM3, 700.00
-// W): ptxas 54, 56, 62, 77 and 52 registers for forms 0-4, no spills; at
-// s = 5 the phase layout takes 0.462 ms (22.7% of its bound, 3.0x under
-// the first general kernel), 9 slots 1.007 (39.0%, 1.9x); tap radius 11
-// on the templated layout 0.706 (59.3%, 6.8x); all times in PERF.md.
+// W): at s = 5 the phase layout takes 0.462 ms (22.7% of its bound, 3.0x
+// under the first general kernel), 9 slots 1.007 (39.0%, 1.9x); tap
+// radius 11 on the templated layout 0.706 (59.3%, 6.8x); all times, the
+// banded reach-35 form's among them, in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,10 +219,8 @@ namespace {
 constexpr int kMaxRadius = 25;
 constexpr int kTileW = 32;  // input columns of a block (one warp)
 constexpr int kMaxSmem = 232448;  // shared memory a block can opt in to (sm_90)
-// the general form's largest staged halo: one site a block (1 + 2 x 34)^2 x 48 B
-constexpr int kMaxGeneralHalo = 34;
 
-constexpr int kMaxRuns = 2 * kMaxGeneralHalo + 1;  // _active_taps gives one run per tap row
+constexpr int kMaxRuns = 2 * kMaxRadius + 1;  // _active_taps gives one run per tap row
 
 // The taps as runs: consecutive taps of one row, kx rising by 1.
 struct Taps {
@@ -242,16 +261,30 @@ struct Layout {
                                             : (kBf16 ? (S <= 2 ? 2 : 1) : (S <= 2 ? 4 : (S == 3 ? 2 : 1)));
 };
 
-// The general form's block (S = 0): tw x th pixels x `rows` phase rows of
-// the scale s, one thread each, flat (threadIdx.x); grid z walks the
-// groups of `rows` phase rows.
+// The general form's plan (kernels/merge.py::general_plan): a block of
+// tw x th pixels x `rows` phase rows of the scale s, one thread each, flat
+// (threadIdx.x); grid z walks the row_groups groups of `rows` phase rows,
+// the frame_chunks chunks of frames and the tap_groups groups of pieces.
+// In pieces, table (device int32) holds n_pieces pieces, each {ky_lo,
+// kx_lo, staged row length, staged sites} and {first run, runs, 0, 0},
+// then the runs in list order, each {ky s, kx0 s (float bits), its first
+// site's offset from the piece's, len}. A buffer holds max_sites staged
+// sites and max_runs runs.
 struct Geometry {
   int s, tw, th, rows;
+  int row_groups, frame_chunks, tap_groups;
+  int n_pieces, max_sites, max_runs;
+  const int* table;
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
 // 2^x by the SFU's ex2.approx (relative error ~2^-22; subnormal results
@@ -338,6 +371,229 @@ __device__ __forceinline__ void park_and_store_general(const float (&v)[3], floa
     if (col < valid && yy < h && pr < g.s) {
       out[((long long)yy * g.s + pr) * out_row + (long long)x0 * g.s * 3 + col] = park[i];
     }
+  }
+}
+
+// The general form in pieces (merge_fast_pieces_kernel<kForm>): a thread
+// per (pixel, phase), frames and pieces of the tap list split over grid z
+// as the plan says (see the file's head); a step stages a piece and its
+// runs from the device table, each run {ky s, kx0 s, its staged offset,
+// len} as the host computed it.
+constexpr int kPiecesThreads = 512;  // the pieces kernel's bound: up to 128 registers a thread
+
+template <int kForm>
+__global__ void __launch_bounds__(kPiecesThreads)
+merge_fast_pieces_kernel(const float* __restrict__ warped, const float* __restrict__ residual,
+                         const float* __restrict__ certainty, const float* __restrict__ omega,
+                         float* __restrict__ out, int frames, int h, int w, float rb, const Geometry geo) {
+  using L = Layout<0, kForm>;
+  const int sc = geo.s, tw = geo.tw, th = geo.th;
+  const float sf = (float)sc;
+  const int tid = threadIdx.x, n_threads = blockDim.x;
+  const int tx = tid % tw, ty = tid / tw % th;
+  // grid z: (frame chunk, tap group, group of phase rows), the last fastest
+  int z = blockIdx.z;
+  const int rg = z % geo.row_groups;
+  z /= geo.row_groups;
+  const int tg = z % geo.tap_groups, fc = z / geo.tap_groups;
+  const int ph = rg * geo.rows * sc + tid / (tw * th);
+  const int row0 = ph / sc, col0 = ph % sc;
+  const int y0 = blockIdx.y * th, x0 = blockIdx.x * tw;
+  const int y = y0 + ty, x = x0 + tx;
+  const bool inside = y < h && x < w && row0 < sc;
+  const long long plane = (long long)h * w;
+  const long long pix = (long long)min(y, h - 1) * w + min(x, w - 1);
+
+  // the block's frames [f_lo, f_hi) and pieces [p_lo, p_lo + np), evenly;
+  // step k is frame f_lo + k / np, piece p_lo + k % np
+  const int f_lo = fc * frames / geo.frame_chunks, f_hi = (fc + 1) * frames / geo.frame_chunks;
+  const int p_lo = tg * geo.n_pieces / geo.tap_groups;
+  const int np = (tg + 1) * geo.n_pieces / geo.tap_groups - p_lo;
+  const int steps = (f_hi - f_lo) * np;
+  // a piece: {ky_lo, kx_lo, staged row length, sites}, {first run, runs}
+  const int4* pieces = reinterpret_cast<const int4*>(geo.table);
+  const int4* runs = pieces + 2 * geo.n_pieces;  // {ky s, kx0 s (float bits), offset, len}
+
+  // two buffers: float4 sites [2][max_sites], float2 sites [2][max_sites],
+  // runs [2][max_runs]
+  extern __shared__ float4 smem[];
+  float2* smem2 = reinterpret_cast<float2*>(smem + 2 * geo.max_sites);
+  int4* sruns = reinterpret_cast<int4*>(smem2 + 2 * geo.max_sites);
+  const auto stage = [&](int k, int buf) {
+    const int4 pc = __ldg(pieces + 2 * (p_lo + k % np));  // ky_lo, kx_lo, sw, sites
+    const int sw = pc.z, sites = pc.w;
+    float4* a = smem + buf * geo.max_sites;
+    float2* b = smem2 + buf * geo.max_sites;
+    const long long fbase = (long long)(f_lo + k / np) * plane * 3;
+    for (int s = tid; s < sites; s += n_threads) {
+      const int r = min(max(y0 + pc.x + s / sw, 0), h - 1);
+      const int c = min(max(x0 + pc.y + s % sw, 0), w - 1);
+      const long long g = fbase + ((long long)r * w + c) * 3;
+      cp_async4(&a[s].x, warped + g);
+      cp_async4(&a[s].y, warped + g + 1);
+      cp_async4(&a[s].z, warped + g + 2);
+      cp_async4(&a[s].w, certainty + g);
+      cp_async4(&b[s].x, certainty + g + 1);
+      cp_async4(&b[s].y, certainty + g + 2);
+    }
+    const int2 rr = __ldg(reinterpret_cast<const int2*>(pieces + 2 * (p_lo + k % np) + 1));
+    for (int i = tid; i < rr.y; i += n_threads) cp_async16(sruns + buf * geo.max_runs + i, runs + rr.x + i);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  constexpr float kL = 1.4426950408889634f;  // log2(e)
+  const float o0 = -0.5f * kL * omega[pix * 3 + 0];
+  const float o1 = -0.5f * kL * omega[pix * 3 + 1];
+  const float o2 = -kL * omega[pix * 3 + 2];
+  const float phis_x = (((float)col0 + 0.5f) / sf - 0.5f) * sf;
+  const float phis_y = (((float)row0 + 0.5f) / sf - 0.5f) * sf;
+
+  float acc[L::kSlots][3];
+#pragma unroll
+  for (int k = 0; k < L::kSlots; ++k) acc[k][0] = acc[k][1] = acc[k][2] = 0.0f;
+  __nv_bfloat162 fsum[3];  // form 4: this frame's bfloat16 (num, den) sums per channel
+  float ey = 0.0f, ex = 0.0f;
+  const float2* res = reinterpret_cast<const float2*>(residual) + pix;
+  if (steps > 0) stage(0, 0);
+  for (int k = 0; k < steps; ++k) {
+    const int buf = k & 1, kp = k % np;
+    float2 r = make_float2(0.0f, 0.0f);
+    if (kp == 0) r = res[(f_lo + k / np) * plane];
+    if (k + 1 < steps) {
+      stage(k + 1, buf ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    const int4 pc = __ldg(pieces + 2 * (p_lo + kp));
+    const int sw = pc.z, sites = pc.w;
+    const int n_runs = __ldg(reinterpret_cast<const int*>(pieces + 2 * (p_lo + kp) + 1) + 1);
+    float4* a = smem + buf * geo.max_sites;
+    float2* b = smem2 + buf * geo.max_sites;
+    // value x certainty on the sites this thread copied, or for bfloat16
+    // both rounded; the barrier then publishes the step to the block
+    for (int s = tid; s < sites; s += n_threads) {
+      const float4 v = a[s];
+      const float2 c = b[s];
+      if constexpr (L::kBf16) {
+        const auto rnd = [](float x) { return __bfloat162float(__float2bfloat16_rn(x)); };
+        a[s] = make_float4(rnd(v.x), rnd(v.y), rnd(v.z), rnd(v.w));
+        b[s] = make_float2(rnd(c.x), rnd(c.y));
+      } else {
+        a[s] = make_float4(v.x * v.w, v.y * c.x, v.z * c.y, v.w);
+      }
+    }
+    __syncthreads();
+
+    if (kp == 0) {  // a frame's first piece: its residual terms
+      ey = fminf(fmaxf(r.x, -rb), rb) * sf + phis_y;
+      ex = fminf(fmaxf(r.y, -rb), rb) * sf + phis_x;
+      if constexpr (L::kBf16) fsum[0] = fsum[1] = fsum[2] = __float2bfloat162_rn(0.0f);
+    }
+    if (inside) {
+      const int4* sr = sruns + buf * geo.max_runs;
+      const int my_site = ty * sw + tx;  // the run offsets count from the piece's first site
+#pragma unroll 1
+      for (int run = 0; run < n_runs; ++run) {
+        const int4 rn = sr[run];
+        // the row's terms, shared by its taps: A = dy^2 o_yy, B = dy o_xy
+        const float dy = __int_as_float(rn.x) - ey;
+        const float qa = dy * dy * o1;
+        const float qb = dy * o2;
+        const float4* pa = a + my_site + rn.z;
+        const float2* pb = b + my_site + rn.z;
+        float kxs = __int_as_float(rn.y);
+#pragma unroll 1
+        for (int t = 0; t < rn.w; ++t, kxs += sf) {
+          const float4 va = pa[t];  // v0 c0, v1 c1, v2 c2, c0 (form 4: v0, v1, v2, c0)
+          const float2 vb = pb[t];  // c1, c2
+          const float dx = kxs - ex;
+          const float wgt = exp2_approx(fmaf(dx, fmaf(dx, o0, qb), qa));
+          if constexpr (L::kBf16) {
+            const __nv_bfloat16 wb = __float2bfloat16_rn(wgt);
+            const float vs[3] = {va.x, va.y, va.z}, cs[3] = {va.w, vb.x, vb.y};
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              const __nv_bfloat16 cw = __hmul_rn(wb, __float2bfloat16_rn(cs[c]));
+              fsum[c] = __hadd2(fsum[c], __hmul2_rn(__floats2bfloat162_rn(vs[c], 1.0f), __bfloat162bfloat162(cw)));
+            }
+          } else if constexpr (kForm == 3) {
+            const float wdy = wgt * dy, wdx = wgt * dx;
+            const float wm[6] = {wgt, wdy, wdx, wdy * dy, wdy * dx, wdx * dx};
+            const float cs[3] = {va.w, vb.x, vb.y};
+            const float vs[3] = {va.x, va.y, va.z};
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+#pragma unroll
+              for (int m = 0; m < 6; ++m) acc[m][c] = fmaf(wm[m], cs[c], acc[m][c]);
+#pragma unroll
+              for (int m = 0; m < 3; ++m) acc[6 + m][c] = fmaf(wm[m], vs[c], acc[6 + m][c]);
+            }
+          } else if constexpr (L::kOrder1) {
+            const float wdy = wgt * dy, wdx = wgt * dx;
+            acc[0][0] = fmaf(wgt, va.w, acc[0][0]);
+            acc[0][1] = fmaf(wgt, vb.x, acc[0][1]);
+            acc[0][2] = fmaf(wgt, vb.y, acc[0][2]);
+            acc[1][0] = fmaf(wdy, va.w, acc[1][0]);
+            acc[1][1] = fmaf(wdy, vb.x, acc[1][1]);
+            acc[1][2] = fmaf(wdy, vb.y, acc[1][2]);
+            acc[2][0] = fmaf(wdx, va.w, acc[2][0]);
+            acc[2][1] = fmaf(wdx, vb.x, acc[2][1]);
+            acc[2][2] = fmaf(wdx, vb.y, acc[2][2]);
+            acc[3][0] = fmaf(wgt, va.x, acc[3][0]);
+            acc[3][1] = fmaf(wgt, va.y, acc[3][1]);
+            acc[3][2] = fmaf(wgt, va.z, acc[3][2]);
+          } else {
+            acc[0][0] = fmaf(wgt, va.x, acc[0][0]);
+            acc[0][1] = fmaf(wgt, va.y, acc[0][1]);
+            acc[0][2] = fmaf(wgt, va.z, acc[0][2]);
+            acc[1][0] = fmaf(wgt, va.w, acc[1][0]);
+            acc[1][1] = fmaf(wgt, vb.x, acc[1][1]);
+            acc[1][2] = fmaf(wgt, vb.y, acc[1][2]);
+          }
+        }
+      }
+      if constexpr (L::kBf16) {
+        if (kp == np - 1) {  // the frame's sums join the f32 totals
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            acc[0][c] += __low2float(fsum[c]);
+            acc[1][c] += __high2float(fsum[c]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this buffer is restaged for step k + 2 (or parks the outputs)
+  }
+
+  const long long slot = (long long)sc * sc * 3 * plane;  // floats of one output array
+  if (geo.frame_chunks * geo.tap_groups > 1) {
+    // a partial sum: its slot of the scratch, in the phase layout, for
+    // merge_fast_combine_kernel
+    if (inside) {
+      float* dst = out + (long long)(fc * geo.tap_groups + tg) * L::kSlots * slot +
+                   ((long long)row0 * sc + col0) * 3 * plane + (long long)y * w + x;
+#pragma unroll
+      for (int k = 0; k < L::kSlots; ++k)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) dst[k * slot + c * plane] = acc[k][c];
+    }
+  } else if constexpr (L::kPhase) {
+    if (inside) {
+      float* dst = out + ((long long)row0 * sc + col0) * 3 * plane + (long long)y * w + x;
+#pragma unroll
+      for (int k = 0; k < L::kSlots; ++k)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) dst[k * slot + c * plane] = acc[k][c];
+    }
+  } else {
+    float* park = reinterpret_cast<float*>(smem);
+    const int row_lo = rg * geo.rows;
+    park_and_store_general(acc[0], park, out, geo, y0, x0, h, w, row_lo, ty, tx, row0, col0, inside, tid,
+                           n_threads);
+    __syncthreads();
+    park_and_store_general(acc[1], park, out + slot, geo, y0, x0, h, w, row_lo, ty, tx, row0, col0, inside,
+                           tid, n_threads);
   }
 }
 
@@ -622,29 +878,81 @@ int launch(const float* warped, const float* residual, const float* certainty,
   return (int)cudaGetLastError();
 }
 
+// merge_fast_combine_kernel: adds the general form's partial sums (n_parts
+// slots of n floats, each the outputs in the phase layout) in slot order,
+// frame chunks in frame order and each chunk's tap groups in list order
+// (the plan's fixed order, so the result is deterministic), and writes
+// them in the output's layout: form 0 interleaved (sH, sW, 3), the others
+// as they are.
+__global__ void __launch_bounds__(256)
+merge_fast_combine_kernel(const float* __restrict__ parts, float* __restrict__ out, long long n, int n_parts,
+                          int interleave, int s, int h, int w) {
+  const long long plane = (long long)h * w, slot = (long long)s * s * 3 * plane;
+  for (long long e = blockIdx.x * 256LL + threadIdx.x; e < n; e += (long long)gridDim.x * 256) {
+    float total = parts[e];
+    for (int p = 1; p < n_parts; ++p) total += parts[p * n + e];
+    long long at = e;
+    if (interleave) {  // (k, py, px, c, y, x) -> (k, s y + py, s x + px, c)
+      const long long k = e / slot, rem = e % slot, pixel = rem % plane;
+      const int ph = (int)(rem / (3 * plane)), c = (int)(rem / plane % 3);
+      at = k * slot + ((pixel / w * s + ph / s) * ((long long)w * s) + pixel % w * s + ph % s) * 3 + c;
+    }
+    out[at] = total;
+  }
+}
+
 // The general form's launch: geo's block (its threads within the form's
-// bound), grid z over the groups of phase rows, and the host's shared
-// bytes (kernels/merge.py::general_tile: two frame buffers of the staged
-// tile, or form 0's parked output rows) within kMaxSmem.
+// bound) and grid, the host's shared bytes (kernels/merge.py::
+// general_plan: two buffers of the whole tile's or the largest piece's
+// sites and runs, or form 0's parked output rows) within kMaxSmem; the
+// whole tile (merge_fast_kernel<0, form>, the runs in taps) or pieces
+// (merge_fast_pieces_kernel<form>, the runs in geo.table). Where the plan
+// splits frames or pieces over grid z, the blocks write their sums to
+// `parts` and merge_fast_combine_kernel adds them into out.
 template <int kForm>
 int launch_general(const float* warped, const float* residual, const float* certainty,
-                   const float* omega, float* out, int frames, int h, int w, int halo,
-                   float rb, const Taps& taps, const Geometry& geo, int bytes, cudaStream_t stream) {
+                   const float* omega, float* out, int frames, int h, int w, int halo, float rb,
+                   const Taps& taps, const Geometry& geo, int bytes, float* parts, cudaStream_t stream) {
   using L = Layout<0, kForm>;
+  const bool pieces = geo.table != nullptr;
   const int threads = geo.tw * geo.th * geo.rows * geo.s;
-  if (geo.tw < 1 || geo.th < 1 || geo.rows < 1 || geo.rows > geo.s || threads > L::kThreads || bytes < 1 ||
-      bytes > kMaxSmem) {
+  const int n_parts = geo.frame_chunks * geo.tap_groups;
+  if (pieces && threads > kPiecesThreads) return (int)cudaErrorInvalidValue;
+  const long long sites = pieces ? geo.max_sites : (long long)(geo.th + 2 * halo) * (geo.tw + 2 * halo);
+  if (geo.tw < 1 || geo.th < 1 || geo.rows < 1 || geo.rows > geo.s || threads > L::kThreads ||
+      geo.row_groups < 1 || (long long)geo.row_groups * geo.rows < geo.s ||
+      (long long)(geo.row_groups - 1) * geo.rows >= geo.s || geo.frame_chunks < 1 ||
+      geo.frame_chunks > (pieces ? frames : 1) || geo.tap_groups < 1 || geo.tap_groups > (pieces ? geo.n_pieces : 1) ||
+      geo.max_sites < sites || (pieces && geo.max_runs < 1) || (n_parts > 1 && parts == nullptr) ||
+      sites * 48 + (pieces ? (long long)geo.max_runs * 32 : 0) > bytes || bytes > kMaxSmem) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((w + geo.tw - 1) / geo.tw, (h + geo.th - 1) / geo.th, (geo.s + geo.rows - 1) / geo.rows);
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge_fast_kernel<0, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
+  const long long gz = (long long)geo.row_groups * n_parts;
+  const dim3 grid((w + geo.tw - 1) / geo.tw, (h + geo.th - 1) / geo.th, (unsigned)gz);
+  if (grid.y > 65535 || gz > 65535) return (int)cudaErrorInvalidValue;
+  float* dst = n_parts > 1 ? parts : out;
+  if (pieces) {
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          merge_fast_pieces_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    merge_fast_pieces_kernel<kForm><<<grid, threads, bytes, stream>>>(
+        warped, residual, certainty, omega, dst, frames, h, w, rb, geo);
+  } else {
+    if (bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          merge_fast_kernel<0, kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    merge_fast_kernel<0, kForm><<<grid, threads, bytes, stream>>>(
+        warped, residual, certainty, omega, dst, frames, h, w, halo, rb, taps, geo);
   }
-  merge_fast_kernel<0, kForm><<<grid, threads, bytes, stream>>>(
-      warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, geo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_parts == 1) return (int)err;
+  const long long n = (long long)L::kSlots * geo.s * geo.s * 3 * h * w;
+  const long long blocks = std::min((n + 255) / 256, 132LL * 16);
+  merge_fast_combine_kernel<<<(unsigned)blocks, 256, 0, stream>>>(parts, out, n, n_parts, kForm == 0, geo.s, h, w);
   return (int)cudaGetLastError();
 }
 
@@ -659,105 +967,6 @@ int launch_form(int form, const float* warped, const float* residual, const floa
     case 3: return launch<S, 3>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     case 4: return launch<S, 4>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The unstaged form (merge_fast_unstaged_kernel): the taps past the
-// general form's largest staged halo (kMaxGeneralHalo = 34, where not one
-// staged site a block fits two frame buffers in shared memory). Written
-// as the plain version reads: a thread per (input pixel, output phase)
-// holds the phase's slots for the three channels; per frame it walks the
-// taps in the list's order, reading value and certainty straight from
-// device memory, sums the frame's terms and then adds the frame's sums to
-// its totals, the weight by IEEE expf and each product and sum rounded
-// where the plain version rounds it (round-to-nearest intrinsics, no
-// FMAs; form 4 rounds each bfloat16 product and sum). Its time against
-// its bound is in PERF.md.
-
-__device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-
-__global__ void __launch_bounds__(256)
-merge_fast_unstaged_kernel(const float* __restrict__ warped, const float* __restrict__ residual,
-                          const float* __restrict__ certainty, const float* __restrict__ omega,
-                          float* __restrict__ out, const int* __restrict__ taps, int n_taps,
-                          int frames, int h, int w, int S, int form, float rb) {
-  const int x = blockIdx.x * 32 + threadIdx.x, y = blockIdx.y * 8 + threadIdx.y;
-  if (y >= h || x >= w) return;  // no barrier below
-  const int py = blockIdx.z / S, px = blockIdx.z % S;
-  const long long plane = (long long)h * w, pix = (long long)y * w + x;
-  const float sf = (float)S;
-  const float phis_y = (((float)py + 0.5f) / sf - 0.5f) * sf;
-  const float phis_x = (((float)px + 0.5f) / sf - 0.5f) * sf;
-  const float o0 = omega[pix * 3], o1 = omega[pix * 3 + 1], o2 = omega[pix * 3 + 2];
-  const int n_out = form == 2 ? 4 : (form == 3 ? 9 : 2);
-  const float2* res2 = reinterpret_cast<const float2*>(residual);
-
-  float tot[9][3];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) tot[k][0] = tot[k][1] = tot[k][2] = 0.0f;
-#pragma unroll 1
-  for (int f = 0; f < frames; ++f) {
-    const float2 rr = res2[f * plane + pix];
-    const float ry = fminf(fmaxf(rr.x, -rb), rb), rx = fminf(fmaxf(rr.y, -rb), rb);
-    float fs[9][3];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) fs[k][0] = fs[k][1] = fs[k][2] = 0.0f;
-#pragma unroll 1
-    for (int t = 0; t < n_taps; ++t) {
-      const int ky = taps[2 * t], kx = taps[2 * t + 1];
-      const long long g = ((long long)f * plane + (long long)min(max(y + ky, 0), h - 1) * w +
-                           min(max(x + kx, 0), w - 1)) * 3;
-      // dy = (ky - ry) s - phi s, dx likewise;
-      // w = exp(-1/2 (dx^2 Oxx + dy^2 Oyy + 2 dx dy Oxy))
-      const float dy = __fsub_rn(__fmul_rn(__fsub_rn((float)ky, ry), sf), phis_y);
-      const float dx = __fsub_rn(__fmul_rn(__fsub_rn((float)kx, rx), sf), phis_x);
-      const float q = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(dx, dx), o0), __fmul_rn(__fmul_rn(dy, dy), o1)),
-                                __fmul_rn(__fmul_rn(__fmul_rn(2.0f, dx), dy), o2));
-      const float wgt = expf(__fmul_rn(-0.5f, q));
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float v = warped[g + c], cert = certainty[g + c];
-        if (form == 4) {
-          // bfloat16 values, certainties, weight, products and sums
-          const float cw = bf16r(__fmul_rn(bf16r(wgt), bf16r(cert)));
-          fs[0][c] = bf16r(__fadd_rn(fs[0][c], bf16r(__fmul_rn(bf16r(v), cw))));
-          fs[1][c] = bf16r(__fadd_rn(fs[1][c], cw));
-          continue;
-        }
-        const float cw = __fmul_rn(wgt, cert), cwv = __fmul_rn(v, cw);
-        if (form == 2) {
-          fs[0][c] = __fadd_rn(fs[0][c], cw);
-          fs[1][c] = __fadd_rn(fs[1][c], __fmul_rn(cw, dy));
-          fs[2][c] = __fadd_rn(fs[2][c], __fmul_rn(cw, dx));
-          fs[3][c] = __fadd_rn(fs[3][c], cwv);
-        } else if (form == 3) {
-          const float cwdy = __fmul_rn(cw, dy), cwdx = __fmul_rn(cw, dx);
-          const float terms[9] = {cw, cwdy, cwdx, __fmul_rn(cwdy, dy), __fmul_rn(cwdy, dx), __fmul_rn(cwdx, dx),
-                                  cwv, __fmul_rn(cwv, dy), __fmul_rn(cwv, dx)};
-#pragma unroll
-          for (int k = 0; k < 9; ++k) fs[k][c] = __fadd_rn(fs[k][c], terms[k]);
-        } else {
-          fs[0][c] = __fadd_rn(fs[0][c], cwv);
-          fs[1][c] = __fadd_rn(fs[1][c], cw);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 9; ++k)
-#pragma unroll
-      for (int c = 0; c < 3; ++c) tot[k][c] = __fadd_rn(tot[k][c], fs[k][c]);
-  }
-
-  const long long slot = (long long)S * S * 3 * plane;  // floats of one output array
-  const long long at = form == 0
-      ? (((long long)S * y + py) * ((long long)w * S) + (long long)S * x + px) * 3  // (sH, sW, 3)
-      : (long long)(py * S + px) * 3 * plane + pix;                                  // (s, s, 3, H, W)
-  const long long step = form == 0 ? 1 : plane;  // from one channel to the next
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    if (k >= n_out) break;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) out[k * slot + at + c * step] = tot[k][c];
   }
 }
 
@@ -833,60 +1042,54 @@ int mfsr_merge_fast(const void* warped, const void* residual,
   }
 }
 
-// Launches the general form (merge_fast_kernel<0, form>) on `stream` and
-// returns cudaGetLastError(). The arrays, out, forms and taps_yx are
-// mfsr_merge_fast's, at any scale >= 1 and taps within
-// +-kMaxGeneralHalo; the block is tile_w x tile_h pixels x `rows` phase
-// rows, grid z the groups of rows, with smem_bytes of dynamic shared
-// memory (kernels/merge.py::general_tile's block and bytes).
+// Launches the general form on `stream` and returns cudaGetLastError():
+// merge_fast_kernel<0, form> on the whole tile and halo where table is
+// null (taps_yx, a HOST array of n_taps (ky, kx) pairs in at most
+// kMaxRuns runs of one row, staged whole), else merge_fast_pieces_kernel
+// <form> on the plan's DEVICE int32 table of n_pieces pieces (Geometry);
+// and where the plan splits frames or pieces, merge_fast_combine_kernel
+// after it. The arrays, out and forms are mfsr_merge_fast's, at any scale
+// >= 1 and any taps. The block is tile_w x tile_h pixels x `rows` phase
+// rows, grid z row_groups x frame_chunks x tap_groups, each buffer
+// max_sites sites and max_runs runs within smem_bytes of dynamic shared
+// memory; parts is DEVICE scratch of frame_chunks * tap_groups times
+// out's floats where that is past 1 (kernels/merge.py::general_plan gives
+// all of it).
 int mfsr_merge_fast_general(const void* warped, const void* residual, const void* certainty,
                             const void* omega, void* out, int frames, int h, int w, int scale,
-                            int form, const void* taps_yx, int n_taps, float rb, int tile_w,
-                            int tile_h, int rows, int smem_bytes, void* stream) {
-  if (frames < 1 || h < 1 || w < 1 || scale < 1 || reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
+                            int form, const void* taps_yx, int n_taps, float rb, const void* table,
+                            int n_pieces, int tile_w, int tile_h, int rows, int row_groups,
+                            int frame_chunks, int tap_groups, int max_sites, int max_runs,
+                            int smem_bytes, void* parts, void* stream) {
+  if (frames < 1 || h < 1 || w < 1 || scale < 1 || tile_w < 1 ||
+      reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0 ||
+      reinterpret_cast<std::uintptr_t>(table) % 16 != 0 || (table != nullptr && n_pieces < 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int* yx = static_cast<const int*>(taps_yx);
-  const int halo = tap_halo(yx, n_taps);
-  Taps taps;
-  if (halo < 0 || halo > kMaxGeneralHalo || tile_w < 1 || !build_runs(yx, n_taps, scale, tile_w + 2 * halo, &taps)) {
-    return (int)cudaErrorInvalidValue;
+  Taps taps{};
+  int halo = 0;
+  if (table == nullptr) {
+    const int* yx = static_cast<const int*>(taps_yx);
+    halo = tap_halo(yx, n_taps);
+    if (halo < 0 || !build_runs(yx, n_taps, scale, tile_w + 2 * halo, &taps)) return (int)cudaErrorInvalidValue;
   }
-  const Geometry geo{scale, tile_w, tile_h, rows};
+  const Geometry geo{scale, tile_w, tile_h, rows, row_groups, frame_chunks, tap_groups,
+                     n_pieces, max_sites, max_runs, static_cast<const int*>(table)};
   const float* a = static_cast<const float*>(warped);
   const float* r = static_cast<const float*>(residual);
   const float* c = static_cast<const float*>(certainty);
   const float* o = static_cast<const float*>(omega);
   float* outs = static_cast<float*>(out);
+  float* p = static_cast<float*>(parts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (form) {
-    case 0: return launch_general<0>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
-    case 1: return launch_general<1>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
-    case 2: return launch_general<2>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
-    case 3: return launch_general<3>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
-    case 4: return launch_general<4>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, st);
+    case 0: return launch_general<0>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, p, st);
+    case 1: return launch_general<1>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, p, st);
+    case 2: return launch_general<2>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, p, st);
+    case 3: return launch_general<3>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, p, st);
+    case 4: return launch_general<4>(a, r, c, o, outs, frames, h, w, halo, rb, taps, geo, smem_bytes, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// Launches the unstaged form (merge_fast_unstaged_kernel) on `stream` and
-// returns cudaGetLastError(). The arrays, out and forms are
-// mfsr_merge_fast's, at any scale >= 1; taps is a DEVICE int32 array of
-// n_taps (ky, kx) rows, any offsets, in the list's order.
-int mfsr_merge_fast_unstaged(const void* warped, const void* residual, const void* certainty,
-                             const void* omega, void* out, int frames, int h, int w, int scale,
-                             int form, const void* taps, int n_taps, float rb, void* stream) {
-  if (n_taps < 0 || frames < 1 || h < 1 || w < 1 || scale < 1 || (long long)scale * scale > 65535 ||
-      (h + 7) / 8 > 65535 || form < 0 || form > 4 ||
-      reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((w + 31) / 32, (h + 7) / 8, scale * scale);
-  merge_fast_unstaged_kernel<<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(warped), static_cast<const float*>(residual),
-      static_cast<const float*>(certainty), static_cast<const float*>(omega), static_cast<float*>(out),
-      static_cast<const int*>(taps), n_taps, frames, h, w, scale, form, rb);
-  return (int)cudaGetLastError();
 }
 
 const char* mfsr_cuda_error_string(int code) {

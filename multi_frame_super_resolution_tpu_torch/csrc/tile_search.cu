@@ -344,23 +344,55 @@ cudaError_t launch(const float* ref, const float* alts, const float* rounded, fl
 // radius, radius 0 included (a 1 x 1 surface: its minimum lies on the
 // border, so the shift is the prediction, as find_min_shift gives).
 //
-// Design: written simply. One block of 256 threads per (tile, frame), as
-// above; a thread per surface offset (u, v), v fastest, sums (F - W)^2
-// over the T x T pixels, a row's sum at a time, reading the reference
-// tile and the window straight from device memory (the reference reads
-// are the same address across a warp, the window reads consecutive: both
-// hit L1 and L2), the image-mode window through tile_warp_select's
-// indexing per read. The surface goes to a scratch array in device
-// memory (the wrapper's), so neither the window nor the surface bounds
-// the radius;
-// after the block's barrier one warp takes the argmin, the gates and the
-// fit as above (the fit only where the surface has a 3 x 3 neighbourhood).
-// Rounding: the direct form has no cancellation, so the integer parts and
-// the subpixel steps are held to the same rules as the templated kernel's.
-// (The expanded form, tsq + wsq - 2 cc summed in one chain of T^2 terms,
-// cancelled to 1.5e-3 px of subpixel difference from the plain version
-// at T = 12 on an H100.)
+// Design (kernels/tile_search.py::search_plan sets its SearchPlan):
+// - One block of 256 threads per (tile, frame), as above. The reference
+//   tile and the window are staged in shared memory by cp.async, the
+//   image-mode window resolving each pixel's source once, at staging (as
+//   the templated kernel does). Where the whole (T + 2R)^2 window does not
+//   fit (with the opt-in, 227 KB), it is staged in bands: bt tile rows at
+//   a time with the window rows they meet, and past that bu offset rows
+//   at a time, each band restaging.
+// - A work item holds kGV = 4 consecutive offsets v of one offset row u:
+//   per window column read it forms four differences against the
+//   reference row (a four-value window of the row slides in registers),
+//   so a pixel pair costs a quarter load and two FP operations. Where the
+//   offset items alone would leave more than half the threads idle (2 s_n
+//   ceil(s_n / 4) <= 256 with s_n = 2R + 1: radii up to 10), an item is
+//   (offsets, tile row) and the rows' sums go to shared memory first.
+// - Rounding: the direct form, SSD = sum_i (sum_j (F - W)^2), each
+//   row's sum an FMA chain over j and the rows added in row order from 0,
+//   whichever thread forms them (the expanded form tsq + wsq - 2 cc,
+//   summed in one chain of T^2 terms, cancelled to 1.5e-3 px of subpixel
+//   difference from the plain version at T = 12 on an H100), so the
+//   integer parts and the subpixel steps are held to the same rules as
+//   the templated kernel's.
+// - The surface stays in shared memory where it fits beside the staging,
+//   else in the wrapper's device scratch; after the block's barrier one
+//   warp takes the argmin, the gates and the fit as above (the fit only
+//   where the surface has a 3 x 3 neighbourhood).
 // Its time against its bound is in PERF.md.
+
+constexpr int kGV = 4;  // consecutive offsets v of a general work item
+
+// The general form's staging (kernels/tile_search.py::search_plan): a
+// stage holds bu offset rows and bt tile rows (the whole window where
+// bu = 2R + 1 and bt = T); split: (offsets, tile row) items; surf_smem:
+// the surface in shared memory.
+struct SearchPlan {
+  int bu, bt, split, surf_smem;
+};
+
+// floats of the general form's shared memory: the tile band (bt x T), the
+// window band (bu + bt - 1 rows of all offset columns, odd stride), the
+// rows' sums (split) and the surface (surf_smem)
+__host__ __device__ constexpr int general_stride(int t, int radius) {
+  return ((2 * radius + kGV) / kGV * kGV + t - 1) | 1;
+}
+__host__ __device__ constexpr long long general_floats(int t, int radius, SearchPlan p) {
+  return (long long)p.bt * t + (long long)(p.bu + p.bt - 1) * general_stride(t, radius) +
+         (p.split ? (long long)p.bt * p.bu * ((2 * radius + kGV) / kGV * kGV) : 0) +
+         (p.surf_smem ? (long long)(2 * radius + 1) * (2 * radius + 1) : 0);
+}
 
 // warp_source with the tile size a runtime argument
 __device__ __forceinline__ int warp_source_rt(const float* __restrict__ sh, int y, int x, int h, int w,
@@ -378,12 +410,47 @@ __device__ __forceinline__ int warp_source_rt(const float* __restrict__ sh, int 
   return ys * w + xs;
 }
 
+// One tile row's sums for kGV consecutive offsets: r[v] = sum_j (fr[j] -
+// wr[v + j])^2, an FMA chain over j in order. The window row slides
+// through a kGV-value ring in registers (static indices once unrolled);
+// whole groups of kGV columns first, then the row's last columns.
+__device__ __forceinline__ void row_sums(const float* fr, const float* wr, int t, float (&r)[kGV]) {
+  float c[kGV];
+#pragma unroll
+  for (int v = 0; v < kGV; ++v) {
+    r[v] = 0.0f;
+    if (v < kGV - 1) c[v] = wr[v];
+  }
+  // column j = j0 + q of the row, j0 a multiple of kGV: ring slot (q + v) % kGV holds wr[j + v]
+  const auto column = [&](int j0, int q) {
+    c[(q + kGV - 1) % kGV] = wr[j0 + q + kGV - 1];
+    const float f = fr[j0 + q];
+#pragma unroll
+    for (int v = 0; v < kGV; ++v) {
+      const float d = f - c[(q + v) % kGV];
+      r[v] = fmaf(d, d, r[v]);
+    }
+  };
+  int j0 = 0;
+  for (; j0 + kGV <= t; j0 += kGV) {
+#pragma unroll
+    for (int q = 0; q < kGV; ++q) column(j0, q);
+  }
+#pragma unroll
+  for (int q = 0; q < kGV - 1; ++q) {
+    if (j0 + q < t) column(j0, q);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 tile_search_general_kernel(const float* __restrict__ ref, const float* __restrict__ alts,
                            const float* __restrict__ rounded, float* __restrict__ out, float* surf,
                            int h, int w, int ntx, int nty, int t, int radius, float threshold,
-                           int subpixel, int image_mode) {
+                           int subpixel, int image_mode, const SearchPlan plan) {
+  extern __shared__ float smem[];
   const int s_n = 2 * radius + 1;
+  const int n_v = (s_n + kGV - 1) / kGV * kGV;  // offset columns, in groups of kGV
+  const int ws = general_stride(t, radius);
   const int tid = threadIdx.x;
   const int tx = blockIdx.x % ntx, ty = blockIdx.x / ntx, n = blockIdx.y;
   const int y0 = ty * t, x0 = tx * t;
@@ -391,28 +458,77 @@ tile_search_general_kernel(const float* __restrict__ ref, const float* __restric
   const float* sh = rounded + (long long)n * nty * ntx * 2;
   const float* pre = sh + (ty * ntx + tx) * 2;
   const float pre_y = __ldg(pre), pre_x = __ldg(pre + 1);
-  float* ssd = surf + ((long long)n * nty * ntx + blockIdx.x) * s_n * s_n;
   const int oy = image_mode ? y0 - radius : y0 + (int)pre_y - radius;
   const int ox = image_mode ? x0 - radius : x0 + (int)pre_x - radius;
+  float* tile = smem;                               // bt x t
+  float* win = tile + plan.bt * t;                  // (bu + bt - 1) x ws
+  float* rows = win + (plan.bu + plan.bt - 1) * ws;  // split: bt x (n_v bu)
+  float* ssd = plan.surf_smem ? rows + (plan.split ? plan.bt * plan.bu * n_v : 0)
+                              : surf + ((long long)n * nty * ntx + blockIdx.x) * s_n * s_n;
 
-  // 1. the surface, a thread per offset: SSD = sum (F - W)^2, a row's
-  // sum at a time
-  for (int k = tid; k < s_n * s_n; k += kThreads) {
-    const int u = k / s_n, v = k % s_n;
-    float sum = 0.0f;
-    for (int i = 0; i < t; ++i) {
-      const float* fr = ref + (long long)min(y0 + i, h - 1) * w;
-      const int wy = min(max(oy + u + i, 0), h - 1);
-      float row = 0.0f;
-      for (int j = 0; j < t; ++j) {
-        const int wx = min(max(ox + v + j, 0), w - 1);
-        const float d = __ldg(fr + min(x0 + j, w - 1)) -
-                        __ldg(alt + (image_mode ? warp_source_rt(sh, wy, wx, h, w, ntx, t) : wy * w + wx));
-        row = fmaf(d, d, row);
+  // 1. the surface, SSD = sum (F - W)^2 a row's sum at a time, the rows
+  // added in order: per band of offset rows [u0, u0 + nu), per band of
+  // tile rows [i0, i0 + nt)
+  for (int u0 = 0; u0 < s_n; u0 += plan.bu) {
+    const int nu = min(plan.bu, s_n - u0);
+    for (int i0 = 0; i0 < t; i0 += plan.bt) {
+      const int nt = min(plan.bt, t - i0);
+      __syncthreads();  // the last band's reads are done
+      for (int k = tid; k < nt * t; k += kThreads) {
+        const int i = k / t, j = k % t;
+        cp_async4(&tile[i * t + j], ref + (long long)min(y0 + i0 + i, h - 1) * w + min(x0 + j, w - 1));
       }
-      sum += row;
+      const int wr = nu + nt - 1, wc = n_v + t - 1;  // window rows u0 + i0 .. , every offset column
+      for (int k = tid; k < wr * wc; k += kThreads) {
+        const int a = k / wc, b = k % wc;
+        const int yy = min(max(oy + u0 + i0 + a, 0), h - 1);
+        const int xx = min(max(ox + b, 0), w - 1);
+        const int src = image_mode ? warp_source_rt(sh, yy, xx, h, w, ntx, t) : yy * w + xx;
+        cp_async4(&win[a * ws + b], alt + src);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      const int groups = n_v / kGV;
+      if (!plan.split) {
+        // an item: offset row u, offsets v0 .. v0 + 3, every tile row of
+        // the band, its running sums in registers
+        for (int item = tid; item < nu * groups; item += kThreads) {
+          const int ul = item % nu, v0 = item / nu * kGV;
+          float* o = ssd + (u0 + ul) * s_n + v0;
+          float sum[kGV];
+#pragma unroll
+          for (int v = 0; v < kGV; ++v) sum[v] = (i0 > 0 && v0 + v < s_n) ? o[v] : 0.0f;
+          for (int il = 0; il < nt; ++il) {
+            float r[kGV];
+            row_sums(tile + il * t, win + (ul + il) * ws + v0, t, r);
+#pragma unroll
+            for (int v = 0; v < kGV; ++v) sum[v] += r[v];
+          }
+#pragma unroll
+          for (int v = 0; v < kGV; ++v) {
+            if (v0 + v < s_n) o[v] = sum[v];
+          }
+        }
+      } else {
+        // an item: offset row u, offsets v0 .. v0 + 3 and one tile row;
+        // then a thread per offset adds the band's rows in order
+        for (int item = tid; item < nu * groups * nt; item += kThreads) {
+          const int ul = item % nu, v0 = item / nu % groups * kGV, il = item / (nu * groups);
+          float r[kGV];
+          row_sums(tile + il * t, win + (ul + il) * ws + v0, t, r);
+#pragma unroll
+          for (int v = 0; v < kGV; ++v) rows[(il * n_v + v0 + v) * nu + ul] = r[v];
+        }
+        __syncthreads();
+        for (int item = tid; item < nu * s_n; item += kThreads) {
+          const int ul = item % nu, v = item / nu;
+          float* o = ssd + (u0 + ul) * s_n + v;
+          float sum = i0 > 0 ? *o : 0.0f;
+          for (int il = 0; il < nt; ++il) sum += rows[(il * n_v + v) * nu + ul];
+          *o = sum;
+        }
+      }
     }
-    ssd[k] = sum;
   }
   __syncthreads();  // the block's surface stores are visible to the block
 
@@ -517,22 +633,36 @@ int mfsr_tile_search(const void* ref, const void* alts, const void* rounded, voi
 
 // Launches the general form (tile_search_general_kernel) on `stream` and
 // returns cudaGetLastError(). The arrays are mfsr_tile_search's, at any
-// tile size t >= 1 and radius >= 0; surf is device scratch of
-// n * nty * ntx * (2 radius + 1)^2 floats.
+// tile size t >= 1 and radius >= 0; the staging (bu, bt, split,
+// surf_smem: SearchPlan) in smem_bytes of dynamic shared memory
+// (kernels/tile_search.py::search_plan); where the surface is not in
+// shared memory, surf is device scratch of n * nty * ntx * (2 radius +
+// 1)^2 floats.
 int mfsr_tile_search_general(const void* ref, const void* alts, const void* rounded, void* out,
                              void* surf, int n, int h, int w, int t, int radius, float threshold,
-                             int subpixel, int image_mode, void* stream) {
+                             int subpixel, int image_mode, int bu, int bt, int split, int surf_smem,
+                             int smem_bytes, void* stream) {
   if (n < 0 || n > 65535 || h < 1 || w < 1 || t < 1 || radius < 0 || radius > 23000) {
     return (int)cudaErrorInvalidValue;  // (2 radius + 1)^2 stays an int
+  }
+  const SearchPlan plan{bu, bt, split != 0, surf_smem != 0};
+  if (bu < 1 || bu > 2 * radius + 1 || bt < 1 || bt > t || (!plan.surf_smem && surf == nullptr) ||
+      smem_bytes > 232448 || (long long)sizeof(float) * general_floats(t, radius, plan) > smem_bytes) {
+    return (int)cudaErrorInvalidValue;
   }
   const long long nty = (h + t - 1) / t, ntx = (w + t - 1) / t;
   if (nty * ntx > INT_MAX) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  tile_search_general_kernel<<<dim3((unsigned)(nty * ntx), (unsigned)n), kThreads, 0,
+  if (smem_bytes > kMaxSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(tile_search_general_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tile_search_general_kernel<<<dim3((unsigned)(nty * ntx), (unsigned)n), kThreads, smem_bytes,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ref), static_cast<const float*>(alts), static_cast<const float*>(rounded),
       static_cast<float*>(out), static_cast<float*>(surf), h, w, (int)ntx, (int)nty, t, radius, threshold,
-      subpixel, image_mode);
+      subpixel, image_mode, plan);
   return (int)cudaGetLastError();
 }
 

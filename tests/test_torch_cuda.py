@@ -300,21 +300,36 @@ def test_tile_search_kernel_matches_plain_on_prealigned_rotations():
         (64, 96, 16, 0, "tile"), (64, 96, 16, 0, "image"),
         (128, 256, 12, 4, "image"), (64, 128, 12, 4, "image"), (72, 100, 12, 4, "tile"),
         (66, 90, 12, 2, "image"), (70, 100, 48, 4, "image"), (40, 72, 5, 2, "tile"),
+        (72, 96, 24, 4, "image"), (66, 99, 33, 4, "tile"), (128, 192, 64, 4, "image"),
+        (72, 96, 24, 1, "tile"), (72, 96, 24, 40, "tile"), (66, 99, 33, 40, "image"), (128, 192, 64, 40, "tile"),
+        (72, 96, 24, 10, "tile"), (72, 96, 24, 11, "tile"),  # either side of the split into tile rows
+        (64, 96, 16, 100, "tile"),  # the surface in device memory, the whole window staged
+        (200, 230, 200, 20, "tile"), (200, 230, 200, 20, "image"),  # bands of tile rows
+        (32, 48, 16, 120, "tile"), (32, 48, 16, 120, "image"),  # bands of offset rows
     ],
 )
 def test_tile_search_general_form_matches_plain(h, w, t, radius, mode, threshold):
     """Past the templated kernel (T = 8, 16, 32 and radii 1..27 at T = 16,
-    what 48 KB hold): radii past it up to 70, radius 0 (the 1 x 1 surface:
-    the prediction itself), T = 12 (AlignConfig(tile_size=12)), 5 and 48
-    launch the general form, by the same rules as the templated one:
-    integer parts equal, subpixel shifts within 1e-3 px, exact ties left
-    out."""
+    what 48 KB hold): radii past it up to 120, radius 0 (the 1 x 1
+    surface: the prediction itself), T = 12 (AlignConfig(tile_size=12)),
+    5, 24, 33, 48, 64 and 200 launch the general form, by the same rules
+    as the templated one: integer parts equal, subpixel shifts within 1e-3
+    px, exact ties left out. The cases lie on both sides of each switch of
+    its staging (tile_search.search_plan): (offsets, tile row) items at
+    radii up to 10; the surface in shared memory or, at radius 100, in
+    device memory; the whole window, or bands of tile rows (T = 200) or
+    of offset rows (radius 120)."""
     dev = cuda_device()
     assert tile_search_kernel.library().mfsr_tile_search_max_radius(16) == 27
     ref, alts, rounded = search_inputs(h, w, BIG_SHIFTS if mode == "image" else SMALL_SHIFTS, t)
     untied = ~tied_minima(ref, alts, rounded, t, radius) if mode == "tile" else np.ones(rounded.shape[:3], bool)
     args = [tt(x, dev) for x in (ref, alts, rounded)]
     name = "tile_search" if (t == 16 and radius == 27) else "tile_search_general"
+    if name == "tile_search_general":
+        plan = tile_search_kernel.search_plan(t, radius)
+        assert plan.split == (radius <= 10)
+        assert (plan.bu, plan.bt) == (2 * radius + 1, t) or radius == 120 or t == 200
+        assert plan.surf_smem != (radius in (100, 120))
     for sub in (False, True):
         LAUNCHES.clear()
         got = nn(tile_search(*args, t, radius, threshold, sub, mode))
@@ -1385,20 +1400,23 @@ RGB_GENERAL = {
     "scale,radius,k_max,launched",
     [(5, 1, None, "merge_fast_general"), (6, 2, None, "merge_fast_general"), (2, 8, 64.0, "merge_fast"),
      (3, 10, 64.0, "merge_fast"), (7, 1, None, "merge_fast_general"), (2, 19, 1e4, "merge_fast"),
-     (5, 7, 64.0, "merge_fast_general"), (2, 28, 1e4, "merge_fast_general"), (1, 34, 1e4, "merge_fast_unstaged")],
-    ids=["S5", "S6", "r9", "r11", "S7", "r20", "S5-r8", "r29", "r35"])
+     (5, 7, 64.0, "merge_fast_general"), (2, 28, 1e4, "merge_fast_general"), (1, 34, 1e4, "merge_fast_unstaged"),
+     (2, 34, 1e4, "merge_fast_unstaged"), (1, 39, 1e4, "merge_fast_unstaged")],
+    ids=["S5", "S6", "r9", "r11", "S7", "r20", "S5-r8", "r29", "r35", "r35-S2", "r40"])
 @pytest.mark.parametrize("form", list(RGB_GENERAL))
 def test_merge_general_form_matches_plain(form, scale, radius, k_max, launched, h, w):
     """The RGB merge's five forms past the templated layouts' first build:
     scales 5, 6 and 7 (phase rows over grid z past 1024 threads) and s = 5
     at tap radius 8 on the general form; tap radii 9, 11 and 20 at s = 2-3
     on the templated kernel (its staged halo now reaches 25; at radius 20
-    the tile keeps its rows, the frame buffers up to 166 KB); radius 29 on the
-    general form (an 8 x 8-pixel tile, 209 KB of frame buffers; k_max 64
-    or 1e4 keeps the outer taps); radius 35, past any staged
-    tile, on the unstaged kernel. The interleaved form (use_pallas) past
-    radius 8 raises, as merge_fast_pallas does. Against the plain version
-    at each form's tolerance."""
+    the tile keeps its rows, the frame buffers up to 166 KB); tap radius
+    29 on the general form in bands of tap rows (k_max 64 or 1e4 keeps the
+    outer taps); tap radius 35 at s = 1 and 2 and 40 at s = 1, launched as
+    merge_fast_unstaged (the kernel these ran on before). These shapes are
+    small: each launch spreads frames (and, but for bfloat16, bands of
+    taps) over grid z and adds the parts after. The interleaved form
+    (use_pallas) past radius 8 raises, as merge_fast_pallas does. Against
+    the plain version at each form's tolerance."""
     dev = cuda_device()
     kw, tol = RGB_GENERAL[form]
     ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(scale * 3 + h), 3, h, w)]
@@ -1412,6 +1430,35 @@ def test_merge_general_form_matches_plain(form, scale, radius, k_max, launched, 
     got = merge_fast(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {launched: 1}
+    want = fast_merge.merge_burst_fast(*ins, *args, **kw)
+    if tol is None:
+        _assert_bf16_close(got, want, BF16_TOL)
+    else:
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,h,w,split", [(5, 16, 32, True), (3, 256, 528, False)], ids=["split", "whole"])
+@pytest.mark.parametrize("form", list(RGB_GENERAL)[1:])
+def test_merge_wide_taps_split_matches_plain(form, f, h, w, split):
+    """A tap reach of 35 (5,041 taps, s = 1) on either side of the general
+    form's split: at 5 x 16 x 32 its grid holds under a wave, so frames
+    and (but for bfloat16) bands of taps spread over grid z and
+    merge_fast_combine_kernel adds the parts; at 3 x 256 x 528 it holds
+    more, one part. Against the plain version at each form's tolerance."""
+    dev = cuda_device()
+    kw, tol = RGB_GENERAL[form]
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(h), f, h, w)]
+    args = (1, 34, 1.0, 1e4)
+    kw = dict(kw, prune_exp=6.0)
+    form_id = 4 if kw.get("bf16") else (3 if kw.get("moment_slots") == 9 else (2 if kw.get("order") else 1))
+    plan = merge_kernel.general_plan(1, form_id, (35, 1.0, 1, 1e4, 6.0), f, h, w)
+    assert (plan.parts > 1) == split and (plan.tap_groups == 1 or form != "bf16")
+    LAUNCHES.clear()
+    got = merge_fast(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_fast_unstaged": 1}
     want = fast_merge.merge_burst_fast(*ins, *args, **kw)
     if tol is None:
         _assert_bf16_close(got, want, BF16_TOL)

@@ -339,31 +339,117 @@ def _templated_smem(scale: int, halo: int, form: int) -> int:
 @pytest.mark.parametrize("form", range(5))
 def test_rgb_general_tile_fits(form):
     """The general form's block (general_tile) at every scale 1-8 and taps
-    reaching 0-30: at least one pixel and one phase row, its threads
-    within the form's bound (512 for form 3, else 1024), its phase rows
-    covering the scale in the groups over grid z, its shared bytes (two
-    frame buffers of the staged tile, 48 B a site; form 0's parked rows)
-    within 232,448; 8 pixels wide wherever a row of 8 fits, narrowed only
-    where it does not. Past a reach of 34 no staged tile fits (the
-    unstaged kernel's). The templated layouts within the same bytes at
-    scales 1-4 and reaches to 25."""
+    reaching 0-40 (and 287, where a tap row goes in column chunks): at
+    least one pixel and one phase row, its threads within the kernel's
+    bound (512 for form 3 and for pieces, else 1024), its phase rows covering the scale in the
+    groups over grid z, its two buffers (48 B a staged site, 32 B a run)
+    within 232,448 bytes. The whole tile and halo, 8 pixels wide, where
+    they fit half of that (reaches to 22); past it bands of tap rows on a
+    32-pixel-wide tile, within a quarter where one fits. The templated
+    layouts within the same bytes at scales 1-4 and reaches to 25."""
+
+    def staged(tw, th, band, cols):
+        return (th + band - 1) * (tw + cols - 1) * 48 + band * 32
+
     for scale in range(1, 9):
-        for halo in range(31):
-            tw, th, rows, groups, smem = merge_kernel.general_tile(scale, halo, form)
-            assert tw >= 1 and th >= 1 and 1 <= rows <= scale
-            assert tw * th * rows * scale <= (512 if form == 3 else 1024)
+        for halo in [*range(41), 287]:
+            tw, th, rows, groups, band, cols = merge_kernel.general_tile(scale, halo, form)
+            full = 2 * halo + 1
+            assert tw >= 1 and th >= 1 and 1 <= rows <= scale and 1 <= band <= full and 1 <= cols <= full
+            assert tw * th * rows * scale <= (512 if form == 3 or band < full or cols < full else 1024)
             assert rows * groups >= scale and (rows - 1) * groups < scale
-            staged = (th + 2 * halo) * (tw + 2 * halo) * 48
-            assert smem == max(staged, th * rows * tw * scale * 12 if form == 0 else 0) <= 232448
-            if (1 + 2 * halo) * (8 + 2 * halo) * 48 <= 232448:
-                assert tw == 8
+            assert staged(tw, th, band, cols) <= 232448
+            if staged(8, 1, full, full) <= 232448 // 2:
+                assert (tw, band, cols) == (8, full, full)
             else:
-                assert (1 + 2 * halo) * (2 * tw + 2 * halo) * 48 > 232448
+                assert tw == 32 and (band < full or staged(tw, th, band, cols) > 232448 // 4)
+                assert cols == full or band == 1
             if scale <= 4 and halo <= 25:
                 assert _templated_smem(scale, halo, form) <= 232448
-    assert merge_kernel.general_tile(2, 34, form) is not None
-    assert merge_kernel.general_tile(1, 35, form) is None
+    assert merge_kernel.general_tile(2, 34, form)[4:] == (11, 69)
+    assert merge_kernel.general_tile(1, 35, form) == (32, 8, 1, 1, 4, 71)
+    assert merge_kernel.general_tile(1, 287, form)[4:] == (1, 574)
     assert merge_kernel.general_tile(5, 2, form)[:4] == (8, 1, 5, 1)
+
+
+# the general form's launches: (scale, radius, k_max, prune_exp, frames, h,
+# w, whether the plan splits over grid z)
+RGB_PLANS = {
+    "r35-5x16x32": (1, 34, 1e4, 6.0, 5, 16, 32, True),  # chip_smoke.py's check
+    "r35-4x64x128": (1, 34, 1e4, 6.0, 4, 64, 128, True),  # the limit path's burst
+    "r35-3x256x528": (1, 34, 1e4, 6.0, 3, 256, 528, False),
+    "r35-S2-37x61": (2, 34, 1e4, 6.0, 3, 37, 61, True),
+    "r40-3x5": (1, 39, 1e4, 6.0, 3, 3, 5, True),
+    "S5-5x256x512": (5, 1, 6.25, 1.5, 5, 256, 512, False),  # chip_smoke.py's s=5 check: one piece
+    "S5-3x37x61": (5, 1, 6.25, 1.5, 3, 37, 61, True),
+    "S7-1x3x5": (7, 1, 12.25, 1.5, 1, 3, 5, True),  # one frame: taps alone (none in bfloat16)
+}
+
+
+@pytest.mark.parametrize("form", range(5))
+@pytest.mark.parametrize("case", list(RGB_PLANS))
+def test_rgb_general_plan_covers_taps_and_frames(case, form):
+    """general_plan: its pieces hold the tap list's runs in the list's
+    order, each within the tile's band and columns and its buffers; its
+    bytes within 232,448; the frame chunks and tap groups cover every
+    frame and every piece once, in order (the combine's order), bfloat16
+    (form 4) never split over taps; a split exactly where the grid holds
+    under a wave of an H100 (132 SMs times the blocks an SM holds); the
+    device table as csrc/merge.cu reads it."""
+    scale, radius, k_max, prune, frames, h, w, split = RGB_PLANS[case]
+    key = (radius + 1, 1.0, scale, k_max, prune)
+    taps = merge_kernel.tap_array(*key)
+    plan = merge_kernel.general_plan(scale, form, key, frames, h, w)
+    halo = int(np.abs(taps).max())
+    tw, th, rows, groups, band, cols = merge_kernel.general_tile(scale, halo, form)
+    assert (plan.tile_w, plan.tile_h, plan.rows, plan.groups) == (tw, th, rows, groups)
+    split = split and (form != 4 or frames > 1)  # bfloat16 splits frames alone
+    assert (plan.parts > 1) == split and (plan.tap_groups == 1 or form != 4)
+    # the runs, piece by piece, are the tap list in order
+    listed = [(ky, kx0 + k) for p in plan.pieces for ky, kx0, n in plan.runs[p[4]:p[5]] for k in range(n)]
+    assert listed == [tuple(t) for t in taps.tolist()]
+    assert [p[4] for p in plan.pieces[1:]] == [p[5] for p in plan.pieces[:-1]] and plan.pieces[0][4] == 0
+    for ky_lo, kx_lo, n_rows, n_cols, r0, r1 in plan.pieces:
+        assert n_rows <= band and n_cols <= cols and (plan.whole or r1 - r0 <= plan.max_runs)
+        assert (th + n_rows - 1) * (tw + n_cols - 1) <= plan.max_sites
+        for ky, kx0, n in plan.runs[r0:r1]:
+            assert ky_lo <= ky < ky_lo + n_rows and kx_lo <= kx0 and kx0 + n <= kx_lo + n_cols
+    assert plan.max_sites * 48 + plan.max_runs * 32 <= plan.smem <= 232448
+    # frames and pieces split evenly, each once, none empty (csrc's ranges)
+    fc, tg, n_pieces = plan.frame_chunks, plan.tap_groups, len(plan.pieces)
+    chunks = [range(c * frames // fc, (c + 1) * frames // fc) for c in range(fc)]
+    assert [f for c in chunks for f in c] == list(range(frames)) and all(chunks)
+    pieces = [range(g * n_pieces // tg, (g + 1) * n_pieces // tg) for g in range(tg)]
+    assert [p for g in pieces for p in g] == list(range(n_pieces)) and all(pieces)
+    blocks = -(-w // tw) * -(-h // th) * groups
+    staged = (th + band - 1) * (tw + cols - 1) * 48 + band * 32  # the tile's band, before the split's
+    per_sm = max(1, min(2048 // (tw * th * rows * scale), 233472 // (staged + 1024), 32))
+    assert (blocks < 132 * per_sm) == RGB_PLANS[case][-1]
+    # one piece and no split: the whole tile (runs in the parameters)
+    assert plan.whole == (n_pieces == 1 and (band, cols) == (2 * halo + 1,) * 2 and plan.parts == 1)
+    table = merge_kernel.general_table(scale, form, key, frames, h, w).reshape(-1, 4)
+    assert table.dtype == np.int32 and len(table) == 2 * n_pieces + len(plan.runs)
+    for i, (ky_lo, kx_lo, n_rows, n_cols, r0, r1) in enumerate(plan.pieces):
+        sw = tw + n_cols - 1
+        assert table[2 * i].tolist() == [ky_lo, kx_lo, sw, (th + n_rows - 1) * sw]
+        assert table[2 * i + 1].tolist() == [r0, r1 - r0, 0, 0]
+        for j, (ky, kx0, n) in enumerate(plan.runs[r0:r1]):
+            row = table[2 * n_pieces + r0 + j]
+            assert row[:2].view(np.float32).tolist() == [ky * scale, kx0 * scale]
+            assert row[2:].tolist() == [(ky - ky_lo) * sw + kx0 - kx_lo, n]
+
+
+def test_rgb_general_pieces_chunk_long_runs():
+    """general_pieces past any band (a tap row in chunks of ``cols``
+    columns): the runs split at ``cols`` taps, the pieces one run each,
+    the list's order kept; within a band, rows join a piece."""
+    taps = np.asarray([(ky, kx) for ky in range(-2, 3) for kx in range(-2, 3)], np.int32)
+    pieces, runs = merge_kernel.general_pieces(taps, 1, 3)
+    assert runs == tuple((ky, kx, n) for ky in range(-2, 3) for kx, n in ((-2, 3), (1, 2)))
+    assert pieces == tuple((r[0], r[1], 1, r[2], i, i + 1) for i, r in enumerate(runs))
+    pieces, runs = merge_kernel.general_pieces(taps, 2, 5)
+    assert runs == tuple((ky, -2, 5) for ky in range(-2, 3))
+    assert pieces == ((-2, -2, 2, 5, 0, 2), (0, -2, 2, 5, 2, 4), (2, -2, 1, 5, 4, 5))
 
 
 def _max_radius(t: int) -> int:
@@ -394,6 +480,48 @@ def test_tile_search_uses_general_past_the_build(t, radius, general):
     radius 0 and radii past the 48 KB staging (27 at T = 16)."""
     assert _max_radius(16) == 27
     assert search_kernel.uses_general(t, radius, _max_radius(t)) == general
+
+
+@pytest.mark.parametrize(
+    "t,radius",
+    [(12, 4), (16, 0), (16, 30), (16, 70), (5, 2), (48, 4), (24, 1), (33, 40), (64, 40), (24, 10), (24, 11),
+     (16, 100), (200, 20), (16, 120), (240, 1), (16, 23000)],
+)
+def test_search_plan_fits_and_covers(t, radius):
+    """The general search's staging (search_plan): its bytes (a
+    transcription of csrc/tile_search.cu's general_floats) within
+    232,448; (offsets, tile row) items exactly where the offset items
+    would leave more than half of 256 threads idle; the whole window and
+    tile where they fit, with the surface in shared memory where it fits
+    beside them; else bands whose stages cover every (offset row, tile
+    row) pair once, each offset's rows in row order (the sums' order), and
+    stage every window row those pairs read."""
+    plan = search_kernel.search_plan(t, radius)
+    s_n = 2 * radius + 1
+    n_v = -(-s_n // 4) * 4
+    stride = (n_v + t - 1) | 1
+
+    def floats(bu, bt, surf):
+        return (bt * t + (bu + bt - 1) * stride + (bt * bu * n_v if plan.split else 0)
+                + (s_n * s_n if surf else 0))
+
+    assert plan.smem == 4 * floats(plan.bu, plan.bt, plan.surf_smem) <= 232448
+    assert 1 <= plan.bu <= s_n and 1 <= plan.bt <= t
+    assert plan.split == (2 * s_n * -(-s_n // 4) <= 256)
+    whole = [surf for surf in (True, False) if 4 * floats(s_n, t, surf) <= 232448]
+    if whole:
+        assert (plan.bu, plan.bt, plan.surf_smem) == (s_n, t, whole[0])
+    if s_n * t > 1e5:
+        return  # the pairs' walk below: too many to list
+    seen = {u: [] for u in range(s_n)}
+    for u0 in range(0, s_n, plan.bu):  # the kernel's loops
+        for i0 in range(0, t, plan.bt):
+            rows = range(u0 + i0, u0 + i0 + min(plan.bu, s_n - u0) + min(plan.bt, t - i0) - 1)
+            for u in range(u0, min(u0 + plan.bu, s_n)):
+                for i in range(i0, min(i0 + plan.bt, t)):
+                    assert u + i in rows
+                    seen[u].append(i)
+    assert all(v == list(range(t)) for v in seen.values())
 
 
 def general_search(ref, alts, rounded, t, radius, threshold, subpixel, mode):

@@ -6,12 +6,15 @@ at chip_smoke.py's phase-3 shapes and seeds (F=5, 256 x 512 RGB, 128 x
   (RAW_BENCH's merge), the tile search at T=16, R=4 in "image" mode (the
   RAW path's fine level) and the RGB merge's phase layout at e^-1.5
   (RGB_DEFAULT's merge), each 200 calls a round;
-- ``general``: the two merges' general forms, the RGB merge at s=5
-  (phase layout, interleaved, order 1, 9 slots, bfloat16) and at tap
-  radii 9 and 11, the RAW merge at S=5 in every form and knob, guided,
-  the bfloat16 order 0 on 40 frames, 109 taps and a non-Bayer pattern,
-  and four templated RAW forms at S=1-2 that share their source, each
-  ``--calls`` calls a round (default 30).
+- ``general``: the general forms, the RGB merge at s=5 (phase layout,
+  interleaved, order 1, 9 slots, bfloat16), at tap radii 9 and 11 and at
+  a tap reach of 35 (s=1, phase layout at e^-6, k_max 1e4, on 5 x 16 x
+  32 and 4 x 64 x 128), the RAW merge at S=5 in every form and knob,
+  guided, the bfloat16 order 0 on 40 frames, 109 taps and a non-Bayer
+  pattern, four templated RAW forms at S=1-2 that share their source,
+  and the general tile search at chip_smoke.py's cases (T=12 in "image"
+  mode, radius 0 in both modes, radius 30 in "tile" mode, at 4 x 128 x
+  256 and 4 x 64 x 128), each ``--calls`` calls a round (default 30).
 
 ``--only main`` (the default) or ``--only general`` picks one group,
 ``--only all`` both. Each checkout runs in a process of its own (the
@@ -130,6 +133,31 @@ if only in ("general", "all"):
     }
     calls.update({label: (lambda a=a, kw=kw: merge.merge_fast(*rgb, *a, **kw), "merge", calls_n, 3)
                   for label, (a, kw) in rgb_forms.items()})
+    # a tap reach of 35 (5,041 taps) at s=1, chip_smoke.py's two shapes
+    for f, h, w in ((5, 16, 32), (4, 64, 128)):
+        ins = [x[:f, :h, :w].contiguous() for x in rgb[:3]] + [rgb[3][:h, :w].contiguous()]
+        calls[f"merge_fast phase layout, e^-6, tap reach 35, s=1, {f} x {h} x {w}"] = (
+            lambda ins=ins: merge.merge_fast(*ins, 1, 34, 1.0, 1e4, phase_output=True, prune_exp=6.0),
+            "merge", calls_n, 3)
+    # the general search at chip_smoke.py's cases: a burst shifted by up to
+    # 3 px, predictions within 2 px, a tenth of the tiles at 17-20 px in
+    # "image" mode
+    def search_case(h, w, outliers, t):
+        b, off = synthetic_burst(rng, F, h, w, 3.0)
+        b = b + 0.01 * rng.standard_normal(b.shape)
+        g = (F - 1, -(-h // t), -(-w // t))
+        r = np.round(-off[1:])[:, None, None, :] + rng.integers(-2, 3, g + (2,))
+        if outliers:
+            miss = rng.random(g) < 0.1
+            r[miss] = rng.choice([-1, 1], (miss.sum(), 2)) * rng.integers(17, 21, (miss.sum(), 2))
+        return [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (b[0], b[1:], r)]
+    for h, w, t, radius, mode in ((hh, hw, 12, 4, "image"), (hh // 2, hw // 2, 12, 4, "image"),
+                                  (hh, hw, 16, 0, "tile"), (hh, hw, 16, 0, "image"),
+                                  (hh, hw, 16, 30, "tile"), (hh // 2, hw // 2, 16, 30, "tile")):
+        ins = search_case(h, w, mode == "image", t)
+        calls[f"tile_search_general {mode} 4x{h}x{w} T={t} R={radius}"] = (
+            lambda ins=ins, t=t, radius=radius, mode=mode: tile_search.tile_search(*ins, t, radius, 0.0, True, mode),
+            "tile_search", calls_n, 3)
     calls.update({label: (lambda i=i, a=a, kw=kw: merge_raw.merge_raw(*i, *a, **kw), "merge", calls_n, 3)
                   for label, (i, a, kw) in raw_forms.items()})
 out = {}
