@@ -274,7 +274,7 @@ KERNEL_SYMBOLS = {
     # the kernel that adds the parts: both in a call's time
     "merge_fast_general": "merge_fast_", "merge_fast_unstaged": "merge_fast_",
     "tile_search_general": "tile_search_general_kernel", "merge_raw_general": "_kernel<0",
-    "merge_raw_stream": "merge_raw_kernel", "merge_raw_nonbayer": "merge_raw_nonbayer_kernel",
+    "merge_raw_stream": "merge_raw_stream_kernel", "merge_raw_nonbayer": "merge_raw_nonbayer_kernel",
 }
 # each kernel's stage in the profile
 STAGE_OF = {"merge_fast": "mfsr.merge", "merge_raw": "mfsr.merge", "tile_warp": "mfsr.tile_warp",
@@ -290,22 +290,27 @@ HBM_BYTES_S, F32_FLOPS_S, BF16_FLOPS_S, EXP_S = 3.35e12, 67e12, 133.8e12, 16 * 1
 # the column's rows.
 WORK = {
     # per (frame, input pixel, tap, phase): the quadratic as 2 FMAs on the
-    # folded omega 4 + 1 exp, 2 FMAs per channel 12; per column dx 1 / s
-    # rows; per row dy, dy^2 o_yy, dy o_xy 4 / s columns; per tap dy0, dx0
-    # 4 and value x certainty 3, / s^2 phases: at s = 2 4 + 12 + 0.5 + 2 +
-    # 1.75 (both order-0 forms)
-    "merge_fast": (20.25, 1),
-    # the same at s = 4: 4 + 12 + 0.25 + 1 + 0.4375
-    "merge_fast s=4": (17.6875, 1),
-    # order 1 at s = 2: the quadratic 4 + 1 exp, w dy and w dx 2, four
-    # moments of 3 channels as FMAs 24; per column 1 / 2, per row 4 / 2,
-    # per tap 7 / 4: 4 + 2 + 24 + 0.5 + 2 + 1.75
-    "merge_fast order 1": (34.25, 1),
-    # order 1 with 9 slots at s = 2: the quadratic 4 + 1 exp, w dy, w dx
-    # and their three products 5, nine moments of 3 channels as FMAs 54;
-    # per column 1 / 2, per row 4 / 2, per tap 7 / 4
-    "merge_fast 9 slots": (4 + 5 + 54 + 0.5 + 2 + 1.75, 1),
-    "merge_fast 9 slots s=4": (4 + 5 + 54 + 0.25 + 1 + 0.4375, 1),
+    # folded omega 4 + 1 exp; per channel w c 1, its sum 1 and w c v as an
+    # FMA 2: 12 (no value x certainty: the value enters as it is); per
+    # column dx 1 / s rows; per row dy, dy^2 o_yy, dy o_xy 4 / s columns;
+    # per tap dy0, dx0 4 / s^2 phases: at s = 2 4 + 12 + 0.5 + 2 + 1 (both
+    # order-0 forms)
+    "merge_fast": (19.5, 1),
+    # the same at s = 4: 4 + 12 + 0.25 + 1 + 0.25
+    "merge_fast s=4": (17.5, 1),
+    # order 1 at s = 2: the quadratic 4 + 1 exp; per channel w c 1, its
+    # sum 1 and w c dy, w c dx, w c v as FMAs 6: 24 (no product of w
+    # shared by the channels); per column 1 / 2, per row 4 / 2, per tap 4
+    # / 4: 4 + 24 + 0.5 + 2 + 1
+    "merge_fast order 1": (31.5, 1),
+    # order 1 with 9 slots at s = 2: the quadratic 4 + 1 exp; per channel
+    # w c, w c dy and w c dx as products and m00, m01, m02 as their sums
+    # 6, m11, m12, m22 and b0, b1, b2 as FMAs of them with dy, dx and the
+    # value 12: 3 x 18; per column 1 / 2, per row 4 / 2, per tap dy0, dx0
+    # 4 / 4 (no product of w shared by the channels, and no value x
+    # certainty: the value enters b0, b1, b2 as it is)
+    "merge_fast 9 slots": (4 + 54 + 0.5 + 2 + 1, 1),
+    "merge_fast 9 slots s=4": (4 + 54 + 0.25 + 1 + 0.25, 1),
     # per (frame, half-res pixel, tap, phase): two quadratics 8 + 2 exp,
     # two chain triples 10, four parities 2 FMAs each 16; per column dx 1
     # / S rows; per row dy, dy^2 and four products 6 / S columns; per tap
@@ -354,9 +359,9 @@ WORK = {
     "merge_raw order 0 bf16 S=4": (8 + 26 + 0.25 + 1.5 + 0.25, 2),
     # the RGB bfloat16 order 0 at s = 2: the weight's rounding in f32, and
     # per channel in bfloat16 w c (1), (v, 1) x (w c, w c) (2) and the
-    # pair's add (2): 15
-    "merge_fast bf16": (4 + 1 + 0.5 + 2 + 1.75, 1, 15),
-    "merge_fast bf16 s=4": (4 + 1 + 0.25 + 1 + 0.4375, 1, 15),
+    # pair's add (2): 15; per tap dy0, dx0 4 / s^2 as for the f32 form
+    "merge_fast bf16": (4 + 1 + 0.5 + 2 + 1, 1, 15),
+    "merge_fast bf16 s=4": (4 + 1 + 0.25 + 1 + 0.25, 1, 15),
     # per element: A, t and R with their clips
     "defog": (11, 0),
     # per (frame, tile, offset, pixel): the cross term's multiply-add
@@ -367,10 +372,10 @@ WORK = {
 # the forms at scale 5 (the general kernels' scale on the paths): the same
 # terms an item, the per-column, per-row and per-tap ones spread over s = 5
 WORK.update({
-    "merge_fast s=5": (4 + 12 + 1 / 5 + 4 / 5 + 7 / 25, 1),
-    "merge_fast order 1 s=5": (4 + 2 + 24 + 1 / 5 + 4 / 5 + 7 / 25, 1),
-    "merge_fast 9 slots s=5": (4 + 5 + 54 + 1 / 5 + 4 / 5 + 7 / 25, 1),
-    "merge_fast bf16 s=5": (4 + 1 + 1 / 5 + 4 / 5 + 7 / 25, 1, 15),
+    "merge_fast s=5": (4 + 12 + 1 / 5 + 4 / 5 + 4 / 25, 1),
+    "merge_fast order 1 s=5": (4 + 24 + 1 / 5 + 4 / 5 + 4 / 25, 1),
+    "merge_fast 9 slots s=5": (4 + 54 + 1 / 5 + 4 / 5 + 4 / 25, 1),
+    "merge_fast bf16 s=5": (4 + 1 + 1 / 5 + 4 / 5 + 4 / 25, 1, 15),
     "merge_raw S=5": (34 + 1 / 5 + 6 / 5 + 4 / 25, 2),
     "merge_raw order 0 S=5": (8 + 16 + 1 / 5 + 6 / 5 + 4 / 25, 2),
     "merge_raw order 0 bf16 S=5": (8 + 26 + 1 / 5 + 6 / 5 + 4 / 25, 2),
@@ -385,7 +390,7 @@ WORK.update({
     "merge_raw prune S=5": (8 + 32 + 8 / 5 + 8 / 5, 2),
     # the general form's checks at s = 1 (a tap reach of 35): each
     # column's, row's and tap's terms on one phase
-    "merge_fast s=1": (4 + 12 + 1 + 4 + 7, 1),
+    "merge_fast s=1": (4 + 12 + 1 + 4 + 4, 1),
 })
 
 

@@ -115,20 +115,24 @@
 //   blocks an SM, 64 registers) spilling 8 bytes; form 2 72, 88, 96 and
 //   113, no spills. Times against their bounds in PERF.md.
 //
-// Form 3 (9 moments): 27 accumulators per phase. A thread holds one
-// phase (a thread per pixel and phase, 27 accumulators at every scale;
-// 27 s per phase row would need ~200 registers at s = 4), and a block is
-// 32 pixels x kTileH rows x s^2 phases: 32 x 8 at s = 1, 32 x 2 x 4 at
-// s = 2 (256 threads), 32 x 1 x 9 (288) at s = 3 and 32 x 1 x 16 (512)
-// at s = 4, where one pixel row stages 3-5 rows of halo. Per item it
-// forms w dy, w dx and their three products once and adds nine FMAs per
-// channel. Its bound at chip_smoke.py's check (F=5, 256 x 512, s=2, the
-// 21 taps at e^-1.5): 56.6 MB of moments written and 22.5 MB read
-// (23.6 us at 3.35 TB/s) against 55 M items at 67.25 flops (3.7 GFLOP,
-// 55 us at 67 TFLOP/s): the operations bind. Its moments are checked at
-// rtol/atol 1e-4, as form 2's. Measured (chip_smoke.py; NVIDIA H100 80GB
-// HBM3, 700.00 W): 88, 92, 86 and 88 registers at s = 1-4, no spills;
-// its times against their bounds in PERF.md.
+// Form 3 (9 moments): 27 accumulators per phase. A thread holds one phase
+// row and, where the scale is even, two of its phase columns (54
+// accumulators; a row's four at s = 4 would need ~200 registers), else
+// one phase: a tap's two shared loads, its row terms and the loop's own
+// work then serve two phases. A block is 32 pixels x kTileH rows x the
+// threads of a pixel: 32 x 8 at s = 1 (256 threads), 32 x 2 x 2 at s = 2
+// (128), 32 x 1 x 9 (288) at s = 3 and 32 x 1 x 8 (256) at s = 4, where
+// one pixel row stages 3-5 rows of halo; two blocks an SM at s = 3-4,
+// four at s = 2 (by registers). Per item it forms w dy, w dx and their
+// three products once and adds nine FMAs per channel, frames outermost
+// and taps in list order. Its bound at chip_smoke.py's check (F=5, 256 x
+// 512, s=2, the 21 taps at e^-1.5): 56.6 MB of moments written and 22.5
+// MB read (23.6 us at 3.35 TB/s) against 55 M items at 61.5 flops (3.4
+// GFLOP, 50.6 us at 67 TFLOP/s): the operations bind. Its moments are
+// checked at rtol/atol 1e-4, as form 2's. Measured (tools/ab_main_kernels.py
+// and chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 88, 118, 86 and
+// 112 registers at s = 1-4, no spills; its times against their bounds in
+// PERF.md.
 //
 // Form 4 (bfloat16) is form 1's thread and loop in the JAX function's
 // rounding order: the staged sites are rounded to bfloat16 instead of
@@ -245,7 +249,8 @@ struct Layout {
   static constexpr bool kPhase = kForm >= 1;  // the phase layout
   static constexpr int kSlots = kForm == 3 ? 9 : (kOrder1 ? 4 : 2);
   static constexpr int kRows = kOrder1 || S == 0 ? 1 : S;      // phase rows a thread holds
-  static constexpr int kCols = kForm == 3 || S == 0 ? 1 : S;   // phase columns a thread holds
+  // phase columns a thread holds: form 3 two where the scale is even
+  static constexpr int kCols = S == 0 ? 1 : (kForm == 3 ? (S % 2 ? 1 : 2) : S);
   static constexpr int kColGroups = S == 0 ? 1 : S / kCols;    // threads a phase row
   static constexpr int kZ = S == 0 ? 1 : (S / kRows) * kColGroups;  // threads a pixel
   static constexpr int kTileH = kForm == 3 ? (S == 1 ? 8 : (S == 2 ? 2 : 1))

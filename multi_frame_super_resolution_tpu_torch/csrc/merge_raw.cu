@@ -89,17 +89,24 @@
 //   at once (there is nothing to double-buffer across frames); 7.4 KB a
 //   frame at halo 1 (30 frames fit), 10 KB at halo 2 (22). Omega and
 //   omega_rb stay in registers.
-// - Longer bursts (kStream, the float32 forms): the same tap loop
-//   (add_group_taps, which both forms call), chunk by chunk of as many
-//   frames as fit. Each tap-group pair stages every chunk in turn and
-//   adds each tap's chunk sums to the accumulators and chains it keeps
-//   across the chunks, so a block still finishes its centroids (the live
-//   accumulators stay one pair's, its R and B cells stored after the last
-//   chunk; the staging is paid once a chunk and pair, and a tap's frame
-//   sum rounds chunk by chunk). A separate instantiation: one loop for
-//   every length (one chunk where the frames fit) cost the resident case
-//   128 registers, spills and 7% at S=2 (PERF.md). The bfloat16 order 0
-//   past the cap runs the general form.
+// - Longer bursts (the float32 forms past the frame cap) run
+//   merge_raw_stream_kernel: the same tap loop (add_group_taps) and
+//   rounding, the frames streamed through two shared-memory slots of
+//   `chunk` frames (stream_chunk: the most that leave room for two blocks
+//   an SM, e.g. 16 at S = 2, halo 1), the next chunk's cp.async copies in
+//   flight while a chunk accumulates, one barrier a chunk. A thread keeps
+//   one tap group's cells and chains (28 sums at S = 2, against a pair's
+//   50, which spilled 180-260 bytes at 128 registers), so the frames
+//   stream once and a pair's green cells add its second group's sums,
+//   passed through shared memory, to its first's at the end; at S = 4,
+//   where four threads for each of Layout<4>'s eight would not fit two
+//   blocks an SM, a block holds 16 pixels and half the phases (grid z the
+//   other half). The order 0 at S = 4 has no chains to spill and keeps a
+//   tap-group pair a thread, as merge_raw_kernel does, streaming the
+//   frames once a pair (the split form took it 11% longer). A tap's frame
+//   sum rounds chunk by chunk. A kernel of its own: one loop for every
+//   length cost the resident case 128 registers, spills and 7% at S=2
+//   (PERF.md). The bfloat16 order 0 past the cap runs the general form.
 // - Stores: each warp writes 32 consecutive pixels of one output plane,
 //   in the (4, 4, 3, hh, hw) layout the solve reads.
 // - Measured (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 122-126
@@ -405,7 +412,8 @@ __device__ __forceinline__ float gauss_plain(float dx, float dy, float dy2, floa
 // sums that cancel and their rounding grows with S (S = 5: 1.1-1.3e-5
 // from the plain version at 4 of 9.8 M values with the templated
 // arithmetic).
-template <int S, int kHalo, bool kGreenDiag, bool kChains, int kPX>
+template <int S, int kHalo, bool kGreenDiag, bool kChains, int kPX, int kTileHt = Shape<S>::kTileH,
+          int kTWt = kTileW>
 __device__ __forceinline__ void add_group_taps(
     const TapTable& taps, int g, int k, int nf, const float2* my_res, const float2* my_sv,
     float phi_y, float phis_y, const float (&phi_x)[kPX], float og0, float og1, float og2,
@@ -414,11 +422,11 @@ __device__ __forceinline__ void add_group_taps(
     int sw_rt = 0, int sa_rt = 0, int pix_rt = 0, int s_rt = 0, const int* s_rows = nullptr,
     float3 om_g = float3{}, float3 om_rb = float3{}) {
   constexpr bool kPlainChains = S == 0 && kChains;
-  constexpr int kSWc = kTileW + 2 * kHalo;
-  constexpr int kSAc = (Shape<S>::kTileH + 2 * kHalo) * kSWc;
+  constexpr int kSWc = kTWt + 2 * kHalo;
+  constexpr int kSAc = (kTileHt + 2 * kHalo) * kSWc;
   const int kSW = S ? kSWc : sw_rt;
   const int kSA = S ? kSAc : sa_rt;
-  const int kPix = S ? Shape<S>::kPix : pix_rt;
+  const int kPix = S ? kTWt * kTileHt : pix_rt;
   const float sf = S ? (float)S : (float)s_rt;
   for (int t = g ? taps.group_end[g - 1] : 0; t < taps.group_end[g]; ++t) {
     int kyi, kxi;
@@ -522,13 +530,15 @@ __device__ __forceinline__ void add_group_taps(
 }
 
 // kChains: form 0 (the certless centroid chains); without them form 1,
-// in float32 or (kBf16) in bfloat16. kStream: the frames in chunks of
-// `chunk` (the most that fit shared memory at once), each staged in turn
-// for each tap-group pair (the bfloat16 order 0: for each pass of kPass
-// taps), so any number of frames runs. S = 0 (the general form, kStream
-// only, kHalo 0): the scale, halo, phases and tap rows of `gen` at run
-// time, the tile blockDim.x x blockDim.y pixels; one chunk is staged once.
-template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16, bool kStream = false>
+// in float32 or (kBf16) in bfloat16. The templated scales (S = 1-4) stage
+// every frame at once (bursts past that run merge_raw_stream_kernel,
+// below). S = 0 (the general form, kHalo 0): the scale, halo, phases and
+// tap rows of `gen` at run time, the tile blockDim.x x blockDim.y pixels,
+// the frames in chunks of `chunk` (the most that fit shared memory at
+// once), each staged in turn for each tap-group pair (the bfloat16 order
+// 0: for each pass of kPass taps), so any number of frames runs; one
+// chunk is staged once.
+template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16>
 __global__ void __launch_bounds__(Shape<S>::kThreads, Layout<S>::kMinBlocks)
 merge_raw_kernel(const float* __restrict__ planes,
                  const float* __restrict__ residual,
@@ -543,8 +553,7 @@ merge_raw_kernel(const float* __restrict__ planes,
   constexpr bool kGeneral = S == 0;
   constexpr int kPX = L::kPX;
   const int kTW = kGeneral ? (int)blockDim.x : L::kTW;
-  static_assert(kGeneral ? kStream && kHalo == 0 : !(kStream && kBf16),
-                "the templated streamed form is the float32 forms'; the general form streams every form");
+  static_assert(!kGeneral || kHalo == 0, "the general form's halo is gen.halo");
   const int sc = kGeneral ? gen.s : S;
   const int halo = kGeneral ? gen.halo : kHalo;
   const int kTileH = kGeneral ? (int)blockDim.y : L::kTileH;
@@ -552,7 +561,7 @@ merge_raw_kernel(const float* __restrict__ planes,
   const int kThreads = kGeneral ? kPix * (int)blockDim.z : L::kThreads;
   const int kSW = kTW + 2 * halo;                  // staged row length
   const int kSA = (kTileH + 2 * halo) * kSW;       // staged sites per plane
-  const int staged = kStream ? chunk : frames;     // frames resident at once
+  const int staged = kGeneral ? chunk : frames;    // frames resident at once
   extern __shared__ float2 smem[];
   float2* sv = smem;                               // (F, 4, kSA): value, cert
   float2* sres = smem + (size_t)staged * 4 * kSA;  // (F, kPix): ry, rx
@@ -616,7 +625,7 @@ merge_raw_kernel(const float* __restrict__ planes,
     }
     __syncthreads();
   };
-  if constexpr (!kStream) stage(0, frames);  // every frame at once
+  if constexpr (!kGeneral) stage(0, frames);  // every frame at once
 
   const int i = i0 + ty, j = j0 + tx;
   const bool inside = i < hh && j < hw && (!kGeneral || ph < sc * sc);
@@ -858,12 +867,12 @@ merge_raw_kernel(const float* __restrict__ planes,
         }
       }
     };
-    if constexpr (kStream) {
+    if constexpr (kGeneral) {
       // each chunk staged in turn, once every thread is done with the
       // last, for both groups of the pair
       for (int f0 = 0; f0 < frames; f0 += chunk) {
         const int nf = min(chunk, frames - f0);
-        if (!kGeneral || frames > chunk || pair == 0) {  // the general form stages one chunk once
+        if (frames > chunk || pair == 0) {  // one chunk is staged once
           __syncthreads();
           stage(f0, nf);
         }
@@ -898,6 +907,353 @@ merge_raw_kernel(const float* __restrict__ planes,
           store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, 1,
                                  m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px],
                                  cw[0][px], c1[0][px], c2[0][px], sc);
+        }
+      }
+    }
+  }
+}
+
+// The certless and float32 order-0 forms on bursts past the frame cap
+// (merge_raw_stream_kernel; see the file's head): add_group_taps, its
+// rounding and the stores of merge_raw_kernel, the frames streamed through
+// two shared-memory slots of `chunk` frames each (stream_chunk). A thread
+// stages the same sites of every frame; at each step, once its own copies
+// of the chunk at hand have landed, it forms their value * certainty and
+// clips its residual, and the step's one barrier publishes the slot and
+// frees the other, which takes the next chunk by cp.async while the block
+// accumulates. StreamShape<S, chains> gives the layout: a thread per
+// (pixel, phase thread of Layout<S>, tap group), each group in warps of
+// its own (kSplit; threadIdx.z = phase thread + kZB group), 32 x 2 pixels
+// a block at S = 1, 32 x 1 at S = 2-3 (S = 3: a third of the phases a
+// block, grid z the rest) and 16 x 1 at S = 4 (half the phases); or, for
+// the order 0 at S = 4, Layout<4>'s thread per tap-group pair, the frames
+// streamed once a pair.
+constexpr int kStreamSlots = 2;
+
+template <int S, bool kChains>
+struct StreamShape {
+  // a thread per tap group: at S = 1-3, and with the chains at S = 4
+  static constexpr bool kSplit = S <= 3 || kChains;
+  static constexpr int kPX = Layout<S>::kPX, kCols = S / kPX, kZ = S * kCols;  // Layout<S>'s phase threads
+  static constexpr int kTileH = kSplit ? (S == 1 ? 2 : 1) : Layout<S>::kTileH;
+  static constexpr int kTW = S == 4 && kSplit ? 16 : kTileW;  // pixels a tile row
+  // phase threads a block, grid z over the rest
+  static constexpr int kZB = kSplit && S >= 3 ? (S == 3 ? 3 : 4) : kZ;
+  static constexpr int kPhaseBlocks = kZ / kZB;
+  static constexpr int kPix = kTW * kTileH;
+  static constexpr int kThreads = kPix * kZB * (kSplit ? 4 : 1);
+  static constexpr int kMinBlocks = 2;
+};
+
+// The bytes of one frame in a slot: the tile and halo of four planes and
+// the tile's residuals, a float2 a site.
+template <int S, int kHalo, bool kChains>
+constexpr size_t stream_frame_bytes() {
+  using L = StreamShape<S, kChains>;
+  return (size_t)(4 * (L::kTileH + 2 * kHalo) * (L::kTW + 2 * kHalo) + L::kPix) * sizeof(float2);
+}
+
+// The ring's chunk: the most frames whose kStreamSlots slots leave room
+// for the kMinBlocks blocks an SM that the launch bound asks for (228 KB
+// of shared memory an SM, 1 KB of it reserved for each block).
+constexpr int kSmSmem = 233472;
+
+template <int S, int kHalo, bool kChains>
+constexpr int stream_chunk() {
+  return (int)((kSmSmem / StreamShape<S, kChains>::kMinBlocks - 1024) /
+               (kStreamSlots * stream_frame_bytes<S, kHalo, kChains>()));
+}
+
+template <int S, int kHalo, bool kGreenDiag, bool kChains>
+__global__ void __launch_bounds__(StreamShape<S, kChains>::kThreads, StreamShape<S, kChains>::kMinBlocks)
+merge_raw_stream_kernel(const float* __restrict__ planes,
+                        const float* __restrict__ residual,
+                        const float* __restrict__ certainty,
+                        const float* __restrict__ omega,
+                        const float* __restrict__ omega_rb,
+                        float* __restrict__ m00_out, float* __restrict__ cy_out,
+                        float* __restrict__ cx_out, float* __restrict__ b0_out,
+                        int frames, int hh, int hw, float rb, const TapTable taps, int chunk) {
+  using L = StreamShape<S, kChains>;
+  static_assert(S >= 1 && S <= 4, "the templated scales");
+  constexpr int kPX = L::kPX, kTW = L::kTW, kTileH = L::kTileH, kPix = L::kPix, kThreads = L::kThreads;
+  constexpr int kSW = kTW + 2 * kHalo;             // staged row length
+  constexpr int kSA = (kTileH + 2 * kHalo) * kSW;  // staged sites per plane
+  constexpr int kSitesPT = (kSA + kThreads - 1) / kThreads;
+  static_assert(kPix <= kThreads, "a thread stages at most one pixel's residual");
+  extern __shared__ float2 smem[];
+  // a slot: (chunk, 4, kSA) (value, certainty) sites, then (chunk, kPix)
+  // clipped residuals
+  const int slot_sz = chunk * (4 * kSA + kPix);
+
+  const int tx = threadIdx.x, ty = threadIdx.y, zz = threadIdx.z;
+  // the phase thread (Layout<S>'s numbering) and, split, the tap group
+  // slot gz: groups 0, 3 (pair 0), 1, 2 (pair 1)
+  const int zb = zz % L::kZB, gz = zz / L::kZB;
+  const int zp = zb + (int)blockIdx.z * L::kZB;
+  const int py = zp / L::kCols, px0 = (zp % L::kCols) * kPX;
+  const int tid = (zz * kTileH + ty) * kTW + tx;
+  const int i0 = blockIdx.y * kTileH, j0 = blockIdx.x * kTW;
+  const long long plane = (long long)hh * hw;
+
+  // this thread's sites, the same in every frame (edge-clamped like the
+  // plain version's padding): site tid + n kThreads of each plane (-1
+  // past the tile and halo) and pixel tid's residual (-1 past the tile)
+  int site_rc[kSitesPT];
+#pragma unroll
+  for (int n = 0; n < kSitesPT; ++n) {
+    const int site = tid + n * kThreads;
+    site_rc[n] = site < kSA ? min(max(i0 - kHalo + site / kSW, 0), hh - 1) * hw +
+                                  min(max(j0 - kHalo + site % kSW, 0), hw - 1)
+                            : -1;
+  }
+  const int pix_rc = tid < kPix ? min(i0 + tid / kTW, hh - 1) * hw + min(j0 + tid % kTW, hw - 1) : -1;
+  // copies the chunk of frames [f0, f0 + chunk) into slot b
+  const auto stage = [&](int f0, int b) {
+    const int nf = min(chunk, frames - f0);
+    float2* sv = smem + b * slot_sz;
+#pragma unroll
+    for (int n = 0; n < kSitesPT; ++n) {
+      if (site_rc[n] < 0) break;
+      const float* pf = planes + (long long)f0 * 4 * plane + site_rc[n];
+      const float* cf = certainty + ((long long)f0 * plane + site_rc[n]) * 3;
+      float2* d = sv + tid + n * kThreads;
+      for (int fl = 0; fl < nf; ++fl, pf += 4 * plane, cf += 3 * plane, d += 4 * kSA) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          cp_async4(&d[q * kSA].x, pf + q * plane);
+          cp_async4(&d[q * kSA].y, cf + taps.chan[q]);
+        }
+      }
+    }
+    if (pix_rc >= 0) {
+      const float* rf = residual + ((long long)f0 * plane + pix_rc) * 2;
+      float2* d = sv + chunk * 4 * kSA + tid;
+      for (int fl = 0; fl < nf; ++fl, rf += 2 * plane) cp_async8(&d[fl * kPix], rf);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // value * certainty and the clipped residual on this thread's sites of
+  // slot b, which holds frames [f0, f0 + chunk), once its copies landed
+  const auto fix = [&](int f0, int b) {
+    const int nf = min(chunk, frames - f0);
+    float2* sv = smem + b * slot_sz;
+#pragma unroll
+    for (int n = 0; n < kSitesPT; ++n) {
+      if (site_rc[n] < 0) break;
+      for (int e = tid + n * kThreads; e < nf * 4 * kSA; e += kSA) sv[e].x *= sv[e].y;
+    }
+    if (pix_rc >= 0) {
+      float2* d = sv + chunk * 4 * kSA + tid;
+      for (int fl = 0; fl < nf; ++fl) {
+        const float2 r = d[fl * kPix];
+        d[fl * kPix] = make_float2(fminf(fmaxf(r.x, -rb), rb), fminf(fmaxf(r.y, -rb), rb));
+      }
+    }
+  };
+  stage(0, 0);
+
+  const int i = i0 + ty, j = j0 + tx;
+  const bool inside = i < hh && j < hw;
+  const long long pix = (long long)min(i, hh - 1) * hw + min(j, hw - 1);
+  const long long out_pix = (long long)i * hw + j;
+  // phi and the folded omegas as merge_raw_kernel forms them
+  const float phi_y = ((float)py + 0.5f) / (float)S - 0.5f;
+  const float phis_y = phi_y * (float)S;
+  float phi_x[kPX];
+#pragma unroll
+  for (int p = 0; p < kPX; ++p) phi_x[p] = ((float)(px0 + p) + 0.5f) / (float)S - 0.5f;
+  constexpr float kL = 1.4426950408889634f;  // log2(e)
+  const float og0 = -0.5f * kL * omega[pix * 3 + 0], og1 = -0.5f * kL * omega[pix * 3 + 1],
+              og2 = -kL * omega[pix * 3 + 2];
+  const float or0 = -0.5f * kL * omega_rb[pix * 3 + 0],
+              or1 = -0.5f * kL * omega_rb[pix * 3 + 1], or2 = -kL * omega_rb[pix * 3 + 2];
+
+  int b = 0;  // the slot of the chunk at hand
+  // a step: its chunk's copies landed (issued a step before), every
+  // thread fixes its own sites, the barrier publishes them and frees the
+  // other slot, which takes the next chunk, [f0 + chunk, ...) or, while
+  // `more`, the first again
+  const auto step = [&](int f0, bool more) -> const float2* {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    fix(f0, b);
+    __syncthreads();
+    if (f0 + chunk < frames) {
+      stage(f0 + chunk, b ^ 1);
+    } else if (more) {
+      stage(0, b ^ 1);
+    }
+    return smem + b * slot_sz;
+  };
+
+  if constexpr (L::kSplit) {
+    // this thread's group (gz: groups 0, 3, 1, 2): its cells m, bv
+    // [parity z][x phase], the pair's green chain cg and its own R/B
+    // chain cr (w, n1, n2), through add_group_taps' arrays step by step
+    float m[4][kPX], bv[4][kPX], cg[3][kPX], cr[3][kPX];
+#pragma unroll
+    for (int px = 0; px < kPX; ++px) {
+#pragma unroll
+      for (int z = 0; z < 4; ++z) m[z][px] = bv[z][px] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) cg[c][px] = cr[c][px] = 0.0f;
+    }
+    const auto run = [&](auto pair_c, auto k_c, const float2* sv, int nf) {
+      constexpr int pair = decltype(pair_c)::value, k = decltype(k_c)::value;
+      float m00[4][2][kPX] = {}, b0[4][2][kPX] = {}, cw[3][kPX] = {}, c1[3][kPX] = {}, c2[3][kPX] = {};
+#pragma unroll
+      for (int px = 0; px < kPX; ++px) {
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          m00[z][k][px] = m[z][px];
+          b0[z][k][px] = bv[z][px];
+        }
+        cw[0][px] = cg[0][px], c1[0][px] = cg[1][px], c2[0][px] = cg[2][px];
+        cw[1 + k][px] = cr[0][px], c1[1 + k][px] = cr[1][px], c2[1 + k][px] = cr[2][px];
+      }
+      add_group_taps<S, kHalo, kGreenDiag, kChains, kPX, kTileH, kTW>(
+          taps, pair == 0 ? 3 * k : 1 + k, k, nf, sv + chunk * 4 * kSA + ty * kTW + tx,
+          sv + (ty + kHalo) * kSW + (tx + kHalo), phi_y, phis_y, phi_x, og0, og1, og2, or0, or1, or2, m00, b0,
+          cw, c1, c2);
+#pragma unroll
+      for (int px = 0; px < kPX; ++px) {
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          m[z][px] = m00[z][k][px];
+          bv[z][px] = b0[z][k][px];
+        }
+        cg[0][px] = cw[0][px], cg[1][px] = c1[0][px], cg[2][px] = c2[0][px];
+        cr[0][px] = cw[1 + k][px], cr[1][px] = c1[1 + k][px], cr[2][px] = c2[1 + k][px];
+      }
+    };
+    using I0 = std::integral_constant<int, 0>;
+    using I1 = std::integral_constant<int, 1>;
+#pragma unroll 1
+    for (int f0 = 0; f0 < frames; f0 += chunk) {
+      const float2* sv = step(f0, false);
+      const int nf = min(chunk, frames - f0);
+      switch (gz) {
+        case 0: run(I0{}, I0{}, sv, nf); break;
+        case 1: run(I0{}, I1{}, sv, nf); break;
+        case 2: run(I1{}, I0{}, sv, nf); break;
+        default: run(I1{}, I1{}, sv, nf); break;
+      }
+      b ^= 1;
+    }
+    // the group's R and B cells
+    const auto finish = [&](auto pair_c, auto k_c) {
+      constexpr int pair = decltype(pair_c)::value, k = decltype(k_c)::value;
+      constexpr int g = pair == 0 ? 3 * k : 1 + k;
+      if (!inside) return;
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        if (is_green<kGreenDiag>(plane_of(z, g))) continue;
+#pragma unroll
+        for (int px = 0; px < kPX; ++px) {
+          store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px,
+                                 taps.chan[plane_of(z, g)], m[z][px], bv[z][px], cr[0][px], cr[1][px], cr[2][px]);
+        }
+      }
+    };
+    // a pair's green cells add its second group's sums, passed through
+    // the ring (free now), to its first's, in group order: [pair][x
+    // phase][the four parities' (m00, b0), the green chain's (w, n1,
+    // n2)][phase thread, pixel]
+    constexpr int kXN = L::kZB * kTileH * kTW;
+    float* xs = reinterpret_cast<float*>(smem) + (zb * kTileH + ty) * kTW + tx;
+    __syncthreads();
+    if (gz & 1) {
+#pragma unroll
+      for (int px = 0; px < kPX; ++px) {
+        float* row = xs + ((gz >> 1) * 11 * kPX + 11 * px) * kXN;
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          row[2 * z * kXN] = m[z][px];
+          row[(2 * z + 1) * kXN] = bv[z][px];
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) row[(8 + c) * kXN] = cg[c][px];
+      }
+    }
+    switch (gz) {
+      case 0: finish(I0{}, I0{}); break;
+      case 1: finish(I0{}, I1{}); break;
+      case 2: finish(I1{}, I0{}); break;
+      default: finish(I1{}, I1{}); break;
+    }
+    __syncthreads();
+    if (!(gz & 1) && inside) {
+      const float* row = xs + (gz >> 1) * 11 * kPX * kXN;
+      const bool pair1 = gz != 0;
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        // parity z reads green in the pair's groups (plane_of(z, 0) for
+        // pair 0, plane_of(z, 1) for pair 1)
+        if (!is_green<kGreenDiag>(plane_of(z, pair1 ? 1 : 0))) continue;
+#pragma unroll
+        for (int px = 0; px < kPX; ++px) {
+          const float* r = row + 11 * px * kXN;
+          store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, 1,
+                                 m[z][px] + r[2 * z * kXN], bv[z][px] + r[(2 * z + 1) * kXN],
+                                 cg[0][px] + r[8 * kXN], cg[1][px] + r[9 * kXN], cg[2][px] + r[10 * kXN]);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int pair = 0; pair < 2; ++pair) {
+      // [parity z][group of the pair][x phase]
+      float m00[4][2][kPX], b0[4][2][kPX];
+      // [the pair's green chain, its groups' R/B chains][x phase]
+      float cw[3][kPX], c1[3][kPX], c2[3][kPX];
+#pragma unroll
+      for (int px = 0; px < kPX; ++px) {
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          m00[z][0][px] = m00[z][1][px] = b0[z][0][px] = b0[z][1][px] = 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) cw[k][px] = c1[k][px] = c2[k][px] = 0.0f;
+      }
+#pragma unroll 1
+      for (int f0 = 0; f0 < frames; f0 += chunk) {
+        const float2* sv = step(f0, pair == 0);
+        const int nf = min(chunk, frames - f0);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          add_group_taps<S, kHalo, kGreenDiag, kChains, kPX, kTileH, kTW>(
+              taps, pair == 0 ? 3 * k : 1 + k, k, nf, sv + chunk * 4 * kSA + ty * kTW + tx,
+              sv + (ty + kHalo) * kSW + (tx + kHalo), phi_y, phis_y, phi_x, og0, og1, og2, or0, or1, or2, m00, b0,
+              cw, c1, c2);
+        }
+        b ^= 1;
+      }
+      if (inside) {
+        // the R and B cells each group completed, then the pair's green
+        // cells, their two groups in group order
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int g = pair == 0 ? 3 * k : 1 + k;
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+            if (is_green<kGreenDiag>(plane_of(z, g))) continue;
+#pragma unroll
+            for (int px = 0; px < kPX; ++px) {
+              store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px,
+                                     taps.chan[plane_of(z, g)], m00[z][k][px], b0[z][k][px], cw[1 + k][px],
+                                     c1[1 + k][px], c2[1 + k][px]);
+            }
+          }
+        }
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          if (!is_green<kGreenDiag>(plane_of(z, pair == 0 ? 0 : 1))) continue;
+#pragma unroll
+          for (int px = 0; px < kPX; ++px) {
+            store_cell<S, kChains>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, 1,
+                                   m00[z][0][px] + m00[z][1][px], b0[z][0][px] + b0[z][1][px], cw[0][px],
+                                   c1[0][px], c2[0][px]);
+          }
         }
       }
     }
@@ -1386,7 +1742,7 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
 // (Block, from kernels/merge_raw.py::general_block: the choice and the
 // shared bytes there, tested on the CPU; the launch refuses a block the
 // form cannot take):
-// - merge_raw_kernel<0, 0, green diagonal, chains, bf16, true> (forms 0
+// - merge_raw_kernel<0, 0, green diagonal, chains, bf16> (forms 0
 //   and 1): a thread per (pixel, phase) (kPX = 1), tw x th pixels (16 x
 //   4 to 16 phases; 8 x 1 past them: 200 threads at S = 5) x the phases,
 //   grid z over groups of phases past 512 threads. It streams: chunks of
@@ -1774,29 +2130,58 @@ int launch_cells(const void* planes, const void* residual, const void* certainty
   return (int)cudaGetLastError();
 }
 
-// kStream: the frames in chunks of `chunk` (the resident form: chunk is
-// ignored and every frame is staged)
-template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16, bool kStream>
+// The resident forms (every frame staged at once).
+template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16>
 int launch(const void* planes, const void* residual, const void* certainty,
            const void* omega, const void* omega_rb, void* m00, void* cy,
            void* cx, void* b0, int frames, int hh, int hw, float rb,
-           const TapTable& taps, int chunk, cudaStream_t stream) {
+           const TapTable& taps, cudaStream_t stream) {
   using L = Shape<S>;
-  const size_t bytes = smem_bytes<S, kHalo>(kStream ? chunk : frames);
+  const size_t bytes = smem_bytes<S, kHalo>(frames);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16, kStream>,
+        merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 block(kTileW, L::kTileH, L::kZ);
   const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kTileH - 1) / L::kTileH, 1);
-  merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16, kStream><<<grid, block, bytes, stream>>>(
+  merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(m00),
       static_cast<float*>(cy), static_cast<float*>(cx),
-      static_cast<float*>(b0), frames, hh, hw, rb, taps, chunk, General{});
+      static_cast<float*>(b0), frames, hh, hw, rb, taps, 0, General{});
+  return (int)cudaGetLastError();
+}
+
+// The streamed forms: the ring of kStreamSlots slots of stream_chunk
+// frames in dynamic shared memory.
+template <int S, int kHalo, bool kGreenDiag, bool kChains>
+int launch_stream(const void* planes, const void* residual, const void* certainty,
+                  const void* omega, const void* omega_rb, void* m00, void* cy,
+                  void* cx, void* b0, int frames, int hh, int hw, float rb,
+                  const TapTable& taps, cudaStream_t stream) {
+  using L = StreamShape<S, kChains>;
+  constexpr int chunk = stream_chunk<S, kHalo, kChains>();
+  constexpr int bytes = (int)(kStreamSlots * chunk * stream_frame_bytes<S, kHalo, kChains>());
+  // the ring, which at the end holds the split groups' green sums
+  constexpr size_t kExchange = L::kSplit ? 2 * 11 * L::kPX * L::kZB * L::kPix * sizeof(float) : 0;
+  static_assert(chunk >= 1 && bytes <= kMaxSmem && (size_t)bytes >= kExchange, "the ring fits a block");
+  static_assert(L::kMinBlocks * (bytes + 1024) <= kSmSmem, "the ring leaves room for kMinBlocks blocks an SM");
+  const auto kernel = merge_raw_stream_kernel<S, kHalo, kGreenDiag, kChains>;
+  if constexpr (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 block(L::kTW, L::kTileH, L::kZB * (L::kSplit ? 4 : 1));
+  const dim3 grid((hw + L::kTW - 1) / L::kTW, (hh + L::kTileH - 1) / L::kTileH, L::kPhaseBlocks);
+  kernel<<<grid, block, bytes, stream>>>(
+      static_cast<const float*>(planes), static_cast<const float*>(residual),
+      static_cast<const float*>(certainty), static_cast<const float*>(omega),
+      static_cast<const float*>(omega_rb), static_cast<float*>(m00),
+      static_cast<float*>(cy), static_cast<float*>(cx),
+      static_cast<float*>(b0), frames, hh, hw, rb, taps, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -1816,11 +2201,11 @@ int launch_general(const void* planes, const void* residual, const void* certain
   const dim3 grid((hw + blk.tw - 1) / blk.tw, (hh + blk.th - 1) / blk.th, blk.groups);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   if (blk.bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(merge_raw_kernel<0, 0, kGreenDiag, kChains, kBf16, true>,
+    const cudaError_t err = cudaFuncSetAttribute(merge_raw_kernel<0, 0, kGreenDiag, kChains, kBf16>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, blk.bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  merge_raw_kernel<0, 0, kGreenDiag, kChains, kBf16, true><<<grid, block, blk.bytes, stream>>>(
+  merge_raw_kernel<0, 0, kGreenDiag, kChains, kBf16><<<grid, block, blk.bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
       static_cast<const float*>(certainty), static_cast<const float*>(omega),
       static_cast<const float*>(omega_rb), static_cast<float*>(m00),
@@ -1852,8 +2237,7 @@ int launch_scale(int form, int flags, int halo, bool green_diag, const void* pla
 #undef MFSR_CELLS
   }
   // form 0's four outputs (m00, cy, cx, b0) one after another; form 1's
-  // two (num, den) are its b0 and m00. Past the frames that fit shared
-  // memory at once the float32 forms stream them in chunks of that many.
+  // two (num, den) are its b0 and m00
   float* base = static_cast<float*>(out);
   const long long slot = (long long)4 * (S ? S : gen.s) * (S ? S : gen.s) * 3 * hh * hw;
   if constexpr (S == 0) {
@@ -1875,21 +2259,18 @@ int launch_scale(int form, int flags, int halo, bool green_diag, const void* pla
     return green_diag ? MFSR_GENERAL(true, false) : MFSR_GENERAL(false, false);
 #undef MFSR_GENERAL
   } else {
-    const int cap = max_frames<S>(halo, form);
-    const bool stream_frames = frames > cap;
-    if (stream_frames && bf16) return (int)cudaErrorInvalidValue;  // the general form's
-#define MFSR_LAUNCH(H, G, C, B, T, M00, CY, CX, B0)                                                 \
-  launch<S, H, G, C, B, T>(planes, residual, certainty, omega, omega_rb, M00, CY, CX, B0, frames, hh, \
-                           hw, rb, taps, cap, stream)
-#define MFSR_FORM(H, G, T)                                                                              \
-  (form == 0 ? MFSR_LAUNCH(H, G, true, false, T, base, base + slot, base + 2 * slot, base + 3 * slot) \
-   : bf16    ? MFSR_LAUNCH(H, G, false, true, false, base + slot, nullptr, nullptr, base)              \
-             : MFSR_LAUNCH(H, G, false, false, T, base + slot, nullptr, nullptr, base))
-#define MFSR_STREAM(H, G) (stream_frames ? MFSR_FORM(H, G, true) : MFSR_FORM(H, G, false))
-    if (form != 0 && form != 1) return (int)cudaErrorInvalidValue;
-    if (halo == 1) return green_diag ? MFSR_STREAM(1, true) : MFSR_STREAM(1, false);
-    return green_diag ? MFSR_STREAM(2, true) : MFSR_STREAM(2, false);
-#undef MFSR_STREAM
+    // past the frames that fit shared memory at once the float32 forms
+    // stream (mfsr_merge_raw_stream)
+    if (frames > max_frames<S>(halo, form) || (form != 0 && form != 1)) return (int)cudaErrorInvalidValue;
+#define MFSR_LAUNCH(H, G, C, B, M00, CY, CX, B0)                                                   \
+  launch<S, H, G, C, B>(planes, residual, certainty, omega, omega_rb, M00, CY, CX, B0, frames, hh, hw, \
+                        rb, taps, stream)
+#define MFSR_FORM(H, G)                                                                                 \
+  (form == 0 ? MFSR_LAUNCH(H, G, true, false, base, base + slot, base + 2 * slot, base + 3 * slot) \
+   : bf16    ? MFSR_LAUNCH(H, G, false, true, base + slot, nullptr, nullptr, base)              \
+             : MFSR_LAUNCH(H, G, false, false, base + slot, nullptr, nullptr, base))
+    if (halo == 1) return green_diag ? MFSR_FORM(1, true) : MFSR_FORM(1, false);
+    return green_diag ? MFSR_FORM(2, true) : MFSR_FORM(2, false);
 #undef MFSR_FORM
 #undef MFSR_LAUNCH
   }
@@ -1963,8 +2344,9 @@ extern "C" {
 // Launches the RAW merge on `stream` and returns cudaGetLastError() (0 on
 // success). Pointers are device pointers to the contiguous float32 arrays
 // described above; out holds the form's outputs (2s, 2s, 3, hh, hw) one
-// after another, each written in full, s = scale in 1..4, any number of
-// frames but for the bfloat16 order 0 (mfsr_merge_raw_max_frames): form 0 (m00,
+// after another, each written in full, s = scale in 1..4, forms 0 and 1
+// on at most mfsr_merge_raw_max_frames frames (more: mfsr_merge_raw_stream),
+// forms 2 and 3 on any number: form 0 (m00,
 // cy, cx, b0), form 1 (num, den), form 2 (m00, m01, m02, m11, m12, m22,
 // b0, b1, b2), form 3 (m00, m01, m02, b0). table is a HOST int array: the channel of each
 // plane q = 2*qa + qb (4, a Bayer pattern: green on one diagonal, R and B
@@ -1999,6 +2381,42 @@ int mfsr_merge_raw(const void* planes, const void* residual,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef MFSR_SCALE
+}
+
+// Launches the streamed form (merge_raw_stream_kernel) of the float32
+// forms 0 and 1 on `stream` and returns cudaGetLastError(): mfsr_merge_raw's
+// arguments (no flags), any number of frames, streamed through a ring of
+// kStreamSlots slots of mfsr_merge_raw_stream_chunk frames.
+int mfsr_merge_raw_stream(const void* planes, const void* residual, const void* certainty,
+                          const void* omega, const void* omega_rb, void* out, int frames, int hh, int hw,
+                          int scale, int form, float rb, const void* table, int n_taps, void* stream) {
+  TapTable taps;
+  int halo;
+  bool green_diag;
+  if (n_taps > kMaxTaps || (form != 0 && form != 1) || !check_launch(residual, frames, hh, hw, form, 0) ||
+      !parse_table(static_cast<const int*>(table), n_taps, true, &taps, &halo, &green_diag)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* base = static_cast<float*>(out);
+  const long long slot = (long long)4 * scale * scale * 3 * hh * hw;
+#define MFSR_STREAM(S, H, G)                                                                                     \
+  (form == 0 ? launch_stream<S, H, G, true>(planes, residual, certainty, omega, omega_rb, base, base + slot,    \
+                                            base + 2 * slot, base + 3 * slot, frames, hh, hw, rb, taps, st)    \
+             : launch_stream<S, H, G, false>(planes, residual, certainty, omega, omega_rb, base + slot, nullptr, \
+                                             nullptr, base, frames, hh, hw, rb, taps, st))
+#define MFSR_HALO(S) \
+  (halo == 1 ? (green_diag ? MFSR_STREAM(S, 1, true) : MFSR_STREAM(S, 1, false)) \
+             : (green_diag ? MFSR_STREAM(S, 2, true) : MFSR_STREAM(S, 2, false)))
+  switch (scale) {
+    case 1: return MFSR_HALO(1);
+    case 2: return MFSR_HALO(2);
+    case 3: return MFSR_HALO(3);
+    case 4: return MFSR_HALO(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MFSR_HALO
+#undef MFSR_STREAM
 }
 
 // Launches the general form (the S = 0 instantiations of merge_raw_kernel,
@@ -2080,9 +2498,9 @@ int mfsr_merge_raw_nonbayer(const void* planes, const void* residual, const void
 // The most frames a launch of the form stages at once at the given scale
 // (1..4) with taps of the given halo (1 or 2): forms 0 and 1 stage every
 // frame's tile at once, which must fit a block's shared memory (past it
-// their float32 forms stream chunks of that many; the bfloat16 order 0
-// is refused); forms 2 and 3 stream frames through a ring (INT_MAX). 0
-// for another scale.
+// their float32 forms run mfsr_merge_raw_stream; the bfloat16 order 0
+// the general form); forms 2 and 3 stream frames through a ring
+// (INT_MAX). 0 for another scale.
 int mfsr_merge_raw_max_frames(int scale, int halo, int form) {
   switch (scale) {
     case 1: return max_frames<1>(halo, form);
@@ -2091,6 +2509,24 @@ int mfsr_merge_raw_max_frames(int scale, int halo, int form) {
     case 4: return max_frames<4>(halo, form);
     default: return 0;
   }
+}
+
+// The frames in each slot of the streamed kernel's ring at `scale` (1..4)
+// with taps of the given halo (1 or 2), for form 0 (certless) or 1
+// (order 0); 0 for another scale, halo or form.
+int mfsr_merge_raw_stream_chunk(int scale, int halo, int form) {
+  if ((halo != 1 && halo != 2) || (form != 0 && form != 1)) return 0;
+#define MFSR_CHUNK(S)                                                                   \
+  (halo == 1 ? (form == 0 ? stream_chunk<S, 1, true>() : stream_chunk<S, 1, false>()) \
+             : (form == 0 ? stream_chunk<S, 2, true>() : stream_chunk<S, 2, false>()))
+  switch (scale) {
+    case 1: return MFSR_CHUNK(1);
+    case 2: return MFSR_CHUNK(2);
+    case 3: return MFSR_CHUNK(3);
+    case 4: return MFSR_CHUNK(4);
+    default: return 0;
+  }
+#undef MFSR_CHUNK
 }
 
 const char* mfsr_cuda_error_string(int code) {

@@ -11,7 +11,8 @@ it has the skeleton of pallas_ops/merge.py::merge_fast_pallas.
 The templated kernels take scales 1-4, taps within +-4 and Bayer
 patterns; their certless and float32 order-0 forms stage the frames
 whose tiles fit a block's shared memory at once and, past that many,
-stream them in chunks (launches counted under ``merge_raw_stream``).
+stream them through a ring of small chunks (merge_raw_stream_kernel;
+launches counted under ``merge_raw_stream``).
 Their general form (the S = 0 instantiations: any scale, any tap list,
 any number of frames, every form and knob, its block from
 general_block) takes every other Bayer merge, its launches counted under
@@ -82,8 +83,13 @@ def library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
     )
-    lib.mfsr_merge_raw_max_frames.argtypes = [ctypes.c_int] * 3
-    lib.mfsr_merge_raw_max_frames.restype = ctypes.c_int
+    bind(
+        lib, "mfsr_merge_raw_stream",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
+    )
+    for query in (lib.mfsr_merge_raw_max_frames, lib.mfsr_merge_raw_stream_chunk):
+        query.argtypes = [ctypes.c_int] * 3
+        query.restype = ctypes.c_int
     return lib
 
 
@@ -168,8 +174,7 @@ def uses_general(scale: int, taps: tuple, cfa: tuple, frames: int, form: int, fr
 
 def streams(form: int, frames: int, frame_cap: int) -> bool:
     """Whether a templated launch of the certless or order-0 form streams
-    the frames in chunks of ``frame_cap`` (more frames than it stages at
-    once)."""
+    the frames (more than ``frame_cap``, the frames it stages at once)."""
     return form in (CERTLESS, ORDER0) and frames > frame_cap
 
 
@@ -332,6 +337,8 @@ def merge_raw(
         rows = _const_array(table_rows, (taps, pattern, centroid_taps), dev)
         launch(lib, "mfsr_merge_raw_general", dev, *args, table.ctypes.data, rows.data_ptr(), len(taps), flags,
                *general_block(scale, tap_halo(taps), len(taps), f, form))
+    elif name == STREAM:
+        launch(lib, "mfsr_merge_raw_stream", dev, *args, table.ctypes.data, len(taps))
     else:
         launch(lib, "mfsr_merge_raw", dev, *args, table.ctypes.data, len(taps), flags)
     LAUNCHES[name] += 1

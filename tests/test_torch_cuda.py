@@ -407,8 +407,8 @@ def test_raw_merge_kernel_scales_match_plain(f, scale, radius, k_max, prune, cfa
 def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
     """Every frame's tile is staged in shared memory at once: the most
     frames that fit at scale 2 (30 at halo 1, 22 at halo 2) run the
-    resident kernel, one more the same kernel streaming chunks of that
-    many; both match the plain version."""
+    resident kernel, one more the streamed kernel's ring; both match the
+    plain version."""
     dev = cuda_device()
     cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(2, halo, 0)
     assert cap == {1: 30, 2: 22}[halo]
@@ -464,12 +464,14 @@ def test_raw_merge_kernel_frame_cap_by_scale(scale):
 @pytest.mark.parametrize("h,w", [(3, 5), (37, 61)])
 @pytest.mark.parametrize("radius,k_max", [(1, 1.0), (7, 64.0)], ids=["taps2", "taps8"])
 @pytest.mark.parametrize("scale", [1, 2, 3, 4])
-@pytest.mark.parametrize("f", [2, 5])
+@pytest.mark.parametrize("f", [1, 2, 5, 9])
 def test_merge_kernel_nine_moments_match_plain(f, scale, radius, k_max, h, w):
     """Form 3, the exact solve's 9 moments in the phase layout at e^-1.5
-    (k_max scaled by (s/2)^2), a thread per pixel and phase: ragged and
-    tiny images, the largest halo (taps8). rtol and atol 1e-4, as the
-    plugin moments (dy and dx, and their products, in either sign)."""
+    (k_max scaled by (s/2)^2), a thread per pixel, phase row and two phase
+    columns at s = 2 and 4 (one phase at s = 1 and 3): ragged and tiny
+    images, the largest halo (taps8), one frame to nine. rtol and atol
+    1e-4, as the plugin moments (dy and dx, and their products, in either
+    sign). One launch of the templated kernel."""
     dev = cuda_device()
     k_max = k_max * (scale / 2.0) ** 2
     ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(f * 10 + scale + 7), f, h, w)]
@@ -477,7 +479,7 @@ def test_merge_kernel_nine_moments_match_plain(f, scale, radius, k_max, h, w):
     LAUNCHES.clear()
     got = merge_fast(*ins, scale, radius, 1.0, k_max, **kw)
     torch.cuda.synchronize()
-    assert LAUNCHES["merge_fast"] == 1
+    assert dict(LAUNCHES) == {"merge_fast": 1}
     want = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max, **kw)
     assert len(got) == len(want) == 9
     for g, w_ in zip(got, want):
@@ -486,15 +488,22 @@ def test_merge_kernel_nine_moments_match_plain(f, scale, radius, k_max, h, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scale", [2, 4])
-def test_merge_kernel_nine_moments_at_the_path_shape(scale):
+@pytest.mark.parametrize("f,h,w", [(5, 256, 512), (1, 250, 500), (2, 250, 500), (9, 250, 500)])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+def test_merge_kernel_nine_moments_at_the_path_shape(scale, f, h, w):
     """Form 3 at chip_smoke.py's shape: F = 5 at 256 x 512, radius 1, the
-    path's taps (RGB_EXACT at scale 2, and at scale 4)."""
+    path's taps (RGB_EXACT at scale 2, and at scales 1, 3 and 4); and at
+    250 x 500, which no tile divides, on 1, 2 and 9 frames. One launch
+    of the templated kernel."""
     dev = cuda_device()
-    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(scale), 5, 256, 512)]
+    seed = scale if (f, h, w) == (5, 256, 512) else scale + f
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(seed), f, h, w)]
     kw = dict(phase_output=True, order=1, prune_exp=1.5, moment_slots=9)
     k_max = (scale / 2.0) ** 2
+    LAUNCHES.clear()
     got = merge_fast(*ins, scale, 1, 1.0, k_max, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_fast": 1}
     want = fast_merge.merge_burst_fast(*ins, scale, 1, 1.0, k_max, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
@@ -561,7 +570,7 @@ def test_raw_merge_kernel_new_forms_frame_cap(form, scale):
     """The order-0 form stages every frame's tile at once: it has the
     certless form's caps (its kernel without the chains), at halo 1 and
     2; the halo-1 cap matches the plain version, and so does one more
-    frame, which the same kernel streams in chunks.
+    frame, which the streamed kernel runs.
     The 9-moment and per-cell forms stream frames through a ring and take
     any number: one frame past the caps they had while they staged every
     frame at once (28, 42 and 56 frames at scales 1, 2 and 4, halo 1)
@@ -1347,31 +1356,59 @@ def test_raw_merge_past_any_general_block_matches_plain(form, hh, hw):
         torch.testing.assert_close(g, w_, **tol)
 
 
+def _ring_frames(scale: int, form: str, length) -> int:
+    """Burst lengths past the certless / order-0 frame cap at ``scale``
+    (halo 1) that exercise the streamed kernel's ring: the cap + 1, a
+    last chunk of one frame, whole chunks only, and 130 frames."""
+    lib = raw_merge_kernel.library()
+    cap = lib.mfsr_merge_raw_max_frames(scale, 1, 0)
+    chunk = lib.mfsr_merge_raw_stream_chunk(scale, 1, 0 if form == "certless" else 1)
+    assert 1 <= chunk <= cap
+    one_past = next(n * chunk + 1 for n in range(1, 1000) if n * chunk + 1 > cap + 1)
+    whole = next(n * chunk for n in range(1, 1000) if n * chunk > cap)
+    return {"cap+1": cap + 1, "chunk+1": one_past, "whole": whole, "130": 130}[length]
+
+
+BAYER = ((0, 1), (1, 2))
+_GREEN_ANTI = ((1, 0), (2, 1))  # a Bayer pattern with its greens on the other diagonal
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "form,frames,launched",
-    [("certless", 31, "merge_raw_stream"), ("certless", 70, "merge_raw_stream"), ("order0", 31, "merge_raw_stream"),
-     ("order0", 70, "merge_raw_stream"), ("bf16", 31, "merge_raw_general"), ("certless", 1, "merge_raw_general"),
-     ("order0", 1, "merge_raw_general"), ("bf16", 40, "merge_raw_general"), ("bf16", 1, "merge_raw_general"),
-     ("bf16", 130, "merge_raw_general"), ("certless", 130, "merge_raw_general")],
+    "form,frames,launched,scale,cfa",
+    [("certless", 31, "merge_raw_stream", 2, BAYER), ("certless", 70, "merge_raw_stream", 4, BAYER),
+     ("order0", 31, "merge_raw_stream", 2, BAYER), ("order0", 70, "merge_raw_stream", 4, BAYER),
+     ("bf16", 31, "merge_raw_general", 2, BAYER), ("certless", 1, "merge_raw_general", 2, BAYER),
+     ("order0", 1, "merge_raw_general", 2, BAYER), ("bf16", 40, "merge_raw_general", 2, BAYER),
+     ("bf16", 1, "merge_raw_general", 2, BAYER), ("bf16", 130, "merge_raw_general", 2, BAYER),
+     ("certless", 130, "merge_raw_general", 2, BAYER)]
+    # the streamed kernel's ring at every scale and both green diagonals
+    + [(form, length, "merge_raw_stream", scale, cfa) for form in ("certless", "order0") for scale in (1, 2, 3, 4)
+       for cfa in (BAYER, _GREEN_ANTI) for length in ("cap+1", "chunk+1", "whole", "130")],
 )
-@pytest.mark.parametrize("hh,hw", [(40, 72), (3, 5)])
-def test_raw_merge_streams_any_frames(form, frames, launched, hh, hw):
+@pytest.mark.parametrize("hh,hw", [(40, 72), (3, 5), (37, 61)])
+def test_raw_merge_streams_any_frames(form, frames, launched, scale, cfa, hh, hw):
     """Bursts past the certless and order-0 frame caps (30 at S = 2, 66 at
-    S = 4, halo 1): the float32 forms stream chunks of the cap through the
-    templated kernel (70 frames at S = 4: 66 + 4), the bfloat16 order 0
-    through the general form (at F = 40 one chunk, staged once; at F = 130
-    and S = 2 more frames than the general form's chunk, each chunk staged
-    once a pass of 4 taps); F = 1 with a 121-tap list runs the general
-    form, at F = 130 with 121 taps it streams chunks too. A ragged size
-    and one smaller than the taps' reach. Against the plain version at
+    S = 4, halo 1): the float32 forms stream through the streamed
+    kernel's ring, at scales 1-4 and both green diagonals on bursts whose
+    last chunk is partial (the cap + 1), holds one frame, or is whole, and
+    on 130 frames; the bfloat16 order 0 through the general form (at F =
+    40 one chunk, staged once; at F = 130 and S = 2 more frames than the
+    general form's chunk, each chunk staged once a pass of 4 taps); F = 1
+    with a 121-tap list runs the general form, at F = 130 with 121 taps
+    it streams chunks too. A ragged size, one that no tile divides and
+    one smaller than the taps' reach. Against the plain version at
     rtol/atol 1e-5 (the bfloat16 one by _assert_bf16_close)."""
     dev = cuda_device()
     kw = RAW_GENERAL[form][0]
-    scale = 4 if frames == 70 else 2
     radius, prune = (4, 60.0) if frames == 1 or (frames == 130 and form == "certless") else (1, 1.5)
-    ins = _raw_merge_inputs(np.random.default_rng(frames), frames, hh, hw, dev)
-    args = (((0, 1), (1, 2)), scale, radius, 1.0, (scale / 2.0) ** 2, prune)
+    if isinstance(frames, str):  # a ring case
+        frames = _ring_frames(scale, form, frames)
+        rng = np.random.default_rng(frames + scale)
+    else:
+        rng = np.random.default_rng(frames)
+    ins = _raw_merge_inputs(rng, frames, hh, hw, dev)
+    args = (cfa, scale, radius, 1.0, (scale / 2.0) ** 2, prune)
     LAUNCHES.clear()
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
@@ -1382,6 +1419,59 @@ def test_raw_merge_streams_any_frames(form, frames, launched, hh, hw):
         return
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+def test_raw_merge_stream_ring_halo2(scale):
+    """The ring at a staged halo of 2 (taps to +-3, smaller chunks): the
+    certless form on the cap + 1 and 130 frames, a 5 x 37 image, against
+    the plain version at rtol/atol 1e-5."""
+    dev = cuda_device()
+    cfa = ((0, 1), (1, 2))
+    args = (cfa, scale, 2, 1.0, 4.0 * (scale / 2.0) ** 2, 6.0)
+    assert raw_merge_kernel.tap_halo(tuple(fast_merge._active_taps(3, 1.0, scale, args[4], 6.0))) == 2
+    cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(scale, 2, 0)
+    for frames in (cap + 1, 130):
+        ins = _raw_merge_inputs(np.random.default_rng(frames), frames, 5, 37, dev)
+        LAUNCHES.clear()
+        got = merge_raw(*ins, *args)
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES) == {"merge_raw_stream": 1}
+        for g, w_ in zip(got, fast_merge.merge_burst_raw_planes(*ins, *args)):
+            torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_raw_merge_stream_entry_takes_the_float32_forms_past_the_cap():
+    """mfsr_merge_raw_stream runs the certless and order-0 forms past the
+    frame cap at scales 1-4 (its ring, mfsr_merge_raw_stream_chunk
+    frames a slot, is fixed at build time: smaller at halo 2, none for
+    another scale, halo or form) and refuses the other forms and scales;
+    mfsr_merge_raw refuses a burst past the cap of those forms."""
+    dev = cuda_device()
+    lib = raw_merge_kernel.library()
+    for scale in (1, 2, 3, 4):
+        for form in (0, 1):
+            assert lib.mfsr_merge_raw_stream_chunk(scale, 1, form) > lib.mfsr_merge_raw_stream_chunk(scale, 2, form) >= 1
+    assert [lib.mfsr_merge_raw_stream_chunk(*a) for a in ((5, 1, 0), (2, 3, 0), (2, 1, 2))] == [0, 0, 0]
+    taps = tuple(fast_merge._active_taps(2, 1.0, 2, 1.0, 1.5))
+    table = raw_merge_kernel.tap_table(taps, BAYER)
+    frames = lib.mfsr_merge_raw_max_frames(2, 1, 0) + 1
+    ins = _raw_merge_inputs(np.random.default_rng(0), frames, 8, 40, dev)
+    out = torch.empty((4, 4, 4, 3, 8, 40), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def args(scale, form):
+        return [t.data_ptr() for t in ins] + [out.data_ptr(), frames, 8, 40, scale, form, 1.0, table.ctypes.data,
+                                              len(taps)]
+
+    assert lib.mfsr_merge_raw_stream(*args(2, 0), stream) == 0
+    assert lib.mfsr_merge_raw_stream(*args(2, 1), stream) == 0
+    assert lib.mfsr_merge_raw_stream(*args(2, 2), stream) != 0
+    assert lib.mfsr_merge_raw_stream(*args(5, 0), stream) != 0
+    assert lib.mfsr_merge_raw(*args(2, 0), 0, stream) != 0
+    torch.cuda.synchronize()
 
 
 # the RGB merge's forms on the general kernel: (keyword arguments, tolerance)

@@ -197,12 +197,33 @@ def test_raw_general_block_fits(form):
                                   fast_merge.PER_CELL])
 def test_certless_and_order0_stream_past_the_cap(form):
     """The certless and order-0 forms stage every frame's tile at once up
-    to the cap (30 at S = 2, halo 1) and stream chunks of that many past
-    it; the 9-moment and per-cell forms stream through their ring at any
+    to the cap (30 at S = 2, halo 1) and run the streamed kernel past it;
+    the 9-moment and per-cell forms stream through their ring at any
     length (no separate form)."""
     cap = _frame_cap(2, 1)
     assert not raw_kernel.streams(form, cap, cap)
     assert raw_kernel.streams(form, cap + 1, cap) == (form in (fast_merge.CERTLESS, fast_merge.ORDER0))
+
+
+@pytest.mark.parametrize("form", [fast_merge.CERTLESS, fast_merge.ORDER0])
+@pytest.mark.parametrize("halo", [1, 2])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+def test_stream_routes_every_scale_and_halo(scale, halo, form):
+    """Past the frame cap of the taps' staged halo (and only there) the
+    float32 certless and order-0 forms run the streamed kernel, at every
+    templated scale and both halos, and the bfloat16 order 0 the general
+    form: on 1 frame, the cap, the cap + 1 and 130 frames."""
+    radius, k_max, prune = (1, 1.0, 1.5) if halo == 1 else (2, 4.0, 6.0)
+    taps = tuple(fast_merge._active_taps(radius + 1, 1.0, scale, k_max * (scale / 2.0) ** 2, prune))
+    assert raw_kernel.tap_halo(taps) == halo
+    cap = _frame_cap(scale, halo)
+    for frames in (1, cap, cap + 1, 130):
+        past = frames > cap
+        assert raw_kernel.kernel_name(scale, taps, BAYER, frames, form, cap) == (
+            raw_kernel.STREAM if past else raw_kernel.NAME)
+        if form == fast_merge.ORDER0:
+            assert raw_kernel.kernel_name(scale, taps, BAYER, frames, form, cap, True) == (
+                raw_kernel.GENERAL if past else raw_kernel.NAME)
 
 
 def _chain_id(cfa, a, b, ch):

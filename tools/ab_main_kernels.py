@@ -14,17 +14,24 @@ at chip_smoke.py's phase-3 shapes and seeds (F=5, 256 x 512 RGB, 128 x
   pattern, four templated RAW forms at S=1-2 that share their source,
   and the general tile search at chip_smoke.py's cases (T=12 in "image"
   mode, radius 0 in both modes, radius 30 in "tile" mode, at 4 x 128 x
-  256 and 4 x 64 x 128), each ``--calls`` calls a round (default 30).
+  256 and 4 x 64 x 128), each ``--calls`` calls a round (default 30);
+- ``stream9``: the RAW merge's streamed form (the certless and order-0
+  forms past their frame caps: F=40 at S=2 and F=70 at S=4, RAW_BENCH's,
+  RAW_ORDER0's and RAW_SCALE4's merges), the RGB merge's 9 slots at s=2
+  (RGB_EXACT's merge) and s=4, and its interleaved, order-1 and bfloat16
+  forms at s=2, each ``--calls`` calls a round.
 
-``--only main`` (the default) or ``--only general`` picks one group,
-``--only all`` both. Each checkout runs in a process of its own (the
+``--only main`` (the default), ``--only general`` or ``--only stream9``
+picks one group, ``--only all`` the three. Each checkout runs in a process of its own (the
 package imported from that checkout's root, its kernels built into its
 own build/), in the order given and then reversed (A B B A for two),
 that sequence ``--repeat N`` times (default 1), so that the checkouts
 share the card's clock and power state. A run times each call by the
 profiler's device time of its kernels (those whose names hold the
 call's symbol; one launch a call for the main group) over 3 rounds and
-prints one JSON line; the summary gives each checkout's median, least
+prints one JSON line (a round counts only if the profiler recorded every
+launch of its calls; one that did not is repeated, up to 3 times, and
+the repeats are printed); the summary gives each checkout's median, least
 and most round and the first checkout's median over each other's; then
 the card's name and power limit.
 
@@ -160,20 +167,75 @@ if only in ("general", "all"):
             "tile_search", calls_n, 3)
     calls.update({label: (lambda i=i, a=a, kw=kw: merge_raw.merge_raw(*i, *a, **kw), "merge", calls_n, 3)
                   for label, (i, a, kw) in raw_forms.items()})
-out = {}
+if only in ("stream9", "all"):
+    phase = dict(phase_output=True, prune_exp=prune)
+    raw2 = (cfa, 2, 1, 1.0, 1.0, prune)
+    raw4 = (cfa, 4, 1, 1.0, 4.0, prune)
+    nine = dict(phase_output=True, prune_exp=prune, order=1, moment_slots=9)
+    # RAW_SCALE4's merge on 70 frames (R/B kernels wider), from a seed of
+    # its own so that the other groups' inputs stay as they were
+    r70 = np.random.default_rng(70)
+    raw70 = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+        r70.random((70, 2, 2, hh, hw)), (r70.random((70, hh, hw, 2)) - 0.5) * 4.0, r70.random((70, hh, hw, 3)),
+        omega, omega * 0.5,
+    )]
+    # one kernel a call, named differently in each checkout: the prefix
+    calls.update({label: (lambda i=i, a=a, kw=kw: merge_raw.merge_raw(*i, *a, **kw), "merge_raw", calls_n, 3)
+                  for label, (i, a, kw) in {
+                      "merge_raw stream F=40, S=2": (raw40, raw2, {}),
+                      "merge_raw stream order 0, F=40, S=2": (raw40, raw2, dict(order=0)),
+                      "merge_raw stream F=70, S=4": (raw70, raw4, {}),
+                      "merge_raw stream order 0, F=70, S=4": (raw70, raw4, dict(order=0)),
+                  }.items()})
+    calls.update({label: (lambda a=a: merge.merge_fast(*rgb, *a, **nine), "merge_fast", calls_n, 3)
+                  for label, a in {"merge_fast 9 slots, s=2": (2, 1, 1.0, 1.0),
+                                   "merge_fast 9 slots, s=4": (4, 1, 1.0, 4.0)}.items()})
+    # the templated RGB forms beside it (their layouts share its source)
+    calls.update({label: (lambda kw=kw: merge.merge_fast(*rgb, 2, 1, 1.0, 1.0, **kw), "merge_fast", calls_n, 3)
+                  for label, kw in {"templated: merge_fast interleaved, e^-6, s=2": {},
+                                    "templated: merge_fast order 1, e^-1.5, s=2": dict(phase, order=1),
+                                    "templated: merge_fast bf16, e^-1.5, s=2": dict(phase, bf16=True)}.items()})
+def profiled(call, symbol, n):
+    """The device time (us) and the launches of the kernels whose names
+    hold ``symbol`` over ``n`` calls, as the profiler recorded them."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and symbol in e.key]
+    return sum(e.self_device_time_total for e in rows), sum(e.count for e in rows)
+
+
+out, repeated = {}, {}
 for label, (call, symbol, n, warm) in calls.items():
     for _ in range(warm):
         call()
     torch.cuda.synchronize()
+    # the kernels a call launches (from the first of up to 4 profiled
+    # rounds whose launches are a whole multiple of its n calls), and then
+    # rounds that recorded every launch of their n calls: a round that
+    # recorded fewer or more is repeated, up to 3 times, else the run fails
+    per_call = 0
+    for _ in range(4):
+        launches = profiled(call, symbol, n)[1]
+        if launches and launches % n == 0:
+            per_call = launches // n
+            break
+    if per_call < 1:
+        sys.exit(f"{label}: no round of {n} calls recorded a whole number of kernels named like {symbol!r} a call")
     rounds = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                call()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and symbol in e.key]
-        rounds.append(sum(e.self_device_time_total for e in rows) / 1e3 / n)
+    while len(rounds) < 3:
+        for attempt in range(4):
+            total, launches = profiled(call, symbol, n)
+            if launches == n * per_call:
+                break
+            repeated[label] = repeated.get(label, 0) + 1
+        else:
+            sys.exit(f"{label}: {launches} of {n * per_call} launches recorded in 4 tries of a round")
+        rounds.append(total / 1e3 / n)
     out[label] = rounds
+if repeated:
+    print("rounds repeated for launches the profiler missed: " + json.dumps(repeated))
 print(json.dumps(out))
 '''
 
@@ -188,8 +250,8 @@ def main(argv) -> int:
         else:
             only = argv[1]
         argv = argv[2:]
-    if only not in ("main", "general", "all"):
-        print(f"--only takes main, general or all, not {only}")
+    if only not in ("main", "general", "stream9", "all"):
+        print(f"--only takes main, general, stream9 or all, not {only}")
         return 2
     roots = [a.split("=", 1) for a in argv]
     order = (roots + roots[::-1]) * repeat
@@ -200,7 +262,10 @@ def main(argv) -> int:
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr)
             return 1
-        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        *notes, last = proc.stdout.strip().splitlines()
+        run = json.loads(last)
+        for note in notes:
+            print(f"{name}: {note}")
         print(f"{name}: " + ", ".join(f"{k} {min(v):.5f} ms" for k, v in run.items()), flush=True)
         for k, v in run.items():
             results[name].setdefault(k, []).extend(v)
