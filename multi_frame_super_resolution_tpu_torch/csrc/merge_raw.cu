@@ -140,6 +140,28 @@
 // (chip_smoke.py; NVIDIA H100 80GB HBM3, 700.00 W): 72, 96, 80 and 108
 // registers at S = 1-4, no spills.
 //
+// The bfloat16 order 0 (form 1 with kBf16Flag, RAW_ORDER0_BF16) rounds
+// as the jitted JAX function does (fast_merge.py:365-374, :445-474): w in
+// f32 rounded to bfloat16; the frame sums of w c and of bf16(w c) v in
+// f32 (both products exact there); each tap's sums rounded and added to
+// its cell in bfloat16, each cell's taps in the list's order. A cell is
+// fed by one tap-group pair, so the host lists each pair's taps in the
+// list's order (TapTable::order) and the kernel runs the pairs in turn:
+// every parity's weight family and a green parity's cell are then
+// compile-time, an R/B parity's cell is the tap's group in the pair
+// (ky % 2), chosen once a tap, and the (b0, m00) accumulators are a
+// pair's six cells, __nv_bfloat162 each. Per (frame, tap) the weights
+// round two to a cvt.rn.bf16x2.f32 (the two x phases at kPX = 2, w_g with
+// w_rb at kPX = 1) and bf16(w c) is one mul.rn.bf16x2 for two phases (or
+// two parities); w c enters the den's sum as an FMA, exact. At S = 1 a
+// thread holds one pair (kPairThreads), doubling that grid's warps.
+// Measured (tools/ab_main_kernels.py; NVIDIA H100 80GB HBM3, 700.00 W):
+// S=2 0.0309 ms (25.6% of its 7.9 us bound; the first design, a tap at a
+// time in the list's order with every rounding a cvt of its own, 0.0554),
+// S=4, F=9 0.177 (30.0% of 53.2 us; 0.331), S=1 0.0091 (0.0126), S=3
+// 0.088 (0.130); 68-91 registers, no spills. The frame loop issues 37
+// instructions an item at S=2 (cuobjdump).
+//
 // Form 2 (merge_raw_cells_kernel) replaces the order-1 branch with
 // moment_slots=9 (_merge_planes_order1 with certless False,
 // fast_merge.py:513-913, the exact 3x3 solve). For each half-res pixel
@@ -316,7 +338,9 @@ struct TapTable {
   signed char ky[kMaxTaps];
   signed char kx[kMaxTaps];
   int centroid_end[4];  // group g's taps before centroid_end[g] feed the centroid (centroid_prune)
-  unsigned char order[kMaxTaps];     // order[n]: the sorted index of the list's n-th tap
+  // the bfloat16 order 0's tap order: the sorted index of each tap of the
+  // pair {0, 3} in the list's order, then of each tap of {1, 2}
+  unsigned char order[kMaxTaps];
 };
 
 // The variant bits of a launch (mfsr_merge_raw's flags).
@@ -380,6 +404,27 @@ __device__ __forceinline__ void store_cell(float* __restrict__ m00_out,
 template <bool kGreenDiag>
 __device__ __forceinline__ int rb_slot(int q) {
   return is_green<kGreenDiag>(q) ? 0 : (kGreenDiag ? q : (q == 0 ? 1 : 2));
+}
+
+// bfloat16 pairs in a 32-bit register: (hi, lo) rounded to nearest even
+// by one cvt, their product rounded once (mul.rn.bf16x2: bf16(a b) per
+// lane, as the product of two bfloat16 values is exact in f32 and then
+// rounded), and each half back to float32
+__device__ __forceinline__ unsigned bf16x2_pack(float hi, float lo) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+__device__ __forceinline__ unsigned bf16x2_mul(unsigned a, unsigned b) {
+  unsigned r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ float bf16x2_lo(unsigned x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16x2_hi(unsigned x) { return __uint_as_float(x & 0xffff0000u); }
+// two bfloat16-valued floats (low 16 bits zero) as one pair (hi, lo)
+__device__ __forceinline__ unsigned bf16x2_of(float hi, float lo) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 // Adds the taps of group g (slot k of its pair) over the nf staged frames
@@ -538,8 +583,15 @@ __device__ __forceinline__ void add_group_taps(
 // once), each staged in turn for each tap-group pair (the bfloat16 order
 // 0: for each pass of kPass taps), so any number of frames runs; one
 // chunk is staged once.
+// The bfloat16 order 0's threads a (pixel, phase thread) at S = 1: one a
+// tap-group pair (its cells are the pair's alone), so that the S = 1 grid,
+// a thread a pixel, holds twice the warps; else 1, both pairs a thread
+template <int S, bool kBf16>
+constexpr int kPairThreads = kBf16 && S == 1 ? 2 : 1;
+
 template <int S, int kHalo, bool kGreenDiag, bool kChains, bool kBf16>
-__global__ void __launch_bounds__(Shape<S>::kThreads, Layout<S>::kMinBlocks)
+__global__ void __launch_bounds__(Shape<S>::kThreads * kPairThreads<S, kBf16>,
+                                  kPairThreads<S, kBf16> == 2 ? 2 : Layout<S>::kMinBlocks)
 merge_raw_kernel(const float* __restrict__ planes,
                  const float* __restrict__ residual,
                  const float* __restrict__ certainty,
@@ -558,7 +610,8 @@ merge_raw_kernel(const float* __restrict__ planes,
   const int halo = kGeneral ? gen.halo : kHalo;
   const int kTileH = kGeneral ? (int)blockDim.y : L::kTileH;
   const int kPix = kGeneral ? kTW * kTileH : L::kPix;
-  const int kThreads = kGeneral ? kPix * (int)blockDim.z : L::kThreads;
+  constexpr int kPT = kPairThreads<S, kBf16>;
+  const int kThreads = kGeneral ? kPix * (int)blockDim.z : L::kThreads * kPT;
   const int kSW = kTW + 2 * halo;                  // staged row length
   const int kSA = (kTileH + 2 * halo) * kSW;       // staged sites per plane
   const int staged = kGeneral ? chunk : frames;    // frames resident at once
@@ -574,8 +627,9 @@ merge_raw_kernel(const float* __restrict__ planes,
   // the thread's phase row and first phase column (the general form: its
   // phase, from grid z's group)
   const int ph = kGeneral ? blockIdx.z * gen.phases + zz : 0;
-  const int py = kGeneral ? ph / sc : zz / L::kCols;
-  const int px0 = kGeneral ? ph % sc : (zz % L::kCols) * kPX;
+  const int zph = kPT == 2 ? zz % L::kZ : zz;  // the phase thread (kPT == 2: and zz / kZ the pair)
+  const int py = kGeneral ? ph / sc : zph / L::kCols;
+  const int px0 = kGeneral ? ph % sc : (zph % L::kCols) * kPX;
   const int tid = (zz * kTileH + ty) * kTW + tx;
   const int i0 = blockIdx.y * kTileH, j0 = blockIdx.x * kTW;
   const long long plane = (long long)hh * hw;
@@ -758,65 +812,128 @@ merge_raw_kernel(const float* __restrict__ planes,
         }
       }
     } else {
-      // the general form's loop, kept apart from its lambdas: calling them
-      // here moved the S = 1 green-diagonal instantiations' ptxas registers
-      // (79 to 77), which the templated forms keep
-#pragma unroll 1
-      for (int n = 0; n < n_taps; ++n) {
-        const int t = taps.order[n];
-        const int kyi = taps.ky[t], kxi = taps.kx[t];
-        const int g = 2 * (kyi & 1) + (kxi & 1);
-        const float ky = (float)kyi, kx = (float)kxi;
-        int off[4];
+      // The templated scales: each tap-group pair's taps in the list's
+      // order (taps.order: pair {0, 3}'s, then {1, 2}'s), which is each
+      // cell's order, as a cell is fed by one pair. Within a pair every
+      // parity's weight family is fixed (its two planes are both green or
+      // both R/B), so it is known at compile time, as is the slot of a
+      // green parity; an R/B parity's slot is the tap's group in the pair,
+      // ky % 2, chosen once a tap. Per (frame, tap): the weights rounded to
+      // bfloat16 two to a cvt (the two x phases at kPX = 2, w_g with w_rb
+      // at kPX = 1), w c exact in f32 as an FMA into the den's sum, and
+      // bf16(w c) as one mul.rn.bf16x2 of two parities' or phases' pairs.
+      const int n_pair0 = taps.group_end[0] + taps.group_end[3] - taps.group_end[2];
+      float phis_x[kPX];
+#pragma unroll
+      for (int p = 0; p < kPX; ++p) phis_x[p] = phi_x[p] * (float)S;
+#pragma unroll
+      for (int pair = 0; pair < 2; ++pair) {
+        if (kPT == 2 && pair != zz / L::kZ) continue;  // the other pair's thread
+        // green[z]: parity z reads green in this pair (plane_of(z, pair),
+        // plane z ^ pair); at kPX = 1 the green parities e, 3 ^ e are coupled
+        // with the R/B ones 1 ^ e, 2 ^ e
+        const int e = pair ^ (kGreenDiag ? 0 : 1);
         bool green[4];
 #pragma unroll
-        for (int z = 0; z < 4; ++z) {
-          off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
-          green[z] = is_green<kGreenDiag>(plane_of(z, g));
-        }
-        float sm[4][kPX], sb[4][kPX];
+        for (int z = 0; z < 4; ++z) green[z] = z == e || z == (3 ^ e);
+        // (b0, m00) per parity, slot (green: 0; R/B: the group k) and x phase
+        __nv_bfloat162 cell[4][2][kPX];
 #pragma unroll
         for (int z = 0; z < 4; ++z)
 #pragma unroll
-          for (int px = 0; px < kPX; ++px) sm[z][px] = sb[z][px] = 0.0f;
-#pragma unroll 2
-        for (int f = 0; f < frames; ++f) {
-          const float2 res = my_res[f * kPix];
-          const float dy = (ky - res.x) * (float)S - phis_y;
-          const float dyy = dy * dy;
-          const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
-          float wg[kPX], wr[kPX];  // rounded to bfloat16
+          for (int k = 0; k < 2; ++k)
 #pragma unroll
-          for (int px = 0; px < kPX; ++px) {
-            const float dx = (kx - res.y) * (float)S - phi_x[px] * (float)S;
-            wg[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy))));
-            wr[px] = __bfloat162float(__float2bfloat16_rn(exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy))));
-          }
-          const float2* fsv = my_sv + f * 4 * kSA;
+            for (int px = 0; px < kPX; ++px) cell[z][k][px] = __float2bfloat162_rn(0.0f);
+#pragma unroll 1
+        for (int n = pair ? n_pair0 : 0; n < (pair ? n_taps : n_pair0); ++n) {
+          const int t = taps.order[n];
+          const int kyi = taps.ky[t], kxi = taps.kx[t];
+          const int k = kyi & 1;  // the tap's group in the pair: pair or 3 - pair
+          const int g = pair ? 1 + k : 3 * k;
+          const float ky = (float)kyi, kx = (float)kxi;
+          int off[4];
 #pragma unroll
           for (int z = 0; z < 4; ++z) {
-            const float2 vc = fsv[off[z]];  // (value, certainty), bfloat16 values
+            off[z] = plane_of(z, g) * kSA + (((z >> 1) + kyi) >> 1) * kSW + (((z & 1) + kxi) >> 1);
+          }
+          float sm[4][kPX], sb[4][kPX];
+#pragma unroll
+          for (int z = 0; z < 4; ++z)
+#pragma unroll
+            for (int px = 0; px < kPX; ++px) sm[z][px] = sb[z][px] = 0.0f;
+#pragma unroll 2
+          for (int f = 0; f < frames; ++f) {
+            const float2 res = my_res[f * kPix];
+            const float dy = (ky - res.x) * (float)S - phis_y;
+            const float dyy = dy * dy;
+            const float gy = dy * og2, gyy = dyy * og1, rby = dy * or2, rbyy = dyy * or1;
+            float eg[kPX], er[kPX];
 #pragma unroll
             for (int px = 0; px < kPX; ++px) {
-              const float wc = (green[z] ? wg[px] : wr[px]) * vc.y;  // exact
-              sm[z][px] += wc;
-              sb[z][px] += __bfloat162float(__float2bfloat16_rn(wc)) * vc.x;  // exact product
+              const float dx = (kx - res.y) * (float)S - phis_x[px];
+              eg[px] = exp2_approx(fmaf(dx, fmaf(dx, og0, gy), gyy));
+              er[px] = exp2_approx(fmaf(dx, fmaf(dx, or0, rby), rbyy));
+            }
+            const float2* fsv = my_sv + f * 4 * kSA;
+            float2 vc[4];  // (value, certainty), bfloat16 values
+#pragma unroll
+            for (int z = 0; z < 4; ++z) vc[z] = fsv[off[z]];
+            if constexpr (kPX == 2) {
+              const unsigned w2g = bf16x2_pack(eg[1], eg[0]), w2r = bf16x2_pack(er[1], er[0]);
+#pragma unroll
+              for (int z = 0; z < 4; ++z) {
+                const unsigned w2 = green[z] ? w2g : w2r;
+                sm[z][0] = fmaf(bf16x2_lo(w2), vc[z].y, sm[z][0]);  // exact products
+                sm[z][1] = fmaf(bf16x2_hi(w2), vc[z].y, sm[z][1]);
+                const unsigned wc2 = bf16x2_mul(w2, bf16x2_of(vc[z].y, vc[z].y));
+                sb[z][0] = fmaf(bf16x2_lo(wc2), vc[z].x, sb[z][0]);
+                sb[z][1] = fmaf(bf16x2_hi(wc2), vc[z].x, sb[z][1]);
+              }
+            } else {
+              const unsigned w2 = bf16x2_pack(er[0], eg[0]);  // (w_rb, w_g)
+              const float wg = bf16x2_lo(w2), wr = bf16x2_hi(w2);
+#pragma unroll
+              for (int z = 0; z < 4; ++z) sm[z][0] = fmaf(green[z] ? wg : wr, vc[z].y, sm[z][0]);
+#pragma unroll
+              for (int n2 = 0; n2 < 2; ++n2) {
+                const int zg = n2 ? 3 ^ e : e, zr = n2 ? 2 ^ e : 1 ^ e;
+                const unsigned wc2 = bf16x2_mul(w2, bf16x2_of(vc[zr].y, vc[zg].y));
+                sb[zg][0] = fmaf(bf16x2_lo(wc2), vc[zg].x, sb[zg][0]);
+                sb[zr][0] = fmaf(bf16x2_hi(wc2), vc[zr].x, sb[zr][0]);
+              }
+            }
+          }
+          // the tap's sums rounded and added to its cells in bfloat16
+#pragma unroll
+          for (int z = 0; z < 4; ++z) {
+#pragma unroll
+            for (int px = 0; px < kPX; ++px) {
+              const __nv_bfloat162 sum = __floats2bfloat162_rn(sb[z][px], sm[z][px]);
+              if (green[z] || k == 0) {
+                cell[z][0][px] = __hadd2(cell[z][0][px], sum);
+              } else {
+                cell[z][1][px] = __hadd2(cell[z][1][px], sum);
+              }
             }
           }
         }
+        if (inside) {
 #pragma unroll
-        for (int z = 0; z < 4; ++z) {
-          const int slot = rb_slot<kGreenDiag>(plane_of(z, g));
+          for (int z = 0; z < 4; ++z) {
 #pragma unroll
-          for (int px = 0; px < kPX; ++px) {
-            const __nv_bfloat162 sum = __floats2bfloat162_rn(sb[z][px], sm[z][px]);
+            for (int k = 0; k < 2; ++k) {
+              if (green[z] && k == 1) continue;
+              const int c = green[z] ? 1 : taps.chan[plane_of(z, pair ? 1 + k : 3 * k)];
 #pragma unroll
-            for (int k = 0; k < 3; ++k) {
-              if (slot == k) acc[z][k][px] = __hadd2(acc[z][k][px], sum);
+              for (int px = 0; px < kPX; ++px) {
+                store_cell<S, false>(m00_out, cy_out, cx_out, b0_out, plane, out_pix, z, py, px0 + px, c,
+                                     __high2float(cell[z][k][px]), __low2float(cell[z][k][px]), 0.f, 0.f, 0.f);
+              }
             }
           }
         }
       }
+      return;
     }
     if (inside) {
 #pragma unroll
@@ -1782,302 +1899,604 @@ merge_raw_cells_kernel(const float* __restrict__ planes,
 // and 8.0x under the first general kernel; all times in PERF.md.
 //
 // The non-Bayer kernel (merge_raw_nonbayer_kernel): 2 x 2 patterns other
-// than Bayer, whose two groups of a pair do not read the same cells (and
-// Bayer merges past any general block: 3,721 taps to +-30 pass the cells
-// block's 232,448 bytes), at
-// any scale, tap list and frame count, in all four forms and with every
-// knob of forms 1 and 3 (each plane's channel and each certless cell's
-// chain from the host's CellTable).
+// than Bayer, whose two groups of a tap-group pair do not read the same
+// cells (and Bayer merges past any general block: 3,721 taps to +-30 pass
+// the cells block's 232,448 bytes), at any scale, tap list and frame
+// count, in all four forms and with every knob of forms 1 and 3 (each
+// plane's channel and each certless cell's chain from the host's
+// CellTable; the block, ring and tap windows from the host's NbPlan,
+// kernels/merge_raw.py::nonbayer_plan).
 //
-// Design: written simply, as the plain version reads. A thread per
-// (half-res pixel, output parity (a, b), phase (py, px)) holds the three
-// channel cells of its output pixel (and, in form 0, all six certless
-// chains of its phase, each a tap-parity sum that the cells of every
-// parity read). It walks the taps in the list's order and, per tap, the
-// frames: each tap's frame sums are formed first and then added to the
-// cell the tap's plane feeds, the plain version's (and JAX's) summation
-// order, with the weights by IEEE expf and the products and sums by
-// round-to-nearest intrinsics where the plain version rounds each one (no
-// contraction into FMAs). It reads planes, certainty and residual straight
-// from device memory (the neighbouring threads' reads hit the same lines
-// in L1 and L2): nothing is staged, so no frame count, tap count or scale
-// is bounded by shared memory. Each Gaussian is evaluated by each of the
-// four parities' threads (the templated forms evaluate it once), and the
-// residual blend of forms 2 and 3 once per tap: the price of simplicity.
-// Its time against its bound is in PERF.md.
+// Design:
+// - A thread per (half-res pixel, output phase) holds the 12 cells (4
+//   parities x 3 channels) of its phase in forms 0 and 1 (24 sums, and in
+//   form 0 the six certless chains, 18 more), or a parity row's 6 cells
+//   (threadIdx.z's half: parities 2a, 2a + 1) in forms 2 and 3 (54 sums
+//   for the 9 moments, 24 for the per-cell 4). Each Gaussian pair w_g, w_rb
+//   of a (pixel, frame, tap, phase) is evaluated once by the thread and
+//   shared by its parities (forms 2 and 3: once a half).
+// - Staging. The frames stream through a ring of shared-memory slots of
+//   `chunk` frames (one slot, staged once, where the burst fits; two,
+//   the next chunk's cp.async copies in flight while one accumulates,
+//   where it does not). A slot holds, edge-clamped like the plain
+//   version's padding, each plane's tile and the taps' halo (the rows of
+//   the step's tap window, the columns of every tap) as (value,
+//   certainty of the plane's channel) float2s (forms 0 and 1: value x
+//   certainty; bfloat16: both rounded), and the clipped residual with a
+//   one-site halo. A thread stages the same sites every frame and walks
+//   them without a division.
+// - Taps. A device table of (ky, kx, centroid bit) rows: the f32 forms'
+//   sorted by tap-parity group, run group by group (a compile-time g, so
+//   each parity's plane z ^ g and its offsets are constants and its
+//   channel and weight family are chosen once a group), their frame sums
+//   gathered in registers and added to their cells by a compile-time-
+//   unrolled select on chan[z ^ g] once a group and chunk; the bfloat16
+//   knobs' in the list's order, each tap's sums added to its cells in
+//   that order. Rows whose staged span would not fit a slot are split
+//   into windows (the host's), each staged in turn; so no scale, tap
+//   count, reach or frame count is bounded by shared memory. The bfloat16
+//   order 0 rounds each tap's whole frame sum: past one chunk its windows
+//   hold one tap, its sums kept across the chunks.
+// - Knobs. The form, the certless weights' rounding, the bfloat16 order
+//   0, the centroid (compact, bfloat16, block, shared residual) and the
+//   exact weights are template parameters; the pruned centroid is a
+//   tap's bit, which zeroes its centroid displacements.
+// - Rounding: the templated kernels' (the quadratic on the folded omega
+//   by FMAs, ex2.approx, value x certainty staged), but for the certless
+//   form at S >= 5: there the weights' quadratic and the chain sums take
+//   the plain version's roundings (gauss_plain), as the general form's do.
+//   Each f32 cell sums its taps group by group; the bfloat16 knobs keep
+//   the list's order.
+// Measured (tools/ab_main_kernels.py; NVIDIA H100 80GB HBM3, 700.00 W), at
+// S=2 on ((0, 1), (2, 1)): certless 0.0473 ms (20.1% of 9.5 us; the first
+// design, a thread per output value reading device memory, 0.290), order
+// 0 0.0376 (0.187), 9 slots 0.102 (0.334), per-cell 4 0.0716 (0.425); S=3
+// on ((1, 1), (0, 2)) 0.150 (0.629); the 9 slots of a Bayer merge at 3,721
+// taps on 3 x 64 x 128 4.77 (9.13). 124-128 registers; the 9 slots spill
+// 12 B (28 B with exact weights).
 struct CellTable {
   int chan[4];    // channel of plane q = 2*qa + qb
   int chain[12];  // form 0: the chain cell (a, b, ch) reads, at 3 (2a + b) + ch: 0 and 1 the
                   // green chains of (ky + kx) % 2, 2 + 2 (ky % 2) + kx % 2 the R/B ones, -1 none
 };
 
+// The non-Bayer kernel's block (kernels/merge_raw.py::nonbayer_plan): tw x
+// th pixels x `phases` phases (x 2 parity halves in forms 2 and 3), grid
+// z over `groups` of phases (past one group each group's first phase is
+// phase 0, stored by group 0 alone); `hx` staged columns each side of the
+// tile, `rows` staged rows a plane (the largest window's); `chunk` frames
+// a ring slot, `slots` slots (2 where the steps are more than one); n_win
+// tap windows; the group ends of the table's rows.
+struct NbPlan {
+  int tw, th, phases, groups, hx, rows, chunk, slots, n_win, bytes;
+  int group_end[4];
+};
+
 __device__ __forceinline__ float bf16r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-// exp(-1/2 (dx^2 o0 + dy^2 o1 + 2 dx dy o2)) in the plain version's order
+// The plain version's roundings, where a bfloat16 knob rounds what they
+// produce (a weight or rho one ulp off would round to the neighbouring
+// bfloat16 value): exp(-1/2 (dx^2 o0 + dy^2 o1 + 2 dx dy o2)) in its
+// order by expf, and rho of parity a at phase offset phi: the clipped
+// residual r blended with the one at the neighbouring Bayer block (nb),
+// clipped, + phi (fast_merge.merge_burst_raw_planes' parity_rho)
 __device__ __forceinline__ float quad_exp(float dx, float dy, float3 o) {
   const float q = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(dx, dx), o.x), __fmul_rn(__fmul_rn(dy, dy), o.y)),
                             __fmul_rn(__fmul_rn(__fmul_rn(2.0f, dx), dy), o.z));
   return expf(__fmul_rn(-0.5f, q));
 }
-
-// rho of parity a at phase offset phi: the clipped residual r at the
-// pixel blended with the one at the neighbouring Bayer block (nb), clipped,
-// + phi (fast_merge.merge_burst_raw_planes' parity_rho)
 __device__ __forceinline__ float blend_rho(float r, float nb, float ga, float phi, float rb) {
   const float m = __fadd_rn(__fmul_rn(1.0f - ga, r), __fmul_rn(ga, nb));
   return __fadd_rn(fminf(fmaxf(m, -rb), rb), phi);
 }
 
-// kForm: the form (0-3), a template parameter so that each form holds
-// only its own accumulators (two blocks an SM at 256 threads)
-template <int kForm>
-__global__ void __launch_bounds__(256, 2)
+template <int V>
+using IC = std::integral_constant<int, V>;
+// a group index given as an IC<g> (a constant) or an int
+template <int V>
+__device__ __forceinline__ constexpr int group_of(IC<V>) {
+  return V;
+}
+__device__ __forceinline__ int group_of(int g) { return g; }
+
+// kForm: the form (0-3). kMode: form 0: 0 the templated arithmetic, 1 the
+// plain version's (S >= 5); form 1: 0 float32, 1 bfloat16; form 3: the
+// centroid, 0 compact rho, 1 its bfloat16 products, 2 block, 3 shared
+// residual. kExact: forms 2 and 3, the weights at each parity's moment
+// displacement.
+template <int kForm, int kMode, bool kExact>
+__global__ void __launch_bounds__(512, 1)
 merge_raw_nonbayer_kernel(const float* __restrict__ planes, const float* __restrict__ residual,
-                         const float* __restrict__ certainty, const float* __restrict__ omega,
-                         const float* __restrict__ omega_rb, float* __restrict__ out,
-                         const int* __restrict__ taps, int n_taps, int frames, int hh, int hw, int S,
-                         int flags, float rb, const CellTable cells) {
-  constexpr int form = kForm;
-  const int j = blockIdx.x * 32 + threadIdx.x, i = blockIdx.y * 8 + threadIdx.y;
-  if (i >= hh || j >= hw) return;  // no barrier below
-  const int nph = S * S;
-  const int ph = blockIdx.z % nph, ab = blockIdx.z / nph;
-  const int a = ab >> 1, b = ab & 1, py = ph / S, px = ph % S;
-  const bool exact = (flags & kExactWeights) != 0 && (form == 2 || form == 3);
-  const bool bf16 = (flags & kBf16Flag) != 0 && form == 1;
-  const bool shared = (flags & kSharedFlag) != 0 && form == 3;
-  const bool block = ((flags & kBlockFlag) != 0 || shared) && form == 3;
-  const bool cbf16 = (flags & kBf16Flag) != 0 && form == 3 && !block;
-  // the blended residual feeds the 9 moments, the exact weights and the
-  // per-cell centroid's compact rho
-  const bool need_rho = form == 2 || exact || (form == 3 && !block);
-  const long long plane = (long long)hh * hw, pix = (long long)i * hw + j;
+                          const float* __restrict__ certainty, const float* __restrict__ omega,
+                          const float* __restrict__ omega_rb, float* __restrict__ out,
+                          const int4* __restrict__ table, int n_taps, int frames, int hh, int hw, int S,
+                          float rb, const CellTable cells, const NbPlan plan) {
+  constexpr bool kBf16 = kForm == 1 && kMode == 1;
+  constexpr bool kCBf16 = kForm == 3 && kMode == 1;
+  constexpr bool kList = kBf16 || kCBf16;           // the list's order
+  constexpr bool kPlain = kForm == 0 && kMode == 1;  // the plain version's roundings
+  constexpr bool kShared = kForm == 3 && kMode == 3;
+  constexpr bool kBlock = kForm == 3 && kMode >= 2;
+  constexpr int kZ = kForm >= 2 ? 2 : 4;  // parities a thread
+  constexpr int kSlots = kForm <= 1 ? 2 : (kForm == 2 ? 9 : (kShared ? 6 : 4));
+  // the parity-interpolated rho: the 9 moments, the exact weights, the
+  // compact centroid
+  constexpr bool kRho = kForm == 2 || kExact || (kForm == 3 && !kBlock);
+  static_assert(kForm >= 0 && kForm <= 3 && (!kExact || kForm >= 2), "the forms and their knobs");
+
+  const int tw = plan.tw, th = plan.th, hx = plan.hx;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ph_local = (int)threadIdx.z % plan.phases, half = (int)threadIdx.z / plan.phases;
+  const int nthreads = tw * th * (int)blockDim.z;
+  const int tid = ((int)threadIdx.z * th + ty) * tw + tx;
+  const int zg = blockIdx.z;
+  const int ph = plan.groups == 1 || ph_local == 0 ? ph_local : 1 + zg * (plan.phases - 1) + ph_local - 1;
+  const bool stores = ph < S * S && (ph_local > 0 || zg == 0);
+  const int py = min(ph, S * S - 1) / S, px = min(ph, S * S - 1) % S;
+  const int i0 = blockIdx.y * th, j0 = blockIdx.x * tw;
+  const int i = i0 + ty, j = j0 + tx;
+  const long long plane = (long long)hh * hw;
+  const long long pix = (long long)min(i, hh - 1) * hw + min(j, hw - 1);
   const float sf = (float)S;
-  // phi[p] = (p + 0.5) / s - 0.5 and phi s, as fast_merge._output_phase_offsets
-  const auto phi_of = [&](int p) { return ((float)p + 0.5f) / sf - 0.5f; };
-  const float phi_y = phi_of(py), phi_x = phi_of(px), phi_0 = phi_of(0);
-  const float phis_y = phi_y * sf, phis_x = phi_x * sf, phis_0 = phi_0 * sf;
-  // the blend weights and neighbour rows / columns of parity a (b) at this
-  // phase and at phase 0 (the shared centroid's residual sums)
-  const auto blend = [&](int par, float phi, float* ga, int* sgn) {
-    const float g = ((float)par + phi - 0.5f) / 2.0f;
-    *ga = fabsf(g);
-    *sgn = g > 0.0f ? 1 : -1;
+
+  // the ring: slot b holds chunk x (4 planes x rows x sw sites) and chunk
+  // x the residual's (th + 2) x (tw + 2) sites
+  const int sw = tw + 2 * hx, sa = plan.rows * sw, rw = tw + 2, rs = (th + 2) * rw;
+  const int slot_sz = plan.chunk * (4 * sa + rs);
+  extern __shared__ float2 smem[];
+  // forms 2 and 3: each thread's per-frame record of the step's chunk,
+  // [chunk][2][thread] float4s after the ring, formed once a step
+  float4* rec = reinterpret_cast<float4*>(smem + ((plan.slots * slot_sz + 1) & ~1));
+  const int n_chunks = (frames + plan.chunk - 1) / plan.chunk;
+  const int n_steps = plan.n_win * n_chunks;
+  const int4* wins = table + n_taps;  // (t0, t1, dylo, dyhi): the rows' windows
+
+  // a step (window w, chunk c): copies its frames' sites into slot b; the
+  // thread's own sites, walked without a division: site = tid + n
+  // nthreads, its (row, column) stepped by nthreads' (dr, dc)
+  const int dr = nthreads / sw, dc = nthreads % sw, rdr = nthreads / rw, rdc = nthreads % rw;
+  const auto stage = [&](int step, int b) {
+    const int4 win = __ldg(wins + step / n_chunks);
+    const int f0 = step % n_chunks * plan.chunk, nf = min(plan.chunk, frames - f0);
+    const int sites = (th + win.w - win.z) * sw;
+    float2* sv = smem + b * slot_sz;
+    for (int site = tid, r = tid / sw, c = tid % sw; site < sites; site += nthreads) {
+      const long long rc = (long long)min(max(i0 + win.z + r, 0), hh - 1) * hw + min(max(j0 - hx + c, 0), hw - 1);
+      const float* pf = planes + (long long)f0 * 4 * plane + rc;
+      const float* cf = certainty + ((long long)f0 * plane + rc) * 3;
+      float2* d = sv + site;
+      for (int fl = 0; fl < nf; ++fl, pf += 4 * plane, cf += 3 * plane, d += 4 * sa) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          cp_async4(&d[q * sa].x, pf + q * plane);
+          cp_async4(&d[q * sa].y, cf + cells.chan[q]);
+        }
+      }
+      r += dr;
+      c += dc;
+      if (c >= sw) c -= sw, ++r;
+    }
+    float2* sr = sv + plan.chunk * 4 * sa;
+    for (int p = tid, r = tid / rw, c = tid % rw; p < rs; p += nthreads) {
+      const long long rc = (long long)min(max(i0 - 1 + r, 0), hh - 1) * hw + min(max(j0 - 1 + c, 0), hw - 1);
+      const float* rf = residual + ((long long)f0 * plane + rc) * 2;
+      for (int fl = 0; fl < nf; ++fl, rf += 2 * plane) cp_async8(&sr[fl * rs + p], rf);
+      r += rdr;
+      c += rdc;
+      if (c >= rw) c -= rw, ++r;
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
   };
-  float ga_y, ga_x, ga_y0, ga_x0;
-  int sg_y, sg_x, sg_y0, sg_x0;
-  blend(a, phi_y, &ga_y, &sg_y);
-  blend(b, phi_x, &ga_x, &sg_x);
-  blend(a, phi_0, &ga_y0, &sg_y0);
-  blend(b, phi_0, &ga_x0, &sg_x0);
-  const long long nb_y = (long long)min(max(i + sg_y, 0), hh - 1) * hw + j;
-  const long long nb_x = (long long)i * hw + min(max(j + sg_x, 0), hw - 1);
-  const long long nb_y0 = (long long)min(max(i + sg_y0, 0), hh - 1) * hw + j;
-  const long long nb_x0 = (long long)i * hw + min(max(j + sg_x0, 0), hw - 1);
-  const float3 og = make_float3(omega[pix * 3], omega[pix * 3 + 1], omega[pix * 3 + 2]);
-  const float3 orb = make_float3(omega_rb[pix * 3], omega_rb[pix * 3 + 1], omega_rb[pix * 3 + 2]);
-  const float2* res2 = reinterpret_cast<const float2*>(residual);
-  const auto clip = [&](float x) { return fminf(fmaxf(x, -rb), rb); };
-
-  // the three channel cells' slots (form 1: num, den; form 0: m00 at 0 and
-  // b0 at 3) and, shared centroid, their phase-0 m00 and residual sums
-  float acc[3][9], acc0[3][3];
-  float chain[6][3];  // form 0: sum w, folded m01, folded m02 per chain
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) acc[c][k] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) acc0[c][k] = 0.0f;
-  }
-#pragma unroll
-  for (int c = 0; c < 6; ++c) chain[c][0] = chain[c][1] = chain[c][2] = 0.0f;
-
-#pragma unroll 1
-  for (int t = 0; t < n_taps; ++t) {
-    const int ky = taps[3 * t], kx = taps[3 * t + 1];
-    const bool centroid = taps[3 * t + 2] != 0;
-    const int qa = (a + ky) & 1, qb = (b + kx) & 1;
-    const int r = min(max(i + ((a + ky) >> 1), 0), hh - 1), cc = min(max(j + ((b + kx) >> 1), 0), hw - 1);
-    const long long site = (long long)r * hw + cc;
-    const int ch = cells.chan[2 * qa + qb];
-    const float3 om = ch == 1 ? og : orb;
-    const float fky = (float)ky, fkx = (float)kx;
-    // this tap's frame sums: the form's slots, the phase-0 sums, the chains'
-    float s[9], s0[3], sc[6];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) s[k] = 0.0f;
-    s0[0] = s0[1] = s0[2] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) sc[k] = 0.0f;
-#pragma unroll 1
-    for (int f = 0; f < frames; ++f) {
-      const float2 rr = res2[f * plane + pix];
-      const float ry = clip(rr.x), rx = clip(rr.y);
-      float rho_y = 0.0f, rho_x = 0.0f, dym = 0.0f, dxm = 0.0f;
-      if (need_rho) {
-        rho_y = blend_rho(ry, clip(res2[f * plane + nb_y].x), ga_y, phi_y, rb);
-        rho_x = blend_rho(rx, clip(res2[f * plane + nb_x].y), ga_x, phi_x, rb);
-        dym = __fmul_rn(sf, __fsub_rn(fky, rho_y));
-        dxm = __fmul_rn(sf, __fsub_rn(fkx, rho_x));
-      }
-      // the block-centre weights: dy = (ky - ry) s - phi s
-      const float dyw = __fsub_rn(__fmul_rn(__fsub_rn(fky, ry), sf), phis_y);
-      const float dxw = __fsub_rn(__fmul_rn(__fsub_rn(fkx, rx), sf), phis_x);
-      float w;
-      if (exact) {
-        w = quad_exp(dxm, dym, om);
-      } else if (form == 0) {
-        const float wg = quad_exp(dxw, dyw, og), wr = quad_exp(dxw, dyw, orb);
-        sc[0] += wg;
-        sc[1] = __fadd_rn(sc[1], __fmul_rn(ry, wg));
-        sc[2] = __fadd_rn(sc[2], __fmul_rn(rx, wg));
-        sc[3] += wr;
-        sc[4] = __fadd_rn(sc[4], __fmul_rn(ry, wr));
-        sc[5] = __fadd_rn(sc[5], __fmul_rn(rx, wr));
-        w = ch == 1 ? wg : wr;
-      } else {
-        w = quad_exp(dxw, dyw, om);
-      }
-      float v = planes[((long long)f * 4 + 2 * qa + qb) * plane + site];
-      float c = certainty[((long long)f * plane + site) * 3 + ch];
-      if (bf16) {
-        // the planes, certainties and weights rounded; w c exact in f32
-        v = bf16r(v);
-        c = bf16r(c);
-        const float wc = __fmul_rn(bf16r(w), c);
-        s[0] = __fadd_rn(s[0], __fmul_rn(bf16r(wc), v));
-        s[1] = __fadd_rn(s[1], wc);
-        continue;
-      }
-      const float wc = __fmul_rn(w, c), wcv = __fmul_rn(wc, v);
-      if (form == 1) {
-        s[0] = __fadd_rn(s[0], wcv);
-        s[1] = __fadd_rn(s[1], wc);
-      } else if (form == 2) {
-        const float tdy = __fmul_rn(dym, wc), tdx = __fmul_rn(dxm, wc);
-        const float terms[9] = {wc, tdy, tdx, __fmul_rn(__fmul_rn(dym, dym), wc),
-                                __fmul_rn(__fmul_rn(dym, dxm), wc), __fmul_rn(__fmul_rn(dxm, dxm), wc),
-                                wcv, __fmul_rn(dym, wcv), __fmul_rn(dxm, wcv)};
-#pragma unroll
-        for (int k = 0; k < 9; ++k) s[k] = __fadd_rn(s[k], terms[k]);
-      } else {
-        // form 0's cells and form 3's: m00 and b0, and form 3's centroid
-        // sums (slots 1, 2) of the centroid's taps
-        s[0] = __fadd_rn(s[0], wc);
-        s[3] = __fadd_rn(s[3], wcv);
-        if (form == 3 && centroid) {
-          if (block) {
-            s[1] = __fadd_rn(s[1], __fmul_rn(ry, wc));
-            s[2] = __fadd_rn(s[2], __fmul_rn(rx, wc));
-          } else if (cbf16) {
-            s[1] = __fadd_rn(s[1], __fmul_rn(bf16r(rho_y), bf16r(wc)));
-            s[2] = __fadd_rn(s[2], __fmul_rn(bf16r(rho_x), bf16r(wc)));
+  // once the thread's copies of step's slot b landed: value x certainty
+  // (forms 0 and 1; bfloat16: both rounded) and the clipped residual
+  const auto fix = [&](int step, int b) {
+    const int4 win = __ldg(wins + step / n_chunks);
+    const int nf = min(plan.chunk, frames - step % n_chunks * plan.chunk);
+    const int sites = (th + win.w - win.z) * sw;
+    float2* sv = smem + b * slot_sz;
+    if constexpr (kForm <= 1) {
+      for (int site = tid; site < sites; site += nthreads) {
+        for (int e = site; e < nf * 4 * sa; e += sa) {
+          if constexpr (kBf16) {
+            sv[e] = __bfloat1622float2(__float22bfloat162_rn(sv[e]));
           } else {
-            s[1] = __fadd_rn(s[1], __fmul_rn(rho_y, wc));
-            s[2] = __fadd_rn(s[2], __fmul_rn(rho_x, wc));
+            sv[e].x *= sv[e].y;
           }
         }
       }
-      if (shared) {
-        // the cell's phase-0 w c: its m00 (every tap) and, for the
-        // centroid's taps, its residual sums
-        float w0;
-        if (exact) {
-          const float ry0 = blend_rho(ry, clip(res2[f * plane + nb_y0].x), ga_y0, phi_0, rb);
-          const float rx0 = blend_rho(rx, clip(res2[f * plane + nb_x0].y), ga_x0, phi_0, rb);
-          w0 = quad_exp(__fmul_rn(sf, __fsub_rn(fkx, rx0)), __fmul_rn(sf, __fsub_rn(fky, ry0)), om);
-        } else {
-          w0 = quad_exp(__fsub_rn(__fmul_rn(__fsub_rn(fkx, rx), sf), phis_0),
-                        __fsub_rn(__fmul_rn(__fsub_rn(fky, ry), sf), phis_0), om);
-        }
-        const float wc0 = __fmul_rn(w0, c);
-        s0[0] = __fadd_rn(s0[0], wc0);
-        if (centroid) {
-          s0[1] = __fadd_rn(s0[1], __fmul_rn(ry, wc0));
-          s0[2] = __fadd_rn(s0[2], __fmul_rn(rx, wc0));
-        }
+    }
+    float2* sr = sv + plan.chunk * 4 * sa;
+    for (int p = tid; p < rs; p += nthreads) {
+      for (int e = p; e < nf * rs; e += rs) {
+        sr[e] = make_float2(fminf(fmaxf(sr[e].x, -rb), rb), fminf(fmaxf(sr[e].y, -rb), rb));
       }
     }
-    // the tap's sums join its cell (and, form 0, its two chains)
-    if (form == 0) {
-      const int cg = (ky + kx) & 1, cr = 2 + 2 * (ky & 1) + (kx & 1);
+  };
+  stage(0, 0);
+
+  // phi[p] = (p + 0.5) / s - 0.5 in the f32 operations of
+  // fast_merge._output_phase_offsets; phis = phi s
+  const float phi_y = ((float)py + 0.5f) / sf - 0.5f, phi_x = ((float)px + 0.5f) / sf - 0.5f;
+  const float phis_y = phi_y * sf, phis_x = phi_x * sf;
+  // exp(q) = 2^(q log2 e): -1/2 log2(e) and the cross term's -log2(e)
+  // folded into omega (the plain roundings read omega as it is)
+  constexpr float kL = 1.4426950408889634f;  // log2(e)
+  const float3 om_g = make_float3(omega[pix * 3], omega[pix * 3 + 1], omega[pix * 3 + 2]);
+  const float3 om_rb = make_float3(omega_rb[pix * 3], omega_rb[pix * 3 + 1], omega_rb[pix * 3 + 2]);
+  const float3 fg = make_float3(-0.5f * kL * om_g.x, -0.5f * kL * om_g.y, -kL * om_g.z);
+  const float3 fr = make_float3(-0.5f * kL * om_rb.x, -0.5f * kL * om_rb.y, -kL * om_rb.z);
+  // forms 2 and 3: the half's parity row a = half, its blend with the
+  // row before (a = 0) or after (a = 1), and each parity column's with
+  // the column before (b = 0) or after (b = 1), as the plain parity_rho
+  const int a = kZ == 2 ? half : 0;
+  const float ga_y = fabsf(((float)a + phi_y - 0.5f) / 2.0f);
+  const float ga_x0 = fabsf((phi_x - 0.5f) / 2.0f), ga_x1 = fabsf((1.0f + phi_x - 0.5f) / 2.0f);
+  const int my_res = (ty + 1) * rw + tx + 1, nb_y = my_res + (a ? rw : -rw);
+
+  // the cells: [parity][channel][slot], the f32 forms; (b0, m00) pairs,
+  // the bfloat16 order 0; form 0's chains (w, folded m01, folded m02)
+  float acc[kZ][3][kSlots];
+  __nv_bfloat162 accb[kZ][3];
+  float chain[6][3];
+  // a group's (the bfloat16 knobs: a tap's) sums, [parity][slot]
+  float tsum[kZ][kSlots];
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        if (k != cg && k != cr) continue;
-        const float sw = k < 2 ? sc[0] : sc[3], sry = k < 2 ? sc[1] : sc[4], srx = k < 2 ? sc[2] : sc[5];
-        chain[k][0] = __fadd_rn(chain[k][0], sw);
-        chain[k][1] = __fadd_rn(chain[k][1], __fmul_rn(sf, __fsub_rn(__fmul_rn(fky - phi_y, sw), sry)));
-        chain[k][2] = __fadd_rn(chain[k][2], __fmul_rn(sf, __fsub_rn(__fmul_rn(fkx - phi_x, sw), srx)));
-      }
+  for (int z = 0; z < kZ; ++z) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      accb[z][c] = __float2bfloat162_rn(0.0f);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) acc[z][c][k] = 0.0f;
     }
-    float add[9];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) add[k] = s[k];
-    if (form == 3) {
-      if (!centroid) {
-        add[1] = add[2] = 0.0f;
-      } else if (shared) {
-        add[1] = __fmul_rn(__fmul_rn(sf, fky - phi_y), s[0]);
-        add[2] = __fmul_rn(__fmul_rn(sf, fkx - phi_x), s[0]);
-      } else if (block) {
-        add[1] = __fmul_rn(sf, __fsub_rn(__fmul_rn(fky - phi_y, s[0]), s[1]));
-        add[2] = __fmul_rn(sf, __fsub_rn(__fmul_rn(fkx - phi_x, s[0]), s[2]));
+    for (int k = 0; k < kSlots; ++k) tsum[z][k] = 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) chain[k][0] = chain[k][1] = chain[k][2] = 0.0f;
+
+  // a group's (or a tap's) constants: each parity's plane z ^ g, its
+  // channel, its weight family and its site offset from the tap's base
+  struct Group {
+    int ch[kZ], dz[kZ];
+    bool green[kZ];
+  };
+  // each plane's channel in registers, picked by selects (an index into
+  // the parameter would copy the table to local memory)
+  const int chan0 = cells.chan[0], chan1 = cells.chan[1], chan2 = cells.chan[2], chan3 = cells.chan[3];
+  const auto group = [&](int g) {
+    Group gr;
+#pragma unroll
+    for (int zi = 0; zi < kZ; ++zi) {
+      const int z = kZ == 2 ? 2 * a + zi : zi, q = z ^ g;
+      gr.ch[zi] = q == 0 ? chan0 : (q == 1 ? chan1 : (q == 2 ? chan2 : chan3));
+      gr.green[zi] = gr.ch[zi] == 1;
+      gr.dz[zi] = q * sa + ((z >> 1) & (g >> 1)) * sw + ((z & 1) & (g & 1));
+    }
+    return gr;
+  };
+  // adds the group's (tap's) sums to their cells and clears them
+  const auto flush = [&](const Group& gr) {
+#pragma unroll
+    for (int zi = 0; zi < kZ; ++zi) {
+      // every channel's cell adds the sums or a zero (a select, not a
+      // branch: the compiler turned the branches into an indexed array in
+      // local memory)
+      if constexpr (kBf16) {
+        // each tap's sums rounded, then added in bfloat16 (the list's order)
+        const __nv_bfloat162 sum = __floats2bfloat162_rn(tsum[zi][1], tsum[zi][0]);
+        const __nv_bfloat162 zero = __float2bfloat162_rn(0.0f);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) accb[zi][c] = __hadd2(accb[zi][c], gr.ch[zi] == c ? sum : zero);
       } else {
-        add[1] = __fmul_rn(sf, __fsub_rn(__fmul_rn(fky, s[0]), s[1]));
-        add[2] = __fmul_rn(sf, __fsub_rn(__fmul_rn(fkx, s[0]), s[2]));
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+#pragma unroll
+          for (int k = 0; k < kSlots; ++k) acc[zi][c][k] += gr.ch[zi] == c ? tsum[zi][k] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) tsum[zi][k] = 0.0f;
+    }
+  };
+
+  // tap t of group g (an IC<g> where g is the group loop's, an int in the
+  // list's order) over the nf frames of slot sv: its terms into tsum
+  const auto tap = [&](int t, auto gc, const Group& gr, const float2* sv, int nf, int site0) {
+    const int g = group_of(gc);
+    const int4 row = __ldg(table + t);
+    const int kyi = row.x, kxi = row.y;
+    const float ky = (float)kyi, kx = (float)kxi, sky = sf * ky, skx = sf * kx;
+    // the pruned centroid: a tap outside it adds m00 and b0 alone
+    const bool cen = row.z != 0;
+    const int base = site0 + (kyi >> 1) * sw + (kxi >> 1);
+    const float2* sr = sv + plan.chunk * 4 * sa;
+    // form 0: this tap's frame sums of each chain, (w, ry w, rx w) for
+    // the green and the R/B weights
+    float cs[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+    float3 omz[kZ];  // the exact weights' omega per parity
+    if constexpr (kExact) {
+#pragma unroll
+      for (int zi = 0; zi < kZ; ++zi) omz[zi] = gr.green[zi] ? fg : fr;
+    }
+#pragma unroll 2
+    for (int fl = 0; fl < nf; ++fl) {
+      const float2* fsv = sv + fl * 4 * sa + base;
+      const float2 res = kForm <= 1 ? sr[fl * rs + my_res] : float2{};
+      float wg = 0.0f, wr = 0.0f;  // the block-centre weights
+      if constexpr (kPlain) {
+        const float dy = __fsub_rn(__fmul_rn(ky - res.x, sf), phis_y);
+        const float dx = __fsub_rn(__fmul_rn(kx - res.y, sf), phis_x);
+        const float dy2 = __fmul_rn(dy, dy);
+        wg = gauss_plain(dx, dy, dy2, om_g);
+        wr = gauss_plain(dx, dy, dy2, om_rb);
+        cs[0][0] += wg;
+        cs[0][1] = __fadd_rn(cs[0][1], __fmul_rn(res.x, wg));
+        cs[0][2] = __fadd_rn(cs[0][2], __fmul_rn(res.y, wg));
+        cs[1][0] += wr;
+        cs[1][1] = __fadd_rn(cs[1][1], __fmul_rn(res.x, wr));
+        cs[1][2] = __fadd_rn(cs[1][2], __fmul_rn(res.y, wr));
+      } else if constexpr (kBf16) {
+        const float dy = __fsub_rn(__fmul_rn(ky - res.x, sf), phis_y);
+        const float dx = __fsub_rn(__fmul_rn(kx - res.y, sf), phis_x);
+        wg = quad_exp(dx, dy, om_g);
+        wr = quad_exp(dx, dy, om_rb);
+      } else if constexpr (kForm <= 1) {
+        const float dy = (ky - res.x) * sf - phis_y, dx = (kx - res.y) * sf - phis_x;
+        const float dyy = dy * dy;
+        wg = exp2_approx(fmaf(dx, fmaf(dx, fg.x, dy * fg.z), dyy * fg.y));
+        wr = exp2_approx(fmaf(dx, fmaf(dx, fr.x, dy * fr.z), dyy * fr.y));
+        if constexpr (kForm == 0) {
+          cs[0][0] += wg;
+          cs[0][1] += res.x * wg;
+          cs[0][2] += res.y * wg;
+          cs[1][0] += wr;
+          cs[1][1] += res.x * wr;
+          cs[1][2] += res.y * wr;
+        }
+      }
+      if constexpr (kBf16) {
+        const unsigned w2 = bf16x2_pack(wr, wg);
+        wg = bf16x2_lo(w2);
+        wr = bf16x2_hi(w2);
+      }
+      if constexpr (kForm <= 1) {
+#pragma unroll
+        for (int zi = 0; zi < kZ; ++zi) {
+          const float2 vc = fsv[gr.dz[zi]];
+          const float w = gr.green[zi] ? wg : wr;
+          if constexpr (kBf16) {
+            // (value, certainty) bfloat16: w c exact in f32, bf16(w c) v too
+            const float wc = w * vc.y;
+            tsum[zi][0] += wc;
+            tsum[zi][1] = fmaf(bf16r(wc), vc.x, tsum[zi][1]);
+          } else {
+            // (value x certainty, certainty)
+            tsum[zi][0] = fmaf(w, vc.y, tsum[zi][0]);
+            tsum[zi][1] = fmaf(w, vc.x, tsum[zi][1]);
+          }
+        }
+      } else {
+        // the frame's record (ry, rx, S ry + S phi_y, S rx + S phi_x) and
+        // (S rho_y, S rho_x for b = 0, 1; the bfloat16 centroid: rho)
+        const float4 ra = rec[2 * fl * nthreads + tid], rc = rec[(2 * fl + 1) * nthreads + tid];
+        const float ry = ra.x, rx = ra.y, sy = rc.x, sx[2] = {rc.y, rc.z};
+        if constexpr (kCBf16 && !kExact) {
+          const float dyw = __fsub_rn(__fmul_rn(ky - ry, sf), phis_y);
+          const float dxw = __fsub_rn(__fmul_rn(kx - rx, sf), phis_x);
+          wg = quad_exp(dxw, dyw, om_g);
+          wr = quad_exp(dxw, dyw, om_rb);
+        } else if constexpr (!kExact) {
+          // the block-centre weights: dy = S ky - (S ry + S phi)
+          const float dyw = sky - ra.z, dxw = skx - ra.w;
+          wg = gauss(dxw, dyw, fg.x, fg.y, fg.z);
+          wr = gauss(dxw, dyw, fr.x, fr.y, fr.z);
+        }
+        // the moments' displacements per parity row and column
+        float my = 0.0f, mx[2] = {0.0f, 0.0f};
+        if constexpr (kForm == 2 || (kForm == 3 && kMode == 0)) {
+          my = sky - sy;
+          mx[0] = skx - sx[0];
+          mx[1] = skx - sx[1];
+        } else if constexpr (kMode == 2) {
+          my = sky - ra.z;
+          mx[0] = mx[1] = skx - ra.w;
+        } else if constexpr (kShared) {
+          my = sky - phis_y;
+          mx[0] = mx[1] = skx - phis_x;
+        }
+        if constexpr (kForm == 3) {
+          if (!cen) my = mx[0] = mx[1] = 0.0f;
+        }
+#pragma unroll
+        for (int zi = 0; zi < kZ; ++zi) {
+          const float2 vc = fsv[gr.dz[zi]];  // (value, certainty)
+          float w;
+          if constexpr (kExact && kCBf16) {
+            w = quad_exp(__fmul_rn(sf, __fsub_rn(kx, sx[zi])), __fmul_rn(sf, __fsub_rn(ky, sy)),
+                         gr.green[zi] ? om_g : om_rb);
+          } else if constexpr (kExact) {
+            w = gauss(skx - sx[zi], sky - sy, omz[zi].x, omz[zi].y, omz[zi].z);
+          } else {
+            w = gr.green[zi] ? wg : wr;
+          }
+          const float wc = kCBf16 ? __fmul_rn(w, vc.y) : w * vc.y;
+          if constexpr (kCBf16) {
+            const float c = cen ? 1.0f : 0.0f;
+            add_moments_cbf16(tsum[zi], wc, vc.x, c * sky, c * skx, -c * sf, bf16r(sy), bf16r(sx[zi]));
+          } else if constexpr (kShared) {
+            add_moments<6>(tsum[zi], wc, vc.x, my, mx[zi], cen ? ry : 0.0f, cen ? rx : 0.0f);
+          } else {
+            add_moments<kSlots>(tsum[zi], wc, vc.x, my, mx[zi]);
+          }
+        }
       }
     }
+    if constexpr (kForm == 0) {
+      // the tap's chain sums join the green chain of (ky + kx) % 2 and the
+      // R/B chain of (ky % 2, kx % 2), constants of its group
+      const int cid[2] = {(g >> 1) ^ (g & 1), 2 + g};
 #pragma unroll
-    for (int cch = 0; cch < 3; ++cch) {
-      if (cch != ch) continue;
-      if (bf16) {  // each tap's sums rounded, then added in bfloat16
-        acc[cch][0] = bf16r(__fadd_rn(acc[cch][0], bf16r(add[0])));
-        acc[cch][1] = bf16r(__fadd_rn(acc[cch][1], bf16r(add[1])));
-        continue;
+      for (int f = 0; f < 2; ++f) {
+        float* ch = chain[cid[f]];
+        if constexpr (kPlain) {
+          ch[0] = __fadd_rn(ch[0], cs[f][0]);
+          ch[1] = __fadd_rn(ch[1], __fmul_rn(sf, __fsub_rn(__fmul_rn(ky - phi_y, cs[f][0]), cs[f][1])));
+          ch[2] = __fadd_rn(ch[2], __fmul_rn(sf, __fsub_rn(__fmul_rn(kx - phi_x, cs[f][0]), cs[f][2])));
+        } else {
+          ch[0] += cs[f][0];
+          ch[1] += sf * ((ky - phi_y) * cs[f][0] - cs[f][1]);
+          ch[2] += sf * ((kx - phi_x) * cs[f][0] - cs[f][2]);
+        }
       }
-#pragma unroll
-      for (int k = 0; k < 9; ++k) acc[cch][k] = __fadd_rn(acc[cch][k], add[k]);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) acc0[cch][k] = __fadd_rn(acc0[cch][k], s0[k]);
+    }
+  };
+
+  // the steps: wait for the slot's copies, fix its own sites, publish
+  // (and free the other slot for the next step's copies), accumulate
+  int b = 0;
+#pragma unroll 1
+  for (int step = 0; step < n_steps; ++step) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    fix(step, b);
+    __syncthreads();
+    if (plan.slots == 2 && step + 1 < n_steps) stage(step + 1, b ^ 1);
+    const int4 win = __ldg(wins + step / n_chunks);
+    const int chunk_i = step % n_chunks;
+    const int nf = min(plan.chunk, frames - chunk_i * plan.chunk);
+    const float2* sv = smem + b * slot_sz;
+    // the pixel's site in the window, at column hx of its row
+    const int site0 = (ty - win.z) * sw + tx + hx;
+    if constexpr (kForm >= 2) {
+      // the residual's terms each tap of a frame reads: ry, rx, the weights'
+      // origins S r + S phi, and the half's rho (its row's blend with the
+      // row before or after, each column's with its neighbour) as S rho (the
+      // bfloat16 centroid: rho, in the plain roundings)
+      const float2* sr = sv + plan.chunk * 4 * sa;
+      for (int fl = 0; fl < nf; ++fl) {
+        const float2* rf = sr + fl * rs;
+        const float ry = rf[my_res].x, rx = rf[my_res].y;
+        float sy = 0.0f, sx0 = 0.0f, sx1 = 0.0f;
+        if constexpr (kCBf16) {
+          sy = blend_rho(ry, rf[nb_y].x, ga_y, phi_y, rb);
+          sx0 = blend_rho(rx, rf[my_res - 1].y, ga_x0, phi_x, rb);
+          sx1 = blend_rho(rx, rf[my_res + 1].y, ga_x1, phi_x, rb);
+        } else if constexpr (kRho) {
+          sy = sf * (fminf(fmaxf((1.0f - ga_y) * ry + ga_y * rf[nb_y].x, -rb), rb) + phi_y);
+          sx0 = sf * (fminf(fmaxf((1.0f - ga_x0) * rx + ga_x0 * rf[my_res - 1].y, -rb), rb) + phi_x);
+          sx1 = sf * (fminf(fmaxf((1.0f - ga_x1) * rx + ga_x1 * rf[my_res + 1].y, -rb), rb) + phi_x);
+        }
+        rec[2 * fl * nthreads + tid] = make_float4(ry, rx, fmaf(ry, sf, phis_y), fmaf(rx, sf, phis_x));
+        rec[(2 * fl + 1) * nthreads + tid] = make_float4(sy, sx0, sx1, 0.0f);
+      }
+    }
+    if constexpr (kList) {
+#pragma unroll 1
+      for (int t = win.x; t < win.y; ++t) {
+        const int4 row = __ldg(table + t);
+        const int g = 2 * (row.x & 1) + (row.y & 1);
+        const Group gr = group(g);
+        tap(t, g, gr, sv, nf, site0);
+        // a tap's sums whole over the frames: added once its last chunk ran
+        // (past one chunk the host's windows hold one tap each)
+        if (chunk_i == n_chunks - 1) flush(gr);
+      }
+    } else {
+      // group by group, the group a constant (a macro, not a generic
+      // lambda calling the generic tap: nvcc has crashed on such nesting)
+#define MFSR_NB_GROUP(G)                                                                          \
+  {                                                                                               \
+    const int ta = max(win.x, (G) ? plan.group_end[(G) - 1] : 0), tb = min(win.y, plan.group_end[G]); \
+    if (ta < tb) {                                                                                \
+      const Group gr = group(G);                                                                  \
+      _Pragma("unroll 1") for (int t = ta; t < tb; ++t) tap(t, IC<G>{}, gr, sv, nf, site0);      \
+      flush(gr);                                                                                  \
+    }                                                                                             \
+  }
+      MFSR_NB_GROUP(0)
+      MFSR_NB_GROUP(1)
+      MFSR_NB_GROUP(2)
+      MFSR_NB_GROUP(3)
+#undef MFSR_NB_GROUP
+    }
+    if (step + 1 < n_steps) {
+      if (plan.slots == 2) {
+        b ^= 1;
+      } else {
+        __syncthreads();
+        stage(step + 1, b);
+      }
     }
   }
 
-  // outputs: (n_out, 2S, 2S, 3, hh, hw), phase index (a S + py, b S + px)
-  const int n_out = form == 0 ? 4 : (form == 1 ? 2 : (form == 2 ? 9 : 4));
-  const long long slot = 4LL * nph * 3 * plane;
-  const int row = a * S + py, col = b * S + px;
+  if constexpr (kShared) {
+    // the shared residual folded into m01 and m02 (fast_merge.py:811-831):
+    // m01 -= S R0 / m00_0 m00, R0 and m00_0 the cell's residual sum and
+    // weight sum at phase 0, passed from the thread holding phase 0
+    // through the (now idle) ring. A cell no centroid tap reached has R0 =
+    // 0 and keeps its zero m01, m02, as the JAX function skips it.
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    float* xs = reinterpret_cast<float*>(smem);
+    const int np = tw * th, p = ty * tw + tx;
+    if (ph_local == 0) {
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float* dst = out + (((long long)row * 2 * S + col) * 3 + c) * plane + pix;
-    if (form == 0) {
-      const int kc = cells.chain[3 * ab + c];
-      float cy = 0.0f, cx = 0.0f;
+      for (int zi = 0; zi < kZ; ++zi)
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {  // compile-time indices: the chains stay in registers
-        if (k != kc) continue;
-        const float w = chain[k][0];
-        const float inv = w > 1e-8f ? 1.0f / fmaxf(w, 1e-8f) : 0.0f;
-        cy = fminf(fmaxf(__fmul_rn(chain[k][1], inv), -2.0f), 2.0f);
-        cx = fminf(fmaxf(__fmul_rn(chain[k][2], inv), -2.0f), 2.0f);
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) xs[(((half * kZ + zi) * 3 + c) * 3 + k) * np + p] = acc[zi][c][k ? 3 + k : 0];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int zi = 0; zi < kZ; ++zi)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float* x0 = xs + ((half * kZ + zi) * 3 + c) * 3 * np + p;
+        const float m0 = x0[0], r0y = x0[np], r0x = x0[2 * np];
+        const float inv0 = m0 > 1e-8f ? 1.0f / fmaxf(m0, 1e-8f) : 0.0f;
+        acc[zi][c][1] -= sf * r0y * inv0 * acc[zi][c][0];
+        acc[zi][c][2] -= sf * r0x * inv0 * acc[zi][c][0];
       }
-      dst[0] = acc[c][0];
-      dst[slot] = cy;
-      dst[2 * slot] = cx;
-      dst[3 * slot] = acc[c][3];
-      continue;
-    }
-    if (shared) {
-      // the phase-0 residual average folded into m01 and m02
-      // (fast_merge.py:811-831)
-      const float m0 = acc0[c][0];
-      const float inv0 = m0 > 1e-8f ? 1.0f / fmaxf(m0, 1e-8f) : 0.0f;
-      acc[c][1] = __fsub_rn(acc[c][1], __fmul_rn(__fmul_rn(__fmul_rn(sf, acc0[c][1]), inv0), acc[c][0]));
-      acc[c][2] = __fsub_rn(acc[c][2], __fmul_rn(__fmul_rn(__fmul_rn(sf, acc0[c][2]), inv0), acc[c][0]));
-    }
+  }
+  if (i >= hh || j >= hw || !stores) return;
+
+  // outputs: (n_out, 2S, 2S, 3, hh, hw), phase index (a S + py, b S + px)
+  const long long slot = 4LL * S * S * 3 * plane;
+  const long long out_pix = (long long)i * hw + j;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      if (k < n_out) dst[k * slot] = acc[c][k];
+  for (int zi = 0; zi < kZ; ++zi) {
+    const int z = kZ == 2 ? 2 * a + zi : zi;
+    const int row = (z >> 1) * S + py, col = (z & 1) * S + px;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float* dst = out + (((long long)row * 2 * S + col) * 3 + c) * plane + out_pix;
+      if constexpr (kForm == 0) {
+        // the cell's chain by selects (compile-time indices: the chains stay
+        // in registers); none: w = 0, so cy = cx = 0
+        const int kc = cells.chain[3 * z + c];
+        float w = 0.0f, n1 = 0.0f, n2 = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          w = k == kc ? chain[k][0] : w;
+          n1 = k == kc ? chain[k][1] : n1;
+          n2 = k == kc ? chain[k][2] : n2;
+        }
+        const float inv = w > 1e-8f ? 1.0f / fmaxf(w, 1e-8f) : 0.0f;
+        const float cy = fminf(fmaxf(n1 * inv, -2.0f), 2.0f), cx = fminf(fmaxf(n2 * inv, -2.0f), 2.0f);
+        dst[0] = acc[zi][c][0];
+        dst[slot] = cy;
+        dst[2 * slot] = cx;
+        dst[3 * slot] = acc[zi][c][1];
+      } else if constexpr (kBf16) {
+        dst[0] = __low2float(accb[zi][c]);  // num
+        dst[slot] = __high2float(accb[zi][c]);  // den
+      } else if constexpr (kForm == 1) {
+        dst[0] = acc[zi][c][1];
+        dst[slot] = acc[zi][c][0];
+      } else {
+#pragma unroll
+        for (int k = 0; k < (kForm == 2 ? 9 : 4); ++k) dst[k * slot] = acc[zi][c][k];
+      }
     }
   }
 }
@@ -2144,7 +2563,7 @@ int launch(const void* planes, const void* residual, const void* certainty,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 block(kTileW, L::kTileH, L::kZ);
+  const dim3 block(kTileW, L::kTileH, L::kZ * kPairThreads<S, kBf16>);
   const dim3 grid((hw + kTileW - 1) / kTileW, (hh + L::kTileH - 1) / L::kTileH, 1);
   merge_raw_kernel<S, kHalo, kGreenDiag, kChains, kBf16><<<grid, block, bytes, stream>>>(
       static_cast<const float*>(planes), static_cast<const float*>(residual),
@@ -2307,6 +2726,7 @@ bool parse_table(const int* tab, int n_taps, bool templated, TapTable* taps, int
   const int* rows = tab + 8;
   *halo = 1;
   std::vector<char> listed(n_taps, 0);
+  std::vector<int> at(n_taps, 0);  // the sorted index of the list's n-th tap
   for (int g = 0; g < 4; ++g) taps->centroid_end[g] = taps->group_end[g];
   // the general form packs ky and kx into 16 bits each
   const int reach = templated ? 4 : 32767;
@@ -2327,11 +2747,20 @@ bool parse_table(const int* tab, int n_taps, bool templated, TapTable* taps, int
     if (templated) {
       taps->ky[t] = (signed char)ky;
       taps->kx[t] = (signed char)kx;
-      taps->order[n] = (unsigned char)t;
+      at[n] = t;
     }
     listed[n] = 1;
     for (int a = 0; a < 2; ++a) {
       *halo = std::max({*halo, std::abs((a + ky) >> 1), std::abs((a + kx) >> 1)});
+    }
+  }
+  if (templated) {
+    int m = 0;
+    for (int pair = 0; pair < 2; ++pair) {
+      for (int n = 0; n < n_taps; ++n) {
+        const int t = at[n], g = 2 * (rows[3 * t] & 1) + (rows[3 * t + 1] & 1);
+        if ((g == 1 || g == 2) == (pair == 1)) taps->order[m++] = (unsigned char)t;
+      }
     }
   }
   return true;
@@ -2450,19 +2879,27 @@ int mfsr_merge_raw_general(const void* planes, const void* residual, const void*
 
 // Launches the non-Bayer form (merge_raw_nonbayer_kernel) on `stream` and
 // returns cudaGetLastError(). The arrays, out and flags are
-// mfsr_merge_raw's, at any scale >= 1 and any number of frames. taps is a
-// DEVICE int32 array of n_taps rows (ky, kx, c) in the tap list's order,
-// c = 1 where the tap feeds the per-cell centroid (form 3's
-// centroid_prune; 1 for every tap without it). cells is a HOST int array:
-// the channel (0..2) of each plane q = 2*qa + qb (4, any pattern), then
-// the certless chain of each cell (a, b, ch) at 3 (2a + b) + ch (12; 0, 1
-// green by (ky + kx) % 2, 2 + 2 (ky % 2) + kx % 2 R/B, -1 none).
+// mfsr_merge_raw's, at any scale >= 1 and any number of frames. table is
+// a DEVICE int32 array of n_taps rows (ky, kx, c, 0), c = 1 where the tap
+// feeds the per-cell centroid (form 3's centroid_prune; 1 for every tap
+// without it), in the list's order for the bfloat16 knobs (form 1's
+// bfloat16 order 0, form 3's centroid_bf16) and else sorted by tap-parity
+// group, then n_win rows (t0, t1, dylo, dyhi): the windows, each a run of
+// rows whose staged rows (dylo, dyhi the least (a + ky) // 2 and the most)
+// the plan's take. cells is a HOST int array: the channel (0..2) of each
+// plane q = 2*qa + qb (4, any pattern), then the certless chain of each
+// cell (a, b, ch) at 3 (2a + b) + ch (12; 0, 1 green by (ky + kx) % 2,
+// 2 + 2 (ky % 2) + kx % 2 R/B, -1 none). plan is a HOST int array of
+// kernels/merge_raw.py::nonbayer_plan: tile_w, tile_h, phases, groups, hx,
+// rows, chunk, slots, n_win, smem_bytes and the table's four group ends;
+// a plan the kernel cannot take is refused.
 int mfsr_merge_raw_nonbayer(const void* planes, const void* residual, const void* certainty,
                             const void* omega, const void* omega_rb, void* out, int frames, int hh,
-                            int hw, int scale, int form, float rb, const void* taps, int n_taps,
-                            const void* cells, int flags, void* stream) {
-  if (n_taps < 0 || frames < 1 || hh < 1 || hw < 1 || scale < 1 || 4LL * scale * scale > 65535 ||
-      (hh + 7) / 8 > 65535 || reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0) {
+                            int hw, int scale, int form, float rb, const void* table, int n_taps,
+                            const void* cells, const void* plan_tab, int flags, void* stream) {
+  if (n_taps < 0 || frames < 1 || hh < 1 || hw < 1 || scale < 1 ||
+      reinterpret_cast<std::uintptr_t>(residual) % sizeof(float2) != 0 ||
+      reinterpret_cast<std::uintptr_t>(table) % sizeof(int4) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int allowed[4] = {0, kBf16Flag, kExactWeights,
@@ -2478,21 +2915,54 @@ int mfsr_merge_raw_nonbayer(const void* planes, const void* residual, const void
     ct.chain[k] = tab[4 + k];
     if (tab[4 + k] < -1 || tab[4 + k] > 5) return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((hw + 31) / 32, (hh + 7) / 8, 4 * scale * scale);
-#define MFSR_NONBAYER(K)                                                                             \
-  merge_raw_nonbayer_kernel<K><<<grid, dim3(32, 8), 0, static_cast<cudaStream_t>(stream)>>>(         \
-      static_cast<const float*>(planes), static_cast<const float*>(residual),                        \
-      static_cast<const float*>(certainty), static_cast<const float*>(omega),                        \
-      static_cast<const float*>(omega_rb), static_cast<float*>(out), static_cast<const int*>(taps), \
-      n_taps, frames, hh, hw, scale, flags, rb, ct)
-  switch (form) {
-    case 0: MFSR_NONBAYER(0); break;
-    case 1: MFSR_NONBAYER(1); break;
-    case 2: MFSR_NONBAYER(2); break;
-    default: MFSR_NONBAYER(3); break;
+  const int* pt = static_cast<const int*>(plan_tab);
+  NbPlan plan{pt[0], pt[1], pt[2], pt[3], pt[4], pt[5], pt[6], pt[7], pt[8], pt[9], {pt[10], pt[11], pt[12], pt[13]}};
+  const int halves = form >= 2 ? 2 : 1;
+  const long long threads = (long long)plan.tw * plan.th * plan.phases * halves;
+  const int grid_y = (hh + std::max(plan.th, 1) - 1) / std::max(plan.th, 1);
+  if (plan.tw < 1 || plan.th < 1 || plan.phases < 1 || plan.groups < 1 || threads > 512 || plan.phases * halves > 64 ||
+      (plan.groups == 1 ? plan.phases < scale * scale
+                        : 1 + (long long)plan.groups * (plan.phases - 1) < (long long)scale * scale) ||
+      plan.hx < 1 || plan.rows < plan.th || plan.chunk < 1 || (plan.slots != 1 && plan.slots != 2) ||
+      plan.n_win < 1 || plan.bytes < 1 || plan.bytes > kMaxSmem || grid_y > 65535 || plan.groups > 65535 ||
+      ((long long)plan.slots * plan.chunk * (4LL * plan.rows * (plan.tw + 2 * plan.hx) + (plan.th + 2) * (plan.tw + 2)) *
+               (long long)sizeof(float2) + 15) / 16 * 16 +
+              (form >= 2 ? (long long)plan.chunk * 2 * sizeof(float4) * threads : 0) > plan.bytes ||
+      plan.group_end[3] != n_taps) {
+    return (int)cudaErrorInvalidValue;
   }
-#undef MFSR_NONBAYER
-  return (int)cudaGetLastError();
+  const bool exact = flags & kExactWeights, bf16 = flags & kBf16Flag;
+  const bool shared = flags & kSharedFlag, block = (flags & kBlockFlag) || shared;
+  const dim3 grid((hw + plan.tw - 1) / plan.tw, grid_y, plan.groups);
+  const dim3 blk(plan.tw, plan.th, plan.phases * halves);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto run = [&](auto kernel) {
+    if (plan.bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<grid, blk, plan.bytes, st>>>(
+        static_cast<const float*>(planes), static_cast<const float*>(residual), static_cast<const float*>(certainty),
+        static_cast<const float*>(omega), static_cast<const float*>(omega_rb), static_cast<float*>(out),
+        static_cast<const int4*>(table), n_taps, frames, hh, hw, scale, rb, ct, plan);
+    return (int)cudaGetLastError();
+  };
+  switch (form) {
+    case 0: return scale >= 5 ? run(merge_raw_nonbayer_kernel<0, 1, false>) : run(merge_raw_nonbayer_kernel<0, 0, false>);
+    case 1: return bf16 ? run(merge_raw_nonbayer_kernel<1, 1, false>) : run(merge_raw_nonbayer_kernel<1, 0, false>);
+    case 2: return exact ? run(merge_raw_nonbayer_kernel<2, 0, true>) : run(merge_raw_nonbayer_kernel<2, 0, false>);
+    default: {
+      const int mode = shared ? 3 : (block ? 2 : (bf16 ? 1 : 0));
+#define MFSR_NB3(M) (exact ? run(merge_raw_nonbayer_kernel<3, M, true>) : run(merge_raw_nonbayer_kernel<3, M, false>))
+      switch (mode) {
+        case 0: return MFSR_NB3(0);
+        case 1: return MFSR_NB3(1);
+        case 2: return MFSR_NB3(2);
+        default: return MFSR_NB3(3);
+      }
+#undef MFSR_NB3
+    }
+  }
 }
 
 // The most frames a launch of the form stages at once at the given scale

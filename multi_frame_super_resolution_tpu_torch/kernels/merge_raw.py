@@ -63,6 +63,7 @@ _MAX_TAP = 4  # the templated kernels' taps lie within +-4 (kMaxTaps = 81 in csr
 _SCALES = (1, 2, 3, 4)  # the templated kernels' instantiations (Layout<S>, CellTile in csrc/merge_raw.cu)
 _SMEM_MAX = 232448  # kMaxSmem in csrc/merge_raw.cu: the shared memory a block can opt in to (sm_90)
 _RING = 3  # kRing: the cells kernel's frame slots
+_SM_HALF = 233472 // 2 - 1024  # a block's share of an SM's shared memory at two blocks an SM (kSmSmem)
 
 
 @functools.cache
@@ -81,7 +82,7 @@ def library() -> ctypes.CDLL:
     bind(
         lib, "mfsr_merge_raw_nonbayer",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
+        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int],
     )
     bind(
         lib, "mfsr_merge_raw_stream",
@@ -205,6 +206,140 @@ def general_taps(taps: tuple, centroid_taps: Optional[frozenset] = None) -> np.n
                       np.int32).reshape(-1, 3)
 
 
+@functools.lru_cache(maxsize=None)
+def nonbayer_rows(taps: tuple, centroid_taps: Optional[frozenset] = None, listed: bool = False) -> np.ndarray:
+    """The non-Bayer kernel's tap rows (int32 (n, 4)): general_taps' (ky,
+    kx, centroid bit) and a 0, in the list's order where ``listed`` (the
+    bfloat16 knobs, whose cells sum their taps in that order) and else
+    stably sorted by tap-parity group g = 2 (ky % 2) + kx % 2, the order
+    the kernel runs the float32 forms in, group by group."""
+    rows = general_taps(taps, centroid_taps)
+    if not listed:
+        rows = rows[np.argsort(2 * (rows[:, 0] % 2) + rows[:, 1] % 2, kind="stable")]
+    rows = np.concatenate([rows, np.zeros((len(rows), 1), np.int32)], 1)
+    rows.flags.writeable = False
+    return rows
+
+
+def nonbayer_table(taps: tuple, centroid_taps: Optional[frozenset], listed: bool, windows: tuple) -> np.ndarray:
+    """The non-Bayer kernel's device table: nonbayer_rows, then the
+    windows' (t0, t1, dylo, dyhi) rows (nonbayer_plan)."""
+    return np.concatenate([nonbayer_rows(taps, centroid_taps, listed),
+                           np.asarray(windows, np.int32).reshape(-1, 4)])
+
+
+@functools.lru_cache(maxsize=None)
+def nonbayer_plan(scale: int, form: int, taps: tuple, frames: int, listed: bool = False
+                  ) -> Tuple[np.ndarray, tuple]:
+    """The non-Bayer kernel's launch plan for ``taps`` (nonbayer_rows'
+    order, ``listed`` for the bfloat16 knobs) at ``scale`` on ``frames``
+    frames: (plan, windows). plan (int32, 14) is mfsr_merge_raw_nonbayer's:
+    tile_w, tile_h, phases, groups, hx, rows, chunk, slots, n_win, shared
+    bytes and the rows' four group ends; windows the (t0, t1, dylo, dyhi)
+    runs of rows staged together, dylo and dyhi the least and most half-res
+    row a run's taps reach ((a + ky) // 2 over both parities a).
+
+    A thread per (pixel, phase) (forms 2 and 3: and parity row), about
+    256 a block: tw x th pixels (tw 8, 16 or 32) x the phases, at most 32
+    threads a pixel; past them grid z over groups of phases, each with
+    phase 0 first. A frame's slot holds the four planes' rows x (tw + 2
+    hx) sites and the residual's (th + 2) x (tw + 2), 8 B a site; forms 2
+    and 3 add, after the ring (16-byte aligned), 32 B a thread and frame
+    of the chunk (the residual's per-frame terms). Every
+    frame at once in one window where it fits two blocks an SM (the
+    bfloat16 knobs: one block); else a ring of two slots of `chunk`
+    frames, the rows in windows where one frame of every row does not
+    fit (the bfloat16 knobs: windows of one tap once the frames run in
+    chunks, so that each tap's frame sums are whole); an 8 x 1 tile where
+    the tile's own rows do not fit. Raises where not even that fits (taps
+    past about +-1,800 columns)."""
+    halves = 2 if form in (NINE_MOMENTS, PER_CELL) else 1
+    n = scale * scale
+    max_p = 32 // halves
+    if n <= max_p:
+        groups, phases = 1, n
+    else:
+        groups = -(-(n - 1) // (max_p - 1))
+        phases = 1 + -(-(n - 1) // groups)
+    pix = max(1, 256 // (phases * halves))
+    rows_t = nonbayer_rows(taps, None, listed)
+    n_taps = len(rows_t)
+    lo = (rows_t[:, 0] // 2).tolist() or [0]
+    hi = ((rows_t[:, 0] + 1) // 2).tolist() or [0]
+    hx = max([1] + [max(abs(k // 2), abs((k + 1) // 2)) for k in rows_t[:, 1].tolist()])
+
+    def fit(tw, th):  # the ring of a tw x th tile: (rows, chunk, slots, windows, bytes), or None
+        sw, rs = tw + 2 * hx, (th + 2) * (tw + 2)
+        rec = 32 * tw * th * phases * halves if halves == 2 else 0  # forms 2 and 3: a record a thread and frame
+
+        def frame(rows):  # a frame's bytes in a slot
+            return (4 * rows * sw + rs) * 8
+
+        def need(rows, chunk, slots):  # the ring, 16-byte aligned, and the records
+            return -(-slots * chunk * frame(rows) // 16) * 16 + chunk * rec
+
+        def most_chunk(rows, budget):  # the most frames a slot of two within budget
+            chunk = budget // (2 * frame(rows) + rec)
+            while chunk > 0 and need(rows, chunk, 2) > budget:
+                chunk -= 1
+            return chunk
+
+        def most_rows(chunk, slots, budget):  # the most staged rows within budget
+            rows = max(0, (budget - chunk * rec - 16) // (8 * slots * chunk) - rs) // (4 * sw)
+            while rows > 0 and need(rows, chunk, slots) > budget:
+                rows -= 1
+            return rows
+
+        def windows(max_rows, one_tap=False):
+            wins, t0 = [], 0
+            while t0 < n_taps:
+                a, b, t1 = lo[t0], hi[t0], t0 + 1
+                while t1 < n_taps and not one_tap and th + max(b, hi[t1]) - min(a, lo[t1]) <= max_rows:
+                    a, b, t1 = min(a, lo[t1]), max(b, hi[t1]), t1 + 1
+                wins.append((t0, t1, a, b))
+                t0 = t1
+            return wins or [(0, 0, 0, 0)]
+
+        whole = [(0, n_taps, min(lo), max(hi))]
+        rows_all = th + max(hi) - min(lo)
+        if need(rows_all, frames, 1) <= (_SMEM_MAX if listed else _SM_HALF):
+            wins, chunk = whole, frames
+        elif listed and most_rows(frames, 2, _SMEM_MAX) >= th + 1:
+            wins, chunk = windows(most_rows(frames, 2, _SMEM_MAX)), frames  # every frame, rows in windows
+        elif listed:
+            wins = windows(th + 1, one_tap=True)
+            chunk = min(frames, most_chunk(th + 1, _SM_HALF) or most_chunk(th + 1, _SMEM_MAX))
+        elif need(rows_all, 1, 2) <= _SMEM_MAX:
+            wins = whole
+            chunk = min(frames, most_chunk(rows_all, _SM_HALF) or most_chunk(rows_all, _SMEM_MAX))
+        else:
+            wins = windows(most_rows(1, 2, _SMEM_MAX))
+            chunk = 1
+        rows = max(th + b - a for _, _, a, b in wins)
+        slots = 2 if len(wins) * -(-frames // max(chunk, 1)) > 1 else 1
+        if chunk < 1 or need(rows, chunk, slots) > _SMEM_MAX:
+            return None
+        # the shared-residual centroid passes its phase-0 sums through the ring
+        return rows, chunk, slots, wins, max(need(rows, chunk, slots), 144 * tw * th if form == PER_CELL else 0)
+
+    # the tile, or 8 x 1 pixels where its rows of sites do not fit
+    tw = min(32, 8 * -(-pix // 8))
+    th = max(1, pix // tw)
+    ring = fit(tw, th)
+    if ring is None:
+        tw, th = 8, 1
+        ring = fit(tw, th)
+    if ring is None:
+        raise ValueError(f"the non-Bayer RAW merge stages rows of {8 + 2 * hx} sites a plane: two rows of them pass "
+                         "a block's shared memory")
+    rows, chunk, slots, wins, smem = ring
+    g = 2 * (rows_t[:, 0] % 2) + rows_t[:, 1] % 2
+    ends = [n_taps] * 4 if listed else np.cumsum([int((g == k).sum()) for k in range(4)]).tolist()
+    plan = np.asarray([tw, th, phases, groups, hx, rows, chunk, slots, len(wins), smem, *ends], np.int32)
+    plan.flags.writeable = False
+    return plan, tuple(wins)
+
+
 # the variant bits of a launch (csrc/merge_raw.cu's flags)
 EXACT_WEIGHTS, BF16, BLOCK, SHARED = 1, 2, 4, 8
 
@@ -322,10 +457,13 @@ def merge_raw(
             f, hh, hw, scale, form, float(residual_bound))
     name = kernel_name(scale, taps, pattern, f, form, frame_cap, bf16)
     if name == NONBAYER:
-        # the tap table on the card, made once per (taps, centroid, device)
-        dev_taps = _const_array(general_taps, (taps, centroid_taps), dev)
+        # the bfloat16 knobs keep each cell's taps in the list's order
+        listed = bf16 or centroid_bf16
+        plan, windows = nonbayer_plan(scale, form, taps, f, listed)
+        # the tap table on the card, made once per (taps, centroid, order, windows, device)
+        dev_taps = _const_array(nonbayer_table, (taps, centroid_taps, listed, windows), dev)
         launch(lib, "mfsr_merge_raw_nonbayer", dev, *args, dev_taps.data_ptr(), len(taps),
-               cell_table(pattern).ctypes.data, flags)
+               cell_table(pattern).ctypes.data, plan.ctypes.data, flags)
         LAUNCHES[name] += 1
         return tuple(out.unbind(0))
     # built once per (taps, pattern): rebuilt per call it held a call to

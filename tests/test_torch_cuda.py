@@ -1334,14 +1334,18 @@ def test_raw_merge_general_form_matches_plain(form, scale, radius, cfa, hh, hw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hh,hw", [(9, 13), (3, 5)])
-@pytest.mark.parametrize("form", ["slots9", "cert4"])
+@pytest.mark.parametrize(
+    "form,hh,hw",
+    [(form, hh, hw) for hh, hw in ((9, 13), (3, 5)) for form in ("slots9", "cert4")]
+    + [(knob, 9, 13) for knob in ("exact_weights", "exact_weights9", "block", "shared_res", "prune",
+                                  "centroid_bf16")])
 def test_raw_merge_past_any_general_block_matches_plain(form, hh, hw):
     """The 9-moment and per-cell forms of a Bayer merge at 3,721 taps (to
     +-30 at e^-1e4, S = 2), where the general cells block's frame ring and
-    tap table pass a block's 232,448 bytes: the non-Bayer kernel runs it.
-    F = 3, a ragged size and one smaller than the taps' reach. Against the
-    plain version at the form's tolerance."""
+    tap table pass a block's 232,448 bytes: the non-Bayer kernel runs it,
+    with every knob of the two forms (at 9 x 13). F = 3, a ragged size and
+    one smaller than the taps' reach. Against the plain version at the
+    form's tolerance (the bfloat16 centroid by _assert_bf16_close)."""
     dev = cuda_device()
     kw, tol = RAW_GENERAL[form]
     ins = _raw_merge_inputs(np.random.default_rng(hh), 3, hh, hw, dev)
@@ -1352,6 +1356,9 @@ def test_raw_merge_past_any_general_block_matches_plain(form, hh, hw):
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_raw_nonbayer": 1}
     want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    if tol is None:
+        _assert_bf16_close(got, want, CBF16_TOL)
+        return
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, **tol)
 
@@ -1371,6 +1378,142 @@ def _ring_frames(scale: int, form: str, length) -> int:
 
 BAYER = ((0, 1), (1, 2))
 _GREEN_ANTI = ((1, 0), (2, 1))  # a Bayer pattern with its greens on the other diagonal
+
+
+def _shuffle_taps(monkeypatch, seed):
+    """Hands the wrapper and the plain version the same tap list in
+    another order (a permutation from ``seed``): a cell's bfloat16 sum
+    follows the list's order, whatever the taps' groups."""
+    active = fast_merge._active_taps
+
+    def shuffled(*args, **kwargs):
+        taps = list(active(*args, **kwargs))
+        return [taps[n] for n in np.random.default_rng(seed).permutation(len(taps))]
+
+    monkeypatch.setattr(fast_merge, "_active_taps", shuffled)
+    monkeypatch.setattr(raw_merge_kernel, "_active_taps", shuffled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["list", "shuffled", "guided"])
+@pytest.mark.parametrize("frames", [1, 5, "cap"])
+@pytest.mark.parametrize("cfa", [BAYER, _GREEN_ANTI])
+@pytest.mark.parametrize("scale", [1, 2, 3, 4])
+def test_raw_merge_bf16_order0_templated_matches_plain(scale, cfa, frames, variant, monkeypatch):
+    """The templated bfloat16 order 0 (each tap-group pair's taps in the
+    list's order) at S = 1-4, both green diagonals, F = 1, 5 and the frame
+    cap of its halo, on the list's order, a permutation of it (the taps of
+    a pair in another order; the wrapper and the plain version are handed
+    the same list) and guided, at a ragged size. Launches merge_raw alone;
+    against the plain version by _assert_bf16_close at BF16_TOL."""
+    dev = cuda_device()
+    if variant == "shuffled":
+        _shuffle_taps(monkeypatch, scale)
+    k_max = (scale / 2.0) ** 2
+    args = (cfa, scale, 1, 1.0, k_max, 1.5)
+    taps = tuple(raw_merge_kernel._active_taps(2, 1.0, scale, k_max, 1.5))
+    cap = raw_merge_kernel.library().mfsr_merge_raw_max_frames(scale, raw_merge_kernel.tap_halo(taps), 1)
+    f = cap if frames == "cap" else frames
+    ins = _raw_merge_inputs(np.random.default_rng(100 + 10 * scale + f), f, 37, 61, dev)
+    kw = dict(order=0, bf16=True)
+    if variant == "guided":
+        kw["guide"] = fast_merge.green_guide_planes(ins[0], cfa).contiguous()
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_raw": 1}
+    _assert_bf16_close(got, fast_merge.merge_burst_raw_planes(*ins, *args, **kw), BF16_TOL)
+
+
+def _far_taps(monkeypatch, reach):
+    """Hands the wrapper and the plain version the same sparse tap list,
+    reaching +-``reach`` in both axes (in list order, ky outer)."""
+    taps = [(ky, kx) for ky in (-reach, 1 - reach, -1, 0, 1, reach // 2, reach)
+            for kx in (-reach, -1, 0, 1, reach - 1)]
+    monkeypatch.setattr(fast_merge, "_active_taps", lambda *args, **kwargs: list(taps))
+    monkeypatch.setattr(raw_merge_kernel, "_active_taps", lambda *args, **kwargs: list(taps))
+    return tuple(taps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reach", [80, 400])
+@pytest.mark.parametrize("scale", [1, 2])
+@pytest.mark.parametrize("form", ["certless", "order0", "slots9", "cert4", "bf16", "centroid_bf16"])
+def test_raw_merge_nonbayer_windows_match_plain(form, scale, reach, monkeypatch):
+    """Taps reaching +-80 and +-400 (35 of them, a list handed to the
+    wrapper and the plain version alike; omega x 1e-4 x (80 / reach)^2,
+    so that the far taps weigh): the non-Bayer kernel stages their rows in
+    windows (more than one, from nonbayer_plan), each staged in turn, the
+    bfloat16 knobs' with every frame or one tap a window (then its sums
+    kept across chunks of one frame), and at +-400 on S = 1 forms 0 and 1
+    on an 8 x 1 tile; S = 1 and 2, F = 3, 30 x 50 on ((0,
+    1), (2, 1)). Launches merge_raw_nonbayer alone; against the plain
+    version at the form's tolerance, its atol grown with the displacement
+    where the form sums displacement terms (below), the bfloat16 ones by
+    _assert_bf16_close."""
+    dev = cuda_device()
+    taps = _far_taps(monkeypatch, reach)
+    kw, tol = RAW_GENERAL[form]
+    planes, res, cert, om_g, om_rb = _raw_merge_inputs(np.random.default_rng(scale), 3, 30, 50, dev)
+    ins = [planes, res, cert, om_g * (1e-4 * (80 / reach) ** 2), om_rb * (1e-4 * (80 / reach) ** 2)]
+    # radius + ceil(rb) = reach: the plain version pads its planes by the taps' reach
+    args = (NONBAYER["column"], scale, reach - 1, 1.0, (scale / 2.0) ** 2, 1.5)
+    form_id = fast_merge.raw_merge_form(kw["order"], kw.get("moment_slots", 4), kw.get("centroid_cert", False))
+    plan, windows = raw_merge_kernel.nonbayer_plan(scale, form_id, taps, 3, "bf16" in form)
+    assert len(windows) > 1
+    assert (plan[:2].tolist() == [8, 1]) == (reach == 400 and scale == 1 and form in ("certless", "order0", "bf16"))
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_raw_nonbayer": 1}
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    if tol is None:
+        _assert_bf16_close(got, want, CBF16_TOL if form == "centroid_bf16" else BF16_TOL)
+        return
+    # float32 sums of terms that grow with the taps' displacement (up to S x
+    # reach an axis, against ~3 S at the path's taps), whose rounding the two
+    # implementations take in different orders: the centroid chains by its
+    # ratio, the moments (dy^2 w c, ...) by its square (an H100: certless at
+    # +-400 3.6e-5 apart, 9 slots at +-80 5.6e-3 on moments of ~1e5); order 0
+    # has no displacement term. A misread site moves a value by O(1) of it.
+    grow = {"certless": reach / 3.0, "slots9": (reach / 3.0) ** 2, "cert4": (reach / 3.0) ** 2}.get(form, 1.0)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=tol["rtol"], atol=tol["atol"] * grow)
+
+
+# 2 x 2 patterns the non-Bayer kernel takes: green in a column, green in a
+# row, and one green site (B on two)
+NONBAYER = {"column": ((0, 1), (2, 1)), "row": ((1, 1), (0, 2)), "one-green": ((0, 1), (2, 2))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 40])
+@pytest.mark.parametrize("scale", [1, 2, 3, 5])
+@pytest.mark.parametrize("pattern", list(NONBAYER))
+@pytest.mark.parametrize("form", list(RAW_GENERAL))
+def test_raw_merge_nonbayer_kernel_matches_plain(form, pattern, scale, frames):
+    """The non-Bayer kernel in its four forms and every knob on three kinds
+    of pattern, at S = 1, 2, 3 and 5, F = 1 and 40 (40: the float32 forms'
+    frames in chunks through the ring at S = 1; the bfloat16 knobs' in
+    windows of one tap), at a ragged size smaller than a tile. Launches
+    merge_raw_nonbayer alone; against the plain version at each form's
+    tolerance, the bfloat16 ones by _assert_bf16_close."""
+    dev = cuda_device()
+    kw, tol = RAW_GENERAL[form]
+    cfa = NONBAYER[pattern]
+    ins = _raw_merge_inputs(np.random.default_rng(10 * scale + frames), frames, 11, 19, dev)
+    args = (cfa, scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
+    LAUNCHES.clear()
+    got = merge_raw(*ins, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == {"merge_raw_nonbayer": 1}
+    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    assert [g.shape for g in got] == [w_.shape for w_ in want]
+    if tol is None:
+        _assert_bf16_close(got, want, CBF16_TOL if "centroid_bf16" in form else BF16_TOL)
+    else:
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, **tol)
 
 
 @pytest.mark.cuda

@@ -327,6 +327,113 @@ def test_general_taps_past_81():
     assert 0 < rows[:, 2].sum() < 121
 
 
+@pytest.mark.parametrize("listed", [False, True])
+def test_nonbayer_rows_order(listed):
+    """The non-Bayer kernel's tap rows: general_taps' (ky, kx, centroid
+    bit) and a 0, in the list's order for the bfloat16 knobs and else
+    sorted by tap-parity group, the list's order kept within a group."""
+    taps = tuple(fast_merge._active_taps(3, 1.0, 2, 4.0, 6.0))
+    inner = frozenset(fast_merge._active_taps(3, 1.0, 2, 4.0, 1.0))
+    rows = raw_kernel.nonbayer_rows(taps, inner, listed)
+    assert rows.shape == (len(taps), 4) and rows.dtype == np.int32 and not rows[:, 3].any()
+    order = list(range(len(taps)))
+    if not listed:
+        order.sort(key=lambda n: 2 * (taps[n][0] % 2) + taps[n][1] % 2)
+    assert [tuple(r[:2]) for r in rows.tolist()] == [taps[n] for n in order]
+    assert rows[:, 2].tolist() == [int(taps[n] in inner) for n in order]
+    windows = ((0, 3, -2, 0), (3, len(taps), -1, 2))
+    table = raw_kernel.nonbayer_table(taps, inner, listed, windows)
+    assert table.shape == (len(taps) + 2, 4) and table[len(taps):].tolist() == [list(w) for w in windows]
+
+
+def _nonbayer_cases():
+    """(scale, taps, frames): the full square of taps reaching 2 to 101 (past
+    a block's shared memory: windows of rows) at scales 1-8 and 1 to 130
+    frames, and a cross of taps reaching 400 (at S = 1 past what the
+    32 x 8 tile's rows of sites hold: the 8 x 1 tile)."""
+    def square(r):
+        return tuple((ky, kx) for ky in range(-r, r + 1) for kx in range(-r, r + 1))
+
+    cross = ((0, -400), (-400, 0), (0, 0), (1, 1), (400, 0), (0, 400))
+    return [(s, square(r), f) for s in (1, 2, 3, 4, 5, 6, 8) for r, f in ((2, 1), (2, 5), (2, 40), (2, 130), (30, 3))] + [
+        (2, square(101), 3), (5, square(60), 2), (1, square(2), 400), (1, cross, 5), (2, cross, 40)]
+
+
+def _check_nonbayer_plan(form, listed, scale, taps, frames):
+    """nonbayer_plan(scale, form, taps, frames, listed) against a
+    transcription of the kernel's layout; returns the plan."""
+    halves = 2 if form in (fast_merge.NINE_MOMENTS, fast_merge.PER_CELL) else 1
+    plan, windows = raw_kernel.nonbayer_plan(scale, form, taps, frames, listed)
+    tw, th, phases, groups, hx, rows, chunk, slots, n_win, smem, *ends = plan.tolist()
+    n = scale * scale
+    assert tw * th * phases * halves <= 512 and phases * halves <= 64
+    assert tw * th * phases * halves >= 144 or tw == 8
+    if groups == 1:
+        assert phases == n
+    else:
+        assert 1 + groups * (phases - 1) >= n > 1 + (groups - 1) * (phases - 1)
+    ky, kx = (raw_kernel.nonbayer_rows(taps, None, listed)[:, k] for k in (0, 1))
+    assert hx == max(1, max(max(abs(k // 2), abs((k + 1) // 2)) for k in kx.tolist()))
+    assert n_win == len(windows) and windows[0][0] == 0 and windows[-1][1] == len(taps)
+    sw = tw + 2 * hx
+    for (t0, t1, lo, hi), nxt in zip(windows, windows[1:] + ((len(taps),),)):
+        assert t0 < t1 == nxt[0]
+        assert (lo, hi) == (int((ky[t0:t1] // 2).min()), int(((ky[t0:t1] + 1) // 2).max()))
+        assert th + hi - lo <= rows
+        for k_y, k_x in zip(ky[t0:t1].tolist(), kx[t0:t1].tolist()):
+            for z in range(4):
+                for y, x in ((0, 0), (th - 1, tw - 1)):
+                    assert 0 <= y - lo + ((z >> 1) + k_y) // 2 < th + hi - lo
+                    assert 0 <= x + hx + ((z & 1) + k_x) // 2 < sw
+    steps = n_win * -(-frames // chunk)
+    assert 1 <= chunk <= frames and slots == (2 if steps > 1 else 1)
+    ring = -(-slots * chunk * (4 * rows * sw + (th + 2) * (tw + 2)) * 8 // 16) * 16
+    ring += chunk * 32 * tw * th * phases * halves if halves == 2 else 0  # the per-frame records
+    assert ring <= smem <= 232448
+    assert smem == max(ring, 144 * tw * th if form == fast_merge.PER_CELL else 0)
+    if listed and chunk < frames:
+        assert all(t1 - t0 == 1 for t0, t1, _, _ in windows)
+    if listed:
+        assert ends == [len(taps)] * 4
+    else:
+        g = [2 * (k_y % 2) + k_x % 2 for k_y, k_x in zip(ky.tolist(), kx.tolist())]
+        assert g == sorted(g) and ends == np.cumsum([g.count(k) for k in range(4)]).tolist()
+    return plan
+
+
+@pytest.mark.parametrize("listed", [False, True])
+@pytest.mark.parametrize("form", [fast_merge.CERTLESS, fast_merge.ORDER0, fast_merge.NINE_MOMENTS,
+                                  fast_merge.PER_CELL])
+def test_nonbayer_plan_fits_and_covers(form, listed):
+    """nonbayer_plan against a transcription of the kernel's layout, at
+    scales 1-8, tap reaches 2-101 (the full square of taps) and 400 (a
+    cross of taps) and 1-400 frames: at most 512 threads and 64 a block's
+    z, about 256 (32 pixels x the phases where they fit; 8 x 1 where a
+    tile's rows of sites do not); phase groups covering the scale's
+    phases (past one, each with phase 0 first, none empty); the windows
+    covering the rows in order, each its taps' exact half-res row span,
+    within the plan's rows; every site a thread reads for a window's taps
+    inside its slot; the ring (slots x chunk frames of four planes' rows
+    x (tw + 2 hx) sites and the residual's (th + 2) x (tw + 2), 8 B a
+    site, 16-byte aligned; forms 2 and 3: 32 B more a thread and frame)
+    and the shared residual's exchange within the bytes, those within
+    232,448; two slots exactly where the steps are more than one; the
+    bfloat16 knobs' taps in windows of one when the frames take chunks;
+    the group ends the rows'."""
+    for scale, taps, frames in _nonbayer_cases():
+        plan = _check_nonbayer_plan(form, listed, scale, taps, frames)
+        if max(abs(k) for t in taps for k in t) == 400:
+            # forms 0 and 1 at S = 1: 32 x 8 pixels cannot stage 9 rows of 432 sites
+            halves = 2 if form in (fast_merge.NINE_MOMENTS, fast_merge.PER_CELL) else 1
+            assert (plan[:2].tolist() == [8, 1]) == (scale == 1 and halves == 1)
+    # the main shapes: every frame at once in one window, 256 threads
+    halves = 2 if form in (fast_merge.NINE_MOMENTS, fast_merge.PER_CELL) else 1
+    taps = tuple(fast_merge._active_taps(2, 1.0, 2, 1.0, 1.5))
+    plan, windows = raw_kernel.nonbayer_plan(2, form, taps, 5, listed)
+    assert plan[:3].tolist() == ([32, 2, 4] if halves == 1 else [32, 1, 4]) and len(windows) == 1
+    assert plan[6:8].tolist() == [5, 1]
+
+
 def test_rgb_merge_uses_general_past_the_build():
     """merge_fast's general form runs at scales past 4 and taps reaching
     past 25 (kMaxRadius, the templated layouts' staged halo), the

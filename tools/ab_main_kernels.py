@@ -19,10 +19,16 @@ at chip_smoke.py's phase-3 shapes and seeds (F=5, 256 x 512 RGB, 128 x
   forms past their frame caps: F=40 at S=2 and F=70 at S=4, RAW_BENCH's,
   RAW_ORDER0's and RAW_SCALE4's merges), the RGB merge's 9 slots at s=2
   (RGB_EXACT's merge) and s=4, and its interleaved, order-1 and bfloat16
-  forms at s=2, each ``--calls`` calls a round.
+  forms at s=2, each ``--calls`` calls a round;
+- ``bf16nb``: the RAW merge's templated bfloat16 order 0 at S=1-3 (F=5)
+  and S=4 (F=9, RAW_SCALE4's merge), the float32 order 0 at S=2 and S=4
+  beside it, and the non-Bayer kernel: the certless form, order 0, 9
+  slots and the per-cell 4 at S=2 on ((0, 1), (2, 1)), the certless form
+  at S=3 on ((1, 1), (0, 2)), and the 9 slots of a Bayer merge at 3,721
+  taps (to +-30) on 3 x 64 x 128, each ``--calls`` calls a round.
 
-``--only main`` (the default), ``--only general`` or ``--only stream9``
-picks one group, ``--only all`` the three. Each checkout runs in a process of its own (the
+``--only main`` (the default), ``--only general``, ``--only stream9`` or
+``--only bf16nb`` picks one group, ``--only all`` the four. Each checkout runs in a process of its own (the
 package imported from that checkout's root, its kernels built into its
 own build/), in the order given and then reversed (A B B A for two),
 that sequence ``--repeat N`` times (default 1), so that the checkouts
@@ -195,6 +201,41 @@ if only in ("stream9", "all"):
                   for label, kw in {"templated: merge_fast interleaved, e^-6, s=2": {},
                                     "templated: merge_fast order 1, e^-1.5, s=2": dict(phase, order=1),
                                     "templated: merge_fast bf16, e^-1.5, s=2": dict(phase, bf16=True)}.items()})
+if only in ("bf16nb", "all"):
+    # the bfloat16 RAW order 0 at S=1-4 and the non-Bayer kernel, with the
+    # float32 order 0 at S=2 and S=4 beside them; RAW_SCALE4's merge (9
+    # frames, k_max 4, R/B kernels wider) from a seed of its own, so that
+    # the other groups' inputs stay as they were
+    r9 = np.random.default_rng(9)
+    raw9 = [torch.from_numpy(x.astype(np.float32)).to(dev) for x in (
+        r9.random((9, 2, 2, hh, hw)), (r9.random((9, hh, hw, 2)) - 0.5) * 4.0, r9.random((9, hh, hw, 3)),
+        omega, omega * 0.5,
+    )]
+    # 3,721 taps (to +-30) on 3 frames of 64 x 128: the Bayer 9 slots past any general block
+    crop = [raw[0][:3, :, :, :64, :128], raw[1][:3, :64, :128], raw[2][:3, :64, :128], raw[3][:64, :128],
+            raw[4][:64, :128]]
+    crop = [x.contiguous() for x in crop]
+    order0, bf16 = dict(order=0), dict(order=0, bf16=True)
+    slots9, cert4 = dict(order=1, moment_slots=9), dict(order=1, moment_slots=4, centroid_cert=True)
+    column, row = ((0, 1), (2, 1)), ((1, 1), (0, 2))
+    calls.update({label: (lambda i=i, a=a, kw=kw: merge_raw.merge_raw(*i, *a, **kw), "merge_raw", calls_n, 3)
+                  for label, (i, a, kw) in {
+                      "merge_raw order 0 bf16, S=1": (raw, (cfa, 1, 1, 1.0, 0.25, prune), bf16),
+                      "merge_raw order 0 bf16, S=2 (RAW_ORDER0_BF16)": (raw, (cfa, 2, 1, 1.0, 1.0, prune), bf16),
+                      "merge_raw order 0 bf16, S=3": (raw, (cfa, 3, 1, 1.0, 2.25, prune), bf16),
+                      "merge_raw order 0 bf16, S=4, F=9": (raw9, (cfa, 4, 1, 1.0, 4.0, prune), bf16),
+                      "yardstick: merge_raw order 0, S=2 (RAW_ORDER0)": (raw, (cfa, 2, 1, 1.0, 1.0, prune), order0),
+                      "yardstick: merge_raw order 0, S=4, F=9": (raw9, (cfa, 4, 1, 1.0, 4.0, prune), order0),
+                      "merge_raw nonbayer ((0, 1), (2, 1)), S=2": (raw, (column, 2, 1, 1.0, 1.0, prune), {}),
+                      "merge_raw nonbayer order 0, S=2": (raw, (column, 2, 1, 1.0, 1.0, prune), order0),
+                      "merge_raw nonbayer 9 slots, S=2": (raw, (column, 2, 1, 1.0, 1.0, prune), slots9),
+                      "merge_raw nonbayer cert4, S=2": (raw, (column, 2, 1, 1.0, 1.0, prune), cert4),
+                      "merge_raw nonbayer ((1, 1), (0, 2)), S=3": (raw, (row, 3, 1, 1.0, 2.25, prune), {}),
+                      "merge_raw nonbayer 3,721 taps 9 slots, S=2, 3 x 64 x 128": (
+                          crop, (cfa, 2, 29, 1.0, 1.0, 1e4), slots9),
+                  }.items()})
+
+
 def profiled(call, symbol, n):
     """The device time (us) and the launches of the kernels whose names
     hold ``symbol`` over ``n`` calls, as the profiler recorded them."""
@@ -250,8 +291,8 @@ def main(argv) -> int:
         else:
             only = argv[1]
         argv = argv[2:]
-    if only not in ("main", "general", "stream9", "all"):
-        print(f"--only takes main, general, stream9 or all, not {only}")
+    if only not in ("main", "general", "stream9", "bf16nb", "all"):
+        print(f"--only takes main, general, stream9, bf16nb or all, not {only}")
         return 2
     roots = [a.split("=", 1) for a in argv]
     order = (roots + roots[::-1]) * repeat
