@@ -269,7 +269,8 @@ KERNELS["merge_raw_stream"] = KERNELS["merge_raw_nonbayer"] = KERNELS["merge_raw
 # the profiler's names of the kernels' __global__ functions (the general
 # forms: the S = 0 instantiations, "<0, ...>" in the demangled names)
 KERNEL_SYMBOLS = {
-    "merge_fast": "merge_fast_kernel", "tile_warp": "tile_warp_kernel",
+    # merge_fast: the templated kernel and form 4's merge_fast_bf16_kernel
+    "merge_fast": "merge_fast_", "tile_warp": "tile_warp_kernel",
     "tile_search": "tile_search_kernel", "merge_raw": "merge_raw",  # every RAW kernel
     "defog": "defog_kernel",
     # the general form and, where it splits frames or taps over blocks,
@@ -407,9 +408,15 @@ def ptxas_table(log: str) -> list:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"\d+([a-z_]+_kernel)", mangled)  # past the namespace's mangling
+            # the nested name's parts in order, each <length><name> (the
+            # namespace's may hold digits): the first ending in _kernel
+            base, at = None, 3 if mangled.startswith("_ZN") else 2
+            while base is None and (part := re.match(r"\d+", mangled[at:])):
+                name_at = at + part.end()
+                at = name_at + int(part.group())
+                base = mangled[name_at:at] if mangled[name_at:at].endswith("_kernel") else None
             args = re.findall(r"L([ib])(\d+)E", mangled.split("_kernel", 1)[-1].split("EEv")[0] + "E")
-            name = (base.group(1) if base else mangled) + (
+            name = (base or mangled) + (
                 "<" + ", ".join(("true" if v == "1" else "false") if t == "b" else v for t, v in args) + ">"
                 if args else "")
         elif "spill stores" in line:

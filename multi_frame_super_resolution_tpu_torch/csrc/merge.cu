@@ -134,20 +134,49 @@
 // 112 registers at s = 1-4, no spills; its times against their bounds in
 // PERF.md.
 //
-// Form 4 (bfloat16) is form 1's thread and loop in the JAX function's
-// rounding order: the staged sites are rounded to bfloat16 instead of
-// multiplied (w c must round before it meets the value), and per phase
-// and channel a thread keeps the frame's (num, den) sums as one
-// __nv_bfloat162 beside form 1's f32 accumulators, which take them at the
-// end of each frame. Per item and channel: w c by __hmul_rn, then (v, 1)
-// x (w c, w c) by __hmul2_rn and the add by __hadd2, each rounded to
-// bfloat16 as the JAX function rounds its products and sums, jitted or
-// not (the _rn forms keep the compiler from fusing a product into the
-// add, which would round once where JAX rounds twice). The taps run
-// in the list's order, so a frame's bfloat16 sums are the JAX function's
-// up to the rare weight that ex2.approx and the plain version's exp round
-// to neighbouring bfloat16 values. Two blocks an SM at s <= 2 (the
-// bfloat16 sums take 12 more registers), one above.
+// Form 4 (bfloat16; at s = 1-4 merge_fast_bf16_kernel<S>, at S = 0 the
+// general form's merge_fast_kernel<0, 4>) rounds as the JAX function
+// does, jitted or not: val and cert rounded to bfloat16, w evaluated in
+// f32 and rounded, cw = bf16(w c), cwv = bf16(v cw), each frame's sums
+// over the taps in bfloat16 in the list's order, the frames added in f32.
+// The lanes of a bfloat16x2 instruction round each as the scalar one
+// does, so the templated kernel runs a thread's phases in lane pairs:
+// two phase columns of a pixel at even s, two phase rows (then two
+// columns, and one phase alone) at s = 3, two pixels four rows apart at
+// s = 1. Per (tap, pair) the two weights round in one cvt.rn.bf16x2.f32;
+// per channel bf16(w c) is one __hmul2_rn against (c, c), bf16(v w c) one
+// against (v, v), and the num and den pairs take one __hadd2 each: 4
+// bfloat16x2 instructions for two phases and a channel, where the first
+// design (a phase at a time, (v, 1) x (w c, w c)) took 3 for one phase,
+// and one cvt for two weights where it took one a phase and six a tap
+// for the staged values. (The _rn forms keep the compiler from fusing a
+// product into the add, which would round once where JAX rounds twice.)
+// The frame is staged as the loop reads it: its f32 sites land by
+// cp.async in one buffer and, after a barrier, the block rounds them once
+// into a second, a uint4 (v0, v1, v2, c0) and a uint2 (c1, c2) of
+// bfloat16 pairs per element, the lanes its two sites (at s = 1 four rows
+// apart, else the same site twice): a tap is two shared loads and no
+// conversion. The two buffers take 24 B a site each, the bytes of the
+// first design's two frame buffers, so the wide-tap limit below holds;
+// the next frame's copies land while the block accumulates. At s = 4 a
+// pixel's phase rows split over two threads (512-thread blocks, 128
+// registers): one thread a pixel took 217 registers, one block an SM.
+// SASS (tools/kernel_stats.py, cuobjdump): per (frame, tap) the tap loop
+// issues 30 instructions at s = 1 for two items (2 MUFU, 1 F2FP, 12
+// bfloat16x2), 49 at s = 2 for four (4 MUFU, 2 F2FP, 24 bfloat16x2, 8
+// FFMA; 46.5 with two taps an iteration, as built), 105 at s = 3 for
+// nine and 89 at s = 4 for a thread's eight: 15, 11.6, 11.7 and 11.1 an
+// item, where the first design took 30, 16.75, 14.2 and 13.3 (form 1 at
+// s = 2: 12.5).
+// ptxas: 86, 96, 128 and 128 registers at s = 1-4, no spills (the first
+// design 64, 89, 150 and 240).
+// Measured (tools/ab_main_kernels.py, F = 5, 256 x 512, e^-1.5; NVIDIA
+// H100 80GB HBM3, 700.00 W): s = 1-4 0.0119, 0.0424, 0.0809 and 0.1428
+// ms, against the first design's 0.0162, 0.0528, 0.1163 and 0.1832 in
+// the same call; s = 2 31.0% of its 13.2 us bound (the operations), s = 4
+// 36.9% of 52.7 us. At s = 2 the loop issues fewer instructions an item
+// than form 1 yet takes 10% longer; three blocks an SM, two threads a
+// pixel and loading the next tap ahead were each slower.
 //
 // Wide taps on the templated layouts: the staged halo is the taps' reach,
 // up to kMaxRadius = 25, where two frame buffers of the widest tile (8 +
@@ -263,7 +292,7 @@ struct Layout {
   // 256 x 512 check in one wave); form 2's 12 s and form 3's 27 stay
   // under 128 registers (form 3 at s = 4: one block of 512 threads)
   static constexpr int kMinBlocks = S == 0 ? 1 : kOrder1 ? (kThreads > 288 ? 1 : 2)
-                                            : (kBf16 ? (S <= 2 ? 2 : 1) : (S <= 2 ? 4 : (S == 3 ? 2 : 1)));
+                                            : (S <= 2 ? 4 : (S == 3 ? 2 : 1));
 };
 
 // The general form's plan (kernels/merge.py::general_plan): a block of
@@ -862,6 +891,254 @@ merge_fast_kernel(const float* __restrict__ warped,
   }
 }
 
+// Form 4 on the templated layouts (S = 1-4): a thread's output phases in
+// lane pairs, two lanes of one bfloat16x2 instruction each (see the
+// file's head). Pair i's lanes are (pixel, phase row, phase column): at
+// even S two phase columns of one pixel, at S = 3 two phase rows (pairs
+// 0-2), then (2, 0) with (2, 1) and (2, 2) alone (its high lane repeats
+// the low one and is never stored), at S = 1 two pixels kRowsT rows apart.
+template <int S>
+struct Bf16Layout {
+  static constexpr int kPix = S == 1 ? 2 : 1;       // pixels a thread holds
+  static constexpr int kRowsT = 8 / kPix;           // thread rows of a 32 x 8-pixel block
+  static constexpr int kD = S == 1 ? kRowsT : 0;    // rows from a pair's low lane's site to its high one's
+  // threads a pixel, each kRowsP phase rows: at S = 4 two (one took 217
+  // registers, one block an SM; at S = 2 two measured slower)
+  static constexpr int kZ = S == 4 ? 2 : 1;
+  static constexpr int kRowsP = S / kZ;
+  static constexpr int kPairs = S == 1 ? 1 : S == 3 ? 5 : kRowsP * S / 2;
+  static constexpr int kThreads = kTileW * kRowsT * kZ;
+  // blocks an SM: S = 1 four of 128 threads; S = 2 two (three, at 80
+  // registers, measured slower); S = 3 two, at 128 registers (one took
+  // 141); S = 4 one of 512 threads
+  static constexpr int kMinBlocks = S == 1 ? 4 : (S <= 3 ? 2 : 1);
+  // lane l (0 low, 1 high) of pair i: its pixel, phase row (of the
+  // thread's kRowsP), phase column
+  __host__ __device__ static constexpr int pix(int i, int l) { return S == 1 ? l : 0; }
+  __host__ __device__ static constexpr int py(int i, int l) {
+    return S == 1 ? 0 : S == 3 ? (i < 3 ? l : 2) : i / (S / 2);
+  }
+  __host__ __device__ static constexpr int px(int i, int l) {
+    return S == 1 ? 0 : S == 3 ? (i < 3 ? i : (i == 3 ? l : 2)) : 2 * (i % (S / 2)) + l;
+  }
+  __host__ __device__ static constexpr bool lone(int i) { return S == 3 && i == 4; }  // the high lane repeats the low
+};
+
+__device__ __forceinline__ unsigned bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<const unsigned*>(&x);
+}
+__device__ __forceinline__ __nv_bfloat162 bf16x2_from(unsigned x) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&x);
+}
+
+template <int S>
+__global__ void __launch_bounds__(Bf16Layout<S>::kThreads, Bf16Layout<S>::kMinBlocks)
+merge_fast_bf16_kernel(const float* __restrict__ warped, const float* __restrict__ residual,
+                       const float* __restrict__ certainty, const float* __restrict__ omega,
+                       float* __restrict__ out, int frames, int h, int w, int halo, float rb,
+                       const Taps taps) {
+  using L = Bf16Layout<S>;
+  constexpr int P = L::kPix, NP = L::kPairs;
+  constexpr int kTileH = 8;
+  // the frame's f32 sites (cp.async's target) [sites], then the pairs
+  // [elems]: float4 / uint4 (v0, v1, v2, c0), then float2 / uint2 (c1, c2)
+  extern __shared__ float4 smem[];
+  const int sw = kTileW + 2 * halo;
+  const int sites = (kTileH + 2 * halo) * sw;
+  const int elems = (L::kRowsT + 2 * halo) * sw;
+  float4* raw_a = smem;
+  uint4* pair_a = reinterpret_cast<uint4*>(raw_a + sites);
+  float2* raw_b = reinterpret_cast<float2*>(pair_a + elems);
+  uint2* pair_b = reinterpret_cast<uint2*>(raw_b + sites);
+
+  const int tx = threadIdx.x, ty = threadIdx.y, z = L::kZ == 1 ? 0 : (int)threadIdx.z;
+  const int tid = (z * L::kRowsT + ty) * kTileW + tx;
+  const int row0 = z * L::kRowsP;  // the thread's first phase row
+  const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
+  const int x = x0 + tx;
+  // pixel k sits at row ty + k kRowsT of the tile; the first is inside
+  // wherever the second is
+  const bool active = y0 + ty < h && x < w;
+  const long long plane = (long long)h * w;
+  long long pixel[P];
+  const float2* res[P];
+  float o0[P], o1[P], o2[P];
+  constexpr float kL = 1.4426950408889634f;  // log2(e)
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    pixel[k] = (long long)min(y0 + ty + k * L::kRowsT, h - 1) * w + min(x, w - 1);
+    res[k] = reinterpret_cast<const float2*>(residual) + pixel[k];
+    o0[k] = -0.5f * kL * omega[pixel[k] * 3 + 0];
+    o1[k] = -0.5f * kL * omega[pixel[k] * 3 + 1];
+    o2[k] = -kL * omega[pixel[k] * 3 + 2];
+  }
+  // phis[p] = phi[p] * s, phi[p] = (p + 0.5) / s - 0.5: columns, the thread's rows
+  float phis[S], phis_y[L::kRowsP];
+#pragma unroll
+  for (int p = 0; p < S; ++p) phis[p] = (((float)p + 0.5f) / (float)S - 0.5f) * (float)S;
+#pragma unroll
+  for (int p = 0; p < L::kRowsP; ++p) phis_y[p] = (((float)(row0 + p) + 0.5f) / (float)S - 0.5f) * (float)S;
+  const int my_elem = (ty + halo) * sw + tx + halo;
+
+  float acc[2][P][L::kRowsP][S][3];  // f32 num, den over the frames
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+#pragma unroll
+    for (int py = 0; py < L::kRowsP; ++py)
+#pragma unroll
+      for (int px = 0; px < S; ++px)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) acc[0][k][py][px][c] = acc[1][k][py][px][c] = 0.0f;
+
+  stage_frame<L::kThreads>(warped, certainty, raw_a, raw_b, 0, y0, x0, h, w, halo, sw, sites, tid);
+  for (int f = 0; f < frames; ++f) {
+    float2 r[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) r[k] = res[k][f * plane];
+    // the frame's sites have landed and the block is done with the pairs
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    // the pairs, rounded to bfloat16 once: element e holds (site e, site
+    // e + kD rows) per value and certainty, a lane each
+    for (int e = tid; e < elems; e += L::kThreads) {
+      const int hi = e + L::kD * sw;
+      const float4 al = raw_a[e], ah = raw_a[hi];
+      const float2 bl = raw_b[e], bh = raw_b[hi];
+      pair_a[e] = make_uint4(bf16x2_bits(__floats2bfloat162_rn(al.x, ah.x)),
+                             bf16x2_bits(__floats2bfloat162_rn(al.y, ah.y)),
+                             bf16x2_bits(__floats2bfloat162_rn(al.z, ah.z)),
+                             bf16x2_bits(__floats2bfloat162_rn(al.w, ah.w)));
+      pair_b[e] = make_uint2(bf16x2_bits(__floats2bfloat162_rn(bl.x, bh.x)),
+                             bf16x2_bits(__floats2bfloat162_rn(bl.y, bh.y)));
+    }
+    __syncthreads();
+    // the next frame's copies land while this one accumulates
+    if (f + 1 < frames) {
+      stage_frame<L::kThreads>(warped, certainty, raw_a, raw_b, (f + 1) * plane * 3, y0, x0, h, w, halo, sw,
+                               sites, tid);
+    }
+    if (!active) continue;
+
+    float ey[P][L::kRowsP], ex[P][S];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float ry = fminf(fmaxf(r[k].x, -rb), rb), rx = fminf(fmaxf(r[k].y, -rb), rb);
+#pragma unroll
+      for (int p = 0; p < L::kRowsP; ++p) ey[k][p] = ry * (float)S + phis_y[p];
+#pragma unroll
+      for (int p = 0; p < S; ++p) ex[k][p] = rx * (float)S + phis[p];
+    }
+    // this frame's bfloat16 sums, a lane per phase: num = sum bf16(v
+    // bf16(w c)), den = sum bf16(w c), each pair per channel
+    __nv_bfloat162 num[NP][3], den[NP][3];
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) num[i][c] = den[i][c] = __float2bfloat162_rn(0.0f);
+#pragma unroll 1
+    for (int run = 0; run < taps.n; ++run) {
+      // the row's terms, shared by its taps: A = dy^2 o_yy, B = dy o_xy
+      float qa[P][L::kRowsP], qb[P][L::kRowsP];
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+#pragma unroll
+        for (int p = 0; p < L::kRowsP; ++p) {
+          const float dy = taps.kys[run] - ey[k][p];
+          qa[k][p] = dy * dy * o1[k];
+          qb[k][p] = dy * o2[k];
+        }
+      const uint4* pa = pair_a + my_elem + taps.off0[run];
+      const uint2* pb = pair_b + my_elem + taps.off0[run];
+      float kxs = taps.kxs0[run];
+      const int len = taps.len[run];
+      // two taps an iteration at S = 2 give its short chains (cvt, two
+      // products, the add) more to overlap: 2% (not at S = 1, 3, 4)
+#pragma unroll (S == 2 ? 2 : 1)
+      for (int t = 0; t < len; ++t, kxs += (float)S) {
+        const uint4 va = pa[t];
+        const uint2 vb = pb[t];
+        const __nv_bfloat162 vs[3] = {bf16x2_from(va.x), bf16x2_from(va.y), bf16x2_from(va.z)};
+        const __nv_bfloat162 cs[3] = {bf16x2_from(va.w), bf16x2_from(vb.x), bf16x2_from(vb.y)};
+        float dx[P][S];
+#pragma unroll
+        for (int k = 0; k < P; ++k)
+#pragma unroll
+          for (int p = 0; p < S; ++p) dx[k][p] = kxs - ex[k][p];
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          float wl[2];
+#pragma unroll
+          for (int l = 0; l < 2; ++l) {
+            const int k = L::pix(i, l), py = L::py(i, l), px = L::px(i, l);
+            wl[l] = l && L::lone(i) ? wl[0]
+                                    : exp2_approx(fmaf(dx[k][px], fmaf(dx[k][px], o0[k], qb[k][py]), qa[k][py]));
+          }
+          // the pair's weights rounded by one cvt; per channel bf16(w c)
+          // and bf16(v w c) one _rn product each (two roundings, as JAX's)
+          const __nv_bfloat162 w2 = __floats2bfloat162_rn(wl[0], wl[1]);
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const __nv_bfloat162 cw = __hmul2_rn(w2, cs[c]);
+            num[i][c] = __hadd2(num[i][c], __hmul2_rn(vs[c], cw));
+            den[i][c] = __hadd2(den[i][c], cw);
+          }
+        }
+      }
+    }
+    // the frame's sums join the f32 totals
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int l = 0; l < (L::lone(i) ? 1 : 2); ++l)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int k = L::pix(i, l), py = L::py(i, l), px = L::px(i, l);
+          acc[0][k][py][px][c] += l ? __high2float(num[i][c]) : __low2float(num[i][c]);
+          acc[1][k][py][px][c] += l ? __high2float(den[i][c]) : __low2float(den[i][c]);
+        }
+  }
+
+  // plane (py, px, c) of each output at the pixel: a warp writes 32
+  // consecutive floats of one plane row
+  const long long slot = (long long)S * S * 3 * plane;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int y = y0 + ty + k * L::kRowsT;
+    if (y >= h || x >= w) continue;
+    float* dst = out + (long long)y * w + x;
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int py = 0; py < L::kRowsP; ++py)
+#pragma unroll
+        for (int px = 0; px < S; ++px)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            dst[o * slot + (((row0 + py) * S + px) * 3 + c) * plane] = acc[o][k][py][px][c];
+          }
+  }
+}
+
+template <int S>
+int launch_bf16(const float* warped, const float* residual, const float* certainty, const float* omega,
+                float* out, int frames, int h, int w, int halo, float rb, const Taps& taps, cudaStream_t stream) {
+  using L = Bf16Layout<S>;
+  const int sw = kTileW + 2 * halo;
+  // the f32 sites and the bfloat16 pairs, 24 B each
+  const size_t bytes = ((size_t)(8 + 2 * halo) * sw + (size_t)(L::kRowsT + 2 * halo) * sw) *
+                       (sizeof(float4) + sizeof(float2));
+  if (bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(merge_fast_bf16_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 block(kTileW, L::kRowsT, L::kZ);
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + 7) / 8);
+  merge_fast_bf16_kernel<S><<<grid, block, bytes, stream>>>(warped, residual, certainty, omega, out, frames, h, w,
+                                                            halo, rb, taps);
+  return (int)cudaGetLastError();
+}
+
 template <int S, int kForm>
 int launch(const float* warped, const float* residual, const float* certainty,
            const float* omega, float* out, int frames, int h, int w, int halo,
@@ -970,7 +1247,7 @@ int launch_form(int form, const float* warped, const float* residual, const floa
     case 1: return launch<S, 1>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     case 2: return launch<S, 2>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     case 3: return launch<S, 3>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
-    case 4: return launch<S, 4>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
+    case 4: return launch_bf16<S>(warped, residual, certainty, omega, out, frames, h, w, halo, rb, taps, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

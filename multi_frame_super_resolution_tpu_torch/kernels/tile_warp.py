@@ -44,8 +44,16 @@ def library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library."""
     return bind(
         load_library(SOURCE), "mfsr_tile_warp",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9,
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_uint64],
     )
+
+
+def floor_magic(coarse: int, bound: int) -> tuple:
+    """(k, m) of csrc/tile_warp.cu's floor division by ``coarse`` (>= 2)
+    for shifts v in [-bound, bound]: floor(v / c) = (((v + c k) m) >> 64)
+    - k, with k = ceil(bound / c), so that v + c k >= 0, and m =
+    ceil(2^64 / c)."""
+    return -(-bound // coarse), -(-(1 << 64) // coarse)
 
 
 def _warp(imgs, int_shifts, tile_size, bound, index_map):
@@ -64,11 +72,13 @@ def _warp(imgs, int_shifts, tile_size, bound, index_map):
         if index_map == ONEHOT:
             return warp_fast.tile_warp_select(imgs, int_shifts[:, None], tile_size, bound)
         return warp_fast.tile_warp_matmul(imgs, int_shifts, tile_size, bound)
+    coarse = warp_fast.onehot_coarse(int(bound)) if index_map == ONEHOT else 0
+    offset, magic = floor_magic(coarse, int(bound)) if coarse else (0, 0)
     out = torch.empty_like(imgs)
     launch(
         library(), "mfsr_tile_warp", dev,
         imgs.data_ptr(), int_shifts.data_ptr(), out.data_ptr(),
-        b, n, h, w, tile_size, nty, ntx, int(bound), index_map,
+        b, n, h, w, tile_size, nty, ntx, int(bound), index_map, offset, magic,
     )
     LAUNCHES[NAME] += 1
     return out

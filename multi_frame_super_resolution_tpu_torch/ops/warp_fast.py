@@ -195,6 +195,13 @@ def _repeat_tiles(x: torch.Tensor, t: int, h: int, w: int) -> torch.Tensor:
     return rep.reshape(lead + (nty * t, ntx * t, c))[..., :h, :w, :]
 
 
+def onehot_coarse(bound: int) -> int:
+    """The one-hot form's coarse step at ``bound``: 0, the direct select,
+    for a window 2 bound + 1 <= 13, else round(sqrt(2 bound + 1)), at
+    least 2 (the JAX package's ops/warp_fast.py::_axis_onehot_shift)."""
+    return 0 if 2 * bound + 1 <= 13 else max(2, int(np.round(np.sqrt(2 * bound + 1))))
+
+
 def _onehot_shift_index(smap: torch.Tensor, bound: int, axis: int) -> torch.Tensor:
     """Source index along ``axis`` of ops/warp_fast.py::_axis_onehot_shift
     for the per-pixel integer map ``smap`` (..., H, W).
@@ -210,9 +217,9 @@ def _onehot_shift_index(smap: torch.Tensor, bound: int, axis: int) -> torch.Tens
     shape[axis] = n
     p = torch.arange(n, device=smap.device).reshape(shape)
     s = smap.long().clamp(-bound, bound)
-    if 2 * bound + 1 <= 13:
+    c = onehot_coarse(bound)
+    if not c:
         return (p + s).clamp(0, n - 1)
-    c = max(2, int(np.round(np.sqrt(2 * bound + 1))))
     q = torch.div(s, c, rounding_mode="floor")
     r = s - c * q
     pr = p + r

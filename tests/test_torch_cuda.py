@@ -212,13 +212,15 @@ def test_entry_points_run_on_card_by_default():
         (4, 4, 128, 256, 16, 20), (2, 3, 50, 70, 16, 20), (3, 1, 40, 72, 8, 9),
         (2, 5, 64, 96, 32, 20), (2, 5, 40, 72, 8, 9), (2, 5, 37, 61, 8, 9),
         (3, 5, 33, 66, 32, 20), (1, 9, 16, 44, 4, 5), (2, 5, 30, 30, 6, 7),
+        (2, 3, 40, 61, 12, 20), (1, 2, 10, 1500, 1, 800),
     ],
 )
 def test_tile_warp_kernel_matches_plain(b, n, h, w, t, amp):
-    """Both index maps; N up to 9 (5: the validity plane the paths carry;
-    9: a second batch of loads); T = 4, 6, 8, 16, 32 (6: 4-groups straddle
-    tiles); W a multiple of 4 (float4 stores) or not (scalar stores,
-    the row's end masked). Every output is one input value, so exact."""
+    """The separable and block maps; N up to 9 (5: the validity plane the
+    paths carry; 9: a second batch of loads); T = 1, 4, 6, 8, 12, 16, 32
+    (6, 12: 4-groups straddle tiles; the one-hot test's shapes among
+    them); W a multiple of 4 (float4 stores) or not (scalar stores, the
+    row's end masked). Every output is one input value, so exact."""
     dev = cuda_device()
     rng = np.random.default_rng(h)
     imgs = tt(rng.random((b, n, h, w)).astype(np.float32), dev)
@@ -1211,21 +1213,27 @@ def test_raw_merge_kernel_knob_forms_match_plain(knob, scale, cfa, hh, hw, guide
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w", [(256, 512), (37, 61), (3, 5)])
-@pytest.mark.parametrize("scale", [1, 2, 3, 4])
-@pytest.mark.parametrize("f", [2, 5])
-def test_merge_kernel_bf16_form_matches_plain(f, scale, h, w):
+@pytest.mark.parametrize(
+    "f,scale,radius,k_max",
+    [(f, s, 1, None) for f in (1, 2, 5) for s in (1, 2, 3, 4)] + [(2, 2, 8, 64.0), (2, 2, 10, 64.0)],
+)
+def test_merge_kernel_bf16_form_matches_plain(f, scale, radius, k_max, h, w):
     """Form 4, the default RGB branch's bfloat16 order 0 (phase layout,
     bfloat16 products and per-frame sums, a float32 sum over frames),
-    against its plain version at e^-1.5, by _assert_bf16_close."""
+    against its plain version at e^-1.5, by _assert_bf16_close: F = 1, 2
+    and 5 at scales 1-4 (lane pairs of two phase columns, of two phase
+    rows and a lone phase at s = 3, of two pixels at s = 1), and tap radii
+    9 and 11 at s = 2 (k_max 64 keeps the outer taps; the staged halo
+    reaches 9 and 11)."""
     dev = cuda_device()
-    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(f * 10 + scale + 3), f, h, w)]
+    ins = [tt(x, dev) for x in _merge_inputs(np.random.default_rng(f * 10 + scale + 3 + radius), f, h, w)]
     kw = dict(phase_output=True, prune_exp=1.5, bf16=True)
-    k_max = (scale / 2.0) ** 2
+    k_max = k_max or (scale / 2.0) ** 2
     LAUNCHES.clear()
-    got = merge_fast(*ins, scale, 1, 1.0, k_max, **kw)
+    got = merge_fast(*ins, scale, radius, 1.0, k_max, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_fast"] == 1
-    _assert_bf16_close(got, fast_merge.merge_burst_fast(*ins, scale, 1, 1.0, k_max, **kw), BF16_TOL)
+    _assert_bf16_close(got, fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max, **kw), BF16_TOL)
     with pytest.raises(ValueError, match="phase layout"):
         merge_fast(*ins, scale, 1, 1.0, k_max, prune_exp=1.5, bf16=True)
 
@@ -1258,14 +1266,19 @@ def test_bf16_forms_round():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,n,h,w,t,amp",
-    [(4, 4, 128, 256, 16, 20), (2, 5, 37, 61, 8, 9), (3, 5, 33, 66, 32, 20), (1, 9, 16, 44, 4, 5)],
+    [(4, 4, 128, 256, 16, 20), (2, 5, 37, 61, 8, 9), (3, 5, 33, 66, 32, 20), (1, 9, 16, 44, 4, 5),
+     (2, 3, 40, 61, 12, 20), (1, 2, 10, 1500, 1, 800)],
 )
-@pytest.mark.parametrize("bound", [16, 6])
+@pytest.mark.parametrize("bound", [16, 6, 4, 30, 700])
 def test_tile_warp_onehot_map_matches_plain(b, n, h, w, t, amp, bound):
     """The one-hot index map (warp_matmul=False): tile_warp_select's
-    function, the two-level indexing at bound 16 (a 33-wide window) and
-    the direct one at bound 6; exact. At bound 16 it differs from the
-    separable map where a band crosses a tile seam."""
+    function, the two-level indexing at bounds 16, 30 and 700 (coarse
+    steps 6, 8 and 37) and the direct one at bounds 4 and 6 (windows 9
+    and 13); T = 12, not a power of two, and T = 4 and 12, where a block's
+    8 rows straddle two tile rows; T = 1 on 1,500 columns at bound 700,
+    whose index tables pass 48 KB (the per-element form); exact. At
+    bound 16 it differs from the separable map where a band crosses a
+    tile seam."""
     dev = cuda_device()
     rng = np.random.default_rng(h + bound)
     imgs = tt(rng.random((b, n, h, w)).astype(np.float32), dev)

@@ -189,10 +189,16 @@ def test_tile_shift_decompose_rounds_half_to_even():
     np.testing.assert_array_equal(nn(res), nn(jres))
 
 
-@pytest.mark.parametrize("h,w,t,bound", [(64, 96, 16, 16), (40, 56, 16, 16), (32, 48, 8, 6)])
+@pytest.mark.parametrize(
+    "h,w,t,bound",
+    [(64, 96, 16, 16), (40, 56, 16, 16), (32, 48, 8, 6), (40, 61, 12, 16), (40, 61, 12, 4), (40, 61, 12, 30)],
+)
 def test_tile_warp_select_exact(rng, h, w, t, bound):
     """The one-hot warp's function, including the two-level decomposition's
-    tile-crossing bands at bound 16 (shifts up to +-bound)."""
+    tile-crossing bands at bound 16 and 30 (shifts up to +-bound), the
+    direct select at bounds 4 and 6, and a tile size that is not a power
+    of two on a ragged shape (the card tests' shapes: the kernel is held
+    to this plain version there)."""
     img = rng.random((h, w)).astype(np.float32)
     shifts = rng.integers(-bound, bound + 1, (-(-h // t), -(-w // t), 2)).astype(np.int32)
     want = nn(jwarp.tile_warp_select(jnp.asarray(img), jnp.asarray(shifts), t, bound=bound))

@@ -23,6 +23,7 @@ from multi_frame_super_resolution_tpu.registration.tiles import (
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.kernels.tile_search import tile_search
 from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import (
+    floor_magic,
     tile_warp,
     tile_warp_block,
 )
@@ -59,6 +60,21 @@ def test_separable_map_matches_tile_warp_matmul(h, w, t, amp, bound):
     for i in range(2):
         want = nn(jax_tile_warp_matmul(jnp.asarray(imgs[i]), jnp.asarray(shifts[i]), t, bound))
         np.testing.assert_array_equal(got[i], want)
+
+
+@pytest.mark.parametrize("bound", [6, 16, 30])
+def test_floor_magic_is_floor_division(bound):
+    """The one-hot kernel's floor division by its coarse step, a multiply-
+    high by floor_magic's numbers, is Python's floor division for every
+    clipped shift in [-bound, bound] (at bound 6 the kernel selects
+    directly; the step it would take, 4, is checked all the same)."""
+    c = max(2, int(np.round(np.sqrt(2 * bound + 1))))
+    assert warp_fast.onehot_coarse(bound) == (0 if bound == 6 else c)
+    k, m = floor_magic(c, bound)
+    assert 0 < m < 1 << 64
+    for v in range(-bound, bound + 1):
+        assert v + c * k >= 0
+        assert (((v + c * k) * m) >> 64) - k == v // c
 
 
 def test_plain_separable_map_is_the_matmul_form():

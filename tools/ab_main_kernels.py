@@ -25,10 +25,14 @@ at chip_smoke.py's phase-3 shapes and seeds (F=5, 256 x 512 RGB, 128 x
   beside it, and the non-Bayer kernel: the certless form, order 0, 9
   slots and the per-cell 4 at S=2 on ((0, 1), (2, 1)), the certless form
   at S=3 on ((1, 1), (0, 2)), and the 9 slots of a Bayer merge at 3,721
-  taps (to +-30) on 3 x 64 x 128, each ``--calls`` calls a round.
+  taps (to +-30) on 3 x 64 x 128, each ``--calls`` calls a round;
+- ``bf16warp``: the RGB merge's bfloat16 phase layout (form 4) at s=1-4
+  (F=5, 256 x 512, e^-1.5; RGB_BF16's merge at s=2), and the tile warp's
+  three index maps (separable, block, one-hot at bound 16) on 4 x 4
+  planes of 128 x 256 at T=16, each ``--calls`` calls a round.
 
-``--only main`` (the default), ``--only general``, ``--only stream9`` or
-``--only bf16nb`` picks one group, ``--only all`` the four. Each checkout runs in a process of its own (the
+``--only main`` (the default), ``--only general``, ``--only stream9``,
+``--only bf16nb`` or ``--only bf16warp`` picks one group, ``--only all`` the five. Each checkout runs in a process of its own (the
 package imported from that checkout's root, its kernels built into its
 own build/), in the order given and then reversed (A B B A for two),
 that sequence ``--repeat N`` times (default 1), so that the checkouts
@@ -62,12 +66,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from multi_frame_super_resolution_tpu_torch.config import RAW_PORT_DEFAULT
 from multi_frame_super_resolution_tpu_torch.data import synthetic_burst
-from multi_frame_super_resolution_tpu_torch.kernels import merge, merge_raw, tile_search
+from multi_frame_super_resolution_tpu_torch.kernels import merge, merge_raw, tile_search, tile_warp
 from multi_frame_super_resolution_tpu_torch.kernels.build import build_all
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
 
 assert merge.__file__.startswith(str(__import__("pathlib").Path(sys.argv[1]).resolve()))
-build_all([merge.library, merge_raw.library, tile_search.library])
+build_all([merge.library, merge_raw.library, tile_search.library, tile_warp.library])
 dev = torch.device("cuda", 0)
 F, H, W = 5, 256, 512
 hh, hw = H // 2, W // 2
@@ -235,6 +239,25 @@ if only in ("bf16nb", "all"):
                           crop, (cfa, 2, 29, 1.0, 1.0, 1e4), slots9),
                   }.items()})
 
+if only in ("bf16warp", "all"):
+    # the RGB merge's bfloat16 form at s=1-4, and the warp's three maps on
+    # chip_smoke.py's planes, from a seed of their own so that the other
+    # groups' inputs stay as they were
+    bf16 = dict(phase_output=True, prune_exp=prune, bf16=True)
+    calls.update({f"merge_fast bf16, e^-1.5, s={s}": (
+        lambda s=s: merge.merge_fast(*rgb, s, 1, 1.0, (s / 2.0) ** 2, **bf16), "merge_fast", calls_n, 3)
+        for s in (1, 2, 3, 4)})
+    r20 = np.random.default_rng(20)
+    planes = torch.from_numpy(r20.random((F - 1, 4, hh, hw)).astype(np.float32)).to(dev)
+    grid16 = (F - 1, -(-hh // 16), -(-hw // 16), 2)
+    sep = torch.from_numpy(r20.integers(-20, 21, grid16).astype(np.int32)).to(dev)
+    blk = torch.from_numpy(r20.integers(-5, 6, grid16).astype(np.int32)).to(dev)
+    calls.update({label: (call, "tile_warp", calls_n, 3) for label, call in {
+        "tile_warp separable, 4x4x128x256": lambda: tile_warp.tile_warp(planes, sep, 16),
+        "tile_warp block, 4x4x128x256": lambda: tile_warp.tile_warp_block(planes, blk, 16),
+        "tile_warp onehot, bound 16, 4x4x128x256": lambda: tile_warp.tile_warp(planes, sep, 16, onehot=True),
+    }.items()})
+
 
 def profiled(call, symbol, n):
     """The device time (us) and the launches of the kernels whose names
@@ -291,8 +314,8 @@ def main(argv) -> int:
         else:
             only = argv[1]
         argv = argv[2:]
-    if only not in ("main", "general", "stream9", "bf16nb", "all"):
-        print(f"--only takes main, general, stream9, bf16nb or all, not {only}")
+    if only not in ("main", "general", "stream9", "bf16nb", "bf16warp", "all"):
+        print(f"--only takes main, general, stream9, bf16nb, bf16warp or all, not {only}")
         return 2
     roots = [a.split("=", 1) for a in argv]
     order = (roots + roots[::-1]) * repeat
