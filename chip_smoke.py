@@ -68,6 +68,18 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      slots at 3,721 taps (3 x 64 x 128; its plain version timed once); and merge_raw's
      streamed form (merge_raw_stream: the certless and order-0 forms past
      their frame caps, 40 frames at S=2 and 70 at S=4).
+3b. The public surface: each function named after a JAX function that
+   takes the JAX call forms (images (H, W) and (H, W, C), two (H, W)
+   images for the registration functions; the JAX-ordered parameters:
+   restore_image(img, k), separable_filter(border=), the default
+   interleaved merge_burst_raw_planes, ...) called in each form on
+   cuda:0 and on the CPU with the same inputs at 64 x 96 or smaller,
+   |card - cpu| <= 1e-5 (1 + |cpu|); tile_warp_int on the card runs the
+   tile-warp kernel's block map (one launch a call, checked) against its
+   plain version on the CPU; and the names ops, models and registration
+   re-export, imported. Seconds; it runs after phase 6, so that the
+   paths' runs and profiles are those of a process that has not run it,
+   and its launches are no path's.
 4. Paths on the card, each driven with the launch counts set to 0 just
    before and read just after (the former port limits among them: each
    value a general or streamed form runs, at the city geometry (taps
@@ -878,7 +890,7 @@ def main() -> int:
 
     calls = {  # name -> [(label, kernel call, plain call, tolerance)]
         "merge_fast": [(f"merge {label}", merge_call(kmerge.merge_fast, args, kw),
-                        merge_call(fast_merge.merge_burst_fast, args, kw), tol)
+                        merge_call(kmerge.merge_fast_plain, args, kw), tol)
                        for label, args, kw, _, tol in merge_variants],
         "tile_warp": [
             ("tile_warp separable", lambda: (ktile_warp.tile_warp(planes4, sep_shifts, 16),),
@@ -893,25 +905,25 @@ def main() -> int:
         ],
         "tile_search": [check for case in search_cases for check in search_checks(*case)],
         "merge_raw": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
-                       raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
+                       raw_call(kmerge_raw.merge_raw_plain, ins, args, kw), tol)
                       for label, ins, args, kw, _, tol in raw_variants],
         "defog": [("defog", lambda: kdefog.defog(*defog_ins),
                    lambda: kdefog.defog_pixels(*defog_ins), DEFOG_TOL)],
         "merge_fast_general": [(f"merge {label}", merge_call(kmerge.merge_fast, args, kw),
-                                merge_call(fast_merge.merge_burst_fast, args, kw), tol)
+                                merge_call(kmerge.merge_fast_plain, args, kw), tol)
                                for label, args, kw, _, tol in merge_general],
         "tile_search_general": [check for case in search_general for check in search_checks(*case)],
         "merge_raw_general": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
-                               raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
+                               raw_call(kmerge_raw.merge_raw_plain, ins, args, kw), tol)
                               for label, ins, args, kw, _, tol in raw_general],
         "merge_raw_stream": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
-                              raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
+                              raw_call(kmerge_raw.merge_raw_plain, ins, args, kw), tol)
                              for label, ins, args, kw, _, tol in raw_stream],
         "merge_raw_nonbayer": [(f"merge_raw {label}", raw_call(kmerge_raw.merge_raw, ins, args, kw),
-                                raw_call(fast_merge.merge_burst_raw_planes, ins, args, kw), tol)
+                                raw_call(kmerge_raw.merge_raw_plain, ins, args, kw), tol)
                                for label, ins, args, kw, _, tol in raw_nonbayer],
         "merge_fast_unstaged": [(f"merge {label}", raw_call(kmerge.merge_fast, ins, args, kw),
-                                 raw_call(fast_merge.merge_burst_fast, ins, args, kw), tol)
+                                 raw_call(kmerge.merge_fast_plain, ins, args, kw), tol)
                                 for label, ins, args, kw, _, tol in merge_unstaged],
     }
     max_abs_err, out_bytes = {}, {}
@@ -1019,9 +1031,9 @@ def main() -> int:
     # each kernel -> the (module, attribute) its path calls its wrapper
     # through, and the plain version with the wrapper's signature
     wrappers = {
-        "merge_fast": (handheld, "merge_fast", fast_merge.merge_burst_fast),
+        "merge_fast": (handheld, "merge_fast", kmerge.merge_fast_plain),
         "tile_warp": (handheld, "tile_warp", plain_tile_warp),
-        "merge_raw": (handheld, "merge_raw", fast_merge.merge_burst_raw_planes),
+        "merge_raw": (handheld, "merge_raw", kmerge_raw.merge_raw_plain),
         "tile_search": (align, "tile_search", tiles.tile_search),
         "defog": (mdefog, "defog", kdefog.defog_pixels),
     }
@@ -1143,7 +1155,7 @@ def main() -> int:
     noise_stat = handheld.temporal_noise_stat
 
     def recording_stat(gray, residual=None):
-        stat = noise_stat(gray, residual)
+        stat = noise_stat(gray, residual=residual)
         stats.append(float(stat))
         return stat
 
@@ -1556,6 +1568,13 @@ def main() -> int:
     def numbers(label):
         return {"max_abs_err": max_abs_err[label], "ms": kernel_ms[label], "plain_ms": plain_ms[label],
                 "device_ms": device_ms[label], "bound_ms": bounds[label][0], "bound_by": bounds[label][1]}
+
+    # 3b. the public surface at the JAX call forms, on the card against
+    # the CPU (tile_warp_int: the kernel against its plain version); run
+    # after the paths' runs and profiles, so that it leaves them as they
+    # were, and its launches are no path's
+    public_surface(dev, card)
+    LAUNCHES.clear()
 
     print(json.dumps({"kernels": [{
         "name": name,
@@ -2252,6 +2271,163 @@ def profile_stages(label, fn, inp, cfg, ms, card, wrappers) -> tuple:
     print(f"profile {label}: {launches} device ops, {kernels_us / 1e3:.3f} ms device time per run; "
           f"card busy {100.0 * kernels_us / 1e3 / ms:.1f}% of {ms:.3f} ms  [{card}]")
     return kernels_us / 1e3, launches
+
+
+
+# the public surface's limit, card against CPU: |card - cpu| <= 1e-5 (1 +
+# |cpu|), the same float32 ops in another order: 1e-5 max abs on image
+# data in [0, 1], relative on the RAW merge's unnormalized sums (tens)
+SURFACE_TOL = 1e-5
+
+
+def public_surface(dev, card) -> None:
+    """Phase 3b: each function that takes a JAX function's name and was
+    repaired or added for the JAX call forms, called in each of those
+    forms on cuda:0 and on the CPU with the same inputs (64 x 96 or
+    smaller, from a seed), the results held to SURFACE_TOL max abs; and
+    the three packages' re-exported names imported. tile_warp_int runs
+    the tile-warp kernel on the card and its plain version on the CPU."""
+    import importlib
+    import inspect
+
+    from multi_frame_super_resolution_tpu_torch.config import PREALIGN_FAST, RegistrationConfig
+    from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+    from multi_frame_super_resolution_tpu_torch.models import fast_merge, robustness
+    from multi_frame_super_resolution_tpu_torch.ops import filters, geometry, morphology, restore, warp_fast
+    from multi_frame_super_resolution_tpu_torch.registration import align, logpolar, phase_correlation, subpixel
+    from multi_frame_super_resolution_tpu_torch.registration import tiles
+
+    t0 = time.perf_counter()
+    derivatives = importlib.import_module("multi_frame_super_resolution_tpu_torch.ops.derivatives")
+    counts = {}
+    for pkg in ("ops", "models", "registration"):
+        module = importlib.import_module(f"multi_frame_super_resolution_tpu_torch.{pkg}")
+        names = list(module.__all__) if hasattr(module, "__all__") else [
+            n for n, v in vars(module).items() if not n.startswith("_") and not inspect.ismodule(v)]
+        for n in names:
+            getattr(module, n)
+        counts[pkg] = len(names)
+    rng = np.random.default_rng(21)
+
+    def img(form, h=64, w=96):
+        return rng.random((h, w) if form == "hw" else (h, w, 3)).astype(np.float32)
+
+    def field(shape, lo, hi):
+        return (rng.random(shape) * (hi - lo) + lo).astype(np.float32)
+
+    def on(x, device):
+        if isinstance(x, np.ndarray):
+            return torch.from_numpy(x).to(device)
+        return x
+
+    def out_tensors(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        if dataclasses.is_dataclass(out):
+            return [getattr(out, f.name) for f in dataclasses.fields(out)]
+        return [t for o in out for t in out_tensors(o)]
+
+    worst, worst_rel, n_checks = 0.0, 0.0, 0
+    k5 = rng.standard_normal((5, 5)).astype(np.float32) * 0.1
+    k5[2, 2] += 1.0
+    k35 = rng.standard_normal((3, 5)).astype(np.float32)
+    ky, kx = rng.random(5).astype(np.float32), rng.random(3).astype(np.float32)
+
+    def check(label, fn, *args, **kw):
+        nonlocal worst, worst_rel, n_checks
+        got = out_tensors(fn(*(on(a, dev) for a in args), **{k: on(v, dev) for k, v in kw.items()}))
+        want = out_tensors(fn(*(on(a, "cpu") for a in args), **{k: on(v, "cpu") for k, v in kw.items()}))
+        for g, w_ in zip(got, want):
+            if g.device != dev or tuple(g.shape) != tuple(w_.shape):
+                raise RuntimeError(f"public surface {label}: {g.device} {tuple(g.shape)} against {tuple(w_.shape)}")
+            diff = (g.detach().cpu().double() - w_.double()).abs()
+            scale = 1.0 + w_.double().abs()
+            err = diff.max().item() if g.numel() else 0.0
+            rel = (diff / scale).max().item() if g.numel() else 0.0
+            if not rel <= SURFACE_TOL:
+                raise RuntimeError(f"public surface {label}: max abs {err:.3e}, {rel:.3e} of 1 + |cpu| against the "
+                                   f"CPU (limit {SURFACE_TOL})")
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            if err > SURFACE_TOL:
+                print(f"public surface {label}: max abs {err:.3e} on values up to {w_.abs().max().item():.3g}, "
+                      f"{rel:.3e} of 1 + |cpu|")
+        n_checks += 1
+
+    for form in ("hw", "hwc"):
+        x, y = img(form), img(form)
+        h, w = x.shape[:2]
+        flow = field((h, w, 2), -3.0, 3.0)
+        check(f"gaussian_blur {form}", filters.gaussian_blur, x, 1.3)
+        for border in ("replicate", "zero"):
+            check(f"separable_filter {form} {border}", filters.separable_filter, x, ky, kx, border)
+            check(f"conv2d {form} {border}", filters.conv2d, x, k35, border)
+        for size in (3, 9):
+            check(f"box_filter {form} {size}", filters.box_filter, x, size)
+        for name in ("derivative5_x", "derivative5_y", "derivatives"):
+            check(f"{name} {form}", getattr(derivatives, name), x)
+        check(f"derivatives_pair {form}", derivatives.derivatives_pair, x, y)
+        check(f"dilate {form}", morphology.dilate, x, 3)
+        check(f"erode {form}", morphology.erode, x, 3)
+        check(f"downsample2 {form}", geometry.downsample2, x)
+        for method in ("bilinear", "bicubic", "nearest"):
+            check(f"resize {form} {method}", geometry.resize, x, 37, 53, method)
+            check(f"warp_backward {form} {method}", geometry.warp_backward, x, flow, method)
+        check(f"upscale {form}", geometry.upscale, img(form, 16, 24), 3)
+        ys, xs = field((40, 50), -4.0, h + 4.0), field((40, 50), -4.0, w + 4.0)
+        check(f"remap_bilinear {form}", geometry.remap_bilinear, x, ys, xs)
+        check(f"remap_bicubic {form}", geometry.remap_bicubic, x, ys, xs)
+        small = img(form, 16, 24)
+        check(f"upsample_int {form}", warp_fast.upsample_int, small, 3, "bicubic")
+        check(f"upsample_nearest {form}", warp_fast.upsample_nearest, small, 3)
+        check(f"upsample_int_phases {form}", warp_fast.upsample_int_phases, small, 2, "bilinear")
+        check(f"interleave_phases {form}", warp_fast.interleave_phases,
+              warp_fast.upsample_int_phases(torch.from_numpy(small), 3, "bicubic").numpy())
+        check(f"warp_bounded {form}", warp_fast.warp_bounded, x, flow, 2)
+        for t, amp in ((16, 5), (12, 40)):
+            ints = rng.integers(-amp, amp + 1, (-(-h // t), -(-w // t), 2)).astype(np.int32)
+            LAUNCHES.clear()
+            check(f"tile_warp_int {form} T={t} shifts +-{amp} (kernel against plain)", warp_fast.tile_warp_int,
+                  x, ints, t)
+            if LAUNCHES["tile_warp"] != 1:
+                raise RuntimeError(f"tile_warp_int launched {dict(LAUNCHES)} on the card, expected one tile_warp")
+        ints = rng.integers(-5, 6, (4, 6, 2)).astype(np.int32)
+        check(f"warp_decomposed {form}", warp_fast.warp_decomposed, x, ints, field((h, w, 2), -1.5, 1.5), 16)
+        check(f"restore_image {form} (img, k)", restore.restore_image, x, k5)
+        check(f"restore_image {form} (img, k, gain)", restore.restore_image, x, k5, torch.tensor(0.6))
+    grids = geometry.identity_grid(64, 96)
+    check("similarity_warp_fast (C, H, W), batch_dims=1", warp_fast.similarity_warp_fast,
+          img("hw")[None].repeat(3, 0), grids[0].numpy() * 0.998 + 0.05 * grids[1].numpy() + 0.7,
+          grids[1].numpy() * 0.998 - 0.05 * grids[0].numpy() - 1.2, None, 1)
+    check("restore_phases (kernel=)", restore.restore_phases, field((2, 2, 3, 10, 14), 0.0, 1.0), kernel=k5)
+    gray = img("hw")[None].repeat(3, 0) + field((3, 64, 96), 0.0, 0.02)
+    check("temporal_noise_stat (gray, flows)", restore.temporal_noise_stat, gray, field((3, 64, 96, 2), -1.5, 1.5))
+    a = img("hw")
+    rolled = np.roll(a, (-4, 7), axis=(0, 1))
+    check("phase_correlate (a, b), integer peak", phase_correlation.phase_correlate, a, rolled, subpixel=False)
+    for cfg in (RegistrationConfig(), PREALIGN_FAST):
+        label = "default" if cfg == RegistrationConfig() else "PREALIGN_FAST"
+        check(f"register_translation (a, b) {label}", logpolar.register_translation, a, rolled, cfg)
+        check(f"register_rotation_scale (a, b) {label}", logpolar.register_rotation_scale, a, rolled, cfg)
+        check(f"register_similarity (a, b) {label}", logpolar.register_similarity, a, rolled, cfg)
+    shifts = field((4, 6, 2), -4.0, 4.0)
+    for smooth in (True, False):
+        check(f"flow_from_tile_shifts smooth={smooth}", align.flow_from_tile_shifts, shifts, 16, 60, 90, smooth)
+    pre = (rng.integers(-12, 13, (4, 6, 2)) * 0.5).astype(np.float32)
+    check("extract_search_windows (img, T, R, float pre_shift)", tiles.extract_search_windows, a, 16, 4, pre)
+    check("extract_search_windows_fast (img, T, R, int pre_shift)", tiles.extract_search_windows_fast, a, 16, 4,
+          rng.integers(-6, 7, (4, 6, 2)).astype(np.int32))
+    check("quadratic_subpixel_max", subpixel.quadratic_subpixel_max, field((7, 3, 3), 0.0, 1.0))
+    f, hh, hw = 3, 16, 24
+    planes_in = (field((f, 2, 2, hh, hw), 0.0, 1.0), field((f, hh, hw, 2), -0.8, 0.8), field((f, hh, hw, 3), 0.0, 1.0),
+                 field((hh, hw, 3), 0.5, 1.0), field((hh, hw, 3), 0.4, 0.9))
+    check("merge_burst_raw_planes (interleaved, order 0)", fast_merge.merge_burst_raw_planes, *planes_in,
+          ((0, 1), (1, 2)), 2, radius=1, prune_exp=1.5, order=0)
+    check("robustness_mask (bounded=0 default)", robustness.robustness_mask, img("hwc", 32, 48), img("hwc", 32, 48),
+          field((32, 48, 2), -4.0, 4.0))
+    torch.cuda.synchronize()
+    print(f"public surface: {n_checks} calls in the JAX call forms on cuda:0 against the CPU, max abs {worst:.3e}, "
+          f"max {worst_rel:.3e} of 1 + |cpu| (limit {SURFACE_TOL}); re-exports {counts}; "
+          f"{time.perf_counter() - t0:.2f} s  [{card}]")
 
 
 if __name__ == "__main__":

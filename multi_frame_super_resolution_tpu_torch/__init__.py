@@ -43,6 +43,8 @@ mesh=)``); and the readers ``data.imread_gray`` and ``data.imread_u16``
 
 __version__ = "0.1.0"
 
+from multi_frame_super_resolution_tpu_torch import config  # noqa: E402,F401
+
 
 def resolve_device(device, who: str, hint: str):
     """The device an entry point runs on: ``device`` where the caller names

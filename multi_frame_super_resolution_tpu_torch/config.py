@@ -188,6 +188,14 @@ class FlowConfig:
     brox_omega: float = 0.9
 
 
+@dataclasses.dataclass(frozen=True)
+class BenchConfig:
+    """Warmup-then-measure protocol of the benchmark harnesses."""
+
+    warmup: int = 5
+    iters: int = 20
+
+
 # the RGB fast path through the merge kernel without global pre-alignment
 PORT_DEFAULT = HandheldConfig(prealign=False, merge=MergeConfig(use_pallas=True))
 

@@ -8,7 +8,9 @@ DATASETS, burst_paths and load_burst; multi_frame_sr.cpp:151-163):
 read from a data root: ``data_dir``, else the ``MFSR_DATA_DIR``
 environment variable at call time, else the reference checkout. The
 car burst's JPEGs load through the native reader (data/native.py); without
-it they raise ValueError.
+it they raise ValueError. ``synthetic_burst`` and ``mosaic_rggb`` (of
+data/synthetic.py) are re-exported here, where the JAX package defines
+them.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 
 from multi_frame_super_resolution_tpu_torch.data import native
 from multi_frame_super_resolution_tpu_torch.data.io import imread, imwrite
+from multi_frame_super_resolution_tpu_torch.data.synthetic import mosaic_rggb, synthetic_burst  # noqa: F401
 
 # the JAX package's default data root (data/datasets.py::DEFAULT_DATA_DIR)
 REFERENCE_DIR = "/root/reference"

@@ -17,7 +17,6 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
-from multi_frame_super_resolution_tpu_torch.data.datasets import DATASETS, FRAME_SIZE
 from multi_frame_super_resolution_tpu_torch.data.io import imread
 
 # the tracked high-resolution scene of the true-HR bursts (512 x 1024 x 3)
@@ -231,6 +230,8 @@ def synthetic_dataset_burst(name: str, seed: int = 0) -> np.ndarray:
     """A synthetic RGB burst (F, H, W, 3) at the geometry of the reference
     burst ``name``, shifted by up to 3 px; the city burst is also rotated
     0/0/5/10/-15 degrees, as the real one is (``CITY_ANGLES``)."""
+    from multi_frame_super_resolution_tpu_torch.data.datasets import DATASETS, FRAME_SIZE
+
     f, (h, w) = DATASETS[name][1], FRAME_SIZE[name]
     angles = CITY_ANGLES if name == "city" else None
     return synthetic_rgb_burst(np.random.default_rng(seed), f, h, w, 3.0, angles=angles)[0]

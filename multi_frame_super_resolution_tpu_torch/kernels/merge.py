@@ -11,7 +11,8 @@ kernel those merges ran before, kept so that counts compare).
 
 On CUDA tensors it launches the kernel or raises; it never falls back.
 On CPU tensors it computes the kernel's plain PyTorch version,
-models/fast_merge.py::merge_burst_fast, with the same taps.
+models/fast_merge.py::merge_burst_fast, with the same taps, through
+``merge_fast_plain`` (the plain version with the wrapper's signature).
 """
 
 from __future__ import annotations
@@ -270,6 +271,29 @@ def _tap_reach(*key) -> int:
     return int(np.abs(tap_array(*key)).max(initial=0))
 
 
+def merge_fast_plain(
+    warped: torch.Tensor,
+    residual: torch.Tensor,
+    certainty: torch.Tensor,
+    omega_inv: torch.Tensor,
+    scale: int,
+    radius: int = 2,
+    residual_bound: float = 1.0,
+    k_max: float = 1.0,
+    phase_output: bool = False,
+    order: int = 0,
+    prune_exp: float = 6.0,
+    moment_slots: int = 4,
+    bf16: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """The plain version with ``merge_fast``'s signature: models/
+    fast_merge.py::merge_burst_fast, which takes the JAX function's."""
+    return merge_burst_fast(
+        warped, residual, certainty, omega_inv, scale, radius, residual_bound, k_max,
+        phase_output=phase_output, bf16=bf16, order=order, prune_exp=prune_exp, moment_slots=moment_slots,
+    )
+
+
 def merge_fast(
     warped: torch.Tensor,
     residual: torch.Tensor,
@@ -325,7 +349,7 @@ def merge_fast(
         raise ValueError("the bf16 merge form writes the phase layout: pass phase_output=True")
 
     if dev.type == "cpu":
-        return merge_burst_fast(
+        return merge_fast_plain(
             warped, residual, certainty, omega_inv, scale, radius,
             residual_bound, k_max, phase_output, order, prune_exp, moment_slots, bf16,
         )

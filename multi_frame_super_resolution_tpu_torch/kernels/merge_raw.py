@@ -22,7 +22,8 @@ kernel_name says which runs.
 
 On CUDA tensors it launches a kernel or raises; it never falls back.
 On CPU tensors it computes the plain PyTorch version,
-models/fast_merge.py::merge_burst_raw_planes, with the same taps.
+models/fast_merge.py::merge_burst_raw_planes, with the same taps, through
+``merge_raw_plain`` (the plain version with the wrapper's signature).
 """
 
 from __future__ import annotations
@@ -376,6 +377,40 @@ def table_rows(taps: tuple, cfa: tuple, centroid_taps: Optional[frozenset] = Non
     return np.array(tap_table(taps, cfa, centroid_taps)[8:]).reshape(-1, 3)
 
 
+def merge_raw_plain(
+    planes: torch.Tensor,
+    residual: torch.Tensor,
+    certainty: torch.Tensor,
+    omega_inv: torch.Tensor,
+    omega_inv_rb: torch.Tensor,
+    cfa,
+    scale: int,
+    radius: int = 2,
+    residual_bound: float = 1.0,
+    k_max: float = 1.0,
+    prune_exp: float = 6.0,
+    order: int = 1,
+    moment_slots: int = 4,
+    guide: Optional[torch.Tensor] = None,
+    centroid_cert: bool = False,
+    exact_weights: bool = False,
+    centroid_prune: Optional[float] = None,
+    centroid_bf16: bool = False,
+    centroid_block: bool = False,
+    centroid_shared_res: bool = False,
+    bf16: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """The plain version with ``merge_raw``'s signature, in the phase
+    layout: models/fast_merge.py::merge_burst_raw_planes, which takes the
+    JAX function's."""
+    return merge_burst_raw_planes(
+        planes, residual, certainty, omega_inv, omega_inv_rb, cfa, scale, radius, residual_bound, k_max,
+        guide=guide, phase_output=True, bf16=bf16, order=order, prune_exp=prune_exp, moment_slots=moment_slots,
+        exact_weights=exact_weights, centroid_prune=centroid_prune, centroid_bf16=centroid_bf16,
+        centroid_block=centroid_block, centroid_shared_res=centroid_shared_res, centroid_cert=centroid_cert,
+    )
+
+
 def merge_raw(
     planes: torch.Tensor,
     residual: torch.Tensor,
@@ -435,7 +470,7 @@ def merge_raw(
         check_tensor("guide", guide, (f, 2, 2, hh, hw), dev)
         planes = guided_planes(planes, guide, cfa, bf16)
     if dev.type == "cpu":
-        return merge_burst_raw_planes(
+        return merge_raw_plain(
             planes, residual, certainty, omega_inv, omega_inv_rb, cfa, scale,
             radius, residual_bound, k_max, prune_exp, order, moment_slots,
             centroid_cert=centroid_cert, exact_weights=exact_weights, centroid_prune=centroid_prune,

@@ -29,9 +29,9 @@ from multi_frame_super_resolution_tpu_torch.ops.filters import (
     _const,
     _const_array,
     gaussian_kernel_1d,
-    separable_filter,
+    separable_filter_planes,
 )
-from multi_frame_super_resolution_tpu_torch.ops.geometry import warp_backward
+from multi_frame_super_resolution_tpu_torch.ops.geometry import warp_backward_planes
 from multi_frame_super_resolution_tpu_torch.ops.warp_fast import (
     _pad_last2,
     _shifted,
@@ -52,7 +52,7 @@ def _blur_taps(cfg: BTVConfig) -> np.ndarray:
 def _blur(img: torch.Tensor, cfg: BTVConfig) -> torch.Tensor:
     """The degradation's blur H of planes (..., H, W), replicate border."""
     k = _blur_taps(cfg)
-    return separable_filter(img, k, k)
+    return separable_filter_planes(img, k, k)
 
 
 def _blur_decimate(img: torch.Tensor, cfg: BTVConfig, s: int) -> torch.Tensor:
@@ -221,7 +221,7 @@ def _solve_windows(
             warp = warp_taps
         else:
             fwd, inv = -hr_flows.unsqueeze(-4), hr_flows.unsqueeze(-4)
-            warp = warp_backward
+            warp = warp_backward_planes
     with record_function("mfsr.btv.iterate"):
         n_alts = len(alt_idx)
         for _ in range(cfg.iterations):

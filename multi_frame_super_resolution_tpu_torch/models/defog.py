@@ -19,14 +19,14 @@ from torch.profiler import record_function
 from multi_frame_super_resolution_tpu_torch.config import DarkChannelConfig, PolarDefogConfig
 from multi_frame_super_resolution_tpu_torch.kernels.defog import defog
 from multi_frame_super_resolution_tpu_torch.ops.color import normalize_minmax
-from multi_frame_super_resolution_tpu_torch.ops.morphology import erode, min_channels
+from multi_frame_super_resolution_tpu_torch.ops.morphology import erode_planes, min_channels
 from multi_frame_super_resolution_tpu_torch.ops.reduce import top_k_indices
 
 
 def dark_channel(img: torch.Tensor, window: int) -> torch.Tensor:
     """Dark channel of (H, W, C): per-pixel channel min, then a window x
     window min filter."""
-    return erode(min_channels(img), window)
+    return erode_planes(min_channels(img), window)
 
 
 def dark_channel_defog(

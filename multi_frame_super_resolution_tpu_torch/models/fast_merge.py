@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from multi_frame_super_resolution_tpu_torch.ops.filters import _const
-from multi_frame_super_resolution_tpu_torch.ops.warp_fast import _pad_last2, _shifted
+from multi_frame_super_resolution_tpu_torch.ops.warp_fast import _pad_last2, _shifted, interleave_phases_planes
 
 
 def _output_phase_offsets(s: int) -> np.ndarray:
@@ -65,12 +65,14 @@ def merge_burst_fast(
     residual_bound: float = 1.0,
     k_max: float = 1.0,
     phase_output: bool = False,
+    bf16: bool = False,
     order: int = 0,
     prune_exp: float = 6.0,
-    moment_slots: int = 4,
-    bf16: bool = False,
+    moment_slots: int = 9,
 ) -> Tuple[torch.Tensor, ...]:
-    """Merge tile-warped RGB frames onto the scale-x output grid.
+    """Merge tile-warped RGB frames onto the scale-x output grid, with the
+    JAX function's parameters, order and defaults (kernels/merge.py::
+    merge_fast_plain takes the wrapper's).
 
     warped (F, H, W, 3); residual (F, H, W, 2) subpixel flow, clamped to
     +-residual_bound; certainty (F, H, W, 3); omega_inv (H, W, 3). Taps
@@ -328,21 +330,23 @@ def merge_burst_raw_planes(
     radius: int = 2,
     residual_bound: float = 1.0,
     k_max: float = 1.0,
-    prune_exp: float = 6.0,
-    order: int = 1,
-    moment_slots: int = 4,
     guide: Optional[torch.Tensor] = None,
-    centroid_cert: bool = False,
+    phase_output: bool = False,
+    bf16: bool = False,
+    order: int = 0,
+    prune_exp: float = 6.0,
+    moment_slots: int = 9,
     exact_weights: bool = False,
     centroid_prune: Optional[float] = None,
     centroid_bf16: bool = False,
     centroid_block: bool = False,
     centroid_shared_res: bool = False,
-    bf16: bool = False,
+    centroid_cert: bool = True,
 ) -> Tuple[torch.Tensor, ...]:
-    """CFA-aware merge on half-resolution planes in the phase layout
-    (the JAX function with phase_output=True; fast_merge.py:301-511 and
-    _merge_planes_order1). Four forms (raw_merge_form):
+    """CFA-aware merge on half-resolution planes (fast_merge.py:301-511
+    and _merge_planes_order1), with the JAX function's parameters, order
+    and defaults (kernels/merge_raw.py::merge_raw_plain takes the
+    wrapper's). Four forms (raw_merge_form):
 
     - ``order=0``: (num, den) = (sum w c v, sum w c); with ``bf16``
       (fast_merge.py:365-374, :445-474) the planes and certainties are
@@ -387,8 +391,10 @@ def merge_burst_raw_planes(
     planes (F, 2, 2, hh, hw) warped by integer plane shifts; residual
     (F, hh, hw, 2) in RAW pixel units (clipped to +-residual_bound here);
     certainty (F, hh, hw, 3); omega_inv / omega_inv_rb (hh, hw, 3) for
-    green and R/B. Each output is (2s, 2s, 3, hh, hw) with phase index
-    (a*s + py, b*s + px).
+    green and R/B. With ``phase_output`` each output is the phase layout
+    (2s, 2s, 3, hh, hw), phase index (a*s + py, b*s + px), which the
+    pipelines and the kernel take; without it (the JAX default) each is
+    interleaved to the image (2s*hh, 2s*hw, 3).
 
     A tap (ky, kx) lands on plane ((a+ky)%2, (b+kx)%2) at half-res offset
     ((a+ky)//2, (b+kx)//2) for output parity (a, b). Per tap, the frame
@@ -590,4 +596,6 @@ def merge_burst_raw_planes(
                     if chain is not None:
                         outs[1][rows, cols, ch] = chain[0].reshape(s, s, hh, hw)
                         outs[2][rows, cols, ch] = chain[1].reshape(s, s, hh, hw)
+    if not phase_output:
+        return tuple(interleave_phases_planes(o) for o in outs)
     return tuple(outs)

@@ -104,7 +104,7 @@ from multi_frame_super_resolution_tpu_torch.models.merge import (
 from multi_frame_super_resolution_tpu_torch.models.robustness import robustness_mask
 from multi_frame_super_resolution_tpu_torch.ops.color import rgb_to_gray, srgb_gamma
 from multi_frame_super_resolution_tpu_torch.ops.debayer import debayer, debayer_subsample
-from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, resize, upscale
+from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2_planes, resize, upscale
 from multi_frame_super_resolution_tpu_torch.ops.restore import (
     restore_gain,
     restore_image,
@@ -271,8 +271,8 @@ def _handheld_oracle(burst: torch.Tensor, cfg: HandheldConfig, prealign_override
     def stat():
         # the unwarped frames registered by their rounded flows inside the
         # statistic, at half resolution (the gate's calibration scale)
-        flows_half = torch.movedim(downsample2(torch.movedim(flows, -1, 1)), 1, -1) * 0.5
-        return temporal_noise_stat(downsample2(gray), flows=flows_half)
+        flows_half = torch.movedim(downsample2_planes(torch.movedim(flows, -1, 1)), 1, -1) * 0.5
+        return temporal_noise_stat(downsample2_planes(gray), flows=flows_half)
 
     return _oracle_finish(out, cfg, stat)
 
@@ -294,7 +294,7 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
     half = cfg.half_align and h % 2 == 0 and w % 2 == 0
     with record_function("mfsr.align"):
         if half:
-            gray_est = downsample2(gray)
+            gray_est = downsample2_planes(gray)
             warp_t = 2 * t  # the half-res tile grid covers 2t full-res px
         else:
             gray_est = gray
@@ -333,7 +333,7 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
     # lifted back by the bilinear 2x upsample, cropped to (h, w)
     half_stats = cfg.rgb_half_stats and h % 2 == 0 and w % 2 == 0
     if half_stats:
-        warped_h = downsample2(warped, channel_last=True)
+        warped_h = downsample2_planes(warped, channel_last=True)
     res_alts = res_flow[1:]
     if cfg.use_lk:
         with record_function("mfsr.lk"):
@@ -343,7 +343,7 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
             if half_stats:
                 gray_wh = rgb_to_gray(warped_h)
                 res_h = lk_refine(
-                    gray_wh[0], gray_wh[1:], downsample2(res_alts, channel_last=True) * 0.5, lk_cfg
+                    gray_wh[0], gray_wh[1:], downsample2_planes(res_alts, channel_last=True) * 0.5, lk_cfg
                 )
                 res_alts = (upsample_int(res_h, 2, "bilinear") * 2.0)[:, :h, :w]
             else:
@@ -355,7 +355,7 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
     with record_function("mfsr.robustness"):
         if half_stats:
             cert_h = robustness_mask(
-                warped_h[0], warped_h[1:], downsample2(res_alts, channel_last=True) * 0.5,
+                warped_h[0], warped_h[1:], downsample2_planes(res_alts, channel_last=True) * 0.5,
                 cfg.robustness, bounded=2,
             )[..., :3]
             cert_alts = upsample_int(cert_h, 2, "bilinear")[:, :h, :w]
@@ -403,8 +403,8 @@ def _handheld_fast(burst: torch.Tensor, cfg: HandheldConfig, prealign_override=N
             out_p = apply_weighting(*moments, fallback_p, cfg.merge.weight_threshold)
     if cfg.final_restore and cfg.scale == 2:
         with record_function("mfsr.restore"):
-            res_half = torch.movedim(downsample2(torch.movedim(res_flow[1:], -1, 1)), 1, -1)
-            stat = temporal_noise_stat(downsample2(rgb_to_gray(warped)), residual=res_half * 0.5)
+            res_half = torch.movedim(downsample2_planes(torch.movedim(res_flow[1:], -1, 1)), 1, -1)
+            stat = temporal_noise_stat(downsample2_planes(rgb_to_gray(warped)), residual=res_half * 0.5)
             out_p = _gated_restore(out_p, cfg, stat, restore_phases)
     with record_function("mfsr.finalize"):
         if cfg.gamma:

@@ -20,11 +20,11 @@ import torch
 
 from multi_frame_super_resolution_tpu_torch.config import MergeConfig
 from multi_frame_super_resolution_tpu_torch.ops.derivatives import (
-    derivatives,
+    derivatives_planes,
     structure_tensor,
 )
 from multi_frame_super_resolution_tpu_torch.ops.debayer import CFA, cfa_channel_map
-from multi_frame_super_resolution_tpu_torch.ops.filters import _const_array, box_filter
+from multi_frame_super_resolution_tpu_torch.ops.filters import _const_array, box_filter_planes
 from multi_frame_super_resolution_tpu_torch.ops.geometry import resize
 
 
@@ -233,10 +233,10 @@ def apply_weighting(
 def smoothed_structure_tensor(gray: torch.Tensor, window: int = 3) -> torch.Tensor:
     """Derivatives -> per-pixel structure tensor (H, W, 3), box-smoothed
     over a small window."""
-    dx, dy = derivatives(gray)
+    dx, dy = derivatives_planes(gray)
     st = structure_tensor(dx, dy)
     if window > 1:
-        st = box_filter(st, window, normalize=True)
+        st = torch.movedim(box_filter_planes(torch.movedim(st, -1, -3), window, normalize=True), -3, -1)
     return st
 
 

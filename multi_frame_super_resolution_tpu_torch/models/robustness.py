@@ -12,9 +12,9 @@ import math
 import torch
 
 from multi_frame_super_resolution_tpu_torch.config import RobustnessConfig
-from multi_frame_super_resolution_tpu_torch.ops.filters import _const, box_filter
-from multi_frame_super_resolution_tpu_torch.ops.morphology import dilate, erode
-from multi_frame_super_resolution_tpu_torch.ops.warp_fast import _gather_flat, warp_bounded
+from multi_frame_super_resolution_tpu_torch.ops.filters import _const, box_filter_planes
+from multi_frame_super_resolution_tpu_torch.ops.morphology import dilate_planes, erode_planes
+from multi_frame_super_resolution_tpu_torch.ops.warp_fast import _gather_flat, warp_bounded_planes
 
 
 def _gather_shifted(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -27,12 +27,17 @@ def _gather_shifted(img: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return _gather_flat(img, (ys * w + xs).unsqueeze(-3))
 
 
+def _box3(img: torch.Tensor) -> torch.Tensor:
+    """3 x 3 normalized box filter of channel-last images (..., H, W, C)."""
+    return torch.movedim(box_filter_planes(torch.movedim(img, -1, -3), 3, normalize=True), -3, -1)
+
+
 def robustness_mask(
     ref: torch.Tensor,
     moved: torch.Tensor,
     flow: torch.Tensor,
     cfg: RobustnessConfig = RobustnessConfig(),
-    bounded: int = 2,
+    bounded: int = 0,
 ) -> torch.Tensor:
     """Certainty masks for alternate frames.
 
@@ -41,20 +46,20 @@ def robustness_mask(
     ``bounded=0`` (the gather). Returns (..., H, W, 4): RGB certainties in
     [0, 1] and the motion-inconsistency metric M in the last channel.
     """
-    mean_ref = box_filter(ref, 3, normalize=True)
-    mean_sq_ref = box_filter(ref * ref, 3, normalize=True)
+    mean_ref = _box3(ref)
+    mean_sq_ref = _box3(ref * ref)
     std_ref = torch.sqrt((mean_sq_ref - mean_ref * mean_ref).clamp_min(0.0))
 
-    moved_planes = torch.movedim(box_filter(moved, 3, normalize=True), -1, -3)
+    moved_planes = box_filter_planes(torch.movedim(moved, -1, -3), 3, normalize=True)
     if bounded > 0:
-        mean_moved_planes = warp_bounded(moved_planes, torch.round(flow).unsqueeze(-4), bounded)
+        mean_moved_planes = warp_bounded_planes(moved_planes, torch.round(flow).unsqueeze(-4), bounded)
     else:
         mean_moved_planes = _gather_shifted(moved_planes, torch.round(flow))
     mean_moved = torch.movedim(mean_moved_planes, -3, -1)
 
     # local 5x5 flow spread, scaled by the local mean distance
-    flow_max = torch.stack([dilate(flow[..., 0], 5), dilate(flow[..., 1], 5)], -1)
-    flow_min = torch.stack([erode(flow[..., 0], 5), erode(flow[..., 1], 5)], -1)
+    flow_max = torch.stack([dilate_planes(flow[..., 0], 5), dilate_planes(flow[..., 1], 5)], -1)
+    flow_min = torch.stack([erode_planes(flow[..., 0], 5), erode_planes(flow[..., 1], 5)], -1)
     mean_dist = (mean_ref - mean_moved).abs().mean(dim=-1)
     spread = (flow_max - flow_min) * (0.5 * mean_dist)[..., None]
     m = torch.sqrt((spread * spread).sum(dim=-1))

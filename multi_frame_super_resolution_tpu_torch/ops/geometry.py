@@ -5,9 +5,15 @@ nearest) with replicate borders, the backward warp by a dense flow, and
 the rotation about the image center.
 
 Coordinates follow the pixel-index convention: an integer coordinate is
-a pixel center. ``remap`` takes the JAX layouts, (H, W) or (H, W, C);
-``remap_planes`` and ``warp_backward`` take planes (..., H, W) with
-coordinate grids or flows that broadcast against their leading axes."""
+a pixel center.
+
+Layouts: the JAX names take the JAX call forms, images (H, W) or
+(H, W, C); ``resize``, ``upscale`` and ``downscale`` also take batches of
+channel-last images (..., H, W, C). The ``_planes`` names take planes
+(..., H, W), the layout the pipelines use: ``remap_planes`` and
+``warp_backward_planes`` with coordinate grids or flows that broadcast
+against their leading axes, ``downsample2_planes`` also batches of
+channel-last images (``channel_last=True``)."""
 
 from __future__ import annotations
 
@@ -15,11 +21,11 @@ import numpy as np
 import torch
 
 
-def downsample2(img: torch.Tensor, channel_last: bool = False) -> torch.Tensor:
-    """2x2 average-pool decimation of the last two axes of (..., H, W).
-    Rows are averaged before columns, the order of the JAX 2-D form. With
-    ``channel_last``, of (..., H, W, C) images, the four samples averaged
-    at once as the JAX form does for (H, W, C)."""
+def downsample2_planes(img: torch.Tensor, channel_last: bool = False) -> torch.Tensor:
+    """2x2 average-pool decimation of the last two axes of planes
+    (..., H, W). Rows are averaged before columns, the order of the JAX
+    2-D form. With ``channel_last``, of images (..., H, W, C), the four
+    samples averaged at once as the JAX form does for (H, W, C)."""
     if channel_last:
         h2, w2 = img.shape[-3] // 2, img.shape[-2] // 2
         x = img[..., : 2 * h2, : 2 * w2, :]
@@ -30,12 +36,26 @@ def downsample2(img: torch.Tensor, channel_last: bool = False) -> torch.Tensor:
     return rows.reshape(rows.shape[:-1] + (w2, 2)).mean(dim=-1)
 
 
+def downsample2(img: torch.Tensor) -> torch.Tensor:
+    """2x2 average-pool decimation of an image (H, W) or (H, W, C)
+    (ops/geometry.py::downsample2)."""
+    if img.ndim not in (2, 3):
+        raise ValueError(
+            f"downsample2 takes (H, W) or (H, W, C) images, as the JAX function does, got shape "
+            f"{tuple(img.shape)}; use downsample2_planes for planes (..., H, W)"
+        )
+    return downsample2_planes(img, channel_last=img.ndim == 3)
+
+
 def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "bilinear") -> torch.Tensor:
-    """Resize of a channel-last image (..., H, W, C) with OpenCV
-    pixel-center alignment, src = (dst + 0.5) * scale - 0.5, and clamped
-    borders (ops/geometry.py::resize). Bilinear reads rows, then columns,
-    by index (the values of remap_bilinear); bicubic and nearest go
-    through ``remap_planes``."""
+    """Resize of an image (H, W) or (H, W, C), or of a batch of
+    channel-last images (..., H, W, C), with OpenCV pixel-center
+    alignment, src = (dst + 0.5) * scale - 0.5, and clamped borders
+    (ops/geometry.py::resize). Bilinear reads rows, then columns, by index
+    (the values of remap_bilinear); bicubic and nearest go through
+    ``remap_planes``."""
+    if img.ndim == 2:
+        return resize(img[..., None], out_h, out_w, method)[..., 0]
     h, w = img.shape[-3], img.shape[-2]
     dev = img.device
     ys = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) * (h / out_h) - 0.5
@@ -66,8 +86,10 @@ def resize(img: torch.Tensor, out_h: int, out_w: int, method: str = "bilinear") 
 
 
 def upscale(img: torch.Tensor, scale: int, method: str = "bicubic") -> torch.Tensor:
-    """``resize`` of (..., H, W, C) by an integer factor
-    (ops/geometry.py::upscale)."""
+    """``resize`` of (H, W), (H, W, C) or (..., H, W, C) by an integer
+    factor (ops/geometry.py::upscale)."""
+    if img.ndim == 2:
+        return resize(img, img.shape[0] * scale, img.shape[1] * scale, method)
     return resize(img, img.shape[-3] * scale, img.shape[-2] * scale, method)
 
 
@@ -150,34 +172,67 @@ def remap_planes(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, method: 
 
 
 def remap(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, method: str = "bilinear") -> torch.Tensor:
-    """Sample ``img`` (H, W) or (H, W, C) at float coordinates (ys, xs)
-    (Ho, Wo): output (Ho, Wo) or (Ho, Wo, C)."""
+    """Sample ``img`` (H, W) or (H, W, C) at float coordinates (ys, xs) of
+    any one shape S: output S or S + (C,) (ops/geometry.py::remap)."""
+    if img.ndim not in (2, 3):
+        raise ValueError(
+            f"remap takes (H, W) or (H, W, C) images, as the JAX function does, got shape "
+            f"{tuple(img.shape)}; use remap_planes for planes (..., H, W)"
+        )
+    shape = ys.shape
+    if ys.ndim != 2:
+        ys, xs = ys.reshape(1, -1), xs.reshape(1, -1)
     if img.ndim == 2:
-        return remap_planes(img, ys, xs, method)
-    return torch.movedim(remap_planes(torch.movedim(img, -1, 0), ys, xs, method), 0, -1)
+        return remap_planes(img, ys, xs, method).reshape(shape)
+    out = torch.movedim(remap_planes(torch.movedim(img, -1, 0), ys, xs, method), 0, -1)
+    return out.reshape(shape + (img.shape[-1],))
 
 
-def identity_grid(h: int, w: int, device=None, dtype: torch.dtype = torch.float32):
+def remap_bilinear(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Bilinear ``remap`` with clamped borders (ops/geometry.py::remap_bilinear)."""
+    return remap(img, ys, xs, "bilinear")
+
+
+def remap_bicubic(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Bicubic (a = -0.75, OpenCV INTER_CUBIC) ``remap`` with clamped
+    borders (ops/geometry.py::remap_bicubic)."""
+    return remap(img, ys, xs, "bicubic")
+
+
+def identity_grid(h: int, w: int, dtype: torch.dtype = torch.float32, device=None):
     """(ys, xs) pixel-center index grids of shape (h, w)."""
     ys = torch.arange(h, dtype=dtype, device=device)[:, None].expand(h, w)
     xs = torch.arange(w, dtype=dtype, device=device)[None, :].expand(h, w)
     return ys, xs
 
 
-def warp_backward(img: torch.Tensor, flow: torch.Tensor, method: str = "bilinear") -> torch.Tensor:
+def warp_backward_planes(img: torch.Tensor, flow: torch.Tensor, method: str = "bilinear") -> torch.Tensor:
     """Backward warp of planes (..., H, W) by dense flows (..., H, W, 2)
-    ordered (dy, dx): out(p) = img(p + flow(p)), replicate border
-    (ops/geometry.py::warp_backward, which takes (H, W[, C]) images).
-    The flows broadcast against the planes' leading axes."""
+    ordered (dy, dx): out(p) = img(p + flow(p)), replicate border. The
+    flows broadcast against the planes' leading axes."""
     h, w = img.shape[-2], img.shape[-1]
-    ys, xs = identity_grid(h, w, img.device, flow.dtype)
+    ys, xs = identity_grid(h, w, flow.dtype, img.device)
     return remap_planes(img, ys + flow[..., 0], xs + flow[..., 1], method)
+
+
+def warp_backward(img: torch.Tensor, flow: torch.Tensor, method: str = "bilinear") -> torch.Tensor:
+    """Backward warp of an image (H, W) or (H, W, C) by a dense flow
+    (H, W, 2) ordered (dy, dx): out(p) = img(p + flow(p)), replicate
+    border (ops/geometry.py::warp_backward)."""
+    if img.ndim not in (2, 3):
+        raise ValueError(
+            f"warp_backward takes (H, W) or (H, W, C) images, as the JAX function does, got shape "
+            f"{tuple(img.shape)}; use warp_backward_planes for planes (..., H, W)"
+        )
+    if img.ndim == 2:
+        return warp_backward_planes(img, flow, method)
+    return torch.movedim(warp_backward_planes(torch.movedim(img, -1, 0), flow, method), 0, -1)
 
 
 def translate(img: torch.Tensor, dy, dx, method: str = "bilinear") -> torch.Tensor:
     """Sample img (H, W[, C]) at (y + dy, x + dx): shifts the scene by
     (-dy, -dx)."""
-    ys, xs = identity_grid(img.shape[0], img.shape[1], img.device)
+    ys, xs = identity_grid(img.shape[0], img.shape[1], device=img.device)
     return remap(img, ys + dy, xs + dx, method)
 
 
@@ -209,7 +264,7 @@ def rotate(
         oh, ow = h, w
         cy_in, cx_in = ((h - 1) / 2.0, (w - 1) / 2.0) if center is None else center
         cy_out, cx_out = cy_in, cx_in
-    ys, xs = identity_grid(oh, ow, img.device)
+    ys, xs = identity_grid(oh, ow, device=img.device)
     angle = torch.as_tensor(angle_rad, dtype=torch.float32, device=img.device)
     ca, sa = torch.cos(angle), torch.sin(angle)
     yr = ys - cy_out

@@ -48,14 +48,25 @@ def restore_factors(kernel_fit: np.ndarray) -> Tuple[np.ndarray, tuple]:
 RESTORE_KERNEL, RESTORE_FACTORS = restore_factors(RESTORE_KERNEL_FIT)
 
 
-def restore_image(img: torch.Tensor, gain: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The shipped restoration FIR at output resolution on (H, W, C) or
-    (H, W), edge-clamped: out[y, x] = sum_uv k[u, v] img[y - u + r,
-    x - v + r], a true convolution, its 49 terms summed in the JAX order.
-    ``gain``: a 0-d tensor g; returns img + g * (restored - img)."""
+def _host_kernel(kernel) -> np.ndarray:
+    """A FIR given as numpy or as a tensor on any device, as float32
+    numpy: its taps are the scalar coefficients of the tap loops."""
+    if isinstance(kernel, torch.Tensor):
+        kernel = kernel.detach().cpu().numpy()
+    return np.asarray(kernel, np.float32)
+
+
+def restore_image(
+    img: torch.Tensor, kernel: Optional[np.ndarray] = None, gain: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """A restoration FIR at output resolution on (H, W, C) or (H, W),
+    edge-clamped: out[y, x] = sum_uv k[u, v] img[y - u + r, x - v + r], a
+    true convolution, its terms summed in the JAX order. ``kernel`` (kh,
+    kw) defaults to the shipped ``RESTORE_KERNEL``. ``gain``: a 0-d
+    tensor g; returns img + g * (restored - img)."""
     if gain is not None:
-        return img + gain * (restore_image(img) - img)
-    k = RESTORE_KERNEL
+        return img + gain * (restore_image(img, kernel) - img)
+    k = RESTORE_KERNEL if kernel is None else _host_kernel(kernel)
     kh, kw = k.shape
     r_y, r_x = kh // 2, kw // 2
     chan = img.ndim == 3
@@ -90,13 +101,56 @@ def _polyphase_taps_1d(v: np.ndarray, n: int):
     return w, m_rad
 
 
-def restore_phases(planes: torch.Tensor, gain: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The shipped restoration FIR on channel-leading phase planes
-    (n, n, C, H, W), plane (p, q) holding output pixels (n*i + p, n*j + q),
-    lowered separably (the default-kernel branch of the JAX function).
-    ``gain``: a 0-d tensor g in [0, 1]; returns the gated lerp
-    (1 - g) * planes + g * restored fused into the accumulation."""
-    return _restore_phases_separable(planes, RESTORE_FACTORS, gain=gain)
+def _polyphase_conv_kernel(k: np.ndarray, n: int):
+    """Dense polyphase tap table of a (kh, kh) kernel for total upsampling
+    factor n: W[p, q, my, mx] such that out_p[i, j] = sum_q sum_m
+    W[p, q, m] plane_q[i + my, j + mx], phases p = py n + px, the spatial
+    index offset by +m_rad."""
+    kh = k.shape[0]
+    r = kh // 2
+    m_rad = (r + n - 1) // n
+    mk = 2 * m_rad + 1
+    w = np.zeros((n * n, n * n, mk, mk), np.float32)
+    for py in range(n):
+        for px in range(n):
+            for ty in range(-r, r + 1):
+                qy, my = (py - ty) % n, (py - ty) // n
+                for tx in range(-r, r + 1):
+                    qx, mx = (px - tx) % n, (px - tx) // n
+                    w[py * n + px, qy * n + qx, my + m_rad, mx + m_rad] += k[ty + r, tx + r]
+    return w, m_rad
+
+
+def restore_phases(
+    planes: torch.Tensor, kernel: Optional[np.ndarray] = None, gain: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """A restoration FIR on channel-leading phase planes (n, n, C, H, W),
+    plane (p, q) holding output pixels (n*i + p, n*j + q), each plane
+    edge-clamped. The shipped kernel (``kernel=None``) is lowered
+    separably, as the JAX function's default branch does; another
+    (kh, kh) kernel through its dense polyphase tap table. ``gain``: a
+    0-d tensor g in [0, 1]; returns the gated lerp (1 - g) * planes + g *
+    restored (fused into the accumulation for the shipped kernel)."""
+    if kernel is None:
+        return _restore_phases_separable(planes, RESTORE_FACTORS, gain=gain)
+    if gain is not None:
+        return planes + gain * (restore_phases(planes, kernel) - planes)
+    n, _, c, h, w = planes.shape
+    wk, m_rad = _polyphase_conv_kernel(_host_kernel(kernel), n)
+    xpad = _pad_edge(_pad_edge(planes.reshape(n * n, c, h, w), -2, m_rad, m_rad), -1, m_rad, m_rad)
+    outs = []
+    for p in range(n * n):
+        acc = None
+        for q in range(n * n):
+            for my in range(2 * m_rad + 1):
+                for mx in range(2 * m_rad + 1):
+                    coef = float(wk[p, q, my, mx])
+                    if coef == 0.0:
+                        continue
+                    term = coef * xpad[q, :, my : my + h, mx : mx + w]
+                    acc = term if acc is None else acc + term
+        outs.append(acc)
+    return torch.stack(outs, 0).reshape(n, n, c, h, w)
 
 
 def _restore_phases_separable(
@@ -144,10 +198,9 @@ def _restore_phases_separable(
 
 def temporal_noise_stat(
     gray: torch.Tensor,
+    flows: Optional[torch.Tensor] = None,
     residual: Optional[torch.Tensor] = None,
     step: int = 8,
-    *,
-    flows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Robust per-burst noise statistic from REGISTERED luma frames
     (F, H, W), frame 0 the reference: the 15th percentile of

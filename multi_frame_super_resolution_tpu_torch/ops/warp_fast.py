@@ -8,12 +8,16 @@ function that differs from the naive one (the two-level one-hot warp,
 the separable selector warp), the closed form of what it computes is
 gathered here, not the naive form.
 
-Layouts: ``upsample_int`` takes channel-last images (..., H, W, C), as
-its JAX counterpart does, and ``decompose_flow`` flows (..., H, W, 2);
-the tile warps and ``warp_bounded`` take planes (..., H, W), with the
-per-pixel fields broadcast over the leading axes. ``tile_bounded_taps``
-composes a tile warp and a bounded warp into one set of gather taps
-that ``warp_taps`` applies, for fields that several images share.
+Layouts: the JAX names take the JAX call forms, images (H, W) or
+(H, W, C) with fields (H, W, 2) or (nty, ntx, 2); ``upsample_int`` also
+takes batches of channel-last images (..., H, W, C) and
+``decompose_flow`` flows (..., H, W, 2). The pipelines' tile warps and
+``warp_bounded_planes`` take planes (..., H, W), with the per-pixel
+fields broadcast over the leading axes. ``tile_bounded_taps`` composes a
+tile warp and a bounded warp into one set of gather taps that
+``warp_taps`` applies, for fields that several images share.
+``tile_warp_int`` runs the tile-warp kernel (kernels/tile_warp.py) on a
+CUDA tensor.
 """
 
 from __future__ import annotations
@@ -65,14 +69,22 @@ def _phase_taps_1d(s: int, method: str) -> Tuple[np.ndarray, np.ndarray]:
     return base[:, None] + offsets[None, :], weights.astype(np.float32)
 
 
+def upsample_nearest(img: torch.Tensor, s: int) -> torch.Tensor:
+    """Each pixel of (H, W[, ...]) repeated over an s x s block."""
+    return img.repeat_interleave(s, dim=0).repeat_interleave(s, dim=1)
+
+
 def upsample_int(img: torch.Tensor, s: int, method: str = "bilinear") -> torch.Tensor:
-    """Integer-factor upsample of a channel-last image (..., H, W, C) with
-    clamped borders, identical to resize(img, s*H, s*W, method).
+    """Integer-factor upsample of an image (H, W) or (H, W, C), or of a
+    batch of channel-last images (..., H, W, C), with clamped borders,
+    identical to resize(img, s*H, s*W, method).
 
     Per axis, one gather reads every (sample, phase, tap) source and the
     taps are summed in order: out[s*i + p] = sum_k w[p, k] x[i + o[p, k]]."""
     if s == 1:
         return img
+    if img.ndim == 2:
+        return upsample_int(img[..., None], s, method)[..., 0]
     taps, weights = _phase_taps_1d(s, method)
     kk = taps.shape[1]
     dev = img.device
@@ -93,6 +105,23 @@ def upsample_int(img: torch.Tensor, s: int, method: str = "bilinear") -> torch.T
 
     out = axis_upsample(img, img.ndim - 3)
     return axis_upsample(out, img.ndim - 2)
+
+
+def upsample_int_phases(img: torch.Tensor, s: int, method: str = "bilinear") -> torch.Tensor:
+    """Phase-domain upsample of (H, W[, C]) -> (s, s, H, W[, C]):
+    out[py, px, i, j] = upsample_int(img, s)[s*i + py, s*j + px]."""
+    if s == 1:
+        return img[None, None]
+    h, w = img.shape[0], img.shape[1]
+    up = upsample_int(img, s, method).reshape((h, s, w, s) + tuple(img.shape[2:]))
+    return up.permute((1, 3, 0, 2) + tuple(range(4, up.ndim)))
+
+
+def interleave_phases(p: torch.Tensor) -> torch.Tensor:
+    """Phase planes (s, s, H, W[, C]) -> (s*H, s*W[, C])."""
+    s, h, w = p.shape[0], p.shape[2], p.shape[3]
+    trailing = tuple(p.shape[4:])
+    return p.permute((2, 0, 3, 1) + tuple(range(4, p.ndim))).reshape((s * h, s * w) + trailing)
 
 
 def upsample_int_phases_planes(img: torch.Tensor, s: int, method: str = "bilinear") -> torch.Tensor:
@@ -150,7 +179,7 @@ def warp_taps(img: torch.Tensor, taps) -> torch.Tensor:
     return row0 * wy[0] + row1 * wy[1]
 
 
-def warp_bounded(img: torch.Tensor, flow: torch.Tensor, r: int = 2) -> torch.Tensor:
+def warp_bounded_planes(img: torch.Tensor, flow: torch.Tensor, r: int = 2) -> torch.Tensor:
     """Bilinear backward warp out(x) = img(x + flow(x)) of planes
     (..., H, W) for flows clamped to [-r, r]. ``flow`` is (..., H, W, 2)
     and broadcasts against the plane axes.
@@ -160,6 +189,19 @@ def warp_bounded(img: torch.Tensor, flow: torch.Tensor, r: int = 2) -> torch.Ten
     weight 0, so gathering those four with the same weights and adding in
     the same order gives the same floats."""
     return warp_taps(img, _bounded_taps(flow, r, img.shape[-2], img.shape[-1]))
+
+
+def warp_bounded(img: torch.Tensor, flow: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """Bilinear backward warp of an image (H, W) or (H, W, C) by a flow
+    (H, W, 2) clamped to [-r, r] (ops/warp_fast.py::warp_bounded)."""
+    if img.ndim not in (2, 3):
+        raise ValueError(
+            f"warp_bounded takes (H, W) or (H, W, C) images, as the JAX function does, got shape "
+            f"{tuple(img.shape)}; use warp_bounded_planes for planes (..., H, W)"
+        )
+    if img.ndim == 2:
+        return warp_bounded_planes(img, flow, r)
+    return torch.movedim(warp_bounded_planes(torch.movedim(img, -1, 0), flow, r), 0, -1)
 
 
 def tile_shift_decompose(
@@ -183,6 +225,62 @@ def decompose_flow(flow: torch.Tensor, tile_size: int) -> Tuple[torch.Tensor, to
     tile_mean = f.reshape(flow.shape[:-3] + (nty, t, ntx, t, 2)).mean(dim=(-4, -2))
     tile_int = torch.round(tile_mean).to(torch.int32)
     return tile_int, flow - _repeat_tiles(tile_int.to(flow.dtype), t, h, w)
+
+
+def tile_warp_int(img: torch.Tensor, int_shifts: torch.Tensor, tile_size: int) -> torch.Tensor:
+    """Warp of a float32 image (H, W) or (H, W, C) by a per-tile integer
+    shift (ops/warp_fast.py::tile_warp_int): out[y, x] = img[clamp(y + sy),
+    clamp(x + sx)], (sy, sx) the shift of the tile of (y, x), from
+    int_shifts (nty, ntx, 2) over the ceil-divided tile grid, not clipped.
+
+    It runs the tile-warp kernel's block map (kernels/tile_warp.py::
+    tile_warp_block) on a CUDA tensor, and its plain version on a CPU
+    one. The block map clamps a tile's origin, not each pixel, so the
+    image is edge-padded first by P rows (and P' columns), multiples of
+    the tile size at least the largest shift: no block origin then
+    leaves the padded image, and the padded image's edge rows are the
+    per-pixel clamp. A shift past the image's extent is cut to it first,
+    which changes no clamped index. Reading the largest shift is one
+    device-to-host copy."""
+    from multi_frame_super_resolution_tpu_torch.kernels import tile_warp as tile_warp_kernel
+
+    if img.ndim not in (2, 3):
+        raise ValueError(f"tile_warp_int takes (H, W) or (H, W, C) images, got shape {tuple(img.shape)}")
+    h, w = img.shape[0], img.shape[1]
+    t = tile_size
+    nty, ntx = -(-h // t), -(-w // t)
+    if int_shifts.ndim != 3 or int_shifts.shape[0] < nty or int_shifts.shape[1] < ntx or int_shifts.shape[2] != 2:
+        raise ValueError(
+            f"int_shifts must be ({nty}, {ntx}, 2) for {h} x {w} at tile {t}, got {tuple(int_shifts.shape)}"
+        )
+    ints = torch.as_tensor(int_shifts, device=img.device)[:nty, :ntx].long()
+    sy = ints[..., 0].clamp(-(h - 1), h - 1)
+    sx = ints[..., 1].clamp(-(w - 1), w - 1)
+    most_y, most_x = torch.stack([sy.abs().amax(), sx.abs().amax()]).tolist()
+    py, px = t * -(-most_y // t), t * -(-most_x // t)
+    planes = img[None] if img.ndim == 2 else torch.movedim(img, -1, 0)
+    padded = _pad_edge(_pad_edge(planes, -2, py, py + nty * t - h), -1, px, px + ntx * t - w)
+    shifts = torch.zeros(
+        (1, nty + 2 * py // t, ntx + 2 * px // t, 2), dtype=torch.int32, device=img.device
+    )
+    shifts[0, py // t : py // t + nty, px // t : px // t + ntx] = torch.stack([sy, sx], -1).to(torch.int32)
+    out = tile_warp_kernel.tile_warp_block(padded[None].contiguous(), shifts, t)[0]
+    out = out[:, py : py + h, px : px + w]
+    return out[0] if img.ndim == 2 else torch.movedim(out, 0, -1)
+
+
+def warp_decomposed(
+    img: torch.Tensor,
+    tile_int: torch.Tensor,
+    residual: torch.Tensor,
+    tile_size: int,
+    residual_bound: int = 2,
+) -> torch.Tensor:
+    """warp_backward(img, flow) for flow = tile_int (per tile) + residual,
+    approximated as the integer tile warp followed by the bounded
+    residual warp (ops/warp_fast.py::warp_decomposed): img (H, W) or
+    (H, W, C), tile_int (nty, ntx, 2), residual (H, W, 2)."""
+    return warp_bounded(tile_warp_int(img, tile_int, tile_size), residual, residual_bound)
 
 
 def _repeat_tiles(x: torch.Tensor, t: int, h: int, w: int) -> torch.Tensor:
@@ -362,7 +460,11 @@ def _axis_linear_resample(
 
 
 def similarity_warp_fast(
-    img: torch.Tensor, src_y: torch.Tensor, src_x: torch.Tensor, bound: int | None = None
+    img: torch.Tensor,
+    src_y: torch.Tensor,
+    src_x: torch.Tensor,
+    bound: int | None = None,
+    batch_dims: int = 0,
 ) -> torch.Tensor:
     """The function of ops/warp_fast.py::similarity_warp_fast on planes
     (..., H, W) with affine source grids (..., H, W) that broadcast
@@ -371,7 +473,9 @@ def similarity_warp_fast(
     lands on output column x, then a 1-D y pass at src_y. The affine
     coefficients are the grids' finite differences, in float32, as the
     JAX function reads them. It differs from a bilinear ``remap`` on
-    rotations (up to ~0.2 at 15 degrees), so it is not computed as one."""
+    rotations (up to ~0.2 at 15 degrees), so it is not computed as one.
+    ``batch_dims`` is taken for the JAX call form ((batch..., H, W) planes
+    sharing (H, W) grids); here every leading axis broadcasts anyway."""
     h, w = img.shape[-2], img.shape[-1]
     if bound is None:
         bound = default_warp_bound(h, w)

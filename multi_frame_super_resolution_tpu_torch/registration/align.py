@@ -16,7 +16,7 @@ import torch
 
 from multi_frame_super_resolution_tpu_torch.config import AlignConfig
 from multi_frame_super_resolution_tpu_torch.kernels.tile_search import tile_search
-from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, resize
+from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2_planes, resize
 from multi_frame_super_resolution_tpu_torch.ops.warp_fast import upsample_int
 from multi_frame_super_resolution_tpu_torch.registration.global_shift import (
     measurement_pairs,
@@ -25,7 +25,7 @@ from multi_frame_super_resolution_tpu_torch.registration.global_shift import (
 )
 from multi_frame_super_resolution_tpu_torch.registration.tiles import (
     extract_ref_tiles,
-    extract_search_windows,
+    extract_search_windows_batched,
     find_min_shift,
     ssd_surface_fft,
     tile_counts,
@@ -37,7 +37,7 @@ def build_pyramid(img: torch.Tensor, levels: int) -> List[torch.Tensor]:
     """[finest, ..., coarsest] 2x-decimated pyramid of (..., H, W)."""
     pyr = [img]
     for _ in range(levels - 1):
-        pyr.append(downsample2(pyr[-1]))
+        pyr.append(downsample2_planes(pyr[-1]))
     return pyr
 
 
@@ -70,7 +70,7 @@ def align_frames(
         # finds the residual relative to it
         rounded = torch.round(total)
         if cfg.use_fft:
-            windows = extract_search_windows(a, cfg.tile_size, radius, rounded.to(torch.int32))
+            windows = extract_search_windows_batched(a, cfg.tile_size, radius, rounded.to(torch.int32))
             ssd = ssd_surface_fft(extract_ref_tiles(r, cfg.tile_size), windows, radius)
             total = rounded + find_min_shift(ssd, radius, cfg.peak_threshold, cfg.subpixel)
             continue
@@ -120,13 +120,14 @@ def align_burst_consistent(
 
 
 def flow_from_tile_shifts(
-    shifts: torch.Tensor, tile_size: int, height: int, width: int
+    shifts: torch.Tensor, tile_size: int, height: int, width: int, smooth: bool = True
 ) -> torch.Tensor:
-    """Per-tile shift fields (..., nty, ntx, 2) -> dense flows
-    (..., H, W, 2), bilinearly interpolated (the smooth form). Exact tile
-    multiples take the polyphase upsample, others the resize, as the JAX
-    function does."""
+    """Per-tile shift fields (nty, ntx, 2), or a batch (..., nty, ntx, 2),
+    -> dense flows (..., H, W, 2): bilinearly interpolated when ``smooth``
+    (exact tile multiples take the polyphase upsample, others the
+    resize, as the JAX function does), else piecewise constant (the
+    nearest-neighbour resize)."""
     nty, ntx = shifts.shape[-3], shifts.shape[-2]
-    if height == nty * tile_size and width == ntx * tile_size:
+    if smooth and height == nty * tile_size and width == ntx * tile_size:
         return upsample_int(shifts, tile_size, "bilinear")
-    return resize(shifts, height, width)
+    return resize(shifts, height, width, "bilinear" if smooth else "nearest")

@@ -11,9 +11,9 @@ from __future__ import annotations
 import torch
 
 from multi_frame_super_resolution_tpu_torch.config import FlowConfig
-from multi_frame_super_resolution_tpu_torch.ops.filters import _pad_edge, gaussian_blur
+from multi_frame_super_resolution_tpu_torch.ops.filters import _pad_edge, gaussian_blur_planes
 from multi_frame_super_resolution_tpu_torch.ops.geometry import (
-    downsample2,
+    downsample2_planes,
     identity_grid,
     remap_planes,
     resize,
@@ -46,7 +46,7 @@ def _brox_level(i1: torch.Tensor, i2: torch.Tensor, u: torch.Tensor, v: torch.Te
     """One pyramid level: refined (u, v), the y- and x-flow planes, for
     the reference i1 and the moving i2."""
     h, w = i2.shape[-2], i2.shape[-1]
-    ys, xs = identity_grid(h, w, i2.device)
+    ys, xs = identity_grid(h, w, device=i2.device)
     alpha = cfg.brox_alpha
     gamma = cfg.brox_gamma
     eps2 = cfg.brox_epsilon**2
@@ -110,12 +110,12 @@ def brox_flow(ref: torch.Tensor, moved: torch.Tensor, cfg: FlowConfig = FlowConf
     """Dense Brox flows (..., H, W, 2) as (dy, dx), moved(x + flow) ~=
     ref(x), for ref (..., H, W) broadcasting against moved (..., H, W);
     both are presmoothed (sigma ``brox_presmooth``, 5 taps)."""
-    ref = gaussian_blur(ref, cfg.brox_presmooth, size=5)
-    moved = gaussian_blur(moved, cfg.brox_presmooth, size=5)
+    ref = gaussian_blur_planes(ref, cfg.brox_presmooth, size=5)
+    moved = gaussian_blur_planes(moved, cfg.brox_presmooth, size=5)
     ref_pyr, mov_pyr = [ref], [moved]
     for _ in range(cfg.pyramid_levels - 1):
-        ref_pyr.append(downsample2(ref_pyr[-1]))
-        mov_pyr.append(downsample2(mov_pyr[-1]))
+        ref_pyr.append(downsample2_planes(ref_pyr[-1]))
+        mov_pyr.append(downsample2_planes(mov_pyr[-1]))
     top = mov_pyr[-1]
     u = top.new_zeros(torch.broadcast_shapes(ref_pyr[-1].shape, top.shape))
     v = torch.zeros_like(u)

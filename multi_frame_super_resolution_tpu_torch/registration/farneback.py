@@ -15,10 +15,10 @@ from multi_frame_super_resolution_tpu_torch.config import FlowConfig
 from multi_frame_super_resolution_tpu_torch.ops.filters import (
     _const_array,
     gaussian_kernel_1d,
-    separable_filter,
+    separable_filter_planes,
 )
 from multi_frame_super_resolution_tpu_torch.ops.geometry import (
-    downsample2,
+    downsample2_planes,
     identity_grid,
     remap_planes,
     resize,
@@ -57,7 +57,7 @@ def poly_expansion(img: torch.Tensor, n: int = 5, sigma: float = 1.1) -> torch.T
     and b (H, W, 2) hold them (A[0, 1] = A[1, 0] = axy)."""
     k0, k1, k2 = _moment_taps(n, sigma)
     moments = torch.stack([
-        separable_filter(img, ky, kx)
+        separable_filter_planes(img, ky, kx)
         for ky, kx in ((k0, k0), (k0, k1), (k1, k0), (k0, k2), (k2, k0), (k1, k1))
     ], dim=-1)  # m1, mx, my, mxx, myy, mxy
     inv_gram_t = _const_array(_inv_gram_t, (n, sigma), img.device)
@@ -70,7 +70,7 @@ def _solve_displacement(c1: torch.Tensor, c2: torch.Tensor, fx: torch.Tensor, fy
     2's coefficient planes by the flow, average, and solve the smoothed
     2 x 2 normal equations with a relative ridge; NaN -> 0."""
     h, w = fx.shape[-2], fx.shape[-1]
-    ys, xs = identity_grid(h, w, fx.device)
+    ys, xs = identity_grid(h, w, device=fx.device)
     c2w = remap_planes(c2, (ys + fy).unsqueeze(-3), (xs + fx).unsqueeze(-3))
     axx1, axy1, ayy1, bx1, by1 = c1.unbind(-3)
     axx2, axy2, ayy2, bx2, by2 = c2w.unbind(-3)
@@ -88,7 +88,7 @@ def _solve_displacement(c1: torch.Tensor, c2: torch.Tensor, fx: torch.Tensor, fy
         axy * dbx + ayy * dby,
     ], dim=-3)
     g = gaussian_kernel_1d(win_size / 5.0, win_size)
-    m11, m12, m22, v1, v2 = separable_filter(m, g, g).unbind(-3)
+    m11, m12, m22, v1, v2 = separable_filter_planes(m, g, g).unbind(-3)
     ridge = 1e-3 * (m11 + m22) + 1e-20
     m11 = m11 + ridge
     m22 = m22 + ridge
@@ -104,8 +104,8 @@ def farneback_flow(ref: torch.Tensor, moved: torch.Tensor, cfg: FlowConfig = Flo
     The flow is carried as (dx, dy) inside, as in the JAX function."""
     ref_pyr, mov_pyr = [ref], [moved]
     for _ in range(cfg.pyramid_levels - 1):
-        ref_pyr.append(downsample2(ref_pyr[-1]))
-        mov_pyr.append(downsample2(mov_pyr[-1]))
+        ref_pyr.append(downsample2_planes(ref_pyr[-1]))
+        mov_pyr.append(downsample2_planes(mov_pyr[-1]))
     top = mov_pyr[-1]
     flow_xy = top.new_zeros(torch.broadcast_shapes(ref_pyr[-1].shape, top.shape) + (2,))
     for level in range(cfg.pyramid_levels - 1, -1, -1):

@@ -1,5 +1,8 @@
 """FFT log-polar rotation / scale / translation registration (counterpart
-of registration/logpolar.py), batched over the moving frames:
+of registration/logpolar.py). ``register_translation``,
+``register_rotation_scale`` and ``register_similarity`` take the JAX
+call form, two (H, W) images; their ``_batched`` forms take the moving
+frames (B, H, W) at once, as the pre-alignment does:
 
   gray -> apodize -> FFT -> fftshift -> high-pass x magnitude ->
   log-polar remap -> phase-correlate the log-polar magnitudes ->
@@ -26,7 +29,10 @@ from multi_frame_super_resolution_tpu_torch.ops.filters import _const_array
 from multi_frame_super_resolution_tpu_torch.ops.fourier import apodization_window, high_pass_filter
 from multi_frame_super_resolution_tpu_torch.ops.geometry import remap_planes
 from multi_frame_super_resolution_tpu_torch.ops.warp_fast import similarity_warp_fast
-from multi_frame_super_resolution_tpu_torch.registration.phase_correlation import phase_correlate
+from multi_frame_super_resolution_tpu_torch.registration.phase_correlation import (
+    _check_pair,
+    phase_correlate_batched,
+)
 
 
 def log_polar_params(rows: int, cols: int) -> Tuple[int, float]:
@@ -69,9 +75,10 @@ def _spectral_magnitude(img: torch.Tensor, window: torch.Tensor, hp: torch.Tenso
 
 @dataclasses.dataclass
 class SimilarityTransform:
-    """Per-frame similarities, each field with a leading frame axis:
-    rotation (B,) radians, scale (B,) isotropic, translation (B, 2) as
-    (dy, dx), response (B,) the final phase-correlation peak."""
+    """A similarity: rotation (radians), scale (isotropic), translation
+    (dy, dx) and response (the final phase-correlation peak), as 0-d
+    tensors and a (2,) translation from ``register_similarity``, each
+    with a leading frame axis from ``register_similarity_batched``."""
 
     rotation: torch.Tensor
     scale: torch.Tensor
@@ -99,7 +106,7 @@ def _window(rows: int, cols: int, cfg: RegistrationConfig, device) -> torch.Tens
     return _const_array(apodization_window, (rows, cols, radius), device)
 
 
-def register_rotation_scale(
+def register_rotation_scale_batched(
     im0: torch.Tensor, im1: torch.Tensor, cfg: RegistrationConfig = RegistrationConfig()
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(rotation, scale, response), each (B,), such that each frame of im1
@@ -112,7 +119,7 @@ def register_rotation_scale(
     step = max(int(cfg.lp_radius_step), 1)
     lp0 = to_log_polar(_spectral_magnitude(im0, win, hp), cfg.logpolar_interp, step)
     lp1 = to_log_polar(_spectral_magnitude(im1, win, hp), cfg.logpolar_interp, step)
-    shift, peak = phase_correlate(lp0, lp1, cfg.eps, cfg.subpixel, refine=cfg.peak_upsample)
+    shift, peak = phase_correlate_batched(lp0, lp1, cfg.eps, cfg.subpixel, refine=cfg.peak_upsample)
     # row shift <-> rotation (angle step pi / (size - 1), negative
     # direction); column shift <-> log-radius (step log-base steps) <-> scale
     rotation = shift[:, 0] * (math.pi / (size - 1))
@@ -120,23 +127,44 @@ def register_rotation_scale(
     return rotation, scale, peak
 
 
+def register_rotation_scale(
+    im0: torch.Tensor, im1: torch.Tensor, cfg: RegistrationConfig = RegistrationConfig()
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rotation, scale, response), 0-d tensors, such that im1 (H, W) is
+    im0 (H, W) rotated by ``rotation`` about the center and scaled by
+    ``scale``."""
+    _check_pair(im0, im1, "register_rotation_scale")
+    rotation, scale, peak = register_rotation_scale_batched(im0, im1[None], cfg)
+    return rotation[0], scale[0], peak[0]
+
+
+def register_translation_batched(
+    im0: torch.Tensor, im1: torch.Tensor, cfg: RegistrationConfig = RegistrationConfig()
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dy, dx) (B, 2) such that each frame of im1 (B, H, W) satisfies
+    im1(x) ~= im0(x + d): apodized global phase correlation."""
+    rows, cols = im0.shape[-2], im0.shape[-1]
+    win = _window(rows, cols, cfg, im0.device)
+    return phase_correlate_batched(im0, im1, cfg.eps, cfg.subpixel, window=win, refine=cfg.peak_upsample)
+
+
 def register_translation(
     im0: torch.Tensor, im1: torch.Tensor, cfg: RegistrationConfig = RegistrationConfig()
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dy, dx) (B, 2) such that im1(x) ~= im0(x + d): apodized global
-    phase correlation."""
-    rows, cols = im0.shape[-2], im0.shape[-1]
-    win = _window(rows, cols, cfg, im0.device)
-    return phase_correlate(im0, im1, cfg.eps, cfg.subpixel, window=win, refine=cfg.peak_upsample)
+    """(dy, dx) (2,) such that im1(x) ~= im0(x + d), and the peak
+    response, of two (H, W) images."""
+    _check_pair(im0, im1, "register_translation")
+    shift, peak = register_translation_batched(im0, im1[None], cfg)
+    return shift[0], peak[0]
 
 
-def register_similarity(
+def register_similarity_batched(
     im0: torch.Tensor, im1: torch.Tensor, cfg: RegistrationConfig = RegistrationConfig()
 ) -> SimilarityTransform:
     """Rotation, scale and translation of each frame of im1 (B, H, W)
     against im0 (H, W): the log-polar stage, then im1 unrotated and
     unscaled, then the residual translation."""
-    rotation, scale, _ = register_rotation_scale(im0, im1, cfg)
+    rotation, scale, _ = register_rotation_scale_batched(im0, im1, cfg)
     h, w = im1.shape[-2], im1.shape[-1]
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
     dev = im1.device
@@ -151,5 +179,17 @@ def register_similarity(
         unrotated = similarity_warp_fast(im1, src_y, src_x)
     else:
         unrotated = remap_planes(im1, src_y, src_x, "bicubic")
-    shift, peak = register_translation(im0, unrotated, cfg)
+    shift, peak = register_translation_batched(im0, unrotated, cfg)
     return SimilarityTransform(rotation=rotation, scale=scale, translation=shift, response=peak)
+
+
+def register_similarity(
+    im0: torch.Tensor, im1: torch.Tensor, cfg: RegistrationConfig = RegistrationConfig()
+) -> SimilarityTransform:
+    """Rotation, scale and translation of im1 (H, W) against im0 (H, W),
+    each field of the result 0-d (the translation (2,))."""
+    _check_pair(im0, im1, "register_similarity")
+    st = register_similarity_batched(im0, im1[None], cfg)
+    return SimilarityTransform(
+        rotation=st.rotation[0], scale=st.scale[0], translation=st.translation[0], response=st.response[0]
+    )

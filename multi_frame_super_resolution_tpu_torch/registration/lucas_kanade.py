@@ -8,15 +8,15 @@ import torch
 
 from multi_frame_super_resolution_tpu_torch.config import FlowConfig, LKConfig
 from multi_frame_super_resolution_tpu_torch.ops.derivatives import (
-    derivatives,
-    derivatives_pair,
+    derivatives_pair_planes,
+    derivatives_planes,
 )
 from multi_frame_super_resolution_tpu_torch.ops.filters import box_filter_planes
-from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2, resize, warp_backward
+from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2_planes, resize, warp_backward_planes
 from multi_frame_super_resolution_tpu_torch.ops.warp_fast import (
     decompose_flow,
     tile_bounded_taps,
-    warp_bounded,
+    warp_bounded_planes,
     warp_taps,
 )
 
@@ -31,10 +31,10 @@ def lk_step(
     current warped frames (..., H, W). ``ref_derivs`` (dx, dy of ref) may
     be computed once outside the iteration loop."""
     if ref_derivs is None:
-        ix, iy, it = derivatives_pair(ref, warped)
+        ix, iy, it = derivatives_pair_planes(ref, warped)
     else:
         rdx, rdy = ref_derivs
-        wdx, wdy = derivatives(warped)
+        wdx, wdy = derivatives_planes(warped)
         ix = 0.5 * (rdx + wdx)
         iy = 0.5 * (rdy + wdy)
         it = ref - warped
@@ -87,11 +87,11 @@ def lk_refine(
     elif cfg.bounded_warp > 0:
 
         def warp(img, fl):
-            return warp_bounded(img, fl, cfg.bounded_warp)
+            return warp_bounded_planes(img, fl, cfg.bounded_warp)
 
     else:
-        warp = warp_backward
-    ref_derivs = derivatives(ref)  # constant across iterations
+        warp = warp_backward_planes
+    ref_derivs = derivatives_planes(ref)  # constant across iterations
     flow = flow0
     for _ in range(cfg.iterations):
         flow = flow + lk_step(ref, warp(moved, flow), cfg, ref_derivs)
@@ -107,8 +107,8 @@ def pyrlk_flow(ref: torch.Tensor, moved: torch.Tensor, cfg: FlowConfig = FlowCon
     lk = LKConfig(half_window=cfg.lk_half_window, iterations=cfg.lk_iterations, warp_tile=16)
     ref_pyr, mov_pyr = [ref], [moved]
     for _ in range(cfg.pyramid_levels - 1):
-        ref_pyr.append(downsample2(ref_pyr[-1]))
-        mov_pyr.append(downsample2(mov_pyr[-1]))
+        ref_pyr.append(downsample2_planes(ref_pyr[-1]))
+        mov_pyr.append(downsample2_planes(mov_pyr[-1]))
     top = mov_pyr[-1]
     lead = torch.broadcast_shapes(ref_pyr[-1].shape, top.shape)
     flow = top.new_zeros(lead + (2,))

@@ -1,6 +1,7 @@
 """FFT phase correlation for global translation estimation (counterpart of
-registration/phase_correlation.py), batched over a leading axis where the
-JAX package vmaps.
+registration/phase_correlation.py). ``phase_correlate`` takes the JAX
+call form, two (H, W) images; ``phase_correlate_batched`` a batch of
+second images (B, H, W), where the JAX package vmaps.
 
 ``argmax`` returns the first maximal index in both libraries, so integer
 peaks agree wherever the two responses agree. The local matrix-DFT
@@ -87,7 +88,7 @@ def _dft_refine_peak(
     return shift, flat.gather(1, idx[:, None])[:, 0]
 
 
-def phase_correlate(
+def phase_correlate_batched(
     a: torch.Tensor,
     b: torch.Tensor,
     eps: float = 1e-15,
@@ -109,3 +110,28 @@ def phase_correlate(
         return _peak_with_subpixel(resp, subpixel)
     shift_int, _ = _peak_with_subpixel(resp, subpixel=False)
     return _dft_refine_peak(cps, shift_int, refine)
+
+
+def _check_pair(a: torch.Tensor, b: torch.Tensor, who: str) -> None:
+    """Raise unless a and b are two (H, W) images, the JAX call form of
+    ``who``, naming its batched form."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(
+            f"{who} takes two (H, W) images, as the JAX function does, got shapes "
+            f"{tuple(a.shape)} and {tuple(b.shape)}; use {who}_batched for a batch (B, H, W)"
+        )
+
+
+def phase_correlate(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    eps: float = 1e-15,
+    subpixel: bool = True,
+    window: torch.Tensor | None = None,
+    refine: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The translation (dy, dx) such that b(x) ~= a(x + d) of two (H, W)
+    images: (shift (2,), peak response, a 0-d tensor)."""
+    _check_pair(a, b, "phase_correlate")
+    shift, peak = phase_correlate_batched(a, b[None], eps, subpixel, window, refine)
+    return shift[0], peak[0]

@@ -24,8 +24,8 @@ from multi_frame_super_resolution_tpu_torch.ops.warp_fast import (
 )
 from multi_frame_super_resolution_tpu_torch.registration.logpolar import (
     SimilarityTransform,
-    register_rotation_scale,
-    register_similarity,
+    register_rotation_scale_batched,
+    register_similarity_batched,
 )
 
 
@@ -62,11 +62,11 @@ def estimate_burst_similarity(
         gray = _box_down(gray, ds)
     ref, moving = gray[0], gray[1:]
     if with_translation:
-        st = register_similarity(ref, moving, cfg)
+        st = register_similarity_batched(ref, moving, cfg)
         if ds > 1:
             st = dataclasses.replace(st, translation=st.translation * float(ds))
         return st
-    rotation, scale, peak = register_rotation_scale(ref, moving, cfg)
+    rotation, scale, peak = register_rotation_scale_batched(ref, moving, cfg)
     return SimilarityTransform(
         rotation=rotation, scale=scale,
         translation=torch.zeros((moving.shape[0], 2), device=gray.device), response=peak,

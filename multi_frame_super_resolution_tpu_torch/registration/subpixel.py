@@ -1,5 +1,6 @@
 """3x3 quadratic subpixel interpolation of an SSD minimum (counterpart of
-registration/subpixel.py): the findMinimum least-squares surface fit."""
+registration/subpixel.py): the findMinimum least-squares surface fit, and
+its mirror for a maximum."""
 
 from __future__ import annotations
 
@@ -42,3 +43,9 @@ def quadratic_subpixel_min(patch: torch.Tensor) -> torch.Tensor:
     mu_x = torch.where(mu_x.abs() > 1.0, 0.0, mu_x)
     mu_y = torch.where(mu_y.abs() > 1.0, 0.0, mu_y)
     return torch.stack([-mu_y, -mu_x], dim=-1)
+
+
+def quadratic_subpixel_max(patch: torch.Tensor) -> torch.Tensor:
+    """Subpixel offset (dy, dx) of the maximum of a quadratic fit to
+    ``patch`` (..., 3, 3) (phase-correlation peaks)."""
+    return quadratic_subpixel_min(-patch)

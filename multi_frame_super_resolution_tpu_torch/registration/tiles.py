@@ -9,7 +9,7 @@ from typing import Tuple
 import torch
 
 from multi_frame_super_resolution_tpu_torch.ops.filters import _pad_edge
-from multi_frame_super_resolution_tpu_torch.ops.warp_fast import tile_warp_select
+from multi_frame_super_resolution_tpu_torch.ops.warp_fast import tile_warp_int, tile_warp_select
 from multi_frame_super_resolution_tpu_torch.registration.subpixel import (
     quadratic_subpixel_min,
 )
@@ -34,7 +34,7 @@ def extract_ref_tiles(img: torch.Tensor, tile_size: int) -> torch.Tensor:
     return img.reshape(nty, t, ntx, t).permute(0, 2, 1, 3)
 
 
-def extract_search_windows(
+def extract_search_windows_batched(
     imgs: torch.Tensor, tile_size: int, radius: int, int_shifts: torch.Tensor
 ) -> torch.Tensor:
     """Per-tile (T+2R)^2 search windows at the integer pre-shift, clamped
@@ -58,6 +58,46 @@ def extract_search_windows(
     xx = (ox[..., None, None] + offs[None, :]).clamp_(0, w - 1)  # (N, nty, ntx, 1, T2)
     flat = (yy * w + xx).reshape(n, -1)
     return torch.gather(imgs.reshape(n, h * w), 1, flat).reshape(n, nty, ntx, t2, t2)
+
+
+def extract_search_windows(
+    img: torch.Tensor, tile_size: int, radius: int, pre_shift: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Per-tile (T+2R)^2 search windows of one image (H, W) at the rounded
+    (half to even) float pre-shift (nty, ntx, 2), zero where None, clamped
+    per pixel (registration/tiles.py::extract_search_windows). Returns
+    (nty, ntx, T+2R, T+2R)."""
+    if img.ndim != 2:
+        raise ValueError(
+            f"extract_search_windows takes one (H, W) image, as the JAX function does, got shape "
+            f"{tuple(img.shape)}; use extract_search_windows_batched for (N, H, W)"
+        )
+    nty, ntx = tile_counts(img.shape[0], img.shape[1], tile_size)
+    if pre_shift is None:
+        ints = torch.zeros((nty, ntx, 2), dtype=torch.int32, device=img.device)
+    else:
+        ints = torch.round(torch.as_tensor(pre_shift, device=img.device)).to(torch.int32)
+    return extract_search_windows_batched(img[None], tile_size, radius, ints[None])[0]
+
+
+def extract_search_windows_fast(
+    img: torch.Tensor, tile_size: int, radius: int, pre_shift_int: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Search windows (nty, ntx, T+2R, T+2R) of one image (H, W) cut from
+    the image tile-warped by the integer pre-shifts (``tile_warp_int``),
+    so each window's halo follows the neighbouring tiles' own shifts
+    (registration/tiles.py::extract_search_windows_fast): window (ty, tx)
+    is rows ty*T - R .. ty*T + T + R - 1 (and the columns alike) of the
+    warped image, edge-clamped. Needs 2R <= T."""
+    h, w = img.shape
+    t, r = tile_size, radius
+    if 2 * r > t:
+        raise ValueError("fast extraction needs search_radius <= tile_size/2")
+    nty, ntx = tile_counts(h, w, t)
+    b = t + 2 * r
+    warped = img if pre_shift_int is None else tile_warp_int(img, pre_shift_int, t)
+    p = _pad_edge(_pad_edge(warped, 0, r, (nty + 1) * t - h + r), 1, r, (ntx + 1) * t - w + r)
+    return p.unfold(0, b, t).unfold(1, b, t)[:nty, :ntx]
 
 
 def _window_energies(windows: torch.Tensor, t: int) -> torch.Tensor:
@@ -203,7 +243,7 @@ def tile_search(
         warped = tile_warp_select(alts, rounded.to(torch.int32), tile_size)
         ssd = ssd_surface_image(ref, warped, tile_size, radius)
     elif mode == "tile":
-        windows = extract_search_windows(alts, tile_size, radius, rounded.to(torch.int32))
+        windows = extract_search_windows_batched(alts, tile_size, radius, rounded.to(torch.int32))
         ssd = ssd_surface(extract_ref_tiles(ref, tile_size), windows, radius)
     else:
         raise ValueError(f"mode must be 'image' or 'tile', got {mode!r}")
@@ -231,7 +271,7 @@ def _exact_windows(ref, alts, rounded, t, radius, mode):
         t2 = t + 2 * radius
         windows = padded.unfold(-2, t2, t).unfold(-2, t2, t)
     else:
-        windows = extract_search_windows(alts.double(), t, radius, ints)
+        windows = extract_search_windows_batched(alts.double(), t, radius, ints)
     return extract_ref_tiles(ref.double(), t), windows
 
 

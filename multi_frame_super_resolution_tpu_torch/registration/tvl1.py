@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 from multi_frame_super_resolution_tpu_torch.config import FlowConfig
 from multi_frame_super_resolution_tpu_torch.ops.geometry import (
-    downsample2,
+    downsample2_planes,
     identity_grid,
     remap_planes,
     resize,
@@ -39,7 +39,7 @@ def _tvl1_level(i0: torch.Tensor, i1: torch.Tensor, u: torch.Tensor, cfg: FlowCo
     """TV-L1 at one pyramid level: the flow u (2, ..., H, W), (dy, dx),
     refined so that i1(x + u(x)) ~= i0(x)."""
     h, w = i1.shape[-2], i1.shape[-1]
-    ys, xs = identity_grid(h, w, i1.device)
+    ys, xs = identity_grid(h, w, device=i1.device)
     lt = cfg.tv_lambda * cfg.tv_theta
     tau_theta = cfg.tv_tau / cfg.tv_theta
     p = torch.zeros((2,) + u.shape, dtype=u.dtype, device=u.device)  # (direction x/y, component dy/dx, ...)
@@ -82,8 +82,8 @@ def tvl1_flow(ref: torch.Tensor, moved: torch.Tensor, cfg: FlowConfig = FlowConf
     moved = moved * 255.0
     ref_pyr, mov_pyr = [ref], [moved]
     for _ in range(cfg.pyramid_levels - 1):
-        ref_pyr.append(downsample2(ref_pyr[-1]))
-        mov_pyr.append(downsample2(mov_pyr[-1]))
+        ref_pyr.append(downsample2_planes(ref_pyr[-1]))
+        mov_pyr.append(downsample2_planes(mov_pyr[-1]))
     top = mov_pyr[-1]
     u = top.new_zeros(torch.broadcast_shapes(ref_pyr[-1].shape, top.shape) + (2,))
     for level in range(cfg.pyramid_levels - 1, -1, -1):

@@ -28,7 +28,7 @@ from multi_frame_super_resolution_tpu_torch.data import CITY_ANGLES, synthetic_r
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.models.handheld import handheld_superres, handheld_superres_raw
 from multi_frame_super_resolution_tpu_torch.ops.color import rgb_to_gray
-from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2
+from multi_frame_super_resolution_tpu_torch.ops.geometry import downsample2_planes
 from multi_frame_super_resolution_tpu_torch.registration import align
 from multi_frame_super_resolution_tpu_torch.registration.prealign import prealign_burst
 
@@ -84,7 +84,7 @@ def test_rgb_consistent_alignment_on_a_small_burst_matches_jax():
     1e-3 px."""
     rgb = tt(_rgb(64, 128))
     burst, _ = prealign_burst(rgb, rgb_to_gray(rgb), RGB_CONSISTENT.prealign_cfg)
-    gray = downsample2(rgb_to_gray(burst))
+    gray = downsample2_planes(rgb_to_gray(burst))
     got = nn(align.align_burst_consistent(gray, RGB_CONSISTENT.align))
     want = np.asarray(jax.jit(lambda g: jalign.align_burst_consistent(g, to_jax(RGB_CONSISTENT.align)))(
         jnp.asarray(nn(gray))))

@@ -74,8 +74,8 @@ from multi_frame_super_resolution_tpu_torch.kernels import merge as merge_kernel
 from multi_frame_super_resolution_tpu_torch.kernels import merge_raw as raw_merge_kernel
 from multi_frame_super_resolution_tpu_torch.kernels import tile_search as tile_search_kernel
 from multi_frame_super_resolution_tpu_torch.kernels.defog import defog, defog_pixels
-from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
-from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw
+from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast, merge_fast_plain
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw, merge_raw_plain
 from multi_frame_super_resolution_tpu_torch.kernels.tile_search import tile_search
 from multi_frame_super_resolution_tpu_torch.kernels.tile_warp import tile_warp, tile_warp_block
 from multi_frame_super_resolution_tpu_torch.models import btvl1, dnn_sr, fast_merge
@@ -122,7 +122,7 @@ def test_merge_kernel_matches_plain(f, scale, radius, k_max, halo, h, w):
     num, den = merge_fast(*ins, scale, radius, 1.0, k_max)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_fast"] == 1
-    num_p, den_p = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max)
+    num_p, den_p = merge_fast_plain(*ins, scale, radius, 1.0, k_max)
     torch.testing.assert_close(num, num_p, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(den, den_p, rtol=1e-5, atol=1e-5)
 
@@ -148,7 +148,7 @@ def test_merge_kernel_phase_forms_match_plain(f, order, scale, radius, k_max, h,
     got = merge_fast(*ins, scale, radius, 1.0, k_max, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_fast"] == 1
-    want = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max, **kw)
+    want = merge_fast_plain(*ins, scale, radius, 1.0, k_max, **kw)
     assert len(got) == len(want) == (4 if order else 2)
     tol = 1e-4 if order else 1e-5
     for g, w_ in zip(got, want):
@@ -372,7 +372,7 @@ def test_raw_merge_kernel_matches_plain(f, radius, k_max, prune, cfa, hh, hw):
     got = merge_raw(*ins, cfa, 2, radius, 1.0, k_max, prune)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_raw"] == 1
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, radius, 1.0, k_max, prune)
+    want = merge_raw_plain(*ins, cfa, 2, radius, 1.0, k_max, prune)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
 
@@ -398,7 +398,7 @@ def test_raw_merge_kernel_scales_match_plain(f, scale, radius, k_max, prune, cfa
     got = merge_raw(*ins, cfa, scale, radius, 1.0, k_max, prune)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_raw"] == 1
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, scale, radius, 1.0, k_max, prune)
+    want = merge_raw_plain(*ins, cfa, scale, radius, 1.0, k_max, prune)
     for g, w_ in zip(got, want):
         assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
@@ -420,7 +420,7 @@ def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
     got = merge_raw(*ins, cfa, 2, radius, 1.0, k_max, 6.0)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_raw"] == 1
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, radius, 1.0, k_max, 6.0)
+    want = merge_raw_plain(*ins, cfa, 2, radius, 1.0, k_max, 6.0)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
     more = _raw_merge_inputs(np.random.default_rng(0), cap + 1, 9, 37, dev)
@@ -428,7 +428,7 @@ def test_raw_merge_kernel_frame_cap(radius, k_max, halo):
     got = merge_raw(*more, cfa, 2, radius, 1.0, k_max, 6.0)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_raw_stream": 1}
-    want = fast_merge.merge_burst_raw_planes(*more, cfa, 2, radius, 1.0, k_max, 6.0)
+    want = merge_raw_plain(*more, cfa, 2, radius, 1.0, k_max, 6.0)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
 
@@ -450,14 +450,14 @@ def test_raw_merge_kernel_frame_cap_by_scale(scale):
     k_max = (scale / 2.0) ** 2
     ins = _raw_merge_inputs(np.random.default_rng(scale), caps[1], 9, 37, dev)
     got = merge_raw(*ins, cfa, scale, 1, 1.0, k_max, 1.5)
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, scale, 1, 1.0, k_max, 1.5)
+    want = merge_raw_plain(*ins, cfa, scale, 1, 1.0, k_max, 1.5)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
     more = _raw_merge_inputs(np.random.default_rng(0), caps[1] + 1, 9, 37, dev)
     LAUNCHES.clear()
     got = merge_raw(*more, cfa, scale, 1, 1.0, k_max, 1.5)
     assert dict(LAUNCHES) == {"merge_raw_stream": 1}
-    want = fast_merge.merge_burst_raw_planes(*more, cfa, scale, 1, 1.0, k_max, 1.5)
+    want = merge_raw_plain(*more, cfa, scale, 1, 1.0, k_max, 1.5)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
 
@@ -482,7 +482,7 @@ def test_merge_kernel_nine_moments_match_plain(f, scale, radius, k_max, h, w):
     got = merge_fast(*ins, scale, radius, 1.0, k_max, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_fast": 1}
-    want = fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max, **kw)
+    want = merge_fast_plain(*ins, scale, radius, 1.0, k_max, **kw)
     assert len(got) == len(want) == 9
     for g, w_ in zip(got, want):
         assert g.shape == (scale, scale, 3, h, w)
@@ -506,7 +506,7 @@ def test_merge_kernel_nine_moments_at_the_path_shape(scale, f, h, w):
     got = merge_fast(*ins, scale, 1, 1.0, k_max, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_fast": 1}
-    want = fast_merge.merge_burst_fast(*ins, scale, 1, 1.0, k_max, **kw)
+    want = merge_fast_plain(*ins, scale, 1, 1.0, k_max, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-4)
 
@@ -541,7 +541,7 @@ def test_raw_merge_kernel_new_forms_match_plain(form, scale, radius, k_max, prun
     got = merge_raw(*ins, cfa, scale, radius, 1.0, k_max, prune, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_raw"] == 1
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, scale, radius, 1.0, k_max, prune, **kw)
+    want = merge_raw_plain(*ins, cfa, scale, radius, 1.0, k_max, prune, **kw)
     assert len(got) == len(want) == n_out
     for g, w_ in zip(got, want):
         assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
@@ -560,7 +560,7 @@ def test_raw_merge_kernel_new_forms_at_the_path_shape(form, frames, scale):
     ins = _raw_merge_inputs(np.random.default_rng(frames), frames, 128, 256, dev)
     args = (((0, 1), (1, 2)), scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
     got = merge_raw(*ins, *args, **kw)
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
 
@@ -593,7 +593,7 @@ def test_raw_merge_kernel_new_forms_frame_cap(form, scale):
     args = (cfa, scale, 1, 1.0, (scale / 2.0) ** 2, 1.5)
     ins = _raw_merge_inputs(np.random.default_rng(scale), frames, 5, 37, dev)
     got = merge_raw(*ins, *args, **kw)
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
     if form == "order0":
@@ -601,7 +601,7 @@ def test_raw_merge_kernel_new_forms_frame_cap(form, scale):
         LAUNCHES.clear()
         got = merge_raw(*more, *args, **kw)
         assert dict(LAUNCHES) == {"merge_raw_stream": 1}
-        for g, w_ in zip(got, fast_merge.merge_burst_raw_planes(*more, *args, **kw)):
+        for g, w_ in zip(got, merge_raw_plain(*more, *args, **kw)):
             torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
 
 
@@ -625,7 +625,7 @@ def test_raw_merge_cells_kernel_one_frame_and_ragged_tiles(form, scale, halo, fr
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_raw"] == 1
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     for g, w_ in zip(got, want):
         assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
         torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
@@ -652,7 +652,7 @@ def test_raw_merge_kernel_guided_matches_plain(form, scale, hh, hw):
     got = merge_raw(*ins, *args, guide=guide, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_raw"] == 1
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, guide=guide, **kw)
+    want = merge_raw_plain(*ins, *args, guide=guide, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=tol, atol=tol)
 
@@ -1202,7 +1202,7 @@ def test_raw_merge_kernel_knob_forms_match_plain(knob, scale, cfa, hh, hw, guide
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_raw"] == 1
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     assert len(got) == len(want)
     if tol is None:
         for g, w_ in zip(got, want):
@@ -1233,7 +1233,7 @@ def test_merge_kernel_bf16_form_matches_plain(f, scale, radius, k_max, h, w):
     got = merge_fast(*ins, scale, radius, 1.0, k_max, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["merge_fast"] == 1
-    _assert_bf16_close(got, fast_merge.merge_burst_fast(*ins, scale, radius, 1.0, k_max, **kw), BF16_TOL)
+    _assert_bf16_close(got, merge_fast_plain(*ins, scale, radius, 1.0, k_max, **kw), BF16_TOL)
     with pytest.raises(ValueError, match="phase layout"):
         merge_fast(*ins, scale, 1, 1.0, k_max, prune_exp=1.5, bf16=True)
 
@@ -1335,7 +1335,7 @@ def test_raw_merge_general_form_matches_plain(form, scale, radius, cfa, hh, hw):
     torch.cuda.synchronize()
     launched = "merge_raw_general" if raw_merge_kernel.is_bayer(cfa) else "merge_raw_nonbayer"
     assert dict(LAUNCHES) == {launched: 1}
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     assert len(got) == len(want)
     for g, w_ in zip(got, want):
         assert g.shape == (2 * scale, 2 * scale, 3, hh, hw)
@@ -1368,7 +1368,7 @@ def test_raw_merge_past_any_general_block_matches_plain(form, hh, hw):
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_raw_nonbayer": 1}
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     if tol is None:
         _assert_bf16_close(got, want, CBF16_TOL)
         return
@@ -1435,7 +1435,7 @@ def test_raw_merge_bf16_order0_templated_matches_plain(scale, cfa, frames, varia
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_raw": 1}
-    _assert_bf16_close(got, fast_merge.merge_burst_raw_planes(*ins, *args, **kw), BF16_TOL)
+    _assert_bf16_close(got, merge_raw_plain(*ins, *args, **kw), BF16_TOL)
 
 
 def _far_taps(monkeypatch, reach):
@@ -1479,7 +1479,7 @@ def test_raw_merge_nonbayer_windows_match_plain(form, scale, reach, monkeypatch)
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_raw_nonbayer": 1}
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     if tol is None:
         _assert_bf16_close(got, want, CBF16_TOL if form == "centroid_bf16" else BF16_TOL)
         return
@@ -1520,7 +1520,7 @@ def test_raw_merge_nonbayer_kernel_matches_plain(form, pattern, scale, frames):
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_raw_nonbayer": 1}
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     assert [g.shape for g in got] == [w_.shape for w_ in want]
     if tol is None:
         _assert_bf16_close(got, want, CBF16_TOL if "centroid_bf16" in form else BF16_TOL)
@@ -1569,7 +1569,7 @@ def test_raw_merge_streams_any_frames(form, frames, launched, scale, cfa, hh, hw
     got = merge_raw(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {launched: 1}
-    want = fast_merge.merge_burst_raw_planes(*ins, *args, **kw)
+    want = merge_raw_plain(*ins, *args, **kw)
     if form == "bf16":
         _assert_bf16_close(got, want, BF16_TOL)
         return
@@ -1594,7 +1594,7 @@ def test_raw_merge_stream_ring_halo2(scale):
         got = merge_raw(*ins, *args)
         torch.cuda.synchronize()
         assert dict(LAUNCHES) == {"merge_raw_stream": 1}
-        for g, w_ in zip(got, fast_merge.merge_burst_raw_planes(*ins, *args)):
+        for g, w_ in zip(got, merge_raw_plain(*ins, *args)):
             torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
 
 
@@ -1676,7 +1676,7 @@ def test_merge_general_form_matches_plain(form, scale, radius, k_max, launched, 
     got = merge_fast(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {launched: 1}
-    want = fast_merge.merge_burst_fast(*ins, *args, **kw)
+    want = merge_fast_plain(*ins, *args, **kw)
     if tol is None:
         _assert_bf16_close(got, want, BF16_TOL)
     else:
@@ -1705,7 +1705,7 @@ def test_merge_wide_taps_split_matches_plain(form, f, h, w, split):
     got = merge_fast(*ins, *args, **kw)
     torch.cuda.synchronize()
     assert dict(LAUNCHES) == {"merge_fast_unstaged": 1}
-    want = fast_merge.merge_burst_fast(*ins, *args, **kw)
+    want = merge_fast_plain(*ins, *args, **kw)
     if tol is None:
         _assert_bf16_close(got, want, BF16_TOL)
     else:

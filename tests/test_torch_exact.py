@@ -26,7 +26,8 @@ from multi_frame_super_resolution_tpu_torch.config import (
 )
 from multi_frame_super_resolution_tpu_torch.data import CITY_ANGLES, synthetic_raw_burst, synthetic_rgb_burst
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
-from multi_frame_super_resolution_tpu_torch.models import fast_merge
+from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast_plain
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw_plain
 from multi_frame_super_resolution_tpu_torch.models.handheld import (
     handheld_superres,
     handheld_superres_raw,
@@ -79,7 +80,7 @@ def test_nine_slot_rgb_merge_matches_jax(scale):
     k_max = (scale / 2.0) ** 2
     kw = dict(phase_output=True, order=1, prune_exp=1.5, moment_slots=9)
     want = jfm.merge_burst_fast(*map(jnp.asarray, ins), scale, 1, 1.0, k_max, **kw)
-    got = fast_merge.merge_burst_fast(*map(tt, ins), scale, 1, 1.0, k_max, **kw)
+    got = merge_fast_plain(*map(tt, ins), scale, 1, 1.0, k_max, **kw)
     assert len(got) == len(want) == 9
     for g, w_ in zip(got, want):
         assert g.shape == (scale, scale, 3, h, w)
@@ -114,7 +115,7 @@ def test_raw_plane_merge_forms_match_jax(scale, order, slots):
     kw = dict(order=order, prune_exp=1.5)
     want = jfm.merge_burst_raw_planes(
         *map(jnp.asarray, ins), cfa, scale, 1, 1.0, k_max, phase_output=True, moment_slots=9, **kw)
-    got = fast_merge.merge_burst_raw_planes(*map(tt, ins), cfa, scale, 1, 1.0, k_max, moment_slots=9, **kw)
+    got = merge_raw_plain(*map(tt, ins), cfa, scale, 1, 1.0, k_max, moment_slots=9, **kw)
     assert len(got) == len(want) == slots
     for g, w_ in zip(got, want):
         assert g.shape == (2 * scale, 2 * scale, 3, 10, 14)
@@ -134,7 +135,7 @@ def test_raw_plane_merge_long_burst_matches_jax(kw):
     args = (cfa, 2, 1, 1.0, 1.0)
     want = jfm.merge_burst_raw_planes(*map(jnp.asarray, ins), *args, phase_output=True, order=1,
                                       prune_exp=1.5, **kw)
-    got = fast_merge.merge_burst_raw_planes(*map(tt, ins), *args, order=1, prune_exp=1.5, **kw)
+    got = merge_raw_plain(*map(tt, ins), *args, order=1, prune_exp=1.5, **kw)
     assert len(got) == len(want) == kw["moment_slots"]
     for g, w_ in zip(got, want):
         assert g.shape == (4, 4, 3, 16, 32)

@@ -165,7 +165,7 @@ def test_tile_bounded_taps_equal_the_two_warps(bound):
     ints = rng.integers(-24, 25, (2, 4, 6, 2)).astype(np.int32)
     res = (rng.random((2, 52, 92, 2)) * 6.0 - 3.0).astype(np.float32)
     t_ints, t_res = tt(ints).unsqueeze(1), tt(res).unsqueeze(1)
-    two = warp_fast.warp_bounded(warp_fast.tile_warp_select(tt(img), t_ints, 16, bound), t_res, 2)
+    two = warp_fast.warp_bounded_planes(warp_fast.tile_warp_select(tt(img), t_ints, 16, bound), t_res, 2)
     got = warp_fast.warp_taps(tt(img), warp_fast.tile_bounded_taps(t_ints, t_res, 16, 2, 52, 92, bound))
     np.testing.assert_array_equal(nn(got), nn(two))
     want = np.stack([
@@ -183,5 +183,5 @@ def test_warp_backward_matches_jax():
     img = rng.random((40, 56, 3)).astype(np.float32)
     flow = (rng.standard_normal((40, 56, 2)) * 3.0).astype(np.float32)
     want = np.asarray(jax.jit(jgeometry.warp_backward)(jnp.asarray(img), jnp.asarray(flow)))
-    got = nn(geometry.warp_backward(tt(img).permute(2, 0, 1), tt(flow))).transpose(1, 2, 0)
+    got = nn(geometry.warp_backward_planes(tt(img).permute(2, 0, 1), tt(flow))).transpose(1, 2, 0)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

@@ -19,7 +19,8 @@ from multi_frame_super_resolution_tpu.models import fast_merge as jfm
 from multi_frame_super_resolution_tpu.models.handheld import _certless
 from multi_frame_super_resolution_tpu_torch.config import RAW_BENCH, MergeConfig
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
-from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw, tap_table
+from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast_plain
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw, merge_raw_plain, tap_table
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
 from multi_frame_super_resolution_tpu_torch.models.handheld import _moment_slots
 
@@ -86,7 +87,7 @@ def test_raw_merge_forms_with_guide_and_cert_match_jax(form, scale, guided):
         guide=None if guide is None else jnp.asarray(guide), phase_output=True, order=order,
         moment_slots=slots, centroid_cert=cert,
     )
-    got = fast_merge.merge_burst_raw_planes(
+    got = merge_raw_plain(
         *(tt(x) for x in ins), cfa, scale, **kw, order=order, moment_slots=slots,
         guide=None if guide is None else tt(guide), centroid_cert=cert,
     )
@@ -108,10 +109,10 @@ def test_guided_merge_is_the_unguided_merge_of_difference_planes(form):
     guide = fast_merge.green_guide_planes(ins[0], cfa)
     kw = dict(radius=1, residual_bound=1.0, k_max=1.0, prune_exp=1.5, order=order, moment_slots=slots,
               centroid_cert=cert)
-    guided = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, guide=guide, **kw)
-    diff = fast_merge.merge_burst_raw_planes(
+    guided = merge_raw_plain(*ins, cfa, 2, guide=guide, **kw)
+    diff = merge_raw_plain(
         fast_merge.guided_planes(ins[0], guide, cfa), *ins[1:], cfa, 2, **kw)
-    unguided = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, **kw)
+    unguided = merge_raw_plain(*ins, cfa, 2, **kw)
     for g, d, u in zip(guided, diff, unguided):
         torch.testing.assert_close(g, d, rtol=0, atol=0)
         torch.testing.assert_close(g[:, :, 1], u[:, :, 1], rtol=0, atol=0)
@@ -125,8 +126,8 @@ def test_per_cell_form_is_the_nine_moment_form_subset():
     cfa = ((0, 1), (1, 2))
     ins = [tt(x) for x in _planes_inputs(rng, 4, 8, 12)]
     kw = dict(radius=1, residual_bound=1.0, k_max=1.0, prune_exp=1.5, order=1)
-    cell = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, **kw, moment_slots=4, centroid_cert=True)
-    nine = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, **kw, moment_slots=9)
+    cell = merge_raw_plain(*ins, cfa, 2, **kw, moment_slots=4, centroid_cert=True)
+    nine = merge_raw_plain(*ins, cfa, 2, **kw, moment_slots=9)
     for g, k in zip(cell, (0, 1, 2, 6)):
         torch.testing.assert_close(g, nine[k], **ORDER1_TOL)
 
@@ -146,7 +147,7 @@ def test_wrapper_on_cpu_is_the_plain_form(form, guided):
     LAUNCHES.clear()
     got = merge_raw(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, **kw)
     assert not LAUNCHES
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, **kw)
+    want = merge_raw_plain(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, **kw)
     assert len(got) == n_out
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
@@ -228,7 +229,7 @@ def test_raw_merge_knobs_match_jax(knob, scale, guided):
         *(jnp.asarray(x) for x in ins), cfa, scale, **spec,
         guide=None if guide is None else jnp.asarray(guide), phase_output=True, **kw,
     )
-    got = fast_merge.merge_burst_raw_planes(
+    got = merge_raw_plain(
         *(tt(x) for x in ins), cfa, scale, **spec, guide=None if guide is None else tt(guide), **kw,
     )
     assert len(got) == len(want) == n_out
@@ -262,7 +263,7 @@ def test_raw_merge_bf16_knobs_match_jitted_jax(knob, scale, guided):
         return jfm.merge_burst_raw_planes(*args[:5], cfa, scale, **spec, guide=args[5], phase_output=True, **kw)
 
     want = jax.jit(jax_merge)(*(jnp.asarray(x) for x in ins), None if guide is None else jnp.asarray(guide))
-    got = fast_merge.merge_burst_raw_planes(
+    got = merge_raw_plain(
         *(tt(x) for x in ins), cfa, scale, **spec, guide=None if guide is None else tt(guide), **kw,
     )
     tol = dict(rtol=0, atol=0) if knob == "bf16" else ORDER1_TOL
@@ -294,7 +295,7 @@ def test_rgb_merge_bf16_matches_jitted_jax(scale, phase_output):
         return jfm.merge_burst_fast(*args, scale, 1, 1.0, k_max, **kw)
 
     want = jax.jit(jax_merge)(*map(jnp.asarray, ins))
-    got = fast_merge.merge_burst_fast(*map(tt, ins), scale, 1, 1.0, k_max, **kw)
+    got = merge_fast_plain(*map(tt, ins), scale, 1, 1.0, k_max, **kw)
     assert len(got) == len(want) == 2
     for g, w_ in zip(got, want):
         assert g.shape == ((scale, scale, 3, h, w) if phase_output else (scale * h, scale * w, 3))
@@ -309,8 +310,8 @@ def test_bf16_order0_rounds():
     cfa = ((0, 1), (1, 2))
     ins = [tt(x) for x in _planes_inputs(rng, 3, 8, 10)]
     kw = dict(radius=1, residual_bound=1.0, k_max=1.0, prune_exp=1.5, order=0)
-    b16 = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, **kw, bf16=True)
-    f32 = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, **kw)
+    b16 = merge_raw_plain(*ins, cfa, 2, **kw, bf16=True)
+    f32 = merge_raw_plain(*ins, cfa, 2, **kw)
     for b, f in zip(b16, f32):
         torch.testing.assert_close(b, b.to(torch.bfloat16).float(), rtol=0, atol=0)
         rel = ((b - f).abs() / f.abs().clamp_min(1e-3)).max().item()
@@ -326,8 +327,8 @@ def test_guided_bf16_is_the_unguided_merge_of_rounded_differences():
     ins = [tt(x) for x in _planes_inputs(rng, 3, 8, 10)]
     guide = fast_merge.green_guide_planes(ins[0], cfa)
     kw = dict(radius=1, residual_bound=1.0, k_max=1.0, prune_exp=1.5, order=0, bf16=True)
-    guided = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, guide=guide, **kw)
-    diff = fast_merge.merge_burst_raw_planes(fast_merge.guided_planes(ins[0], guide, cfa, bf16=True), *ins[1:], cfa,
+    guided = merge_raw_plain(*ins, cfa, 2, guide=guide, **kw)
+    diff = merge_raw_plain(fast_merge.guided_planes(ins[0], guide, cfa, bf16=True), *ins[1:], cfa,
                                              2, **kw)
     for g, d in zip(guided, diff):
         torch.testing.assert_close(g, d, rtol=0, atol=0)
@@ -358,12 +359,12 @@ def test_wrapper_on_cpu_is_the_plain_knob_form(knob, guided):
     LAUNCHES.clear()
     got = merge_raw(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, guide=guide, **kw)
     assert not LAUNCHES
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, guide=guide, **kw)
+    want = merge_raw_plain(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, guide=guide, **kw)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
     if knob.startswith("dead"):
         live = {k: v for k, v in kw.items() if k in ("centroid_cert", "centroid_block")}
-        for g, w_ in zip(got, fast_merge.merge_burst_raw_planes(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, guide=guide, **live)):
+        for g, w_ in zip(got, merge_raw_plain(*ins, cfa, 2, 1, 1.0, 1.0, 1.5, guide=guide, **live)):
             torch.testing.assert_close(g, w_, rtol=0, atol=0)
 
 

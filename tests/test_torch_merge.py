@@ -15,7 +15,7 @@ from multi_frame_super_resolution_tpu.pallas_ops.merge import merge_fast_pallas
 from multi_frame_super_resolution_tpu_torch.config import MergeConfig
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.kernels import merge as merge_kernel
-from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast
+from multi_frame_super_resolution_tpu_torch.kernels.merge import merge_fast, merge_fast_plain
 from multi_frame_super_resolution_tpu_torch.models import fast_merge, merge
 
 
@@ -68,7 +68,7 @@ def test_plain_merge_matches_pallas_merge(rng, f, h, w, scale, res_amp):
         *map(jnp.asarray, ins), scale=scale, radius=1, residual_bound=1.0,
         block_rows=16, interpret=True,
     )
-    num, den = fast_merge.merge_burst_fast(*map(tt, ins), scale, 1, 1.0, 1.0)
+    num, den = merge_fast_plain(*map(tt, ins), scale, 1, 1.0, 1.0)
     np.testing.assert_allclose(nn(num), nn(num_p), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(nn(den), nn(den_p), rtol=1e-5, atol=1e-5)
 
@@ -76,7 +76,7 @@ def test_plain_merge_matches_pallas_merge(rng, f, h, w, scale, res_amp):
 def test_plain_merge_matches_xla_merge_radius2(rng):
     ins = _inputs(rng, 2, 16, 24)
     want = jfm.merge_burst_fast(*map(jnp.asarray, ins), scale=3, radius=2)
-    got = fast_merge.merge_burst_fast(*map(tt, ins), 3, 2)
+    got = merge_fast_plain(*map(tt, ins), 3, 2)
     for g, w_ in zip(got, want):
         np.testing.assert_allclose(nn(g), nn(w_), rtol=1e-5, atol=1e-5)
 
@@ -85,7 +85,7 @@ def test_wrapper_on_cpu_is_the_plain_version(rng):
     ins = [tt(x) for x in _inputs(rng, 2, 12, 16)]
     LAUNCHES.clear()
     got = merge_fast(*ins, 2, 1, 1.0, 1.0)
-    want = fast_merge.merge_burst_fast(*ins, 2, 1, 1.0, 1.0)
+    want = merge_fast_plain(*ins, 2, 1, 1.0, 1.0)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
     assert LAUNCHES["merge_fast"] == 0  # no kernel ran
@@ -143,7 +143,7 @@ def test_plain_merge_phase_layout_matches_jax(rng, scale):
     want = jfm.merge_burst_fast(
         *map(jnp.asarray, ins), scale=scale, radius=1, k_max=k_max, phase_output=True, prune_exp=1.5
     )
-    got = fast_merge.merge_burst_fast(*map(tt, ins), scale, 1, 1.0, k_max, phase_output=True, prune_exp=1.5)
+    got = merge_fast_plain(*map(tt, ins), scale, 1, 1.0, k_max, phase_output=True, prune_exp=1.5)
     assert len(got) == 2
     for g, w_ in zip(got, want):
         assert g.shape == (scale, scale, 3, 12, 20)
@@ -159,7 +159,7 @@ def test_plain_merge_order1_matches_jax(rng, scale):
     k_max = (scale / 2.0) ** 2
     kw = dict(phase_output=True, order=1, prune_exp=1.5)
     want = jfm.merge_burst_fast(*map(jnp.asarray, ins), scale=scale, radius=1, k_max=k_max, moment_slots=4, **kw)
-    got = fast_merge.merge_burst_fast(*map(tt, ins), scale, 1, 1.0, k_max, **kw)
+    got = merge_fast_plain(*map(tt, ins), scale, 1, 1.0, k_max, **kw)
     assert len(got) == len(want) == 4
     for name, g, w_ in zip(("m00", "m01", "m02", "b0"), got, want):
         np.testing.assert_allclose(nn(g), nn(w_), rtol=1e-4, atol=1e-4, err_msg=name)
@@ -196,7 +196,7 @@ def test_wrapper_on_cpu_is_the_plain_version_for_each_form(rng, kw):
     ins = [tt(x) for x in _inputs(rng, 2, 12, 16)]
     LAUNCHES.clear()
     got = merge_fast(*ins, 3, 1, 1.0, 2.25, **kw)
-    want = fast_merge.merge_burst_fast(*ins, 3, 1, 1.0, 2.25, **kw)
+    want = merge_fast_plain(*ins, 3, 1, 1.0, 2.25, **kw)
     assert len(got) == len(want)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
@@ -211,6 +211,6 @@ def test_wrapper_refuses_interleaved_bf16(rng):
     with pytest.raises(ValueError, match="phase layout"):
         merge_fast(*ins, 2, 1, 1.0, 1.0, prune_exp=1.5, bf16=True)
     got = merge_fast(*ins, 2, 1, 1.0, 1.0, phase_output=True, order=1, prune_exp=1.5, bf16=True)
-    want = fast_merge.merge_burst_fast(*ins, 2, 1, 1.0, 1.0, phase_output=True, order=1, prune_exp=1.5)
+    want = merge_fast_plain(*ins, 2, 1, 1.0, 1.0, phase_output=True, order=1, prune_exp=1.5)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)

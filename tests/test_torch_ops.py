@@ -8,6 +8,7 @@ import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from torch_parity import nn, tt
 
 from multi_frame_super_resolution_tpu.ops import color as jcolor
@@ -15,11 +16,13 @@ from multi_frame_super_resolution_tpu.ops import filters as jfilters
 from multi_frame_super_resolution_tpu.ops import geometry as jgeo
 from multi_frame_super_resolution_tpu.ops import morphology as jmorph
 from multi_frame_super_resolution_tpu.ops import warp_fast as jwarp
-from multi_frame_super_resolution_tpu_torch.ops import color, derivatives, filters
+from multi_frame_super_resolution_tpu_torch.ops import color, filters
 from multi_frame_super_resolution_tpu_torch.ops import geometry, morphology, warp_fast
 
 # the JAX ops package re-exports a function named `derivatives`
 jder = importlib.import_module("multi_frame_super_resolution_tpu.ops.derivatives")
+# the package re-exports a function of the same name, as the JAX package does
+derivatives = importlib.import_module("multi_frame_super_resolution_tpu_torch.ops.derivatives")
 
 
 def test_synthetic_bursts_match_jax_generator():
@@ -85,7 +88,7 @@ def test_box_filter_planes_bf16_roundings(rng):
 
 def test_box_filter_channel_last(rng):
     img = rng.random((2, 10, 14, 3)).astype(np.float32)
-    got = nn(filters.box_filter(tt(img), 3))
+    got = nn(torch.movedim(filters.box_filter_planes(torch.movedim(tt(img), -1, -3), 3), -3, -1))
     want = np.stack([nn(jfilters.box_filter(jnp.asarray(i), 3)) for i in img])
     np.testing.assert_allclose(got, want, atol=1e-6)
 
@@ -116,7 +119,7 @@ def test_derivatives_and_structure_tensor(rng):
 def test_downsample2_and_resize(rng):
     x = rng.random((3, 17, 26)).astype(np.float32)
     want = np.stack([nn(jgeo.downsample2(jnp.asarray(p))) for p in x])
-    np.testing.assert_allclose(nn(geometry.downsample2(tt(x))), want, atol=1e-7)
+    np.testing.assert_allclose(nn(geometry.downsample2_planes(tt(x))), want, atol=1e-7)
     img = rng.random((5, 7, 2)).astype(np.float32)
     np.testing.assert_allclose(
         nn(geometry.resize(tt(img), 23, 19)),
@@ -127,11 +130,11 @@ def test_downsample2_and_resize(rng):
 
 @pytest.mark.parametrize("channels", [2, 3])
 def test_downsample2_channel_last_matches_jax(rng, channels):
-    """downsample2(..., channel_last=True) of a batch of (H, W, C) images,
+    """downsample2_planes(..., channel_last=True) of a batch of (H, W, C) images,
     odd sizes cropped, against the JAX function's (H, W, C) branch."""
     x = rng.random((3, 17, 26, channels)).astype(np.float32)
     want = np.stack([nn(jgeo.downsample2(jnp.asarray(p))) for p in x])
-    got = nn(geometry.downsample2(tt(x), channel_last=True))
+    got = nn(geometry.downsample2_planes(tt(x), channel_last=True))
     assert got.shape == (3, 8, 13, channels)
     np.testing.assert_allclose(got, want, atol=1e-7)
 
@@ -159,7 +162,7 @@ def test_upscale_bicubic_matches_jax(rng, scale):
 
 def test_morphology_exact(rng):
     x = rng.standard_normal((2, 11, 15)).astype(np.float32)
-    for port, ref in ((morphology.erode, jmorph.erode), (morphology.dilate, jmorph.dilate)):
+    for port, ref in ((morphology.erode_planes, jmorph.erode), (morphology.dilate_planes, jmorph.dilate)):
         want = np.stack([nn(ref(jnp.asarray(p), 5)) for p in x])
         np.testing.assert_array_equal(nn(port(tt(x), 5)), want)
 
@@ -178,7 +181,7 @@ def test_warp_bounded(rng):
     img = rng.random((3, 14, 18)).astype(np.float32)
     flow = (rng.random((14, 18, 2)) * 5.0 - 2.5).astype(np.float32)
     want = np.stack([nn(jwarp.warp_bounded(jnp.asarray(p), jnp.asarray(flow), 2)) for p in img])
-    np.testing.assert_allclose(nn(warp_fast.warp_bounded(tt(img), tt(flow), 2)), want, atol=1e-6)
+    np.testing.assert_allclose(nn(warp_fast.warp_bounded_planes(tt(img), tt(flow), 2)), want, atol=1e-6)
 
 
 def test_tile_shift_decompose_rounds_half_to_even():

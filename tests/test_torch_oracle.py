@@ -32,11 +32,13 @@ from multi_frame_super_resolution_tpu_torch.data import CITY_ANGLES, synthetic_r
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.models import merge, robustness
 from multi_frame_super_resolution_tpu_torch.models.handheld import handheld_superres
-from multi_frame_super_resolution_tpu_torch.ops import debayer, restore
+from multi_frame_super_resolution_tpu_torch.ops import restore
 from multi_frame_super_resolution_tpu_torch.registration import prealign
 
 # the JAX package's ops re-exports a function named debayer
 jdebayer = importlib.import_module("multi_frame_super_resolution_tpu.ops.debayer")
+# and so does the port's
+debayer = importlib.import_module("multi_frame_super_resolution_tpu_torch.ops.debayer")
 
 CFAS = [debayer.RGGB, debayer.BGGR, debayer.GRBG, debayer.GBRG]
 TOL = dict(rtol=1e-5, atol=1e-5)

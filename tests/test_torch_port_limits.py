@@ -28,6 +28,7 @@ from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
 from multi_frame_super_resolution_tpu_torch.kernels import merge as merge_kernel
 from multi_frame_super_resolution_tpu_torch.kernels import merge_raw as raw_kernel
 from multi_frame_super_resolution_tpu_torch.kernels import tile_search as search_kernel
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import merge_raw_plain
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
 from multi_frame_super_resolution_tpu_torch.models.handheld import handheld_superres_raw
 from multi_frame_super_resolution_tpu_torch.registration import tiles
@@ -74,7 +75,7 @@ def test_raw_merge_forms_match_jax_past_scale_4(form, scale):
     spec = dict(radius=1, residual_bound=0.5, k_max=(scale / 2.0) ** 2, prune_exp=3.0)
     want = jfm.merge_burst_raw_planes(*(jnp.asarray(x) for x in ins), cfa, scale, **spec, phase_output=True,
                                       **kw)
-    got = fast_merge.merge_burst_raw_planes(*(tt(x) for x in ins), cfa, scale, **spec, **kw)
+    got = merge_raw_plain(*(tt(x) for x in ins), cfa, scale, **spec, **kw)
     assert len(got) == len(want) == n_out
     for g, w_ in zip(got, want):
         assert g.shape == (2 * scale, 2 * scale, 3, 8, 10)

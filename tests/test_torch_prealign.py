@@ -159,7 +159,7 @@ def test_phase_correlate_matches_jax(refine):
     a = gray[0]
     b = np.stack([np.roll(a, (3, -5), (0, 1)), gray[1]])
     win = fourier.apodization_window(64, 96, 7)
-    got_s, got_p = phase_correlation.phase_correlate(tt(a), tt(b), window=tt(win), refine=refine)
+    got_s, got_p = phase_correlation.phase_correlate_batched(tt(a), tt(b), window=tt(win), refine=refine)
     for i in range(2):
         want_s, want_p = jax.jit(lambda x, y: jpc.phase_correlate(x, y, window=jnp.asarray(win), refine=refine))(
             a, b[i])
@@ -186,7 +186,7 @@ def test_log_polar_maps_and_register_similarity_match_jax():
     _, gray = _gray_burst(64, 128, seed=1)
     size = 128
     for cfg in (RegistrationConfig(), PREALIGN_FAST):
-        got = logpolar.register_similarity(tt(gray[0]), tt(gray[1:]), cfg)
+        got = logpolar.register_similarity_batched(tt(gray[0]), tt(gray[1:]), cfg)
         want = jax.jit(jax.vmap(lambda g: jlogpolar.register_similarity(jnp.asarray(gray[0]), g, to_jax(cfg))))(gray[1:])
         np.testing.assert_allclose(nn(got.rotation), np.asarray(want.rotation), atol=math.pi / (size - 1) / 16)
         np.testing.assert_allclose(nn(got.scale), np.asarray(want.scale), rtol=1e-3)

@@ -166,12 +166,12 @@ def test_raw_slice_noise_gate(raw_burst, monkeypatch):
 
     def recording_stat(gray, residual):
         seen.append((gray, residual))
-        return restore.temporal_noise_stat(gray, residual)
+        return restore.temporal_noise_stat(gray, residual=residual)
 
     monkeypatch.setattr(handheld, "temporal_noise_stat", recording_stat)
     handheld_superres_raw(tt(raw_burst), RAW_SLICE, device="cpu")
     (gray, res), = seen
-    stat = restore.temporal_noise_stat(gray, res)
+    stat = restore.temporal_noise_stat(gray, residual=res)
     want = jrestore.temporal_noise_stat(jnp.asarray(nn(gray)), residual=jnp.asarray(nn(res)))
     np.testing.assert_allclose(float(stat), float(want), rtol=1e-5)
     assert float(stat) < 0.5 * RAW_SLICE.restore_gate_lo

@@ -11,7 +11,13 @@ from torch_parity import nn, tt
 
 from multi_frame_super_resolution_tpu.models import fast_merge as jfm
 from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
-from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import is_bayer, merge_raw, tap_halo, tap_table
+from multi_frame_super_resolution_tpu_torch.kernels.merge_raw import (
+    is_bayer,
+    merge_raw,
+    merge_raw_plain,
+    tap_halo,
+    tap_table,
+)
 from multi_frame_super_resolution_tpu_torch.models import fast_merge
 
 
@@ -65,7 +71,7 @@ def test_wrapper_on_cpu_is_the_plain_version(rng):
     ins = [tt(x) for x in _inputs(rng, 2, 8, 10)]
     cfa = ((0, 1), (1, 2))
     got = merge_raw(*ins, cfa, 2, 1, 1.0, 1.0, 1.5)
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, 1, 1.0, 1.0, 1.5)
+    want = merge_raw_plain(*ins, cfa, 2, 1, 1.0, 1.0, 1.5)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
 
@@ -77,7 +83,7 @@ def test_wrapper_on_cpu_takes_any_pattern(rng):
     cfa = ((0, 1), (1, 1))
     assert not is_bayer(cfa)
     got = merge_raw(*ins, cfa, 2, 1, 1.0, 1.0, 1.5)
-    want = fast_merge.merge_burst_raw_planes(*ins, cfa, 2, 1, 1.0, 1.0, 1.5)
+    want = merge_raw_plain(*ins, cfa, 2, 1, 1.0, 1.0, 1.5)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=0, atol=0)
 

@@ -121,7 +121,7 @@ def test_ssd_surface_windows(rng):
     shifts = rng.integers(-3, 4, (2, 3, 4, 2)).astype(np.int32)
     ref_tiles = tiles.extract_ref_tiles(tt(ref), 16)
     np.testing.assert_array_equal(nn(ref_tiles), nn(jtiles.extract_ref_tiles(jnp.asarray(ref), 16)))
-    windows = tiles.extract_search_windows(tt(alt), 16, 4, tt(shifts))
+    windows = tiles.extract_search_windows_batched(tt(alt), 16, 4, tt(shifts))
     got = tiles.ssd_surface(ref_tiles, windows, 4)
     assert got.shape == (2, 3, 4, 9, 9)
     for i in range(2):
@@ -186,7 +186,7 @@ def test_temporal_noise_stat_and_gain(noise):
     gray, _ = synthetic_burst(rng, 4, 48, 64, 0.0)
     gray = (gray + noise * rng.standard_normal(gray.shape)).astype(np.float32)
     res = (rng.random((3, 48, 64, 2)) * 0.4 - 0.2).astype(np.float32)
-    got = restore.temporal_noise_stat(tt(gray), tt(res))
+    got = restore.temporal_noise_stat(tt(gray), residual=tt(res))
     want = jrestore.temporal_noise_stat(jnp.asarray(gray), residual=jnp.asarray(res))
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     for stat in (float(want), 0.011, 0.017, 0.03):

@@ -86,7 +86,7 @@ def test_default_branch_runs_the_gated_restore(monkeypatch):
 
     def recording_stat(gray, residual):
         seen.append((tuple(gray.shape), tuple(residual.shape)))
-        return stat_fn(gray, residual)
+        return stat_fn(gray, residual=residual)
 
     monkeypatch.setattr(handheld, "temporal_noise_stat", recording_stat)
     burst, _ = synthetic_rgb_burst(np.random.default_rng(0), 4, 64, 128, 2.5)

@@ -92,7 +92,7 @@ def test_windows_match_extract_search_windows(h, w, amp):
     rng = np.random.default_rng(h)
     imgs = rng.random((3, h, w)).astype(np.float32)
     shifts = rng.integers(-amp, amp + 1, (3, -(-h // 16), -(-w // 16), 2)).astype(np.int32)
-    got = nn(tiles.extract_search_windows(tt(imgs), 16, 4, tt(shifts)))
+    got = nn(tiles.extract_search_windows_batched(tt(imgs), 16, 4, tt(shifts)))
     for i in range(3):
         want = nn(jax_extract_search_windows(
             jnp.asarray(imgs[i]), 16, 4, jnp.asarray(shifts[i], jnp.float32)
@@ -107,7 +107,7 @@ def test_windows_match_pallas_tile_gather_on_interior_tiles():
     imgs = rng.random((2, 64, 96)).astype(np.float32)
     shifts = rng.integers(-3, 4, (2, 4, 6, 2)).astype(np.int32)
     want = nn(tile_gather_pallas(jnp.asarray(imgs), jnp.asarray(shifts), 16, 4, interpret=True))
-    got = nn(tiles.extract_search_windows(tt(imgs), 16, 4, tt(shifts)))
+    got = nn(tiles.extract_search_windows_batched(tt(imgs), 16, 4, tt(shifts)))
     assert got.shape == want.shape == (2, 4, 6, 24, 24)
     np.testing.assert_array_equal(got[:, 1:-1, 1:-1], want[:, 1:-1, 1:-1])
 
@@ -124,7 +124,7 @@ def test_plain_windows_are_extract_search_windows():
     """The wrapper on CPU tensors, "tile" mode: the search over
     extract_search_windows at the rounded prediction; no launch."""
     ref, alts, rounded = _search_case()
-    windows = tiles.extract_search_windows(alts, 16, 3, rounded.to(torch.int32))
+    windows = tiles.extract_search_windows_batched(alts, 16, 3, rounded.to(torch.int32))
     ssd = tiles.ssd_surface(tiles.extract_ref_tiles(ref, 16), windows, 3)
     LAUNCHES.clear()
     got = tile_search(ref, alts, rounded, 16, 3, 0.0, True, "tile")

@@ -120,7 +120,7 @@ def tied_minima(ref, alts, rounded, tile_size: int, radius: int) -> np.ndarray:
     tile whose reference tile is edge-padded too. Float32 sums in any two
     orders rank such a tie by rounding, so the argmin there is not the
     function's. Found from float64 direct sums; inputs are numpy."""
-    windows = tiles.extract_search_windows(
+    windows = tiles.extract_search_windows_batched(
         tt(alts).double(), tile_size, radius, tt(rounded).to(torch.int32)
     )
     ref_tiles = tiles.extract_ref_tiles(tt(ref).double(), tile_size)
