@@ -175,7 +175,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      (the native library or numpy), 16-bit gray and 8-bit RGB baseline
      TIFFs written with struct read back exactly on each route, and the
      defog app's inputType 1 on a 16-bit TIFF pair through the defog
-     kernel, against the plain version on the CPU (60 dB).
+     kernel, against the plain version on the CPU (60 dB); then, on the
+     numpy route (reader_files): every committed file of
+     tests/torch_reader_files (JPEG, PNG and TIFF forms) decoded to its
+     MANIFEST.json digest (Pillow's decode) with its host ms per frame;
+     the car burst's committed JPEGs through load_burst into the
+     multi_frame_sr app (pyrlk) and the handheld_sr app (car 2) on the
+     card, with their launches; the defog app on a 1024 x 1224 16-bit
+     Deflate + Predictor 2 TIFF pair, R equal bit for bit to the
+     uncompressed pair's; the dnn_sr app from a JPEG to a .jpg read back
+     through the port; and the JPEG encoder and decoder at 1080p.
    The entry points get CUDA tensors and no device argument: they run on
    cuda:0, their default. Each burst output must lie there, have its
    shape, be finite and in [0, 1], agree (PSNR >= 60 dB) with the same
@@ -1895,16 +1904,25 @@ def in_call_pairs(first, second, reps: int = 3) -> tuple:
     return statistics.median(a), statistics.median(b)
 
 
-def write_tiff(path: str, arr: np.ndarray) -> None:
-    """A baseline little-endian TIFF of ``arr`` (H, W) or (H, W, 3), uint8
-    or uint16: one uncompressed chunky strip (the host has no Pillow)."""
+def write_tiff(path: str, arr: np.ndarray, compression: int = 1, predictor: int = 1) -> None:
+    """A little-endian TIFF of ``arr`` (H, W) or (H, W, 3), uint8 or
+    uint16, in one chunky strip (the host has no Pillow): uncompressed, or
+    deflated (``compression`` 8), with horizontal differencing per sample
+    under ``predictor`` 2."""
     import struct
+    import zlib
 
     h, w = arr.shape[:2]
     c = 1 if arr.ndim == 2 else arr.shape[2]
-    pixels = arr.astype(f"<u{arr.dtype.itemsize}").tobytes()
-    entries = [(256, 4, w), (257, 4, h), (258, 3, 8 * arr.dtype.itemsize), (259, 3, 1), (262, 3, 1 if c == 1 else 2),
-               (273, 4, 8), (277, 3, c), (278, 4, h), (279, 4, len(pixels)), (284, 3, 1)]
+    rows = arr.reshape(h, w, c).astype(np.int64)
+    if predictor == 2:
+        rows = np.concatenate([rows[:, :1], np.diff(rows, axis=1)], 1) % (1 << (8 * arr.dtype.itemsize))
+    pixels = rows.astype(f"<u{arr.dtype.itemsize}").tobytes()
+    if compression == 8:
+        pixels = zlib.compress(pixels)
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 8 * arr.dtype.itemsize), (259, 3, compression),
+               (262, 3, 1 if c == 1 else 2), (273, 4, 8), (277, 3, c), (278, 4, h), (279, 4, len(pixels)),
+               (284, 3, 1)] + ([(317, 3, predictor)] if predictor != 1 else [])
     ifd = struct.pack("<H", len(entries)) + b"".join(
         struct.pack("<HHI", tag, kind, 1) + (struct.pack("<HH", v, 0) if kind == 3 else struct.pack("<I", v))
         for tag, kind, v in entries) + struct.pack("<I", 0)
@@ -2107,7 +2125,164 @@ def multi_device_paths(dev, card, raw_city: torch.Tensor) -> dict:
           f"(limit {PSNR_MIN} dB)")
     if launches["polar_defog inputType 1"].get("defog") != 1 or p < PSNR_MIN:
         raise RuntimeError("the defog app's TIFF input did not run through the defog kernel as expected")
+    launches.update(reader_files(dev, card))
     print(f"multi-device paths and readers: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+READER_FILES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_reader_files")
+
+
+def sample_digest(samples: np.ndarray) -> str:
+    """sha256 of samples (H, W, C) as little-endian bytes in C order (the
+    digests of tests/torch_reader_files/MANIFEST.json)."""
+    import hashlib
+
+    arr = np.asarray(samples)
+    return hashlib.sha256(np.ascontiguousarray(arr.astype(arr.dtype.newbyteorder("<"))).tobytes()).hexdigest()
+
+
+def host_ms(call, reps: int = 3) -> tuple:
+    """(median host ms of ``reps`` calls, the last result)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = call()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times), out
+
+
+def reader_files(dev, card) -> dict:
+    """The numpy readers and writers on the card host, which has no Pillow
+    and no native library: every committed file of tests/torch_reader_files
+    decodes to its manifest digest (Pillow's decode, taken where Pillow
+    is); the car burst's JPEGs through load_burst into the BTV-L1 app
+    (pyrlk) and the handheld app on ``dev``; the defog app on a 16-bit
+    Deflate + Predictor 2 TIFF pair, R bit for bit with the uncompressed
+    pair; the DNN SR app from a JPEG to a .jpg; and the host ms per frame
+    of each decoder, of the encoder and decoder at 1080p and of the
+    defog-size Deflate TIFF. Returns the apps' launches."""
+    from multi_frame_super_resolution_tpu_torch.apps import dnn_sr as dnn_app
+    from multi_frame_super_resolution_tpu_torch.apps import handheld_sr as hh_app
+    from multi_frame_super_resolution_tpu_torch.apps import multi_frame_sr as sr_app
+    from multi_frame_super_resolution_tpu_torch.apps import polar_defog as defog_app
+    from multi_frame_super_resolution_tpu_torch.data import burst_paths, imread, imread_u16, imwrite, jpeg, load_burst
+    from multi_frame_super_resolution_tpu_torch.data import native, png, tiff
+    from multi_frame_super_resolution_tpu_torch.data.synthetic import CITY_HR_SCENE
+    from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+
+    t0 = time.perf_counter()
+    numpy_route = mock.patch.object(native, "_library", lambda: (None, "switched off"))
+    with open(os.path.join(READER_FILES, "MANIFEST.json")) as f:
+        manifest = json.load(f)["files"]
+    decoders = {".jpg": jpeg.decode, ".png": lambda b, n: png.decode(b, n)[0], ".tif": lambda b, n: tiff.decode(b, n)[0]}
+    for name, entry in manifest.items():
+        with open(os.path.join(READER_FILES, name), "rb") as f:
+            blob = f.read()
+        ms, samples = host_ms(lambda: decoders[os.path.splitext(name)[1]](blob, name))
+        if (list(samples.shape) != entry["shape"] or samples.dtype.newbyteorder("=") != np.dtype(entry["dtype"])
+                or sample_digest(samples) != entry["sha256"]):
+            raise RuntimeError(f"reader {name}: {samples.shape} {samples.dtype} does not match the manifest {entry}")
+        print(f"reader {name} ({entry['written_by']}): {tuple(samples.shape)} {entry['dtype']}, sha256 equal to "
+              f"Pillow's decode (the manifest); {ms:.3f} ms host per frame (median of 3)  [{card}]")
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp, numpy_route:
+        # (c) the car burst: the committed JPEGs at the dataset's paths
+        for i, path in enumerate(burst_paths("car", tmp)):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(os.path.join(READER_FILES, f"car/{i + 1}.jpg"), "rb") as src, open(path, "wb") as dst:
+                dst.write(src.read())
+        frames = load_burst("car", tmp)
+        for i, frame in enumerate(frames):
+            samples = jpeg.decode(open(burst_paths("car", tmp)[i], "rb").read())
+            if (sample_digest(samples) != manifest[f"car/{i + 1}.jpg"]["sha256"]
+                    or not np.array_equal(frame, samples.astype(np.float32) * np.float32(1.0 / 255.0))):
+                raise RuntimeError(f"load_burst('car') frame {i} differs from the manifest")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        env = {"MFSR_DATA_DIR": tmp, "MFSR_SR_CYCLES": "4", "MFSR_BENCH_WARMUP": "1", "MFSR_BENCH_ITERS": "2",
+               "MFSR_BENCH_AMORTIZED": "0"}
+        try:
+            with mock.patch.dict(os.environ, env):
+                for label, run, out in (
+                        ("multi_frame_sr pyrlk car 10", lambda: sr_app.main(["pyrlk", "car", "10"]),
+                         "car_pyrlk_sr_result.png"),
+                        ("handheld_sr car 2", lambda: hh_app.main(["car", "2"]), "car_handheld_sr.png")):
+                    LAUNCHES.clear()
+                    if run() != 0:
+                        raise RuntimeError(f"the app {label} failed on the car burst")
+                    torch.cuda.synchronize()
+                    launches[f"app {label}"] = dict(LAUNCHES)
+                    result = imread(out)
+                    if result.shape != (260, 456, 3) or not np.isfinite(result).all():
+                        raise RuntimeError(f"the app {label} wrote {out} of {result.shape}")
+                    print(f"app {label} on the car burst (4 JPEGs of 130 x 228 read on the numpy route, "
+                          f"equal to the manifest) on {dev}: {out} {result.shape}, launches {dict(LAUNCHES)}  "
+                          f"[{card}]")
+        finally:
+            os.chdir(cwd)
+        if not {"merge_fast", "tile_search"} <= set(launches["app handheld_sr car 2"]):
+            raise RuntimeError(f"the handheld app on the car burst did not launch its kernels: {launches}")
+
+        # (d) the defog app's inputType 1 on a Deflate + Predictor 2 pair and
+        # on the same pair uncompressed: R bit for bit
+        rng = np.random.default_rng(8)
+        s = 0.25 + 0.5 * rng.random((DEFOG_H, DEFOG_W))
+        pair = {"ImageWorst_tiff16.tiff": ((s * 0.9 + 0.05) * 65535).astype(np.uint16),
+                "ImageBest_tiff16.tiff": (s * 0.6 * 65535).astype(np.uint16)}
+        rs = {}
+        for form, kw in (("deflate", dict(compression=8, predictor=2)), ("raw", {})):
+            os.makedirs(os.path.join(tmp, form))
+            for name, arr in pair.items():
+                write_tiff(os.path.join(tmp, form, name), arr, **kw)
+            os.chdir(os.path.join(tmp, form))
+            try:
+                LAUNCHES.clear()
+                if defog_app.main(["1", "1", "1.55"]) != 0:
+                    raise RuntimeError(f"the defog app failed on the {form} TIFF pair")
+                torch.cuda.synchronize()
+                launches[f"polar_defog inputType 1 ({form} TIFF)"] = dict(LAUNCHES)
+                rs[form] = np.load("polar_defog_debug.npz")["R"]
+            finally:
+                os.chdir(cwd)
+        path = os.path.join(tmp, "deflate", "ImageWorst_tiff16.tiff")
+        ms_tiff, u16 = host_ms(lambda: imread_u16(path))
+        if not np.array_equal(rs["deflate"], rs["raw"]) or launches["polar_defog inputType 1 (deflate TIFF)"].get(
+                "defog") != 1:
+            raise RuntimeError("the defog app's R from the Deflate + Predictor 2 pair differs from the raw pair's")
+        print(f"app polar_defog 1 1 1.55 on a {DEFOG_H} x {DEFOG_W} 16-bit Deflate + Predictor 2 TIFF pair: R "
+              f"{rs['deflate'].shape} equal bit for bit to the uncompressed pair's, launches "
+              f"{launches['polar_defog inputType 1 (deflate TIFF)']}; imread_u16 of one such file "
+              f"{u16.shape}: {ms_tiff:.3f} ms host per frame (median of 3)  [{card}]")
+
+        # (e) the DNN SR app from a JPEG to a .jpg, read back through the port
+        scene = imread(CITY_HR_SCENE)
+        inp, outp = os.path.join(tmp, "in.jpg"), os.path.join(tmp, "out.jpg")
+        imwrite(inp, scene[::4, ::4])
+        LAUNCHES.clear()
+        if dnn_app.main([os.path.join(CHECKPOINTS, "lapsrn_x2.npz"), "lapsrn", "2", inp, outp]) != 0:
+            raise RuntimeError("the dnn_sr app failed on a JPEG input")
+        launches["app dnn_sr lapsrn 2 (jpg -> jpg)"] = dict(LAUNCHES)
+        with open(outp, "rb") as f:
+            blob = f.read()
+        back = imread(outp)
+        want = (scene.shape[0] // 4 * 2, scene.shape[1] // 4 * 2, 3)
+        if blob[:3] != b"\xff\xd8\xff" or blob[-2:] != b"\xff\xd9" or b"\xff\xc0" not in blob or back.shape != want:
+            raise RuntimeError(f"the dnn_sr app's .jpg output is not a baseline JPEG of {want}: {back.shape}")
+        print(f"app dnn_sr lapsrn 2 {scene[::4, ::4].shape} JPEG -> {outp.rsplit('/', 1)[1]}: SOI, SOF0 and EOI "
+              f"markers, read back {back.shape}, launches {dict(LAUNCHES)} (none of csrc/)  [{card}]")
+
+        # the encoder and decoder at 1080p (the city scene tiled)
+        img = (np.tile(scene, (3, 2, 1))[:1080, :1920] * 255.0 + 0.5).astype(np.uint8)
+        ms_enc, blob = host_ms(lambda: jpeg.encode(img), reps=2)
+        ms_dec, dec = host_ms(lambda: jpeg.decode(blob), reps=2)
+        p = psnr(torch.from_numpy(dec / np.float32(255.0)), torch.from_numpy(img / np.float32(255.0)))
+        if dec.shape != img.shape or p < 30.0:
+            raise RuntimeError(f"the 1080p JPEG round trip: {dec.shape}, {p:.2f} dB")
+        print(f"jpeg 1080 x 1920 (quality 75, 4:2:0, {len(blob)} bytes): encode {ms_enc:.1f} ms, decode "
+              f"{ms_dec:.1f} ms host per frame (median of 2), {p:.2f} dB against the samples  [{card}]")
+    print(f"readers and writers: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -2188,18 +2363,23 @@ def device_busy(call, by_name: bool = False) -> tuple:
     profiler's raw events with the CUDA activity alone. The light form of
     profile_stages' totals for a call of thousands of ops: no CPU op
     records and no event tree, which cost seconds per call. ``by_name``
-    adds the rows by kernel name, (name, count, ms), largest first."""
+    adds the rows by kernel name, (name, count, ms), largest first. The
+    profiler can miss a call's device work (PERF.md §6): a call it sees
+    none of is profiled again, up to 3 times, before this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
+    for _ in range(3):
         torch.cuda.synchronize()
-    rows = [e for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
-    if not rows:
-        raise RuntimeError("the profiler saw no device work")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+        if rows:
+            break
+    else:
+        raise RuntimeError("the profiler saw no device work in 3 tries")
     total = (sum(e.duration_ns() for e in rows) / 1e6, len(rows))
     if not by_name:
         return total

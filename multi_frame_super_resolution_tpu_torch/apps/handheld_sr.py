@@ -5,7 +5,7 @@ flagship pipeline over the bundled bursts:
 
 Runs the end-to-end align + robustness + kernel-regression merge,
 ``HandheldConfig(scale=scale)``, on a named burst (city | car | iso, read
-by ``data.load_burst``: PNG bursts under MFSR_DATA_DIR), reports seconds,
+by ``data.load_burst`` under MFSR_DATA_DIR), reports seconds,
 FPS and MP/s with the warmup-then-measure protocol (``utils.timing.
 measure``; MFSR_BENCH_WARMUP and MFSR_BENCH_ITERS, 2 and 10 by default)
 and the amortized per-call time (``measure_amortized``, MFSR_BENCH_K and

@@ -5,7 +5,7 @@ reference app's surface and protocol (multi_frame_sr.cpp:122-210):
 
   * optFlowName: farneback | tvl1 | brox | pyrlk
   * inputName:   city | car | iso (read by data.load_burst: the data root
-    is MFSR_DATA_DIR, else the reference checkout; PNG bursts only)
+    is MFSR_DATA_DIR, else the reference checkout; car's frames are JPEG)
   * iterations:  BTV-L1 iterations (default 10)
 
 With no arguments: farneback city 10. Runs ``MFSR_SR_CYCLES`` cycles (10

@@ -6,9 +6,10 @@ DATASETS, burst_paths and load_burst; multi_frame_sr.cpp:151-163):
   * iso:  4 frames ``iso/%06d.png`` (440 x 300)
 
 read from a data root: ``data_dir``, else the ``MFSR_DATA_DIR``
-environment variable at call time, else the reference checkout. The
-car burst's JPEGs load through the native reader (data/native.py); without
-it they raise ValueError. ``synthetic_burst`` and ``mosaic_rggb`` (of
+environment variable at call time, else the reference checkout. Every
+frame loads through the native reader (data/native.py) where it is built,
+else through numpy (data/io.py), the car burst's JPEGs too.
+``synthetic_burst`` and ``mosaic_rggb`` (of
 data/synthetic.py) are re-exported here, where the JAX package defines
 them.
 """
@@ -58,15 +59,13 @@ def load_burst(name: str, data_dir: Optional[str] = None) -> np.ndarray:
 
 
 def write_burst(name: str, burst: np.ndarray, data_dir: str) -> List[str]:
-    """Write ``burst`` (F, H, W[, 3]) in [0, 1] as 8-bit PNGs at the paths
+    """Write ``burst`` (F, H, W[, 3]) in [0, 1] as 8-bit frames at the paths
     ``load_burst(name, data_dir)`` reads (directories made as needed), so
-    that a synthetic burst stands in for a missing reference burst. The
-    car burst's paths are JPEG files, which the port cannot write (nor
-    read without the native reader): it raises ValueError."""
+    that a synthetic burst stands in for a missing reference burst: PNG
+    for city and iso, JPEG (imwrite's, Pillow's defaults) for car."""
     paths = burst_paths(name, data_dir)
-    if len(burst) != len(paths) or any(not p.endswith(".png") for p in paths):
-        raise ValueError(f"the {name} burst is {len(paths)} files {DATASETS[name][0]!r}; write_burst writes "
-                         f"{len(paths)} PNG frames only")
+    if len(burst) != len(paths):
+        raise ValueError(f"the {name} burst is {len(paths)} files {DATASETS[name][0]!r}; got {len(burst)} frames")
     for path, frame in zip(paths, burst):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         imwrite(path, frame)

@@ -165,7 +165,7 @@ def test_port_never_imports_jax():
     """In a fresh interpreter: every module of the port (the parallel
     layer and the native reader's binding among them), chip_smoke.py and
     the modules its main() imports load neither jax nor any module of
-    the JAX package."""
+    the JAX package, nor Pillow (PIL), which the GPU host lacks."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import multi_frame_super_resolution_tpu_torch as port\n"
@@ -176,6 +176,7 @@ def test_port_never_imports_jax():
         "       or m == 'multi_frame_super_resolution_tpu'\n"
         "       or m.startswith('multi_frame_super_resolution_tpu.')]\n"
         "assert not bad, bad\n"
+        "assert 'PIL' not in sys.modules and not any(m.startswith('PIL.') for m in sys.modules)\n"
         "assert 'multi_frame_super_resolution_tpu_torch.apps.polar_defog' in sys.modules\n"
         "assert {'multi_frame_super_resolution_tpu_torch.parallel.' + m for m in ('mesh', 'runner', 'spatial')} <= set(sys.modules)\n"
         "assert 'multi_frame_super_resolution_tpu_torch.data.native' in sys.modules\n"

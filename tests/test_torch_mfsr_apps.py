@@ -17,8 +17,7 @@ from multi_frame_super_resolution_tpu.data import native as jax_native
 from multi_frame_super_resolution_tpu_torch import data
 from multi_frame_super_resolution_tpu_torch.apps import multi_frame_sr as app
 from multi_frame_super_resolution_tpu_torch.apps import runall
-from multi_frame_super_resolution_tpu_torch.data import io as png_io
-from multi_frame_super_resolution_tpu_torch.data import native
+from multi_frame_super_resolution_tpu_torch.data import native, png
 
 _RAMP = np.linspace(0.0, 1.0, 37)[None, :] * np.linspace(0.2, 1.0, 29)[:, None]
 # Pillow mode -> an array it writes as PNG: 8-bit gray, 16-bit gray,
@@ -72,29 +71,36 @@ def test_imwrite_imread_round_trip_is_exact(tmp_path, shape):
 
 
 def test_imread_raises_on_jpeg_and_interlaced_png(tmp_path, monkeypatch):
-    """Without the native reader (switched off here; where it is built it
-    decodes JPEG and palette PNGs: tests/test_torch_readers.py) the numpy
-    PNG reader refuses what it does not decode, by name."""
+    """Without the native reader (switched off here) the numpy readers
+    decode JPEG, interlaced and palette PNGs to Pillow's samples
+    (tests/test_torch_reader_formats.py holds every form), and refuse
+    what they do not decode by name: an arithmetic-coded JPEG, and an
+    interlaced PNG whose image data is missing."""
     monkeypatch.setattr(native, "_library", lambda: (None, "switched off by the test"))
     Image.fromarray(PNG_KINDS["RGB"]).save(tmp_path / "x.jpg")
-    with pytest.raises(ValueError, match="JPEG"):
-        data.imread(tmp_path / "x.jpg")
-    # an Adam7-interlaced header (Pillow writes none): the reader stops at it
+    np.testing.assert_array_equal(data.imread(tmp_path / "x.jpg"), _expected(np.asarray(Image.open(tmp_path / "x.jpg"))))
+    blob = (tmp_path / "x.jpg").read_bytes()
+    at = blob.index(b"\xff\xc0")
+    (tmp_path / "a.jpg").write_bytes(blob[:at] + b"\xff\xc9" + blob[at + 2 :])  # SOF0 -> SOF9 (arithmetic)
+    with pytest.raises(ValueError, match="JPEG SOF9"):
+        data.imread(tmp_path / "a.jpg")
+    # an Adam7-interlaced header (Pillow writes none) with no image data
     header = struct.pack(">IIBBBBB", 37, 29, 8, 2, 0, 0, 1)
-    (tmp_path / "x.png").write_bytes(b"\x89PNG\r\n\x1a\n" + png_io._chunk(b"IHDR", header)
-                                     + png_io._chunk(b"IDAT", zlib.compress(b"")) + png_io._chunk(b"IEND", b""))
-    with pytest.raises(ValueError, match="interlaced"):
+    (tmp_path / "x.png").write_bytes(b"\x89PNG\r\n\x1a\n" + png.chunk(b"IHDR", header)
+                                     + png.chunk(b"IDAT", zlib.compress(b"")) + png.chunk(b"IEND", b""))
+    with pytest.raises(ValueError, match="PNG image data holds 0 bytes"):
         data.imread(tmp_path / "x.png")
     Image.fromarray(PNG_KINDS["L"]).convert("P").save(tmp_path / "p.png")
-    with pytest.raises(ValueError, match="palette"):
-        data.imread(tmp_path / "p.png")
+    np.testing.assert_array_equal(data.imread(tmp_path / "p.png"),
+                                  _expected(np.asarray(Image.open(tmp_path / "p.png").convert("RGB"))))
 
 
 def test_load_burst_reads_mfsr_data_dir(tmp_path, monkeypatch):
     """PNG bursts written at the reference paths under MFSR_DATA_DIR (read
     at call time) load as the JAX load_burst loads them; the car burst's
-    JPEGs load through the native reader where it is built (as in the JAX
-    package) and raise ValueError without it."""
+    JPEGs, which write_burst writes as imwrite does, load through the
+    native reader where it is built (as in the JAX package) and through
+    numpy without it, to Pillow's samples either way."""
     monkeypatch.setenv("MFSR_DATA_DIR", str(tmp_path))
     city = data.synthetic_rgb_burst(np.random.default_rng(0), 5, 24, 40, 2.0)[0]
     iso = data.synthetic_rgb_burst(np.random.default_rng(1), 4, 30, 44, 2.0)[0]
@@ -104,16 +110,15 @@ def test_load_burst_reads_mfsr_data_dir(tmp_path, monkeypatch):
         assert got.shape == burst.shape and got.dtype == np.float32
         np.testing.assert_array_equal(got, (np.clip(burst, 0, 1) * 255 + 0.5).astype(np.uint8) * np.float32(1 / 255))
         np.testing.assert_allclose(got, jax_load_burst(name, str(tmp_path)), rtol=2e-7, atol=0)
-    with pytest.raises(ValueError, match="PNG"):
-        data.write_burst("car", iso, str(tmp_path))
-    for path in map(pathlib.Path, data.burst_paths("car")):
-        path.parent.mkdir(parents=True, exist_ok=True)
-        Image.fromarray((iso[0] * 255).astype(np.uint8)).save(path)
+    assert data.write_burst("car", iso, str(tmp_path)) == data.burst_paths("car")
+    pillow = np.stack([np.asarray(Image.open(p)) for p in data.burst_paths("car")]) * np.float32(1 / 255)
     if native.available():
         np.testing.assert_array_equal(data.load_burst("car"), jax_load_burst("car", str(tmp_path)))
+        np.testing.assert_array_equal(data.load_burst("car"), pillow)
     monkeypatch.setattr(native, "_library", lambda: (None, "switched off by the test"))
-    with pytest.raises(ValueError, match="JPEG"):
-        data.load_burst("car")
+    np.testing.assert_array_equal(data.load_burst("car"), pillow)
+    with pytest.raises(ValueError, match="got 3 frames"):
+        data.write_burst("car", iso[:3], str(tmp_path))
     with pytest.raises(ValueError, match="unknown dataset"):
         data.load_burst("nope")
 

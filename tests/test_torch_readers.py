@@ -13,6 +13,7 @@ float32) always.
 
 import os
 import struct
+import zlib
 
 import jax
 import numpy as np
@@ -55,39 +56,85 @@ def _write(path, arr):
         Image.fromarray(arr).save(path)
 
 
-def write_tiff(path, arr, order="<", rows_per_strip=None, planar=1, compression=1):
-    """A baseline TIFF of ``arr`` (H, W[, C]), uint8 or uint16, written
-    with struct in byte order ``order``: one IFD, strips of
-    ``rows_per_strip`` rows (all rows by default), the given
-    PlanarConfiguration and Compression tags (the samples are written
-    chunky and raw whatever they say)."""
+def packbits(data: bytes) -> bytes:
+    """PackBits (TIFF Compression 32773): runs of 3 to 128 equal bytes as
+    repeat packets, the rest as literal packets of up to 128 bytes."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i + 1), data[i]])
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def write_tiff(path, arr, order="<", rows_per_strip=None, planar=1, compression=1, predictor=1, strip=None,
+               extra=()):
+    """A TIFF of ``arr`` (H, W[, C]), uint8 or uint16, written with struct
+    in byte order ``order``: one IFD, strips of ``rows_per_strip`` rows
+    (all rows by default), chunky (``planar`` 1) or each plane's strips in
+    turn (2; 3 writes chunky data under that tag), horizontal differencing
+    per sample with ``predictor`` 2, each strip deflated (``compression``
+    8 or 32946) or PackBits-coded (32773). Another compression value is
+    written under its tag with the strips raw, or as ``strip(raw)`` makes
+    them (``strip`` applies after any compression). ``extra`` holds more
+    (tag, value) entries, SHORT, that replace or join the written ones."""
     arr = np.asarray(arr)
     h, w = arr.shape[:2]
     c = 1 if arr.ndim == 2 else arr.shape[2]
     bits = 8 * arr.dtype.itemsize
     rps = rows_per_strip or h
-    pixels = arr.astype(f"{order}u{arr.dtype.itemsize}").tobytes()
-    row_bytes = w * c * arr.dtype.itemsize
-    starts = list(range(0, h, rps))
-    offsets = [8 + y * row_bytes for y in starts]
-    counts = [min(rps, h - y) * row_bytes for y in starts]
-    arrays_at = 8 + len(pixels)  # StripOffsets, then StripByteCounts
-    ifd_at = arrays_at + 8 * len(starts)
+    kind = np.dtype(f"{order}u{arr.dtype.itemsize}")
+    planes = [arr.reshape(h, w, c)] if planar != 2 else [arr.reshape(h, w, c)[..., i : i + 1] for i in range(c)]
+    strips = []
+    for plane in planes:
+        for y in range(0, h, rps):
+            rows = plane[y : y + rps].astype(np.int64)
+            if predictor == 2:  # each sample minus the one to its left, mod 2^bits
+                rows = np.concatenate([rows[:, :1], np.diff(rows, axis=1)], 1) % (1 << bits)
+            raw = rows.astype(kind).tobytes()
+            if compression in (8, 32946):
+                raw = zlib.compress(raw)
+            elif compression == 32773:
+                raw = packbits(raw)
+            if strip is not None:
+                raw = strip(raw)
+            strips.append(raw)
+    offsets, at = [], 8
+    for raw in strips:
+        offsets.append(at)
+        at += len(raw)
+    counts = [len(raw) for raw in strips]
+    arrays_at = at  # StripOffsets, then StripByteCounts
+    ifd_at = arrays_at + 8 * len(strips)
     entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 1, bits), (259, 3, 1, compression),
-               (262, 3, 1, 1 if c == 1 else 2), (273, 4, len(starts), offsets), (277, 3, 1, c),
-               (278, 4, 1, rps), (279, 4, len(starts), counts), (284, 3, 1, planar)]
+               (262, 3, 1, 1 if c == 1 else 2), (273, 4, len(strips), offsets), (277, 3, 1, c),
+               (278, 4, 1, rps), (279, 4, len(strips), counts), (284, 3, 1, planar)]
+    if predictor != 1:
+        entries.append((317, 3, 1, predictor))
+    for tag, value in extra:
+        entries = [e for e in entries if e[0] != tag] + [(tag, 3, 1, value)]
+    entries.sort()
     ifd = struct.pack(order + "H", len(entries))
-    for tag, kind, count, value in entries:
+    for tag, kind_, count, value in entries:
         if count == 1:
             value = value[0] if isinstance(value, list) else value
-            field = struct.pack(order + ("HH" if kind == 3 else "I"), *((value, 0) if kind == 3 else (value,)))
+            field = struct.pack(order + ("HH" if kind_ == 3 else "I"), *((value, 0) if kind_ == 3 else (value,)))
         else:
-            field = struct.pack(order + "I", arrays_at if tag == 273 else arrays_at + 4 * len(starts))
-        ifd += struct.pack(order + "HHI", tag, kind, count) + field
+            field = struct.pack(order + "I", arrays_at if tag == 273 else arrays_at + 4 * len(strips))
+        ifd += struct.pack(order + "HHI", tag, kind_, count) + field
     with open(path, "wb") as f:
         f.write((b"II" if order == "<" else b"MM") + struct.pack(order + "HI", 42, ifd_at))
-        f.write(pixels + struct.pack(f"{order}{len(starts)}I", *offsets)
-                + struct.pack(f"{order}{len(starts)}I", *counts))
+        f.write(b"".join(strips) + struct.pack(f"{order}{len(strips)}I", *offsets)
+                + struct.pack(f"{order}{len(strips)}I", *counts))
         f.write(ifd + struct.pack(order + "I", 0))
 
 
@@ -189,19 +236,25 @@ def test_struct_written_tiff_strips(tmp_path, route, order, shape, dtype, rows_p
 
 
 @pytest.mark.parametrize("reader", ["imread", "imread_u16", "imread_gray"])
-@pytest.mark.parametrize("kind,tag", [("tiff_lzw", "Compression (tag 259)"), ("tiff_deflate", "Compression (tag 259)"),
-                                      ("planar", "PlanarConfiguration (tag 284)")])
+@pytest.mark.parametrize("kind,tag", [("old_lzw", "Compression (tag 259) 5"), ("tiff_jpeg", "Compression (tag 259) 7"),
+                                      ("palette_deflate", "PhotometricInterpretation (tag 262) 3")])
 def test_tiff_the_port_cannot_read_raises_by_tag(tmp_path, reader, kind, tag):
-    """Compressed and planar TIFFs: the C++ reader refuses them too, so on
-    either route the numpy reader raises ValueError naming the tag (the
-    JAX package reads them with Pillow; README, port limits)."""
+    """TIFFs the C++ reader refuses and the numpy reader does not decode
+    either (LZW, Deflate, PackBits and planar TIFFs it does:
+    tests/test_torch_reader_formats.py): old-style (TIFF 5) LZW,
+    JPEG-in-TIFF and a palette image: on either route the reader raises
+    ValueError naming the tag and its value (the JAX package reads the
+    last two with Pillow; README, port limits)."""
     arr = FILES["rgb8.tif"]
     path = tmp_path / "x.tiff"
-    if kind == "planar":
-        write_tiff(path, arr, planar=2)
-    else:
-        Image.fromarray(arr).save(path, compression=kind)
+    if kind == "old_lzw":  # a clear code, LSB first, opens the strip
+        write_tiff(path, arr, compression=5, strip=lambda raw: b"\x00\x01" + raw)
+    elif kind == "tiff_jpeg":
+        Image.fromarray(arr).save(path, compression="jpeg")
         assert jax_imread_u16(path).shape == arr.shape
+    else:
+        Image.fromarray(arr).convert("P").save(path, compression="tiff_adobe_deflate")
+        assert jax_imread_u16(path).shape == arr.shape[:2]
     with pytest.raises(ValueError, match=tag.replace("(", r"\(").replace(")", r"\)")):
         getattr(data, reader)(path)
 
