@@ -160,7 +160,8 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      dnn_sr app (train, 5 steps, then inference on a PNG with that
      checkpoint and a bundled one).
    - the multi-device layer (parallel/) on one card, every mesh 4
-     positions on cuda:0 (2 for the train step): make_batched_pipeline at
+     positions on cuda:0 (2 for the data-parallel train step and split
+     inference): make_batched_pipeline at
      RAW_BENCH on B = 4 and 8 city bursts, scan and vmap, each output
      equal to its single call bit for bit; handheld_superres_raw_sharded
      at RAW_BENCH and handheld_superres_sharded at RGB_DEFAULT_NOPRE on a
@@ -168,10 +169,15 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      rows, the interior (2 halo output rows trimmed) above 40 dB against
      the unsharded run; spatial_map of gaussian_blur at halo 2 within
      1e-5 of the unsharded blur; the data-parallel ESPCN train step on 2
-     positions against the one-device step over 3 steps (losses within
-     1e-6 relative, gradients GRAD_RTOL, parameters by the card test's
-     Adam rule, ADAM_DECIDED); each timed in in-call pairs against its
-     single-device form, with device ops. And the readers: which served
+     positions and the split train step of each DNN SR family on
+     ('data', 'model') (2, 2) positions (the constrained activations'
+     channels split over 'model') against the one-device step over 3
+     steps (losses within 1e-6 relative, gradients GRAD_RTOL, parameters
+     by the card test's Adam rule, ADAM_DECIDED); split inference of the
+     four bundled checkpoints at 1080 x 1920 -> 2160 x 3840 on (1, 2)
+     positions within 1e-5 max abs of the unsplit call; each timed in
+     in-call pairs against its single-device or unsplit form, with device
+     ops. And the readers: which served
      (the native library or numpy), 16-bit gray and 8-bit RGB baseline
      TIFFs written with struct read back exactly on each route, and the
      defog app's inputType 1 on a 16-bit TIFF pair through the defog
@@ -1867,7 +1873,7 @@ MESH_POSITIONS = 4  # every mesh of the multi-device phase: positions on cuda:0 
 SHARD_H, SHARD_W = 1024, 1536  # the row-sharded bursts: 4 shards of 256 rows
 INTERIOR_DB = 40.0  # tests/test_parallel.py's interior limit, sharded against unsharded
 BLUR_TOL = 1e-5  # tests/test_parallel.py::test_spatial_map_blur_parity's
-TRAIN_RTOL = 1e-6  # the data-parallel train step against the one-device step
+TRAIN_RTOL = 1e-6  # the data-parallel and split train steps against the one-device step
 # Adam (eps 1e-8) moves a parameter by lr m / (sqrt(v) + eps): a gradient
 # at float32 rounding level (zero in one summation order, not in another)
 # moves it by rounding's share of a step, and moments that nearly
@@ -1879,13 +1885,16 @@ TRAIN_RTOL = 1e-6  # the data-parallel train step against the one-device step
 # more: two float32 summation orders of ~1e4 terms part by up to ~eps
 # sqrt(n) ~ 6e-6 of the largest, so GRAD_RTOL.
 ADAM_DECIDED, PARAM_ATOL, GRAD_RTOL = 1e-4, 1e-5, 1e-5
+OUT_TOL = 1e-5  # tests/test_torch_dnn_sr.py's: max abs of DNN SR outputs in [0, 1]
 
 
 def event_ms(call) -> float:
-    """ms of one call between CUDA events (the call's host time included
-    where it outlasts its device work)."""
+    """ms of one call between CUDA events on the current card, every card
+    idle at the start (the call's host time included where it outlasts its
+    device work)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
     start.record()
     call()
     end.record()
@@ -1902,6 +1911,108 @@ def in_call_pairs(first, second, reps: int = 3) -> tuple:
         for call, times in order:
             times.append(event_ms(call))
     return statistics.median(a), statistics.median(b)
+
+
+def train_on_mesh(algo: str, mesh, label: str, data: list, card: str) -> dict:
+    """``algo``'s x2 train step on ``mesh`` against the one-device step from
+    the same parameters over ``data``'s 3 batches (losses TRAIN_RTOL,
+    gradients GRAD_RTOL, parameters by ADAM_DECIDED's rule), then both
+    timed in in-call pairs of 10 steps, with device ops and ms of one step
+    each. Raises on a disagreement; returns the mesh step's launches of
+    csrc/ kernels (none expected)."""
+    from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+    from multi_frame_super_resolution_tpu_torch.models import dnn_sr
+
+    models, steps = [], []
+    for m in (None, mesh):
+        model = dnn_sr.create_sr_model(algo, 2)
+        state, opt = dnn_sr.init_state(model, torch.Generator().manual_seed(0), data[0][0][:1])
+        models.append(model)
+        steps.append((state, dnn_sr.make_train_step(model, opt, mesh=m)))
+    worst = dict(loss=0.0, grad=0.0, param=0.0, param_rel=0.0, undecided=0.0)
+    LAUNCHES.clear()
+    for lr_b, hr_b in data:
+        (s1, one), (s2, on_mesh) = steps
+        want, got = float(one(s1, lr_b, hr_b)[1]), float(on_mesh(s2, lr_b, hr_b)[1])
+        worst["loss"] = max(worst["loss"], abs(got / want - 1.0))
+        with torch.no_grad():
+            for p, q in zip(models[1].parameters(), models[0].parameters()):
+                worst["grad"] = max(worst["grad"], ((p.grad - q.grad).abs().max() / q.grad.abs().max()).item())
+                diff, decided = (p - q).abs(), q.grad.abs() >= ADAM_DECIDED
+                if decided.any():
+                    worst["param"] = max(worst["param"], diff[decided].max().item())
+                    worst["param_rel"] = max(worst["param_rel"], (diff[decided].max() / q.abs().max()).item())
+                if not decided.all():
+                    worst["undecided"] = max(worst["undecided"], diff[~decided].max().item())
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    ten = [lambda st=st, step=step: [step(st, *data[i % 3]) for i in range(10)] for st, step in steps]
+    ms_one, ms_mesh = (ms / 10 for ms in in_call_pairs(*ten))
+    (dev_one, ops_one), (dev_mesh, ops_mesh) = (device_busy(lambda st=st, step=step: step(st, *data[0]))
+                                                 for st, step in steps)
+    lr = 1e-3  # init_state's Adam learning rate
+    print(f"train dnn_sr {algo} {label} (batch 8, LR 32 x 32), 3 steps against the "
+          f"one-device step: losses within {worst['loss']:.2e} relative (limit {TRAIN_RTOL}), gradients within "
+          f"{worst['grad']:.2e} of the largest (limit {GRAD_RTOL}); parameters within {worst['param']:.2e} "
+          f"({worst['param_rel']:.2e} of the tensor's largest) where the one-device gradient is at least "
+          f"{ADAM_DECIDED} (limit {PARAM_ATOL}), {worst['undecided']:.2e} elsewhere (limit 2 lr = {2 * lr}); "
+          f"launches {launches}; {ms_mesh:.4f} ms per step against {ms_one:.4f} one-device (in-call pairs of 10 "
+          f"steps, CUDA events, medians of 3); device ops {ops_mesh} against {ops_one}, device ms {dev_mesh:.4f} "
+          f"against {dev_one:.4f} per step  [{card}]")
+    if (worst["loss"] > TRAIN_RTOL or worst["grad"] > GRAD_RTOL or worst["param"] > PARAM_ATOL
+            or worst["undecided"] > 2 * lr):
+        raise RuntimeError(f"the {label} train step of {algo} differs from the one-device step: {worst}")
+    return launches
+
+
+def split_inference(devices: list, card) -> dict:
+    """Each bundled x2 checkpoint through dnn_sr(mesh=) on ('data', 'model')
+    (1, m) positions on ``devices`` at 1080 x 1920 -> 2160 x 3840 (a
+    seeded synthetic scene) against the unsplit call on the first device
+    within OUT_TOL max abs; ms per image in in-call pairs against the
+    unsplit call, device ops and ms, the first device's peak memory of
+    each. Returns each split call's launches of csrc/ kernels (none
+    expected)."""
+    from multi_frame_super_resolution_tpu_torch.data import synthetic_rgb_burst
+    from multi_frame_super_resolution_tpu_torch.kernels import LAUNCHES
+    from multi_frame_super_resolution_tpu_torch.models import dnn_sr
+    from multi_frame_super_resolution_tpu_torch.parallel import make_mesh
+
+    dev, m = devices[0], len(devices)
+    mesh = make_mesh(("data", "model"), (1, m), devices)
+    where = f"(1, {m}) positions on {', '.join(str(d) for d in devices)}"
+    x = torch.from_numpy(synthetic_rgb_burst(np.random.default_rng(0), 1, 1080, 1920, 0.0)[0][0]).to(dev)
+    launches = {}
+    for algo in dnn_sr.SR_ALGORITHMS:
+        model = bundled_model(algo).to(dev)
+        LAUNCHES.clear()
+        got = dnn_sr.dnn_sr(model, x, mesh=mesh)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        key = f"split dnn_sr {algo} (1, {m})"
+        launches[key] = dict(LAUNCHES)
+        want = dnn_sr.dnn_sr(model, x)
+        check_output(f"split dnn_sr {algo}", got, (2160, 3840, 3))
+        err = (got - want).abs().max().item()
+        del got, want
+        calls = (lambda: dnn_sr.dnn_sr(model, x, mesh=mesh), lambda: dnn_sr.dnn_sr(model, x))
+        peak = []
+        for call in calls:
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            peak.append(torch.cuda.max_memory_allocated() / 2**20)
+        ms_split, ms_one = in_call_pairs(*calls)
+        (dev_split, ops_split), (dev_one, ops_one) = (device_busy(call) for call in calls)
+        print(f"split dnn_sr {algo} on ('data', 'model') {where}: 1080 x 1920 -> 2160 x 3840, "
+              f"max abs {err:.3e} against the unsplit call (limit {OUT_TOL}); launches "
+              f"{launches[key]}; {ms_split:.4f} ms per image against {ms_one:.4f} unsplit "
+              f"(in-call pairs, CUDA events, medians of 3); device ops {ops_split} against {ops_one}, device ms "
+              f"{dev_split:.4f} against {dev_one:.4f}; peak memory {peak[0]:.1f} MiB against {peak[1]:.1f} MiB  "
+              f"[{card}]")
+        if err > OUT_TOL:
+            raise RuntimeError(f"split dnn_sr {algo} differs from the unsplit call by {err}")
+    return launches
 
 
 def write_tiff(path: str, arr: np.ndarray, compression: int = 1, predictor: int = 1) -> None:
@@ -1932,7 +2043,8 @@ def write_tiff(path: str, arr: np.ndarray, compression: int = 1, predictor: int 
 
 def multi_device_paths(dev, card, raw_city: torch.Tensor) -> dict:
     """The multi-device layer (parallel/) and the readers on one card,
-    every mesh MESH_POSITIONS positions on ``dev`` (2 for the train step):
+    every mesh MESH_POSITIONS positions on ``dev`` (2 for the data-parallel
+    train step and split inference):
     what the layer costs where it has no device to gain. Each path is
     driven with the launch counts at 0 just before and read just after.
     Returns each path's launches."""
@@ -2041,41 +2153,17 @@ def multi_device_paths(dev, card, raw_city: torch.Tensor) -> dict:
     if err > BLUR_TOL:
         raise RuntimeError(f"spatial_map blur differs from the unsharded blur by {err}")
 
-    # the data-parallel ESPCN train step (the app's batch 8, LR 32 x 32)
+    # the data-parallel ESPCN train step and the split train step of each
+    # family (the app's batch 8, LR 32 x 32), then split inference at 1080p
     data = [tuple(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(dev) for x in pair)
             for pair in dnn_app.train_data(2, batches=3)]
-    mesh2 = make_mesh(("data",), (2,), [dev] * 2)
-    models, steps = [], []
-    for m in (None, mesh2):
-        model = dnn_sr.create_sr_model("espcn", 2)
-        state, opt = dnn_sr.init_state(model, torch.Generator().manual_seed(0), data[0][0][:1])
-        models.append(model)
-        steps.append((state, dnn_sr.make_train_step(model, opt, mesh=m)))
-    worst = dict(loss=0.0, grad=0.0, param=0.0, param_rel=0.0, undecided=0.0)
-    for lr_b, hr_b in data:
-        (s1, one), (s2, dp) = steps
-        want, got = float(one(s1, lr_b, hr_b)[1]), float(dp(s2, lr_b, hr_b)[1])
-        worst["loss"] = max(worst["loss"], abs(got / want - 1.0))
-        with torch.no_grad():
-            for p, q in zip(models[1].parameters(), models[0].parameters()):
-                worst["grad"] = max(worst["grad"], ((p.grad - q.grad).abs().max() / q.grad.abs().max()).item())
-                diff, decided = (p - q).abs(), q.grad.abs() >= ADAM_DECIDED
-                if decided.any():
-                    worst["param"] = max(worst["param"], diff[decided].max().item())
-                    worst["param_rel"] = max(worst["param_rel"], (diff[decided].max() / q.abs().max()).item())
-                if not decided.all():
-                    worst["undecided"] = max(worst["undecided"], diff[~decided].max().item())
-    ms_one, ms_dp = (event_ms(lambda: [step(st, *data[i % 3]) for i in range(20)]) / 20 for st, step in steps)
-    lr = 1e-3  # init_state's Adam learning rate
-    print(f"train dnn_sr espcn data-parallel on 2 positions of {dev} (batch 8, LR 32 x 32), 3 steps against the "
-          f"one-device step: losses within {worst['loss']:.2e} relative (limit {TRAIN_RTOL}), gradients within "
-          f"{worst['grad']:.2e} of the largest (limit {GRAD_RTOL}); parameters within {worst['param']:.2e} "
-          f"({worst['param_rel']:.2e} of the tensor's largest) where the one-device gradient is at least "
-          f"{ADAM_DECIDED} (limit {PARAM_ATOL}), {worst['undecided']:.2e} elsewhere (limit 2 lr = {2 * lr}); "
-          f"{ms_dp:.4f} ms per step against {ms_one:.4f} one-device (CUDA events, 20 steps)  [{card}]")
-    if (worst["loss"] > TRAIN_RTOL or worst["grad"] > GRAD_RTOL or worst["param"] > PARAM_ATOL
-            or worst["undecided"] > 2 * lr):
-        raise RuntimeError(f"the data-parallel train step differs from the one-device step: {worst}")
+    train_on_mesh("espcn", make_mesh(("data",), (2,), [dev] * 2), f"data-parallel on 2 positions of {dev}", data,
+                  card)
+    split = make_mesh(("data", "model"), (2, 2), [dev] * 4)
+    for algo in dnn_sr.SR_ALGORITHMS:
+        launches[f"split train {algo} (2, 2)"] = train_on_mesh(
+            algo, split, f"split on ('data', 'model') (2, 2) positions of {dev}", data, card)
+    launches.update(split_inference([dev] * 2, card))
 
     # the readers: which one served, baseline TIFFs read back, the defog
     # app's inputType 1 on a 16-bit pair

@@ -35,8 +35,10 @@ inference and the train step) with its app, the ``handheld_sr`` and
 ``getimg`` apps, and ``utils`` (metrics, timing, profiling, debug); the
 multi-device layer ``parallel`` (a mesh of ``torch.device``s in one
 process: batched bursts, row-sharded handheld SR with halo exchange, and
-the data-parallel DNN SR train step, ``models.dnn_sr.make_train_step(...,
-mesh=)``); and the readers ``data.imread_gray`` and ``data.imread_u16``
+DNN SR's train step and inference with the batch on 'data' and the
+constrained activations' channels on 'model',
+``models.dnn_sr.make_train_step(..., mesh=)`` and ``dnn_sr(..., mesh=)``);
+and the readers ``data.imread_gray`` and ``data.imread_u16``
 (with a numpy baseline TIFF reader), the native C++ loader's binding
 ``data.native`` and the defog app's TIFF inputTypes 1 and 2.
 """

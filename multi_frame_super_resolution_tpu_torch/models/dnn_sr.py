@@ -8,6 +8,11 @@ the reference's cv::dnn_superres surface (main.cpp:569-591).
   * ``dnn_sr(model, img)``: inference on (H, W, C) in [0, 1]
   * ``init_state`` / ``make_train_step``: Adam on the mean squared error
 
+Both entry points take a ``mesh`` (parallel/mesh.py): the batch splits
+over its 'data' axis and, where its 'model' axis has m > 1 positions,
+the conv channels that JAX constrains to ('data', -, -, 'model') split
+over that axis (``_shard_channels``).
+
 Each module keeps its convolutions in ``convs``, in the order flax
 numbers them (``Conv_<i>`` is ``convs[i]``), and computes what the flax
 module computes: the same pixel-shuffle channel order, (s, s, C), and
@@ -19,15 +24,17 @@ them in XLA (no Pallas kernel), and TF32 would compute another function.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import copy
 import dataclasses
 import math
 import re
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from multi_frame_super_resolution_tpu_torch import resolve_device
 from multi_frame_super_resolution_tpu_torch.ops.geometry import resize
@@ -48,13 +55,61 @@ def _conv(c_in: int, c_out: int, k: int) -> nn.Conv2d:
     return nn.Conv2d(c_in, c_out, k, padding=k // 2)
 
 
-def _shard_channels(x: torch.Tensor) -> torch.Tensor:
-    """The identity: JAX's ``_shard_channels`` (dnn_sr.py:58-63) constrains
-    activations to ('data', -, -, 'model'), which places the channels on
-    the mesh's 'model' axis and changes no value. In the port the 'model'
-    axis's positions hold replicas (``make_train_step``); placing the
-    channels waits for a host with more than one card."""
-    return x
+_ROW: contextvars.ContextVar = contextvars.ContextVar("dnn_sr_model_row", default=None)
+
+
+def _shard_channels(model: nn.Module, k: int, x: torch.Tensor) -> torch.Tensor:
+    """relu(model.convs[k](x)), its channels on the mesh's 'model' axis: JAX's
+    ``_shard_channels`` (dnn_sr.py:58-64) constrains that ReLU's output to
+    ('data', -, -, 'model'), so its producer computes only its position's
+    block of channels. Inside ``_row_forward`` on m > 1 positions, ``x``
+    goes to each position's device, position j computes block j (XLA's
+    ceil(C / m) channels, the last ones short or empty) with that device's
+    replica, and the blocks are gathered in order on the first position,
+    where the next conv reads every channel in the unsplit order.
+    Elsewhere, as JAX's constraint does without a 'model' axis, unsplit."""
+    row = _ROW.get()
+    if row is None:
+        return torch.relu(model.convs[k](x))
+    devices, replicas = row
+    # every copy of x first: a copy between cards waits for the work queued
+    # before it on the source card, so copying inside the loop would hold
+    # each position back until the previous position's conv is done
+    inputs = {device: x.to(device) for device in devices}
+    channels = model.convs[k].out_channels
+    size = -(-channels // len(devices))
+    blocks = []
+    for j, device in enumerate(devices):
+        lo, hi = min(j * size, channels), min((j + 1) * size, channels)
+        if lo < hi:  # an empty block computes nothing
+            conv = replicas[device].convs[k]
+            block = F.conv2d(inputs[device], conv.weight[lo:hi], conv.bias[lo:hi], conv.stride, conv.padding)
+            blocks.append(torch.relu(block).to(devices[0]))
+    return torch.cat(blocks, 1)
+
+
+def _row_forward(replicas: Dict[torch.device, nn.Module], devices: List[torch.device],
+                 x: torch.Tensor) -> torch.Tensor:
+    """The model on one data shard ``x`` (on ``devices[0]``) over its row
+    of 'model' positions ``devices``: the sites' convolutions by blocks
+    over the row, everything else on the first position's replica; with
+    one position, that replica's forward."""
+    if len(devices) == 1:
+        return replicas[devices[0]](x)
+    token = _ROW.set((devices, replicas))
+    try:
+        return replicas[devices[0]](x)
+    finally:
+        _ROW.reset(token)
+
+
+def _replicas(model: nn.Module, mesh) -> Dict[torch.device, nn.Module]:
+    """``model`` on its own device and a copy on each other device of ``mesh``."""
+    replicas = {next(model.parameters()).device: model}
+    for device in mesh.devices.flat:
+        if device not in replicas:
+            replicas[device] = copy.deepcopy(model).to(device)
+    return replicas
 
 
 def pixel_shuffle(h: torch.Tensor, scale: int, channels: int) -> torch.Tensor:
@@ -88,8 +143,8 @@ class ESPCN(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _shard_channels(torch.relu(self.convs[0](x)))
-        h = _shard_channels(torch.relu(self.convs[1](h)))
+        h = _shard_channels(self, 0, x)
+        h = _shard_channels(self, 1, h)
         return pixel_shuffle(self.convs[2](h), self.scale, self.channels)
 
 
@@ -109,10 +164,10 @@ class FSRCNN(nn.Module):
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _shard_channels(torch.relu(self.convs[0](x)))
+        h = _shard_channels(self, 0, x)
         for conv in self.convs[1:-2]:
             h = torch.relu(conv(h))
-        h = _shard_channels(torch.relu(self.convs[-2](h)))
+        h = _shard_channels(self, len(self.convs) - 2, h)
         return pixel_shuffle(self.convs[-1](h), self.scale, self.channels)
 
 
@@ -137,8 +192,8 @@ class LapSRN(nn.Module):
         feat = torch.relu(self.convs[0](x))
         at = 1
         for _ in range(self.stages):
-            for conv in self.convs[at : at + self.depth]:
-                feat = torch.relu(conv(feat))
+            for k in range(at, at + self.depth):
+                feat = _shard_channels(self, k, feat)
             feat = pixel_shuffle(self.convs[at + self.depth](feat), 2, self.features)
             residual = self.convs[at + self.depth + 1](feat)
             img = upsample_bilinear(img, 2) + residual
@@ -163,7 +218,7 @@ class EDSR(nn.Module):
         head = self.convs[0](x)
         h = head
         for b in range(self.blocks):
-            r = torch.relu(self.convs[1 + 2 * b](h))
+            r = _shard_channels(self, 1 + 2 * b, h)
             r = self.convs[2 + 2 * b](r)
             h = h + 0.1 * r
         h = self.convs[-2](h) + head
@@ -303,15 +358,19 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, mesh=None):
     in float32 with TF32 off. The gradients come from autograd. The state
     returned is ``state``, whose tensors the step updated in place.
 
-    With a ``mesh`` (parallel/mesh.py), the data-parallel step that JAX's
-    jit over inputs sharded on 'data' computes: the batch splits over the
-    'data' positions (a batch that does not divide raises ValueError),
-    each position's replica takes its shard's squared-error sum over the
-    whole batch's element count, and the gradients summed onto ``model``
-    (the replica on its own device) are the full batch's mean's. Adam
-    steps there and the parameters are copied to the replicas on the
-    mesh's other devices; positions that share a device, and the 'model'
-    axis's positions, share that device's replica."""
+    With a ``mesh`` (parallel/mesh.py), the step that JAX's jit over
+    inputs sharded on 'data' computes, with the activations constrained to
+    ('data', -, -, 'model'): the batch splits over the 'data' positions (a
+    batch that does not divide raises ValueError), and each shard's
+    forward spans its row of 'model' positions (``_row_forward``: where
+    the 'model' axis has m > 1 positions, each site's conv by channel
+    blocks over the row). Each data shard's loss is its squared-error sum
+    over the whole batch's element count; autograd puts the gradients in
+    each device's replica (a site conv's in disjoint blocks), and their
+    sum onto ``model`` (the replica on its own device) is the full
+    batch's mean's. Adam steps there and the parameters are copied to the
+    replicas on the mesh's other devices, so they stay replicated;
+    positions that share a device share that device's replica."""
     if mesh is None:
         def train_step(state: TrainState, lr_batch: torch.Tensor, hr_batch: torch.Tensor):
             with float32_convs():
@@ -323,15 +382,12 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, mesh=None):
 
         return train_step
 
-    from multi_frame_super_resolution_tpu_torch.parallel.mesh import Sharding
+    from multi_frame_super_resolution_tpu_torch.parallel.mesh import Sharding, model_rows
 
     home = next(model.parameters()).device
     sharding = Sharding(mesh, "data")
-    positions = sharding.devices()
-    replicas = {home: model}
-    for device in mesh.devices.flat:
-        if device not in replicas:
-            replicas[device] = copy.deepcopy(model).to(device)
+    rows = model_rows(mesh)
+    replicas = _replicas(model, mesh)
     others = [replica for replica in replicas.values() if replica is not model]
 
     def train_step(state: TrainState, lr_batch: torch.Tensor, hr_batch: torch.Tensor):
@@ -340,8 +396,8 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, mesh=None):
                 replica.zero_grad(set_to_none=True)
             count = hr_batch.numel()
             losses = []
-            for lr_shard, hr_shard, device in zip(sharding.shard(lr_batch), sharding.shard(hr_batch), positions):
-                loss = torch.sum((replicas[device](lr_shard) - hr_shard) ** 2) / count
+            for lr_shard, hr_shard, row in zip(sharding.shard(lr_batch), sharding.shard(hr_batch), rows):
+                loss = torch.sum((_row_forward(replicas, row, lr_shard) - hr_shard) ** 2) / count
                 loss.backward()
                 losses.append(loss.detach().to(home))
             with torch.no_grad():
@@ -359,14 +415,35 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, mesh=None):
     return train_step
 
 
-def dnn_sr(model: nn.Module, img: torch.Tensor, device=None) -> torch.Tensor:
+def dnn_sr(model: nn.Module, img: torch.Tensor, device=None, mesh=None) -> torch.Tensor:
     """Single-image SR inference on ``img`` (H, W, C) in [0, 1] -> the
     clipped (sH, sW, C). Runs on cuda:0 unless ``device`` names another
     device (``resolve_device``: without a card it raises unless the CPU is
-    asked for); the model is moved there."""
-    dev = resolve_device(device, "dnn_sr", 'device="cpu"')
-    model.to(dev)
-    x = img.to(dev, torch.float32).permute(2, 0, 1)[None]
+    asked for); the model is moved there.
+
+    With a ``mesh`` instead of a ``device`` (its 'data' axis of 1, e.g.
+    ``make_mesh(("data", "model"), (1, m), devices)``): JAX's ``dnn_sr``
+    under ``jax.set_mesh``. The model moves to the mesh's first device,
+    with a copy on each of its other devices, and the image's forward
+    spans the 'model' positions as the train step's shards do; the output
+    lies on the first device."""
+    if mesh is None:
+        dev = resolve_device(device, "dnn_sr", 'device="cpu"')
+        model.to(dev)
+        x = img.to(dev, torch.float32).permute(2, 0, 1)[None]
+        with torch.no_grad(), float32_convs():
+            out = model(x)
+        return out[0].permute(1, 2, 0).clamp(0.0, 1.0)
+
+    from multi_frame_super_resolution_tpu_torch.parallel.mesh import model_rows
+
+    if device is not None:
+        raise ValueError("dnn_sr takes a device or a mesh, not both")
+    rows = model_rows(mesh)
+    if len(rows) != 1:
+        raise ValueError(f"dnn_sr's one image does not split over a 'data' axis of {len(rows)}")
+    model.to(rows[0][0])
+    x = img.to(rows[0][0], torch.float32).permute(2, 0, 1)[None]
     with torch.no_grad(), float32_convs():
-        out = model(x)
+        out = _row_forward(_replicas(model, mesh), rows[0], x)
     return out[0].permute(1, 2, 0).clamp(0.0, 1.0)

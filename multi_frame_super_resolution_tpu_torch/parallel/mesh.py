@@ -12,9 +12,10 @@ host), so every path runs, and is checked, with one device. Its uses:
     (models/dnn_sr.py::make_train_step);
   * spatial parallelism: frame rows split over the 'spatial' axis with
     halo exchange (parallel/spatial.py);
-  * the 'model' axis, whose positions hold replicas (the JAX package
-    places conv channels there, a sharding constraint that changes no
-    value; the port computes the same function).
+  * tensor parallelism: DNN SR's conv channels on the 'model' axis
+    (models/dnn_sr.py: each of a data shard's 'model' positions computes
+    a block of a constrained activation's channels, ``model_rows``), as
+    the JAX package's sharding constraint places them.
 
 A sharded array is the list of its shards in the order of its axis's
 positions, each on its position's device; ``gather`` concatenates them
@@ -132,6 +133,24 @@ class Sharding:
             raise ValueError(f"dimension {self.dim} of {tuple(x.shape)} does not split into "
                              f"{len(devices)} equal shards over mesh axis {self.axis!r}")
         return [block.to(d) for block, d in zip(x.chunk(len(devices), self.dim), devices)]
+
+
+def model_rows(mesh: Mesh) -> List[List[torch.device]]:
+    """For each 'data' position in order, the devices of its row along
+    'model' (every other axis at its first position): one row when the
+    mesh has no 'data' axis, rows of one device when it has no 'model'
+    axis."""
+    names = mesh.axis_names
+
+    def at(i: int, j: int) -> torch.device:
+        index = [0] * mesh.devices.ndim
+        for axis, k in (("data", i), ("model", j)):
+            if axis in names:
+                index[names.index(axis)] = k
+        return mesh.devices[tuple(index)]
+
+    shape = mesh.shape
+    return [[at(i, j) for j in range(shape.get("model", 1))] for i in range(shape.get("data", 1))]
 
 
 def burst_batch_sharding(mesh: Mesh) -> Sharding:
